@@ -9,14 +9,21 @@ Phases (each one's failure makes the script exit non-zero):
    parallel);
 3. each kernel against its plain PyTorch version at the serving path's
    shapes for llama3-8b, with its time, the plain version's, one library
-   call's as a yardstick, and its bound;
-4. model level at full llama3-8b width and depth (int8 weights, random
-   from a seed): one 512-token prefill and 8 decode steps on the kernel
-   path and on the plain path, logits and greedy tokens compared;
-5. serve: the port's LLMEngine behind its OpenAI-compatible HTTP server,
-   a few concurrent requests (chat streaming and not, completions, one
-   prompt longer than ``prefill_chunk``), with every kernel's launch count
-   read before and after.
+   call's as a yardstick, and its bound: int8_matmul and int8_w8a8_matmul
+   at the four projections and the lm_head, paged_attention over bf16,
+   int8 and int4 pools, flash_attention_causal;
+4. model level at full llama3-8b width and depth (int8 packs, random from
+   a seed), for each serving recipe (int8 weights + bf16 KV, w8a8 + int8
+   KV, int8 weights + int4 KV): one 512-token prefill and 8 decode steps
+   on the kernel path and on the plain path, logits and greedy tokens
+   compared;
+5. serve: three engines at full llama3-8b width and depth, built one
+   after another: A (int8 weights, bf16 KV) and B (w8a8, int8 KV) behind
+   the OpenAI-compatible HTTP server with a few concurrent requests (chat
+   streaming and not, completions, one prompt longer than
+   ``prefill_chunk``), then 8 concurrent ``generate_ids`` on each of A, B
+   and C (int8 weights, int4 KV). Every kernel's launch count is set to 0
+   just before each engine serves and read just after.
 
 It then prints one JSON line of per-kernel results and, last, the device
 line. It imports nothing of JAX.
@@ -24,6 +31,7 @@ line. It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -41,21 +49,26 @@ from generativeaiexamples_tpu_torch.ops import page_attention as pa
 from generativeaiexamples_tpu_torch.utils import hardware
 
 MODEL = "llama3-8b"
-REPLACES = {
-    "int8_matmul": "generativeaiexamples_tpu/ops/int8_matmul.py:73",
-    "paged_attention": "generativeaiexamples_tpu/ops/page_attention.py:88",
-    "flash_attention_causal": "generativeaiexamples_tpu/ops/flash_attention.py:36",
+_PAGED = "generativeaiexamples_tpu/ops/page_attention.py:88"
+# kernel entry -> (the TPU kernel it replaces, its source in the repo)
+KERNELS = {
+    "int8_matmul": ("generativeaiexamples_tpu/ops/int8_matmul.py:73",
+                    "generativeaiexamples_tpu_torch/csrc/int8_matmul.cu"),
+    "paged_attention[bfloat16]": (_PAGED, "generativeaiexamples_tpu_torch/csrc/page_attention.cu"),
+    "paged_attention[int8]": (_PAGED, "generativeaiexamples_tpu_torch/csrc/page_attention.cu"),
+    "paged_attention[int4]": (_PAGED, "generativeaiexamples_tpu_torch/csrc/page_attention.cu"),
+    "flash_attention_causal": ("generativeaiexamples_tpu/ops/flash_attention.py:36",
+                               "generativeaiexamples_tpu_torch/csrc/flash_attention.cu"),
+    "int8_w8a8_matmul": ("generativeaiexamples_tpu/ops/int8_matmul.py:179",
+                         "generativeaiexamples_tpu_torch/csrc/int8_w8a8_matmul.cu"),
 }
-SOURCES = {
-    "int8_matmul": "generativeaiexamples_tpu_torch/csrc/int8_matmul.cu",
-    "paged_attention": "generativeaiexamples_tpu_torch/csrc/page_attention.cu",
-    "flash_attention_causal": "generativeaiexamples_tpu_torch/csrc/flash_attention.cu",
-}
-WRAPPERS = {
-    "int8_matmul": im.int8_matmul,
-    "paged_attention": pa.paged_attention,
-    "flash_attention_causal": fa.flash_attention_causal,
-}
+_COUNTED = (im.int8_matmul, im.int8_w8a8_matmul, fa.flash_attention_causal)
+# the serving recipes: (name, quantization, kv_cache_dtype, kernels its path must launch)
+RECIPES = (
+    ("A", "int8", "bfloat16", ("int8_matmul", "paged_attention[bfloat16]", "flash_attention_causal")),
+    ("B", "w8a8", "int8", ("int8_w8a8_matmul", "paged_attention[int8]", "flash_attention_causal")),
+    ("C", "int8", "int4", ("int8_matmul", "paged_attention[int4]", "flash_attention_causal")),
+)
 
 
 def log(msg: str) -> None:
@@ -63,12 +76,17 @@ def log(msg: str) -> None:
 
 
 def reset_counts() -> None:
-    for fn in WRAPPERS.values():
+    for fn in _COUNTED:
         fn.launches = 0
+    for kv in pa.paged_attention.launches:
+        pa.paged_attention.launches[kv] = 0
 
 
 def counts() -> dict:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    out = {fn.__name__: fn.launches for fn in _COUNTED}
+    for kv, n in pa.paged_attention.launches.items():
+        out[f"paged_attention[{kv}]"] = n
+    return out
 
 
 class Timer:
@@ -208,42 +226,125 @@ def _ragged_case(gen, dev, B, Pmax, page, Hkv, Dh):
 
 
 def check_paged(timer, dev, gen, results) -> None:
-    from generativeaiexamples_tpu_torch.models.llama import PRESETS
+    """paged_attention over the same ragged rows for each pool: bf16 rows,
+    and the same rows quantized to int8 and int4 with their scales."""
+    from generativeaiexamples_tpu_torch.models.llama import (
+        PRESETS, quantize_kv, quantize_kv_int4, unpack_int4,
+    )
 
     cfg = PRESETS[MODEL]
     B, page, Pmax = 8, 128, 8192 // 128
     Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     k, v, tables, pos, positions = _ragged_case(gen, dev, B, Pmax, page, Hkv, Dh)
     q = torch.randn((B, 1, Hq, Dh), generator=gen, device=dev).to(torch.bfloat16)
-    out = pa.paged_attention(q, k, v, tables, pos)
-    ref = pa.paged_attention_plain(q, k, v, tables, pos)
-    torch.cuda.synchronize()
-    err = _max_err(out, ref)
-    tol = 1e-2  # outputs are convex mixes of N(0, 1) rows; bf16 rounding of |out| < 1 is < 4e-3
-    if not bool(torch.isfinite(out.float()).all()):
-        raise AssertionError("paged_attention returned non-finite values (dead row?)")
-    k_ms = timer.ms(lambda: pa.paged_attention(q, k, v, tables, pos))
-    p_ms = timer.ms(lambda: pa.paged_attention_plain(q, k, v, tables, pos), iters=5)
-    # yardstick: SDPA over the rows' pre-gathered windows with a length mask
     S = Pmax * page
-    gk = k[tables.long()].reshape(B, S, Hkv, Dh).transpose(1, 2).contiguous()
-    gv = v[tables.long()].reshape(B, S, Hkv, Dh).transpose(1, 2).contiguous()
     mask = (torch.arange(S, device=dev)[None, :] <= pos.long()[:, None])[:, None, None, :]
     qt = q.transpose(1, 2)
-    l_ms = timer.ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, gk, gv, attn_mask=mask, enable_gqa=True))
-    nbytes, flops = hardware.paged_attention_cost([[p] for p in positions], Hq, Hkv, Dh, Pmax)
-    b_ms, b_by = hardware.bound_ms(nbytes, flops)
-    ok = err <= tol
-    log(f"  paged_attention B={B} positions={positions}: max|err|={err:.4g} tol={tol} "
-        f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
-        f"bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("paged_attention disagrees with its plain version")
-    results["paged_attention"] = {
-        "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": l_ms,
-        "shape": "B=8 decode rows over ragged tables, Hq=32 Hkv=8 Dh=128 page=128",
+    for kv_dtype in pa.KV_DTYPES:
+        codec = {"int8": quantize_kv, "int4": quantize_kv_int4}.get(kv_dtype)
+        if codec is None:
+            pool, scales, dense = (k, v), (None, None), (k, v)
+        else:
+            (kq, ks), (vq, vs) = codec(k), codec(v)
+            pool, scales = (kq, vq), (ks, vs)
+            ints = [unpack_int4(t) if t.dtype == torch.uint8 else t for t in pool]
+            dense = tuple((i.float() * sc[..., None]).to(torch.bfloat16) for i, sc in zip(ints, scales))
+        args = (q, *pool, tables, pos, *scales)
+        out = pa.paged_attention(*args)
+        ref = pa.paged_attention_plain(*args)
+        torch.cuda.synchronize()
+        err = _max_err(out, ref)
+        tol = 1e-2  # outputs are convex mixes of N(0, 1) rows; bf16 rounding of |out| < 1 is < 4e-3
+        if not bool(torch.isfinite(out.float()).all()):
+            raise AssertionError(f"paged_attention[{kv_dtype}] returned non-finite values (dead row?)")
+        k_ms = timer.ms(lambda: pa.paged_attention(*args))
+        p_ms = timer.ms(lambda: pa.paged_attention_plain(*args), iters=5)
+        # yardstick: SDPA over the rows' pre-gathered (dequantized) bf16
+        # windows with a length mask
+        gk, gv = (t[tables.long()].reshape(B, S, Hkv, Dh).transpose(1, 2).contiguous() for t in dense)
+        l_ms = timer.ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, gk, gv, attn_mask=mask, enable_gqa=True))
+        del gk, gv
+        nbytes, flops = hardware.paged_attention_cost(
+            [[p] for p in positions], Hq, Hkv, Dh, Pmax,
+            kv_bytes=hardware.kv_bytes_per_element(kv_dtype), scale_bytes=0 if codec is None else 4,
+        )
+        b_ms, b_by = hardware.bound_ms(nbytes, flops)
+        ok = err <= tol
+        log(f"  paged_attention[{kv_dtype}] B={B} positions={positions}: max|err|={err:.4g} "
+            f"tol={tol} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"paged_attention[{kv_dtype}] disagrees with its plain version")
+        results[f"paged_attention[{kv_dtype}]"] = {
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": l_ms,
+            "shape": f"B=8 decode rows over ragged tables, Hq=32 Hkv=8 Dh=128 page=128, {kv_dtype} pool",
+        }
+
+
+def check_w8a8(timer, dev, gen, results) -> None:
+    """int8_w8a8_matmul at the four fused projections and the lm_head, M = 1
+    and 8: bitwise against its plain version (both sums exact)."""
+    from generativeaiexamples_tpu_torch.models.llama import PRESETS
+
+    cfg = PRESETS[MODEL]
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    shapes = {
+        "wqkv": (h, cfg.q_dim + 2 * cfg.kv_dim),
+        "wo": (cfg.q_dim, h),
+        "w_gateup": (h, 2 * f),
+        "w_down": (f, h),
+        "lm_head": (h, cfg.vocab_size),
+    }
+    agg = {"ms": 0.0, "glue_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
+           "flops": 0, "err": 0.0}
+    for M in (1, 8):
+        for name, (K, F) in shapes.items():
+            K_pad = -(-K // im.K_ALIGN) * im.K_ALIGN
+            F_pad = -(-F // im.F_BLK) * im.F_BLK
+            q = torch.zeros((K_pad, F_pad), dtype=torch.int8, device=dev)
+            q[:K, :F].random_(-127, 128, generator=gen)
+            scale = torch.rand((1, F), generator=gen, device=dev) * 2e-4 + 1e-4
+            x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+            y = im.int8_w8a8_matmul(x, q, scale)
+            ref = im.int8_w8a8_matmul_plain(x, q, scale)
+            torch.cuda.synchronize()
+            err = _max_err(y, ref)
+            ok = torch.equal(y, ref)  # exact int32 sums and one epilogue on both sides
+            k_ms = timer.ms(lambda: im.int8_w8a8_matmul(x, q, scale))
+            p_ms = timer.ms(lambda: im.int8_w8a8_matmul_plain(x, q, scale), iters=5)
+            # yardstick: cuBLAS int8 x int8 -> int32 on the quantized rows,
+            # padded to _int_mm's least M (17)
+            xq = torch.zeros((max(17, M), K_pad), dtype=torch.int8, device=dev)
+            xq[:M, :K] = im.quantize_rows(x)[0]
+            l_ms = timer.ms(lambda: torch._int_mm(xq, q))
+            # the wrapper's plain-op glue inside kernel_ms: quantize_rows and
+            # the padded copy of the int8 rows
+            g_ms = timer.ms(lambda: torch.zeros((M, K_pad), dtype=torch.int8, device=dev)[:, :K]
+                            .copy_(im.quantize_rows(x)[0]))
+            nbytes, ops = hardware.w8a8_matmul_cost(M, K, F)
+            b_ms, b_by = hardware.bound_ms(nbytes, ops, int8=True)
+            log(f"  int8_w8a8_matmul {name:8s} M={M} K={K} F={F}: bitwise={ok} max|err|={err:.4g} "
+                f"kernel_ms={k_ms:.4f} (quantize_rows+pad {g_ms:.4f}) plain_ms={p_ms:.4f} "
+                f"library_ms={l_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"int8_w8a8_matmul {name} M={M} differs from its plain version")
+            agg["err"] = max(agg["err"], err)
+            if M == 8 and name != "lm_head":  # one decoder layer's projections at B=8
+                agg["ms"] += k_ms
+                agg["glue_ms"] += g_ms
+                agg["plain_ms"] += p_ms
+                agg["library_ms"] += l_ms
+                agg["bytes"] += nbytes
+                agg["flops"] += ops
+            del q, xq
+    b_ms, b_by = hardware.bound_ms(agg["bytes"], agg["flops"], int8=True)
+    results["int8_w8a8_matmul"] = {
+        "max_abs_err": agg["err"], "ms": agg["ms"], "plain_ms": agg["plain_ms"],
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": agg["library_ms"],
+        "shape": "one layer's wqkv+wo+w_gateup+w_down at M=8",
+        "quantize_rows_ms": agg["glue_ms"],  # of "ms": the wrapper's plain quantize + pad
     }
 
 
@@ -290,6 +391,7 @@ def phase_kernels(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     results: dict = {}
     check_int8(timer, dev, gen, results)
+    check_w8a8(timer, dev, gen, results)
     check_paged(timer, dev, gen, results)
     check_flash(timer, dev, gen, results)
     del timer
@@ -307,6 +409,11 @@ def phase_kernels(dev) -> dict:
 # differently (the einsum reference rounds probabilities to bf16 before
 # P.V, the kernels keep them in f32; split-K and tiled sums change f32
 # order), a few bf16 ulps per layer on O(1) activations and logits.
+# Under w8a8 the per-token int8 activations turn such a difference into a
+# whole quantization step (1/127 of a row's absmax) wherever a rounding
+# flips, so recipe B drifts most (0.35 against A's 0.10 on the H100); the
+# greedy tokens must still agree wherever the top-2 margin exceeds the
+# tolerance.
 LOGITS_TOL = 0.5
 
 
@@ -320,6 +427,7 @@ def phase_model(dev) -> None:
     lengths = [512, 300]
     B, T = len(lengths), 512
     gen = torch.Generator(device=dev).manual_seed(1)
+    # one set of int8 packs serves every recipe (w8a8 runs on the same packs)
     params = quant.init_packed_params_int8(cfg, seed=0, dtype=torch.bfloat16, device=dev)
     tokens = torch.randint(0, 512, (B, T), generator=gen, device=dev)
     lengths_d = torch.tensor(lengths, device=dev)
@@ -327,11 +435,13 @@ def phase_model(dev) -> None:
     tables = (1 + torch.arange(B * per_row, device=dev, dtype=torch.int32)).reshape(B, per_row)
     live = torch.ones(B, dtype=torch.bool, device=dev)
 
-    def run(kernels: bool, forced=None):
-        qk = None if kernels else False
-        pool = llama.init_kv_pool(cfg, 1 + B * per_row, page, torch.bfloat16, dev)
+    def run(quant_kernel, kv_dtype, kernels: bool, forced=None):
+        pool = llama.init_kv_pool(
+            cfg, 1 + B * per_row, page, torch.bfloat16, dev,
+            quantized=kv_dtype != "bfloat16", packed=kv_dtype == "int4",
+        )
         logits, kvs = llama.prefill_layers(
-            params, cfg, tokens, lengths_d, use_flash=kernels, quant_kernel=qk
+            params, cfg, tokens, lengths_d, use_flash=kernels, quant_kernel=quant_kernel
         )
         llama.write_prefill_pages(pool, kvs, tables, page)
         del kvs
@@ -343,30 +453,36 @@ def phase_model(dev) -> None:
             toks.append(nxt)
             logits, _ = llama.decode_layers_paged(
                 params, cfg, nxt, pos, live, tables, pool, window=per_row * page,
-                page_size=page, quant_kernel=qk, page_kernel=kernels,
+                page_size=page, quant_kernel=quant_kernel, page_kernel=kernels,
             )
             out.append(logits)
             pos = pos + 1
         torch.cuda.synchronize()
         return torch.stack(out), toks
 
-    with torch.inference_mode():
-        k_logits, k_toks = run(True)
-        p_logits, _ = run(False, forced=k_toks)  # same inputs at every step
-    if not bool(torch.isfinite(k_logits).all()):
-        raise AssertionError("kernel path produced non-finite logits")
-    diff = float((k_logits - p_logits).abs().max())
-    top2 = torch.topk(p_logits, 2, dim=-1).values
-    margin = top2[..., 0] - top2[..., 1]
-    agree = torch.argmax(k_logits, -1) == torch.argmax(p_logits, -1)
-    decided = margin > LOGITS_TOL
-    bad = int((decided & ~agree).sum())
-    log(f"  model {MODEL} (L={cfg.num_layers}, hidden {cfg.hidden_size}, vocab {cfg.vocab_size}), "
-        f"int8 weights: prefill B={B} T={T} + {steps} decode steps: max|dlogits|={diff:.4g} "
-        f"tol={LOGITS_TOL} greedy agree {int(agree.sum())}/{agree.numel()} "
-        f"(disagreements where margin > tol: {bad}) logits shape {tuple(k_logits.shape)}")
-    if diff > LOGITS_TOL or bad:
-        raise AssertionError("kernel path and plain path disagree at model level")
+    for name, quantization, kv_dtype, _ in RECIPES:
+        t1 = time.time()
+        # quant_kernel values of the kernel path and of the plain path
+        qk_kernel, qk_plain = ("w8a8", "w8a8_plain") if quantization == "w8a8" else (None, False)
+        with torch.inference_mode():
+            k_logits, k_toks = run(qk_kernel, kv_dtype, True)
+            p_logits, _ = run(qk_plain, kv_dtype, False, forced=k_toks)  # same inputs at every step
+        if not bool(torch.isfinite(k_logits).all()):
+            raise AssertionError(f"recipe {name}: kernel path produced non-finite logits")
+        diff = float((k_logits - p_logits).abs().max())
+        top2 = torch.topk(p_logits, 2, dim=-1).values
+        margin = top2[..., 0] - top2[..., 1]
+        agree = torch.argmax(k_logits, -1) == torch.argmax(p_logits, -1)
+        decided = margin > LOGITS_TOL
+        bad = int((decided & ~agree).sum())
+        log(f"  model {MODEL} (L={cfg.num_layers}, hidden {cfg.hidden_size}, vocab {cfg.vocab_size}), "
+            f"recipe {name} ({quantization} weights, {kv_dtype} KV): prefill B={B} T={T} + {steps} "
+            f"decode steps: max|dlogits|={diff:.4g} tol={LOGITS_TOL} greedy agree "
+            f"{int(agree.sum())}/{agree.numel()} (disagreements where margin > tol: {bad}) "
+            f"logits shape {tuple(k_logits.shape)} ({time.time() - t1:.1f} s)")
+        if diff > LOGITS_TOL or bad:
+            raise AssertionError(f"recipe {name}: kernel path and plain path disagree at model level")
+        del k_logits, p_logits
     del params
     torch.cuda.empty_cache()
     log(f"phase model: ok ({time.time() - t0:.1f} s)")
@@ -387,16 +503,19 @@ def _post(base, path, body, timeout=600):
 
 def device_step_ms(engine) -> list:
     """Device times (sorted, ms) of five decode steps of the serving model at
-    B=8 (kernel path, 160-token contexts), CUDA events around each step with a ~0.1 s
-    spin kernel queued ahead, so the host has enqueued the whole step
-    before the device starts it: no launch gaps are timed. (torch.profiler
-    does not see every launch of the ctypes-loaded kernels, so it is not
-    used.)"""
+    B=8 (kernel path, the engine's pool and quantization, 160-token
+    contexts), CUDA events around each step with a ~0.5 s spin kernel
+    queued ahead and Python's collector off, so the host has enqueued the
+    whole step before the device starts it: no launch gaps are timed. (torch.profiler does not
+    see every launch of the ctypes-loaded kernels, so it is not used.)"""
     from generativeaiexamples_tpu_torch.models import llama
 
     cfg, dev, page = engine.model_config, engine.device, engine.engine_config.page_size
     B, per_row = engine.num_slots, 2
-    pool = llama.init_kv_pool(cfg, 1 + B * per_row, page, torch.bfloat16, dev)
+    pool = llama.init_kv_pool(
+        cfg, 1 + B * per_row, page, torch.bfloat16, dev,
+        quantized=engine._kv_quant, packed=engine._kv_packed,
+    )
     tables = (1 + torch.arange(B * per_row, device=dev, dtype=torch.int32)).reshape(B, per_row)
     tokens = torch.arange(B, device=dev) * 31 % 250
     positions = torch.full((B,), 160, device=dev)
@@ -405,92 +524,106 @@ def device_step_ms(engine) -> list:
     def step():
         logits, _ = llama.decode_layers_paged(
             engine.params, cfg, tokens, positions, live, tables, pool,
-            window=per_row * page, page_size=page, page_kernel=True,
+            window=per_row * page, page_size=page, quant_kernel=engine._quant_kernel,
+            page_kernel=True,
         )
         torch.argmax(logits, dim=-1)
 
     times = []
-    with torch.inference_mode():
-        step()
-        for _ in range(5):
-            torch.cuda._sleep(200_000_000)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
+    gc.disable()  # a collection mid-enqueue would outlast the spin and be timed
+    try:
+        with torch.inference_mode():
             step()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
+            for _ in range(5):
+                torch.cuda._sleep(1_000_000_000)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                step()
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+    finally:
+        gc.enable()
     return sorted(times)
 
 
-def phase_serve(dev) -> dict:
+def _http_requests(engine, base) -> None:
+    """Four concurrent requests over HTTP; every one must answer 200 with
+    the OpenAI wire shape."""
+    errors, results = [], {}
+
+    def call(name, path, body):
+        try:
+            results[name] = _post(base, path, body)
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(f"{name}: {exc!r}")
+
+    long_text = "Context: " + ("the quick brown fox jumps over the lazy dog. " * 16)
+    requests = {
+        "chat_stream": ("/v1/chat/completions", {
+            "messages": [{"role": "user", "content": "Say hello."}],
+            "stream": True, "max_tokens": 32, "temperature": 0.7, "seed": 7}),
+        "chat": ("/v1/chat/completions", {
+            "messages": [{"role": "user", "content": "What is a GPU?"}],
+            "max_tokens": 32, "temperature": 0}),
+        "completions": ("/v1/completions", {
+            "prompt": "Once upon a time", "max_tokens": 32, "temperature": 0}),
+        "chat_long": ("/v1/chat/completions", {
+            "messages": [{"role": "user", "content": long_text + "Summarize."}],
+            "max_tokens": 24, "temperature": 0}),
+    }
+    threads = [
+        threading.Thread(target=call, args=(n, p, b), name=f"smoke-{n}", daemon=True)
+        for n, (p, b) in requests.items()
+    ]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    if errors:
+        raise AssertionError("; ".join(errors))
+    for name, (status, text) in results.items():
+        if status != 200:
+            raise AssertionError(f"{name}: HTTP {status}")
+    frames = [ln[6:] for ln in results["chat_stream"][1].split("\n\n") if ln.startswith("data: ")]
+    if not frames or frames[-1] != "[DONE]":
+        raise AssertionError("SSE stream does not end in data: [DONE]")
+    for fr in frames[:-1]:
+        obj = json.loads(fr)
+        assert obj["object"] == "chat.completion.chunk", obj
+    assert json.loads(results["chat"][1])["choices"][0]["message"]["role"] == "assistant"
+    assert json.loads(results["completions"][1])["object"] == "text_completion"
+    long_ids = len(engine.tokenizer.render_chat([("user", long_text + "Summarize.")]))
+    assert long_ids > engine.engine_config.prefill_chunk, long_ids
+    log(f"  HTTP: chat stream {len(frames) - 1} chunks + [DONE], chat, completions, "
+        f"long chat ({long_ids} prompt ids, chunked prefill): all 200")
+
+
+def serve_recipe(dev, name, quantization, kv_dtype, expected, http: bool) -> dict:
+    """Build one engine, serve it (HTTP when ``http``, then 8 greedy
+    generate_ids), and check that its path launched its kernels. Returns
+    its decode metrics and the launch counts of its serving run."""
     from generativeaiexamples_tpu_torch.config import EngineConfig
     from generativeaiexamples_tpu_torch.engine.llm_engine import LLMEngine, SamplingParams
     from generativeaiexamples_tpu_torch.engine.server import make_server
 
     t0 = time.time()
-    config = EngineConfig(model_config_name=MODEL, quantization="int8")
+    config = EngineConfig(model_config_name=MODEL, quantization=quantization, kv_cache_dtype=kv_dtype)
     engine = LLMEngine(config, device=dev)
-    log(f"  engine built ({time.time() - t0:.1f} s): {MODEL} int8 weights, bf16 paged pool "
-        f"{engine._pool_pages} pages x {config.page_size}, max_batch_size "
+    log(f"  engine {name} built ({time.time() - t0:.1f} s): {MODEL} {quantization} weights, "
+        f"{kv_dtype} paged pool {engine._pool_pages} pages x {config.page_size}, max_batch_size "
         f"{config.max_batch_size}, prefill_chunk {config.prefill_chunk}, decode_block "
         f"{config.decode_block}")
     server = make_server("127.0.0.1", 0, engine=engine)
     thread = threading.Thread(target=server.serve_forever, name="smoke-http", daemon=True)
     thread.start()
     base = f"http://127.0.0.1:{server.server_address[1]}"
-    errors = []
     try:
         reset_counts()
         t_serve = time.time()
-        results = {}
-
-        def call(name, path, body):
-            try:
-                results[name] = _post(base, path, body)
-            except Exception as exc:  # noqa: BLE001 - reported below
-                errors.append(f"{name}: {exc!r}")
-
-        long_text = "Context: " + ("the quick brown fox jumps over the lazy dog. " * 16)
-        requests = {
-            "chat_stream": ("/v1/chat/completions", {
-                "messages": [{"role": "user", "content": "Say hello."}],
-                "stream": True, "max_tokens": 32, "temperature": 0.7, "seed": 7}),
-            "chat": ("/v1/chat/completions", {
-                "messages": [{"role": "user", "content": "What is a GPU?"}],
-                "max_tokens": 32, "temperature": 0}),
-            "completions": ("/v1/completions", {
-                "prompt": "Once upon a time", "max_tokens": 32, "temperature": 0}),
-            "chat_long": ("/v1/chat/completions", {
-                "messages": [{"role": "user", "content": long_text + "Summarize."}],
-                "max_tokens": 24, "temperature": 0}),
-        }
-        threads = [
-            threading.Thread(target=call, args=(n, p, b), name=f"smoke-{n}", daemon=True)
-            for n, (p, b) in requests.items()
-        ]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(600)
-        if errors:
-            raise AssertionError("; ".join(errors))
-        for name, (status, text) in results.items():
-            if status != 200:
-                raise AssertionError(f"{name}: HTTP {status}")
-        frames = [ln[6:] for ln in results["chat_stream"][1].split("\n\n") if ln.startswith("data: ")]
-        if not frames or frames[-1] != "[DONE]":
-            raise AssertionError("SSE stream does not end in data: [DONE]")
-        for fr in frames[:-1]:
-            obj = json.loads(fr)
-            assert obj["object"] == "chat.completion.chunk", obj
-        assert json.loads(results["chat"][1])["choices"][0]["message"]["role"] == "assistant"
-        assert json.loads(results["completions"][1])["object"] == "text_completion"
-        long_ids = len(engine.tokenizer.render_chat([("user", long_text + "Summarize.")]))
-        assert long_ids > config.prefill_chunk, long_ids
-        log(f"  HTTP: chat stream {len(frames) - 1} chunks + [DONE], chat, completions, "
-            f"long chat ({long_ids} prompt ids, chunked prefill): all 200")
+        if http:
+            _http_requests(engine, base)
 
         # a full decode batch through the engine's own entry point, by ids
         before = engine.stats()
@@ -504,15 +637,16 @@ def phase_serve(dev) -> dict:
                 n += 1
             counts_ids.append(n)
         after = engine.stats()
+        launched = counts()
         stop_ids = set(engine.tokenizer.stop_ids())
         assert all(0 < n <= 64 for n in counts_ids), counts_ids
         t_total = time.time() - t_serve
-        launched = counts()
-        log(f"  generate_ids x8 (greedy, max_tokens 64): ids per request {counts_ids} "
-            f"(fewer than 64 only when a stop id {sorted(stop_ids)} was drawn)")
-        missing = [n for n, c in launched.items() if c == 0]
+        log(f"  engine {name} generate_ids x8 (greedy, max_tokens 64): ids per request "
+            f"{counts_ids} (fewer than 64 only when a stop id {sorted(stop_ids)} was drawn)")
+        log(f"  engine {name} launches while serving: {launched}")
+        missing = [n for n in expected if launched[n] == 0]
         if missing:
-            raise AssertionError(f"kernels never launched while serving: {missing}")
+            raise AssertionError(f"engine {name}: kernels never launched while serving: {missing}")
         d_rows = after["decode_rows"] - before.get("decode_rows", 0)
         d_time = after["decode_time_s"] - before.get("decode_time_s", 0.0)
         d_steps = after["decode_steps"] - before.get("decode_steps", 0)
@@ -528,24 +662,34 @@ def phase_serve(dev) -> dict:
             "launches": launched,
             "serve_s": t_total,
         }
-        log(f"  launches while serving: {launched}")
         samples = device_step_ms(engine)
         serve["device_step_ms"] = statistics.median(samples)
         serve["device_step_ms_samples"] = samples
         serve["device_idle_share"] = max(0.0, 1.0 - serve["device_step_ms"] / serve["decode_step_ms"])
-        log(f"  decode at B=8: {serve['decode_tokens_per_s']:.1f} tokens/s, step "
+        log(f"  engine {name} decode at B=8: {serve['decode_tokens_per_s']:.1f} tokens/s, step "
             f"{serve['decode_step_ms']:.2f} ms (wall time of decode blocks on the dispatch "
             f"thread); MFU {serve['decode_mfu']:.2%}, weight streaming at "
             f"{serve['decode_weight_hbm_share']:.1%} of peak HBM rate; one step on the device "
             f"{serve['device_step_ms']:.2f} ms (median of {', '.join(f'{t:.2f}' for t in samples)}; "
-            f"idle {serve['device_idle_share']:.1%}); TTFT mean {serve['ttft_mean_s']:.3f} s max {serve['ttft_max_s']:.3f} s "
-            f"over all requests")
-        log(f"phase serve: ok ({time.time() - t0:.1f} s)")
+            f"idle {serve['device_idle_share']:.1%}); TTFT mean {serve['ttft_mean_s']:.3f} s "
+            f"max {serve['ttft_max_s']:.3f} s over all requests")
         return serve
     finally:
         server.shutdown()
         server.server_close()
         engine.shutdown()
+
+
+def phase_serve(dev) -> dict:
+    t0 = time.time()
+    serves = {}
+    for name, quantization, kv_dtype, expected in RECIPES:
+        serves[name] = serve_recipe(dev, name, quantization, kv_dtype, expected, http=name != "C")
+        gc.collect()  # the engine and its dispatch thread reference each other
+        torch.cuda.empty_cache()
+        log(f"  after engine {name}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
+    log(f"phase serve: ok ({time.time() - t0:.1f} s)")
+    return serves
 
 
 def main() -> int:
@@ -555,23 +699,23 @@ def main() -> int:
               file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
+    t0 = time.time()
     info = phase_device()
     phase_build()
     results = phase_kernels(dev)
     phase_model(dev)
-    serve = phase_serve(dev)
+    serves = phase_serve(dev)
     kernels = []
-    for name in WRAPPERS:
+    for name, (replaces, source) in KERNELS.items():
         r = results[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": serve["launches"][name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shape": r["shape"],
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(sv["launches"][name] for sv in serves.values()), **r,
         })
+    log(f"total {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": kernels, "serve": {
-        k: v for k, v in serve.items() if k != "launches"}}), flush=True)
+        name: {k: v for k, v in sv.items() if k != "launches"} for name, sv in serves.items()
+    }}), flush=True)
     print(info["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,20 @@
 """Engine configuration for the port.
 
 The fields of the JAX package's ``EngineConfig``
-(generativeaiexamples_tpu/config/schema.py) that the serving slice reads,
-with the same names and defaults. A value the slice does not serve raises
-in :meth:`EngineConfig.validate` instead of being ignored.
+(generativeaiexamples_tpu/config/schema.py) that the port serves, with the
+same names and defaults. A value the port does not serve raises in
+:meth:`EngineConfig.validate` instead of being ignored.
+:meth:`EngineConfig.from_env` reads the JAX package's environment names
+for these fields (``APP_ENGINE_QUANTIZATION``, ``APP_ENGINE_KVCACHEDTYPE``,
+…): ``APP_ENGINE_`` and the field name without underscores, upper-cased.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+from typing import Mapping, Optional
+
+ENV_PREFIX = "APP_ENGINE_"
 
 
 @dataclasses.dataclass
@@ -16,9 +23,9 @@ class EngineConfig:
     # HF tokenizer.json; empty uses the byte-level tokenizer
     tokenizer_path: str = ""
     dtype: str = "bfloat16"
-    # none | int8 (weight-only)
+    # none | int8 (weight-only) | w8a8 (int8 weights, per-token int8 activations)
     quantization: str = "none"
-    # bfloat16 only in this slice
+    # bfloat16 | int8 | int4 paged KV pool
     kv_cache_dtype: str = "bfloat16"
     max_batch_size: int = 8
     max_seq_len: int = 8192
@@ -31,18 +38,41 @@ class EngineConfig:
     # stall deadline (s) for a consumer waiting on its next token
     stream_timeout_s: float = 600.0
 
+    @classmethod
+    def env_name(cls, field: str) -> str:
+        """The JAX config's environment name of a field."""
+        return ENV_PREFIX + field.replace("_", "").upper()
+
+    @classmethod
+    def from_env(cls, environ: Optional[Mapping[str, str]] = None) -> "EngineConfig":
+        """Defaults overridden by the ``APP_ENGINE_*`` variables that are
+        set; a value that does not parse as the field's type raises."""
+        environ = os.environ if environ is None else environ
+        kwargs = {}
+        for f in dataclasses.fields(cls):
+            raw = environ.get(cls.env_name(f.name))
+            if raw is None:
+                continue
+            typ = type(f.default)
+            try:
+                kwargs[f.name] = typ(raw)
+            except ValueError:
+                raise ValueError(
+                    f"{cls.env_name(f.name)}={raw!r} is not a valid {typ.__name__}"
+                ) from None
+        return cls(**kwargs)
+
     def validate(self) -> None:
         if self.dtype not in ("bfloat16", "float32"):
             raise ValueError(f"dtype must be 'bfloat16' or 'float32', got {self.dtype!r}")
-        if self.quantization not in ("none", "int8"):
+        if self.quantization not in ("none", "int8", "w8a8"):
             raise ValueError(
-                f"quantization {self.quantization!r} is not served by the PyTorch port "
-                "(none | int8; w8a8 is not ported yet)"
+                f"quantization must be 'none', 'int8' or 'w8a8', got {self.quantization!r}"
             )
-        if self.kv_cache_dtype != "bfloat16":
+        if self.kv_cache_dtype not in ("bfloat16", "int8", "int4"):
             raise ValueError(
-                f"kv_cache_dtype {self.kv_cache_dtype!r} is not served by the PyTorch port "
-                "(bfloat16 only; the int8 and int4 page pools are not ported yet)"
+                f"kv_cache_dtype must be 'bfloat16', 'int8', or 'int4', "
+                f"got {self.kv_cache_dtype!r}"
             )
         p = self.page_size
         if p <= 0 or p & (p - 1) or p > 128:

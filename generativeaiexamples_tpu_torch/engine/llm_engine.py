@@ -15,9 +15,10 @@ One named daemon thread (``_loop``) does all device work:
    serves the wave from T = 512), and longer prompts chunk by chunk
    (``llama.extend_layers_paged``);
 3. decodes all slots in blocks of ``decode_block`` steps
-   (``llama.decode_layers_paged``; the paged-attention and int8 kernels
-   serve every step), greedy or sampled, with one device-to-host copy of
-   the block's tokens;
+   (``llama.decode_layers_paged``; the paged-attention kernel for the
+   configured pool and the int8 or W8A8 matmul kernel serve every step),
+   greedy or sampled with the JAX package's threefry keys, with one
+   device-to-host copy of the block's tokens;
 4. emits tokens to each request's queue, with stop ids and
    ``max_tokens``, and releases finished slots and their pages.
 
@@ -146,14 +147,25 @@ class LLMEngine:
         # a decode block can write up to a block past a request's budget
         self._page_slack = cfg.decode_block + 1
 
+        self._kv_quant = cfg.kv_cache_dtype in ("int8", "int4")
+        self._kv_packed = cfg.kv_cache_dtype == "int4"
+        if self._kv_packed and model_cfg.head_dim % 2:
+            raise ValueError(
+                "kv_cache_dtype='int4' packs two values per byte along "
+                f"head_dim, which must be even (got {model_cfg.head_dim})"
+            )
+        # the packed product's mode (int8_matmul.packed_matmul): w8a8 runs
+        # per-token int8 activations over the same int8 packs
+        self._quant_kernel = "w8a8" if cfg.quantization == "w8a8" else None
         self._page_kernel = page_attention.supports_geometry(
-            self._page, model_cfg.head_dim, model_cfg.num_heads, model_cfg.num_kv_heads
+            self._page, model_cfg.head_dim, model_cfg.num_heads, model_cfg.num_kv_heads,
+            kv_dtype=cfg.kv_cache_dtype,
         )
         if self.device.type == "cuda":
             self._check_kernels(cfg, model_cfg, dtype)
 
         if params is None:
-            if cfg.quantization == "int8":
+            if cfg.quantization in ("int8", "w8a8"):
                 params = quant.init_packed_params_int8(model_cfg, 0, dtype, self.device)
             else:
                 params = llama.init_params(model_cfg, 0, dtype, self.device)
@@ -165,7 +177,8 @@ class LLMEngine:
                     raise ValueError(f"int8 pack {tuple(pack['q'].shape)} not served by the kernel")
 
         self._cache = llama.init_kv_pool(
-            model_cfg, self._pool_pages, self._page, dtype, self.device
+            model_cfg, self._pool_pages, self._page, dtype, self.device,
+            quantized=self._kv_quant, packed=self._kv_packed,
         )
         self._kv_alloc = kv_pages.PageAllocator(self._pool_pages, self._page)
         self._tables = torch.zeros(
@@ -203,7 +216,7 @@ class LLMEngine:
             raise ValueError(
                 f"paged attention kernel refuses page_size={cfg.page_size} "
                 f"head_dim={model_cfg.head_dim} heads={model_cfg.num_heads} "
-                f"kv_heads={model_cfg.num_kv_heads}"
+                f"kv_heads={model_cfg.num_kv_heads} kv_cache_dtype={cfg.kv_cache_dtype}"
             )
         bucket = min(cfg.prefill_chunk, self.max_seq_len)
         if bucket >= flash_attention.MIN_T and not flash_attention.supported(
@@ -476,11 +489,11 @@ class LLMEngine:
         slots = torch.tensor([r.slot for r in reqs], dtype=torch.long, device=dev)
         if chunked:
             last_h = self._prefill_chunked(tokens, lengths, slots)
-            logits = llama._head(self.params, last_h[:, None, :], cfg)[:, 0, :]
+            logits = llama._head(self.params, last_h[:, None, :], cfg, self._quant_kernel)[:, 0, :]
         else:
             logits, kvs = llama.prefill_layers(
                 self.params, cfg, torch.from_numpy(tokens).to(dev),
-                torch.from_numpy(lengths).to(dev),
+                torch.from_numpy(lengths).to(dev), quant_kernel=self._quant_kernel,
             )
             llama.write_prefill_pages(self._cache, kvs, self._tables[slots], self._page)
             del kvs
@@ -511,22 +524,25 @@ class LLMEngine:
             cand, _ = llama.extend_layers_paged(
                 self.params, self.model_config, torch.from_numpy(tok_k).to(dev), offsets,
                 valid, slots, self._tables, self._cache, window, self._page,
+                quant_kernel=self._quant_kernel,
             )
             last_h = torch.where((valid > 0)[:, None], cand, last_h)
             self._counters["prefill_chunks"] += 1
         return last_h
 
     def _sample(self, logits: torch.Tensor, reqs: Sequence[_Request], key_positions) -> torch.Tensor:
-        """One token per row of ``logits`` (rows aligned with ``reqs``)."""
+        """One token per row of ``logits`` (rows aligned with ``reqs``),
+        keyed by (seed, ``key_positions``) as the JAX engine keys it."""
         temps = torch.tensor([r.params.temperature for r in reqs], dtype=torch.float32)
-        noise = None
+        keys = None
         if bool((temps > 0).any()):
-            noise = sampling.sample_noise(
-                [r.sampling_seed for r in reqs], key_positions, self.device
+            seeds = torch.tensor([r.sampling_seed & 0x7FFFFFFF for r in reqs], dtype=torch.int64)
+            keys = sampling.sample_keys(
+                seeds.to(self.device), torch.tensor(key_positions, dtype=torch.int64).to(self.device)
             )
         topps = torch.tensor([r.params.top_p for r in reqs], dtype=torch.float32)
         return sampling.sample_tokens(
-            logits[:, : self._sample_vocab], temps.to(self.device), topps.to(self.device), noise
+            logits[:, : self._sample_vocab], temps.to(self.device), topps.to(self.device), keys
         )
 
     def _decode_once(self) -> None:
@@ -549,20 +565,20 @@ class LLMEngine:
             live[slot] = True
             temps[slot] = req.params.temperature
             topps[slot] = req.params.top_p
-            seeds[slot] = req.sampling_seed
+            seeds[slot] = req.sampling_seed & 0x7FFFFFFF
         window = (
             self.max_seq_len if self._page_kernel
             else self._attention_window(int(positions.max()) + block)
         )
-        noise = None
+        keys = None
         if (temps > 0).any():
-            # the token produced from input position p is keyed at p + 1
-            noise = torch.stack([
-                sampling.sample_noise(
-                    seeds, np.minimum(np.minimum(positions + s, max_pos) + 1, max_pos)
-                )
-                for s in range(block)
-            ]).to(dev)
+            # the token produced from input position p is keyed at p + 1;
+            # the whole block's keys [block, B] in one device computation
+            step_pos = np.minimum(positions[None, :] + np.arange(block)[:, None], max_pos)
+            keys = sampling.sample_keys(
+                torch.from_numpy(seeds).to(dev),
+                torch.from_numpy(np.minimum(step_pos + 1, max_pos)).to(dev),
+            )
         tok_d = torch.from_numpy(tokens).to(dev)
         pos_d = torch.from_numpy(positions).to(dev)
         live_d = torch.from_numpy(live).to(dev)
@@ -573,11 +589,11 @@ class LLMEngine:
             logits, _ = llama.decode_layers_paged(
                 self.params, self.model_config, tok_d, pos_d, live_d, self._tables,
                 self._cache, window=window, page_size=self._page,
-                page_kernel=self._page_kernel,
+                quant_kernel=self._quant_kernel, page_kernel=self._page_kernel,
             )
             tok_d = sampling.sample_tokens(
                 logits[:, : self._sample_vocab], temps_d, topps_d,
-                None if noise is None else noise[s],
+                None if keys is None else (keys[0][s], keys[1][s]),
             )
             slab.append(tok_d)
             pos_d = torch.clamp(pos_d + 1, max=max_pos)
@@ -642,9 +658,11 @@ _ENGINE: Optional[LLMEngine] = None  # guarded by _ENGINE_LOCK
 
 
 def get_engine(config: Optional[EngineConfig] = None) -> LLMEngine:
-    """Process-wide engine singleton on the card (weights live once there)."""
+    """Process-wide engine singleton on the card (weights live once there);
+    ``config=None`` reads the ``APP_ENGINE_*`` environment
+    (``EngineConfig.from_env``)."""
     global _ENGINE
     with _ENGINE_LOCK:
         if _ENGINE is None:
-            _ENGINE = LLMEngine(config)
+            _ENGINE = LLMEngine(config or EngineConfig.from_env())
         return _ENGINE

@@ -229,8 +229,10 @@ def make_server(host: str = "127.0.0.1", port: int = 8000, engine=None,
 
 
 def main() -> None:
-    """Serve llama3-8b with int8 weights (random, seed 0, until checkpoints
-    ship), the slice's served recipe, on the card."""
+    """Serve on the card the engine that the ``APP_ENGINE_*`` environment
+    configures, as the JAX engine server reads it (``EngineConfig.from_env``;
+    e.g. ``APP_ENGINE_QUANTIZATION=int8 APP_ENGINE_KVCACHEDTYPE=int8``).
+    Weights are random (seed 0) until checkpoints ship."""
     from generativeaiexamples_tpu_torch.engine.llm_engine import get_engine
 
     parser = argparse.ArgumentParser(description="OpenAI-compatible server for the PyTorch port")
@@ -238,7 +240,10 @@ def main() -> None:
     parser.add_argument("--port", type=int, default=8000)
     args = parser.parse_args()
     logging.basicConfig(level=logging.INFO)
-    server = make_server(args.host, args.port, engine=get_engine(EngineConfig(quantization="int8")))
+    config = EngineConfig.from_env()
+    config.validate()
+    logger.info("engine config: %s", config)
+    server = make_server(args.host, args.port, engine=get_engine(config))
     logger.info("serving on %s:%d", args.host, args.port)
     try:
         server.serve_forever()

@@ -6,7 +6,12 @@ monolithic prefill waves, ``extend_layers_paged`` for chunked prefill,
 and ``decode_layers_paged`` for decode steps. Parameters are plain
 dictionaries of tensors, one dict per layer (the JAX package's layered
 layout, ``consume_split_params_layers``); projections are dense
-``[K, F]`` matrices or int8 packs ``{"q", "scale"}`` (ops/quant.py).
+``[K, F]`` matrices or int8 packs ``{"q", "scale"}`` (ops/quant.py), the
+packs served weight-only or W8A8 (``quant_kernel``). The KV page pool is
+bf16/f32, int8 or int4 (``init_kv_pool``); quantized pools store rows
+through ``quantize_kv`` / ``quantize_kv_int4`` (bitwise the JAX codecs)
+and are read through the page kernel or the dequantized gather, as in
+JAX.
 
 Differences from the JAX functions, all in PyTorch idiom:
 - the KV page pool is updated IN PLACE (``index_put_``): the pool dicts a
@@ -253,12 +258,16 @@ def _attention(
     return out.reshape(B, T, Hq, Dh)
 
 
-def _proj(x: torch.Tensor, w, quant_kernel: Optional[bool] = None) -> torch.Tensor:
+def _proj(x: torch.Tensor, w, quant_kernel=None) -> torch.Tensor:
     """x @ w for a dense [K, F] matrix or an int8 pack (ops/quant.py).
-    ``quant_kernel=False`` takes the int8 kernel's plain version at decode
-    shapes instead of the kernel."""
+    ``quant_kernel`` picks the pack's product (``int8_matmul.packed_matmul``
+    modes): None or True, the weight-only int8 kernel; False, its plain
+    version at decode shapes; ``"w8a8"``, per-token int8 activations and
+    the int8 x int8 kernel; ``"w8a8_plain"``, that kernel's plain
+    version."""
     if isinstance(w, dict):
-        return int8_matmul.packed_matmul(x, w, use_kernel=quant_kernel is not False)
+        mode = {None: "int8", True: "int8", False: "int8_plain"}.get(quant_kernel, quant_kernel)
+        return int8_matmul.packed_matmul(x, w, mode)
     return x @ w
 
 
@@ -332,17 +341,81 @@ def prefill_layers(
     return _head(params, last_h, cfg, quant_kernel)[:, 0, :], kvs
 
 
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-(token, head) absmax int8 rows: [..., Dh] ->
+    (int8 [..., Dh], f32 scale [...]); the W8A8 activation quantizer's
+    formula (f32 math, round half to even), bitwise the JAX package's."""
+    q, s = int8_matmul.quantize_rows(x)
+    return q, s[..., 0]
+
+
+def quantize_kv_int4(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-(token, head) absmax int4 rows, two per byte:
+    [..., Dh] -> (uint8 [..., Dh//2], f32 scale [...]). Split halves: the
+    low nibble of byte i holds lane i, the high nibble lane i + Dh/2.
+    Values clip to [-7, 7]. Bitwise the JAX package's."""
+    dh = x.shape[-1]
+    if dh % 2:
+        raise ValueError(f"int4 KV rows need an even head_dim, got {dh}")
+    x32 = x.float()
+    s = torch.clamp(x32.abs().amax(dim=-1) / 7.0, min=1e-8)
+    q = torch.clamp(torch.round(x32 / s[..., None]), -7, 7).to(torch.int32)
+    lo = q[..., : dh // 2] & 0xF
+    hi = q[..., dh // 2:] & 0xF
+    return (lo | (hi << 4)).to(torch.uint8), s
+
+
+# the inverse of quantize_kv_int4's packing, kept beside the page kernel
+unpack_int4 = page_attention.unpack_int4
+
+
 def init_kv_pool(
     cfg: LlamaConfig, pool: int, page_size: int, dtype: torch.dtype = torch.bfloat16,
-    device="cpu",
+    device="cpu", quantized: bool = False, packed: bool = False,
 ) -> List[Dict[str, torch.Tensor]]:
-    """Per-layer page pools ``[pool, page_size, Hkv, Dh]``, token-major."""
-    shape = (pool, page_size, cfg.num_kv_heads, cfg.head_dim)
-    return [
-        {"k": torch.zeros(shape, dtype=dtype, device=device),
-         "v": torch.zeros(shape, dtype=dtype, device=device)}
-        for _ in range(cfg.num_layers)
-    ]
+    """Per-layer page pools ``[pool, page_size, Hkv, Dh]``, token-major.
+    ``quantized`` pools hold int8 rows with per-(token, head) f32 scales
+    ``ks``/``vs`` ``[pool, page_size, Hkv]``; ``packed`` (int4) pools hold
+    uint8 ``[pool, page_size, Hkv, Dh // 2]`` (two values per byte,
+    :func:`quantize_kv_int4`) with the same scale planes. Readers tell the
+    three apart by ``"ks" in pool`` and the uint8 dtype, as in JAX."""
+    Hkv, Dh = cfg.num_kv_heads, cfg.head_dim
+
+    def one():
+        if packed or quantized:
+            if packed and Dh % 2:
+                raise ValueError(f"int4 KV pools need an even head_dim, got {Dh}")
+            shape = (pool, page_size, Hkv, Dh // 2 if packed else Dh)
+            qdtype = torch.uint8 if packed else torch.int8
+            return {
+                "k": torch.zeros(shape, dtype=qdtype, device=device),
+                "v": torch.zeros(shape, dtype=qdtype, device=device),
+                "ks": torch.zeros(shape[:3], dtype=torch.float32, device=device),
+                "vs": torch.zeros(shape[:3], dtype=torch.float32, device=device),
+            }
+        shape = (pool, page_size, Hkv, Dh)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    return [one() for _ in range(cfg.num_layers)]
+
+
+def _kv_codec(caches: list):
+    """The pool's row quantizer (``quantize_kv``, ``quantize_kv_int4``)
+    or None for a bf16/f32 pool."""
+    if "ks" not in caches[0]:
+        return None
+    return quantize_kv_int4 if caches[0]["k"].dtype == torch.uint8 else quantize_kv
+
+
+def _dequant_window(c, key: str, tables, pages_w: int, page_size: int) -> torch.Tensor:
+    """A quantized pool's gathered window as f32 ``[N, W, Hkv, Dh]``:
+    int4 bytes unpacked, integers times their row scales."""
+    g = _gather_page_window(c[key], tables, pages_w, page_size)
+    if g.dtype == torch.uint8:
+        g = unpack_int4(g)
+    s = _gather_page_window(c[key + "s"], tables, pages_w, page_size)
+    return g.float() * s[..., None]
 
 
 def _gather_page_window(
@@ -366,10 +439,17 @@ def write_prefill_pages(
     overwrites them before any query attends them) or, past the
     reservation, on the scratch page."""
     N, T = kvs[0][0].shape[:2]
+    qfn = _kv_codec(caches)
     pos = torch.arange(T, device=row_tables.device)
     phys = torch.gather(row_tables.long(), 1, (pos // page_size).expand(N, T))
     sip = (pos % page_size).expand(N, T)
     for c, (k, v) in zip(caches, kvs):
+        if qfn is not None:  # quantized rows: only the write is quantized
+            kq, ks = qfn(k)
+            vq, vs = qfn(v)
+            c["ks"].index_put_((phys, sip), ks)
+            c["vs"].index_put_((phys, sip), vs)
+            k, v = kq, vq
         c["k"].index_put_((phys, sip), k.to(c["k"].dtype))  # in place
         c["v"].index_put_((phys, sip), v.to(c["v"].dtype))
     return caches
@@ -396,6 +476,7 @@ def _chunk_layers_paged(
     kernel."""
     N, C = tokens.shape
     device = tokens.device
+    qfn = _kv_codec(caches)
     Pmax = tables.shape[1]
     S = Pmax * page_size
     W = min(window, S)
@@ -410,18 +491,36 @@ def _chunk_layers_paged(
     phys = torch.where((valid > 0)[:, None], phys, torch.zeros_like(phys))
     sip = positions % page_size
 
+    def masked_write(buf, rows, trailing):
+        """Write ``rows`` where the token is valid, the current contents
+        elsewhere (a value mask over whole rows: an int4 byte never spans
+        two tokens)."""
+        cur = buf[phys, sip]
+        keep = tok_valid.reshape(tok_valid.shape + (1,) * trailing)
+        buf.index_put_((phys, sip), torch.where(keep, rows.to(cur.dtype), cur))  # in place
+
     for lp, c in zip(params["layers"], caches):
         def attn(q, k, v, c=c):
-            cur_k = c["k"][phys, sip]
-            cur_v = c["v"][phys, sip]
-            row_k = torch.where(tok_valid[..., None, None], k.to(cur_k.dtype), cur_k)
-            row_v = torch.where(tok_valid[..., None, None], v.to(cur_v.dtype), cur_v)
-            c["k"].index_put_((phys, sip), row_k)  # in place
-            c["v"].index_put_((phys, sip), row_v)
+            if qfn is not None:
+                (kq, ks), (vq, vs) = qfn(k), qfn(v)
+                masked_write(c["ks"], ks, 1)
+                masked_write(c["vs"], vs, 1)
+                k, v = kq, vq
+            masked_write(c["k"], k, 2)
+            masked_write(c["v"], v, 2)
             if page_kernel:
                 return page_attention.paged_attention(
-                    q, c["k"], c["v"], row_tables, offsets
+                    q, c["k"], c["v"], row_tables, offsets, c.get("ks"), c.get("vs")
                 ).to(q.dtype)
+            if qfn is not None:
+                # dequantized to the activation dtype, then the same
+                # attention as a bf16 pool (JAX's chunked formula)
+                return _attention(
+                    q,
+                    _dequant_window(c, "k", row_tables, Pw, page_size).to(q.dtype),
+                    _dequant_window(c, "v", row_tables, Pw, page_size).to(q.dtype),
+                    mask,
+                )
             return _attention(
                 q,
                 _gather_page_window(c["k"], row_tables, Pw, page_size),
@@ -478,6 +577,9 @@ def decode_layers_paged(
     page), then reads the pool through the paged-attention kernel
     (``page_kernel``) or the gathered window of ``window`` tokens."""
     device = tokens.device
+    qfn = _kv_codec(caches)
+    B = tokens.shape[0]
+    Hkv, G = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
     Pmax = tables.shape[1]
     S = Pmax * page_size
     W = min(window or S, S)
@@ -491,12 +593,27 @@ def decode_layers_paged(
 
     for lp, c in zip(params["layers"], caches):
         def attn(q, k, v, c=c):
+            if qfn is not None:
+                (k, ks), (v, vs) = qfn(k), qfn(v)
+                c["ks"].index_put_((phys, sip), ks)  # in place
+                c["vs"].index_put_((phys, sip), vs)
             c["k"].index_put_((phys, sip), k.to(c["k"].dtype))  # in place
             c["v"].index_put_((phys, sip), v.to(c["v"].dtype))
             if page_kernel:
                 return page_attention.paged_attention(
-                    q, c["k"], c["v"], tables, positions
+                    q, c["k"], c["v"], tables, positions, c.get("ks"), c.get("vs")
                 ).to(q.dtype)
+            if qfn is not None:
+                # JAX's quantized decode read: the window dequantized to
+                # f32, f32 einsums and softmax, one rounding at the end
+                kd = _dequant_window(c, "k", tables, Pw, page_size)  # [B, W, Hkv, Dh]
+                vd = _dequant_window(c, "v", tables, Pw, page_size)
+                qg = q.reshape(B, 1, Hkv, G, cfg.head_dim).float()
+                sc = torch.einsum("btkgd,bskd->bkgts", qg, kd) / math.sqrt(cfg.head_dim)
+                sc = torch.where(mask[:, None, None], sc, torch.full_like(sc, -1e30))
+                p = torch.softmax(sc, dim=-1)
+                out = torch.einsum("bkgts,bskd->btkgd", p, vd)
+                return out.reshape(B, 1, cfg.num_heads, cfg.head_dim).to(q.dtype)
             return _attention(
                 q,
                 _gather_page_window(c["k"], tables, Pw, page_size),

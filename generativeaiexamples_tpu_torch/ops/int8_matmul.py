@@ -1,14 +1,13 @@
-"""bf16 activations x int8 weights, weight-streaming (W8A16).
+"""int8 weight matmuls for serving: weight-only (W8A16) and W8A8.
 
 Counterpart of generativeaiexamples_tpu/ops/int8_matmul.py. Same packed
 layout, so packs cross packages unchanged:
 
     {"q": int8 [K_pad, F_pad], "scale": float32 [1, F]}
 
-with K padded to ``K_ALIGN`` and F to ``F_BLK`` (zero padding), and
+with K padded to ``K_ALIGN`` and F to ``F_BLK`` (zero padding).
 
-    y[M, F] = (x[M, K] @ bf16(q[K, F])) * scale[1, F]
-
+Weight-only, ``y[M, F] = (x[M, K] @ bf16(q[K, F])) * scale[1, F]``:
 - :func:`int8_matmul` is the decode kernel (M <= ``M_MAX`` rows): on a CUDA
   tensor it launches ``csrc/int8_matmul.cu`` (weights stream once, int8 ->
   float in registers, f32 sum, scale after the sum); on a CPU tensor it runs
@@ -16,11 +15,23 @@ with K padded to ``K_ALIGN`` and F to ``F_BLK`` (zero padding), and
 - :func:`int8_matmul_dequant` is the large-M (prefill) path, as the JAX
   package's ``int8_matmul_xla``: bf16 weights dequantized once per call and
   one ``torch.matmul``.
-- :func:`packed_matmul` dispatches between the two by M.
+
+W8A8, per-token int8 activations (:func:`quantize_rows`) and an exact
+int32 sum, ``y = bf16((f32(xq @ q) * sx) * scale)``:
+- :func:`int8_w8a8_matmul` is the decode kernel: on a CUDA tensor it
+  launches ``csrc/int8_w8a8_matmul.cu``; on a CPU tensor it runs
+  :func:`int8_w8a8_matmul_plain`. Both sums are exact, so the two agree
+  bit for bit.
+- :func:`int8_matmul_w8a8_prefill` is the large-M path, as the JAX
+  package's ``int8_matmul_xla_w8a8``: ``torch._int_mm`` (exact int32) over
+  output-column chunks.
+
+:func:`packed_matmul` dispatches by M and by mode.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -41,6 +52,16 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ],
 }
+_W8A8_SIGNATURES = {
+    "int8_w8a8_matmul_launch": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ],
+}
+# Elements of the int32 product one _int_mm call of the prefill path may
+# hold, as the JAX package's int8_matmul_xla_w8a8 chunks its output axis.
+_MAX_ACC_ELEMS = 64 * 1024 * 1024
 
 
 def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -124,20 +145,150 @@ def int8_matmul_dequant(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -
     return x.to(torch.bfloat16) @ w
 
 
+def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row (per-token) symmetric absmax int8: [..., K] -> (int8
+    [..., K], f32 scales [..., 1]). f32 math, round half to even: bitwise
+    the JAX package's."""
+    x32 = x.float()
+    s = torch.clamp(x32.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(x32 / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def _scale_rows(acc: torch.Tensor, sx: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The W8A8 epilogue in the reference's order: (f32(acc) * sx) * s,
+    one bf16 rounding. ``acc`` holds exact integer sums."""
+    return (acc.float() * sx * scale.float()).to(torch.bfloat16)
+
+
+def int8_w8a8_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The W8A8 kernel's function in plain PyTorch, x [M, K] -> bf16
+    [M, F]: rows quantized by :func:`quantize_rows`, the integer product
+    summed in float64 (exact: |sum| <= 127^2 * K < 2^53), then the
+    epilogue. Output columns go in chunks so the float64 copy of the
+    weight stays small."""
+    K = x.shape[-1]
+    F = scale.shape[-1]
+    xq, sx = quantize_rows(x)
+    xd = xq.double()
+    chunk = max(F_BLK, _MAX_ACC_ELEMS // max(K, 1) // F_BLK * F_BLK)
+    outs = []
+    for f0 in range(0, F, chunk):
+        f1 = min(f0 + chunk, F)
+        acc = xd @ q[:K, f0:f1].double()
+        outs.append(_scale_rows(acc, sx, scale.reshape(F)[f0:f1]))
+    return torch.cat(outs, dim=-1)
+
+
+def _launch_w8a8(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    M, K = x2.shape
+    K_pad, F_pad = q.shape
+    F = scale.shape[-1]
+    if q.dtype != torch.int8 or not q.is_contiguous() or F_pad % F_BLK or K_pad % K_ALIGN or K > K_pad:
+        raise ValueError(
+            f"int8_w8a8_matmul: q must be a contiguous int8 pack [K_pad % {K_ALIGN}, "
+            f"F_pad % {F_BLK}] with K_pad >= K={K}, got {tuple(q.shape)} {q.dtype}"
+        )
+    if q.device != x2.device or scale.device != x2.device:
+        raise ValueError("int8_w8a8_matmul: x, q and scale must share one device")
+    xq, sx = quantize_rows(x2)
+    xq_pad = torch.zeros((M, K_pad), dtype=torch.int8, device=x2.device)
+    xq_pad[:, :K] = xq
+    sx = sx.reshape(M).contiguous()
+    splits, k_chunk = _split_k(K_pad, F_pad // F_BLK)
+    s = scale.reshape(F).to(torch.float32).contiguous()
+    ws = torch.empty((splits, M, F_pad), dtype=torch.int32, device=x2.device)
+    y = torch.empty((M, F), dtype=torch.bfloat16, device=x2.device)
+    lib = _build.load("int8_w8a8_matmul", _W8A8_SIGNATURES)
+    code = lib.int8_w8a8_matmul_launch(
+        xq_pad.data_ptr(), sx.data_ptr(), M, K_pad, q.data_ptr(), F_pad, s.data_ptr(), F,
+        ws.data_ptr(), splits, k_chunk, y.data_ptr(), _build.stream_ptr(x2),
+    )
+    _build.check(code, "int8_w8a8_matmul")
+    int8_w8a8_matmul.launches += 1
+    return y
+
+
+def int8_w8a8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """y ~= (x @ dequant(q))[..., :F] with per-token int8 activations, for
+    M = prod(leading dims) <= M_MAX; leading dims preserved. CUDA tensors
+    launch the kernel; CPU tensors run :func:`int8_w8a8_matmul_plain`."""
+    lead = x.shape[:-1]
+    K = x.shape[-1]
+    F = scale.shape[-1]
+    x2 = x.reshape(-1, K)
+    if x2.shape[0] > M_MAX:
+        raise ValueError(
+            f"int8_w8a8_matmul serves decode-shaped calls only (M={x2.shape[0]} > {M_MAX}); "
+            "use int8_matmul_w8a8_prefill (or packed_matmul, which dispatches by M)."
+        )
+    if x2.device.type == "cpu":
+        y = int8_w8a8_matmul_plain(x2, q, scale)
+    else:
+        y = _launch_w8a8(x2, q, scale)
+    return y.reshape(*lead, F)
+
+
+int8_w8a8_matmul.launches = 0
+
+
+def int8_matmul_w8a8_prefill(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Large-M W8A8 path (prefill), the JAX package's
+    ``int8_matmul_xla_w8a8``: per-token int8 activations, then
+    ``torch._int_mm`` (int8 x int8 -> exact int32) over the whole pack, in
+    output-column chunks that keep the int32 product at most
+    ``_MAX_ACC_ELEMS`` elements. Activations are zero-padded to K_pad (the
+    pack's padding rows are zero) so ``_int_mm``'s multiple-of-8 rule
+    holds; the output columns are cut back to F."""
+    lead = x.shape[:-1]
+    K = x.shape[-1]
+    F = scale.shape[-1]
+    K_pad, F_pad = q.shape
+    x2 = x.reshape(-1, K)
+    M = x2.shape[0]
+    xq, sx = quantize_rows(x2)
+    xq_pad = torch.zeros((M, K_pad), dtype=torch.int8, device=x.device)
+    xq_pad[:, :K] = xq
+    s = scale.reshape(F)
+    chunk = max(F_BLK, _MAX_ACC_ELEMS // max(M, 1) // F_BLK * F_BLK)
+    if F_pad <= chunk:
+        y = _scale_rows(torch._int_mm(xq_pad, q)[:, :F], sx, s)
+    else:
+        outs = []
+        for f0 in range(0, F, chunk):
+            f1 = min(f0 + chunk, F)
+            w = q[:, f0:min(f0 + chunk, F_pad)].contiguous()  # column blocks are strided
+            outs.append(_scale_rows(torch._int_mm(xq_pad, w)[:, : f1 - f0], sx, s[f0:f1]))
+        y = torch.cat(outs, dim=-1)
+    return y.reshape(*lead, F)
+
+
 def kernel_supported(q: torch.Tensor) -> bool:
-    """Whether the kernel serves this packed weight's shapes."""
+    """Whether the kernels serve this packed weight's shapes."""
     return q.dim() == 2 and q.dtype == torch.int8 and q.shape[1] % F_BLK == 0
 
 
-def packed_matmul(x: torch.Tensor, packed, use_kernel: bool = True) -> torch.Tensor:
-    """x @ packed int8 weight. Decode-shaped calls (M <= M_MAX) take
-    :func:`int8_matmul` (``use_kernel=False`` runs its plain version instead,
-    on any device); larger M takes :func:`int8_matmul_dequant`."""
+PACKED_MODES = ("int8", "int8_plain", "w8a8", "w8a8_plain")
+
+
+def packed_matmul(x: torch.Tensor, packed, mode: str = "int8") -> torch.Tensor:
+    """x @ packed int8 weight. Decode-shaped calls (M <= M_MAX) take the
+    mode's kernel, :func:`int8_matmul` (``"int8"``) or
+    :func:`int8_w8a8_matmul` (``"w8a8"``), or its plain version on any
+    device (``"int8_plain"``, ``"w8a8_plain"``); larger M takes
+    :func:`int8_matmul_dequant` or, for the W8A8 modes,
+    :func:`int8_matmul_w8a8_prefill`."""
+    if mode not in PACKED_MODES:
+        raise ValueError(f"packed_matmul mode must be one of {PACKED_MODES}, got {mode!r}")
+    q, scale = packed["q"], packed["scale"]
+    w8a8 = mode.startswith("w8a8")
     M = x.numel() // x.shape[-1]
-    if M <= M_MAX:
-        if use_kernel:
-            return int8_matmul(x, packed["q"], packed["scale"])
-        lead = x.shape[:-1]
-        y = int8_matmul_plain(x.reshape(-1, x.shape[-1]), packed["q"], packed["scale"])
-        return y.reshape(*lead, y.shape[-1])
-    return int8_matmul_dequant(x, packed["q"], packed["scale"])
+    if M > M_MAX:
+        return (int8_matmul_w8a8_prefill if w8a8 else int8_matmul_dequant)(x, q, scale)
+    if mode == "int8":
+        return int8_matmul(x, q, scale)
+    if mode == "w8a8":
+        return int8_w8a8_matmul(x, q, scale)
+    plain = int8_w8a8_matmul_plain if w8a8 else int8_matmul_plain
+    y = plain(x.reshape(-1, x.shape[-1]), q, scale)
+    return y.reshape(*x.shape[:-1], y.shape[-1])

@@ -16,6 +16,7 @@ from __future__ import annotations
 from typing import Tuple
 
 PEAK_TFLOPS = 989.0  # bf16 / fp16 dense tensor-core rate
+PEAK_INT8_TOPS = 1979.0  # int8 dense tensor-core rate
 PEAK_HBM_GBPS = 3350.0  # HBM3 bandwidth
 
 
@@ -84,11 +85,12 @@ def streamed_weight_bytes(params) -> int:
     return sum(int(t.numel() * t.element_size()) for t in walk(params))
 
 
-def bound_ms(nbytes: float, flops: float) -> Tuple[float, str]:
+def bound_ms(nbytes: float, flops: float, int8: bool = False) -> Tuple[float, str]:
     """(least milliseconds, "bytes" or "operations"): the larger of the
-    bytes over the memory rate and the operations over the bf16 rate."""
+    bytes over the memory rate and the operations over the bf16 rate, or
+    over the int8 rate for ``int8`` (integer) work."""
     t_bytes = nbytes / (PEAK_HBM_GBPS * 1e9)
-    t_ops = flops / (PEAK_TFLOPS * 1e12)
+    t_ops = flops / ((PEAK_INT8_TOPS if int8 else PEAK_TFLOPS) * 1e12)
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"
@@ -100,20 +102,32 @@ def int8_matmul_cost(M: int, K: int, F: int) -> Tuple[int, int]:
     return M * K * 2 + K * F + F * 4 + M * F * 2, 2 * M * K * F
 
 
+def w8a8_matmul_cost(M: int, K: int, F: int) -> Tuple[int, int]:
+    """(bytes, integer operations) of the W8A8 product at the API
+    (``int8_w8a8_matmul``): the weight-only product's bytes (bf16 x, int8
+    weight and f32 scale read once, bf16 y written once) and operations,
+    which :func:`bound_ms` counts at the int8 rate."""
+    return int8_matmul_cost(M, K, F)
+
+
 def paged_attention_cost(
-    q_positions, Hq: int, Hkv: int, Dh: int, Pmax: int
+    q_positions, Hq: int, Hkv: int, Dh: int, Pmax: int,
+    kv_bytes: float = 2.0, scale_bytes: int = 0,
 ) -> Tuple[int, int]:
-    """(bytes, FLOPs) of one ragged bf16 page-attention call whose rows
-    query the positions listed per row (``q_positions``: one list of query
+    """(bytes, FLOPs) of one ragged page-attention call whose rows query
+    the positions listed per row (``q_positions``: one list of query
     positions per row). Each row reads its K and V rows up to its last
-    query position once; each query head scores and sums over the
-    positions at or before it."""
+    query position once, ``kv_bytes`` per element (2 bf16, 1 int8, 0.5
+    int4) plus ``scale_bytes`` per (token, KV head) for each of the two
+    scale planes of a quantized pool (4 for f32 scales); each query head
+    scores and sums over the positions at or before it."""
     nbytes = 0
     flops = 0
     for row in q_positions:
         T = len(row)
+        live = (max(row) + 1) * Hkv
         nbytes += 2 * T * Hq * Dh * 2  # q read, out written
-        nbytes += 2 * (max(row) + 1) * Hkv * Dh * 2  # live K and V rows
+        nbytes += int(2 * live * (Dh * kv_bytes + scale_bytes))  # live K and V rows, scales
         nbytes += Pmax * 4 + 4  # table row, position
         flops += sum(4 * Dh * Hq * (p + 1) for p in row)
     return nbytes, flops

@@ -1,12 +1,14 @@
 """The port's serving engine on the CPU (every kernel wrapper runs its plain
 version): greedy streams equal a model-level greedy loop over the same
 weights, long prompts take the chunked path, pages return to the
-allocator, sampling is keyed by (seed, position), and the engine refuses
-to start without a card unless asked for the CPU. Plus the pieces it is
+allocator, sampling is keyed by (seed, position) with the JAX package's
+keys, the quantized recipes (w8a8 + int8 KV, int8 + int4 KV) serve, and
+the engine refuses to start without a card unless asked for the CPU. Plus the pieces it is
 built from: the page allocator, the config checks and the sampler."""
 import threading
 import time
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,21 +34,41 @@ def engine():
     assert eng.shutdown()
 
 
-def reference_greedy(eng, prompt, max_tokens):
-    """Monolithic prefill + one decode step at a time, straight through the
-    model functions, stopping where the engine stops."""
-    cfg, params = eng.model_config, eng.params
+def reference_stream(eng, prompt, max_tokens, choose=None):
+    """Prefill (monolithic, or chunk by chunk past prefill_chunk, as the
+    engine routes it) + one decode step at a time, straight through the
+    model functions with the engine's pool dtype and quantization,
+    stopping where the engine stops. ``choose(logits, key_position)``
+    picks each token (greedy argmax by default)."""
+    cfg, params, qk = eng.model_config, eng.params, eng._quant_kernel
     pmax = eng.max_seq_len // PAGE
-    pool = llama.init_kv_pool(cfg, 1 + pmax, PAGE, torch.float32)
-    tables = torch.arange(1, 1 + pmax, dtype=torch.int32)[None]
-    logits, kvs = llama.prefill_layers(
-        params, cfg, torch.tensor([prompt]), torch.tensor([len(prompt)]), use_flash=False
+    pool = llama.init_kv_pool(
+        cfg, 1 + pmax, PAGE, torch.float32, quantized=eng._kv_quant, packed=eng._kv_packed
     )
-    llama.write_prefill_pages(pool, kvs, tables, PAGE)
+    tables = torch.arange(1, 1 + pmax, dtype=torch.int32)[None]
+    C = eng.engine_config.prefill_chunk
+    if len(prompt) <= C:
+        logits, kvs = llama.prefill_layers(
+            params, cfg, torch.tensor([prompt]), torch.tensor([len(prompt)]), use_flash=False,
+            quant_kernel=qk,
+        )
+        llama.write_prefill_pages(pool, kvs, tables, PAGE)
+    else:
+        for k in range(-(-len(prompt) // C)):
+            seg = prompt[k * C:(k + 1) * C]
+            last_h, _ = llama.extend_layers_paged(
+                params, cfg, torch.tensor([seg + [0] * (C - len(seg))]), torch.tensor([k * C]),
+                torch.tensor([len(seg)]), torch.tensor([0]), tables, pool,
+                eng._attention_window(min((k + 1) * C, eng.max_seq_len)), PAGE, quant_kernel=qk,
+            )
+        logits = llama._head(params, last_h[:, None, :], cfg, qk)[:, 0, :]
     stops = set(eng.tokenizer.stop_ids())
+    if choose is None:
+        choose = lambda lg, key_pos: int(torch.argmax(lg[0, : eng._sample_vocab]))  # noqa: E731
     out, pos = [], len(prompt)
+    key_pos = pos  # the first token is keyed at the prompt length
     while True:
-        tok = int(torch.argmax(logits[0, : eng._sample_vocab]))
+        tok = choose(logits, key_pos)
         if tok in stops:
             return out
         out.append(tok)
@@ -54,9 +76,15 @@ def reference_greedy(eng, prompt, max_tokens):
             return out
         logits, _ = llama.decode_layers_paged(
             params, cfg, torch.tensor([tok]), torch.tensor([pos]), torch.tensor([True]),
-            tables, pool, window=eng.max_seq_len, page_size=PAGE, page_kernel=False,
+            tables, pool, window=eng.max_seq_len, page_size=PAGE, quant_kernel=qk,
+            page_kernel=False,
         )
+        key_pos = min(pos + 1, eng.max_seq_len - 1)  # the token made from input position p
         pos += 1
+
+
+def reference_greedy(eng, prompt, max_tokens):
+    return reference_stream(eng, prompt, max_tokens)
 
 
 PROMPTS = [
@@ -89,6 +117,49 @@ def _settled(engine, timeout=60.0):
     while engine.stats()["pages_in_use"] and time.time() < deadline:
         time.sleep(0.01)
     return engine.stats()
+
+
+@pytest.mark.parametrize("top_p", [0.8, 1.0], ids=["nucleus", "full-vocab"])
+def test_seeded_streams_draw_with_the_jax_keys(engine, top_p):
+    """A seeded sampled stream equals the model-level loop drawing each
+    token with the JAX package's own sampler and keys:
+    sample_tokens(sample_keys(PRNGKey(1234), seed, position))."""
+    seed, temp = 11, 0.9
+    draw = jax.jit(lambda lg, pos: jsampling.sample_tokens(
+        lg, jsampling.sample_keys(jax.random.PRNGKey(1234), jnp.asarray([seed]), pos),
+        jnp.asarray([temp]), jnp.asarray([top_p]),
+    ))
+
+    def choose(logits, key_pos):
+        lg = jnp.asarray(logits[:, : engine._sample_vocab].numpy())
+        return int(draw(lg, jnp.asarray([key_pos], jnp.int32))[0])
+
+    params = SamplingParams(temperature=temp, top_p=top_p, max_tokens=12, seed=seed)
+    for prompt in PROMPTS:
+        assert list(engine.iter_ids(prompt, params, timeout=120)) == reference_stream(
+            engine, prompt, 12, choose
+        )
+
+
+@pytest.mark.parametrize(
+    "quantization,kv_cache_dtype", [("w8a8", "int8"), ("int8", "int4")], ids=["w8a8-int8", "int8-int4"]
+)
+def test_quantized_configs_stream_like_the_model_level_loop(quantization, kv_cache_dtype):
+    eng = LLMEngine(EngineConfig(**dict(
+        CONFIG, quantization=quantization, kv_cache_dtype=kv_cache_dtype
+    )), device="cpu")
+    try:
+        pool = eng._cache[0]
+        assert pool["k"].dtype == (torch.int8 if kv_cache_dtype == "int8" else torch.uint8)
+        assert pool["ks"].dtype == torch.float32
+        assert isinstance(eng.params["layers"][0]["wqkv"], dict)  # int8 packs
+        params = SamplingParams(temperature=0.0, max_tokens=10)
+        queues = [eng.generate_ids(p, params) for p in PROMPTS]  # one batch
+        for prompt, q in zip(PROMPTS, queues):
+            assert _drain(q) == reference_greedy(eng, prompt, 10)
+        assert eng.stats()["prefill_chunks"] >= 3  # the 41-token prompt ran chunked
+    finally:
+        assert eng.shutdown()
 
 
 def test_pages_return_to_the_allocator(engine):
@@ -162,12 +233,21 @@ def test_engine_refuses_to_start_without_a_card(monkeypatch):
 
 @pytest.mark.parametrize(
     "override",
-    [dict(kv_cache_dtype="int8"), dict(kv_cache_dtype="int4"), dict(quantization="w8a8"),
+    [dict(kv_cache_dtype="fp8"), dict(kv_cache_dtype="int2"), dict(quantization="int4"),
      dict(page_size=12), dict(prefill_chunk=20), dict(dtype="float16")],
 )
 def test_config_refuses_what_the_slice_does_not_serve(override):
     with pytest.raises(ValueError):
         EngineConfig(**dict(CONFIG, **override)).validate()
+
+
+@pytest.mark.parametrize(
+    "override",
+    [dict(kv_cache_dtype="int8"), dict(kv_cache_dtype="int4"), dict(quantization="w8a8"),
+     dict(quantization="int8")],
+)
+def test_config_accepts_the_quantized_recipes(override):
+    EngineConfig(**dict(CONFIG, **override)).validate()
 
 
 def test_page_allocator_never_hands_out_the_scratch_page():
@@ -207,22 +287,23 @@ def test_nucleus_sampling():
     temps, greedy = torch.tensor([1.0]), int(torch.argmax(logits))
     # a tiny top_p keeps only the top token
     for pos in range(5):
-        noise = sampling.sample_noise([7], [pos])
-        assert int(sampling.sample_tokens(logits, temps, torch.tensor([1e-6]), noise)) == greedy
-    # top_p = 1 draws by the softmax over the top 64: the top token's
-    # frequency over 4000 keyed draws matches its probability (seeded, so
-    # deterministic; 4 sigma of the binomial spread)
-    draws = torch.cat([
-        sampling.sample_tokens(
-            logits.expand(100, 512), temps.expand(100), torch.ones(100),
-            sampling.sample_noise([3] * 100, range(i * 100, i * 100 + 100)),
-        ) for i in range(40)
-    ])
-    top64 = torch.topk(logits[0], 64).values
-    p = float(torch.softmax(top64, 0)[0])
+        keys = sampling.sample_keys(torch.tensor([7]), torch.tensor([pos]))
+        assert int(sampling.sample_tokens(logits, temps, torch.tensor([1e-6]), keys)) == greedy
+    # top_p = 1 draws from the softmax over the whole vocabulary: the top
+    # token's frequency over 4000 keyed draws matches its probability
+    # (seeded, so deterministic; 4 sigma of the binomial spread)
+    n = 4000
+    draws = sampling.sample_tokens(
+        logits.expand(n, 512), temps.expand(n), torch.ones(n),
+        sampling.sample_keys(torch.tensor(3), torch.arange(n)),
+    )
+    p = float(torch.softmax(logits[0], 0)[greedy])
     freq = float((draws == greedy).float().mean())
-    assert abs(freq - p) < 4 * (p * (1 - p) / 4000) ** 0.5
-    # noise is a pure function of (seed, position)
-    assert torch.equal(sampling.sample_noise([5, 6], [9, 9]), sampling.sample_noise([5, 6], [9, 9]))
-    assert not torch.equal(sampling.sample_noise([5], [9]), sampling.sample_noise([5], [10]))
-    assert not torch.equal(sampling.sample_noise([5], [9]), sampling.sample_noise([6], [9]))
+    assert abs(freq - p) < 4 * (p * (1 - p) / n) ** 0.5
+    # keys are a pure function of (seed, position)
+    a = sampling.sample_keys(torch.tensor([5, 6]), torch.tensor([9, 9]))
+    b = sampling.sample_keys(torch.tensor([5, 6]), torch.tensor([9, 9]))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert not torch.equal(a[0][0], a[0][1])
+    c = sampling.sample_keys(torch.tensor([5]), torch.tensor([10]))
+    assert not (torch.equal(a[0][:1], c[0]) and torch.equal(a[1][:1], c[1]))

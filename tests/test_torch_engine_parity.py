@@ -1,8 +1,11 @@
 """Engine against engine: the JAX package's LLMEngine and the port's, on the
-same debug float32 weights, give the same greedy streams for the same
-prompts (short, one chunk, and longer than prefill_chunk), through each
-engine's own admission, paged prefill and block decode. Both compute in
-float32, so the streams must be identical token for token.
+same debug float32 weights, give the same streams for the same prompts
+(short, one chunk, and longer than prefill_chunk), through each engine's
+own admission, paged prefill and block decode: greedy, seeded sampling
+(the port draws with JAX's threefry keys), and the w8a8 + int8 KV recipe
+(the weights the JAX engine drew, carried over). Both compute in float32,
+and w8a8's products are exact integer sums, so the streams must be
+identical token for token.
 
 Slow tier: it builds and compiles a JAX engine."""
 import jax.numpy as jnp
@@ -36,6 +39,42 @@ def test_greedy_streams_match_the_jax_engine():
     # the JAX engine's no-checkpoint weights: init_params_fast(cfg, 0, dtype)
     weights = jl.init_params_fast(jl.PRESETS["debug"], 0, jnp.float32)
     port = LLMEngine(EngineConfig(**COMMON), device="cpu", params=params_from_jax(weights))
+    try:
+        for prompt in PROMPTS:
+            ref = list(jax_engine.iter_ids(prompt, JaxParams(temperature=0.0, max_tokens=16), timeout=600))
+            out = list(port.iter_ids(prompt, SamplingParams(temperature=0.0, max_tokens=16), timeout=600))
+            assert out == ref, prompt
+    finally:
+        jax_engine.shutdown()
+        port.shutdown()
+
+
+@pytest.mark.parametrize("top_p", [0.8, 1.0], ids=["nucleus", "full-vocab"])
+def test_seeded_streams_match_the_jax_engine(top_p):
+    jax_engine = JaxEngine(JaxEngineConfig(
+        tensor_parallelism=1, kv_layout="paged", decode_runahead=1, **COMMON
+    ))
+    weights = jl.init_params_fast(jl.PRESETS["debug"], 0, jnp.float32)
+    port = LLMEngine(EngineConfig(**COMMON), device="cpu", params=params_from_jax(weights))
+    try:
+        for i, prompt in enumerate(PROMPTS):
+            kw = dict(temperature=0.9, top_p=top_p, max_tokens=16, seed=100 + i)
+            ref = list(jax_engine.iter_ids(prompt, JaxParams(**kw), timeout=600))
+            out = list(port.iter_ids(prompt, SamplingParams(**kw), timeout=600))
+            assert out == ref, prompt
+    finally:
+        jax_engine.shutdown()
+        port.shutdown()
+
+
+def test_w8a8_int8_kv_streams_match_the_jax_engine():
+    quant = dict(quantization="w8a8", kv_cache_dtype="int8")
+    jax_engine = JaxEngine(JaxEngineConfig(
+        tensor_parallelism=1, kv_layout="paged", decode_runahead=1, **COMMON, **quant
+    ))
+    port = LLMEngine(
+        EngineConfig(**COMMON, **quant), device="cpu", params=params_from_jax(jax_engine.params)
+    )
     try:
         for prompt in PROMPTS:
             ref = list(jax_engine.iter_ids(prompt, JaxParams(temperature=0.0, max_tokens=16), timeout=600))

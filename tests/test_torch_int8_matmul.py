@@ -84,7 +84,7 @@ def test_packed_matmul_dispatches_by_m():
     small = tim.packed_matmul(x, tp)
     assert tuple(small.shape) == (3, 4, 96)
     torch.testing.assert_close(small, tim.int8_matmul_plain(x.reshape(12, 64), tp["q"], tp["scale"]).reshape(3, 4, 96))
-    torch.testing.assert_close(tim.packed_matmul(x, tp, use_kernel=False), small)
+    torch.testing.assert_close(tim.packed_matmul(x, tp, "int8_plain"), small)
     big = x.reshape(1, 12, 64).expand(11, 12, 64)  # M = 132 > M_MAX
     torch.testing.assert_close(
         tim.packed_matmul(big, tp), tim.int8_matmul_dequant(big, tp["q"], tp["scale"])
@@ -133,3 +133,52 @@ def test_init_packed_params_matches_jax_structure():
             else:
                 assert torch.equal(lp[key], val), key
     assert mine["embed"].shape == ref["embed"].shape and mine["embed"].dtype == torch.bfloat16
+
+
+def test_quantize_rows_bitwise_equal_to_jax():
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((9, 200)).astype(np.float32) * 3
+    x[0] = 0  # an all-zero row takes the 1e-8 floor
+    for xj in (jnp.asarray(x), jnp.asarray(x, jnp.bfloat16)):
+        ref_q, ref_s = jim.quantize_rows(xj)
+        q, s = tim.quantize_rows(to_tensor(np.asarray(xj)))
+        assert q.dtype == torch.int8 and s.dtype == torch.float32
+        np.testing.assert_array_equal(q.numpy(), np.asarray(ref_q))
+        np.testing.assert_array_equal(s.numpy(), np.asarray(ref_s))
+
+
+@pytest.mark.parametrize("M,K,F", [(1, 64, 96), (5, 200, 700), (32, 128, 512)])
+def test_w8a8_plain_is_bitwise_the_pallas_kernel(M, K, F):
+    rng = np.random.default_rng(10 + M)
+    packed = jquant.quantize_int8(jnp.asarray(rng.standard_normal((K, F)) * 0.1, jnp.float32))
+    xj, xt = _bf16(rng.standard_normal((M, K)))
+    ref = np.asarray(jim.int8_w8a8_matmul(xj, packed["q"], packed["scale"], interpret=True))
+    out = tim.int8_w8a8_matmul(xt, to_tensor(np.asarray(packed["q"])), to_tensor(np.asarray(packed["scale"])))
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == (M, F)
+    # both sums are exact integers and the epilogue is the same f32
+    # (f32(acc) * sx) * s with one bf16 rounding: equal bit for bit
+    np.testing.assert_array_equal(out.view(torch.int16).numpy(), ref.view(np.int16))
+
+
+@pytest.mark.parametrize("max_acc", [None, 150 * 512], ids=["one-product", "column-chunks"])
+def test_w8a8_prefill_is_bitwise_int8_matmul_xla_w8a8(monkeypatch, max_acc):
+    if max_acc is not None:  # force the output-column chunking
+        monkeypatch.setattr(tim, "_MAX_ACC_ELEMS", max_acc)
+    rng = np.random.default_rng(12)
+    K, F, M = 200, 1300, 150  # M > M_MAX: the prefill path
+    packed = jquant.quantize_int8(jnp.asarray(rng.standard_normal((K, F)) * 0.1, jnp.float32))
+    xj, xt = _bf16(rng.standard_normal((3, M // 3, K)))
+    ref = np.asarray(jim.int8_matmul_xla_w8a8(xj, packed["q"], packed["scale"]))
+    tp = {k: to_tensor(np.asarray(v)) for k, v in packed.items()}
+    out = tim.packed_matmul(xt, tp, "w8a8")
+    assert tuple(out.shape) == (3, M // 3, F)
+    np.testing.assert_array_equal(out.view(torch.int16).numpy(), ref.view(np.int16))
+    # and the decode formula on the same rows agrees with it bit for bit
+    small = tim.packed_matmul(xt[0], tp, "w8a8_plain")
+    assert torch.equal(small, out[0])
+
+
+def test_packed_matmul_refuses_unknown_modes():
+    tp = tquant.quantize_int8(torch.ones((64, 96)))
+    with pytest.raises(ValueError, match="mode"):
+        tim.packed_matmul(torch.ones((1, 64)), tp, "w4a16")

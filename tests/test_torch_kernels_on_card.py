@@ -10,6 +10,7 @@ chip_smoke.py checks the same kernels at the llama3-8b shapes."""
 import pytest
 import torch
 
+from generativeaiexamples_tpu_torch.models import llama
 from generativeaiexamples_tpu_torch.ops import flash_attention as fa
 from generativeaiexamples_tpu_torch.ops import int8_matmul as im
 from generativeaiexamples_tpu_torch.ops import page_attention as pa
@@ -67,6 +68,51 @@ def test_flash_attention_kernel_matches_plain(card):
         torch.testing.assert_close(out.float(), fa.flash_attention_plain(q, k, v).float(), rtol=0, atol=1e-2)
 
 
+@pytest.mark.parametrize("kv_dtype", ["int8", "int4"])
+def test_quantized_paged_attention_kernel_matches_plain(card, kv_dtype):
+    gen = torch.Generator(device=card).manual_seed(3)
+    codec = llama.quantize_kv if kv_dtype == "int8" else llama.quantize_kv_int4
+    for Dh in (64, 128, 256):
+        B, Hq, Hkv, page, pmax = 4, 8, 2, 16, 8
+        P = 1 + B * pmax
+        k, ks = codec(torch.randn((P, page, Hkv, Dh), generator=gen, device=card))
+        v, vs = codec(torch.randn((P, page, Hkv, Dh), generator=gen, device=card))
+        tables = (1 + torch.randperm(B * pmax, generator=gen, device=card)).reshape(B, pmax).int()
+        tables[0] = 0  # a dead row on the scratch page
+        for T, positions in ((1, [0, 5, 70, page * pmax - 1]), (4, [0, 17, 40, page * pmax - 4])):
+            q = torch.randn((B, T, Hq, Dh), generator=gen, device=card).to(torch.bfloat16)
+            pos = torch.tensor(positions, dtype=torch.int32, device=card)
+            before = pa.paged_attention.launches[kv_dtype]
+            out = pa.paged_attention(q, k, v, tables, pos, ks, vs)
+            assert pa.paged_attention.launches[kv_dtype] == before + 1
+            ref = pa.paged_attention_plain(q, k, v, tables, pos, ks, vs)
+            assert bool(torch.isfinite(out.float()).all())
+            # f32 inside both (scales folded after the integer dots), one
+            # bf16 rounding of |out| < ~2
+            torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=1e-2)
+
+
+def test_w8a8_matmul_kernel_is_bitwise_its_plain_version(card):
+    gen = torch.Generator(device=card).manual_seed(4)
+    for M, K, F in ((1, 200, 700), (8, 4096, 1024), (37, 1000, 512), (128, 384, 1536), (8, 14336, 512)):
+        packed = quant.quantize_int8(torch.randn((K, F), generator=gen, device=card) * 0.05)
+        x = torch.randn((M, K), generator=gen, device=card).to(torch.bfloat16)
+        before = im.int8_w8a8_matmul.launches
+        y = im.int8_w8a8_matmul(x, packed["q"], packed["scale"])
+        assert im.int8_w8a8_matmul.launches == before + 1
+        # exact int32 sums on both sides, the same f32 epilogue
+        assert torch.equal(y, im.int8_w8a8_matmul_plain(x, packed["q"], packed["scale"])), (M, K, F)
+
+
+def test_w8a8_prefill_path_is_bitwise_the_plain_formula(card):
+    gen = torch.Generator(device=card).manual_seed(5)
+    for M, K, F in ((300, 200, 700), (1024, 4096, 6144)):
+        packed = quant.quantize_int8(torch.randn((K, F), generator=gen, device=card) * 0.05)
+        x = torch.randn((M, K), generator=gen, device=card).to(torch.bfloat16)
+        y = im.int8_matmul_w8a8_prefill(x, packed["q"], packed["scale"])
+        assert torch.equal(y, im.int8_w8a8_matmul_plain(x, packed["q"], packed["scale"])), (M, K, F)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_serve(card):
     q = torch.zeros((1, 1, 4, 16), dtype=torch.bfloat16, device=card)
     pool = torch.zeros((2, 8, 2, 16), dtype=torch.bfloat16, device=card)
@@ -76,3 +122,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_serve(card):
     x = torch.zeros((1, 8, 2, 16), dtype=torch.bfloat16, device=card)
     with pytest.raises(ValueError):
         fa.flash_attention_causal(x, x[:, :, :1], x[:, :, :1])
+    # an int8 pool without its scales, a packed pool of the wrong width
+    q = torch.zeros((1, 1, 4, 128), dtype=torch.bfloat16, device=card)
+    pool8 = torch.zeros((2, 8, 2, 128), dtype=torch.int8, device=card)
+    with pytest.raises(ValueError):
+        pa.paged_attention(q, pool8, pool8, tables, torch.zeros(1, dtype=torch.int32, device=card))
+    pool4 = torch.zeros((2, 8, 2, 128), dtype=torch.uint8, device=card)
+    scales = torch.ones((2, 8, 2), device=card)
+    with pytest.raises(ValueError):
+        pa.paged_attention(q, pool4, pool4, tables, torch.zeros(1, dtype=torch.int32, device=card),
+                           scales, scales)

@@ -1,13 +1,14 @@
 """Ragged paged attention: the port's plain version (what its CUDA wrapper
 runs on CPU tensors) against the Pallas kernel in interpret mode, over
 the ragged page tables of tests/test_page_attention.py (dead row, one-page
-row, mid-length row, full row, multi-query chunks), plus the two
-``supports_geometry`` predicates."""
+row, mid-length row, full row, multi-query chunks), for the bf16, int8 and
+int4 pools, plus the two ``supports_geometry`` predicates."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from generativeaiexamples_tpu.models import llama as jllama
 from generativeaiexamples_tpu.ops import page_attention as jpa
 from generativeaiexamples_tpu_torch.models.convert import to_tensor
 from generativeaiexamples_tpu_torch.ops import page_attention as tpa
@@ -96,9 +97,64 @@ def test_supports_geometry_agrees_with_jax(geom):
 
 
 def test_supports_geometry_serves_bf16_pools_only():
-    assert tpa.supports_geometry(128, 128, 32, 8)
-    assert not tpa.supports_geometry(128, 128, 32, 8, kv_dtype="int8")
-    assert not tpa.supports_geometry(128, 128, 32, 8, kv_dtype="int4")
+    """Named for the first slice; the kernel now serves bf16, int8 and int4
+    pools, and nothing else."""
+    for kv_dtype in ("bfloat16", "int8", "int4"):
+        assert tpa.supports_geometry(128, 128, 32, 8, kv_dtype=kv_dtype)
+    assert not tpa.supports_geometry(128, 128, 32, 8, kv_dtype="fp8")
     # a head dim the CUDA kernel is not instantiated for
     assert not tpa.supports_geometry(8, 16, 4, 2)
     assert tpa.MAX_QUERY_ROWS == jpa.MAX_QUERY_ROWS
+
+
+def _quantized_case(seed, T, positions, kv_dtype):
+    """Pools quantized by the JAX package's own codec, so both sides read
+    the same int8 / packed int4 rows and scales."""
+    rng = np.random.default_rng(seed)
+    codec = jllama.quantize_kv if kv_dtype == "int8" else jllama.quantize_kv_int4
+    k, ks = codec(jnp.asarray(rng.standard_normal((POOL, PAGE, Hkv, Dh)), jnp.float32))
+    v, vs = codec(jnp.asarray(rng.standard_normal((POOL, PAGE, Hkv, Dh)), jnp.float32))
+    q = jnp.asarray(rng.standard_normal((B, T, Hq, Dh)), jnp.bfloat16)
+    tables = _tables()
+    pos = np.asarray(positions, np.int32)
+    ref = jpa.paged_attention(q, k, v, jnp.asarray(tables), jnp.asarray(pos), ks, vs, interpret=True)
+    out = tpa.paged_attention(
+        *(to_tensor(np.asarray(a)) for a in (q, k, v)),
+        torch.from_numpy(tables), torch.from_numpy(pos),
+        *(to_tensor(np.asarray(a)) for a in (ks, vs)),
+    )
+    return out, np.asarray(ref, np.float32)
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "int4"])
+@pytest.mark.parametrize(
+    "T,positions",
+    [
+        (1, [3, 25, S - 1]),  # one-page row, mid-length row, full-capacity row
+        (1, [0, 0, 40]),  # a dead row (position 0 on the scratch page)
+        (4, [2, 20, S - 4]),  # multi-query rows: query t attends <= pos + t
+    ],
+)
+def test_quantized_plain_matches_pallas_interpret(kv_dtype, T, positions):
+    """The scales fold in after the integer dots on both sides; the Pallas
+    kernel also rounds prob * v_scale to bf16 before P.V, which the plain
+    version does not: the same ATOL as the bf16 pool."""
+    out, ref = _quantized_case(T + 10, T, positions, kv_dtype)
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == (B, T, Hq, Dh)
+    assert bool(torch.isfinite(out.float()).all())
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "int4"])
+def test_supports_geometry_agrees_with_jax_per_pool_dtype(kv_dtype):
+    """Against the JAX predicate's structural half (``interpret=True``):
+    its compiled half adds TPU lane tiling (an int4 pool's Dh/2 bytes must
+    fill 128 lanes), which the GPU does not have. Every geometry here has a
+    head dim the CUDA kernel is built for."""
+    for page, dh, hq, hkv, t in GEOMETRIES:
+        assert tpa.supports_geometry(page, dh, hq, hkv, t, kv_dtype) == jpa.supports_geometry(
+            page, dh, hq, hkv, t, interpret=True, kv_dtype=kv_dtype
+        ), (page, dh, hq, hkv, t)
+    # int4 packs two lanes a byte: an odd head dim is refused by both
+    assert not tpa.supports_geometry(128, 127, 32, 8, kv_dtype="int4")
+    assert not jpa.supports_geometry(128, 127, 32, 8, kv_dtype="int4", interpret=True)

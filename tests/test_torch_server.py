@@ -130,3 +130,50 @@ def test_sampling_defaults_match_the_jax_server(base):
     ref = jserver.ModelServer()._sampling({"stop": "x"})
     for field in ("temperature", "top_p", "max_tokens", "stop", "seed"):
         assert getattr(mine, field) == getattr(ref, field), field
+
+
+def test_engine_config_reads_the_jax_env_names(monkeypatch):
+    """Every field of the port's EngineConfig reads the environment
+    variable the JAX config gives the same engine field, with the same
+    value: APP_ENGINE_KVCACHEDTYPE=int8 (bench.py's end-to-end default)
+    serves an int8 pool."""
+    import dataclasses
+
+    from generativeaiexamples_tpu.config.schema import AppConfig
+
+    jax_env = {env: path for env, path, _ in AppConfig.envvars() if path[0] == "engine"}
+    for f in dataclasses.fields(EngineConfig):
+        assert EngineConfig.env_name(f.name) in jax_env, f.name
+    env = {
+        "APP_ENGINE_QUANTIZATION": "w8a8", "APP_ENGINE_KVCACHEDTYPE": "int8",
+        "APP_ENGINE_MAXBATCHSIZE": "4", "APP_ENGINE_STREAMTIMEOUTS": "5.5",
+        "APP_ENGINE_MODELCONFIGNAME": "debug", "APP_ENGINE_PAGESIZE": "16",
+    }
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    mine = EngineConfig.from_env()
+    ref = AppConfig.from_dict({}).engine
+    for f in dataclasses.fields(EngineConfig):
+        assert getattr(mine, f.name) == getattr(ref, f.name), f.name
+    assert (mine.quantization, mine.kv_cache_dtype, mine.max_batch_size) == ("w8a8", "int8", 4)
+    mine.validate()
+    monkeypatch.setenv("APP_ENGINE_MAXBATCHSIZE", "many")
+    with pytest.raises(ValueError, match="APP_ENGINE_MAXBATCHSIZE"):
+        EngineConfig.from_env()
+
+
+def test_server_engine_comes_from_the_env(monkeypatch):
+    """The process engine a server builds on first use is configured by
+    the APP_ENGINE_* environment (the port's engine builds on the card,
+    so the engine class is replaced by a recorder here)."""
+    from generativeaiexamples_tpu_torch.engine import llm_engine
+    from generativeaiexamples_tpu_torch.engine.server import ModelServer
+
+    built = []
+    monkeypatch.setattr(llm_engine, "_ENGINE", None)
+    monkeypatch.setattr(llm_engine, "LLMEngine", lambda config: built.append(config) or config)
+    monkeypatch.setenv("APP_ENGINE_KVCACHEDTYPE", "int4")
+    monkeypatch.setenv("APP_ENGINE_QUANTIZATION", "int8")
+    engine = ModelServer().engine
+    assert built == [engine]
+    assert (engine.kv_cache_dtype, engine.quantization) == ("int4", "int8")
