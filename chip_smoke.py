@@ -5,25 +5,28 @@
 Phases (each one's failure makes the script exit non-zero):
 
 1. the card's name and power limit, torch and CUDA versions;
-2. build every CUDA kernel of the serving path from ``csrc/`` (nvcc, in
-   parallel);
+2. build every CUDA kernel of the serving path from ``csrc/`` (five
+   files, one nvcc each, all started together);
 3. each kernel against its plain PyTorch version at the serving path's
    shapes for llama3-8b, with its time, the plain version's, one library
    call's as a yardstick, and its bound: int8_matmul and int8_w8a8_matmul
    at the four projections and the lm_head, paged_attention over bf16,
-   int8 and int4 pools, flash_attention_causal;
+   int8 and int4 pools, flash_attention_causal, decode_attention over the
+   fixed layout's int8 cache (a ragged and a uniform batch);
 4. model level at full llama3-8b width and depth (int8 packs, random from
-   a seed), for each serving recipe (int8 weights + bf16 KV, w8a8 + int8
-   KV, int8 weights + int4 KV): one 512-token prefill and 8 decode steps
-   on the kernel path and on the plain path, logits and greedy tokens
-   compared;
-5. serve: three engines at full llama3-8b width and depth, built one
-   after another: A (int8 weights, bf16 KV) and B (w8a8, int8 KV) behind
-   the OpenAI-compatible HTTP server with a few concurrent requests (chat
-   streaming and not, completions, one prompt longer than
-   ``prefill_chunk``), then 8 concurrent ``generate_ids`` on each of A, B
-   and C (int8 weights, int4 KV). Every kernel's launch count is set to 0
-   just before each engine serves and read just after.
+   a seed), for each paged serving recipe (int8 weights + bf16 KV, w8a8 +
+   int8 KV, int8 weights + int4 KV) and for the fixed layout (int8 weights
+   + int8 cache): one 512-token prefill and 8 decode steps on the kernel
+   path and on the plain path, logits and greedy tokens compared; the
+   fixed kernel path against the paged int8 kernel path;
+5. serve: four engines at full llama3-8b width and depth, built one
+   after another: A (int8 weights, bf16 KV), B (w8a8, int8 KV) and D
+   (int8 weights, int8 KV, fixed layout) behind the OpenAI-compatible
+   HTTP server with a few concurrent requests (chat streaming and not,
+   completions, one prompt longer than ``prefill_chunk``), then 8
+   concurrent ``generate_ids`` on each of A, B, C (int8 weights, int4 KV)
+   and D. Every kernel's launch count is set to 0 just before each engine
+   serves and read just after.
 
 It then prints one JSON line of per-kernel results and, last, the device
 line. It imports nothing of JAX.
@@ -43,6 +46,7 @@ import urllib.request
 import torch
 
 from generativeaiexamples_tpu_torch.ops import _build
+from generativeaiexamples_tpu_torch.ops import decode_attention as da
 from generativeaiexamples_tpu_torch.ops import flash_attention as fa
 from generativeaiexamples_tpu_torch.ops import int8_matmul as im
 from generativeaiexamples_tpu_torch.ops import page_attention as pa
@@ -61,13 +65,20 @@ KERNELS = {
                                "generativeaiexamples_tpu_torch/csrc/flash_attention.cu"),
     "int8_w8a8_matmul": ("generativeaiexamples_tpu/ops/int8_matmul.py:179",
                          "generativeaiexamples_tpu_torch/csrc/int8_w8a8_matmul.cu"),
+    "decode_attention": ("generativeaiexamples_tpu/ops/decode_attention.py:75",
+                         "generativeaiexamples_tpu_torch/csrc/decode_attention.cu"),
 }
-_COUNTED = (im.int8_matmul, im.int8_w8a8_matmul, fa.flash_attention_causal)
-# the serving recipes: (name, quantization, kv_cache_dtype, kernels its path must launch)
+_COUNTED = (im.int8_matmul, im.int8_w8a8_matmul, fa.flash_attention_causal, da.decode_attention)
+# the serving recipes: (name, quantization, kv_cache_dtype, kv_layout, kernels its path must launch)
 RECIPES = (
-    ("A", "int8", "bfloat16", ("int8_matmul", "paged_attention[bfloat16]", "flash_attention_causal")),
-    ("B", "w8a8", "int8", ("int8_w8a8_matmul", "paged_attention[int8]", "flash_attention_causal")),
-    ("C", "int8", "int4", ("int8_matmul", "paged_attention[int4]", "flash_attention_causal")),
+    ("A", "int8", "bfloat16", "paged",
+     ("int8_matmul", "paged_attention[bfloat16]", "flash_attention_causal")),
+    ("B", "w8a8", "int8", "paged",
+     ("int8_w8a8_matmul", "paged_attention[int8]", "flash_attention_causal")),
+    ("C", "int8", "int4", "paged",
+     ("int8_matmul", "paged_attention[int4]", "flash_attention_causal")),
+    ("D", "int8", "int8", "fixed",
+     ("int8_matmul", "decode_attention", "flash_attention_causal")),
 )
 
 
@@ -386,6 +397,74 @@ def check_flash(timer, dev, gen, results) -> None:
     results["flash_attention_causal"]["max_abs_err"] = worst
 
 
+def check_decode(timer, dev, gen, results) -> None:
+    """decode_attention over the fixed layout's int8 head-major cache at
+    llama3-8b geometry and the engine's capacity (B=8, S=8192), for a
+    ragged batch (one slot at 8191, six at 100-160, a dead slot at 0) and a
+    uniform one (every slot at 2047)."""
+    from generativeaiexamples_tpu_torch.models.llama import PRESETS, quantize_kv
+
+    cfg = PRESETS[MODEL]
+    B, S = 8, 8192
+    Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    k_q, k_s = quantize_kv(torch.randn((B, Hkv, S, Dh), generator=gen, device=dev))
+    v_q, v_s = quantize_kv(torch.randn((B, Hkv, S, Dh), generator=gen, device=dev))
+    k_s, v_s = k_s[:, :, None, :].contiguous(), v_s[:, :, None, :].contiguous()
+    q = torch.randn((B, Hq, Dh), generator=gen, device=dev).to(torch.bfloat16)
+    # yardstick: SDPA over the dequantized bf16 strips with a length mask
+    kd = (k_q.float() * k_s[:, :, 0, :, None]).to(torch.bfloat16)
+    vd = (v_q.float() * v_s[:, :, 0, :, None]).to(torch.bfloat16)
+    cases = {
+        "ragged": [8191, 100, 112, 125, 131, 144, 160, 0],
+        "uniform": [2047] * B,
+    }
+    out_rows = {}
+    for case, positions in cases.items():
+        pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+        args = (q, k_q, k_s, v_q, v_s, pos)
+        out = da.decode_attention(*args)
+        ref = da.decode_attention_plain(*args)
+        torch.cuda.synchronize()
+        err = _max_err(out, ref)
+        tol = 1e-2  # outputs are convex mixes of N(0, 1) rows; f32 inside, one bf16 rounding
+        # each slot against its own size as well: a long strip averages
+        # thousands of rows, so its outputs are ~sqrt(e / rows) and an
+        # absolute limit set by the short slots would let a merge fault on
+        # it pass; one bf16 rounding is 2^-9 of a value
+        diff = (out.float() - ref.float()).abs().amax(dim=(1, 2))
+        rms = ref.float().pow(2).mean(dim=(1, 2)).sqrt()
+        rel = float((diff / rms).max())
+        rel_tol = 0.05
+        if not bool(torch.isfinite(out.float()).all()):
+            raise AssertionError(f"decode_attention[{case}] returned non-finite values")
+        k_ms = timer.ms(lambda: da.decode_attention(*args))
+        p_ms = timer.ms(lambda: da.decode_attention_plain(*args), iters=5)
+        mask = (torch.arange(S, device=dev)[None, :] <= pos.long()[:, None])[:, None, None, :]
+        l_ms = timer.ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None, :], kd, vd, attn_mask=mask, enable_gqa=True))
+        nbytes, flops = hardware.decode_attention_cost(positions, Hq, Hkv, Dh, S=S)
+        b_ms, b_by = hardware.bound_ms(nbytes, flops)
+        ok = err <= tol and rel <= rel_tol
+        log(f"  decode_attention[{case}] B={B} S={S} positions={positions}: max|err|={err:.4g} "
+            f"tol={tol} max per-slot |err|/rms={rel:.4g} tol={rel_tol} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by}, {nbytes / 1e6:.1f} MB) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"decode_attention[{case}] disagrees with its plain version")
+        out_rows[case] = {
+            "max_abs_err": err, "max_rel_err": rel, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": l_ms,
+        }
+    del kd, vd
+    results["decode_attention"] = {
+        **out_rows["ragged"],
+        "max_abs_err": max(r["max_abs_err"] for r in out_rows.values()),
+        "max_rel_err": max(r["max_rel_err"] for r in out_rows.values()),
+        "shape": "B=8 decode slots over an int8 fixed cache S=8192, Hq=32 Hkv=8 Dh=128, ragged "
+                 "positions (8191, six at 100-160, a dead slot at 0)",
+        "uniform": {**out_rows["uniform"], "shape": "the same cache, every slot at 2047"},
+    }
+
+
 def phase_kernels(dev) -> dict:
     timer = Timer(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -394,6 +473,7 @@ def phase_kernels(dev) -> dict:
     check_w8a8(timer, dev, gen, results)
     check_paged(timer, dev, gen, results)
     check_flash(timer, dev, gen, results)
+    check_decode(timer, dev, gen, results)
     del timer
     torch.cuda.empty_cache()
     log(f"  launches in this phase (checks and timing, not the serving path): {counts()}")
@@ -460,29 +540,72 @@ def phase_model(dev) -> None:
         torch.cuda.synchronize()
         return torch.stack(out), toks
 
-    for name, quantization, kv_dtype, _ in RECIPES:
+    S_fixed = per_row * page  # the fixed strips hold the same rows as a paged row
+    slots = torch.arange(B, device=dev)
+
+    def run_fixed(kernels: bool, forced=None):
+        """The fixed layout with int8 weights and an int8 head-major cache
+        read by decode_attention (kernel path) or decode_attention_xla
+        (plain path)."""
+        qk = None if kernels else False
+        cache = llama.init_kv_cache_layers(cfg, B, S_fixed, torch.bfloat16, dev, quantized=True)
+        logits, kvs = llama.prefill_layers(params, cfg, tokens, lengths_d, use_flash=kernels,
+                                           quant_kernel=qk)
+        llama.write_prefill_slots(cache, kvs, slots)
+        del kvs
+        out, toks, pos = [logits], [], lengths_d.clone()
+        for s in range(steps):
+            nxt = torch.argmax(out[-1], dim=-1) if forced is None else forced[s]
+            toks.append(nxt)
+            logits, _ = llama.decode_layers(params, cfg, nxt, pos, cache, window=S_fixed,
+                                            quant_kernel=qk, kv_kernel=kernels)
+            out.append(logits)
+            pos = pos + 1
+        torch.cuda.synchronize()
+        return torch.stack(out), toks
+
+    def compare(label, k_logits, p_logits, t1):
+        """Max |dlogits| within LOGITS_TOL, and the greedy tokens equal
+        wherever the reference's top-2 margin exceeds it."""
+        if not bool(torch.isfinite(k_logits).all()):
+            raise AssertionError(f"{label}: non-finite logits")
+        diff = float((k_logits - p_logits).abs().max())
+        top2 = torch.topk(p_logits, 2, dim=-1).values
+        margin = top2[..., 0] - top2[..., 1]
+        agree = torch.argmax(k_logits, -1) == torch.argmax(p_logits, -1)
+        bad = int(((margin > LOGITS_TOL) & ~agree).sum())
+        log(f"  model {MODEL} (L={cfg.num_layers}, hidden {cfg.hidden_size}, vocab {cfg.vocab_size}), "
+            f"{label}: prefill B={B} T={T} + {steps} decode steps: max|dlogits|={diff:.4g} "
+            f"tol={LOGITS_TOL} greedy agree {int(agree.sum())}/{agree.numel()} (disagreements "
+            f"where margin > tol: {bad}) logits shape {tuple(k_logits.shape)} "
+            f"({time.time() - t1:.1f} s)")
+        if diff > LOGITS_TOL or bad:
+            raise AssertionError(f"{label}: the two paths disagree at model level")
+
+    for name, quantization, kv_dtype, layout, _ in RECIPES:
+        if layout != "paged":
+            continue
         t1 = time.time()
         # quant_kernel values of the kernel path and of the plain path
         qk_kernel, qk_plain = ("w8a8", "w8a8_plain") if quantization == "w8a8" else (None, False)
         with torch.inference_mode():
             k_logits, k_toks = run(qk_kernel, kv_dtype, True)
             p_logits, _ = run(qk_plain, kv_dtype, False, forced=k_toks)  # same inputs at every step
-        if not bool(torch.isfinite(k_logits).all()):
-            raise AssertionError(f"recipe {name}: kernel path produced non-finite logits")
-        diff = float((k_logits - p_logits).abs().max())
-        top2 = torch.topk(p_logits, 2, dim=-1).values
-        margin = top2[..., 0] - top2[..., 1]
-        agree = torch.argmax(k_logits, -1) == torch.argmax(p_logits, -1)
-        decided = margin > LOGITS_TOL
-        bad = int((decided & ~agree).sum())
-        log(f"  model {MODEL} (L={cfg.num_layers}, hidden {cfg.hidden_size}, vocab {cfg.vocab_size}), "
-            f"recipe {name} ({quantization} weights, {kv_dtype} KV): prefill B={B} T={T} + {steps} "
-            f"decode steps: max|dlogits|={diff:.4g} tol={LOGITS_TOL} greedy agree "
-            f"{int(agree.sum())}/{agree.numel()} (disagreements where margin > tol: {bad}) "
-            f"logits shape {tuple(k_logits.shape)} ({time.time() - t1:.1f} s)")
-        if diff > LOGITS_TOL or bad:
-            raise AssertionError(f"recipe {name}: kernel path and plain path disagree at model level")
+        compare(f"recipe {name} ({quantization} weights, {kv_dtype} KV), kernel vs plain path",
+                k_logits, p_logits, t1)
         del k_logits, p_logits
+
+    with torch.inference_mode():
+        t1 = time.time()
+        f_logits, f_toks = run_fixed(True)
+        p_logits, _ = run_fixed(False, forced=f_toks)
+        compare("recipe D (int8 weights, int8 fixed cache), decode_attention kernel vs plain "
+                "path", f_logits, p_logits, t1)
+        t1 = time.time()
+        g_logits, _ = run(None, "int8", True, forced=f_toks)
+        compare("int8 weights + int8 KV, fixed layout kernel path vs paged layout kernel path",
+                f_logits, g_logits, t1)
+        del f_logits, p_logits, g_logits
     del params
     torch.cuda.empty_cache()
     log(f"phase model: ok ({time.time() - t0:.1f} s)")
@@ -503,31 +626,46 @@ def _post(base, path, body, timeout=600):
 
 def device_step_ms(engine) -> list:
     """Device times (sorted, ms) of five decode steps of the serving model at
-    B=8 (kernel path, the engine's pool and quantization, 160-token
-    contexts), CUDA events around each step with a ~0.5 s spin kernel
-    queued ahead and Python's collector off, so the host has enqueued the
-    whole step before the device starts it: no launch gaps are timed. (torch.profiler does not
-    see every launch of the ctypes-loaded kernels, so it is not used.)"""
+    B=8 (kernel path, the engine's layout, KV dtype and quantization,
+    160-token contexts), CUDA events around each step with a ~0.5 s spin
+    kernel queued ahead and Python's collector off, so the host has enqueued
+    the whole step before the device starts it: no launch gaps are timed.
+    (torch.profiler does not see every launch of the ctypes-loaded kernels,
+    so it is not used.)"""
     from generativeaiexamples_tpu_torch.models import llama
 
     cfg, dev, page = engine.model_config, engine.device, engine.engine_config.page_size
     B, per_row = engine.num_slots, 2
-    pool = llama.init_kv_pool(
-        cfg, 1 + B * per_row, page, torch.bfloat16, dev,
-        quantized=engine._kv_quant, packed=engine._kv_packed,
-    )
-    tables = (1 + torch.arange(B * per_row, device=dev, dtype=torch.int32)).reshape(B, per_row)
     tokens = torch.arange(B, device=dev) * 31 % 250
     positions = torch.full((B,), 160, device=dev)
-    live = torch.ones(B, dtype=torch.bool, device=dev)
-
-    def step():
-        logits, _ = llama.decode_layers_paged(
-            engine.params, cfg, tokens, positions, live, tables, pool,
-            window=per_row * page, page_size=page, quant_kernel=engine._quant_kernel,
-            page_kernel=True,
+    if engine._paged:
+        pool = llama.init_kv_pool(
+            cfg, 1 + B * per_row, page, torch.bfloat16, dev,
+            quantized=engine._kv_quant, packed=engine._kv_packed,
         )
-        torch.argmax(logits, dim=-1)
+        tables = (1 + torch.arange(B * per_row, device=dev, dtype=torch.int32)).reshape(B, per_row)
+        live = torch.ones(B, dtype=torch.bool, device=dev)
+
+        def step():
+            logits, _ = llama.decode_layers_paged(
+                engine.params, cfg, tokens, positions, live, tables, pool,
+                window=per_row * page, page_size=page, quant_kernel=engine._quant_kernel,
+                page_kernel=True,
+            )
+            torch.argmax(logits, dim=-1)
+    else:
+        # per-slot strips of the same 256 rows; the decode kernel reads only
+        # each slot's live rows, whatever the capacity
+        cache = llama.init_kv_cache_layers(
+            cfg, B, per_row * page, torch.bfloat16, dev, quantized=engine._kv_quant
+        )
+
+        def step():
+            logits, _ = llama.decode_layers(
+                engine.params, cfg, tokens, positions, cache, window=per_row * page,
+                quant_kernel=engine._quant_kernel, kv_kernel=engine._kv_kernel,
+            )
+            torch.argmax(logits, dim=-1)
 
     times = []
     gc.disable()  # a collection mid-enqueue would outlast the spin and be timed
@@ -600,7 +738,7 @@ def _http_requests(engine, base) -> None:
         f"long chat ({long_ids} prompt ids, chunked prefill): all 200")
 
 
-def serve_recipe(dev, name, quantization, kv_dtype, expected, http: bool) -> dict:
+def serve_recipe(dev, name, quantization, kv_dtype, layout, expected, http: bool) -> dict:
     """Build one engine, serve it (HTTP when ``http``, then 8 greedy
     generate_ids), and check that its path launched its kernels. Returns
     its decode metrics and the launch counts of its serving run."""
@@ -609,12 +747,16 @@ def serve_recipe(dev, name, quantization, kv_dtype, expected, http: bool) -> dic
     from generativeaiexamples_tpu_torch.engine.server import make_server
 
     t0 = time.time()
-    config = EngineConfig(model_config_name=MODEL, quantization=quantization, kv_cache_dtype=kv_dtype)
+    config = EngineConfig(model_config_name=MODEL, quantization=quantization,
+                          kv_cache_dtype=kv_dtype, kv_layout=layout)
     engine = LLMEngine(config, device=dev)
+    if engine._paged != (layout == "paged"):
+        raise AssertionError(f"engine {name}: kv_layout={layout!r} did not resolve to {layout}")
+    kv = (f"{kv_dtype} paged pool {engine._pool_pages} pages x {config.page_size}" if engine._paged
+          else f"{kv_dtype} fixed cache {engine.num_slots} slots x {engine.max_seq_len} rows")
     log(f"  engine {name} built ({time.time() - t0:.1f} s): {MODEL} {quantization} weights, "
-        f"{kv_dtype} paged pool {engine._pool_pages} pages x {config.page_size}, max_batch_size "
-        f"{config.max_batch_size}, prefill_chunk {config.prefill_chunk}, decode_block "
-        f"{config.decode_block}")
+        f"{kv}, max_batch_size {config.max_batch_size}, prefill_chunk {config.prefill_chunk}, "
+        f"decode_block {config.decode_block}")
     server = make_server("127.0.0.1", 0, engine=engine)
     thread = threading.Thread(target=server.serve_forever, name="smoke-http", daemon=True)
     thread.start()
@@ -683,8 +825,9 @@ def serve_recipe(dev, name, quantization, kv_dtype, expected, http: bool) -> dic
 def phase_serve(dev) -> dict:
     t0 = time.time()
     serves = {}
-    for name, quantization, kv_dtype, expected in RECIPES:
-        serves[name] = serve_recipe(dev, name, quantization, kv_dtype, expected, http=name != "C")
+    for name, quantization, kv_dtype, layout, expected in RECIPES:
+        serves[name] = serve_recipe(dev, name, quantization, kv_dtype, layout, expected,
+                                    http=name != "C")
         gc.collect()  # the engine and its dispatch thread reference each other
         torch.cuda.empty_cache()
         log(f"  after engine {name}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")

@@ -29,6 +29,10 @@ class EngineConfig:
     kv_cache_dtype: str = "bfloat16"
     max_batch_size: int = 8
     max_seq_len: int = 8192
+    # auto | paged | fixed: auto pages wherever the page geometry tiles
+    # (engine/kv_pages.auto_layout_blockers) and logs why it serves fixed
+    # otherwise; fixed keeps one dense max_seq_len strip per slot
+    kv_layout: str = "auto"
     page_size: int = 128
     # device page-pool size; 0 = one full-capacity strip per slot + scratch
     kv_pool_pages: int = 0
@@ -74,14 +78,21 @@ class EngineConfig:
                 f"kv_cache_dtype must be 'bfloat16', 'int8', or 'int4', "
                 f"got {self.kv_cache_dtype!r}"
             )
-        p = self.page_size
-        if p <= 0 or p & (p - 1) or p > 128:
-            raise ValueError(f"page_size must be a power of two <= 128, got {p}")
-        if self.prefill_chunk <= 0 or self.prefill_chunk % p:
+        if self.kv_layout not in ("auto", "paged", "fixed"):
             raise ValueError(
-                f"prefill_chunk ({self.prefill_chunk}) must be a positive multiple of "
-                f"page_size ({p})"
+                f"kv_layout must be 'auto', 'paged' or 'fixed', got {self.kv_layout!r}"
             )
+        if self.prefill_chunk <= 0:
+            raise ValueError(f"prefill_chunk must be > 0, got {self.prefill_chunk}")
+        p = self.page_size
+        if self.kv_layout == "paged":  # auto falls back to fixed instead
+            if p <= 0 or p & (p - 1) or p > 128:
+                raise ValueError(f"page_size must be a power of two <= 128, got {p}")
+            if self.prefill_chunk % p:
+                raise ValueError(
+                    f"prefill_chunk ({self.prefill_chunk}) must be a positive multiple of "
+                    f"page_size ({p})"
+                )
         if self.max_batch_size < 1:
             raise ValueError(f"max_batch_size must be >= 1, got {self.max_batch_size}")
         if self.decode_block < 1:

@@ -3,7 +3,8 @@
 A copy of the parts of generativeaiexamples_tpu/engine/kv_pages.py that the
 serving slice uses: a free list over the device page pool, with
 physical page 0 reserved as the scratch page (dead rows and padding writes
-land there), and the sizing rules. The engine reserves every page a request
+land there), the sizing rules, and the rules under which
+``kv_layout='auto'`` serves the fixed layout instead. The engine reserves every page a request
 can touch at admission (prompt + generation budget + dispatch slack), so a
 decode step never allocates and the pool never over-commits. Counters are
 plain integers (``stats()``). Refcounted sharing comes with the prefix
@@ -37,6 +38,27 @@ def pool_pages(cfg, max_seq_len: int) -> int:
     if cfg.kv_pool_pages > 0:
         return cfg.kv_pool_pages
     return 1 + cfg.max_batch_size * pages_for_tokens(max_seq_len, cfg.page_size)
+
+
+def auto_layout_blockers(cfg, max_seq_len: int) -> List[str]:
+    """Why ``kv_layout='auto'`` cannot resolve to paged for this config
+    (empty list = paged): the page-geometry rules of the JAX package's
+    list, the ones an explicit 'paged' would refuse. The port is always
+    layered and always chunks, so those two rules never fire here. The
+    engine logs the reasons where it falls back to the fixed layout."""
+    reasons: List[str] = []
+    p = cfg.page_size
+    if p <= 0 or (p & (p - 1)) != 0 or p > 128:
+        reasons.append(f"page_size {p} is not a power of two <= 128")
+    elif cfg.prefill_chunk % p:
+        reasons.append(
+            f"prefill_chunk {cfg.prefill_chunk} is not a multiple of page_size {p}"
+        )
+    elif max_seq_len % p:
+        reasons.append(
+            f"effective max_seq_len {max_seq_len} is not a multiple of page_size {p}"
+        )
+    return reasons
 
 
 def validate_runtime(page_size: int, max_seq_len: int, pool: int) -> None:

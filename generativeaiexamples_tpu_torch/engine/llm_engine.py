@@ -1,31 +1,39 @@
-"""In-process LLM serving engine: continuous batching over a paged KV pool.
+"""In-process LLM serving engine: continuous batching over a paged KV pool
+or fixed per-slot KV strips.
 
 Counterpart of generativeaiexamples_tpu/engine/llm_engine.py on its main
-serving path (unified scheduler, layered paged programs), with the same
-public surface: ``SamplingParams``, ``submit``, ``generate_ids``,
+serving path (unified scheduler, layered programs, both KV layouts), with
+the same public surface: ``SamplingParams``, ``submit``, ``generate_ids``,
 ``iter_ids``, ``stream_text``, ``chat``, ``abort``, ``shutdown`` and
 ``get_engine``.
 
+``kv_layout`` resolves as in JAX: ``auto`` pages wherever the page
+geometry tiles and otherwise logs its blockers and serves ``fixed``; the
+streams are token-identical between the layouts.
+
 One named daemon thread (``_loop``) does all device work:
 
-1. admits waves of pending requests up to ``max_batch_size`` slots and
-   funds each with every page it can touch (``_fund``);
+1. admits waves of pending requests up to ``max_batch_size`` slots; on
+   the paged layout it funds each with every page it can touch (``_fund``),
+   a fixed slot always holds ``max_seq_len`` rows;
 2. prefills prompts of up to ``prefill_chunk`` tokens monolithically
-   (``llama.prefill_layers`` + ``write_prefill_pages``; the flash kernel
-   serves the wave from T = 512), and longer prompts chunk by chunk
-   (``llama.extend_layers_paged``);
+   (``llama.prefill_layers`` + ``write_prefill_pages`` or
+   ``write_prefill_slots``; the flash kernel serves the wave from T = 512),
+   and longer prompts chunk by chunk (``llama.extend_layers_paged`` or
+   ``llama.extend_layers``);
 3. decodes all slots in blocks of ``decode_block`` steps
-   (``llama.decode_layers_paged``; the paged-attention kernel for the
-   configured pool and the int8 or W8A8 matmul kernel serve every step),
+   (``llama.decode_layers_paged`` with the paged-attention kernel, or
+   ``llama.decode_layers`` with the decode-attention kernel over an int8
+   fixed cache; the int8 or W8A8 matmul kernel serves every projection),
    greedy or sampled with the JAX package's threefry keys, with one
    device-to-host copy of the block's tokens;
 4. emits tokens to each request's queue, with stop ids and
    ``max_tokens``, and releases finished slots and their pages.
 
-Dead slots decode at position 0 and write the scratch page, as in
-``decode_layers_paged``. Prefix caching, speculative decoding,
-disaggregation, snapshots, drain, the flight recorder and telemetry are
-not ported yet.
+Dead slots decode at position 0: on the paged layout they write the
+scratch page, on the fixed layout row 0 of their own strip, as in JAX.
+Prefix caching, speculative decoding, disaggregation, snapshots, drain, the flight
+recorder and telemetry are not ported yet.
 
 The engine runs on the card: ``device=None`` means CUDA and raises when
 no card is present. Tests pass ``device="cpu"``, where every kernel
@@ -51,7 +59,9 @@ from generativeaiexamples_tpu_torch.config import EngineConfig
 from generativeaiexamples_tpu_torch.engine import kv_pages
 from generativeaiexamples_tpu_torch.engine.tokenizer import load_tokenizer
 from generativeaiexamples_tpu_torch.models import llama, sampling
-from generativeaiexamples_tpu_torch.ops import flash_attention, int8_matmul, page_attention, quant
+from generativeaiexamples_tpu_torch.ops import (
+    decode_attention, flash_attention, int8_matmul, page_attention, quant,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -141,14 +151,30 @@ class LLMEngine:
         self.max_seq_len = min(cfg.max_seq_len, model_cfg.max_seq_len)
         self._page = cfg.page_size
         self._decode_block = cfg.decode_block
-        self._pool_pages = kv_pages.pool_pages(cfg, self.max_seq_len)
-        kv_pages.validate_runtime(self._page, self.max_seq_len, self._pool_pages)
-        self._max_pages_per_slot = kv_pages.pages_for_tokens(self.max_seq_len, self._page)
-        # a decode block can write up to a block past a request's budget
-        self._page_slack = cfg.decode_block + 1
+        if cfg.kv_layout == "auto":
+            blockers = kv_pages.auto_layout_blockers(cfg, self.max_seq_len)
+            self._paged = not blockers
+            if blockers:
+                logger.info("kv_layout='auto' resolved to 'fixed': %s", "; ".join(blockers))
+        else:
+            self._paged = cfg.kv_layout == "paged"
+        if self._paged:
+            self._pool_pages = kv_pages.pool_pages(cfg, self.max_seq_len)
+            kv_pages.validate_runtime(self._page, self.max_seq_len, self._pool_pages)
+            self._max_pages_per_slot = kv_pages.pages_for_tokens(self.max_seq_len, self._page)
+            # a decode block can write up to a block past a request's budget
+            self._page_slack = cfg.decode_block + 1
 
         self._kv_quant = cfg.kv_cache_dtype in ("int8", "int4")
         self._kv_packed = cfg.kv_cache_dtype == "int4"
+        if self._kv_packed and not self._paged:
+            # the fixed head-major int8 cache has no packed variant
+            raise ValueError(
+                "kv_cache_dtype='int4' requires the paged KV layout on the layered "
+                "serving path; this config resolved kv_layout='fixed' (set "
+                "kv_layout='paged' with a page geometry that tiles, or use "
+                "kv_cache_dtype='int8')"
+            )
         if self._kv_packed and model_cfg.head_dim % 2:
             raise ValueError(
                 "kv_cache_dtype='int4' packs two values per byte along "
@@ -157,9 +183,18 @@ class LLMEngine:
         # the packed product's mode (int8_matmul.packed_matmul): w8a8 runs
         # per-token int8 activations over the same int8 packs
         self._quant_kernel = "w8a8" if cfg.quantization == "w8a8" else None
-        self._page_kernel = page_attention.supports_geometry(
+        # the attention kernel of each layout: the page kernel reads the
+        # pool, the decode kernel an int8 fixed cache (a bf16 fixed cache
+        # is read by the einsum attention, as in JAX)
+        self._page_kernel = self._paged and page_attention.supports_geometry(
             self._page, model_cfg.head_dim, model_cfg.num_heads, model_cfg.num_kv_heads,
             kv_dtype=cfg.kv_cache_dtype,
+        )
+        self._kv_kernel = (
+            not self._paged and self._kv_quant and decode_attention.supported(
+                self.max_seq_len, model_cfg.head_dim, model_cfg.num_heads,
+                model_cfg.num_kv_heads,
+            )
         )
         if self.device.type == "cuda":
             self._check_kernels(cfg, model_cfg, dtype)
@@ -176,14 +211,22 @@ class LLMEngine:
                 if not int8_matmul.kernel_supported(pack["q"]):
                     raise ValueError(f"int8 pack {tuple(pack['q'].shape)} not served by the kernel")
 
-        self._cache = llama.init_kv_pool(
-            model_cfg, self._pool_pages, self._page, dtype, self.device,
-            quantized=self._kv_quant, packed=self._kv_packed,
-        )
-        self._kv_alloc = kv_pages.PageAllocator(self._pool_pages, self._page)
-        self._tables = torch.zeros(
-            (self.num_slots, self._max_pages_per_slot), dtype=torch.int32, device=self.device
-        )
+        self._kv_alloc: Optional[kv_pages.PageAllocator] = None
+        self._tables: Optional[torch.Tensor] = None
+        if self._paged:
+            self._cache = llama.init_kv_pool(
+                model_cfg, self._pool_pages, self._page, dtype, self.device,
+                quantized=self._kv_quant, packed=self._kv_packed,
+            )
+            self._kv_alloc = kv_pages.PageAllocator(self._pool_pages, self._page)
+            self._tables = torch.zeros(
+                (self.num_slots, self._max_pages_per_slot), dtype=torch.int32, device=self.device
+            )
+        else:
+            self._cache = llama.init_kv_cache_layers(
+                model_cfg, self.num_slots, self.max_seq_len, dtype, self.device,
+                quantized=self._kv_quant,
+            )
         self._stop_ids = set(self.tokenizer.stop_ids())
 
         # Dispatch-thread state: only _loop and what it calls touch these.
@@ -212,11 +255,17 @@ class LLMEngine:
         geometry: a refusal is an error here, not a silent fall back."""
         if dtype != torch.bfloat16:
             raise ValueError("the CUDA kernels serve dtype='bfloat16' only")
-        if not self._page_kernel:
+        if self._paged and not self._page_kernel:
             raise ValueError(
                 f"paged attention kernel refuses page_size={cfg.page_size} "
                 f"head_dim={model_cfg.head_dim} heads={model_cfg.num_heads} "
                 f"kv_heads={model_cfg.num_kv_heads} kv_cache_dtype={cfg.kv_cache_dtype}"
+            )
+        if not self._paged and self._kv_quant and not self._kv_kernel:
+            raise ValueError(
+                f"decode attention kernel refuses the int8 fixed cache max_seq_len="
+                f"{self.max_seq_len} head_dim={model_cfg.head_dim} "
+                f"heads={model_cfg.num_heads} kv_heads={model_cfg.num_kv_heads}"
             )
         bucket = min(cfg.prefill_chunk, self.max_seq_len)
         if bucket >= flash_attention.MIN_T and not flash_attention.supported(
@@ -366,13 +415,14 @@ class LLMEngine:
         """Serving counters: prefill waves and chunks, decode blocks,
         steps and tokens, decode wall time on the dispatch thread (device
         work included: each block ends in a device-to-host copy), TTFTs,
-        and the page allocator's state."""
+        and, on the paged layout, the page allocator's state."""
         out: Dict[str, float] = dict(self._counters)
         ttft = list(self._ttft)
         if ttft:
             out["ttft_mean_s"] = sum(ttft) / len(ttft)
             out["ttft_max_s"] = max(ttft)
-        out.update(self._kv_alloc.stats())
+        if self._kv_alloc is not None:
+            out.update(self._kv_alloc.stats())
         return out
 
     def shutdown(self, timeout: float = 60.0) -> bool:
@@ -438,7 +488,10 @@ class LLMEngine:
         """Reserve every page each claimed request can touch and write the
         funded rows' page tables to the device. A request the pool cannot
         fund goes back to the queue front with every later claim (OOM
-        backpressure, FIFO order kept)."""
+        backpressure, FIFO order kept). A fixed slot always holds
+        ``max_seq_len`` rows: every claim is funded."""
+        if not self._paged:
+            return claimed
         funded: List[_Request] = []
         for idx, req in enumerate(claimed):
             total = kv_pages.pages_needed(
@@ -476,6 +529,14 @@ class LLMEngine:
             w *= 2
         return min(w, self.max_seq_len)
 
+    def _decode_window(self, max_pos: int) -> int:
+        """The attention window of a decode block whose furthest slot is at
+        ``max_pos``: full capacity when a kernel reads each slot's own
+        length; otherwise the rung of ``max_pos + block``."""
+        if self._page_kernel or self._kv_kernel:
+            return self.max_seq_len
+        return self._attention_window(max_pos + self._decode_block)
+
     def _prefill_wave(self, reqs: List[_Request], chunked: bool) -> None:
         cfg = self.model_config
         dev = self.device
@@ -495,7 +556,10 @@ class LLMEngine:
                 self.params, cfg, torch.from_numpy(tokens).to(dev),
                 torch.from_numpy(lengths).to(dev), quant_kernel=self._quant_kernel,
             )
-            llama.write_prefill_pages(self._cache, kvs, self._tables[slots], self._page)
+            if self._paged:
+                llama.write_prefill_pages(self._cache, kvs, self._tables[slots], self._page)
+            else:
+                llama.write_prefill_slots(self._cache, kvs, slots)
             del kvs
         first = self._sample(logits, reqs, [int(n) for n in lengths]).tolist()
         self._counters["prefill_waves"] += 1
@@ -507,7 +571,8 @@ class LLMEngine:
     def _prefill_chunked(self, tokens: np.ndarray, lengths: np.ndarray, slots: torch.Tensor):
         """Chunk k extends every row by up to prefill_chunk tokens at offset
         k * C (rows whose prompt ended earlier run with valid = 0 and write
-        only the scratch page); returns each row's last-token hidden."""
+        only the scratch page, or write back what they read on the fixed
+        layout); returns each row's last-token hidden."""
         dev = self.device
         C = self.engine_config.prefill_chunk
         N, Tmax = tokens.shape
@@ -521,11 +586,18 @@ class LLMEngine:
             valid = torch.from_numpy(np.clip(lengths - k * C, 0, C)).to(dev)
             offsets = torch.full((N,), k * C, dtype=torch.long, device=dev)
             window = self._attention_window(min((k + 1) * C, self.max_seq_len))
-            cand, _ = llama.extend_layers_paged(
-                self.params, self.model_config, torch.from_numpy(tok_k).to(dev), offsets,
-                valid, slots, self._tables, self._cache, window, self._page,
-                quant_kernel=self._quant_kernel,
-            )
+            tok_d = torch.from_numpy(tok_k).to(dev)
+            if self._paged:
+                cand, _ = llama.extend_layers_paged(
+                    self.params, self.model_config, tok_d, offsets, valid, slots,
+                    self._tables, self._cache, window, self._page,
+                    quant_kernel=self._quant_kernel,
+                )
+            else:
+                cand, _ = llama.extend_layers(
+                    self.params, self.model_config, tok_d, offsets, valid, slots,
+                    self._cache, window, quant_kernel=self._quant_kernel,
+                )
             last_h = torch.where((valid > 0)[:, None], cand, last_h)
             self._counters["prefill_chunks"] += 1
         return last_h
@@ -566,10 +638,7 @@ class LLMEngine:
             temps[slot] = req.params.temperature
             topps[slot] = req.params.top_p
             seeds[slot] = req.sampling_seed & 0x7FFFFFFF
-        window = (
-            self.max_seq_len if self._page_kernel
-            else self._attention_window(int(positions.max()) + block)
-        )
+        window = self._decode_window(int(positions.max()))
         keys = None
         if (temps > 0).any():
             # the token produced from input position p is keyed at p + 1;
@@ -584,20 +653,26 @@ class LLMEngine:
         live_d = torch.from_numpy(live).to(dev)
         temps_d = torch.from_numpy(temps).to(dev)
         topps_d = torch.from_numpy(topps).to(dev)
-        slab = []
+        token_slab = []
         for s in range(block):
-            logits, _ = llama.decode_layers_paged(
-                self.params, self.model_config, tok_d, pos_d, live_d, self._tables,
-                self._cache, window=window, page_size=self._page,
-                quant_kernel=self._quant_kernel, page_kernel=self._page_kernel,
-            )
+            if self._paged:
+                logits, _ = llama.decode_layers_paged(
+                    self.params, self.model_config, tok_d, pos_d, live_d, self._tables,
+                    self._cache, window=window, page_size=self._page,
+                    quant_kernel=self._quant_kernel, page_kernel=self._page_kernel,
+                )
+            else:
+                logits, _ = llama.decode_layers(
+                    self.params, self.model_config, tok_d, pos_d, self._cache,
+                    window=window, quant_kernel=self._quant_kernel, kv_kernel=self._kv_kernel,
+                )
             tok_d = sampling.sample_tokens(
                 logits[:, : self._sample_vocab], temps_d, topps_d,
                 None if keys is None else (keys[0][s], keys[1][s]),
             )
-            slab.append(tok_d)
+            token_slab.append(tok_d)
             pos_d = torch.clamp(pos_d + 1, max=max_pos)
-        slab_h = torch.stack(slab).cpu().numpy()  # the block's one sync
+        slab_h = torch.stack(token_slab).cpu().numpy()  # the block's one sync
         self._counters["decode_blocks"] += 1
         self._counters["decode_steps"] += block
         self._counters["decode_rows"] += block * len(snapshot)
@@ -640,15 +715,16 @@ class LLMEngine:
                 self._release(slot)
 
     def _release(self, slot: int) -> None:
-        """Free a slot and its pages; its table row points back at the
-        scratch page."""
+        """Free a slot and, on the paged layout, its pages; its table row
+        points back at the scratch page."""
         req = self._slot_req.pop(slot, None)
         if req is None:
             return
-        pages = self._slot_pages.pop(slot, None)
-        if pages:
-            self._kv_alloc.release(pages)
-        self._tables[slot] = 0
+        if self._paged:
+            pages = self._slot_pages.pop(slot, None)
+            if pages:
+                self._kv_alloc.release(pages)
+            self._tables[slot] = 0
         req.slot = -1
         self._free_slots.append(slot)
 

@@ -1,9 +1,13 @@
 """Llama-family decoder for the serving path, in PyTorch.
 
 Counterpart of generativeaiexamples_tpu/models/llama.py, for the layered
-paged serving path: ``prefill_layers`` + ``write_prefill_pages`` for
-monolithic prefill waves, ``extend_layers_paged`` for chunked prefill,
-and ``decode_layers_paged`` for decode steps. Parameters are plain
+serving path on both KV layouts. Paged: ``prefill_layers`` +
+``write_prefill_pages`` for monolithic prefill waves,
+``extend_layers_paged`` for chunked prefill, and ``decode_layers_paged``
+for decode steps. Fixed (one dense strip per slot,
+``init_kv_cache_layers``): ``write_prefill_slots``, ``extend_layers``,
+``decode_layers`` (int8 caches read through ops/decode_attention.py).
+Parameters are plain
 dictionaries of tensors, one dict per layer (the JAX package's layered
 layout, ``consume_split_params_layers``); projections are dense
 ``[K, F]`` matrices or int8 packs ``{"q", "scale"}`` (ops/quant.py), the
@@ -14,8 +18,9 @@ and are read through the page kernel or the dequantized gather, as in
 JAX.
 
 Differences from the JAX functions, all in PyTorch idiom:
-- the KV page pool is updated IN PLACE (``index_put_``): the pool dicts a
-  caller passes are the pools returned, with no copy;
+- the KV page pool and the fixed caches are updated IN PLACE
+  (``index_put_``): the dicts a caller passes are the ones returned, with
+  no copy;
 - the kernels are chosen by the same flags (``use_flash``,
   ``quant_kernel``, ``page_kernel``); a flag that selects a kernel runs
   it on CUDA tensors and its plain version on CPU tensors;
@@ -33,7 +38,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from generativeaiexamples_tpu_torch.ops import flash_attention, int8_matmul, page_attention
+from generativeaiexamples_tpu_torch.ops import (
+    decode_attention, flash_attention, int8_matmul, page_attention,
+)
 
 Params = Dict[str, Any]
 
@@ -620,6 +627,212 @@ def decode_layers_paged(
                 _gather_page_window(c["v"], tables, Pw, page_size),
                 mask,
             )
+
+        h = _block(h, lp, cfg, pos2, attn, quant_kernel)
+    return _head(params, h, cfg, quant_kernel)[:, 0, :], caches
+
+
+# --------------------------------------------------------------------- #
+# Fixed KV layout (kv_layout='fixed'): one dense strip of S = max_seq_len
+# rows per decode slot, per layer. bf16/f32 caches are token-major
+# [B, S, Hkv, Dh]; int8 caches are head-major [B, Hkv, S, Dh] with scales
+# [B, Hkv, 1, S], the geometry ops/decode_attention.py streams.
+
+
+def init_kv_cache_layers(
+    cfg: LlamaConfig,
+    batch: int,
+    max_seq_len: Optional[int] = None,
+    dtype: torch.dtype = torch.bfloat16,
+    device="cpu",
+    quantized: bool = False,
+) -> List[Dict[str, torch.Tensor]]:
+    """Per-layer fixed-layout caches: ``[B, S, Hkv, Dh]`` in ``dtype``, or
+    for ``quantized`` head-major int8 ``[B, Hkv, S, Dh]`` with per-(slot,
+    head, row) f32 scales ``ks``/``vs`` ``[B, Hkv, 1, S]``."""
+    S = max_seq_len or cfg.max_seq_len
+    B, Hkv, Dh = batch, cfg.num_kv_heads, cfg.head_dim
+
+    def one():
+        if quantized:
+            return {
+                "k": torch.zeros((B, Hkv, S, Dh), dtype=torch.int8, device=device),
+                "v": torch.zeros((B, Hkv, S, Dh), dtype=torch.int8, device=device),
+                "ks": torch.zeros((B, Hkv, 1, S), dtype=torch.float32, device=device),
+                "vs": torch.zeros((B, Hkv, 1, S), dtype=torch.float32, device=device),
+            }
+        return {"k": torch.zeros((B, S, Hkv, Dh), dtype=dtype, device=device),
+                "v": torch.zeros((B, S, Hkv, Dh), dtype=dtype, device=device)}
+
+    return [one() for _ in range(cfg.num_layers)]
+
+
+def _cache_len(caches: list) -> int:
+    c = caches[0]
+    return c["k"].shape[2] if "ks" in c else c["k"].shape[1]
+
+
+def write_prefill_slots(
+    caches: list,
+    kvs: list,  # per-layer (k, v) [N, T, Hkv, Dh] from prefill_layers
+    slots: torch.Tensor,  # [N] the wave rows' slots
+) -> list:
+    """Write a monolithic wave's fresh K/V rows at ``[slot, 0:T]`` of each
+    slot's strip, in place (int8 caches quantize the rows on the write).
+    Right-padding rows land past the prompt, where decode overwrites them
+    before any query attends them."""
+    T = kvs[0][0].shape[1]
+    s = slots.long()
+    for c, (k, v) in zip(caches, kvs):
+        if "ks" in c:
+            (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)  # [N, T, Hkv, Dh], [N, T, Hkv]
+            c["k"][s, :, :T] = kq.transpose(1, 2)  # in place, head-major
+            c["v"][s, :, :T] = vq.transpose(1, 2)
+            c["ks"][s, :, 0, :T] = ks.transpose(1, 2)
+            c["vs"][s, :, 0, :T] = vs.transpose(1, 2)
+        else:
+            c["k"][s, :T] = k.to(c["k"].dtype)  # in place
+            c["v"][s, :T] = v.to(c["v"].dtype)
+    return caches
+
+
+def _chunk_layers(
+    params: Params,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [N, C]
+    offsets: torch.Tensor,  # [N] absolute position of each row's chunk start
+    valid: torch.Tensor,  # [N] real tokens in this chunk (0 = done row)
+    slots: torch.Tensor,  # [N] target cache slots
+    caches: list,
+    window: int,
+    quant_kernel: Optional[bool] = None,
+) -> Tuple[torch.Tensor, list]:
+    """A chunk of up to C tokens per row at each row's offset over the fixed
+    caches: the chunk's K/V rows are written at ``[slot, offset:offset+C]``
+    in place, value-masked by ``valid`` (rows past ``valid`` write back
+    what they read, so ``valid == 0`` rows and a final chunk's garbage tail
+    change nothing; tail positions clamp to ``S - 1``), then every query
+    attends the ``[:window]`` prefix of its slot's strip. int8 caches are
+    read dequantized to f32 and cast to the activation dtype, as in JAX."""
+    N, C = tokens.shape
+    device = tokens.device
+    quantized = "ks" in caches[0]
+    S = _cache_len(caches)
+    W = min(window, S)
+    ar = torch.arange(C, device=device)
+    positions = torch.clamp(offsets.long()[:, None] + ar[None, :], max=S - 1)  # [N, C]
+    tok_valid = ar[None, :] < valid.long()[:, None]  # [N, C]
+    h = params["embed"][tokens]
+    mask = torch.arange(W, device=device)[None, None, :] <= positions[:, :, None]  # [N, C, W]
+    s = slots.long()
+    if quantized:
+        s3 = s[:, None, None]  # [N, 1, 1]
+        h3 = torch.arange(cfg.num_kv_heads, device=device)[None, :, None]  # [1, Hkv, 1]
+        p3 = positions[:, None, :]  # [N, 1, C]
+        rows_idx = (s3, h3, p3)  # -> [N, Hkv, C, ...]
+        scale_idx = (s3, h3, torch.zeros_like(p3), p3)
+        keep_rows = tok_valid[:, None, :, None]
+        keep_scales = tok_valid[:, None, :]
+    else:
+        rows_idx = (s[:, None], positions)  # -> [N, C, Hkv, Dh]
+        keep_rows = tok_valid[:, :, None, None]
+
+    def masked_write(buf, idx, rows, keep):
+        cur = buf[idx]
+        buf.index_put_(idx, torch.where(keep, rows.to(cur.dtype), cur))  # in place
+
+    for lp, c in zip(params["layers"], caches):
+        def attn(q, k, v, c=c):
+            if quantized:
+                (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+                masked_write(c["k"], rows_idx, kq.transpose(1, 2), keep_rows)
+                masked_write(c["v"], rows_idx, vq.transpose(1, 2), keep_rows)
+                masked_write(c["ks"], scale_idx, ks.transpose(1, 2), keep_scales)
+                masked_write(c["vs"], scale_idx, vs.transpose(1, 2), keep_scales)
+                kw = c["k"][s, :, :W].float() * c["ks"][s, :, 0, :W][..., None]  # [N, Hkv, W, Dh]
+                vw = c["v"][s, :, :W].float() * c["vs"][s, :, 0, :W][..., None]
+                return _attention(
+                    q, kw.transpose(1, 2).to(q.dtype), vw.transpose(1, 2).to(q.dtype), mask
+                )
+            masked_write(c["k"], rows_idx, k, keep_rows)
+            masked_write(c["v"], rows_idx, v, keep_rows)
+            return _attention(q, c["k"][s, :W], c["v"][s, :W], mask)
+
+        h = _block(h, lp, cfg, positions, attn, quant_kernel)
+    return h, caches
+
+
+def extend_layers(
+    params: Params,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [N, C] one prompt chunk per row
+    offsets: torch.Tensor,  # [N]
+    valid: torch.Tensor,  # [N]
+    slots: torch.Tensor,  # [N]
+    caches: list,
+    window: int,  # power of two >= max(offsets) + C
+    quant_kernel: Optional[bool] = None,
+) -> Tuple[torch.Tensor, list]:
+    """Chunked prefill over the fixed caches; returns (each row's hidden
+    state at its last valid token [N, D], caches)."""
+    C = tokens.shape[1]
+    h, caches = _chunk_layers(
+        params, cfg, tokens, offsets, valid, slots, caches, window, quant_kernel=quant_kernel
+    )
+    last_idx = torch.clamp(valid.long(), 1, C) - 1
+    return h[torch.arange(h.shape[0], device=h.device), last_idx], caches
+
+
+def decode_layers(
+    params: Params,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [B]
+    positions: torch.Tensor,  # [B] (dead slots pre-zeroed by the engine)
+    caches: list,
+    window: Optional[int] = None,
+    quant_kernel: Optional[bool] = None,
+    kv_kernel: Optional[bool] = None,
+) -> Tuple[torch.Tensor, list]:
+    """One decode step over the fixed caches; returns (logits [B, V],
+    caches). Each slot writes its new K/V row in place at its position (a
+    dead slot at position 0 writes row 0 of its own strip), then reads: an
+    int8 cache through ``decode_attention`` (``kv_kernel``) or
+    ``decode_attention_xla`` over the first ``window`` rows, a bf16/f32
+    cache through the einsum attention over ``[:window]``."""
+    device = tokens.device
+    B = tokens.shape[0]
+    quantized = "ks" in caches[0]
+    S = _cache_len(caches)
+    W = min(window or S, S)
+    h = params["embed"][tokens[:, None]]
+    pos2 = positions.long()[:, None]  # [B, 1]
+    b_idx = torch.arange(B, device=device)[:, None]  # [B, 1]
+    if quantized:
+        b3, p3 = b_idx[:, :, None], pos2[:, :, None]  # [B, 1, 1]
+        h3 = torch.arange(cfg.num_kv_heads, device=device)[None, None, :]  # [1, 1, Hkv]
+        z3 = torch.zeros_like(p3)
+        pos32 = positions.to(torch.int32)  # the kernel's dtype, cast once for all layers
+    else:
+        mask = torch.arange(W, device=device)[None, None, :] <= pos2[:, :, None]  # [B, 1, W]
+
+    for lp, c in zip(params["layers"], caches):
+        def attn(q, k, v, c=c):
+            if quantized:
+                (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)  # [B, 1, Hkv, Dh], [B, 1, Hkv]
+                c["k"].index_put_((b3, h3, p3), kq)  # in place
+                c["v"].index_put_((b3, h3, p3), vq)
+                c["ks"].index_put_((b3, h3, z3, p3), ks)
+                c["vs"].index_put_((b3, h3, z3, p3), vs)
+                if kv_kernel:
+                    return decode_attention.decode_attention(
+                        q[:, 0], c["k"], c["ks"], c["v"], c["vs"], pos32
+                    )[:, None].to(q.dtype)
+                return decode_attention.decode_attention_xla(
+                    q, c["k"], c["ks"], c["v"], c["vs"], pos2, window=W
+                )
+            c["k"].index_put_((b_idx, pos2), k.to(c["k"].dtype))  # in place
+            c["v"].index_put_((b_idx, pos2), v.to(c["v"].dtype))
+            return _attention(q, c["k"][:, :W], c["v"][:, :W], mask)
 
         h = _block(h, lp, cfg, pos2, attn, quant_kernel)
     return _head(params, h, cfg, quant_kernel)[:, 0, :], caches

@@ -25,7 +25,9 @@ from typing import Dict, Iterable, List, Sequence
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNELS = ("int8_matmul", "int8_w8a8_matmul", "page_attention", "flash_attention")
+KERNELS = (
+    "int8_matmul", "int8_w8a8_matmul", "page_attention", "flash_attention", "decode_attention",
+)
 FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

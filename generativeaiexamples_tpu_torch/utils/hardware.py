@@ -13,7 +13,7 @@ take.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 PEAK_TFLOPS = 989.0  # bf16 / fp16 dense tensor-core rate
 PEAK_INT8_TOPS = 1979.0  # int8 dense tensor-core rate
@@ -138,4 +138,27 @@ def flash_attention_cost(B: int, T: int, Hq: int, Hkv: int, D: int) -> Tuple[int
     written once, 4 * D FLOPs per (query, key <= query, head)."""
     nbytes = 2 * B * T * D * (2 * Hq + 2 * Hkv)
     flops = 4 * B * Hq * D * (T * (T + 1) // 2)
+    return nbytes, flops
+
+
+def decode_attention_cost(
+    positions, Hq: int, Hkv: int, Dh: int, kv_bytes: float = 1.0, scale_bytes: int = 4,
+    S: Optional[int] = None,
+) -> Tuple[int, int]:
+    """(bytes, FLOPs) of one fixed-layout decode-attention call: one query
+    token per slot at ``positions`` (one int per slot). Each slot reads its
+    K and V rows up to its position (clamped to ``S - 1`` when the cache
+    capacity ``S`` is given) once, ``kv_bytes`` per element plus
+    ``scale_bytes`` per (row, KV head) for each of the two scale planes;
+    the bf16 q is read and the bf16 out written once; each query head
+    scores and sums over the live rows."""
+    nbytes = 0
+    flops = 0
+    for p in positions:
+        last = int(p) if S is None else min(int(p), S - 1)
+        live = max(last + 1, 0)
+        nbytes += 2 * Hq * Dh * 2  # q read, out written
+        nbytes += int(2 * live * Hkv * (Dh * kv_bytes + scale_bytes))  # live K and V rows, scales
+        nbytes += 4  # position
+        flops += 4 * Dh * Hq * live
     return nbytes, flops

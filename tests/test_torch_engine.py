@@ -234,9 +234,13 @@ def test_engine_refuses_to_start_without_a_card(monkeypatch):
 @pytest.mark.parametrize(
     "override",
     [dict(kv_cache_dtype="fp8"), dict(kv_cache_dtype="int2"), dict(quantization="int4"),
-     dict(page_size=12), dict(prefill_chunk=20), dict(dtype="float16")],
+     dict(page_size=12, kv_layout="paged"), dict(prefill_chunk=20, kv_layout="paged"),
+     dict(dtype="float16")],
 )
 def test_config_refuses_what_the_slice_does_not_serve(override):
+    """A page geometry that does not tile is refused under an explicit
+    kv_layout='paged'; under 'auto' the engine serves it on the fixed
+    layout (tests/test_torch_engine_fixed.py)."""
     with pytest.raises(ValueError):
         EngineConfig(**dict(CONFIG, **override)).validate()
 

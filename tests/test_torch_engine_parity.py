@@ -1,9 +1,10 @@
 """Engine against engine: the JAX package's LLMEngine and the port's, on the
 same debug float32 weights, give the same streams for the same prompts
 (short, one chunk, and longer than prefill_chunk), through each engine's
-own admission, paged prefill and block decode: greedy, seeded sampling
-(the port draws with JAX's threefry keys), and the w8a8 + int8 KV recipe
-(the weights the JAX engine drew, carried over). Both compute in float32,
+own admission, prefill and block decode on the paged and on the fixed KV
+layout: greedy, seeded sampling (the port draws with JAX's threefry keys),
+and the w8a8 + int8 KV recipe (the weights the JAX engine drew, carried
+over). Both compute in float32,
 and w8a8's products are exact integer sums, so the streams must be
 identical token for token.
 
@@ -79,6 +80,36 @@ def test_w8a8_int8_kv_streams_match_the_jax_engine():
         for prompt in PROMPTS:
             ref = list(jax_engine.iter_ids(prompt, JaxParams(temperature=0.0, max_tokens=16), timeout=600))
             out = list(port.iter_ids(prompt, SamplingParams(temperature=0.0, max_tokens=16), timeout=600))
+            assert out == ref, prompt
+    finally:
+        jax_engine.shutdown()
+        port.shutdown()
+
+
+@pytest.mark.parametrize("recipe", ["greedy", "seeded", "w8a8-int8"])
+def test_fixed_layout_streams_match_the_jax_engine(recipe):
+    """Both engines on kv_layout='fixed' (one dense strip per slot): the
+    monolithic slot write, the chunked extend over the strips and the fixed
+    decode block, greedy, seeded, and w8a8 weights over an int8 head-major
+    cache (both sides read it through the non-kernel dequantized read on
+    the CPU)."""
+    quant = dict(quantization="w8a8", kv_cache_dtype="int8") if recipe == "w8a8-int8" else {}
+    jax_engine = JaxEngine(JaxEngineConfig(
+        tensor_parallelism=1, kv_layout="fixed", decode_runahead=1, **COMMON, **quant
+    ))
+    weights = jax_engine.params if quant else jl.init_params_fast(jl.PRESETS["debug"], 0, jnp.float32)
+    port = LLMEngine(
+        EngineConfig(kv_layout="fixed", **COMMON, **quant), device="cpu",
+        params=params_from_jax(weights),
+    )
+    try:
+        assert not port._paged
+        for i, prompt in enumerate(PROMPTS):
+            kw = dict(temperature=0.0, max_tokens=16)
+            if recipe == "seeded":
+                kw = dict(temperature=0.9, top_p=0.8, max_tokens=16, seed=200 + i)
+            ref = list(jax_engine.iter_ids(prompt, JaxParams(**kw), timeout=600))
+            out = list(port.iter_ids(prompt, SamplingParams(**kw), timeout=600))
             assert out == ref, prompt
     finally:
         jax_engine.shutdown()

@@ -47,6 +47,7 @@ def test_name_matching_is_exact_or_dotted():
 def test_importing_every_port_module_loads_neither_jax_nor_the_jax_package():
     mods = _port_modules() + ["chip_smoke"]
     assert "generativeaiexamples_tpu_torch.engine.llm_engine" in mods
+    assert "generativeaiexamples_tpu_torch.ops.decode_attention" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"

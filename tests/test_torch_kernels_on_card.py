@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from generativeaiexamples_tpu_torch.models import llama
+from generativeaiexamples_tpu_torch.ops import decode_attention as da
 from generativeaiexamples_tpu_torch.ops import flash_attention as fa
 from generativeaiexamples_tpu_torch.ops import int8_matmul as im
 from generativeaiexamples_tpu_torch.ops import page_attention as pa
@@ -132,3 +133,42 @@ def test_wrappers_refuse_what_the_kernels_do_not_serve(card):
     with pytest.raises(ValueError):
         pa.paged_attention(q, pool4, pool4, tables, torch.zeros(1, dtype=torch.int32, device=card),
                            scales, scales)
+
+
+@pytest.mark.parametrize("Dh", [64, 128, 256])
+def test_decode_attention_kernel_matches_plain(card, Dh):
+    gen = torch.Generator(device=card).manual_seed(6)
+    B, Hkv, S = 4, 2, 640
+    for Hq in (8, 2, 12):  # G = 4 (llama3-8b), 1, and 6 (two head groups, one partial)
+        k, ks = llama.quantize_kv(torch.randn((B, Hkv, S, Dh), generator=gen, device=card))
+        v, vs = llama.quantize_kv(torch.randn((B, Hkv, S, Dh), generator=gen, device=card))
+        ks, vs = ks[:, :, None, :].contiguous(), vs[:, :, None, :].contiguous()  # [B, Hkv, 1, S]
+        q = torch.randn((B, Hq, Dh), generator=gen, device=card).to(torch.bfloat16)
+        # a dead slot at 0, a partial tile, a position past capacity, a full strip
+        pos = torch.tensor([0, 37, S + 5, S - 1], dtype=torch.int32, device=card)
+        before = da.decode_attention.launches
+        out = da.decode_attention(q, k, ks, v, vs, pos)
+        assert da.decode_attention.launches == before + 1
+        ref = da.decode_attention_plain(q, k, ks, v, vs, pos)
+        assert bool(torch.isfinite(out.float()).all())
+        # f32 inside both (scales folded after the integer dots), one bf16
+        # rounding of |out| < ~2
+        torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=1e-2)
+
+
+def test_decode_attention_wrapper_refuses_what_the_kernel_does_not_serve(card):
+    B, Hkv, S = 1, 2, 64
+    q = torch.zeros((B, 4, 128), dtype=torch.bfloat16, device=card)
+    k = torch.zeros((B, Hkv, S, 128), dtype=torch.int8, device=card)
+    s = torch.ones((B, Hkv, 1, S), device=card)
+    pos = torch.zeros(B, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):  # a bf16 cache
+        da.decode_attention(q, k.to(torch.bfloat16), s, k.to(torch.bfloat16), s, pos)
+    with pytest.raises(ValueError):  # scales without the unit axis
+        da.decode_attention(q, k, s[:, :, 0], k, s[:, :, 0], pos)
+    with pytest.raises(ValueError):  # int64 positions (the caller casts once per step)
+        da.decode_attention(q, k, s, k, s, pos.long())
+    with pytest.raises(ValueError):  # a head dim the kernel is not built for
+        q16 = torch.zeros((B, 4, 16), dtype=torch.bfloat16, device=card)
+        k16 = torch.zeros((B, Hkv, S, 16), dtype=torch.int8, device=card)
+        da.decode_attention(q16, k16, s, k16, s, pos)
