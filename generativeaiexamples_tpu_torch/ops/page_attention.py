@@ -18,8 +18,9 @@ The scales fold in after the integer dots: a score is
 ``p * v_scale * v_int``.
 
 - :func:`paged_attention`: on CUDA tensors it launches
-  ``csrc/page_attention.cu`` (one block per (row, KV head), online f32
-  softmax over the row's live pages only); on CPU tensors it runs
+  ``csrc/page_attention.cu`` (each row's live tokens split across blocks of
+  :func:`split_plan`'s size, online f32 softmax per split, the splits
+  merged in a second kernel of the same call); on CPU tensors it runs
   :func:`paged_attention_plain`.
 - :func:`supports_geometry`: the port's predicate for what the kernel
   serves. The engine refuses to build on CUDA when it says no, instead of
@@ -38,6 +39,10 @@ from generativeaiexamples_tpu_torch.ops import _build
 # Query rows (T * Hq) one call may carry, as in the JAX kernel: decode
 # (T = 1) and short multi-query chunks fit, prefill-length chunks do not.
 MAX_QUERY_ROWS = 512
+# Tokens of a row one block of csrc/page_attention.cu walks (rounded down to
+# whole pages, at least one page): a long row is split across
+# ceil(live tokens / split) blocks per KV head, merged afterwards.
+SPLIT_TOKENS = 512
 # Head dims csrc/page_attention.cu is instantiated for.
 _HEAD_DIMS = (64, 128, 256)
 # Pool kinds, as csrc/page_attention.cu numbers them.
@@ -48,8 +53,10 @@ _SIGNATURES = {
     "paged_attention_launch": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
     ],
 }
 
@@ -64,6 +71,18 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
     lo = torch.where(lo >= 8, lo - 16, lo)
     hi = torch.where(hi >= 8, hi - 16, hi)
     return torch.cat([lo, hi], dim=-1).to(torch.int8)
+
+
+def split_plan(pmax: int, page: int) -> tuple:
+    """(tokens per split, splits per row) for tables of ``pmax`` pages of
+    ``page`` tokens: whole pages, ``SPLIT_TOKENS`` of them where the page
+    divides it, and enough splits to cover the table's whole window. It
+    reads only the table's shape, never the positions, so the launch
+    needs nothing from the device."""
+    if pmax < 1 or page < 1:
+        raise ValueError(f"split_plan: pmax={pmax} and page={page} must be positive")
+    split_tokens = page * max(1, SPLIT_TOKENS // page)
+    return split_tokens, -(-pmax * page // split_tokens)
 
 
 def paged_attention_plain(
@@ -141,12 +160,19 @@ def _launch(q, k, v, tables, positions, k_scale, v_scale) -> torch.Tensor:
     tables = tables.to(torch.int32).contiguous()
     positions = positions.to(torch.int32).contiguous()
     out = torch.empty_like(q)
+    split_tokens, nsplit = split_plan(Pmax, page)
+    # each split's (max, sum, accumulator) per query row, for the merge; a
+    # single split writes out directly and needs none
+    ws = None if nsplit == 1 else torch.empty(
+        B * Hkv * nsplit * T * (Hq // Hkv) * (Dh + 2), dtype=torch.float32, device=q.device)
     lib = _build.load("page_attention", _SIGNATURES)
     code = lib.paged_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr() if scaled else None, v_scale.data_ptr() if scaled else None,
         tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-        B, T, Hq, Hkv, Dh, page, Pmax, kind, 1.0 / math.sqrt(Dh), _build.stream_ptr(q),
+        None if ws is None else ws.data_ptr(),
+        B, T, Hq, Hkv, Dh, page, Pmax, kind, 1.0 / math.sqrt(Dh), split_tokens, nsplit,
+        _build.stream_ptr(q),
     )
     _build.check(code, "paged_attention")
     paged_attention.launches[kv_dtype] += 1

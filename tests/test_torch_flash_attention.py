@@ -18,6 +18,9 @@ from generativeaiexamples_tpu_torch.ops import flash_attention as tfa
         (2, 40, 4, 2, 16, 16),  # GQA, T = 2.5 blocks (padding path)
         (1, 33, 8, 1, 32, 16),  # MQA, ragged T
         (2, 32, 4, 4, 16, 16),  # MHA, exact blocks
+        (1, 63, 4, 2, 16, 16),  # one short of the CUDA kernel's 64-row tile
+        (1, 64, 4, 2, 16, 16),  # exactly one tile
+        (1, 65, 4, 1, 16, 16),  # one row into the second tile
     ],
 )
 def test_plain_matches_pallas_interpret(B, T, Hq, Hkv, D, block):

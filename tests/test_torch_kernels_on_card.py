@@ -64,9 +64,80 @@ def test_flash_attention_kernel_matches_plain(card):
         q = torch.randn((B, T, Hq, D), generator=gen, device=card).to(torch.bfloat16)
         k = torch.randn((B, T, Hkv, D), generator=gen, device=card).to(torch.bfloat16)
         v = torch.randn((B, T, Hkv, D), generator=gen, device=card).to(torch.bfloat16)
+        before = fa.flash_attention_causal.launches
         out = fa.flash_attention_causal(q, k, v)
-        # both f32 inside, one bf16 rounding of |out| < ~3 (2^-8 relative)
-        torch.testing.assert_close(out.float(), fa.flash_attention_plain(q, k, v).float(), rtol=0, atol=1e-2)
+        assert fa.flash_attention_causal.launches == before + 1
+        # f32 sums and softmax, p rounded to bf16 before P.V (the plain
+        # version keeps it f32): an output in [2, 4) may land one bf16 step
+        # (2^-6) away; each row also within 5 % of its own RMS
+        _assert_rows_close(out, fa.flash_attention_plain(q, k, v), atol=2e-2)
+
+
+def _assert_rows_close(out, ref, atol):
+    """Absolute agreement, and each output row (last axis) within 5 % of its
+    own RMS: a row averaging many V rows has small outputs, which an
+    absolute limit set by the short rows would not hold."""
+    assert bool(torch.isfinite(out.float()).all())
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=atol)
+    diff = (out.float() - ref.float()).abs().amax(dim=-1)
+    rms = ref.float().pow(2).mean(dim=-1).sqrt().clamp_min(1e-6)
+    assert float((diff / rms).max()) <= 0.05
+
+
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8", "int4"])
+@pytest.mark.parametrize("Dh", [64, 128, 256])
+def test_paged_attention_split_edges_match_plain(card, kv_dtype, Dh):
+    """Rows whose last query ends on a split's last token and on the next
+    split's first, one spanning every split of its table, a mid-table row
+    and a dead row, at T = 1 and 4, for G = 4 and G = 6 (row groups of the
+    kernel cut mid-head)."""
+    gen = torch.Generator(device=card).manual_seed(7)
+    B, Hkv, page, pmax = 5, 2, 16, 80
+    st, nsplit = pa.split_plan(pmax, page)
+    S = pmax * page
+    assert nsplit == 3 and st == pa.SPLIT_TOKENS
+    P = 1 + B * pmax
+    dense = [torch.randn((P, page, Hkv, Dh), generator=gen, device=card) for _ in range(2)]
+    if kv_dtype == "bfloat16":
+        (k, v), scales = (t.to(torch.bfloat16) for t in dense), ()
+    else:
+        codec = llama.quantize_kv if kv_dtype == "int8" else llama.quantize_kv_int4
+        (k, ks), (v, vs) = codec(dense[0]), codec(dense[1])
+        scales = (ks, vs)
+    tables = (1 + torch.randperm(B * pmax, generator=gen, device=card)).reshape(B, pmax).int()
+    tables[0] = 0  # a dead row on the scratch page
+    last = [0, st - 1, st, S - 1, 700]  # the last query position of each row
+    for Hq in (8, 12):
+        for T in (1, 4):
+            pos = torch.tensor([0] + [p - (T - 1) for p in last[1:]], dtype=torch.int32, device=card)
+            q = torch.randn((B, T, Hq, Dh), generator=gen, device=card).to(torch.bfloat16)
+            before = pa.paged_attention.launches[kv_dtype]
+            out = pa.paged_attention(q, k, v, tables, pos, *scales)
+            assert pa.paged_attention.launches[kv_dtype] == before + 1
+            ref = pa.paged_attention_plain(q, k, v, tables, pos, *scales)
+            # f32 inside both (scales folded after the integer dots), one
+            # bf16 rounding of |out| < ~2
+            _assert_rows_close(out, ref, atol=1e-2)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 4, 8])
+def test_flash_attention_tiles_match_plain(card, D, G):
+    """T at and around the kernel's 64-row tiles and up to two full waves,
+    for MHA, Llama-3's GQA and a wider group."""
+    gen = torch.Generator(device=card).manual_seed(8)
+    Hq = 8
+    for T in (2, 63, 64, 65, 300, 512, 1024):
+        q = torch.randn((2, T, Hq, D), generator=gen, device=card).to(torch.bfloat16)
+        k = torch.randn((2, T, Hq // G, D), generator=gen, device=card).to(torch.bfloat16)
+        v = torch.randn((2, T, Hq // G, D), generator=gen, device=card).to(torch.bfloat16)
+        before = fa.flash_attention_causal.launches
+        out = fa.flash_attention_causal(q, k, v)
+        assert fa.flash_attention_causal.launches == before + 1
+        # |out| < ~3; the kernel rounds p to bf16 before P.V (the plain
+        # version keeps it f32), which can move an output in [2, 4) across
+        # a rounding boundary: one bf16 step there is 2^-6
+        _assert_rows_close(out, fa.flash_attention_plain(q, k, v), atol=2e-2)
 
 
 @pytest.mark.parametrize("kv_dtype", ["int8", "int4"])

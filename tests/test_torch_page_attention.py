@@ -75,6 +75,55 @@ def test_rows_ignore_pages_past_their_last_live_token():
     torch.testing.assert_close(tpa.paged_attention(q, k2, v2, tables, pos), base)
 
 
+@pytest.mark.parametrize("T", [1, 4])
+def test_plain_matches_pallas_interpret_at_split_edges(T):
+    """Rows whose last query ends on the CUDA kernel's first split's last
+    token, on the next split's first token, and at the end of a table that
+    spans three splits (the kernel merges their partial softmax states)."""
+    page, pmax = 8, 160
+    st, nsplit = tpa.split_plan(pmax, page)
+    assert nsplit == 3
+    rng = np.random.default_rng(40 + T)
+    pool = 1 + 3 * pmax
+    k = jnp.asarray(rng.standard_normal((pool, page, Hkv, Dh)), jnp.bfloat16)
+    v = jnp.asarray(rng.standard_normal((pool, page, Hkv, Dh)), jnp.bfloat16)
+    q = jnp.asarray(rng.standard_normal((3, T, Hq, Dh)), jnp.bfloat16)
+    tables = (1 + rng.permutation(3 * pmax)).reshape(3, pmax).astype(np.int32)
+    pos = np.asarray([st - 1, st, pmax * page - 1], np.int32) - (T - 1)
+    ref = jpa.paged_attention(q, k, v, jnp.asarray(tables), jnp.asarray(pos), interpret=True)
+    out = tpa.paged_attention(
+        *(to_tensor(np.asarray(a)) for a in (q, k, v)),
+        torch.from_numpy(tables), torch.from_numpy(pos),
+    )
+    assert bool(torch.isfinite(out.float()).all())
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize(
+    "pmax,page,plan",
+    [
+        (3, 128, (512, 1)),  # the table's window is below one split
+        (4, 128, (512, 1)),  # exactly one split
+        (5, 128, (512, 2)),  # one page past it
+        (64, 128, (512, 16)),  # llama3-8b at 8192 tokens
+        (80, 16, (512, 3)),  # small pages, a partial last split
+        (10, 200, (400, 5)),  # a page that does not divide SPLIT_TOKENS: whole pages
+        (2, 1024, (1024, 2)),  # a page longer than SPLIT_TOKENS: one page a split
+    ],
+)
+def test_split_plan_edges(pmax, page, plan):
+    split_tokens, nsplit = tpa.split_plan(pmax, page)
+    assert (split_tokens, nsplit) == plan
+    assert split_tokens % page == 0
+    assert (nsplit - 1) * split_tokens < pmax * page <= nsplit * split_tokens
+
+
+@pytest.mark.parametrize("pmax,page", [(0, 128), (4, 0)])
+def test_split_plan_refuses_empty_tables(pmax, page):
+    with pytest.raises(ValueError):
+        tpa.split_plan(pmax, page)
+
+
 GEOMETRIES = [
     # (page, head_dim, heads, kv_heads, query_len)
     (128, 128, 32, 8, 1),  # llama3-8b decode
