@@ -10,10 +10,12 @@ Phases (each one's failure makes the script exit non-zero):
 3. each kernel against its plain PyTorch version at the serving path's
    shapes for llama3-8b, with its time, the plain version's, one library
    call's as a yardstick, and its bound: int8_matmul and int8_w8a8_matmul
-   at the four projections and the lm_head, paged_attention over bf16,
-   int8 and int4 pools (ragged, uniform, short and split-edge rows),
+   at the four projections and the lm_head (M = 1 and 8; int8_matmul also
+   at M = 4 and 16, untimed), paged_attention over bf16, int8 and int4
+   pools (ragged, uniform, short and split-edge rows),
    flash_attention_causal at (2, 512) and (2, 300), decode_attention over
-   the fixed layout's int8 cache (a ragged and a uniform batch);
+   the fixed layout's int8 cache (ragged, uniform, short and split-edge
+   slots);
 4. model level at full llama3-8b width and depth (int8 packs, random from
    a seed), for each paged serving recipe (int8 weights + bf16 KV, w8a8 +
    int8 KV, int8 weights + int4 KV) and for the fixed layout (int8 weights
@@ -176,6 +178,7 @@ def check_int8(timer, dev, gen, results) -> None:
         "lm_head": (h, cfg.vocab_size),
     }
     agg = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "flops": 0, "err": 0.0}
+    per_shape = {}
     for M in (1, 8):
         for name, (K, F) in shapes.items():
             K_pad = -(-K // im.K_ALIGN) * im.K_ALIGN
@@ -202,18 +205,35 @@ def check_int8(timer, dev, gen, results) -> None:
             if not ok:
                 raise AssertionError(f"int8_matmul {name} M={M} disagrees with its plain version")
             agg["err"] = max(agg["err"], err)
+            per_shape[f"{name}_M{M}"] = {"ms": k_ms, "library_ms": l_ms, "bound_ms": b_ms}
             if M == 8 and name != "lm_head":  # one decoder layer's projections at B=8
                 agg["ms"] += k_ms
                 agg["plain_ms"] += p_ms
                 agg["library_ms"] += l_ms
                 agg["bytes"] += nbytes
                 agg["flops"] += flops
+            # a padded and a two-group M on the widest-K and a narrow-F shape,
+            # correctness only
+            if M == 8 and name in ("wqkv", "w_down"):
+                for M2 in (4, 16):
+                    x2 = torch.randn((M2, K), generator=gen, device=dev).to(torch.bfloat16)
+                    y2 = im.int8_matmul(x2, q, scale)
+                    ref2 = im.int8_matmul_plain(x2, q, scale)
+                    torch.cuda.synchronize()
+                    err2, tol2 = _max_err(y2, ref2), 1e-2 * float(ref2.float().abs().max())
+                    log(f"  int8_matmul {name:8s} M={M2} K={K} F={F}: max|err|={err2:.4g} "
+                        f"tol={tol2:.4g} (not timed) {'ok' if err2 <= tol2 else 'FAIL'}")
+                    if err2 > tol2:
+                        raise AssertionError(
+                            f"int8_matmul {name} M={M2} disagrees with its plain version")
+                    agg["err"] = max(agg["err"], err2)
             del q, w
     b_ms, b_by = hardware.bound_ms(agg["bytes"], agg["flops"])
     results["int8_matmul"] = {
         "max_abs_err": agg["err"], "ms": agg["ms"], "plain_ms": agg["plain_ms"],
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": agg["library_ms"],
         "shape": "one layer's wqkv+wo+w_gateup+w_down at M=8",
+        "per_shape": per_shape,
     }
 
 
@@ -459,7 +479,9 @@ def check_decode(timer, dev, gen, results) -> None:
     """decode_attention over the fixed layout's int8 head-major cache at
     llama3-8b geometry and the engine's capacity (B=8, S=8192), for a
     ragged batch (one slot at 8191, six at 100-160, a dead slot at 0) and a
-    uniform one (every slot at 2047)."""
+    uniform one (every slot at 2047), the smoke's serving traffic (seven
+    slots at 100-220 and a dead slot) and slots ending on and just past the
+    kernel's split boundaries."""
     from generativeaiexamples_tpu_torch.models.llama import PRESETS, quantize_kv
 
     cfg = PRESETS[MODEL]
@@ -475,6 +497,8 @@ def check_decode(timer, dev, gen, results) -> None:
     cases = {
         "ragged": [8191, 100, 112, 125, 131, 144, 160, 0],
         "uniform": [2047] * B,
+        "short": [100, 131, 157, 0, 176, 199, 220, 143],
+        "split_edge": [511, 512, 1023, 1024, 4095, 4096, 8191, 0],
     }
     out_rows = {}
     for case, positions in cases.items():
@@ -515,7 +539,7 @@ def check_decode(timer, dev, gen, results) -> None:
         "max_rel_err": max(r["max_rel_err"] for r in out_rows.values()),
         "shape": "B=8 decode slots over an int8 fixed cache S=8192, Hq=32 Hkv=8 Dh=128, ragged "
                  "positions (8191, six at 100-160, a dead slot at 0)",
-        "uniform": {**out_rows["uniform"], "shape": "the same cache, every slot at 2047"},
+        **{case: {**out_rows[case], "positions": cases[case]} for case in cases if case != "ragged"},
     }
 
 

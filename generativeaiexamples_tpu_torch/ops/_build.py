@@ -35,6 +35,7 @@ FLAGS = [
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}  # guarded by _LOCK
+_TICKETS: Dict[tuple, object] = {}  # written under _LOCK
 
 
 def nvcc_path() -> str:
@@ -121,3 +122,23 @@ def stream_ptr(tensor) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(tensor.device).cuda_stream)
+
+
+def tickets(kernel: str, tensor, count: int):
+    """The int32 ticket buffer of a kernel whose last block to finish merges
+    the others' partial results (``decode_attention``, ``int8_matmul``), for
+    the tensor's device and PyTorch's current stream there. Zeroed once,
+    here; the merging block sets its ticket back to zero, so every launch
+    finds zeros and launches on one stream, which run one after another, can
+    share the buffer."""
+    import torch
+
+    stream = torch.cuda.current_stream(tensor.device).cuda_stream
+    key = (kernel, tensor.device, stream, count)
+    buf = _TICKETS.get(key)  # the hot path of a decode step: no lock on a hit
+    if buf is None:
+        with _LOCK:
+            buf = _TICKETS.get(key)
+            if buf is None:
+                buf = _TICKETS[key] = torch.zeros(count, dtype=torch.int32, device=tensor.device)
+    return buf

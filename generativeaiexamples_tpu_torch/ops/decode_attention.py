@@ -14,9 +14,11 @@ in after the integer dots: a score is ``dot(q, k_int) * k_scale / sqrt(Dh)``
 and P.V sums ``p * v_scale * v_int``.
 
 - :func:`decode_attention`: on CUDA tensors it launches
-  ``csrc/decode_attention.cu`` (one block per (slot, KV head), online f32
-  softmax over the slot's live rows only); on CPU tensors it runs
+  ``csrc/decode_attention.cu`` (each strip split across blocks of
+  ``SPLIT_ROWS`` rows, online f32 softmax over the slot's live rows only,
+  the splits merged by log-sum-exp); on CPU tensors it runs
   :func:`decode_attention_plain`.
+- :func:`split_plan`: how many blocks share a strip, from ``S`` alone.
 - :func:`decode_attention_xla`: the model's non-kernel read, JAX's
   dequantize-then-einsum formula over the first ``window`` rows, for
   ``T`` query tokens per slot.
@@ -36,15 +38,37 @@ from generativeaiexamples_tpu_torch.ops import _build
 _NEG_INF = -1e30
 # Head dims csrc/decode_attention.cu is instantiated for.
 _HEAD_DIMS = (64, 128, 256)
+# Rows of a strip one block of csrc/decode_attention.cu walks: a long strip
+# is split across ceil(live rows / SPLIT_ROWS) blocks per KV head, merged
+# afterwards.
+SPLIT_ROWS = 512
 
 _SIGNATURES = {
     "decode_attention_launch": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ],
 }
+
+
+def split_plan(S: int) -> tuple:
+    """(rows per split, splits per strip) for strips of ``S`` rows: enough
+    ``SPLIT_ROWS``-row splits to cover the whole strip. It reads only the
+    cache's shape, never the positions, so the launch needs nothing from
+    the device; blocks of splits past a slot's position return at once."""
+    if S < 1:
+        raise ValueError(f"split_plan: S={S} must be positive")
+    return SPLIT_ROWS, -(-S // SPLIT_ROWS)
+
+
+def workspace_elements(B: int, Hq: int, Dh: int, nsplit: int) -> int:
+    """f32 values of the merge workspace: each split's (max, sum) and
+    accumulator per (slot, query head); none when one split covers the
+    strip (it writes the output directly)."""
+    return 0 if nsplit == 1 else B * Hq * nsplit * (Dh + 2)
 
 
 def decode_attention_plain(q, k_q, k_s, v_q, v_s, positions) -> torch.Tensor:
@@ -107,14 +131,24 @@ def _launch(q, k_q, k_s, v_q, v_s, positions) -> torch.Tensor:
     devices = {t.device for t in (q, k_q, k_s, v_q, v_s, positions)}
     if len(devices) != 1:
         raise ValueError(f"decode_attention: all tensors must be on one device, got {devices}")
+    if k_q.data_ptr() % 16 or v_q.data_ptr() % 16:
+        raise ValueError("decode_attention: the cache must start on a 16-byte boundary")
     q = q.contiguous()
     positions = positions.contiguous()
     out = torch.empty_like(q)
+    split_rows, nsplit = split_plan(S)
+    n_ws = workspace_elements(B, Hq, Dh, nsplit)
+    ws = tickets = None
+    if n_ws:
+        ws = torch.empty(n_ws, dtype=torch.float32, device=q.device)
+        # one ticket per (slot, KV head, group of 4 query heads)
+        tickets = _build.tickets("decode_attention", q, B * Hkv * -(-(Hq // Hkv) // 4))
     lib = _build.load("decode_attention", _SIGNATURES)
     code = lib.decode_attention_launch(
         q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr(),
-        positions.data_ptr(), out.data_ptr(), B, Hq, Hkv, S, Dh, 1.0 / math.sqrt(Dh),
-        _build.stream_ptr(q),
+        positions.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
+        None if tickets is None else tickets.data_ptr(),
+        B, Hq, Hkv, S, Dh, 1.0 / math.sqrt(Dh), split_rows, nsplit, _build.stream_ptr(q),
     )
     _build.check(code, "decode_attention")
     decode_attention.launches += 1

@@ -9,8 +9,10 @@ with K padded to ``K_ALIGN`` and F to ``F_BLK`` (zero padding).
 
 Weight-only, ``y[M, F] = (x[M, K] @ bf16(q[K, F])) * scale[1, F]``:
 - :func:`int8_matmul` is the decode kernel (M <= ``M_MAX`` rows): on a CUDA
-  tensor it launches ``csrc/int8_matmul.cu`` (weights stream once, int8 ->
-  float in registers, f32 sum, scale after the sum); on a CPU tensor it runs
+  tensor it launches ``csrc/int8_matmul.cu`` (weights stream once as
+  16-byte loads, int8 -> bf16 in registers, ``mma.sync`` on the tensor
+  cores with an f32 sum, scale after the sum; K split across blocks only as
+  far as :func:`mma_plan` says the card needs); on a CPU tensor it runs
   :func:`int8_matmul_plain`, the same formula in plain PyTorch.
 - :func:`int8_matmul_dequant` is the large-M (prefill) path, as the JAX
   package's ``int8_matmul_xla``: bf16 weights dequantized once per call and
@@ -31,6 +33,7 @@ int32 sum, ``y = bf16((f32(xq @ q) * sx) * scale)``:
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -40,16 +43,20 @@ from generativeaiexamples_tpu_torch.ops import _build
 F_BLK = 512
 K_ALIGN = 128
 M_MAX = 128
-# csrc/int8_matmul.cu: K rows one split stages in shared memory, and the
-# number of blocks the split-K grid aims for (two per H100 SM).
+# csrc/int8_w8a8_matmul.cu: K rows one split stages in shared memory, and
+# the number of blocks the split-K grid aims for (two per H100 SM).
 _MAX_K_CHUNK = 512
 _TARGET_BLOCKS = 264
+# csrc/int8_matmul.cu: columns of F one block owns, and the K rows one round
+# of its 8 warps covers (8 mma steps of 16): a split is whole rounds.
+_MMA_TILE_F = 128
+_MMA_K_ROUND = 128
 
 _SIGNATURES = {
     "int8_matmul_launch": [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ],
 }
 _W8A8_SIGNATURES = {
@@ -86,6 +93,23 @@ def _split_k(K: int, n_tiles: int):
     return -(-K // k_chunk), k_chunk
 
 
+@functools.lru_cache(maxsize=None)
+def mma_plan(K: int, F_pad: int):
+    """(splits, k_chunk) of ``csrc/int8_matmul.cu``'s grid of
+    ``F_pad / 128`` column tiles x ``splits``: as many splits as keep the
+    grid within ``_TARGET_BLOCKS`` (two blocks an SM: one wave), each a
+    whole number of 128-row rounds of the block's 8 warps; one split where
+    the column tiles alone come to more than half of that (w_gateup, the
+    lm_head: their blocks then scale and write bf16 themselves, no
+    partials). On the H100 a grid just past one wave lost to the largest
+    grid inside it on every projection of llama3-8b."""
+    n_tiles = F_pad // _MMA_TILE_F
+    rounds = -(-K // _MMA_K_ROUND)
+    splits = max(1, min(_TARGET_BLOCKS // n_tiles, rounds))
+    k_chunk = -(-rounds // splits) * _MMA_K_ROUND
+    return -(-K // k_chunk), k_chunk
+
+
 def _launch(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     M, K = x2.shape
     K_pad, F_pad = q.shape
@@ -97,14 +121,24 @@ def _launch(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Ten
         )
     if q.device != x2.device or scale.device != x2.device:
         raise ValueError("int8_matmul: x, q and scale must share one device")
-    splits, k_chunk = _split_k(K, F_pad // F_BLK)
+    if q.data_ptr() % 16:
+        raise ValueError("int8_matmul: the pack must start on a 16-byte boundary")
+    splits, k_chunk = mma_plan(K, F_pad)
     s = scale.reshape(F).to(torch.float32).contiguous()
-    ws = torch.empty((splits, M, F_pad), dtype=torch.float32, device=x2.device)
+    # split-K partials and one ticket per (pass of 8 or 16 rows, column
+    # tile) for the block that sums them; one split writes y itself
+    ws = tickets = None
+    if splits > 1:
+        ws = torch.empty((splits, M, F_pad), dtype=torch.float32, device=x2.device)
+        passes = -(-M // (8 if M <= 8 else 16))
+        tickets = _build.tickets("int8_matmul", x2, passes * (F_pad // _MMA_TILE_F))
     y = torch.empty((M, F), dtype=torch.bfloat16, device=x2.device)
     lib = _build.load("int8_matmul", _SIGNATURES)
     code = lib.int8_matmul_launch(
-        x2.data_ptr(), M, K, q.data_ptr(), F_pad, s.data_ptr(), F,
-        ws.data_ptr(), splits, k_chunk, y.data_ptr(), _build.stream_ptr(x2),
+        x2.data_ptr(), M, K, q.data_ptr(), K_pad, F_pad, s.data_ptr(), F,
+        None if ws is None else ws.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), splits, k_chunk, y.data_ptr(),
+        _build.stream_ptr(x2),
     )
     _build.check(code, "int8_matmul")
     int8_matmul.launches += 1

@@ -55,6 +55,44 @@ def test_plain_matches_pallas_interpret(positions):
     np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32), rtol=0, atol=ATOL)
 
 
+def test_plain_matches_pallas_interpret_on_the_kernels_split_edges():
+    """Slots ending on a split's last row and on the next split's first, on
+    a 64-row tile edge, and at the strip's last row, over a strip of three
+    splits of the CUDA kernel (the Pallas kernel walks it in blocks of 256)."""
+    st = tda.SPLIT_ROWS
+    S2 = 3 * st
+    rng = np.random.default_rng(21)
+    q = jnp.asarray(rng.standard_normal((B, Hq, Dh)), jnp.bfloat16)
+    kq, ks, vq, vs = _cache(rng, S=S2)
+    for positions in ([st - 1, st, 2 * st - 1, 2 * st], [st + 63, st + 64, S2 - 1, 0]):
+        pos = np.asarray(positions, np.int32)
+        ref = jda.decode_attention(
+            q, jnp.asarray(kq), jnp.asarray(ks), jnp.asarray(vq), jnp.asarray(vs),
+            jnp.asarray(pos), interpret=True,
+        )
+        out = tda.decode_attention(
+            to_tensor(np.asarray(q)), *(torch.from_numpy(a) for a in (kq, ks, vq, vs)),
+            torch.from_numpy(pos),
+        )
+        np.testing.assert_allclose(
+            out.float().numpy(), np.asarray(ref, np.float32), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("S_,splits", [(1, 1), (511, 1), (512, 1), (513, 2), (8192, 16)])
+def test_split_plan_covers_the_strip_from_its_shape_alone(S_, splits):
+    rows, n = tda.split_plan(S_)
+    assert (rows, n) == (tda.SPLIT_ROWS, splits)
+    assert (n - 1) * rows < S_ <= n * rows
+    # one split writes the output directly: no merge workspace
+    ws = tda.workspace_elements(8, 32, 128, n)
+    assert ws == (0 if n == 1 else 8 * 32 * n * (128 + 2))
+
+
+def test_split_plan_refuses_an_empty_strip():
+    with pytest.raises(ValueError, match="positive"):
+        tda.split_plan(0)
+
+
 def test_plain_reads_no_row_past_a_slots_position():
     """Rows past each slot's position must not change its output."""
     rng = np.random.default_rng(7)

@@ -64,6 +64,43 @@ def test_plain_kernel_matches_pallas_interpret(M, K, F):
     np.testing.assert_allclose(out.float().numpy(), ref, rtol=0, atol=2.0**-7 * np.abs(ref).max())
 
 
+@pytest.mark.parametrize("M,K,F", [(4, 200, 700), (16, 200, 700), (4, 1000, 512), (16, 333, 96)])
+def test_plain_kernel_matches_pallas_interpret_at_padded_and_two_group_m(M, K, F):
+    """M below and above the CUDA kernel's 8-row group, K no multiple of its
+    16-row mma step (200, 1000) or of anything (333)."""
+    rng = np.random.default_rng(100 + M + K)
+    packed = jquant.quantize_int8(jnp.asarray(rng.standard_normal((K, F)) * 0.1, jnp.float32))
+    xj, xt = _bf16(rng.standard_normal((M, K)))
+    ref = np.asarray(jim.int8_matmul(xj, packed["q"], packed["scale"], interpret=True), np.float32)
+    out = tim.int8_matmul(xt, to_tensor(np.asarray(packed["q"])), to_tensor(np.asarray(packed["scale"])))
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == (M, F)
+    # exact f32 products on both sides, scale after the sum: one bf16
+    # rounding step of the largest output
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=0, atol=2.0**-7 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize(
+    "K,F_pad",
+    [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096), (4096, 128512), (64, 512),
+     (200, 1024), (1000, 512), (129, 512)],
+)
+def test_mma_plan_covers_k_in_whole_rounds(K, F_pad):
+    splits, k_chunk = tim.mma_plan(K, F_pad)
+    assert splits >= 1 and k_chunk % tim._MMA_K_ROUND == 0
+    assert (splits - 1) * k_chunk < K <= splits * k_chunk  # covers K, no empty split
+    tiles = F_pad // tim._MMA_TILE_F
+    if 2 * tiles > tim._TARGET_BLOCKS:
+        assert splits == 1  # the column tiles fill the card: no partials, no summing block
+    else:  # one wave of blocks, and more than half of it unless K runs out of rounds
+        assert tiles * splits <= tim._TARGET_BLOCKS
+        assert 2 * tiles * splits > tim._TARGET_BLOCKS or k_chunk == tim._MMA_K_ROUND
+
+
+def test_mma_plan_gives_the_lm_head_one_split_and_the_narrow_projections_many():
+    assert tim.mma_plan(4096, 128512)[0] == 1 and tim.mma_plan(4096, 28672)[0] == 1
+    assert tim.mma_plan(4096, 4096)[0] > 1 and tim.mma_plan(14336, 4096)[0] > 1
+
+
 def test_dequant_path_matches_int8_matmul_xla():
     rng = np.random.default_rng(3)
     K, F, M = 200, 700, 150  # M > M_MAX: the prefill path

@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: no module of generativeaiexamples_tpu_torch
-and not chip_smoke.py imports jax or the JAX package
+and neither chip_smoke.py nor kernel_sweep.py imports jax or the JAX package
 (generativeaiexamples_tpu), checked two ways: by importing every port
 module in a fresh interpreter and reading sys.modules, and by scanning the
 port's sources for import statements. Names match exactly or up to a dot
@@ -33,7 +33,7 @@ def _port_modules():
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "kernel_sweep.py"]
 
 
 def test_name_matching_is_exact_or_dotted():
@@ -45,7 +45,7 @@ def test_name_matching_is_exact_or_dotted():
 
 
 def test_importing_every_port_module_loads_neither_jax_nor_the_jax_package():
-    mods = _port_modules() + ["chip_smoke"]
+    mods = _port_modules() + ["chip_smoke", "kernel_sweep"]
     assert "generativeaiexamples_tpu_torch.engine.llm_engine" in mods
     assert "generativeaiexamples_tpu_torch.ops.decode_attention" in mods
     code = (

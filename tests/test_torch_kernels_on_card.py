@@ -40,6 +40,37 @@ def test_int8_matmul_kernel_matches_plain(card):
         torch.testing.assert_close(y.float(), ref.float(), rtol=0, atol=2.0**-7 * float(ref.abs().max()))
 
 
+@pytest.mark.parametrize("M", [1, 4, 8, 16, 128])
+def test_int8_matmul_tensor_core_tiles_match_plain(card, M):
+    """Padded (M < 8), full, two-group (M = 16) and multi-pass M; K with a
+    ragged tail (no multiple of the 16-row mma step, of 8, or even), K past
+    one staged chunk of x, F that is no multiple of 512 or of 8; one split
+    and many."""
+    gen = torch.Generator(device=card).manual_seed(9)
+    for K, F in ((200, 700), (1000, 512), (333, 1030), (4096, 1024), (2500, 33000), (14336, 520)):
+        packed = quant.quantize_int8(torch.randn((K, F), generator=gen, device=card) * 0.05)
+        x = torch.randn((M, K), generator=gen, device=card).to(torch.bfloat16)
+        before = im.int8_matmul.launches
+        y = im.int8_matmul(x, packed["q"], packed["scale"])
+        assert im.int8_matmul.launches == before + 1
+        assert tuple(y.shape) == (M, F) and y.dtype == torch.bfloat16
+        ref = im.int8_matmul_plain(x, packed["q"], packed["scale"])
+        # exact products, f32 sums in another order: within one bf16 step of
+        # the largest output
+        torch.testing.assert_close(
+            y.float(), ref.float(), rtol=0, atol=2.0**-7 * float(ref.abs().max()), msg=f"{K=} {F=}")
+
+
+def test_int8_matmul_is_deterministic(card):
+    """Split-K partials are summed in a fixed order: two calls agree bit for bit."""
+    gen = torch.Generator(device=card).manual_seed(10)
+    packed = quant.quantize_int8(torch.randn((4096, 4096), generator=gen, device=card) * 0.05)
+    x = torch.randn((8, 4096), generator=gen, device=card).to(torch.bfloat16)
+    assert im.mma_plan(4096, 4096)[0] > 1
+    assert torch.equal(im.int8_matmul(x, packed["q"], packed["scale"]),
+                       im.int8_matmul(x, packed["q"], packed["scale"]))
+
+
 def test_paged_attention_kernel_matches_plain(card):
     gen = torch.Generator(device=card).manual_seed(1)
     B, Hq, Hkv, Dh, page, pmax = 4, 8, 2, 128, 16, 8
@@ -225,6 +256,51 @@ def test_decode_attention_kernel_matches_plain(card, Dh):
         # f32 inside both (scales folded after the integer dots), one bf16
         # rounding of |out| < ~2
         torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=1e-2)
+
+
+@pytest.mark.parametrize("Dh", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 4, 6])
+def test_decode_attention_split_edges_match_plain(card, Dh, G):
+    """Slots ending on a split's last row and on the next split's first, on
+    a tile edge inside a later split, at the strip's last row, past it, a
+    slot with one live row and one with none, over three splits; twice, so
+    the second launch finds the merge tickets the first one left."""
+    gen = torch.Generator(device=card).manual_seed(11)
+    Hkv = 2
+    st = da.SPLIT_ROWS
+    S = 2 * st + 100
+    assert da.split_plan(S) == (st, 3)
+    last = [st - 1, st, 2 * st - 1, 2 * st, st + 64, S - 1, S + 7, 0, -1]
+    B = len(last)
+    k, ks = llama.quantize_kv(torch.randn((B, Hkv, S, Dh), generator=gen, device=card))
+    v, vs = llama.quantize_kv(torch.randn((B, Hkv, S, Dh), generator=gen, device=card))
+    ks, vs = ks[:, :, None, :].contiguous(), vs[:, :, None, :].contiguous()
+    pos = torch.tensor(last, dtype=torch.int32, device=card)
+    for _ in range(2):
+        q = torch.randn((B, Hkv * G, Dh), generator=gen, device=card).to(torch.bfloat16)
+        before = da.decode_attention.launches
+        out = da.decode_attention(q, k, ks, v, vs, pos)
+        assert da.decode_attention.launches == before + 1
+        ref = da.decode_attention_plain(q, k, ks, v, vs, pos)
+        # f32 inside both (scales folded after the integer dots), one bf16
+        # rounding of |out| < ~2; each (slot, head) within 5 % of its RMS
+        _assert_rows_close(out, ref, atol=1e-2)
+        assert float(out[-1].float().abs().max()) == 0.0  # no live row: 0, not NaN
+
+
+def test_decode_attention_one_split_needs_no_workspace(card):
+    """A strip one split covers: written directly (the wrapper passes no
+    workspace), at capacity and past it."""
+    gen = torch.Generator(device=card).manual_seed(12)
+    B, Hq, Hkv, S, Dh = 3, 8, 2, da.SPLIT_ROWS, 128
+    assert da.workspace_elements(B, Hq, Dh, da.split_plan(S)[1]) == 0
+    k, ks = llama.quantize_kv(torch.randn((B, Hkv, S, Dh), generator=gen, device=card))
+    v, vs = llama.quantize_kv(torch.randn((B, Hkv, S, Dh), generator=gen, device=card))
+    ks, vs = ks[:, :, None, :].contiguous(), vs[:, :, None, :].contiguous()
+    q = torch.randn((B, Hq, Dh), generator=gen, device=card).to(torch.bfloat16)
+    pos = torch.tensor([S - 1, 63, S + 3], dtype=torch.int32, device=card)
+    out = da.decode_attention(q, k, ks, v, vs, pos)
+    _assert_rows_close(out, da.decode_attention_plain(q, k, ks, v, vs, pos), atol=1e-2)
 
 
 def test_decode_attention_wrapper_refuses_what_the_kernel_does_not_serve(card):
