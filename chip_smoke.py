@@ -11,7 +11,8 @@ Phases (each one's failure makes the script exit non-zero):
    shapes for llama3-8b, with its time, the plain version's, one library
    call's as a yardstick, and its bound: int8_matmul and int8_w8a8_matmul
    at the four projections and the lm_head (M = 1 and 8; int8_matmul also
-   at M = 4 and 16, untimed), paged_attention over bf16, int8 and int4
+   at M = 4 and 16, untimed; int8_w8a8_matmul also at M = 16 and 128 and
+   with f32 x, timed), paged_attention over bf16, int8 and int4
    pools (ragged, uniform, short and split-edge rows),
    flash_attention_causal at (2, 512) and (2, 300), decode_attention over
    the fixed layout's int8 cache (ragged, uniform, short and split-edge
@@ -29,7 +30,12 @@ Phases (each one's failure makes the script exit non-zero):
    completions, one prompt longer than ``prefill_chunk``), then 8
    concurrent ``generate_ids`` on each of A, B, C (int8 weights, int4 KV)
    and D. Every kernel's launch count is set to 0 just before each engine
-   serves and read just after.
+   serves and read just after. Each engine also reports its device time
+   and its kernel launches per decode step.
+
+With no arguments it runs every phase, as above; ``--phases``,
+``--checks`` and ``--recipes`` run a part (for example ``--phases serve
+--recipes B``) and then print only the kernels that part measured.
 
 It then prints one JSON line of per-kernel results and, last, the device
 line. It imports nothing of JAX.
@@ -39,6 +45,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -359,8 +366,12 @@ def check_paged(timer, dev, gen, results) -> None:
 
 
 def check_w8a8(timer, dev, gen, results) -> None:
-    """int8_w8a8_matmul at the four fused projections and the lm_head, M = 1
-    and 8: bitwise against its plain version (both sums exact)."""
+    """int8_w8a8_matmul (one launch, its quantizer inside) at the four fused
+    projections and the lm_head, bitwise against its plain version (exact
+    int32 sums and the same f32 quantizer on both sides) with bf16 x at
+    M = 1, 8, 16 and 128 and f32 x at M = 8, every case timed; at M = 1 and
+    8 also the plain version, the ``torch._int_mm`` yardstick and
+    ``int8_matmul`` on the same pack, which streams the same bytes."""
     from generativeaiexamples_tpu_torch.models.llama import PRESETS
 
     cfg = PRESETS[MODEL]
@@ -372,54 +383,61 @@ def check_w8a8(timer, dev, gen, results) -> None:
         "w_down": (f, h),
         "lm_head": (h, cfg.vocab_size),
     }
-    agg = {"ms": 0.0, "glue_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
+    cases = ((1, torch.bfloat16), (8, torch.bfloat16), (16, torch.bfloat16),
+             (128, torch.bfloat16), (8, torch.float32))
+    agg = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "int8_matmul_ms": 0.0, "bytes": 0,
            "flops": 0, "err": 0.0}
-    for M in (1, 8):
-        for name, (K, F) in shapes.items():
-            K_pad = -(-K // im.K_ALIGN) * im.K_ALIGN
-            F_pad = -(-F // im.F_BLK) * im.F_BLK
-            q = torch.zeros((K_pad, F_pad), dtype=torch.int8, device=dev)
-            q[:K, :F].random_(-127, 128, generator=gen)
-            scale = torch.rand((1, F), generator=gen, device=dev) * 2e-4 + 1e-4
-            x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+    per_shape = {}
+    for name, (K, F) in shapes.items():
+        K_pad = -(-K // im.K_ALIGN) * im.K_ALIGN
+        F_pad = -(-F // im.F_BLK) * im.F_BLK
+        q = torch.zeros((K_pad, F_pad), dtype=torch.int8, device=dev)
+        q[:K, :F].random_(-127, 128, generator=gen)
+        scale = torch.rand((1, F), generator=gen, device=dev) * 2e-4 + 1e-4
+        for M, dtype in cases:
+            x = torch.randn((M, K), generator=gen, device=dev).to(dtype)
             y = im.int8_w8a8_matmul(x, q, scale)
             ref = im.int8_w8a8_matmul_plain(x, q, scale)
             torch.cuda.synchronize()
             err = _max_err(y, ref)
             ok = torch.equal(y, ref)  # exact int32 sums and one epilogue on both sides
             k_ms = timer.ms(lambda: im.int8_w8a8_matmul(x, q, scale))
-            p_ms = timer.ms(lambda: im.int8_w8a8_matmul_plain(x, q, scale), iters=5)
-            # yardstick: cuBLAS int8 x int8 -> int32 on the quantized rows,
-            # padded to _int_mm's least M (17)
-            xq = torch.zeros((max(17, M), K_pad), dtype=torch.int8, device=dev)
-            xq[:M, :K] = im.quantize_rows(x)[0]
-            l_ms = timer.ms(lambda: torch._int_mm(xq, q))
-            # the wrapper's plain-op glue inside kernel_ms: quantize_rows and
-            # the padded copy of the int8 rows
-            g_ms = timer.ms(lambda: torch.zeros((M, K_pad), dtype=torch.int8, device=dev)[:, :K]
-                            .copy_(im.quantize_rows(x)[0]))
-            nbytes, ops = hardware.w8a8_matmul_cost(M, K, F)
+            nbytes, ops = hardware.w8a8_matmul_cost(M, K, F, x_bytes=x.element_size())
             b_ms, b_by = hardware.bound_ms(nbytes, ops, int8=True)
-            log(f"  int8_w8a8_matmul {name:8s} M={M} K={K} F={F}: bitwise={ok} max|err|={err:.4g} "
-                f"kernel_ms={k_ms:.4f} (quantize_rows+pad {g_ms:.4f}) plain_ms={p_ms:.4f} "
-                f"library_ms={l_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}")
+            label = f"{name}_M{M}" + ("_f32" if dtype == torch.float32 else "")
+            row = {"ms": k_ms, "bound_ms": b_ms}
+            extra = ""
+            if M <= 8 and dtype == torch.bfloat16:
+                row["plain_ms"] = timer.ms(lambda: im.int8_w8a8_matmul_plain(x, q, scale), iters=5)
+                # yardstick: cuBLAS int8 x int8 -> int32 on the quantized
+                # rows, padded to _int_mm's least M (17)
+                xq = torch.zeros((max(17, M), K_pad), dtype=torch.int8, device=dev)
+                xq[:M, :K] = im.quantize_rows(x)[0]
+                row["library_ms"] = timer.ms(lambda: torch._int_mm(xq, q))
+                row["int8_matmul_ms"] = timer.ms(lambda: im.int8_matmul(x, q, scale))
+                del xq
+                extra = (f" plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+                         f"int8_matmul_ms={row['int8_matmul_ms']:.4f}")
+            log(f"  int8_w8a8_matmul {name:8s} M={M} K={K} F={F} x={str(dtype)[6:]}: bitwise={ok} "
+                f"max|err|={err:.4g} kernel_ms={k_ms:.4f}{extra} bound_ms={b_ms:.4f} ({b_by}) "
+                f"{'ok' if ok else 'FAIL'}")
             if not ok:
-                raise AssertionError(f"int8_w8a8_matmul {name} M={M} differs from its plain version")
+                raise AssertionError(f"int8_w8a8_matmul {label} differs from its plain version")
             agg["err"] = max(agg["err"], err)
-            if M == 8 and name != "lm_head":  # one decoder layer's projections at B=8
-                agg["ms"] += k_ms
-                agg["glue_ms"] += g_ms
-                agg["plain_ms"] += p_ms
-                agg["library_ms"] += l_ms
+            per_shape[label] = row
+            if M == 8 and dtype == torch.bfloat16 and name != "lm_head":  # one layer at B=8
+                for key in ("ms", "plain_ms", "library_ms", "int8_matmul_ms"):
+                    agg[key] += row[key]
                 agg["bytes"] += nbytes
                 agg["flops"] += ops
-            del q, xq
+        del q
     b_ms, b_by = hardware.bound_ms(agg["bytes"], agg["flops"], int8=True)
     results["int8_w8a8_matmul"] = {
         "max_abs_err": agg["err"], "ms": agg["ms"], "plain_ms": agg["plain_ms"],
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": agg["library_ms"],
-        "shape": "one layer's wqkv+wo+w_gateup+w_down at M=8",
-        "quantize_rows_ms": agg["glue_ms"],  # of "ms": the wrapper's plain quantize + pad
+        "shape": "one layer's wqkv+wo+w_gateup+w_down at M=8, bf16 x, quantizer included",
+        "int8_matmul_ms": agg["int8_matmul_ms"],  # the weight-only kernel on the same packs
+        "per_shape": per_shape,
     }
 
 
@@ -543,17 +561,18 @@ def check_decode(timer, dev, gen, results) -> None:
     }
 
 
-def phase_kernels(dev) -> dict:
+CHECKS = {"int8": check_int8, "w8a8": check_w8a8, "paged": check_paged, "flash": check_flash,
+          "decode": check_decode}
+
+
+def phase_kernels(dev, checks=tuple(CHECKS)) -> dict:
     timer = Timer(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     results: dict = {}
     one = torch.zeros(16, device=dev)
     log(f"  timer floor (one 16-element add_, the same timing): {timer.ms(lambda: one.add_(1)):.4f} ms")
-    check_int8(timer, dev, gen, results)
-    check_w8a8(timer, dev, gen, results)
-    check_paged(timer, dev, gen, results)
-    check_flash(timer, dev, gen, results)
-    check_decode(timer, dev, gen, results)
+    for name in checks:
+        CHECKS[name](timer, dev, gen, results)
     del timer
     torch.cuda.empty_cache()
     log(f"  launches in this phase (checks and timing, not the serving path): {counts()}")
@@ -761,9 +780,40 @@ def device_step_ms(engine) -> list:
                 end.record()
                 end.synchronize()
                 times.append(start.elapsed_time(end))
+            launches = launches_per_step(step)
     finally:
         gc.enable()
-    return sorted(times)
+    return sorted(times), launches
+
+
+# the port's kernels by the names of their __global__ functions (every
+# W8A8 kernel name starts "w8a8_")
+_PORT_KERNEL_NAMES = re.compile(
+    r"int8_matmul_mma|w8a8_|paged_(split|merge)_kernel|flash_attention_kernel|decode_split_kernel")
+
+
+def launches_per_step(step) -> dict:
+    """Kernel launches of one decode step: those torch.profiler's device
+    trace shows, split into PyTorch's and the port's, and the port's
+    wrapper calls by their launch counts (the trace may miss launches from
+    the ctypes-loaded libraries)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    before = sum(counts().values())
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+    except Exception as exc:  # noqa: BLE001 - a measurement, reported as not measured
+        log(f"  launches per step: not measured ({exc!r})")
+        return {}
+    calls = sum(counts().values()) - before
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not e.name.startswith(("Memcpy", "Memset"))]
+    port = sum(1 for n in names if _PORT_KERNEL_NAMES.search(n))
+    return {"torch": len(names) - port, "port_seen": port, "port_calls": calls,
+            "total": len(names) - port + max(port, calls)}
 
 
 def _http_requests(engine, base) -> None:
@@ -884,7 +934,7 @@ def serve_recipe(dev, name, quantization, kv_dtype, layout, expected, http: bool
             "launches": launched,
             "serve_s": t_total,
         }
-        samples = device_step_ms(engine)
+        samples, serve["launches_per_step"] = device_step_ms(engine)
         serve["device_step_ms"] = statistics.median(samples)
         serve["device_step_ms_samples"] = samples
         serve["device_idle_share"] = max(0.0, 1.0 - serve["device_step_ms"] / serve["decode_step_ms"])
@@ -894,7 +944,8 @@ def serve_recipe(dev, name, quantization, kv_dtype, layout, expected, http: bool
             f"{serve['decode_weight_hbm_share']:.1%} of peak HBM rate; one step on the device "
             f"{serve['device_step_ms']:.2f} ms (median of {', '.join(f'{t:.2f}' for t in samples)}; "
             f"idle {serve['device_idle_share']:.1%}); TTFT mean {serve['ttft_mean_s']:.3f} s "
-            f"max {serve['ttft_max_s']:.3f} s over all requests")
+            f"max {serve['ttft_max_s']:.3f} s over all requests; launches per decode step "
+            f"{serve['launches_per_step'] or 'not measured'}")
         return serve
     finally:
         server.shutdown()
@@ -902,10 +953,12 @@ def serve_recipe(dev, name, quantization, kv_dtype, layout, expected, http: bool
         engine.shutdown()
 
 
-def phase_serve(dev) -> dict:
+def phase_serve(dev, recipes="ABCD") -> dict:
     t0 = time.time()
     serves = {}
     for name, quantization, kv_dtype, layout, expected in RECIPES:
+        if name not in recipes:
+            continue
         serves[name] = serve_recipe(dev, name, quantization, kv_dtype, layout, expected,
                                     http=name != "C")
         gc.collect()  # the engine and its dispatch thread reference each other
@@ -916,7 +969,14 @@ def phase_serve(dev) -> dict:
 
 
 def main() -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--phases", default="kernels,model,serve",
+                        help="phases after the build, comma-separated (default: all)")
+    parser.add_argument("--checks", default=",".join(CHECKS),
+                        help="phase 3's kernel checks, comma-separated (default: all)")
+    parser.add_argument("--recipes", default="ABCD", help="phase 5's engines (default: ABCD)")
+    args = parser.parse_args()
+    phases = args.phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs on the GPU only",
               file=sys.stderr)
@@ -925,11 +985,14 @@ def main() -> int:
     t0 = time.time()
     info = phase_device()
     phase_build()
-    results = phase_kernels(dev)
-    phase_model(dev)
-    serves = phase_serve(dev)
+    results = phase_kernels(dev, args.checks.split(",")) if "kernels" in phases else {}
+    if "model" in phases:
+        phase_model(dev)
+    serves = phase_serve(dev, args.recipes) if "serve" in phases else {}
     kernels = []
     for name, (replaces, source) in KERNELS.items():
+        if name not in results:  # a check left out by --checks
+            continue
         r = results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,

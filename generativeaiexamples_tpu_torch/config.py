@@ -7,14 +7,76 @@ same names and defaults. A value the port does not serve raises in
 :meth:`EngineConfig.from_env` reads the JAX package's environment names
 for these fields (``APP_ENGINE_QUANTIZATION``, ``APP_ENGINE_KVCACHEDTYPE``,
 …): ``APP_ENGINE_`` and the field name without underscores, upper-cased.
+It knows the names of the JAX config's other engine fields too
+(``JAX_ONLY_FIELDS``): one set to a value the port does not serve raises,
+naming the ROADMAP item that will serve it; one that exists only for XLA's
+compiles is logged once and ignored.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 from typing import Mapping, Optional
 
+logger = logging.getLogger(__name__)
+
 ENV_PREFIX = "APP_ENGINE_"
+
+_CKPT = "checkpoints load with training and checkpoints (ROADMAP queue 1 item 10)"
+_MULTI = "the port serves one card until multi-GPU (ROADMAP queue 1 item 9)"
+_PREFIX = "the prefix cache arrives with ROADMAP queue 1 item 4"
+_SPEC = "speculative decoding arrives with ROADMAP queue 1 item 5"
+_RESIL = "the engine's resilience surface arrives with ROADMAP queue 1 item 6"
+_DISAGG = "scheduler policies arrive with disaggregation (ROADMAP queue 1 item 8)"
+_SNAP = "drain and snapshots arrive with disaggregation (ROADMAP queue 1 item 8)"
+# The JAX package's EngineConfig fields (config/schema.py) that the port
+# has no field for: name -> (the JAX default, why another value is refused,
+# the other values the port serves as they are). A reason of None marks a
+# field that exists only for XLA's compiles: logged once, ignored.
+JAX_ONLY_FIELDS = {
+    "checkpoint_path": ("", _CKPT, ()),
+    "tensor_parallelism": (-1, _MULTI, (1,)),
+    "pipeline_parallelism": (1, _MULTI, ()),
+    "serving_layout": ("auto", None, ()),
+    "paged_kernel": ("auto", "the port always reads a paged pool through its kernel on the card", ()),
+    "warmup_prompt_lengths": ("", None, ()),
+    "chunked_prefill": ("auto", "the port always chunks prompts longer than prefill_chunk", ()),
+    "prefix_cache_enable": ("auto", _PREFIX, ("off",)),
+    "prefix_cache_slots": (4, _PREFIX, ()),
+    "spec_decode_enable": ("off", _SPEC, ()),
+    "spec_pipeline_enable": ("on", _SPEC, ()),
+    "spec_draft_len": (8, _SPEC, ()),
+    "spec_ngram_max": (3, _SPEC, ()),
+    "spec_proposer": ("lookup", _SPEC, ()),
+    "spec_draft_model": ("", _SPEC, ()),
+    "spec_draft_checkpoint_path": ("", _SPEC, ()),
+    "spec_draft_model_len": (0, _SPEC, ()),
+    "spec_draft_kv_dtype": ("bfloat16", _SPEC, ()),
+    "spec_draft_min_acceptance": (0.0, _SPEC, ()),
+    "spec_adaptive_k": ("off", _SPEC, ()),
+    "spec_adaptive_k_min": (1, _SPEC, ()),
+    "spec_adaptive_k_threshold": (0.5, _SPEC, ()),
+    "prefill_wave_tokens": (16384, _RESIL, ()),
+    "decode_runahead": (4, "decode runahead arrives with the reader thread (ROADMAP queue 1 item 2)", ()),
+    "max_queued_requests": (0, _RESIL, ()),
+    "watchdog_stall_s": (300.0, _RESIL, ()),
+    "quiesce_timeout_s": (600.0, None, ()),  # warmup's wait for decode to drain
+    "drain_timeout_s": (30.0, _SNAP, ()),
+    "snapshot_spool_dir": ("/tmp/genai_snapshots", _SNAP, ()),
+    "snapshot_spool_max": (64, _SNAP, ()),
+    "scheduler_policy": ("unified", _DISAGG, ()),
+    "handoff_queue_depth": (0, _DISAGG, ()),
+}
+_LOGGED: set = set()  # XLA-only variables already logged by this process
+
+
+def _parse(name: str, raw: str, default):
+    typ = type(default)
+    try:
+        return typ(raw)
+    except ValueError:
+        raise ValueError(f"{name}={raw!r} is not a valid {typ.__name__}") from None
 
 
 @dataclasses.dataclass
@@ -50,20 +112,30 @@ class EngineConfig:
     @classmethod
     def from_env(cls, environ: Optional[Mapping[str, str]] = None) -> "EngineConfig":
         """Defaults overridden by the ``APP_ENGINE_*`` variables that are
-        set; a value that does not parse as the field's type raises."""
+        set; a value that does not parse as the field's type raises. A
+        variable of ``JAX_ONLY_FIELDS`` is accepted at its JAX default (or
+        at a value the port serves as it is), logged and ignored when it
+        exists only for XLA, and raises otherwise."""
         environ = os.environ if environ is None else environ
         kwargs = {}
         for f in dataclasses.fields(cls):
-            raw = environ.get(cls.env_name(f.name))
+            name = cls.env_name(f.name)
+            raw = environ.get(name)
+            if raw is not None:
+                kwargs[f.name] = _parse(name, raw, f.default)
+        for field, (default, reason, served) in JAX_ONLY_FIELDS.items():
+            name = cls.env_name(field)
+            raw = environ.get(name)
             if raw is None:
                 continue
-            typ = type(f.default)
-            try:
-                kwargs[f.name] = typ(raw)
-            except ValueError:
-                raise ValueError(
-                    f"{cls.env_name(f.name)}={raw!r} is not a valid {typ.__name__}"
-                ) from None
+            if reason is None:
+                if name not in _LOGGED:
+                    _LOGGED.add(name)
+                    logger.info("%s=%r ignored: it exists only for XLA's compiles", name, raw)
+                continue
+            value = _parse(name, raw, default)
+            if value != default and value not in served:
+                raise ValueError(f"{name}={raw}: {reason}")
         return cls(**kwargs)
 
     def validate(self) -> None:

@@ -306,12 +306,19 @@ class LLMEngine:
         return req
 
     def abort(self, handle) -> bool:
-        """Abort a request: a pending one ends at once, a slotted one is
-        released by the dispatch loop's next pass. False when the request
-        already finished."""
+        """Abort a request by handle (the ``submit()`` return) or rid: a
+        pending one ends at once, a slotted one is released by the dispatch
+        loop's next pass. False when the request is unknown, already
+        finished or already aborted."""
         with self._lock:
-            req = handle
-            if req.finished or req.cancelled:
+            if isinstance(handle, _Request):
+                req = handle
+            else:
+                rid = int(handle)
+                req = next((r for r in self._pending if r.rid == rid), None) or next(
+                    (r for r in list(self._slot_req.values()) if r.rid == rid), None
+                )
+            if req is None or req.finished or req.cancelled:
                 return False
             req.cancelled = True
             if req in self._pending:

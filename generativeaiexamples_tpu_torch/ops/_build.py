@@ -126,7 +126,8 @@ def stream_ptr(tensor) -> ctypes.c_void_p:
 
 def tickets(kernel: str, tensor, count: int):
     """The int32 ticket buffer of a kernel whose last block to finish merges
-    the others' partial results (``decode_attention``, ``int8_matmul``), for
+    the others' partial results (``decode_attention``, ``int8_matmul``,
+    ``int8_w8a8_matmul``), for
     the tensor's device and PyTorch's current stream there. Zeroed once,
     here; the merging block sets its ticket back to zero, so every launch
     finds zeros and launches on one stream, which run one after another, can

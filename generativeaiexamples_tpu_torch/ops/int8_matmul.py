@@ -21,9 +21,12 @@ Weight-only, ``y[M, F] = (x[M, K] @ bf16(q[K, F])) * scale[1, F]``:
 W8A8, per-token int8 activations (:func:`quantize_rows`) and an exact
 int32 sum, ``y = bf16((f32(xq @ q) * sx) * scale)``:
 - :func:`int8_w8a8_matmul` is the decode kernel: on a CUDA tensor it
-  launches ``csrc/int8_w8a8_matmul.cu``; on a CPU tensor it runs
-  :func:`int8_w8a8_matmul_plain`. Both sums are exact, so the two agree
-  bit for bit.
+  launches ``csrc/int8_w8a8_matmul.cu`` once, with the quantizer inside
+  (bf16 or f32 x in, int8 tensor cores, split-K as :func:`w8a8_plan` says,
+  summed by the last block; from ``W8A8_TWO_LAUNCH_K`` the quantizer is a
+  launch of its own); on a CPU tensor it runs
+  :func:`int8_w8a8_matmul_plain`. Both sums are exact and both quantizers
+  are the same f32 arithmetic, so the two agree bit for bit.
 - :func:`int8_matmul_w8a8_prefill` is the large-M path, as the JAX
   package's ``int8_matmul_xla_w8a8``: ``torch._int_mm`` (exact int32) over
   output-column chunks.
@@ -43,14 +46,21 @@ from generativeaiexamples_tpu_torch.ops import _build
 F_BLK = 512
 K_ALIGN = 128
 M_MAX = 128
-# csrc/int8_w8a8_matmul.cu: K rows one split stages in shared memory, and
-# the number of blocks the split-K grid aims for (two per H100 SM).
-_MAX_K_CHUNK = 512
+# The number of blocks a split-K grid aims for (two per H100 SM).
 _TARGET_BLOCKS = 264
-# csrc/int8_matmul.cu: columns of F one block owns, and the K rows one round
-# of its 8 warps covers (8 mma steps of 16): a split is whole rounds.
+# csrc/int8_matmul.cu and csrc/int8_w8a8_matmul.cu: columns of F one block
+# owns, and the K rows one round of its 8 warps covers (8 mma steps of 16
+# for int8_matmul, of 32 for W8A8): a split is whole rounds.
 _MMA_TILE_F = 128
 _MMA_K_ROUND = 128
+_W8A8_K_ROUND = 256
+# K from which int8_w8a8_matmul runs its quantizer as a launch of its own
+# (the kernel file's two-launch variant) instead of inside every block of
+# the product: there every block would read M x K of x to find the row
+# scales. On the H100 (kernel_sweep.py, PERF.md) w_down (K = 14336) at
+# M = 8 took 0.0418 ms in two launches against 0.0457 in one; every K of
+# 4096 kept one launch.
+W8A8_TWO_LAUNCH_K = 4097
 
 _SIGNATURES = {
     "int8_matmul_launch": [
@@ -61,11 +71,13 @@ _SIGNATURES = {
 }
 _W8A8_SIGNATURES = {
     "int8_w8a8_matmul_launch": [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
     ],
 }
+W8A8_DTYPES = (torch.bfloat16, torch.float32)
 # Elements of the int32 product one _int_mm call of the prefill path may
 # hold, as the JAX package's int8_matmul_xla_w8a8 chunks its output axis.
 _MAX_ACC_ELEMS = 64 * 1024 * 1024
@@ -82,32 +94,29 @@ def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> 
     return (y * scale.float().reshape(F)).to(torch.bfloat16)
 
 
-def _split_k(K: int, n_tiles: int):
-    """(splits, k_chunk) for the split-K grid: enough blocks to fill the
-    card at M = 1, each split at most ``_MAX_K_CHUNK`` rows of K."""
-    splits = max(1, min(-(-_TARGET_BLOCKS // n_tiles), -(-K // 64)))
-    k_chunk = -(-K // splits)
-    if k_chunk > _MAX_K_CHUNK:
-        k_chunk = _MAX_K_CHUNK
-    k_chunk = -(-k_chunk // 32) * 32  # whole rounds of the kernel's 8 loads x 4 K groups
-    return -(-K // k_chunk), k_chunk
-
-
 @functools.lru_cache(maxsize=None)
-def mma_plan(K: int, F_pad: int):
-    """(splits, k_chunk) of ``csrc/int8_matmul.cu``'s grid of
-    ``F_pad / 128`` column tiles x ``splits``: as many splits as keep the
-    grid within ``_TARGET_BLOCKS`` (two blocks an SM: one wave), each a
-    whole number of 128-row rounds of the block's 8 warps; one split where
-    the column tiles alone come to more than half of that (w_gateup, the
+def mma_plan(K: int, F_pad: int, k_round: int = _MMA_K_ROUND):
+    """(splits, k_chunk) of a grid of ``F_pad / 128`` column tiles x
+    ``splits`` (``csrc/int8_matmul.cu``; ``csrc/int8_w8a8_matmul.cu``
+    through :func:`w8a8_plan`): as many splits as keep the grid within
+    ``_TARGET_BLOCKS`` (two blocks an SM: one wave), each a whole number of
+    ``k_round``-row rounds of the block's 8 warps; one split where the
+    column tiles alone come to more than half of that (w_gateup, the
     lm_head: their blocks then scale and write bf16 themselves, no
-    partials). On the H100 a grid just past one wave lost to the largest
-    grid inside it on every projection of llama3-8b."""
+    partials). On the H100 a grid just past
+    one wave lost to the largest grid inside it on every projection of
+    llama3-8b."""
     n_tiles = F_pad // _MMA_TILE_F
-    rounds = -(-K // _MMA_K_ROUND)
+    rounds = -(-K // k_round)
     splits = max(1, min(_TARGET_BLOCKS // n_tiles, rounds))
-    k_chunk = -(-rounds // splits) * _MMA_K_ROUND
+    k_chunk = -(-rounds // splits) * k_round
     return -(-K // k_chunk), k_chunk
+
+
+def w8a8_plan(K: int, F_pad: int):
+    """(splits, k_chunk) of ``csrc/int8_w8a8_matmul.cu``: :func:`mma_plan`
+    with its 256-row rounds."""
+    return mma_plan(K, F_pad, _W8A8_K_ROUND)
 
 
 def _launch(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -184,7 +193,11 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     [..., K], f32 scales [..., 1]). f32 math, round half to even: bitwise
     the JAX package's."""
     x32 = x.float()
-    s = torch.clamp(x32.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-8)
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    # divided by a tensor, not a Python number: PyTorch's CUDA division by
+    # a host scalar multiplies by its reciprocal, one ulp off IEEE division
+    # at times; this is IEEE on every device, as the kernel's __fdiv_rn
+    s = torch.clamp(amax / amax.new_full((), 127.0), min=1e-8)
     q = torch.clamp(torch.round(x32 / s), -127, 127).to(torch.int8)
     return q, s
 
@@ -215,6 +228,9 @@ def int8_w8a8_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor
 
 
 def _launch_w8a8(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """One launch of the kernel (two at K >= ``W8A8_TWO_LAUNCH_K``) and no
+    compute around it: y, the split-K partials and, for the two-launch
+    variant, the quantized rows are ``torch.empty``."""
     M, K = x2.shape
     K_pad, F_pad = q.shape
     F = scale.shape[-1]
@@ -223,20 +239,29 @@ def _launch_w8a8(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torc
             f"int8_w8a8_matmul: q must be a contiguous int8 pack [K_pad % {K_ALIGN}, "
             f"F_pad % {F_BLK}] with K_pad >= K={K}, got {tuple(q.shape)} {q.dtype}"
         )
+    if scale.dtype != torch.float32 or not scale.is_contiguous() or scale.numel() != F:
+        raise ValueError(f"int8_w8a8_matmul: scale must be contiguous float32 [1, F], got {scale.dtype}")
     if q.device != x2.device or scale.device != x2.device:
         raise ValueError("int8_w8a8_matmul: x, q and scale must share one device")
-    xq, sx = quantize_rows(x2)
-    xq_pad = torch.zeros((M, K_pad), dtype=torch.int8, device=x2.device)
-    xq_pad[:, :K] = xq
-    sx = sx.reshape(M).contiguous()
-    splits, k_chunk = _split_k(K_pad, F_pad // F_BLK)
-    s = scale.reshape(F).to(torch.float32).contiguous()
-    ws = torch.empty((splits, M, F_pad), dtype=torch.int32, device=x2.device)
-    y = torch.empty((M, F), dtype=torch.bfloat16, device=x2.device)
+    if q.data_ptr() % 16:
+        raise ValueError("int8_w8a8_matmul: the pack must start on a 16-byte boundary")
+    splits, k_chunk = w8a8_plan(K, F_pad)
+    dev = x2.device
+    ws = tickets = xq = sx = None
+    if splits > 1:
+        ws = torch.empty((splits, M, F_pad), dtype=torch.int32, device=dev)
+        passes = -(-M // (8 if M <= 8 else 16))
+        tickets = _build.tickets("int8_w8a8_matmul", x2, passes * (F_pad // _MMA_TILE_F))
+    if K >= W8A8_TWO_LAUNCH_K:
+        xq = torch.empty((M, K_pad), dtype=torch.int8, device=dev)
+        sx = torch.empty((M,), dtype=torch.float32, device=dev)
+    y = torch.empty((M, F), dtype=torch.bfloat16, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = _build.load("int8_w8a8_matmul", _W8A8_SIGNATURES)
     code = lib.int8_w8a8_matmul_launch(
-        xq_pad.data_ptr(), sx.data_ptr(), M, K_pad, q.data_ptr(), F_pad, s.data_ptr(), F,
-        ws.data_ptr(), splits, k_chunk, y.data_ptr(), _build.stream_ptr(x2),
+        x2.data_ptr(), int(x2.dtype == torch.float32), M, K, q.data_ptr(), K_pad, F_pad,
+        scale.data_ptr(), F, ptr(ws), ptr(tickets), splits, k_chunk, ptr(xq), ptr(sx),
+        y.data_ptr(), _build.stream_ptr(x2),
     )
     _build.check(code, "int8_w8a8_matmul")
     int8_w8a8_matmul.launches += 1
@@ -246,10 +271,14 @@ def _launch_w8a8(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torc
 def int8_w8a8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """y ~= (x @ dequant(q))[..., :F] with per-token int8 activations, for
     M = prod(leading dims) <= M_MAX; leading dims preserved. CUDA tensors
-    launch the kernel; CPU tensors run :func:`int8_w8a8_matmul_plain`."""
+    launch the kernel; CPU tensors run :func:`int8_w8a8_matmul_plain`.
+    x is bf16 or float32 (quantized in f32 either way); any other dtype
+    raises."""
     lead = x.shape[:-1]
     K = x.shape[-1]
     F = scale.shape[-1]
+    if x.dtype not in W8A8_DTYPES:
+        raise ValueError(f"int8_w8a8_matmul takes bfloat16 or float32 x, got {x.dtype}")
     x2 = x.reshape(-1, K)
     if x2.shape[0] > M_MAX:
         raise ValueError(
@@ -259,7 +288,7 @@ def int8_w8a8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> t
     if x2.device.type == "cpu":
         y = int8_w8a8_matmul_plain(x2, q, scale)
     else:
-        y = _launch_w8a8(x2, q, scale)
+        y = _launch_w8a8(x2 if x2.is_contiguous() else x2.contiguous(), q, scale)
     return y.reshape(*lead, F)
 
 

@@ -102,12 +102,14 @@ def int8_matmul_cost(M: int, K: int, F: int) -> Tuple[int, int]:
     return M * K * 2 + K * F + F * 4 + M * F * 2, 2 * M * K * F
 
 
-def w8a8_matmul_cost(M: int, K: int, F: int) -> Tuple[int, int]:
+def w8a8_matmul_cost(M: int, K: int, F: int, x_bytes: int = 2) -> Tuple[int, int]:
     """(bytes, integer operations) of the W8A8 product at the API
-    (``int8_w8a8_matmul``): the weight-only product's bytes (bf16 x, int8
-    weight and f32 scale read once, bf16 y written once) and operations,
-    which :func:`bound_ms` counts at the int8 rate."""
-    return int8_matmul_cost(M, K, F)
+    (``int8_w8a8_matmul``, its quantizer included): x (``x_bytes`` an
+    element: 2 bf16, 4 f32), the int8 weight and the f32 scale read once,
+    bf16 y written once, and the weight-only product's operations, which
+    :func:`bound_ms` counts at the int8 rate."""
+    nbytes, ops = int8_matmul_cost(M, K, F)
+    return nbytes + M * K * (x_bytes - 2), ops
 
 
 def paged_attention_cost(

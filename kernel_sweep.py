@@ -8,16 +8,24 @@ of every call) and at the llama3-8b shapes of ``chip_smoke.py``'s phase 3:
 - ``decode_attention`` at several values of ``SPLIT_ROWS`` on the four
   decode cases (ragged, uniform, short, split_edge);
 - ``int8_matmul`` at M = 8 at several split-K counts for each projection
-  and the lm_head, beside the count ``mma_plan`` picks.
+  and the lm_head, beside the count ``mma_plan`` picks;
+- ``int8_w8a8_matmul`` at M = 1 and 8 for each projection and the lm_head,
+  its quantizer inside the one launch against the two-launch variant (the
+  quantizer as a launch of its own), each held bitwise against the plain
+  version.
+
+``--sweeps decode,int8,w8a8`` picks which run (default: all).
 
 Every timed configuration is first held against the plain version. The
 constants it sweeps (``ops/decode_attention.py`` ``SPLIT_ROWS``,
-``ops/int8_matmul.py`` ``mma_plan``) were chosen from its output; PERF.md
+``ops/int8_matmul.py`` ``mma_plan`` and ``W8A8_TWO_LAUNCH_K``) were chosen
+from its output; PERF.md
 quotes it. It prints the card's name and power limit first, needs a CUDA
 device and imports nothing of JAX.
 """
 from __future__ import annotations
 
+import argparse
 import sys
 
 import torch
@@ -96,7 +104,44 @@ def sweep_int8(timer, dev, gen) -> None:
         im.mma_plan = plan
 
 
+def sweep_w8a8(timer, dev, gen) -> None:
+    cfg = PRESETS[MODEL]
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    shapes = {
+        "wqkv": (h, cfg.q_dim + 2 * cfg.kv_dim), "wo": (cfg.q_dim, h), "w_gateup": (h, 2 * f),
+        "w_down": (f, h), "lm_head": (h, cfg.vocab_size),
+    }
+    kept = im.W8A8_TWO_LAUNCH_K
+    try:
+        for name, (K, F) in shapes.items():
+            F_pad = -(-F // im.F_BLK) * im.F_BLK
+            q = torch.zeros((K, F_pad), dtype=torch.int8, device=dev)
+            q[:, :F].random_(-127, 128, generator=gen)
+            scale = torch.rand((1, F), generator=gen, device=dev) * 2e-4 + 1e-4
+            for M in (1, 8):
+                x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+                ref = im.int8_w8a8_matmul_plain(x, q, scale)
+                for label, two_from in (("one launch", 1 << 30), ("two launches", 0)):
+                    im.W8A8_TWO_LAUNCH_K = two_from
+                    if not torch.equal(im.int8_w8a8_matmul(x, q, scale), ref):
+                        raise AssertionError(f"int8_w8a8_matmul {name} M={M} {label}: not bitwise")
+                    ms = timer.ms(lambda: im.int8_w8a8_matmul(x, q, scale))
+                    print(f"int8_w8a8_matmul {name} M={M} K={K} {label}"
+                          f"{' (kept)' if (K >= kept) == (two_from == 0) else ''}: {ms:.4f} ms",
+                          flush=True)
+            del q
+    finally:
+        im.W8A8_TWO_LAUNCH_K = kept
+
+
+SWEEPS = {"decode": sweep_decode, "int8": sweep_int8, "w8a8": sweep_w8a8}
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--sweeps", default=",".join(SWEEPS),
+                        help="which sweeps, comma-separated (default: all)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("kernel_sweep: no CUDA device visible; this script runs on the GPU only",
               file=sys.stderr)
@@ -105,8 +150,8 @@ def main() -> int:
     phase_device()
     timer = Timer(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    sweep_decode(timer, dev, gen)
-    sweep_int8(timer, dev, gen)
+    for name in args.sweeps.split(","):
+        SWEEPS[name](timer, dev, gen)
     return 0
 
 

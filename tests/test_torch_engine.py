@@ -5,8 +5,10 @@ allocator, sampling is keyed by (seed, position) with the JAX package's
 keys, the quantized recipes (w8a8 + int8 KV, int8 + int4 KV) serve, and
 the engine refuses to start without a card unless asked for the CPU. Plus the pieces it is
 built from: the page allocator, the config checks and the sampler."""
+import collections
 import threading
 import time
+import types
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from generativeaiexamples_tpu.engine import llm_engine as jengine
 from generativeaiexamples_tpu.models import sampling as jsampling
 from generativeaiexamples_tpu_torch.config import EngineConfig
 from generativeaiexamples_tpu_torch.engine import kv_pages
@@ -191,6 +194,53 @@ def test_abort_releases_the_slot(engine):
     assert len(first) == 2
     # the engine keeps serving and ends with every page free
     assert len(list(engine.iter_ids(PROMPTS[0], SamplingParams(temperature=0.0, max_tokens=3), timeout=120))) <= 3
+    assert _settled(engine)["pages_in_use"] == 0
+
+
+def _jax_abort_answer(state):
+    """What the JAX engine's ``abort(rid)`` returns for a request in
+    ``state``: its own method run on the bookkeeping it reads (the pending
+    deque, the slot map, the scheduler's lookup), holding one request."""
+    stub = types.SimpleNamespace(
+        _lock=threading.Condition(), _pending=collections.deque(), _slot_req={},
+        scheduler=types.SimpleNamespace(find_rid=lambda rid: None),
+    )
+    req = jengine._Request(rid=7, prompt_ids=[1], params=jengine.SamplingParams())
+    if state == "pending":
+        stub._pending.append(req)
+    elif state == "slotted":
+        req.slot = 0
+        stub._slot_req[0] = req
+    elif state == "finished":
+        req.finished = True  # the reader thread ended it; no queue holds it
+    return jengine.LLMEngine.abort(stub, 8 if state == "unknown" else 7)
+
+
+@pytest.mark.parametrize("state", ["pending", "slotted", "unknown", "finished"])
+def test_abort_by_rid_answers_as_the_jax_engine(engine, state):
+    """``abort(rid)`` finds a pending or slotted request by its rid and
+    ends its stream; an unknown or finished rid answers False. Each answer
+    is the JAX engine's for the same state."""
+    greedy = SamplingParams(temperature=0.0, max_tokens=100)
+    if state == "pending":
+        with engine._lock:  # the dispatch loop cannot admit it meanwhile
+            req = engine.submit(PROMPTS[0], greedy)
+            got = engine.abort(req.rid)
+        assert _drain(req.out_queue) == []
+    elif state == "slotted":
+        req = engine.submit(PROMPTS[1], greedy)
+        assert req.out_queue.get(timeout=120) is not None  # decoding in its slot
+        got = engine.abort(req.rid)
+        assert len(_drain(req.out_queue)) < 99  # released before max_tokens
+    elif state == "unknown":
+        got = engine.abort(10**9)
+    else:
+        req = engine.submit(PROMPTS[0], SamplingParams(temperature=0.0, max_tokens=2))
+        _drain(req.out_queue)
+        _settled(engine)
+        got = engine.abort(req.rid)
+    assert got is _jax_abort_answer(state)
+    assert got is (state in ("pending", "slotted"))
     assert _settled(engine)["pages_in_use"] == 0
 
 

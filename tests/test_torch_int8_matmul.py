@@ -130,11 +130,30 @@ def test_packed_matmul_dispatches_by_m():
         tim.int8_matmul(big, tp["q"], tp["scale"])
 
 
-def test_split_k_plan_covers_k_within_the_kernels_limits():
-    for K, F_pad in ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096), (4096, 128512), (64, 512)):
-        splits, k_chunk = tim._split_k(K, F_pad // tim.F_BLK)
-        assert k_chunk <= tim._MAX_K_CHUNK and k_chunk % 32 == 0
-        assert (splits - 1) * k_chunk < K <= splits * k_chunk
+@pytest.mark.parametrize(
+    "K,F_pad",
+    [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096), (4096, 128512), (64, 512),
+     (200, 1024), (1000, 512), (333, 1536), (14336, 1024), (8200, 129024)],
+)
+def test_w8a8_plan_covers_k_in_whole_k32_rounds_within_one_wave(K, F_pad):
+    """The W8A8 kernel's split plan: the five llama3-8b shapes and odd K;
+    whole rounds of the 8 warps' k32 steps, no empty split, one wave of
+    blocks, and more than half of one unless K runs out of rounds."""
+    splits, k_chunk = tim.w8a8_plan(K, F_pad)
+    assert k_chunk % tim._W8A8_K_ROUND == 0
+    assert (splits - 1) * k_chunk < K <= splits * k_chunk
+    tiles = F_pad // tim._MMA_TILE_F
+    if 2 * tiles > tim._TARGET_BLOCKS:
+        assert splits == 1  # the lm_head and w_gateup: no partials, no summing block
+    else:
+        assert tiles * splits <= tim._TARGET_BLOCKS
+        assert 2 * tiles * splits > tim._TARGET_BLOCKS or k_chunk == tim._W8A8_K_ROUND
+
+
+def test_w8a8_plan_gives_the_lm_head_one_split():
+    assert tim.w8a8_plan(4096, 128512) == (1, 4096) and tim.w8a8_plan(4096, 28672) == (1, 4096)
+    assert tim.w8a8_plan(8200, 129024) == (1, 8448)
+    assert tim.w8a8_plan(14336, 4096)[0] > 1 and tim.w8a8_plan(4096, 4096)[0] > 1
 
 
 def test_quantize_params_matches_jax_fused_layout():
@@ -195,6 +214,35 @@ def test_w8a8_plain_is_bitwise_the_pallas_kernel(M, K, F):
     # both sums are exact integers and the epilogue is the same f32
     # (f32(acc) * sx) * s with one bf16 rounding: equal bit for bit
     np.testing.assert_array_equal(out.view(torch.int16).numpy(), ref.view(np.int16))
+
+
+@pytest.mark.parametrize("M,K,F", [(1, 64, 96), (8, 300, 700)])
+def test_w8a8_plain_is_bitwise_the_pallas_kernel_on_f32_rows(M, K, F):
+    """f32 activations (``dtype=float32`` engines) quantize from f32."""
+    rng = np.random.default_rng(20 + M)
+    packed = jquant.quantize_int8(jnp.asarray(rng.standard_normal((K, F)) * 0.1, jnp.float32))
+    x = (rng.standard_normal((M, K)) * 3).astype(np.float32)
+    ref = np.asarray(jim.int8_w8a8_matmul(jnp.asarray(x), packed["q"], packed["scale"], interpret=True))
+    out = tim.int8_w8a8_matmul(torch.from_numpy(x), to_tensor(np.asarray(packed["q"])),
+                               to_tensor(np.asarray(packed["scale"])))
+    np.testing.assert_array_equal(out.view(torch.int16).numpy(), ref.view(np.int16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int8])
+def test_w8a8_refuses_other_activation_dtypes(dtype):
+    tp = tquant.quantize_int8(torch.ones((64, 96)))
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        tim.int8_w8a8_matmul(torch.ones((2, 64), dtype=dtype), tp["q"], tp["scale"])
+
+
+def test_quantize_rows_divides_as_ieee_and_rounds_half_to_even():
+    """The kernel's quantizer (``__fdiv_rn``, ``rintf``) is this one: a row
+    whose absmax is 127 has s = 1 exactly, so 2.5 -> 2, -3.5 -> -4,
+    0.5 -> 0; an all-zero row takes s = 1e-8 and quantizes to zeros."""
+    x = torch.tensor([[127.0, 2.5, -3.5, 0.5, -0.5, 1.5], [0.0] * 6])
+    q, s = tim.quantize_rows(x)
+    assert s[:, 0].tolist() == [1.0, np.float32(1e-8)]
+    assert q.tolist() == [[127, 2, -4, 0, 0, 2], [0] * 6]
 
 
 @pytest.mark.parametrize("max_acc", [None, 150 * 512], ids=["one-product", "column-chunks"])

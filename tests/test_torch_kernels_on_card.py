@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from generativeaiexamples_tpu_torch.models import llama
+from generativeaiexamples_tpu_torch.ops import _build
 from generativeaiexamples_tpu_torch.ops import decode_attention as da
 from generativeaiexamples_tpu_torch.ops import flash_attention as fa
 from generativeaiexamples_tpu_torch.ops import int8_matmul as im
@@ -195,16 +196,78 @@ def test_quantized_paged_attention_kernel_matches_plain(card, kv_dtype):
             torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=1e-2)
 
 
-def test_w8a8_matmul_kernel_is_bitwise_its_plain_version(card):
+@pytest.mark.parametrize("M", [1, 8, 16, 37, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_w8a8_matmul_kernel_is_bitwise_its_plain_version(card, M, dtype):
+    """One launch with the quantizer inside, bitwise the plain version
+    (quantize_rows, exact int32 sums, the same f32 epilogue): one pass
+    (M <= 8), two row groups (16), passes of 16 (37, 128); K with a ragged
+    tail, past one staged split and at w_down's 14336; one split and many.
+    Row 0 is all zero (its scale clamps to 1e-8) and the last row has
+    absmax 127, so s = 1 and 2.5, -3.5 and 0.5 must round to even."""
     gen = torch.Generator(device=card).manual_seed(4)
-    for M, K, F in ((1, 200, 700), (8, 4096, 1024), (37, 1000, 512), (128, 384, 1536), (8, 14336, 512)):
+    for K, F in ((200, 700), (4096, 1024), (1000, 512), (384, 1536), (14336, 520), (333, 33000)):
         packed = quant.quantize_int8(torch.randn((K, F), generator=gen, device=card) * 0.05)
-        x = torch.randn((M, K), generator=gen, device=card).to(torch.bfloat16)
+        x = (torch.randn((M, K), generator=gen, device=card) * 3).to(dtype)
+        x[0] = 0
+        x[-1, :4] = torch.tensor([127.0, 2.5, -3.5, 0.5], device=card) if M > 1 else 0
         before = im.int8_w8a8_matmul.launches
         y = im.int8_w8a8_matmul(x, packed["q"], packed["scale"])
         assert im.int8_w8a8_matmul.launches == before + 1
-        # exact int32 sums on both sides, the same f32 epilogue
+        assert tuple(y.shape) == (M, F) and y.dtype == torch.bfloat16
         assert torch.equal(y, im.int8_w8a8_matmul_plain(x, packed["q"], packed["scale"])), (M, K, F)
+
+
+@pytest.mark.parametrize("two_launch_k", [0, 1 << 30], ids=["two-launches", "one-launch"])
+def test_w8a8_matmul_launch_variants_are_bitwise_its_plain_version(card, monkeypatch, two_launch_k):
+    """Both variants at every K: the quantizer inside the product's one
+    launch, and as a launch of its own (what K >= W8A8_TWO_LAUNCH_K takes)."""
+    monkeypatch.setattr(im, "W8A8_TWO_LAUNCH_K", two_launch_k)
+    gen = torch.Generator(device=card).manual_seed(8)
+    for M, K, F in ((1, 200, 700), (8, 4096, 1024), (16, 14336, 520), (37, 333, 1536)):
+        packed = quant.quantize_int8(torch.randn((K, F), generator=gen, device=card) * 0.05)
+        x = torch.randn((M, K), generator=gen, device=card).to(torch.bfloat16)
+        y = im.int8_w8a8_matmul(x, packed["q"], packed["scale"])
+        assert torch.equal(y, im.int8_w8a8_matmul_plain(x, packed["q"], packed["scale"])), (M, K, F)
+
+
+def test_w8a8_matmul_is_deterministic_and_leaves_its_tickets_zero(card):
+    gen = torch.Generator(device=card).manual_seed(6)
+    packed = quant.quantize_int8(torch.randn((4096, 4096), generator=gen, device=card) * 0.05)
+    x = torch.randn((8, 4096), generator=gen, device=card).to(torch.bfloat16)
+    assert im.w8a8_plan(4096, 4096)[0] > 1  # split-K: partials, tickets, a summing block
+    first = im.int8_w8a8_matmul(x, packed["q"], packed["scale"])
+    assert torch.equal(first, im.int8_w8a8_matmul(x, packed["q"], packed["scale"]))
+    tickets = _build.tickets("int8_w8a8_matmul", x, 4096 // im._MMA_TILE_F)
+    torch.cuda.synchronize()
+    assert int(tickets.abs().sum()) == 0
+
+
+def test_w8a8_wrapper_launches_once_and_computes_nothing_in_torch(card):
+    """Around its one ctypes launch the wrapper only allocates (y, the
+    split-K partials) and makes views: no quantize, no padded copy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=card).manual_seed(7)
+    packed = quant.quantize_int8(torch.randn((4096, 4096), generator=gen, device=card) * 0.05)
+    x = torch.randn((8, 4096), generator=gen, device=card).to(torch.bfloat16)
+    im.int8_w8a8_matmul(x, packed["q"], packed["scale"])  # builds the library and the tickets
+    torch.cuda.synchronize()
+    before = im.int8_w8a8_matmul.launches
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        im.int8_w8a8_matmul(x, packed["q"], packed["scale"])
+    assert im.int8_w8a8_matmul.launches == before + 1
+    ops = {e.name for e in prof.events() if e.name.startswith("aten::")}
+    views = {"aten::empty", "aten::view", "aten::reshape", "aten::_reshape_alias",
+             "aten::as_strided", "aten::_unsafe_view"}
+    assert "aten::empty" in ops and ops <= views, ops
+
+
+def test_w8a8_matmul_refuses_other_activation_dtypes(card):
+    packed = quant.quantize_int8(torch.ones((64, 96), device=card))
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        im.int8_w8a8_matmul(torch.ones((2, 64), dtype=torch.float16, device=card),
+                            packed["q"], packed["scale"])
 
 
 def test_w8a8_prefill_path_is_bitwise_the_plain_formula(card):

@@ -1,15 +1,20 @@
 """The port's OpenAI-compatible server: one HTTP round trip per route on
 the CPU engine, with the JAX server's wire shapes (the same keys at every
 level) and its request defaults."""
+import dataclasses
 import json
+import logging
 import threading
 import urllib.error
 import urllib.request
 
 import pytest
 
+from generativeaiexamples_tpu.config.schema import AppConfig
+from generativeaiexamples_tpu.config.schema import EngineConfig as JaxEngineConfig
 from generativeaiexamples_tpu.engine import server as jserver
-from generativeaiexamples_tpu_torch.config import EngineConfig
+from generativeaiexamples_tpu_torch import config as tconfig
+from generativeaiexamples_tpu_torch.config import JAX_ONLY_FIELDS, EngineConfig
 from generativeaiexamples_tpu_torch.engine.llm_engine import LLMEngine
 from generativeaiexamples_tpu_torch.engine.server import make_server
 
@@ -160,6 +165,63 @@ def test_engine_config_reads_the_jax_env_names(monkeypatch):
     monkeypatch.setenv("APP_ENGINE_MAXBATCHSIZE", "many")
     with pytest.raises(ValueError, match="APP_ENGINE_MAXBATCHSIZE"):
         EngineConfig.from_env()
+
+
+JAX_ENGINE_ENV = sorted(env for env, path, _ in AppConfig.envvars() if path[0] == "engine")
+JAX_DEFAULTS = {EngineConfig.env_name(f.name): getattr(JaxEngineConfig(), f.name)
+                for f in dataclasses.fields(JaxEngineConfig)}
+
+
+def test_the_port_knows_all_45_jax_engine_fields():
+    port = {EngineConfig.env_name(f.name) for f in dataclasses.fields(EngineConfig)}
+    only = {EngineConfig.env_name(name) for name in JAX_ONLY_FIELDS}
+    assert len(JAX_ENGINE_ENV) == 45 and not port & only
+    assert port | only == set(JAX_ENGINE_ENV) == set(JAX_DEFAULTS)
+
+
+@pytest.mark.parametrize("env", JAX_ENGINE_ENV)
+def test_each_jax_engine_variable_has_the_jax_default(env):
+    """Every JAX engine variable is either a port field or in the port's
+    own list of the other fields, with the JAX default in both cases."""
+    port = {EngineConfig.env_name(f.name): f.default for f in dataclasses.fields(EngineConfig)}
+    only = {EngineConfig.env_name(name): spec[0] for name, spec in JAX_ONLY_FIELDS.items()}
+    default = port[env] if env in port else only[env]
+    assert default == JAX_DEFAULTS[env] and type(default) is type(JAX_DEFAULTS[env])
+
+
+@pytest.mark.parametrize("env,value,item", [
+    ("APP_ENGINE_CHECKPOINTPATH", "/w", "queue 1 item 10"),
+    ("APP_ENGINE_SCHEDULERPOLICY", "disagg", "queue 1 item 8"),
+    ("APP_ENGINE_SPECDECODEENABLE", "on", "queue 1 item 5"),
+    ("APP_ENGINE_MAXQUEUEDREQUESTS", "4", "queue 1 item 6"),
+])
+def test_from_env_refuses_what_the_port_does_not_serve(env, value, item):
+    with pytest.raises(ValueError, match=f"{env}={value}: .*{item}"):
+        EngineConfig.from_env({env: value})
+
+
+@pytest.mark.parametrize("env,value", [
+    ("APP_ENGINE_WARMUPPROMPTLENGTHS", "2048,2560"),  # what bench.py's e2e server sets
+    ("APP_ENGINE_SERVINGLAYOUT", "scan"),
+    ("APP_ENGINE_QUIESCETIMEOUTS", "5"),
+])
+def test_from_env_logs_xla_only_variables_once_and_ignores_them(monkeypatch, caplog, env, value):
+    monkeypatch.setattr(tconfig, "_LOGGED", set())
+    with caplog.at_level(logging.INFO, logger=tconfig.__name__):
+        first = EngineConfig.from_env({env: value})
+        second = EngineConfig.from_env({env: value})
+    assert first == second == EngineConfig()
+    assert [r.getMessage().split("=")[0] for r in caplog.records] == [env]
+
+
+@pytest.mark.parametrize("env,value", sorted(
+    [(EngineConfig.env_name(name), str(spec[0])) for name, spec in JAX_ONLY_FIELDS.items()]
+    + [("APP_ENGINE_TENSORPARALLELISM", "1"), ("APP_ENGINE_PREFIXCACHEENABLE", "off")]
+))
+def test_from_env_accepts_jax_defaults_and_what_it_serves_as_it_is(env, value):
+    """At its JAX default a variable changes nothing; so do one card's
+    tensor parallelism and a prefix cache switched off."""
+    assert EngineConfig.from_env({env: value}) == EngineConfig()
 
 
 def test_server_engine_comes_from_the_env(monkeypatch):
