@@ -31,11 +31,22 @@ Phases (each one's failure makes the script exit non-zero):
    concurrent ``generate_ids`` on each of A, B, C (int8 weights, int4 KV)
    and D. Every kernel's launch count is set to 0 just before each engine
    serves and read just after. Each engine also reports its device time
-   and its kernel launches per decode step.
+   and its kernel launches per decode step, and the synchronizing CUDA
+   calls each thread made while it served (``torch.cuda.set_sync_debug_mode``):
+   the dispatch thread must make none; the reader waits once per readback.
+   Engine A is then held against a second engine on the same weights at
+   ``decode_runahead`` 1 (the same streams, greedy and a seeded sampled
+   row), and that engine, built with ``max_queued_requests`` =
+   ``max_batch_size``, takes more concurrent HTTP requests than fit: some
+   answer 429 with ``Retry-After`` and ``X-GenAI-Queue-Depth``, the rest
+   200. First, a thread's wait on a CUDA event must release the GIL.
 
 With no arguments it runs every phase, as above; ``--phases``,
 ``--checks`` and ``--recipes`` run a part (for example ``--phases serve
---recipes B``) and then print only the kernels that part measured.
+--recipes B``) and then print only the kernels that part measured;
+``--runahead N`` serves every engine at ``decode_runahead`` N, and
+``--timing-only`` leaves out the runahead and overload checks (for timed
+runs of an older tree, which lacks them).
 
 It then prints one JSON line of per-kernel results and, last, the device
 line. It imports nothing of JAX.
@@ -43,6 +54,8 @@ line. It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import collections
+import dataclasses
 import gc
 import json
 import re
@@ -51,10 +64,13 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
+import warnings
 
 import torch
 
+from generativeaiexamples_tpu_torch.config import EngineConfig as _EngineConfig
 from generativeaiexamples_tpu_torch.ops import _build
 from generativeaiexamples_tpu_torch.ops import decode_attention as da
 from generativeaiexamples_tpu_torch.ops import flash_attention as fa
@@ -78,6 +94,9 @@ KERNELS = {
     "decode_attention": ("generativeaiexamples_tpu/ops/decode_attention.py:75",
                          "generativeaiexamples_tpu_torch/csrc/decode_attention.cu"),
 }
+# whether the engine has the reader thread (an older tree's engine, timed
+# against this one, decodes synchronously)
+_HAS_READER = "decode_runahead" in _EngineConfig.__dataclass_fields__
 _COUNTED = (im.int8_matmul, im.int8_w8a8_matmul, fa.flash_attention_causal, da.decode_attention)
 # the serving recipes: (name, quantization, kv_cache_dtype, kv_layout, kernels its path must launch)
 RECIPES = (
@@ -868,10 +887,173 @@ def _http_requests(engine, base) -> None:
         f"long chat ({long_ids} prompt ids, chunked prefill): all 200")
 
 
-def serve_recipe(dev, name, quantization, kv_dtype, layout, expected, http: bool) -> dict:
+class SyncCounter:
+    """Counts PyTorch's synchronizing CUDA calls by thread name while it is
+    entered: ``torch.cuda.set_sync_debug_mode("warn")`` makes each one (a
+    blocking copy either way, ``.item()``, ``.cpu()``, a stream or device
+    synchronize) warn in the thread that made it. Entering also checks
+    that a probe thread's ``.item()`` is counted."""
+
+    _MESSAGE = "synchronizing"
+
+    def __enter__(self):
+        self.counts = collections.Counter()
+        self._catch = warnings.catch_warnings()
+        self._catch.__enter__()
+        warnings.filterwarnings("always", message=f".*{self._MESSAGE}")
+        shown = warnings.showwarning
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            if self._MESSAGE in str(message):
+                self.counts[threading.current_thread().name] += 1
+            else:
+                shown(message, category, filename, lineno, file, line)
+
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        probe = threading.Thread(target=lambda: torch.ones(1, device="cuda").item(),
+                                 name="smoke-sync-probe", daemon=True)
+        probe.start()
+        probe.join(60)
+        if self.counts.pop("smoke-sync-probe", 0) < 1:
+            self.__exit__(None, None, None)
+            raise AssertionError("sync debug mode did not report a probe thread's .item()")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+        self._catch.__exit__(*exc)
+        return False
+
+
+def check_wait_releases_the_gil() -> None:
+    """The reader thread's wait (``torch.cuda.Event.synchronize``) must
+    release the GIL, or the dispatch thread stalls behind it: a thread
+    waits on an event queued behind a ~0.2 s spin kernel while this thread
+    counts Python loop iterations, against its rate alone."""
+    def spin(stop) -> float:
+        """Python loop iterations a second until ``stop()``."""
+        n, t0 = 0, time.perf_counter()
+        while not stop():
+            n += 1
+        return n / (time.perf_counter() - t0)
+
+    t_end = time.perf_counter() + 0.05
+    alone = spin(lambda: time.perf_counter() >= t_end)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(400_000_000)
+    event = torch.cuda.Event()
+    event.record()
+    waited, done = {}, threading.Event()
+
+    def wait():
+        t0 = time.perf_counter()
+        event.synchronize()
+        waited["s"] = time.perf_counter() - t0
+        done.set()
+
+    thread = threading.Thread(target=wait, name="smoke-gil-probe", daemon=True)
+    thread.start()
+    during = spin(done.is_set)
+    thread.join(60)
+    share = during / alone
+    log(f"  a thread's torch.cuda.Event.synchronize() waited {waited['s'] * 1e3:.1f} ms; "
+        f"meanwhile this thread ran its Python loop at {share:.0%} of its rate alone "
+        f"({'the wait releases the GIL' if share > 0.3 else 'the wait HOLDS the GIL'})")
+    if waited["s"] < 0.05 or share <= 0.3:
+        raise AssertionError("the reader's event wait does not release the GIL (or did not wait)")
+
+
+def _drain_ids(q, timeout=600) -> list:
+    out = []
+    while (tok := q.get(timeout=timeout)) is not None:
+        out.append(tok)
+    return out
+
+
+def check_runahead_and_overload(engine, config) -> dict:
+    """A second engine on the same weights at decode_runahead 1, built with
+    max_queued_requests = max_batch_size: one batch of 7 greedy rows and a
+    seeded sampled row streams the same on both engines. Then, over HTTP,
+    8 long requests fill its slots and 16 concurrent completions arrive:
+    as many as fit wait and the rest answer 429 with Retry-After and
+    X-GenAI-Queue-Depth; aborting the long requests lets the waiting ones
+    answer 200."""
+    from generativeaiexamples_tpu_torch.engine.llm_engine import LLMEngine, SamplingParams
+    from generativeaiexamples_tpu_torch.engine.server import make_server
+
+    B = config.max_batch_size
+    other = LLMEngine(dataclasses.replace(config, decode_runahead=1, max_queued_requests=B),
+                      device=engine.device, params=engine.params)
+    server = make_server("127.0.0.1", 0, engine=other)
+    thread = threading.Thread(target=server.serve_forever, name="smoke-http-overload", daemon=True)
+    thread.start()
+    try:
+        prompts = [[256] + [(11 * i + j) % 250 for j in range(60 + 9 * i)] for i in range(B)]
+        params = [SamplingParams(temperature=0.0, max_tokens=32)] * (B - 1) + [
+            SamplingParams(temperature=0.8, top_p=0.9, max_tokens=32, seed=1234)]
+        runs = []
+        for eng in (engine, other):
+            queues = [eng.generate_ids(p, sp) for p, sp in zip(prompts, params)]
+            runs.append((eng.engine_config.decode_runahead, [_drain_ids(q) for q in queues]))
+        (ra, a), (rb, b) = runs
+        if a != b:
+            raise AssertionError(f"streams differ between decode_runahead {ra} and {rb}")
+        log(f"  runahead: {B} streams (7 greedy, 1 seeded sampled; lengths {[len(x) for x in a]}) "
+            f"identical at decode_runahead {ra} and {rb}")
+
+        hogs = [other.submit(p, SamplingParams(temperature=0.0, max_tokens=4000)) for p in prompts]
+        deadline = time.time() + 120
+        while (other.queue_depth() or len(other._slot_req) < B) and time.time() < deadline:
+            time.sleep(0.01)
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        results = []
+
+        def call(i):
+            req = urllib.request.Request(
+                base + "/v1/completions", headers={"Content-Type": "application/json"},
+                data=json.dumps({"prompt": f"request {i}", "max_tokens": 8, "temperature": 0}).encode())
+            try:
+                with urllib.request.urlopen(req, timeout=600) as resp:
+                    results.append((resp.status, dict(resp.headers)))
+            except urllib.error.HTTPError as exc:
+                results.append((exc.code, dict(exc.headers)))
+
+        callers = [threading.Thread(target=call, args=(i,), name=f"smoke-overload-{i}", daemon=True)
+                   for i in range(2 * B)]
+        for c in callers:
+            c.start()
+        deadline = time.time() + 120
+        while len(results) + other.queue_depth() < 2 * B and time.time() < deadline:
+            time.sleep(0.01)
+        depth = other.queue_depth()
+        for h in hogs:
+            other.abort(h)
+        for c in callers:
+            c.join(600)
+        status = collections.Counter(code for code, _ in results)
+        shed = [h for code, h in results if code == 429]
+        headers_ok = all("Retry-After" in h and "X-GenAI-Queue-Depth" in h for h in shed)
+        log(f"  overload over HTTP (max_queued_requests {B}, {B} slots held): {2 * B} concurrent "
+            f"completions -> {dict(status)}, {depth} waited; every 429 with Retry-After and "
+            f"X-GenAI-Queue-Depth: {headers_ok}")
+        if not (status[429] >= 1 and status[200] >= 1 and status[429] + status[200] == 2 * B
+                and headers_ok):
+            raise AssertionError(f"overload over HTTP: {dict(status)}, headers {headers_ok}")
+        return {"runahead_identical": True, "overload_status": dict(status)}
+    finally:
+        server.shutdown()
+        server.server_close()
+        other.shutdown()
+
+
+def serve_recipe(dev, name, quantization, kv_dtype, layout, expected, http: bool,
+                 runahead=None, extras=False) -> dict:
     """Build one engine, serve it (HTTP when ``http``, then 8 greedy
-    generate_ids), and check that its path launched its kernels. Returns
-    its decode metrics and the launch counts of its serving run."""
+    generate_ids) counting each thread's synchronizing calls, and check
+    that its path launched its kernels and its dispatch thread never
+    waited for the card. Returns its decode metrics and the launch counts
+    of its serving run. ``extras`` adds the runahead and overload checks."""
     from generativeaiexamples_tpu_torch.config import EngineConfig
     from generativeaiexamples_tpu_torch.engine.llm_engine import LLMEngine, SamplingParams
     from generativeaiexamples_tpu_torch.engine.server import make_server
@@ -879,6 +1061,8 @@ def serve_recipe(dev, name, quantization, kv_dtype, layout, expected, http: bool
     t0 = time.time()
     config = EngineConfig(model_config_name=MODEL, quantization=quantization,
                           kv_cache_dtype=kv_dtype, kv_layout=layout)
+    if runahead is not None:
+        config = dataclasses.replace(config, decode_runahead=runahead)
     engine = LLMEngine(config, device=dev)
     if engine._paged != (layout == "paged"):
         raise AssertionError(f"engine {name}: kv_layout={layout!r} did not resolve to {layout}")
@@ -886,7 +1070,8 @@ def serve_recipe(dev, name, quantization, kv_dtype, layout, expected, http: bool
           else f"{kv_dtype} fixed cache {engine.num_slots} slots x {engine.max_seq_len} rows")
     log(f"  engine {name} built ({time.time() - t0:.1f} s): {MODEL} {quantization} weights, "
         f"{kv}, max_batch_size {config.max_batch_size}, prefill_chunk {config.prefill_chunk}, "
-        f"decode_block {config.decode_block}")
+        f"decode_block {config.decode_block}, decode_runahead "
+        f"{getattr(config, 'decode_runahead', 'none (synchronous decode)')}")
     server = make_server("127.0.0.1", 0, engine=engine)
     thread = threading.Thread(target=server.serve_forever, name="smoke-http", daemon=True)
     thread.start()
@@ -894,31 +1079,47 @@ def serve_recipe(dev, name, quantization, kv_dtype, layout, expected, http: bool
     try:
         reset_counts()
         t_serve = time.time()
-        if http:
-            _http_requests(engine, base)
+        start = engine.stats()
+        with SyncCounter() as syncs:
+            if http:
+                _http_requests(engine, base)
 
-        # a full decode batch through the engine's own entry point, by ids
-        before = engine.stats()
-        prompts = [[256] + [(7 * i + j) % 250 for j in range(100 + 8 * i)] for i in range(8)]
-        params = SamplingParams(temperature=0.0, max_tokens=64)
-        queues = [engine.generate_ids(p, params) for p in prompts]
-        counts_ids = []
-        for q in queues:
-            n = 0
-            while q.get(timeout=600) is not None:
-                n += 1
-            counts_ids.append(n)
-        after = engine.stats()
+            # a full decode batch through the engine's own entry point, by ids
+            before = engine.stats()
+            prompts = [[256] + [(7 * i + j) % 250 for j in range(100 + 8 * i)] for i in range(8)]
+            params = SamplingParams(temperature=0.0, max_tokens=64)
+            t_batch = time.time()
+            queues = [engine.generate_ids(p, params) for p in prompts]
+            counts_ids = []
+            for q in queues:
+                n = 0
+                while q.get(timeout=600) is not None:
+                    n += 1
+                counts_ids.append(n)
+            batch_s = time.time() - t_batch
+            after = engine.stats()
         launched = counts()
         stop_ids = set(engine.tokenizer.stop_ids())
         assert all(0 < n <= 64 for n in counts_ids), counts_ids
         t_total = time.time() - t_serve
         log(f"  engine {name} generate_ids x8 (greedy, max_tokens 64): ids per request "
-            f"{counts_ids} (fewer than 64 only when a stop id {sorted(stop_ids)} was drawn)")
+            f"{counts_ids} (fewer than 64 only when a stop id {sorted(stop_ids)} was drawn) in "
+            f"{batch_s:.3f} s from submit to the last end ({sum(counts_ids) / batch_s:.1f} ids/s)")
         log(f"  engine {name} launches while serving: {launched}")
         missing = [n for n in expected if launched[n] == 0]
         if missing:
             raise AssertionError(f"engine {name}: kernels never launched while serving: {missing}")
+        blocks = after["decode_blocks"] - start.get("decode_blocks", 0)
+        dispatch_syncs = syncs.counts["torch-llm-engine"]
+        reader_waits = after.get("readbacks", 0) - start.get("readbacks", 0)
+        log(f"  engine {name} synchronizing calls while serving, by thread: "
+            f"{dict(syncs.counts) or 'none'}; dispatch thread {dispatch_syncs} in "
+            f"{blocks} decode blocks ({dispatch_syncs / max(blocks, 1):.2f} a block); reader "
+            f"waits on events {reader_waits} (readbacks of {blocks} decode blocks and "
+            f"{after['prefill_waves'] - start['prefill_waves']} prefill waves)")
+        if _HAS_READER and dispatch_syncs:
+            raise AssertionError(f"engine {name}: the dispatch thread waited for the card "
+                                 f"{dispatch_syncs} times")
         d_rows = after["decode_rows"] - before.get("decode_rows", 0)
         d_time = after["decode_time_s"] - before.get("decode_time_s", 0.0)
         d_steps = after["decode_steps"] - before.get("decode_steps", 0)
@@ -933,19 +1134,29 @@ def serve_recipe(dev, name, quantization, kv_dtype, layout, expected, http: bool
             "ttft_max_s": after.get("ttft_max_s"),
             "launches": launched,
             "serve_s": t_total,
+            # submit to the last end of the 8-request batch, prefill included
+            "batch_s": batch_s,
+            "batch_tokens_per_s": sum(counts_ids) / batch_s,
+            "dispatch_syncs": dispatch_syncs,
+            "dispatch_syncs_per_block": dispatch_syncs / max(blocks, 1),
+            "reader_waits": reader_waits,
+            "syncs_by_thread": dict(syncs.counts),
+            "decode_blocks": blocks,
         }
         samples, serve["launches_per_step"] = device_step_ms(engine)
         serve["device_step_ms"] = statistics.median(samples)
         serve["device_step_ms_samples"] = samples
         serve["device_idle_share"] = max(0.0, 1.0 - serve["device_step_ms"] / serve["decode_step_ms"])
         log(f"  engine {name} decode at B=8: {serve['decode_tokens_per_s']:.1f} tokens/s, step "
-            f"{serve['decode_step_ms']:.2f} ms (wall time of decode blocks on the dispatch "
-            f"thread); MFU {serve['decode_mfu']:.2%}, weight streaming at "
+            f"{serve['decode_step_ms']:.2f} ms (wall time of decode blocks, the engine's "
+            f"decode_time_s); MFU {serve['decode_mfu']:.2%}, weight streaming at "
             f"{serve['decode_weight_hbm_share']:.1%} of peak HBM rate; one step on the device "
             f"{serve['device_step_ms']:.2f} ms (median of {', '.join(f'{t:.2f}' for t in samples)}; "
             f"idle {serve['device_idle_share']:.1%}); TTFT mean {serve['ttft_mean_s']:.3f} s "
             f"max {serve['ttft_max_s']:.3f} s over all requests; launches per decode step "
             f"{serve['launches_per_step'] or 'not measured'}")
+        if extras:
+            serve.update(check_runahead_and_overload(engine, config))
         return serve
     finally:
         server.shutdown()
@@ -953,14 +1164,17 @@ def serve_recipe(dev, name, quantization, kv_dtype, layout, expected, http: bool
         engine.shutdown()
 
 
-def phase_serve(dev, recipes="ABCD") -> dict:
+def phase_serve(dev, recipes="ABCD", runahead=None, extras=True) -> dict:
     t0 = time.time()
     serves = {}
+    if _HAS_READER:
+        check_wait_releases_the_gil()
     for name, quantization, kv_dtype, layout, expected in RECIPES:
         if name not in recipes:
             continue
         serves[name] = serve_recipe(dev, name, quantization, kv_dtype, layout, expected,
-                                    http=name != "C")
+                                    http=name != "C", runahead=runahead,
+                                    extras=extras and _HAS_READER and name == "A")
         gc.collect()  # the engine and its dispatch thread reference each other
         torch.cuda.empty_cache()
         log(f"  after engine {name}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
@@ -975,6 +1189,10 @@ def main() -> int:
     parser.add_argument("--checks", default=",".join(CHECKS),
                         help="phase 3's kernel checks, comma-separated (default: all)")
     parser.add_argument("--recipes", default="ABCD", help="phase 5's engines (default: ABCD)")
+    parser.add_argument("--runahead", type=int, default=None,
+                        help="decode_runahead of phase 5's engines (default: the config's)")
+    parser.add_argument("--timing-only", action="store_true",
+                        help="leave out phase 5's runahead and overload checks")
     args = parser.parse_args()
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -988,7 +1206,8 @@ def main() -> int:
     results = phase_kernels(dev, args.checks.split(",")) if "kernels" in phases else {}
     if "model" in phases:
         phase_model(dev)
-    serves = phase_serve(dev, args.recipes) if "serve" in phases else {}
+    serves = (phase_serve(dev, args.recipes, args.runahead, not args.timing_only)
+              if "serve" in phases else {})
     kernels = []
     for name, (replaces, source) in KERNELS.items():
         if name not in results:  # a check left out by --checks

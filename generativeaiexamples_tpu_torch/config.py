@@ -27,7 +27,6 @@ _CKPT = "checkpoints load with training and checkpoints (ROADMAP queue 1 item 10
 _MULTI = "the port serves one card until multi-GPU (ROADMAP queue 1 item 9)"
 _PREFIX = "the prefix cache arrives with ROADMAP queue 1 item 4"
 _SPEC = "speculative decoding arrives with ROADMAP queue 1 item 5"
-_RESIL = "the engine's resilience surface arrives with ROADMAP queue 1 item 6"
 _DISAGG = "scheduler policies arrive with disaggregation (ROADMAP queue 1 item 8)"
 _SNAP = "drain and snapshots arrive with disaggregation (ROADMAP queue 1 item 8)"
 # The JAX package's EngineConfig fields (config/schema.py) that the port
@@ -57,10 +56,6 @@ JAX_ONLY_FIELDS = {
     "spec_adaptive_k": ("off", _SPEC, ()),
     "spec_adaptive_k_min": (1, _SPEC, ()),
     "spec_adaptive_k_threshold": (0.5, _SPEC, ()),
-    "prefill_wave_tokens": (16384, _RESIL, ()),
-    "decode_runahead": (4, "decode runahead arrives with the reader thread (ROADMAP queue 1 item 2)", ()),
-    "max_queued_requests": (0, _RESIL, ()),
-    "watchdog_stall_s": (300.0, _RESIL, ()),
     "quiesce_timeout_s": (600.0, None, ()),  # warmup's wait for decode to drain
     "drain_timeout_s": (30.0, _SNAP, ()),
     "snapshot_spool_dir": ("/tmp/genai_snapshots", _SNAP, ()),
@@ -101,8 +96,18 @@ class EngineConfig:
     prefill_chunk: int = 512
     # decode steps per dispatch; one device-to-host readback per block
     decode_block: int = 8
+    # decode blocks (and prefill waves) dispatched ahead of the reader
+    # thread's readback: the bound of the readback queue
+    decode_runahead: int = 4
+    # cap on rows x prefill bucket per admission wave
+    prefill_wave_tokens: int = 16384
+    # pending requests before submit raises EngineOverloaded; 0 = unbounded
+    max_queued_requests: int = 0
     # stall deadline (s) for a consumer waiting on its next token
     stream_timeout_s: float = 600.0
+    # the dispatch loop's watchdog: work outstanding and no progress for
+    # this long marks the engine wedged; 0 disables it
+    watchdog_stall_s: float = 300.0
 
     @classmethod
     def env_name(cls, field: str) -> str:
@@ -171,5 +176,27 @@ class EngineConfig:
             raise ValueError(f"decode_block must be >= 1, got {self.decode_block}")
         if self.kv_pool_pages < 0:
             raise ValueError(f"kv_pool_pages must be >= 0, got {self.kv_pool_pages}")
+        if self.decode_runahead < 1:
+            raise ValueError(f"decode_runahead must be >= 1, got {self.decode_runahead}")
+        if self.prefill_wave_tokens <= 0:
+            raise ValueError(f"prefill_wave_tokens must be > 0, got {self.prefill_wave_tokens}")
         if self.stream_timeout_s <= 0:
             raise ValueError(f"stream_timeout_s must be > 0, got {self.stream_timeout_s}")
+        # the JAX engine's resilience checks, with its messages (the port has
+        # no warmup, but keeps the JAX bound so one config serves both)
+        if self.max_queued_requests < 0:
+            raise ValueError(
+                f"max_queued_requests must be >= 0 (0 = unbounded), got "
+                f"{self.max_queued_requests}"
+            )
+        if 0 < self.max_queued_requests < self.max_batch_size:
+            raise ValueError(
+                f"max_queued_requests ({self.max_queued_requests}) must be >= "
+                f"max_batch_size ({self.max_batch_size}) so warmup waves fit "
+                f"the admission queue"
+            )
+        if self.watchdog_stall_s < 0:
+            raise ValueError(
+                f"watchdog_stall_s must be >= 0 (0 disables), got "
+                f"{self.watchdog_stall_s}"
+            )

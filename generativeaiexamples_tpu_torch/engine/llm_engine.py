@@ -11,27 +11,51 @@ the same public surface: ``SamplingParams``, ``submit``, ``generate_ids``,
 geometry tiles and otherwise logs its blockers and serves ``fixed``; the
 streams are token-identical between the layouts.
 
-One named daemon thread (``_loop``) does all device work:
+Three named daemon threads share the work, as in JAX:
 
-1. admits waves of pending requests up to ``max_batch_size`` slots; on
-   the paged layout it funds each with every page it can touch (``_fund``),
-   a fixed slot always holds ``max_seq_len`` rows;
-2. prefills prompts of up to ``prefill_chunk`` tokens monolithically
-   (``llama.prefill_layers`` + ``write_prefill_pages`` or
-   ``write_prefill_slots``; the flash kernel serves the wave from T = 512),
-   and longer prompts chunk by chunk (``llama.extend_layers_paged`` or
-   ``llama.extend_layers``);
-3. decodes all slots in blocks of ``decode_block`` steps
-   (``llama.decode_layers_paged`` with the paged-attention kernel, or
-   ``llama.decode_layers`` with the decode-attention kernel over an int8
-   fixed cache; the int8 or W8A8 matmul kernel serves every projection),
-   greedy or sampled with the JAX package's threefry keys, with one
-   device-to-host copy of the block's tokens;
-4. emits tokens to each request's queue, with stop ids and
-   ``max_tokens``, and releases finished slots and their pages.
+- the dispatch thread (``_loop``) does all device work and never waits on
+  the device. Slot state lives in device tensors (``_tokens_dev``,
+  ``_positions_dev``, ``_temps_dev``, ``_topps_dev``, ``_seeds_dev``,
+  ``_live_dev``) that admission patches by one indexed write each
+  (``_update_slots``) and each decode block reads and writes, its last
+  tokens feeding the next block. Every copy from the host goes through
+  pinned memory without waiting (``_to_device``). Each pass it
+
+  1. frees the slots the reader found finished (``_release_q``);
+  2. admits a wave of pending requests (up to the free slots and
+     ``prefill_wave_tokens``); on the paged layout it funds each with
+     every page it can touch (``_fund``), a fixed slot always holds
+     ``max_seq_len`` rows;
+  3. prefills prompts of up to ``prefill_chunk`` tokens monolithically
+     (``llama.prefill_layers`` + ``write_prefill_pages`` or
+     ``write_prefill_slots``; the flash kernel serves the wave from
+     T = 512), and longer prompts chunk by chunk
+     (``llama.extend_layers_paged`` or ``llama.extend_layers``);
+  4. frees budget-exhausted and cancelled slots from host shadows of each
+     slot's budget and position (``_slot_budget``, ``_slot_pos``), then
+     decodes all slots in a block of ``decode_block`` steps
+     (``llama.decode_layers_paged`` with the paged-attention kernel, or
+     ``llama.decode_layers`` with the decode-attention kernel over an
+     int8 fixed cache; the int8 or W8A8 matmul kernel serves every
+     projection), greedy or sampled with the JAX package's threefry keys;
+
+  and hands each wave's first tokens and each block's token slab to the
+  reader as a non-blocking copy into pinned memory with a CUDA event,
+  through a queue of ``decode_runahead`` items: a full queue is its only
+  backpressure;
+- the reader thread (``_reader_loop``) waits on each item's event (the
+  one sync per block), emits the tokens to each request's queue with
+  stop ids and ``max_tokens``, and sends finished slots back through
+  ``_release_q``; it keeps the decode metrics;
+- the watchdog thread (``_watchdog_loop``, when ``watchdog_stall_s`` > 0)
+  marks the engine wedged (``engine_wedged()``) while the dispatch loop
+  makes no progress with work outstanding.
+
+``submit`` raises ``EngineOverloaded`` once ``max_queued_requests``
+requests wait for a slot.
 
 Dead slots decode at position 0: on the paged layout they write the
-scratch page, on the fixed layout row 0 of their own strip, as in JAX.
+scratch page, on the fixed layout rows of their own strip, as in JAX.
 Prefix caching, speculative decoding, disaggregation, snapshots, drain, the flight
 recorder and telemetry are not ported yet.
 
@@ -90,7 +114,6 @@ class _Request:
     t_submit: float = 0.0
     position: int = 0  # position of the next decode input token
     generated: int = 0
-    emitted: List[int] = dataclasses.field(default_factory=list)
     cancelled: bool = False
     finished: bool = False
     error: Optional[BaseException] = None
@@ -99,6 +122,26 @@ class _Request:
 _END = None  # sentinel on out_queue
 _REQ_IDS = itertools.count(1)
 _UNSEEDED_RNG = random.SystemRandom()
+
+
+class EngineOverloaded(Exception):
+    """The typed load-shedding signal of ``submit`` (``max_queued_requests``
+    reached), with the suggested Retry-After in seconds: the port's copy of
+    the JAX package's ``utils.resilience.EngineOverloaded``."""
+
+    def __init__(self, message: str = "engine overloaded", retry_after: float = 1.0):
+        self.retry_after = retry_after
+        super().__init__(message)
+
+
+# Set while the dispatch-loop watchdog (or a shutdown that timed out)
+# finds the engine wedged; the server's readiness routes read it.
+ENGINE_WEDGED = threading.Event()
+
+
+def engine_wedged() -> bool:
+    """Whether the watchdog currently considers the engine wedged."""
+    return ENGINE_WEDGED.is_set()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -162,7 +205,8 @@ class LLMEngine:
             self._pool_pages = kv_pages.pool_pages(cfg, self.max_seq_len)
             kv_pages.validate_runtime(self._page, self.max_seq_len, self._pool_pages)
             self._max_pages_per_slot = kv_pages.pages_for_tokens(self.max_seq_len, self._page)
-            # a decode block can write up to a block past a request's budget
+            # a decode block can write up to a block past a request's budget,
+            # whatever the runahead (_decode_once)
             self._page_slack = cfg.decode_block + 1
 
         self._kv_quant = cfg.kv_cache_dtype in ("int8", "int4")
@@ -229,23 +273,65 @@ class LLMEngine:
             )
         self._stop_ids = set(self.tokenizer.stop_ids())
 
-        # Dispatch-thread state: only _loop and what it calls touch these.
+        # Slot state on the device, patched per admission wave
+        # (_update_slots) and read and written by every decode block: no
+        # host round trip between blocks. Dead slots keep stale values;
+        # _live_dev masks them (their positions read as 0).
+        B, dev = self.num_slots, self.device
+        self._tokens_dev = torch.zeros(B, dtype=torch.long, device=dev)
+        self._positions_dev = torch.zeros(B, dtype=torch.long, device=dev)
+        self._temps_dev = torch.ones(B, dtype=torch.float32, device=dev)
+        self._topps_dev = torch.ones(B, dtype=torch.float32, device=dev)
+        self._seeds_dev = torch.zeros(B, dtype=torch.long, device=dev)
+        self._live_dev = torch.zeros(B, dtype=torch.bool, device=dev)
+
+        # Slot bookkeeping: written by the dispatch thread only, under
+        # self._lock; other threads (abort, the reader at shutdown, the
+        # watchdog) read it under the lock.
         self._slot_req: Dict[int, _Request] = {}
         self._slot_pages: Dict[int, List[int]] = {}
         self._free_slots = list(range(self.num_slots - 1, -1, -1))
-        # every key exists up front: stats() copies this dict from other
-        # threads while the dispatch thread increments it
+        # Host shadows: decode steps left before each slot's request
+        # exhausts its budget, and each slot's decode position, both moved
+        # by decode_block per dispatch. They free a slot without waiting
+        # for its readback and pick the attention window.
+        self._slot_budget: Dict[int, int] = {}
+        self._slot_pos: Dict[int, int] = {}
+        # every key exists up front: stats() copies these dicts from other
+        # threads; the dispatch thread counts prefill, the reader decode
         self._counters = collections.Counter(dict.fromkeys((
-            "prefill_waves", "prefill_tokens", "prefill_chunks", "decode_blocks",
-            "decode_steps", "decode_rows", "decode_time_s", "tokens_generated",
+            "prefill_waves", "prefill_tokens", "prefill_chunks",
+        ), 0))
+        self._reader_counters = collections.Counter(dict.fromkeys((
+            "decode_blocks", "decode_steps", "decode_rows", "decode_time_s",
+            "tokens_generated", "readbacks",
         ), 0))
         self._ttft: "collections.deque[float]" = collections.deque(maxlen=4096)
+        self._last_readback = 0.0  # reader thread: when the last readback completed
 
         self._lock = threading.Condition()
         self._pending: "collections.deque[_Request]" = collections.deque()  # guarded by self._lock
         self._running = True  # guarded by self._lock
+        self._last_progress = time.time()  # guarded by self._lock
+        self._wedged = False
+        # (kind, pinned host copy, its CUDA event or None, rows): the one
+        # queue between the threads; put() on a full queue is the dispatch
+        # thread's only backpressure
+        self._readback: "queue.Queue[Optional[tuple]]" = queue.Queue(maxsize=cfg.decode_runahead)
+        # (slot, request) the reader found finished; the dispatch loop frees them
+        self._release_q: "queue.Queue[Tuple[int, _Request]]" = queue.Queue()
+        # a replacement engine starts healthy, whatever an earlier one left
+        ENGINE_WEDGED.clear()
+        self._wd_stop = threading.Event()
         self._thread = threading.Thread(target=self._loop, name="torch-llm-engine", daemon=True)
-        self._thread.start()
+        self._reader = threading.Thread(target=self._reader_loop, name="torch-llm-reader", daemon=True)
+        self._threads = [self._thread, self._reader]
+        if cfg.watchdog_stall_s > 0:
+            self._threads.append(threading.Thread(
+                target=self._watchdog_loop, name="torch-llm-watchdog", daemon=True
+            ))
+        for thread in self._threads:
+            thread.start()
 
     # ------------------------------------------------------------------ #
     # build-time checks
@@ -287,7 +373,9 @@ class LLMEngine:
 
     def submit(self, prompt_ids: Sequence[int], params: Optional[SamplingParams] = None) -> _Request:
         """Submit a request; returns its handle. Over-long prompts keep
-        their tail, with room for at least min(64, max_tokens) tokens."""
+        their tail, with room for at least min(64, max_tokens) tokens.
+        Raises ``EngineOverloaded`` when ``max_queued_requests`` requests
+        already wait for a slot."""
         params = params or SamplingParams()
         reserve = max(1, min(64, params.max_tokens))
         keep = max(1, self.max_seq_len - 1 - reserve)
@@ -298,12 +386,22 @@ class LLMEngine:
             sampling_seed=params.seed or _UNSEEDED_RNG.getrandbits(31),
             t_submit=time.time(),
         )
+        cap = self.engine_config.max_queued_requests
         with self._lock:
             if not self._running:
                 raise RuntimeError("LLM engine is shut down")
+            if cap > 0 and len(self._pending) >= cap:
+                raise EngineOverloaded(
+                    f"engine admission queue full ({len(self._pending)}/{cap} pending)"
+                )
             self._pending.append(req)
             self._lock.notify_all()
         return req
+
+    def queue_depth(self) -> int:
+        """Requests awaiting admission (the server's shedding signal)."""
+        with self._lock:
+            return len(self._pending)
 
     def abort(self, handle) -> bool:
         """Abort a request by handle (the ``submit()`` return) or rid: a
@@ -316,15 +414,14 @@ class LLMEngine:
             else:
                 rid = int(handle)
                 req = next((r for r in self._pending if r.rid == rid), None) or next(
-                    (r for r in list(self._slot_req.values()) if r.rid == rid), None
+                    (r for r in self._slot_req.values() if r.rid == rid), None
                 )
             if req is None or req.finished or req.cancelled:
                 return False
             req.cancelled = True
             if req in self._pending:
                 self._pending.remove(req)
-                req.finished = True
-                req.out_queue.put(_END)
+                self._finish(req)
             self._lock.notify_all()
             return True
 
@@ -419,11 +516,19 @@ class LLMEngine:
         return self.stream_text(self.tokenizer.render_chat(messages), params)
 
     def stats(self) -> Dict[str, float]:
-        """Serving counters: prefill waves and chunks, decode blocks,
-        steps and tokens, decode wall time on the dispatch thread (device
-        work included: each block ends in a device-to-host copy), TTFTs,
-        and, on the paged layout, the page allocator's state."""
+        """Serving counters: prefill waves, tokens and chunks; decode
+        blocks, steps, rows and wall time; tokens emitted; TTFTs (submit to
+        the reader's emission of the first token); and, on the paged
+        layout, the page allocator's state.
+
+        The reader counts a decode block when its token slab is read back,
+        and ``decode_time_s`` adds, for each block, the wall time from its
+        dispatch, or from the previous readback's completion if that came
+        later, to its own readback's completion: the time the user waits
+        for decode blocks, device work included, with prefill readbacks
+        and idle gaps left out."""
         out: Dict[str, float] = dict(self._counters)
+        out.update(self._reader_counters)
         ttft = list(self._ttft)
         if ttft:
             out["ttft_mean_s"] = sum(ttft) / len(ttft)
@@ -433,56 +538,156 @@ class LLMEngine:
         return out
 
     def shutdown(self, timeout: float = 60.0) -> bool:
-        """Stop the dispatch thread; every live stream ends. Returns True
-        when the thread exited within ``timeout``."""
+        """Stop the dispatch, reader and watchdog threads; every live
+        stream ends. Returns True when all of them exited within
+        ``timeout``; otherwise logs the ones left and marks the engine
+        wedged."""
         with self._lock:
             self._running = False
             self._lock.notify_all()
-        self._thread.join(timeout)
-        return not self._thread.is_alive()
+        self._wd_stop.set()
+        deadline = time.time() + timeout
+        for thread in self._threads:
+            thread.join(max(0.0, deadline - time.time()))
+        stuck = [t.name for t in self._threads if t.is_alive()]
+        if stuck:
+            logger.error("LLM engine shutdown left thread(s) %s running", ", ".join(stuck))
+            self._mark_wedged(f"shutdown join timeout: {', '.join(stuck)}")
+            return False
+        return True
 
     # ------------------------------------------------------------------ #
-    # dispatch thread
+    # watchdog thread
 
-    def _loop(self) -> None:
+    def _mark_wedged(self, reason: str) -> None:
+        self._wedged = True
+        ENGINE_WEDGED.set()
+        logger.error("LLM engine wedged: %s", reason)
+
+    def _clear_wedged(self) -> None:
+        if self._wedged:
+            self._wedged = False
+            ENGINE_WEDGED.clear()
+            logger.warning("LLM engine dispatch loop recovered; wedged state cleared")
+
+    def _watchdog_loop(self) -> None:
+        """Mark the engine wedged while the dispatch loop has made no
+        progress for longer than ``watchdog_stall_s`` with work
+        outstanding (a hung device call, a deadlock), and clear the mark
+        when it resumes."""
+        threshold = float(self.engine_config.watchdog_stall_s)
+        poll = max(0.05, min(1.0, threshold / 4))
+        while not self._wd_stop.wait(timeout=poll):
+            with self._lock:
+                if not self._running:
+                    return
+                busy = bool(self._slot_req) or bool(self._pending)
+                stall = time.time() - self._last_progress
+            if busy and stall > threshold:
+                if not self._wedged:
+                    self._mark_wedged(
+                        f"dispatch loop made no progress for {stall:.1f} s with work "
+                        f"outstanding (threshold {threshold:.1f} s)"
+                    )
+            else:
+                self._clear_wedged()
+
+    # ------------------------------------------------------------------ #
+    # dispatch thread: chains device work and hands result handles to the
+    # reader; it never waits for the device. The marker puts everything
+    # reachable from here under the dispatch-readback lint.
+
+    def _loop(self) -> None:  # genai-lint: dispatch-root
         while True:
             with self._lock:
-                while self._running and not self._pending and not self._slot_req:
+                while (
+                    self._running and not self._pending and not self._slot_req
+                    and self._release_q.empty()
+                ):
+                    self._last_progress = time.time()  # waiting idle is progress
                     self._lock.wait(timeout=1.0)
                 running = self._running
+                self._last_progress = time.time()
             if not running:
                 break
             try:
                 with torch.inference_mode():
+                    self._drain_releases()
                     self._admit()
-                    self._release_finished()
                     if self._slot_req:
                         self._decode_once()
             except Exception as exc:  # noqa: BLE001 - the serving loop must survive
                 logger.exception("LLM engine dispatch error: %s", exc)
-                for slot, req in list(self._slot_req.items()):
+                with self._lock:
+                    live = list(self._slot_req.items())
+                for slot, req in live:
                     req.error = exc
                     self._finish(req)
-                    self._release(slot)
-        for slot, req in list(self._slot_req.items()):
-            self._finish(req)
-            self._release(slot)
+                    self._release(slot, req)
         with self._lock:
-            while self._pending:
-                self._finish(self._pending.popleft())
+            pending = list(self._pending)
+            self._pending.clear()
+        for req in pending:
+            self._finish(req)
+        # outside the lock: with a full readback queue the reader needs the
+        # lock (in _emit) to drain it
+        self._readback.put(None)  # the reader ends every live stream and exits
+
+    def _drain_releases(self) -> None:
+        while True:
+            try:
+                slot, req = self._release_q.get_nowait()
+            except queue.Empty:
+                return
+            self._release(slot, req)
+
+    def _to_device(self, values, dtype: torch.dtype) -> torch.Tensor:
+        """A host list or array as a tensor on the engine's device, without
+        waiting: staged in pinned memory and copied with non_blocking=True
+        (a copy from pageable memory waits for the stream). PyTorch's
+        caching host allocator keeps the staging buffer until its copy has
+        run. On the CPU, a plain copy."""
+        host = torch.tensor(values, dtype=dtype)
+        if self.device.type != "cuda":
+            return host
+        staged = torch.empty(host.shape, dtype=dtype, pin_memory=True)
+        staged.copy_(host)
+        return staged.to(self.device, non_blocking=True)
+
+    def _to_reader(self, kind: str, tensor: torch.Tensor, rows) -> None:
+        """Start the copy of ``tensor`` to pinned host memory, record an
+        event behind it and queue both for the reader (blocks while
+        ``decode_runahead`` items wait). On the CPU the tensor itself."""
+        event = None
+        if tensor.is_cuda:
+            host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+            host.copy_(tensor, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        else:
+            host = tensor
+        self._readback.put((kind, host, event, rows))
+
+    def _max_wave_rows(self, bucket: int) -> int:
+        """Max prefill rows for this bucket under prefill_wave_tokens."""
+        budget = self.engine_config.prefill_wave_tokens
+        return max(1, min(self.num_slots, budget // max(1, bucket)))
 
     def _admit(self) -> None:
         """Claim a wave of pending requests for the free slots, fund their
         pages, and prefill them (short prompts in one monolithic wave,
-        long ones by chunks)."""
+        long ones by chunks). Every dispatch of a wave is one bucket wide
+        (``prefill_chunk``, or ``max_seq_len`` when that is shorter), so
+        ``prefill_wave_tokens`` caps the wave at ``_max_wave_rows`` of it."""
         with self._lock:
+            limit = min(len(self._free_slots), self._max_wave_rows(self._prefill_bucket(1)))
             claimed = []
-            while self._pending and len(claimed) < len(self._free_slots):
-                claimed.append(self._pending.popleft())
+            while self._pending and len(claimed) < limit:
+                req = self._pending.popleft()
+                self._register(req, self._free_slots.pop())
+                claimed.append(req)
         if not claimed:
             return
-        for req in claimed:
-            req.slot = self._free_slots.pop()
         funded = self._fund(claimed)
         chunk = self.engine_config.prefill_chunk
         short = [r for r in funded if len(r.prompt_ids) <= chunk]
@@ -490,6 +695,16 @@ class LLMEngine:
         for wave, chunked in ((short, False), (long, True)):
             if wave:
                 self._prefill_wave(wave, chunked)
+
+    def _register(self, req: _Request, slot: int) -> None:
+        """Give ``slot`` to ``req`` (caller holds self._lock): from here the
+        loop's error handler owns it. Its budget counts the decode steps
+        after the prefill's token, capped by the slot's capacity."""
+        T = len(req.prompt_ids)
+        req.slot = slot
+        self._slot_req[slot] = req
+        self._slot_budget[slot] = min(req.params.max_tokens - 1, self.max_seq_len - 1 - T)
+        self._slot_pos[slot] = T
 
     def _fund(self, claimed: List[_Request]) -> List[_Request]:
         """Reserve every page each claimed request can touch and write the
@@ -507,21 +722,21 @@ class LLMEngine:
             )
             pages = self._kv_alloc.alloc(total)
             if pages is None:
+                back = claimed[idx:]
+                for r in back:
+                    self._release(r.slot, r)
                 with self._lock:
-                    for r in reversed(claimed[idx:]):
-                        self._free_slots.append(r.slot)
-                        r.slot = -1
-                        self._pending.appendleft(r)
+                    self._pending.extendleft(reversed(back))
                 break
             self._slot_pages[req.slot] = pages
             funded.append(req)
         if funded:
-            rows = torch.zeros((len(funded), self._max_pages_per_slot), dtype=torch.int32)
+            rows = np.zeros((len(funded), self._max_pages_per_slot), np.int32)
             for i, req in enumerate(funded):
                 pages = self._slot_pages[req.slot]
-                rows[i, : len(pages)] = torch.tensor(pages, dtype=torch.int32)
-            slots = torch.tensor([r.slot for r in funded], dtype=torch.long)
-            self._tables[slots.to(self.device)] = rows.to(self.device)
+                rows[i, : len(pages)] = pages
+            slots = self._to_device([r.slot for r in funded], torch.long)
+            self._tables[slots] = self._to_device(rows, torch.int32)
         return funded
 
     def _prefill_bucket(self, n: int) -> int:
@@ -546,34 +761,52 @@ class LLMEngine:
 
     def _prefill_wave(self, reqs: List[_Request], chunked: bool) -> None:
         cfg = self.model_config
-        dev = self.device
         N = len(reqs)
         lengths = np.array([len(r.prompt_ids) for r in reqs], np.int64)
         bucket = self._prefill_bucket(int(lengths.max()))
         tokens = np.zeros((N, bucket), np.int64)
         for i, req in enumerate(reqs):
             tokens[i, : lengths[i]] = req.prompt_ids
-            self._slot_req[req.slot] = req  # from here the loop's error handler owns it
-        slots = torch.tensor([r.slot for r in reqs], dtype=torch.long, device=dev)
+        slots = self._to_device([r.slot for r in reqs], torch.long)
+        lengths_d = self._to_device(lengths, torch.long)
         if chunked:
             last_h = self._prefill_chunked(tokens, lengths, slots)
             logits = llama._head(self.params, last_h[:, None, :], cfg, self._quant_kernel)[:, 0, :]
         else:
             logits, kvs = llama.prefill_layers(
-                self.params, cfg, torch.from_numpy(tokens).to(dev),
-                torch.from_numpy(lengths).to(dev), quant_kernel=self._quant_kernel,
+                self.params, cfg, self._to_device(tokens, torch.long), lengths_d,
+                quant_kernel=self._quant_kernel,
             )
             if self._paged:
                 llama.write_prefill_pages(self._cache, kvs, self._tables[slots], self._page)
             else:
                 llama.write_prefill_slots(self._cache, kvs, slots)
             del kvs
-        first = self._sample(logits, reqs, [int(n) for n in lengths]).tolist()
+        temps = self._to_device([r.params.temperature for r in reqs], torch.float32)
+        topps = self._to_device([r.params.top_p for r in reqs], torch.float32)
+        seeds = self._to_device([r.sampling_seed & 0x7FFFFFFF for r in reqs], torch.long)
+        keys = None
+        if any(r.params.temperature > 0 for r in reqs):
+            keys = sampling.sample_keys(seeds, lengths_d)  # the first token is keyed at T
+        first = sampling.sample_tokens(logits[:, : self._sample_vocab], temps, topps, keys)
+        self._update_slots(slots, first, lengths_d, temps, topps, seeds)
         self._counters["prefill_waves"] += 1
         self._counters["prefill_tokens"] += int(lengths.sum())
-        for req, n, token in zip(reqs, lengths, first):
+        for req, n in zip(reqs, lengths):
             req.position = int(n)
-            self._emit(req, int(token))
+        self._to_reader("prefill", first, list(enumerate(reqs)))
+
+    def _update_slots(self, slots, tokens, positions, temps, topps, seeds) -> None:
+        """Admission: the wave's state into the device-resident slot
+        tensors, one indexed write each, ordered on the stream behind the
+        blocks already dispatched. ``tokens`` are the prefill's sampled
+        first tokens, never read back for this."""
+        self._tokens_dev[slots] = tokens
+        self._positions_dev[slots] = positions
+        self._temps_dev[slots] = temps
+        self._topps_dev[slots] = topps
+        self._seeds_dev[slots] = seeds
+        self._live_dev.index_fill_(0, slots, True)
 
     def _prefill_chunked(self, tokens: np.ndarray, lengths: np.ndarray, slots: torch.Tensor):
         """Chunk k extends every row by up to prefill_chunk tokens at offset
@@ -590,10 +823,10 @@ class LLMEngine:
             tok_k = np.zeros((N, C), np.int64)
             seg = tokens[:, k * C:(k + 1) * C]
             tok_k[:, : seg.shape[1]] = seg
-            valid = torch.from_numpy(np.clip(lengths - k * C, 0, C)).to(dev)
+            valid = self._to_device(np.clip(lengths - k * C, 0, C), torch.long)
             offsets = torch.full((N,), k * C, dtype=torch.long, device=dev)
             window = self._attention_window(min((k + 1) * C, self.max_seq_len))
-            tok_d = torch.from_numpy(tok_k).to(dev)
+            tok_d = self._to_device(tok_k, torch.long)
             if self._paged:
                 cand, _ = llama.extend_layers_paged(
                     self.params, self.model_config, tok_d, offsets, valid, slots,
@@ -609,93 +842,148 @@ class LLMEngine:
             self._counters["prefill_chunks"] += 1
         return last_h
 
-    def _sample(self, logits: torch.Tensor, reqs: Sequence[_Request], key_positions) -> torch.Tensor:
-        """One token per row of ``logits`` (rows aligned with ``reqs``),
-        keyed by (seed, ``key_positions``) as the JAX engine keys it."""
-        temps = torch.tensor([r.params.temperature for r in reqs], dtype=torch.float32)
-        keys = None
-        if bool((temps > 0).any()):
-            seeds = torch.tensor([r.sampling_seed & 0x7FFFFFFF for r in reqs], dtype=torch.int64)
-            keys = sampling.sample_keys(
-                seeds.to(self.device), torch.tensor(key_positions, dtype=torch.int64).to(self.device)
-            )
-        topps = torch.tensor([r.params.top_p for r in reqs], dtype=torch.float32)
-        return sampling.sample_tokens(
-            logits[:, : self._sample_vocab], temps.to(self.device), topps.to(self.device), keys
-        )
-
     def _decode_once(self) -> None:
-        """One block of ``decode_block`` steps over every slot."""
-        t0 = time.perf_counter()
-        dev = self.device
-        B = self.num_slots
+        """One block of ``decode_block`` steps over every slot, from and
+        into the device-resident slot state. Budget-exhausted, finished
+        and cancelled slots are freed first, so pending requests take them
+        instead of dead steps; the reader still emits the final tokens of
+        budget-exhausted requests from the slabs already dispatched (the
+        snapshot pins rows to their requests).
+
+        A slot is dispatched only while its budget is positive, so it
+        writes at most ``decode_block - 1`` positions past its last token:
+        the ``decode_block + 1`` pages of slack funded at admission
+        (``_page_slack``) bound it, whatever the runahead."""
         block = self._decode_block
+        with self._lock:
+            self._release_finished_slots()
+            if not self._slot_req:
+                return
+            snapshot = sorted(self._slot_req.items())
+            window = self._decode_window(max(self._slot_pos.values()))
+            sampled = any(req.params.temperature > 0 for _, req in snapshot)
+            for slot in self._slot_pos:
+                self._slot_pos[slot] += block
+                self._slot_budget[slot] -= block
+        t_dispatch = time.perf_counter()
         max_pos = self.max_seq_len - 1
-        snapshot = sorted(self._slot_req.items())
-        tokens = np.zeros(B, np.int64)
-        positions = np.zeros(B, np.int64)
-        live = np.zeros(B, bool)
-        temps = np.zeros(B, np.float32)
-        topps = np.ones(B, np.float32)
-        seeds = np.zeros(B, np.int64)
-        for slot, req in snapshot:
-            tokens[slot] = req.emitted[-1]
-            positions[slot] = req.position
-            live[slot] = True
-            temps[slot] = req.params.temperature
-            topps[slot] = req.params.top_p
-            seeds[slot] = req.sampling_seed & 0x7FFFFFFF
-        window = self._decode_window(int(positions.max()))
+        tok = self._tokens_dev
+        pos = torch.where(self._live_dev, self._positions_dev, 0)
         keys = None
-        if (temps > 0).any():
+        if sampled:
             # the token produced from input position p is keyed at p + 1;
             # the whole block's keys [block, B] in one device computation
-            step_pos = np.minimum(positions[None, :] + np.arange(block)[:, None], max_pos)
-            keys = sampling.sample_keys(
-                torch.from_numpy(seeds).to(dev),
-                torch.from_numpy(np.minimum(step_pos + 1, max_pos)).to(dev),
-            )
-        tok_d = torch.from_numpy(tokens).to(dev)
-        pos_d = torch.from_numpy(positions).to(dev)
-        live_d = torch.from_numpy(live).to(dev)
-        temps_d = torch.from_numpy(temps).to(dev)
-        topps_d = torch.from_numpy(topps).to(dev)
+            steps = torch.arange(block, device=self.device)[:, None]
+            step_pos = torch.clamp(pos[None, :] + steps, max=max_pos)
+            keys = sampling.sample_keys(self._seeds_dev, torch.clamp(step_pos + 1, max=max_pos))
         token_slab = []
         for s in range(block):
             if self._paged:
                 logits, _ = llama.decode_layers_paged(
-                    self.params, self.model_config, tok_d, pos_d, live_d, self._tables,
+                    self.params, self.model_config, tok, pos, self._live_dev, self._tables,
                     self._cache, window=window, page_size=self._page,
                     quant_kernel=self._quant_kernel, page_kernel=self._page_kernel,
                 )
             else:
                 logits, _ = llama.decode_layers(
-                    self.params, self.model_config, tok_d, pos_d, self._cache,
+                    self.params, self.model_config, tok, pos, self._cache,
                     window=window, quant_kernel=self._quant_kernel, kv_kernel=self._kv_kernel,
                 )
-            tok_d = sampling.sample_tokens(
-                logits[:, : self._sample_vocab], temps_d, topps_d,
+            tok = sampling.sample_tokens(
+                logits[:, : self._sample_vocab], self._temps_dev, self._topps_dev,
                 None if keys is None else (keys[0][s], keys[1][s]),
             )
-            token_slab.append(tok_d)
-            pos_d = torch.clamp(pos_d + 1, max=max_pos)
-        slab_h = torch.stack(token_slab).cpu().numpy()  # the block's one sync
-        self._counters["decode_blocks"] += 1
-        self._counters["decode_steps"] += block
-        self._counters["decode_rows"] += block * len(snapshot)
-        self._counters["decode_time_s"] += time.perf_counter() - t0
-        for row in slab_h:
-            for slot, req in snapshot:
-                if req.finished:
-                    continue  # overran past this request's stop
-                req.position += 1
-                self._emit(req, int(row[slot]))
-        self._release_finished()
+            token_slab.append(tok)
+            pos = torch.clamp(pos + 1, max=max_pos)
+        self._tokens_dev.copy_(tok)
+        self._positions_dev.copy_(pos)
+        # a tensor of its own: admission rewrites _tokens_dev in place while
+        # this slab may still be on its way to the host
+        self._to_reader("decode", torch.stack(token_slab), (snapshot, t_dispatch))
+
+    def _release_finished_slots(self) -> None:
+        """Free budget-exhausted, finished and cancelled slots before a
+        dispatch (caller holds self._lock). A cancelled request gets its
+        end here: once the slot is recycled no readback finishes it."""
+        for slot, req in list(self._slot_req.items()):
+            if req.cancelled or req.finished or self._slot_budget[slot] <= 0:
+                if req.cancelled:
+                    self._finish(req)
+                self._release(slot, req)
+
+    def _release(self, slot: int, req: _Request) -> None:
+        """Free ``slot`` while it still belongs to ``req`` (a late release
+        of an earlier owner is a no-op) and, on the paged layout, its
+        pages; its table row points back at the scratch page. Dispatch
+        thread only. Blocks already dispatched for the slot run before
+        anything a new owner enqueues, so its pages and strip are reusable
+        at once."""
+        with self._lock:
+            if self._slot_req.get(slot) is not req:
+                return
+            del self._slot_req[slot]
+            self._slot_budget.pop(slot, None)
+            self._slot_pos.pop(slot, None)
+            pages = self._slot_pages.pop(slot, None)
+            req.slot = -1
+            self._free_slots.append(slot)
+        if pages:
+            self._kv_alloc.release(pages)
+        if self._paged:
+            self._tables[slot].fill_(0)
+        self._live_dev[slot].fill_(False)
+        self._positions_dev[slot].fill_(0)
+
+    # ------------------------------------------------------------------ #
+    # reader thread: the one place that waits for the device
+
+    def _reader_loop(self) -> None:
+        while True:
+            item = self._readback.get()
+            if item is None:  # shutdown: every earlier item was emitted
+                with self._lock:
+                    live = list(self._slot_req.values())
+                for req in live:
+                    self._finish(req)
+                return
+            kind, host, event, rows = item
+            try:
+                if event is not None:
+                    event.synchronize()  # releases the GIL while it waits
+                values = host.numpy()
+            except Exception as exc:  # noqa: BLE001 - fail this item's requests, keep reading
+                logger.exception("LLM engine readback error: %s", exc)
+                for _, req in rows if kind == "prefill" else rows[0]:
+                    if not req.finished:
+                        req.error = exc
+                        self._finish(req)
+                continue
+            done = time.perf_counter()
+            counters = self._reader_counters
+            counters["readbacks"] += 1
+            if kind == "prefill":
+                for row, req in rows:
+                    if not req.finished:
+                        self._emit(req, int(values[row]))
+            else:
+                snapshot, t_dispatch = rows
+                counters["decode_blocks"] += 1
+                counters["decode_steps"] += len(values)
+                counters["decode_rows"] += len(values) * len(snapshot)
+                counters["decode_time_s"] += done - max(t_dispatch, self._last_readback)
+                for row in values:
+                    for slot, req in snapshot:
+                        if req.finished:
+                            continue  # overran past this request's stop
+                        req.position += 1
+                        self._emit(req, int(row[slot]))
+            self._last_readback = done
 
     def _emit(self, req: _Request, token: int) -> None:
+        """Reader thread: one token to the request's queue; a finished
+        request gets its end and its slot goes back to the dispatch loop."""
         req.generated += 1
-        req.emitted.append(token)
-        self._counters["tokens_generated"] += 1
+        self._reader_counters["tokens_generated"] += 1
         if req.generated == 1:
             self._ttft.append(time.time() - req.t_submit)
         done = (
@@ -708,32 +996,17 @@ class LLMEngine:
             req.out_queue.put(token)
         if done:
             self._finish(req)
+            slot = req.slot
+            if slot >= 0:
+                self._release_q.put((slot, req))
+                with self._lock:
+                    self._lock.notify_all()
 
     @staticmethod
     def _finish(req: _Request) -> None:
         if not req.finished:
             req.finished = True
             req.out_queue.put(_END)
-
-    def _release_finished(self) -> None:
-        for slot, req in list(self._slot_req.items()):
-            if req.finished or req.cancelled:
-                self._finish(req)
-                self._release(slot)
-
-    def _release(self, slot: int) -> None:
-        """Free a slot and, on the paged layout, its pages; its table row
-        points back at the scratch page."""
-        req = self._slot_req.pop(slot, None)
-        if req is None:
-            return
-        if self._paged:
-            pages = self._slot_pages.pop(slot, None)
-            if pages:
-                self._kv_alloc.release(pages)
-            self._tables[slot] = 0
-        req.slot = -1
-        self._free_slots.append(slot)
 
 
 _ENGINE_LOCK = threading.Lock()
@@ -749,3 +1022,13 @@ def get_engine(config: Optional[EngineConfig] = None) -> LLMEngine:
         if _ENGINE is None:
             _ENGINE = LLMEngine(config or EngineConfig.from_env())
         return _ENGINE
+
+
+def live_queue_depth() -> Optional[int]:
+    """Admission-queue depth of the process engine (``get_engine``), or None
+    when none was built. Never builds one."""
+    with _ENGINE_LOCK:
+        eng = _ENGINE
+    if eng is None:
+        return None
+    return eng.queue_depth()

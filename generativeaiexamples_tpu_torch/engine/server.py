@@ -4,9 +4,13 @@ Counterpart of generativeaiexamples_tpu/engine/server.py, with the same
 routes and JSON wire shapes, on the standard library's
 ``http.server.ThreadingHTTPServer`` (one thread per connection):
 
-- ``GET /v1/health/ready``, ``GET /v1/models``;
+- ``GET /v1/health/ready`` (503 while the engine is wedged),
+  ``GET /internal/ready`` (``{"ready", "wedged"}``, 200 or 503) and
+  ``GET /v1/models``;
 - ``POST /v1/chat/completions`` (SSE when ``"stream": true``, ending in
-  ``data: [DONE]``) and ``POST /v1/completions``;
+  ``data: [DONE]``) and ``POST /v1/completions``; a full admission queue
+  (``max_queued_requests``) answers 429 with ``Retry-After`` and
+  ``X-GenAI-Queue-Depth``, a stream before its first frame;
 - ``POST /v1/embeddings`` answers 501 until the embedder is ported.
 
 Run on the card::
@@ -25,6 +29,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional
 
 from generativeaiexamples_tpu_torch.config import EngineConfig
+from generativeaiexamples_tpu_torch.engine.llm_engine import EngineOverloaded, engine_wedged
 
 logger = logging.getLogger(__name__)
 
@@ -66,6 +71,11 @@ class ModelServer:
             stop=tuple(stop),
             seed=int(body.get("seed", 0) or 0),
         )
+
+    def ready(self) -> bool:
+        """Ready once the engine is built (the port has no warmup) and
+        while it is not wedged; never builds it."""
+        return self._engine is not None and not engine_wedged()
 
     def models_body(self) -> Dict[str, Any]:
         return {
@@ -112,14 +122,26 @@ class _Handler(BaseHTTPRequestHandler):
     def log_message(self, fmt, *args):  # route access logs through logging
         logger.debug("%s " + fmt, self.address_string(), *args)
 
-    def _json(self, status: int, body: Dict[str, Any]) -> None:
+    def _json(self, status: int, body: Dict[str, Any], headers: Optional[Dict[str, str]] = None) -> None:
         data = json.dumps(body).encode()
         self.responded = True
         self.send_response(status)
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(data)))
+        for name, value in (headers or {}).items():
+            self.send_header(name, value)
         self.end_headers()
         self.wfile.write(data)
+
+    def _overloaded(self, exc: EngineOverloaded) -> None:
+        """429 + Retry-After for an admission-queue rejection (OpenAI wire
+        error shape), with the queue depth for a router's bounded-load
+        spill."""
+        headers = {
+            "Retry-After": str(max(1, int(exc.retry_after))),
+            "X-GenAI-Queue-Depth": str(self.app.engine.queue_depth()),
+        }
+        self._json(429, {"error": {"message": str(exc), "type": "overloaded_error"}}, headers)
 
     def _body(self) -> Optional[Dict[str, Any]]:
         try:
@@ -131,7 +153,13 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_GET(self):  # noqa: N802 - http.server's naming
         if self.path == "/v1/health/ready":
-            self._json(200, {"object": "health", "message": "Service is ready."})
+            if engine_wedged():
+                self._json(503, {"object": "health", "message": "Engine wedged."})
+            else:
+                self._json(200, {"object": "health", "message": "Service is ready."})
+        elif self.path == "/internal/ready":
+            ready = self.app.ready()
+            self._json(200 if ready else 503, {"ready": ready, "wedged": engine_wedged()})
         elif self.path == "/v1/models":
             self._json(200, self.app.models_body())
         else:
@@ -154,6 +182,8 @@ class _Handler(BaseHTTPRequestHandler):
         self.responded = False
         try:
             route(body)
+        except EngineOverloaded as exc:
+            self._overloaded(exc)
         except Exception as exc:  # noqa: BLE001 - one failed request must not kill the connection silently
             logger.exception("request to %s failed", self.path)
             if not self.responded:

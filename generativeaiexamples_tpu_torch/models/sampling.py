@@ -80,7 +80,9 @@ def gumbel(key: Key, n: int) -> torch.Tensor:
     onto [tiny, 1), then -log(-log(u))."""
     mant = (random_bits(key, n) >> 9) | 0x3F800000
     floats = mant.to(torch.int32).view(torch.float32) - 1.0
-    tiny = torch.tensor(torch.finfo(torch.float32).tiny, device=floats.device)
+    # filled on the device: torch.tensor(x, device=...) is a copy from the
+    # host, which waits for the device
+    tiny = torch.full((), torch.finfo(torch.float32).tiny, dtype=torch.float32, device=floats.device)
     one = torch.ones((), dtype=torch.float32, device=floats.device)
     u = torch.maximum(tiny, floats * (one - tiny) + tiny)
     return -torch.log(-torch.log(u))

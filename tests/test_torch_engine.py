@@ -4,7 +4,10 @@ weights, long prompts take the chunked path, pages return to the
 allocator, sampling is keyed by (seed, position) with the JAX package's
 keys, the quantized recipes (w8a8 + int8 KV, int8 + int4 KV) serve, and
 the engine refuses to start without a card unless asked for the CPU. Plus the pieces it is
-built from: the page allocator, the config checks and the sampler."""
+built from: the page allocator, the config checks and the sampler, and the
+admission surface against the JAX engine's (``max_queued_requests``,
+``prefill_wave_tokens``, the validation of the pipelined decode's fields).
+The pipelined decode itself: tests/test_torch_engine_runahead.py."""
 import collections
 import threading
 import time
@@ -361,3 +364,118 @@ def test_nucleus_sampling():
     assert not torch.equal(a[0][0], a[0][1])
     c = sampling.sample_keys(torch.tensor([5]), torch.tensor([10]))
     assert not (torch.equal(a[0][:1], c[0]) and torch.equal(a[1][:1], c[1]))
+
+
+# --------------------------------------------------------------------- #
+# the admission surface: max_queued_requests, prefill_wave_tokens and the
+# validation of the pipelined decode's fields, held against the JAX engine
+
+
+class _AdmitGate:
+    """Holds the dispatch loop before its next admission until ``open()``,
+    so submitted requests stay pending."""
+
+    def __init__(self, eng):
+        self.event = threading.Event()
+        admit = eng._admit
+
+        def gated():
+            assert self.event.wait(60)
+            admit()
+
+        eng._admit = gated
+
+    def open(self):
+        self.event.set()
+
+
+def test_submit_raises_engine_overloaded_at_the_cap(monkeypatch):
+    from generativeaiexamples_tpu_torch.engine import llm_engine
+
+    eng = LLMEngine(EngineConfig(**dict(CONFIG, max_queued_requests=3)), device="cpu")
+    try:
+        gate = _AdmitGate(eng)
+        greedy = SamplingParams(temperature=0.0, max_tokens=4)
+        queues = [eng.generate_ids(p, greedy) for p in PROMPTS]
+        with pytest.raises(llm_engine.EngineOverloaded, match=r"queue full \(3/3 pending\)") as err:
+            eng.submit(PROMPTS[0], greedy)
+        assert err.value.retry_after == 1.0
+        assert eng.queue_depth() == 3
+        monkeypatch.setattr(llm_engine, "_ENGINE", eng)
+        assert llm_engine.live_queue_depth() == 3
+        gate.open()
+        for prompt, q in zip(PROMPTS, queues):
+            assert _drain(q) == reference_greedy(eng, prompt, 4)
+        assert eng.queue_depth() == 0
+        assert _drain(eng.generate_ids(PROMPTS[0], greedy)) == reference_greedy(eng, PROMPTS[0], 4)
+    finally:
+        assert eng.shutdown()
+    monkeypatch.setattr(llm_engine, "_ENGINE", None)
+    assert llm_engine.live_queue_depth() is None
+
+
+def _jax_validation_error(field, value):
+    """The JAX package's message for one bad engine value: its engine
+    constructor's resilience checks, or its config validator (whose
+    messages carry the section prefix ``engine.``)."""
+    from generativeaiexamples_tpu.config.schema import AppConfig
+    from generativeaiexamples_tpu.config.validate import validate_config
+
+    app = AppConfig.from_dict({"engine": {"max_batch_size": 3, field: value}})
+    try:
+        if field in ("decode_runahead", "prefill_wave_tokens"):
+            validate_config(app)
+        else:
+            jengine._validate_resilience_knobs(app.engine)
+    except ValueError as exc:
+        return str(exc).removeprefix("engine.")
+    return None
+
+
+@pytest.mark.parametrize("field,value", [
+    ("decode_runahead", 0), ("prefill_wave_tokens", 0), ("max_queued_requests", -1),
+    ("max_queued_requests", 2), ("watchdog_stall_s", -1.0),
+])
+def test_validation_errors_match_the_jax_engine(field, value):
+    expected = _jax_validation_error(field, value)
+    assert expected is not None
+    with pytest.raises(ValueError) as err:
+        EngineConfig(**dict(CONFIG, **{field: value})).validate()
+    assert str(err.value) == expected
+
+
+@pytest.mark.parametrize("field,value", [
+    ("decode_runahead", 1), ("prefill_wave_tokens", 1), ("max_queued_requests", 0),
+    ("max_queued_requests", 3), ("watchdog_stall_s", 0.0),
+])
+def test_validation_accepts_what_the_jax_engine_accepts(field, value):
+    assert _jax_validation_error(field, value) is None
+    EngineConfig(**dict(CONFIG, **{field: value})).validate()
+
+
+@pytest.mark.parametrize("num_slots,budget,bucket", [
+    (8, 16384, 512), (8, 16384, 8192), (64, 16384, 512), (3, 16, 16), (3, 40, 16),
+    (3, 5, 16), (1, 16384, 128), (16, 4096, 300), (2, 0, 16),
+])
+def test_max_wave_rows_matches_the_jax_formula(num_slots, budget, bucket):
+    stub = types.SimpleNamespace(
+        num_slots=num_slots, engine_config=types.SimpleNamespace(prefill_wave_tokens=budget)
+    )
+    assert LLMEngine._max_wave_rows(stub, bucket) == jengine.LLMEngine._max_wave_rows(stub, bucket)
+
+
+def test_prefill_wave_tokens_caps_each_wave():
+    """prefill_wave_tokens 16 at prefill_chunk 16 admits one row a wave:
+    three requests submitted together take three waves, and stream as
+    one wave would."""
+    eng = LLMEngine(EngineConfig(**dict(CONFIG, prefill_wave_tokens=16)), device="cpu")
+    try:
+        gate = _AdmitGate(eng)
+        greedy = SamplingParams(temperature=0.0, max_tokens=6)
+        queues = [eng.generate_ids(p, greedy) for p in PROMPTS]
+        gate.open()
+        for prompt, q in zip(PROMPTS, queues):
+            assert _drain(q) == reference_greedy(eng, prompt, 6)
+        assert eng.stats()["prefill_waves"] == 3
+    finally:
+        assert eng.shutdown()

@@ -6,7 +6,8 @@ layout: greedy, seeded sampling (the port draws with JAX's threefry keys),
 and the w8a8 + int8 KV recipe (the weights the JAX engine drew, carried
 over). Both compute in float32,
 and w8a8's products are exact integer sums, so the streams must be
-identical token for token.
+identical token for token. Each case runs with one decode block in flight
+(``decode_runahead=1``) and again with four on both engines.
 
 Slow tier: it builds and compiles a JAX engine."""
 import jax.numpy as jnp
@@ -39,7 +40,7 @@ def test_greedy_streams_match_the_jax_engine():
     ))
     # the JAX engine's no-checkpoint weights: init_params_fast(cfg, 0, dtype)
     weights = jl.init_params_fast(jl.PRESETS["debug"], 0, jnp.float32)
-    port = LLMEngine(EngineConfig(**COMMON), device="cpu", params=params_from_jax(weights))
+    port = LLMEngine(EngineConfig(decode_runahead=1, **COMMON), device="cpu", params=params_from_jax(weights))
     try:
         for prompt in PROMPTS:
             ref = list(jax_engine.iter_ids(prompt, JaxParams(temperature=0.0, max_tokens=16), timeout=600))
@@ -56,7 +57,7 @@ def test_seeded_streams_match_the_jax_engine(top_p):
         tensor_parallelism=1, kv_layout="paged", decode_runahead=1, **COMMON
     ))
     weights = jl.init_params_fast(jl.PRESETS["debug"], 0, jnp.float32)
-    port = LLMEngine(EngineConfig(**COMMON), device="cpu", params=params_from_jax(weights))
+    port = LLMEngine(EngineConfig(decode_runahead=1, **COMMON), device="cpu", params=params_from_jax(weights))
     try:
         for i, prompt in enumerate(PROMPTS):
             kw = dict(temperature=0.9, top_p=top_p, max_tokens=16, seed=100 + i)
@@ -74,7 +75,8 @@ def test_w8a8_int8_kv_streams_match_the_jax_engine():
         tensor_parallelism=1, kv_layout="paged", decode_runahead=1, **COMMON, **quant
     ))
     port = LLMEngine(
-        EngineConfig(**COMMON, **quant), device="cpu", params=params_from_jax(jax_engine.params)
+        EngineConfig(decode_runahead=1, **COMMON, **quant), device="cpu",
+        params=params_from_jax(jax_engine.params),
     )
     try:
         for prompt in PROMPTS:
@@ -99,7 +101,7 @@ def test_fixed_layout_streams_match_the_jax_engine(recipe):
     ))
     weights = jax_engine.params if quant else jl.init_params_fast(jl.PRESETS["debug"], 0, jnp.float32)
     port = LLMEngine(
-        EngineConfig(kv_layout="fixed", **COMMON, **quant), device="cpu",
+        EngineConfig(kv_layout="fixed", decode_runahead=1, **COMMON, **quant), device="cpu",
         params=params_from_jax(weights),
     )
     try:
@@ -108,6 +110,35 @@ def test_fixed_layout_streams_match_the_jax_engine(recipe):
             kw = dict(temperature=0.0, max_tokens=16)
             if recipe == "seeded":
                 kw = dict(temperature=0.9, top_p=0.8, max_tokens=16, seed=200 + i)
+            ref = list(jax_engine.iter_ids(prompt, JaxParams(**kw), timeout=600))
+            out = list(port.iter_ids(prompt, SamplingParams(**kw), timeout=600))
+            assert out == ref, prompt
+    finally:
+        jax_engine.shutdown()
+        port.shutdown()
+
+
+@pytest.mark.parametrize("layout", ["paged", "fixed"])
+@pytest.mark.parametrize("recipe", ["greedy", "seeded", "w8a8-int8"])
+def test_streams_match_the_jax_engine_at_runahead_4(layout, recipe):
+    """The cases above with four decode blocks in flight on both engines:
+    each engine's reader emits from slabs dispatched ahead of it, and each
+    frees budget-exhausted slots from its host shadows."""
+    quant = dict(quantization="w8a8", kv_cache_dtype="int8") if recipe == "w8a8-int8" else {}
+    jax_engine = JaxEngine(JaxEngineConfig(
+        tensor_parallelism=1, kv_layout=layout, decode_runahead=4, **COMMON, **quant
+    ))
+    weights = jax_engine.params if quant else jl.init_params_fast(jl.PRESETS["debug"], 0, jnp.float32)
+    port = LLMEngine(
+        EngineConfig(kv_layout=layout, decode_runahead=4, **COMMON, **quant), device="cpu",
+        params=params_from_jax(weights),
+    )
+    try:
+        assert port._paged == (layout == "paged")
+        for i, prompt in enumerate(PROMPTS):
+            kw = dict(temperature=0.0, max_tokens=16)
+            if recipe == "seeded":
+                kw = dict(temperature=0.9, top_p=0.8, max_tokens=16, seed=300 + i)
             ref = list(jax_engine.iter_ids(prompt, JaxParams(**kw), timeout=600))
             out = list(port.iter_ids(prompt, SamplingParams(**kw), timeout=600))
             assert out == ref, prompt

@@ -5,6 +5,7 @@ import dataclasses
 import json
 import logging
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -193,7 +194,7 @@ def test_each_jax_engine_variable_has_the_jax_default(env):
     ("APP_ENGINE_CHECKPOINTPATH", "/w", "queue 1 item 10"),
     ("APP_ENGINE_SCHEDULERPOLICY", "disagg", "queue 1 item 8"),
     ("APP_ENGINE_SPECDECODEENABLE", "on", "queue 1 item 5"),
-    ("APP_ENGINE_MAXQUEUEDREQUESTS", "4", "queue 1 item 6"),
+    ("APP_ENGINE_PREFIXCACHESLOTS", "8", "queue 1 item 4"),
 ])
 def test_from_env_refuses_what_the_port_does_not_serve(env, value, item):
     with pytest.raises(ValueError, match=f"{env}={value}: .*{item}"):
@@ -239,3 +240,168 @@ def test_server_engine_comes_from_the_env(monkeypatch):
     engine = ModelServer().engine
     assert built == [engine]
     assert (engine.kv_cache_dtype, engine.quantization) == ("int4", "int8")
+
+
+def test_from_env_serves_the_runahead_and_admission_fields():
+    """The four fields of the pipelined decode and its admission surface
+    read the JAX names, with the JAX defaults when unset."""
+    env = {
+        "APP_ENGINE_DECODERUNAHEAD": "2", "APP_ENGINE_MAXQUEUEDREQUESTS": "16",
+        "APP_ENGINE_PREFILLWAVETOKENS": "4096", "APP_ENGINE_WATCHDOGSTALLS": "12.5",
+    }
+    mine = EngineConfig.from_env(env)
+    assert (mine.decode_runahead, mine.max_queued_requests, mine.prefill_wave_tokens,
+            mine.watchdog_stall_s) == (2, 16, 4096, 12.5)
+    mine.validate()
+    ref = JaxEngineConfig()
+    default = EngineConfig.from_env({})
+    for field in ("decode_runahead", "max_queued_requests", "prefill_wave_tokens", "watchdog_stall_s"):
+        assert field not in JAX_ONLY_FIELDS
+        assert getattr(default, field) == getattr(ref, field), field
+    with pytest.raises(ValueError, match="decode_runahead must be >= 1"):
+        EngineConfig.from_env({"APP_ENGINE_DECODERUNAHEAD": "0"}).validate()
+
+
+class _AdmitGate:
+    """Holds an engine's dispatch loop before its next admission until
+    ``open()``: submitted requests stay pending and, with work outstanding,
+    the loop makes no progress."""
+
+    def __init__(self, engine):
+        self.event = threading.Event()
+        admit = engine._admit
+
+        def gated():
+            assert self.event.wait(60)
+            admit()
+
+        engine._admit = gated
+
+    def open(self):
+        self.event.set()
+
+
+def _serve(engine):
+    server = make_server("127.0.0.1", 0, engine=engine)
+    thread = threading.Thread(target=server.serve_forever, name="test-http-2", daemon=True)
+    thread.start()
+    return f"http://127.0.0.1:{server.server_address[1]}", server, thread
+
+
+def _post_with_headers(url, body):
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, dict(resp.headers), resp.read().decode()
+    except urllib.error.HTTPError as exc:
+        return exc.code, dict(exc.headers), exc.read().decode()
+
+
+def test_a_full_admission_queue_answers_429():
+    """max_queued_requests = max_batch_size = 3, the dispatch loop held:
+    three requests wait, and a fourth answers 429 with Retry-After and
+    X-GenAI-Queue-Depth in the JAX server's error shape; a stream is
+    refused before its first frame. Once the loop runs, the three answer
+    200."""
+    from generativeaiexamples_tpu_torch.engine.llm_engine import SamplingParams
+
+    engine = LLMEngine(EngineConfig(
+        model_config_name="debug", max_batch_size=3, max_seq_len=128, prefill_chunk=16,
+        page_size=8, decode_block=4, max_queued_requests=3,
+    ), device="cpu")
+    url, server, thread = _serve(engine)
+    try:
+        gate = _AdmitGate(engine)
+        waiting = [engine.generate_ids([256, 5, 6], SamplingParams(temperature=0.0, max_tokens=4))
+                   for _ in range(3)]
+        bodies = [
+            ("/v1/chat/completions", {"messages": [{"role": "user", "content": "hi"}], "max_tokens": 4}),
+            ("/v1/chat/completions", {"messages": [{"role": "user", "content": "hi"}], "max_tokens": 4,
+                                      "stream": True}),
+            ("/v1/completions", {"prompt": "once", "max_tokens": 4}),
+        ]
+        for path, body in bodies:
+            status, headers, text = _post_with_headers(url + path, body)
+            assert status == 429, (path, status, text)
+            assert headers["Retry-After"] == "1" and headers["X-GenAI-Queue-Depth"] == "3"
+            assert headers["Content-Type"] == "application/json"
+            assert json.loads(text) == {"error": {
+                "message": "engine admission queue full (3/3 pending)", "type": "overloaded_error"}}
+        gate.open()
+        for q in waiting:
+            while q.get(timeout=60) is not None:
+                pass
+        status, _, _ = _post(url + "/v1/completions", {"prompt": "once", "max_tokens": 4})
+        assert status == 200
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(30)
+        assert engine.shutdown()
+
+
+def test_watchdog_flips_readiness_and_recovers():
+    """A dispatch loop that stops making progress with a request pending
+    (its admission held) marks the engine wedged within watchdog_stall_s:
+    /v1/health/ready and /internal/ready answer 503; once the loop runs
+    again both recover to 200."""
+    from generativeaiexamples_tpu_torch.engine import llm_engine
+    from generativeaiexamples_tpu_torch.engine.llm_engine import SamplingParams
+
+    engine = LLMEngine(EngineConfig(
+        model_config_name="debug", max_batch_size=3, max_seq_len=128, prefill_chunk=16,
+        page_size=8, decode_block=4, watchdog_stall_s=0.2,
+    ), device="cpu")
+    url, server, thread = _serve(engine)
+    try:
+        assert _get(url + "/internal/ready") == (200, {"ready": True, "wedged": False})
+        gate = _AdmitGate(engine)
+        q = engine.generate_ids([256, 5, 6], SamplingParams(temperature=0.0, max_tokens=4))
+        deadline = time.time() + 30
+        while not llm_engine.engine_wedged() and time.time() < deadline:
+            time.sleep(0.02)
+        assert llm_engine.engine_wedged()
+        for path, body in (("/v1/health/ready", {"object": "health", "message": "Engine wedged."}),
+                           ("/internal/ready", {"ready": False, "wedged": True})):
+            with pytest.raises(urllib.error.HTTPError) as err:
+                _get(url + path)
+            assert err.value.code == 503 and json.loads(err.value.read()) == body
+        gate.open()
+        while q.get(timeout=60) is not None:
+            pass
+        deadline = time.time() + 30
+        while llm_engine.engine_wedged() and time.time() < deadline:
+            time.sleep(0.02)
+        assert _get(url + "/v1/health/ready") == (200, {"object": "health", "message": "Service is ready."})
+        assert _get(url + "/internal/ready") == (200, {"ready": True, "wedged": False})
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(30)
+        assert engine.shutdown()
+
+
+def test_internal_ready_needs_a_built_engine():
+    """Readiness never builds the engine: a server whose engine is not
+    built yet answers 503 with ready false."""
+    server = make_server("127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, name="test-http-3", daemon=True)
+    thread.start()
+    try:
+        with pytest.raises(urllib.error.HTTPError) as err:
+            _get(f"http://127.0.0.1:{server.server_address[1]}/internal/ready")
+        assert err.value.code == 503
+        assert json.loads(err.value.read()) == {"ready": False, "wedged": False}
+        assert server.RequestHandlerClass.app._engine is None
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(30)
+
+
+def test_ready_routes_of_the_jax_server_exist():
+    """The JAX engine server serves the same two readiness routes."""
+    app = jserver.ModelServer().build_app()
+    routes = {r.resource.canonical for r in app.router.routes() if r.method == "GET"}
+    assert {"/v1/health/ready", "/internal/ready"} <= routes
