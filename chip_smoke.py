@@ -41,6 +41,22 @@ Phases (each one's failure makes the script exit non-zero):
    answer 429 with ``Retry-After`` and ``X-GenAI-Queue-Depth``, the rest
    200. First, a thread's wait on a CUDA event must release the GIL.
 
+6. retrieval: arctic-embed-l (the embedder) and arctic-embed-m (the
+   reranker) at full width on the card, random from ``--seed``: 4
+   passages on the card (bf16) against the CPU's f32 plain path; 512
+   passages of 32-512 ids through the batched path, then the synchronous
+   one, held to each other (and 8 rows alone against their batch), with
+   passages/s, tokens/s and the device time of a dispatch at (32, 512),
+   (32, 128) and (1, 64) with its share of the bf16 peak; a 65,536 x
+   1024 store searched exact and IVF (nlist 64, nprobe 16) for 8
+   embed_query vectors, exact held against numpy, search times at rows 1
+   and 8 and k 4 and 16, IVF recall; each query's top 16 reranked, the
+   logits held against the CPU's; then engine A behind the HTTP server
+   with this embedder: ``/v1/embeddings`` and ``/v1/models``, and while 8
+   greedy requests decode, an ingest of 64 passages that must wait on the
+   engine's ``ingest_window``, ungated embed_query calls, and no
+   synchronizing call on the LLM dispatch thread.
+
 With no arguments it runs every phase, as above; ``--phases``,
 ``--checks`` and ``--recipes`` run a part (for example ``--phases serve
 --recipes B``) and then print only the kernels that part measured;
@@ -1182,9 +1198,423 @@ def phase_serve(dev, recipes="ABCD", runahead=None, extras=True) -> dict:
     return serves
 
 
+# --------------------------------------------------------------------- #
+# Phase 6: the retrieval side of RAG (embedder, store, reranker, HTTP)
+
+EMBED_MODEL, RERANK_MODEL = "arctic-embed-l", "arctic-embed-m"
+# bounds, each from a CPU run of the same functions in bf16 against f32
+# (cosine ~0.99993, max |d| ~1.8e-3, logits |d| ~8e-3 at full width)
+CARD_VS_CPU_COS, CARD_VS_CPU_ABS, LOGIT_ABS = 0.999, 1e-2, 5e-2
+# the batched path against the synchronous one, and a row alone against
+# the same row in a batch, on one device: bitwise where both dispatch the
+# same shapes; elsewhere cuBLAS tiles another shape differently, and one
+# flipped bf16 rounding grows through 24 layers to the size of the bf16
+# vs f32 difference (the card's first run: cosine 0.99990, max |d| 1.7e-3),
+# so the same bounds hold
+SAME_DEVICE_COS, SAME_DEVICE_ABS = CARD_VS_CPU_COS, CARD_VS_CPU_ABS
+SEARCH_TOL = 1e-4  # f32 dot products of 1024-dim unit vectors, other sum orders
+
+
+def _texts(rng, n, lo, hi) -> list:
+    """``n`` passages of ``lo``-``hi`` byte-tokenizer ids (ASCII: one id a
+    character), drawn from ``rng``."""
+    alphabet = list("abcdefghijklmnopqrstuvwxyz     ")
+    return ["".join(rng.choice(alphabet, int(n_ids))) for n_ids in rng.randint(lo, hi + 1, n)]
+
+
+def _params_on(params, dev) -> int:
+    """Tensors of a parameter tree; raises unless every one lives on ``dev``."""
+    tensors = [t for k, t in params.items() if k != "layers"] + [
+        t for lp in params["layers"] for t in lp.values()]
+    off = [t.device for t in tensors if t.device.type != dev.type]
+    if off:
+        raise AssertionError(f"{len(off)} parameters off the card ({off[0]})")
+    return sum(t.numel() for t in tensors)
+
+
+def _cpu_f32(tree):
+    from generativeaiexamples_tpu_torch.models.convert import _map
+
+    return _map(tree, lambda t: t.detach().to("cpu", torch.float32))
+
+
+def _pad(rows, T):
+    import numpy as np
+
+    ids = np.zeros((len(rows), T), np.int32)
+    mask = np.zeros((len(rows), T), np.int32)
+    for i, r in enumerate(rows):
+        ids[i, : len(r)] = r
+        mask[i, : len(r)] = 1
+    return torch.from_numpy(ids), torch.from_numpy(mask)
+
+
+def _row_stats(a, b):
+    """(min cosine, max |a - b|, rows bitwise equal) of two [N, D] arrays."""
+    import numpy as np
+
+    cos = (a * b).sum(-1) / np.linalg.norm(a, axis=-1) / np.linalg.norm(b, axis=-1)
+    same = int(sum(np.array_equal(x, y) for x, y in zip(a, b)))
+    return float(cos.min()), float(np.abs(a - b).max()), same
+
+
+def _check_topk(got_s, got_i, want_s, want_i, tol, what) -> None:
+    """Scores within ``tol``; indices equal where the neighbours' scores
+    are more than ``tol`` away (torch.topk orders ties as it likes)."""
+    import numpy as np
+
+    if np.abs(got_s - want_s).max() > tol:
+        raise AssertionError(f"{what}: scores differ by {np.abs(got_s - want_s).max():.3g}")
+    for r in range(want_s.shape[0]):
+        k = want_s.shape[1]
+        for j in range(k):
+            gap = min(abs(want_s[r, j] - want_s[r, j - 1]) if j else np.inf,
+                      abs(want_s[r, j] - want_s[r, j + 1]) if j + 1 < k else np.inf)
+            if gap > tol and got_i[r, j] != want_i[r, j]:
+                raise AssertionError(f"{what}: row {r} rank {j}: {got_i[r, j]} != {want_i[r, j]}")
+
+
+def _profile_encode(emb, dev, R, T, smi) -> dict:
+    """Where one encoder dispatch of ``R`` x ``T`` ids spends the card's
+    time: torch.profiler's device events by kernel name (the top 6), the
+    kernel count, and the host's wall time to enqueue the dispatch against
+    the device's time for it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from generativeaiexamples_tpu_torch.models import bert
+
+    ids = torch.randint(0, 256, (R, T), device=dev, dtype=torch.int32)
+    mask = torch.ones((R, T), device=dev, dtype=torch.int32)
+    with torch.inference_mode():
+        bert.bert_encode(emb._params, emb._cfg, ids, mask)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bert.bert_encode(emb._params, emb._cfg, ids, mask)
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                bert.bert_encode(emb._params, emb._cfg, ids, mask)
+                torch.cuda.synchronize()
+        except Exception as exc:  # noqa: BLE001 - a measurement, reported as not measured
+            log(f"  profile {R}x{T}: not measured ({exc!r})")
+            return {}
+    by_name = collections.Counter()
+    kernels = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name[:60]] += e.device_time_total / 1e3
+            kernels += 1
+    total = sum(by_name.values())
+    top = by_name.most_common(6)
+    log(f"  profile of one {R}x{T} dispatch: {kernels} kernels, {total:.2f} ms of device time; "
+        f"the host enqueues it in {enqueue_ms:.2f} ms; top: "
+        + "; ".join(f"{n} {ms:.2f} ms" for n, ms in top) + f" on {smi}")
+    return {"kernels": kernels, "device_ms": total, "enqueue_ms": enqueue_ms,
+            "top": [[n, ms] for n, ms in top]}
+
+
+def phase_retrieval(dev, smi, seed=0) -> dict:
+    """arctic-embed-l and arctic-embed-m at full width on the card (random
+    weights from ``seed``): the card against the CPU's f32 plain path,
+    batched against synchronous, a 65,536 x 1024 store searched exact and
+    IVF against numpy, reranking, and /v1/embeddings beside a decoding
+    engine A whose dispatch thread must make no synchronizing call."""
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.config import BatchingConfig
+    from generativeaiexamples_tpu_torch.engine.embedder import TorchEmbedder
+    from generativeaiexamples_tpu_torch.engine.reranker import TorchReranker
+    from generativeaiexamples_tpu_torch.models import bert
+    from generativeaiexamples_tpu_torch.retrieval.store import Chunk
+    from generativeaiexamples_tpu_torch.retrieval.torch_store import TorchVectorStore
+
+    t0 = time.time()
+    out = {}
+    rng = np.random.RandomState(seed)
+    timer = Timer(dev)
+
+    # 1. both models on the card at full width
+    emb = TorchEmbedder(model_name=EMBED_MODEL, batching=BatchingConfig(), device=dev, seed=seed)
+    rr = TorchReranker(model_name=RERANK_MODEL, batching=BatchingConfig(), device=dev, seed=seed)
+    try:
+        ecfg, rcfg = emb._cfg, rr._cfg
+        n_emb = _params_on(emb._params, dev)
+        n_rr = _params_on(rr._params, dev) + sum(t.numel() for t in rr._head.values())
+        if any(t.device.type != dev.type for t in rr._head.values()):
+            raise AssertionError("the rank head is off the card")
+        log(f"  {EMBED_MODEL}: {ecfg.num_layers} layers, hidden {ecfg.hidden_size}, "
+            f"{ecfg.num_heads} heads, FFN {ecfg.intermediate_size}, {n_emb / 1e6:.1f} M parameters "
+            f"({bert.matmul_params(ecfg) / 1e6:.1f} M in matmuls), bf16 on {dev}; {RERANK_MODEL}: "
+            f"{rcfg.num_layers} layers, hidden {rcfg.hidden_size}, {n_rr / 1e6:.1f} M; random "
+            f"weights (seed {seed}), byte tokenizer")
+
+        # 2. the card (bf16) against the CPU (f32 plain path, same weights)
+        texts4 = _texts(rng, 4, 64, 256)
+        card = emb.embed_documents(texts4)
+        rows4 = [emb._tok.encode(t) for t in texts4]
+        ids, mask = _pad(rows4, max(len(r) for r in rows4))
+        with torch.inference_mode():
+            cpu = bert.bert_encode(_cpu_f32(emb._params), ecfg, ids, mask).numpy()
+        cos = (card * cpu).sum(-1) / np.linalg.norm(card, axis=-1) / np.linalg.norm(cpu, axis=-1)
+        err = float(np.abs(card - cpu).max())
+        ok = cos.min() >= CARD_VS_CPU_COS and err <= CARD_VS_CPU_ABS
+        log(f"  card (bf16) vs CPU (f32) on 4 passages of {[len(r) for r in rows4]} ids: cosine per "
+            f"row {[round(float(c), 6) for c in cos]}, max|d| {err:.4g} (bounds: cosine >= "
+            f"{CARD_VS_CPU_COS}, max|d| <= {CARD_VS_CPU_ABS}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the card's embeddings disagree with the CPU's f32 plain path")
+        out["card_vs_cpu"] = {"min_cos": float(cos.min()), "max_abs": err}
+
+        # 3. 512 passages through the batched path, then the synchronous one
+        texts = _texts(rng, 512, 32, 512)
+        n_ids = sum(len(emb._tok.encode(t)) for t in texts)
+        paths = {}
+        for name, batched in (("batched", True), ("sync", False)):
+            emb.set_batching(batched)
+            before = emb.counters["device_dispatches"]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            vecs = emb.embed_documents(texts)
+            wall = time.perf_counter() - t1
+            paths[name] = (vecs, wall, emb.counters["device_dispatches"] - before)
+        emb.set_batching(True)
+        (vb, wb, db), (vs, ws, ds) = paths["batched"], paths["sync"]
+        cos_bs, abs_bs, same_bs = _row_stats(vb, vs)
+        # a row alone (1 row at its own bucket) against the same row in its batch of 32
+        alone_idx = list(rng.choice(512, 8, replace=False))
+        alone = np.stack([emb._dispatch_rows([emb._tok.encode(texts[i])], 1)[0] for i in alone_idx])
+        cos_a, abs_a, same_a = _row_stats(alone, vb[alone_idx])
+        ok = (same_bs == 512 or (cos_bs >= SAME_DEVICE_COS and abs_bs <= SAME_DEVICE_ABS)) and (
+            same_a == 8 or (cos_a >= SAME_DEVICE_COS and abs_a <= SAME_DEVICE_ABS))
+        log(f"  512 passages ({n_ids} ids, 32-512 each): batched {wb:.3f} s in {db} dispatches "
+            f"({512 / wb:.1f} passages/s, {n_ids / wb:.0f} tokens/s), synchronous {ws:.3f} s in "
+            f"{ds} dispatches ({512 / ws:.1f} passages/s, {n_ids / ws:.0f} tokens/s) on {smi}")
+        log(f"  batched vs synchronous: {same_bs}/512 rows bitwise, min cosine {cos_bs:.7f}, max|d| "
+            f"{abs_bs:.3g}; 8 rows alone vs in their batch of 32: {same_a}/8 bitwise, min cosine "
+            f"{cos_a:.7f}, max|d| {abs_a:.3g} (bound when not bitwise: cosine >= {SAME_DEVICE_COS}, "
+            f"max|d| <= {SAME_DEVICE_ABS}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("batched and synchronous embeddings disagree")
+        out["embed"] = {
+            "passages": 512, "ids": n_ids, "batched_s": wb, "sync_s": ws,
+            "batched_dispatches": db, "sync_dispatches": ds,
+            "batched_passages_per_s": 512 / wb, "batched_tokens_per_s": n_ids / wb,
+            "sync_passages_per_s": 512 / ws, "sync_tokens_per_s": n_ids / ws,
+            "batched_vs_sync_bitwise_rows": same_bs, "batched_vs_sync_max_abs": abs_bs,
+            "alone_vs_batch_bitwise_rows": same_a, "alone_vs_batch_max_abs": abs_a,
+        }
+        dispatch = {}
+        for R, T in ((32, 512), (32, 128), (1, 64)):
+            d_ids = torch.randint(0, 256, (R, T), device=dev, dtype=torch.int32)
+            d_mask = torch.ones((R, T), device=dev, dtype=torch.int32)
+            with torch.inference_mode():
+                ms = timer.ms(lambda: bert.bert_encode(emb._params, ecfg, d_ids, d_mask), iters=10)
+            flops = hardware.encoder_flops(ecfg, R, T)
+            share = flops / (ms * 1e-3) / (hardware.PEAK_TFLOPS * 1e12)
+            dispatch[f"{R}x{T}"] = {"ms": ms, "tflop": flops / 1e12, "peak_share": share}
+            log(f"  embed dispatch ({R} rows x {T} ids): {ms:.3f} ms on the device (median of 10, "
+                f"CUDA events), {flops / 1e12:.3f} TFLOP, {share:.1%} of the dense bf16 peak "
+                f"({hardware.PEAK_TFLOPS:.0f} TFLOP/s) on {smi}")
+        out["embed"]["dispatch"] = dispatch
+        out["embed"]["profile"] = {
+            shape: _profile_encode(emb, dev, R, T, smi) for shape, (R, T) in
+            (("32x512", (32, 512)), ("1x64", (1, 64)))}
+
+        # 4. a 65,536 x 1024 store: the 512 embeddings and seeded unit vectors
+        N = 65536
+        filler = rng.standard_normal((N - 512, ecfg.hidden_size)).astype(np.float32)
+        filler /= np.linalg.norm(filler, axis=1, keepdims=True)
+        corpus = np.concatenate([vb, filler])
+        chunks = [Chunk(text=t, source=f"p{i}") for i, t in enumerate(texts)] + [
+            Chunk(text=f"synthetic passage {i}", source="synthetic") for i in range(N - 512)]
+        stores = {}
+        for mode in ("exact", "ivf"):
+            t1 = time.perf_counter()
+            store = TorchVectorStore(ecfg.hidden_size, ann_mode=mode, nlist=64, nprobe=16, device=dev)
+            store.add(chunks, corpus)
+            store._ann_engine()
+            stores[mode] = store
+            log(f"  store[{mode}]: {store.count()} rows x {ecfg.hidden_size} f32 "
+                f"({store._matrix.nbytes / 2**20:.0f} MiB) on the card in "
+                f"{time.perf_counter() - t1:.2f} s (IVF: k-means on the host, nlist 64)")
+        questions = [f"question {i}: " + t[:60] for i, t in enumerate(_texts(rng, 8, 40, 120))]
+        queries = np.stack([emb.embed_query(q) for q in questions])
+        matrix = stores["exact"]._matrix
+        want_s = np.sort(matrix @ queries.T, axis=0)[::-1][:16].T
+        want_i = np.argsort(-(matrix @ queries.T), axis=0, kind="stable")[:16].T
+        ex_s, ex_i = stores["exact"]._ann.search(queries, 16)
+        _check_topk(ex_s, ex_i, want_s, want_i, SEARCH_TOL, "exact search vs numpy")
+        log(f"  exact search of 8 embed_query vectors, k 16: scores within "
+            f"{float(np.abs(ex_s - want_s).max()):.3g} of numpy's brute force (limit {SEARCH_TOL}), "
+            f"indices equal outside ties: ok")
+        iv_s, iv_i = stores["ivf"]._ann.search(queries, 16)
+        recall = {k: float(np.mean([len(set(iv_i[r, :k]) & set(ex_i[r, :k])) / k
+                                    for r in range(8)])) for k in (4, 16)}
+        search_ms = {}
+        for mode, store in stores.items():
+            eng = store._ann
+            corp = eng._corpus
+            nprobe = min(16, corp.centroids.shape[0]) if mode == "ivf" else 0
+            for R in (1, 8):
+                q_dev = torch.from_numpy(np.ascontiguousarray(queries[:R])).to(dev)
+                for k in (4, 16):
+                    with torch.inference_mode():
+                        ms = timer.ms(lambda: eng._topk(corp, q_dev, k, nprobe))
+                    t1 = time.perf_counter()
+                    for _ in range(5):
+                        store.search_batch(queries[:R], k)
+                    wall = (time.perf_counter() - t1) / 5 * 1e3
+                    b_ms, b_by = hardware.bound_ms(*hardware.search_cost(
+                        R, corp.capacity, ecfg.hidden_size, 64 if mode == "ivf" else 0))
+                    search_ms[f"{mode}_r{R}_k{k}"] = {"ms": ms, "wall_ms": wall, "bound_ms": b_ms}
+                    log(f"  search[{mode}] rows {R} k {k}: {ms:.4f} ms on the device, "
+                        f"{wall:.3f} ms wall for store.search_batch, bound {b_ms:.4f} ms ({b_by}) "
+                        f"on {smi}")
+        log(f"  IVF (nlist 64, nprobe 16) recall against exact: @4 {recall[4]:.3f}, @16 "
+            f"{recall[16]:.3f}")
+        out["search"] = {"ms": search_ms, "ivf_recall": recall}
+
+        # 5. rerank each query's top 16
+        rerank_ms = []
+        first_pairs = None
+        for r, q in enumerate(questions):
+            passages = [chunks[int(i)].text for i in ex_i[r]]
+            t1 = time.perf_counter()
+            logits = rr.score(q, passages)
+            rerank_ms.append((time.perf_counter() - t1) * 1e3)
+            if r == 0:
+                first_pairs, first_logits = rr._tokenize_pairs(q, passages), logits
+        T = max(len(p[0]) for p in first_pairs)
+        ids, mask = _pad([p[0] for p in first_pairs], T)
+        types, _ = _pad([p[1] for p in first_pairs], T)
+        with torch.inference_mode():
+            cpu_logits = bert.cross_encode_score(
+                _cpu_f32(rr._params), {k: v.to("cpu", torch.float32) for k, v in rr._head.items()},
+                rcfg, ids, mask, types).numpy()
+        lerr = float(np.abs(first_logits - cpu_logits).max())
+        ok = lerr <= LOGIT_ABS and bool(np.isfinite(first_logits).all())
+        log(f"  rerank top 16 of each of 8 queries: {statistics.median(rerank_ms):.2f} ms median "
+            f"wall a query ({', '.join(f'{m:.1f}' for m in rerank_ms)}), on {smi}; card vs CPU f32 "
+            f"logits on query 0: max|d| {lerr:.4g} (limit {LOGIT_ABS}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the card's rerank logits disagree with the CPU's f32 plain path")
+        out["rerank"] = {"ms_median": statistics.median(rerank_ms), "ms": rerank_ms,
+                         "max_abs_logit": lerr}
+        del stores, corpus, filler
+        gc.collect()
+
+        # 6. over HTTP beside a decoding engine A
+        out["http"] = _retrieval_http(dev, emb, rng, smi)
+    finally:
+        emb.close()
+        rr.close()
+    log(f"phase retrieval: ok ({time.time() - t0:.1f} s)")
+    return out
+
+
+def _retrieval_http(dev, emb, rng, smi) -> dict:
+    """Engine A's weights behind the server with ``emb``: /v1/embeddings
+    and /v1/models, then an ingest of 64 passages and three embed_query
+    calls while 8 greedy requests decode, counting each thread's
+    synchronizing calls."""
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.config import EngineConfig
+    from generativeaiexamples_tpu_torch.engine import llm_engine
+    from generativeaiexamples_tpu_torch.engine.llm_engine import LLMEngine, SamplingParams
+    from generativeaiexamples_tpu_torch.engine.server import make_server
+
+    engine = LLMEngine(EngineConfig(model_config_name=MODEL, quantization="int8",
+                                    kv_cache_dtype="bfloat16", kv_layout="paged"), device=dev)
+    server = make_server("127.0.0.1", 0, engine=engine, embedder=emb)
+    thread = threading.Thread(target=server.serve_forever, name="smoke-http-retrieval", daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        texts = _texts(rng, 3, 40, 200)
+        status, text = _post(base, "/v1/embeddings", {"input": texts})
+        body = json.loads(text)
+        vecs = np.asarray([d["embedding"] for d in body["data"]], np.float32)
+        direct = emb.embed_documents(texts)
+        cos, err, same = _row_stats(vecs, direct)
+        norms = np.linalg.norm(vecs, axis=1)
+        ok = (status == 200 and vecs.shape == (3, emb.dimensions) and np.abs(norms - 1).max() <= 1e-5
+              and (same == 3 or (cos >= SAME_DEVICE_COS and err <= SAME_DEVICE_ABS)))
+        with urllib.request.urlopen(base + "/v1/models", timeout=60) as resp:
+            models = [m["id"] for m in json.loads(resp.read())["data"]]
+        log(f"  POST /v1/embeddings (3 inputs): HTTP {status}, {vecs.shape[1]} dims, norms "
+            f"{[round(float(n), 6) for n in norms]}, against embed_documents: {same}/3 bitwise, "
+            f"max|d| {err:.3g}; /v1/models {models} {'ok' if ok else 'FAIL'}")
+        if not ok or models != ["torch-llama", "torch-arctic-embed"]:
+            raise AssertionError("/v1/embeddings or /v1/models is wrong")
+
+        with llm_engine._ENGINE_LOCK:
+            llm_engine._ENGINE = engine  # the process engine the ingest gate asks
+        try:
+            gate0 = dict(emb._batcher.counters)
+            with SyncCounter() as syncs:
+                prompts = [[256] + [(5 * i + j) % 250 for j in range(90 + 9 * i)] for i in range(8)]
+                queues = [engine.generate_ids(p, SamplingParams(temperature=0.0, max_tokens=64))
+                          for p in prompts]
+                deadline = time.time() + 120
+                while not engine.is_decoding() and time.time() < deadline:
+                    time.sleep(0.005)
+                ingest = {}
+                passages = _texts(rng, 64, 32, 512)
+
+                def run_ingest():
+                    t1 = time.perf_counter()
+                    ingest["vecs"] = emb.embed_documents(passages)
+                    ingest["s"] = time.perf_counter() - t1
+
+                th = threading.Thread(target=run_ingest, name="smoke-ingest", daemon=True)
+                th.start()
+                query_ms, while_decoding = [], []
+                for i in range(3):
+                    emb.clear_query_cache()
+                    t1 = time.perf_counter()
+                    emb.embed_query(f"a live question number {i} about the corpus")
+                    query_ms.append((time.perf_counter() - t1) * 1e3)
+                    while_decoding.append(engine.is_decoding())
+                th.join(600)
+                n_ids = [len(_drain_ids(q)) for q in queues]
+        finally:
+            with llm_engine._ENGINE_LOCK:
+                llm_engine._ENGINE = None
+        counters = emb._batcher.counters
+        gated = counters["ingest_gated_batches"] - gate0.get("ingest_gated_batches", 0)
+        waited = counters["ingest_gate_wait_s"] - gate0.get("ingest_gate_wait_s", 0.0)
+        dispatch_syncs = syncs.counts["torch-llm-engine"]
+        log(f"  while 8 greedy requests decoded ({n_ids} ids): an ingest of 64 passages (2 "
+            f"batches) took {ingest.get('s', float('nan')):.3f} s and waited on ingest_window "
+            f"{gated} times (a batch a query preempted waits again), {waited * 1e3:.1f} ms in "
+            f"all; 3 embed_query calls "
+            f"{[round(m, 2) for m in query_ms]} ms (engine decoding at each return: "
+            f"{while_decoding}; the query lane has no gate); synchronizing calls by thread: "
+            f"{dict(syncs.counts)} on {smi}")
+        if "vecs" not in ingest or ingest["vecs"].shape != (64, emb.dimensions):
+            raise AssertionError("the ingest during decode did not finish")
+        if gated < 1:
+            raise AssertionError("no ingest batch waited on ingest_window while the engine decoded")
+        if dispatch_syncs:
+            raise AssertionError(f"the LLM dispatch thread waited for the card {dispatch_syncs} "
+                                 f"times while embeddings ran")
+        return {"status": status, "ingest_s": ingest["s"], "ingest_gated_batches": gated,
+                "ingest_gate_wait_ms": waited * 1e3, "query_ms": query_ms,
+                "query_while_decoding": while_decoding, "dispatch_syncs": dispatch_syncs,
+                "syncs_by_thread": dict(syncs.counts)}
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.shutdown()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="kernels,model,serve",
+    parser.add_argument("--phases", default="kernels,model,serve,retrieval",
                         help="phases after the build, comma-separated (default: all)")
     parser.add_argument("--checks", default=",".join(CHECKS),
                         help="phase 3's kernel checks, comma-separated (default: all)")
@@ -1193,6 +1623,8 @@ def main() -> int:
                         help="decode_runahead of phase 5's engines (default: the config's)")
     parser.add_argument("--timing-only", action="store_true",
                         help="leave out phase 5's runahead and overload checks")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of phase 6's weights and passages (default: 0)")
     args = parser.parse_args()
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -1208,6 +1640,7 @@ def main() -> int:
         phase_model(dev)
     serves = (phase_serve(dev, args.recipes, args.runahead, not args.timing_only)
               if "serve" in phases else {})
+    retrieval = phase_retrieval(dev, info["smi"], args.seed) if "retrieval" in phases else {}
     kernels = []
     for name, (replaces, source) in KERNELS.items():
         if name not in results:  # a check left out by --checks
@@ -1220,7 +1653,7 @@ def main() -> int:
     log(f"total {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": kernels, "serve": {
         name: {k: v for k, v in sv.items() if k != "launches"} for name, sv in serves.items()
-    }}), flush=True)
+    }, "retrieval": retrieval}), flush=True)
     print(info["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,13 @@ It knows the names of the JAX config's other engine fields too
 (``JAX_ONLY_FIELDS``): one set to a value the port does not serve raises,
 naming the ROADMAP item that will serve it; one that exists only for XLA's
 compiles is logged once and ignored.
+
+The retrieval side reads four more sections of the JAX config with its
+names and defaults (``EmbeddingConfig``, ``RankingConfig``,
+``BatchingConfig``, ``VectorStoreConfig``), each from
+``APP_<SECTION>_<FIELD>`` as the JAX config wizard names them
+(``vector_store.persist_dir`` -> ``APP_VECTORSTORE_PERSISTDIR``);
+``AppConfig.from_env`` reads the engine and all four.
 """
 from __future__ import annotations
 
@@ -200,3 +207,111 @@ class EngineConfig:
                 f"watchdog_stall_s must be >= 0 (0 disables), got "
                 f"{self.watchdog_stall_s}"
             )
+
+
+# --------------------------------------------------------------------------- #
+# The retrieval side's sections
+
+
+def _env_name(section: str, field: str) -> str:
+    """The JAX config wizard's environment name: ``APP_`` + the section and
+    the field, each without underscores, upper-cased."""
+    return f"APP_{section.replace('_', '').upper()}_{field.replace('_', '').upper()}"
+
+
+def _section_from_env(cls, section: str, environ: Optional[Mapping[str, str]]):
+    environ = os.environ if environ is None else environ
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        name = _env_name(section, f.name)
+        raw = environ.get(name)
+        if raw is not None:
+            kwargs[f.name] = _parse(name, raw, f.default)
+    out = cls(**kwargs)
+    if getattr(out, "checkpoint_path", ""):
+        raise ValueError(f"{_env_name(section, 'checkpoint_path')}={out.checkpoint_path}: {_CKPT}")
+    return out
+
+
+@dataclasses.dataclass
+class EmbeddingConfig:
+    """The JAX config's ``embeddings`` section (``APP_EMBEDDINGS_*``)."""
+
+    model_name: str = "snowflake/arctic-embed-l"
+    # tpu (the in-process encoder; on the card in the port), openai|remote
+    # (an OpenAI-compatible /v1/embeddings server), hash (no weights)
+    model_engine: str = "tpu"
+    dimensions: int = 1024
+    server_url: str = ""
+    checkpoint_path: str = ""
+    query_cache_size: int = 256
+
+    @classmethod
+    def from_env(cls, environ: Optional[Mapping[str, str]] = None) -> "EmbeddingConfig":
+        return _section_from_env(cls, "embeddings", environ)
+
+
+@dataclasses.dataclass
+class RankingConfig:
+    """The JAX config's ``ranking`` section (``APP_RANKING_*``)."""
+
+    model_name: str = "arctic-embed-m"
+    # '' (disabled), tpu (the in-process cross-encoder), overlap (lexical)
+    model_engine: str = ""
+    server_url: str = ""
+    checkpoint_path: str = ""
+
+    @classmethod
+    def from_env(cls, environ: Optional[Mapping[str, str]] = None) -> "RankingConfig":
+        return _section_from_env(cls, "ranking", environ)
+
+
+@dataclasses.dataclass
+class BatchingConfig:
+    """The JAX config's ``batching`` section (``APP_BATCHING_*``), checked
+    by ``engine/batcher.validate_config``."""
+
+    enable: str = "on"
+    max_wait_ms: float = 4.0
+    max_batch_embed: int = 32
+    max_batch_rerank: int = 16
+    ingest_decode_yield_ms: float = 50.0
+
+    @classmethod
+    def from_env(cls, environ: Optional[Mapping[str, str]] = None) -> "BatchingConfig":
+        return _section_from_env(cls, "batching", environ)
+
+
+@dataclasses.dataclass
+class VectorStoreConfig:
+    """The JAX config's ``vector_store`` section (``APP_VECTORSTORE_*``)."""
+
+    name: str = "tpu"
+    nlist: int = 64
+    nprobe: int = 16
+    persist_dir: str = "/tmp-data/vectorstore"
+
+    @classmethod
+    def from_env(cls, environ: Optional[Mapping[str, str]] = None) -> "VectorStoreConfig":
+        return _section_from_env(cls, "vector_store", environ)
+
+
+@dataclasses.dataclass
+class AppConfig:
+    """The sections of the JAX ``AppConfig`` that the port reads."""
+
+    engine: EngineConfig = dataclasses.field(default_factory=EngineConfig)
+    embeddings: EmbeddingConfig = dataclasses.field(default_factory=EmbeddingConfig)
+    ranking: RankingConfig = dataclasses.field(default_factory=RankingConfig)
+    batching: BatchingConfig = dataclasses.field(default_factory=BatchingConfig)
+    vector_store: VectorStoreConfig = dataclasses.field(default_factory=VectorStoreConfig)
+
+    @classmethod
+    def from_env(cls, environ: Optional[Mapping[str, str]] = None) -> "AppConfig":
+        return cls(
+            engine=EngineConfig.from_env(environ),
+            embeddings=EmbeddingConfig.from_env(environ),
+            ranking=RankingConfig.from_env(environ),
+            batching=BatchingConfig.from_env(environ),
+            vector_store=VectorStoreConfig.from_env(environ),
+        )

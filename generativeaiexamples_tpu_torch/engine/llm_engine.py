@@ -52,7 +52,11 @@ Three named daemon threads share the work, as in JAX:
   makes no progress with work outstanding.
 
 ``submit`` raises ``EngineOverloaded`` once ``max_queued_requests``
-requests wait for a slot.
+requests wait for a slot. ``hold_admissions`` pauses admission while
+requests enqueue; ``is_decoding`` and ``scheduler.ingest_window`` (the
+``unified`` policy's decode-idle wait, woken when the dispatch thread
+frees the last slot) are what the retrieval embedder asks before bulk
+work.
 
 Dead slots decode at position 0: on the paged layout they write the
 scratch page, on the fixed layout rows of their own strip, as in JAX.
@@ -81,6 +85,7 @@ import torch
 
 from generativeaiexamples_tpu_torch.config import EngineConfig
 from generativeaiexamples_tpu_torch.engine import kv_pages
+from generativeaiexamples_tpu_torch.engine.scheduler.unified import UnifiedPolicy
 from generativeaiexamples_tpu_torch.engine.tokenizer import load_tokenizer
 from generativeaiexamples_tpu_torch.models import llama, sampling
 from generativeaiexamples_tpu_torch.ops import (
@@ -144,13 +149,13 @@ def engine_wedged() -> bool:
     return ENGINE_WEDGED.is_set()
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None, what: str = "LLMEngine") -> torch.device:
     """``None`` means the card. A CUDA device with no card present is an
     error, never a quiet fall back to the CPU."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "LLMEngine runs on a CUDA device and none is available; pass "
+            f"{what} runs on a CUDA device and none is available; pass "
             "device='cpu' to run the plain PyTorch path on the CPU (tests)"
         )
     return dev
@@ -311,6 +316,7 @@ class LLMEngine:
 
         self._lock = threading.Condition()
         self._pending: "collections.deque[_Request]" = collections.deque()  # guarded by self._lock
+        self._paused = False  # guarded by self._lock; hold_admissions
         self._running = True  # guarded by self._lock
         self._last_progress = time.time()  # guarded by self._lock
         self._wedged = False
@@ -320,6 +326,8 @@ class LLMEngine:
         self._readback: "queue.Queue[Optional[tuple]]" = queue.Queue(maxsize=cfg.decode_runahead)
         # (slot, request) the reader found finished; the dispatch loop frees them
         self._release_q: "queue.Queue[Tuple[int, _Request]]" = queue.Queue()
+        # the co-scheduling seam the retrieval micro-batcher waits on
+        self.scheduler = UnifiedPolicy(self)
         # a replacement engine starts healthy, whatever an earlier one left
         ENGINE_WEDGED.clear()
         self._wd_stop = threading.Event()
@@ -515,6 +523,30 @@ class LLMEngine:
         """Render the chat template and stream the completion."""
         return self.stream_text(self.tokenizer.render_chat(messages), params)
 
+    def is_decoding(self) -> bool:
+        """Whether any request currently occupies a decode slot (the
+        embedder's synchronous ingestion throttle polls this)."""
+        with self._lock:
+            return bool(self._slot_req)
+
+    def hold_admissions(self):
+        """Context manager: pause admissions while requests enqueue, so the
+        dispatch thread sees them all at once and admits one full wave."""
+        engine = self
+
+        class _Hold:
+            def __enter__(self):
+                with engine._lock:
+                    engine._paused = True
+
+            def __exit__(self, *exc):
+                with engine._lock:
+                    engine._paused = False
+                    engine._lock.notify_all()
+                return False
+
+        return _Hold()
+
     def stats(self) -> Dict[str, float]:
         """Serving counters: prefill waves, tokens and chunks; decode
         blocks, steps, rows and wall time; tokens emitted; TTFTs (submit to
@@ -601,7 +633,7 @@ class LLMEngine:
         while True:
             with self._lock:
                 while (
-                    self._running and not self._pending and not self._slot_req
+                    self._running and not self.scheduler.has_work() and not self._slot_req
                     and self._release_q.empty()
                 ):
                     self._last_progress = time.time()  # waiting idle is progress
@@ -680,6 +712,8 @@ class LLMEngine:
         (``prefill_chunk``, or ``max_seq_len`` when that is shorter), so
         ``prefill_wave_tokens`` caps the wave at ``_max_wave_rows`` of it."""
         with self._lock:
+            if self._paused:
+                return
             limit = min(len(self._free_slots), self._max_wave_rows(self._prefill_bucket(1)))
             claimed = []
             while self._pending and len(claimed) < limit:
@@ -927,6 +961,7 @@ class LLMEngine:
             pages = self._slot_pages.pop(slot, None)
             req.slot = -1
             self._free_slots.append(slot)
+            self._lock.notify_all()  # wakes ingest_window when the last slot frees
         if pages:
             self._kv_alloc.release(pages)
         if self._paged:

@@ -6,16 +6,21 @@ routes and JSON wire shapes, on the standard library's
 
 - ``GET /v1/health/ready`` (503 while the engine is wedged),
   ``GET /internal/ready`` (``{"ready", "wedged"}``, 200 or 503) and
-  ``GET /v1/models``;
+  ``GET /v1/models`` (the LLM and the embed model, as in JAX);
 - ``POST /v1/chat/completions`` (SSE when ``"stream": true``, ending in
   ``data: [DONE]``) and ``POST /v1/completions``; a full admission queue
   (``max_queued_requests``) answers 429 with ``Retry-After`` and
   ``X-GenAI-Queue-Depth``, a stream before its first frame;
-- ``POST /v1/embeddings`` answers 501 until the embedder is ported.
+- ``POST /v1/embeddings`` (``embed_documents``, no query prefix; 400 on
+  a body without ``input``).
 
-Run on the card::
+The engine and the embedder are built on first use when not given
+(health, readiness and models never build them). Run on the card::
 
     python -m generativeaiexamples_tpu_torch.engine.server --port 8000
+
+``APP_EMBEDDINGS_MODELENGINE`` picks the embedder: ``tpu`` (the default:
+arctic-embed-l on the card) or ``hash`` (no weights).
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional
 
-from generativeaiexamples_tpu_torch.config import EngineConfig
+from generativeaiexamples_tpu_torch.config import AppConfig
 from generativeaiexamples_tpu_torch.engine.llm_engine import EngineOverloaded, engine_wedged
 
 logger = logging.getLogger(__name__)
@@ -39,13 +44,18 @@ def _now() -> int:
 
 
 class ModelServer:
-    """Routes and wire shapes; ``engine=None`` builds the process engine on
-    the first request that needs it (health and models never build it)."""
+    """Routes and wire shapes; ``engine=None`` builds the process engine and
+    ``embedder=None`` the configured embedder (``create_embedder``) on the
+    first request that needs it (health and models never build them)."""
 
-    def __init__(self, engine=None, model_name: str = ""):
+    def __init__(self, engine=None, model_name: str = "", embedder=None,
+                 embed_model_name: str = ""):
         self._engine = engine
         self._engine_lock = threading.Lock()
+        self._embedder = embedder
+        self._embedder_lock = threading.Lock()
         self.model_name = model_name or "torch-llama"
+        self.embed_model_name = embed_model_name or "torch-arctic-embed"
 
     @property
     def engine(self):
@@ -55,6 +65,15 @@ class ModelServer:
 
                 self._engine = get_engine()
             return self._engine
+
+    @property
+    def embedder(self):
+        with self._embedder_lock:
+            if self._embedder is None:
+                from generativeaiexamples_tpu_torch.engine.embedder import create_embedder
+
+                self._embedder = create_embedder()
+            return self._embedder
 
     def sampling(self, body: Dict[str, Any]):
         """The JAX server's request defaults (temperature 0.2, top_p 0.7,
@@ -80,7 +99,10 @@ class ModelServer:
     def models_body(self) -> Dict[str, Any]:
         return {
             "object": "list",
-            "data": [{"id": self.model_name, "object": "model", "created": _now(), "owned_by": "gpu"}],
+            "data": [
+                {"id": self.model_name, "object": "model", "created": _now(), "owned_by": "gpu"},
+                {"id": self.embed_model_name, "object": "model", "created": _now(), "owned_by": "gpu"},
+            ],
         }
 
     def chat_body(self, rid: str, text: str) -> Dict[str, Any]:
@@ -102,6 +124,17 @@ class ModelServer:
             "created": _now(),
             "model": self.model_name,
             "choices": [{"index": 0, "delta": delta, "finish_reason": finish}],
+        }
+
+    def embeddings_body(self, model: str, vectors) -> Dict[str, Any]:
+        return {
+            "object": "list",
+            "model": model,
+            "data": [
+                {"object": "embedding", "index": i, "embedding": vec.tolist()}
+                for i, vec in enumerate(vectors)
+            ],
+            "usage": {},
         }
 
     def completion_body(self, text: str) -> Dict[str, Any]:
@@ -240,18 +273,23 @@ class _Handler(BaseHTTPRequestHandler):
         self._json(200, app.completion_body(text))
 
     def _embeddings(self, body: Dict[str, Any]) -> None:
-        self._json(501, {"error": {
-            "message": "embeddings are not served by the PyTorch port yet (the embedder "
-                       "is a later slice)",
-            "type": "not_implemented",
-        }})
+        inputs = body.get("input")
+        if isinstance(inputs, str):
+            inputs = [inputs]
+        if not isinstance(inputs, list) or not all(isinstance(t, str) for t in inputs):
+            self._json(400, {"error": "invalid request body"})
+            return
+        app = self.app
+        vectors = app.embedder.embed_documents(inputs)
+        self._json(200, app.embeddings_body(body.get("model", app.embed_model_name), vectors))
 
 
 def make_server(host: str = "127.0.0.1", port: int = 8000, engine=None,
-                model_name: str = "") -> ThreadingHTTPServer:
-    """A bound, not yet serving, HTTP server over ``engine`` (or the
-    process engine). ``port=0`` picks a free port (``server_address``)."""
-    app = ModelServer(engine, model_name)
+                model_name: str = "", embedder=None) -> ThreadingHTTPServer:
+    """A bound, not yet serving, HTTP server over ``engine`` and
+    ``embedder`` (or the process engine and the configured embedder).
+    ``port=0`` picks a free port (``server_address``)."""
+    app = ModelServer(engine, model_name, embedder)
     handler = type("Handler", (_Handler,), {"app": app})
     server = ThreadingHTTPServer((host, port), handler)
     server.daemon_threads = True
@@ -259,10 +297,13 @@ def make_server(host: str = "127.0.0.1", port: int = 8000, engine=None,
 
 
 def main() -> None:
-    """Serve on the card the engine that the ``APP_ENGINE_*`` environment
-    configures, as the JAX engine server reads it (``EngineConfig.from_env``;
-    e.g. ``APP_ENGINE_QUANTIZATION=int8 APP_ENGINE_KVCACHEDTYPE=int8``).
+    """Serve on the card the engine and the embedder that the ``APP_*``
+    environment configures, as the JAX engine server reads it
+    (``AppConfig.from_env``; e.g. ``APP_ENGINE_QUANTIZATION=int8
+    APP_ENGINE_KVCACHEDTYPE=int8``, ``APP_EMBEDDINGS_MODELENGINE=hash``).
     Weights are random (seed 0) until checkpoints ship."""
+    from generativeaiexamples_tpu_torch.engine.batcher import validate_config
+    from generativeaiexamples_tpu_torch.engine.embedder import create_embedder
     from generativeaiexamples_tpu_torch.engine.llm_engine import get_engine
 
     parser = argparse.ArgumentParser(description="OpenAI-compatible server for the PyTorch port")
@@ -270,10 +311,12 @@ def main() -> None:
     parser.add_argument("--port", type=int, default=8000)
     args = parser.parse_args()
     logging.basicConfig(level=logging.INFO)
-    config = EngineConfig.from_env()
-    config.validate()
-    logger.info("engine config: %s", config)
-    server = make_server(args.host, args.port, engine=get_engine(config))
+    config = AppConfig.from_env()
+    config.engine.validate()
+    validate_config(config)
+    logger.info("config: %s", config)
+    server = make_server(args.host, args.port, engine=get_engine(config.engine),
+                         embedder=create_embedder(config))
     logger.info("serving on %s:%d", args.host, args.port)
     try:
         server.serve_forever()

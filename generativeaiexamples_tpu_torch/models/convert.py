@@ -5,7 +5,9 @@ with numpy arrays as leaves (``np.asarray`` of each leaf is enough), either
 stacked on a leading layer axis (``init_params``,
 ``init_packed_params_int8``) or already split per layer
 (``consume_split_params_layers``), dense or int8-packed, and returns the
-port's layout: one dict of tensors per layer.
+port's layout: one dict of tensors per layer. ``bert_params_from_numpy``
+and ``rank_head_from_numpy`` do the same for the BERT encoder's tree
+(``models/bert.py``) and the cross-encoder's head.
 
 bfloat16 leaves (numpy's ml_dtypes type, which ``torch.from_numpy`` does
 not accept) cross bit-exactly as a ``uint16`` view reinterpreted as
@@ -54,3 +56,15 @@ def params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
     out = {k: _map(v, lambda a: to_tensor(a, device)) for k, v in tree.items() if k != "layers"}
     out["layers"] = [_map(lp, lambda a: to_tensor(a, device)) for lp in layers]
     return out
+
+
+def bert_params_from_numpy(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+    """``models/bert.py``'s parameters from the JAX BERT tree (layers
+    stacked on a leading axis): the Llama layout's conversion, which the
+    two trees share."""
+    return params_from_jax(tree, device)
+
+
+def rank_head_from_numpy(head: Dict[str, Any], device="cpu") -> Dict[str, torch.Tensor]:
+    """The cross-encoder head (``{"w": [H, 1], "b": [1]}``) as tensors."""
+    return {k: to_tensor(v, device) for k, v in head.items()}

@@ -164,3 +164,25 @@ def decode_attention_cost(
         nbytes += 4  # position
         flops += 4 * Dh * Hq * live
     return nbytes, flops
+
+
+def encoder_flops(bert_cfg, rows: int, T: int) -> int:
+    """FLOPs of one BERT encoder dispatch of ``rows`` x ``T`` positions
+    (padding included: what the card computes): 2 per matmul parameter per
+    position (``models/bert.matmul_params``), plus the attention's
+    4 * T * hidden per position and layer (QKᵀ and P·V)."""
+    from generativeaiexamples_tpu_torch.models.bert import matmul_params
+
+    positions = rows * T
+    return 2 * matmul_params(bert_cfg) * positions + 4 * bert_cfg.num_layers * positions * T * (
+        bert_cfg.hidden_size)
+
+
+def search_cost(rows: int, capacity: int, D: int, nlist: int = 0) -> Tuple[int, int]:
+    """(bytes, FLOPs) of one top-k search dispatch over a padded f32
+    corpus [capacity, D]: the corpus and the queries read once, the scores
+    formed (2 * D FLOPs each; IVF adds the centroid scores). The top-k and
+    its output are left out (a few KB)."""
+    nbytes = 4 * D * (capacity + rows + nlist) + capacity  # + the valid mask
+    flops = 2 * D * rows * (capacity + nlist)
+    return nbytes, flops

@@ -479,3 +479,49 @@ def test_prefill_wave_tokens_caps_each_wave():
         assert eng.stats()["prefill_waves"] == 3
     finally:
         assert eng.shutdown()
+
+
+def _jax_stub():
+    """The bookkeeping the JAX engine's ``is_decoding`` and
+    ``hold_admissions`` read, to run its own methods on."""
+    return types.SimpleNamespace(_lock=threading.Condition(), _slot_req={}, _paused=False)
+
+
+def test_is_decoding_follows_the_slots_as_in_jax(engine):
+    stub = _jax_stub()
+    assert jengine.LLMEngine.is_decoding(stub) is False
+    stub._slot_req[0] = object()
+    assert jengine.LLMEngine.is_decoding(stub) is True
+    _settled(engine)
+    assert engine.is_decoding() is False
+    gen = engine.iter_ids(PROMPTS[1], SamplingParams(temperature=0.0, max_tokens=60), timeout=120)
+    next(gen)
+    assert engine.is_decoding() is True  # a slot is held while the stream runs
+    rest = list(gen)
+    assert len(rest) <= 59
+    deadline = time.time() + 30
+    while engine.is_decoding() and time.time() < deadline:
+        time.sleep(0.005)
+    assert engine.is_decoding() is False
+
+
+def test_hold_admissions_admits_one_wave(engine):
+    """Requests submitted under ``hold_admissions`` stay pending until it
+    exits, then go in one prefill wave (the JAX method sets the same flag)."""
+    stub = _jax_stub()
+    with jengine.LLMEngine.hold_admissions(stub):
+        assert stub._paused is True
+    assert stub._paused is False
+    _settled(engine)
+    waves = engine.stats()["prefill_waves"]
+    params = SamplingParams(temperature=0.0, max_tokens=4)
+    with engine.hold_admissions():
+        assert engine._paused is True
+        queues = [engine.generate_ids(p, params) for p in ([256, 5, 6], [256, 7], [256, 8, 9, 10])]
+        time.sleep(0.2)
+        assert engine.queue_depth() == 3 and not engine.is_decoding()
+        assert not engine.scheduler.has_work()  # the loop sleeps instead of spinning
+    streams = [_drain(q) for q in queues]
+    assert all(0 < len(s) <= 4 for s in streams)
+    assert engine.stats()["prefill_waves"] == waves + 1
+    assert engine._paused is False

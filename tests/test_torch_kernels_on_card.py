@@ -1,4 +1,6 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card; and
+the retrieval side (the BERT encoder, the embedder's two paths and its own
+stream, exact and IVF search) on the card against the CPU and numpy.
 
 These need an NVIDIA GPU with nvcc (sm_90a) and skip elsewhere. The file
 imports nothing of JAX, so it runs on the GPU machine on its own:
@@ -7,6 +9,9 @@ imports nothing of JAX, so it runs on the GPU machine on its own:
 
 (``--noconftest``: the repository's conftest sets up JAX's CPU platform.)
 chip_smoke.py checks the same kernels at the llama3-8b shapes."""
+import types
+
+import numpy as np
 import pytest
 import torch
 
@@ -382,3 +387,141 @@ def test_decode_attention_wrapper_refuses_what_the_kernel_does_not_serve(card):
         q16 = torch.zeros((B, 4, 16), dtype=torch.bfloat16, device=card)
         k16 = torch.zeros((B, Hkv, S, 16), dtype=torch.int8, device=card)
         da.decode_attention(q16, k16, s, k16, s, pos)
+
+
+# --------------------------------------------------------------------------- #
+# the retrieval side on the card (no kernel of its own: plain PyTorch)
+
+
+def _bert_inputs(gen, device, lengths, T, vocab=256):
+    ids = torch.randint(0, vocab, (len(lengths), T), generator=gen, device=device, dtype=torch.int32)
+    mask = torch.zeros((len(lengths), T), dtype=torch.int32, device=device)
+    for i, n in enumerate(lengths):
+        mask[i, :n] = 1
+    return ids, mask
+
+
+def test_bert_encoder_on_the_card_matches_the_cpu(card):
+    """arctic-embed-l's width at 2 layers: the card's f32 path equals the
+    CPU's within 1e-5 (no TF32 anywhere), its bf16 path within cosine
+    0.999 and max |d| 1e-2 (the bounds chip_smoke.py holds at full depth)."""
+    from generativeaiexamples_tpu_torch.models import bert
+    from generativeaiexamples_tpu_torch.models.convert import _map
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = bert.BertConfig(num_layers=2)
+    params = bert.init_bert_params(cfg, torch.Generator(device=card).manual_seed(0))
+    ids, mask = _bert_inputs(torch.Generator(device=card).manual_seed(1), card, (200, 64, 17), 200)
+    cpu32 = _map(params, lambda t: t.to("cpu", torch.float32))
+    with torch.inference_mode():
+        ref = bert.bert_encode(cpu32, cfg, ids.cpu(), mask.cpu())
+        f32 = bert.bert_encode(_map(params, lambda t: t.float()), cfg, ids, mask).cpu()
+        bf16 = bert.bert_encode(params, cfg, ids, mask).cpu()
+    assert float((f32 - ref).abs().max()) <= 1e-5
+    assert float((bf16 - ref).abs().max()) <= 1e-2
+    assert float(torch.nn.functional.cosine_similarity(bf16, ref).min()) >= 0.999
+
+
+def test_embedder_paths_agree_on_the_card(card):
+    """The batched path (with concurrent queries) against the synchronous
+    one, on the card. The documents go in the same batches both ways:
+    bitwise. The 4 concurrent queries coalesce into one dispatch of 4 rows
+    where the synchronous query went alone; cuBLAS may tile that shape
+    differently, so those are held within cosine 0.999 and max |d| 1e-2
+    (chip_smoke.py's bounds)."""
+    import threading
+
+    from generativeaiexamples_tpu_torch.engine.embedder import TorchEmbedder
+
+    emb = TorchEmbedder(model_name="arctic-embed-m", device=card, query_cache_size=0,
+                        batching=types.SimpleNamespace(enable="on", max_wait_ms=5.0,
+                                                       max_batch_embed=8, max_batch_rerank=8,
+                                                       ingest_decode_yield_ms=0.0))
+    try:
+        texts = [f"document {i} about mesh sharding and kv caches " * (1 + i % 5) for i in range(13)]
+        emb.set_batching(False)
+        sync_docs, sync_q = emb.embed_documents(texts), emb.embed_query("how are caches shared")
+        emb.set_batching(True)
+        outs = {}
+
+        def worker(kind, i):
+            outs[(kind, i)] = (emb.embed_documents(texts) if kind == "docs"
+                               else emb.embed_query("how are caches shared"))
+
+        threads = [threading.Thread(target=worker, args=("docs", 0), daemon=True)] + [
+            threading.Thread(target=worker, args=("q", i), daemon=True) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+            assert not t.is_alive()
+        assert np.array_equal(outs[("docs", 0)], sync_docs)
+        for i in range(4):
+            got = outs[("q", i)]
+            cos = float(got @ sync_q / np.linalg.norm(got) / np.linalg.norm(sync_q))
+            assert cos >= 0.999 and np.abs(got - sync_q).max() <= 1e-2
+    finally:
+        emb.close()
+
+
+def test_embedder_readback_does_not_wait_for_the_default_stream(card):
+    """The encoder runs on a stream of its own: with ~1 s of work queued on
+    the default stream (where the LLM engine decodes), an embed returns
+    long before that work ends; so does a search. Both are warmed on the
+    same shapes first: the first launch of a kernel that CUDA has not
+    loaded yet (lazy module loading) waits for the whole card."""
+    import time
+
+    from generativeaiexamples_tpu_torch.engine.embedder import TorchEmbedder
+    from generativeaiexamples_tpu_torch.retrieval.ann import ANNSearchEngine
+
+    emb = TorchEmbedder(model_name="debug", device=card,
+                        batching=types.SimpleNamespace(enable="off"))
+    ann = ANNSearchEngine(64, device=card)
+    corpus = np.random.default_rng(0).standard_normal((100, 64)).astype(np.float32)
+    ann.refresh(corpus, version=1)
+    text = "a passage while the default stream is busy"
+    emb.embed_documents([text])
+    ann.search(corpus[:2], 4)
+    torch.cuda.synchronize()
+    done = torch.cuda.Event()
+    torch.cuda._sleep(2_000_000_000)  # ~1 s at the card's clock, on the default stream
+    done.record()
+    t0 = time.perf_counter()
+    vec = emb.embed_documents([text])
+    _, idx = ann.search(corpus[:2], 4)
+    elapsed = time.perf_counter() - t0
+    busy = not done.query()
+    torch.cuda.synchronize()
+    emb.close()
+    assert vec.shape == (1, 64) and list(idx[:, 0]) == [0, 1]
+    assert busy, "the spin ended first: the check proves nothing"
+    assert elapsed < 0.5
+
+
+@pytest.mark.parametrize("mode", ["exact", "ivf"])
+def test_ann_search_on_the_card_matches_numpy(card, mode):
+    """Exact search, and IVF with every list probed, against numpy's brute
+    force: scores within 1e-5, indices equal where the neighbouring score
+    is more than 1e-5 away."""
+    from generativeaiexamples_tpu_torch.retrieval.ann import ANNSearchEngine
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.default_rng(3)
+    corpus = rng.standard_normal((20000, 256)).astype(np.float32)
+    corpus /= np.linalg.norm(corpus, axis=1, keepdims=True)
+    queries = corpus[rng.choice(20000, 8)] + 0.05 * rng.standard_normal((8, 256)).astype(np.float32)
+    queries /= np.linalg.norm(queries, axis=1, keepdims=True)
+    eng = ANNSearchEngine(256, mode=mode, nlist=16, nprobe=16, device=card)
+    eng.refresh(corpus, version=1)
+    got_s, got_i = eng.search(queries, 16)
+    scores = queries @ corpus.T
+    want_i = np.argsort(-scores, axis=1, kind="stable")[:, :16]
+    want_s = np.take_along_axis(scores, want_i, axis=1)
+    assert np.abs(got_s - want_s).max() <= 1e-5
+    for r in range(8):
+        for j in range(16):
+            gap = min(abs(want_s[r, j] - want_s[r, j - 1]) if j else np.inf,
+                      abs(want_s[r, j] - want_s[r, j + 1]) if j < 15 else np.inf)
+            if gap > 1e-5:
+                assert got_i[r, j] == want_i[r, j], (r, j)

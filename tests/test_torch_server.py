@@ -1,6 +1,9 @@
 """The port's OpenAI-compatible server: one HTTP round trip per route on
-the CPU engine, with the JAX server's wire shapes (the same keys at every
-level) and its request defaults."""
+the CPU engine (and the debug-preset embedder), with the JAX server's wire
+shapes (the same keys at every level) and its request defaults; and the
+config sections the port reads from the JAX config's environment names.
+Embeddings over HTTP equal ``embed_documents`` bit for bit (JSON carries
+each f32 as its exact double)."""
 import dataclasses
 import json
 import logging
@@ -15,7 +18,10 @@ from generativeaiexamples_tpu.config.schema import AppConfig
 from generativeaiexamples_tpu.config.schema import EngineConfig as JaxEngineConfig
 from generativeaiexamples_tpu.engine import server as jserver
 from generativeaiexamples_tpu_torch import config as tconfig
+import numpy as np
+
 from generativeaiexamples_tpu_torch.config import JAX_ONLY_FIELDS, EngineConfig
+from generativeaiexamples_tpu_torch.engine.embedder import RemoteEmbedder, TorchEmbedder
 from generativeaiexamples_tpu_torch.engine.llm_engine import LLMEngine
 from generativeaiexamples_tpu_torch.engine.server import make_server
 
@@ -26,13 +32,15 @@ def base():
         model_config_name="debug", max_batch_size=3, max_seq_len=128, prefill_chunk=16,
         page_size=8, decode_block=4,
     ), device="cpu")
-    server = make_server("127.0.0.1", 0, engine=engine)
+    embedder = TorchEmbedder(model_name="debug", device="cpu")
+    server = make_server("127.0.0.1", 0, engine=engine, embedder=embedder)
     thread = threading.Thread(target=server.serve_forever, name="test-http", daemon=True)
     thread.start()
     yield f"http://127.0.0.1:{server.server_address[1]}", server
     server.shutdown()
     server.server_close()
     thread.join(30)
+    embedder.close()
     assert engine.shutdown()
 
 
@@ -66,7 +74,10 @@ def test_health_and_models(base):
     assert _get(url + "/v1/health/ready") == (200, {"object": "health", "message": "Service is ready."})
     status, body = _get(url + "/v1/models")
     assert status == 200 and body["object"] == "list"
-    assert set(body["data"][0]) == {"id", "object", "created", "owned_by"}
+    # the LLM and the embed model, as the JAX server lists them
+    assert [m["id"] for m in body["data"]] == ["torch-llama", "torch-arctic-embed"]
+    for model in body["data"]:
+        assert set(model) == {"id", "object", "created", "owned_by"}
 
 
 def test_chat_non_stream_has_the_jax_wire_shape(base):
@@ -106,9 +117,41 @@ def test_completions(base):
 
 
 def test_embeddings_wait_for_their_slice(base):
+    """Served since the embedder's slice: 200 with the JAX server's body
+    (``embed_documents``, no query prefix), one unit vector per input."""
+    url, server = base
+    texts = ["first passage", "a second, longer passage about kv caches", "third"]
+    status, ctype, body = _post(url + "/v1/embeddings", {"input": texts})
+    assert status == 200 and ctype == "application/json"
+    assert set(body) == {"object", "model", "data", "usage"}
+    assert body["object"] == "list" and body["model"] == "torch-arctic-embed"
+    assert [d["index"] for d in body["data"]] == [0, 1, 2]
+    assert all(set(d) == {"object", "index", "embedding"} and d["object"] == "embedding"
+               for d in body["data"])
+    vectors = np.asarray([d["embedding"] for d in body["data"]], np.float32)
+    want = server.RequestHandlerClass.app.embedder.embed_documents(texts)
+    assert vectors.shape == (3, 64) and np.array_equal(vectors, want)
+    np.testing.assert_allclose(np.linalg.norm(vectors, axis=1), 1.0, atol=1e-6)
+    status, _, one = _post(url + "/v1/embeddings", {"input": "first passage", "model": "m"})
+    assert status == 200 and one["model"] == "m"
+    assert np.array_equal(np.asarray(one["data"][0]["embedding"], np.float32), want[0])
+
+
+@pytest.mark.parametrize("body", [{}, {"input": 3}, {"input": ["ok", 4]}, {"input": None}])
+def test_embeddings_bad_body_answers_400(base, body):
     url, _ = base
-    status, _, body = _post(url + "/v1/embeddings", {"input": "x"})
-    assert status == 501 and "not served" in body["error"]["message"]
+    assert _post(url + "/v1/embeddings", body)[0] == 400
+
+
+def test_remote_embedder_round_trips_through_the_server(base):
+    url, server = base
+    remote = RemoteEmbedder(url, "torch-arctic-embed", dimensions=64)
+    local = server.RequestHandlerClass.app.embedder
+    texts = ["alpha beta", "gamma"]
+    assert np.array_equal(remote.embed_documents(texts), local.embed_documents(texts))
+    assert np.array_equal(remote.embed_query("q"),
+                          local.embed_documents([remote.query_prefix + "q"])[0])
+    assert remote.embed_documents([]).shape == (0, 64)
 
 
 def test_bad_requests(base):
@@ -393,7 +436,9 @@ def test_internal_ready_needs_a_built_engine():
             _get(f"http://127.0.0.1:{server.server_address[1]}/internal/ready")
         assert err.value.code == 503
         assert json.loads(err.value.read()) == {"ready": False, "wedged": False}
+        assert _get(f"http://127.0.0.1:{server.server_address[1]}/v1/models")[0] == 200
         assert server.RequestHandlerClass.app._engine is None
+        assert server.RequestHandlerClass.app._embedder is None  # nor the embedder
     finally:
         server.shutdown()
         server.server_close()
@@ -405,3 +450,71 @@ def test_ready_routes_of_the_jax_server_exist():
     app = jserver.ModelServer().build_app()
     routes = {r.resource.canonical for r in app.router.routes() if r.method == "GET"}
     assert {"/v1/health/ready", "/internal/ready"} <= routes
+
+
+def test_server_embedder_comes_from_the_env(monkeypatch):
+    """Without an embedder the server builds the one ``APP_EMBEDDINGS_*``
+    configures, on first use."""
+    from generativeaiexamples_tpu_torch.engine import embedder as tembedder
+    from generativeaiexamples_tpu_torch.engine.embedder import HashEmbedder
+    from generativeaiexamples_tpu_torch.engine.server import ModelServer
+
+    monkeypatch.setattr(tembedder, "_EMBEDDER_CACHE", {})
+    monkeypatch.setenv("APP_EMBEDDINGS_MODELENGINE", "hash")
+    monkeypatch.setenv("APP_EMBEDDINGS_DIMENSIONS", "48")
+    app = ModelServer()
+    assert app._embedder is None
+    emb = app.embedder
+    assert isinstance(emb, HashEmbedder) and emb.dimensions == 48 and app.embedder is emb
+
+
+RETRIEVAL_SECTIONS = {
+    "embeddings": ("EmbeddingConfig", ["model_name", "model_engine", "dimensions", "server_url",
+                                       "checkpoint_path", "query_cache_size"]),
+    "ranking": ("RankingConfig", ["model_name", "model_engine", "server_url", "checkpoint_path"]),
+    "batching": ("BatchingConfig", ["enable", "max_wait_ms", "max_batch_embed", "max_batch_rerank",
+                                    "ingest_decode_yield_ms"]),
+    "vector_store": ("VectorStoreConfig", ["name", "nlist", "nprobe", "persist_dir"]),
+}
+
+
+@pytest.mark.parametrize("section", sorted(RETRIEVAL_SECTIONS))
+def test_retrieval_sections_have_the_jax_names_defaults_and_env(monkeypatch, section):
+    """Each section the port reads has the JAX section's fields (those the
+    slice uses), defaults and environment names, and reads the same values
+    from the same variables."""
+    cls_name, fields = RETRIEVAL_SECTIONS[section]
+    mine_cls = getattr(tconfig, cls_name)
+    assert [f.name for f in dataclasses.fields(mine_cls)] == fields
+    ref = getattr(AppConfig.from_dict({}), section)
+    mine = mine_cls.from_env({})
+    for field in fields:
+        assert getattr(mine, field) == getattr(ref, field), field
+    jax_names = {name for name, _, _ in AppConfig.envvars()}
+    env = {}
+    for field in fields:
+        name = tconfig._env_name(section, field)
+        assert name in jax_names, name
+        if field != "checkpoint_path":
+            env[name] = {str: "x-" + field, int: "7", float: "2.5"}[type(getattr(ref, field))]
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    jax_read = getattr(AppConfig.from_dict({}), section)
+    read = mine_cls.from_env(env)
+    for field in fields:
+        if field != "checkpoint_path":
+            value = getattr(read, field)
+            assert value == getattr(jax_read, field) and value != getattr(ref, field), field
+    assert getattr(tconfig.AppConfig.from_env(env), section) == read
+
+
+@pytest.mark.parametrize("env", ["APP_EMBEDDINGS_CHECKPOINTPATH", "APP_RANKING_CHECKPOINTPATH"])
+def test_a_retrieval_checkpoint_path_is_refused(env):
+    with pytest.raises(ValueError, match=f"{env}=/w: .*queue 1 item 10"):
+        tconfig.AppConfig.from_env({env: "/w"})
+    assert tconfig.AppConfig.from_env({env: ""}) == tconfig.AppConfig()
+
+
+def test_a_retrieval_value_that_does_not_parse_raises():
+    with pytest.raises(ValueError, match="APP_BATCHING_MAXBATCHEMBED='many' is not a valid int"):
+        tconfig.AppConfig.from_env({"APP_BATCHING_MAXBATCHEMBED": "many"})
