@@ -56,10 +56,30 @@ Phases (each one's failure makes the script exit non-zero):
    greedy requests decode, an ingest of 64 passages that must wait on the
    engine's ``ingest_window``, ungated embed_query calls, and no
    synchronizing call on the LLM dispatch thread.
+7. rag: ``developer_rag`` end to end through the port's chain server
+   (``server/api.py``) on an ephemeral port, everything built by the
+   port's factories from the JAX config's ``APP_*`` names (``RAG_ENV``):
+   engine A (llama3-8b, int8 weights, bf16 paged pool, ``max_batch_size``
+   8, ``max_seq_len`` 8192, ``prefill_chunk`` 512) through ``create_llm``,
+   phase 6's arctic-embed-l and arctic-embed-m (or the factories' own when
+   phase 6 does not run), a store under a temporary ``persist_dir``,
+   ``ranked_hybrid``. 16 seeded documents (13 .txt, 2 .md, 1 .pdf) over
+   ``POST /documents`` and listed by ``GET /documents``; ``POST /search``
+   with a sentence of each of 8 documents finds that document first, and
+   its top 4 equal the port's runtime on the CPU in f32 (near-ties of the
+   reranker exempt); 8 concurrent ``/generate`` over the knowledge base and
+   one without stream to ``[DONE]``, none a no-context answer, each prompt
+   the engine received holding its top hit, ``int8_matmul``,
+   ``paged_attention`` and ``flash_attention_causal`` launched and no
+   synchronizing call on the LLM dispatch thread; a second round traced for
+   the device's idle share; ``DELETE /documents`` drops a document from the
+   store and BM25; ``deadline_ms`` 1 answers 504. It prints ingest s a
+   document, /search ms, TTFT with its retrieval ms, prompt ids, decode
+   tokens/s and the idle share.
 
 With no arguments it runs every phase, as above; ``--phases``,
 ``--checks`` and ``--recipes`` run a part (for example ``--phases serve
---recipes B``) and then print only the kernels that part measured;
+--recipes B`` or ``--phases rag``) and then print only the kernels that part measured;
 ``--runahead N`` serves every engine at ``decode_runahead`` N, and
 ``--timing-only`` leaves out the runahead and overload checks (for timed
 runs of an older tree, which lacks them).
@@ -1314,12 +1334,14 @@ def _profile_encode(emb, dev, R, T, smi) -> dict:
             "top": [[n, ms] for n, ms in top]}
 
 
-def phase_retrieval(dev, smi, seed=0) -> dict:
+def phase_retrieval(dev, smi, seed=0, keep=False):
     """arctic-embed-l and arctic-embed-m at full width on the card (random
     weights from ``seed``): the card against the CPU's f32 plain path,
     batched against synchronous, a 65,536 x 1024 store searched exact and
     IVF against numpy, reranking, and /v1/embeddings beside a decoding
-    engine A whose dispatch thread must make no synchronizing call."""
+    engine A whose dispatch thread must make no synchronizing call.
+    Returns the results and, when ``keep``, the (embedder, reranker) pair
+    still open for phase 7 (else None)."""
     import numpy as np
 
     from generativeaiexamples_tpu_torch.config import BatchingConfig
@@ -1507,10 +1529,11 @@ def phase_retrieval(dev, smi, seed=0) -> dict:
         # 6. over HTTP beside a decoding engine A
         out["http"] = _retrieval_http(dev, emb, rng, smi)
     finally:
-        emb.close()
-        rr.close()
+        if not keep or sys.exc_info()[0] is not None:
+            emb.close()
+            rr.close()
     log(f"phase retrieval: ok ({time.time() - t0:.1f} s)")
-    return out
+    return out, ((emb, rr) if keep else None)
 
 
 def _retrieval_http(dev, emb, rng, smi) -> dict:
@@ -1612,9 +1635,526 @@ def _retrieval_http(dev, emb, rng, smi) -> dict:
         torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------- #
+# Phase 7: developer_rag end to end through the chain server
+
+RAG_DOCS, RAG_QUERIES, RAG_WORDS = 16, 8, 24
+# The phase's deployment, read through the JAX config's APP_* names by the
+# port's own factories (config.get_config, chains.runtime, create_llm,
+# create_embedder, create_reranker). Two values differ from the JAX defaults,
+# both because the encoders' weights are random:
+# - APP_RETRIEVER_SCORETHRESHOLD=1.0: a random arctic-embed-l's cosine says
+#   nothing of relevance, so no dense hit passes (a clamped cosine of two
+#   different texts stays below 1.0); the dense leg still embeds every query
+#   and searches the store on the card, and BM25 over per-document
+#   vocabularies gives the candidates: exactly the chunks of the document a
+#   query sentence was taken from;
+# - APP_TEXTSPLITTER_CHUNKSIZE=48, CHUNKOVERLAP=16 (JAX: 510, 200 words): a
+#   document of 100-150 words then makes 4-5 chunks, so each query has
+#   several candidates and the random arctic-embed-m reranker orders them
+#   (at 510 words a document is one chunk, and one candidate is never
+#   reranked). Its order is arbitrary but held against the CPU's f32.
+RAG_ENV = {
+    "EXAMPLE_NAME": "developer_rag",
+    "APP_LLM_MODELENGINE": "tpu",
+    "APP_EMBEDDINGS_MODELENGINE": "tpu",
+    "APP_RANKING_MODELENGINE": "tpu",
+    "APP_ENGINE_MODELCONFIGNAME": MODEL,
+    "APP_ENGINE_QUANTIZATION": "int8",
+    "APP_ENGINE_KVCACHEDTYPE": "bfloat16",
+    "APP_ENGINE_KVLAYOUT": "paged",
+    "APP_RETRIEVER_NRPIPELINE": "ranked_hybrid",
+    "APP_RETRIEVER_SCORETHRESHOLD": "1.0",
+    "APP_TEXTSPLITTER_CHUNKSIZE": "48",
+    "APP_TEXTSPLITTER_CHUNKOVERLAP": "16",
+}
+RAG_EXPECTED = ("int8_matmul", "paged_attention[bfloat16]", "flash_attention_causal")
+
+
+def _rag_corpus(rng):
+    """RAG_DOCS documents of 100-150 words, each from its own vocabulary of
+    RAG_WORDS seeded pseudo-words, as lists of sentences (8-12 words, a
+    period each)."""
+    letters = list("abcdefghijklmnopqrstuvwxyz")
+    words = set()
+    while len(words) < RAG_DOCS * RAG_WORDS:
+        words.add("".join(rng.choice(letters, int(rng.randint(4, 10)))))
+    words = sorted(words)
+    rng.shuffle(words)
+    docs = []
+    for d in range(RAG_DOCS):
+        vocab = words[d * RAG_WORDS:(d + 1) * RAG_WORDS]
+        target, sentences, n = int(rng.randint(100, 151)), [], 0
+        while n < target:
+            k = min(int(rng.randint(8, 13)), target - n) if target - n >= 8 else target - n
+            sentences.append(" ".join(rng.choice(vocab, k)) + ".")
+            n += k
+        docs.append(sentences)
+    return docs
+
+
+def _rag_files(docs):
+    """(filename, bytes) per document: 13 .txt, 2 .md and 1 .pdf."""
+    from generativeaiexamples_tpu_torch.retrieval.pdf import write_text_pdf
+
+    files = []
+    for d, sentences in enumerate(docs):
+        if d == RAG_DOCS - 1:
+            files.append((f"doc{d:02d}.pdf", write_text_pdf(sentences)))
+        elif d >= RAG_DOCS - 3:
+            body = f"# Notes {d}\n\n" + " ".join(sentences[:3]) + "\n\n" + " ".join(sentences[3:])
+            files.append((f"doc{d:02d}.md", body.encode()))
+        else:
+            files.append((f"doc{d:02d}.txt", " ".join(sentences).encode()))
+    return files
+
+
+def _multipart(filename, data):
+    boundary = "chipsmokeboundary7"
+    body = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
+            f"filename=\"{filename}\"\r\nContent-Type: application/octet-stream\r\n\r\n").encode()
+    return body + data + f"\r\n--{boundary}--\r\n".encode(), f"multipart/form-data; boundary={boundary}"
+
+
+def _http(base, method, path, body=None, raw=None, ctype="application/json", timeout=600):
+    data = raw if raw is not None else (json.dumps(body).encode() if body is not None else None)
+    req = urllib.request.Request(base + path, data=data, method=method,
+                                 headers={"Content-Type": ctype} if data is not None else {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read().decode()
+
+
+def _generate_stream(base, query, kb, max_tokens=64):
+    """One streamed /generate: (frames, seconds to the first answer frame
+    (the [DONE] frame when no text came), seconds to the end)."""
+    body = {"messages": [{"role": "user", "content": query}], "use_knowledge_base": kb,
+            "max_tokens": max_tokens}
+    req = urllib.request.Request(base + "/generate", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    frames, first = [], None
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        if resp.status != 200:
+            raise AssertionError(f"/generate: HTTP {resp.status}")
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            line = line.decode().rstrip("\n")
+            if not line:
+                continue
+            if not line.startswith("data: "):
+                raise AssertionError(f"/generate: not an SSE data line: {line[:80]!r}")
+            frame = json.loads(line[6:])
+            frames.append(frame)
+            choice = (frame.get("choices") or [{}])[0]
+            if first is None and (choice.get("message", {}).get("content")
+                                  or choice.get("finish_reason") == "[DONE]"):
+                first = time.perf_counter() - t0
+    return frames, first, time.perf_counter() - t0
+
+
+class _RecordingEngine:
+    """Engine A behind a recorder of the prompt ids it is handed (what the
+    chain's backend renders); everything else goes to the engine."""
+
+    def __init__(self, engine):
+        self._engine = engine
+        self.tokenizer = engine.tokenizer
+        self.prompts = []
+        self._lock = threading.Lock()
+
+    def stream_text(self, prompt_ids, params=None, timeout=None):
+        with self._lock:
+            self.prompts.append(list(prompt_ids))
+        return self._engine.stream_text(prompt_ids, params, timeout=timeout)
+
+
+def _device_spans(prof) -> list:
+    """(start, end) in microseconds of every device event of a finished
+    torch.profiler trace, from its raw Kineto events (building the
+    FunctionEvent tree takes minutes for a few hundred thousand)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3)
+            for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
+
+
+def _busy_ms(spans) -> float:
+    """Length of the union of the intervals ``spans`` (us), in ms."""
+    spans = sorted(spans)
+    busy, cur_s, cur_e = 0.0, None, None
+    for a, b in spans:
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy / 1e3
+
+
+def phase_rag(dev, smi, seed=0, encoders=None) -> dict:
+    """developer_rag through the port's chain server on the card (module
+    docstring, phase 7). ``encoders``: phase 6's (embedder, reranker), put
+    in the factories' caches instead of building a second pair."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch import config as config_mod
+    from generativeaiexamples_tpu_torch.chains import developer_rag, runtime
+    from generativeaiexamples_tpu_torch.config import BatchingConfig
+    from generativeaiexamples_tpu_torch.engine import embedder as emb_mod
+    from generativeaiexamples_tpu_torch.engine import llm_backend, llm_engine
+    from generativeaiexamples_tpu_torch.engine import reranker as rr_mod
+    from generativeaiexamples_tpu_torch.engine.embedder import TorchEmbedder
+    from generativeaiexamples_tpu_torch.engine.reranker import TorchReranker
+    from generativeaiexamples_tpu_torch.retrieval.torch_store import TorchVectorStore
+    from generativeaiexamples_tpu_torch.server.api import make_server
+
+    t0 = time.time()
+
+    def note(msg):
+        log(f"  [{time.time() - t0:.1f} s] {msg}")
+
+    rng = np.random.RandomState(seed + 7)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rag_")
+    env = dict(RAG_ENV, APP_VECTORSTORE_PERSISTDIR=os.path.join(tmp, "store"),
+               DOC_UPLOAD_DIR=os.path.join(tmp, "uploads"))
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    runtime.reset_runtime()
+    runtime.set_device(None)
+    config = config_mod.get_config()
+    emb_key = (config.embeddings.model_engine, config.embeddings.server_url,
+               config.embeddings.model_name, "None")
+    rr_key = (config.ranking.model_engine, config.ranking.server_url,
+              config.ranking.model_name, "None")
+    if encoders is not None:  # phase 6's pair: the same models, seed and batching
+        emb_mod._EMBEDDER_CACHE[emb_key], rr_mod._RERANKER_CACHE[rr_key] = encoders
+    server = thread = None
+    out = {}
+    orig_retrieve = runtime.retrieve
+    try:
+        emb, rr = runtime.get_embedder(config), runtime.resolve_pipeline(config, 4)[2]
+        if not isinstance(emb, TorchEmbedder) or not isinstance(rr, TorchReranker):
+            raise AssertionError(f"the factories built {type(emb).__name__}, {type(rr).__name__}")
+        if emb._params["tok_embed"].device.type != "cuda" or rr._head["w"].device.type != "cuda":
+            raise AssertionError("the embedder or the reranker is off the card")
+        t1 = time.time()
+        real = runtime.get_llm(config)
+        engine = real._engine
+        if engine is not llm_engine._ENGINE or engine.device.type != "cuda" or not engine._paged:
+            raise AssertionError("create_llm did not build the process engine on the card, paged")
+        recorder = _RecordingEngine(engine)
+        llm_key = (config.llm.model_engine, config.llm.server_url, config.llm.model_name)
+        llm_backend._LLM_CACHE[llm_key] = llm_backend.TorchLLMBackend(engine=recorder)
+        ec = engine.engine_config
+        note(f"engine A through create_llm ({time.time() - t1:.1f} s): {ec.model_config_name} "
+            f"{ec.quantization} weights, {ec.kv_cache_dtype} paged pool, max_batch_size "
+            f"{ec.max_batch_size}, max_seq_len {ec.max_seq_len}, prefill_chunk {ec.prefill_chunk} "
+            f"(random weights, seed 0); {EMBED_MODEL} and {RERANK_MODEL} "
+            f"{'from phase 6' if encoders is not None else 'built by the factories'}; "
+            f"nr_pipeline {config.retriever.nr_pipeline}, score_threshold "
+            f"{config.retriever.score_threshold}, chunks {config.text_splitter.chunk_size}/"
+            f"{config.text_splitter.chunk_overlap} words")
+
+        retrieved = {}
+
+        def timed_retrieve(query, *args, **kwargs):
+            t = time.perf_counter()
+            hits = orig_retrieve(query, *args, **kwargs)
+            retrieved[query] = (hits, (time.perf_counter() - t) * 1e3)
+            return hits
+
+        runtime.retrieve = timed_retrieve
+        server = make_server("127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, name="smoke-chain-server",
+                                  daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        status, text = _http(base, "GET", "/health")
+        if status != 200 or json.loads(text) != {"message": "Service is up."}:
+            raise AssertionError(f"/health: {status} {text}")
+
+        # 1-2. ingest 16 documents, list them
+        docs = _rag_corpus(rng)
+        files = _rag_files(docs)
+        ingest_s = []
+        for name, data in files:
+            raw, ctype = _multipart(name, data)
+            t1 = time.perf_counter()
+            status, text = _http(base, "POST", "/documents", raw=raw, ctype=ctype)
+            ingest_s.append(time.perf_counter() - t1)
+            if status != 200 or json.loads(text) != {"message": "File uploaded successfully"}:
+                raise AssertionError(f"POST /documents {name}: {status} {text}")
+        status, text = _http(base, "GET", "/documents")
+        listed = json.loads(text)["documents"]
+        names = [n for n, _ in files]
+        if status != 200 or sorted(listed) != sorted(names):
+            raise AssertionError(f"GET /documents: {status} {listed}")
+        n_chunks = runtime.get_vector_store("default").count()
+        if runtime.get_bm25_index("default").count() != n_chunks:
+            raise AssertionError("the store and BM25 hold different chunk counts")
+        note(f"ingest over POST /documents: {len(files)} documents (13 .txt, 2 .md, 1 .pdf; "
+            f"{sum(len(' '.join(d).split()) for d in docs)} words) -> {n_chunks} chunks, "
+            f"{statistics.mean(ingest_s):.3f} s a document (max {max(ingest_s):.3f}); "
+            f"GET /documents lists the 16 on {smi}")
+
+        # 3. /search: the first hit is the query's document; the top 4 on the
+        # card against the port's runtime on the CPU in f32 (same store, loaded
+        # from its persisted files, and the same BM25 index)
+        picks = [int(k) for k in rng.choice(RAG_DOCS, RAG_QUERIES, replace=False)]
+        searches, search_ms = [], []
+        for k in picks:
+            query = docs[k][0]
+            t1 = time.perf_counter()
+            status, text = _http(base, "POST", "/search", {"query": query, "top_k": 4})
+            search_ms.append((time.perf_counter() - t1) * 1e3)
+            chunks = json.loads(text)["chunks"] if status == 200 else None
+            if not chunks or chunks[0]["filename"] != names[k]:
+                raise AssertionError(f"/search for a sentence of {names[k]}: {status} {text[:300]}")
+            searches.append((k, query, chunks))
+        cpu_emb = TorchEmbedder(model_name=EMBED_MODEL, device="cpu", params=_cpu_f32(emb._params),
+                                dtype=torch.float32, batching=BatchingConfig(enable="off"))
+        cpu_rr = TorchReranker(model_name=RERANK_MODEL, device="cpu", params=_cpu_f32(rr._params),
+                               head={k: v.to("cpu", torch.float32) for k, v in rr._head.items()},
+                               dtype=torch.float32, batching=BatchingConfig(enable="off"))
+        cpu_logits = {}  # (query, passages) -> the CPU's logits, kept for the tie check
+        cpu_score = cpu_rr.score
+
+        def kept_score(query, passages):
+            key = (query, tuple(passages))
+            if key not in cpu_logits:
+                cpu_logits[key] = cpu_score(query, passages)
+            return cpu_logits[key]
+
+        cpu_rr.score = kept_score
+        cpu_store = TorchVectorStore(emb.dimensions, persist_dir=config.vector_store.persist_dir,
+                                     device="cpu")
+        card_store = runtime._STORES["default"]
+        cpu_keys = (emb_key[:3] + ("cpu",), rr_key[:3] + ("cpu",))
+        emb_mod._EMBEDDER_CACHE[cpu_keys[0]], rr_mod._RERANKER_CACHE[cpu_keys[1]] = cpu_emb, cpu_rr
+        try:
+            runtime._STORES["default"] = cpu_store
+            runtime.set_device("cpu")
+            wants = [orig_retrieve(query, top_k=4) for _, query, _ in searches]
+            # the reranker's logits on the card against the CPU's, pair by pair
+            logit_err = max((float(np.abs(rr.score(q, list(passages)) - want).max())
+                             for (q, passages), want in cpu_logits.items()), default=0.0)
+        finally:
+            runtime._STORES["default"] = card_store
+            runtime.set_device(None)
+            emb_mod._EMBEDDER_CACHE.pop(cpu_keys[0])
+            rr_mod._RERANKER_CACHE.pop(cpu_keys[1])
+            cpu_emb.close()
+            cpu_rr.close()
+        if logit_err > LOGIT_ABS:
+            raise AssertionError(f"rerank logits on the card differ from the CPU's f32 by "
+                                 f"{logit_err:.4g} (limit {LOGIT_ABS})")
+        # where the orders differ, the card's must still follow the CPU's
+        # logits up to twice the largest card-vs-CPU difference: each pair in
+        # the card's order, and each candidate it cut against its last one
+        tie_tol, ties = 2 * logit_err, 0
+        for (k, query, chunks), want in zip(searches, wants):
+            got = [c["content"] for c in chunks]
+            if got == [h.chunk.text for h in want] and \
+                    [c["filename"] for c in chunks] == [h.chunk.source for h in want]:
+                continue
+            scored = [(p, v) for (q, p), v in cpu_logits.items() if q == query]
+            if not scored:  # no rerank ran: nothing may differ
+                raise AssertionError(f"/search top 4 on the card for {names[k]} != CPU f32")
+            cpu = dict(zip(*scored[0]))
+            if any(t not in cpu for t in got) or any(
+                    cpu[got[i]] < cpu[got[j]] - tie_tol
+                    for i in range(len(got)) for j in range(i + 1, len(got))) or any(
+                    v > cpu[got[-1]] + tie_tol for t, v in cpu.items() if t not in got):
+                raise AssertionError(f"/search top 4 on the card for {names[k]} breaks the CPU's "
+                                     f"rerank order beyond {tie_tol:.4g}")
+            ties += 1
+        note(f"POST /search x{RAG_QUERIES} (a sentence of each document, top_k 4): the first hit "
+            f"is that document every time; the top 4 chunks equal the port's runtime on the CPU "
+            f"in f32 ({ties} differ only inside a rerank near-tie of {tie_tol:.4g}: the card's "
+            f"rerank logits are within {logit_err:.4g} of the CPU's, limit {LOGIT_ABS}); "
+            f"{statistics.median(search_ms):.1f} ms p50, {max(search_ms):.1f} ms max on {smi}")
+
+        # 4. concurrent /generate: 8 over the knowledge base and one without
+        warm = _generate_stream(base, docs[picks[0]][2], True, max_tokens=8)
+        if warm[0][-1]["choices"][0]["finish_reason"] != "[DONE]":
+            raise AssertionError("the warm-up /generate did not end in [DONE]")
+
+        def round_of(sentence_idx, profiled=False):
+            results, errors = {}, []
+
+            def call(name, query, kb):
+                try:
+                    results[name] = (query, kb) + _generate_stream(base, query, kb)
+                except Exception as exc:  # noqa: BLE001 - reported below
+                    errors.append(f"{name}: {exc!r}")
+
+            calls = [(f"kb{i}", docs[k][sentence_idx], True) for i, k in enumerate(picks)]
+            calls.append(("plain", "Say something about a graphics card.", False))
+            threads = [threading.Thread(target=call, args=c, name=f"smoke-rag-{c[0]}", daemon=True)
+                       for c in calls]
+            t1 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(600)
+            wall = time.perf_counter() - t1
+            if errors or len(results) != len(calls):
+                raise AssertionError(f"/generate round: {errors}")
+            return results, wall
+
+        recorder.prompts.clear()
+        retrieved.clear()
+        reset_counts()
+        before = engine.stats()
+        with SyncCounter() as syncs:
+            results, wall = round_of(1)
+        launched = counts()
+        after = engine.stats()
+        bad = {developer_rag.NO_CONTEXT_MSG, developer_rag.NO_DOCS_MSG}
+        ttft, retr_ms, prompt_ids, n_tokens = [], [], [], 0
+        for name, (query, kb, frames, first, total) in results.items():
+            if not frames or frames[-1]["choices"][0]["finish_reason"] != "[DONE]":
+                raise AssertionError(f"/generate {name} does not end in [DONE]")
+            answer = "".join(f["choices"][0]["message"]["content"] for f in frames[:-1]
+                             if f.get("choices"))
+            if answer.strip() in bad:
+                raise AssertionError(f"/generate {name} answered {answer!r}")
+            ttft.append(first)
+            if not kb:
+                continue
+            hits, ms = retrieved[query]
+            retr_ms.append(ms)
+            top = hits[0].chunk.text
+            mine = [p for p in recorder.prompts if query in engine.tokenizer.decode(p)]
+            if len(mine) != 1 or top not in engine.tokenizer.decode(mine[0]):
+                raise AssertionError(f"/generate {name}: the engine's prompt lacks the top hit")
+            prompt_ids.append(len(mine[0]))
+        if len(recorder.prompts) != len(results):
+            raise AssertionError(f"{len(recorder.prompts)} prompts reached the engine for "
+                                 f"{len(results)} requests")
+        missing = [n for n in RAG_EXPECTED if launched[n] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched under /generate: {missing}")
+        dispatch_syncs = syncs.counts["torch-llm-engine"]
+        if dispatch_syncs:
+            raise AssertionError(f"the LLM dispatch thread waited for the card {dispatch_syncs} "
+                                 f"times while retrieval ran on request threads")
+        d_rows = after["decode_rows"] - before.get("decode_rows", 0)
+        d_time = after["decode_time_s"] - before.get("decode_time_s", 0.0)
+        out.update({
+            "ingest_s_per_doc": statistics.mean(ingest_s), "ingest_s_max": max(ingest_s),
+            "chunks": n_chunks, "search_ms_p50": statistics.median(search_ms),
+            "search_ms_max": max(search_ms), "search_rerank_ties": ties,
+            "rerank_logit_max_abs": logit_err,
+            "ttft_s_mean": statistics.mean(ttft), "ttft_s_max": max(ttft),
+            "retrieve_ms_mean": statistics.mean(retr_ms), "retrieve_ms_max": max(retr_ms),
+            "prompt_ids_min": min(prompt_ids), "prompt_ids_max": max(prompt_ids),
+            "decode_tokens_per_s": d_rows / d_time if d_time else None,
+            "round_s": wall, "launches": launched, "dispatch_syncs": dispatch_syncs,
+            "syncs_by_thread": dict(syncs.counts),
+        })
+        note(f"/generate x{len(results)} concurrent (8 over the knowledge base, 1 without; "
+            f"max_tokens 64): every stream ends in [DONE], none is a no-context answer, each "
+            f"engine prompt holds its top hit's text; prompts {min(prompt_ids)}-"
+            f"{max(prompt_ids)} ids (prefill_chunk {ec.prefill_chunk}); TTFT (sent -> first "
+            f"answer frame) mean {out['ttft_s_mean']:.3f} s, max {out['ttft_s_max']:.3f} s, of "
+            f"which retrieval (runtime.retrieve) mean {out['retrieve_ms_mean']:.1f} ms, max "
+            f"{out['retrieve_ms_max']:.1f} ms; decode {out['decode_tokens_per_s'] or 0:.1f} "
+            f"tokens/s (engine decode wall time), round {wall:.2f} s on {smi}")
+        note(f"launches under /generate: {launched}; synchronizing calls by thread: "
+            f"{dict(syncs.counts) or 'none'} (LLM dispatch thread: {dispatch_syncs})")
+
+        # the device's idle share over a second round, traced
+        from torch.profiler import ProfilerActivity, profile
+
+        try:
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.__enter__()
+        except Exception as exc:  # noqa: BLE001 - a measurement, reported as not measured
+            prof, why = None, exc
+        try:
+            _, wall2 = round_of(2)
+            torch.cuda.synchronize()
+        finally:
+            if prof is not None:
+                prof.__exit__(None, None, None)
+        out["idle_share"] = None
+        if prof is not None:
+            try:
+                kernels = _device_spans(prof)
+                busy = _busy_ms(kernels)
+                out["idle_share"] = max(0.0, 1.0 - busy / (wall2 * 1e3))
+                out["device_busy_ms"], out["traced_round_s"] = busy, wall2
+                note(f"device over a second traced round ({len(kernels)} device events): busy "
+                    f"{busy:.0f} ms of {wall2 * 1e3:.0f} ms, idle share {out['idle_share']:.1%} "
+                    f"on {smi}")
+            except Exception as exc:  # noqa: BLE001 - as above
+                why = exc
+        if out["idle_share"] is None:
+            note(f"device idle share over /generate: not measured ({why!r})")
+
+        # 5. delete one document from the store and BM25
+        k0, q0 = searches[0][0], searches[0][1]
+        n_bm25 = runtime.get_bm25_index("default").count()
+        status, text = _http(base, "DELETE", f"/documents?filename={names[k0]}")
+        if status != 200:
+            raise AssertionError(f"DELETE /documents: {status} {text}")
+        listed = json.loads(_http(base, "GET", "/documents")[1])["documents"]
+        status, text = _http(base, "POST", "/search", {"query": q0, "top_k": 4})
+        left = [c["filename"] for c in json.loads(text)["chunks"]]
+        gone = n_bm25 - runtime.get_bm25_index("default").count()
+        if names[k0] in listed or names[k0] in left or gone <= 0 or \
+                runtime.get_vector_store("default").count() != n_chunks - gone:
+            raise AssertionError(f"{names[k0]} is still served after DELETE: {listed}, {left}")
+        note(f"DELETE /documents?filename={names[k0]}: {gone} chunks left the store and BM25; "
+            f"its sentence now finds {left or 'nothing'}")
+
+        # 6. a spent deadline
+        status, text = _http(base, "POST", "/generate", {
+            "messages": [{"role": "user", "content": docs[picks[1]][3]}],
+            "use_knowledge_base": True, "deadline_ms": 1})
+        if status != 504:
+            raise AssertionError(f"/generate with deadline_ms 1: {status} {text[:200]}")
+        note(f"/generate with deadline_ms 1: 504 {json.loads(text)['detail']!r}")
+    finally:
+        runtime.retrieve = orig_retrieve
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+            thread.join(60)
+        eng = llm_engine._ENGINE
+        if eng is not None:
+            eng.shutdown()
+        with llm_engine._ENGINE_LOCK:
+            llm_engine._ENGINE = None
+        runtime.reset_runtime()  # closes the encoders' batcher threads
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        config_mod.get_config.cache_clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase rag: ok ({time.time() - t0:.1f} s)")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="kernels,model,serve,retrieval",
+    parser.add_argument("--phases", default="kernels,model,serve,retrieval,rag",
                         help="phases after the build, comma-separated (default: all)")
     parser.add_argument("--checks", default=",".join(CHECKS),
                         help="phase 3's kernel checks, comma-separated (default: all)")
@@ -1640,7 +2180,9 @@ def main() -> int:
         phase_model(dev)
     serves = (phase_serve(dev, args.recipes, args.runahead, not args.timing_only)
               if "serve" in phases else {})
-    retrieval = phase_retrieval(dev, info["smi"], args.seed) if "retrieval" in phases else {}
+    retrieval, encoders = (phase_retrieval(dev, info["smi"], args.seed, keep="rag" in phases)
+                           if "retrieval" in phases else ({}, None))
+    rag = phase_rag(dev, info["smi"], args.seed, encoders) if "rag" in phases else {}
     kernels = []
     for name, (replaces, source) in KERNELS.items():
         if name not in results:  # a check left out by --checks
@@ -1648,12 +2190,14 @@ def main() -> int:
         r = results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(sv["launches"][name] for sv in serves.values()), **r,
+            "launches": sum(sv["launches"][name] for sv in serves.values())
+            + rag.get("launches", {}).get(name, 0), **r,
         })
     log(f"total {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": kernels, "serve": {
         name: {k: v for k, v in sv.items() if k != "launches"} for name, sv in serves.items()
-    }, "retrieval": retrieval}), flush=True)
+    }, "retrieval": retrieval,
+        "rag": {k: v for k, v in rag.items() if k != "launches"}}), flush=True)
     print(info["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

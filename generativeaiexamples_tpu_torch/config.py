@@ -12,16 +12,23 @@ It knows the names of the JAX config's other engine fields too
 naming the ROADMAP item that will serve it; one that exists only for XLA's
 compiles is logged once and ignored.
 
-The retrieval side reads four more sections of the JAX config with its
-names and defaults (``EmbeddingConfig``, ``RankingConfig``,
-``BatchingConfig``, ``VectorStoreConfig``), each from
-``APP_<SECTION>_<FIELD>`` as the JAX config wizard names them
-(``vector_store.persist_dir`` -> ``APP_VECTORSTORE_PERSISTDIR``);
-``AppConfig.from_env`` reads the engine and all four.
+The retrieval side and the chain server read more sections of the JAX
+config with its names and defaults (``LLMConfig``, ``TextSplitterConfig``,
+``EmbeddingConfig``, ``RetrieverConfig``, ``RankingConfig``,
+``PromptsConfig``, ``ResilienceConfig``, ``BatchingConfig``,
+``VectorStoreConfig``), each from ``APP_<SECTION>_<FIELD>`` as the JAX
+config wizard names them (``vector_store.persist_dir`` ->
+``APP_VECTORSTORE_PERSISTDIR``); ``AppConfig.from_env`` reads the engine
+and all of them, and ``get_config()`` caches that once per process
+(``get_config.cache_clear()`` drops it). A section's ``UNSERVED`` fields
+are the JAX ones the port does not serve: away from their JAX default they
+raise, naming the ROADMAP item that will serve them. The port reads no
+config file (``APP_CONFIG_FILE``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import os
 from typing import Mapping, Optional
@@ -36,6 +43,10 @@ _PREFIX = "the prefix cache arrives with ROADMAP queue 1 item 4"
 _SPEC = "speculative decoding arrives with ROADMAP queue 1 item 5"
 _DISAGG = "scheduler policies arrive with disaggregation (ROADMAP queue 1 item 8)"
 _SNAP = "drain and snapshots arrive with disaggregation (ROADMAP queue 1 item 8)"
+_TIER = "the retrieval tier arrives with disaggregation (ROADMAP queue 1 item 8)"
+_RETRY = ("the port has no retries, circuit breakers or fault injection yet "
+          "(ROADMAP queue 1 item 6)")
+_CHAINS = "the chain that reads it is not ported yet (ROADMAP queue 1 item 7)"
 # The JAX package's EngineConfig fields (config/schema.py) that the port
 # has no field for: name -> (the JAX default, why another value is refused,
 # the other values the port serves as they are). A reason of None marks a
@@ -230,7 +241,148 @@ def _section_from_env(cls, section: str, environ: Optional[Mapping[str, str]]):
     out = cls(**kwargs)
     if getattr(out, "checkpoint_path", ""):
         raise ValueError(f"{_env_name(section, 'checkpoint_path')}={out.checkpoint_path}: {_CKPT}")
+    for field, (default, reason) in getattr(cls, "UNSERVED", {}).items():
+        name = _env_name(section, field)
+        raw = environ.get(name)
+        if raw is not None and _parse(name, raw, default) != default:
+            raise ValueError(f"{name}={raw}: {reason}")
     return out
+
+
+@dataclasses.dataclass
+class LLMConfig:
+    """The JAX config's ``llm`` section (``APP_LLM_*``)."""
+
+    # empty means the in-process engine
+    server_url: str = ""
+    model_name: str = "meta-llama/Meta-Llama-3-8B-Instruct"
+    # tpu|local (the in-process engine; on the card in the port),
+    # openai|nvidia-ai-endpoints|remote (an OpenAI-compatible server), echo
+    model_engine: str = "tpu"
+
+    UNSERVED = {"model_name_pandas_ai": ("meta-llama/Meta-Llama-3-8B-Instruct", _CHAINS)}
+
+    @classmethod
+    def from_env(cls, environ: Optional[Mapping[str, str]] = None) -> "LLMConfig":
+        return _section_from_env(cls, "llm", environ)
+
+
+@dataclasses.dataclass
+class TextSplitterConfig:
+    """The JAX config's ``text_splitter`` section (``APP_TEXTSPLITTER_*``):
+    chunks of ``chunk_size`` whitespace words overlapping by
+    ``chunk_overlap`` (the JAX runtime's splitter has no tokenizer)."""
+
+    chunk_size: int = 510
+    chunk_overlap: int = 200
+
+    UNSERVED = {"model_name": ("Snowflake/snowflake-arctic-embed-l",
+                               "the splitter counts whitespace words and reads no tokenizer")}
+
+    @classmethod
+    def from_env(cls, environ: Optional[Mapping[str, str]] = None) -> "TextSplitterConfig":
+        return _section_from_env(cls, "text_splitter", environ)
+
+
+@dataclasses.dataclass
+class RetrieverConfig:
+    """The JAX config's ``retriever`` section (``APP_RETRIEVER_*``)."""
+
+    top_k: int = 4
+    score_threshold: float = 0.25
+    # ranked_hybrid (dense + BM25, RRF, rerank), hybrid (no rerank), else dense
+    nr_pipeline: str = "ranked_hybrid"
+    # whitespace words of retrieved context given to the LLM
+    context_token_cap: int = 1500
+    ann_mode: str = "exact"
+    ann_capacity: int = 0
+    ann_max_batch: int = 8
+
+    # the synchronous pipeline (backend "off") is the one served
+    UNSERVED = {
+        "backend": ("off", _TIER),
+        "tier_queue_depth": (16, _TIER),
+        "tier_window_ms": (20, _TIER),
+        "nr_url": ("http://retrieval-ms:8000", "no external retriever service is read"),
+    }
+
+    @classmethod
+    def from_env(cls, environ: Optional[Mapping[str, str]] = None) -> "RetrieverConfig":
+        return _section_from_env(cls, "retriever", environ)
+
+
+@dataclasses.dataclass
+class PromptsConfig:
+    """The JAX config's ``prompts`` section (``APP_PROMPTS_*``), verbatim."""
+
+    chat_template: str = (
+        "You are a helpful, respectful and honest assistant."
+        "Always answer as helpfully as possible, while being safe."
+        "Please ensure that your responses are positive in nature."
+    )
+    rag_template: str = (
+        "<s>[INST] <<SYS>>"
+        "Use the following context to answer the user's question. If you don't know the answer,"
+        "just say that you don't know, don't try to make up an answer."
+        "<</SYS>>"
+        "<s>[INST] Context: {context_str} Question: {query_str} Only return the helpful"
+        " answer below and nothing else. Helpful answer:[/INST]"
+    )
+
+    UNSERVED = {"multi_turn_rag_template": (
+        "You are a document chatbot. Help the user as they ask questions about documents."
+        " User message just asked: {input}\n\n"
+        " For this, we have retrieved the following potentially-useful info: "
+        " Conversation History Retrieved:\n{history}\n\n"
+        " Document Retrieved:\n{context}\n\n"
+        " Answer only from retrieved data. Make your response conversational.", _CHAINS)}
+
+    @classmethod
+    def from_env(cls, environ: Optional[Mapping[str, str]] = None) -> "PromptsConfig":
+        return _section_from_env(cls, "prompts", environ)
+
+
+@dataclasses.dataclass
+class ResilienceConfig:
+    """The fields of the JAX config's ``resilience`` section
+    (``APP_RESILIENCE_*``) that the chain server reads: the master switch,
+    request deadlines and admission control. The retry, breaker and fault
+    fields (``UNSERVED``) must stay at their JAX defaults."""
+
+    UNSERVED = {
+        "retry_max_attempts": (3, _RETRY),
+        "retry_base_delay_ms": (50, _RETRY),
+        "retry_max_delay_ms": (2000, _RETRY),
+        "retry_jitter": (0.5, _RETRY),
+        "breaker_failure_threshold": (5, _RETRY),
+        "breaker_recovery_s": (30.0, _RETRY),
+        "faults": ("", _RETRY),
+    }
+
+    enable: str = "on"
+    # default per-request budget; 0 disables
+    request_deadline_ms: int = 600000
+    # /generate answers 429 past this many streams in flight; 0 disables
+    max_active_streams: int = 64
+    # /generate answers 429 while the engine's queue is this deep; 0 disables
+    engine_queue_cap: int = 64
+    shed_retry_after_s: float = 1.0
+
+    @classmethod
+    def from_env(cls, environ: Optional[Mapping[str, str]] = None) -> "ResilienceConfig":
+        return _section_from_env(cls, "resilience", environ)
+
+    def validate(self) -> None:
+        """The JAX package's checks of these fields, with its messages."""
+        if self.enable not in ("on", "off"):
+            raise ValueError(f"resilience.enable must be on|off, got {self.enable!r}")
+        for name in ("request_deadline_ms", "max_active_streams", "engine_queue_cap"):
+            if getattr(self, name) < 0:
+                raise ValueError(
+                    f"resilience.{name} must be >= 0 (0 disables), got {getattr(self, name)}")
+        if self.shed_retry_after_s <= 0:
+            raise ValueError(
+                f"resilience.shed_retry_after_s must be > 0, got {self.shed_retry_after_s}")
 
 
 @dataclasses.dataclass
@@ -260,6 +412,8 @@ class RankingConfig:
     model_engine: str = ""
     server_url: str = ""
     checkpoint_path: str = ""
+    # ranked_hybrid fetches top_k * fetch_factor candidates to rerank
+    fetch_factor: int = 4
 
     @classmethod
     def from_env(cls, environ: Optional[Mapping[str, str]] = None) -> "RankingConfig":
@@ -301,17 +455,38 @@ class AppConfig:
     """The sections of the JAX ``AppConfig`` that the port reads."""
 
     engine: EngineConfig = dataclasses.field(default_factory=EngineConfig)
+    llm: LLMConfig = dataclasses.field(default_factory=LLMConfig)
+    text_splitter: TextSplitterConfig = dataclasses.field(default_factory=TextSplitterConfig)
     embeddings: EmbeddingConfig = dataclasses.field(default_factory=EmbeddingConfig)
+    retriever: RetrieverConfig = dataclasses.field(default_factory=RetrieverConfig)
     ranking: RankingConfig = dataclasses.field(default_factory=RankingConfig)
+    prompts: PromptsConfig = dataclasses.field(default_factory=PromptsConfig)
+    resilience: ResilienceConfig = dataclasses.field(default_factory=ResilienceConfig)
     batching: BatchingConfig = dataclasses.field(default_factory=BatchingConfig)
     vector_store: VectorStoreConfig = dataclasses.field(default_factory=VectorStoreConfig)
 
     @classmethod
     def from_env(cls, environ: Optional[Mapping[str, str]] = None) -> "AppConfig":
+        env = os.environ if environ is None else environ
+        if env.get("APP_CONFIG_FILE"):
+            raise ValueError("APP_CONFIG_FILE: the port reads its configuration from the "
+                             "APP_* environment only, not from a file")
         return cls(
             engine=EngineConfig.from_env(environ),
+            llm=LLMConfig.from_env(environ),
+            text_splitter=TextSplitterConfig.from_env(environ),
             embeddings=EmbeddingConfig.from_env(environ),
+            retriever=RetrieverConfig.from_env(environ),
             ranking=RankingConfig.from_env(environ),
+            prompts=PromptsConfig.from_env(environ),
+            resilience=ResilienceConfig.from_env(environ),
             batching=BatchingConfig.from_env(environ),
             vector_store=VectorStoreConfig.from_env(environ),
         )
+
+
+@functools.lru_cache(maxsize=1)
+def get_config() -> AppConfig:
+    """The process configuration, ``AppConfig.from_env()`` read once;
+    ``get_config.cache_clear()`` makes the next call read it again."""
+    return AppConfig.from_env()

@@ -1048,14 +1048,14 @@ _ENGINE_LOCK = threading.Lock()
 _ENGINE: Optional[LLMEngine] = None  # guarded by _ENGINE_LOCK
 
 
-def get_engine(config: Optional[EngineConfig] = None) -> LLMEngine:
-    """Process-wide engine singleton on the card (weights live once there);
-    ``config=None`` reads the ``APP_ENGINE_*`` environment
-    (``EngineConfig.from_env``)."""
+def get_engine(config: Optional[EngineConfig] = None, device=None) -> LLMEngine:
+    """Process-wide engine singleton, on the card unless ``device`` says
+    otherwise (weights live once there); ``config=None`` reads the
+    ``APP_ENGINE_*`` environment (``EngineConfig.from_env``)."""
     global _ENGINE
     with _ENGINE_LOCK:
         if _ENGINE is None:
-            _ENGINE = LLMEngine(config or EngineConfig.from_env())
+            _ENGINE = LLMEngine(config or EngineConfig.from_env(), device=device)
         return _ENGINE
 
 

@@ -5,8 +5,9 @@ BERT cross-encoder on the card (``TorchReranker``, the port's
 ``TPUReranker``) and the lexical ``OverlapReranker`` for weights-free
 tests. ``create_reranker`` takes the JAX package's engine names: '' (or
 ``none``/``disabled``) for no reranker, ``tpu`` for the in-process
-cross-encoder, ``overlap``. The remote NIM ranking client is not ported
-(it arrives with the chain-server wiring, ROADMAP queue 1 item 7).
+cross-encoder, ``overlap``. ``rerank_hits`` orders a retrieval's hits by
+a reranker's scores. The remote NIM ranking client is not ported (ROADMAP
+queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -138,6 +139,13 @@ class TorchReranker(_Encoder):
         return out
 
 
+def rerank_hits(reranker, query: str, hits: list, top_k: int) -> list:
+    """Order hits by cross-encoder score, keep top_k."""
+    scores = reranker.score(query, [h.chunk.text for h in hits])
+    order = np.argsort(-scores)
+    return [hits[i] for i in order[:top_k]]
+
+
 _RERANKER_CACHE: dict = {}
 _RERANKER_CACHE_LOCK = threading.Lock()
 
@@ -158,8 +166,8 @@ def create_reranker(config=None, device=None):
             return _RERANKER_CACHE[key]
         if engine in ("remote", "nvidia-ai-endpoints", "openai"):
             raise ValueError(
-                f"ranking.model_engine={engine!r}: the remote ranking client arrives with "
-                "the chain-server wiring (ROADMAP queue 1 item 7)"
+                f"ranking.model_engine={engine!r}: the remote ranking client is not "
+                "ported yet (ROADMAP queue 1 item 7)"
             )
         if engine == "overlap":
             backend = OverlapReranker()

@@ -7,10 +7,14 @@ trimmed to what the serving slice uses:
   runs with until a ``tokenizer.json`` ships with real weights;
 - ``HFTokenizer``: a HuggingFace ``tokenizer.json`` (Llama-3 BPE) with the
   Llama-3 chat template applied by hand. It imports ``tokenizers`` only
-  when built, so the package imports without it.
+  when built, so the package imports without it;
+- the tokenization caches the chains and the LLM backend use
+  (``encode_cached``, ``chat_preamble_ids``, ``render_chat_cached``,
+  ``clear_tokenization_caches``).
 """
 from __future__ import annotations
 
+import functools
 import os
 from typing import List, Optional, Protocol, Sequence, Tuple
 
@@ -178,6 +182,49 @@ class HFTokenizer:
             text += f"{_L3_SH}{role}{_L3_EH}\n\n{content}{_L3_EOT}"
         text += f"{_L3_SH}assistant{_L3_EH}\n\n"
         return self._tok.encode(text, add_special_tokens=False).ids
+
+
+# --------------------------------------------------------------------- #
+# Tokenization caches: every chain front-loads the same static preamble
+# (its system prompt) on every request, a pure function of (tokenizer,
+# text). Keys hold the tokenizer object itself (identity hash: the
+# engine's tokenizer lives as long as the engine).
+
+
+@functools.lru_cache(maxsize=512)
+def _encode_lru(tokenizer, text: str, add_bos: bool) -> Tuple[int, ...]:
+    return tuple(tokenizer.encode(text, add_bos=add_bos))
+
+
+def encode_cached(tokenizer, text: str, add_bos: bool = False) -> List[int]:
+    """LRU-cached ``tokenizer.encode`` for repeated identical texts."""
+    return list(_encode_lru(tokenizer, text, add_bos))
+
+
+@functools.lru_cache(maxsize=64)
+def chat_preamble_ids(tokenizer, role: str, content: str) -> Tuple[int, ...]:
+    """The rendered leading chat message (a chain's system prompt), encoded
+    once per process."""
+    return tuple(tokenizer.render_chat_prefix(((role, content),)))
+
+
+def render_chat_cached(tokenizer, messages: Sequence[Tuple[str, str]]) -> List[int]:
+    """``tokenizer.render_chat(messages)`` with a leading system message
+    served from ``chat_preamble_ids``; only the per-request tail is
+    encoded. The ids equal ``render_chat``'s: the split lands on template
+    special ids, and a tokenizer that cannot split there
+    (``supports_split_render`` False) renders whole."""
+    msgs = list(messages)
+    if msgs and msgs[0][0] == "system" and getattr(tokenizer, "supports_split_render", False):
+        head = chat_preamble_ids(tokenizer, msgs[0][0], msgs[0][1])
+        return list(head) + tokenizer.render_chat_suffix(msgs[1:])
+    return tokenizer.render_chat(msgs)
+
+
+def clear_tokenization_caches() -> None:
+    """Drop the encode and preamble caches (they hold the tokenizers)."""
+    _encode_lru.cache_clear()
+    chat_preamble_ids.cache_clear()
 
 
 def load_tokenizer(path: Optional[str] = None) -> Tokenizer:

@@ -1,9 +1,10 @@
 """Request deadlines, carried across threads.
 
 A trimmed copy of the JAX package's generativeaiexamples_tpu/utils/resilience.py:
-the ``Deadline`` budget, its thread-local binding and ``DeadlineExceeded``,
-which the retrieval micro-batcher reads. Retries, circuit breakers and
-fault injection are not ported.
+the ``Deadline`` budget, its thread-local binding, ``DeadlineExceeded``
+and ``raise_if_deadline_expired`` (which the retrieval micro-batcher, the
+chain runtime and the LLM backend read), and ``resilience_enabled``.
+Retries, circuit breakers and fault injection are not ported.
 """
 from __future__ import annotations
 
@@ -51,3 +52,25 @@ def set_current_deadline(deadline: Optional[Deadline]) -> None:
 
 def get_current_deadline() -> Optional[Deadline]:
     return getattr(_TLS, "deadline", None)
+
+
+def raise_if_deadline_expired(stage: str = "") -> None:
+    """Raise DeadlineExceeded when the thread's bound deadline ran out.
+    A no-op for threads without a deadline (non-server callers)."""
+    deadline = get_current_deadline()
+    if deadline is not None and deadline.expired:
+        raise DeadlineExceeded(
+            "request deadline exhausted"
+            + (f" before {stage}" if stage else "")
+            + f" (budget {deadline.budget:.3f}s)"
+        )
+
+
+def resilience_enabled(config=None) -> bool:
+    """Whether the resilience layer is active (``resilience.enable``);
+    ``config=None`` reads the process config."""
+    if config is None:
+        from generativeaiexamples_tpu_torch.config import get_config
+
+        config = get_config()
+    return config.resilience.enable != "off"

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of generativeaiexamples_tpu_torch
 and neither chip_smoke.py nor kernel_sweep.py imports jax or the JAX package
-(generativeaiexamples_tpu), checked two ways: by importing every port
+(generativeaiexamples_tpu), nor aiohttp, pydantic, bleach or requests,
+which the GPU machine lacks; checked two ways: by importing every port
 module in a fresh interpreter and reading sys.modules, and by scanning the
 port's sources for import statements. Names match exactly or up to a dot
 (``generativeaiexamples_tpu_torch`` is not the JAX package)."""
@@ -14,7 +15,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "generativeaiexamples_tpu_torch"
-FORBIDDEN = ("jax", "generativeaiexamples_tpu")
+FORBIDDEN = ("jax", "generativeaiexamples_tpu", "aiohttp", "pydantic", "bleach", "requests")
 
 
 def _forbidden(module: str) -> bool:
@@ -42,12 +43,16 @@ def test_name_matching_is_exact_or_dotted():
     assert not _forbidden("generativeaiexamples_tpu_torch")
     assert not _forbidden("generativeaiexamples_tpu_torch.ops.quant")
     assert not _forbidden("jaxlib_like") and not _forbidden("torch")
+    assert _forbidden("aiohttp.web") and _forbidden("pydantic") and _forbidden("bleach")
+    assert _forbidden("requests") and not _forbidden("requests_toolbelt_like")
 
 
 def test_importing_every_port_module_loads_neither_jax_nor_the_jax_package():
     mods = _port_modules() + ["chip_smoke", "kernel_sweep"]
     assert "generativeaiexamples_tpu_torch.engine.llm_engine" in mods
     assert "generativeaiexamples_tpu_torch.ops.decode_attention" in mods
+    assert "generativeaiexamples_tpu_torch.server.api" in mods
+    assert "generativeaiexamples_tpu_torch.chains.developer_rag" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"

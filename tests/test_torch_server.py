@@ -277,7 +277,8 @@ def test_server_engine_comes_from_the_env(monkeypatch):
 
     built = []
     monkeypatch.setattr(llm_engine, "_ENGINE", None)
-    monkeypatch.setattr(llm_engine, "LLMEngine", lambda config: built.append(config) or config)
+    monkeypatch.setattr(llm_engine, "LLMEngine",
+                        lambda config, device=None: built.append(config) or config)
     monkeypatch.setenv("APP_ENGINE_KVCACHEDTYPE", "int4")
     monkeypatch.setenv("APP_ENGINE_QUANTIZATION", "int8")
     engine = ModelServer().engine
@@ -471,7 +472,8 @@ def test_server_embedder_comes_from_the_env(monkeypatch):
 RETRIEVAL_SECTIONS = {
     "embeddings": ("EmbeddingConfig", ["model_name", "model_engine", "dimensions", "server_url",
                                        "checkpoint_path", "query_cache_size"]),
-    "ranking": ("RankingConfig", ["model_name", "model_engine", "server_url", "checkpoint_path"]),
+    "ranking": ("RankingConfig", ["model_name", "model_engine", "server_url", "checkpoint_path",
+                                  "fetch_factor"]),
     "batching": ("BatchingConfig", ["enable", "max_wait_ms", "max_batch_embed", "max_batch_rerank",
                                     "ingest_decode_yield_ms"]),
     "vector_store": ("VectorStoreConfig", ["name", "nlist", "nprobe", "persist_dir"]),
