@@ -76,10 +76,31 @@ Phases (each one's failure makes the script exit non-zero):
    store and BM25; ``deadline_ms`` 1 answers 504. It prints ingest s a
    document, /search ms, TTFT with its retrieval ms, prompt ids, decode
    tokens/s and the idle share.
+8. chains: the text chains through the port's chain server, each picked
+   through the registry, on phase 7's deployment (its engine A, encoders
+   and ``default`` collection; alone, it builds them and ingests phase 7's
+   16 documents), every engine request sampling from one seed:
+   ``simple_rag`` ingests the 16 documents into its own collection over
+   ``POST /documents`` (2000-character chunks, store and BM25), ``/search``
+   finds a document's sentence in that document first, and 4 concurrent
+   ``/generate`` (each of sentences of 4 documents) answer 200 with no
+   warning; ``multi_turn`` runs 4 concurrent conversations of 3 turns with
+   the history in ``messages``, after which ``conv_store`` holds 24 chunks
+   in the store and BM25 and each first question retrieves its "User
+   previously responded with ..." memory; 2 concurrent
+   ``query_decomposition`` answers make at least 3 engine requests each
+   (the engine's ``requests_prefilled``); ``api_catalog`` answers one
+   ``/generate`` through the in-process backend, then the same through
+   ``RemoteLLMBackend`` and the port's engine server on engine A: the
+   engine gets the same prompt ids and both streams are the same text.
+   ``int8_matmul``, ``paged_attention`` and ``flash_attention_causal`` are
+   launched and the LLM dispatch thread makes no synchronizing call. It
+   prints TTFT (mean, max) and prompt ids by chain, engine requests an
+   answer, the launches and the phase's wall seconds.
 
 With no arguments it runs every phase, as above; ``--phases``,
 ``--checks`` and ``--recipes`` run a part (for example ``--phases serve
---recipes B`` or ``--phases rag``) and then print only the kernels that part measured;
+--recipes B`` or ``--phases chains``) and then print only the kernels that part measured;
 ``--runahead N`` serves every engine at ``decode_runahead`` N, and
 ``--timing-only`` leaves out the runahead and overload checks (for timed
 runs of an older tree, which lacks them).
@@ -1669,6 +1690,9 @@ RAG_ENV = {
     "APP_TEXTSPLITTER_CHUNKOVERLAP": "16",
 }
 RAG_EXPECTED = ("int8_matmul", "paged_attention[bfloat16]", "flash_attention_causal")
+# phase 8's split topology: api_catalog answering through RemoteLLMBackend
+# (APP_LLM_SERVERURL is the engine server's address, known once it listens)
+REMOTE_LLM_ENV = {"EXAMPLE_NAME": "api_catalog", "APP_LLM_MODELENGINE": "remote"}
 
 
 def _rag_corpus(rng):
@@ -1727,11 +1751,13 @@ def _http(base, method, path, body=None, raw=None, ctype="application/json", tim
         return exc.code, exc.read().decode()
 
 
-def _generate_stream(base, query, kb, max_tokens=64):
-    """One streamed /generate: (frames, seconds to the first answer frame
-    (the [DONE] frame when no text came), seconds to the end)."""
-    body = {"messages": [{"role": "user", "content": query}], "use_knowledge_base": kb,
-            "max_tokens": max_tokens}
+def _generate_stream(base, query, kb, max_tokens=64, history=()):
+    """One streamed /generate, ``history`` (role, content) pairs before the
+    query: (frames, seconds to the first answer frame (the [DONE] frame
+    when no text came), seconds to the end)."""
+    messages = [{"role": r, "content": c} for r, c in history]
+    body = {"messages": messages + [{"role": "user", "content": query}],
+            "use_knowledge_base": kb, "max_tokens": max_tokens}
     req = urllib.request.Request(base + "/generate", data=json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json"})
     t0 = time.perf_counter()
@@ -1759,18 +1785,29 @@ def _generate_stream(base, query, kb, max_tokens=64):
 
 class _RecordingEngine:
     """Engine A behind a recorder of the prompt ids it is handed (what the
-    chain's backend renders); everything else goes to the engine."""
+    chain's backend renders, or the engine server's ``chat`` route); with
+    ``seed``, every request samples from that seed. Everything else goes
+    to the engine."""
 
-    def __init__(self, engine):
+    def __init__(self, engine, seed=None):
         self._engine = engine
         self.tokenizer = engine.tokenizer
+        self.seed = seed
         self.prompts = []
         self._lock = threading.Lock()
 
     def stream_text(self, prompt_ids, params=None, timeout=None):
+        if self.seed is not None:
+            params = dataclasses.replace(params, seed=self.seed)
         with self._lock:
             self.prompts.append(list(prompt_ids))
         return self._engine.stream_text(prompt_ids, params, timeout=timeout)
+
+    def chat(self, messages, params=None):
+        return self.stream_text(self.tokenizer.render_chat(messages), params)
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
 
 
 def _device_spans(prof) -> list:
@@ -1798,21 +1835,95 @@ def _busy_ms(spans) -> float:
     return busy / 1e3
 
 
-def phase_rag(dev, smi, seed=0, encoders=None) -> dict:
-    """developer_rag through the port's chain server on the card (module
-    docstring, phase 7). ``encoders``: phase 6's (embedder, reranker), put
-    in the factories' caches instead of building a second pair."""
+def _rag_deploy(encoders=None) -> dict:
+    """Phase 7's deployment (``RAG_ENV``) under a temporary store and
+    upload directory, built by the port's factories: the embedder and the
+    reranker (``encoders``, phase 6's pair, put in the factories' caches
+    instead of building a second pair) and engine A through ``create_llm``.
+    ``_rag_teardown`` undoes it."""
     import os
-    import shutil
     import tempfile
 
-    import numpy as np
+    from generativeaiexamples_tpu_torch import config as config_mod
+    from generativeaiexamples_tpu_torch.chains import runtime
+    from generativeaiexamples_tpu_torch.engine import embedder as emb_mod
+    from generativeaiexamples_tpu_torch.engine import llm_engine
+    from generativeaiexamples_tpu_torch.engine import reranker as rr_mod
+    from generativeaiexamples_tpu_torch.engine.embedder import TorchEmbedder
+    from generativeaiexamples_tpu_torch.engine.reranker import TorchReranker
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rag_")
+    env = dict(RAG_ENV, APP_VECTORSTORE_PERSISTDIR=os.path.join(tmp, "store"),
+               DOC_UPLOAD_DIR=os.path.join(tmp, "uploads"))
+    dep = {"tmp": tmp, "saved_env": {k: os.environ.get(k) for k in
+                                     list(env) + ["APP_LLM_SERVERURL"]}}
+    os.environ.update(env)
+    runtime.reset_runtime()
+    runtime.set_device(None)
+    try:
+        config = config_mod.get_config()
+        dep["emb_key"] = (config.embeddings.model_engine, config.embeddings.server_url,
+                          config.embeddings.model_name, "None")
+        dep["rr_key"] = (config.ranking.model_engine, config.ranking.server_url,
+                         config.ranking.model_name, "None")
+        if encoders is not None:  # phase 6's pair: the same models, seed and batching
+            emb_mod._EMBEDDER_CACHE[dep["emb_key"]], rr_mod._RERANKER_CACHE[dep["rr_key"]] = \
+                encoders
+        emb, rr = runtime.get_embedder(config), runtime.resolve_pipeline(config, 4)[2]
+        if not isinstance(emb, TorchEmbedder) or not isinstance(rr, TorchReranker):
+            raise AssertionError(f"the factories built {type(emb).__name__}, {type(rr).__name__}")
+        if emb._params["tok_embed"].device.type != "cuda" or rr._head["w"].device.type != "cuda":
+            raise AssertionError("the embedder or the reranker is off the card")
+        t1 = time.time()
+        engine = runtime.get_llm(config)._engine
+        if engine is not llm_engine._ENGINE or engine.device.type != "cuda" or not engine._paged:
+            raise AssertionError("create_llm did not build the process engine on the card, paged")
+    except BaseException:
+        _rag_teardown(dep)
+        raise
+    dep.update(config=config, emb=emb, rr=rr, engine=engine, engine_s=time.time() - t1)
+    return dep
+
+
+def _rag_teardown(dep) -> None:
+    """Shut engine A down, close the encoders, restore the environment and
+    remove the temporary directory."""
+    import os
+    import shutil
 
     from generativeaiexamples_tpu_torch import config as config_mod
+    from generativeaiexamples_tpu_torch.chains import runtime
+    from generativeaiexamples_tpu_torch.engine import llm_engine
+
+    eng = llm_engine._ENGINE
+    if eng is not None:
+        eng.shutdown()
+    with llm_engine._ENGINE_LOCK:
+        llm_engine._ENGINE = None
+    runtime.reset_runtime()  # closes the encoders' batcher threads
+    for key, value in dep["saved_env"].items():
+        if value is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = value
+    config_mod.get_config.cache_clear()
+    shutil.rmtree(dep["tmp"], ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_rag(dev, smi, seed=0, encoders=None, keep=False):
+    """developer_rag through the port's chain server on the card (module
+    docstring, phase 7). ``encoders``: phase 6's (embedder, reranker), put
+    in the factories' caches instead of building a second pair. Returns the
+    results and, when ``keep``, the deployment still up, its engine,
+    encoders and stores, for phase 8 (else None)."""
+    import numpy as np
+
     from generativeaiexamples_tpu_torch.chains import developer_rag, runtime
     from generativeaiexamples_tpu_torch.config import BatchingConfig
     from generativeaiexamples_tpu_torch.engine import embedder as emb_mod
-    from generativeaiexamples_tpu_torch.engine import llm_backend, llm_engine
+    from generativeaiexamples_tpu_torch.engine import llm_backend
     from generativeaiexamples_tpu_torch.engine import reranker as rr_mod
     from generativeaiexamples_tpu_torch.engine.embedder import TorchEmbedder
     from generativeaiexamples_tpu_torch.engine.reranker import TorchReranker
@@ -1825,39 +1936,18 @@ def phase_rag(dev, smi, seed=0, encoders=None) -> dict:
         log(f"  [{time.time() - t0:.1f} s] {msg}")
 
     rng = np.random.RandomState(seed + 7)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_rag_")
-    env = dict(RAG_ENV, APP_VECTORSTORE_PERSISTDIR=os.path.join(tmp, "store"),
-               DOC_UPLOAD_DIR=os.path.join(tmp, "uploads"))
-    saved_env = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    runtime.reset_runtime()
-    runtime.set_device(None)
-    config = config_mod.get_config()
-    emb_key = (config.embeddings.model_engine, config.embeddings.server_url,
-               config.embeddings.model_name, "None")
-    rr_key = (config.ranking.model_engine, config.ranking.server_url,
-              config.ranking.model_name, "None")
-    if encoders is not None:  # phase 6's pair: the same models, seed and batching
-        emb_mod._EMBEDDER_CACHE[emb_key], rr_mod._RERANKER_CACHE[rr_key] = encoders
+    dep = _rag_deploy(encoders)
+    config, emb, rr, engine = dep["config"], dep["emb"], dep["rr"], dep["engine"]
+    emb_key, rr_key = dep["emb_key"], dep["rr_key"]
     server = thread = None
     out = {}
     orig_retrieve = runtime.retrieve
     try:
-        emb, rr = runtime.get_embedder(config), runtime.resolve_pipeline(config, 4)[2]
-        if not isinstance(emb, TorchEmbedder) or not isinstance(rr, TorchReranker):
-            raise AssertionError(f"the factories built {type(emb).__name__}, {type(rr).__name__}")
-        if emb._params["tok_embed"].device.type != "cuda" or rr._head["w"].device.type != "cuda":
-            raise AssertionError("the embedder or the reranker is off the card")
-        t1 = time.time()
-        real = runtime.get_llm(config)
-        engine = real._engine
-        if engine is not llm_engine._ENGINE or engine.device.type != "cuda" or not engine._paged:
-            raise AssertionError("create_llm did not build the process engine on the card, paged")
         recorder = _RecordingEngine(engine)
         llm_key = (config.llm.model_engine, config.llm.server_url, config.llm.model_name)
         llm_backend._LLM_CACHE[llm_key] = llm_backend.TorchLLMBackend(engine=recorder)
         ec = engine.engine_config
-        note(f"engine A through create_llm ({time.time() - t1:.1f} s): {ec.model_config_name} "
+        note(f"engine A through create_llm ({dep['engine_s']:.1f} s): {ec.model_config_name} "
             f"{ec.quantization} weights, {ec.kv_cache_dtype} paged pool, max_batch_size "
             f"{ec.max_batch_size}, max_seq_len {ec.max_seq_len}, prefill_chunk {ec.prefill_chunk} "
             f"(random weights, seed 0); {EMBED_MODEL} and {RERANK_MODEL} "
@@ -2133,28 +2223,324 @@ def phase_rag(dev, smi, seed=0, encoders=None) -> dict:
             server.shutdown()
             server.server_close()
             thread.join(60)
-        eng = llm_engine._ENGINE
-        if eng is not None:
-            eng.shutdown()
-        with llm_engine._ENGINE_LOCK:
-            llm_engine._ENGINE = None
-        runtime.reset_runtime()  # closes the encoders' batcher threads
-        for key, value in saved_env.items():
-            if value is None:
-                os.environ.pop(key, None)
-            else:
-                os.environ[key] = value
-        config_mod.get_config.cache_clear()
-        shutil.rmtree(tmp, ignore_errors=True)
-        gc.collect()
-        torch.cuda.empty_cache()
+        if not keep or sys.exc_info()[0] is not None:
+            _rag_teardown(dep)
     log(f"phase rag: ok ({time.time() - t0:.1f} s)")
+    dep["corpus"] = (docs, files)
+    return out, (dep if keep else None)
+
+
+# --------------------------------------------------------------------- #
+# Phase 8: the text chains
+
+CHAIN_SEED = 20241  # every phase 8 engine request samples from this seed
+CHAIN_CONVERSATIONS, CHAIN_TURNS = 4, 3
+
+
+def _answer(frames) -> str:
+    return "".join(f["choices"][0]["message"]["content"] for f in frames
+                   if f.get("choices") and f["choices"][0].get("message"))
+
+
+def _check_answer(what, frames, bad=()) -> str:
+    """The answer of a streamed /generate: it ends in [DONE], has no
+    warnings frame (a DegradedWarning) and is none of ``bad``. It may be
+    empty: random weights may sample a stop token first."""
+    if not frames or frames[-1]["choices"][0]["finish_reason"] != "[DONE]":
+        raise AssertionError(f"{what}: the stream does not end in [DONE]")
+    warned = [f["warnings"] for f in frames if f.get("warnings")]
+    if warned:
+        raise AssertionError(f"{what}: warnings {warned}")
+    answer = _answer(frames)
+    if answer.strip() in bad:
+        raise AssertionError(f"{what}: answered {answer!r}")
+    return answer
+
+
+def _concurrently(calls) -> dict:
+    """Run ``calls`` ({name: fn}) on threads of their own; their results by
+    name, or the first error raised."""
+    results, errors = {}, []
+
+    def run(name, fn):
+        try:
+            results[name] = fn()
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(f"{name}: {exc!r}")
+
+    threads = [threading.Thread(target=run, args=(name, fn), name=f"smoke-{name}", daemon=True)
+               for name, fn in calls.items()]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(900)
+    if errors or len(results) != len(calls):
+        raise AssertionError(f"concurrent requests failed: {errors or 'timed out'}")
+    return results
+
+
+def phase_chains(dev, smi, seed=0, dep=None, encoders=None) -> dict:
+    """The text chains through the port's chain server on the card (module
+    docstring, phase 8): ``dep`` is phase 7's deployment, still up, or None
+    to build one (with phase 6's ``encoders`` when given) and ingest phase
+    7's corpus into ``default``."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch import config as config_mod
+    from generativeaiexamples_tpu_torch.chains import developer_rag, multi_turn, registry, runtime
+    from generativeaiexamples_tpu_torch.engine import llm_backend
+    from generativeaiexamples_tpu_torch.engine import server as engine_server
+    from generativeaiexamples_tpu_torch.server.api import make_server
+
+    t0 = time.time()
+
+    def note(msg):
+        log(f"  [{time.time() - t0:.1f} s] {msg}")
+
+    if dep is None:
+        dep = _rag_deploy(encoders)
+        try:
+            docs = _rag_corpus(np.random.RandomState(seed + 7))
+            files = _rag_files(docs)
+            src = tempfile.mkdtemp(dir=dep["tmp"])
+            for name, data in files:
+                path = os.path.join(src, name)
+                with open(path, "wb") as fh:
+                    fh.write(data)
+                runtime.ingest_file(path, name)
+        except BaseException:
+            _rag_teardown(dep)
+            raise
+        note(f"engine A through create_llm ({dep['engine_s']:.1f} s) and {EMBED_MODEL}/"
+             f"{RERANK_MODEL} {'from phase 6' if encoders is not None else 'by the factories'}; "
+             f"phase 7's {len(files)} documents ingested into 'default'")
+    else:
+        docs, files = dep["corpus"]
+        note(f"phase 7's engine A, encoders and 'default' collection "
+             f"({runtime.get_vector_store('default').count()} chunks)")
+    config, engine = dep["config"], dep["engine"]
+    names = [n for n, _ in files]
+    # the documents 'default' still holds (phase 7 deletes one)
+    present = set(runtime.get_vector_store("default").sources())
+    avail = [k for k in range(RAG_DOCS) if names[k] in present]
+    bad = {developer_rag.NO_CONTEXT_MSG, developer_rag.NO_DOCS_MSG}
+    recorder = _RecordingEngine(engine, seed=CHAIN_SEED)
+    llm_key = (config.llm.model_engine, config.llm.server_url, config.llm.model_name)
+    llm_backend._LLM_CACHE[llm_key] = llm_backend.TorchLLMBackend(engine=recorder)
+    servers, out, ttft, prompt_ids = [], {}, collections.defaultdict(list), {}
+
+    def serve(example):
+        """A chain server for ``example`` (resolved through the registry)."""
+        server = make_server("127.0.0.1", 0, registry.resolve_example(example))
+        thread = threading.Thread(target=server.serve_forever, name=f"smoke-{example}-server",
+                                  daemon=True)
+        thread.start()
+        servers.append((server, thread))
+        return f"http://127.0.0.1:{server.server_address[1]}"
+
+    def prompts_with(text):
+        with recorder._lock:
+            return [p for p in recorder.prompts if text in engine.tokenizer.decode(p)]
+
+    def ids_line(chain):
+        return f"{min(prompt_ids[chain])}-{max(prompt_ids[chain])}"
+
+    t_phase = time.perf_counter()
+    reset_counts()
+    try:
+        with SyncCounter() as syncs:
+            # 1. simple_rag: its own collection, 2000-character chunks
+            base = serve("simple_rag")
+            for name, data in files:
+                raw, ctype = _multipart(name, data)
+                status, text = _http(base, "POST", "/documents", raw=raw, ctype=ctype)
+                if status != 200 or json.loads(text) != {"message": "File uploaded successfully"}:
+                    raise AssertionError(f"simple_rag POST /documents {name}: {status} {text}")
+            status, text = _http(base, "GET", "/documents")
+            if status != 200 or sorted(json.loads(text)["documents"]) != sorted(names):
+                raise AssertionError(f"simple_rag GET /documents: {status} {text[:300]}")
+            n_sr = runtime.get_vector_store("simple_rag").count()
+            if runtime.get_bm25_index("simple_rag").count() != n_sr:
+                raise AssertionError("simple_rag: the store and BM25 hold different chunk counts")
+            for k in (0, 5, 10, RAG_DOCS - 1):
+                status, text = _http(base, "POST", "/search", {"query": docs[k][0], "top_k": 4})
+                chunks = json.loads(text)["chunks"] if status == 200 else None
+                if not chunks or chunks[0]["filename"] != names[k]:
+                    raise AssertionError(f"simple_rag /search for a sentence of {names[k]}: "
+                                         f"{status} {text[:300]}")
+            # four concurrent questions, each of sentences from four documents
+            questions = {f"sr{i}": " ".join(docs[(4 * i + j) % RAG_DOCS][1] for j in range(4))
+                         for i in range(4)}
+            results = _concurrently({n: (lambda q=q: _generate_stream(base, q, True))
+                                     for n, q in questions.items()})
+            prompt_ids["simple_rag"] = []
+            for n, (frames, first, _) in results.items():
+                _check_answer(f"simple_rag {n}", frames, bad)
+                ttft["simple_rag"].append(first)
+                mine = prompts_with(questions[n])
+                if len(mine) != 1:
+                    raise AssertionError(f"simple_rag {n}: {len(mine)} engine prompts")
+                if len(mine[0]) >= engine.max_seq_len:
+                    raise AssertionError(f"simple_rag {n}: a prompt of {len(mine[0])} ids")
+                prompt_ids["simple_rag"].append(len(mine[0]))
+            note(f"simple_rag: {len(files)} documents over POST /documents -> {n_sr} chunks of "
+                 f"<= 2000 characters in 'simple_rag' (store and BM25); /search finds each "
+                 f"query's document first; 4 concurrent /generate (4 documents' sentences each, "
+                 f"max_tokens 64) answer 200 with no warning; prompts {ids_line('simple_rag')} "
+                 f"ids; TTFT mean {statistics.mean(ttft['simple_rag']):.3f} s, max "
+                 f"{max(ttft['simple_rag']):.3f} s on {smi}")
+
+            # 2. multi_turn: 4 conversations x 3 turns, memory in conv_store
+            base = serve("multi_turn")
+            with recorder._lock:
+                recorder.prompts.clear()
+            convo_docs = [avail[i] for i in (1, 5, 9, 13)]
+
+            def conversation(c):
+                history, turns = [], []
+                for t in range(CHAIN_TURNS):
+                    query = docs[convo_docs[c]][t]
+                    frames, first, _ = _generate_stream(base, query, True, history=history)
+                    answer = _check_answer(f"multi_turn conversation {c} turn {t}", frames, bad)
+                    turns.append((query, first))
+                    history += [("user", query), ("assistant", answer)]
+                return turns
+
+            results = _concurrently({f"mt{c}": (lambda c=c: conversation(c))
+                                     for c in range(CHAIN_CONVERSATIONS)})
+            want = 2 * CHAIN_CONVERSATIONS * CHAIN_TURNS
+            n_dense = runtime.get_vector_store(multi_turn.CONV_COLLECTION).count()
+            n_bm25 = runtime.get_bm25_index(multi_turn.CONV_COLLECTION).count()
+            if n_dense != want or n_bm25 != want:
+                raise AssertionError(f"conv_store holds {n_dense} chunks (BM25 {n_bm25}), "
+                                     f"not {want}")
+            prompt_ids["multi_turn"], recalled = [], 0
+            for c, turns in enumerate(results[f"mt{c}"] for c in range(CHAIN_CONVERSATIONS)):
+                first_q = turns[0][0]
+                hits = runtime.retrieve(first_q, collection=multi_turn.CONV_COLLECTION)
+                if f"User previously responded with {first_q}" not in [h.chunk.text for h in hits]:
+                    raise AssertionError(f"conversation {c}: a conv_store retrieve of its first "
+                                         f"question misses its memory")
+                for t, (query, first) in enumerate(turns):
+                    ttft["multi_turn"].append(first)
+                    mine = prompts_with("User Query: " + query)
+                    if len(mine) != 1:
+                        raise AssertionError(f"multi_turn {c}/{t}: {len(mine)} engine prompts")
+                    prompt_ids["multi_turn"].append(len(mine[0]))
+                    recalled += t > 0 and "User previously responded with" in \
+                        engine.tokenizer.decode(mine[0])
+            note(f"multi_turn: {CHAIN_CONVERSATIONS} concurrent conversations x {CHAIN_TURNS} "
+                 f"turns (history in messages) answer 200 with no warning; conv_store holds "
+                 f"{n_dense} chunks in the store and BM25; each first question retrieves its "
+                 f"'User previously responded with ...' memory; {recalled} of "
+                 f"{CHAIN_CONVERSATIONS * (CHAIN_TURNS - 1)} later turns' prompts held a memory; "
+                 f"prompts {ids_line('multi_turn')} ids; TTFT mean "
+                 f"{statistics.mean(ttft['multi_turn']):.3f} s, max "
+                 f"{max(ttft['multi_turn']):.3f} s on {smi}")
+
+            # 3. query_decomposition: 2 concurrent answers, >= 3 engine requests each
+            base = serve("query_decomposition")
+            questions = {f"qd{i}": docs[avail[j]][2] for i, j in enumerate((3, 7))}
+            with recorder._lock:
+                recorder.prompts.clear()
+            before = engine.stats()["requests_prefilled"]
+            results = _concurrently({n: (lambda q=q: _generate_stream(base, q, True))
+                                     for n, q in questions.items()})
+            per_answer = (engine.stats()["requests_prefilled"] - before) / len(questions)
+            prompt_ids["query_decomposition"], qd_requests = [], []
+            for n, (frames, first, _) in results.items():
+                _check_answer(f"query_decomposition {n}", frames, bad)
+                ttft["query_decomposition"].append(first)
+                # the decomposition, extract and final prompts quote the question
+                mine = prompts_with("Question:\n" + questions[n]) + \
+                    prompts_with("Question: " + questions[n])
+                qd_requests.append(len(mine))
+                prompt_ids["query_decomposition"] += [len(p) for p in mine]
+            if per_answer < 3 or min(qd_requests) < 3:
+                raise AssertionError(f"query_decomposition: {per_answer} engine requests an "
+                                     f"answer ({qd_requests} prompts hold each question)")
+            note(f"query_decomposition: 2 concurrent /generate answer 200 with no warning; "
+                 f"{per_answer:.1f} engine requests an answer (engine stats; prompts holding "
+                 f"each question: {qd_requests}: decomposition, extract, final); prompts "
+                 f"{ids_line('query_decomposition')} ids; TTFT mean "
+                 f"{statistics.mean(ttft['query_decomposition']):.3f} s, max "
+                 f"{max(ttft['query_decomposition']):.3f} s on {smi}")
+
+            # 4. api_catalog in process, then through the engine server
+            query = docs[avail[11]][1]
+            legs = {}
+            eng_server = engine_server.make_server("127.0.0.1", 0, engine=recorder)
+            eng_thread = threading.Thread(target=eng_server.serve_forever,
+                                          name="smoke-engine-server", daemon=True)
+            eng_thread.start()
+            servers.append((eng_server, eng_thread))
+            remote_env = dict(REMOTE_LLM_ENV, APP_LLM_SERVERURL=(
+                f"http://127.0.0.1:{eng_server.server_address[1]}"))
+            for leg in ("in-process", "remote"):
+                if leg == "remote":  # _rag_teardown restores the environment
+                    os.environ.update(remote_env)
+                    config_mod.get_config.cache_clear()
+                with recorder._lock:
+                    recorder.prompts.clear()
+                base = serve("api_catalog")
+                frames, first, _ = _generate_stream(base, query, True)
+                legs[leg] = (_check_answer(f"api_catalog {leg}", frames, bad),
+                             [list(p) for p in recorder.prompts])
+                ttft["api_catalog"].append(first)
+                if len(legs[leg][1]) != 1:
+                    raise AssertionError(f"api_catalog {leg}: {len(legs[leg][1])} engine prompts")
+            backend = runtime.get_llm()
+            if type(backend).__name__ != "RemoteLLMBackend":
+                raise AssertionError(f"api_catalog's remote leg answered through "
+                                     f"{type(backend).__name__}")
+            if legs["remote"][1] != legs["in-process"][1]:
+                raise AssertionError("api_catalog: the engine got other prompt ids through the "
+                                     "engine server than through the in-process backend")
+            if legs["remote"][0] != legs["in-process"][0]:
+                raise AssertionError(f"api_catalog: the remote stream {legs['remote'][0]!r} "
+                                     f"differs from the in-process one {legs['in-process'][0]!r}")
+            prompt_ids["api_catalog"] = [len(legs["remote"][1][0])]
+            note(f"api_catalog: one /generate in process, then the same through "
+                 f"RemoteLLMBackend -> the engine server -> engine A: the same "
+                 f"{prompt_ids['api_catalog'][0]} prompt ids and the same "
+                 f"{len(legs['remote'][0])}-character answer (seed {CHAIN_SEED}); TTFT "
+                 f"{ttft['api_catalog'][0]:.3f} s in process, {ttft['api_catalog'][1]:.3f} s "
+                 f"remote on {smi}")
+        launched = counts()
+        wall = time.perf_counter() - t_phase
+        missing = [n for n in RAG_EXPECTED if launched[n] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched by the chains: {missing}")
+        dispatch_syncs = syncs.counts["torch-llm-engine"]
+        if dispatch_syncs:
+            raise AssertionError(f"the LLM dispatch thread waited for the card {dispatch_syncs} "
+                                 f"times while the chains ran")
+        out.update({
+            "ttft_s": {c: {"mean": statistics.mean(v), "max": max(v)} for c, v in ttft.items()},
+            "prompt_ids": {c: [min(v), max(v)] for c, v in prompt_ids.items()},
+            "qd_engine_requests_per_answer": per_answer, "simple_rag_chunks": n_sr,
+            "conv_store_chunks": n_dense, "launches": launched, "dispatch_syncs": dispatch_syncs,
+            "syncs_by_thread": dict(syncs.counts), "wall_s": wall,
+        })
+        note(f"launches in the phase: " + ", ".join(f"{n} {launched[n]}" for n in RAG_EXPECTED)
+             + f"; synchronizing calls by thread: {dict(syncs.counts) or 'none'} (LLM dispatch "
+             f"thread: {dispatch_syncs}); phase wall {wall:.1f} s on {smi}")
+    finally:
+        for server, thread in servers:
+            server.shutdown()
+            server.server_close()
+            thread.join(60)
+        _rag_teardown(dep)
+    log(f"phase chains: ok ({time.time() - t0:.1f} s)")
     return out
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="kernels,model,serve,retrieval,rag",
+    parser.add_argument("--phases", default="kernels,model,serve,retrieval,rag,chains",
                         help="phases after the build, comma-separated (default: all)")
     parser.add_argument("--checks", default=",".join(CHECKS),
                         help="phase 3's kernel checks, comma-separated (default: all)")
@@ -2180,9 +2566,13 @@ def main() -> int:
         phase_model(dev)
     serves = (phase_serve(dev, args.recipes, args.runahead, not args.timing_only)
               if "serve" in phases else {})
-    retrieval, encoders = (phase_retrieval(dev, info["smi"], args.seed, keep="rag" in phases)
+    retrieval, encoders = (phase_retrieval(dev, info["smi"], args.seed,
+                                           keep="rag" in phases or "chains" in phases)
                            if "retrieval" in phases else ({}, None))
-    rag = phase_rag(dev, info["smi"], args.seed, encoders) if "rag" in phases else {}
+    rag, dep = (phase_rag(dev, info["smi"], args.seed, encoders, keep="chains" in phases)
+                if "rag" in phases else ({}, None))
+    chains = (phase_chains(dev, info["smi"], args.seed, dep, encoders)
+              if "chains" in phases else {})
     kernels = []
     for name, (replaces, source) in KERNELS.items():
         if name not in results:  # a check left out by --checks
@@ -2191,13 +2581,14 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(sv["launches"][name] for sv in serves.values())
-            + rag.get("launches", {}).get(name, 0), **r,
+            + rag.get("launches", {}).get(name, 0) + chains.get("launches", {}).get(name, 0), **r,
         })
     log(f"total {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": kernels, "serve": {
         name: {k: v for k, v in sv.items() if k != "launches"} for name, sv in serves.items()
     }, "retrieval": retrieval,
-        "rag": {k: v for k, v in rag.items() if k != "launches"}}), flush=True)
+        "rag": {k: v for k, v in rag.items() if k != "launches"},
+        "chains": {k: v for k, v in chains.items() if k != "launches"}}), flush=True)
     print(info["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

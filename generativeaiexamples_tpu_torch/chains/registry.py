@@ -1,8 +1,8 @@
 """The example-chain registry: ``EXAMPLE_NAME`` names the chain a
 deployment serves, as in the JAX package's
-generativeaiexamples_tpu/chains/registry.py. The port registers the chains
-it has ported (``developer_rag``, the default, and ``echo``); the JAX
-package's other names raise ``NotImplementedError``."""
+generativeaiexamples_tpu/chains/registry.py, with the same names. The JAX
+package's ``structured_data`` and ``multimodal`` chains are not ported
+yet: their names raise ``NotImplementedError``."""
 from __future__ import annotations
 
 import importlib
@@ -14,16 +14,20 @@ from generativeaiexamples_tpu_torch.chains.base import BaseExample
 
 logger = logging.getLogger(__name__)
 
+_PKG = "generativeaiexamples_tpu_torch.chains"
 _REGISTRY: Dict[str, str] = {
-    "developer_rag": "generativeaiexamples_tpu_torch.chains.developer_rag:QAChatbot",
-    "echo": "generativeaiexamples_tpu_torch.chains.echo:EchoChain",
+    "developer_rag": f"{_PKG}.developer_rag:QAChatbot",
+    "nvidia_api_catalog": f"{_PKG}.api_catalog:APICatalogChatbot",
+    "api_catalog": f"{_PKG}.api_catalog:APICatalogChatbot",
+    "multi_turn_rag": f"{_PKG}.multi_turn:MultiTurnChatbot",
+    "multi_turn": f"{_PKG}.multi_turn:MultiTurnChatbot",
+    "query_decomposition_rag": f"{_PKG}.query_decomposition:QueryDecompositionChatbot",
+    "query_decomposition": f"{_PKG}.query_decomposition:QueryDecompositionChatbot",
+    "simple_rag": f"{_PKG}.simple_rag:SimpleRAG",
+    "echo": f"{_PKG}.echo:EchoChain",
 }
 # the JAX package's chains that the port does not serve yet
-NOT_PORTED = (
-    "nvidia_api_catalog", "api_catalog", "multi_turn_rag", "multi_turn",
-    "query_decomposition_rag", "query_decomposition", "structured_data_rag",
-    "structured_data", "multimodal_rag", "multimodal", "simple_rag",
-)
+NOT_PORTED = ("structured_data_rag", "structured_data", "multimodal_rag", "multimodal")
 
 DEFAULT_EXAMPLE = "developer_rag"
 

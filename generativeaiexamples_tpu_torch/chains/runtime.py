@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import threading
 from typing import Dict, Generator, List, Optional, Sequence, Tuple
 
 from generativeaiexamples_tpu_torch.config import AppConfig, get_config
@@ -40,6 +41,10 @@ logger = logging.getLogger(__name__)
 
 _STORES: Dict[str, VectorStore] = {}
 _BM25: Dict[str, object] = {}
+# the per-collection factories check and insert under this lock: two
+# request threads never build two stores (or indexes) for one collection,
+# one of which would lose its writes
+_FACTORY_LOCK = threading.Lock()
 _DEVICE = None  # None: the card
 
 
@@ -94,21 +99,22 @@ def get_vector_store(collection: str = "default",
                      config: Optional[AppConfig] = None) -> VectorStore:
     """One store per collection name."""
     config = config or get_config()
-    if collection not in _STORES:
-        ret = config.retriever
-        _STORES[collection] = create_vector_store(
-            config.vector_store.name,
-            dimensions=get_embedder(config).dimensions,
-            persist_dir=config.vector_store.persist_dir,
-            collection=collection,
-            device=_DEVICE,
-            ann_mode=ret.ann_mode or "exact",
-            ann_capacity=int(ret.ann_capacity),
-            ann_max_batch=int(ret.ann_max_batch),
-            nlist=config.vector_store.nlist,
-            nprobe=config.vector_store.nprobe,
-        )
-    return _STORES[collection]
+    with _FACTORY_LOCK:
+        if collection not in _STORES:
+            ret = config.retriever
+            _STORES[collection] = create_vector_store(
+                config.vector_store.name,
+                dimensions=get_embedder(config).dimensions,
+                persist_dir=config.vector_store.persist_dir,
+                collection=collection,
+                device=_DEVICE,
+                ann_mode=ret.ann_mode or "exact",
+                ann_capacity=int(ret.ann_capacity),
+                ann_max_batch=int(ret.ann_max_batch),
+                nlist=config.vector_store.nlist,
+                nprobe=config.vector_store.nprobe,
+            )
+        return _STORES[collection]
 
 
 def get_bm25_index(collection: str = "default", config: Optional[AppConfig] = None):
@@ -116,10 +122,11 @@ def get_bm25_index(collection: str = "default", config: Optional[AppConfig] = No
     from generativeaiexamples_tpu_torch.retrieval.bm25 import BM25Index
 
     config = config or get_config()
-    if collection not in _BM25:
-        _BM25[collection] = BM25Index(persist_dir=config.vector_store.persist_dir,
-                                      collection=collection)
-    return _BM25[collection]
+    with _FACTORY_LOCK:
+        if collection not in _BM25:
+            _BM25[collection] = BM25Index(persist_dir=config.vector_store.persist_dir,
+                                          collection=collection)
+        return _BM25[collection]
 
 
 def _lexical_enabled(config: AppConfig) -> bool:

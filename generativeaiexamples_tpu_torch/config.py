@@ -328,14 +328,16 @@ class PromptsConfig:
         "<s>[INST] Context: {context_str} Question: {query_str} Only return the helpful"
         " answer below and nothing else. Helpful answer:[/INST]"
     )
-
-    UNSERVED = {"multi_turn_rag_template": (
+    # multi_turn's prompt: {input}, {history} (conversation memory) and
+    # {context} (documents), sent as one user message
+    multi_turn_rag_template: str = (
         "You are a document chatbot. Help the user as they ask questions about documents."
         " User message just asked: {input}\n\n"
         " For this, we have retrieved the following potentially-useful info: "
         " Conversation History Retrieved:\n{history}\n\n"
         " Document Retrieved:\n{context}\n\n"
-        " Answer only from retrieved data. Make your response conversational.", _CHAINS)}
+        " Answer only from retrieved data. Make your response conversational."
+    )
 
     @classmethod
     def from_env(cls, environ: Optional[Mapping[str, str]] = None) -> "PromptsConfig":

@@ -305,7 +305,7 @@ class LLMEngine:
         # every key exists up front: stats() copies these dicts from other
         # threads; the dispatch thread counts prefill, the reader decode
         self._counters = collections.Counter(dict.fromkeys((
-            "prefill_waves", "prefill_tokens", "prefill_chunks",
+            "prefill_waves", "prefill_tokens", "prefill_chunks", "requests_prefilled",
         ), 0))
         self._reader_counters = collections.Counter(dict.fromkeys((
             "decode_blocks", "decode_steps", "decode_rows", "decode_time_s",
@@ -548,7 +548,8 @@ class LLMEngine:
         return _Hold()
 
     def stats(self) -> Dict[str, float]:
-        """Serving counters: prefill waves, tokens and chunks; decode
+        """Serving counters: prefill waves, tokens and chunks, and the
+        requests prefilled (each admitted request once); decode
         blocks, steps, rows and wall time; tokens emitted; TTFTs (submit to
         the reader's emission of the first token); and, on the paged
         layout, the page allocator's state.
@@ -826,6 +827,7 @@ class LLMEngine:
         self._update_slots(slots, first, lengths_d, temps, topps, seeds)
         self._counters["prefill_waves"] += 1
         self._counters["prefill_tokens"] += int(lengths.sum())
+        self._counters["requests_prefilled"] += len(reqs)
         for req, n in zip(reqs, lengths):
             req.position = int(n)
         self._to_reader("prefill", first, list(enumerate(reqs)))

@@ -5,14 +5,16 @@ BERT cross-encoder on the card (``TorchReranker``, the port's
 ``TPUReranker``) and the lexical ``OverlapReranker`` for weights-free
 tests. ``create_reranker`` takes the JAX package's engine names: '' (or
 ``none``/``disabled``) for no reranker, ``tpu`` for the in-process
-cross-encoder, ``overlap``. ``rerank_hits`` orders a retrieval's hits by
-a reranker's scores. The remote NIM ranking client is not ported (ROADMAP
-queue 1 item 7).
+cross-encoder, ``overlap``, and ``remote`` (also ``nvidia-ai-endpoints``,
+``openai``) for ``RemoteReranker``, a client of a NIM ranking server.
+``rerank_hits`` orders a retrieval's hits by a reranker's scores.
 """
 from __future__ import annotations
 
+import json
 import re
 import threading
+import urllib.request
 from typing import List, Sequence
 
 import numpy as np
@@ -139,6 +141,36 @@ class TorchReranker(_Encoder):
         return out
 
 
+class RemoteReranker:
+    """Client of the NIM ranking API over ``urllib``: ``POST
+    {url}/v1/ranking`` with ``{"model", "query": {"text"}, "passages":
+    [{"text"}]}``; each of the answer's ``rankings`` gives a passage's
+    ``index`` and its ``logit`` (else ``score``). No retry or circuit
+    breaker: the JAX package's resilience layer is not ported (ROADMAP
+    queue 1 item 6)."""
+
+    def __init__(self, server_url: str, model_name: str, timeout: float = 60.0):
+        from generativeaiexamples_tpu_torch.engine.embedder import normalize_v1_url
+
+        self._url = normalize_v1_url(server_url)
+        self._model = model_name
+        self._timeout = timeout
+
+    def score(self, query: str, passages: Sequence[str]) -> np.ndarray:
+        body = {"model": self._model, "query": {"text": query},
+                "passages": [{"text": p} for p in passages]}
+        req = urllib.request.Request(
+            f"{self._url}/ranking", data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"},
+        )
+        with urllib.request.urlopen(req, timeout=self._timeout) as resp:
+            rankings = json.loads(resp.read())["rankings"]
+        out = np.zeros(len(passages), np.float32)
+        for entry in rankings:
+            out[entry["index"]] = entry.get("logit", entry.get("score", 0.0))
+        return out
+
+
 def rerank_hits(reranker, query: str, hits: list, top_k: int) -> list:
     """Order hits by cross-encoder score, keep top_k."""
     scores = reranker.score(query, [h.chunk.text for h in hits])
@@ -165,11 +197,11 @@ def create_reranker(config=None, device=None):
         if key in _RERANKER_CACHE:
             return _RERANKER_CACHE[key]
         if engine in ("remote", "nvidia-ai-endpoints", "openai"):
-            raise ValueError(
-                f"ranking.model_engine={engine!r}: the remote ranking client is not "
-                "ported yet (ROADMAP queue 1 item 7)"
-            )
-        if engine == "overlap":
+            if not ranking.server_url:
+                raise ValueError("ranking.model_engine=remote requires ranking.server_url "
+                                 "(APP_RANKING_SERVERURL)")
+            backend = RemoteReranker(ranking.server_url, ranking.model_name)
+        elif engine == "overlap":
             backend = OverlapReranker()
         else:
             backend = TorchReranker(

@@ -9,6 +9,11 @@ under ``persist_dir`` (one chunk a line: text, source, metadata), the JAX
 format, so either package loads what the other wrote; term statistics
 rebuild on load. The JAX package's circuit breaker around ``search`` and
 its store metrics are not ported.
+
+Unlike the JAX package's, an index is safe to share between threads:
+``add``, ``delete_sources``, ``search`` and ``persist`` run under one
+lock, so a search never sees a half-added chunk and two writers never
+share the sidecar's ``.tmp`` file.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import logging
 import math
 import os
 import re
+import threading
 from collections import Counter
 from typing import Dict, List, Sequence
 
@@ -44,40 +50,47 @@ class BM25Index:
         self._tf: List[Counter] = []
         self._lens: List[int] = []
         self._df: Counter = Counter()
+        self._lock = threading.RLock()
         if self._persist_path and os.path.exists(self._persist_path):
             self._load()
 
     def add(self, chunks: Sequence[Chunk]) -> None:
-        for c in chunks:
-            toks = tokenize(c.text)
-            tf = Counter(toks)
-            self._chunks.append(c)
-            self._tf.append(tf)
-            self._lens.append(len(toks))
-            self._df.update(tf.keys())
-        if self._persist_path:
-            self.persist()
+        with self._lock:
+            for c in chunks:
+                toks = tokenize(c.text)
+                tf = Counter(toks)
+                self._chunks.append(c)
+                self._tf.append(tf)
+                self._lens.append(len(toks))
+                self._df.update(tf.keys())
+            if self._persist_path:
+                self.persist()
 
     def delete_sources(self, sources: Sequence[str]) -> bool:
         drop = set(sources)
-        keep = [i for i, c in enumerate(self._chunks) if c.source not in drop]
-        if len(keep) == len(self._chunks):
-            return False
-        self._chunks = [self._chunks[i] for i in keep]
-        self._tf = [self._tf[i] for i in keep]
-        self._lens = [self._lens[i] for i in keep]
-        self._df = Counter()
-        for tf in self._tf:
-            self._df.update(tf.keys())
-        if self._persist_path:
-            self.persist()
-        return True
+        with self._lock:
+            keep = [i for i, c in enumerate(self._chunks) if c.source not in drop]
+            if len(keep) == len(self._chunks):
+                return False
+            self._chunks = [self._chunks[i] for i in keep]
+            self._tf = [self._tf[i] for i in keep]
+            self._lens = [self._lens[i] for i in keep]
+            self._df = Counter()
+            for tf in self._tf:
+                self._df.update(tf.keys())
+            if self._persist_path:
+                self.persist()
+            return True
 
     def count(self) -> int:
         return len(self._chunks)
 
     def search(self, query: str, top_k: int) -> List[SearchHit]:
         """Top-k chunks by BM25, scores min-max normalized to [0, 1]."""
+        with self._lock:
+            return self._search(query, top_k)
+
+    def _search(self, query: str, top_k: int) -> List[SearchHit]:
         if not self._chunks:
             return []
         q_terms = tokenize(query)
@@ -113,13 +126,14 @@ class BM25Index:
     def persist(self) -> None:
         if not self._persist_path:
             return
-        os.makedirs(os.path.dirname(self._persist_path), exist_ok=True)
-        tmp = self._persist_path + ".tmp"
-        with open(tmp, "w", encoding="utf-8") as fh:
-            for c in self._chunks:
-                fh.write(json.dumps({"text": c.text, "source": c.source, "metadata": c.metadata})
-                         + "\n")
-        os.replace(tmp, self._persist_path)
+        with self._lock:
+            os.makedirs(os.path.dirname(self._persist_path), exist_ok=True)
+            tmp = self._persist_path + ".tmp"
+            with open(tmp, "w", encoding="utf-8") as fh:
+                for c in self._chunks:
+                    fh.write(json.dumps({"text": c.text, "source": c.source,
+                                         "metadata": c.metadata}) + "\n")
+            os.replace(tmp, self._persist_path)
 
     def _load(self) -> None:
         chunks = []

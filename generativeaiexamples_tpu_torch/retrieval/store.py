@@ -76,7 +76,7 @@ def create_vector_store(name: str, dimensions: int, persist_dir: str = "",
     if name in ("faiss", "native", "ivf", "milvus", "pgvector"):
         raise ValueError(
             f"vector store {name!r} is not served by the port: the native index and the "
-            "milvus/pgvector connectors arrive with the chain-server wiring (ROADMAP queue 1 "
-            "item 7); 'tpu' (or 'memory') is the in-process store on the card"
+            "milvus/pgvector connectors arrive with the rest of the package (ROADMAP queue 1 "
+            "item 13); 'tpu' (or 'memory') is the in-process store on the card"
         )
     raise ValueError(f"Unknown vector store {name!r} (tpu|faiss|milvus|pgvector)")

@@ -455,11 +455,14 @@ def make_server(host: str = "127.0.0.1", port: int = 8081,
                 example_cls: Optional[Type[BaseExample]] = None) -> ThreadingHTTPServer:
     """A bound, not yet serving, chain server (``port=0`` picks a free
     port, ``server_address``). The process configuration is checked first,
-    as the JAX server's startup checks it."""
+    as the JAX server's startup checks it (``config_validate``, then the
+    engine's, the resilience section's and the batcher's own checks)."""
+    from generativeaiexamples_tpu_torch import config_validate
     from generativeaiexamples_tpu_torch.config import get_config
     from generativeaiexamples_tpu_torch.engine.batcher import validate_config
 
     config = get_config()
+    config_validate.validate_config(config)
     config.engine.validate()
     config.resilience.validate()
     validate_config(config)

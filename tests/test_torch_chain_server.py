@@ -15,6 +15,11 @@ aiohttp app, the port's over HTTP, the same requests to both.
 - One ``developer_rag`` answer streamed from the port's debug-preset
   engine on the CPU, and a client that disconnects mid-stream aborting
   its engine request.
+- The text chains (``simple_rag``, ``api_catalog``, ``multi_turn``,
+  ``query_decomposition``, picked by ``EXAMPLE_NAME`` through each
+  package's registry) over hash embeddings and the echo LLM: uploads,
+  listings, ``/search``, ``/generate`` with and without the knowledge base
+  and ``DELETE``, with equal bodies and SSE bytes from both servers.
 """
 import asyncio
 import http.client
@@ -300,6 +305,103 @@ def test_documents_round_trip(app_env):
 def test_generate_rag_uses_ingested_context(app_env):
     out = _both(lambda pkg, ev: _fresh_echo(pkg, {"d": "0123456789"}), lambda: [_gen("q", kb=True)])
     assert _frames(out[0][2])[0]["choices"][0]["message"]["content"] == "context:10 "
+
+
+# --------------------------------------------------------------------------- #
+# the text chains
+
+
+def _upload_req(name, data: bytes):
+    boundary = "chain-boundary"
+    raw = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; filename=\"{name}\""
+           f"\r\n\r\n").encode() + data + f"\r\n--{boundary}--\r\n".encode()
+    return _Req("POST", "/documents", raw=raw,
+                headers={"Content-Type": f"multipart/form-data; boundary={boundary}"})
+
+
+_CHAIN_DOC = (b"The paged pool holds kv pages for every decode slot. Each page stores 128 rows "
+              b"of keys and values. A page table maps a slot to its pages. The allocator frees "
+              b"pages when a request ends.")
+
+
+@pytest.mark.parametrize("example", ["simple_rag", "nvidia_api_catalog", "multi_turn_rag",
+                                     "query_decomposition"])
+def test_text_chains_answer_alike_through_both_servers(app_env, tmp_path, example):
+    app_env.setenv("EXAMPLE_NAME", example)
+    query = "what does a page table map?"
+    history = {"messages": [{"role": "user", "content": "what does the paged pool hold?"},
+                            {"role": "assistant", "content": "kv pages"},
+                            {"role": "user", "content": query}],
+               "use_knowledge_base": True, "max_tokens": 48}
+
+    def requests():
+        return [
+            _upload_req("pool.txt", _CHAIN_DOC),
+            _upload_req("empty.md", b"# Heading only"),
+            _upload_req("table.csv", b"a,b\n1,2\n"),  # multi_turn refuses the suffix
+            _Req("GET", "/documents"),
+            _Req("POST", "/search", {"query": "page table slot", "top_k": 4}),
+            _gen(query, kb=True, max_tokens=48),
+            _Req("POST", "/generate", history),
+            _gen(query, kb=False, max_tokens=8),
+            _Req("DELETE", "/documents?filename=pool.txt"),
+            _Req("GET", "/documents"),
+            _gen(query, kb=True, max_tokens=48),
+        ]
+
+    outs = []
+    for run, pkg in ((_run_jax, "jax"), (_run_port, "port")):
+        # each package's runtime reads its own store directory
+        app_env.setenv("APP_VECTORSTORE_PERSISTDIR", str(tmp_path / pkg))
+        jget_config.cache_clear()
+        tconfig.get_config.cache_clear()
+        jruntime.reset_runtime()
+        truntime.reset_runtime()
+        truntime.set_device("cpu")
+        try:
+            outs.append(run(None, requests()))
+        finally:
+            jruntime.reset_runtime()
+            truntime.reset_runtime()
+            truntime.set_device(None)
+    _assert_same(*outs)
+    out = outs[1]
+    assert [o[0] for o in out[:2] + out[3:5]] == [200, 200, 200, 200]
+    if example == "multi_turn_rag":
+        assert out[2][0] == 500 and json.loads(out[2][2]) == {
+            "message": "table.csv is not a valid Text, PDF or Markdown file"}
+    assert json.loads(out[4][2])["chunks"][0]["filename"] == "pool.txt"
+    for o in (out[5], out[6], out[7]):
+        frames = _frames(o[2])
+        assert o[0] == 200 and frames[-1]["choices"][0]["finish_reason"] == "[DONE]"
+        answer = "".join(f["choices"][0]["message"]["content"] for f in frames[:-1])
+        assert answer and "No response generated" not in answer
+    assert "pool.txt" not in json.loads(out[9][2])["documents"]
+
+
+@pytest.mark.parametrize("example,status", [("simple_rag", 500), ("api_catalog", 200)])
+def test_a_failed_retrieval_surfaces_as_in_jax(app_env, tmp_path, monkeypatch, example, status):
+    """simple_rag's document_search lets a retrieval error through (a 500
+    from /search) and its /generate degrades; api_catalog answers [] and
+    its canned message."""
+    from generativeaiexamples_tpu.chains.registry import resolve_example as jresolve
+    from generativeaiexamples_tpu_torch.chains.registry import resolve_example as tresolve
+
+    def boom(*args, **kwargs):
+        raise RuntimeError("store down")
+
+    app_env.setenv("APP_VECTORSTORE_PERSISTDIR", str(tmp_path))
+    for rt in (jruntime, truntime):
+        monkeypatch.setattr(rt, "retrieve", boom)
+    out = _both(lambda pkg, ev: (jresolve if pkg is JAX else tresolve)(example),
+                lambda: [_Req("POST", "/search", {"query": "q", "top_k": 2}), _gen("q", kb=True)])
+    assert out[0][0] == status and out[1][0] == 200
+    frames = _frames(out[1][2])
+    if example == "simple_rag":
+        assert frames[0]["warnings"] == [
+            "retrieval_degraded: RuntimeError: store down; answering without retrieved context"]
+    else:
+        assert json.loads(out[0][2]) == {"chunks": []}
 
 
 # --------------------------------------------------------------------------- #

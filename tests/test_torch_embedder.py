@@ -316,8 +316,11 @@ def test_create_reranker_dispatch(fresh_caches):
         assert isinstance(rr, TorchReranker) and rr._max_batch == 16
     finally:
         rr.close()
-    with pytest.raises(ValueError, match="queue 1 item 7"):
-        treranker.create_reranker(_config(ranking={"model_engine": "remote", "server_url": "x"}))
+    remote = treranker.create_reranker(
+        _config(ranking={"model_engine": "remote", "server_url": "http://h:1"}))
+    assert isinstance(remote, treranker.RemoteReranker) and remote._url == "http://h:1/v1"
+    with pytest.raises(ValueError, match="requires ranking.server_url"):
+        treranker.create_reranker(_config(ranking={"model_engine": "remote"}))
 
 
 # --------------------------------------------------------------------------- #

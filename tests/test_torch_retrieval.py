@@ -211,7 +211,7 @@ def test_create_vector_store_serves_the_jax_in_process_names(tmp_path):
                                     ann_mode="ivf", nlist=8, nprobe=2)
         assert isinstance(store, TorchVectorStore) and store._ann_opts["mode"] == "ivf"
     for name in ("faiss", "milvus", "pgvector"):
-        with pytest.raises(ValueError, match="queue 1 item 7"):
+        with pytest.raises(ValueError, match="queue 1 item 13"):
             create_vector_store(name, D)
     with pytest.raises(ValueError, match="Unknown vector store"):
         create_vector_store("elastic", D)
