@@ -75,7 +75,8 @@ Phases (each one's failure makes the script exit non-zero):
    the device's idle share; ``DELETE /documents`` drops a document from the
    store and BM25; ``deadline_ms`` 1 answers 504. It prints ingest s a
    document, /search ms, TTFT with its retrieval ms, prompt ids, decode
-   tokens/s and the idle share.
+   tokens/s and the idle share, and the prefix cache's hits and misses
+   (the engine serves at the JAX default, ``prefix_cache_enable`` auto).
 8. chains: the text chains through the port's chain server, each picked
    through the registry, on phase 7's deployment (its engine A, encoders
    and ``default`` collection; alone, it builds them and ingests phase 7's
@@ -96,11 +97,31 @@ Phases (each one's failure makes the script exit non-zero):
    ``int8_matmul``, ``paged_attention`` and ``flash_attention_causal`` are
    launched and the LLM dispatch thread makes no synchronizing call. It
    prints TTFT (mean, max) and prompt ids by chain, engine requests an
-   answer, the launches and the phase's wall seconds.
+   answer, the launches, the prefix cache's hits and misses and the
+   phase's wall seconds.
+9. prefix: the automatic prefix KV cache on recipes A (shared pool pages)
+   and D (a store of int8 strips and one copy a hit), llama3-8b at full
+   width and depth, random weights (seed 0), the engine defaults
+   otherwise (``prefill_chunk`` 512, ``page_size`` 128,
+   ``decode_runahead`` 4). The JAX bench's shared-prefix pass: one
+   preamble of 4 chunks (2048 ids), 16 distinct questions of 128 ids, 16
+   greedy tokens, one request at a time, through an engine with
+   ``prefix_cache_enable`` off (the cold streams) and then, on the same
+   weights, an engine at the default ``auto`` (the warm ones). Every warm
+   stream equals its cold one; 1 miss and 15 hits; a warm request
+   dispatches 1 prefill chunk where a cold one dispatches 5; D makes 16
+   store copies (1 insert, 15 fetches), A none and maps 15 x 16 pages; on
+   A the donor's pages hold the same bits after the 16 decodes and the
+   pages in use are the entries'; 0 synchronizing calls on the dispatch
+   thread; then one held wave of a warm row, a cold 1.5k-id row and a
+   300-id row, each equal to its cold reference or parting from it only
+   at a token whose top-1 margin is within ``LOGITS_TOL`` (printed). It
+   prints cold and warm TTFT (p50, max), the chunks, hits, misses, tokens
+   reused and the pool or store size.
 
 With no arguments it runs every phase, as above; ``--phases``,
 ``--checks`` and ``--recipes`` run a part (for example ``--phases serve
---recipes B`` or ``--phases chains``) and then print only the kernels that part measured;
+--recipes B``, ``--phases chains`` or ``--phases prefix``) and then print only the kernels that part measured;
 ``--runahead N`` serves every engine at ``decode_runahead`` N, and
 ``--timing-only`` leaves out the runahead and overload checks (for timed
 runs of an older tree, which lacks them).
@@ -127,7 +148,7 @@ import warnings
 
 import torch
 
-from generativeaiexamples_tpu_torch.config import EngineConfig as _EngineConfig
+from generativeaiexamples_tpu_torch.config import EngineConfig
 from generativeaiexamples_tpu_torch.ops import _build
 from generativeaiexamples_tpu_torch.ops import decode_attention as da
 from generativeaiexamples_tpu_torch.ops import flash_attention as fa
@@ -153,7 +174,7 @@ KERNELS = {
 }
 # whether the engine has the reader thread (an older tree's engine, timed
 # against this one, decodes synchronously)
-_HAS_READER = "decode_runahead" in _EngineConfig.__dataclass_fields__
+_HAS_READER = "decode_runahead" in EngineConfig.__dataclass_fields__
 _COUNTED = (im.int8_matmul, im.int8_w8a8_matmul, fa.flash_attention_causal, da.decode_attention)
 # the serving recipes: (name, quantization, kv_cache_dtype, kv_layout, kernels its path must launch)
 RECIPES = (
@@ -1810,6 +1831,13 @@ class _RecordingEngine:
         return getattr(self._engine, name)
 
 
+def _prefix_counts(before, after) -> dict:
+    """The prefix cache's hits and misses between two ``engine.stats()``
+    (the chains' preambles are shorter than a prefill chunk: few hits)."""
+    return {k: after.get("prefix_cache_" + k, 0) - before.get("prefix_cache_" + k, 0)
+            for k in ("hits", "misses")}
+
+
 def _device_spans(prof) -> list:
     """(start, end) in microseconds of every device event of a finished
     torch.profiler trace, from its raw Kineto events (building the
@@ -2152,8 +2180,10 @@ def phase_rag(dev, smi, seed=0, encoders=None, keep=False):
             "prompt_ids_min": min(prompt_ids), "prompt_ids_max": max(prompt_ids),
             "decode_tokens_per_s": d_rows / d_time if d_time else None,
             "round_s": wall, "launches": launched, "dispatch_syncs": dispatch_syncs,
-            "syncs_by_thread": dict(syncs.counts),
+            "syncs_by_thread": dict(syncs.counts), "prefix_cache": _prefix_counts(before, after),
         })
+        note(f"prefix cache (JAX default, auto) over the round: {out['prefix_cache']['hits']} hits, "
+             f"{out['prefix_cache']['misses']} misses")
         note(f"/generate x{len(results)} concurrent (8 over the knowledge base, 1 without; "
             f"max_tokens 64): every stream ends in [DONE], none is a no-context answer, each "
             f"engine prompt holds its top hit's text; prompts {min(prompt_ids)}-"
@@ -2322,6 +2352,7 @@ def phase_chains(dev, smi, seed=0, dep=None, encoders=None) -> dict:
         note(f"phase 7's engine A, encoders and 'default' collection "
              f"({runtime.get_vector_store('default').count()} chunks)")
     config, engine = dep["config"], dep["engine"]
+    stats0 = engine.stats()
     names = [n for n, _ in files]
     # the documents 'default' still holds (phase 7 deletes one)
     present = set(runtime.get_vector_store("default").sources())
@@ -2524,7 +2555,10 @@ def phase_chains(dev, smi, seed=0, dep=None, encoders=None) -> dict:
             "qd_engine_requests_per_answer": per_answer, "simple_rag_chunks": n_sr,
             "conv_store_chunks": n_dense, "launches": launched, "dispatch_syncs": dispatch_syncs,
             "syncs_by_thread": dict(syncs.counts), "wall_s": wall,
+            "prefix_cache": _prefix_counts(stats0, engine.stats()),
         })
+        note(f"prefix cache (JAX default, auto) over the phase: {out['prefix_cache']['hits']} "
+             f"hits, {out['prefix_cache']['misses']} misses")
         note(f"launches in the phase: " + ", ".join(f"{n} {launched[n]}" for n in RAG_EXPECTED)
              + f"; synchronizing calls by thread: {dict(syncs.counts) or 'none'} (LLM dispatch "
              f"thread: {dispatch_syncs}); phase wall {wall:.1f} s on {smi}")
@@ -2538,9 +2572,243 @@ def phase_chains(dev, smi, seed=0, dep=None, encoders=None) -> dict:
     return out
 
 
+# --------------------------------------------------------------------- #
+# Phase 9: the automatic prefix KV cache
+
+# the JAX bench's shared-prefix pass (bench.py): one preamble of
+# PREFIX_CHUNKS prefill chunks, PREFIX_QUESTIONS distinct questions of
+# PREFIX_QUESTION_IDS ids after it, PREFIX_TOKENS greedy tokens each, one
+# request at a time
+PREFIX_CHUNKS, PREFIX_QUESTIONS, PREFIX_QUESTION_IDS, PREFIX_TOKENS = 4, 16, 128, 16
+PREFIX_RECIPES = "AD"  # the bf16 paged pool (shared pages) and the int8 fixed store (copies)
+
+
+def _prefix_stream(engine, prompt, params):
+    """One request alone: (stream, TTFT s, prefill chunks it dispatched)."""
+    c0 = engine.stats()["prefill_chunks"]
+    t0 = time.perf_counter()
+    q = engine.generate_ids(prompt, params)
+    first = q.get(timeout=600)
+    ttft = time.perf_counter() - t0
+    stream = [] if first is None else [first] + _drain_ids(q)
+    return stream, ttft, engine.stats()["prefill_chunks"] - c0
+
+
+def _settle(engine, timeout=60.0) -> None:
+    """Wait until the dispatch thread has released every slot."""
+    deadline = time.time() + timeout
+    while engine._slot_req and time.time() < deadline:
+        time.sleep(0.01)
+    if engine._slot_req:
+        raise AssertionError("slots still held after every stream ended")
+
+
+def _last_logits(engine, ids):
+    """The logits after ``ids``, prefilled chunk by chunk through the model
+    functions over a page pool of their own (the margin of a cold
+    reference's token)."""
+    from generativeaiexamples_tpu_torch.models import llama
+
+    cfg, dev, ec = engine.model_config, engine.device, engine.engine_config
+    C, page = ec.prefill_chunk, ec.page_size
+    n_chunks = -(-len(ids) // C)
+    pmax = engine._attention_window(n_chunks * C) // page
+    pool = llama.init_kv_pool(cfg, 1 + pmax, page, torch.bfloat16, dev, quantized=engine._kv_quant)
+    tables = torch.arange(1, 1 + pmax, dtype=torch.int32, device=dev)[None]
+    for k in range(n_chunks):
+        seg = ids[k * C:(k + 1) * C]
+        h, _ = llama.extend_layers_paged(
+            engine.params, cfg, torch.tensor([seg + [0] * (C - len(seg))], device=dev),
+            torch.tensor([k * C], device=dev), torch.tensor([len(seg)], device=dev),
+            torch.tensor([0], device=dev), tables, pool,
+            engine._attention_window(min((k + 1) * C, engine.max_seq_len)), page,
+            quant_kernel=engine._quant_kernel)
+    return llama._head(engine.params, h[:, None, :], cfg, engine._quant_kernel)[0, 0, : engine._sample_vocab]
+
+
+def _tie_checked(engine, label, prompt, got, want) -> int:
+    """``got`` equals its cold reference ``want``, or the two part at a
+    token whose top-1 margin in the reference's logits is within
+    LOGITS_TOL (a random-init tie; after it the contexts differ). Returns
+    1 for a tie, 0 for equal streams."""
+    if got == want:
+        return 0
+    at = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), min(len(got), len(want)))
+    top2 = torch.topk(_last_logits(engine, prompt + want[:at]).float(), 2).values
+    margin = float(top2[0] - top2[1])
+    log(f"    {label}: parts from its cold reference at token {at} (got "
+        f"{got[at] if at < len(got) else 'the end'}, cold {want[at] if at < len(want) else 'the end'}), "
+        f"where the cold top-1 margin is {margin:.4g} (tolerance {LOGITS_TOL})")
+    if margin > LOGITS_TOL:
+        raise AssertionError(f"{label}: the warm engine's stream differs from the cold one "
+                             f"beyond a tie (margin {margin:.4g} > {LOGITS_TOL})")
+    return 1
+
+
+def prefix_recipe(dev, smi, name, quantization, kv_dtype, layout, expected, seed) -> dict:
+    """One recipe's shared-prefix pass: a cache-off engine gives the cold
+    streams, then an engine at the JAX default (``prefix_cache_enable``
+    auto, 4 slots) on the same weights gives the warm ones; the two are
+    built one after the other."""
+    import random
+
+    from generativeaiexamples_tpu_torch.engine.llm_engine import LLMEngine, SamplingParams
+
+    rng = random.Random(seed * 1000 + ord(name))
+    base = EngineConfig(model_config_name=MODEL, quantization=quantization,
+                        kv_cache_dtype=kv_dtype, kv_layout=layout)
+    C = base.prefill_chunk
+    preamble = [256] + [rng.randrange(1, 256) for _ in range(PREFIX_CHUNKS * C - 1)]
+    prompts = [preamble + [rng.randrange(1, 256) for _ in range(PREFIX_QUESTION_IDS)]
+               for _ in range(PREFIX_QUESTIONS)]
+    # the mixed wave: a warm row (the preamble and a new question), a cold
+    # 1.5k-id row and a 300-id row (one chunk: the flash kernel)
+    wave = [preamble + [rng.randrange(1, 256) for _ in range(PREFIX_QUESTION_IDS)],
+            [256] + [rng.randrange(1, 256) for _ in range(1499)],
+            [256] + [rng.randrange(1, 256) for _ in range(299)]]
+    params = SamplingParams(temperature=0.0, max_tokens=PREFIX_TOKENS)
+    out = {"prompt_ids": len(prompts[0]), "preamble_ids": len(preamble)}
+
+    t0 = time.time()
+    cold = LLMEngine(dataclasses.replace(base, prefix_cache_enable="off"), device=dev)
+    weights = cold.params
+    try:
+        if cold._prefix is not None or cold._paged != (layout == "paged"):
+            raise AssertionError(f"{name}: the cache-off engine is not the one asked for")
+        cold_runs = [_prefix_stream(cold, p, params) for p in prompts]
+        wave_refs = [_prefix_stream(cold, p, params)[0] for p in wave]
+    finally:
+        cold.shutdown()
+        del cold
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"  {name}: cold engine (prefix_cache_enable off) served {PREFIX_QUESTIONS} requests "
+        f"of {out['prompt_ids']} ids ({time.time() - t0:.1f} s with its build)")
+
+    t1 = time.time()
+    warm = LLMEngine(base, device=dev, params=weights)
+    try:
+        if warm._prefix is None or warm._paged != (layout == "paged"):
+            raise AssertionError(f"{name}: the JAX default built no prefix cache")
+        cache_bytes = warm.prefix_cache_bytes()
+        if warm._paged:
+            mem = (f"pool {warm._pool_pages} pages x {base.page_size} "
+                   f"({sum(t.numel() * t.element_size() for c in warm._cache for t in c.values()) / 2**30:.2f} GiB), "
+                   f"{cache_bytes / 2**30:.2f} GiB of it the {base.prefix_cache_slots} entries' strips")
+        else:
+            mem = (f"store {base.prefix_cache_slots} slots x {warm.max_seq_len} rows "
+                   f"{kv_dtype} ({cache_bytes / 2**30:.2f} GiB)")
+        log(f"  {name}: warm engine (prefix_cache_enable auto, {base.prefix_cache_slots} slots): {mem}")
+        reset_counts()
+        snap = None
+        with SyncCounter() as syncs:
+            warm_runs = [_prefix_stream(warm, prompts[0], params)]
+            if warm._paged:  # the donor's pages, right after its insert
+                (entry,) = warm._prefix._entries
+                snap = (list(entry.pages),
+                        [{k: t[entry.pages].clone() for k, t in c.items()} for c in warm._cache])
+            warm_runs += [_prefix_stream(warm, p, params) for p in prompts[1:]]
+            _settle(warm)
+            st = warm.stats()
+            with warm.hold_admissions():
+                reqs = [warm.submit(p, params) for p in wave]
+            wave_out = [_drain_ids(r.out_queue) for r in reqs]
+            _settle(warm)
+        launched = counts()
+        dispatch_syncs = syncs.counts["torch-llm-engine"]
+        end = warm.stats()
+
+        # identity, hits and chunks
+        mismatched = [i for i, ((a, _, _), (b, _, _)) in enumerate(zip(warm_runs, cold_runs)) if a != b]
+        if mismatched:
+            raise AssertionError(f"{name}: warm streams {mismatched} differ from their cold streams")
+        cold_chunks = [c for _, _, c in cold_runs]
+        warm_chunks = [c for _, _, c in warm_runs]
+        n_chunks = -(-out["prompt_ids"] // C)
+        hits, misses = st["prefix_cache_hits"], st["prefix_cache_misses"]
+        if cold_chunks != [n_chunks] * PREFIX_QUESTIONS or \
+                warm_chunks != [n_chunks] + [1] * (PREFIX_QUESTIONS - 1):
+            raise AssertionError(f"{name}: prefill chunks cold {cold_chunks}, warm {warm_chunks}")
+        if (hits, misses) != (PREFIX_QUESTIONS - 1, 1) or \
+                st["prefix_cache_tokens_reused"] != (PREFIX_QUESTIONS - 1) * len(preamble):
+            raise AssertionError(f"{name}: hits {hits}, misses {misses}, tokens reused "
+                                 f"{st['prefix_cache_tokens_reused']}")
+        pages_per_hit = len(preamble) // base.page_size
+        want = ((0, (PREFIX_QUESTIONS - 1) * pages_per_hit) if warm._paged
+                else (PREFIX_QUESTIONS, 0))  # fixed: 1 insert + 15 fetches
+        if (st["prefix_copy_dispatches"], st["prefix_pages_mapped"]) != want:
+            raise AssertionError(f"{name}: copies {st['prefix_copy_dispatches']}, pages mapped "
+                                 f"{st['prefix_pages_mapped']}, expected {want}")
+        if dispatch_syncs:
+            raise AssertionError(f"{name}: the dispatch thread waited for the card {dispatch_syncs} times")
+        missing = [n for n in expected if launched[n] == 0]
+        if missing:
+            raise AssertionError(f"{name}: kernels never launched by the prefix path: {missing}")
+        if snap is not None:
+            pages, before = snap
+            changed = [(i, k) for i, (b, c) in enumerate(zip(before, warm._cache))
+                       for k in b if not torch.equal(b[k], c[k][pages])]
+            if changed:
+                raise AssertionError(f"{name}: donated pages changed under decode: {changed[:4]}")
+            held = len({p for e in warm._prefix._entries for p in e.pages or ()})
+            if end["pages_in_use"] != held:
+                raise AssertionError(f"{name}: {end['pages_in_use']} pages in use, entries hold {held}")
+        ties = sum(_tie_checked(warm, f"{name} mixed wave {label}", p, got, ref)
+                   for label, p, got, ref in zip(("warm", "cold 1.5k", "300-id"), wave, wave_out,
+                                                 wave_refs))
+        if end["prefix_cache_hits"] - hits != 1:
+            raise AssertionError(f"{name}: the mixed wave's warm row did not hit")
+    finally:
+        warm.shutdown()
+        del warm
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    cold_ttft = [t for _, t, _ in cold_runs]
+    warm_ttft = [t for _, t, _ in warm_runs[1:]]
+    out.update({
+        "ttft_cold_s": {"p50": statistics.median(cold_ttft), "max": max(cold_ttft)},
+        "ttft_warm_s": {"p50": statistics.median(warm_ttft), "max": max(warm_ttft)},
+        "ttft_first_warm_engine_s": warm_runs[0][1],
+        "warm_over_cold_p50": statistics.median(warm_ttft) / statistics.median(cold_ttft),
+        "chunks_cold": n_chunks, "chunks_warm": 1, "hits": hits, "misses": misses,
+        "tokens_reused": st["prefix_cache_tokens_reused"],
+        "copy_dispatches": st["prefix_copy_dispatches"], "pages_mapped": st["prefix_pages_mapped"],
+        "cache_bytes": cache_bytes, "dispatch_syncs": dispatch_syncs,
+        "mixed_wave_ties": ties, "launches": launched,
+        "syncs_by_thread": dict(syncs.counts), "wall_s": time.time() - t0,
+    })
+    log(f"  {name}: {PREFIX_QUESTIONS} warm streams token-identical to the cold ones; prefill "
+        f"chunks a request cold {n_chunks}, warm 1; hits {hits}, misses {misses}, tokens reused "
+        f"{out['tokens_reused']}; store copies {out['copy_dispatches']}, pages mapped "
+        f"{out['pages_mapped']}; dispatch-thread syncs {dispatch_syncs}"
+        + ("; donated pages bitwise unchanged, pages in use = the entries' pages" if snap else ""))
+    log(f"  {name}: TTFT cold p50 {out['ttft_cold_s']['p50']:.4f} s max {out['ttft_cold_s']['max']:.4f} s; "
+        f"warm p50 {out['ttft_warm_s']['p50']:.4f} s max {out['ttft_warm_s']['max']:.4f} s "
+        f"(warm / cold p50 {out['warm_over_cold_p50']:.3f}; the warm engine's first, a miss, "
+        f"{out['ttft_first_warm_engine_s']:.4f} s); mixed wave: {3 - ties} of 3 rows equal to "
+        f"their cold references, {ties} parted at a tie; launches {launched}; on {smi}")
+    return out
+
+
+def phase_prefix(dev, smi, seed=0) -> dict:
+    """The prefix KV cache on recipes A and D (module docstring, phase 9)."""
+    t0 = time.time()
+    out = {}
+    for name, quantization, kv_dtype, layout, expected in RECIPES:
+        if name in PREFIX_RECIPES:
+            out[name] = prefix_recipe(dev, smi, name, quantization, kv_dtype, layout, expected, seed)
+    launches = collections.Counter()
+    for r in out.values():
+        launches.update(r["launches"])
+    log(f"phase prefix: ok ({time.time() - t0:.1f} s)")
+    return {"recipes": {n: {k: v for k, v in r.items() if k != "launches"} for n, r in out.items()},
+            "launches": dict(launches)}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="kernels,model,serve,retrieval,rag,chains",
+    parser.add_argument("--phases", default="kernels,model,serve,retrieval,rag,chains,prefix",
                         help="phases after the build, comma-separated (default: all)")
     parser.add_argument("--checks", default=",".join(CHECKS),
                         help="phase 3's kernel checks, comma-separated (default: all)")
@@ -2573,6 +2841,7 @@ def main() -> int:
                 if "rag" in phases else ({}, None))
     chains = (phase_chains(dev, info["smi"], args.seed, dep, encoders)
               if "chains" in phases else {})
+    prefix = phase_prefix(dev, info["smi"], args.seed) if "prefix" in phases else {}
     kernels = []
     for name, (replaces, source) in KERNELS.items():
         if name not in results:  # a check left out by --checks
@@ -2581,14 +2850,15 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(sv["launches"][name] for sv in serves.values())
-            + rag.get("launches", {}).get(name, 0) + chains.get("launches", {}).get(name, 0), **r,
+            + sum(ph.get("launches", {}).get(name, 0) for ph in (rag, chains, prefix)), **r,
         })
     log(f"total {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": kernels, "serve": {
         name: {k: v for k, v in sv.items() if k != "launches"} for name, sv in serves.items()
     }, "retrieval": retrieval,
         "rag": {k: v for k, v in rag.items() if k != "launches"},
-        "chains": {k: v for k, v in chains.items() if k != "launches"}}), flush=True)
+        "chains": {k: v for k, v in chains.items() if k != "launches"},
+        "prefix": prefix.get("recipes", {})}), flush=True)
     print(info["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -91,8 +91,8 @@ class MultiTurnChatbot(BaseExample):
         history = runtime.cap_context([h.chunk.text for h in conv_hits], config=config)
         prompt = (config.prompts.multi_turn_rag_template.format(
             input=query, history=history, context=context) + "User Query: " + query)
-        # one hint a conversation, keyed off its first exchange (JAX's
-        # prefix cache keeps it warm; the port's backend drops it)
+        # one hint a conversation, keyed off its first exchange: the
+        # engine's prefix cache keeps its entry warm between turns
         hist = runtime.history_to_messages(chat_history)
         convo = (hashlib.sha1(hist[0][1].encode("utf-8", "ignore")).hexdigest()[:12]
                  if hist else "first-turn")

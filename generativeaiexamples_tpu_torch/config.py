@@ -39,7 +39,6 @@ ENV_PREFIX = "APP_ENGINE_"
 
 _CKPT = "checkpoints load with training and checkpoints (ROADMAP queue 1 item 10)"
 _MULTI = "the port serves one card until multi-GPU (ROADMAP queue 1 item 9)"
-_PREFIX = "the prefix cache arrives with ROADMAP queue 1 item 4"
 _SPEC = "speculative decoding arrives with ROADMAP queue 1 item 5"
 _DISAGG = "scheduler policies arrive with disaggregation (ROADMAP queue 1 item 8)"
 _SNAP = "drain and snapshots arrive with disaggregation (ROADMAP queue 1 item 8)"
@@ -59,8 +58,6 @@ JAX_ONLY_FIELDS = {
     "paged_kernel": ("auto", "the port always reads a paged pool through its kernel on the card", ()),
     "warmup_prompt_lengths": ("", None, ()),
     "chunked_prefill": ("auto", "the port always chunks prompts longer than prefill_chunk", ()),
-    "prefix_cache_enable": ("auto", _PREFIX, ("off",)),
-    "prefix_cache_slots": (4, _PREFIX, ()),
     "spec_decode_enable": ("off", _SPEC, ()),
     "spec_pipeline_enable": ("on", _SPEC, ()),
     "spec_draft_len": (8, _SPEC, ()),
@@ -126,6 +123,12 @@ class EngineConfig:
     # the dispatch loop's watchdog: work outstanding and no progress for
     # this long marks the engine wedged; 0 disables it
     watchdog_stall_s: float = 300.0
+    # auto | off: the automatic prefix KV cache (engine/prefix_cache.py):
+    # a chunk-aligned prompt prefix another request prefilled is served
+    # from refcounted pool pages (paged) or one store copy (fixed)
+    prefix_cache_enable: str = "auto"
+    # cached prefixes kept; each reserves one max_seq_len strip; 0 disables
+    prefix_cache_slots: int = 4
 
     @classmethod
     def env_name(cls, field: str) -> str:
@@ -179,15 +182,9 @@ class EngineConfig:
             )
         if self.prefill_chunk <= 0:
             raise ValueError(f"prefill_chunk must be > 0, got {self.prefill_chunk}")
-        p = self.page_size
-        if self.kv_layout == "paged":  # auto falls back to fixed instead
-            if p <= 0 or p & (p - 1) or p > 128:
-                raise ValueError(f"page_size must be a power of two <= 128, got {p}")
-            if self.prefill_chunk % p:
-                raise ValueError(
-                    f"prefill_chunk ({self.prefill_chunk}) must be a positive multiple of "
-                    f"page_size ({p})"
-                )
+        from generativeaiexamples_tpu_torch.engine import kv_pages
+
+        kv_pages.validate_config(self)  # auto falls back to fixed instead
         if self.max_batch_size < 1:
             raise ValueError(f"max_batch_size must be >= 1, got {self.max_batch_size}")
         if self.decode_block < 1:
@@ -217,6 +214,16 @@ class EngineConfig:
             raise ValueError(
                 f"watchdog_stall_s must be >= 0 (0 disables), got "
                 f"{self.watchdog_stall_s}"
+            )
+        if self.prefix_cache_enable not in ("auto", "off"):
+            raise ValueError(
+                f"prefix_cache_enable must be auto|off, got "
+                f"{self.prefix_cache_enable!r}"
+            )
+        if self.prefix_cache_slots < 0:
+            raise ValueError(
+                f"prefix_cache_slots must be >= 0, got "
+                f"{self.prefix_cache_slots}"
             )
 
 

@@ -128,3 +128,9 @@ def validate_config(cfg) -> None:
     )
     _require(e.watchdog_stall_s >= 0,
              f"engine.watchdog_stall_s must be >= 0 (0 disables), got {e.watchdog_stall_s}")
+    _require(e.prefix_cache_enable in ("auto", "off"),
+             f"engine.prefix_cache_enable must be auto|off, "
+             f"got {e.prefix_cache_enable!r}")
+    _require(e.prefix_cache_slots >= 0,
+             f"engine.prefix_cache_slots must be >= 0 (0 disables), "
+             f"got {e.prefix_cache_slots}")

@@ -1,19 +1,23 @@
 """Host-side page allocator for the paged KV pool.
 
 A copy of the parts of generativeaiexamples_tpu/engine/kv_pages.py that the
-serving slice uses: a free list over the device page pool, with
-physical page 0 reserved as the scratch page (dead rows and padding writes
-land there), the sizing rules, and the rules under which
-``kv_layout='auto'`` serves the fixed layout instead. The engine reserves every page a request
-can touch at admission (prompt + generation budget + dispatch slack), so a
-decode step never allocates and the pool never over-commits. Counters are
-plain integers (``stats()``). Refcounted sharing comes with the prefix
-cache.
+serving slice uses: a refcounted free list over the device page pool,
+with physical page 0 reserved as the scratch page (dead rows and padding
+writes land there), the sizing rules, the explicit paged layout's checks,
+and the rules under which ``kv_layout='auto'`` serves the fixed layout
+instead. The engine reserves every page a request can touch at admission
+(prompt + generation budget + dispatch slack), so a decode step never
+allocates and the pool never over-commits. A page is shared by refcount
+between a prefix-cache entry and every request whose prompt starts with
+that prefix (engine/prefix_cache.py): a hit maps the entry's pages into
+the request's table (``retain``) and the insert after prefill donates the
+request's own prompt pages the same way. Counters are plain integers
+(``stats()``).
 """
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional, Sequence, Set
+from typing import Dict, List, Optional, Sequence
 
 SCRATCH_PAGE = 0
 
@@ -32,12 +36,36 @@ def pages_needed(
     return pages_for_tokens(min(prompt_len + max_tokens + slack, max_seq_len), page_size)
 
 
-def pool_pages(cfg, max_seq_len: int) -> int:
+def pool_pages(cfg, max_seq_len: int, prefix_slots: int = 0) -> int:
     """Pool size in pages: ``kv_pool_pages`` when set, else one
-    full-capacity strip per decode slot, plus the scratch page."""
+    full-capacity strip per decode slot and one per prefix-cache slot
+    (entries hold refcounted pool pages; the paged layout has no separate
+    store), plus the scratch page."""
     if cfg.kv_pool_pages > 0:
         return cfg.kv_pool_pages
-    return 1 + cfg.max_batch_size * pages_for_tokens(max_seq_len, cfg.page_size)
+    per_slot = pages_for_tokens(max_seq_len, cfg.page_size)
+    return 1 + (cfg.max_batch_size + max(0, prefix_slots)) * per_slot
+
+
+def validate_config(cfg) -> None:
+    """The checks of an explicit ``kv_layout='paged'``, with the JAX
+    package's messages (``auto`` serves a geometry that does not tile on
+    the fixed layout instead, :func:`auto_layout_blockers`)."""
+    if cfg.kv_layout != "paged":
+        return
+    p = cfg.page_size
+    if p <= 0 or (p & (p - 1)) != 0:
+        raise ValueError(f"page_size must be a positive power of two, got {p}")
+    if p > 128:
+        raise ValueError(
+            f"page_size must divide the 128-token attention-window rung (<= 128), got {p}"
+        )
+    if cfg.prefill_chunk % p:
+        raise ValueError(
+            f"prefill_chunk ({cfg.prefill_chunk}) must be a multiple of "
+            f"page_size ({p}) so chunk-aligned prefix-cache entries are "
+            f"page-aligned (zero-copy sharing needs whole pages)"
+        )
 
 
 def auto_layout_blockers(cfg, max_seq_len: int) -> List[str]:
@@ -76,7 +104,7 @@ def validate_runtime(page_size: int, max_seq_len: int, pool: int) -> None:
 
 
 class PageAllocator:
-    """Free-list allocator over the device page pool. Page 0
+    """Refcounted free-list allocator over the device page pool. Page 0
     (``SCRATCH_PAGE``) is never handed out."""
 
     def __init__(self, pool: int, page_size: int) -> None:
@@ -90,50 +118,93 @@ class PageAllocator:
         self._lock = threading.Lock()
         # pop() hands out page 1 first
         self._free: List[int] = list(range(pool - 1, 0, -1))  # guarded by self._lock
-        self._used: Set[int] = set()  # guarded by self._lock
+        self._refs: Dict[int, int] = {}  # guarded by self._lock
         self._allocs = 0  # guarded by self._lock
         self._frees = 0  # guarded by self._lock
         self._failures = 0  # guarded by self._lock
+        self._prefix_mapped = 0  # guarded by self._lock
 
-    def alloc(self, n: int) -> Optional[List[int]]:
-        """Reserve ``n`` fresh pages; None when the free list is short
-        (the caller requeues the request)."""
+    def alloc(self, n: int, count_failure: bool = True) -> Optional[List[int]]:
+        """Reserve ``n`` fresh pages (refcount 1 each); None when the free
+        list is short (the caller requeues the request).
+        ``count_failure=False`` keeps the attempts of an evict-and-retry
+        loop out of the failure count (``record_alloc_failure`` counts its
+        final give-up)."""
         if n <= 0:
             return []
         with self._lock:
             if len(self._free) < n:
-                self._failures += 1
+                if count_failure:
+                    self._failures += 1
                 return None
             pages = [self._free.pop() for _ in range(n)]
-            self._used.update(pages)
+            for p in pages:
+                self._refs[p] = 1
             self._allocs += n
             return pages
 
-    def release(self, pages: Sequence[int]) -> int:
-        """Return pages to the free list; returns how many."""
+    def retain(self, pages: Sequence[int]) -> None:
+        """Refcount bump for sharing (a prefix hit's map, an insert's
+        donation). Every page must already be allocated."""
+        if not pages:
+            return
         with self._lock:
             for p in pages:
-                if p not in self._used:
+                if p not in self._refs:
+                    raise ValueError(f"retain of unallocated page {p}")
+                self._refs[p] += 1
+
+    def release(self, pages: Sequence[int]) -> int:
+        """Refcount drop; pages reaching zero return to the free list.
+        Returns how many were freed."""
+        if not pages:
+            return 0
+        freed = 0
+        with self._lock:
+            for p in pages:
+                refs = self._refs.get(p)
+                if refs is None:
                     raise ValueError(f"release of unallocated page {p}")
-                self._used.remove(p)
-                self._free.append(p)
-            self._frees += len(pages)
-        return len(pages)
+                if refs > 1:
+                    self._refs[p] = refs - 1
+                else:
+                    del self._refs[p]
+                    self._free.append(p)
+                    freed += 1
+            self._frees += freed
+        return freed
+
+    def record_alloc_failure(self) -> None:
+        """Count one admission the pool could not fund even after evicting
+        unpinned prefix entries (it is requeued)."""
+        with self._lock:
+            self._failures += 1
+
+    def record_prefix_mapped(self, pages: int) -> None:
+        """Count pages a prefix-cache hit mapped into a request's table."""
+        with self._lock:
+            self._prefix_mapped += pages
 
     def free_pages(self) -> int:
         with self._lock:
             return len(self._free)
 
+    def refcount(self, page: int) -> int:
+        with self._lock:
+            return self._refs.get(page, 0)
+
     def stats(self) -> Dict[str, float]:
         with self._lock:
-            used = len(self._used)
+            used = len(self._refs)
             return {
                 "page_size": self.page_size,
                 "pages_capacity": self.capacity,
                 "pages_in_use": used,
                 "pages_free": len(self._free),
+                "pages_shared": sum(1 for r in self._refs.values() if r > 1),
                 "utilization": used / self.capacity,
                 "page_allocs": self._allocs,
                 "page_frees": self._frees,
                 "page_alloc_failures": self._failures,
+                "prefix_pages_mapped": self._prefix_mapped,
             }

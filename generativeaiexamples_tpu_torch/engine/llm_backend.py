@@ -12,9 +12,12 @@ Counterpart of generativeaiexamples_tpu/engine/llm_backend.py:
 ``create_llm`` takes the JAX config's ``llm.model_engine`` names: ``tpu``
 and ``local`` (the in-process engine), ``openai``,
 ``nvidia-ai-endpoints`` and ``remote`` (with ``llm.server_url``), ``echo``.
-``stream_chat`` accepts ``prefix_hint`` and ``spec_decode`` and drops
-both: the port's ``SamplingParams`` has neither yet (ROADMAP queue 1
-items 4 and 5).
+``stream_chat`` takes ``prefix_hint``, the chain or session a request
+belongs to: ``TorchLLMBackend`` hands it to the engine's prefix KV cache
+(``SamplingParams.prefix_hint``) and ``RemoteLLMBackend`` drops it, as
+the JAX backends do (the OpenAI wire format has no field for it). Every
+backend drops ``spec_decode``: the port has no speculative decoding yet
+(ROADMAP queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -61,7 +64,7 @@ class TorchLLMBackend(LLMBackend):
         from generativeaiexamples_tpu_torch.engine.tokenizer import render_chat_cached
 
         params = SamplingParams(temperature=temperature, top_p=top_p, max_tokens=max_tokens,
-                                stop=tuple(stop or ()))
+                                stop=tuple(stop or ()), prefix_hint=prefix_hint)
         # the request's remaining budget (bound to this thread by the
         # server) becomes the stream's timeout; the submit is eager, so a
         # full admission queue raises EngineOverloaded here, before any

@@ -58,9 +58,20 @@ requests enqueue; ``is_decoding`` and ``scheduler.ingest_window`` (the
 frees the last slot) are what the retrieval embedder asks before bulk
 work.
 
+The automatic prefix KV cache (``prefix_cache_enable='auto'``, the JAX
+default; engine/prefix_cache.py) indexes each chunked prompt's
+chunk-aligned prefix after its prefill. A later request whose prompt
+starts with a cached prefix (matched at admission, before funding)
+prefills only the chunks past it: on the paged layout its page table
+maps the entry's refcounted pages (no device work; ``_fund``), on the
+fixed layout one copy brings the rows from the prefix store into its
+strip before the first chunk (``llama.copy_kv_rows``). Either way the
+copies and maps are ordered on the dispatch thread's stream and nothing
+waits for the device.
+
 Dead slots decode at position 0: on the paged layout they write the
 scratch page, on the fixed layout rows of their own strip, as in JAX.
-Prefix caching, speculative decoding, disaggregation, snapshots, drain, the flight
+Speculative decoding, disaggregation, snapshots, drain, the flight
 recorder and telemetry are not ported yet.
 
 The engine runs on the card: ``device=None`` means CUDA and raises when
@@ -84,7 +95,7 @@ import numpy as np
 import torch
 
 from generativeaiexamples_tpu_torch.config import EngineConfig
-from generativeaiexamples_tpu_torch.engine import kv_pages
+from generativeaiexamples_tpu_torch.engine import kv_pages, prefix_cache
 from generativeaiexamples_tpu_torch.engine.scheduler.unified import UnifiedPolicy
 from generativeaiexamples_tpu_torch.engine.tokenizer import load_tokenizer
 from generativeaiexamples_tpu_torch.models import llama, sampling
@@ -102,6 +113,9 @@ class SamplingParams:
     max_tokens: int = 1024
     stop: Tuple[str, ...] = ()
     seed: int = 0
+    # the chain or session a request belongs to: bumps its cached
+    # prefix's recency at submit (advisory; matching is by content)
+    prefix_hint: Optional[str] = None
 
 
 @dataclasses.dataclass(eq=False)
@@ -122,6 +136,10 @@ class _Request:
     cancelled: bool = False
     finished: bool = False
     error: Optional[BaseException] = None
+    # the matched prefix-cache entry, pinned until its rows are secured
+    # (the fixed fetch or the paged retain), and the rows it serves
+    prefix_entry: Optional[prefix_cache.PrefixEntry] = None
+    prefix_len: int = 0
 
 
 _END = None  # sentinel on out_queue
@@ -159,6 +177,16 @@ def resolve_device(device=None, what: str = "LLMEngine") -> torch.device:
             "device='cpu' to run the plain PyTorch path on the CPU (tests)"
         )
     return dev
+
+
+def _prefix_store_extra_slots(cfg: EngineConfig) -> int:
+    """Prefix-cache slots the config asks for: each reserves one
+    ``max_seq_len`` strip (pool pages on the paged layout, a store slot
+    on the fixed one). The port always chunks and is always layered, the
+    two other conditions of the JAX rule."""
+    if cfg.prefix_cache_enable != "off":
+        return cfg.prefix_cache_slots
+    return 0
 
 
 def _next_stream_item(out_q, stall_s, deadline):
@@ -207,7 +235,9 @@ class LLMEngine:
         else:
             self._paged = cfg.kv_layout == "paged"
         if self._paged:
-            self._pool_pages = kv_pages.pool_pages(cfg, self.max_seq_len)
+            self._pool_pages = kv_pages.pool_pages(
+                cfg, self.max_seq_len, _prefix_store_extra_slots(cfg)
+            )
             kv_pages.validate_runtime(self._page, self.max_seq_len, self._pool_pages)
             self._max_pages_per_slot = kv_pages.pages_for_tokens(self.max_seq_len, self._page)
             # a decode block can write up to a block past a request's budget,
@@ -276,6 +306,7 @@ class LLMEngine:
                 model_cfg, self.num_slots, self.max_seq_len, dtype, self.device,
                 quantized=self._kv_quant,
             )
+        self._init_prefix_cache(cfg, model_cfg, dtype)
         self._stop_ids = set(self.tokenizer.stop_ids())
 
         # Slot state on the device, patched per admission wave
@@ -306,6 +337,7 @@ class LLMEngine:
         # threads; the dispatch thread counts prefill, the reader decode
         self._counters = collections.Counter(dict.fromkeys((
             "prefill_waves", "prefill_tokens", "prefill_chunks", "requests_prefilled",
+            "prefix_copy_dispatches",
         ), 0))
         self._reader_counters = collections.Counter(dict.fromkeys((
             "decode_blocks", "decode_steps", "decode_rows", "decode_time_s",
@@ -376,6 +408,59 @@ class LLMEngine:
         if isinstance(params.get("lm_head"), dict):
             yield params["lm_head"]
 
+    def _init_prefix_cache(self, cfg: EngineConfig, model_cfg, dtype) -> None:
+        """The automatic prefix KV cache (JAX ``_init_prefix_cache``):
+        ``prefix_cache_slots`` entries in a radix index. On the paged
+        layout entries hold refcounted pool pages (the pool was sized
+        with a strip per entry) and the drop hook releases them; on the
+        fixed layout a store of one strip per entry, in the slot cache's
+        layout, holds the rows. ``off`` or 0 slots leaves ``_prefix``
+        None and admission as it is without a cache."""
+        self._prefix: Optional[prefix_cache.PrefixCache] = None
+        self._prefix_store: Optional[list] = None
+        P = _prefix_store_extra_slots(cfg)
+        if P <= 0:
+            return
+        if self._paged:
+            self._prefix = prefix_cache.PrefixCache(
+                chunk=cfg.prefill_chunk, slots=P, max_len=self.max_seq_len,
+                on_drop=self._drop_prefix_pages,
+            )
+            logger.info(
+                "prefix KV cache enabled (paged, shared pages): %d entries, %.2f GiB of "
+                "the %d-page pool (chunk %d)",
+                P, self.prefix_cache_bytes() / 2**30, self._pool_pages, cfg.prefill_chunk,
+            )
+            return
+        self._prefix_store = llama.init_kv_cache_layers(
+            model_cfg, P, self.max_seq_len, dtype, self.device, quantized=self._kv_quant,
+        )
+        self._prefix = prefix_cache.PrefixCache(
+            chunk=cfg.prefill_chunk, slots=P, max_len=self.max_seq_len
+        )
+        logger.info(
+            "prefix KV cache enabled: %d store slots x %d rows, %.2f GiB (chunk %d)",
+            P, self.max_seq_len, self.prefix_cache_bytes() / 2**30, cfg.prefill_chunk,
+        )
+
+    def prefix_cache_bytes(self) -> int:
+        """Device bytes the prefix cache reserves: the fixed layout's store,
+        or on the paged layout the pool pages of one strip per entry."""
+        if self._prefix is None:
+            return 0
+        if self._prefix_store is not None:
+            return sum(t.numel() * t.element_size() for c in self._prefix_store for t in c.values())
+        per_page = sum(t[0].numel() * t.element_size() for c in self._cache for t in c.values())
+        return self._prefix.capacity * self._max_pages_per_slot * per_page
+
+    def _drop_prefix_pages(self, entry: prefix_cache.PrefixEntry) -> None:
+        """Prefix-cache drop hook (paged layout): an entry leaving the
+        index releases its refcounted pool pages. Runs under the index's
+        lock; the allocator has its own and never calls back."""
+        if entry.pages:
+            self._kv_alloc.release(entry.pages)
+        entry.pages = None
+
     # ------------------------------------------------------------------ #
     # public API
 
@@ -394,6 +479,10 @@ class LLMEngine:
             sampling_seed=params.seed or _UNSEEDED_RNG.getrandbits(31),
             t_submit=time.time(),
         )
+        if self._prefix is not None and params.prefix_hint:
+            # session keep-alive: the hinted entry's recency is bumped
+            # before admission, so other traffic cannot evict it meanwhile
+            self._prefix.touch(params.prefix_hint)
         cap = self.engine_config.max_queued_requests
         with self._lock:
             if not self._running:
@@ -548,8 +637,11 @@ class LLMEngine:
         return _Hold()
 
     def stats(self) -> Dict[str, float]:
-        """Serving counters: prefill waves, tokens and chunks, and the
-        requests prefilled (each admitted request once); decode
+        """Serving counters: prefill waves, tokens (whole prompts, cached
+        prefixes included) and chunks, and the requests prefilled (each
+        admitted request once); the prefix cache's hits, misses,
+        evictions, tokens reused, pages mapped (paged) and store copies
+        (fixed, ``prefix_copy_dispatches``); decode
         blocks, steps, rows and wall time; tokens emitted; TTFTs (submit to
         the reader's emission of the first token); and, on the paged
         layout, the page allocator's state.
@@ -568,6 +660,10 @@ class LLMEngine:
             out["ttft_max_s"] = max(ttft)
         if self._kv_alloc is not None:
             out.update(self._kv_alloc.stats())
+        pc = self._prefix.stats() if self._prefix is not None else {}
+        for key in ("hits", "misses", "evictions", "tokens_reused"):
+            out["prefix_cache_" + key] = pc.get(key, 0)
+        out.setdefault("prefix_pages_mapped", 0)
         return out
 
     def shutdown(self, timeout: float = 60.0) -> bool:
@@ -587,6 +683,12 @@ class LLMEngine:
             logger.error("LLM engine shutdown left thread(s) %s running", ", ".join(stuck))
             self._mark_wedged(f"shutdown join timeout: {', '.join(stuck)}")
             return False
+        # every stream has ended; the slots, their pages and prefix pins
+        # go back (no thread of the engine runs any more)
+        with self._lock:
+            live = list(self._slot_req.items())
+        for slot, req in live:
+            self._release(slot, req)
         return True
 
     # ------------------------------------------------------------------ #
@@ -723,8 +825,17 @@ class LLMEngine:
                 claimed.append(req)
         if not claimed:
             return
-        funded = self._fund(claimed)
         chunk = self.engine_config.prefill_chunk
+        if self._prefix is not None:
+            # chunked prompts only (a shorter one has no cacheable chunk);
+            # each hit pins its entry until its rows are secured: by the
+            # retain in _fund (paged) or the fetch copy (fixed)
+            for req in claimed:
+                if len(req.prompt_ids) > chunk:
+                    m = self._prefix.match(req.prompt_ids, hint=req.params.prefix_hint)
+                    if m is not None:
+                        req.prefix_entry, req.prefix_len = m
+        funded = self._fund(claimed)
         short = [r for r in funded if len(r.prompt_ids) <= chunk]
         long = [r for r in funded if len(r.prompt_ids) > chunk]
         for wave, chunked in ((short, False), (long, True)):
@@ -742,28 +853,56 @@ class LLMEngine:
         self._slot_pos[slot] = T
 
     def _fund(self, claimed: List[_Request]) -> List[_Request]:
-        """Reserve every page each claimed request can touch and write the
-        funded rows' page tables to the device. A request the pool cannot
-        fund goes back to the queue front with every later claim (OOM
-        backpressure, FIFO order kept). A fixed slot always holds
+        """Reserve every page each claimed request can touch, a prefix
+        hit's shared pages first in its table, and write the funded rows'
+        page tables to the device (JAX ``_fund_paged_admissions``). On a
+        short pool the LRU unpinned prefix entry is evicted and the
+        allocation retried; a request the pool still cannot fund goes
+        back to the queue front with every later claim (OOM backpressure,
+        FIFO order kept), their pins released. A fixed slot always holds
         ``max_seq_len`` rows: every claim is funded."""
         if not self._paged:
             return claimed
+        page, chunk = self._page, self.engine_config.prefill_chunk
         funded: List[_Request] = []
         for idx, req in enumerate(claimed):
+            ent = req.prefix_entry
+            shared: List[int] = []
+            if ent is not None:
+                shared = list(ent.pages or ())[: req.prefix_len // page]
+                if len(shared) * page < req.prefix_len:
+                    # fewer pages than the matched depth: serve only the
+                    # page-backed, chunk-aligned part
+                    req.prefix_len = (len(shared) * page // chunk) * chunk
+                    shared = shared[: req.prefix_len // page]
+                # Retain first, then unpin: the refcount keeps the shared
+                # pages alive from here, and a pin held through the
+                # evict-and-retry loop below would keep this very entry
+                # from being evicted to fund the request (a livelock on a
+                # minimal pool).
+                self._kv_alloc.retain(shared)
+                self._prefix.release(ent)
+                req.prefix_entry = None
             total = kv_pages.pages_needed(
-                len(req.prompt_ids), req.params.max_tokens, self._page,
+                len(req.prompt_ids), req.params.max_tokens, page,
                 self.max_seq_len, self._page_slack,
             )
-            pages = self._kv_alloc.alloc(total)
-            if pages is None:
+            fresh_n = max(0, total - len(shared))
+            fresh = self._kv_alloc.alloc(fresh_n, count_failure=False)
+            while fresh is None and self._prefix is not None and self._prefix.evict_lru():
+                fresh = self._kv_alloc.alloc(fresh_n, count_failure=False)
+            if fresh is None:
+                self._kv_alloc.record_alloc_failure()
+                self._kv_alloc.release(shared)  # undo the map
                 back = claimed[idx:]
                 for r in back:
-                    self._release(r.slot, r)
+                    self._release(r.slot, r)  # unpins a later claim's match
+                    r.prefix_len = 0
                 with self._lock:
                     self._pending.extendleft(reversed(back))
                 break
-            self._slot_pages[req.slot] = pages
+            self._kv_alloc.record_prefix_mapped(len(shared))
+            self._slot_pages[req.slot] = shared + fresh
             funded.append(req)
         if funded:
             rows = np.zeros((len(funded), self._max_pages_per_slot), np.int32)
@@ -805,7 +944,12 @@ class LLMEngine:
         slots = self._to_device([r.slot for r in reqs], torch.long)
         lengths_d = self._to_device(lengths, torch.long)
         if chunked:
-            last_h = self._prefill_chunked(tokens, lengths, slots)
+            cached = None
+            if self._prefix is not None:
+                cached = np.array([r.prefix_len for r in reqs], np.int64)
+                if not self._paged:
+                    self._fetch_prefixes(reqs)
+            last_h = self._prefill_chunked(tokens, lengths, slots, cached)
             logits = llama._head(self.params, last_h[:, None, :], cfg, self._quant_kernel)[:, 0, :]
         else:
             logits, kvs = llama.prefill_layers(
@@ -831,6 +975,47 @@ class LLMEngine:
         for req, n in zip(reqs, lengths):
             req.position = int(n)
         self._to_reader("prefill", first, list(enumerate(reqs)))
+        if chunked and self._prefix is not None:
+            self._insert_prefixes(reqs)
+
+    def _fetch_prefixes(self, reqs: List[_Request]) -> None:
+        """Fixed layout: copy each hit's cached rows from the prefix store
+        into its slot before the first chunk reads them, then unpin the
+        entry: any later write of the store slot (an insert after an
+        eviction) is ordered behind this copy on the stream."""
+        for req in reqs:
+            ent = req.prefix_entry
+            if ent is None:
+                continue
+            llama.copy_kv_rows(self._prefix_store, self._cache, ent.store_slot, req.slot,
+                               req.prefix_len)
+            self._counters["prefix_copy_dispatches"] += 1
+            self._prefix.release(ent)
+            req.prefix_entry = None
+
+    def _insert_prefixes(self, reqs: List[_Request]) -> None:
+        """Index each prefilled prompt's chunk-aligned prefix (JAX's insert
+        after the wave). Paged: the entry takes a reference on the
+        request's own pages over the span, whose rows no later write
+        touches (decode writes positions >= the prompt length, past the
+        span, and a skipped chunk writes the scratch page). Fixed: one
+        copy of the rows into the entry's store slot, ordered behind the
+        chunks that wrote them."""
+        for req in reqs:
+            if self._paged:
+                ent = self._prefix.insert_entry(req.prompt_ids, hint=req.params.prefix_hint)
+                if ent is None:
+                    continue
+                donated = list(self._slot_pages.get(req.slot, ()))[: ent.length // self._page]
+                self._kv_alloc.retain(donated)
+                ent.pages = donated
+                continue
+            ins = self._prefix.insert(req.prompt_ids, hint=req.params.prefix_hint)
+            if ins is None:
+                continue
+            store_slot, length = ins
+            llama.copy_kv_rows(self._cache, self._prefix_store, req.slot, store_slot, length)
+            self._counters["prefix_copy_dispatches"] += 1
 
     def _update_slots(self, slots, tokens, positions, temps, topps, seeds) -> None:
         """Admission: the wave's state into the device-resident slot
@@ -844,22 +1029,31 @@ class LLMEngine:
         self._seeds_dev[slots] = seeds
         self._live_dev.index_fill_(0, slots, True)
 
-    def _prefill_chunked(self, tokens: np.ndarray, lengths: np.ndarray, slots: torch.Tensor):
+    def _prefill_chunked(self, tokens: np.ndarray, lengths: np.ndarray, slots: torch.Tensor,
+                         cached: Optional[np.ndarray] = None):
         """Chunk k extends every row by up to prefill_chunk tokens at offset
         k * C (rows whose prompt ended earlier run with valid = 0 and write
         only the scratch page, or write back what they read on the fixed
-        layout); returns each row's last-token hidden."""
+        layout); returns each row's last-token hidden. ``cached`` (chunk
+        aligned, < each row's length) holds each row's rows already in
+        place from the prefix cache: the loop starts at the wave's least
+        cached chunk, and a row runs with valid = 0 in every chunk below
+        its own."""
         dev = self.device
         C = self.engine_config.prefill_chunk
         N, Tmax = tokens.shape
+        k0 = int(cached.min()) // C if cached is not None and len(cached) else 0
         last_h = torch.zeros(
             (N, self.model_config.hidden_size), dtype=self.params["embed"].dtype, device=dev
         )
-        for k in range(-(-Tmax // C)):
+        for k in range(k0, -(-Tmax // C)):
             tok_k = np.zeros((N, C), np.int64)
             seg = tokens[:, k * C:(k + 1) * C]
             tok_k[:, : seg.shape[1]] = seg
-            valid = self._to_device(np.clip(lengths - k * C, 0, C), torch.long)
+            valid = np.clip(lengths - k * C, 0, C)
+            if cached is not None:
+                valid = np.where(k * C < cached, 0, valid)
+            valid = self._to_device(valid, torch.long)
             offsets = torch.full((N,), k * C, dtype=torch.long, device=dev)
             window = self._attention_window(min((k + 1) * C, self.max_seq_len))
             tok_d = self._to_device(tok_k, torch.long)
@@ -949,23 +1143,32 @@ class LLMEngine:
 
     def _release(self, slot: int, req: _Request) -> None:
         """Free ``slot`` while it still belongs to ``req`` (a late release
-        of an earlier owner is a no-op) and, on the paged layout, its
-        pages; its table row points back at the scratch page. Dispatch
-        thread only. Blocks already dispatched for the slot run before
+        of an earlier owner is a no-op), its prefix pin if it still holds
+        one and, on the paged layout, its pages; its table row points back
+        at the scratch page. Dispatch thread only (or after the threads
+        ended, at shutdown). Blocks already dispatched for the slot run before
         anything a new owner enqueues, so its pages and strip are reusable
         at once."""
         with self._lock:
             if self._slot_req.get(slot) is not req:
                 return
+            # the pin and the pages go first: a request gone from _slot_req
+            # holds neither (the allocator's and the index's locks are
+            # leaves, taken under this one)
+            if req.prefix_entry is not None:
+                # a match whose rows were never secured (requeue, a failed wave)
+                self._prefix.release(req.prefix_entry)
+                req.prefix_entry = None
+            pages = self._slot_pages.pop(slot, None)
+            if pages:
+                # shared prefix pages keep the entry's reference
+                self._kv_alloc.release(pages)
             del self._slot_req[slot]
             self._slot_budget.pop(slot, None)
             self._slot_pos.pop(slot, None)
-            pages = self._slot_pages.pop(slot, None)
             req.slot = -1
             self._free_slots.append(slot)
             self._lock.notify_all()  # wakes ingest_window when the last slot frees
-        if pages:
-            self._kv_alloc.release(pages)
         if self._paged:
             self._tables[slot].fill_(0)
         self._live_dev[slot].fill_(False)

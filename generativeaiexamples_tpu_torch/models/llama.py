@@ -5,9 +5,10 @@ serving path on both KV layouts. Paged: ``prefill_layers`` +
 ``write_prefill_pages`` for monolithic prefill waves,
 ``extend_layers_paged`` for chunked prefill, and ``decode_layers_paged``
 for decode steps. Fixed (one dense strip per slot,
-``init_kv_cache_layers``): ``write_prefill_slots``, ``extend_layers``,
-``decode_layers`` (int8 caches read through ops/decode_attention.py).
-Parameters are plain
+``init_kv_cache_layers``, which also builds the prefix cache's store):
+``write_prefill_slots``, ``extend_layers``, ``decode_layers`` (int8 caches
+read through ops/decode_attention.py), and ``copy_kv_rows`` between the
+store and the slots. Parameters are plain
 dictionaries of tensors, one dict per layer (the JAX package's layered
 layout, ``consume_split_params_layers``); projections are dense
 ``[K, F]`` matrices or int8 packs ``{"q", "scale"}`` (ops/quant.py), the
@@ -665,6 +666,23 @@ def init_kv_cache_layers(
                 "v": torch.zeros((B, S, Hkv, Dh), dtype=dtype, device=device)}
 
     return [one() for _ in range(cfg.num_layers)]
+
+
+def copy_kv_rows(src: list, dst: list, src_slot: int, dst_slot: int, length: int) -> None:
+    """Copy rows ``[0, length)`` of slot ``src_slot`` of the fixed-layout
+    caches ``src`` into slot ``dst_slot`` of ``dst``, in place, for every
+    layer's k, v and (int8) scales: the prefix store's fetch (store ->
+    slot) and insert (slot -> store). Device to device on the caller's
+    stream; no host read."""
+    for s, d in zip(src, dst):
+        if "ks" in s:  # head-major [B, Hkv, S, Dh], scales [B, Hkv, 1, S]
+            d["k"][dst_slot, :, :length].copy_(s["k"][src_slot, :, :length])
+            d["v"][dst_slot, :, :length].copy_(s["v"][src_slot, :, :length])
+            d["ks"][dst_slot, :, :, :length].copy_(s["ks"][src_slot, :, :, :length])
+            d["vs"][dst_slot, :, :, :length].copy_(s["vs"][src_slot, :, :, :length])
+        else:  # token-major [B, S, Hkv, Dh]
+            d["k"][dst_slot, :length].copy_(s["k"][src_slot, :length])
+            d["v"][dst_slot, :length].copy_(s["v"][src_slot, :length])
 
 
 def _cache_len(caches: list) -> int:

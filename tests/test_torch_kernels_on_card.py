@@ -393,6 +393,60 @@ def test_decode_attention_wrapper_refuses_what_the_kernel_does_not_serve(card):
 # the retrieval side on the card (no kernel of its own: plain PyTorch)
 
 
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+def test_prefix_store_copy_on_the_card(card, quantized):
+    """The fixed layout's prefix-cache copy (``llama.copy_kv_rows``) in both
+    directions on the card: rows [0, length) of every layer's k, v and
+    scales move bitwise, as on the CPU, and nothing past them changes."""
+    cfg = llama.PRESETS["kernel-8dev"]
+    S, length = 256, 128 + 64
+    cache = llama.init_kv_cache_layers(cfg, 3, S, torch.bfloat16, card, quantized=quantized)
+    store = llama.init_kv_cache_layers(cfg, 2, S, torch.bfloat16, card, quantized=quantized)
+    gen = torch.Generator(device=card).manual_seed(11)
+    for c in cache + store:
+        for t in c.values():
+            if t.dtype == torch.int8:
+                t.copy_(torch.randint(-127, 128, t.shape, generator=gen, device=card, dtype=torch.int8))
+            else:
+                t.copy_(torch.randn(t.shape, generator=gen, device=card).to(t.dtype))
+    cpu = [[{k: t.cpu() for k, t in c.items()} for c in tree] for tree in (cache, store)]
+    llama.copy_kv_rows(store, cache, 1, 2, length)  # fetch: store slot 1 -> cache slot 2
+    llama.copy_kv_rows(cache, store, 0, 0, length)  # insert: cache slot 0 -> store slot 0
+    llama.copy_kv_rows(cpu[1], cpu[0], 1, 2, length)
+    llama.copy_kv_rows(cpu[0], cpu[1], 0, 0, length)
+    for got_tree, want_tree in zip((cache, store), cpu):
+        for got, want in zip(got_tree, want_tree):
+            for key in got:
+                assert torch.equal(got[key].cpu(), want[key]), key
+
+
+def test_warm_paged_read_matches_plain(card):
+    """A warm row's decode read: its table maps the donor's pages for the
+    cached span and its own pages after it. The kernel gives the plain
+    version's output, and bitwise the output of a row holding a private
+    copy of the same rows."""
+    gen = torch.Generator(device=card).manual_seed(12)
+    Hq, Hkv, Dh, page, pmax = 32, 8, 128, 128, 16
+    P = 1 + 3 * pmax
+    k = torch.randn((P, page, Hkv, Dh), generator=gen, device=card).to(torch.bfloat16)
+    v = torch.randn((P, page, Hkv, Dh), generator=gen, device=card).to(torch.bfloat16)
+    donor = torch.arange(1, 1 + pmax, dtype=torch.int32, device=card)
+    shared = 4  # a 512-token cached prefix
+    warm = torch.cat([donor[:shared], torch.arange(1 + pmax + shared, 1 + 2 * pmax,
+                                                   dtype=torch.int32, device=card)])
+    private = torch.arange(1 + 2 * pmax, 1 + 3 * pmax, dtype=torch.int32, device=card)
+    for t in (k, v):  # the private row holds copies of the warm row's rows
+        t[private.long()] = t[warm.long()]
+    tables = torch.stack([donor, warm, private])
+    pos = torch.tensor([600, 700, 700], dtype=torch.int32, device=card)
+    q = torch.randn((3, 1, Hq, Dh), generator=gen, device=card).to(torch.bfloat16)
+    q[2] = q[1]
+    out = pa.paged_attention(q, k, v, tables, pos)
+    ref = pa.paged_attention_plain(q, k, v, tables, pos)
+    _assert_rows_close(out, ref, atol=1e-2)
+    assert torch.equal(out[1], out[2])
+
+
 def _bert_inputs(gen, device, lengths, T, vocab=256):
     ids = torch.randint(0, vocab, (len(lengths), T), generator=gen, device=device, dtype=torch.int32)
     mask = torch.zeros((len(lengths), T), dtype=torch.int32, device=device)

@@ -237,7 +237,6 @@ def test_each_jax_engine_variable_has_the_jax_default(env):
     ("APP_ENGINE_CHECKPOINTPATH", "/w", "queue 1 item 10"),
     ("APP_ENGINE_SCHEDULERPOLICY", "disagg", "queue 1 item 8"),
     ("APP_ENGINE_SPECDECODEENABLE", "on", "queue 1 item 5"),
-    ("APP_ENGINE_PREFIXCACHESLOTS", "8", "queue 1 item 4"),
 ])
 def test_from_env_refuses_what_the_port_does_not_serve(env, value, item):
     with pytest.raises(ValueError, match=f"{env}={value}: .*{item}"):
@@ -260,11 +259,12 @@ def test_from_env_logs_xla_only_variables_once_and_ignores_them(monkeypatch, cap
 
 @pytest.mark.parametrize("env,value", sorted(
     [(EngineConfig.env_name(name), str(spec[0])) for name, spec in JAX_ONLY_FIELDS.items()]
-    + [("APP_ENGINE_TENSORPARALLELISM", "1"), ("APP_ENGINE_PREFIXCACHEENABLE", "off")]
+    + [("APP_ENGINE_TENSORPARALLELISM", "1"), ("APP_ENGINE_PREFIXCACHEENABLE", "auto"),
+       ("APP_ENGINE_PREFIXCACHESLOTS", "4")]
 ))
 def test_from_env_accepts_jax_defaults_and_what_it_serves_as_it_is(env, value):
-    """At its JAX default a variable changes nothing; so do one card's
-    tensor parallelism and a prefix cache switched off."""
+    """At its JAX default a variable changes nothing, the prefix cache's
+    two included; so does one card's tensor parallelism."""
     assert EngineConfig.from_env({env: value}) == EngineConfig()
 
 
