@@ -119,9 +119,39 @@ Phases (each one's failure makes the script exit non-zero):
    prints cold and warm TTFT (p50, max), the chunks, hits, misses, tokens
    reused and the pool or store size.
 
+10. filechains: the file chains through the port's chain server, each
+   picked through the registry, on phase 7's deployment (kept up through
+   phase 8; alone, it builds engine A and the encoders), before phase 9,
+   every engine request sampling from phase 8's seed, a stdlib stub VLM
+   (``APP_MULTIMODAL_VLM_URL``) answering the graph flow's four prompts
+   by image: ``structured_data`` (``CSV_NAME=PdM_errors``) takes the
+   Azure predictive-maintenance errors table's 3,919 rows over 100
+   machines in two uploads and refuses a third of other columns with the
+   JAX message; 4 questions, decoded greedily (the recording engine sets
+   temperature 0 under the API's floor of 0.1), at ``max_tokens`` 64 make
+   up to 3 code-generation completions each (random weights write no
+   program, so each should end in the no-context message), and the
+   engine's requests must equal the path the chain took; ``multimodal``
+   ingests a 4-page PDF (prose, a 12 x 5 table with planted words, a chart
+   and a photo JPEG), an image-only PDF (a rendered page) and a 3-slide
+   PPTX with a chart: the chunks by type equal those the port's CPU path
+   makes from the same files (a chart's engine-written explanation aside),
+   the stub VLM's calls by kind are 3 detect, 2 table, 1 caption and a
+   transcribe only when the template OCR reads nothing, one ``_explain``
+   engine request a chart; ``/search`` for the planted words finds the
+   table chunk (the ``hybrid`` pipeline: a random reranker's order is
+   noise), ``/generate`` answers neither canned message, and ``DELETE``
+   drops a document. ``int8_matmul``, ``paged_attention`` and
+   ``flash_attention_causal`` are launched and the LLM dispatch thread
+   makes no synchronizing call. It prints which optional modules the
+   machine has and the OCR branch taken, per question the path,
+   completions, prompt ids, prefill chunks and seconds, per file the
+   ingest seconds split into parse, OCR, VLM, explain and embed, and the
+   answers' TTFT.
+
 With no arguments it runs every phase, as above; ``--phases``,
 ``--checks`` and ``--recipes`` run a part (for example ``--phases serve
---recipes B``, ``--phases chains`` or ``--phases prefix``) and then print only the kernels that part measured;
+--recipes B``, ``--phases chains`` or ``--phases filechains``) and then print only the kernels that part measured;
 ``--runahead N`` serves every engine at ``decode_runahead`` N, and
 ``--timing-only`` leaves out the runahead and overload checks (for timed
 runs of an older tree, which lacks them).
@@ -145,7 +175,9 @@ import time
 import urllib.error
 import urllib.request
 import warnings
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+import numpy as np
 import torch
 
 from generativeaiexamples_tpu_torch.config import EngineConfig
@@ -1772,13 +1804,15 @@ def _http(base, method, path, body=None, raw=None, ctype="application/json", tim
         return exc.code, exc.read().decode()
 
 
-def _generate_stream(base, query, kb, max_tokens=64, history=()):
+def _generate_stream(base, query, kb, max_tokens=64, history=(), temperature=None):
     """One streamed /generate, ``history`` (role, content) pairs before the
     query: (frames, seconds to the first answer frame (the [DONE] frame
     when no text came), seconds to the end)."""
     messages = [{"role": r, "content": c} for r, c in history]
     body = {"messages": messages + [{"role": "user", "content": query}],
             "use_knowledge_base": kb, "max_tokens": max_tokens}
+    if temperature is not None:
+        body["temperature"] = temperature
     req = urllib.request.Request(base + "/generate", data=json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json"})
     t0 = time.perf_counter()
@@ -1807,19 +1841,24 @@ def _generate_stream(base, query, kb, max_tokens=64, history=()):
 class _RecordingEngine:
     """Engine A behind a recorder of the prompt ids it is handed (what the
     chain's backend renders, or the engine server's ``chat`` route); with
-    ``seed``, every request samples from that seed. Everything else goes
-    to the engine."""
+    ``seed``, every request samples from that seed; while ``greedy`` is
+    set, every request decodes greedily (temperature 0, which the chain
+    server's schema refuses: its floor is 0.1). Everything else goes to
+    the engine."""
 
     def __init__(self, engine, seed=None):
         self._engine = engine
         self.tokenizer = engine.tokenizer
         self.seed = seed
+        self.greedy = False
         self.prompts = []
         self._lock = threading.Lock()
 
     def stream_text(self, prompt_ids, params=None, timeout=None):
         if self.seed is not None:
             params = dataclasses.replace(params, seed=self.seed)
+        if self.greedy:
+            params = dataclasses.replace(params, temperature=0.0)
         with self._lock:
             self.prompts.append(list(prompt_ids))
         return self._engine.stream_text(prompt_ids, params, timeout=timeout)
@@ -2309,11 +2348,12 @@ def _concurrently(calls) -> dict:
     return results
 
 
-def phase_chains(dev, smi, seed=0, dep=None, encoders=None) -> dict:
+def phase_chains(dev, smi, seed=0, dep=None, encoders=None, keep=False):
     """The text chains through the port's chain server on the card (module
     docstring, phase 8): ``dep`` is phase 7's deployment, still up, or None
     to build one (with phase 6's ``encoders`` when given) and ingest phase
-    7's corpus into ``default``."""
+    7's corpus into ``default``. Returns the results and, when ``keep``,
+    the deployment still up for phase 10 (else None)."""
     import os
     import tempfile
 
@@ -2567,9 +2607,10 @@ def phase_chains(dev, smi, seed=0, dep=None, encoders=None) -> dict:
             server.shutdown()
             server.server_close()
             thread.join(60)
-        _rag_teardown(dep)
+        if not keep or sys.exc_info()[0] is not None:
+            _rag_teardown(dep)
     log(f"phase chains: ok ({time.time() - t0:.1f} s)")
-    return out
+    return out, (dep if keep else None)
 
 
 # --------------------------------------------------------------------- #
@@ -2806,9 +2847,492 @@ def phase_prefix(dev, smi, seed=0) -> dict:
             "launches": dict(launches)}
 
 
+# --------------------------------------------------------------------- #
+# Phase 10: the file chains (structured_data, multimodal)
+
+# the public Azure predictive-maintenance errors table (PdM_errors.csv):
+# 3,919 error events of 5 classes over 100 machines in 2015; two uploads
+# split it, a third upload has PdM_machines.csv's columns
+PDM_ERRORS_ROWS, PDM_MACHINES = 3919, 100
+FILE_QUESTIONS = (
+    "How many errors did machine 17 have?",
+    "Which machine had the most errors?",
+    "How many errors of type error3 are there in total?",
+    "What is the most common errorID?",
+)
+# the stub VLM's fixed answers: a chart's table and a photo's caption
+VLM_TABLE = "Month | Errors\nJan | 412\nFeb | 388\nMar | 405"
+VLM_CAPTION = "A photograph of a pump on a factory floor."
+VLM_KINDS = ("detect", "table", "caption", "transcribe")
+
+
+class _StubVLM(BaseHTTPRequestHandler):
+    """An OpenAI-compatible multimodal ``/v1/chat/completions`` that answers
+    the graph flow's four prompts from what it knows of each image (by its
+    bytes): detect says yes for a chart (``charts``), no otherwise; the
+    table prompt gets ``VLM_TABLE``; the caption prompt ``VLM_CAPTION``;
+    the transcribe prompt the page's planted text (``pages``). It counts
+    its calls by kind."""
+
+    charts: set = set()
+    pages: dict = {}
+    calls: collections.Counter = collections.Counter()
+    lock = threading.Lock()
+
+    def do_POST(self):  # noqa: N802 - http.server's name
+        import base64
+
+        body = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+        prompt, image = body["messages"][0]["content"]
+        data = base64.b64decode(image["image_url"]["url"].split(",", 1)[1])
+        text = prompt["text"]
+        if "yes or no" in text:
+            kind, answer = "detect", "yes" if data in self.charts else "no"
+        elif "data table" in text:
+            kind, answer = "table", VLM_TABLE
+        elif "Transcribe" in text:
+            kind, answer = "transcribe", self.pages.get(data, "")
+        else:
+            kind, answer = "caption", VLM_CAPTION
+        with self.lock:
+            type(self).calls[kind] += 1
+        out = json.dumps({"choices": [{"message": {"role": "assistant", "content": answer}}]})
+        self.send_response(200)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(out)))
+        self.end_headers()
+        self.wfile.write(out.encode())
+
+    def log_message(self, *args):
+        pass
+
+
+class _Stopwatch:
+    """Seconds by kind of work, summed over calls of patched functions
+    (``patch``); ``record`` keeps the first argument of each call too (the
+    chunks handed to ``index_chunks``). ``restore`` undoes every patch."""
+
+    def __init__(self):
+        self.seconds, self.recorded, self._undo = collections.Counter(), [], []
+
+    def patch(self, owner, name, kind, record=False):
+        real = getattr(owner, name)
+
+        def timed(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return real(*args, **kwargs)
+            finally:
+                self.seconds[kind] += time.perf_counter() - t
+                if record:
+                    self.recorded.append(list(args[0]))
+
+        setattr(owner, name, timed)
+        self._undo.append((owner, name, real))
+
+    def restore(self):
+        for owner, name, real in reversed(self._undo):
+            setattr(owner, name, real)
+        self._undo.clear()
+
+
+def _pdm_csvs(rng):
+    """(name, bytes): the errors table in two parts and a machines table."""
+    start = np.datetime64("2015-01-01T06:00:00")
+    hours = np.sort(rng.randint(0, 24 * 365, PDM_ERRORS_ROWS))
+    machines = rng.randint(1, PDM_MACHINES + 1, PDM_ERRORS_ROWS)
+    errors = rng.randint(1, 6, PDM_ERRORS_ROWS)
+    rows = [f"{str(start + np.timedelta64(int(h), 'h')).replace('T', ' ')},{m},error{e}\n"
+            for h, m, e in zip(hours, machines, errors)]
+    half = PDM_ERRORS_ROWS // 2
+    head = "datetime,machineID,errorID\n"
+    models = rng.randint(1, 5, PDM_MACHINES)
+    ages = rng.randint(0, 21, PDM_MACHINES)
+    machines_csv = "machineID,model,age\n" + "".join(
+        f"{i + 1},model{m},{a}\n" for i, (m, a) in enumerate(zip(models, ages)))
+    return [("PdM_errors_h1.csv", (head + "".join(rows[:half])).encode()),
+            ("PdM_errors_h2.csv", (head + "".join(rows[half:])).encode()),
+            ("PdM_machines.csv", machines_csv.encode())]
+
+
+def _multimodal_files(rng):
+    """The phase's three documents, their planted table and scan text, and
+    the images the stub VLM must know: (files, table rows, scan lines,
+    chart images)."""
+    import io
+
+    from PIL import Image, ImageDraw
+
+    from generativeaiexamples_tpu_torch.chains.pptx_parser import write_pptx
+    from generativeaiexamples_tpu_torch.retrieval import ocr
+    from generativeaiexamples_tpu_torch.retrieval import pdf as pdf_mod
+
+    letters = list("abcdefghijklmnopqrstuvwxyz")
+
+    def words(n):
+        return ["".join(rng.choice(letters, int(rng.randint(5, 10)))) for _ in range(n)]
+
+    def encoded(arr, fmt):
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, format=fmt)
+        return buf.getvalue()
+
+    prose = [" ".join(words(12)) + "." for _ in range(40)]
+    table = [["machine", "component", "error", "month", "count"]] + [words(5) for _ in range(11)]
+    chart = np.full((240, 320, 3), 255, np.uint8)
+    chart[::24, :] = 40
+    chart[:, ::32] = 40
+    for k, h in enumerate(rng.randint(40, 200, 8)):
+        chart[240 - h:, 36 + 34 * k:60 + 34 * k] = (200, 60, 40)
+    y, x = np.mgrid[0:240, 0:320].astype(np.float32)
+    photo = np.clip(np.stack([127 + 120 * np.sin(0.05 * x + 0.03 * y),
+                              127 + 120 * np.cos(0.04 * x - 0.02 * y),
+                              127 + 120 * np.sin(0.03 * (x + y))], -1)
+                    + rng.normal(0, 4, (240, 320, 3)), 0, 255).astype(np.uint8)
+    scan_lines = ["Maintenance report for the pump fleet", "Quarterly error count fell by 12."]
+    page = Image.new("L", (1000, 40 + 60 * len(scan_lines)), 255)
+    draw = ImageDraw.Draw(page)
+    for i, line in enumerate(scan_lines):
+        draw.text((20, 20 + 60 * i), line, fill=0, font=ocr._find_font(32))
+    page = np.asarray(page)
+    chart_jpeg, chart_png = encoded(chart, "JPEG"), encoded(chart[::2, ::2].copy(), "PNG")
+    files = [
+        ("report.pdf", pdf_mod.write_pdf([
+            (pdf_mod.text_ops(prose), []),
+            (pdf_mod.table_ops(table), []),
+            (pdf_mod.text_ops(["Figure 1: errors by month."]), [("jpeg", chart_jpeg, 320, 240)]),
+            (pdf_mod.text_ops(["Figure 2: the pump."]), [("jpeg", encoded(photo, "JPEG"), 320, 240)]),
+        ])),
+        ("scan.pdf", pdf_mod.write_pdf([(b"", [("raw", page.tobytes(), page.shape[1],
+                                                page.shape[0], 1)])])),
+        ("deck.pptx", write_pptx([["Pump fleet review", " ".join(words(8))],
+                                  [" ".join(words(10)), " ".join(words(10))],
+                                  ["Next steps", " ".join(words(6))]],
+                                 media={"image1.png": chart_png})),
+    ]
+    return files, table, scan_lines, {chart_jpeg, chart_png}
+
+
+def _chunk_key(chunk):
+    """(type, text, source) of a chunk, a chart's engine-written
+    explanation cut out: "[image i in f] <explanation>\\n<table>" and
+    "[image i in f] <table>" read the same."""
+    text = chunk.text
+    if text.startswith("[image ") and text.endswith(VLM_TABLE):
+        text = text[:text.index("] ") + 2] + VLM_TABLE
+    return (chunk.metadata.get("type", "text"), text, chunk.source)
+
+
+def phase_filechains(dev, smi, seed=0, dep=None, encoders=None) -> dict:
+    """The file chains through the port's chain server on the card (module
+    docstring, phase 10): ``dep`` is phase 7's deployment, still up, or
+    None to build one (with phase 6's ``encoders`` when given)."""
+    import logging
+    import os
+    import tempfile
+
+    from generativeaiexamples_tpu_torch import config as config_mod
+    from generativeaiexamples_tpu_torch.chains import multimodal, pptx_parser, registry, runtime
+    from generativeaiexamples_tpu_torch.chains import structured_data
+    from generativeaiexamples_tpu_torch.chains.developer_rag import NO_CONTEXT_MSG, NO_DOCS_MSG
+    from generativeaiexamples_tpu_torch.engine import llm_backend
+    from generativeaiexamples_tpu_torch.retrieval import pdf as pdf_mod
+    from generativeaiexamples_tpu_torch.server.api import make_server
+
+    t0 = time.time()
+
+    def note(msg):
+        log(f"  [{time.time() - t0:.1f} s] {msg}")
+
+    if dep is None:
+        dep = _rag_deploy(encoders)
+        note(f"engine A through create_llm ({dep['engine_s']:.1f} s) and {EMBED_MODEL}/"
+             f"{RERANK_MODEL} {'from phase 6' if encoders is not None else 'by the factories'}")
+    else:
+        note("phase 7's engine A and encoders")
+    # phase 8's remote leg leaves the LLM pointed at the engine server
+    saved = {k: os.environ.get(k) for k in ("APP_MULTIMODAL_VLM_URL", "CSV_NAME", "EXAMPLE_NAME",
+                                            "APP_RETRIEVER_NRPIPELINE", "APP_LLM_SERVERURL")}
+    cwd = os.getcwd()
+    servers, out = [], {}
+    watch = _Stopwatch()
+    records = []
+
+    class _Records(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    handler = _Records(logging.INFO)
+    sd_logger = logging.getLogger(structured_data.__name__)
+    sd_logger.addHandler(handler)
+    sd_level = sd_logger.level
+    sd_logger.setLevel(logging.INFO)
+
+    def serve(example):
+        server = make_server("127.0.0.1", 0, registry.resolve_example(example))
+        thread = threading.Thread(target=server.serve_forever, name=f"smoke-{example}-server",
+                                  daemon=True)
+        thread.start()
+        servers.append((server, thread))
+        return f"http://127.0.0.1:{server.server_address[1]}"
+
+    try:
+        os.environ.update(RAG_ENV)
+        os.environ.pop("APP_LLM_SERVERURL", None)
+        config_mod.get_config.cache_clear()
+        config, engine = config_mod.get_config(), dep["engine"]
+        recorder = _RecordingEngine(engine, seed=CHAIN_SEED)
+        llm_key = (config.llm.model_engine, config.llm.server_url, config.llm.model_name)
+        llm_backend._LLM_CACHE[llm_key] = llm_backend.TorchLLMBackend(engine=recorder)
+        vlm = ThreadingHTTPServer(("127.0.0.1", 0), _StubVLM)
+        vlm_thread = threading.Thread(target=vlm.serve_forever, name="smoke-stub-vlm", daemon=True)
+        vlm_thread.start()
+        servers.append((vlm, vlm_thread))
+        os.environ["APP_MULTIMODAL_VLM_URL"] = f"http://127.0.0.1:{vlm.server_address[1]}"
+        work = tempfile.mkdtemp(prefix="filechains_", dir=dep["tmp"])
+        os.chdir(work)  # ingested_csv_files.txt is relative to the working directory
+        rng = np.random.RandomState(seed + 10)
+        csvs = _pdm_csvs(rng)
+        mm_files, table, scan_lines, charts = _multimodal_files(rng)
+        src = os.path.join(work, "src")
+        os.makedirs(src)
+        for name, data in csvs + mm_files:
+            with open(os.path.join(src, name), "wb") as fh:
+                fh.write(data)
+        _StubVLM.charts = charts
+        scan_png = pdf_mod.extract_pdf_images(os.path.join(src, "scan.pdf"))
+        _StubVLM.pages = {scan_png[0]: "\n".join(scan_lines)} if scan_png else {}
+        ocr_reads = multimodal.ocr_image_local(scan_png[0]) if scan_png else ""
+        branches = {}
+        for mod in ("PIL", "cv2", "scipy", "matplotlib", "pytesseract"):
+            try:
+                __import__(mod)
+                branches[mod] = True
+            except ImportError:
+                branches[mod] = False
+        note(f"optional modules on this machine: {branches}; the template OCR reads the scan as "
+             f"{ocr_reads!r} ({'OCR' if ocr_reads else 'the VLM transcribes it'})")
+        if not branches["PIL"] or not scan_png:
+            raise AssertionError("no PIL: the scan's FlateDecode page cannot be re-encoded")
+
+        # the port's CPU path: each document's chunks, captured before any
+        # embedding, with an empty explanation for charts
+        expected, stub_expected = {}, {}
+        real_index, real_get_llm = runtime.index_chunks, runtime.get_llm
+
+        class _Silent:
+            def stream_chat(self, messages, **kwargs):
+                return iter(())
+
+        try:
+            for name, _ in mm_files:
+                captured = []
+                runtime.index_chunks = lambda chunks, coll, *a, **k: captured.extend(chunks)
+                runtime.get_llm = lambda *a, **k: _Silent()
+                before = collections.Counter(_StubVLM.calls)
+                multimodal.MultimodalRAG().ingest_docs(os.path.join(src, name), name)
+                expected[name] = sorted(map(_chunk_key, captured))
+                stub_expected[name] = dict(_StubVLM.calls - before)
+        finally:
+            runtime.index_chunks, runtime.get_llm = real_index, real_get_llm
+        _StubVLM.calls = collections.Counter()
+
+        stats0 = engine.stats()
+        t_phase = time.perf_counter()
+        reset_counts()
+        with SyncCounter() as syncs:
+            # 1. structured_data: the errors table in two uploads, a third refused
+            os.environ["EXAMPLE_NAME"] = "structured_data"
+            os.environ["CSV_NAME"] = "PdM_errors"
+            base = serve("structured_data")
+            upload_dir = os.environ["DOC_UPLOAD_DIR"]
+            for k, (name, data) in enumerate(csvs):
+                raw, ctype = _multipart(name, data)
+                status, text = _http(base, "POST", "/documents", raw=raw, ctype=ctype)
+                want = ((200, {"message": "File uploaded successfully"}) if k < 2 else
+                        (500, {"message": f"Columns of the file {upload_dir}/{name} do not match "
+                                          f"the reference columns of {upload_dir}/{csvs[0][0]}\n"
+                                          f" file."}))
+                if (status, json.loads(text)) != want:
+                    raise AssertionError(f"structured_data POST /documents {name}: {status} {text}")
+            status, text = _http(base, "GET", "/documents")
+            if json.loads(text)["documents"] != [csvs[0][0], csvs[1][0]]:
+                raise AssertionError(f"structured_data GET /documents: {status} {text}")
+            questions = []
+            recorder.greedy = True
+            for q in FILE_QUESTIONS:
+                with recorder._lock:
+                    recorder.prompts.clear()
+                records.clear()
+                s0 = engine.stats()
+                frames, first, total = _generate_stream(base, q, True, max_tokens=64,
+                                                        temperature=0.1)
+                s1 = engine.stats()
+                answer = _check_answer(f"structured_data {q!r}", frames, (NO_DOCS_MSG,))
+                with recorder._lock:
+                    texts = [engine.tokenizer.decode(p) for p in recorder.prompts]
+                    ids = [len(p) for p in recorder.prompts]
+                codegen = sum("You write small, correct pandas programs" in t for t in texts)
+                spoken = sum("Formulate a natural-language reply" in t for t in texts)
+                failed = sum(m.startswith("Generated code failed") for m in records)
+                requests = s1["requests_prefilled"] - s0["requests_prefilled"]
+                if answer.strip() == NO_CONTEXT_MSG:
+                    path = "no_context"
+                    ok = codegen == structured_data.MAX_CODE_RETRIES and spoken == 0 and any(
+                        m.startswith("Retrieval failed") for m in records)
+                else:
+                    path = "answered"
+                    ok = 1 <= codegen <= structured_data.MAX_CODE_RETRIES and spoken == 1
+                if not ok or requests != codegen + spoken or len(texts) != requests:
+                    raise AssertionError(
+                        f"structured_data {q!r}: {path} after {codegen} code-generation and "
+                        f"{spoken} answer prompts, {requests} engine requests, {failed} logged "
+                        f"failures")
+                questions.append({
+                    "question": q, "path": path, "completions": codegen, "answer_streams": spoken,
+                    "failures_logged": failed, "prompt_ids": ids, "ttft_s": first,
+                    "seconds": total,
+                    "chunked_prefills": s1["prefill_chunks"] - s0["prefill_chunks"]})
+                note(f"structured_data {q!r}: {path}; {codegen} code-generation completions "
+                     f"({failed} programs failed), {spoken} answer stream; prompts {ids} ids; "
+                     f"{questions[-1]['chunked_prefills']} prefill chunks; {total:.3f} s on {smi}")
+            recorder.greedy = False
+            status, text = _http(base, "DELETE", f"/documents?filename={csvs[0][0]}")
+            status2, text2 = _http(base, "GET", "/documents")
+            if status != 200 or json.loads(text2)["documents"] != [csvs[1][0]]:
+                raise AssertionError(f"structured_data DELETE: {status} {text}; {text2}")
+            out["structured_data"] = {"questions": questions, "rows": PDM_ERRORS_ROWS}
+
+            # 2. multimodal: three documents through the graph flow, then answers
+            os.environ["EXAMPLE_NAME"] = "multimodal"
+            # on random weights a reranker's order is noise, and multimodal's
+            # /search passes score_threshold 0.0, so every chunk would reach
+            # it: the fused dense + BM25 order (hybrid) is what can be checked
+            os.environ["APP_RETRIEVER_NRPIPELINE"] = "hybrid"
+            config_mod.get_config.cache_clear()
+            base = serve("multimodal")
+            for owner, name in ((pdf_mod, "iter_content_streams"), (pdf_mod, "extract_pdf_text"),
+                                (pdf_mod, "extract_pdf_tables"), (pdf_mod, "extract_pdf_images"),
+                                (pptx_parser, "extract_pptx_text"),
+                                (pptx_parser, "extract_pptx_images")):
+                watch.patch(owner, name, "parse")
+            watch.patch(multimodal, "ocr_image_local", "ocr")
+            watch.patch(multimodal.VLMCaptioner, "caption", "vlm")
+            watch.patch(multimodal.GraphFlow, "_explain", "explain")
+            watch.patch(runtime, "index_chunks", "embed", record=True)
+            ingest = {}
+            with recorder._lock:
+                recorder.prompts.clear()
+            for name, data in mm_files:
+                watch.seconds.clear()
+                watch.recorded.clear()
+                before = collections.Counter(_StubVLM.calls)
+                raw, ctype = _multipart(name, data)
+                t = time.perf_counter()
+                status, text = _http(base, "POST", "/documents", raw=raw, ctype=ctype)
+                seconds = time.perf_counter() - t
+                if status != 200:
+                    raise AssertionError(f"multimodal POST /documents {name}: {status} {text}")
+                got = sorted(_chunk_key(c) for chunks in watch.recorded for c in chunks)
+                if got != expected[name]:
+                    raise AssertionError(f"multimodal {name}: the served chunks {got} differ from "
+                                         f"the CPU path's {expected[name]}")
+                stub = dict(_StubVLM.calls - before)
+                if stub != stub_expected[name]:
+                    raise AssertionError(f"multimodal {name}: the stub VLM saw {stub}, the CPU "
+                                         f"path {stub_expected[name]}")
+                kinds = collections.Counter(k for k, _, _ in got)
+                ingest[name] = {"seconds": seconds, **{k: watch.seconds.get(k, 0.0) for k in
+                                                      ("parse", "ocr", "vlm", "explain", "embed")},
+                                "chunks": dict(kinds), "vlm_calls": stub}
+                note(f"multimodal {name}: {seconds:.3f} s (parse {ingest[name]['parse']:.3f}, OCR "
+                     f"{ingest[name]['ocr']:.3f}, VLM {ingest[name]['vlm']:.3f}, explain "
+                     f"{ingest[name]['explain']:.3f}, embed {ingest[name]['embed']:.3f}) on {smi}; "
+                     f"chunks {dict(kinds)}, equal to the CPU path's; stub VLM calls {stub}")
+            watch.restore()
+            stub_total = {k: _StubVLM.calls.get(k, 0) for k in VLM_KINDS}
+            want_stub = {"detect": 3, "table": 2, "caption": 1,
+                         "transcribe": 0 if ocr_reads else 1}
+            if stub_total != want_stub:
+                raise AssertionError(f"stub VLM calls {stub_total}, expected {want_stub}")
+            with recorder._lock:
+                explains = [len(p) for p in recorder.prompts
+                            if multimodal.GraphFlow.EXPLAIN_SYSTEM in engine.tokenizer.decode(p)]
+            if len(explains) != want_stub["table"]:
+                raise AssertionError(f"{len(explains)} _explain engine requests for "
+                                     f"{want_stub['table']} charts")
+            ocr_chunks = [t for k, t, s in expected["scan.pdf"] if k == "ocr"]
+            if not ocr_chunks or (not ocr_reads and ocr_chunks != ["\n".join(scan_lines)]):
+                raise AssertionError(f"scan.pdf's ocr chunks: {ocr_chunks}")
+            planted = " ".join(table[4][:3])
+            status, text = _http(base, "POST", "/search", {"query": planted, "top_k": 4})
+            chunks = json.loads(text)["chunks"] if status == 200 else []
+            if not any(c["content"].startswith("[table 0 in report.pdf]") for c in chunks):
+                raise AssertionError(f"multimodal /search {planted!r}: {status} {text[:300]}")
+            answers = {}
+            # the scan's own OCR text (what the template OCR or the VLM read)
+            for key, query in (("table", planted), ("scan", ocr_chunks[0])):
+                with recorder._lock:
+                    recorder.prompts.clear()
+                frames, first, _ = _generate_stream(base, query, True)
+                _check_answer(f"multimodal {key}", frames, (NO_CONTEXT_MSG, NO_DOCS_MSG))
+                with recorder._lock:
+                    ids = [len(p) for p in recorder.prompts]
+                answers[key] = {"ttft_s": first, "prompt_ids": ids}
+            status, text = _http(base, "DELETE", "/documents?filename=deck.pptx")
+            status2, text2 = _http(base, "GET", "/documents")
+            left = sorted(json.loads(text2)["documents"])
+            if status != 200 or left != ["report.pdf", "scan.pdf"]:
+                raise AssertionError(f"multimodal DELETE deck.pptx: {status} {text}; {text2}")
+            note(f"multimodal: stub VLM calls {stub_total}; {len(explains)} _explain engine "
+                 f"requests ({explains} ids); /search {planted!r} finds the table chunk; "
+                 f"/generate TTFT " + ", ".join(f"{k} {v['ttft_s']:.3f} s ({v['prompt_ids']} ids)"
+                                                for k, v in answers.items())
+                 + f"; DELETE deck.pptx leaves {left} on {smi}")
+        launched = counts()
+        wall = time.perf_counter() - t_phase
+        missing = [n for n in RAG_EXPECTED if launched[n] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched by the file chains: {missing}")
+        dispatch_syncs = syncs.counts["torch-llm-engine"]
+        if dispatch_syncs:
+            raise AssertionError(f"the LLM dispatch thread waited for the card {dispatch_syncs} "
+                                 f"times while the file chains ran")
+        stats1 = engine.stats()
+        out["multimodal"] = {"ingest": ingest, "vlm_calls": stub_total,
+                             "explain_prompt_ids": explains, "answers": answers,
+                             "ocr_branch": "template_ocr" if ocr_reads else "vlm",
+                             "modules": branches}
+        out.update({"launches": launched, "dispatch_syncs": dispatch_syncs, "wall_s": wall,
+                    "prefill_chunks": stats1["prefill_chunks"] - stats0["prefill_chunks"],
+                    "engine_requests": stats1["requests_prefilled"] - stats0["requests_prefilled"],
+                    "prefix_cache": _prefix_counts(stats0, stats1)})
+        note(f"launches in the phase: " + ", ".join(f"{n} {launched[n]}" for n in RAG_EXPECTED)
+             + f"; {out['engine_requests']} engine requests, {out['prefill_chunks']} prefill "
+             f"chunks; LLM dispatch thread syncs {dispatch_syncs}; phase wall {wall:.1f} s on {smi}")
+    finally:
+        watch.restore()
+        sd_logger.removeHandler(handler)
+        sd_logger.setLevel(sd_level)
+        os.chdir(cwd)
+        for server, thread in servers:
+            server.shutdown()
+            server.server_close()
+            thread.join(60)
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        _rag_teardown(dep)
+    log(f"phase filechains: ok ({time.time() - t0:.1f} s)")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="kernels,model,serve,retrieval,rag,chains,prefix",
+    parser.add_argument("--phases",
+                        default="kernels,model,serve,retrieval,rag,chains,filechains,prefix",
                         help="phases after the build, comma-separated (default: all)")
     parser.add_argument("--checks", default=",".join(CHECKS),
                         help="phase 3's kernel checks, comma-separated (default: all)")
@@ -2834,13 +3358,19 @@ def main() -> int:
         phase_model(dev)
     serves = (phase_serve(dev, args.recipes, args.runahead, not args.timing_only)
               if "serve" in phases else {})
+    later = {"rag", "chains", "filechains"}
     retrieval, encoders = (phase_retrieval(dev, info["smi"], args.seed,
-                                           keep="rag" in phases or "chains" in phases)
+                                           keep=bool(later & set(phases)))
                            if "retrieval" in phases else ({}, None))
-    rag, dep = (phase_rag(dev, info["smi"], args.seed, encoders, keep="chains" in phases)
+    rag, dep = (phase_rag(dev, info["smi"], args.seed, encoders,
+                          keep=bool({"chains", "filechains"} & set(phases)))
                 if "rag" in phases else ({}, None))
-    chains = (phase_chains(dev, info["smi"], args.seed, dep, encoders)
-              if "chains" in phases else {})
+    chains, dep = (phase_chains(dev, info["smi"], args.seed, dep, encoders,
+                                keep="filechains" in phases)
+                   if "chains" in phases else ({}, dep))
+    # phase 10 runs on phase 7's deployment, so before phase 9's engines
+    files = (phase_filechains(dev, info["smi"], args.seed, dep, encoders)
+             if "filechains" in phases else {})
     prefix = phase_prefix(dev, info["smi"], args.seed) if "prefix" in phases else {}
     kernels = []
     for name, (replaces, source) in KERNELS.items():
@@ -2850,7 +3380,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(sv["launches"][name] for sv in serves.values())
-            + sum(ph.get("launches", {}).get(name, 0) for ph in (rag, chains, prefix)), **r,
+            + sum(ph.get("launches", {}).get(name, 0) for ph in (rag, chains, files, prefix)),
+            **r,
         })
     log(f"total {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": kernels, "serve": {
@@ -2858,6 +3389,7 @@ def main() -> int:
     }, "retrieval": retrieval,
         "rag": {k: v for k, v in rag.items() if k != "launches"},
         "chains": {k: v for k, v in chains.items() if k != "launches"},
+        "filechains": {k: v for k, v in files.items() if k != "launches"},
         "prefix": prefix.get("recipes", {})}), flush=True)
     print(info["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

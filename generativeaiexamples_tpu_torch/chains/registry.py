@@ -1,8 +1,9 @@
 """The example-chain registry: ``EXAMPLE_NAME`` names the chain a
 deployment serves, as in the JAX package's
-generativeaiexamples_tpu/chains/registry.py, with the same names. The JAX
-package's ``structured_data`` and ``multimodal`` chains are not ported
-yet: their names raise ``NotImplementedError``."""
+generativeaiexamples_tpu/chains/registry.py, with the same names;
+``register_example`` adds an out-of-tree chain. Modules are imported when
+their name is resolved, so a chain with heavy imports (pandas, PIL) costs
+nothing to the deployments that serve another."""
 from __future__ import annotations
 
 import importlib
@@ -23,13 +24,24 @@ _REGISTRY: Dict[str, str] = {
     "multi_turn": f"{_PKG}.multi_turn:MultiTurnChatbot",
     "query_decomposition_rag": f"{_PKG}.query_decomposition:QueryDecompositionChatbot",
     "query_decomposition": f"{_PKG}.query_decomposition:QueryDecompositionChatbot",
+    "structured_data_rag": f"{_PKG}.structured_data:CSVChatbot",
+    "structured_data": f"{_PKG}.structured_data:CSVChatbot",
+    "multimodal_rag": f"{_PKG}.multimodal:MultimodalRAG",
+    "multimodal": f"{_PKG}.multimodal:MultimodalRAG",
     "simple_rag": f"{_PKG}.simple_rag:SimpleRAG",
     "echo": f"{_PKG}.echo:EchoChain",
 }
-# the JAX package's chains that the port does not serve yet
-NOT_PORTED = ("structured_data_rag", "structured_data", "multimodal_rag", "multimodal")
 
 DEFAULT_EXAMPLE = "developer_rag"
+
+
+def register_example(name: str, target: str) -> None:
+    """Register an out-of-tree chain as ``module.path:ClassName``."""
+    _REGISTRY[name] = target
+
+
+def available_examples() -> Dict[str, str]:
+    return dict(_REGISTRY)
 
 
 def resolve_example(name: str | None = None) -> Type[BaseExample]:
@@ -37,10 +49,6 @@ def resolve_example(name: str | None = None) -> Type[BaseExample]:
     ``EXAMPLE_NAME``, else ``developer_rag``."""
     name = name or os.environ.get("EXAMPLE_NAME", DEFAULT_EXAMPLE)
     if name not in _REGISTRY:
-        if name in NOT_PORTED:
-            raise NotImplementedError(
-                f"example {name!r} is not ported yet (ROADMAP queue 1 item 7); the port "
-                f"serves {sorted(_REGISTRY)}")
         raise NotImplementedError(f"Unknown example {name!r}. Available: {sorted(_REGISTRY)}")
     modname, _, clsname = _REGISTRY[name].partition(":")
     cls = getattr(importlib.import_module(modname), clsname)

@@ -45,7 +45,6 @@ _SNAP = "drain and snapshots arrive with disaggregation (ROADMAP queue 1 item 8)
 _TIER = "the retrieval tier arrives with disaggregation (ROADMAP queue 1 item 8)"
 _RETRY = ("the port has no retries, circuit breakers or fault injection yet "
           "(ROADMAP queue 1 item 6)")
-_CHAINS = "the chain that reads it is not ported yet (ROADMAP queue 1 item 7)"
 # The JAX package's EngineConfig fields (config/schema.py) that the port
 # has no field for: name -> (the JAX default, why another value is refused,
 # the other values the port serves as they are). A reason of None marks a
@@ -266,8 +265,9 @@ class LLMConfig:
     # tpu|local (the in-process engine; on the card in the port),
     # openai|nvidia-ai-endpoints|remote (an OpenAI-compatible server), echo
     model_engine: str = "tpu"
-
-    UNSERVED = {"model_name_pandas_ai": ("meta-llama/Meta-Llama-3-8B-Instruct", _CHAINS)}
+    # the structured-data agent's model: read by no chain, in the JAX
+    # package too; served so a deployment that sets it starts
+    model_name_pandas_ai: str = "meta-llama/Meta-Llama-3-8B-Instruct"
 
     @classmethod
     def from_env(cls, environ: Optional[Mapping[str, str]] = None) -> "LLMConfig":

@@ -45,6 +45,8 @@ def validate_config(cfg) -> None:
     _require(engine_kind in _LLM_ENGINES,
              f"llm.model_engine must be one of {_LLM_ENGINES}, got {llm.model_engine!r}")
     _require(bool(llm.model_name.strip()), "llm.model_name must not be empty")
+    _require(bool(llm.model_name_pandas_ai.strip()),
+             "llm.model_name_pandas_ai must not be empty")
     if engine_kind in _REMOTE:
         _require(bool(llm.server_url),
                  f"llm.model_engine={engine_kind!r} requires llm.server_url (APP_LLM_SERVERURL)")

@@ -622,11 +622,8 @@ def test_registry_serves_the_ported_chains(monkeypatch):
     monkeypatch.setenv("EXAMPLE_NAME", "echo")
     assert tregistry.resolve_example().__name__ == "EchoChain"
     for name in jregistry.available_examples():
-        if name.startswith(("structured_data", "multimodal")):
-            with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-                tregistry.resolve_example(name)
-        else:  # every other JAX name resolves to the port's class of the same name
-            assert tregistry.resolve_example(name).__name__ == \
-                jregistry.resolve_example(name).__name__
+        # every JAX name resolves to the port's class of the same name
+        assert tregistry.resolve_example(name).__name__ == \
+            jregistry.resolve_example(name).__name__
     with pytest.raises(NotImplementedError, match="Unknown example"):
         tregistry.resolve_example("nope")

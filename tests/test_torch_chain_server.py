@@ -19,7 +19,9 @@ aiohttp app, the port's over HTTP, the same requests to both.
   ``query_decomposition``, picked by ``EXAMPLE_NAME`` through each
   package's registry) over hash embeddings and the echo LLM: uploads,
   listings, ``/search``, ``/generate`` with and without the knowledge base
-  and ``DELETE``, with equal bodies and SSE bytes from both servers.
+  and ``DELETE``, with equal bodies and SSE bytes from both servers; and
+  the file chains (``structured_data``, ``multimodal``) the same way, a
+  refused upload answering 500 with the JAX package's message.
 """
 import asyncio
 import http.client
@@ -377,6 +379,126 @@ def test_text_chains_answer_alike_through_both_servers(app_env, tmp_path, exampl
         answer = "".join(f["choices"][0]["message"]["content"] for f in frames[:-1])
         assert answer and "No response generated" not in answer
     assert "pool.txt" not in json.loads(out[9][2])["documents"]
+
+
+def _file_chain_requests(example):
+    """The upload, listing, search, answer and delete requests of a file
+    chain, with seeded files: CSVs of the errors table's columns (and one
+    of other columns) for ``structured_data``; a prose + table + image
+    PDF, an image-only PDF and a PPTX for ``multimodal``."""
+    import io as _io
+
+    import numpy as np
+    from PIL import Image
+
+    from generativeaiexamples_tpu_torch.chains.pptx_parser import write_pptx
+    from generativeaiexamples_tpu_torch.retrieval import pdf as tpdf
+
+    rng = np.random.RandomState(13)
+    if example == "structured_data":
+        def csv(n):
+            ids, errs = rng.randint(1, 101, n), rng.randint(1, 6, n)
+            return ("datetime,machineID,errorID\n" + "".join(
+                f"2015-01-{1 + i % 28:02d} 06:00:00,{m},error{e}\n"
+                for i, (m, e) in enumerate(zip(ids, errs)))).encode()
+
+        code = "result = int(dfs[0]['machineID'].max())"
+        return [
+            _upload_req("a.csv", csv(30)),
+            _upload_req("b.csv", csv(20)),
+            _upload_req("other.csv", b"machineID,model,age\n1,model3,18\n"),
+            _upload_req("notes.txt", b"not a csv"),
+            _Req("GET", "/documents"),
+            _Req("POST", "/search", {"query": "machine", "top_k": 2}),
+            _gen(code, kb=True, max_tokens=48),
+            _gen("hello there", kb=False, max_tokens=8),
+            _Req("DELETE", "/documents?filename=a.csv"),
+            _Req("GET", "/documents"),
+            _gen(code, kb=True, max_tokens=48),
+        ]
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = lambda n: ["".join(rng.choice(letters, 6)) for _ in range(n)]  # noqa: E731
+    grid = [words(5) for _ in range(12)]
+    chart = np.full((128, 128, 3), 255, np.uint8)
+    chart[:, ::16] = chart[::16, :] = 30
+    buf = _io.BytesIO()
+    Image.fromarray(chart).save(buf, format="JPEG")
+    report = tpdf.write_pdf([
+        (tpdf.text_ops([" ".join(words(10)) + "." for _ in range(20)]), []),
+        (tpdf.table_ops(grid), []),
+        (b"", [("jpeg", buf.getvalue(), 128, 128)]),
+    ])
+    scan = tpdf.write_pdf([(b"", [("jpeg", buf.getvalue(), 128, 128)])])
+    deck = write_pptx([["Quarterly review"], words(6)], media={"image1.jpg": buf.getvalue()})
+    query = " ".join(grid[5][:3])
+    return [
+        _upload_req("report.pdf", report),
+        _upload_req("scan.pdf", scan),
+        _upload_req("deck.pptx", deck),
+        _upload_req("readme.txt", b"plain text"),
+        _Req("GET", "/documents"),
+        _Req("POST", "/search", {"query": query, "top_k": 1}),
+        _gen(query, kb=True, max_tokens=48),
+        _gen("hello there", kb=False, max_tokens=8),
+        _Req("DELETE", "/documents?filename=report.pdf"),
+        _Req("GET", "/documents"),
+        _gen(query, kb=True, max_tokens=48),
+    ]
+
+
+@pytest.mark.parametrize("example", ["structured_data", "multimodal"])
+def test_file_chains_answer_alike_through_both_servers(app_env, tmp_path, example):
+    """``structured_data`` (the echo LLM hands the query back as the
+    program) and ``multimodal`` (no VLM: the local captions) through both
+    servers, each package in a working directory of its own (the CSV list
+    is relative to it) and with its own store."""
+    app_env.setenv("EXAMPLE_NAME", example)
+    app_env.setenv("CSV_NAME", "PdM_errors")
+    app_env.delenv("APP_MULTIMODAL_VLM_URL", raising=False)
+    outs = []
+    for run, pkg in ((_run_jax, "jax"), (_run_port, "port")):
+        app_env.setenv("APP_VECTORSTORE_PERSISTDIR", str(tmp_path / pkg / "store"))
+        (tmp_path / pkg).mkdir()
+        app_env.chdir(tmp_path / pkg)
+        jget_config.cache_clear()
+        tconfig.get_config.cache_clear()
+        jruntime.reset_runtime()
+        truntime.reset_runtime()
+        truntime.set_device("cpu")
+        try:
+            outs.append(run(None, _file_chain_requests(example)))
+        finally:
+            jruntime.reset_runtime()
+            truntime.reset_runtime()
+            truntime.set_device(None)
+    _assert_same(*outs)
+    out = outs[1]
+    assert [o[0] for o in out[:4]] == ([200, 200, 500, 500] if example == "structured_data"
+                                       else [200, 200, 200, 500])
+    docs_before, docs_after = (json.loads(out[k][2])["documents"] for k in (4, 9))
+    uploads = str(tmp_path / "uploads")
+    if example == "structured_data":
+        assert json.loads(out[2][2]) == {"message": (
+            f"Columns of the file {uploads}/other.csv do not match the reference columns of "
+            f"{uploads}/a.csv\n file.")}
+        assert json.loads(out[3][2]) == {"message": "notes.txt is not a valid CSV file"}
+        assert docs_before == ["a.csv", "b.csv"] and docs_after == ["b.csv"]
+        assert out[5][0] == 500  # CSVChatbot has no document_search
+    else:
+        assert json.loads(out[3][2])["message"].startswith(
+            "readme.txt is not a valid PDF/PPTX file.")
+        assert sorted(docs_before) == ["deck.pptx", "report.pdf", "scan.pdf"]
+        assert sorted(docs_after) == ["deck.pptx", "scan.pdf"]
+        chunk = json.loads(out[5][2])["chunks"][0]
+        assert chunk["filename"] == "report.pdf" and chunk["content"].startswith("[table 0")
+    for k, o in enumerate((out[6], out[7], out[10])):
+        frames = _frames(o[2])
+        assert o[0] == 200 and frames[-1]["choices"][0]["finish_reason"] == "[DONE]"
+        answer = "".join(f["choices"][0]["message"]["content"] for f in frames[:-1])
+        if k == 2 and example == "multimodal":  # the query's words left with report.pdf
+            assert answer.startswith("No response generated from LLM, make sure your query")
+        else:
+            assert answer and "No response generated" not in answer
 
 
 @pytest.mark.parametrize("example,status", [("simple_rag", 500), ("api_catalog", 200)])

@@ -25,6 +25,9 @@ tests/test_torch_chain_runtime.py's. The corpora here are small enough
 candidates tie, so both packages retrieve the same chunks in the same
 order and the chains can be compared outright.
 
+The registry resolves every name of the JAX registry (``available_examples``,
+``register_example`` and the package's exports as in JAX).
+
 Last, the locks the port added where the JAX package has none: BM25 under
 concurrent writers and searchers, the runtime's per-collection factories
 under concurrent first calls, and four concurrent ``multi_turn``
@@ -45,6 +48,7 @@ from generativeaiexamples_tpu.chains import multi_turn as jmt
 from generativeaiexamples_tpu.chains import query_decomposition as jqd
 from generativeaiexamples_tpu.chains import runtime as jrt
 from generativeaiexamples_tpu.chains import simple_rag as jsr
+from generativeaiexamples_tpu.chains.registry import available_examples as javailable_examples
 from generativeaiexamples_tpu.config import get_config as jget_config
 from generativeaiexamples_tpu.engine import reranker as jreranker
 from generativeaiexamples_tpu.retrieval import splitter as jsplitter
@@ -739,3 +743,54 @@ def test_concurrent_multi_turn_conversations_keep_every_memory(pair, tmp_path, m
     for c in range(4):
         hits = trt.retrieve(questions[c][0], collection="conv_store")
         assert f"User previously responded with {questions[c][0]}" in [h.chunk.text for h in hits]
+
+
+# --------------------------------------------------------------------------- #
+# the registry and the package's exports
+
+
+def test_the_registry_has_the_jax_names_and_exports():
+    import generativeaiexamples_tpu.chains as jchains
+    import generativeaiexamples_tpu_torch.chains as tchains
+
+    assert set(tchains.available_examples()) == set(jchains.available_examples())
+    assert sorted(tchains.__all__) == sorted(jchains.__all__)
+    for name in tchains.__all__:
+        assert getattr(tchains, name) is not None
+    from generativeaiexamples_tpu_torch.chains import registry
+
+    assert not hasattr(registry, "NOT_PORTED")
+
+
+@pytest.mark.parametrize("name", sorted(javailable_examples()))
+def test_every_jax_name_resolves_to_a_chain(name):
+    from generativeaiexamples_tpu.chains import resolve_example as jresolve
+    from generativeaiexamples_tpu_torch.chains import BaseExample, resolve_example
+
+    cls = resolve_example(name)
+    assert {"ingest_docs", "llm_chain", "rag_chain"} <= set(dir(cls))
+    assert issubclass(cls, BaseExample) and cls.__name__ == jresolve(name).__name__
+    assert cls.__module__.startswith("generativeaiexamples_tpu_torch.chains.")
+
+
+def test_register_example(monkeypatch):
+    from generativeaiexamples_tpu_torch.chains import (
+        available_examples,
+        register_example,
+        registry,
+        resolve_example,
+    )
+
+    monkeypatch.setattr(registry, "_REGISTRY", dict(registry._REGISTRY))
+    register_example("my_chain", "generativeaiexamples_tpu_torch.chains.echo:EchoChain")
+    assert available_examples()["my_chain"] == \
+        "generativeaiexamples_tpu_torch.chains.echo:EchoChain"
+    assert resolve_example("my_chain").__name__ == "EchoChain"
+    copy = available_examples()
+    copy["other"] = "x:y"
+    assert "other" not in available_examples()
+    register_example("not_a_chain", "generativeaiexamples_tpu_torch.chains.base:ABC")
+    with pytest.raises(ValueError, match="does not implement"):
+        resolve_example("not_a_chain")
+    with pytest.raises(NotImplementedError, match="Unknown example 'nope'"):
+        resolve_example("nope")

@@ -6,8 +6,10 @@ JAX package's config/validate.py, on the same ``APP_*`` environment:
   started on 14 of them before the repair), then one bad value for each
   other check the port copies: ``make_server`` and JAX's
   ``validate_config`` both refuse, with equal messages;
-- both accept the defaults and the deployments of ``chip_smoke.py``
-  (phase 7's ``RAG_ENV`` and phase 8's chains over a remote engine).
+- both accept the defaults, a structured-data deployment that names its
+  own ``llm.model_name_pandas_ai``, and the deployments of
+  ``chip_smoke.py`` (phase 7's ``RAG_ENV`` and phase 8's chains over a
+  remote engine).
 """
 import os
 
@@ -46,6 +48,8 @@ OTHER_CHECKS = [
     ("APP_VECTORSTORE_NPROBE", "0"),
     ("APP_VECTORSTORE_PERSISTDIR", " "),
     ("APP_LLM_MODELNAME", " "),
+    ("APP_LLM_MODELNAMEPANDASAI", ""),
+    ("APP_LLM_MODELNAMEPANDASAI", " "),
     ("APP_LLM_MODELENGINE", "remote"),
     ("APP_TEXTSPLITTER_CHUNKOVERLAP", "-1"),
     ("APP_EMBEDDINGS_MODELNAME", " "),
@@ -100,10 +104,13 @@ def test_make_server_refuses_what_jax_refuses(env, name, value):
     assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("deployment", ["defaults", "rag", "chains_remote"])
+@pytest.mark.parametrize("deployment", ["defaults", "pandas_model", "rag", "chains_remote"])
 def test_both_accept_the_defaults_and_the_smoke_deployments(env, deployment):
     values = {
         "defaults": {},
+        # served, as in JAX: a deployment may name the structured-data model
+        "pandas_model": {"EXAMPLE_NAME": "structured_data",
+                         "APP_LLM_MODELNAMEPANDASAI": "meta-llama/Meta-Llama-3-70B-Instruct"},
         "rag": chip_smoke.RAG_ENV,
         "chains_remote": dict(chip_smoke.RAG_ENV, **chip_smoke.REMOTE_LLM_ENV,
                               APP_LLM_SERVERURL="http://127.0.0.1:9"),
