@@ -149,9 +149,47 @@ Phases (each one's failure makes the script exit non-zero):
    ingest seconds split into parse, OCR, VLM, explain and embed, and the
    answers' TTFT.
 
+11. drain: preemption and the scheduler at full llama3-8b width and depth
+   (int8 packs at seed 0, ``max_batch_size`` 8, ``max_seq_len`` 8192,
+   page 128, ``prefill_chunk`` 512, ``decode_block`` 8), after phase 10 on
+   phase 7's deployment (alone, it builds it and ingests phase 7's
+   corpus), which it then takes down:
+   (c) ``retrieval.search:error@1`` degrades one ``/generate`` to a
+   warnings frame and the LLM-only answer; ``api_catalog`` over an
+   upstream stub in front of the engine server that answers 503 twice,
+   then serves, answers after ``retry_max_attempts`` (3) attempts, and one
+   that always fails opens the ``llm_remote`` breaker after
+   ``breaker_failure_threshold`` (5) failures, after which a request
+   fails fast; (d) with ``APP_RETRIEVER_BACKEND=tier`` 8 concurrent
+   ``/search`` answer as the synchronous path did (byte for byte, or
+   scores within ``SEARCH_SCORE_TOL`` with tie runs as sets: the tier's
+   dispatches are padded to ``ann_max_batch`` rows, a single query's are
+   not), in fewer ANN dispatches than queries; (a) for recipes A (bf16 pool) and C (int4
+   pool, scales in the payload): 8 chat streams of 101-157 ids x 64 tokens
+   through the engine server (4 greedy, 4 seeded at temperature 0.7,
+   top_p 0.9), undisturbed, then again under the fault
+   ``engine.dispatch:delay=0.05@1x0`` with ``POST /internal/drain`` once
+   each has a token: every stream ends ``PREEMPTED`` with a snapshot id,
+   ``/internal/snapshots`` lists the 8, each document is relayed into
+   ``/internal/restore`` of a second engine (same config, its own weights
+   from seed 0, the shared spool) and restores in mode ``restore``, its
+   pages bitwise the payload's, its spooled tokens plus the continuation
+   equal to the undisturbed stream, with no synchronizing call on the
+   dispatch thread; (b) on recipe A's weights at ``max_batch_size`` 12,
+   the same 8 requests alone and then with 4 prompts of 1.5-2k ids
+   submitted while they decode, under ``unified`` and then ``disagg``:
+   equal streams, one handoff a request, the pages handed equal to those
+   funded, no recompute, no synchronizing call on either tier's thread.
+   It prints the drain seconds, snapshot bytes a request, restore latency
+   (p50, max), the continuation's ``paged_attention`` launches by pool
+   dtype, the handoff counters, each policy's decode wall step with and
+   without the long prompts, the retrieval tier's dispatches a wave and
+   the phase wall.
+
 With no arguments it runs every phase, as above; ``--phases``,
 ``--checks`` and ``--recipes`` run a part (for example ``--phases serve
---recipes B``, ``--phases chains`` or ``--phases filechains``) and then print only the kernels that part measured;
+--recipes B``, ``--phases chains``, ``--phases filechains`` or ``--phases
+drain``) and then print only the kernels that part measured;
 ``--runahead N`` serves every engine at ``decode_runahead`` N, and
 ``--timing-only`` leaves out the runahead and overload checks (for timed
 runs of an older tree, which lacks them).
@@ -1557,15 +1595,30 @@ def phase_retrieval(dev, smi, seed=0, keep=False):
                 for k in (4, 16):
                     with torch.inference_mode():
                         ms = timer.ms(lambda: eng._topk(corp, q_dev, k, nprobe))
+                    # one query: the synchronous path (the row ladder's one
+                    # row); eight: the batched path (padded to ann_max_batch)
+                    call = ((lambda: store.search(queries[0], k)) if R == 1
+                            else (lambda: store.search_batch(queries[:R], k)))
                     t1 = time.perf_counter()
                     for _ in range(5):
-                        store.search_batch(queries[:R], k)
+                        call()
                     wall = (time.perf_counter() - t1) / 5 * 1e3
                     b_ms, b_by = hardware.bound_ms(*hardware.search_cost(
                         R, corp.capacity, ecfg.hidden_size, 64 if mode == "ivf" else 0))
                     search_ms[f"{mode}_r{R}_k{k}"] = {"ms": ms, "wall_ms": wall, "bound_ms": b_ms}
+                    if R == 1:
+                        # the same query through the batched path, padded to
+                        # ann_max_batch rows (the retrieval tier's dispatch)
+                        t1 = time.perf_counter()
+                        for _ in range(5):
+                            store.search_batch(queries[:1], k)
+                        padded = (time.perf_counter() - t1) / 5 * 1e3
+                        search_ms[f"{mode}_r{R}_k{k}"]["padded_wall_ms"] = padded
+                        log(f"  search[{mode}] one query padded to {eng._max_batch} rows k {k}: "
+                            f"{padded:.3f} ms wall for store.search_batch on {smi}")
                     log(f"  search[{mode}] rows {R} k {k}: {ms:.4f} ms on the device, "
-                        f"{wall:.3f} ms wall for store.search_batch, bound {b_ms:.4f} ms ({b_by}) "
+                        f"{wall:.3f} ms wall for store.{'search' if R == 1 else 'search_batch'}, "
+                        f"bound {b_ms:.4f} ms ({b_by}) "
                         f"on {smi}")
         log(f"  IVF (nlist 64, nprobe 16) recall against exact: @4 {recall[4]:.3f}, @16 "
             f"{recall[16]:.3f}")
@@ -1975,6 +2028,8 @@ def _rag_teardown(dep) -> None:
             os.environ[key] = value
     config_mod.get_config.cache_clear()
     shutil.rmtree(dep["tmp"], ignore_errors=True)
+    for key in ("engine", "emb", "rr", "config"):  # a caller may keep ``dep``
+        dep.pop(key, None)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2371,19 +2426,8 @@ def phase_chains(dev, smi, seed=0, dep=None, encoders=None, keep=False):
         log(f"  [{time.time() - t0:.1f} s] {msg}")
 
     if dep is None:
-        dep = _rag_deploy(encoders)
-        try:
-            docs = _rag_corpus(np.random.RandomState(seed + 7))
-            files = _rag_files(docs)
-            src = tempfile.mkdtemp(dir=dep["tmp"])
-            for name, data in files:
-                path = os.path.join(src, name)
-                with open(path, "wb") as fh:
-                    fh.write(data)
-                runtime.ingest_file(path, name)
-        except BaseException:
-            _rag_teardown(dep)
-            raise
+        dep = _rag_deploy_ingested(seed, encoders)
+        docs, files = dep["corpus"]
         note(f"engine A through create_llm ({dep['engine_s']:.1f} s) and {EMBED_MODEL}/"
              f"{RERANK_MODEL} {'from phase 6' if encoders is not None else 'by the factories'}; "
              f"phase 7's {len(files)} documents ingested into 'default'")
@@ -3023,10 +3067,11 @@ def _chunk_key(chunk):
     return (chunk.metadata.get("type", "text"), text, chunk.source)
 
 
-def phase_filechains(dev, smi, seed=0, dep=None, encoders=None) -> dict:
+def phase_filechains(dev, smi, seed=0, dep=None, encoders=None, keep=False):
     """The file chains through the port's chain server on the card (module
     docstring, phase 10): ``dep`` is phase 7's deployment, still up, or
-    None to build one (with phase 6's ``encoders`` when given)."""
+    None to build one (with phase 6's ``encoders`` when given). Returns the
+    results and, when ``keep``, the deployment still up for phase 11."""
     import logging
     import os
     import tempfile
@@ -3324,15 +3369,710 @@ def phase_filechains(dev, smi, seed=0, dep=None, encoders=None) -> dict:
                 os.environ.pop(key, None)
             else:
                 os.environ[key] = value
-        _rag_teardown(dep)
+        config_mod.get_config.cache_clear()
+        if not keep or sys.exc_info()[0] is not None:
+            _rag_teardown(dep)
     log(f"phase filechains: ok ({time.time() - t0:.1f} s)")
+    return out, (dep if keep else None)
+
+
+# --------------------------------------------------------------------- #
+# Phase 11: drain and restore, the disagg scheduler, faults, the retrieval tier
+
+DRAIN_RECIPES = "AC"  # the bf16 paged pool and the int4 pool, whose payload carries scales
+DRAIN_REQUESTS, DRAIN_TOKENS, DRAIN_IDS = 8, 64, (101, 157)
+DRAIN_FAULT = "engine.dispatch:delay=0.05@1x0"
+DRAIN_SLOTS_B = 12  # part (b): the 8 requests and the 4 long prompts decode together
+DRAIN_LONG, DRAIN_LONG_IDS, DRAIN_LONG_TOKENS = 4, (1536, 2048), 16
+
+
+def _drain_bodies(tokenizer, rng, redraw=(), bodies=None) -> list:
+    """The 8 chat bodies of part (a): rendered prompts of 101-157 ids, 4
+    greedy and 4 seeded at temperature 0.7, top_p 0.9, 64 tokens each.
+    With ``bodies``, only the indices in ``redraw`` get new contents."""
+    base = len(tokenizer.render_chat([("user", "")]))
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz "))
+    lengths = np.linspace(DRAIN_IDS[0], DRAIN_IDS[1], DRAIN_REQUESTS).astype(int)
+    if bodies is not None:
+        bodies = list(bodies)
+        for i in redraw:
+            bodies[i] = dict(bodies[i], messages=[{"role": "user", "content": "".join(
+                rng.choice(letters, int(lengths[i]) - base))}])
+        return bodies
+    bodies = []
+    for i, n in enumerate(lengths):
+        content = "".join(rng.choice(letters, int(n) - base))
+        if len(tokenizer.render_chat([("user", content)])) != n:
+            raise AssertionError("the byte tokenizer renders another prompt length")
+        body = {"messages": [{"role": "user", "content": content}], "stream": True,
+                "max_tokens": DRAIN_TOKENS, "temperature": 0.0}
+        if i % 2:
+            body.update(temperature=0.7, top_p=0.9, seed=1000 + i)
+        bodies.append(body)
+    return bodies
+
+
+def _chat_sse(base, body, out, key) -> None:
+    """One streamed chat completion into ``out[key]``: its data frames
+    (JSON) and whether ``[DONE]`` ended it."""
+    req = urllib.request.Request(base + "/v1/chat/completions", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    frames, done = [], False
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        for raw in resp:
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            if line == "data: [DONE]":
+                done = True
+                break
+            frames.append(json.loads(line[6:]))
+    out[key] = (frames, done)
+
+
+def _serve_engine(engine):
+    from generativeaiexamples_tpu_torch.engine.server import make_server
+
+    server = make_server("127.0.0.1", 0, engine=engine)
+    thread = threading.Thread(target=server.serve_forever, name="smoke-drain-http", daemon=True)
+    thread.start()
+    return server, thread, f"http://127.0.0.1:{server.server_address[1]}"
+
+
+def _recorded_submits(engine) -> list:
+    """Record every request handle ``engine.submit`` returns."""
+    handles, orig = [], engine.submit
+
+    def submit(prompt_ids, params=None):
+        req = orig(prompt_ids, params)
+        handles.append(req)
+        return req
+
+    engine.submit = submit
+    return handles
+
+
+def _fire_wave(engine, base, bodies) -> tuple:
+    """The bodies' streams started together and held until all wait in the
+    admission queue, so they prefill as one wave (the same wave on every
+    run). Returns (threads, results by index)."""
+    out, threads = {}, []
+    with engine.hold_admissions():
+        for i, body in enumerate(bodies):
+            t = threading.Thread(target=_chat_sse, args=(base, body, out, i),
+                                 name=f"smoke-drain-stream-{i}", daemon=True)
+            t.start()
+            threads.append(t)
+        deadline = time.time() + 120
+        while engine.queue_depth() < len(bodies):
+            if time.time() > deadline:
+                raise AssertionError("the drain phase's wave never queued")
+            time.sleep(0.005)
+    return threads, out
+
+
+def _join(threads, what) -> None:
+    for t in threads:
+        t.join(600)
+        if t.is_alive():
+            raise AssertionError(f"{what}: a stream did not end")
+
+
+def drain_recipe(dev, smi, name, kv_dtype, spool, seed) -> tuple:
+    """Part (a) on one recipe: undisturbed streams, then the same streams
+    drained mid-decode and restored on a second engine of the same config
+    (its own weights from the same seed) that shares only the spool."""
+    import statistics as stats_mod
+
+    from generativeaiexamples_tpu_torch.engine import request_snapshot as rs
+    from generativeaiexamples_tpu_torch.engine.llm_engine import LLMEngine
+    from generativeaiexamples_tpu_torch.utils import faults
+
+    t0 = time.time()
+    cfg = EngineConfig(model_config_name=MODEL, quantization="int8", kv_cache_dtype=kv_dtype,
+                       kv_layout="paged", snapshot_spool_dir=spool)
+    e1 = LLMEngine(cfg, device=dev)
+    e2 = s1 = s2 = None
+    out = {}
+    try:
+        build_s = time.time() - t0
+        rng = np.random.RandomState(seed + ord(name))
+        bodies = _drain_bodies(e1.tokenizer, rng)
+        s1 = _serve_engine(e1)
+        handles = _recorded_submits(e1)
+        redrawn = 0
+        for _ in range(6):
+            handles.clear()
+            threads, first = _fire_wave(e1, s1[2], bodies)
+            _join(threads, f"{name} undisturbed")
+            ref = {tuple(r.prompt_ids): list(r.emitted) for r in handles}
+            if any(not first[i][1] for i in range(len(bodies))) or any(
+                    len(v) != DRAIN_TOKENS and v[-1] not in e1._stop_ids for v in ref.values()):
+                raise AssertionError(f"{name}: an undisturbed stream did not run to its end")
+            # a stream that samples a stop id early (random weights) ends
+            # before any drain: its prompt is drawn again
+            short = [i for i, body in enumerate(bodies) if len(ref[tuple(
+                e1.tokenizer.render_chat([("user", body["messages"][0]["content"])]))])
+                < DRAIN_TOKENS]
+            if not short:
+                break
+            redrawn += len(short)
+            bodies = _drain_bodies(e1.tokenizer, rng, short, bodies)
+        else:
+            raise AssertionError(f"{name}: streams still stop early after 5 redraws")
+
+        # the same wave, throttled by the fault, drained once each has a token
+        handles.clear()
+        faults.install(DRAIN_FAULT)
+        try:
+            threads, second = _fire_wave(e1, s1[2], bodies)
+            deadline = time.time() + 120
+            while len(handles) < len(bodies) or not all(r.generated >= 1 for r in handles):
+                if time.time() > deadline:
+                    raise AssertionError(f"{name}: the throttled wave produced no tokens")
+                time.sleep(0.002)
+            at_drain = [r.generated for r in handles]
+            t1 = time.perf_counter()
+            status, text = _post(s1[2], "/internal/drain", {})
+            drain_s = time.perf_counter() - t1
+        finally:
+            faults.reset()
+        _join(threads, f"{name} drained")
+        summary = json.loads(text)
+        if status != 200 or not summary["parked"] or summary["spooled"] != len(bodies):
+            raise AssertionError(f"{name}: drain answered {status} {text[:300]}")
+        gen = [len(r.emitted) for r in handles]
+        if not all(1 <= g < DRAIN_TOKENS for g in gen):
+            raise AssertionError(f"{name}: streams at the drain {gen} not within 1-63 tokens")
+        sids = []
+        for i in range(len(bodies)):
+            frames, done = second[i]
+            last = frames[-1] if frames else {}
+            sid = (last.get("warnings") or [""])[0].removeprefix("preempted snapshot_id=")
+            if not done or last["choices"][0]["finish_reason"] != "PREEMPTED" or not sid:
+                raise AssertionError(f"{name}: stream {i} did not end PREEMPTED with a snapshot "
+                                     f"id: {last}")
+            sids.append(sid)
+        status, text = _http(s1[2], "GET", "/internal/snapshots")
+        listed = {d["snapshot_id"]: d for d in json.loads(text)["snapshots"]}
+        if set(listed) != set(sids) or not all(d["restorable"] for d in listed.values()):
+            raise AssertionError(f"{name}: /internal/snapshots lists {sorted(listed)}, "
+                                 f"the streams named {sorted(sids)}")
+        doc_bytes = [listed[s]["bytes"] for s in sids]
+
+        # engine 2: same config, own weights, the shared spool; every document
+        # relayed from engine 1's server into engine 2's
+        t2 = time.time()
+        e2 = LLMEngine(cfg, device=dev)
+        build2_s = time.time() - t2
+        s2 = _serve_engine(e2)
+        restored, placed = [], {}
+        orig_restore, orig_apply = e2.restore_snapshot, e2._apply_restore
+
+        def restore(snap):
+            result = orig_restore(snap)
+            restored.append((snap, result))
+            return result
+
+        def apply(snap, payload, req):
+            mode = orig_apply(snap, payload, req)
+            if mode == "restore":
+                n = int(snap.geometry["pages"])
+                placed[req.rid] = list(e2._slot_pages[req.slot][:n])
+            return mode
+
+        e2.restore_snapshot, e2._apply_restore = restore, apply
+        latencies0 = len(rs.restore_latencies)
+        docs = {sid: _http(s1[2], "GET", f"/internal/snapshots/{sid}")[1] for sid in sids}
+        relay = {}
+
+        def relay_one(sid):
+            req = urllib.request.Request(s2[2] + "/internal/restore", data=docs[sid].encode(),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                header = resp.headers.get("X-GenAI-Restore")
+                frames = [line.decode().strip() for line in resp if line.startswith(b"data: ")]
+            relay[sid] = (header, frames)
+
+        reset_counts()
+        with SyncCounter() as syncs:
+            rthreads = [threading.Thread(target=relay_one, args=(sid,), daemon=True,
+                                         name=f"smoke-relay-{k}") for k, sid in enumerate(sids)]
+            for t in rthreads:
+                t.start()
+            _join(rthreads, f"{name} restore relay")
+            _settle(e2)
+        launched = counts()
+        dispatch_syncs = syncs.counts["torch-llm-engine"]
+        modes = [relay[sid][0] for sid in sids]
+        if modes != [f"{sid}; mode=restore" for sid in sids]:
+            raise AssertionError(f"{name}: restore modes {modes}")
+        if not all(json.loads(relay[sid][1][-1][6:])["choices"][0]["finish_reason"] == "[DONE]"
+                   for sid in sids):
+            raise AssertionError(f"{name}: a restore stream did not end with [DONE]")
+        # the restored pages hold the payload's rows bitwise
+        diffs = []
+        for snap, (req, _, _, _) in restored:
+            payload = rs.decode_kv_payload(snap.kv)
+            rows = snap.position
+            for li, (got, want) in enumerate(zip(rs.read_pages(e2, placed[req.rid]), payload)):
+                for key in want:
+                    a = got[key].flatten(0, 1)[:rows].contiguous().view(torch.uint8)
+                    b = want[key].flatten(0, 1)[:rows].contiguous().view(torch.uint8)
+                    if not torch.equal(a, b):
+                        diffs.append((snap.snapshot_id, li, key))
+        if diffs:
+            raise AssertionError(f"{name}: restored pages differ from the payload: {diffs[:4]}")
+        wrong = [i for i, (snap, (req, _, _, _)) in enumerate(restored)
+                 if list(req.emitted) != ref[tuple(snap.prompt_ids)]]
+        if wrong:
+            raise AssertionError(f"{name}: restored streams {wrong} differ from the undisturbed "
+                                 f"ones (the restored pages equal the payload)")
+        if dispatch_syncs:
+            raise AssertionError(f"{name}: the dispatch thread waited for the card "
+                                 f"{dispatch_syncs} times while it restored")
+        pa_key = f"paged_attention[{kv_dtype}]"
+        if launched[pa_key] == 0 or launched["int8_matmul"] == 0:
+            raise AssertionError(f"{name}: the continuation launched {launched}")
+        lat = list(rs.restore_latencies)[latencies0:]
+        out = {
+            "build_s": build_s, "build2_s": build2_s, "drain_s": drain_s,
+            "tokens_at_drain": at_drain, "tokens_spooled": gen, "prompts_redrawn": redrawn,
+            "snapshot_doc_bytes": statistics.mean(doc_bytes),
+            "restore_latency_s": {"p50": stats_mod.median(lat), "max": max(lat), "n": len(lat)},
+            "launches": launched, "dispatch_syncs": dispatch_syncs,
+            "wall_s": time.time() - t0,
+        }
+        log(f"  {name} ({kv_dtype} pool): {len(bodies)} streams drained after "
+            f"{min(gen)}-{max(gen)} tokens, all PREEMPTED with a snapshot id and listed; "
+            f"restored on engine 2 (built in {build2_s:.1f} s), all mode=restore, the "
+            f"restored pages bitwise the payload's, spooled + continued tokens equal to the "
+            f"undisturbed streams for {len(bodies)}/{len(bodies)}; on {smi}")
+        log(f"  {name}: drain {drain_s:.4f} s; snapshot document {out['snapshot_doc_bytes']:.0f} "
+            f"bytes a request; restore latency p50 {out['restore_latency_s']['p50']:.4f} s, max "
+            f"{out['restore_latency_s']['max']:.4f} s; the continuation launched {pa_key} "
+            f"{launched[pa_key]} and int8_matmul {launched['int8_matmul']} times; dispatch-thread "
+            f"syncs {dispatch_syncs}; on {smi}")
+        params = e1.params
+    finally:
+        for srv in (s1, s2):
+            if srv is not None:
+                srv[0].shutdown()
+                srv[0].server_close()
+                srv[1].join(30)
+        for eng in (e1, e2):
+            if eng is not None:
+                eng.shutdown()
+                _free_engine(eng)
+        del e1, e2
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, params
+
+
+def _free_engine(engine) -> None:
+    """Drop a shut-down engine's device tensors (weights, pool, slot
+    state), so the card's memory comes back even while something still
+    holds the engine object (a request's error traceback does)."""
+    for name in ("params", "_cache", "_prefix_store", "_tables", "_tokens_dev",
+                 "_positions_dev", "_temps_dev", "_topps_dev", "_seeds_dev", "_live_dev"):
+        setattr(engine, name, None)
+
+
+
+def _policy_runs(dev, params, policy, short, long) -> dict:
+    """Part (b) on one policy: the 8 requests alone, then again with the 4
+    long prompts submitted once each of the 8 has 8 tokens. Streams,
+    the decode wall step of each run, the handoff counters and the pages
+    funded, and each thread's synchronizing calls."""
+    from generativeaiexamples_tpu_torch.engine.llm_engine import LLMEngine
+    from generativeaiexamples_tpu_torch.engine.scheduler import handoff
+
+    cfg = EngineConfig(model_config_name=MODEL, quantization="int8", kv_cache_dtype="bfloat16",
+                       kv_layout="paged", max_batch_size=DRAIN_SLOTS_B, scheduler_policy=policy)
+    engine = LLMEngine(cfg, device=dev, params=params)
+    funded, orig_fund = [], engine._fund
+
+    def fund(claimed):
+        got = orig_fund(claimed)
+        funded.extend(len(engine._slot_pages[r.slot]) for r in got)
+        return got
+
+    engine._fund = fund
+    out = {"runs": {}}
+    try:
+        for run in ("alone", "with_long"):
+            funded.clear()
+            h0, st0 = handoff.metrics_snapshot(), engine.stats()
+            with SyncCounter() as syncs:
+                with engine.hold_admissions():
+                    reqs = [engine.submit(p, sp) for p, sp in short]
+                if run == "with_long":
+                    deadline = time.time() + 120
+                    # (a stream that samples a stop id ends sooner)
+                    while not all(r.generated >= 8 or r.finished for r in reqs):
+                        if time.time() > deadline:
+                            raise AssertionError(f"{policy}: the 8 requests stalled")
+                        time.sleep(0.001)
+                    with engine.hold_admissions():
+                        reqs += [engine.submit(p, sp) for p, sp in long]
+                for r in reqs:
+                    _drain_ids(r.out_queue)
+                _settle(engine)
+            h1, st1 = handoff.metrics_snapshot(), engine.stats()
+            steps = st1["decode_steps"] - st0["decode_steps"]
+            out["runs"][run] = {
+                "streams": [list(r.emitted) for r in reqs],
+                "decode_step_ms": 1e3 * (st1["decode_time_s"] - st0["decode_time_s"]) / steps,
+                "handoffs": h1["handoffs"] - h0["handoffs"],
+                "handoff_pages": h1["handoff_pages"] - h0["handoff_pages"],
+                "handoff_recompute": h1["handoff_recompute"] - h0["handoff_recompute"],
+                "handoff_stall_s": h1["handoff_stall_seconds"] - h0["handoff_stall_seconds"],
+                "handoff_wait_s": h1["handoff_wait_seconds"] - h0["handoff_wait_seconds"],
+                "funded_pages": sum(funded),
+                "syncs": {k: syncs.counts[k] for k in ("torch-llm-engine",
+                                                       "torch-llm-prefill-tier")},
+            }
+    finally:
+        engine.shutdown()
+        _free_engine(engine)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def drain_policies(dev, smi, params, seed) -> dict:
+    """Part (b): ``disagg`` against ``unified`` on recipe A's weights."""
+    from generativeaiexamples_tpu_torch.engine.llm_engine import SamplingParams
+
+    rng = np.random.RandomState(seed + 11)
+    lengths = np.linspace(DRAIN_IDS[0], DRAIN_IDS[1], DRAIN_REQUESTS).astype(int)
+    short = [([256] + [int(x) for x in rng.randint(1, 256, n - 1)],
+              SamplingParams(temperature=0.0, max_tokens=DRAIN_TOKENS) if i % 2 == 0 else
+              SamplingParams(temperature=0.7, top_p=0.9, max_tokens=DRAIN_TOKENS, seed=1000 + i))
+             for i, n in enumerate(lengths)]
+    long = [([256] + [int(x) for x in rng.randint(1, 256, int(n) - 1)],
+             SamplingParams(temperature=0.0, max_tokens=DRAIN_LONG_TOKENS))
+            for n in np.linspace(*DRAIN_LONG_IDS, DRAIN_LONG).astype(int)]
+    t0 = time.time()
+    res = {policy: _policy_runs(dev, params, policy, short, long)
+           for policy in ("unified", "disagg")}
+    for run, n in (("alone", DRAIN_REQUESTS), ("with_long", DRAIN_REQUESTS + DRAIN_LONG)):
+        uni, dis = res["unified"]["runs"][run], res["disagg"]["runs"][run]
+        wrong = [i for i, (a, b) in enumerate(zip(uni["streams"], dis["streams"])) if a != b]
+        if wrong or len(dis["streams"]) != n:
+            raise AssertionError(f"disagg run {run}: streams {wrong} differ from unified")
+        if (dis["handoffs"], dis["handoff_recompute"]) != (n, 0) or \
+                dis["handoff_pages"] != dis["funded_pages"]:
+            raise AssertionError(f"disagg run {run}: handoffs {dis['handoffs']}, pages "
+                                 f"{dis['handoff_pages']} of {dis['funded_pages']} funded, "
+                                 f"recomputes {dis['handoff_recompute']}")
+        for policy in ("unified", "disagg"):
+            syncs = res[policy]["runs"][run]["syncs"]
+            if any(syncs.values()):
+                raise AssertionError(f"{policy} run {run}: synchronizing calls {syncs}")
+    d = res["disagg"]["runs"]["with_long"]
+    out = {
+        "handoffs": d["handoffs"], "handoff_pages": d["handoff_pages"],
+        "funded_pages": d["funded_pages"], "handoff_recompute": d["handoff_recompute"],
+        "handoff_stall_s": d["handoff_stall_s"], "handoff_wait_s": d["handoff_wait_s"],
+        "decode_step_ms": {p: {run: res[p]["runs"][run]["decode_step_ms"]
+                               for run in ("alone", "with_long")} for p in res},
+        "wall_s": time.time() - t0,
+    }
+    log(f"  (b) disagg streams token-identical to unified ({DRAIN_REQUESTS} requests alone, then "
+        f"with {DRAIN_LONG} prompts of {DRAIN_LONG_IDS[0]}-{DRAIN_LONG_IDS[1]} ids submitted while "
+        f"they decode; max_batch_size {DRAIN_SLOTS_B}); handoffs {d['handoffs']}, pages handed "
+        f"{d['handoff_pages']} = pages funded {d['funded_pages']}, recomputes "
+        f"{d['handoff_recompute']}, stall {d['handoff_stall_s']:.4f} s, wait "
+        f"{d['handoff_wait_s']:.4f} s; 0 synchronizing calls on either tier's thread; on {smi}")
+    for p in res:
+        steps = out["decode_step_ms"][p]
+        log(f"  (b) decode wall step {p}: {steps['alone']:.3f} ms alone, "
+            f"{steps['with_long']:.3f} ms with the long prompts (a record, not a claim); on {smi}")
+    return out
+
+
+class _StubUpstream(BaseHTTPRequestHandler):
+    """An upstream in front of the engine server for api_catalog's remote
+    backend: answers 503 to its first ``fail`` requests (every request when
+    ``fail`` < 0), then relays each to ``upstream`` and streams the answer
+    back."""
+
+    fail, hits, upstream = 0, 0, ""
+
+    def log_message(self, *args):
+        pass
+
+    def do_POST(self):  # noqa: N802 - http.server's naming
+        cls = type(self)
+        cls.hits += 1
+        body = self.rfile.read(int(self.headers.get("Content-Length", "0")))
+        if cls.fail < 0 or cls.hits <= cls.fail:
+            self.send_response(503)
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+            return
+        req = urllib.request.Request(cls.upstream + self.path, data=body,
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            self.send_response(resp.status)
+            self.send_header("Content-Type", resp.headers.get("Content-Type", ""))
+            self.send_header("Connection", "close")
+            self.end_headers()
+            while True:
+                chunk = resp.read1(65536)
+                if not chunk:
+                    break
+                self.wfile.write(chunk)
+                self.wfile.flush()
+
+
+# the retrieval tier's dispatches are padded to ann_max_batch rows and the
+# synchronous path's single query is not, so a score may differ in its
+# last bits (retrieval/ann.py): scores within this, tie runs as sets
+SEARCH_SCORE_TOL = 1e-5
+
+
+def _same_search(a, b) -> bool:
+    """Two /search answers (status, body) agree: byte for byte, or the same
+    status and chunk count, scores within SEARCH_SCORE_TOL position by
+    position, and the same chunks inside each run of scores that lie
+    within SEARCH_SCORE_TOL of each other."""
+    if a == b:
+        return True
+    if a[0] != b[0]:
+        return False
+    ca, cb = json.loads(a[1]).get("chunks", []), json.loads(b[1]).get("chunks", [])
+    if len(ca) != len(cb) or any(abs(x["score"] - y["score"]) > SEARCH_SCORE_TOL
+                                 for x, y in zip(ca, cb)):
+        return False
+    key = lambda c: (c["filename"], c["content"])  # noqa: E731
+    start = 0
+    for end in range(1, len(cb) + 1):
+        if end == len(cb) or abs(cb[end - 1]["score"] - cb[end]["score"]) > SEARCH_SCORE_TOL:
+            if sorted(map(key, ca[start:end])) != sorted(map(key, cb[start:end])):
+                return False
+            start = end
+    return True
+
+
+def drain_faults_and_tier(dep, smi) -> dict:
+    """Parts (c) and (d) on phase 7's deployment: the retrieval fault, the
+    remote LLM's retries and breaker, and the retrieval tier's /search."""
+    import os
+
+    from generativeaiexamples_tpu_torch import config as config_mod
+    from generativeaiexamples_tpu_torch.chains import registry, runtime
+    from generativeaiexamples_tpu_torch.engine import retrieval_tier
+    from generativeaiexamples_tpu_torch.engine import server as engine_server
+    from generativeaiexamples_tpu_torch.server.api import GENERIC_ERROR_MSG, make_server
+    from generativeaiexamples_tpu_torch.utils import faults, resilience
+
+    t0 = time.time()
+    keys = ("EXAMPLE_NAME", "APP_LLM_MODELENGINE", "APP_LLM_SERVERURL", "APP_RETRIEVER_BACKEND")
+    saved = {k: os.environ.get(k) for k in keys}
+    servers, out = [], {}
+
+    def serve(server):
+        thread = threading.Thread(target=server.serve_forever, name="smoke-drain-faults",
+                                  daemon=True)
+        thread.start()
+        servers.append((server, thread))
+        return f"http://127.0.0.1:{server.server_address[1]}"
+
+    def restore_env():
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        config_mod.get_config.cache_clear()
+
+    docs, files = dep["corpus"]
+    present = set(runtime.get_vector_store("default").sources())
+    queries = [docs[k][1] for k in range(RAG_DOCS) if files[k][0] in present][:8]
+    try:
+        # (c) one injected retrieval failure degrades one answer, as in JAX
+        rag = serve(make_server("127.0.0.1", 0, registry.resolve_example("developer_rag")))
+        faults.install("retrieval.search:error@1")
+        try:
+            degraded, _, _ = _generate_stream(rag, queries[0], True, max_tokens=8)
+            clean, _, _ = _generate_stream(rag, queries[1], True, max_tokens=8)
+        finally:
+            faults.reset()
+        warned = [f.get("warnings") for f in degraded if f.get("warnings")]
+        if not warned or not warned[0][0].startswith(
+                "retrieval_degraded: FaultInjected: injected fault at 'retrieval.search'") or \
+                degraded[-1]["choices"][0]["finish_reason"] != "[DONE]":
+            raise AssertionError(f"(c) the injected retrieval fault did not degrade: {degraded[:2]}")
+        if any(f.get("warnings") for f in clean):
+            raise AssertionError("(c) the second /generate degraded too")
+
+        # (c) api_catalog's remote backend: 503, 503, then served: 3 attempts
+        up = serve(engine_server.make_server("127.0.0.1", 0, engine=dep["engine"]))
+        stub = type("Stub", (_StubUpstream,), {"fail": 2, "hits": 0, "upstream": up})
+        stub_base = serve(ThreadingHTTPServer(("127.0.0.1", 0), stub))
+        os.environ.update(REMOTE_LLM_ENV, APP_LLM_SERVERURL=stub_base)
+        config_mod.get_config.cache_clear()
+        resilience.reset_breakers()
+        cat = serve(make_server("127.0.0.1", 0, registry.resolve_example("api_catalog")))
+        r0 = resilience.retries["llm_remote"]
+        frames, _, _ = _generate_stream(cat, "What is the catalog?", False, max_tokens=8)
+        attempts, retried = stub.hits, resilience.retries["llm_remote"] - r0
+        policy = resilience.policy_from_config()
+        if frames[-1]["choices"][0]["finish_reason"] != "[DONE]" or \
+                GENERIC_ERROR_MSG in _answer(frames) or attempts != policy.max_attempts or \
+                retried != 2 or resilience.get_breaker("llm_remote").state != "closed":
+            raise AssertionError(f"(c) 503 x2 then served: {attempts} attempts, {retried} "
+                                 f"retries, {frames[-1]}")
+        # one that keeps failing opens the breaker at the threshold; each
+        # /generate answers the one-frame 500 stream, as in JAX
+        stub.fail, stub.hits = -1, 0
+        threshold = config_mod.get_config().resilience.breaker_failure_threshold
+        answers = []
+        for _ in range(3):
+            status, text = _http(cat, "POST", "/generate", {
+                "messages": [{"role": "user", "content": "What is the catalog?"}],
+                "use_knowledge_base": False, "max_tokens": 8})
+            frames = [json.loads(line[6:]) for line in text.split("\n") if line.startswith("data: ")]
+            answers.append((stub.hits, status, _answer(frames)))
+        state = resilience.get_breaker("llm_remote").state
+        if state != "open" or stub.hits != threshold or answers[-1][0] != answers[-2][0] or \
+                any((s, a) != (500, GENERIC_ERROR_MSG) for _, s, a in answers):
+            raise AssertionError(f"(c) always failing: breaker {state}, upstream hits and "
+                                 f"answers {answers}")
+        out["faults"] = {"degraded_warning": warned[0][0], "attempts_to_success": attempts,
+                         "retries": retried, "hits_until_open": stub.hits,
+                         "breaker_threshold": threshold}
+        log(f"  (c) retrieval.search:error@1 degraded one /generate (warnings frame, then the "
+            f"LLM-only answer), the next answered clean; api_catalog over a 503, 503, then "
+            f"serving upstream answered after {attempts} attempts ({retried} retries, JAX's "
+            f"retry_max_attempts {policy.max_attempts}); an always-failing one opened the "
+            f"breaker after {stub.hits} failures (threshold {threshold}) and the next /generate "
+            f"failed fast without reaching it")
+        restore_env()
+        resilience.reset_breakers()
+
+        # (d) the retrieval tier: 8 concurrent /search against the synchronous path
+        sync = [_http(rag, "POST", "/search", {"query": q, "top_k": 4}) for q in queries]
+        os.environ["APP_RETRIEVER_BACKEND"] = "tier"
+        config_mod.get_config.cache_clear()
+        c0 = dict(retrieval_tier.counters)
+        tier = _concurrently({i: lambda q=q: _http(rag, "POST", "/search", {"query": q, "top_k": 4})
+                              for i, q in enumerate(queries)})
+        c1 = dict(retrieval_tier.counters)
+        tier = [tier[i] for i in range(len(queries))]
+        if retrieval_tier._TIER is None:
+            raise AssertionError("(d) /search did not go through the retrieval tier")
+        if any(s != 200 for s, _ in sync):
+            raise AssertionError(f"(d) synchronous /search answers {sync}")
+        wrong = [i for i, (a, b) in enumerate(zip(tier, sync)) if not _same_search(a, b)]
+        if wrong:
+            raise AssertionError(f"(d) tier hits differ from the synchronous path's for {wrong}: "
+                                 f"{[(tier[i], sync[i]) for i in wrong]}")
+        bitwise = sum(a == b for a, b in zip(tier, sync))
+        waves = c1.get("waves", 0) - c0.get("waves", 0)
+        dispatches = c1.get("dispatches", 0) - c0.get("dispatches", 0)
+        queried = c1.get("queries", 0) - c0.get("queries", 0)
+        if queried != len(queries) or not dispatches < len(queries):
+            raise AssertionError(f"(d) {queried} queries in {waves} waves, {dispatches} dispatches")
+        out["tier"] = {"queries": queried, "waves": waves, "dispatches": dispatches,
+                       "bitwise_answers": bitwise,
+                       "window_wait_s": c1.get("window_wait_seconds", 0.0)
+                       - c0.get("window_wait_seconds", 0.0)}
+        log(f"  (d) retriever.backend=tier: {queried} concurrent /search answered in {waves} "
+            f"waves with {dispatches} ANN dispatches ({dispatches / waves:.2f} a wave), every "
+            f"answer equal to the synchronous path's ({bitwise} of {len(queries)} byte for "
+            f"byte; the rest within {SEARCH_SCORE_TOL} with tie runs as sets); on {smi}")
+    finally:
+        faults.reset()
+        retrieval_tier.close_tier()
+        for server, thread in servers:
+            server.shutdown()
+            server.server_close()
+            thread.join(60)
+        restore_env()
+        resilience.reset_breakers()
+    out["wall_s"] = time.time() - t0
+    return out
+
+
+def _rag_deploy_ingested(seed, encoders):
+    """Phase 7's deployment with phase 7's documents ingested into
+    ``default`` (a phase that runs without phase 7)."""
+    import os
+    import tempfile
+
+    from generativeaiexamples_tpu_torch.chains import runtime
+
+    dep = _rag_deploy(encoders)
+    try:
+        docs = _rag_corpus(np.random.RandomState(seed + 7))
+        files = _rag_files(docs)
+        src = tempfile.mkdtemp(dir=dep["tmp"])
+        for name, data in files:
+            path = os.path.join(src, name)
+            with open(path, "wb") as fh:
+                fh.write(data)
+            runtime.ingest_file(path, name)
+    except BaseException:
+        _rag_teardown(dep)
+        raise
+    dep["corpus"] = (docs, files)
+    return dep
+
+
+def phase_drain(dev, smi, seed=0, dep=None, encoders=None) -> dict:
+    """Drain and restore, the disagg scheduler, faults and the retrieval
+    tier (module docstring, phase 11): ``dep`` is phase 7's deployment,
+    still up (this phase takes it down), or None to build one."""
+    import tempfile
+
+    t0 = time.time()
+    if dep is None:
+        dep = _rag_deploy_ingested(seed, encoders)
+    try:
+        fc = drain_faults_and_tier(dep, smi)
+    finally:
+        _rag_teardown(dep)
+    out = {"faults": fc["faults"], "tier": fc["tier"], "recipes": {}}
+    launches = collections.Counter()
+    spool_root = tempfile.mkdtemp(prefix="chip_smoke_spool_")
+    params = None
+    try:
+        for name, quantization, kv_dtype, layout, expected in RECIPES:
+            if name not in DRAIN_RECIPES:
+                continue
+            if torch.cuda.is_available():
+                log(f"  {name}: {torch.cuda.memory_allocated() / 2**30:.1f} GiB of the card "
+                    f"allocated before its engines")
+            res, weights = drain_recipe(dev, smi, name, kv_dtype, f"{spool_root}/{name}", seed)
+            launches.update(res.pop("launches"))
+            out["recipes"][name] = res
+            if name == "A":
+                params = weights
+            del weights
+        out["policies"] = drain_policies(dev, smi, params, seed)
+    finally:
+        import shutil
+
+        shutil.rmtree(spool_root, ignore_errors=True)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = dict(launches)
+    out["wall_s"] = time.time() - t0
+    log(f"phase drain: ok ({out['wall_s']:.1f} s on {smi})")
     return out
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
-                        default="kernels,model,serve,retrieval,rag,chains,filechains,prefix",
+                        default="kernels,model,serve,retrieval,rag,chains,filechains,drain,"
+                                "prefix",
                         help="phases after the build, comma-separated (default: all)")
     parser.add_argument("--checks", default=",".join(CHECKS),
                         help="phase 3's kernel checks, comma-separated (default: all)")
@@ -3358,19 +4098,22 @@ def main() -> int:
         phase_model(dev)
     serves = (phase_serve(dev, args.recipes, args.runahead, not args.timing_only)
               if "serve" in phases else {})
-    later = {"rag", "chains", "filechains"}
+    later = {"rag", "chains", "filechains", "drain"}
     retrieval, encoders = (phase_retrieval(dev, info["smi"], args.seed,
                                            keep=bool(later & set(phases)))
                            if "retrieval" in phases else ({}, None))
     rag, dep = (phase_rag(dev, info["smi"], args.seed, encoders,
-                          keep=bool({"chains", "filechains"} & set(phases)))
+                          keep=bool({"chains", "filechains", "drain"} & set(phases)))
                 if "rag" in phases else ({}, None))
     chains, dep = (phase_chains(dev, info["smi"], args.seed, dep, encoders,
-                                keep="filechains" in phases)
+                                keep=bool({"filechains", "drain"} & set(phases)))
                    if "chains" in phases else ({}, dep))
-    # phase 10 runs on phase 7's deployment, so before phase 9's engines
-    files = (phase_filechains(dev, info["smi"], args.seed, dep, encoders)
-             if "filechains" in phases else {})
+    # phases 10 and 11 run on phase 7's deployment, so before phase 9's engines
+    files, dep = (phase_filechains(dev, info["smi"], args.seed, dep, encoders,
+                                   keep="drain" in phases)
+                  if "filechains" in phases else ({}, dep))
+    drain = phase_drain(dev, info["smi"], args.seed, dep, encoders) if "drain" in phases else {}
+    dep = None  # phase 11 (or 10) took the deployment down
     prefix = phase_prefix(dev, info["smi"], args.seed) if "prefix" in phases else {}
     kernels = []
     for name, (replaces, source) in KERNELS.items():
@@ -3380,7 +4123,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(sv["launches"][name] for sv in serves.values())
-            + sum(ph.get("launches", {}).get(name, 0) for ph in (rag, chains, files, prefix)),
+            + sum(ph.get("launches", {}).get(name, 0)
+                  for ph in (rag, chains, files, drain, prefix)),
             **r,
         })
     log(f"total {time.time() - t0:.1f} s")
@@ -3390,6 +4134,7 @@ def main() -> int:
         "rag": {k: v for k, v in rag.items() if k != "launches"},
         "chains": {k: v for k, v in chains.items() if k != "launches"},
         "filechains": {k: v for k, v in files.items() if k != "launches"},
+        "drain": {k: v for k, v in drain.items() if k != "launches"},
         "prefix": prefix.get("recipes", {})}), flush=True)
     print(info["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

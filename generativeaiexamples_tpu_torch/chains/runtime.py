@@ -7,12 +7,14 @@ one BM25 index per collection, and the splitter; the single write path
 ``retrieve``: embed the query, search the store, fuse with BM25 by
 reciprocal rank (``hybrid``, ``ranked_hybrid``), rerank
 (``ranked_hybrid``), then ``cap_context`` bounds the context the LLM sees.
+``retrieve`` calls the ``retrieval.search`` fault point first, and with
+``retriever.backend=tier`` hands the query to the retrieval tier
+(engine/retrieval_tier.py), whose batched waves give the same hits.
 Every model and store lives on the card unless ``set_device`` names
 another device (the tests' ``"cpu"``).
 
-Not ported: the retrieval tier (``retriever.backend=tier``, ROADMAP queue 1
-item 8, refused by the config), fault points and circuit breakers (item
-6), and the chain metrics, spans and flight-recorder events (item 11).
+Not ported: the chain metrics, spans and flight-recorder events (ROADMAP
+queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from generativeaiexamples_tpu_torch.retrieval.store import (
     VectorStore,
     create_vector_store,
 )
+from generativeaiexamples_tpu_torch.utils import faults as faults_mod
 from generativeaiexamples_tpu_torch.utils import resilience
 
 logger = logging.getLogger(__name__)
@@ -155,15 +158,19 @@ def delete_documents(filenames: Sequence[str], collection: str = "default",
 
 
 def reset_runtime() -> None:
-    """Drop the cached stores, backends and config (tests); stops the
-    embedder's and reranker's micro-batcher threads first."""
+    """Drop the cached stores, backends, breakers and config (tests); stops
+    the retrieval tier's worker and the embedder's and reranker's
+    micro-batcher threads first."""
     from generativeaiexamples_tpu_torch.engine import embedder as _emb
     from generativeaiexamples_tpu_torch.engine import llm_backend as _llm
     from generativeaiexamples_tpu_torch.engine import reranker as _rr
+    from generativeaiexamples_tpu_torch.engine import retrieval_tier as _tier
 
+    _tier.close_tier()
     _STORES.clear()
     _BM25.clear()
     clear_tokenization_caches()
+    resilience.reset_breakers()
     for cache in (_emb._EMBEDDER_CACHE, _rr._RERANKER_CACHE):
         for backend in cache.values():
             for hook in ("close", "clear_query_cache"):
@@ -238,8 +245,13 @@ def retrieve(query: str, top_k: Optional[int] = None, score_threshold: Optional[
     top_k = top_k if top_k is not None else config.retriever.top_k
     threshold = (score_threshold if score_threshold is not None
                  else config.retriever.score_threshold)
+    faults_mod.fault_point("retrieval.search")
     # a request whose budget is gone must not start a pipeline
     resilience.raise_if_deadline_expired("retrieval")
+    if (config.retriever.backend or "off").lower() == "tier":
+        from generativeaiexamples_tpu_torch.engine import retrieval_tier
+
+        return retrieval_tier.get_tier(config).retrieve(query, top_k, threshold, collection)
     _, lexical, reranker, fetch_k = resolve_pipeline(config, top_k)
     q_emb = get_embedder(config).embed_query(query)
     hits = get_vector_store(collection, config).search(q_emb, fetch_k, threshold)

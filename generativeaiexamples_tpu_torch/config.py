@@ -40,11 +40,6 @@ ENV_PREFIX = "APP_ENGINE_"
 _CKPT = "checkpoints load with training and checkpoints (ROADMAP queue 1 item 10)"
 _MULTI = "the port serves one card until multi-GPU (ROADMAP queue 1 item 9)"
 _SPEC = "speculative decoding arrives with ROADMAP queue 1 item 5"
-_DISAGG = "scheduler policies arrive with disaggregation (ROADMAP queue 1 item 8)"
-_SNAP = "drain and snapshots arrive with disaggregation (ROADMAP queue 1 item 8)"
-_TIER = "the retrieval tier arrives with disaggregation (ROADMAP queue 1 item 8)"
-_RETRY = ("the port has no retries, circuit breakers or fault injection yet "
-          "(ROADMAP queue 1 item 6)")
 # The JAX package's EngineConfig fields (config/schema.py) that the port
 # has no field for: name -> (the JAX default, why another value is refused,
 # the other values the port serves as they are). A reason of None marks a
@@ -71,11 +66,6 @@ JAX_ONLY_FIELDS = {
     "spec_adaptive_k_min": (1, _SPEC, ()),
     "spec_adaptive_k_threshold": (0.5, _SPEC, ()),
     "quiesce_timeout_s": (600.0, None, ()),  # warmup's wait for decode to drain
-    "drain_timeout_s": (30.0, _SNAP, ()),
-    "snapshot_spool_dir": ("/tmp/genai_snapshots", _SNAP, ()),
-    "snapshot_spool_max": (64, _SNAP, ()),
-    "scheduler_policy": ("unified", _DISAGG, ()),
-    "handoff_queue_depth": (0, _DISAGG, ()),
 }
 _LOGGED: set = set()  # XLA-only variables already logged by this process
 
@@ -128,6 +118,20 @@ class EngineConfig:
     prefix_cache_enable: str = "auto"
     # cached prefixes kept; each reserves one max_seq_len strip; 0 disables
     prefix_cache_slots: int = 4
+    # drain: the budget to park the dispatch loop and checkpoint every live
+    # request (past it, live requests are preempted replay-only), and a
+    # restore's wait for the dispatch loop
+    drain_timeout_s: float = 30.0
+    # one JSON document per preempted request (engine/request_snapshot.py),
+    # the oldest evicted past snapshot_spool_max
+    snapshot_spool_dir: str = "/tmp/genai_snapshots"
+    snapshot_spool_max: int = 64
+    # unified (one dispatch thread admits, prefills and decodes) | disagg
+    # (a prefill-tier thread prefills waves and hands their pages to the
+    # dispatch thread's decode; paged layout only)
+    scheduler_policy: str = "unified"
+    # the disagg transfer queue's bound; 0 = 2 x max_batch_size
+    handoff_queue_depth: int = 0
 
     @classmethod
     def env_name(cls, field: str) -> str:
@@ -224,6 +228,28 @@ class EngineConfig:
                 f"prefix_cache_slots must be >= 0, got "
                 f"{self.prefix_cache_slots}"
             )
+        # the scheduler and drain fields: their only checks, with the JAX
+        # chain server's startup messages (config/validate.py there)
+        if self.scheduler_policy not in ("unified", "disagg"):
+            raise ValueError(
+                f"engine.scheduler_policy must be unified|disagg, got {self.scheduler_policy!r}"
+            )
+        if self.handoff_queue_depth < 0:
+            raise ValueError(
+                f"engine.handoff_queue_depth must be >= 0 (0 auto-sizes), "
+                f"got {self.handoff_queue_depth}"
+            )
+        if self.drain_timeout_s <= 0:
+            raise ValueError(f"engine.drain_timeout_s must be > 0, got {self.drain_timeout_s}")
+        if not self.snapshot_spool_dir:
+            raise ValueError(
+                "engine.snapshot_spool_dir must be a non-empty path (the "
+                "drain workflow spools preempted requests there)"
+            )
+        if self.snapshot_spool_max < 1:
+            raise ValueError(
+                f"engine.snapshot_spool_max must be >= 1, got {self.snapshot_spool_max}"
+            )
 
 
 # --------------------------------------------------------------------------- #
@@ -304,12 +330,15 @@ class RetrieverConfig:
     ann_mode: str = "exact"
     ann_capacity: int = 0
     ann_max_batch: int = 8
+    # off (the synchronous pipeline) | tier (batched waves on the retrieval
+    # tier's worker, engine/retrieval_tier.py)
+    backend: str = "off"
+    # the tier's transfer queue (submitters stall past it); 0 = 16
+    tier_queue_depth: int = 16
+    # a wave's bounded yield to the scheduler's retrieval window; 0 = none
+    tier_window_ms: int = 20
 
-    # the synchronous pipeline (backend "off") is the one served
     UNSERVED = {
-        "backend": ("off", _TIER),
-        "tier_queue_depth": (16, _TIER),
-        "tier_window_ms": (20, _TIER),
         "nr_url": ("http://retrieval-ms:8000", "no external retriever service is read"),
     }
 
@@ -353,20 +382,11 @@ class PromptsConfig:
 
 @dataclasses.dataclass
 class ResilienceConfig:
-    """The fields of the JAX config's ``resilience`` section
-    (``APP_RESILIENCE_*``) that the chain server reads: the master switch,
-    request deadlines and admission control. The retry, breaker and fault
-    fields (``UNSERVED``) must stay at their JAX defaults."""
-
-    UNSERVED = {
-        "retry_max_attempts": (3, _RETRY),
-        "retry_base_delay_ms": (50, _RETRY),
-        "retry_max_delay_ms": (2000, _RETRY),
-        "retry_jitter": (0.5, _RETRY),
-        "breaker_failure_threshold": (5, _RETRY),
-        "breaker_recovery_s": (30.0, _RETRY),
-        "faults": ("", _RETRY),
-    }
+    """The JAX config's ``resilience`` section (``APP_RESILIENCE_*``): the
+    master switch, request deadlines, admission control, the retries and
+    circuit breakers of the remote clients (utils/resilience.py) and the
+    fault-injection spec the chain server installs at startup
+    (utils/faults.py)."""
 
     enable: str = "on"
     # default per-request budget; 0 disables
@@ -376,6 +396,17 @@ class ResilienceConfig:
     # /generate answers 429 while the engine's queue is this deep; 0 disables
     engine_queue_cap: int = 64
     shed_retry_after_s: float = 1.0
+    # attempts per guarded dependency call; 1 disables retries
+    retry_max_attempts: int = 3
+    retry_base_delay_ms: int = 50
+    retry_max_delay_ms: int = 2000
+    retry_jitter: float = 0.5
+    # consecutive failures that open a dependency's breaker, and how long
+    # it stays open before one half-open probe
+    breaker_failure_threshold: int = 5
+    breaker_recovery_s: float = 30.0
+    # site:mode[=v]@at[xN] entries joined with ';' (utils/faults.py)
+    faults: str = ""
 
     @classmethod
     def from_env(cls, environ: Optional[Mapping[str, str]] = None) -> "ResilienceConfig":
@@ -383,15 +414,9 @@ class ResilienceConfig:
 
     def validate(self) -> None:
         """The JAX package's checks of these fields, with its messages."""
-        if self.enable not in ("on", "off"):
-            raise ValueError(f"resilience.enable must be on|off, got {self.enable!r}")
-        for name in ("request_deadline_ms", "max_active_streams", "engine_queue_cap"):
-            if getattr(self, name) < 0:
-                raise ValueError(
-                    f"resilience.{name} must be >= 0 (0 disables), got {getattr(self, name)}")
-        if self.shed_retry_after_s <= 0:
-            raise ValueError(
-                f"resilience.shed_retry_after_s must be > 0, got {self.shed_retry_after_s}")
+        from generativeaiexamples_tpu_torch.utils.resilience import validate_config
+
+        validate_config(self)
 
 
 @dataclasses.dataclass

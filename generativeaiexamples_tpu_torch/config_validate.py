@@ -11,7 +11,8 @@ A field that a section's ``UNSERVED`` pins to its JAX default (config.py)
 needs no check here, nor does a JAX engine field the port has no field for
 (``JAX_ONLY_FIELDS``): ``from_env`` has refused any other value already.
 The engine fields that ``EngineConfig.validate`` checks for the port's own
-engine (the serving layout, the page geometry) are not repeated.
+engine (the serving layout, the page geometry, the scheduler and drain
+fields) are not repeated.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ _LLM_ENGINES = ("tpu", "local", "openai", "nvidia-ai-endpoints", "remote", "echo
 _EMBED_ENGINES = ("", "tpu", "openai", "nvidia-ai-endpoints", "remote", "hash")
 _RANKING_ENGINES = ("", "tpu", "remote", "overlap")
 _RETRIEVER_PIPELINES = ("ranked_hybrid", "hybrid")
+_RETRIEVER_BACKENDS = ("off", "tier")
 _ANN_MODES = ("exact", "ivf")
 _ENGINE_DTYPES = ("bfloat16", "float32", "float16")
 _QUANTIZATIONS = ("none", "int8", "w8a8")
@@ -87,6 +89,19 @@ def validate_config(cfg) -> None:
              f"retriever.ann_capacity must be >= 0 (0 auto-sizes), got {ret.ann_capacity}")
     _require(ret.ann_max_batch >= 1,
              f"retriever.ann_max_batch must be >= 1, got {ret.ann_max_batch}")
+    _require((ret.backend or "off").lower() in _RETRIEVER_BACKENDS,
+             f"retriever.backend must be one of {_RETRIEVER_BACKENDS}, got {ret.backend!r}")
+    _require(ret.tier_queue_depth >= 0,
+             f"retriever.tier_queue_depth must be >= 0 (0 auto-sizes), "
+             f"got {ret.tier_queue_depth}")
+    _require(ret.tier_window_ms >= 0,
+             f"retriever.tier_window_ms must be >= 0 (0 disables the "
+             f"co-scheduling yield), got {ret.tier_window_ms}")
+    if (ret.backend or "off").lower() == "tier":
+        _require((cfg.vector_store.name or "tpu").lower() in ("tpu", "memory"),
+                 f"retriever.backend=tier requires the in-process TPU "
+                 f"vector store (vector_store.name=tpu), got "
+                 f"vector_store.name={cfg.vector_store.name!r}")
 
     rk = cfg.ranking
     _require((rk.model_engine or "").lower() in _RANKING_ENGINES,

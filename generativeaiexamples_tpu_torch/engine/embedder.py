@@ -6,8 +6,8 @@ Counterpart of generativeaiexamples_tpu/engine/embedder.py:
   the card, the port's ``TPUEmbedder``: length-bucketed, row-padded
   dispatches through a shared ``MicroBatcher`` or synchronously;
 - ``RemoteEmbedder`` — any OpenAI-compatible ``/v1/embeddings`` endpoint,
-  over ``urllib`` (no retry or circuit breaker: the JAX package's
-  resilience layer is not ported);
+  over ``urllib``, retried with backoff behind the ``embedder`` circuit
+  breaker as in JAX;
 - ``HashEmbedder`` — deterministic feature hashing (no weights), bitwise
   the JAX package's.
 
@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from generativeaiexamples_tpu_torch.engine.batcher import LANE_INGEST, MicroBatcher, row_bucket
+from generativeaiexamples_tpu_torch.utils import resilience
 from generativeaiexamples_tpu_torch.utils.device_io import to_device, to_host
 
 logger = logging.getLogger(__name__)
@@ -347,8 +348,16 @@ class RemoteEmbedder:
             data=json.dumps({"model": self._model, "input": list(texts)}).encode(),
             headers={"Content-Type": "application/json"},
         )
-        with urllib.request.urlopen(req, timeout=self._timeout) as resp:
-            body = json.loads(resp.read())
+
+        def post():
+            with urllib.request.urlopen(req, timeout=self._timeout) as resp:
+                return json.loads(resp.read())
+
+        # idempotent: retried with backoff behind the "embedder" breaker
+        body = resilience.call_with_resilience(
+            "embedder", post, retry_on=resilience.URL_ERRORS,
+            retry_filter=resilience.http_error_is_transient,
+        )
         data = sorted(body["data"], key=lambda d: d["index"])
         return np.asarray([d["embedding"] for d in data], np.float32)
 

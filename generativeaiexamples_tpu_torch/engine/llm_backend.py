@@ -5,13 +5,15 @@ Counterpart of generativeaiexamples_tpu/engine/llm_backend.py:
 - ``TorchLLMBackend``: the in-process engine (``get_engine``; on the card
   unless ``device`` says otherwise), the port's ``TPULLMBackend``;
 - ``RemoteLLMBackend``: any OpenAI-compatible ``/v1/chat/completions``
-  server, streamed over ``urllib`` (no retry or circuit breaker: the JAX
-  package's resilience layer is not ported);
+  server, streamed over ``urllib``; the connect is retried with backoff
+  behind the ``llm_remote`` circuit breaker (``call_with_resilience``), as
+  in JAX, and once bytes stream nothing is replayed;
 - ``EchoLLMBackend``: streams the last user message back (tests).
 
 ``create_llm`` takes the JAX config's ``llm.model_engine`` names: ``tpu``
 and ``local`` (the in-process engine), ``openai``,
 ``nvidia-ai-endpoints`` and ``remote`` (with ``llm.server_url``), ``echo``.
+Both model backends call the ``backend.stream`` fault point first.
 ``stream_chat`` takes ``prefix_hint``, the chain or session a request
 belongs to: ``TorchLLMBackend`` hands it to the engine's prefix KV cache
 (``SamplingParams.prefix_hint``) and ``RemoteLLMBackend`` drops it, as
@@ -25,6 +27,7 @@ import json
 import urllib.request
 from typing import Generator, Optional, Sequence, Tuple
 
+from generativeaiexamples_tpu_torch.utils import faults as faults_mod
 from generativeaiexamples_tpu_torch.utils import resilience
 
 Messages = Sequence[Tuple[str, str]]  # (role, content)
@@ -63,6 +66,7 @@ class TorchLLMBackend(LLMBackend):
         from generativeaiexamples_tpu_torch.engine.llm_engine import SamplingParams
         from generativeaiexamples_tpu_torch.engine.tokenizer import render_chat_cached
 
+        faults_mod.fault_point("backend.stream")
         params = SamplingParams(temperature=temperature, top_p=top_p, max_tokens=max_tokens,
                                 stop=tuple(stop or ()), prefix_hint=prefix_hint)
         # the request's remaining budget (bound to this thread by the
@@ -90,6 +94,7 @@ class RemoteLLMBackend(LLMBackend):
 
     def stream_chat(self, messages, temperature=0.2, top_p=0.7, max_tokens=1024,
                     stop=(), prefix_hint=None, spec_decode=None):
+        faults_mod.fault_point("backend.stream")
         payload = {
             "model": self._model,
             "messages": [{"role": r, "content": c} for r, c in messages],
@@ -108,7 +113,12 @@ class RemoteLLMBackend(LLMBackend):
             f"{self._url}/chat/completions", data=json.dumps(payload).encode(),
             headers={"Content-Type": "application/json"},
         )
-        resp = urllib.request.urlopen(req, timeout=timeout)  # connect before streaming
+        # retry and breaker cover the connect only: once bytes stream, a
+        # replay could send answer text twice
+        resp = resilience.call_with_resilience(
+            "llm_remote", urllib.request.urlopen, req, timeout=timeout,
+            retry_on=resilience.URL_ERRORS, retry_filter=resilience.http_error_is_transient,
+        )
 
         def gen():
             with resp:

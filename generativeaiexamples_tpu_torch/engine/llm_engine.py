@@ -71,8 +71,30 @@ waits for the device.
 
 Dead slots decode at position 0: on the paged layout they write the
 scratch page, on the fixed layout rows of their own strip, as in JAX.
-Speculative decoding, disaggregation, snapshots, drain, the flight
-recorder and telemetry are not ported yet.
+
+Admission goes through the scheduler seam (engine/scheduler/):
+``unified`` (the default) claims, registers and prefills a wave on the
+dispatch thread as above; ``disagg`` (paged layout only) runs the claim
+and the prefill on a prefill-tier thread and the dispatch thread imports
+each finished request between decode blocks (``_import_handoff``).
+
+Preemption (JAX's drain lifecycle): ``drain`` parks the dispatch loop at
+a block boundary, lets the reader emit every block already dispatched
+(a barrier through the readback queue), captures each live request with
+its KV pages (engine/request_snapshot.py) into the spool, fails its
+stream with ``RequestPreempted`` carrying the snapshot id, and releases
+its slot and pages; a request with no KV to carry (unadmitted, the fixed
+layout, a missed park) is preempted replay-only. ``restore_snapshot``
+re-admits a document on any engine of the same config: the dispatch
+thread claims a slot and pages, scatters the payload into the pool
+(``index_copy_``), writes the slot state and registers the request, which
+then decodes on from the spooled position (``stream_restored``
+re-delivers the spooled tokens first). The ``engine.dispatch`` and
+``replica.kill`` fault points (utils/faults.py) sit at the top of each
+dispatch pass.
+
+Speculative decoding, the flight recorder and telemetry are not ported
+yet.
 
 The engine runs on the card: ``device=None`` means CUDA and raises when
 no card is present. Tests pass ``device="cpu"``, where every kernel
@@ -96,12 +118,16 @@ import torch
 
 from generativeaiexamples_tpu_torch.config import EngineConfig
 from generativeaiexamples_tpu_torch.engine import kv_pages, prefix_cache
-from generativeaiexamples_tpu_torch.engine.scheduler.unified import UnifiedPolicy
+from generativeaiexamples_tpu_torch.engine import request_snapshot as request_snapshot_mod
+from generativeaiexamples_tpu_torch.engine.scheduler import handoff as handoff_mod
+from generativeaiexamples_tpu_torch.engine.scheduler.base import build_policy
 from generativeaiexamples_tpu_torch.engine.tokenizer import load_tokenizer
 from generativeaiexamples_tpu_torch.models import llama, sampling
 from generativeaiexamples_tpu_torch.ops import (
     decode_attention, flash_attention, int8_matmul, page_attention, quant,
 )
+from generativeaiexamples_tpu_torch.utils import faults as faults_mod
+from generativeaiexamples_tpu_torch.utils.resilience import EngineOverloaded, RequestPreempted
 
 logger = logging.getLogger(__name__)
 
@@ -133,6 +159,10 @@ class _Request:
     t_submit: float = 0.0
     position: int = 0  # position of the next decode input token
     generated: int = 0
+    # every generated token in order, stop tokens included (the reader
+    # appends): the transcript a drain spools; emitted[-1] is the token
+    # whose KV row is not written yet
+    emitted: List[int] = dataclasses.field(default_factory=list)
     cancelled: bool = False
     finished: bool = False
     error: Optional[BaseException] = None
@@ -145,16 +175,6 @@ class _Request:
 _END = None  # sentinel on out_queue
 _REQ_IDS = itertools.count(1)
 _UNSEEDED_RNG = random.SystemRandom()
-
-
-class EngineOverloaded(Exception):
-    """The typed load-shedding signal of ``submit`` (``max_queued_requests``
-    reached), with the suggested Retry-After in seconds: the port's copy of
-    the JAX package's ``utils.resilience.EngineOverloaded``."""
-
-    def __init__(self, message: str = "engine overloaded", retry_after: float = 1.0):
-        self.retry_after = retry_after
-        super().__init__(message)
 
 
 # Set while the dispatch-loop watchdog (or a shutdown that timed out)
@@ -325,6 +345,10 @@ class LLMEngine:
         # self._lock; other threads (abort, the reader at shutdown, the
         # watchdog) read it under the lock.
         self._slot_req: Dict[int, _Request] = {}
+        # disagg: slots the prefill tier claimed, held until the decode
+        # tier imports their requests (the prefill tier writes, the
+        # dispatch thread takes them out)
+        self._tier_slots: Dict[int, _Request] = {}
         self._slot_pages: Dict[int, List[int]] = {}
         self._free_slots = list(range(self.num_slots - 1, -1, -1))
         # Host shadows: decode steps left before each slot's request
@@ -358,8 +382,20 @@ class LLMEngine:
         self._readback: "queue.Queue[Optional[tuple]]" = queue.Queue(maxsize=cfg.decode_runahead)
         # (slot, request) the reader found finished; the dispatch loop frees them
         self._release_q: "queue.Queue[Tuple[int, _Request]]" = queue.Queue()
-        # the co-scheduling seam the retrieval micro-batcher waits on
-        self.scheduler = UnifiedPolicy(self)
+        # The drain state machine: _draining refuses submits and restores
+        # and parks the dispatch loop at its next block boundary;
+        # _drain_parked is the loop's acknowledgement, after which the
+        # drain thread owns live request state.
+        self._draining = False  # guarded by self._lock
+        self._drain_parked = False  # guarded by self._lock
+        # restores run on the dispatch thread, between decode blocks
+        self._restore_q: "queue.Queue[tuple]" = queue.Queue()
+        self._spool = request_snapshot_mod.SnapshotSpool(
+            cfg.snapshot_spool_dir, cfg.snapshot_spool_max,
+            fingerprint=request_snapshot_mod.config_fingerprint(cfg),
+        )
+        # admission and wave formation (engine/scheduler/)
+        self.scheduler = build_policy(cfg, self)
         # a replacement engine starts healthy, whatever an earlier one left
         ENGINE_WEDGED.clear()
         self._wd_stop = threading.Event()
@@ -372,6 +408,7 @@ class LLMEngine:
             ))
         for thread in self._threads:
             thread.start()
+        self.scheduler.start()
 
     # ------------------------------------------------------------------ #
     # build-time checks
@@ -468,7 +505,7 @@ class LLMEngine:
         """Submit a request; returns its handle. Over-long prompts keep
         their tail, with room for at least min(64, max_tokens) tokens.
         Raises ``EngineOverloaded`` when ``max_queued_requests`` requests
-        already wait for a slot."""
+        already wait for a slot, or while the engine drains."""
         params = params or SamplingParams()
         reserve = max(1, min(64, params.max_tokens))
         keep = max(1, self.max_seq_len - 1 - reserve)
@@ -487,6 +524,9 @@ class LLMEngine:
         with self._lock:
             if not self._running:
                 raise RuntimeError("LLM engine is shut down")
+            if self._draining:
+                # new work goes to another replica (the same 429 path)
+                raise EngineOverloaded("engine draining — checkpoint/handover in progress")
             if cap > 0 and len(self._pending) >= cap:
                 raise EngineOverloaded(
                     f"engine admission queue full ({len(self._pending)}/{cap} pending)"
@@ -512,6 +552,8 @@ class LLMEngine:
                 rid = int(handle)
                 req = next((r for r in self._pending if r.rid == rid), None) or next(
                     (r for r in self._slot_req.values() if r.rid == rid), None
+                ) or next(
+                    (r for r in self._tier_slots.values() if r.rid == rid), None
                 )
             if req is None or req.finished or req.cancelled:
                 return False
@@ -545,6 +587,8 @@ class LLMEngine:
             while True:
                 item = _next_stream_item(req.out_queue, stall_s, deadline)
                 if item is _END:
+                    if isinstance(req.error, RequestPreempted):
+                        raise req.error
                     if req.error is not None:
                         raise RuntimeError("LLM engine failed") from req.error
                     return
@@ -567,8 +611,12 @@ class LLMEngine:
         weakref.finalize(gen, self.abort, req)
         return gen
 
-    def _stream_from(self, req: _Request, params: SamplingParams, timeout: Optional[float]):
-        ids: List[int] = []
+    def _stream_from(self, req: _Request, params: SamplingParams, timeout: Optional[float],
+                     prior_ids: Sequence[int] = ()):
+        # a restored request decodes its first delta over the spooled ids
+        # too: the client gets the whole prefix with exact tokenization
+        # boundaries
+        ids: List[int] = list(prior_ids)
         emitted = ""
         stops = [s for s in params.stop if s]
         stall_s = float(self.engine_config.stream_timeout_s) if timeout is None else None
@@ -577,6 +625,8 @@ class LLMEngine:
             while True:
                 item = _next_stream_item(req.out_queue, stall_s, deadline)
                 if item is _END:
+                    if isinstance(req.error, RequestPreempted):
+                        raise req.error
                     if req.error is not None:
                         raise RuntimeError("LLM engine failed") from req.error
                     # flush a tail held back as an incomplete UTF-8 sequence
@@ -636,6 +686,196 @@ class LLMEngine:
 
         return _Hold()
 
+    # ------------------------------------------------------------------ #
+    # preemption: drain with checkpoints, restore elsewhere
+
+    @property
+    def snapshot_spool(self) -> request_snapshot_mod.SnapshotSpool:
+        """The engine's snapshot spool (fingerprint-stamped at build)."""
+        return self._spool
+
+    def is_draining(self) -> bool:
+        with self._lock:
+            return self._draining
+
+    def drain(self, timeout: Optional[float] = None) -> Dict[str, object]:
+        """Quiesce the engine and checkpoint every in-flight request.
+
+        In order: flip ``_draining`` (submits and restores refuse, the
+        prefill tier stops claiming, the dispatch loop parks at its next
+        block boundary); wait for the park and no prefill wave in flight;
+        push a barrier through the readback queue, so every dispatched
+        block is emitted and each request's position and transcript are
+        current; then capture the queued handoffs and the slotted requests
+        with their KV pages into the spool, fail their streams with
+        ``RequestPreempted`` carrying the snapshot id, and release their
+        slots and pages. A request with no KV to carry (unadmitted, the
+        fixed layout, a missed park) is preempted replay-only.
+
+        Runs on the caller's thread within ``drain_timeout_s`` (or
+        ``timeout``); returns the summary the drain route answers."""
+        budget_s = float(self.engine_config.drain_timeout_s if timeout is None else timeout)
+        deadline = time.time() + budget_s
+        with self._lock:
+            self._draining = True
+            self._paused = True
+            self._lock.notify_all()
+            while self._running and (
+                not self._drain_parked or self.scheduler.wave_inflight() > 0
+            ):
+                if time.time() >= deadline:
+                    break
+                self._lock.wait(timeout=0.05)
+            parked = self._drain_parked and self.scheduler.wave_inflight() == 0
+        # queued restores cannot run on a parked loop: their waiters replay
+        while True:
+            try:
+                entry = self._restore_q.get_nowait()
+            except queue.Empty:
+                break
+            entry[3]["mode"] = "replay_needed"
+            entry[3]["event"].set()
+        if parked:
+            barrier = threading.Event()
+            self._readback.put(("drain_barrier", barrier, None, None))
+            if not barrier.wait(timeout=max(0.05, deadline - time.time())):
+                logger.error("drain readback barrier missed the deadline; "
+                             "falling back to replay-only checkpoints")
+                parked = False
+        if not parked:
+            logger.error("engine did not park within the %.1f s drain budget; in-flight "
+                         "requests are preempted replay-only (prompt + pinned seed)", budget_s)
+        # the reader's releases wait while the loop is parked: a request
+        # that finished is released, not checkpointed
+        self._drain_releases()
+        with self._lock:
+            handoff_victims = self.scheduler.drain_handoffs()
+            slot_victims = []
+            for slot, req in list(self._slot_req.items()):
+                if req.finished:
+                    self._release(slot, req)
+                else:
+                    slot_victims.append((req, slot))
+            pending = list(self._pending)
+            self._pending.clear()
+        snapshots: List[str] = []
+        replayed = completed = 0
+
+        def preempt(req: _Request, position: int, pages) -> None:
+            nonlocal replayed
+            cap_pos = position if (parked and pages and req.emitted) else 0
+            snap = request_snapshot_mod.capture(self, req, cap_pos, pages if cap_pos else ())
+            sid: Optional[str] = None
+            if snap.restorable:
+                try:
+                    self._spool.save(snap)
+                    sid = snap.snapshot_id
+                    snapshots.append(sid)
+                except OSError as exc:
+                    logger.error("snapshot spool write failed for rid %d: %s", req.rid, exc)
+            mode = "snapshot" if sid else "replay"
+            if sid is None:
+                replayed += 1
+            request_snapshot_mod.record_preempted(mode)
+            req.error = RequestPreempted(f"request preempted by engine drain ({mode})",
+                                         snapshot_id=sid)
+            self._finish(req)
+
+        for rec in handoff_victims:
+            req = rec.req
+            if req.finished or req.cancelled:
+                self._finish(req)
+                completed += 1
+            else:
+                with self._lock:
+                    pages = tuple(self._slot_pages.get(rec.slot, ()))
+                preempt(req, int(rec.position), pages)
+            self._import_handoff(rec)  # finished now: gives back slot and pages
+        for req, slot in slot_victims:
+            if req.cancelled:
+                self._finish(req)
+                completed += 1
+            else:
+                with self._lock:
+                    pages = tuple(self._slot_pages.get(slot, ()))
+                preempt(req, int(req.position), pages)
+            self._release(slot, req)
+        for req in pending:
+            # never admitted: replay-only
+            if req.cancelled or req.finished:
+                self._finish(req)
+                completed += 1
+            else:
+                preempt(req, 0, ())
+        summary: Dict[str, object] = {
+            "draining": True, "parked": parked,
+            "preempted": len(snapshots) + replayed, "spooled": len(snapshots),
+            "snapshots": snapshots, "replay_only": replayed, "completed": completed,
+        }
+        logger.warning("engine drained: %d spooled, %d replay-only, %d completed (parked=%s)",
+                       len(snapshots), replayed, completed, parked)
+        return summary
+
+    def resume_from_drain(self) -> None:
+        """Lift a drain: admission reopens and the dispatch loop resumes."""
+        with self._lock:
+            self._draining = False
+            self._drain_parked = False
+            self._paused = False
+            self._lock.notify_all()
+        logger.warning("engine drain lifted; admission reopened")
+
+    def restore_snapshot(self, snap) -> Tuple[_Request, SamplingParams, List[int], str]:
+        """Re-admit a spooled snapshot on this engine; returns ``(req,
+        params, prior_ids, mode)``. Mode "restore" resumes decode at the
+        snapshot's position with its KV (stream it with
+        ``stream_restored``, which re-delivers the spooled tokens first);
+        "replay" regenerates from the prompt under the pinned seed (no
+        payload, the fixed layout, or no free slot or pages). Raises
+        ``SnapshotMismatch`` on a config-fingerprint or KV-geometry
+        mismatch and ``EngineOverloaded`` while this engine drains."""
+        t0 = time.time()
+        self._spool.check_fingerprint(snap)
+        request_snapshot_mod.check_geometry(self, snap)
+        params = snap.sampling_params()
+        with self._lock:
+            if self._draining:
+                raise EngineOverloaded("engine draining — cannot accept restores")
+        if not (self._paged and snap.restorable and snap.emitted and snap.position > 0):
+            req = self.submit(snap.prompt_ids, params)
+            request_snapshot_mod.record_restored("replay")
+            return req, params, [], "replay"
+        payload = request_snapshot_mod.decode_kv_payload(snap.kv)
+        req = _Request(rid=next(_REQ_IDS), prompt_ids=list(snap.prompt_ids), params=params,
+                       sampling_seed=int(snap.sampling_seed), t_submit=time.time())
+        req.emitted = list(snap.emitted)
+        req.generated = len(req.emitted)
+        req.position = int(snap.position)
+        result: Dict[str, object] = {"event": threading.Event(), "mode": None, "error": None}
+        with self._lock:
+            self._restore_q.put((snap, payload, req, result))
+            self._lock.notify_all()
+        if not result["event"].wait(timeout=float(self.engine_config.drain_timeout_s)):
+            raise TimeoutError("restore was not picked up by the dispatch loop")
+        if result["error"] is not None:
+            raise result["error"]  # type: ignore[misc]
+        if result["mode"] != "restore":
+            # no free slot or pages now: a replay through normal admission
+            req2 = self.submit(snap.prompt_ids, params)
+            request_snapshot_mod.record_restored("replay")
+            return req2, params, [], "replay"
+        request_snapshot_mod.record_restored("restore", time.time() - t0)
+        return req, params, list(snap.emitted), "restore"
+
+    def stream_restored(self, req: _Request, params: SamplingParams, prior_ids: Sequence[int],
+                        timeout: Optional[float] = None) -> Generator[str, None, None]:
+        """Stream a restored request: the spooled transcript seeds the
+        detokenizer, so the first delta is the whole spooled prefix plus
+        the new text."""
+        gen = self._stream_from(req, params, timeout, prior_ids=prior_ids)
+        weakref.finalize(gen, self.abort, req)
+        return gen
+
     def stats(self) -> Dict[str, float]:
         """Serving counters: prefill waves, tokens (whole prompts, cached
         prefixes included) and chunks, and the requests prefilled (each
@@ -686,9 +926,9 @@ class LLMEngine:
         # every stream has ended; the slots, their pages and prefix pins
         # go back (no thread of the engine runs any more)
         with self._lock:
-            live = list(self._slot_req.items())
+            live = list(self._slot_req.items()) + list(self._tier_slots.items())
         for slot, req in live:
-            self._release(slot, req)
+            self._release(slot, req, tier=True)
         return True
 
     # ------------------------------------------------------------------ #
@@ -735,19 +975,34 @@ class LLMEngine:
     def _loop(self) -> None:  # genai-lint: dispatch-root
         while True:
             with self._lock:
-                while (
-                    self._running and not self.scheduler.has_work() and not self._slot_req
-                    and self._release_q.empty()
+                while self._running and (
+                    # a drain: once parked, stay parked until resume or
+                    # shutdown (the drain thread owns live state)
+                    self._drain_parked if self._draining else (
+                        not self.scheduler.has_work() and not self._slot_req
+                        and self._release_q.empty() and self._restore_q.empty()
+                    )
                 ):
                     self._last_progress = time.time()  # waiting idle is progress
                     self._lock.wait(timeout=1.0)
                 running = self._running
+                parking = self._draining and not self._drain_parked
                 self._last_progress = time.time()
             if not running:
                 break
+            if parking:
+                # no dispatch runs past here until resume or shutdown
+                with self._lock:
+                    self._drain_parked = True
+                    self._lock.notify_all()
+                continue
             try:
+                faults_mod.fault_point("engine.dispatch")
+                # a 'kill' rule here dies mid-decode, as a preempted VM does
+                faults_mod.fault_point("replica.kill")
                 with torch.inference_mode():
                     self._drain_releases()
+                    self._process_restores()
                     self._admit()
                     if self._slot_req:
                         self._decode_once()
@@ -759,9 +1014,15 @@ class LLMEngine:
                     req.error = exc
                     self._finish(req)
                     self._release(slot, req)
+        # the prefill tier stops before the reader does: its last wave's
+        # first tokens still reach the reader
+        self.scheduler.stop()
         with self._lock:
             pending = list(self._pending)
             self._pending.clear()
+            for rec in self.scheduler.drain_handoffs():
+                self._finish(rec.req)
+            pending += list(self._tier_slots.values())
         for req in pending:
             self._finish(req)
         # outside the lock: with a full readback queue the reader needs the
@@ -775,6 +1036,86 @@ class LLMEngine:
             except queue.Empty:
                 return
             self._release(slot, req)
+
+    def _process_restores(self) -> None:
+        """Serve queued snapshot restores (dispatch thread): a restored
+        slot's device writes and its registration land between decode
+        blocks."""
+        while True:
+            try:
+                snap, payload, req, result = self._restore_q.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                result["mode"] = self._apply_restore(snap, payload, req)
+            except Exception as exc:  # noqa: BLE001 - reported to the waiter
+                logger.exception("snapshot %s restore failed: %s", snap.snapshot_id, exc)
+                result["error"] = exc
+            finally:
+                result["event"].set()
+
+    def _apply_restore(self, snap, payload, req: _Request) -> str:
+        """Re-admit one decoded snapshot (dispatch thread): "restore", or
+        "replay_needed" when no slot or pages are free.
+
+        The device state rebuilt: KV rows [0, position) from the payload
+        (scattered into fresh pages of every layer's pool and scale
+        planes), the slot's next input ``emitted[-1]`` at ``position``,
+        its sampling state; rows past ``position`` are stale until
+        written, as in a recycled slot."""
+        page = self._page
+        pos = int(snap.position)
+        n_payload = int((snap.geometry or {}).get("pages") or 0)
+        with self._lock:
+            if not self._free_slots:
+                return "replay_needed"
+            slot = self._free_slots.pop()
+        total = max(n_payload, kv_pages.pages_needed(
+            pos, max(1, req.params.max_tokens - req.generated), page,
+            self.max_seq_len, self._page_slack,
+        ))
+        pages = self._kv_alloc.alloc(total, count_failure=False)
+        while pages is None and self._prefix is not None and self._prefix.evict_lru():
+            pages = self._kv_alloc.alloc(total, count_failure=False)
+        if pages is None:
+            self._kv_alloc.record_alloc_failure()
+            with self._lock:
+                self._free_slots.append(slot)
+            return "replay_needed"
+        row = np.zeros((1, self._max_pages_per_slot), np.int32)
+        row[0, : len(pages)] = pages
+        slots = self._to_device([slot], torch.long)
+        self._tables[slots] = self._to_device(row, torch.int32)
+        idx = self._to_device(pages[:n_payload], torch.long)
+        for layer, upload in zip(self._cache, payload):
+            for key, arr in upload.items():
+                layer[key].index_copy_(0, idx, self._stage(arr))
+        self._update_slots(
+            slots, self._to_device([req.emitted[-1]], torch.long),
+            self._to_device([pos], torch.long),
+            self._to_device([req.params.temperature], torch.float32),
+            self._to_device([req.params.top_p], torch.float32),
+            self._to_device([req.sampling_seed & 0x7FFFFFFF], torch.long),
+        )
+        # at least one step: the reader's done check then ends the stream
+        budget = max(1, min(req.params.max_tokens - req.generated, self.max_seq_len - 1 - pos))
+        with self._lock:
+            req.slot = slot
+            self._slot_pages[slot] = list(pages)
+            self._slot_req[slot] = req
+            self._slot_budget[slot] = budget
+            self._slot_pos[slot] = pos
+            self._lock.notify_all()
+        return "restore"
+
+    def _stage(self, host: torch.Tensor) -> torch.Tensor:
+        """A CPU tensor on the engine's device without waiting (pinned
+        staging, as ``_to_device``)."""
+        if self.device.type != "cuda":
+            return host
+        staged = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+        staged.copy_(host)
+        return staged.to(self.device, non_blocking=True)
 
     def _to_device(self, values, dtype: torch.dtype) -> torch.Tensor:
         """A host list or array as a tensor on the engine's device, without
@@ -809,22 +1150,21 @@ class LLMEngine:
         return max(1, min(self.num_slots, budget // max(1, bucket)))
 
     def _admit(self) -> None:
-        """Claim a wave of pending requests for the free slots, fund their
-        pages, and prefill them (short prompts in one monolithic wave,
-        long ones by chunks). Every dispatch of a wave is one bucket wide
+        """The dispatch loop's admission step, through the scheduler seam:
+        ``unified`` claims and prefills a wave here, ``disagg`` imports
+        the prefill tier's finished requests."""
+        self.scheduler.admit()
+
+    def _prefill_claimed(self, claimed: List[_Request], register: bool) -> list:
+        """Fund a claimed wave's pages (``scheduler.claim_wave`` formed it)
+        and prefill it: short prompts in one monolithic wave, long ones by
+        chunks. Every dispatch of a wave is one bucket wide
         (``prefill_chunk``, or ``max_seq_len`` when that is shorter), so
-        ``prefill_wave_tokens`` caps the wave at ``_max_wave_rows`` of it."""
-        with self._lock:
-            if self._paused:
-                return
-            limit = min(len(self._free_slots), self._max_wave_rows(self._prefill_bucket(1)))
-            claimed = []
-            while self._pending and len(claimed) < limit:
-                req = self._pending.popleft()
-                self._register(req, self._free_slots.pop())
-                claimed.append(req)
-        if not claimed:
-            return
+        ``prefill_wave_tokens`` caps the wave at ``_max_wave_rows`` of it.
+        ``register`` (unified: the slots are registered already) writes
+        each row's state into the decode batch; otherwise (the disagg
+        prefill tier) returns one ``KVHandoff`` a request for the decode
+        tier's import."""
         chunk = self.engine_config.prefill_chunk
         if self._prefix is not None:
             # chunked prompts only (a shorter one has no cacheable chunk);
@@ -838,9 +1178,11 @@ class LLMEngine:
         funded = self._fund(claimed)
         short = [r for r in funded if len(r.prompt_ids) <= chunk]
         long = [r for r in funded if len(r.prompt_ids) > chunk]
+        records: list = []
         for wave, chunked in ((short, False), (long, True)):
             if wave:
-                self._prefill_wave(wave, chunked)
+                records += self._prefill_wave(wave, chunked, register)
+        return records
 
     def _register(self, req: _Request, slot: int) -> None:
         """Give ``slot`` to ``req`` (caller holds self._lock): from here the
@@ -896,7 +1238,7 @@ class LLMEngine:
                 self._kv_alloc.release(shared)  # undo the map
                 back = claimed[idx:]
                 for r in back:
-                    self._release(r.slot, r)  # unpins a later claim's match
+                    self._release(r.slot, r, tier=True)  # unpins a later claim's match
                     r.prefix_len = 0
                 with self._lock:
                     self._pending.extendleft(reversed(back))
@@ -933,7 +1275,7 @@ class LLMEngine:
             return self.max_seq_len
         return self._attention_window(max_pos + self._decode_block)
 
-    def _prefill_wave(self, reqs: List[_Request], chunked: bool) -> None:
+    def _prefill_wave(self, reqs: List[_Request], chunked: bool, register: bool = True) -> list:
         cfg = self.model_config
         N = len(reqs)
         lengths = np.array([len(r.prompt_ids) for r in reqs], np.int64)
@@ -968,7 +1310,21 @@ class LLMEngine:
         if any(r.params.temperature > 0 for r in reqs):
             keys = sampling.sample_keys(seeds, lengths_d)  # the first token is keyed at T
         first = sampling.sample_tokens(logits[:, : self._sample_vocab], temps, topps, keys)
-        self._update_slots(slots, first, lengths_d, temps, topps, seeds)
+        records = []
+        if register:
+            self._update_slots(slots, first, lengths_d, temps, topps, seeds)
+        else:
+            # the decode tier writes each row's state at its import
+            per_page = self._page_bytes()
+            for i, req in enumerate(reqs):
+                T = int(lengths[i])
+                pages = tuple(self._slot_pages.get(req.slot, ()))
+                records.append(handoff_mod.KVHandoff(
+                    req=req, slot=req.slot, position=T,
+                    budget=min(req.params.max_tokens - 1, self.max_seq_len - 1 - T),
+                    pages=pages, nbytes=len(pages) * per_page,
+                    state=tuple(t[i:i + 1] for t in (slots, first, lengths_d, temps, topps, seeds)),
+                ))
         self._counters["prefill_waves"] += 1
         self._counters["prefill_tokens"] += int(lengths.sum())
         self._counters["requests_prefilled"] += len(reqs)
@@ -977,6 +1333,57 @@ class LLMEngine:
         self._to_reader("prefill", first, list(enumerate(reqs)))
         if chunked and self._prefix is not None:
             self._insert_prefixes(reqs)
+        return records
+
+    def _page_bytes(self) -> int:
+        """Device bytes one pool page holds across every layer (scale
+        planes included)."""
+        return sum(t[0].numel() * t.element_size() for c in self._cache for t in c.values())
+
+    def _import_handoff(self, rec) -> None:
+        """The decode tier's import of a prefill-tier record (dispatch
+        thread): the KV is in the pool pages already, so the import
+        writes the row's slot state and registers the request. A request
+        that finished meanwhile (its first token was its last, or it was
+        aborted and emitted) gives its slot and pages back here, since no
+        release path owns a tier-held slot; one whose pages went dead is
+        requeued for a full prefill and counted (it must not happen)."""
+        req = rec.req
+        with self._lock:
+            if self._tier_slots.get(rec.slot) is not req:
+                return  # released already (shutdown)
+            if req.finished:
+                self._release(rec.slot, req, tier=True)
+                return
+            if rec.pages and not all(self._kv_alloc.refcount(p) > 0 for p in rec.pages):
+                handoff_mod.record_recompute()
+                logger.error("handoff import found dead pages for rid %d; requeueing for "
+                             "a full prefill", req.rid)
+                # give back the part of the reservation still live
+                self._slot_pages[rec.slot] = [p for p in rec.pages
+                                              if self._kv_alloc.refcount(p) > 0]
+                self._release(rec.slot, req, tier=True)
+                req.prefix_len = 0
+                self._pending.appendleft(req)
+                self._lock.notify_all()
+                return
+            del self._tier_slots[rec.slot]
+            self._slot_req[rec.slot] = req
+            self._slot_budget[rec.slot] = rec.budget
+            self._slot_pos[rec.slot] = rec.position
+        self._update_slots(*rec.state)
+
+    def _fail_claims(self, reqs: List[_Request], exc: BaseException) -> None:
+        """A prefill-tier wave failed: its requests end with the error and
+        their claims go back."""
+        for req in reqs:
+            if not req.finished:
+                req.error = exc
+                self._finish(req)
+            with self._lock:
+                slot = req.slot
+            if slot >= 0:
+                self._release(slot, req, tier=True)
 
     def _fetch_prefixes(self, reqs: List[_Request]) -> None:
         """Fixed layout: copy each hit's cached rows from the prefix store
@@ -1141,20 +1548,27 @@ class LLMEngine:
                     self._finish(req)
                 self._release(slot, req)
 
-    def _release(self, slot: int, req: _Request) -> None:
+    def _release(self, slot: int, req: _Request, tier: bool = False) -> None:
         """Free ``slot`` while it still belongs to ``req`` (a late release
         of an earlier owner is a no-op), its prefix pin if it still holds
         one and, on the paged layout, its pages; its table row points back
-        at the scratch page. Dispatch thread only (or after the threads
-        ended, at shutdown). Blocks already dispatched for the slot run before
-        anything a new owner enqueues, so its pages and strip are reusable
-        at once."""
+        at the scratch page. ``tier`` also frees a slot the disagg prefill
+        tier holds (the claim's owner releases it; the reader's releases
+        do not). Dispatch thread, the prefill tier for its own claims, the
+        drain thread while the loop is parked, or shutdown. Blocks already
+        dispatched for the slot run before anything a new owner enqueues,
+        so its pages and strip are reusable at once; the slot's device
+        resets are launched before it is free to claim again."""
         with self._lock:
-            if self._slot_req.get(slot) is not req:
+            if self._slot_req.get(slot) is req:
+                owner = self._slot_req
+            elif tier and self._tier_slots.get(slot) is req:
+                owner = self._tier_slots
+            else:
                 return
-            # the pin and the pages go first: a request gone from _slot_req
-            # holds neither (the allocator's and the index's locks are
-            # leaves, taken under this one)
+            # the pin, the pages and the device resets go first: a request
+            # gone from _slot_req holds none of them (the allocator's and
+            # the index's locks are leaves, taken under this one)
             if req.prefix_entry is not None:
                 # a match whose rows were never secured (requeue, a failed wave)
                 self._prefix.release(req.prefix_entry)
@@ -1163,16 +1577,16 @@ class LLMEngine:
             if pages:
                 # shared prefix pages keep the entry's reference
                 self._kv_alloc.release(pages)
-            del self._slot_req[slot]
+            if self._paged:
+                self._tables[slot].fill_(0)
+            self._live_dev[slot].fill_(False)
+            self._positions_dev[slot].fill_(0)
+            del owner[slot]
             self._slot_budget.pop(slot, None)
             self._slot_pos.pop(slot, None)
             req.slot = -1
             self._free_slots.append(slot)
             self._lock.notify_all()  # wakes ingest_window when the last slot frees
-        if self._paged:
-            self._tables[slot].fill_(0)
-        self._live_dev[slot].fill_(False)
-        self._positions_dev[slot].fill_(0)
 
     # ------------------------------------------------------------------ #
     # reader thread: the one place that waits for the device
@@ -1187,6 +1601,11 @@ class LLMEngine:
                     self._finish(req)
                 return
             kind, host, event, rows = item
+            if kind == "drain_barrier":
+                # enqueued last by a drain after the park: every earlier
+                # readback is emitted, positions and transcripts are current
+                host.set()
+                continue
             try:
                 if event is not None:
                     event.synchronize()  # releases the GIL while it waits
@@ -1223,6 +1642,7 @@ class LLMEngine:
         """Reader thread: one token to the request's queue; a finished
         request gets its end and its slot goes back to the dispatch loop."""
         req.generated += 1
+        req.emitted.append(token)
         self._reader_counters["tokens_generated"] += 1
         if req.generated == 1:
             self._ttft.append(time.time() - req.t_submit)

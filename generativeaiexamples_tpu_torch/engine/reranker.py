@@ -22,6 +22,7 @@ import torch
 
 from generativeaiexamples_tpu_torch.engine.batcher import MicroBatcher, row_bucket
 from generativeaiexamples_tpu_torch.engine.embedder import _build_params, _Encoder, _preset
+from generativeaiexamples_tpu_torch.utils import resilience
 
 
 class OverlapReranker:
@@ -145,9 +146,8 @@ class RemoteReranker:
     """Client of the NIM ranking API over ``urllib``: ``POST
     {url}/v1/ranking`` with ``{"model", "query": {"text"}, "passages":
     [{"text"}]}``; each of the answer's ``rankings`` gives a passage's
-    ``index`` and its ``logit`` (else ``score``). No retry or circuit
-    breaker: the JAX package's resilience layer is not ported (ROADMAP
-    queue 1 item 6)."""
+    ``index`` and its ``logit`` (else ``score``). The call is retried with
+    backoff behind the ``reranker`` circuit breaker, as in JAX."""
 
     def __init__(self, server_url: str, model_name: str, timeout: float = 60.0):
         from generativeaiexamples_tpu_torch.engine.embedder import normalize_v1_url
@@ -163,8 +163,15 @@ class RemoteReranker:
             f"{self._url}/ranking", data=json.dumps(body).encode(),
             headers={"Content-Type": "application/json"},
         )
-        with urllib.request.urlopen(req, timeout=self._timeout) as resp:
-            rankings = json.loads(resp.read())["rankings"]
+
+        def post():
+            with urllib.request.urlopen(req, timeout=self._timeout) as resp:
+                return json.loads(resp.read())["rankings"]
+
+        rankings = resilience.call_with_resilience(
+            "reranker", post, retry_on=resilience.URL_ERRORS,
+            retry_filter=resilience.http_error_is_transient,
+        )
         out = np.zeros(len(passages), np.float32)
         for entry in rankings:
             out[entry["index"]] = entry.get("logit", entry.get("score", 0.0))

@@ -1,23 +1,24 @@
-"""The default single-tier scheduler policy, as far as the port serves it.
+"""The default single-tier scheduler policy.
 
-Counterpart of generativeaiexamples_tpu/engine/scheduler/unified.py. The
-port's dispatch loop still admits, prefills and decodes by itself
-(``LLMEngine._loop``); what this slice takes from the policy is the
-co-scheduling seam the retrieval micro-batcher calls: ``ingest_window``,
-the decode-idle condition bulk embedding waits for (the JAX engine's
-``wait_decode_idle`` became this). The rest of the scheduler seam
-(admission, wave formation, disaggregation) is ROADMAP queue 1 item 8.
+Counterpart of generativeaiexamples_tpu/engine/scheduler/unified.py: the
+dispatch thread claims one wave a pass (``claim_wave``), registers its
+slots into the decode batch at once, and prefills it inline, so admission
+alternates with decode blocks on one thread.
+
+The ingest window is the decode-idle condition the retrieval
+micro-batcher waits for before bulk embedding; the retrieval window waits
+out pending admissions only (the dispatch thread is about to prefill).
 """
 from __future__ import annotations
 
 import time
+from typing import Any, Dict
+
+from generativeaiexamples_tpu_torch.engine.scheduler.base import SchedulerPolicy
 
 
-class UnifiedPolicy:
+class UnifiedPolicy(SchedulerPolicy):
     kind = "unified"
-
-    def __init__(self, engine):
-        self.engine = engine
 
     def has_work(self) -> bool:
         """Pending admissions wake the dispatch loop (caller holds the
@@ -25,11 +26,21 @@ class UnifiedPolicy:
         eng = self.engine
         return bool(eng._pending) and not eng._paused
 
+    def _on_claimed(self, admitted) -> None:
+        for req in admitted:
+            self.engine._register(req, req.slot)
+
+    def admit(self) -> None:
+        """One wave a pass, claimed, registered and prefilled on the
+        dispatch thread."""
+        wave = self.claim_wave()
+        if wave is not None:
+            self.engine._prefill_claimed(wave, register=True)
+
     def ingest_window(self, timeout: float) -> bool:
         """Block until no request occupies a decode slot, or ``timeout``
         elapses; True when idle. The dispatch thread notifies the engine
-        condition when it frees a slot, so a waiter wakes when decode
-        drains."""
+        condition when it frees a slot."""
         eng = self.engine
         deadline = time.monotonic() + max(0.0, timeout)
         with eng._lock:
@@ -39,3 +50,20 @@ class UnifiedPolicy:
                     return False
                 eng._lock.wait(remaining)
             return True
+
+    def retrieval_window(self, timeout: float) -> bool:
+        """Wait out pending admissions only: a backlog means a prefill is
+        about to run, while decode occupancy is the steady state a search
+        wave has to run beside."""
+        eng = self.engine
+        deadline = time.monotonic() + max(0.0, timeout)
+        with eng._lock:
+            while eng._pending:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return False
+                eng._lock.wait(remaining)
+            return True
+
+    def describe(self) -> Dict[str, Any]:
+        return {"policy": self.kind, "tiers": 1}

@@ -12,7 +12,14 @@ routes and JSON wire shapes, on the standard library's
   (``max_queued_requests``) answers 429 with ``Retry-After`` and
   ``X-GenAI-Queue-Depth``, a stream before its first frame;
 - ``POST /v1/embeddings`` (``embed_documents``, no query prefix; 400 on
-  a body without ``input``).
+  a body without ``input``);
+- the drain lifecycle, with the chain server's functions and answers
+  (server/api.py, as the JAX servers share their handlers):
+  ``POST /internal/drain``, ``GET /internal/snapshots``,
+  ``GET /internal/snapshots/{id}`` and ``POST /internal/restore``. A chat
+  stream that a drain preempts ends with a chunk whose ``finish_reason``
+  is ``"PREEMPTED"`` and whose ``warnings`` name the snapshot id, then
+  ``data: [DONE]`` (the JAX engine server drops the connection there).
 
 The engine and the embedder are built on first use when not given
 (health, readiness and models never build them). Run on the card::
@@ -29,12 +36,14 @@ import json
 import logging
 import threading
 import time
+import urllib.parse
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional
 
 from generativeaiexamples_tpu_torch.config import AppConfig
-from generativeaiexamples_tpu_torch.engine.llm_engine import EngineOverloaded, engine_wedged
+from generativeaiexamples_tpu_torch.engine.llm_engine import engine_wedged
+from generativeaiexamples_tpu_torch.utils.resilience import EngineOverloaded, RequestPreempted
 
 logger = logging.getLogger(__name__)
 
@@ -184,7 +193,47 @@ class _Handler(BaseHTTPRequestHandler):
             return None
         return body if isinstance(body, dict) else None
 
+    def _lifecycle(self, method: str) -> bool:
+        """The drain lifecycle's routes; False for any other path."""
+        from generativeaiexamples_tpu_torch.server import api
+
+        path = urllib.parse.urlsplit(self.path).path
+        eng = self.app._engine  # never built here
+        if method == "GET" and path == "/internal/snapshots":
+            self._json(*api.snapshots_route(eng))
+        elif method == "GET" and path.startswith("/internal/snapshots/"):
+            self._json(*api.snapshot_route(urllib.parse.unquote(path.rsplit("/", 1)[1]), eng))
+        elif method == "POST" and path == "/internal/drain":
+            self._json(*api.drain_route(self._raw(), eng))
+        elif method == "POST" and path == "/internal/restore":
+            status, body, frames = api.restore_route(self._raw(), eng)
+            if frames is None:
+                self._json(status, body)
+                return True
+            self.send_response(200)
+            self.send_header("Content-Type", "text/event-stream")
+            for name, value in {**body, "Access-Control-Allow-Origin": "*"}.items():
+                self.send_header(name, value)
+            self.send_header("Connection", "close")
+            self.end_headers()
+            self.close_connection = True
+            try:
+                for frame in frames:
+                    self.wfile.write(frame)
+                    self.wfile.flush()
+            except (BrokenPipeError, ConnectionResetError):
+                frames.close()
+        else:
+            return False
+        return True
+
+    def _raw(self) -> bytes:
+        n = int(self.headers.get("Content-Length", "0") or 0)
+        return self.rfile.read(n) if n > 0 else b""
+
     def do_GET(self):  # noqa: N802 - http.server's naming
+        if self._lifecycle("GET"):
+            return
         if self.path == "/v1/health/ready":
             if engine_wedged():
                 self._json(503, {"object": "health", "message": "Engine wedged."})
@@ -199,6 +248,8 @@ class _Handler(BaseHTTPRequestHandler):
             self._json(404, {"error": f"no route {self.path}"})
 
     def do_POST(self):  # noqa: N802 - http.server's naming
+        if self._lifecycle("POST"):
+            return
         routes = {
             "/v1/chat/completions": self._chat,
             "/v1/completions": self._completions,
@@ -251,10 +302,14 @@ class _Handler(BaseHTTPRequestHandler):
                     first = False
                 self._sse(app.chunk_frame(rid, delta, None))
             self._sse(app.chunk_frame(rid, {}, "stop"))
-            self.wfile.write(b"data: [DONE]\n\n")
-            self.wfile.flush()
+        except RequestPreempted as exc:
+            frame = app.chunk_frame(rid, {}, "PREEMPTED")
+            frame["warnings"] = [f"preempted snapshot_id={exc.snapshot_id or ''}"]
+            self._sse(frame)
         finally:
             gen.close()  # a gone client aborts the request
+        self.wfile.write(b"data: [DONE]\n\n")
+        self.wfile.flush()
 
     def _sse(self, frame: Dict[str, Any]) -> None:
         self.wfile.write(f"data: {json.dumps(frame)}\n\n".encode())

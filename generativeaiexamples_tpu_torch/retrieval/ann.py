@@ -4,7 +4,12 @@ Counterpart of generativeaiexamples_tpu/retrieval/ann.py on one device
 (the JAX engine's shard merge over a mesh is ROADMAP queue 1 item 9): the
 corpus is ONE padded ``[capacity, D]`` f32 matrix (capacity a power-of-two
 rung, floored at 1024 rows, as in JAX), scored against a row-padded query
-batch as one matmul and ``torch.topk``.
+batch as one matmul and ``torch.topk``. A matmul's row is not bitwise
+independent of the row count (one row and eight take different kernels),
+so a batch padded to a rung of the row ladder scores a query in the last
+bits as it likes; ``pad_rows`` pads every dispatch to ``max_batch`` rows
+instead, so the retrieval tier's waves (engine/retrieval_tier.py) answer
+a query the same whatever else shares its wave.
 
 - ``exact``: full-corpus scoring;
 - ``ivf``: a seeded host-side k-means (``_kmeans``, the JAX package's
@@ -184,10 +189,12 @@ class ANNSearchEngine:
         scores = torch.where(keep, scores, float("-inf"))
         return torch.topk(scores, k, dim=1)
 
-    def search(self, queries: np.ndarray, top_k: int) -> Tuple[np.ndarray, np.ndarray]:
+    def search(self, queries: np.ndarray, top_k: int,
+               pad_rows: bool = False) -> Tuple[np.ndarray, np.ndarray]:
         """Top-k over the resident corpus for ``[R, D]`` queries. Returns
         (scores [R, k'], indices [R, k']) with k' = min(top_k, live rows);
-        rows beyond ``max_batch`` chunk through the row ladder. The caller
+        rows beyond ``max_batch`` chunk through the row ladder, or with
+        ``pad_rows`` each dispatch has ``max_batch`` rows. The caller
         normalizes the queries."""
         with self._lock:
             corpus = self._corpus
@@ -206,7 +213,8 @@ class ANNSearchEngine:
         with self._on_stream(), torch.inference_mode():
             for start in range(0, n, self._max_batch):
                 chunk = queries[start:start + self._max_batch]
-                q = np.zeros((row_bucket(chunk.shape[0], self._max_batch), self._dim), np.float32)
+                rung = self._max_batch if pad_rows else row_bucket(chunk.shape[0], self._max_batch)
+                q = np.zeros((rung, self._dim), np.float32)
                 q[: chunk.shape[0]] = chunk
                 scores, idx = self._topk(corpus, to_device(q, self.device), kr, nprobe)
                 out_scores.append(to_host(scores[: chunk.shape[0], :k_req]))

@@ -7,8 +7,10 @@ min-max normalized per query, and ``rrf_fuse`` for reciprocal-rank fusion
 with the dense hits. An index persists as ``bm25_<collection>.jsonl``
 under ``persist_dir`` (one chunk a line: text, source, metadata), the JAX
 format, so either package loads what the other wrote; term statistics
-rebuild on load. The JAX package's circuit breaker around ``search`` and
-its store metrics are not ported.
+rebuild on load. ``search`` runs behind the ``bm25`` circuit breaker with
+one attempt, as in JAX (a persistently failing index opens it and
+retrieval degrades with a typed error); the store metrics are not
+ported.
 
 Unlike the JAX package's, an index is safe to share between threads:
 ``add``, ``delete_sources``, ``search`` and ``persist`` run under one
@@ -27,6 +29,7 @@ from collections import Counter
 from typing import Dict, List, Sequence
 
 from generativeaiexamples_tpu_torch.retrieval.store import Chunk, SearchHit
+from generativeaiexamples_tpu_torch.utils import resilience
 
 logger = logging.getLogger(__name__)
 
@@ -85,6 +88,7 @@ class BM25Index:
     def count(self) -> int:
         return len(self._chunks)
 
+    @resilience.resilient("bm25", attempts=1)
     def search(self, query: str, top_k: int) -> List[SearchHit]:
         """Top-k chunks by BM25, scores min-max normalized to [0, 1]."""
         with self._lock:

@@ -137,7 +137,14 @@ class TorchVectorStore(VectorStore):
         top_k: int,
         score_threshold: float = 0.0,
     ) -> List[List[SearchHit]]:
-        """Top-k for many queries in one pass of device dispatches."""
+        """Top-k for many queries in one pass of device dispatches (the
+        retrieval tier's path): each dispatch padded to ``max_batch``
+        rows, so a query's hits do not depend on the others in its batch.
+        They may differ from :meth:`search`'s in the scores' last bits."""
+        return self._search_rows(query_embeddings, top_k, score_threshold, pad_rows=True)
+
+    def _search_rows(self, query_embeddings: np.ndarray, top_k: int, score_threshold: float,
+                     pad_rows: bool) -> List[List[SearchHit]]:
         with self._lock:
             chunks = list(self._chunks)
         queries = np.asarray(query_embeddings, np.float32)
@@ -148,7 +155,7 @@ class TorchVectorStore(VectorStore):
             return [[] for _ in range(n)]
         norms = np.linalg.norm(queries, axis=1, keepdims=True)
         queries = queries / np.maximum(norms, 1e-12)
-        scores, idx = self._ann_engine().search(queries, top_k)
+        scores, idx = self._ann_engine().search(queries, top_k, pad_rows=pad_rows)
         results: List[List[SearchHit]] = []
         for row in range(n):
             hits: List[SearchHit] = []
@@ -170,7 +177,7 @@ class TorchVectorStore(VectorStore):
         self, query_embedding: np.ndarray, top_k: int, score_threshold: float = 0.0
     ) -> List[SearchHit]:
         q = np.asarray(query_embedding, np.float32).reshape(1, -1)
-        return self.search_batch(q, top_k, score_threshold)[0]
+        return self._search_rows(q, top_k, score_threshold, pad_rows=False)[0]
 
     def sources(self) -> List[str]:
         with self._lock:

@@ -9,27 +9,38 @@ connection), with its status codes, JSON bodies and SSE bytes:
   wedged; the port has no warmup to wait for);
 - ``POST /generate`` -> ``text/event-stream`` of ``data: {ChainResponse}``
   frames ending in one with ``finish_reason`` ``"[DONE]"``. Admission
-  (``resilience``): past ``max_active_streams`` streams, or while the live
-  engine's queue holds ``engine_queue_cap`` requests, 429 with
-  ``Retry-After`` and ``X-GenAI-Queue-Depth`` (no engine is ever built to
-  answer it); ``EngineOverloaded`` at submit -> 429; a deadline spent
-  before the stream -> 504, during it -> a ``[DONE]`` frame with a
+  (``resilience``): an injected fault at ``server.admission``, more than
+  ``max_active_streams`` streams, or the live engine's queue at
+  ``engine_queue_cap`` requests, 429 with ``Retry-After`` and
+  ``X-GenAI-Queue-Depth`` (no engine is ever built to answer it);
+  ``EngineOverloaded`` at submit -> 429; a deadline spent before the
+  stream -> 504, during it -> a ``[DONE]`` frame with a
   ``deadline_exceeded`` warning; a chain's ``DegradedWarning`` -> a
-  warnings-only frame; ``VectorStoreError`` and other errors -> a
-  single-frame 500 stream;
+  warnings-only frame; a drain mid-stream -> a ``finish_reason``
+  ``"PREEMPTED"`` frame whose warning names the snapshot id;
+  ``VectorStoreError`` and other errors -> a single-frame 500 stream;
 - ``POST /documents`` (multipart upload, saved under ``DOC_UPLOAD_DIR``
   by its base name, then ``ingest_docs``), ``GET /documents``,
   ``DELETE /documents?filename=``, ``POST /search``;
+- the drain lifecycle, served by both of the port's servers (the engine
+  server takes the same functions, as the JAX servers share handlers):
+  ``POST /internal/drain`` (``{"resume": true}`` lifts a drain) answers
+  the drain summary, ``GET /internal/snapshots`` the spool's inventory,
+  ``GET /internal/snapshots/{id}`` the document (404 when unknown), and
+  ``POST /internal/restore`` streams a snapshot's continuation as
+  ``/generate`` frames with ``X-GenAI-Restore: <id>; mode=<mode>`` (409
+  on a fingerprint or geometry mismatch, 422 on a body that is no
+  snapshot, 503 while this engine drains); each answers 503 without a
+  live engine and never builds one;
 - 422 ``{"detail": [...]}`` on a body that fails validation; CORS on
   every answer; ``OPTIONS`` -> 204.
 
 The request's thread binds its ``Deadline`` and runs the chain and its
 generator itself, so the engine's stream timeout is the request's
 remaining budget; a client that goes away closes the generator, which
-aborts the engine request. ``/internal/drain``, ``/internal/snapshots``
-and ``/internal/restore`` answer 501 (ROADMAP queue 1 item 8); the JAX
-server's metrics, tracing, flight recorder and fault points are not
-ported (item 11).
+aborts the engine request. ``make_server`` installs ``resilience.faults``.
+The JAX server's metrics, tracing and flight recorder are not ported
+(ROADMAP queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -49,7 +60,7 @@ from typing import Any, Dict, Optional, Type
 from generativeaiexamples_tpu_torch.chains.base import BaseExample
 from generativeaiexamples_tpu_torch.chains.registry import resolve_example
 from generativeaiexamples_tpu_torch.chains.runtime import DegradedWarning
-from generativeaiexamples_tpu_torch.engine.llm_engine import EngineOverloaded, engine_wedged
+from generativeaiexamples_tpu_torch.engine.llm_engine import engine_wedged
 from generativeaiexamples_tpu_torch.retrieval.errors import VectorStoreError
 from generativeaiexamples_tpu_torch.server.schemas import (
     ChainResponse,
@@ -64,8 +75,14 @@ from generativeaiexamples_tpu_torch.server.schemas import (
     ValidationError,
     validation_error_body,
 )
+from generativeaiexamples_tpu_torch.utils import faults as faults_mod
 from generativeaiexamples_tpu_torch.utils import resilience
-from generativeaiexamples_tpu_torch.utils.resilience import Deadline, DeadlineExceeded
+from generativeaiexamples_tpu_torch.utils.resilience import (
+    Deadline,
+    DeadlineExceeded,
+    EngineOverloaded,
+    RequestPreempted,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -75,7 +92,8 @@ VECTOR_STORE_ERROR_MSG = (
     "Please check chain-server logs for more details."
 )
 GENERIC_ERROR_MSG = "Error from chain server. Please check chain-server logs for more details."
-_NOT_PORTED = {"detail": "drain and snapshots are not ported yet (ROADMAP queue 1 item 8)"}
+RESTORE_HEADER = "X-GenAI-Restore"
+_NO_ENGINE = {"detail": "no live engine in this process"}
 _CORS = {"Access-Control-Allow-Origin": "*", "Access-Control-Allow-Methods": "*",
          "Access-Control-Allow-Headers": "*"}
 MAX_BODY = 512 * 1024 * 1024
@@ -105,6 +123,16 @@ def error_stream_body(msg: str) -> bytes:
         index=0, message=Message.make("assistant", msg), finish_reason="[DONE]")]))
 
 
+def preempt_frame(resp_id: str, exc: RequestPreempted) -> bytes:
+    """The drain's terminator: ``finish_reason`` ``"PREEMPTED"`` and a
+    warning with the snapshot id a router restores elsewhere (empty: replay
+    from the original prompt)."""
+    sid = getattr(exc, "snapshot_id", None) or ""
+    return sse_frame(ChainResponse(
+        id=resp_id, choices=[ChainResponseChoices(index=0, finish_reason="PREEMPTED")],
+        warnings=[f"preempted snapshot_id={sid}"]))
+
+
 def request_deadline(rcfg, header: Optional[str], prompt: Prompt) -> Optional[Deadline]:
     """The request's budget: the ``X-Request-Deadline-Ms`` header, else the
     body's ``deadline_ms``, else ``resilience.request_deadline_ms``; 0 at
@@ -132,6 +160,94 @@ def _live_engine():
     from generativeaiexamples_tpu_torch.engine import llm_engine
 
     return llm_engine._ENGINE
+
+
+# --------------------------------------------------------------------------- #
+# The drain lifecycle, shared by the chain server and the engine server:
+# each function answers (status, JSON body), or a restore's stream, for
+# ``eng`` (the engine server's own) or else the process engine.
+
+def drain_route(raw: bytes, eng=None):
+    """``POST /internal/drain``: drain the live engine (its summary), or
+    lift a drain when the body is ``{"resume": true}``."""
+    eng = eng or _live_engine()
+    if eng is None:
+        return 503, _NO_ENGINE
+    try:
+        body = json.loads(raw) if raw else None
+    except (ValueError, UnicodeDecodeError):  # an empty body is the common case
+        body = None
+    if isinstance(body, dict) and body.get("resume"):
+        eng.resume_from_drain()
+        return 200, {"draining": False}
+    return 200, eng.drain()
+
+
+def snapshots_route(eng=None):
+    """``GET /internal/snapshots``: the spool's inventory."""
+    eng = eng or _live_engine()
+    if eng is None:
+        return 503, _NO_ENGINE
+    return 200, {"snapshots": eng.snapshot_spool.list()}
+
+
+def snapshot_route(sid: str, eng=None):
+    """``GET /internal/snapshots/{id}``: the raw document, relayed as it is
+    into another replica's ``/internal/restore``."""
+    from generativeaiexamples_tpu_torch.engine import request_snapshot as snap_mod
+
+    eng = eng or _live_engine()
+    if eng is None:
+        return 503, _NO_ENGINE
+    try:
+        return 200, eng.snapshot_spool.load_doc(sid)
+    except snap_mod.SnapshotError as exc:
+        return 404, {"detail": str(exc)}
+
+
+def restore_route(raw: bytes, eng=None):
+    """``POST /internal/restore``: re-admit a snapshot document on the live
+    engine. Returns ``(status, body, None)`` for a refusal, or ``(200,
+    headers, frames)`` where ``frames`` yields the continuation's SSE
+    frames (the spooled prefix first) and the terminator."""
+    from generativeaiexamples_tpu_torch.engine import request_snapshot as snap_mod
+
+    eng = eng or _live_engine()
+    if eng is None:
+        return 503, _NO_ENGINE, None
+    try:
+        snap = snap_mod.RequestSnapshot.from_doc(json.loads(raw))
+    except snap_mod.SnapshotMismatch as exc:
+        return 409, {"detail": str(exc)}, None
+    except Exception:  # noqa: BLE001 - a malformed body
+        return 422, {"detail": "body must be a snapshot document"}, None
+    try:
+        req, params, prior_ids, mode = eng.restore_snapshot(snap)
+    except snap_mod.SnapshotMismatch as exc:
+        return 409, {"detail": str(exc)}, None
+    except EngineOverloaded as exc:
+        return 503, {"detail": str(exc)}, None
+    except (snap_mod.SnapshotError, TimeoutError) as exc:
+        logger.error("Restore of %s failed: %s", snap.snapshot_id, exc)
+        return 500, {"detail": str(exc)}, None
+
+    def frames():
+        resp_id = str(uuid.uuid4())
+        gen = eng.stream_restored(req, params, prior_ids)
+        try:
+            for chunk in gen:
+                yield chunk_frame(resp_id, chunk)
+            yield done_frame(resp_id)
+        except RequestPreempted as exc:
+            # drained again mid-restore: the new snapshot id goes back
+            yield preempt_frame(resp_id, exc)
+        except Exception as exc:  # noqa: BLE001
+            logger.error("Error mid-stream in /internal/restore: %s", exc)
+            yield error_stream_body(GENERIC_ERROR_MSG)
+        finally:
+            gen.close()
+
+    return 200, {RESTORE_HEADER: f"{snap.snapshot_id}; mode={mode}"}, frames()
 
 
 class _Reply(Exception):
@@ -261,6 +377,12 @@ class ChainServer:
         config = get_config()
         rcfg = config.resilience
         deadline = None
+        if resilience.resilience_enabled(config) and faults_mod.active():
+            try:
+                faults_mod.fault_point("server.admission")
+            except faults_mod.FaultInjected:
+                # an injected error here stands for saturation
+                return self.shed(rcfg, "fault_injected")
         with self._lock:
             if resilience.resilience_enabled(config):
                 reason = self.admission_denied(rcfg)
@@ -322,6 +444,12 @@ class ChainServer:
         except (DeadlineExceeded, TimeoutError) as exc:
             logger.warning("Deadline exceeded mid-stream in /generate: %s", exc)
             handler.write_frame(done_frame(resp_id, [f"deadline_exceeded: {exc}"]))
+        except RequestPreempted as exc:
+            # a drain checkpointed the request: the typed terminator, never
+            # a 500-style frame
+            logger.warning("Request preempted mid-stream (snapshot=%s)",
+                           exc.snapshot_id or "replay")
+            handler.write_frame(preempt_frame(resp_id, exc))
         except VectorStoreError as exc:
             logger.error("Vector store error mid-stream: %s", exc)
             handler.write_frame(error_stream_body(VECTOR_STORE_ERROR_MSG))
@@ -376,10 +504,10 @@ class _Handler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(data)
 
-    def start_stream(self) -> None:
+    def start_stream(self, headers: Optional[Dict[str, str]] = None) -> None:
         self.send_response(200)
         self.send_header("Content-Type", "text/event-stream")
-        for name, value in _CORS.items():
+        for name, value in {**(headers or {}), **_CORS}.items():
             self.send_header(name, value)
         self.send_header("Connection", "close")
         self.end_headers()
@@ -402,6 +530,19 @@ class _Handler(BaseHTTPRequestHandler):
         except (ValueError, UnicodeDecodeError):
             raise _Reply(422, {"detail": "Invalid JSON body"}) from None
 
+    def _restore(self) -> Optional[_Reply]:
+        status, body, frames = restore_route(self._body())
+        if frames is None:
+            return _Reply(status, body)
+        self.start_stream(body)
+        try:
+            for frame in frames:
+                self.write_frame(frame)
+        except (BrokenPipeError, ConnectionResetError):
+            logger.info("Client disconnected mid-restore-stream.")
+            frames.close()
+        return None
+
     def _route(self, method: str) -> None:
         url = urllib.parse.urlsplit(self.path)
         path, app = url.path, self.app
@@ -415,12 +556,14 @@ class _Handler(BaseHTTPRequestHandler):
             ("GET", "/documents"): app.documents,
             ("DELETE", "/documents"): lambda: app.delete(
                 urllib.parse.parse_qs(url.query).get("filename", [""])[0]),
-            ("POST", "/internal/drain"): lambda: _Reply(501, _NOT_PORTED),
-            ("GET", "/internal/snapshots"): lambda: _Reply(501, _NOT_PORTED),
-            ("POST", "/internal/restore"): lambda: _Reply(501, _NOT_PORTED),
+            ("POST", "/internal/drain"): lambda: _Reply(*drain_route(self._body())),
+            ("GET", "/internal/snapshots"): lambda: _Reply(*snapshots_route()),
+            ("POST", "/internal/restore"): self._restore,
         }
-        if re.fullmatch(r"/internal/snapshots/[^/]+", path):
-            routes[("GET", path)] = lambda: _Reply(501, _NOT_PORTED)
+        match = re.fullmatch(r"/internal/snapshots/([^/]+)", path)
+        if match:
+            routes[("GET", path)] = lambda: _Reply(
+                *snapshot_route(urllib.parse.unquote(match.group(1))))
         try:
             if method == "OPTIONS":
                 raise _Reply(204, b"", content_type="")
@@ -456,7 +599,8 @@ def make_server(host: str = "127.0.0.1", port: int = 8081,
     """A bound, not yet serving, chain server (``port=0`` picks a free
     port, ``server_address``). The process configuration is checked first,
     as the JAX server's startup checks it (``config_validate``, then the
-    engine's, the resilience section's and the batcher's own checks)."""
+    engine's, the resilience section's and the batcher's own checks), and
+    the ``resilience.faults`` rules are installed."""
     from generativeaiexamples_tpu_torch import config_validate
     from generativeaiexamples_tpu_torch.config import get_config
     from generativeaiexamples_tpu_torch.engine.batcher import validate_config
@@ -466,6 +610,12 @@ def make_server(host: str = "127.0.0.1", port: int = 8081,
     config.engine.validate()
     config.resilience.validate()
     validate_config(config)
+    if config.resilience.faults:
+        try:
+            n = faults_mod.install(config.resilience.faults)
+            logger.warning("Installed %d fault-injection rule(s) from config", n)
+        except ValueError as exc:
+            raise ValueError(f"invalid resilience.faults spec: {exc}") from exc
     app = ChainServer(example_cls)
     handler = type("Handler", (_Handler,), {"app": app})
     server = ThreadingHTTPServer((host, port), handler)

@@ -46,6 +46,7 @@ from generativeaiexamples_tpu.retrieval import splitter as jsplitter
 from generativeaiexamples_tpu.retrieval.store import Chunk as JChunk
 from generativeaiexamples_tpu.retrieval.store import SearchHit as JHit
 from generativeaiexamples_tpu_torch import config as tconfig
+from generativeaiexamples_tpu_torch import config_validate as tvalidate
 from generativeaiexamples_tpu_torch.chains import developer_rag as tdr
 from generativeaiexamples_tpu_torch.chains import registry as tregistry
 from generativeaiexamples_tpu_torch.chains import runtime as trt
@@ -308,18 +309,21 @@ def _assert_same_dense(got, want, cut):
             start = end
 
 
-def _check_pipeline(jcfg, tcfg, query, top_k=None, threshold=None):
+def _check_pipeline(jcfg, tcfg, query, top_k=None, threshold=None, batched=False):
     """The port's retrieve() against JAX's: the dense legs equal up to
     ties, the fuse and rerank tail of JAX's runtime on the port's dense
     hits equal to the port's answer, and the two answers equal outright
-    when the dense leg has no tie."""
+    when the dense leg has no tie. ``batched``: the port's dense hits are
+    the batched store path's (the retrieval tier's)."""
     got = trt.retrieve(query, top_k=top_k, score_threshold=threshold, config=tcfg)
     want = jrt.retrieve(query, top_k=top_k, score_threshold=threshold, config=jcfg)
     k = top_k if top_k is not None else tcfg.retriever.top_k
     thr = threshold if threshold is not None else tcfg.retriever.score_threshold
     _, lexical, _, fetch_k = trt.resolve_pipeline(tcfg, k)
     j_rr = jrt.resolve_pipeline(jcfg, k)[2]
-    t_dense = trt.get_vector_store().search(trt.get_embedder(tcfg).embed_query(query), fetch_k, thr)
+    t_emb = trt.get_embedder(tcfg).embed_query(query)
+    t_dense = (trt.get_vector_store().search_batch(t_emb[None], fetch_k, thr)[0] if batched
+               else trt.get_vector_store().search(t_emb, fetch_k, thr))
     j_dense = jrt.get_vector_store().search(jrt.get_embedder(jcfg).embed_query(query),
                                             fetch_k + 1, thr)
     _assert_same_dense(t_dense, j_dense[:fetch_k], cut=len(j_dense) > fetch_k)
@@ -540,15 +544,38 @@ def test_config_reads_the_jax_environment_names():
 
 
 @pytest.mark.parametrize("env,item", [
-    ({"APP_RETRIEVER_BACKEND": "tier"}, "item 8"),
-    ({"APP_RESILIENCE_RETRYMAXATTEMPTS": "5"}, "item 6"),
-    ({"APP_RESILIENCE_FAULTS": "retrieval.search:error@1x0"}, "item 6"),
-    ({"APP_RESILIENCE_BREAKERRECOVERYS": "2.5"}, "item 6"),
+    ({"APP_RETRIEVER_NRURL": "http://nr:8000"}, "no external retriever service"),
+    ({"APP_TEXTSPLITTER_MODELNAME": "bert-base"}, "counts whitespace words"),
+    ({"APP_EMBEDDINGS_CHECKPOINTPATH": "/w"}, "item 10"),
+    ({"APP_RANKING_CHECKPOINTPATH": "/w"}, "item 10"),
     ({"APP_CONFIG_FILE": "/some/app.yaml"}, "APP_CONFIG_FILE"),
 ])
 def test_config_refuses_what_the_port_does_not_serve(env, item):
     with pytest.raises(ValueError, match=item):
         tconfig.AppConfig.from_env(env)
+
+
+@pytest.mark.parametrize("env,section,field,value", [
+    ({"APP_RETRIEVER_BACKEND": "tier"}, "retriever", "backend", "tier"),
+    ({"APP_RETRIEVER_TIERQUEUEDEPTH": "4"}, "retriever", "tier_queue_depth", 4),
+    ({"APP_RETRIEVER_TIERWINDOWMS": "0"}, "retriever", "tier_window_ms", 0),
+    ({"APP_RESILIENCE_RETRYMAXATTEMPTS": "5"}, "resilience", "retry_max_attempts", 5),
+    ({"APP_RESILIENCE_RETRYBASEDELAYMS": "10"}, "resilience", "retry_base_delay_ms", 10),
+    ({"APP_RESILIENCE_RETRYMAXDELAYMS": "100"}, "resilience", "retry_max_delay_ms", 100),
+    ({"APP_RESILIENCE_RETRYJITTER": "0.0"}, "resilience", "retry_jitter", 0.0),
+    ({"APP_RESILIENCE_BREAKERFAILURETHRESHOLD": "2"}, "resilience",
+     "breaker_failure_threshold", 2),
+    ({"APP_RESILIENCE_BREAKERRECOVERYS": "2.5"}, "resilience", "breaker_recovery_s", 2.5),
+    ({"APP_RESILIENCE_FAULTS": "retrieval.search:error@1x0"}, "resilience", "faults",
+     "retrieval.search:error@1x0"),
+])
+def test_config_serves_the_retry_breaker_fault_and_tier_fields(env, section, field, value):
+    """What the port refused until it had retries, breakers, faults and the
+    retrieval tier is read with the JAX names and passes the JAX checks."""
+    cfg = tconfig.AppConfig.from_env(env)
+    assert getattr(getattr(cfg, section), field) == value
+    tvalidate.validate_config(cfg)
+    cfg.resilience.validate()
 
 
 def test_resilience_validation_has_the_jax_messages():

@@ -632,20 +632,86 @@ def test_degraded_warning_frame_and_empty_chain(app_env):
     assert out[1][2] == b'data: {"id":"","choices":[]}\n\n'
 
 
-def test_drain_and_snapshot_routes_answer_501(app_env):
-    server = make_server("127.0.0.1", 0, TEcho)
-    thread = threading.Thread(target=server.serve_forever, name="test-501", daemon=True)
-    thread.start()
-    base = f"http://127.0.0.1:{server.server_address[1]}"
+def test_drain_and_snapshot_routes_answer_501(app_env, tmp_path):
+    """The four drain-lifecycle routes answer with the JAX server's codes
+    and bodies (the name is from when they answered 501): 503 without a
+    live engine; with one, the spool's inventory, 404 for an unknown
+    snapshot, 409 for a document of another version, 422 for a body that
+    is no document, the drain summary, and the resume answer."""
+    from generativeaiexamples_tpu.engine import llm_engine as jllm_engine
+    from generativeaiexamples_tpu.engine import request_snapshot as jsnap
+    from generativeaiexamples_tpu_torch.engine import request_snapshot as tsnap
+
+    routes = lambda: [_Req("POST", "/internal/drain", {}), _Req("GET", "/internal/snapshots"),
+                      _Req("GET", "/internal/snapshots/abc"), _Req("POST", "/internal/restore", {})]
+    out = _both(lambda pkg, ev: TEcho if pkg is PORT else JEcho, routes)
+    assert [status for status, _, _ in out] == [503] * 4
+    assert {json.loads(body)["detail"] for _, _, body in out} == {"no live engine in this process"}
+
+    summary = {"draining": True, "parked": True, "preempted": 0, "spooled": 0,
+               "snapshots": [], "replay_only": 0, "completed": 0}
+
+    class Stub:
+        def __init__(self, spool):
+            self.snapshot_spool = spool
+
+        def drain(self):
+            return dict(summary)
+
+        def resume_from_drain(self):
+            pass
+
+    def make(pkg, events):
+        if pkg is PORT:
+            app_env.setattr(llm_engine, "_ENGINE", Stub(tsnap.SnapshotSpool(str(tmp_path / "t"))))
+            return TEcho
+        app_env.setattr(jllm_engine, "_ENGINE", Stub(jsnap.SnapshotSpool(str(tmp_path / "j"))))
+        return JEcho
+
+    out = _both(make, lambda: [
+        _Req("GET", "/internal/snapshots"), _Req("GET", "/internal/snapshots/nope"),
+        _Req("POST", "/internal/restore", {"version": 0}),
+        _Req("POST", "/internal/restore", {"version": 1}),
+        _Req("POST", "/internal/drain", {}), _Req("POST", "/internal/drain", {"resume": True}),
+    ])
+    assert [status for status, _, _ in out] == [200, 404, 409, 422, 200, 200]
+    bodies = [json.loads(body) for _, _, body in out]
+    assert bodies[0] == {"snapshots": []}
+    assert bodies[1] == {"detail": "snapshot 'nope' not in spool"}
+    assert bodies[3] == {"detail": "body must be a snapshot document"}
+    assert bodies[4:] == [summary, {"draining": False}]
+
+
+def test_admission_and_retrieval_faults_answer_like_jax(app_env, tmp_path):
+    """``resilience.faults`` installed at startup by both servers: an
+    injected error at ``server.admission`` sheds the first /generate (429,
+    ``Retry-After``), and one at ``retrieval.search`` degrades the next
+    developer_rag answer to a warnings frame and the LLM-only answer."""
+    from generativeaiexamples_tpu.chains.developer_rag import QAChatbot as JQA
+    from generativeaiexamples_tpu.utils import faults as jfaults
+    from generativeaiexamples_tpu_torch.chains.developer_rag import QAChatbot as TQA
+    from generativeaiexamples_tpu_torch.utils import faults as tfaults
+
+    app_env.setenv("APP_RESILIENCE_FAULTS", "server.admission:error@1;retrieval.search:error@1")
+    app_env.setenv("APP_VECTORSTORE_PERSISTDIR", str(tmp_path / "store"))
+    jruntime.reset_runtime()
+    truntime.reset_runtime()
+    truntime.set_device("cpu")
     try:
-        for method, path in [("POST", "/internal/drain"), ("GET", "/internal/snapshots"),
-                             ("GET", "/internal/snapshots/abc"), ("POST", "/internal/restore")]:
-            status, _, body = _port_request(base, _Req(method, path, {}))
-            assert status == 501 and "ROADMAP queue 1 item 8" in json.loads(body)["detail"]
+        out = _both(lambda pkg, ev: TQA if pkg is PORT else JQA,
+                    lambda: [_gen("hello there"), _gen("what is the answer", kb=True)])
+        assert out[0][0] == 429 and out[0][1]["Retry-After"] == "1"
+        assert json.loads(out[0][2]) == {"detail": "server overloaded (fault_injected); retry later"}
+        frames = _frames(out[1][2])
+        assert frames[0]["warnings"][0].startswith("retrieval_degraded: FaultInjected")
+        assert frames[-1]["choices"][0]["finish_reason"] == "[DONE]"
+        assert tfaults.call_count("retrieval.search") == 1
     finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(30)
+        jfaults.reset()
+        tfaults.reset()
+        jruntime.reset_runtime()
+        truntime.reset_runtime()
+        truntime.set_device(None)
 
 
 # --------------------------------------------------------------------------- #

@@ -6,6 +6,9 @@ JAX package's config/validate.py, on the same ``APP_*`` environment:
   started on 14 of them before the repair), then one bad value for each
   other check the port copies: ``make_server`` and JAX's
   ``validate_config`` both refuse, with equal messages;
+- the resilience section's checks and the fault spec's install refuse
+  as the JAX server's ``create_app`` does, and the retrieval tier needs
+  the in-process store;
 - both accept the defaults, a structured-data deployment that names its
   own ``llm.model_name_pandas_ai``, and the deployments of
   ``chip_smoke.py`` (phase 7's ``RAG_ENV`` and phase 8's chains over a
@@ -72,6 +75,28 @@ OTHER_CHECKS = [
     ("APP_ENGINE_STREAMTIMEOUTS", "0"),
     ("APP_ENGINE_MAXQUEUEDREQUESTS", "3"),
     ("APP_ENGINE_WATCHDOGSTALLS", "-1"),
+    # the retrieval tier, the scheduler and the drain
+    ("APP_RETRIEVER_BACKEND", "bogus"),
+    ("APP_RETRIEVER_TIERQUEUEDEPTH", "-1"),
+    ("APP_RETRIEVER_TIERWINDOWMS", "-1"),
+    ("APP_ENGINE_SCHEDULERPOLICY", "bogus"),
+    ("APP_ENGINE_HANDOFFQUEUEDEPTH", "-1"),
+    ("APP_ENGINE_DRAINTIMEOUTS", "0"),
+    ("APP_ENGINE_SNAPSHOTSPOOLDIR", ""),
+    ("APP_ENGINE_SNAPSHOTSPOOLMAX", "0"),
+]
+# one bad value for each check of the resilience section (utils/resilience.py)
+RESILIENCE_CHECKS = [
+    ("APP_RESILIENCE_ENABLE", "maybe"),
+    ("APP_RESILIENCE_RETRYMAXATTEMPTS", "0"),
+    ("APP_RESILIENCE_RETRYBASEDELAYMS", "-1"),
+    ("APP_RESILIENCE_RETRYMAXDELAYMS", "-1"),
+    ("APP_RESILIENCE_RETRYJITTER", "1.5"),
+    ("APP_RESILIENCE_BREAKERFAILURETHRESHOLD", "0"),
+    ("APP_RESILIENCE_BREAKERRECOVERYS", "0"),
+    ("APP_RESILIENCE_FAULTS", "nocolon"),
+    ("APP_RESILIENCE_FAULTS", "retrieval.search:bogus@1"),
+    ("APP_RESILIENCE_FAULTS", "retrieval.search:error@0"),
 ]
 
 
@@ -102,6 +127,40 @@ def test_make_server_refuses_what_jax_refuses(env, name, value):
     with pytest.raises(ValueError) as got:
         _port_starts()
     assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("name,value", RESILIENCE_CHECKS,
+                         ids=[f"{n}={v!r}" for n, v in RESILIENCE_CHECKS])
+def test_make_server_refuses_bad_resilience_values_like_jax(env, name, value):
+    """The resilience section's checks and the fault spec's install: the
+    JAX server's ``create_app`` and the port's ``make_server`` refuse with
+    equal messages."""
+    from generativeaiexamples_tpu.chains.echo import EchoChain as JEcho
+    from generativeaiexamples_tpu.server import api as japi
+    from generativeaiexamples_tpu.utils import faults as jfaults
+    from generativeaiexamples_tpu_torch.utils import faults as tfaults
+
+    env.setenv(name, value)
+    try:
+        with pytest.raises(ValueError) as want:
+            japi.create_app(JEcho)
+        with pytest.raises(ValueError) as got:
+            _port_starts()
+    finally:
+        jfaults.reset()
+        tfaults.reset()
+    assert str(got.value) == str(want.value)
+
+
+def test_tier_needs_the_in_process_store_like_jax(env):
+    env.setenv("APP_RETRIEVER_BACKEND", "tier")
+    env.setenv("APP_VECTORSTORE_NAME", "milvus")
+    with pytest.raises(ValueError) as want:
+        jvalidate(jget_config())
+    with pytest.raises(ValueError) as got:
+        _port_starts()
+    assert str(got.value) == str(want.value)
+    assert "retriever.backend=tier requires" in str(got.value)
 
 
 @pytest.mark.parametrize("deployment", ["defaults", "pandas_model", "rag", "chains_remote"])

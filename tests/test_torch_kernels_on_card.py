@@ -455,6 +455,41 @@ def _bert_inputs(gen, device, lengths, T, vocab=256):
     return ids, mask
 
 
+@pytest.mark.parametrize("kv", ["bfloat16", "int8", "int4"])
+def test_restore_payload_scatters_into_the_pool_bitwise(card, kv):
+    """A drain's page payload (engine/request_snapshot.py: read back from
+    the pool, encoded, decoded) scattered into other pages of a pool of
+    each dtype, as a restore does (``index_copy_`` on the pool and its
+    scale planes), reads back bitwise."""
+    from generativeaiexamples_tpu_torch.engine import request_snapshot as rs
+
+    cfg = llama.PRESETS["debug"]
+    quantized, packed = kv != "bfloat16", kv == "int4"
+    pool = llama.init_kv_pool(cfg, 12, 16, torch.bfloat16, card, quantized=quantized,
+                              packed=packed)
+    gen = torch.Generator(device=card).manual_seed(3)
+    for layer in pool:
+        for key, t in layer.items():
+            if t.dtype.is_floating_point:
+                t.copy_(torch.randn(t.shape, generator=gen, device=card).to(t.dtype))
+            else:
+                info = torch.iinfo(t.dtype)
+                t.copy_(torch.randint(info.min, info.max + 1, t.shape, generator=gen,
+                                      device=card, dtype=torch.int32).to(t.dtype))
+    engine = types.SimpleNamespace(_cache=pool, device=card)
+    src, dst = [3, 5, 9], [7, 1, 10]
+    payload = rs.decode_kv_payload(rs.encode_kv_payload(rs.read_pages(engine, src)))
+    idx = torch.tensor(dst, dtype=torch.long, device=card)
+    for layer, upload in zip(pool, payload):
+        for key, arr in upload.items():
+            layer[key].index_copy_(0, idx, arr.to(card))
+    torch.cuda.synchronize()
+    for a, b in zip(rs.read_pages(engine, src), rs.read_pages(engine, dst)):
+        for key in a:
+            assert a[key].dtype == b[key].dtype
+            assert a[key].reshape(-1).view(torch.uint8).equal(b[key].reshape(-1).view(torch.uint8))
+
+
 def test_bert_encoder_on_the_card_matches_the_cpu(card):
     """arctic-embed-l's width at 2 layers: the card's f32 path equals the
     CPU's within 1e-5 (no TF32 anywhere), its bf16 path within cosine

@@ -7,6 +7,7 @@ each f32 as its exact double)."""
 import dataclasses
 import json
 import logging
+import re
 import threading
 import time
 import urllib.error
@@ -235,7 +236,7 @@ def test_each_jax_engine_variable_has_the_jax_default(env):
 
 @pytest.mark.parametrize("env,value,item", [
     ("APP_ENGINE_CHECKPOINTPATH", "/w", "queue 1 item 10"),
-    ("APP_ENGINE_SCHEDULERPOLICY", "disagg", "queue 1 item 8"),
+    ("APP_ENGINE_PIPELINEPARALLELISM", "2", "queue 1 item 9"),
     ("APP_ENGINE_SPECDECODEENABLE", "on", "queue 1 item 5"),
 ])
 def test_from_env_refuses_what_the_port_does_not_serve(env, value, item):
@@ -260,12 +261,38 @@ def test_from_env_logs_xla_only_variables_once_and_ignores_them(monkeypatch, cap
 @pytest.mark.parametrize("env,value", sorted(
     [(EngineConfig.env_name(name), str(spec[0])) for name, spec in JAX_ONLY_FIELDS.items()]
     + [("APP_ENGINE_TENSORPARALLELISM", "1"), ("APP_ENGINE_PREFIXCACHEENABLE", "auto"),
-       ("APP_ENGINE_PREFIXCACHESLOTS", "4")]
+       ("APP_ENGINE_PREFIXCACHESLOTS", "4"), ("APP_ENGINE_DRAINTIMEOUTS", "30.0"),
+       ("APP_ENGINE_SNAPSHOTSPOOLDIR", "/tmp/genai_snapshots"),
+       ("APP_ENGINE_SNAPSHOTSPOOLMAX", "64"), ("APP_ENGINE_SCHEDULERPOLICY", "unified"),
+       ("APP_ENGINE_HANDOFFQUEUEDEPTH", "0")]
 ))
 def test_from_env_accepts_jax_defaults_and_what_it_serves_as_it_is(env, value):
-    """At its JAX default a variable changes nothing, the prefix cache's
-    two included; so does one card's tensor parallelism."""
+    """At its JAX default a variable changes nothing, the prefix cache's,
+    the drain's and the scheduler's fields included; so does one card's
+    tensor parallelism."""
     assert EngineConfig.from_env({env: value}) == EngineConfig()
+
+
+def test_from_env_serves_the_drain_and_scheduler_fields():
+    """The drain, snapshot-spool and scheduler fields read the JAX names,
+    away from their defaults too, and their bad values are refused."""
+    env = {
+        "APP_ENGINE_DRAINTIMEOUTS": "5.5", "APP_ENGINE_SNAPSHOTSPOOLDIR": "/spool",
+        "APP_ENGINE_SNAPSHOTSPOOLMAX": "3", "APP_ENGINE_SCHEDULERPOLICY": "disagg",
+        "APP_ENGINE_HANDOFFQUEUEDEPTH": "2",
+    }
+    mine = EngineConfig.from_env(env)
+    assert (mine.drain_timeout_s, mine.snapshot_spool_dir, mine.snapshot_spool_max,
+            mine.scheduler_policy, mine.handoff_queue_depth) == (5.5, "/spool", 3, "disagg", 2)
+    mine.validate()
+    for field, value, message in [
+        ("scheduler_policy", "pd", "engine.scheduler_policy must be unified|disagg, got 'pd'"),
+        ("handoff_queue_depth", -1, "engine.handoff_queue_depth must be >= 0"),
+        ("drain_timeout_s", 0.0, "drain_timeout_s must be > 0"),
+        ("snapshot_spool_max", 0, "snapshot_spool_max must be >= 1"),
+    ]:
+        with pytest.raises(ValueError, match=re.escape(message)):
+            dataclasses.replace(mine, **{field: value}).validate()
 
 
 def test_server_engine_comes_from_the_env(monkeypatch):
