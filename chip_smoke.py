@@ -10,13 +10,17 @@ Phases (each one's failure makes the script exit non-zero):
 3. each kernel against its plain PyTorch version at the serving path's
    shapes for llama3-8b, with its time, the plain version's, one library
    call's as a yardstick, and its bound: int8_matmul and int8_w8a8_matmul
-   at the four projections and the lm_head (M = 1 and 8; int8_matmul also
-   at M = 4 and 16, untimed; int8_w8a8_matmul also at M = 16 and 128 and
-   with f32 x, timed), paged_attention over bf16, int8 and int4
-   pools (ragged, uniform, short and split-edge rows),
+   at the four projections and the lm_head (M = 1, 8 and the spec
+   verify's 72; int8_matmul also at M = 4 and 16, untimed;
+   int8_w8a8_matmul also at M = 16 and 128 and with f32 x, timed),
+   paged_attention over bf16, int8 and int4 pools (ragged, uniform, short
+   and split-edge rows, and the verify's T = 9, 5, 3 and 2 query rows a
+   slot),
    flash_attention_causal at (2, 512) and (2, 300), decode_attention over
    the fixed layout's int8 cache (ragged, uniform, short and split-edge
-   slots);
+   slots); then ``sample_tokens`` (no kernel of the port) at 8 and 72
+   seeded nucleus rows x 128,256, timed with each way of ranking the
+   nucleus, the int64-key top-k's order held to a stable sort's;
 4. model level at full llama3-8b width and depth (int8 packs, random from
    a seed), for each paged serving recipe (int8 weights + bf16 KV, w8a8 +
    int8 KV, int8 weights + int4 KV) and for the fixed layout (int8 weights
@@ -186,6 +190,35 @@ Phases (each one's failure makes the script exit non-zero):
    without the long prompts, the retrieval tier's dispatches a wave and
    the phase wall.
 
+12. spec: speculative decoding at full llama3-8b width and depth (int8
+   packs at seed 0, shared by the recipes; ``max_batch_size`` 8,
+   ``max_seq_len`` 8192, page 128, ``prefill_chunk`` 512, ``decode_block``
+   8, ``spec_draft_len`` 8), after phase 9: one engine a recipe, its legs
+   toggled at runtime (the JAX bench's ``_spec_decode_pass``). Recipe A
+   runs ``off``, ``lookup``, ``draft_model`` (``llama3-1b-proxy``, random
+   at seed 0, bf16 draft KV), ``lookup`` with the pipeline off and
+   ``draft_target`` (a llama3-8b draft whose dense bf16 weights are the
+   target's packs dequantized, so that it accepts), on the ``copy_heavy``
+   ramp (512 ids) and the ``normal`` walk (768 ids, chunked); B, C and D
+   run ``off`` and ``lookup`` on ``copy_heavy``. A leg is a set of
+   concurrent greedy requests a prompt set (A: 6 of 96 tokens; B, C, D: 4
+   of 64), then one seeded request (temperature 0.7, top_p 0.8, seed 1234,
+   24 tokens). Every leg's streams equal the ``off`` leg's, or part from
+   them only at a token whose top-1 margin is within ``LOGITS_TOL``;
+   lookup accepts drafts on ``copy_heavy``; the draft-model legs dispatch
+   the draft and ``draft_target`` accepts in every set; the dispatch
+   thread's only synchronizing calls are the spec read backs. It prints
+   per recipe and leg the tokens a target dispatch, the acceptance rate,
+   the draft-dispatch share, the wall step (the host clock over the
+   decode of the greedy requests), the device step and idle share (the
+   union of the device's events in torch.profiler's CUDA trace of that
+   window, for each leg's first set but the 1b draft's; not measured
+   where the trace lost port kernels; the phase fails if it exceeds the
+   window's wall), TTFT, the launches and the shapes they ran at (the
+   verify's query rows, the matmuls' M), A's ``off`` set again untraced
+   (the trace's cost), and the provenance: the weights are random, so
+   acceptance is not a calibrated draft's.
+
 With no arguments it runs every phase, as above; ``--phases``,
 ``--checks`` and ``--recipes`` run a part (for example ``--phases serve
 --recipes B``, ``--phases chains``, ``--phases filechains`` or ``--phases
@@ -287,12 +320,12 @@ class Timer:
     def __init__(self, device):
         self.flush = torch.zeros(64 * 1024 * 1024, dtype=torch.uint8, device=device)
 
-    def ms(self, fn, iters: int = 15, warmup: int = 2) -> float:
+    def ms(self, fn, iters: int = 15, warmup: int = 2, spin: int = 2_000_000) -> float:
         for _ in range(warmup):
             fn()
         times = []
         for _ in range(iters):
-            torch.cuda._sleep(2_000_000)
+            torch.cuda._sleep(spin)
             # evict by reading: a write would leave ~50 MB of dirty lines
             # whose write-back then competes with the timed call
             self.flush.max()
@@ -386,6 +419,8 @@ def check_int8(timer, dev, gen, results) -> None:
                 agg["library_ms"] += l_ms
                 agg["bytes"] += nbytes
                 agg["flops"] += flops
+            if M == 8:
+                _check_int8_verify_rows(timer, dev, gen, name, K, F, q, scale, w, per_shape, agg)
             # a padded and a two-group M on the widest-K and a narrow-F shape,
             # correctness only
             if M == 8 and name in ("wqkv", "w_down"):
@@ -409,6 +444,36 @@ def check_int8(timer, dev, gen, results) -> None:
         "shape": "one layer's wqkv+wo+w_gateup+w_down at M=8",
         "per_shape": per_shape,
     }
+
+
+# the spec verify's rows: 8 slots x (spec_draft_len 8 + 1)
+VERIFY_M = 72
+
+
+def _check_int8_verify_rows(timer, dev, gen, name, K, F, q, scale, w, per_shape, agg) -> None:
+    """int8_matmul at the verify's M = 72 rows on one shape, timed with its
+    plain version, ``torch.matmul`` on the dequantized bf16 weight and its
+    bound."""
+    M = VERIFY_M
+    x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+    y = im.int8_matmul(x, q, scale)
+    ref = im.int8_matmul_plain(x, q, scale)
+    torch.cuda.synchronize()
+    err, tol = _max_err(y, ref), 1e-2 * float(ref.float().abs().max())
+    k_ms = timer.ms(lambda: im.int8_matmul(x, q, scale))
+    p_ms = timer.ms(lambda: im.int8_matmul_plain(x, q, scale), iters=5)
+    l_ms = timer.ms(lambda: torch.matmul(x, w))
+    nbytes, flops = hardware.int8_matmul_cost(M, K, F)
+    b_ms, b_by = hardware.bound_ms(nbytes, flops)
+    ok = err <= tol
+    log(f"  int8_matmul {name:8s} M={M} K={K} F={F} (verify rows): max|err|={err:.4g} tol={tol:.4g} "
+        f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} bound_ms={b_ms:.4f} "
+        f"({b_by}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"int8_matmul {name} M={M} disagrees with its plain version")
+    agg["err"] = max(agg["err"], err)
+    per_shape[f"{name}_M{M}"] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                                 "bound_ms": b_ms, "bound_by": b_by}
 
 
 def _paged_case(gen, dev, positions, Pmax, page, Hkv, Dh):
@@ -521,6 +586,7 @@ def check_paged(timer, dev, gen, results) -> None:
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
             }
         del k, v
+    _check_paged_verify(timer, dev, gen, cfg, rows)
     for kv_dtype, by_case in rows.items():
         results[f"paged_attention[{kv_dtype}]"] = {
             **by_case["ragged"],
@@ -528,17 +594,94 @@ def check_paged(timer, dev, gen, results) -> None:
             "max_rel_err": max(r["max_rel_err"] for r in by_case.values()),
             "shape": f"B=8 decode rows over ragged tables, Hq=32 Hkv=8 Dh=128 page=128, "
                      f"{kv_dtype} pool",
-            **{case: {**r, "positions": cases[case]} for case, r in by_case.items() if case != "ragged"},
+            **{case: {**r, **({"positions": cases[case]} if case in cases else {})}
+               for case, r in by_case.items() if case != "ragged"},
         }
+
+
+# the spec verify's query rows a slot: K + 1 at spec_draft_len 8, then the
+# adaptive-K ladder's 4, 2 and 1
+VERIFY_T = (9, 5, 3, 2)
+
+
+def _check_paged_verify(timer, dev, gen, cfg, rows) -> None:
+    """paged_attention at the spec verify's T = K + 1 query rows a slot,
+    for each pool: 8 rows whose chunks end at their live lengths (a dead
+    row, a chunk crossing the page edge at 256, one crossing a split edge,
+    short serving rows, the table's last row), timed against the plain
+    version, SDPA over the pre-gathered windows with a causal length mask,
+    and the bound."""
+    from generativeaiexamples_tpu_torch.models.llama import quantize_kv, quantize_kv_int4, unpack_int4
+
+    B, page, Pmax = 8, 128, 8192 // 128
+    Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    S = Pmax * page
+    st = pa.split_plan(Pmax, page)[0]
+    for T in VERIFY_T:
+        # each row's last query position (its live length - 1); row 0 dead
+        last = [0, 2 * page + T // 2 - 1, st + 1, 131, 157, 176, 1000, S - 1]
+        k, v, tables, _ = _paged_case(gen, dev, last, Pmax, page, Hkv, Dh)
+        first = [0] + [p - (T - 1) for p in last[1:]]
+        pos = torch.tensor(first, dtype=torch.int32, device=dev)
+        q = torch.randn((B, T, Hq, Dh), generator=gen, device=dev).to(torch.bfloat16)
+        q_pos = torch.clamp(pos.long()[:, None] + torch.arange(T, device=dev)[None, :], max=S - 1)
+        mask = (torch.arange(S, device=dev)[None, None, :] <= q_pos[:, :, None])[:, None]
+        qt = q.transpose(1, 2)
+        for kv_dtype in pa.KV_DTYPES:
+            codec = {"int8": quantize_kv, "int4": quantize_kv_int4}.get(kv_dtype)
+            if codec is None:
+                pool, scales, dense = (k, v), (None, None), (k, v)
+            else:
+                (kq, ks), (vq, vs) = codec(k), codec(v)
+                pool, scales = (kq, vq), (ks, vs)
+                ints = [unpack_int4(t) if t.dtype == torch.uint8 else t for t in pool]
+                dense = tuple((i.float() * sc[..., None]).to(torch.bfloat16)
+                              for i, sc in zip(ints, scales))
+            args = (q, *pool, tables, pos, *scales)
+            out = pa.paged_attention(*args)
+            ref = pa.paged_attention_plain(*args)
+            torch.cuda.synchronize()
+            err = _max_err(out, ref)
+            rel = _per_row_rel_err(out.flatten(0, 1), ref.flatten(0, 1))
+            tol, rel_tol = 1e-2, 0.05  # as the decode rows: f32 inside, one bf16 rounding
+            if not bool(torch.isfinite(out.float()).all()):
+                raise AssertionError(f"paged_attention[{kv_dtype}] verify T={T}: non-finite values")
+            k_ms = timer.ms(lambda: pa.paged_attention(*args))
+            p_ms = timer.ms(lambda: pa.paged_attention_plain(*args), iters=5)
+            gk, gv = (t[tables.long()].reshape(B, S, Hkv, Dh).transpose(1, 2).contiguous()
+                      for t in dense)
+            l_ms = timer.ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, gk, gv, attn_mask=mask, enable_gqa=True))
+            del gk, gv
+            nbytes, flops = hardware.paged_attention_cost(
+                [[min(p + t, S - 1) for t in range(T)] for p in first], Hq, Hkv, Dh, Pmax,
+                kv_bytes=hardware.kv_bytes_per_element(kv_dtype),
+                scale_bytes=0 if codec is None else 4,
+            )
+            b_ms, b_by = hardware.bound_ms(nbytes, flops)
+            ok = err <= tol and rel <= rel_tol
+            log(f"  paged_attention[{kv_dtype}] verify T={T} B={B} last={last}: max|err|={err:.4g} "
+                f"tol={tol} max per-row |err|/rms={rel:.4g} tol={rel_tol} kernel_ms={k_ms:.4f} "
+                f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"paged_attention[{kv_dtype}] verify T={T} disagrees with "
+                                     f"its plain version")
+            rows[kv_dtype][f"verify_T{T}"] = {
+                "max_abs_err": err, "max_rel_err": rel, "ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms, "last": last,
+            }
+        del k, v
 
 
 def check_w8a8(timer, dev, gen, results) -> None:
     """int8_w8a8_matmul (one launch, its quantizer inside) at the four fused
     projections and the lm_head, bitwise against its plain version (exact
     int32 sums and the same f32 quantizer on both sides) with bf16 x at
-    M = 1, 8, 16 and 128 and f32 x at M = 8, every case timed; at M = 1 and
-    8 also the plain version, the ``torch._int_mm`` yardstick and
-    ``int8_matmul`` on the same pack, which streams the same bytes."""
+    M = 1, 8, 16, 72 and 128 and f32 x at M = 8, every case timed; at M = 1 and
+    8 and at the spec verify's M = 72 also the plain version, the
+    ``torch._int_mm`` yardstick and ``int8_matmul`` on the same pack,
+    which streams the same bytes."""
     from generativeaiexamples_tpu_torch.models.llama import PRESETS
 
     cfg = PRESETS[MODEL]
@@ -551,7 +694,7 @@ def check_w8a8(timer, dev, gen, results) -> None:
         "lm_head": (h, cfg.vocab_size),
     }
     cases = ((1, torch.bfloat16), (8, torch.bfloat16), (16, torch.bfloat16),
-             (128, torch.bfloat16), (8, torch.float32))
+             (VERIFY_M, torch.bfloat16), (128, torch.bfloat16), (8, torch.float32))
     agg = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "int8_matmul_ms": 0.0, "bytes": 0,
            "flops": 0, "err": 0.0}
     per_shape = {}
@@ -574,7 +717,7 @@ def check_w8a8(timer, dev, gen, results) -> None:
             label = f"{name}_M{M}" + ("_f32" if dtype == torch.float32 else "")
             row = {"ms": k_ms, "bound_ms": b_ms}
             extra = ""
-            if M <= 8 and dtype == torch.bfloat16:
+            if (M <= 8 or M == VERIFY_M) and dtype == torch.bfloat16:
                 row["plain_ms"] = timer.ms(lambda: im.int8_w8a8_matmul_plain(x, q, scale), iters=5)
                 # yardstick: cuBLAS int8 x int8 -> int32 on the quantized
                 # rows, padded to _int_mm's least M (17)
@@ -732,6 +875,56 @@ CHECKS = {"int8": check_int8, "w8a8": check_w8a8, "paged": check_paged, "flash":
           "decode": check_decode}
 
 
+SAMPLE_ROWS = (8, 72)  # a decode step's rows; a verify's B x (K + 1)
+
+
+def time_sampling(timer, dev) -> dict:
+    """``sample_tokens`` on the card at a decode step's 8 rows and a
+    verify's 72, x 128,256 f32 logits, every row seeded nucleus (top_p
+    0.8): its time with each way of ranking the nucleus' top 64
+    (``nucleus_top_k``, the int64-key top-k; ``torch.topk``, whose order
+    among tied values is not JAX's; a stable sort of the whole row), the
+    ranking alone, and the key's order held to the stable sort's on tied
+    logits. No kernel of the port: the ranking's cost on the main path."""
+    from generativeaiexamples_tpu_torch.models import sampling
+
+    ways = {
+        "key_topk": sampling.nucleus_top_k,
+        "torch_topk": lambda x, K: torch.topk(x, K, dim=-1),
+        "stable_sort": lambda x, K: tuple(
+            t[..., :K] for t in torch.sort(x, dim=-1, descending=True, stable=True)),
+    }
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    saved = sampling.nucleus_top_k
+    try:
+        for R in SAMPLE_ROWS:
+            logits = torch.randn((R, 128256), generator=gen, device=dev) * 3.0
+            tied = torch.round(logits * 4.0) / 4.0  # exact ties inside the top 64
+            want = ways["stable_sort"](tied, 64)
+            got = sampling.nucleus_top_k(tied, 64)
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise AssertionError(f"sampling R={R}: the key's order is not the stable sort's")
+            temp = torch.full((R,), 0.7, device=dev)
+            top_p = torch.full((R,), 0.8, device=dev)
+            keys = sampling.sample_keys(torch.arange(R, device=dev) + 1234,
+                                        torch.arange(R, device=dev) + 600)
+            row = {}
+            for name, way in ways.items():
+                sampling.nucleus_top_k = way
+                row[f"sample_{name}_ms"] = timer.ms(
+                    lambda: sampling.sample_tokens(logits, temp, top_p, keys), spin=50_000_000)
+                row[f"rank_{name}_ms"] = timer.ms(lambda: way(logits, 64))
+                sampling.nucleus_top_k = saved
+            out[f"R{R}"] = row
+            log(f"  sample_tokens at {R} x 128256, seeded nucleus: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in row.items())
+                + " ms; the key's order equals the stable sort's on tied logits")
+    finally:
+        sampling.nucleus_top_k = saved
+    return out
+
+
 def phase_kernels(dev, checks=tuple(CHECKS)) -> dict:
     timer = Timer(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -740,6 +933,7 @@ def phase_kernels(dev, checks=tuple(CHECKS)) -> dict:
     log(f"  timer floor (one 16-element add_, the same timing): {timer.ms(lambda: one.add_(1)):.4f} ms")
     for name in checks:
         CHECKS[name](timer, dev, gen, results)
+    results["sampling"] = time_sampling(timer, dev)
     del timer
     torch.cuda.empty_cache()
     log(f"  launches in this phase (checks and timing, not the serving path): {counts()}")
@@ -1039,13 +1233,19 @@ class SyncCounter:
     """Counts PyTorch's synchronizing CUDA calls by thread name while it is
     entered: ``torch.cuda.set_sync_debug_mode("warn")`` makes each one (a
     blocking copy either way, ``.item()``, ``.cpu()``, a stream or device
-    synchronize) warn in the thread that made it. Entering also checks
-    that a probe thread's ``.item()`` is counted."""
+    synchronize) warn in the thread that made it. ``kinds`` counts them by
+    (thread, kind), the kind being the one the engine declared for the
+    call (``spec_decode.allowed_sync``: speculative decoding's read backs)
+    or None. Entering also checks that a probe thread's ``.item()`` is
+    counted."""
 
     _MESSAGE = "synchronizing"
 
     def __enter__(self):
+        from generativeaiexamples_tpu_torch.engine.spec_decode import sync_kind
+
         self.counts = collections.Counter()
+        self.kinds = collections.Counter()
         self._catch = warnings.catch_warnings()
         self._catch.__enter__()
         warnings.filterwarnings("always", message=f".*{self._MESSAGE}")
@@ -1054,6 +1254,7 @@ class SyncCounter:
         def show(message, category, filename, lineno, file=None, line=None):
             if self._MESSAGE in str(message):
                 self.counts[threading.current_thread().name] += 1
+                self.kinds[(threading.current_thread().name, sync_kind())] += 1
             else:
                 shown(message, category, filename, lineno, file, line)
 
@@ -4068,11 +4269,369 @@ def phase_drain(dev, smi, seed=0, dep=None, encoders=None) -> dict:
     return out
 
 
+# --------------------------------------------------------------------- #
+# Phase 12: speculative decoding
+
+# recipe A: 6 concurrent greedy requests of 96 tokens a prompt set, then
+# one seeded request of 24 tokens outside the timed window (the JAX
+# bench's _spec_decode_pass, its requests run together here); B, C and D
+# (one verify each on another pool or layout) 4 requests of 64 tokens
+SPEC_TRAFFIC = {"A": (6, 96), "B": (4, 64), "C": (4, 64), "D": (4, 64)}
+SPEC_SEEDED_TOKENS = 24
+SPEC_DRAFT_MODEL = "llama3-1b-proxy"
+# recipe -> (legs, prompt sets); a leg is (name, proposer or None for off,
+# pipelined). A's draft_target leg drafts with llama3-8b whose dense
+# weights are the target's packs dequantized (_target_draft): that draft
+# accepts, so the draft runtime's catch-up, frontier and rewind are held
+# to the off streams, where the random 1b-proxy's drafts are all rejected
+_SPEC_LEGS_A = (("off", None, True), ("lookup", "lookup", True),
+                ("draft_model", "draft_model", True), ("lookup_sync", "lookup", False),
+                ("draft_target", "draft_model", True))
+_SPEC_LEGS = (("off", None, True), ("lookup", "lookup", True))
+SPEC_PLAN = {"A": (_SPEC_LEGS_A, ("copy_heavy", "normal")), "B": (_SPEC_LEGS, ("copy_heavy",)),
+             "C": (_SPEC_LEGS, ("copy_heavy",)), "D": (_SPEC_LEGS, ("copy_heavy",))}
+SPEC_PROVENANCE = ("uncalibrated: weights_random_init on target/draft - acceptance reflects "
+                   "weight coincidence, not a trained draft")
+
+
+def _spec_prompt(set_name: str, r: int) -> list:
+    """Request ``r`` of a prompt set: ``copy_heavy``, the arithmetic ramp
+    (512 ids, one chunk: the monolithic prefill) whose greedy decode
+    settles into the self-repetition lookup drafts; ``normal``, the
+    non-repeating walk over 768 ids (the chunked prefill). Request 0 is
+    the JAX bench's prompt, the others shift it by ``r``."""
+    if set_name == "copy_heavy":
+        return [3 + 10 * i + r for i in range(512)]
+    return [(i * 37 + (i * i) % 91 + r) % 199 + 1 for i in range(768)]
+
+
+class _ShapeLog:
+    """Records the shapes the serving path launches the kernels at while
+    entered: each paged_attention launch's query rows a slot by pool, each
+    int8 matmul launch's M (``pa._launch``, ``im._launch`` and
+    ``im._launch_w8a8`` wrapped)."""
+
+    _KV = {torch.bfloat16: "bfloat16", torch.int8: "int8", torch.uint8: "int4"}
+
+    def __enter__(self):
+        self.paged, self.int8, self.w8a8 = (collections.Counter() for _ in range(3))
+        self._saved = (pa._launch, im._launch, im._launch_w8a8)
+        orig_pa, orig_i8, orig_w8 = self._saved
+
+        def pa_launch(q, k, *args):
+            self.paged[(self._KV[k.dtype], q.shape[1])] += 1
+            return orig_pa(q, k, *args)
+
+        def i8_launch(x2, *args):
+            self.int8[x2.shape[0]] += 1
+            return orig_i8(x2, *args)
+
+        def w8_launch(x2, *args):
+            self.w8a8[x2.shape[0]] += 1
+            return orig_w8(x2, *args)
+
+        pa._launch, im._launch, im._launch_w8a8 = pa_launch, i8_launch, w8_launch
+        return self
+
+    def __exit__(self, *exc):
+        pa._launch, im._launch, im._launch_w8a8 = self._saved
+        return False
+
+
+class _DeviceWindow:
+    """torch.profiler's CUDA trace of a timed window (``trace``; else the
+    wall clock alone). The trace runs from ``__enter__`` to a device
+    synchronize at ``__exit__``: ``wall_ms`` is the host clock over it,
+    ``busy_ms`` the union of its device events (a kernel launched before
+    it opened is not in it) and ``events`` their count. Both None (not
+    measured) where the trace holds fewer of the port's kernels than its
+    wrappers launched meanwhile: CUPTI can drop every event of a
+    session."""
+
+    def __init__(self, trace: bool = True):
+        self.trace = trace
+        self.wall_ms = self.busy_ms = self.events = None
+
+    def __enter__(self):
+        self._prof = None
+        if self.trace:
+            from torch.profiler import ProfilerActivity, profile
+
+            self._prof = profile(activities=[ProfilerActivity.CUDA])
+            self._prof.__enter__()
+        self._launched = sum(counts().values())
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        launched = sum(counts().values()) - self._launched
+        torch.cuda.synchronize()  # every launch of the window is in the trace
+        self.wall_ms = (time.perf_counter() - self._t0) * 1e3
+        if self._prof is None:
+            return False
+        self._prof.__exit__(*exc)
+        if exc[0] is not None:
+            return False
+        cuda = torch.autograd.DeviceType.CUDA
+        events = [(e.name(), e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3)
+                  for e in self._prof.profiler.kineto_results.events() if e.device_type() == cuda]
+        port = sum(1 for name, _, _ in events if _PORT_KERNEL_NAMES.search(name))
+        if port < launched:
+            log(f"    device trace: not measured (it holds {port} port kernels of the {launched} "
+                f"launched, {len(events)} device events)")
+            return False
+        self.busy_ms, self.events = _busy_ms([(a, b) for _, a, b in events]), len(events)
+        return False
+
+
+def _spec_set(engine, name, leg, set_name, trace=True) -> dict:
+    """One prompt set on one leg: the recipe's greedy requests together
+    (their decode timed on the host clock from the moment each has its
+    first token, the device traced over that window), then the seeded
+    request alone."""
+    from generativeaiexamples_tpu_torch.engine.llm_engine import SamplingParams
+
+    n_req, n_tok = SPEC_TRAFFIC[name]
+    prompts = [_spec_prompt(set_name, r) for r in range(n_req)]
+    greedy = SamplingParams(temperature=0.0, max_tokens=n_tok)
+    seeded = SamplingParams(temperature=0.7, top_p=0.8, max_tokens=SPEC_SEEDED_TOKENS, seed=1234)
+    s0 = engine.stats()
+    n_ttft = len(engine._ttft)
+    with engine.hold_admissions():
+        reqs = [engine.submit(p, greedy) for p in prompts]
+    deadline = time.time() + 600
+    while not all(r.generated >= 1 or r.finished for r in reqs):
+        if time.time() > deadline:
+            raise AssertionError(f"spec {name} {leg} {set_name}: no first tokens in 600 s")
+        time.sleep(0.001)
+    with _DeviceWindow(trace) as win:
+        s1 = engine.stats()
+        for r in reqs:
+            _drain_ids(r.out_queue)
+        s2 = engine.stats()
+    outs = [list(r.emitted) for r in reqs]  # the stop token included, as emitted
+    ttft = list(engine._ttft)[n_ttft:]
+    _settle(engine)
+    sampled = [list(engine.iter_ids(prompts[0], seeded, timeout=600))]
+    s3 = engine.stats()
+
+    def d(key, a=s0, b=s3):
+        return b[key] - a[key]
+
+    dispatches = d("decode_dispatches", s1, s2)
+    busy = win.busy_ms
+    if busy is not None and busy > win.wall_ms:
+        raise AssertionError(f"spec {name} {leg} {set_name}: the device was busy {busy:.3f} ms "
+                             f"in a window of {win.wall_ms:.3f} ms")
+    return {
+        "outs": outs, "sampled": sampled, "prompts": prompts,
+        "dispatches": int(d("decode_dispatches")),
+        "tokens_per_dispatch": d("tokens_generated", s1, s2) / max(1, dispatches),
+        "tokens_per_row_dispatch": d("tokens_generated", s1, s2)
+        / max(1, d("decode_row_dispatches", s1, s2)),
+        "drafted": int(d("spec_drafted_tokens")), "accepted": int(d("spec_accepted_tokens")),
+        "acceptance_rate": d("spec_accepted_tokens") / max(1, d("spec_drafted_tokens")),
+        "draft_dispatches": int(d("spec_draft_dispatches")),
+        "draft_dispatch_share": d("spec_draft_dispatches", s1, s2)
+        / max(1, d("spec_draft_dispatches", s1, s2) + dispatches),
+        "verify_dispatches": int(d("spec_verify_dispatches")),
+        "block_dispatches": int(d("spec_block_dispatches")),
+        "traced": trace,
+        "wall_step_ms": win.wall_ms / max(1, dispatches),
+        # the trace's device time over the window's target dispatches
+        # (a draft proposal's device time included)
+        "device_step_ms": None if busy is None else busy / max(1, dispatches),
+        "idle_share": None if busy is None else 1.0 - busy / win.wall_ms,
+        "device_events": win.events,
+        "ttft_s": {"mean": statistics.mean(ttft), "max": max(ttft)} if ttft else None,
+    }
+
+
+def _target_draft(engine):
+    """A llama3-8b draft runtime whose dense weights (the engine's dtype:
+    bf16) are the target's int8 packs dequantized: it proposes the target's own greedy tokens up
+    to the rounding of the two products, so it accepts."""
+    from generativeaiexamples_tpu_torch.engine import spec_draft
+    from generativeaiexamples_tpu_torch.ops.quant import dequantize_int8
+
+    cfg = engine.model_config
+    k_of = {"wqkv": cfg.hidden_size, "w_gateup": cfg.hidden_size, "wo": cfg.q_dim,
+            "w_down": cfg.intermediate_size, "lm_head": cfg.hidden_size}
+
+    def dense(key, w):
+        return dequantize_int8(w, engine._dtype, k_of[key]) if isinstance(w, dict) else w
+
+    params = {key: dense(key, w) for key, w in engine.params.items() if key != "layers"}
+    params["layers"] = [{key: dense(key, w) for key, w in lp.items()}
+                        for lp in engine.params["layers"]]
+    ec = dataclasses.replace(engine.engine_config, spec_draft_model=MODEL,
+                             spec_proposer="draft_model")
+    return spec_draft.DraftRuntime(
+        ec, device=engine.device, dtype=engine._dtype, sample_vocab=engine._sample_vocab,
+        num_slots=engine.num_slots, max_seq_len=engine.max_seq_len, params=params)
+
+
+def _spec_row_log(name, leg, s, r) -> None:
+    ttft = r["ttft_s"] or {"mean": float("nan"), "max": float("nan")}
+    device = ("device step not measured" if r["device_step_ms"] is None else
+              f"device step {r['device_step_ms']:.3f} ms, idle {r['idle_share']:.1%} "
+              f"({r['device_events']} device events traced)") if r["traced"] else "untraced"
+    log(f"  {name} {leg:12s} {s:10s}: {r['tokens_per_dispatch']:.3f} tokens a target "
+        f"dispatch ({r['tokens_per_row_dispatch']:.3f} a row), acceptance "
+        f"{r['acceptance_rate']:.3f} ({r['accepted']}/{r['drafted']}), draft-dispatch "
+        f"share {r['draft_dispatch_share']:.3f}, {r['verify_dispatches']} verifies + "
+        f"{r['block_dispatches']} zero-draft blocks of {r['dispatches']} dispatches; "
+        f"wall step {r['wall_step_ms']:.3f} ms, {device}; TTFT mean {ttft['mean']:.3f} s "
+        f"max {ttft['max']:.3f} s")
+
+
+def _summary(r) -> dict:
+    return {k: v for k, v in r.items() if k not in ("outs", "sampled", "prompts")}
+
+
+def spec_recipe(dev, smi, name, quantization, kv_dtype, layout, params=None) -> tuple:
+    """One recipe's legs on one engine, toggled between legs at runtime
+    (one set of target weights serves every leg): every leg's greedy and
+    seeded streams against the ``off`` leg's, each set's decode traced."""
+    from generativeaiexamples_tpu_torch.engine.llm_engine import LLMEngine
+
+    legs, sets = SPEC_PLAN[name]
+    cfg = EngineConfig(model_config_name=MODEL, quantization=quantization, kv_cache_dtype=kv_dtype,
+                       kv_layout=layout, max_batch_size=8, max_seq_len=8192, page_size=128,
+                       prefill_chunk=512, decode_block=8,
+                       spec_draft_model=SPEC_DRAFT_MODEL if name == "A" else "")
+    t0 = time.time()
+    engine = LLMEngine(cfg, device=dev, params=params)
+    out = {"legs": {}, "launches": collections.Counter(), "shapes": {}}
+    try:
+        if engine.device.type == "cuda" and engine._paged and not engine._verify_kernel:
+            raise AssertionError(f"spec {name}: the page kernel refuses the verify's rows")
+        log(f"  {name}: engine built in {time.time() - t0:.1f} s "
+            f"({quantization} weights, {kv_dtype} {layout} KV, K={engine._spec_draft}; "
+            f"{SPEC_TRAFFIC[name][0]} requests x {SPEC_TRAFFIC[name][1]} tokens a set)")
+        ref = None
+        for leg, proposer, pipelined in legs:
+            _settle(engine)
+            if leg == "draft_target":
+                engine._draft = None  # the 1b-proxy's weights and caches go first
+                gc.collect()
+                torch.cuda.empty_cache()
+                t_build = time.time()
+                engine._draft = _target_draft(engine)
+                log(f"  {name} {leg}: llama3-8b draft from the dequantized packs built in "
+                    f"{time.time() - t_build:.1f} s")
+            if proposer is None:
+                engine.set_spec_decode(False)
+            else:
+                if not engine.set_spec_decode(True):
+                    raise AssertionError(f"spec {name}: set_spec_decode(True) refused")
+                if engine.set_spec_proposer(proposer) != proposer:
+                    raise AssertionError(f"spec {name}: proposer {proposer} not served")
+            engine._spec_pipeline = pipelined  # read by the dispatch thread each round
+            reset_counts()
+            t_leg = time.time()
+            with SyncCounter() as syncs, _ShapeLog() as shapes:
+                # a leg's first set traced: a trace costs seconds of host
+                # time a window, and the 1b draft's windows (~1.3M events)
+                # more than its leg
+                res = {s: _spec_set(engine, name, leg, s,
+                                    trace=s == sets[0] and leg != "draft_model")
+                       for s in sets}
+                _settle(engine)
+            launched = counts()
+            out["launches"].update(launched)
+            dispatch = {k: v for (th, k), v in syncs.kinds.items() if th == "torch-llm-engine"}
+            if dispatch.get(None, 0):
+                raise AssertionError(f"spec {name} {leg}: {dispatch[None]} synchronizing calls on "
+                                     f"the dispatch thread outside the spec read backs")
+            ties = 0
+            if ref is None:
+                ref = res
+            else:
+                for s in sets:
+                    for i, (got, want) in enumerate(zip(res[s]["outs"] + res[s]["sampled"],
+                                                        ref[s]["outs"] + ref[s]["sampled"])):
+                        prompt = res[s]["prompts"][i if i < len(res[s]["outs"]) else 0]
+                        ties += _tie_checked(engine, f"{name} {leg} {s} stream {i}", prompt,
+                                             got, want)
+            if proposer is not None:
+                if dispatch.get("spec", 0) == 0:
+                    raise AssertionError(f"spec {name} {leg}: no spec read back on the dispatch thread")
+                if sum(r["verify_dispatches"] for r in res.values()) == 0:
+                    raise AssertionError(f"spec {name} {leg}: no verify dispatched")
+            if leg == "lookup" and res["copy_heavy"]["accepted"] < 1:
+                raise AssertionError(f"spec {name}: lookup accepted no draft on copy_heavy")
+            if proposer == "draft_model" and sum(r["draft_dispatches"] for r in res.values()) == 0:
+                raise AssertionError(f"spec {name} {leg}: the draft model dispatched nothing")
+            if leg == "draft_target":
+                for s, r in res.items():
+                    if r["accepted"] < 1:
+                        raise AssertionError(f"spec {name} {leg} {s}: the target's own weights "
+                                             f"as the draft accepted nothing")
+            verify_T = sorted({t for (kv, t), n in shapes.paged.items() if t > 1})
+            out["shapes"][leg] = {
+                "paged_T": {f"{kv}:T{t}": n for (kv, t), n in sorted(shapes.paged.items())},
+                "int8_matmul_M": dict(sorted(shapes.int8.items())),
+                "int8_w8a8_matmul_M": dict(sorted(shapes.w8a8.items())),
+            }
+            out["legs"][leg] = {"ties": ties, "launches": {k: v for k, v in launched.items() if v},
+                                "dispatch_syncs": {str(k): v for k, v in dispatch.items()},
+                                **{s: _summary(r) for s, r in res.items()}}
+            for s, r in res.items():
+                _spec_row_log(name, leg, s, r)
+            log(f"  {name} {leg}: launches {out['legs'][leg]['launches']}; verify query rows "
+                f"{verify_T or 'none'}; int8 matmul M {sorted(shapes.int8) or '-'}, w8a8 M "
+                f"{sorted(shapes.w8a8) or '-'}; dispatch-thread syncs by kind {dispatch or 'none'}; "
+                f"streams {'the reference' if leg == 'off' else 'equal to off'}"
+                f"{f' ({ties} parted at a tie)' if ties else ''}; {time.time() - t_leg:.1f} s on {smi}")
+            if name == "A" and leg == "off":
+                # the trace's cost: the first set again, untraced
+                _settle(engine)
+                r = _spec_set(engine, name, "off_untraced", sets[0], trace=False)
+                for i, (got, want) in enumerate(zip(r["outs"] + r["sampled"],
+                                                    ref[sets[0]]["outs"] + ref[sets[0]]["sampled"])):
+                    _tie_checked(engine, f"{name} off untraced stream {i}",
+                                 r["prompts"][i if i < len(r["outs"]) else 0], got, want)
+                out["legs"]["off_untraced"] = {sets[0]: _summary(r)}
+                _spec_row_log(name, "off_untraced", sets[0], r)
+        weights = engine.params
+    finally:
+        engine.shutdown()
+        _free_engine(engine)
+        engine._draft = engine._spec_proposer = None
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.time() - t0
+    return out, weights
+
+
+def phase_spec(dev, smi) -> dict:
+    """Speculative decoding at full llama3-8b (module docstring, phase 12)."""
+    t0 = time.time()
+    out = {"recipes": {}, "provenance": SPEC_PROVENANCE}
+    launches = collections.Counter()
+    weights = None
+    for name, quantization, kv_dtype, layout, _ in RECIPES:
+        # A, C and D share int8 packs; B (w8a8) serves the same packs
+        res, weights = spec_recipe(dev, smi, name, quantization, kv_dtype, layout, weights)
+        launches.update(res.pop("launches"))
+        out["recipes"][name] = res
+    del weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launches"] = dict(launches)
+    out["wall_s"] = time.time() - t0
+    log(f"  provenance: {SPEC_PROVENANCE}")
+    log(f"phase spec: ok ({out['wall_s']:.1f} s on {smi})")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
                         default="kernels,model,serve,retrieval,rag,chains,filechains,drain,"
-                                "prefix",
+                                "prefix,spec",
                         help="phases after the build, comma-separated (default: all)")
     parser.add_argument("--checks", default=",".join(CHECKS),
                         help="phase 3's kernel checks, comma-separated (default: all)")
@@ -4115,6 +4674,7 @@ def main() -> int:
     drain = phase_drain(dev, info["smi"], args.seed, dep, encoders) if "drain" in phases else {}
     dep = None  # phase 11 (or 10) took the deployment down
     prefix = phase_prefix(dev, info["smi"], args.seed) if "prefix" in phases else {}
+    spec = phase_spec(dev, info["smi"]) if "spec" in phases else {}
     kernels = []
     for name, (replaces, source) in KERNELS.items():
         if name not in results:  # a check left out by --checks
@@ -4124,7 +4684,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(sv["launches"][name] for sv in serves.values())
             + sum(ph.get("launches", {}).get(name, 0)
-                  for ph in (rag, chains, files, drain, prefix)),
+                  for ph in (rag, chains, files, drain, prefix, spec)),
             **r,
         })
     log(f"total {time.time() - t0:.1f} s")
@@ -4135,7 +4695,9 @@ def main() -> int:
         "chains": {k: v for k, v in chains.items() if k != "launches"},
         "filechains": {k: v for k, v in files.items() if k != "launches"},
         "drain": {k: v for k, v in drain.items() if k != "launches"},
-        "prefix": prefix.get("recipes", {})}), flush=True)
+        "prefix": prefix.get("recipes", {}),
+        "spec": {k: v for k, v in spec.items() if k != "launches"},
+        "sampling": results.get("sampling")}), flush=True)
     print(info["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,7 +39,6 @@ ENV_PREFIX = "APP_ENGINE_"
 
 _CKPT = "checkpoints load with training and checkpoints (ROADMAP queue 1 item 10)"
 _MULTI = "the port serves one card until multi-GPU (ROADMAP queue 1 item 9)"
-_SPEC = "speculative decoding arrives with ROADMAP queue 1 item 5"
 # The JAX package's EngineConfig fields (config/schema.py) that the port
 # has no field for: name -> (the JAX default, why another value is refused,
 # the other values the port serves as they are). A reason of None marks a
@@ -52,19 +51,6 @@ JAX_ONLY_FIELDS = {
     "paged_kernel": ("auto", "the port always reads a paged pool through its kernel on the card", ()),
     "warmup_prompt_lengths": ("", None, ()),
     "chunked_prefill": ("auto", "the port always chunks prompts longer than prefill_chunk", ()),
-    "spec_decode_enable": ("off", _SPEC, ()),
-    "spec_pipeline_enable": ("on", _SPEC, ()),
-    "spec_draft_len": (8, _SPEC, ()),
-    "spec_ngram_max": (3, _SPEC, ()),
-    "spec_proposer": ("lookup", _SPEC, ()),
-    "spec_draft_model": ("", _SPEC, ()),
-    "spec_draft_checkpoint_path": ("", _SPEC, ()),
-    "spec_draft_model_len": (0, _SPEC, ()),
-    "spec_draft_kv_dtype": ("bfloat16", _SPEC, ()),
-    "spec_draft_min_acceptance": (0.0, _SPEC, ()),
-    "spec_adaptive_k": ("off", _SPEC, ()),
-    "spec_adaptive_k_min": (1, _SPEC, ()),
-    "spec_adaptive_k_threshold": (0.5, _SPEC, ()),
     "quiesce_timeout_s": (600.0, None, ()),  # warmup's wait for decode to drain
 }
 _LOGGED: set = set()  # XLA-only variables already logged by this process
@@ -132,6 +118,33 @@ class EngineConfig:
     scheduler_policy: str = "unified"
     # the disagg transfer queue's bound; 0 = 2 x max_batch_size
     handoff_queue_depth: int = 0
+    # speculative decoding (engine/spec_decode.py): on | off; greedy rows
+    # (every row under a draft model) draft up to spec_draft_len tokens a
+    # dispatch, scored in one K+1-row verify dispatch; streams stay
+    # token-identical to off
+    spec_decode_enable: str = "off"
+    # on | off: leave each verify in flight and draft the next round from
+    # an optimistic context meanwhile (lookup proposer only)
+    spec_pipeline_enable: str = "on"
+    spec_draft_len: int = 8
+    # longest tail n-gram the lookup proposer matches
+    spec_ngram_max: int = 3
+    # lookup | draft_model | combined
+    spec_proposer: str = "lookup"
+    # a models/llama.py preset for the resident draft model
+    spec_draft_model: str = ""
+    # refused: checkpoints load with ROADMAP queue 1 item 10
+    spec_draft_checkpoint_path: str = ""
+    # the draft-model proposers' K; 0 inherits spec_draft_len
+    spec_draft_model_len: int = 0
+    # bfloat16 | int8 draft KV cache (always the fixed layout)
+    spec_draft_kv_dtype: str = "bfloat16"
+    # below this rolling acceptance the draft-model dispatch is skipped; 0 = never
+    spec_draft_min_acceptance: float = 0.0
+    # on | off: each round's K from a halving ladder driven by acceptance
+    spec_adaptive_k: str = "off"
+    spec_adaptive_k_min: int = 1
+    spec_adaptive_k_threshold: float = 0.5
 
     @classmethod
     def env_name(cls, field: str) -> str:
@@ -152,6 +165,9 @@ class EngineConfig:
             raw = environ.get(name)
             if raw is not None:
                 kwargs[f.name] = _parse(name, raw, f.default)
+        if kwargs.get("spec_draft_checkpoint_path"):  # unserved, as the fields below
+            name = cls.env_name("spec_draft_checkpoint_path")
+            raise ValueError(f"{name}={kwargs['spec_draft_checkpoint_path']}: {_CKPT}")
         for field, (default, reason, served) in JAX_ONLY_FIELDS.items():
             name = cls.env_name(field)
             raw = environ.get(name)
@@ -250,6 +266,10 @@ class EngineConfig:
             raise ValueError(
                 f"engine.snapshot_spool_max must be >= 1, got {self.snapshot_spool_max}"
             )
+        # the spec-decode knobs: the JAX engine's checks and messages
+        from generativeaiexamples_tpu_torch.engine import spec_decode
+
+        spec_decode.validate_config(self)
 
 
 # --------------------------------------------------------------------------- #

@@ -12,7 +12,9 @@ needs no check here, nor does a JAX engine field the port has no field for
 (``JAX_ONLY_FIELDS``): ``from_env`` has refused any other value already.
 The engine fields that ``EngineConfig.validate`` checks for the port's own
 engine (the serving layout, the page geometry, the scheduler and drain
-fields) are not repeated.
+fields) are not repeated; the spec-decode fields are checked by
+``engine/spec_decode.validate_config``, which gives the startup check's
+messages when called from here.
 """
 from __future__ import annotations
 
@@ -151,3 +153,8 @@ def validate_config(cfg) -> None:
     _require(e.prefix_cache_slots >= 0,
              f"engine.prefix_cache_slots must be >= 0 (0 disables), "
              f"got {e.prefix_cache_slots}")
+    # the spec-decode fields: the engine's one set of rules, refused with
+    # this check's text where it has one
+    from generativeaiexamples_tpu_torch.engine import spec_decode
+
+    spec_decode.validate_config(e, startup=True)

@@ -93,8 +93,21 @@ re-delivers the spooled tokens first). The ``engine.dispatch`` and
 ``replica.kill`` fault points (utils/faults.py) sit at the top of each
 dispatch pass.
 
-Speculative decoding, the flight recorder and telemetry are not ported
-yet.
+Speculative decoding (engine/spec_decode.py, engine/spec_draft.py): with
+``spec_decode_enable`` on, while any live row can draft, each dispatch is
+one verify (``spec_verify_paged`` through the page kernel's K+1 query
+rows, or ``spec_verify`` on the fixed layout) instead of a block: the
+proposer (prompt lookup over each row's own context, or the resident
+draft model) drafts up to K tokens a row, the verify samples every
+position with plain decode's keys and accepts the leading draft tokens
+the target itself would emit, so streams are token-identical to spec
+off. The packed ``[B, K+2]`` result is the dispatch thread's one read
+back a round (``spec_decode.allowed_sync``); pipelined
+(``spec_pipeline_enable`` on), it lands one dispatch later while the
+next round is drafted from the optimistic context. A round with no
+draft runs the plain block and reads its slab back.
+
+The flight recorder and telemetry are not ported yet.
 
 The engine runs on the card: ``device=None`` means CUDA and raises when
 no card is present. Tests pass ``device="cpu"``, where every kernel
@@ -119,6 +132,7 @@ import torch
 from generativeaiexamples_tpu_torch.config import EngineConfig
 from generativeaiexamples_tpu_torch.engine import kv_pages, prefix_cache
 from generativeaiexamples_tpu_torch.engine import request_snapshot as request_snapshot_mod
+from generativeaiexamples_tpu_torch.engine import spec_decode as spec_decode_mod
 from generativeaiexamples_tpu_torch.engine.scheduler import handoff as handoff_mod
 from generativeaiexamples_tpu_torch.engine.scheduler.base import build_policy
 from generativeaiexamples_tpu_torch.engine.tokenizer import load_tokenizer
@@ -142,6 +156,10 @@ class SamplingParams:
     # the chain or session a request belongs to: bumps its cached
     # prefix's recency at submit (advisory; matching is by content)
     prefix_hint: Optional[str] = None
+    # speculative decoding for this request: None follows the engine's
+    # spec_decode_enable, False opts out (the row still rides each verify
+    # dispatch as a single-token row), True is advisory
+    spec_decode: Optional[bool] = None
 
 
 @dataclasses.dataclass(eq=False)
@@ -228,6 +246,7 @@ class LLMEngine:
         config: Optional[EngineConfig] = None,
         device=None,
         params=None,
+        draft_params=None,
     ):
         cfg = config or EngineConfig()
         cfg.validate()
@@ -261,8 +280,12 @@ class LLMEngine:
             kv_pages.validate_runtime(self._page, self.max_seq_len, self._pool_pages)
             self._max_pages_per_slot = kv_pages.pages_for_tokens(self.max_seq_len, self._page)
             # a decode block can write up to a block past a request's budget,
-            # whatever the runahead (_decode_once)
-            self._page_slack = cfg.decode_block + 1
+            # whatever the runahead (_decode_once), and a verify chunk K + 1
+            # rows: the effective draft width, the one rule the verify, the
+            # draft caps and the draft model share (JAX's funding slack)
+            self._page_slack = (
+                cfg.decode_block + spec_decode_mod.effective_draft_len(cfg) + 1
+            )
 
         self._kv_quant = cfg.kv_cache_dtype in ("int8", "int4")
         self._kv_packed = cfg.kv_cache_dtype == "int4"
@@ -294,6 +317,16 @@ class LLMEngine:
                 self.max_seq_len, model_cfg.head_dim, model_cfg.num_heads,
                 model_cfg.num_kv_heads,
             )
+        )
+        # the spec verify's K+1 query rows a slot through the page kernel
+        self._spec_draft = spec_decode_mod.effective_draft_len(cfg)
+        self._verify_kernel = self._paged and page_attention.supports_geometry(
+            self._page, model_cfg.head_dim, model_cfg.num_heads, model_cfg.num_kv_heads,
+            query_len=self._spec_draft + 1, kv_dtype=cfg.kv_cache_dtype,
+        )
+        # on the card a paged verify runs on the kernel or not at all
+        self._spec_available = not (
+            self.device.type == "cuda" and self._paged and not self._verify_kernel
         )
         if self.device.type == "cuda":
             self._check_kernels(cfg, model_cfg, dtype)
@@ -328,6 +361,8 @@ class LLMEngine:
             )
         self._init_prefix_cache(cfg, model_cfg, dtype)
         self._stop_ids = set(self.tokenizer.stop_ids())
+        self._dtype = dtype
+        self._init_spec(cfg, draft_params)
 
         # Slot state on the device, patched per admission wave
         # (_update_slots) and read and written by every decode block: no
@@ -361,11 +396,12 @@ class LLMEngine:
         # threads; the dispatch thread counts prefill, the reader decode
         self._counters = collections.Counter(dict.fromkeys((
             "prefill_waves", "prefill_tokens", "prefill_chunks", "requests_prefilled",
-            "prefix_copy_dispatches",
+            "prefix_copy_dispatches", "decode_dispatches", "spec_verify_dispatches",
+            "spec_block_dispatches", "spec_pipeline_rollbacks", "spec_pipeline_confirmed",
         ), 0))
         self._reader_counters = collections.Counter(dict.fromkeys((
-            "decode_blocks", "decode_steps", "decode_rows", "decode_time_s",
-            "tokens_generated", "readbacks",
+            "decode_blocks", "decode_steps", "decode_rows", "decode_row_dispatches",
+            "decode_time_s", "tokens_generated", "readbacks",
         ), 0))
         self._ttft: "collections.deque[float]" = collections.deque(maxlen=4096)
         self._last_readback = 0.0  # reader thread: when the last readback completed
@@ -418,6 +454,13 @@ class LLMEngine:
         geometry: a refusal is an error here, not a silent fall back."""
         if dtype != torch.bfloat16:
             raise ValueError("the CUDA kernels serve dtype='bfloat16' only")
+        if cfg.spec_decode_enable == "on" and not self._spec_available:
+            raise ValueError(
+                f"paged attention kernel refuses the spec verify's "
+                f"{self._spec_draft + 1} query rows x {model_cfg.num_heads} heads "
+                f"(spec_draft_len {self._spec_draft}, at most "
+                f"{page_attention.MAX_QUERY_ROWS} query rows)"
+            )
         if self._paged and not self._page_kernel:
             raise ValueError(
                 f"paged attention kernel refuses page_size={cfg.page_size} "
@@ -497,6 +540,104 @@ class LLMEngine:
         if entry.pages:
             self._kv_alloc.release(entry.pages)
         entry.pages = None
+
+    def _init_spec(self, cfg: EngineConfig, draft_params=None) -> None:
+        """Speculative decoding's state (JAX ``_build_steps_layered``'s spec
+        half, ``_init_spec_proposer`` and ``_init_scheduler_state``'s
+        fields): the proposer (lookup, or the resident draft model built
+        here for the draft-model kinds), the adaptive width, the per-slot
+        proposer contexts and the pipelined verify's state."""
+        self._spec_ngram = max(1, cfg.spec_ngram_max)
+        self._adaptive_k: Optional[spec_decode_mod.AdaptiveK] = None
+        if cfg.spec_adaptive_k == "on":
+            self._adaptive_k = spec_decode_mod.AdaptiveK(
+                self._spec_draft, k_min=cfg.spec_adaptive_k_min,
+                threshold=cfg.spec_adaptive_k_threshold,
+            )
+        self._spec_enabled = cfg.spec_decode_enable == "on" and self._spec_available
+        # 'off' pins every spec round to the synchronous path
+        self._spec_pipeline = cfg.spec_pipeline_enable != "off"
+        # dispatch thread only: the verify in flight (its host copy, event
+        # and what landing it needs), and the (confirmed, missed) runahead
+        # drafts its flush left for the next round
+        self._spec_pending: Optional[dict] = None
+        self._spec_reconcile: Optional[tuple] = None
+        # each drafting slot's prompt + output, the proposers' context:
+        # seeded at admission, extended after each landed spec round,
+        # dropped at release (dispatch thread, or a thread that owns the
+        # slot while the loop is parked)
+        self._spec_ctx: Dict[int, List[int]] = {}
+        self._draft = None
+        self._draft_params = draft_params
+        self._spec_proposer: Optional[spec_decode_mod.SpecProposer] = None
+        if not self._spec_available:
+            return
+        if cfg.spec_proposer == "lookup":
+            self._spec_proposer = spec_decode_mod.LookupProposer(self._spec_ngram)
+            return
+        self._draft = self._build_draft_runtime(cfg)
+        if cfg.spec_proposer == "draft_model":
+            self._spec_proposer = spec_decode_mod.DraftModelProposer(self._draft)
+        else:
+            self._spec_proposer = spec_decode_mod.CombinedProposer(self._spec_ngram, self._draft)
+
+    def _build_draft_runtime(self, cfg: EngineConfig):
+        from generativeaiexamples_tpu_torch.engine import spec_draft
+
+        return spec_draft.DraftRuntime(
+            cfg, device=self.device, dtype=self._dtype, sample_vocab=self._sample_vocab,
+            num_slots=self.num_slots, max_seq_len=self.max_seq_len, params=self._draft_params,
+        )
+
+    def set_spec_decode(self, enabled: bool) -> bool:
+        """Turn speculative decoding on or off while serving; returns the
+        state in effect (False where the verify cannot run: a paged engine
+        on the card whose page kernel refuses K+1 query rows). The flag
+        picks the program of the next dispatch; rows admitted while spec
+        was off have no context and never draft until their slot
+        recycles."""
+        with self._lock:
+            self._spec_enabled = bool(enabled) and self._spec_available
+            if not self._spec_enabled:
+                # contexts stop tracking emissions under block decode
+                self._spec_ctx.clear()
+                if self._spec_proposer is not None:
+                    self._spec_proposer.reset()
+                self._spec_reconcile = None
+            return self._spec_enabled
+
+    def set_spec_proposer(self, kind: str) -> Optional[str]:
+        """Switch the proposer while serving (``lookup``, ``draft_model``,
+        ``combined``); returns the kind in effect, or None where there is
+        no verify or no draft model is configured. The draft model is built
+        on the first switch to it."""
+        if not self._spec_available:
+            return None
+        cfg = self.engine_config
+        if kind == "lookup":
+            prop = spec_decode_mod.LookupProposer(self._spec_ngram)
+        elif kind in ("draft_model", "combined"):
+            if self._draft is None:
+                if not cfg.spec_draft_model:
+                    return None
+                self._draft = self._build_draft_runtime(cfg)
+            if kind == "draft_model":
+                prop = spec_decode_mod.DraftModelProposer(self._draft)
+            else:
+                prop = spec_decode_mod.CombinedProposer(self._spec_ngram, self._draft)
+        else:
+            raise ValueError(
+                f"spec proposer must be one of "
+                f"{'|'.join(spec_decode_mod.PROPOSER_KINDS)}, got {kind!r}"
+            )
+        with self._lock:
+            # contexts and frontiers follow the old proposer's rule
+            if self._spec_proposer is not None:
+                self._spec_proposer.reset()
+            self._spec_ctx.clear()
+            self._spec_reconcile = None
+            self._spec_proposer = prop
+        return prop.kind
 
     # ------------------------------------------------------------------ #
     # public API
@@ -882,9 +1023,16 @@ class LLMEngine:
         admitted request once); the prefix cache's hits, misses,
         evictions, tokens reused, pages mapped (paged) and store copies
         (fixed, ``prefix_copy_dispatches``); decode
-        blocks, steps, rows and wall time; tokens emitted; TTFTs (submit to
-        the reader's emission of the first token); and, on the paged
-        layout, the page allocator's state.
+        blocks, steps, rows, row dispatches (the live rows of each
+        dispatch) and wall time; tokens emitted; TTFTs (submit to the
+        reader's emission of the first token); on the paged layout,
+        the page allocator's state; and speculative decoding's counters:
+        ``decode_dispatches`` (decode blocks, verifies and zero-draft
+        blocks), ``spec_verify_dispatches``, ``spec_block_dispatches``,
+        the pipeline's confirmed and rolled-back runahead drafts, the
+        draft-aware skips and JAX's ``spec_*`` keys (process-wide, as
+        JAX's families are). A verify counts in the reader's decode
+        counters as one block of one step.
 
         The reader counts a decode block when its token slab is read back,
         and ``decode_time_s`` adds, for each block, the wall time from its
@@ -904,6 +1052,9 @@ class LLMEngine:
         for key in ("hits", "misses", "evictions", "tokens_reused"):
             out["prefix_cache_" + key] = pc.get(key, 0)
         out.setdefault("prefix_pages_mapped", 0)
+        # process-wide, as JAX's families are: read deltas
+        out.update(spec_decode_mod.metrics_snapshot())
+        out["spec_draft_skips"] = self.scheduler.draft_skips
         return out
 
     def shutdown(self, timeout: float = 60.0) -> bool:
@@ -991,7 +1142,11 @@ class LLMEngine:
             if not running:
                 break
             if parking:
-                # no dispatch runs past here until resume or shutdown
+                # land the verify in flight, so its tokens reach the reader
+                # ahead of the drain's barrier; no dispatch runs past here
+                # until resume or shutdown
+                if self._spec_pending is not None:
+                    self._flush_spec_pipeline()
                 with self._lock:
                     self._drain_parked = True
                     self._lock.notify_all()
@@ -1014,6 +1169,13 @@ class LLMEngine:
                     req.error = exc
                     self._finish(req)
                     self._release(slot, req)
+        # the verify in flight lands first: its tokens reach the reader
+        # ahead of the end
+        if self._spec_pending is not None:
+            try:
+                self._flush_spec_pipeline()
+            except Exception as exc:  # noqa: BLE001 - the shutdown must go on
+                logger.exception("spec pipeline flush at shutdown failed: %s", exc)
         # the prefill tier stops before the reader does: its last wave's
         # first tokens still reach the reader
         self.scheduler.stop()
@@ -1099,7 +1261,17 @@ class LLMEngine:
         )
         # at least one step: the reader's done check then ends the stream
         budget = max(1, min(req.params.max_tokens - req.generated, self.max_seq_len - 1 - pos))
+        # a host proposer rebuilds its context from the transcript; the
+        # draft model's KV is not in the snapshot, so under it a restored
+        # row rides the verifies as a single-token row
+        prop = self._spec_proposer
+        spec_tokens = None
+        if (self._spec_enabled and prop is not None and not prop.uses_draft_model
+                and prop.eligible(req.params)):
+            spec_tokens = list(req.prompt_ids) + list(req.emitted)
         with self._lock:
+            if spec_tokens is not None:
+                self._spec_ctx[slot] = spec_tokens
             req.slot = slot
             self._slot_pages[slot] = list(pages)
             self._slot_req[slot] = req
@@ -1134,15 +1306,19 @@ class LLMEngine:
         """Start the copy of ``tensor`` to pinned host memory, record an
         event behind it and queue both for the reader (blocks while
         ``decode_runahead`` items wait). On the CPU the tensor itself."""
-        event = None
-        if tensor.is_cuda:
-            host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
-            host.copy_(tensor, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-        else:
-            host = tensor
+        host, event = self._start_host_copy(tensor)
         self._readback.put((kind, host, event, rows))
+
+    def _start_host_copy(self, tensor: torch.Tensor):
+        """Start ``tensor``'s copy into pinned host memory behind an event;
+        on the CPU the tensor itself and no event."""
+        if not tensor.is_cuda:
+            return tensor, None
+        host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+        host.copy_(tensor, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
 
     def _max_wave_rows(self, bucket: int) -> int:
         """Max prefill rows for this bucket under prefill_wave_tokens."""
@@ -1310,9 +1486,27 @@ class LLMEngine:
         if any(r.params.temperature > 0 for r in reqs):
             keys = sampling.sample_keys(seeds, lengths_d)  # the first token is keyed at T
         first = sampling.sample_tokens(logits[:, : self._sample_vocab], temps, topps, keys)
+        prop = self._spec_proposer
+        eligible = np.array([
+            self._spec_enabled and prop is not None and prop.eligible(r.params) for r in reqs
+        ])
+        first_np = None
+        if eligible.any():
+            # the next proposal needs these first tokens on the host (a
+            # wave with no drafting row keeps the pipelined readback)
+            with spec_decode_mod.allowed_sync("spec"):
+                first_np = first.cpu().numpy()
+        spec_tokens = [
+            list(r.prompt_ids) + [int(first_np[i])] if eligible[i] else None
+            for i, r in enumerate(reqs)
+        ]
         records = []
         if register:
             self._update_slots(slots, first, lengths_d, temps, topps, seeds)
+            with self._lock:
+                for req, ctx in zip(reqs, spec_tokens):
+                    if ctx is not None:
+                        self._spec_ctx[req.slot] = ctx
         else:
             # the decode tier writes each row's state at its import
             per_page = self._page_bytes()
@@ -1324,7 +1518,17 @@ class LLMEngine:
                     budget=min(req.params.max_tokens - 1, self.max_seq_len - 1 - T),
                     pages=pages, nbytes=len(pages) * per_page,
                     state=tuple(t[i:i + 1] for t in (slots, first, lengths_d, temps, topps, seeds)),
+                    spec_tokens=spec_tokens[i],
                 ))
+        if first_np is not None and self._draft is not None and prop.uses_draft_model:
+            # the wave's prompts into the draft cache, then each drafting
+            # slot's frontier at its prompt length: the first round's
+            # catch-up feeds just the first token
+            slot_list = [r.slot for r in reqs]
+            self._draft.prefill_wave(tokens, lengths, slot_list, eligible)
+            for i, req in enumerate(reqs):
+                if eligible[i]:
+                    prop.on_admit(req.slot, int(lengths[i]))
         self._counters["prefill_waves"] += 1
         self._counters["prefill_tokens"] += int(lengths.sum())
         self._counters["requests_prefilled"] += len(reqs)
@@ -1368,6 +1572,8 @@ class LLMEngine:
                 self._lock.notify_all()
                 return
             del self._tier_slots[rec.slot]
+            if rec.spec_tokens is not None:
+                self._spec_ctx[rec.slot] = list(rec.spec_tokens)
             self._slot_req[rec.slot] = req
             self._slot_budget[rec.slot] = rec.budget
             self._slot_pos[rec.slot] = rec.position
@@ -1480,17 +1686,29 @@ class LLMEngine:
         return last_h
 
     def _decode_once(self) -> None:
-        """One block of ``decode_block`` steps over every slot, from and
-        into the device-resident slot state. Budget-exhausted, finished
-        and cancelled slots are freed first, so pending requests take them
+        """One decode dispatch. A pipelined verify still in flight lands
+        first (shadows, contexts and budgets must be current, even if spec
+        was turned off meanwhile); then, while any live row can draft, one
+        spec round (``_spec_decode_once``), otherwise one block of
+        ``decode_block`` steps over every slot, from and into the
+        device-resident slot state. Budget-exhausted, finished and
+        cancelled slots are freed first, so pending requests take them
         instead of dead steps; the reader still emits the final tokens of
         budget-exhausted requests from the slabs already dispatched (the
         snapshot pins rows to their requests).
 
-        A slot is dispatched only while its budget is positive, so it
-        writes at most ``decode_block - 1`` positions past its last token:
-        the ``decode_block + 1`` pages of slack funded at admission
-        (``_page_slack``) bound it, whatever the runahead."""
+        A slot is dispatched only while its budget is positive, so a block
+        writes at most ``decode_block - 1`` positions past its last token
+        and a verify at most its capped draft: the ``decode_block + K +
+        1`` pages of slack funded at admission (``_page_slack``) bound
+        both, whatever the runahead."""
+        if self._spec_pending is not None:
+            self._flush_spec_pipeline()
+        if self._spec_enabled and self._spec_has_draftable():
+            self._spec_decode_once()
+            return
+        # runahead drafts only feed a spec round
+        self._spec_reconcile = None
         block = self._decode_block
         with self._lock:
             self._release_finished_slots()
@@ -1498,16 +1716,25 @@ class LLMEngine:
                 return
             snapshot = sorted(self._slot_req.items())
             window = self._decode_window(max(self._slot_pos.values()))
-            sampled = any(req.params.temperature > 0 for _, req in snapshot)
             for slot in self._slot_pos:
                 self._slot_pos[slot] += block
                 self._slot_budget[slot] -= block
         t_dispatch = time.perf_counter()
+        token_slab = self._dispatch_block(window, snapshot)
+        self._counters["decode_dispatches"] += 1
+        self._to_reader("decode", token_slab, (snapshot, t_dispatch))
+
+    def _dispatch_block(self, window: int, snapshot) -> torch.Tensor:
+        """Launch one block of ``decode_block`` steps over every slot;
+        returns the token slab ``[block, B]`` (a tensor of its own:
+        admission rewrites ``_tokens_dev`` in place while the slab may
+        still be on its way to the host)."""
+        block = self._decode_block
         max_pos = self.max_seq_len - 1
         tok = self._tokens_dev
         pos = torch.where(self._live_dev, self._positions_dev, 0)
         keys = None
-        if sampled:
+        if any(req.params.temperature > 0 for _, req in snapshot):
             # the token produced from input position p is keyed at p + 1;
             # the whole block's keys [block, B] in one device computation
             steps = torch.arange(block, device=self.device)[:, None]
@@ -1534,9 +1761,277 @@ class LLMEngine:
             pos = torch.clamp(pos + 1, max=max_pos)
         self._tokens_dev.copy_(tok)
         self._positions_dev.copy_(pos)
-        # a tensor of its own: admission rewrites _tokens_dev in place while
-        # this slab may still be on its way to the host
-        self._to_reader("decode", torch.stack(token_slab), (snapshot, t_dispatch))
+        return torch.stack(token_slab)
+
+    # ------------------------------------------------------------------ #
+    # speculative decoding (dispatch thread)
+
+    def _spec_has_draftable(self) -> bool:
+        """Whether any live row could draft: proposer-eligible and holding
+        a context (rows admitted while spec was off never draft). When
+        none can, the pipelined block path serves the batch."""
+        prop = self._spec_proposer
+        if prop is None:
+            return False
+        with self._lock:
+            return any(slot in self._spec_ctx and prop.eligible(req.params)
+                       for slot, req in self._slot_req.items())
+
+    def _spec_stage_arrays(self, K: int):
+        """This round's host draft inputs, zeroed: ``[B, K]`` draft tokens
+        and ``[B]`` lengths. Fresh arrays a round: ``_to_device`` copies
+        them at once, and a pipelined round keeps its lengths for the
+        flush."""
+        return (np.zeros((self.num_slots, K), np.int64),
+                np.zeros((self.num_slots,), np.int64))
+
+    def _spec_decode_once(self) -> None:
+        """One speculative verify dispatch.
+
+        The proposer drafts up to K tokens for each live eligible slot
+        (capped by ``cap_draft_len``); one verify (``spec_verify`` or
+        ``spec_verify_paged``) scores every draft position of the whole
+        batch, advances each row's device token and position past its
+        accepted prefix plus the bonus token, and returns one packed ``[B,
+        K+2]`` tensor (the K+1 output tokens, then the accepted count).
+
+        Synchronous (``spec_pipeline_enable='off'``, or a proposer that
+        cannot run ahead): the dispatch thread reads the packed result
+        back here, its one allowed sync, since the next proposal needs
+        this round's tokens. Pipelined: the verify is left in flight with
+        its host copy started, the next round's drafts are proposed from
+        the optimistic context (everything drafted accepted) meanwhile,
+        and the result lands at the start of the next dispatch
+        (``_flush_spec_pipeline``), which confirms or rolls back those
+        drafts. Drafts only steer acceptance, never emission: streams are
+        token-identical across pipeline on/off and spec on/off."""
+        reconcile = self._spec_reconcile
+        self._spec_reconcile = None
+        K = self._spec_draft
+        if self._adaptive_k is not None:
+            K = self._adaptive_k.pick(self.scheduler.tracker.ratio())
+        with self._lock:
+            self._release_finished_slots()
+            if not self._slot_req:
+                return
+            max_pos_live = max(self._slot_pos.values(), default=0)
+            # the chunk writes K + 1 rows past each live position; the page
+            # kernel reads each row's own length
+            if self._verify_kernel:
+                window = self.max_seq_len
+            else:
+                window = self._attention_window(min(max_pos_live + K + 1, self.max_seq_len))
+            snapshot = sorted(self._slot_req.items())
+            caps = {slot: spec_decode_mod.cap_draft_len(
+                K, self._slot_pos[slot], self._slot_budget[slot], self.max_seq_len)
+                for slot, _ in snapshot}
+        prop = self._spec_proposer
+        # draft-aware scheduling: a collapsed acceptance skips the draft
+        # model's dispatch (lookup scans cost nothing and never skip)
+        if prop.uses_draft_model and not self.scheduler.should_draft():
+            self._spec_block_fallback(snapshot, max_pos_live)
+            return
+        pipelined = self._spec_pipeline and prop.supports_runahead
+        draft, draft_len = self._spec_stage_arrays(K)
+        prop_rows = []
+        for slot, req in snapshot:
+            ctx = self._spec_ctx.get(slot)
+            if ctx and prop.eligible(req.params):
+                prop_rows.append((slot, ctx, caps[slot]))
+        proposals = self._spec_propose(prop, prop_rows, reconcile)
+        for slot, d in proposals.items():
+            if d:
+                draft[slot, : len(d)] = d
+                draft_len[slot] = len(d)
+        if not draft_len.any():
+            # no row drafted: a one-token verify would forfeit the block's
+            # fusion for nothing
+            self._spec_block_fallback(snapshot, max_pos_live)
+            return
+        if self._adaptive_k is not None:
+            spec_decode_mod.record_adaptive_round(K)
+        t_dispatch = time.perf_counter()
+        args = (
+            self.params, self.model_config, self._cache, self._tokens_dev, self._positions_dev,
+            self._temps_dev, self._topps_dev, self._seeds_dev,
+            self._to_device(draft, torch.long), self._to_device(draft_len, torch.long),
+            self._live_dev, window,
+        )
+        opts = dict(max_pos=self.max_seq_len - 1, vocab=self._sample_vocab,
+                    sampled=any(req.params.temperature > 0 for _, req in snapshot),
+                    quant_kernel=self._quant_kernel)
+        if self._paged:
+            new_tokens, new_positions, packed = spec_verify_paged(
+                *args, self._tables, self._page, page_kernel=self._verify_kernel, **opts)
+        else:
+            new_tokens, new_positions, packed = spec_verify(*args, **opts)
+        self._tokens_dev.copy_(new_tokens)
+        self._positions_dev.copy_(new_positions)
+        self._counters["decode_dispatches"] += 1
+        self._counters["spec_verify_dispatches"] += 1
+        if pipelined:
+            host, event = self._start_host_copy(packed)
+            self._spec_pending = {
+                "host": host, "event": event, "snapshot": snapshot, "draft_len": draft_len,
+                "t_dispatch": t_dispatch,
+                "opt": self._spec_runahead_proposals(prop, prop_rows, proposals, K),
+            }
+            return
+        with spec_decode_mod.allowed_sync("spec"):
+            packed_np = packed.cpu().numpy()
+        self._spec_apply_readback(packed_np, snapshot, draft_len, t_dispatch)
+
+    def _flush_spec_pipeline(self) -> None:
+        """Land the verify in flight: wait for its packed result (the copy
+        was started at dispatch, so this waits only for what the host work
+        since did not cover), apply it one round late, and reconcile the
+        runahead drafts against the real acceptance, leaving (confirmed,
+        missed) for the next spec round. Runs at the top of every
+        dispatch, at the drain's park and at shutdown. The fault point
+        ``engine.spec_pipeline`` (``error``) invalidates every runahead
+        draft of the flush."""
+        pending = self._spec_pending
+        self._spec_pending = None
+        self._spec_reconcile = None
+        if pending is None:
+            return
+        with spec_decode_mod.allowed_sync("spec"):
+            if pending["event"] is not None:
+                pending["event"].synchronize()
+            packed_np = pending["host"].numpy()
+        self._spec_apply_readback(packed_np, pending["snapshot"], pending["draft_len"],
+                                  pending["t_dispatch"])
+        opt = pending["opt"]
+        if not opt:
+            return
+        out_np, acc_np = packed_np[:, :-1], packed_np[:, -1]
+        forced = False
+        try:
+            faults_mod.fault_point("engine.spec_pipeline")
+        except faults_mod.FaultInjected:
+            forced = True  # every runahead draft of this flush is a miss
+        confirmed: Dict[int, List[int]] = {}
+        missed = set()
+        for slot, (dlen, od) in opt.items():
+            acc = int(acc_np[slot])
+            # the runahead assumed full acceptance, and its first token
+            # predicted the bonus token
+            if not forced and acc == dlen and od and od[0] == int(out_np[slot, acc]):
+                if len(od) > 1:
+                    confirmed[slot] = od[1:]
+                else:
+                    # spent predicting the bonus token: validated, nothing
+                    # left to dispatch
+                    self._counters["spec_pipeline_confirmed"] += 1
+            else:
+                missed.add(slot)
+        self._spec_reconcile = (confirmed, missed)
+
+    def _spec_apply_readback(self, packed_np: np.ndarray, snapshot, draft_len,
+                             t_dispatch: float) -> None:
+        """Apply a landed verify (the synchronous path right after its
+        read, the pipeline's flush one round later): the scheduler's
+        acceptance window, the counters, each row's budget and position
+        shadows and proposer context, then the reader's emission. A row
+        released (or recycled) while its verify was in flight is
+        skipped."""
+        t_done = time.perf_counter()
+        out_np, acc_np = packed_np[:, :-1], packed_np[:, -1]
+        self.scheduler.record_spec_round(
+            int(draft_len.sum()), sum(int(acc_np[s]) for s, _ in snapshot))
+        with self._lock:
+            for slot, req in snapshot:
+                n = int(acc_np[slot]) + 1
+                spec_decode_mod.record_dispatch(int(draft_len[slot]), n - 1)
+                if self._slot_req.get(slot) is not req:
+                    continue
+                self._slot_budget[slot] -= n
+                self._slot_pos[slot] = min(self._slot_pos[slot] + n, self.max_seq_len - 1)
+                buf = self._spec_ctx.get(slot)
+                if buf is not None:
+                    buf.extend(int(t) for t in out_np[slot, :n])
+        # put() outside the lock: the reader needs it in _emit
+        self._readback.put(("spec", (out_np, acc_np), None, (snapshot, t_dispatch, t_done)))
+
+    def _spec_propose(self, prop, prop_rows, reconcile) -> Dict[int, List[int]]:
+        """This round's drafts: confirmed runahead drafts as they are
+        (clipped to this round's caps), a fresh proposal from the true
+        context for every other row (rolled-back rows counted)."""
+        if reconcile is None:
+            return prop.propose_wave(prop_rows) if prop_rows else {}
+        confirmed, missed = reconcile
+        proposals: Dict[int, List[int]] = {}
+        fresh = []
+        rolled = 0
+        for slot, ctx, cap in prop_rows:
+            d = confirmed.get(slot)
+            if d is not None:
+                d = d[:cap]
+                if d:
+                    proposals[slot] = d
+                    self._counters["spec_pipeline_confirmed"] += 1
+                    continue
+            if slot in missed:
+                rolled += 1
+            fresh.append((slot, ctx, cap))
+        if fresh:
+            proposals.update(prop.propose_wave(fresh))
+        self._counters["spec_pipeline_rollbacks"] += rolled
+        return proposals
+
+    def _spec_runahead_proposals(self, prop, prop_rows, proposals, K):
+        """Draft round N+1 while verify N runs, assuming its whole draft is
+        accepted: the optimistic context is the true one plus the draft (a
+        new list; the contexts are not touched), the optimistic cap
+        assumes the bonus token landed too, and the first optimistic token
+        is the prediction of that bonus token, so the flush confirms with
+        one comparison. ``{slot: (draft length, optimistic draft)}``."""
+        with self._lock:
+            pos = dict(self._slot_pos)
+            budget = dict(self._slot_budget)
+        opt_rows = []
+        opt_dlen = {}
+        for slot, ctx, _cap in prop_rows:
+            d = proposals.get(slot) or []
+            dlen = len(d)
+            opt_cap = spec_decode_mod.cap_draft_len(
+                K, min(pos.get(slot, 0) + dlen + 1, self.max_seq_len - 1),
+                budget.get(slot, 0) - (dlen + 1), self.max_seq_len,
+            )
+            if opt_cap < 1:
+                continue  # the row ends (or nearly) this round
+            opt_rows.append((slot, list(ctx) + d, opt_cap))
+            opt_dlen[slot] = dlen
+        if not opt_rows:
+            return {}
+        od = prop.propose_wave(opt_rows)
+        return {slot: (opt_dlen[slot], od.get(slot) or []) for slot in opt_dlen}
+
+    def _spec_block_fallback(self, snapshot, max_pos_live: int) -> None:
+        """One block of ``decode_block`` steps from inside spec mode, when
+        no live row drafted (or the draft model was skipped): the plain
+        block, but its slab is read back here (an allowed spec sync) so
+        the contexts and shadows stay exact for the next round's
+        proposals; the reader gets the host slab."""
+        block = self._decode_block
+        window = self._decode_window(max_pos_live)
+        t_dispatch = time.perf_counter()
+        slab = self._dispatch_block(window, snapshot)
+        self._counters["decode_dispatches"] += 1
+        self._counters["spec_block_dispatches"] += 1
+        with spec_decode_mod.allowed_sync("spec"):
+            slab_np = slab.cpu().numpy()  # [block, B]
+        t_done = time.perf_counter()
+        with self._lock:
+            for slot, req in snapshot:
+                if self._slot_req.get(slot) is not req:
+                    continue
+                self._slot_budget[slot] -= block
+                self._slot_pos[slot] += block
+                buf = self._spec_ctx.get(slot)
+                if buf is not None:
+                    buf.extend(int(t) for t in slab_np[:, slot])
+        self._readback.put(("spec_block", slab_np, None, (snapshot, t_dispatch, t_done)))
 
     def _release_finished_slots(self) -> None:
         """Free budget-exhausted, finished and cancelled slots before a
@@ -1584,6 +2079,11 @@ class LLMEngine:
             del owner[slot]
             self._slot_budget.pop(slot, None)
             self._slot_pos.pop(slot, None)
+            self._spec_ctx.pop(slot, None)
+            if self._spec_proposer is not None:
+                # the draft frontier dies with the slot (a recycled slot's
+                # draft strip is prefilled again from position 0)
+                self._spec_proposer.on_release(slot)
             req.slot = -1
             self._free_slots.append(slot)
             self._lock.notify_all()  # wakes ingest_window when the last slot frees
@@ -1605,6 +2105,12 @@ class LLMEngine:
                 # enqueued last by a drain after the park: every earlier
                 # readback is emitted, positions and transcripts are current
                 host.set()
+                continue
+            if kind in ("spec", "spec_block"):
+                # read back by the dispatch thread already (its proposals
+                # needed them): emit each row's accepted tokens and bonus
+                # token, or the block's slab, as a decode slab
+                self._emit_spec(kind, host, rows)
                 continue
             try:
                 if event is not None:
@@ -1629,6 +2135,7 @@ class LLMEngine:
                 counters["decode_blocks"] += 1
                 counters["decode_steps"] += len(values)
                 counters["decode_rows"] += len(values) * len(snapshot)
+                counters["decode_row_dispatches"] += len(snapshot)
                 counters["decode_time_s"] += done - max(t_dispatch, self._last_readback)
                 for row in values:
                     for slot, req in snapshot:
@@ -1637,6 +2144,37 @@ class LLMEngine:
                         req.position += 1
                         self._emit(req, int(row[slot]))
             self._last_readback = done
+
+    def _emit_spec(self, kind: str, host, rows) -> None:
+        """Reader thread: a landed verify (``spec``: ``(out, accepted)``,
+        each row's tokens ``out[slot, :accepted + 1]``) or a zero-draft
+        block (``spec_block``: the ``[block, B]`` slab), counted as one
+        decode block; rows past their stop are skipped token by token."""
+        snapshot, t_dispatch, t_done = rows
+        counters = self._reader_counters
+        counters["decode_blocks"] += 1
+        counters["decode_row_dispatches"] += len(snapshot)
+        counters["decode_time_s"] += t_done - max(t_dispatch, self._last_readback)
+        self._last_readback = t_done
+        if kind == "spec":
+            out_np, acc_np = host
+            counters["decode_steps"] += 1
+            counters["decode_rows"] += len(snapshot)
+            for slot, req in snapshot:
+                for token in out_np[slot, : int(acc_np[slot]) + 1]:
+                    if req.finished:
+                        break
+                    req.position += 1
+                    self._emit(req, int(token))
+            return
+        counters["decode_steps"] += len(host)
+        counters["decode_rows"] += len(host) * len(snapshot)
+        for row in host:
+            for slot, req in snapshot:
+                if req.finished:
+                    continue
+                req.position += 1
+                self._emit(req, int(row[slot]))
 
     def _emit(self, req: _Request, token: int) -> None:
         """Reader thread: one token to the request's queue; a finished
@@ -1667,6 +2205,77 @@ class LLMEngine:
         if not req.finished:
             req.finished = True
             req.out_queue.put(_END)
+
+
+# --------------------------------------------------------------------- #
+# The verify programs (JAX ``spec_verify`` and ``spec_verify_paged``)
+
+
+def _spec_accept(logits, tokens, positions, offsets, temps, topps, seeds, draft, draft_len,
+                 live, *, max_pos: int, vocab: int, sampled: bool):
+    """Sample each of the K+1 verify positions with the keys plain decode
+    would use (output j lands at ``offsets + 1 + j``, clamped to
+    ``max_pos``), accept each row's leading run of draft tokens equal to
+    the outputs at the same index, and advance live rows past it plus the
+    bonus token ``out[row, accepted]``. Returns (new tokens, new
+    positions, packed ``[B, K+2]``: the outputs, then the accepted
+    count)."""
+    B, Kd = draft.shape
+    Kp1 = Kd + 1
+    device = logits.device
+    pos_grid = torch.clamp(offsets.long()[:, None] + 1 + torch.arange(Kp1, device=device)[None, :],
+                           max=max_pos)
+    keys = None
+    if sampled:
+        keys = sampling.sample_keys(seeds.repeat_interleave(Kp1), pos_grid.reshape(-1))
+    out = sampling.sample_tokens(
+        logits[..., :vocab].reshape(B * Kp1, vocab), temps.repeat_interleave(Kp1),
+        topps.repeat_interleave(Kp1), keys,
+    ).reshape(B, Kp1)
+    drafted = torch.arange(Kd, device=device)[None, :] < draft_len[:, None]
+    match = (draft == out[:, :Kd]) & drafted
+    accepted = torch.cumprod(match.long(), dim=1).sum(dim=1)
+    rows = torch.arange(B, device=device)
+    new_tokens = torch.where(live, out[rows, accepted], tokens)
+    new_positions = torch.where(live, torch.clamp(positions + accepted + 1, max=max_pos), positions)
+    return new_tokens, new_positions, torch.cat([out, accepted[:, None]], dim=1)
+
+
+def _verify_chunk(tokens, positions, draft, draft_len, live):
+    """Every slot's verify chunk ``[last token ++ draft]`` at its position,
+    ``valid = 1 + draft_len`` on live rows and 0 on dead ones: (offsets,
+    chunk, valid, slots)."""
+    offsets = torch.where(live, positions, 0)
+    chunk = torch.cat([tokens[:, None], draft], dim=1)
+    valid = torch.where(live, 1 + draft_len, 0)
+    return offsets, chunk, valid, torch.arange(draft.shape[0], device=chunk.device)
+
+
+def spec_verify(params, cfg, caches, tokens, positions, temps, topps, seeds, draft, draft_len,
+                live, window: int, *, max_pos: int, vocab: int, sampled: bool,
+                quant_kernel=None):
+    """The fixed layout's verify: :func:`_verify_chunk` through
+    ``llama.verify_layers``, then :func:`_spec_accept`."""
+    offsets, chunk, valid, slots = _verify_chunk(tokens, positions, draft, draft_len, live)
+    logits, _ = llama.verify_layers(
+        params, cfg, chunk, offsets, valid, slots, caches, window, quant_kernel=quant_kernel,
+    )
+    return _spec_accept(logits, tokens, positions, offsets, temps, topps, seeds, draft, draft_len,
+                        live, max_pos=max_pos, vocab=vocab, sampled=sampled)
+
+
+def spec_verify_paged(params, cfg, caches, tokens, positions, temps, topps, seeds, draft,
+                      draft_len, live, window: int, tables, page_size: int, *, max_pos: int,
+                      vocab: int, sampled: bool, quant_kernel=None, page_kernel=None):
+    """:func:`spec_verify` over the page pool (``llama.verify_layers_paged``);
+    ``page_kernel`` reads the K+1 query rows through the page kernel."""
+    offsets, chunk, valid, slots = _verify_chunk(tokens, positions, draft, draft_len, live)
+    logits, _ = llama.verify_layers_paged(
+        params, cfg, chunk, offsets, valid, slots, tables, caches, window, page_size,
+        quant_kernel=quant_kernel, page_kernel=page_kernel,
+    )
+    return _spec_accept(logits, tokens, positions, offsets, temps, topps, seeds, draft, draft_len,
+                        live, max_pos=max_pos, vocab=vocab, sampled=sampled)
 
 
 _ENGINE_LOCK = threading.Lock()

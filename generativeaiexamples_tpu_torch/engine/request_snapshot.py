@@ -173,8 +173,8 @@ def decode_kv_payload(doc: Dict[str, Any]) -> List[Dict[str, torch.Tensor]]:
 
 
 def params_doc(params: Any) -> Dict[str, Any]:
-    """SamplingParams as a plain dict, with JAX's keys (``spec_decode`` is
-    always None: the port has no speculative decoding yet)."""
+    """SamplingParams as a plain dict, with JAX's keys; ``spec_decode``
+    travels, so a restored request drafts (or opts out) as it did."""
     return {
         "temperature": params.temperature,
         "top_p": params.top_p,
@@ -264,6 +264,7 @@ class RequestSnapshot:
             stop=tuple(p.get("stop") or ()),
             seed=self.sampling_seed,
             prefix_hint=p.get("prefix_hint"),
+            spec_decode=p.get("spec_decode"),
         )
 
 

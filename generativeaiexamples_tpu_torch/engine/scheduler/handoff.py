@@ -63,7 +63,8 @@ class KVHandoff:
 
     ``req`` is the engine's request handle; its KV already sits in the
     pool pages ``pages``. ``position`` and ``budget`` seed the decode
-    tier's slot shadows. ``state`` holds the request's device slot state
+    tier's slot shadows; ``spec_tokens`` carries the spec proposer's
+    context (prompt + first token) when the request drafts. ``state`` holds the request's device slot state
     from the prefill (slot, first token, position, temperature, top_p,
     seed: one-element tensors) that the import writes into the decode
     batch's tensors. ``nbytes`` is what a cross-replica transport would
@@ -76,6 +77,7 @@ class KVHandoff:
     pages: Tuple[int, ...] = ()
     nbytes: int = 0
     state: Optional[tuple] = None
+    spec_tokens: Optional[List[int]] = None
     t_enqueue: float = dataclasses.field(default_factory=time.time)
 
 

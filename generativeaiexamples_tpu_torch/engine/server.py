@@ -86,18 +86,27 @@ class ModelServer:
 
     def sampling(self, body: Dict[str, Any]):
         """The JAX server's request defaults (temperature 0.2, top_p 0.7,
-        max_tokens 1024)."""
+        max_tokens 1024) and its ``spec_decode`` parsing."""
         from generativeaiexamples_tpu_torch.engine.llm_engine import SamplingParams
 
         stop = body.get("stop") or []
         if isinstance(stop, str):
             stop = [stop]
+        # spec_decode: the JAX server's per-request speculative-decoding
+        # switch; absent follows the engine, False opts out. Strings parse
+        # by value ("false" opts out, where bool("false") would not).
+        spec = body.get("spec_decode")
+        if isinstance(spec, str):
+            spec = spec.strip().lower() in ("1", "true", "on", "yes")
+        elif spec is not None:
+            spec = bool(spec)
         return SamplingParams(
             temperature=float(body.get("temperature", 0.2)),
             top_p=float(body.get("top_p", 0.7)),
             max_tokens=int(body.get("max_tokens", 1024)),
             stop=tuple(stop),
             seed=int(body.get("seed", 0) or 0),
+            spec_decode=spec,
         )
 
     def ready(self) -> bool:

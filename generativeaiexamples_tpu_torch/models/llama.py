@@ -8,7 +8,9 @@ for decode steps. Fixed (one dense strip per slot,
 ``init_kv_cache_layers``, which also builds the prefix cache's store):
 ``write_prefill_slots``, ``extend_layers``, ``decode_layers`` (int8 caches
 read through ops/decode_attention.py), and ``copy_kv_rows`` between the
-store and the slots. Parameters are plain
+store and the slots. Speculative decoding: ``verify_layers_paged`` (the
+K+1-row verify chunk through the page kernel), ``verify_layers`` and
+the resident draft's ``draft_propose_layers`` (fixed layout). Parameters are plain
 dictionaries of tensors, one dict per layer (the JAX package's layered
 layout, ``consume_split_params_layers``); projections are dense
 ``[K, F]`` matrices or int8 packs ``{"q", "scale"}`` (ops/quant.py), the
@@ -567,6 +569,36 @@ def extend_layers_paged(
     return h[torch.arange(h.shape[0], device=h.device), last_idx], caches
 
 
+def verify_layers_paged(
+    params: Params,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [N, C] last accepted token ++ K draft tokens
+    offsets: torch.Tensor,  # [N] each row's chunk start (its decode position)
+    valid: torch.Tensor,  # [N] real tokens in the chunk (0 = dead row)
+    slots: torch.Tensor,  # [N] page-table row per chunk row
+    tables: torch.Tensor,  # [B, Pmax]
+    caches: list,
+    window: int,
+    page_size: int,
+    quant_kernel: Optional[bool] = None,
+    page_kernel: Optional[bool] = None,
+) -> Tuple[torch.Tensor, list]:
+    """Speculative-decoding verify over the page pool: the chunk pass of
+    ``extend_layers_paged`` with logits at every chunk position, ``[N, C,
+    V]``. Position j's logits are the next-token distribution after the
+    prefix ending at ``offsets + j``. With ``page_kernel`` the K+1 query
+    rows of each row read the pool through ``paged_attention``; the
+    engine sets it where ``supports_geometry(query_len=K+1)`` accepts.
+    Rejected draft rows stay in the pool above the accepted frontier,
+    where the next verify chunk overwrites them before any query attends
+    them."""
+    h, caches = _chunk_layers_paged(
+        params, cfg, tokens, offsets, valid, slots, tables, caches, window,
+        page_size, quant_kernel=quant_kernel, page_kernel=page_kernel,
+    )
+    return _head(params, h, cfg, quant_kernel), caches
+
+
 def decode_layers_paged(
     params: Params,
     cfg: LlamaConfig,
@@ -799,6 +831,78 @@ def extend_layers(
     )
     last_idx = torch.clamp(valid.long(), 1, C) - 1
     return h[torch.arange(h.shape[0], device=h.device), last_idx], caches
+
+
+def verify_layers(
+    params: Params,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [N, C] last accepted token ++ K draft tokens
+    offsets: torch.Tensor,  # [N] absolute write position of each row's chunk
+    valid: torch.Tensor,  # [N] real tokens in this chunk (0 = dead row)
+    slots: torch.Tensor,  # [N] target cache slots
+    caches: list,
+    window: int,  # power of two >= max(offsets) + C
+    quant_kernel: Optional[bool] = None,
+) -> Tuple[torch.Tensor, list]:
+    """Speculative-decoding verify over the fixed caches: the chunk pass
+    of ``extend_layers`` with logits at every chunk position, ``[N, C,
+    V]``: what ``decode_layers`` would give one token at a time, in one
+    dispatch. Writes are ``extend_layers``'s (positions past ``valid`` are
+    value-masked), so rejected draft rows sit above the accepted frontier
+    until the next chunk overwrites them. The attention is the plain
+    chunk attention over the strip, as in JAX."""
+    h, caches = _chunk_layers(
+        params, cfg, tokens, offsets, valid, slots, caches, window, quant_kernel=quant_kernel
+    )
+    return _head(params, h, cfg, quant_kernel), caches
+
+
+def draft_propose_layers(
+    params: Params,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [B, C0] catch-up chunk (tokens past each row's frontier)
+    offsets: torch.Tensor,  # [B] each row's draft-KV frontier
+    valid: torch.Tensor,  # [B] catch-up tokens in the chunk (0 = dead row)
+    caches: list,  # the draft model's fixed-layout caches, one strip per slot
+    window: int,  # power of two covering frontier + C0 + draft_k
+    draft_k: int,
+    vocab: int,  # argmax bound: the target's sampling vocab
+    quant_kernel: Optional[bool] = None,
+) -> Tuple[torch.Tensor, list]:
+    """Resident-draft proposal for the whole decode wave: the catch-up
+    chunk (the tokens the target emitted since each row's frontier, at
+    most K + 1) as one ``_chunk_layers`` pass over the draft caches, whose
+    last logits give draft token 1, then ``draft_k - 1`` greedy
+    ``decode_layers`` steps (``kv_kernel=False``) writing speculative rows
+    above the frontier. Writing the catch-up over the previous round's
+    rejected rows is the acceptance rewind. Returns ``([B, draft_k]
+    proposals, caches)``. Dead rows write nothing in the catch-up and park
+    their steps at row 0 of their own strip; ``vocab`` bounds every argmax
+    to tokens the target can emit."""
+    B, C0 = tokens.shape
+    device = tokens.device
+    S = _cache_len(caches)
+    slot_ids = torch.arange(B, device=device)
+    h, caches = _chunk_layers(
+        params, cfg, tokens, offsets, valid, slot_ids, caches, window, quant_kernel=quant_kernel
+    )
+    valid = valid.long()
+    last_h = h[slot_ids, torch.clamp(valid, 1, C0) - 1][:, None, :]
+    logits = _head(params, last_h, cfg, quant_kernel)[:, 0, :]
+    live = valid > 0
+    tok = torch.argmax(logits[:, :vocab], dim=-1)
+    # the first draft token's row lands right past the caught-up frontier
+    pos = torch.where(live, torch.clamp(offsets.long() + torch.clamp(valid, min=1), max=S - 1), 0)
+    drafts = [tok]
+    for _ in range(draft_k - 1):
+        lg, caches = decode_layers(
+            params, cfg, tok, pos, caches, window=window, quant_kernel=quant_kernel,
+            kv_kernel=False,
+        )
+        tok = torch.argmax(lg[:, :vocab], dim=-1)
+        drafts.append(tok)
+        pos = torch.where(live, torch.clamp(pos + 1, max=S - 1), 0)
+    return torch.stack(drafts, dim=1), caches
 
 
 def decode_layers(

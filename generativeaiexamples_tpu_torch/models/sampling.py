@@ -88,6 +88,25 @@ def gumbel(key: Key, n: int) -> torch.Tensor:
     return -torch.log(-torch.log(u))
 
 
+def nucleus_top_k(scaled: torch.Tensor, K: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The K largest values of each row and their indices, descending, with
+    ``jax.lax.top_k``'s order among equal values: the lower index first.
+    Packed weights give exact ties in the logits (w8a8's integer sums
+    times shared scales), and ``torch.topk`` orders tied values as it
+    likes; the nucleus draw indexes its gumbels by rank, so a tie ranked
+    the other way draws another token. One top-k over an int64 key keeps
+    the order without sorting the row: the f32 value's bits made monotone
+    (a negative value's lower 31 bits flipped: XLA's total order, which
+    ranks -0.0 below 0.0) above the index counted down."""
+    V = scaled.shape[-1]
+    bits = max(1, (V - 1).bit_length())
+    i32 = scaled.float().view(torch.int32)
+    mono = torch.where(i32 < 0, i32 ^ 0x7FFFFFFF, i32).long()
+    rev = (1 << bits) - 1 - torch.arange(V, device=scaled.device)
+    _, idx = torch.topk((mono << bits) | rev, K, dim=-1)
+    return torch.gather(scaled, -1, idx), idx
+
+
 def sample_tokens(
     logits: torch.Tensor,  # [B, V] float32
     temperature: torch.Tensor,  # [B]
@@ -110,7 +129,7 @@ def sample_tokens(
     g = gumbel(keys, scaled.shape[-1])
     full = torch.argmax(g + scaled, dim=-1)
     K = min(NUCLEUS_TOP_K, scaled.shape[-1])
-    top_vals, top_idx = torch.topk(scaled, K, dim=-1)  # descending
+    top_vals, top_idx = nucleus_top_k(scaled, K)
     lse = torch.logsumexp(scaled, dim=-1, keepdim=True)
     top_probs = torch.exp(top_vals - lse)
     mass_before = torch.cumsum(top_probs, dim=-1) - top_probs

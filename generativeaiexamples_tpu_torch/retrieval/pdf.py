@@ -366,9 +366,17 @@ def extract_pdf_images(path: str, max_images: int = 32) -> List[bytes]:
 def _compressed(content: bytes) -> bytes:
     """``content`` deflated at the highest level whose output neither ends
     in an end-of-line byte (the stream pattern drops one before
-    "endstream") nor holds "endstream"."""
-    return next(b for b in (zlib.compress(content, level) for level in range(9, -1, -1))
-                if not b.endswith((b"\r", b"\n")) and b"endstream" not in b)
+    "endstream") nor holds "endstream". The output ends in the content's
+    adler32, the same at every level, so where no level fits, the content
+    takes a trailing space (whitespace to a content stream's parser) and
+    is tried again."""
+    for pad in range(64):
+        padded = content + b" " * pad
+        for level in range(9, -1, -1):
+            body = zlib.compress(padded, level)
+            if not body.endswith((b"\r", b"\n")) and b"endstream" not in body:
+                return body
+    raise ValueError("no deflated form of the content fits a PDF stream")
 
 
 def _pdf_string(text: str) -> str:

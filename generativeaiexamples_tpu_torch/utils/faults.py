@@ -5,8 +5,8 @@ with its grammar, modes and messages; the injected-fault count is a plain
 integer per (site, mode) (``injected``) instead of a metric family.
 
 Production code calls ``fault_point("<site>")`` at named seams:
-``retrieval.search``, ``engine.dispatch``, ``backend.stream``,
-``server.admission`` and ``replica.kill``. The registry decides whether
+``retrieval.search``, ``engine.dispatch``, ``engine.spec_pipeline``,
+``backend.stream``, ``server.admission`` and ``replica.kill``. The registry decides whether
 that call raises, delays or hangs. Disabled (the default), ``fault_point``
 is a single module-global boolean check.
 

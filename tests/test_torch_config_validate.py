@@ -84,6 +84,13 @@ OTHER_CHECKS = [
     ("APP_ENGINE_DRAINTIMEOUTS", "0"),
     ("APP_ENGINE_SNAPSHOTSPOOLDIR", ""),
     ("APP_ENGINE_SNAPSHOTSPOOLMAX", "0"),
+    # speculative decoding
+    ("APP_ENGINE_SPECPIPELINEENABLE", "bogus"),
+    ("APP_ENGINE_SPECPROPOSER", "oracle"),
+    ("APP_ENGINE_SPECDRAFTMINACCEPTANCE", "1.0"),
+    ("APP_ENGINE_SPECADAPTIVEK", "maybe"),
+    ("APP_ENGINE_SPECADAPTIVEKMIN", "0"),
+    ("APP_ENGINE_SPECADAPTIVEKTHRESHOLD", "0.0"),
 ]
 # one bad value for each check of the resilience section (utils/resilience.py)
 RESILIENCE_CHECKS = [

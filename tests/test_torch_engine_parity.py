@@ -7,11 +7,16 @@ and the w8a8 + int8 KV recipe (the weights the JAX engine drew, carried
 over). Both compute in float32,
 and w8a8's products are exact integer sums, so the streams must be
 identical token for token. Each case runs with one decode block in flight
-(``decode_runahead=1``) and again with four on both engines.
+(``decode_runahead=1``) and again with four on both engines. Seeded rows
+run on the packed recipes too: w8a8 + int8 KV as it is, and int8 weights +
+int8 KV with the port's int8 product replaced by the JAX engine's CPU one
+(``int8_matmul_xla``: the scaled weight rounded to bf16 before the dot),
+the reference's other int8 numerics (tests/test_torch_sampling_parity.py).
 
 Slow tier: it builds and compiles a JAX engine."""
 import jax.numpy as jnp
 import pytest
+import torch
 
 from generativeaiexamples_tpu.config import EngineConfig as JaxEngineConfig
 from generativeaiexamples_tpu.engine.llm_engine import LLMEngine as JaxEngine
@@ -20,8 +25,32 @@ from generativeaiexamples_tpu.models import llama as jl
 from generativeaiexamples_tpu_torch.config import EngineConfig
 from generativeaiexamples_tpu_torch.engine.llm_engine import LLMEngine, SamplingParams
 from generativeaiexamples_tpu_torch.models.convert import params_from_jax
+from generativeaiexamples_tpu_torch.ops import int8_matmul as im
 
 pytestmark = pytest.mark.slow
+
+QUANT = {
+    "w8a8-int8": dict(quantization="w8a8", kv_cache_dtype="int8"),
+    "w8a8-int8-seeded": dict(quantization="w8a8", kv_cache_dtype="int8"),
+    "int8-int8-seeded": dict(quantization="int8", kv_cache_dtype="int8"),
+}
+
+
+def _xla_int8_product(x, q, scale):
+    """The JAX engine's int8 product on the CPU (``int8_matmul_xla``)."""
+    K, F = x.shape[-1], scale.shape[-1]
+    w = (q[:K, :F].float() * scale.float()).to(torch.bfloat16)
+    return x @ w.to(x.dtype)
+
+
+def _recipe(recipe, monkeypatch):
+    """(quantization fields, seeded) of a recipe; the int8 one runs the
+    JAX engine's int8 product in the port."""
+    if recipe.startswith("int8-"):
+        monkeypatch.setattr(im, "int8_matmul", _xla_int8_product)
+        monkeypatch.setattr(im, "int8_matmul_dequant", _xla_int8_product)
+    return QUANT.get(recipe, {}), recipe == "seeded" or recipe.endswith("-seeded")
+
 
 COMMON = dict(
     model_config_name="debug", dtype="float32", max_batch_size=2, max_seq_len=128,
@@ -88,14 +117,15 @@ def test_w8a8_int8_kv_streams_match_the_jax_engine():
         port.shutdown()
 
 
-@pytest.mark.parametrize("recipe", ["greedy", "seeded", "w8a8-int8"])
-def test_fixed_layout_streams_match_the_jax_engine(recipe):
+@pytest.mark.parametrize("recipe", ["greedy", "seeded", "w8a8-int8", "w8a8-int8-seeded",
+                                    "int8-int8-seeded"])
+def test_fixed_layout_streams_match_the_jax_engine(recipe, monkeypatch):
     """Both engines on kv_layout='fixed' (one dense strip per slot): the
     monolithic slot write, the chunked extend over the strips and the fixed
-    decode block, greedy, seeded, and w8a8 weights over an int8 head-major
-    cache (both sides read it through the non-kernel dequantized read on
-    the CPU)."""
-    quant = dict(quantization="w8a8", kv_cache_dtype="int8") if recipe == "w8a8-int8" else {}
+    decode block, greedy, seeded, and packed weights over an int8
+    head-major cache (both sides read it through the non-kernel
+    dequantized read on the CPU)."""
+    quant, seeded = _recipe(recipe, monkeypatch)
     jax_engine = JaxEngine(JaxEngineConfig(
         tensor_parallelism=1, kv_layout="fixed", decode_runahead=1, **COMMON, **quant
     ))
@@ -108,7 +138,7 @@ def test_fixed_layout_streams_match_the_jax_engine(recipe):
         assert not port._paged
         for i, prompt in enumerate(PROMPTS):
             kw = dict(temperature=0.0, max_tokens=16)
-            if recipe == "seeded":
+            if seeded:
                 kw = dict(temperature=0.9, top_p=0.8, max_tokens=16, seed=200 + i)
             ref = list(jax_engine.iter_ids(prompt, JaxParams(**kw), timeout=600))
             out = list(port.iter_ids(prompt, SamplingParams(**kw), timeout=600))
@@ -119,12 +149,13 @@ def test_fixed_layout_streams_match_the_jax_engine(recipe):
 
 
 @pytest.mark.parametrize("layout", ["paged", "fixed"])
-@pytest.mark.parametrize("recipe", ["greedy", "seeded", "w8a8-int8"])
-def test_streams_match_the_jax_engine_at_runahead_4(layout, recipe):
+@pytest.mark.parametrize("recipe", ["greedy", "seeded", "w8a8-int8", "w8a8-int8-seeded",
+                                    "int8-int8-seeded"])
+def test_streams_match_the_jax_engine_at_runahead_4(layout, recipe, monkeypatch):
     """The cases above with four decode blocks in flight on both engines:
     each engine's reader emits from slabs dispatched ahead of it, and each
     frees budget-exhausted slots from its host shadows."""
-    quant = dict(quantization="w8a8", kv_cache_dtype="int8") if recipe == "w8a8-int8" else {}
+    quant, seeded = _recipe(recipe, monkeypatch)
     jax_engine = JaxEngine(JaxEngineConfig(
         tensor_parallelism=1, kv_layout=layout, decode_runahead=4, **COMMON, **quant
     ))
@@ -137,7 +168,7 @@ def test_streams_match_the_jax_engine_at_runahead_4(layout, recipe):
         assert port._paged == (layout == "paged")
         for i, prompt in enumerate(PROMPTS):
             kw = dict(temperature=0.0, max_tokens=16)
-            if recipe == "seeded":
+            if seeded:
                 kw = dict(temperature=0.9, top_p=0.8, max_tokens=16, seed=300 + i)
             ref = list(jax_engine.iter_ids(prompt, JaxParams(**kw), timeout=600))
             out = list(port.iter_ids(prompt, SamplingParams(**kw), timeout=600))

@@ -157,6 +157,60 @@ def test_paged_attention_split_edges_match_plain(card, kv_dtype, Dh):
             _assert_rows_close(out, ref, atol=1e-2)
 
 
+@pytest.mark.parametrize("T", [9, 5])
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8", "int4"])
+def test_paged_attention_verify_rows_match_plain(card, kv_dtype, T):
+    """The spec verify's K+1 query rows (T = 9 at spec_draft_len 8, 5 under
+    adaptive K) at llama3-8b's heads: rows whose chunk ends at the row's
+    live length, one crossing a page edge, one crossing a split edge, and
+    a dead row."""
+    gen = torch.Generator(device=card).manual_seed(11)
+    B, Hq, Hkv, Dh, page, pmax = 5, 32, 8, 128, 128, 12
+    st = pa.split_plan(pmax, page)[0]
+    P = 1 + B * pmax
+    dense = [torch.randn((P, page, Hkv, Dh), generator=gen, device=card) for _ in range(2)]
+    if kv_dtype == "bfloat16":
+        (k, v), scales = (t.to(torch.bfloat16) for t in dense), ()
+    else:
+        codec = llama.quantize_kv if kv_dtype == "int8" else llama.quantize_kv_int4
+        (k, ks), (v, vs) = codec(dense[0]), codec(dense[1])
+        scales = (ks, vs)
+    tables = (1 + torch.randperm(B * pmax, generator=gen, device=card)).reshape(B, pmax).int()
+    tables[0] = 0  # a dead row on the scratch page
+    # first query positions: dead, crossing page edge 256, crossing the
+    # split edge, a short row, the table's last rows
+    pos = torch.tensor([0, 2 * page - T // 2, st - 3, 40, pmax * page - T], dtype=torch.int32,
+                       device=card)
+    q = torch.randn((B, T, Hq, Dh), generator=gen, device=card).to(torch.bfloat16)
+    before = pa.paged_attention.launches[kv_dtype]
+    out = pa.paged_attention(q, k, v, tables, pos, *scales)
+    assert pa.paged_attention.launches[kv_dtype] == before + 1
+    _assert_rows_close(out, pa.paged_attention_plain(q, k, v, tables, pos, *scales), atol=1e-2)
+
+
+def test_matmuls_at_the_verify_rows_match_plain(card):
+    """int8_matmul and int8_w8a8_matmul at M = 72 (8 slots x 9 verify rows)
+    on llama3-8b's projections and lm_head."""
+    cfg = llama.PRESETS["llama3-8b"]
+    gen = torch.Generator(device=card).manual_seed(12)
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    M = 72
+    assert M <= im.M_MAX
+    for K, F in ((h, cfg.q_dim + 2 * cfg.kv_dim), (cfg.q_dim, h), (h, 2 * f), (f, h),
+                 (h, cfg.vocab_size)):
+        packed = quant.quantize_int8(torch.randn((K, F), generator=gen, device=card) * 0.05)
+        x = torch.randn((M, K), generator=gen, device=card).to(torch.bfloat16)
+        before = (im.int8_matmul.launches, im.int8_w8a8_matmul.launches)
+        y = im.int8_matmul(x, packed["q"], packed["scale"])
+        y8 = im.int8_w8a8_matmul(x, packed["q"], packed["scale"])
+        assert (im.int8_matmul.launches, im.int8_w8a8_matmul.launches) == (before[0] + 1, before[1] + 1)
+        ref = im.int8_matmul_plain(x, packed["q"], packed["scale"])
+        torch.testing.assert_close(y.float(), ref.float(), rtol=0,
+                                   atol=2.0**-7 * float(ref.abs().max()), msg=f"{K=} {F=}")
+        assert torch.equal(y8, im.int8_w8a8_matmul_plain(x, packed["q"], packed["scale"])), (K, F)
+        del packed
+
+
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("G", [1, 4, 8])
 def test_flash_attention_tiles_match_plain(card, D, G):

@@ -103,6 +103,19 @@ def test_tables_property(grid):
         assert got == [[[c.strip() for c in row] for row in grid]]
 
 
+def test_a_table_whose_deflated_stream_ends_in_an_end_of_line(tmp_path):
+    """A grid whose content stream's adler32 (the last bytes of its deflate
+    output at every level) ends in a line feed: the writer pads the
+    content until a level fits, and both packages read the table back."""
+    grid = [["0", "q", "3\\,bfnsv"], ["h", "dv", "11)boy"], ["m", "z", "09\\,( v"],
+            ["s", ")fx", "01188bknntuv"], ["w", "0clsu", "11)boy"], ["9z", "09ptw", "afmort"],
+            ["17 b", "0,,eepq", "013,, cgjlpz"], ["038dkkmq", "0458)bgklqux", "88(  bhhkyzz"]]
+    content = tpdf.table_ops(grid)
+    assert all(zlib.compress(content, level).endswith(b"\n") for level in range(10))
+    path = _write(tmp_path, "g.pdf", tpdf.write_pdf([(content, [])]))
+    assert _both("extract_pdf_tables", path) == [[[c.strip() for c in row] for row in grid]]
+
+
 def test_prose_is_not_a_table(tmp_path):
     ops = b"BT\n1 0 0 1 72 700 Tm (one line) Tj\n1 0 0 1 72 680 Tm (another line) Tj\nET"
     body = b"<< /Length " + str(len(ops)).encode() + b" >>\nstream\n" + ops + b"\nendstream\n"

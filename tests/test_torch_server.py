@@ -237,7 +237,7 @@ def test_each_jax_engine_variable_has_the_jax_default(env):
 @pytest.mark.parametrize("env,value,item", [
     ("APP_ENGINE_CHECKPOINTPATH", "/w", "queue 1 item 10"),
     ("APP_ENGINE_PIPELINEPARALLELISM", "2", "queue 1 item 9"),
-    ("APP_ENGINE_SPECDECODEENABLE", "on", "queue 1 item 5"),
+    ("APP_ENGINE_SPECDRAFTCHECKPOINTPATH", "/w", "queue 1 item 10"),
 ])
 def test_from_env_refuses_what_the_port_does_not_serve(env, value, item):
     with pytest.raises(ValueError, match=f"{env}={value}: .*{item}"):
@@ -265,6 +265,8 @@ def test_from_env_logs_xla_only_variables_once_and_ignores_them(monkeypatch, cap
        ("APP_ENGINE_SNAPSHOTSPOOLDIR", "/tmp/genai_snapshots"),
        ("APP_ENGINE_SNAPSHOTSPOOLMAX", "64"), ("APP_ENGINE_SCHEDULERPOLICY", "unified"),
        ("APP_ENGINE_HANDOFFQUEUEDEPTH", "0")]
+    + [(EngineConfig.env_name(f.name), str(f.default)) for f in dataclasses.fields(EngineConfig)
+       if f.name.startswith("spec_")]
 ))
 def test_from_env_accepts_jax_defaults_and_what_it_serves_as_it_is(env, value):
     """At its JAX default a variable changes nothing, the prefix cache's,
