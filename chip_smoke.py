@@ -190,8 +190,9 @@ Phases (each one's failure makes the script exit non-zero):
    without the long prompts, the retrieval tier's dispatches a wave and
    the phase wall.
 
-12. spec: speculative decoding at full llama3-8b width and depth (int8
-   packs at seed 0, shared by the recipes; ``max_batch_size`` 8,
+12. spec: speculative decoding at full llama3-8b width, A at full depth
+   and B, C and D at 8 of its 32 layers (int8 packs at seed 0, shared by
+   the recipes; ``max_batch_size`` 8,
    ``max_seq_len`` 8192, page 128, ``prefill_chunk`` 512, ``decode_block``
    8, ``spec_draft_len`` 8), after phase 9: one engine a recipe, its legs
    toggled at runtime (the JAX bench's ``_spec_decode_pass``). Recipe A
@@ -219,10 +220,42 @@ Phases (each one's failure makes the script exit non-zero):
    (the trace's cost), and the provenance: the weights are random, so
    acceptance is not a calibrated draft's.
 
+13. observe: the observability surface at full llama3-8b, recipe A (int8
+   packs at seed 0, a fresh engine built with the dispatch timeline on
+   and ``ENABLE_PROFILING`` set, ``developer_rag``'s LLM chain behind the
+   chain server and the engine server, tracing into a JSONL file): 8
+   ``/generate`` at concurrency 4, each with its own ``traceparent``;
+   ``/metrics`` in both formats on both servers holds exactly the port
+   registry's ``genai_`` families, the TTFT histogram's count equals the
+   requests the engine finished, and an OpenMetrics exemplar's trace id is
+   a sent ``traceparent`` found in the JSONL export; one request's
+   ``/internal/requests/{id}`` holds JAX's chain from ``http_request`` to
+   ``finish`` in order; ``/internal/timeline?format=perfetto`` parses as a
+   Chrome trace with dispatch spans, and the four shares of the engine's
+   active wall, recomputed from the served spans of the bubble's window,
+   each equal to the served 4-digit share within its rounding; a profile
+   through ``/internal/profile/start`` and ``/stop`` over 2 requests holds
+   ``int8_matmul_mma``, a ``paged_`` kernel and ``flash_attention_kernel``
+   on its device track and, kernel by kernel, as many events as the
+   wrappers launched (captured again, up to 3 times, when CUPTI drops
+   events), prints busy and wall ms (busy <= wall) and the idle share, and
+   reads back through ``/internal/timeline?trace=``;
+   ``genai_engine_mfu_ratio`` and ``genai_engine_hbm_bw_ratio`` lie in
+   (0, 1.05]; the dispatch thread makes no synchronizing call; then the
+   host cost: a second engine on the same weights with the flight
+   recorder, the timeline, tracing and profiling off, 3 pairs of 8 greedy
+   requests x 64 tokens in turns, the median wall step (the reader's
+   decode time a block) of each and its spread; and 2 more batches on the
+   observed engine with every instrument's entry point timed
+   (``_HostCostMeter``): the instruments' host time per dispatch on the
+   dispatch thread, per token on the reader, and both a block against the
+   wall step. It prints the phase's wall time (a budget of 90 s).
+
 With no arguments it runs every phase, as above; ``--phases``,
 ``--checks`` and ``--recipes`` run a part (for example ``--phases serve
---recipes B``, ``--phases chains``, ``--phases filechains`` or ``--phases
-drain``) and then print only the kernels that part measured;
+--recipes B``, ``--phases chains``, ``--phases filechains``, ``--phases
+drain`` or ``--phases observe``) and then print only the kernels that
+part measured;
 ``--runahead N`` serves every engine at ``decode_runahead`` N, and
 ``--timing-only`` leaves out the runahead and overload checks (for timed
 runs of an older tree, which lacks them).
@@ -237,13 +270,17 @@ import collections
 import dataclasses
 import gc
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
+import urllib.parse
 import urllib.request
 import warnings
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -257,7 +294,7 @@ from generativeaiexamples_tpu_torch.ops import decode_attention as da
 from generativeaiexamples_tpu_torch.ops import flash_attention as fa
 from generativeaiexamples_tpu_torch.ops import int8_matmul as im
 from generativeaiexamples_tpu_torch.ops import page_attention as pa
-from generativeaiexamples_tpu_torch.utils import hardware
+from generativeaiexamples_tpu_torch.utils import device_trace, hardware
 
 MODEL = "llama3-8b"
 _PAGED = "generativeaiexamples_tpu/ops/page_attention.py:88"
@@ -278,7 +315,6 @@ KERNELS = {
 # whether the engine has the reader thread (an older tree's engine, timed
 # against this one, decodes synchronously)
 _HAS_READER = "decode_runahead" in EngineConfig.__dataclass_fields__
-_COUNTED = (im.int8_matmul, im.int8_w8a8_matmul, fa.flash_attention_causal, da.decode_attention)
 # the serving recipes: (name, quantization, kv_cache_dtype, kv_layout, kernels its path must launch)
 RECIPES = (
     ("A", "int8", "bfloat16", "paged",
@@ -296,18 +332,10 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def reset_counts() -> None:
-    for fn in _COUNTED:
-        fn.launches = 0
-    for kv in pa.paged_attention.launches:
-        pa.paged_attention.launches[kv] = 0
-
-
-def counts() -> dict:
-    out = {fn.__name__: fn.launches for fn in _COUNTED}
-    for kv, n in pa.paged_attention.launches.items():
-        out[f"paged_attention[{kv}]"] = n
-    return out
+# every kernel wrapper's launch count (utils/device_trace.py reads them,
+# as the serving process's profile route does)
+reset_counts = device_trace.reset_launch_counts
+counts = device_trace.launch_counts
 
 
 class Timer:
@@ -1147,20 +1175,14 @@ def device_step_ms(engine) -> list:
     return sorted(times), launches
 
 
-# the port's kernels by the names of their __global__ functions (every
-# W8A8 kernel name starts "w8a8_")
-_PORT_KERNEL_NAMES = re.compile(
-    r"int8_matmul_mma|w8a8_|paged_(split|merge)_kernel|flash_attention_kernel|decode_split_kernel")
-
-
 def launches_per_step(step) -> dict:
     """Kernel launches of one decode step: those torch.profiler's device
     trace shows, split into PyTorch's and the port's, and the port's
-    wrapper calls by their launch counts (the trace may miss launches from
-    the ctypes-loaded libraries)."""
+    kernel launches as the wrappers counted them (the trace may miss
+    launches from the ctypes-loaded libraries)."""
     from torch.profiler import ProfilerActivity, profile
 
-    before = sum(counts().values())
+    before = sum(device_trace.kernel_counts().values())
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             step()
@@ -1168,11 +1190,11 @@ def launches_per_step(step) -> dict:
     except Exception as exc:  # noqa: BLE001 - a measurement, reported as not measured
         log(f"  launches per step: not measured ({exc!r})")
         return {}
-    calls = sum(counts().values()) - before
+    calls = sum(device_trace.kernel_counts().values()) - before
     names = [e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA
              and not e.name.startswith(("Memcpy", "Memset"))]
-    port = sum(1 for n in names if _PORT_KERNEL_NAMES.search(n))
+    port = sum(1 for n in names if device_trace.PORT_KERNEL_NAMES.search(n))
     return {"torch": len(names) - port, "port_seen": port, "port_calls": calls,
             "total": len(names) - port + max(port, calls)}
 
@@ -2058,17 +2080,19 @@ def _http(base, method, path, body=None, raw=None, ctype="application/json", tim
         return exc.code, exc.read().decode()
 
 
-def _generate_stream(base, query, kb, max_tokens=64, history=(), temperature=None):
+def _generate_stream(base, query, kb, max_tokens=64, history=(), temperature=None,
+                     headers=None):
     """One streamed /generate, ``history`` (role, content) pairs before the
-    query: (frames, seconds to the first answer frame (the [DONE] frame
-    when no text came), seconds to the end)."""
+    query, ``headers`` added to the request: (frames, seconds to the first
+    answer frame (the [DONE] frame when no text came), seconds to the
+    end)."""
     messages = [{"role": r, "content": c} for r, c in history]
     body = {"messages": messages + [{"role": "user", "content": query}],
             "use_knowledge_base": kb, "max_tokens": max_tokens}
     if temperature is not None:
         body["temperature"] = temperature
     req = urllib.request.Request(base + "/generate", data=json.dumps(body).encode(),
-                                 headers={"Content-Type": "application/json"})
+                                 headers={"Content-Type": "application/json", **(headers or {})})
     t0 = time.perf_counter()
     frames, first = [], None
     with urllib.request.urlopen(req, timeout=600) as resp:
@@ -2129,31 +2153,6 @@ def _prefix_counts(before, after) -> dict:
     (the chains' preambles are shorter than a prefill chunk: few hits)."""
     return {k: after.get("prefix_cache_" + k, 0) - before.get("prefix_cache_" + k, 0)
             for k in ("hits", "misses")}
-
-
-def _device_spans(prof) -> list:
-    """(start, end) in microseconds of every device event of a finished
-    torch.profiler trace, from its raw Kineto events (building the
-    FunctionEvent tree takes minutes for a few hundred thousand)."""
-    cuda = torch.autograd.DeviceType.CUDA
-    return [(e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3)
-            for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
-
-
-def _busy_ms(spans) -> float:
-    """Length of the union of the intervals ``spans`` (us), in ms."""
-    spans = sorted(spans)
-    busy, cur_s, cur_e = 0.0, None, None
-    for a, b in spans:
-        if cur_e is None or a > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = a, b
-        else:
-            cur_e = max(cur_e, b)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    return busy / 1e3
 
 
 def _rag_deploy(encoders=None) -> dict:
@@ -2507,8 +2506,8 @@ def phase_rag(dev, smi, seed=0, encoders=None, keep=False):
         out["idle_share"] = None
         if prof is not None:
             try:
-                kernels = _device_spans(prof)
-                busy = _busy_ms(kernels)
+                kernels = [(a, b) for _, a, b in device_trace.profile_events(prof)]
+                busy = device_trace.busy_ms(kernels)
                 out["idle_share"] = max(0.0, 1.0 - busy / (wall2 * 1e3))
                 out["device_busy_ms"], out["traced_round_s"] = busy, wall2
                 note(f"device over a second traced round ({len(kernels)} device events): busy "
@@ -4277,6 +4276,12 @@ def phase_drain(dev, smi, seed=0, dep=None, encoders=None) -> dict:
 # bench's _spec_decode_pass, its requests run together here); B, C and D
 # (one verify each on another pool or layout) 4 requests of 64 tokens
 SPEC_TRAFFIC = {"A": (6, 96), "B": (4, 64), "C": (4, 64), "D": (4, 64)}
+# B, C and D run their legs at a quarter of llama3-8b's depth (its width,
+# the first 8 of A's 32 layers of packs), A at full depth: the script
+# stays near 750 s with phase 13 added (phase 12 took 218-296 s at full
+# depth for every recipe)
+SPEC_CUT_LAYERS = 8
+SPEC_CUT_RECIPES = ("B", "C", "D")
 SPEC_SEEDED_TOKENS = 24
 SPEC_DRAFT_MODEL = "llama3-1b-proxy"
 # recipe -> (legs, prompt sets); a leg is (name, proposer or None for off,
@@ -4338,52 +4343,6 @@ class _ShapeLog:
         return False
 
 
-class _DeviceWindow:
-    """torch.profiler's CUDA trace of a timed window (``trace``; else the
-    wall clock alone). The trace runs from ``__enter__`` to a device
-    synchronize at ``__exit__``: ``wall_ms`` is the host clock over it,
-    ``busy_ms`` the union of its device events (a kernel launched before
-    it opened is not in it) and ``events`` their count. Both None (not
-    measured) where the trace holds fewer of the port's kernels than its
-    wrappers launched meanwhile: CUPTI can drop every event of a
-    session."""
-
-    def __init__(self, trace: bool = True):
-        self.trace = trace
-        self.wall_ms = self.busy_ms = self.events = None
-
-    def __enter__(self):
-        self._prof = None
-        if self.trace:
-            from torch.profiler import ProfilerActivity, profile
-
-            self._prof = profile(activities=[ProfilerActivity.CUDA])
-            self._prof.__enter__()
-        self._launched = sum(counts().values())
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        launched = sum(counts().values()) - self._launched
-        torch.cuda.synchronize()  # every launch of the window is in the trace
-        self.wall_ms = (time.perf_counter() - self._t0) * 1e3
-        if self._prof is None:
-            return False
-        self._prof.__exit__(*exc)
-        if exc[0] is not None:
-            return False
-        cuda = torch.autograd.DeviceType.CUDA
-        events = [(e.name(), e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3)
-                  for e in self._prof.profiler.kineto_results.events() if e.device_type() == cuda]
-        port = sum(1 for name, _, _ in events if _PORT_KERNEL_NAMES.search(name))
-        if port < launched:
-            log(f"    device trace: not measured (it holds {port} port kernels of the {launched} "
-                f"launched, {len(events)} device events)")
-            return False
-        self.busy_ms, self.events = _busy_ms([(a, b) for _, a, b in events]), len(events)
-        return False
-
-
 def _spec_set(engine, name, leg, set_name, trace=True) -> dict:
     """One prompt set on one leg: the recipe's greedy requests together
     (their decode timed on the host clock from the moment each has its
@@ -4404,11 +4363,15 @@ def _spec_set(engine, name, leg, set_name, trace=True) -> dict:
         if time.time() > deadline:
             raise AssertionError(f"spec {name} {leg} {set_name}: no first tokens in 600 s")
         time.sleep(0.001)
-    with _DeviceWindow(trace) as win:
+    with device_trace.DeviceWindow(trace) as win:
         s1 = engine.stats()
         for r in reqs:
             _drain_ids(r.out_queue)
         s2 = engine.stats()
+    if win.result is not None and not win.result["complete"]:
+        log(f"    device trace: not measured (it holds {win.result['port_kernels_in_trace']} port "
+            f"kernels of the {win.result['port_launches']} launched, "
+            f"{win.result['device_events']} device events)")
     outs = [list(r.emitted) for r in reqs]  # the stop token included, as emitted
     ttft = list(engine._ttft)[n_ttft:]
     _settle(engine)
@@ -4489,14 +4452,16 @@ def _summary(r) -> dict:
     return {k: v for k, v in r.items() if k not in ("outs", "sampled", "prompts")}
 
 
-def spec_recipe(dev, smi, name, quantization, kv_dtype, layout, params=None) -> tuple:
-    """One recipe's legs on one engine, toggled between legs at runtime
-    (one set of target weights serves every leg): every leg's greedy and
-    seeded streams against the ``off`` leg's, each set's decode traced."""
+def spec_recipe(dev, smi, name, quantization, kv_dtype, layout, params=None,
+                model=MODEL) -> tuple:
+    """One recipe's legs on one engine of the preset ``model``, toggled
+    between legs at runtime (one set of target weights serves every leg):
+    every leg's greedy and seeded streams against the ``off`` leg's, each
+    set's decode traced."""
     from generativeaiexamples_tpu_torch.engine.llm_engine import LLMEngine
 
     legs, sets = SPEC_PLAN[name]
-    cfg = EngineConfig(model_config_name=MODEL, quantization=quantization, kv_cache_dtype=kv_dtype,
+    cfg = EngineConfig(model_config_name=model, quantization=quantization, kv_cache_dtype=kv_dtype,
                        kv_layout=layout, max_batch_size=8, max_seq_len=8192, page_size=128,
                        prefill_chunk=512, decode_block=8,
                        spec_draft_model=SPEC_DRAFT_MODEL if name == "A" else "")
@@ -4507,7 +4472,7 @@ def spec_recipe(dev, smi, name, quantization, kv_dtype, layout, params=None) -> 
         if engine.device.type == "cuda" and engine._paged and not engine._verify_kernel:
             raise AssertionError(f"spec {name}: the page kernel refuses the verify's rows")
         log(f"  {name}: engine built in {time.time() - t0:.1f} s "
-            f"({quantization} weights, {kv_dtype} {layout} KV, K={engine._spec_draft}; "
+            f"({model}, {quantization} weights, {kv_dtype} {layout} KV, K={engine._spec_draft}; "
             f"{SPEC_TRAFFIC[name][0]} requests x {SPEC_TRAFFIC[name][1]} tokens a set)")
         ref = None
         for leg, proposer, pipelined in legs:
@@ -4608,13 +4573,23 @@ def spec_recipe(dev, smi, name, quantization, kv_dtype, layout, params=None) -> 
 
 def phase_spec(dev, smi) -> dict:
     """Speculative decoding at full llama3-8b (module docstring, phase 12)."""
+    from generativeaiexamples_tpu_torch.models import llama
+
     t0 = time.time()
     out = {"recipes": {}, "provenance": SPEC_PROVENANCE}
     launches = collections.Counter()
     weights = None
+    cut = f"{MODEL}-{SPEC_CUT_LAYERS}-layers"
+    llama.PRESETS[cut] = dataclasses.replace(llama.PRESETS[MODEL], num_layers=SPEC_CUT_LAYERS)
     for name, quantization, kv_dtype, layout, _ in RECIPES:
-        # A, C and D share int8 packs; B (w8a8) serves the same packs
-        res, weights = spec_recipe(dev, smi, name, quantization, kv_dtype, layout, weights)
+        # A, C and D share int8 packs; B (w8a8) serves the same packs; the
+        # cut recipes take the first layers of A's
+        model = MODEL
+        if name in SPEC_CUT_RECIPES:
+            model = cut
+            weights = dict(weights, layers=weights["layers"][:SPEC_CUT_LAYERS])
+        res, weights = spec_recipe(dev, smi, name, quantization, kv_dtype, layout, weights,
+                                   model=model)
         launches.update(res.pop("launches"))
         out["recipes"][name] = res
     del weights
@@ -4622,8 +4597,496 @@ def phase_spec(dev, smi) -> dict:
     torch.cuda.empty_cache()
     out["launches"] = dict(launches)
     out["wall_s"] = time.time() - t0
-    log(f"  provenance: {SPEC_PROVENANCE}")
+    log(f"  provenance: {SPEC_PROVENANCE}; {', '.join(SPEC_CUT_RECIPES)} at "
+        f"{SPEC_CUT_LAYERS} of {llama.PRESETS[MODEL].num_layers} layers")
     log(f"phase spec: ok ({out['wall_s']:.1f} s on {smi})")
+    return out
+
+
+# --------------------------------------------------------------------- #
+# Phase 13: observability
+
+# recipe A through both servers, everything the JAX defaults switch on
+OBSERVE_ENV = {
+    "EXAMPLE_NAME": "developer_rag",
+    "APP_LLM_MODELENGINE": "tpu",
+    "APP_EMBEDDINGS_MODELENGINE": "hash",
+    "APP_ENGINE_MODELCONFIGNAME": MODEL,
+    "APP_ENGINE_QUANTIZATION": "int8",
+    "APP_ENGINE_KVCACHEDTYPE": "bfloat16",
+    "APP_ENGINE_KVLAYOUT": "paged",
+}
+OBSERVE_REQUESTS, OBSERVE_TOKENS = 8, 64  # /generate requests (4 at a time) x tokens
+OBSERVE_PROFILE_TOKENS = 8  # each of the 2 profiled requests: one decode block
+OBSERVE_PROFILE_TRIES = 3  # CUPTI can drop a session's events: capture again
+OBSERVE_PAIRS, OBSERVE_BATCH = 3, (8, 64)  # host-cost pairs; greedy requests x tokens a batch
+OBSERVE_METERED = 2  # batches of the observed engine under _HostCostMeter
+# a /generate record's events from the request to its end, in JAX's order
+OBSERVE_CHAIN = ("http_request", "admitted", "submit", "admit", "page_alloc", "prefill_wave",
+                 "decode_join", "first_token", "engine_finish", "finish")
+OBSERVE_KERNELS = ("int8_matmul_mma", "paged_(split|merge)_kernel", "flash_attention_kernel")
+OBSERVE_WORDS = ("page", "pool", "token", "slot", "kernel", "batch", "prefix", "cache", "decode",
+                 "wave", "chunk", "layer", "head", "score", "span", "trace")
+
+
+def _observe_query(rng) -> str:
+    """A question of 30-45 words: with ``developer_rag``'s system prompt
+    and the chat template, under the 512-id prefill bucket (60 words make
+    about 512 byte ids), so its prefill is one monolithic wave (the flash
+    kernel's)."""
+    return " ".join(rng.choice(OBSERVE_WORDS, size=rng.randint(30, 46)))
+
+
+def _metric_value(text: str, name: str) -> float:
+    """An unlabeled sample's value in a text exposition."""
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    raise AssertionError(f"/metrics has no sample {name}")
+
+
+def _observe_batch(engine, prompts, tokens) -> dict:
+    """One held wave of greedy requests: the reader's decode wall time a
+    block (the wall step) and the batch's wall time."""
+    from generativeaiexamples_tpu_torch.engine.llm_engine import SamplingParams
+
+    s0 = engine.stats()
+    t0 = time.perf_counter()
+    with engine.hold_admissions():
+        reqs = [engine.submit(p, SamplingParams(temperature=0.0, max_tokens=tokens))
+                for p in prompts]
+    outs = [_drain_ids(r.out_queue) for r in reqs]
+    wall = time.perf_counter() - t0
+    s1 = engine.stats()
+    blocks = s1["decode_blocks"] - s0["decode_blocks"]
+    return {"outs": outs, "batch_s": wall, "blocks": blocks,
+            "dispatches": s1["decode_dispatches"] - s0["decode_dispatches"],
+            "tokens": s1["tokens_generated"] - s0["tokens_generated"],
+            "wall_step_ms": (s1["decode_time_s"] - s0["decode_time_s"]) / max(1, blocks) * 1e3}
+
+
+class _HostCostMeter:
+    """The host time spent inside the port's observability calls while the
+    meter is open, by thread: metric updates (counters, gauges, histograms,
+    label lookups), flight-recorder events, SLO samples, dispatch-timeline
+    spans, telemetry records and ``record_function`` labels. Each entry
+    point is wrapped by a timer; only the outermost instrument call on a
+    thread is timed (one that calls another counts once). The wrapper's own
+    two clock reads fall inside what it times; the arguments the engine
+    builds for a call (a span's rid list, ``time.time()``) fall outside."""
+
+    def __init__(self):
+        self.seconds = collections.Counter()
+        self.calls = collections.Counter()
+        self.by_entry = collections.Counter()  # (thread, entry point) -> seconds
+        self._local = threading.local()
+        self._saved = []
+
+    @staticmethod
+    def _targets():
+        from torch.profiler import record_function
+
+        from generativeaiexamples_tpu_torch.engine import dispatch_timeline, telemetry
+        from generativeaiexamples_tpu_torch.utils import flight_recorder, slo
+        from generativeaiexamples_tpu_torch.utils import metrics as m
+
+        return [
+            (m._CounterChild, ("inc",)), (m._GaugeChild, ("set", "inc", "dec")),
+            (m._HistogramChild, ("observe",)), (m._MetricFamily, ("labels",)),
+            (m.Counter, ("inc",)), (m.Gauge, ("set", "inc", "dec")), (m.Histogram, ("observe",)),
+            (flight_recorder, ("start", "current", "event", "map_rid", "event_rid", "finish",
+                               "finish_rid")),
+            (flight_recorder.RequestRecord, ("event",)),
+            (slo, ("observe_latency", "observe_event")),
+            (dispatch_timeline, ("record_span", "record_stall", "record_readback",
+                                 "record_pipeline_flush", "record_rollback")),
+            (telemetry.UtilizationEstimator, ("record_dispatch", "record_readback")),
+            (record_function, ("__init__", "__enter__", "__exit__")),
+        ]
+
+    def _timed(self, fn, entry):
+        local, seconds, calls, by_entry = self._local, self.seconds, self.calls, self.by_entry
+
+        def timed(*args, **kwargs):
+            if getattr(local, "inside", False):
+                return fn(*args, **kwargs)
+            local.inside = True
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                took = time.perf_counter() - t0
+                name = threading.current_thread().name
+                seconds[name] += took
+                calls[name] += 1
+                by_entry[name, entry] += took
+                local.inside = False
+
+        return timed
+
+    def __enter__(self):
+        for owner, attrs in self._targets():
+            for attr in attrs:
+                fn = owner.__dict__[attr]
+                self._saved.append((owner, attr, fn))
+                setattr(owner, attr, self._timed(fn, f"{owner.__name__.rsplit('.', 1)[-1]}.{attr}"))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in reversed(self._saved):
+            setattr(owner, attr, fn)
+        self._saved.clear()
+        return False
+
+
+def phase_observe(dev, smi, seed=0) -> dict:
+    """Observability at full llama3-8b, recipe A (module docstring, phase
+    13): a fresh engine behind both servers with tracing into a JSONL
+    file and profiling on, then the host-cost pair."""
+    import os
+    import shutil
+    import tempfile
+
+    from generativeaiexamples_tpu_torch.chains import runtime
+    from generativeaiexamples_tpu_torch.chains.developer_rag import QAChatbot
+    from generativeaiexamples_tpu_torch.config import get_config
+    from generativeaiexamples_tpu_torch.engine import dispatch_timeline, llm_engine
+    from generativeaiexamples_tpu_torch.engine import server as engine_server
+    from generativeaiexamples_tpu_torch.engine.llm_engine import LLMEngine
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.ops import quant
+    from generativeaiexamples_tpu_torch.server.api import make_server
+    from generativeaiexamples_tpu_torch.utils import flight_recorder, tracing
+    from generativeaiexamples_tpu_torch.utils import metrics as metrics_mod
+
+    t0 = time.time()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_observe_")
+    spans_path = os.path.join(tmp, "spans.jsonl")
+    env = dict(OBSERVE_ENV, ENABLE_TRACING="true", TRACE_EXPORTER="jsonl",
+               TRACE_JSONL_PATH=spans_path, ENABLE_PROFILING="true",
+               PROFILE_LOG_DIR=os.path.join(tmp, "profiles"),
+               APP_VECTORSTORE_PERSISTDIR=os.path.join(tmp, "store"),
+               APP_BLACKBOX_DIR=os.path.join(tmp, "blackbox"))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    get_config.cache_clear()
+    runtime.reset_runtime()
+    runtime.set_device(None)
+    tracing.reset_tracer()  # rebuilt on first use: a Tracer exporting to spans_path
+    flight_recorder.reset()
+    dispatch_timeline.reset()
+    dispatch_timeline.configure(enable=True)
+    registry = metrics_mod.get_registry()
+    rng = np.random.RandomState(seed + 13)
+    servers, engines, out = [], [], {"smi": smi}
+    try:
+        params = quant.init_packed_params_int8(llama.PRESETS[MODEL], seed, torch.bfloat16, dev)
+        ecfg = EngineConfig(model_config_name=MODEL, quantization="int8",
+                            kv_cache_dtype="bfloat16", kv_layout="paged")
+        t_build = time.time()
+        # built with the timeline on and ENABLE_PROFILING set: both resolve at init
+        engine = LLMEngine(ecfg, device=dev, params=params)
+        engines.append(engine)
+        out["engine_build_s"] = time.time() - t_build
+        with llm_engine._ENGINE_LOCK:
+            llm_engine._ENGINE = engine
+        # make_server validates and configures the observability sections
+        for srv in (make_server("127.0.0.1", 0, QAChatbot),
+                    engine_server.make_server("127.0.0.1", 0, engine=engine)):
+            th = threading.Thread(target=srv.serve_forever, name="smoke-observe-server",
+                                  daemon=True)
+            th.start()
+            servers.append((srv, th))
+        chain_base, model_base = (f"http://127.0.0.1:{srv.server_address[1]}"
+                                  for srv, _ in servers)
+        ttft0 = registry.get("genai_engine_ttft_seconds").count
+        req0 = registry.get("genai_engine_requests_total").value
+        reset_counts()
+        with SyncCounter() as syncs:
+            # 1. 8 /generate, 4 at a time, each with its own traceparent
+            traces = ["".join(f"{x:08x}" for x in rng.randint(1, 2**31, size=4))
+                      for _ in range(OBSERVE_REQUESTS)]
+            queries = [_observe_query(rng) for _ in traces]
+            ttfts = []
+            for wave in (range(0, 4), range(4, OBSERVE_REQUESTS)):
+                res = _concurrently({
+                    str(i): (lambda i=i: _generate_stream(
+                        chain_base, queries[i], False, OBSERVE_TOKENS,
+                        headers={"traceparent": f"00-{traces[i]}-00f067aa0ba902b7-01"}))
+                    for i in wave})
+                for i in wave:
+                    frames, first, _ = res[str(i)]
+                    if (frames[-1].get("choices") or [{}])[0].get("finish_reason") != "[DONE]":
+                        raise AssertionError(f"/generate {i} did not end with [DONE]: {frames[-1]}")
+                    ttfts.append(first)
+            # 2. /metrics in both formats on both servers
+            names = {f.name for f in registry.families()}
+            finished = registry.get("genai_engine_ttft_seconds").count - ttft0
+            submitted = registry.get("genai_engine_requests_total").value - req0
+            exemplars = set()
+            for base in (chain_base, model_base):
+                for om in (False, True):
+                    req = urllib.request.Request(base + "/metrics", headers={
+                        "Accept": "application/openmetrics-text" if om else "text/plain"})
+                    with urllib.request.urlopen(req, timeout=60) as resp:
+                        ctype, text = resp.headers["Content-Type"], resp.read().decode()
+                    if om != ctype.startswith("application/openmetrics-text"):
+                        raise AssertionError(f"{base}/metrics answered {ctype}")
+                    fams = {line.split()[2] for line in text.splitlines()
+                            if line.startswith("# TYPE ")}
+                    fams = {n if n in names else n + "_total" for n in fams}
+                    if fams != names:
+                        raise AssertionError(f"/metrics families differ from the registry's: "
+                                             f"{sorted(fams ^ names)}")
+                    count = _metric_value(text, "genai_engine_ttft_seconds_count") - ttft0
+                    if count != finished or finished != OBSERVE_REQUESTS:
+                        raise AssertionError(f"TTFT count {count}, engine finished {finished}, "
+                                             f"sent {OBSERVE_REQUESTS}")
+                    if om:
+                        exemplars |= set(re.findall(r'# \{trace_id="([0-9a-f]{32})"\}', text))
+                    else:
+                        out["mfu_ratio"] = _metric_value(text, "genai_engine_mfu_ratio")
+                        out["hbm_bw_ratio"] = _metric_value(text, "genai_engine_hbm_bw_ratio")
+            tracing.get_tracer().force_flush()
+            with open(spans_path) as fh:
+                exported = {json.loads(line)["trace_id"] for line in fh if line.strip()}
+            linked = exemplars & exported & set(traces)
+            if not linked:
+                raise AssertionError(f"no exemplar trace id is a sent and exported trace: "
+                                     f"{len(exemplars)} exemplars, {len(exported)} exported")
+            log(f"  /metrics: {len(names)} genai_ families on both servers in both formats; "
+                f"TTFT count {finished:.0f} = requests finished ({submitted:.0f} submitted); "
+                f"{len(linked)} exemplar trace ids are sent traceparents in the JSONL export "
+                f"({len(exported)} traces exported)")
+            # 3. one request's timeline, JAX's chain in order
+            status, text = _http(chain_base, "GET", f"/internal/requests?trace={traces[0]}")
+            (tl,) = json.loads(text)["timelines"]
+            status, text = _http(chain_base, "GET", f"/internal/requests/{tl['request_id']}")
+            events = [e["event"] for e in json.loads(text)["timeline"]]
+            it = iter(events)
+            if status != 200 or not all(kind in it for kind in OBSERVE_CHAIN):
+                raise AssertionError(f"request timeline {events} lacks JAX's chain {OBSERVE_CHAIN}")
+            log(f"  /internal/requests/{{id}}: {' -> '.join(events)}")
+            # 4. the dispatch timeline as a Chrome trace, and its bubble
+            status, text = _http(chain_base, "GET",
+                                 "/internal/timeline?format=perfetto&limit=4096")
+            trace_doc = json.loads(text)
+            dispatches = [e for e in trace_doc["traceEvents"]
+                          if e.get("ph") == "X" and e.get("cat") == "dispatch"]
+            status, text = _http(chain_base, "GET", "/internal/timeline?limit=4096")
+            tl_doc = json.loads(text)
+            bubble = tl_doc["bubble"]
+            # the four shares recomputed from the served spans, over the spans of
+            # the served bubble's window (the newest n by their end, compiles
+            # left out), each held to the served share it rounds to 4 digits
+            spans = sorted((sp for sp in tl_doc["spans"] if sp["category"] != "compile"),
+                           key=lambda sp: sp["t_wall"] + sp["lock_wait_s"]
+                           + sp.get("launch_s", sp.get("device_est_s", 0.0)))
+            n_win = bubble.get("bubble_spans_in_window", 0)
+            if len(tl_doc["spans"]) >= 4096 or not 0 < n_win <= len(spans):
+                raise AssertionError(f"timeline: {len(tl_doc['spans'])} spans served, the "
+                                     f"bubble's window holds {n_win}")
+            comp = {"device": 0.0, "lock": 0.0, "gap": 0.0, "readback": 0.0}
+            for sp in spans[len(spans) - n_win:]:
+                run = sp.get("launch_s", sp.get("device_est_s", 0.0))
+                if sp["category"] == "dispatch":
+                    comp["device"] += run
+                    comp["lock"] += sp["lock_wait_s"]
+                    comp["gap"] += sp["gap_s"]
+                elif sp["category"] == "stall":
+                    comp["gap"] += run
+                elif sp["category"] == "readback":
+                    comp["readback"] += run
+            total = sum(comp.values())
+            fractions = {k: v / total for k, v in comp.items()}
+            # 4-digit rounding of a share, plus the span views' 6-digit rounding
+            # (up to 3 terms of 5e-7 s a span) over the active wall, twice
+            tol = 5e-5 + 2 * 3 * 5e-7 * n_win / total
+            diffs = {k: abs(fractions[k] - bubble[f"bubble_{k}_ratio"]) for k in comp}
+            if not dispatches or max(diffs.values()) > tol or \
+                    bubble.get("bubble_run_kind") != "launch":
+                raise AssertionError(f"timeline: {len(dispatches)} dispatch spans, shares "
+                                     f"{fractions} against the served {bubble} (tolerance "
+                                     f"{tol:.3g})")
+            out["bubble"] = {k: round(v, 6) for k, v in fractions.items()}
+            log(f"  /internal/timeline: {len(dispatches)} dispatch spans in the Chrome trace; "
+                f"shares of the engine's active wall over the window's {n_win} spans: "
+                + ", ".join(f"{k} {v:.6f} (served {bubble[f'bubble_{k}_ratio']:.4f})"
+                            for k, v in fractions.items())
+                + f", each within {tol:.3g} of the served share; 'device' is launch time on "
+                f"the card")
+            # 5. a profile over 2 requests through the routes
+            for attempt in range(1, OBSERVE_PROFILE_TRIES + 1):
+                pair = [_observe_query(rng) for _ in range(2)]
+                status, text = _http(chain_base, "POST", "/internal/profile/start", raw=b"")
+                if status != 200:
+                    raise AssertionError(f"/internal/profile/start: {status} {text}")
+                _concurrently({str(i): (lambda i=i: _generate_stream(
+                    chain_base, pair[i], False, OBSERVE_PROFILE_TOKENS)) for i in range(2)})
+                status, text = _http(chain_base, "POST", "/internal/profile/stop", raw=b"")
+                prof = json.loads(text)
+                if status != 200:
+                    raise AssertionError(f"/internal/profile/stop: {status} {text}")
+                names_seen = {n for n, _, _ in device_trace.chrome_trace_events(prof["trace"])}
+                found = {k: any(re.search(k, n) for n in names_seen) for k in OBSERVE_KERNELS}
+                log(f"  profile {attempt}: complete {prof['complete']} ({prof['port_kernels_in_trace']} "
+                    f"port kernels in the trace of {prof['port_launches']} launched; by kernel "
+                    f"{prof['kernels_in_trace']} in the trace of {prof['kernels_launched']} "
+                    f"launched; {prof['device_events']} device events; not measured: "
+                    f"{prof['not_measured']}); kernels {found}")
+                busy = prof["busy_ms"]
+                if all(found.values()) and prof["complete"] and busy is not None:
+                    if busy > prof["wall_ms"]:
+                        raise AssertionError(f"profile: busy {busy} ms over a wall of "
+                                             f"{prof['wall_ms']} ms")
+                    break
+            else:
+                raise AssertionError(f"no complete, measured profile holding {OBSERVE_KERNELS} "
+                                     f"in {OBSERVE_PROFILE_TRIES} captures")
+            out["profile"] = {k: prof[k] for k in ("complete", "port_kernels_in_trace",
+                                                   "port_launches", "kernels_in_trace",
+                                                   "kernels_launched", "device_events", "busy_ms",
+                                                   "wall_ms", "idle_share", "kernels_ms")}
+            out["profile"]["captures"] = attempt
+            by_name = collections.Counter()
+            for name, a, b in device_trace.chrome_trace_events(prof["trace"]):
+                by_name[name[:60]] += (b - a) / 1e3
+            out["profile"]["top_kernels_ms"] = dict(by_name.most_common(8))
+            log(f"  profile: the 8 kernels with the most device time (ms): "
+                f"{out['profile']['top_kernels_ms']}")
+            log(f"  profile: busy {prof['busy_ms']} ms of {prof['wall_ms']} ms wall, idle share "
+                f"{prof['idle_share']}; device ms by kernel {prof['kernels_ms']} on {smi}")
+            status, text = _http(chain_base, "GET", "/internal/timeline?format=perfetto&trace="
+                                 + urllib.parse.quote(prof["trace"]))
+            overlay = [e for e in json.loads(text)["traceEvents"]
+                       if e.get("pid") == dispatch_timeline._PID_DEVICE_TRACE and e.get("ph") == "X"]
+            if not overlay:
+                raise AssertionError("the timeline did not overlay the profile's kernel spans")
+            log(f"  /internal/timeline?trace=: {len(overlay)} measured kernel spans on the "
+                f"device track")
+        # 6. telemetry against one H100's peaks, beside the card's limit
+        if not (0 < out["mfu_ratio"] <= 1.05 and 0 < out["hbm_bw_ratio"] <= 1.05):
+            raise AssertionError(f"telemetry out of (0, 1.05]: mfu {out['mfu_ratio']}, "
+                                 f"hbm {out['hbm_bw_ratio']}")
+        log(f"  genai_engine_mfu_ratio {out['mfu_ratio']:.5f}, genai_engine_hbm_bw_ratio "
+            f"{out['hbm_bw_ratio']:.5f} (rolling 10 s, the host's dispatch records against "
+            f"989 TFLOP/s and 3.35 TB/s) on {smi}")
+        # 7. the dispatch thread's synchronizing calls over steps 1-5
+        out["dispatch_syncs"] = syncs.counts.get("torch-llm-engine", 0)
+        if out["dispatch_syncs"]:
+            raise AssertionError(f"the dispatch thread synchronized: {dict(syncs.counts)}")
+        log(f"  synchronizing calls by thread over steps 1-5: {dict(syncs.counts)} "
+            f"(dispatch thread: 0)")
+        out["ttft_s"] = {"mean": statistics.mean(ttfts), "max": max(ttfts)}
+        log(f"  /generate TTFT mean {out['ttft_s']['mean']:.3f} s, max {out['ttft_s']['max']:.3f} s "
+            f"(8 at concurrency 4, <= 512 ids, the server's default sampling)")
+        # 8. host cost: the defaults against everything off, 3 pairs in turns
+        for srv, th in servers:
+            srv.shutdown()
+            srv.server_close()
+            th.join(30)
+        servers.clear()
+        on_tracer = tracing.get_tracer()
+        os.environ.pop("ENABLE_PROFILING")
+        dispatch_timeline.configure(enable=False)
+        engine_off = LLMEngine(ecfg, device=dev, params=params)
+        engines.append(engine_off)
+        dispatch_timeline.configure(enable=True)
+        n, tokens = OBSERVE_BATCH
+        prompts = [[int(x) for x in rng.randint(3, 500, size=rng.randint(101, 158))]
+                   for _ in range(n)]
+        legs = {"on": [], "off": []}
+        streams = {}
+        for pair in range(OBSERVE_PAIRS):
+            for leg in (("on", "off") if pair % 2 == 0 else ("off", "on")):
+                on = leg == "on"
+                flight_recorder.configure(enable=on)
+                with tracing._TRACER_LOCK:
+                    tracing._TRACER = on_tracer if on else tracing.NoopTracer()
+                res = _observe_batch(engine if on else engine_off, prompts, tokens)
+                legs[leg].append(res)
+                streams.setdefault(leg, res["outs"])
+        flight_recorder.configure(enable=True)
+        with tracing._TRACER_LOCK:
+            tracing._TRACER = on_tracer
+        out["host_cost"] = {}
+        for leg, runs in legs.items():
+            steps = [r["wall_step_ms"] for r in runs]
+            out["host_cost"][leg] = {"wall_step_ms": steps, "median": statistics.median(steps),
+                                     "spread": max(steps) - min(steps),
+                                     "batch_s": [r["batch_s"] for r in runs]}
+        on_m, off_m = (out["host_cost"][k]["median"] for k in ("on", "off"))
+        log(f"  host cost, {OBSERVE_PAIRS} pairs of {n} greedy x {tokens} tokens in turns: wall "
+            f"step (a block of {ecfg.decode_block}) everything on {on_m:.2f} ms (spread "
+            f"{out['host_cost']['on']['spread']:.2f}), flight recorder, timeline, tracing and "
+            f"profiling off {off_m:.2f} ms (spread {out['host_cost']['off']['spread']:.2f}), "
+            f"on - off {on_m - off_m:+.2f} ms; streams equal: {streams['on'] == streams['off']} "
+            f"on {smi}")
+        # the instruments' own host time on the observed engine, every one on
+        # (metrics and SLO included, which the off leg keeps too)
+        metered = []
+        with _HostCostMeter() as meter:
+            for _ in range(OBSERVE_METERED):
+                metered.append(_observe_batch(engine, prompts, tokens))
+        blocks = sum(r["blocks"] for r in metered)
+        dispatches = sum(r["dispatches"] for r in metered)
+        toks = sum(r["tokens"] for r in metered)
+        sec = dict(meter.seconds)
+        disp_s = sec.get("torch-llm-engine", 0.0)
+        read_s = sec.get("torch-llm-reader", 0.0)
+        step_ms = statistics.median(r["wall_step_ms"] for r in metered)
+        per_block_ms = (disp_s + read_s) / max(1, blocks) * 1e3
+        top = {th: dict([(e, round(v * 1e3, 3)) for (t, e), v in meter.by_entry.most_common()
+                         if t == th][:6]) for th in ("torch-llm-engine", "torch-llm-reader")}
+        out["host_cost"]["metered"] = {
+            "batches": OBSERVE_METERED, "decode_blocks": blocks, "decode_dispatches": dispatches,
+            "tokens": toks, "seconds_by_thread": sec, "calls_by_thread": dict(meter.calls),
+            "dispatch_us_per_dispatch": disp_s / max(1, dispatches) * 1e6,
+            "reader_us_per_token": read_s / max(1, toks) * 1e6,
+            "ms_per_block": per_block_ms, "wall_step_ms": step_ms,
+            "share_of_wall_step": per_block_ms / step_ms, "top_entries_ms": top,
+        }
+        log(f"  host cost, metered ({OBSERVE_METERED} batches on the observed engine, every "
+            f"instrument timed): dispatch thread {disp_s * 1e3:.3f} ms over {dispatches} "
+            f"dispatches ({disp_s / max(1, dispatches) * 1e6:.1f} us each, "
+            f"{meter.calls['torch-llm-engine']} calls), reader {read_s * 1e3:.3f} ms over {toks} "
+            f"tokens ({read_s / max(1, toks) * 1e6:.2f} us each, "
+            f"{meter.calls['torch-llm-reader']} calls); the two threads {per_block_ms:.3f} ms a "
+            f"block against a wall step of {step_ms:.2f} ms ({per_block_ms / step_ms:.2%}); "
+            f"other threads {({k: round(v * 1e3, 3) for k, v in sec.items() if not k.startswith('torch-llm-')})} "
+            f"ms; the entry points with the most time (ms): {top}; streams equal the observed "
+            f"leg's: "
+            f"{all(r['outs'] == streams['on'] for r in metered)} on {smi}")
+        out["launches"] = counts()
+        log(f"  launches in phase observe: {out['launches']}")
+        for name in RECIPES[0][4]:
+            if out["launches"].get(name, 0) < 1:
+                raise AssertionError(f"phase observe launched no {name}: {out['launches']}")
+    finally:
+        for srv, th in servers:
+            srv.shutdown()
+            srv.server_close()
+            th.join(30)
+        for eng in engines:
+            eng.shutdown()
+            _free_engine(eng)
+        with llm_engine._ENGINE_LOCK:
+            llm_engine._ENGINE = None
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        tracing.reset_tracer()
+        flight_recorder.reset()
+        dispatch_timeline.configure(enable=True)
+        runtime.reset_runtime()
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.time() - t0
+    log(f"phase observe: ok ({out['wall_s']:.1f} s on {smi}; engine build "
+        f"{out['engine_build_s']:.1f} s)")
     return out
 
 
@@ -4631,7 +5094,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
                         default="kernels,model,serve,retrieval,rag,chains,filechains,drain,"
-                                "prefix,spec",
+                                "prefix,spec,observe",
                         help="phases after the build, comma-separated (default: all)")
     parser.add_argument("--checks", default=",".join(CHECKS),
                         help="phase 3's kernel checks, comma-separated (default: all)")
@@ -4648,6 +5111,19 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible; this script runs on the GPU only",
               file=sys.stderr)
         return 2
+    # every server the phases build arms the black box (and phase 13 profiles
+    # and exports spans): their files go under a directory of this run's own
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_")
+    for key, name in (("APP_BLACKBOX_DIR", "blackbox"), ("PROFILE_LOG_DIR", "profiles"),
+                      ("TRACE_JSONL_PATH", "spans.jsonl")):
+        os.environ.setdefault(key, os.path.join(scratch, name))
+    try:
+        return _run(args, phases)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
+
+def _run(args, phases) -> int:
     dev = torch.device("cuda", 0)
     t0 = time.time()
     info = phase_device()
@@ -4675,6 +5151,7 @@ def main() -> int:
     dep = None  # phase 11 (or 10) took the deployment down
     prefix = phase_prefix(dev, info["smi"], args.seed) if "prefix" in phases else {}
     spec = phase_spec(dev, info["smi"]) if "spec" in phases else {}
+    observe = phase_observe(dev, info["smi"], args.seed) if "observe" in phases else {}
     kernels = []
     for name, (replaces, source) in KERNELS.items():
         if name not in results:  # a check left out by --checks
@@ -4684,7 +5161,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(sv["launches"][name] for sv in serves.values())
             + sum(ph.get("launches", {}).get(name, 0)
-                  for ph in (rag, chains, files, drain, prefix, spec)),
+                  for ph in (rag, chains, files, drain, prefix, spec, observe)),
             **r,
         })
     log(f"total {time.time() - t0:.1f} s")
@@ -4697,6 +5174,7 @@ def main() -> int:
         "drain": {k: v for k, v in drain.items() if k != "launches"},
         "prefix": prefix.get("recipes", {}),
         "spec": {k: v for k, v in spec.items() if k != "launches"},
+        "observe": {k: v for k, v in observe.items() if k != "launches"},
         "sampling": results.get("sampling")}), flush=True)
     print(info["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

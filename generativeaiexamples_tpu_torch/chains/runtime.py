@@ -13,14 +13,18 @@ reciprocal rank (``hybrid``, ``ranked_hybrid``), rerank
 Every model and store lives on the card unless ``set_device`` names
 another device (the tests' ``"cpu"``).
 
-Not ported: the chain metrics, spans and flight-recorder events (ROADMAP
-queue 1 item 11).
+JAX's four chain families (retrieve and ingest time, chunks ingested,
+degraded answers by chain), its spans (``chain.ingest``,
+``retriever.retrieve`` and their children, through utils/tracing.py) and
+its ``retrieve`` and ``degraded`` flight events are the port's too; a
+degraded answer feeds the SLO tracker's degraded rate.
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
 import threading
+import time
 from typing import Dict, Generator, List, Optional, Sequence, Tuple
 
 from generativeaiexamples_tpu_torch.config import AppConfig, get_config
@@ -38,9 +42,34 @@ from generativeaiexamples_tpu_torch.retrieval.store import (
     create_vector_store,
 )
 from generativeaiexamples_tpu_torch.utils import faults as faults_mod
+from generativeaiexamples_tpu_torch.utils import flight_recorder
+from generativeaiexamples_tpu_torch.utils import metrics as metrics_mod
 from generativeaiexamples_tpu_torch.utils import resilience
+from generativeaiexamples_tpu_torch.utils import slo as slo_mod
+from generativeaiexamples_tpu_torch.utils.tracing import get_tracer
 
 logger = logging.getLogger(__name__)
+
+_REG = metrics_mod.get_registry()
+_M_RETRIEVE = _REG.histogram(
+    "genai_chain_retrieve_seconds",
+    "End-to-end retrieval pipeline latency (embed + search + fuse + rerank).",
+    ("pipeline",),
+)
+_M_INGEST = _REG.histogram(
+    "genai_chain_ingest_seconds",
+    "Document ingestion latency (load + split + embed + index).",
+)
+_M_INGESTED_CHUNKS = _REG.counter(
+    "genai_chain_ingested_chunks_total",
+    "Chunks indexed through the single write path (index_chunks).",
+)
+_M_DEGRADED = _REG.counter(
+    "genai_chain_degraded_answers_total",
+    "RAG requests answered LLM-only because retrieval failed or its "
+    "breaker was open, by chain.",
+    ("chain",),
+)
 
 _STORES: Dict[str, VectorStore] = {}
 _BM25: Dict[str, object] = {}
@@ -74,6 +103,9 @@ def degraded_answer(chain: str, llm_chain_fn, query: str, chat_history,
                     exc: BaseException, **kwargs) -> Generator:
     """The LLM-only fallback of a RAG chain whose retrieval failed: a
     DegradedWarning first, then the plain llm_chain stream."""
+    _M_DEGRADED.labels(chain=chain).inc()
+    slo_mod.observe_event("degraded")
+    flight_recorder.event("degraded", chain=chain, error=type(exc).__name__)
     logger.warning("%s: retrieval unavailable (%s); degrading to LLM-only answer", chain, exc)
 
     def gen():
@@ -141,10 +173,15 @@ def index_chunks(chunks: Sequence[Chunk], collection: str = "default",
     """Embed and insert into the vector store, and mirror into the BM25
     index when a hybrid pipeline is configured: the one write path."""
     config = config or get_config()
-    embeddings = get_embedder(config).embed_documents([c.text for c in chunks])
-    get_vector_store(collection, config).add(chunks, embeddings)
+    tracer = get_tracer()
+    with tracer.span("embedder.embed_documents", {"count": len(chunks)}):
+        embeddings = get_embedder(config).embed_documents([c.text for c in chunks])
+    with tracer.span("vectorstore.add", {"count": len(chunks)}):
+        get_vector_store(collection, config).add(chunks, embeddings)
     if _lexical_enabled(config):
-        get_bm25_index(collection, config).add(chunks)
+        with tracer.span("bm25.add", {"count": len(chunks)}):
+            get_bm25_index(collection, config).add(chunks)
+    _M_INGESTED_CHUNKS.inc(len(chunks))
 
 
 def delete_documents(filenames: Sequence[str], collection: str = "default",
@@ -193,12 +230,18 @@ def ingest_file(filepath: str, filename: str, collection: str = "default",
     from generativeaiexamples_tpu_torch.retrieval.loaders import load_document
 
     config = config or get_config()
-    text = load_document(filepath)
-    if not text.strip():
-        raise ValueError(f"No text extracted from {filename}")
-    chunks = [Chunk(text=piece, source=filename)
-              for piece in get_splitter(config).split_text(text)]
-    index_chunks(chunks, collection, config)
+    tracer = get_tracer()
+    t0 = time.time()
+    with tracer.span("chain.ingest", {"filename": filename, "collection": collection}) as span:
+        with tracer.span("loader.load"):
+            text = load_document(filepath)
+        if not text.strip():
+            raise ValueError(f"No text extracted from {filename}")
+        chunks = [Chunk(text=piece, source=filename)
+                  for piece in get_splitter(config).split_text(text)]
+        span.set_attribute("chunks", len(chunks))
+        index_chunks(chunks, collection, config)
+    _M_INGEST.observe(time.time() - t0)
     logger.info("Ingested %s: %d chunks into %s", filename, len(chunks), collection)
     return len(chunks)
 
@@ -224,18 +267,21 @@ def finish_hits(query: str, hits: List[SearchHit], fetch_k: int, top_k: int, lex
                 reranker, collection: str, config: AppConfig) -> List[SearchHit]:
     """BM25 fusion when the lexical leg is on, then the rerank (or a plain
     cut) down to ``top_k``."""
+    tracer = get_tracer()
     if lexical:
         from generativeaiexamples_tpu_torch.retrieval.bm25 import rrf_fuse
 
         index = get_bm25_index(collection, config)
         if index.count():
-            lex_hits = index.search(query, fetch_k)
+            with tracer.span("bm25.search"):
+                lex_hits = index.search(query, fetch_k)
             if lex_hits:
                 hits = rrf_fuse([hits, lex_hits])[:fetch_k]
     if reranker is not None and len(hits) > 1:
         from generativeaiexamples_tpu_torch.engine.reranker import rerank_hits
 
-        return rerank_hits(reranker, query, hits, top_k)
+        with tracer.span("reranker.rerank", {"candidates": len(hits)}):
+            return rerank_hits(reranker, query, hits, top_k)
     return hits[:top_k]
 
 
@@ -248,14 +294,29 @@ def retrieve(query: str, top_k: Optional[int] = None, score_threshold: Optional[
     faults_mod.fault_point("retrieval.search")
     # a request whose budget is gone must not start a pipeline
     resilience.raise_if_deadline_expired("retrieval")
+    tracer = get_tracer()
+    t0 = time.time()
+    pipeline = config.retriever.nr_pipeline
+    attrs = {"top_k": top_k, "collection": collection}
     if (config.retriever.backend or "off").lower() == "tier":
         from generativeaiexamples_tpu_torch.engine import retrieval_tier
 
-        return retrieval_tier.get_tier(config).retrieve(query, top_k, threshold, collection)
-    _, lexical, reranker, fetch_k = resolve_pipeline(config, top_k)
-    q_emb = get_embedder(config).embed_query(query)
-    hits = get_vector_store(collection, config).search(q_emb, fetch_k, threshold)
-    return finish_hits(query, hits, fetch_k, top_k, lexical, reranker, collection, config)
+        with tracer.span("retriever.retrieve_tier", attrs) as span:
+            hits = retrieval_tier.get_tier(config).retrieve(query, top_k, threshold, collection)
+            span.set_attribute("hits", len(hits))
+    else:
+        with tracer.span("retriever.retrieve", attrs) as span:
+            pipeline, lexical, reranker, fetch_k = resolve_pipeline(config, top_k)
+            with tracer.span("embedder.embed_query"):
+                q_emb = get_embedder(config).embed_query(query)
+            with tracer.span("vectorstore.search"):
+                hits = get_vector_store(collection, config).search(q_emb, fetch_k, threshold)
+            hits = finish_hits(query, hits, fetch_k, top_k, lexical, reranker, collection, config)
+            span.set_attribute("hits", len(hits))
+    _M_RETRIEVE.labels(pipeline=pipeline or "dense").observe(time.time() - t0)
+    flight_recorder.event("retrieve", pipeline=pipeline or "dense", hits=len(hits),
+                          duration_s=round(time.time() - t0, 6))
+    return hits
 
 
 def cap_context(texts: Sequence[str], token_cap: Optional[int] = None,

@@ -16,7 +16,8 @@ The retrieval side and the chain server read more sections of the JAX
 config with its names and defaults (``LLMConfig``, ``TextSplitterConfig``,
 ``EmbeddingConfig``, ``RetrieverConfig``, ``RankingConfig``,
 ``PromptsConfig``, ``ResilienceConfig``, ``BatchingConfig``,
-``VectorStoreConfig``), each from ``APP_<SECTION>_<FIELD>`` as the JAX
+``VectorStoreConfig``, ``ObservabilityConfig``, ``BlackboxConfig``,
+``SLOConfig``), each from ``APP_<SECTION>_<FIELD>`` as the JAX
 config wizard names them (``vector_store.persist_dir`` ->
 ``APP_VECTORSTORE_PERSISTDIR``); ``AppConfig.from_env`` reads the engine
 and all of them, and ``get_config()`` caches that once per process
@@ -29,8 +30,10 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import json
 import logging
 import os
+import tempfile
 from typing import Mapping, Optional
 
 logger = logging.getLogger(__name__)
@@ -57,10 +60,19 @@ _LOGGED: set = set()  # XLA-only variables already logged by this process
 
 
 def _parse(name: str, raw: str, default):
+    """``raw`` as the type of ``default``. A number is read as the JAX
+    config wizard reads it: JSON first, then the field's type ("1.5" is 1
+    for an int field, "8" is 8.0 for a float one)."""
     typ = type(default)
     try:
+        if typ in (int, float):
+            try:
+                value = json.loads(raw)
+            except ValueError:
+                value = raw
+            return typ(value)
         return typ(raw)
-    except ValueError:
+    except (TypeError, ValueError):
         raise ValueError(f"{name}={raw!r} is not a valid {typ.__name__}") from None
 
 
@@ -289,7 +301,8 @@ def _section_from_env(cls, section: str, environ: Optional[Mapping[str, str]]):
         name = _env_name(section, f.name)
         raw = environ.get(name)
         if raw is not None:
-            kwargs[f.name] = _parse(name, raw, f.default)
+            default = f.default_factory() if f.default is dataclasses.MISSING else f.default
+            kwargs[f.name] = _parse(name, raw, default)
     out = cls(**kwargs)
     if getattr(out, "checkpoint_path", ""):
         raise ValueError(f"{_env_name(section, 'checkpoint_path')}={out.checkpoint_path}: {_CKPT}")
@@ -505,6 +518,76 @@ class VectorStoreConfig:
 
 
 @dataclasses.dataclass
+class ObservabilityConfig:
+    """The JAX config's ``observability`` section
+    (``APP_OBSERVABILITY_*``): the flight recorder and its slow-request
+    capture (utils/flight_recorder.py) and the dispatch timeline
+    (engine/dispatch_timeline.py), each checked by its module's
+    ``validate_config``."""
+
+    flight_recorder_enable: str = "on"
+    # completed timelines kept for GET /internal/requests
+    flight_recorder_capacity: int = 256
+    # slow-request capture triggers (ms); 0 disables each
+    slow_request_ttft_ms: float = 0.0
+    slow_request_total_ms: float = 0.0
+    # JSONL file receiving each slow capture; "" keeps them in memory
+    slow_capture_path: str = ""
+    dispatch_timeline_enable: str = "on"
+    # spans kept in the ring (rounded up to whole 64-span windows)
+    dispatch_timeline_capacity: int = 4096
+
+    @classmethod
+    def from_env(cls, environ: Optional[Mapping[str, str]] = None) -> "ObservabilityConfig":
+        return _section_from_env(cls, "observability", environ)
+
+
+@dataclasses.dataclass
+class BlackboxConfig:
+    """The JAX config's ``blackbox`` section (``APP_BLACKBOX_*``): the
+    anomaly black box's switch, bundle directory, rate limit and trigger
+    thresholds (utils/blackbox.py; a threshold of 0 disarms its
+    trigger)."""
+
+    enable: str = "on"
+    # genai_blackbox under the temporary directory (TMPDIR), where JAX's
+    # default is /tmp/genai_blackbox
+    dir: str = dataclasses.field(
+        default_factory=lambda: os.path.join(tempfile.gettempdir(), "genai_blackbox"))
+    max_bundles: int = 8
+    min_interval_s: float = 60.0
+    slo_breach_streak: int = 3
+    shed_spike: int = 20
+    page_backpressure_storm: int = 10
+    replica_death_storm: int = 3
+
+    @classmethod
+    def from_env(cls, environ: Optional[Mapping[str, str]] = None) -> "BlackboxConfig":
+        return _section_from_env(cls, "blackbox", environ)
+
+
+@dataclasses.dataclass
+class SLOConfig:
+    """The JAX config's ``slo`` section (``APP_SLO_*``): the objectives
+    utils/slo.py evaluates over its sliding window (a target of 0
+    disables one). The router's two objectives are carried for parity;
+    the port has no router yet."""
+
+    enable: str = "on"
+    window_s: float = 300.0
+    ttft_p95_ms: float = 30000.0
+    inter_token_p95_ms: float = 1000.0
+    shed_rate_max: float = 0.05
+    degraded_rate_max: float = 0.05
+    router_proxy_overhead_p95_ms: float = 50.0
+    router_failover_rate_max: float = 0.05
+
+    @classmethod
+    def from_env(cls, environ: Optional[Mapping[str, str]] = None) -> "SLOConfig":
+        return _section_from_env(cls, "slo", environ)
+
+
+@dataclasses.dataclass
 class AppConfig:
     """The sections of the JAX ``AppConfig`` that the port reads."""
 
@@ -518,6 +601,9 @@ class AppConfig:
     resilience: ResilienceConfig = dataclasses.field(default_factory=ResilienceConfig)
     batching: BatchingConfig = dataclasses.field(default_factory=BatchingConfig)
     vector_store: VectorStoreConfig = dataclasses.field(default_factory=VectorStoreConfig)
+    observability: ObservabilityConfig = dataclasses.field(default_factory=ObservabilityConfig)
+    blackbox: BlackboxConfig = dataclasses.field(default_factory=BlackboxConfig)
+    slo: SLOConfig = dataclasses.field(default_factory=SLOConfig)
 
     @classmethod
     def from_env(cls, environ: Optional[Mapping[str, str]] = None) -> "AppConfig":
@@ -536,6 +622,9 @@ class AppConfig:
             resilience=ResilienceConfig.from_env(environ),
             batching=BatchingConfig.from_env(environ),
             vector_store=VectorStoreConfig.from_env(environ),
+            observability=ObservabilityConfig.from_env(environ),
+            blackbox=BlackboxConfig.from_env(environ),
+            slo=SLOConfig.from_env(environ),
         )
 
 

@@ -14,7 +14,9 @@ The engine fields that ``EngineConfig.validate`` checks for the port's own
 engine (the serving layout, the page geometry, the scheduler and drain
 fields) are not repeated; the spec-decode fields are checked by
 ``engine/spec_decode.validate_config``, which gives the startup check's
-messages when called from here.
+messages when called from here. The ``observability``, ``blackbox`` and
+``slo`` sections are checked by their modules' ``validate_config``
+(:func:`validate_observability`), as the JAX servers check them.
 """
 from __future__ import annotations
 
@@ -158,3 +160,31 @@ def validate_config(cfg) -> None:
     from generativeaiexamples_tpu_torch.engine import spec_decode
 
     spec_decode.validate_config(e, startup=True)
+
+    # the observability sections: each module's own checks, with JAX's
+    # messages (the JAX chain server runs these four at startup)
+    validate_observability(cfg)
+
+
+def validate_observability(cfg) -> None:
+    """The ``observability``, ``blackbox`` and ``slo`` sections' checks
+    (both servers run them at startup)."""
+    from generativeaiexamples_tpu_torch.engine import dispatch_timeline
+    from generativeaiexamples_tpu_torch.utils import blackbox, flight_recorder, slo
+
+    flight_recorder.validate_config(cfg)
+    dispatch_timeline.validate_config(cfg)
+    slo.validate_config(cfg)
+    blackbox.validate_config(cfg)
+
+
+def configure_observability(cfg) -> None:
+    """Wire the three sections into the flight recorder, the SLO tracker,
+    the black box and the dispatch timeline (both servers, at startup)."""
+    from generativeaiexamples_tpu_torch.engine import dispatch_timeline
+    from generativeaiexamples_tpu_torch.utils import blackbox, flight_recorder, slo
+
+    flight_recorder.configure_from_config(cfg)
+    slo.configure_from_config(cfg)
+    blackbox.configure_from_config(cfg)
+    dispatch_timeline.configure_from_config(cfg)

@@ -22,9 +22,11 @@ is the scheduler the embedder and the reranker share:
   no later than the earliest queued deadline, and an item whose budget is
   gone fails with ``DeadlineExceeded`` instead of wasting a dispatch.
 
-The JAX package's metric families and flight-recorder events are not
-ported; ``MicroBatcher.counters`` counts dispatches and rows by lane and
-the ingest batches the gate held, with the seconds they waited.
+Each dispatch counts in JAX's ``genai_batcher_*`` families (queue wait,
+rows, dispatches by model and lane) and stamps a ``batcher_coalesced``
+flight event on each item's request; ``MicroBatcher.counters`` also
+counts dispatches and rows by lane and the ingest batches the gate held,
+with the seconds they waited.
 """
 from __future__ import annotations
 
@@ -34,7 +36,31 @@ import time
 from collections import deque
 from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
 
+from generativeaiexamples_tpu_torch.utils import flight_recorder
+from generativeaiexamples_tpu_torch.utils import metrics as metrics_mod
 from generativeaiexamples_tpu_torch.utils import resilience
+
+_REG = metrics_mod.get_registry()
+_M_BATCH_ROWS = _REG.histogram(
+    "genai_batcher_batch_rows",
+    "Live rows coalesced into one device dispatch, by model and lane "
+    "(before row-ladder padding).",
+    ("model", "lane"),
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128),
+)
+_M_QUEUE_WAIT = _REG.histogram(
+    "genai_batcher_queue_wait_ms",
+    "Milliseconds an item waited in the batcher queue before its batch "
+    "dispatched, by model and lane.",
+    ("model", "lane"),
+    buckets=(0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 1000.0),
+)
+_M_DISPATCHES = _REG.counter(
+    "genai_batcher_coalesced_dispatches_total",
+    "Device dispatches issued by the micro-batcher, by model and lane.",
+    ("model", "lane"),
+)
+
 
 LANE_QUERY = "query"
 LANE_INGEST = "ingest"
@@ -78,7 +104,8 @@ class BatchItem:
     deadline is captured at construction (the dispatch thread has no
     binding of its own)."""
 
-    __slots__ = ("payload", "enqueued", "deadline_at", "_event", "_result", "_error")
+    __slots__ = ("payload", "enqueued", "deadline_at", "flight_rec", "_event", "_result",
+                 "_error")
 
     def __init__(self, payload):
         self.payload = payload
@@ -87,6 +114,9 @@ class BatchItem:
         self.deadline_at: Optional[float] = (
             self.enqueued + deadline.remaining() if deadline is not None else None
         )
+        # the submitting request's flight record (the dispatch thread has
+        # no binding of its own)
+        self.flight_rec = flight_recorder.current()
         self._event = threading.Event()
         self._result = None
         self._error: Optional[BaseException] = None
@@ -329,6 +359,18 @@ class MicroBatcher:
                 if not live:
                     continue
             pad_rows = row_bucket(len(live), self.max_batch)
+            now = time.monotonic()
+            for item in live:
+                _M_QUEUE_WAIT.labels(model=self.model, lane=lane).observe(
+                    (now - item.enqueued) * 1000.0
+                )
+                if item.flight_rec is not None:
+                    item.flight_rec.event(
+                        "batcher_coalesced", model=self.model, lane=lane, rows=len(live),
+                        wait_ms=round((now - item.enqueued) * 1000.0, 3),
+                    )
+            _M_BATCH_ROWS.labels(model=self.model, lane=lane).observe(len(live))
+            _M_DISPATCHES.labels(model=self.model, lane=lane).inc()
             self.counters[f"{lane}_dispatches"] += 1
             self.counters[f"{lane}_rows"] += len(live)
             try:

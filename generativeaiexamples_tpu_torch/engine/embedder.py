@@ -15,7 +15,9 @@ Counterpart of generativeaiexamples_tpu/engine/embedder.py:
 package's names: ``tpu`` (the in-process encoder, on the card here),
 ``openai``/``nvidia-ai-endpoints``/``remote``, ``hash``.
 
-There is no warmup ladder: nothing here compiles, so the JAX package's
+The JAX package's ``genai_embedder_*`` families count here under the
+same names and ``backend`` labels (``tpu`` names the in-process encoder,
+as in JAX). There is no warmup ladder: nothing here compiles, so the JAX package's
 ``warmup_shapes`` and ``start_retrieval_warmup`` have no counterpart.
 """
 from __future__ import annotations
@@ -36,10 +38,45 @@ import numpy as np
 import torch
 
 from generativeaiexamples_tpu_torch.engine.batcher import LANE_INGEST, MicroBatcher, row_bucket
+from generativeaiexamples_tpu_torch.utils import metrics as metrics_mod
 from generativeaiexamples_tpu_torch.utils import resilience
 from generativeaiexamples_tpu_torch.utils.device_io import to_device, to_host
 
 logger = logging.getLogger(__name__)
+
+_REG = metrics_mod.get_registry()
+_M_EMBED_SECONDS = _REG.histogram(
+    "genai_embedder_embed_seconds",
+    "embed_documents wall time per call, by backend.",
+    ("backend",),
+)
+_M_EMBED_TEXTS = _REG.counter(
+    "genai_embedder_texts_total", "Texts embedded, by backend.", ("backend",)
+)
+# The embed-latency histogram above conflates host-side tokenization with
+# the device dispatch; these two split the samples so a slow embed is
+# attributable (tokenizer regression vs device contention) at a glance.
+_M_TOKENIZE_SECONDS = _REG.histogram(
+    "genai_embedder_tokenize_seconds",
+    "Host-side tokenization wall time per embed call, by backend.",
+    ("backend",),
+)
+_M_DEVICE_SECONDS = _REG.histogram(
+    "genai_embedder_device_seconds",
+    "Device encode wall time per dispatch, by backend (count doubles as "
+    "the device-dispatch counter).",
+    ("backend",),
+)
+_M_QUERY_CACHE_HITS = _REG.counter(
+    "genai_embedder_query_cache_hits_total",
+    "embed_query calls served from the query LRU without a dispatch.",
+)
+
+
+def _observe_embed(backend: str, count: int, started: float) -> None:
+    _M_EMBED_SECONDS.labels(backend=backend).observe(time.time() - started)
+    _M_EMBED_TEXTS.labels(backend=backend).inc(count)
+
 
 # arctic-embed models expect this query-side prefix (model card).
 ARCTIC_QUERY_PREFIX = "Represent this sentence for searching relevant passages: "
@@ -80,9 +117,14 @@ class HashEmbedder:
         return vec / norm if norm > 0 else vec
 
     def embed_documents(self, texts: Sequence[str]) -> np.ndarray:
-        if not texts:
-            return np.zeros((0, self.dimensions), np.float32)
-        return np.stack([self._embed_one(t) for t in texts])
+        t0 = time.time()
+        out = (
+            np.stack([self._embed_one(t) for t in texts])
+            if texts
+            else np.zeros((0, self.dimensions), np.float32)
+        )
+        _observe_embed("hash", len(texts), t0)
+        return out
 
     def embed_query(self, text: str) -> np.ndarray:
         return self._embed_one(text)
@@ -234,7 +276,10 @@ class TorchEmbedder(_Encoder):
         )
 
     def _tokenize(self, texts: Sequence[str]):
-        return [self._tok.encode(t, add_bos=False)[: self._cfg.max_positions] for t in texts]
+        t0 = time.time()
+        ids = [self._tok.encode(t, add_bos=False)[: self._cfg.max_positions] for t in texts]
+        _M_TOKENIZE_SECONDS.labels(backend="tpu").observe(time.time() - t0)
+        return ids
 
     @staticmethod
     def _decode_traffic_live() -> bool:
@@ -266,7 +311,9 @@ class TorchEmbedder(_Encoder):
             ids = list(ids[:T]) or [0]
             ids_arr[row, : len(ids)] = ids
             mask[row, : len(ids)] = 1
+        t0 = time.time()
         emb = self._run(lambda i, m: self._encode(self._params, i, m), ids_arr, mask)
+        _M_DEVICE_SECONDS.labels(backend="tpu").observe(time.time() - t0)
         return [emb[i] for i in range(len(rows))]
 
     def _embed_rows_sync(self, token_ids: List[Sequence[int]], out: np.ndarray,
@@ -287,6 +334,7 @@ class TorchEmbedder(_Encoder):
     def embed_documents(self, texts: Sequence[str]) -> np.ndarray:
         if not texts:
             return np.zeros((0, self.dimensions), np.float32)
+        t0 = time.time()
         out = np.zeros((len(texts), self.dimensions), np.float32)
         order = sorted(range(len(texts)), key=lambda i: len(texts[i]))
         token_ids = self._tokenize([texts[i] for i in order])
@@ -296,6 +344,7 @@ class TorchEmbedder(_Encoder):
                 out[orig] = items[row].get()
         else:
             self._embed_rows_sync(token_ids, out, order)
+        _observe_embed("tpu", len(texts), t0)
         return out
 
     def embed_query(self, text: str) -> np.ndarray:
@@ -306,10 +355,13 @@ class TorchEmbedder(_Encoder):
                 if cached is not None:
                     self._query_cache.move_to_end(key)
                     self._count(query_cache_hits=1)
+                    _M_QUERY_CACHE_HITS.inc()
                     return cached.copy()
         if self._batching_on:
+            t0 = time.time()
             ids = self._tokenize([key])[0]
             vec = np.asarray(self._batcher.submit(ids).get(), np.float32)
+            _observe_embed("tpu", 1, t0)
         else:
             vec = self.embed_documents([key])[0]
         if self._query_cache_size:
@@ -343,6 +395,7 @@ class RemoteEmbedder:
     def embed_documents(self, texts: Sequence[str]) -> np.ndarray:
         if not texts:
             return np.zeros((0, self.dimensions), np.float32)
+        t0 = time.time()
         req = urllib.request.Request(
             f"{self._url}/embeddings",
             data=json.dumps({"model": self._model, "input": list(texts)}).encode(),
@@ -359,6 +412,7 @@ class RemoteEmbedder:
             retry_filter=resilience.http_error_is_transient,
         )
         data = sorted(body["data"], key=lambda d: d["index"])
+        _observe_embed("remote", len(texts), t0)
         return np.asarray([d["embedding"] for d in data], np.float32)
 
     def embed_query(self, text: str) -> np.ndarray:

@@ -11,13 +11,61 @@ allocates and the pool never over-commits. A page is shared by refcount
 between a prefix-cache entry and every request whose prompt starts with
 that prefix (engine/prefix_cache.py): a hit maps the entry's pages into
 the request's table (``retain``) and the insert after prefill donates the
-request's own prompt pages the same way. Counters are plain integers
-(``stats()``).
+request's own prompt pages the same way. The allocator counts in JAX's
+``genai_engine_kv_page_*`` families and in plain integers (``stats()``);
+a funding give-up notifies the black box.
 """
 from __future__ import annotations
 
 import threading
 from typing import Dict, List, Optional, Sequence
+
+from generativeaiexamples_tpu_torch.utils import metrics as metrics_mod
+
+_REG = metrics_mod.get_registry()
+_M_ALLOCS = _REG.counter(
+    "genai_engine_kv_page_allocs_total",
+    "KV-cache pages handed to requests by the page allocator.",
+)
+_M_FREES = _REG.counter(
+    "genai_engine_kv_page_frees_total",
+    "KV-cache pages whose refcount dropped to zero and returned to the "
+    "free list.",
+)
+_M_ALLOC_FAILURES = _REG.counter(
+    "genai_engine_kv_page_alloc_failures_total",
+    "Admission page reservations refused because the free list was "
+    "short (the request is requeued — OOM backpressure, not an error).",
+)
+_M_PREFIX_MAPPED = _REG.counter(
+    "genai_engine_kv_prefix_pages_mapped_total",
+    "Prefix-cache pages mapped zero-copy into a request's page table "
+    "(refcount bump instead of a store->slot copy dispatch).",
+)
+_M_POOL_IN_USE = _REG.gauge(
+    "genai_engine_kv_page_pool_in_use",
+    "Pages currently held by live requests or prefix-cache entries.",
+)
+_M_POOL_CAPACITY = _REG.gauge(
+    "genai_engine_kv_page_pool_capacity",
+    "Allocatable pages in the device page pool (scratch page excluded).",
+)
+_M_POOL_UTIL = _REG.gauge(
+    "genai_engine_kv_page_utilization_ratio",
+    "Fraction of the page pool currently allocated.",
+)
+_M_FRAGMENTATION = _REG.gauge(
+    "genai_engine_kv_page_fragmentation_ratio",
+    "Internal fragmentation: fraction of live requests' allocated page "
+    "tokens not (yet) holding sequence state — bounded below one page "
+    "plus the reserved generation budget per request.",
+)
+_M_REQUEST_PAGES = _REG.histogram(
+    "genai_engine_kv_request_pages",
+    "Pages a request held over its lifetime, observed at release.",
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512),
+)
+
 
 SCRATCH_PAGE = 0
 
@@ -123,6 +171,16 @@ class PageAllocator:
         self._frees = 0  # guarded by self._lock
         self._failures = 0  # guarded by self._lock
         self._prefix_mapped = 0  # guarded by self._lock
+        _M_POOL_CAPACITY.set(self.capacity)
+        _M_POOL_IN_USE.set(0)
+        _M_POOL_UTIL.set(0.0)
+        _M_FRAGMENTATION.set(0.0)
+
+    def _update_gauges(self) -> None:
+        """Caller holds self._lock."""
+        used = len(self._refs)
+        _M_POOL_IN_USE.set(used)
+        _M_POOL_UTIL.set(used / self.capacity)
 
     def alloc(self, n: int, count_failure: bool = True) -> Optional[List[int]]:
         """Reserve ``n`` fresh pages (refcount 1 each); None when the free
@@ -136,11 +194,14 @@ class PageAllocator:
             if len(self._free) < n:
                 if count_failure:
                     self._failures += 1
+                    _M_ALLOC_FAILURES.inc()
                 return None
             pages = [self._free.pop() for _ in range(n)]
             for p in pages:
                 self._refs[p] = 1
             self._allocs += n
+            _M_ALLOCS.inc(n)
+            self._update_gauges()
             return pages
 
     def retain(self, pages: Sequence[int]) -> None:
@@ -172,6 +233,9 @@ class PageAllocator:
                     self._free.append(p)
                     freed += 1
             self._frees += freed
+            if freed:
+                _M_FREES.inc(freed)
+            self._update_gauges()
         return freed
 
     def record_alloc_failure(self) -> None:
@@ -179,11 +243,26 @@ class PageAllocator:
         unpinned prefix entries (it is requeued)."""
         with self._lock:
             self._failures += 1
+        _M_ALLOC_FAILURES.inc()
+        # N give-ups inside the storm window capture a debug bundle
+        from generativeaiexamples_tpu_torch.utils import blackbox
+
+        blackbox.notify_page_backpressure()
 
     def record_prefix_mapped(self, pages: int) -> None:
         """Count pages a prefix-cache hit mapped into a request's table."""
         with self._lock:
             self._prefix_mapped += pages
+        _M_PREFIX_MAPPED.inc(pages)
+
+    @staticmethod
+    def observe_request_pages(n: int) -> None:
+        """The pages a request held over its lifetime, at its release."""
+        _M_REQUEST_PAGES.observe(n)
+
+    @staticmethod
+    def set_fragmentation(ratio: float) -> None:
+        _M_FRAGMENTATION.set(max(0.0, min(1.0, ratio)))
 
     def free_pages(self) -> int:
         with self._lock:

@@ -17,9 +17,11 @@ Both model backends call the ``backend.stream`` fault point first.
 ``stream_chat`` takes ``prefix_hint``, the chain or session a request
 belongs to: ``TorchLLMBackend`` hands it to the engine's prefix KV cache
 (``SamplingParams.prefix_hint``) and ``RemoteLLMBackend`` drops it, as
-the JAX backends do (the OpenAI wire format has no field for it). Every
-backend drops ``spec_decode``: the port has no speculative decoding yet
-(ROADMAP queue 1 item 5).
+the JAX backends do (the OpenAI wire format has no field for it). So it
+is with ``spec_decode``, the request's speculative-decoding switch:
+``TorchLLMBackend`` passes it to the engine (``SamplingParams.spec_decode``:
+``False`` opts the request out of drafting) and ``RemoteLLMBackend`` drops
+it, as in JAX.
 """
 from __future__ import annotations
 
@@ -68,7 +70,8 @@ class TorchLLMBackend(LLMBackend):
 
         faults_mod.fault_point("backend.stream")
         params = SamplingParams(temperature=temperature, top_p=top_p, max_tokens=max_tokens,
-                                stop=tuple(stop or ()), prefix_hint=prefix_hint)
+                                stop=tuple(stop or ()), prefix_hint=prefix_hint,
+                                spec_decode=spec_decode)
         # the request's remaining budget (bound to this thread by the
         # server) becomes the stream's timeout; the submit is eager, so a
         # full admission queue raises EngineOverloaded here, before any

@@ -107,7 +107,20 @@ back a round (``spec_decode.allowed_sync``); pipelined
 next round is drafted from the optimistic context. A round with no
 draft runs the plain block and reads its slab back.
 
-The flight recorder and telemetry are not ported yet.
+Observability (counterparts of JAX's): the engine registers JAX's
+``genai_engine_*`` families under the same names and stamps the same
+flight-recorder events (utils/flight_recorder.py: ``submit``, ``admit``,
+``prefix_match``, ``page_alloc``, ``prefill_wave``/``prefill_chunk``,
+``decode_join``, ``first_token``, ``spec_verify``, ``decode_leave``,
+``page_free``, ``abort``, ``preempt``, ``restore`` ...). Every dispatch
+(prefill wave, chunk, decode block, verify, zero-draft block) records one
+host entry in the utilization estimator (engine/telemetry.py) and one span
+in the dispatch timeline (engine/dispatch_timeline.py), and runs under a
+``torch.profiler.record_function`` label when ENABLE_PROFILING is set
+(utils/profiling.py). The timeline and the profiling labels are resolved
+once at init (``GENAI_DISPATCH_TIMELINE=off`` leaves the dispatch path
+as it was). None of it reads the device: on the card a span's run time is
+the launch time, and device time comes only from a profile.
 
 The engine runs on the card: ``device=None`` means CUDA and raises when
 no card is present. Tests pass ``device="cpu"``, where every kernel
@@ -130,7 +143,9 @@ import numpy as np
 import torch
 
 from generativeaiexamples_tpu_torch.config import EngineConfig
+from generativeaiexamples_tpu_torch.engine import dispatch_timeline as dispatch_timeline_mod
 from generativeaiexamples_tpu_torch.engine import kv_pages, prefix_cache
+from generativeaiexamples_tpu_torch.engine import telemetry as telemetry_mod
 from generativeaiexamples_tpu_torch.engine import request_snapshot as request_snapshot_mod
 from generativeaiexamples_tpu_torch.engine import spec_decode as spec_decode_mod
 from generativeaiexamples_tpu_torch.engine.scheduler import handoff as handoff_mod
@@ -141,9 +156,135 @@ from generativeaiexamples_tpu_torch.ops import (
     decode_attention, flash_attention, int8_matmul, page_attention, quant,
 )
 from generativeaiexamples_tpu_torch.utils import faults as faults_mod
+from generativeaiexamples_tpu_torch.utils import flight_recorder
+from generativeaiexamples_tpu_torch.utils import hardware
+from generativeaiexamples_tpu_torch.utils import metrics as metrics_mod
+from generativeaiexamples_tpu_torch.utils import profiling
+from generativeaiexamples_tpu_torch.utils import slo as slo_mod
 from generativeaiexamples_tpu_torch.utils.resilience import EngineOverloaded, RequestPreempted
 
 logger = logging.getLogger(__name__)
+
+# Engine metric families: JAX's, registered at import (a scrape sees the
+# whole catalog before any engine is built). The scheduling-phase
+# histograms carry the request's trace id (captured at submit) as their
+# exemplar.
+_REG = metrics_mod.get_registry()
+_M_REQUESTS = _REG.counter(
+    "genai_engine_requests_total", "Requests submitted to the LLM engine."
+)
+_M_TOKENS = _REG.counter(
+    "genai_engine_generated_tokens_total", "Tokens emitted by the decode loop."
+)
+_M_DECODE_STEPS = _REG.counter(
+    "genai_engine_decode_steps_total",
+    "Decode steps executed (decode_block steps per dispatch).",
+)
+_M_WAVES = _REG.counter(
+    "genai_engine_admission_waves_total", "Prefill admission waves dispatched."
+)
+_M_DECODE_DISPATCHES = _REG.counter(
+    "genai_engine_decode_dispatches_total",
+    "Decode/verify dispatches issued (one compiled-program launch each; "
+    "a decode dispatch runs decode_block steps, a spec verify dispatch "
+    "runs one multi-token step).",
+)
+_M_PREFILL_CHUNKS = _REG.counter(
+    "genai_engine_prefill_chunks_total",
+    "Fixed-shape chunk dispatches run by chunked prefill.",
+)
+_M_QUEUE_WAIT = _REG.histogram(
+    "genai_engine_queue_wait_seconds",
+    "Submit -> slot-claimed wait (admission queueing).",
+    # Bucket audit (PR 16): queue waits are a seconds-scale phase (a
+    # full batch holds admissions for whole decode generations) — the
+    # default preset burned its bottom half on sub-ms buckets this
+    # family never fills while its 120 s ceiling saturated under
+    # sustained overload. ~100x slower scale than the inter-token
+    # family below, so it gets the slow preset.
+    buckets=metrics_mod.SLOW_SECONDS_BUCKETS,
+)
+_M_TTFT = _REG.histogram(
+    "genai_engine_ttft_seconds", "Submit -> first generated token."
+)
+_M_PREFILL_WAIT = _REG.histogram(
+    "genai_engine_prefill_wait_seconds",
+    "Slot-claimed -> first token (prefill + first readback).",
+)
+_M_TOKEN_LATENCY = _REG.histogram(
+    "genai_engine_token_latency_seconds",
+    "Inter-token emission interval per request (slab cadence included).",
+    buckets=(0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025,
+             0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 10.0),
+)
+_M_READBACK = _REG.histogram(
+    "genai_engine_readback_wait_seconds",
+    "Reader-thread stall for a dispatch's device results, by kind.",
+    ("kind",),
+)
+_M_SLOTS_IN_USE = _REG.gauge(
+    "genai_engine_batch_slots_in_use",
+    "Decode slots currently occupied by live requests.",
+)
+_M_SLOTS_CAPACITY = _REG.gauge(
+    "genai_engine_batch_slots_capacity",
+    "Configured decode slot count (max_batch_size).",
+)
+_M_KV_UTILIZATION = _REG.gauge(
+    "genai_engine_kv_cache_utilization_ratio",
+    "Fraction of KV-cache rows holding live sequence state.",
+)
+_M_ABORTS = _REG.counter(
+    "genai_engine_aborts_total",
+    "Requests aborted before completion (client disconnects, explicit "
+    "abort() calls, stream-stop early exits) — their slots and prefix "
+    "pins were released early.",
+)
+_M_OVERLOAD = _REG.counter(
+    "genai_engine_overload_rejections_total",
+    "submit() calls rejected with EngineOverloaded by the admission "
+    "queue-depth cap (max_queued_requests).",
+)
+_M_QUEUE_DEPTH = _REG.gauge(
+    "genai_engine_queue_depth",
+    "Requests waiting in the admission queue (submitted, no slot yet).",
+)
+_M_WEDGED = _REG.gauge(
+    "genai_engine_wedged",
+    "1 while the dispatch-loop watchdog sees work outstanding with no "
+    "dispatch progress past watchdog_stall_s (readiness flips unready).",
+)
+_M_SPEC_PIPE_ROLLBACKS = _REG.counter(
+    "genai_engine_spec_pipeline_rollbacks_total",
+    "Speculative runahead drafts invalidated by the verify readback "
+    "(slot-rounds whose optimistic full-acceptance assumption missed; "
+    "the row re-proposed from the true buffers — a host-work cost, "
+    "never a correctness event).",
+)
+_M_SPEC_PIPE_CONFIRMED = _REG.counter(
+    "genai_engine_spec_pipeline_confirmed_total",
+    "Speculative runahead drafts confirmed by the verify readback "
+    "(slot-rounds dispatched with zero proposal work on the critical "
+    "path — the draft was proposed while the previous verify ran).",
+)
+_M_PAGED_ATTN = _REG.counter(
+    "genai_engine_paged_attn_dispatches_total",
+    "Paged-layout attention dispatches by serving path: path='kernel' "
+    "(the ragged Pallas page-attention kernel, ops/page_attention.py — "
+    "per-row DMA grids clamped to live pages) vs path='gather' (the "
+    "XLA dequant-gather fallback reading the bucketed window). A paged "
+    "engine whose geometry the kernel refuses logs the fallback loudly "
+    "at startup and shows every decode dispatch under 'gather' here.",
+    ("path",),
+)
+_M_PREFIX_COPY = _REG.counter(
+    "genai_engine_prefix_copy_dispatches_total",
+    "Compiled gather/update copy programs dispatched by the FIXED KV "
+    "layout's prefix cache (store->slot fetch at admission, slot->store "
+    "insert post-prefill). The paged layout maps refcounted pages "
+    "instead — its hits keep this counter flat (the zero-copy "
+    "assertion bench and tests pin).",
+)
 
 
 @dataclasses.dataclass
@@ -188,6 +329,13 @@ class _Request:
     # (the fixed fetch or the paged retain), and the rows it serves
     prefix_entry: Optional[prefix_cache.PrefixEntry] = None
     prefix_len: int = 0
+    # observability: slot-claim time (0 until the first claim), the last
+    # token's emission time, the submitting thread's trace id, and the
+    # flight record the rid maps to
+    t_admit: float = 0.0
+    t_last_token: float = 0.0
+    trace_hex: Optional[str] = None
+    flight_rec: Optional[object] = None
 
 
 _END = None  # sentinel on out_queue
@@ -363,6 +511,9 @@ class LLMEngine:
         self._stop_ids = set(self.tokenizer.stop_ids())
         self._dtype = dtype
         self._init_spec(cfg, draft_params)
+        self._init_observability(cfg)
+        # the chunked wave in flight (its requests), for the chunks' events
+        self._chunk_reqs: Optional[List[_Request]] = None
 
         # Slot state on the device, patched per admission wave
         # (_update_slots) and read and written by every decode block: no
@@ -393,7 +544,11 @@ class LLMEngine:
         self._slot_budget: Dict[int, int] = {}
         self._slot_pos: Dict[int, int] = {}
         # every key exists up front: stats() copies these dicts from other
-        # threads; the dispatch thread counts prefill, the reader decode
+        # threads; the dispatch thread counts prefill, the reader decode.
+        # Some of these events count in a registry family too: the families
+        # are process-wide (JAX's names, summed over every engine of the
+        # process: a router's replicas, a drain's target, a smoke's legs),
+        # and stats() answers for this engine alone
         self._counters = collections.Counter(dict.fromkeys((
             "prefill_waves", "prefill_tokens", "prefill_chunks", "requests_prefilled",
             "prefix_copy_dispatches", "decode_dispatches", "spec_verify_dispatches",
@@ -445,6 +600,30 @@ class LLMEngine:
         for thread in self._threads:
             thread.start()
         self.scheduler.start()
+
+    def _init_observability(self, cfg: EngineConfig) -> None:
+        """Gauges, the profiling labels and the dispatch timeline (each
+        resolved once here: off means the dispatch sites run as before),
+        and the utilization estimator."""
+        _M_SLOTS_CAPACITY.set(self.num_slots)
+        _M_SLOTS_IN_USE.set(0)
+        _M_WEDGED.set(0)
+        self._annotate = profiling.annotation_scope()
+        self._dtl = dispatch_timeline_mod if dispatch_timeline_mod.enabled() else None
+        # on the card a dispatch returns once launched: its host time is
+        # the launch time, never a device-time estimate
+        dispatch_timeline_mod.set_run_kind("launch" if self.device.type == "cuda" else "device_est")
+        self._kv_byte_width = (
+            hardware.kv_bytes_per_element(cfg.kv_cache_dtype) if self._kv_quant else 2
+        )
+        try:
+            wbytes = hardware.streamed_weight_bytes(self.params)
+        except Exception:  # noqa: BLE001 - a params tree the formula does not walk
+            wbytes = 0
+        self._telemetry = telemetry_mod.UtilizationEstimator(
+            matmul_params=hardware.matmul_params(self.model_config),
+            weight_stream_bytes=wbytes,
+        )
 
     # ------------------------------------------------------------------ #
     # build-time checks
@@ -656,25 +835,50 @@ class LLMEngine:
             params=params,
             sampling_seed=params.seed or _UNSEEDED_RNG.getrandbits(31),
             t_submit=time.time(),
+            trace_hex=metrics_mod.current_trace_id_hex(),
         )
         if self._prefix is not None and params.prefix_hint:
             # session keep-alive: the hinted entry's recency is bumped
             # before admission, so other traffic cannot evict it meanwhile
             self._prefix.touch(params.prefix_hint)
+        self._map_flight(req)
+        if req.flight_rec is not None:
+            req.flight_rec.event("submit", rid=req.rid, prompt_tokens=len(req.prompt_ids))
         cap = self.engine_config.max_queued_requests
         with self._lock:
             if not self._running:
+                flight_recorder.finish_rid(req.rid, "shutdown")
                 raise RuntimeError("LLM engine is shut down")
             if self._draining:
                 # new work goes to another replica (the same 429 path)
+                flight_recorder.event("engine_draining", pending=len(self._pending))
+                flight_recorder.finish_rid(req.rid, "overload")
                 raise EngineOverloaded("engine draining — checkpoint/handover in progress")
             if cap > 0 and len(self._pending) >= cap:
+                _M_OVERLOAD.inc()
+                flight_recorder.event("engine_overloaded", pending=len(self._pending), cap=cap)
+                flight_recorder.finish_rid(req.rid, "overload")
                 raise EngineOverloaded(
                     f"engine admission queue full ({len(self._pending)}/{cap} pending)"
                 )
             self._pending.append(req)
+            _M_QUEUE_DEPTH.set(len(self._pending))
+            _M_REQUESTS.inc()
             self._lock.notify_all()
         return req
+
+    @staticmethod
+    def _map_flight(req: _Request) -> None:
+        """Map the rid to the calling thread's flight record (a server
+        request's), or to an engine-owned one retired when the rid
+        finishes; before the request is visible to the dispatch thread."""
+        if not flight_recorder.enabled():
+            return
+        rec = flight_recorder.current()
+        if rec is None:
+            rec = flight_recorder.start(trace_id=req.trace_hex, owner="engine")
+        flight_recorder.map_rid(req.rid, rec)
+        req.flight_rec = rec
 
     def queue_depth(self) -> int:
         """Requests awaiting admission (the server's shedding signal)."""
@@ -699,8 +903,11 @@ class LLMEngine:
             if req is None or req.finished or req.cancelled:
                 return False
             req.cancelled = True
+            _M_ABORTS.inc()
+            flight_recorder.event_rid(req.rid, "abort", slotted=req.slot >= 0)
             if req in self._pending:
                 self._pending.remove(req)
+                _M_QUEUE_DEPTH.set(len(self._pending))
                 self._finish(req)
             self._lock.notify_all()
             return True
@@ -857,6 +1064,7 @@ class LLMEngine:
         ``timeout``); returns the summary the drain route answers."""
         budget_s = float(self.engine_config.drain_timeout_s if timeout is None else timeout)
         deadline = time.time() + budget_s
+        flight_recorder.event("drain_begin", timeout_s=round(budget_s, 3))
         with self._lock:
             self._draining = True
             self._paused = True
@@ -918,6 +1126,8 @@ class LLMEngine:
             if sid is None:
                 replayed += 1
             request_snapshot_mod.record_preempted(mode)
+            flight_recorder.event_rid(req.rid, "preempt", mode=mode, snapshot=sid or "",
+                                      position=position, generated=req.generated)
             req.error = RequestPreempted(f"request preempted by engine drain ({mode})",
                                          snapshot_id=sid)
             self._finish(req)
@@ -953,6 +1163,8 @@ class LLMEngine:
             "preempted": len(snapshots) + replayed, "spooled": len(snapshots),
             "snapshots": snapshots, "replay_only": replayed, "completed": completed,
         }
+        flight_recorder.event("drain_complete", spooled=len(snapshots), replay_only=replayed,
+                              parked=parked)
         logger.warning("engine drained: %d spooled, %d replay-only, %d completed (parked=%s)",
                        len(snapshots), replayed, completed, parked)
         return summary
@@ -985,27 +1197,37 @@ class LLMEngine:
         if not (self._paged and snap.restorable and snap.emitted and snap.position > 0):
             req = self.submit(snap.prompt_ids, params)
             request_snapshot_mod.record_restored("replay")
+            flight_recorder.event_rid(req.rid, "restore", snapshot=snap.snapshot_id, mode="replay")
             return req, params, [], "replay"
         payload = request_snapshot_mod.decode_kv_payload(snap.kv)
         req = _Request(rid=next(_REQ_IDS), prompt_ids=list(snap.prompt_ids), params=params,
-                       sampling_seed=int(snap.sampling_seed), t_submit=time.time())
+                       sampling_seed=int(snap.sampling_seed), t_submit=time.time(),
+                       trace_hex=metrics_mod.current_trace_id_hex())
         req.emitted = list(snap.emitted)
         req.generated = len(req.emitted)
         req.position = int(snap.position)
+        self._map_flight(req)
         result: Dict[str, object] = {"event": threading.Event(), "mode": None, "error": None}
         with self._lock:
             self._restore_q.put((snap, payload, req, result))
             self._lock.notify_all()
         if not result["event"].wait(timeout=float(self.engine_config.drain_timeout_s)):
+            flight_recorder.finish_rid(req.rid, "error")
             raise TimeoutError("restore was not picked up by the dispatch loop")
         if result["error"] is not None:
+            flight_recorder.finish_rid(req.rid, "error")
             raise result["error"]  # type: ignore[misc]
         if result["mode"] != "restore":
             # no free slot or pages now: a replay through normal admission
+            flight_recorder.finish_rid(req.rid, "restore_replay")
             req2 = self.submit(snap.prompt_ids, params)
             request_snapshot_mod.record_restored("replay")
+            flight_recorder.event_rid(req2.rid, "restore", snapshot=snap.snapshot_id,
+                                      mode="replay")
             return req2, params, [], "replay"
         request_snapshot_mod.record_restored("restore", time.time() - t0)
+        flight_recorder.event_rid(req.rid, "restore", snapshot=snap.snapshot_id, mode="restore",
+                                  position=req.position, emitted=req.generated)
         return req, params, list(snap.emitted), "restore"
 
     def stream_restored(self, req: _Request, params: SamplingParams, prior_ids: Sequence[int],
@@ -1057,6 +1279,66 @@ class LLMEngine:
         out["spec_draft_skips"] = self.scheduler.draft_skips
         return out
 
+    @property
+    def metrics(self) -> Dict[str, float]:
+        """JAX's flat view over the registry families (``/internal/metrics``
+        serves it). The families are process-wide, so values add up
+        across engines of one process: read deltas."""
+        from generativeaiexamples_tpu_torch.engine.scheduler import base as scheduler_base
+
+        rb_prefill = _M_READBACK.labels(kind="prefill")
+        rb_decode = _M_READBACK.labels(kind="decode")
+        out: Dict[str, float] = {
+            "prefix_cache_hits": prefix_cache._M_HITS.value,
+            "prefix_cache_misses": prefix_cache._M_MISSES.value,
+            "prefix_cache_evictions": prefix_cache._M_EVICTIONS.value,
+            "prefix_cache_tokens_reused": prefix_cache._M_TOKENS_REUSED.value,
+            "kv_page_allocs": kv_pages._M_ALLOCS.value,
+            "kv_page_frees": kv_pages._M_FREES.value,
+            "kv_page_alloc_failures": kv_pages._M_ALLOC_FAILURES.value,
+            "kv_prefix_pages_mapped": kv_pages._M_PREFIX_MAPPED.value,
+            "kv_pages_in_use": kv_pages._M_POOL_IN_USE.value,
+            "kv_page_utilization": kv_pages._M_POOL_UTIL.value,
+        }
+        out.update(spec_decode_mod.metrics_snapshot())
+        out.update(handoff_mod.metrics_snapshot())
+        out["spec_draft_skips"] = scheduler_base._M_SPEC_DRAFT_SKIPS.value
+        out.update({
+            "prefix_copy_dispatches": _M_PREFIX_COPY.value,
+            "paged_attn_kernel_dispatches": _M_PAGED_ATTN.labels(path="kernel").value,
+            "paged_attn_gather_dispatches": _M_PAGED_ATTN.labels(path="gather").value,
+            "generated_tokens": _M_TOKENS.value,
+            "requests": _M_REQUESTS.value,
+            "decode_steps": _M_DECODE_STEPS.value,
+            "decode_dispatches": _M_DECODE_DISPATCHES.value,
+            "admission_waves": _M_WAVES.value,
+            "prefill_chunks": _M_PREFILL_CHUNKS.value,
+            "queue_wait_sum": _M_QUEUE_WAIT.sum,
+            "queue_wait_n": _M_QUEUE_WAIT.count,
+            "ttft_sum": _M_TTFT.sum,
+            "ttft_n": _M_TTFT.count,
+            "prefill_wait_sum": _M_PREFILL_WAIT.sum,
+            "readback_prefill_wait_sum": rb_prefill.sum,
+            "readback_prefill_n": rb_prefill.count,
+            "readback_decode_wait_sum": rb_decode.sum,
+            "readback_decode_n": rb_decode.count,
+            "spec_pipeline_rollbacks": _M_SPEC_PIPE_ROLLBACKS.value,
+            "spec_pipeline_confirmed": _M_SPEC_PIPE_CONFIRMED.value,
+        })
+        out.update(dispatch_timeline_mod.counters_snapshot())
+        return out
+
+    def utilization_snapshot(self) -> Dict[str, float]:
+        """The rolling-window MFU / HBM-roofline view against the H100's
+        peaks (engine/telemetry.py) and the timeline's bubble
+        decomposition (``/internal/slo`` and black-box bundles read it).
+        JAX adds its compile-path stats; the port compiles nothing at
+        serving time."""
+        out = self._telemetry.snapshot()
+        if self._dtl is not None:
+            out.update(self._dtl.bubble_snapshot())
+        return out
+
     def shutdown(self, timeout: float = 60.0) -> bool:
         """Stop the dispatch, reader and watchdog threads; every live
         stream ends. Returns True when all of them exited within
@@ -1087,12 +1369,18 @@ class LLMEngine:
 
     def _mark_wedged(self, reason: str) -> None:
         self._wedged = True
+        _M_WEDGED.set(1)
         ENGINE_WEDGED.set()
         logger.error("LLM engine wedged: %s", reason)
+        # a wedged dispatch loop is an incident for the black box
+        from generativeaiexamples_tpu_torch.utils import blackbox
+
+        blackbox.notify_wedged(reason)
 
     def _clear_wedged(self) -> None:
         if self._wedged:
             self._wedged = False
+            _M_WEDGED.set(0)
             ENGINE_WEDGED.clear()
             logger.warning("LLM engine dispatch loop recovered; wedged state cleared")
 
@@ -1186,7 +1474,7 @@ class LLMEngine:
                 self._finish(rec.req)
             pending += list(self._tier_slots.values())
         for req in pending:
-            self._finish(req)
+            self._finish(req, "shutdown")
         # outside the lock: with a full readback queue the reader needs the
         # lock (in _emit) to drain it
         self._readback.put(None)  # the reader ends every live stream and exits
@@ -1351,6 +1639,8 @@ class LLMEngine:
                     m = self._prefix.match(req.prompt_ids, hint=req.params.prefix_hint)
                     if m is not None:
                         req.prefix_entry, req.prefix_len = m
+                        flight_recorder.event_rid(req.rid, "prefix_match",
+                                                  cached_tokens=req.prefix_len)
         funded = self._fund(claimed)
         short = [r for r in funded if len(r.prompt_ids) <= chunk]
         long = [r for r in funded if len(r.prompt_ids) > chunk]
@@ -1418,9 +1708,18 @@ class LLMEngine:
                     r.prefix_len = 0
                 with self._lock:
                     self._pending.extendleft(reversed(back))
+                    _M_QUEUE_DEPTH.set(len(self._pending))
+                flight_recorder.event_rid(req.rid, "page_backpressure", pages_short=fresh_n)
                 break
             self._kv_alloc.record_prefix_mapped(len(shared))
+            if shared:
+                flight_recorder.event_rid(req.rid, "prefix_pages_mapped", pages=len(shared),
+                                          tokens=req.prefix_len)
             self._slot_pages[req.slot] = shared + fresh
+            flight_recorder.event_rid(
+                req.rid, "page_alloc", fresh=len(fresh), shared=len(shared),
+                attn_path="kernel" if self._page_kernel else "gather",
+            )
             funded.append(req)
         if funded:
             rows = np.zeros((len(funded), self._max_pages_per_slot), np.int32)
@@ -1461,24 +1760,40 @@ class LLMEngine:
             tokens[i, : lengths[i]] = req.prompt_ids
         slots = self._to_device([r.slot for r in reqs], torch.long)
         lengths_d = self._to_device(lengths, torch.long)
+        _M_WAVES.inc()
         if chunked:
             cached = None
             if self._prefix is not None:
                 cached = np.array([r.prefix_len for r in reqs], np.int64)
                 if not self._paged:
                     self._fetch_prefixes(reqs)
-            last_h = self._prefill_chunked(tokens, lengths, slots, cached)
+            self._chunk_reqs = reqs
+            try:
+                last_h = self._prefill_chunked(tokens, lengths, slots, cached)
+            finally:
+                self._chunk_reqs = None
             logits = llama._head(self.params, last_h[:, None, :], cfg, self._quant_kernel)[:, 0, :]
         else:
-            logits, kvs = llama.prefill_layers(
-                self.params, cfg, self._to_device(tokens, torch.long), lengths_d,
-                quant_kernel=self._quant_kernel,
-            )
-            if self._paged:
-                llama.write_prefill_pages(self._cache, kvs, self._tables[slots], self._page)
-            else:
-                llama.write_prefill_slots(self._cache, kvs, slots)
+            for req in reqs:
+                flight_recorder.event_rid(req.rid, "prefill_wave", bucket=bucket, wave_rows=N,
+                                          live_rows=N)
+            self._telemetry.record_dispatch("prefill", tokens=int(lengths.sum()), rows=N)
+            t_wall, t0 = time.time(), time.perf_counter()
+            with self._annotate("engine.prefill_wave"):
+                logits, kvs = llama.prefill_layers(
+                    self.params, cfg, self._to_device(tokens, torch.long), lengths_d,
+                    quant_kernel=self._quant_kernel,
+                )
+                if self._paged:
+                    llama.write_prefill_pages(self._cache, kvs, self._tables[slots], self._page)
+                else:
+                    llama.write_prefill_slots(self._cache, kvs, slots)
             del kvs
+            if self._dtl is not None:
+                self._dtl.record_span(
+                    "prefill", t_wall=t_wall, lock_wait_s=0.0, run_s=time.perf_counter() - t0,
+                    rows=N, tokens=int(lengths.sum()), rids=[r.rid for r in reqs],
+                )
         temps = self._to_device([r.params.temperature for r in reqs], torch.float32)
         topps = self._to_device([r.params.top_p for r in reqs], torch.float32)
         seeds = self._to_device([r.sampling_seed & 0x7FFFFFFF for r in reqs], torch.long)
@@ -1507,6 +1822,9 @@ class LLMEngine:
                 for req, ctx in zip(reqs, spec_tokens):
                     if ctx is not None:
                         self._spec_ctx[req.slot] = ctx
+                    flight_recorder.event_rid(req.rid, "decode_join", slot=req.slot,
+                                              position=len(req.prompt_ids))
+                self._update_occupancy_gauges()
         else:
             # the decode tier writes each row's state at its import
             per_page = self._page_bytes()
@@ -1529,6 +1847,9 @@ class LLMEngine:
             for i, req in enumerate(reqs):
                 if eligible[i]:
                     prop.on_admit(req.slot, int(lengths[i]))
+                    flight_recorder.event_rid(req.rid, "draft_prefill",
+                                              prompt_tokens=int(lengths[i]),
+                                              spec_proposer=prop.kind)
         self._counters["prefill_waves"] += 1
         self._counters["prefill_tokens"] += int(lengths.sum())
         self._counters["requests_prefilled"] += len(reqs)
@@ -1572,11 +1893,15 @@ class LLMEngine:
                 self._lock.notify_all()
                 return
             del self._tier_slots[rec.slot]
+            flight_recorder.event_rid(req.rid, "tier_assign", tier="decode", slot=rec.slot)
             if rec.spec_tokens is not None:
                 self._spec_ctx[rec.slot] = list(rec.spec_tokens)
             self._slot_req[rec.slot] = req
+            flight_recorder.event_rid(req.rid, "decode_join", slot=rec.slot,
+                                      position=rec.position)
             self._slot_budget[rec.slot] = rec.budget
             self._slot_pos[rec.slot] = rec.position
+            self._update_occupancy_gauges()
         self._update_slots(*rec.state)
 
     def _fail_claims(self, reqs: List[_Request], exc: BaseException) -> None:
@@ -1600,9 +1925,11 @@ class LLMEngine:
             ent = req.prefix_entry
             if ent is None:
                 continue
-            llama.copy_kv_rows(self._prefix_store, self._cache, ent.store_slot, req.slot,
-                               req.prefix_len)
+            with self._annotate("engine.prefix_fetch"):
+                llama.copy_kv_rows(self._prefix_store, self._cache, ent.store_slot, req.slot,
+                                   req.prefix_len)
             self._counters["prefix_copy_dispatches"] += 1
+            _M_PREFIX_COPY.inc()
             self._prefix.release(ent)
             req.prefix_entry = None
 
@@ -1627,8 +1954,10 @@ class LLMEngine:
             if ins is None:
                 continue
             store_slot, length = ins
-            llama.copy_kv_rows(self._cache, self._prefix_store, req.slot, store_slot, length)
+            with self._annotate("engine.prefix_insert"):
+                llama.copy_kv_rows(self._cache, self._prefix_store, req.slot, store_slot, length)
             self._counters["prefix_copy_dispatches"] += 1
+            _M_PREFIX_COPY.inc()
 
     def _update_slots(self, slots, tokens, positions, temps, topps, seeds) -> None:
         """Admission: the wave's state into the device-resident slot
@@ -1651,7 +1980,10 @@ class LLMEngine:
         aligned, < each row's length) holds each row's rows already in
         place from the prefix cache: the loop starts at the wave's least
         cached chunk, and a row runs with valid = 0 in every chunk below
-        its own."""
+        its own. The wave's requests (``_chunk_reqs``, row-aligned, set by
+        ``_prefill_wave``) get one ``prefill_chunk`` flight event per chunk
+        that extends them."""
+        reqs = self._chunk_reqs
         dev = self.device
         C = self.engine_config.prefill_chunk
         N, Tmax = tokens.shape
@@ -1663,26 +1995,47 @@ class LLMEngine:
             tok_k = np.zeros((N, C), np.int64)
             seg = tokens[:, k * C:(k + 1) * C]
             tok_k[:, : seg.shape[1]] = seg
-            valid = np.clip(lengths - k * C, 0, C)
+            valid_np = np.clip(lengths - k * C, 0, C)
             if cached is not None:
-                valid = np.where(k * C < cached, 0, valid)
-            valid = self._to_device(valid, torch.long)
+                valid_np = np.where(k * C < cached, 0, valid_np)
+            valid = self._to_device(valid_np, torch.long)
             offsets = torch.full((N,), k * C, dtype=torch.long, device=dev)
             window = self._attention_window(min((k + 1) * C, self.max_seq_len))
             tok_d = self._to_device(tok_k, torch.long)
-            if self._paged:
-                cand, _ = llama.extend_layers_paged(
-                    self.params, self.model_config, tok_d, offsets, valid, slots,
-                    self._tables, self._cache, window, self._page,
-                    quant_kernel=self._quant_kernel,
+            t_wall, t0 = time.time(), time.perf_counter()
+            with self._annotate("engine.prefill_chunk"):
+                if self._paged:
+                    cand, _ = llama.extend_layers_paged(
+                        self.params, self.model_config, tok_d, offsets, valid, slots,
+                        self._tables, self._cache, window, self._page,
+                        quant_kernel=self._quant_kernel,
+                    )
+                else:
+                    cand, _ = llama.extend_layers(
+                        self.params, self.model_config, tok_d, offsets, valid, slots,
+                        self._cache, window, quant_kernel=self._quant_kernel,
+                    )
+                last_h = torch.where((valid > 0)[:, None], cand, last_h)
+            live_rows, live_tokens = int((valid_np > 0).sum()), int(valid_np.sum())
+            if self._dtl is not None:
+                self._dtl.record_span(
+                    "prefill_chunk", t_wall=t_wall, lock_wait_s=0.0,
+                    run_s=time.perf_counter() - t0, rows=live_rows, tokens=live_tokens,
+                    rids=[r.rid for r in reqs] if reqs is not None else (),
                 )
-            else:
-                cand, _ = llama.extend_layers(
-                    self.params, self.model_config, tok_d, offsets, valid, slots,
-                    self._cache, window, quant_kernel=self._quant_kernel,
-                )
-            last_h = torch.where((valid > 0)[:, None], cand, last_h)
+            self._telemetry.record_dispatch(
+                "prefill", tokens=live_tokens,
+                cache_bytes=hardware.kv_read_bytes_per_step(
+                    self.model_config, N, window, self._kv_byte_width),
+                rows=live_rows,
+            )
+            if reqs is not None and flight_recorder.enabled():
+                for i, req in enumerate(reqs):
+                    if valid_np[i] > 0:
+                        flight_recorder.event_rid(req.rid, "prefill_chunk", chunk=k,
+                                                  window=window, tokens=int(valid_np[i]))
             self._counters["prefill_chunks"] += 1
+            _M_PREFILL_CHUNKS.inc()
         return last_h
 
     def _decode_once(self) -> None:
@@ -1716,19 +2069,58 @@ class LLMEngine:
                 return
             snapshot = sorted(self._slot_req.items())
             window = self._decode_window(max(self._slot_pos.values()))
+            read_bytes = self._decode_read_bytes(window)
             for slot in self._slot_pos:
                 self._slot_pos[slot] += block
                 self._slot_budget[slot] -= block
+            self._update_occupancy_gauges()
         t_dispatch = time.perf_counter()
-        token_slab = self._dispatch_block(window, snapshot)
+        token_slab = self._dispatch_block(window, snapshot, "decode", read_bytes)
         self._counters["decode_dispatches"] += 1
         self._to_reader("decode", token_slab, (snapshot, t_dispatch))
 
-    def _dispatch_block(self, window: int, snapshot) -> torch.Tensor:
+    def _decode_read_bytes(self, window: int) -> int:
+        """KV bytes one decode step reads (caller holds the lock): the
+        live rows, page-rounded, where a kernel reads each row's own
+        length; else the window for every row."""
+        if self._page_kernel or self._kv_kernel:
+            page = self._page if self._paged else 1
+            tokens = sum(min(kv_pages.pages_for_tokens(min(p, self.max_seq_len), page) * page,
+                             self.max_seq_len) for p in self._slot_pos.values())
+            return hardware.kv_read_bytes_ragged(self.model_config, tokens, self._kv_byte_width)
+        return hardware.kv_read_bytes_per_step(
+            self.model_config, self.num_slots, window, self._kv_byte_width)
+
+    def _dispatch_block(self, window: int, snapshot, kind: str = "decode",
+                        read_bytes: int = 0) -> torch.Tensor:
         """Launch one block of ``decode_block`` steps over every slot;
         returns the token slab ``[block, B]`` (a tensor of its own:
         admission rewrites ``_tokens_dev`` in place while the slab may
-        still be on its way to the host)."""
+        still be on its way to the host). The dispatch is counted, timed
+        on the host and labelled as ``kind`` (``decode`` or
+        ``spec_block``)."""
+        t_wall, t0 = time.time(), time.perf_counter()
+        with self._annotate("engine.decode_block"):
+            slab = self._launch_block(window, snapshot)
+        block = self._decode_block
+        rows = len(snapshot)
+        path = None
+        if self._paged:
+            path = "kernel" if self._page_kernel else "gather"
+            _M_PAGED_ATTN.labels(path=path).inc()
+        _M_DECODE_STEPS.inc(block)
+        _M_DECODE_DISPATCHES.inc()
+        if self._dtl is not None:
+            self._dtl.record_span(kind, t_wall=t_wall, lock_wait_s=0.0,
+                                  run_s=time.perf_counter() - t0, rows=rows, tokens=block * rows,
+                                  steps=block, path=path, rids=[r.rid for _, r in snapshot])
+        self._telemetry.record_dispatch(kind, tokens=block * rows, weight_passes=block,
+                                        cache_bytes=block * read_bytes, steps=block, rows=rows,
+                                        path=path)
+        return slab
+
+    def _launch_block(self, window: int, snapshot) -> torch.Tensor:
+        """The block's launches, from and into the device slot state."""
         block = self._decode_block
         max_pos = self.max_seq_len - 1
         tok = self._tokens_dev
@@ -1860,26 +2252,44 @@ class LLMEngine:
         opts = dict(max_pos=self.max_seq_len - 1, vocab=self._sample_vocab,
                     sampled=any(req.params.temperature > 0 for _, req in snapshot),
                     quant_kernel=self._quant_kernel)
+        t_wall, t0 = time.time(), time.perf_counter()
+        with self._annotate("engine.spec_verify"):
+            if self._paged:
+                new_tokens, new_positions, packed = spec_verify_paged(
+                    *args, self._tables, self._page, page_kernel=self._verify_kernel, **opts)
+            else:
+                new_tokens, new_positions, packed = spec_verify(*args, **opts)
+            self._tokens_dev.copy_(new_tokens)
+            self._positions_dev.copy_(new_positions)
+        path = None
         if self._paged:
-            new_tokens, new_positions, packed = spec_verify_paged(
-                *args, self._tables, self._page, page_kernel=self._verify_kernel, **opts)
-        else:
-            new_tokens, new_positions, packed = spec_verify(*args, **opts)
-        self._tokens_dev.copy_(new_tokens)
-        self._positions_dev.copy_(new_positions)
+            path = "kernel" if self._verify_kernel else "gather"
+            _M_PAGED_ATTN.labels(path=path).inc()
+        _M_DECODE_STEPS.inc(1)
+        _M_DECODE_DISPATCHES.inc()
+        if self._dtl is not None:
+            self._dtl.record_span("spec", t_wall=t_wall, lock_wait_s=0.0,
+                                  run_s=time.perf_counter() - t0, rows=len(snapshot),
+                                  tokens=int(draft_len.sum()) + len(snapshot), path=path,
+                                  rids=[r.rid for _, r in snapshot])
+        with self._lock:
+            # the state the verify ran at (the shadows move at its landing)
+            spec_bytes = self._decode_read_bytes(window)
         self._counters["decode_dispatches"] += 1
         self._counters["spec_verify_dispatches"] += 1
         if pipelined:
             host, event = self._start_host_copy(packed)
             self._spec_pending = {
                 "host": host, "event": event, "snapshot": snapshot, "draft_len": draft_len,
-                "t_dispatch": t_dispatch,
+                "t_dispatch": t_dispatch, "path": path, "spec_bytes": spec_bytes,
                 "opt": self._spec_runahead_proposals(prop, prop_rows, proposals, K),
             }
             return
+        t_rb = time.time()
         with spec_decode_mod.allowed_sync("spec"):
             packed_np = packed.cpu().numpy()
-        self._spec_apply_readback(packed_np, snapshot, draft_len, t_dispatch)
+        self._observe_readback("spec", time.time() - t_rb)
+        self._spec_apply_readback(packed_np, snapshot, draft_len, t_dispatch, path, spec_bytes)
 
     def _flush_spec_pipeline(self) -> None:
         """Land the verify in flight: wait for its packed result (the copy
@@ -1895,12 +2305,18 @@ class LLMEngine:
         self._spec_reconcile = None
         if pending is None:
             return
+        t_rb = time.time()
         with spec_decode_mod.allowed_sync("spec"):
             if pending["event"] is not None:
                 pending["event"].synchronize()
             packed_np = pending["host"].numpy()
+        wait_s = time.time() - t_rb
+        _M_READBACK.labels(kind="spec").observe(wait_s, trace_id=None)
+        self._telemetry.record_readback("spec", wait_s)
+        if self._dtl is not None:
+            self._dtl.record_pipeline_flush(wait_s, rows=len(pending["snapshot"]))
         self._spec_apply_readback(packed_np, pending["snapshot"], pending["draft_len"],
-                                  pending["t_dispatch"])
+                                  pending["t_dispatch"], pending["path"], pending["spec_bytes"])
         opt = pending["opt"]
         if not opt:
             return
@@ -1923,12 +2339,14 @@ class LLMEngine:
                     # spent predicting the bonus token: validated, nothing
                     # left to dispatch
                     self._counters["spec_pipeline_confirmed"] += 1
+                    _M_SPEC_PIPE_CONFIRMED.inc()
             else:
                 missed.add(slot)
         self._spec_reconcile = (confirmed, missed)
 
     def _spec_apply_readback(self, packed_np: np.ndarray, snapshot, draft_len,
-                             t_dispatch: float) -> None:
+                             t_dispatch: float, path: Optional[str] = None,
+                             spec_bytes: int = 0) -> None:
         """Apply a landed verify (the synchronous path right after its
         read, the pipeline's flush one round later): the scheduler's
         acceptance window, the counters, each row's budget and position
@@ -1937,14 +2355,23 @@ class LLMEngine:
         skipped."""
         t_done = time.perf_counter()
         out_np, acc_np = packed_np[:, :-1], packed_np[:, -1]
+        self._telemetry.record_dispatch(
+            "spec", tokens=sum(int(acc_np[s]) + 1 for s, _ in snapshot),
+            cache_bytes=spec_bytes, rows=len(snapshot), path=path,
+        )
         self.scheduler.record_spec_round(
             int(draft_len.sum()), sum(int(acc_np[s]) for s, _ in snapshot))
+        prop_kind = self._spec_proposer.kind if self._spec_proposer is not None else None
         with self._lock:
             for slot, req in snapshot:
                 n = int(acc_np[slot]) + 1
                 spec_decode_mod.record_dispatch(int(draft_len[slot]), n - 1)
                 if self._slot_req.get(slot) is not req:
                     continue
+                if int(draft_len[slot]):
+                    flight_recorder.event_rid(req.rid, "spec_verify",
+                                              drafted=int(draft_len[slot]), accepted=n - 1,
+                                              spec_proposer=prop_kind)
                 self._slot_budget[slot] -= n
                 self._slot_pos[slot] = min(self._slot_pos[slot] + n, self.max_seq_len - 1)
                 buf = self._spec_ctx.get(slot)
@@ -1970,13 +2397,19 @@ class LLMEngine:
                 if d:
                     proposals[slot] = d
                     self._counters["spec_pipeline_confirmed"] += 1
+                    _M_SPEC_PIPE_CONFIRMED.inc()
                     continue
             if slot in missed:
                 rolled += 1
             fresh.append((slot, ctx, cap))
+        t0 = time.time()
         if fresh:
             proposals.update(prop.propose_wave(fresh))
         self._counters["spec_pipeline_rollbacks"] += rolled
+        if rolled:
+            _M_SPEC_PIPE_ROLLBACKS.inc(rolled)
+            if self._dtl is not None:
+                self._dtl.record_rollback(time.time() - t0, rows=rolled)
         return proposals
 
     def _spec_runahead_proposals(self, prop, prop_rows, proposals, K):
@@ -2015,12 +2448,16 @@ class LLMEngine:
         proposals; the reader gets the host slab."""
         block = self._decode_block
         window = self._decode_window(max_pos_live)
+        with self._lock:
+            read_bytes = self._decode_read_bytes(window)
         t_dispatch = time.perf_counter()
-        slab = self._dispatch_block(window, snapshot)
+        slab = self._dispatch_block(window, snapshot, "spec_block", read_bytes)
         self._counters["decode_dispatches"] += 1
         self._counters["spec_block_dispatches"] += 1
+        t_rb = time.time()
         with spec_decode_mod.allowed_sync("spec"):
             slab_np = slab.cpu().numpy()  # [block, B]
+        self._observe_readback("spec_block", time.time() - t_rb)
         t_done = time.perf_counter()
         with self._lock:
             for slot, req in snapshot:
@@ -2071,7 +2508,13 @@ class LLMEngine:
             pages = self._slot_pages.pop(slot, None)
             if pages:
                 # shared prefix pages keep the entry's reference
-                self._kv_alloc.release(pages)
+                freed = self._kv_alloc.release(pages)
+                self._kv_alloc.observe_request_pages(len(pages))
+                if req.flight_rec is not None:
+                    # on the record itself: the rid unmapped when the
+                    # stream finished, the free happens now
+                    req.flight_rec.event("page_free", rid=req.rid, pages=len(pages),
+                                         freed=freed)
             if self._paged:
                 self._tables[slot].fill_(0)
             self._live_dev[slot].fill_(False)
@@ -2086,7 +2529,26 @@ class LLMEngine:
                 self._spec_proposer.on_release(slot)
             req.slot = -1
             self._free_slots.append(slot)
+            if owner is self._slot_req:
+                flight_recorder.event_rid(req.rid, "decode_leave", slot=slot,
+                                          generated=req.generated)
+            self._update_occupancy_gauges()
             self._lock.notify_all()  # wakes ingest_window when the last slot frees
+
+    def _update_occupancy_gauges(self) -> None:
+        """Slot occupancy and KV utilization gauges (caller holds the
+        lock; host arithmetic only). Paged: live rows over the pool, and
+        the reserved-but-unwritten share of live requests' pages."""
+        _M_SLOTS_IN_USE.set(len(self._slot_req))
+        used = sum(min(p, self.max_seq_len) for p in self._slot_pos.values())
+        if self._paged:
+            cap = self._kv_alloc.capacity * self._page
+            _M_KV_UTILIZATION.set(used / cap if cap else 0.0)
+            held = self._page * sum(len(p) for p in self._slot_pages.values())
+            self._kv_alloc.set_fragmentation(1.0 - used / held if held else 0.0)
+            return
+        cap = self.num_slots * self.max_seq_len
+        _M_KV_UTILIZATION.set(used / cap if cap else 0.0)
 
     # ------------------------------------------------------------------ #
     # reader thread: the one place that waits for the device
@@ -2098,7 +2560,7 @@ class LLMEngine:
                 with self._lock:
                     live = list(self._slot_req.values())
                 for req in live:
-                    self._finish(req)
+                    self._finish(req, "shutdown")
                 return
             kind, host, event, rows = item
             if kind == "drain_barrier":
@@ -2113,9 +2575,11 @@ class LLMEngine:
                 self._emit_spec(kind, host, rows)
                 continue
             try:
+                t0 = time.time()
                 if event is not None:
                     event.synchronize()  # releases the GIL while it waits
                 values = host.numpy()
+                self._observe_readback(kind, time.time() - t0)
             except Exception as exc:  # noqa: BLE001 - fail this item's requests, keep reading
                 logger.exception("LLM engine readback error: %s", exc)
                 for _, req in rows if kind == "prefill" else rows[0]:
@@ -2144,6 +2608,14 @@ class LLMEngine:
                         req.position += 1
                         self._emit(req, int(row[slot]))
             self._last_readback = done
+
+    def _observe_readback(self, kind: str, wait_s: float) -> None:
+        """One device-completion wait, by dispatch kind: the readback
+        histogram, the estimator's averages and a timeline span."""
+        _M_READBACK.labels(kind=kind).observe(wait_s, trace_id=None)
+        self._telemetry.record_readback(kind, wait_s)
+        if self._dtl is not None:
+            self._dtl.record_readback(kind, wait_s)
 
     def _emit_spec(self, kind: str, host, rows) -> None:
         """Reader thread: a landed verify (``spec``: ``(out, accepted)``,
@@ -2182,8 +2654,20 @@ class LLMEngine:
         req.generated += 1
         req.emitted.append(token)
         self._reader_counters["tokens_generated"] += 1
+        _M_TOKENS.inc()
+        now = time.time()
         if req.generated == 1:
-            self._ttft.append(time.time() - req.t_submit)
+            ttft = now - req.t_submit
+            self._ttft.append(ttft)
+            _M_TTFT.observe(ttft, trace_id=req.trace_hex)
+            _M_PREFILL_WAIT.observe(now - (req.t_admit or req.t_submit), trace_id=req.trace_hex)
+            slo_mod.observe_latency("ttft_p95", ttft)
+            flight_recorder.event_rid(req.rid, "first_token", ttft_s=round(ttft, 6))
+        elif req.t_last_token:
+            itl = now - req.t_last_token
+            _M_TOKEN_LATENCY.observe(itl, trace_id=req.trace_hex)
+            slo_mod.observe_latency("inter_token_p95", itl)
+        req.t_last_token = now
         done = (
             token in self._stop_ids
             or req.generated >= req.params.max_tokens
@@ -2201,10 +2685,20 @@ class LLMEngine:
                     self._lock.notify_all()
 
     @staticmethod
-    def _finish(req: _Request) -> None:
+    def _finish(req: _Request, outcome: Optional[str] = None) -> None:
+        """End the request's stream once; its flight record learns the
+        outcome (from the request's state unless given)."""
         if not req.finished:
             req.finished = True
             req.out_queue.put(_END)
+            if outcome is None:
+                if isinstance(req.error, RequestPreempted):
+                    outcome = "preempt"
+                elif req.error is not None:
+                    outcome = "error"
+                else:
+                    outcome = "abort" if req.cancelled else "finish"
+            flight_recorder.finish_rid(req.rid, outcome)
 
 
 # --------------------------------------------------------------------- #

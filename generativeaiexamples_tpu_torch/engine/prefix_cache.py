@@ -1,9 +1,9 @@
 """Host-side radix index for the automatic prefix KV cache.
 
-A copy of generativeaiexamples_tpu/engine/prefix_cache.py, whose counters
-(hits, misses, evictions, tokens reused) are plain integers under the
-index's lock here, read by ``stats()``; the port registers no metric
-families.
+A copy of generativeaiexamples_tpu/engine/prefix_cache.py: its counters
+(hits, misses, evictions, tokens reused) count in JAX's
+``genai_engine_prefix_cache_*`` families and in plain integers under the
+index's lock, read by ``stats()``.
 
 Every chain front-loads a shared prefix (the RAG chains' system prompt
 and template, ``multi_turn``'s conversation history); this index lets the
@@ -38,6 +38,42 @@ from __future__ import annotations
 
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
+
+from generativeaiexamples_tpu_torch.utils import metrics as metrics_mod
+
+_REG = metrics_mod.get_registry()
+_M_HITS = _REG.counter(
+    "genai_engine_prefix_cache_hits_total",
+    "Chunked-prefill admissions that matched a cached prefix.",
+)
+_M_MISSES = _REG.counter(
+    "genai_engine_prefix_cache_misses_total",
+    "Chunked-prefill admissions that found no cached prefix.",
+)
+_M_EVICTIONS = _REG.counter(
+    "genai_engine_prefix_cache_evictions_total",
+    "Prefix entries evicted (LRU over unpinned entries) to free a store slot.",
+)
+_M_TOKENS_REUSED = _REG.counter(
+    "genai_engine_prefix_cache_tokens_reused_total",
+    "Prompt tokens served from cached KV rows instead of prefill compute.",
+)
+_M_ROWS_UTIL = _REG.gauge(
+    "genai_engine_prefix_cache_rows_utilization_ratio",
+    "Fraction of reserved prefix-cache rows holding live cached prefixes.",
+)
+# Slot occupancy is the ACTIONABLE sizing signal: every entry consumes a
+# whole store slot regardless of its prefix length, so the rows ratio
+# can sit near zero while every insert is forced to evict.
+_M_SLOTS_IN_USE = _REG.gauge(
+    "genai_engine_prefix_cache_slots_in_use",
+    "Reserved store slots currently holding a cached prefix entry.",
+)
+_M_SLOTS_CAPACITY = _REG.gauge(
+    "genai_engine_prefix_cache_slots_capacity",
+    "Configured prefix-cache store slot count (prefix_cache_slots).",
+)
+
 
 class _Node:
     __slots__ = ("children", "entry", "parent")
@@ -95,6 +131,9 @@ class PrefixCache:
         self.evictions = 0  # guarded by self._lock
         self.tokens_reused = 0  # guarded by self._lock
         self._lock = threading.Lock()
+        _M_ROWS_UTIL.set(0.0)
+        _M_SLOTS_IN_USE.set(0)
+        _M_SLOTS_CAPACITY.set(slots)
 
     # -- internals (caller holds self._lock) ---------------------------- #
     def _cap(self, n: int) -> int:
@@ -150,6 +189,12 @@ class PrefixCache:
         while len(self._hints) > self._HINT_CAP:
             self._hints.pop(next(iter(self._hints)))
 
+    def _update_gauge(self) -> None:
+        """Refresh the rows/slots gauges. Caller holds self._lock."""
+        used = sum(e.length for e in self._entries)
+        _M_ROWS_UTIL.set(used / (self.capacity * self.max_len))
+        _M_SLOTS_IN_USE.set(self.capacity - len(self._free))
+
     def _evict_one(self) -> Optional[int]:
         """Free the LRU unpinned entry's store slot; None if every entry
         is pinned by a live request (refs > 0) — insertion then skips
@@ -182,6 +227,7 @@ class PrefixCache:
                     break
             node = parent
         self.evictions += 1
+        _M_EVICTIONS.inc()
         return victim.store_slot
 
     # -- engine-facing API ---------------------------------------------- #
@@ -204,6 +250,7 @@ class PrefixCache:
             entry = self._subtree_entry(node) if depth > 0 else None
             if entry is None:
                 self.misses += 1
+                _M_MISSES.inc()
                 return None
             length = min(depth, entry.length)
             entry.refs += 1
@@ -212,6 +259,8 @@ class PrefixCache:
                 self._bind_hint(hint, entry)
             self.hits += 1
             self.tokens_reused += length
+            _M_HITS.inc()
+            _M_TOKENS_REUSED.inc(length)
             return entry, length
 
     def release(self, entry: PrefixEntry) -> None:
@@ -240,6 +289,8 @@ class PrefixCache:
                 del self._hints[h]
             self._free.append(slot)
             self.evictions += 1
+            _M_EVICTIONS.inc()
+            self._update_gauge()
             return True
 
     def evict_lru(self) -> bool:
@@ -253,6 +304,7 @@ class PrefixCache:
             if slot is None:
                 return False
             self._free.append(slot)
+            self._update_gauge()
             return True
 
     def touch(self, hint: str) -> None:
@@ -347,6 +399,7 @@ class PrefixCache:
             self._entries.append(entry)
             if hint:
                 self._bind_hint(hint, entry)
+            self._update_gauge()
             return entry
 
     # -- introspection --------------------------------------------------- #

@@ -22,7 +22,9 @@ tensors (bf16 included: numpy has no bf16, torch has).
 Snapshots spool to a bounded directory (oldest first out), each stamped
 with the git revision that wrote it and the engine config's fingerprint;
 restore refuses a fingerprint or a KV geometry that differs from the
-engine's. The counters are plain integers (``counters``).
+engine's. The counters are JAX's families (``genai_engine_preempted_total``,
+``_restored_total``, ``_restore_seconds``, ``_snapshot_bytes_total``);
+``restore_latencies`` keeps each restore's latency as well.
 """
 from __future__ import annotations
 
@@ -37,37 +39,62 @@ import os
 import pathlib
 import secrets
 import subprocess
-import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from generativeaiexamples_tpu_torch.utils import metrics as metrics_mod
+
 logger = logging.getLogger(__name__)
+
+_REG = metrics_mod.get_registry()
+_M_PREEMPTED = _REG.counter(
+    "genai_engine_preempted_total",
+    "Live requests checkpointed off a draining engine, by mode: "
+    "mode='snapshot' (KV payload spooled — restorable mid-stream) vs "
+    "mode='replay' (no KV to spool — prompt + pinned seed only, the "
+    "sibling replays from the prompt).",
+    ("mode",),
+)
+_M_RESTORED = _REG.counter(
+    "genai_engine_restored_total",
+    "Snapshots re-admitted on this engine, by mode: mode='restore' "
+    "(KV payload uploaded, decode resumed at the spooled position) vs "
+    "mode='replay' (no payload or no slot/pages — full re-prefill "
+    "from the prompt with the pinned seed).",
+    ("mode",),
+)
+_M_RESTORE_LATENCY = _REG.histogram(
+    "genai_engine_restore_seconds",
+    "Snapshot re-admission latency: restore_snapshot() entry to the "
+    "request registered into the decode batch (KV upload included).",
+)
+_M_SNAPSHOT_BYTES = _REG.counter(
+    "genai_engine_snapshot_bytes_total",
+    "KV payload bytes captured into request snapshots (what a drain "
+    "reads back from the paged pool and spools to disk).",
+)
+
 
 SNAPSHOT_VERSION = 1
 
-_COUNTERS_LOCK = threading.Lock()
-# preempted_snapshot, preempted_replay, restored_restore, restored_replay,
-# snapshot_bytes
-counters: "collections.Counter[str]" = collections.Counter()
 # restore_snapshot entry to decode registration, seconds, per restore
 restore_latencies: "collections.deque[float]" = collections.deque(maxlen=4096)
 
 
 def record_preempted(mode: str) -> None:
     """Count one preempted live request (mode 'snapshot' | 'replay')."""
-    with _COUNTERS_LOCK:
-        counters[f"preempted_{mode}"] += 1
+    _M_PREEMPTED.labels(mode=mode).inc()
 
 
 def record_restored(mode: str, latency_s: Optional[float] = None) -> None:
     """Count one re-admission (mode 'restore' | 'replay')."""
-    with _COUNTERS_LOCK:
-        counters[f"restored_{mode}"] += 1
-        if latency_s is not None:
-            restore_latencies.append(latency_s)
+    _M_RESTORED.labels(mode=mode).inc()
+    if latency_s is not None:
+        restore_latencies.append(latency_s)
+        _M_RESTORE_LATENCY.observe(latency_s)
 
 
 class SnapshotError(RuntimeError):
@@ -302,8 +329,7 @@ def capture(engine, req, position: int, pages: Tuple[int, ...]) -> RequestSnapsh
         n_payload = min((position + page - 1) // page, len(pages))
         host_layers = read_pages(engine, pages[:n_payload])
         nbytes = sum(t.numel() * t.element_size() for layer in host_layers for t in layer.values())
-        with _COUNTERS_LOCK:
-            counters["snapshot_bytes"] += nbytes
+        _M_SNAPSHOT_BYTES.inc(nbytes)
         kv_doc = encode_kv_payload(host_layers)
         mc = engine.model_config
         geometry = {

@@ -7,13 +7,16 @@ tests. ``create_reranker`` takes the JAX package's engine names: '' (or
 ``none``/``disabled``) for no reranker, ``tpu`` for the in-process
 cross-encoder, ``overlap``, and ``remote`` (also ``nvidia-ai-endpoints``,
 ``openai``) for ``RemoteReranker``, a client of a NIM ranking server.
-``rerank_hits`` orders a retrieval's hits by a reranker's scores.
+``rerank_hits`` orders a retrieval's hits by a reranker's scores. The
+``genai_reranker_*`` families count as in JAX (``backend`` is ``tpu`` for
+the device time, the reranker's class name for a ``rerank_hits`` call).
 """
 from __future__ import annotations
 
 import json
 import re
 import threading
+import time
 import urllib.request
 from typing import List, Sequence
 
@@ -22,7 +25,27 @@ import torch
 
 from generativeaiexamples_tpu_torch.engine.batcher import MicroBatcher, row_bucket
 from generativeaiexamples_tpu_torch.engine.embedder import _build_params, _Encoder, _preset
+from generativeaiexamples_tpu_torch.utils import metrics as metrics_mod
 from generativeaiexamples_tpu_torch.utils import resilience
+
+_REG = metrics_mod.get_registry()
+_M_RERANK_SECONDS = _REG.histogram(
+    "genai_reranker_score_seconds",
+    "Cross-encoder scoring wall time per rerank call, by backend.",
+    ("backend",),
+)
+_M_RERANK_PAIRS = _REG.counter(
+    "genai_reranker_pairs_total",
+    "Query-passage pairs scored by the reranker, by backend.",
+    ("backend",),
+)
+_M_RERANK_DEVICE_SECONDS = _REG.histogram(
+    "genai_reranker_device_seconds",
+    "Device cross-encode wall time per dispatch, by backend (count "
+    "doubles as the device-dispatch counter).",
+    ("backend",),
+)
+
 
 
 class OverlapReranker:
@@ -107,8 +130,10 @@ class TorchReranker(_Encoder):
             ids_arr[row, : len(ids)] = ids
             mask[row, : len(ids)] = 1
             type_arr[row, : len(types)] = types
+        t0 = time.time()
         logits = self._run(lambda i, m, t: self._score(self._params, self._head, i, m, t),
                            ids_arr, mask, type_arr)
+        _M_RERANK_DEVICE_SECONDS.labels(backend="tpu").observe(time.time() - t0)
         return [logits[i] for i in range(len(pairs))]
 
     def _tokenize_pairs(self, query: str, passages: Sequence[str]) -> list:
@@ -180,7 +205,11 @@ class RemoteReranker:
 
 def rerank_hits(reranker, query: str, hits: list, top_k: int) -> list:
     """Order hits by cross-encoder score, keep top_k."""
+    backend = type(reranker).__name__
+    t0 = time.time()
     scores = reranker.score(query, [h.chunk.text for h in hits])
+    _M_RERANK_SECONDS.labels(backend=backend).observe(time.time() - t0)
+    _M_RERANK_PAIRS.labels(backend=backend).inc(len(hits))
     order = np.argsort(-scores)
     return [hits[i] for i in order[:top_k]]
 

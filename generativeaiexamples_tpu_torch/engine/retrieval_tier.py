@@ -15,8 +15,9 @@ one ANN dispatch a group instead of one a query. Each query is embedded
 by the same ``embed_query`` and finished by the same fuse and rerank tail
 (``runtime.finish_hits``) as on the synchronous path.
 
-The counters are plain integers (``counters``): dispatches, queries,
-waves, and the backpressure and window-wait seconds.
+The counters (dispatches, queries, waves, and the backpressure and
+window-wait seconds) count in JAX's ``genai_retrieval_tier_*`` families
+and in plain integers (``counters``).
 """
 from __future__ import annotations
 
@@ -31,8 +32,50 @@ from typing import Any, List, Optional
 import numpy as np
 
 from generativeaiexamples_tpu_torch.engine.scheduler.handoff import TransferQueue
+from generativeaiexamples_tpu_torch.utils import flight_recorder
+from generativeaiexamples_tpu_torch.utils import metrics as metrics_mod
 
 logger = logging.getLogger(__name__)
+
+_REG = metrics_mod.get_registry()
+_M_DISPATCHES = _REG.counter(
+    "genai_retrieval_tier_dispatches_total",
+    "Batched device search dispatches the retrieval tier issued (one "
+    "per wave group — the denominator for dispatches/query vs the "
+    "synchronous path's one-per-request).",
+)
+_M_QUERIES = _REG.counter(
+    "genai_retrieval_tier_queries_total",
+    "Queries answered through the retrieval tier (tier-path traffic; "
+    "zero means the tier is off or idle).",
+)
+_M_WAVE_ROWS = _REG.histogram(
+    "genai_retrieval_tier_wave_rows",
+    "Queries coalesced into one retrieval-tier wave (batching "
+    "effectiveness: p50 near 1 means no coalescing is happening).",
+)
+_M_SEARCH_SECONDS = _REG.histogram(
+    "genai_retrieval_tier_search_seconds",
+    "Wave service time: embed + batched ANN search + fuse/rerank for "
+    "every query in the wave.",
+)
+_M_BACKPRESSURE = _REG.counter(
+    "genai_retrieval_tier_backpressure_stall_seconds_total",
+    "Seconds submitters stalled on a full retrieval transfer queue "
+    "before enqueueing (tier backpressure — the worker is not keeping "
+    "up with arrivals).",
+)
+_M_WINDOW_WAIT = _REG.counter(
+    "genai_retrieval_tier_window_wait_seconds_total",
+    "Seconds the tier worker spent waiting on the scheduler policy's "
+    "retrieval window before dispatching a wave (co-scheduling yield "
+    "to prefill, bounded by retriever.tier_window_ms per wave).",
+)
+_M_QUEUE_DEPTH = _REG.gauge(
+    "genai_retrieval_tier_queue_depth",
+    "Queries currently queued for the retrieval tier worker.",
+)
+
 
 _COUNTERS_LOCK = threading.Lock()
 counters: "collections.Counter[str]" = collections.Counter()
@@ -73,7 +116,7 @@ class RetrievalTier:
         depth = int(getattr(ret, "tier_queue_depth", 0)) or 16
         self._window_s = max(0.0, float(getattr(ret, "tier_window_ms", 0)) / 1000.0)
         self._cond = threading.Condition()
-        self._queue = TransferQueue(depth, self._cond)
+        self._queue = TransferQueue(depth, self._cond, depth_gauge=_M_QUEUE_DEPTH)
         self._rids = itertools.count(1)
         self._stopped = False  # guarded by self._cond
         self._thread = threading.Thread(target=self._worker, daemon=True,
@@ -96,6 +139,9 @@ class RetrievalTier:
                 raise RuntimeError("retrieval tier closed while waiting for room")
             if stall > 1e-3:
                 _add(backpressure_stall_seconds=stall)
+                _M_BACKPRESSURE.inc(stall)
+                flight_recorder.event("retrieval_tier_backpressure", stall_s=round(stall, 6),
+                                      capacity=self._queue.capacity)
             self._queue.put(rec)
         if not rec.done.wait(timeout=timeout_s):
             raise TimeoutError(f"retrieval tier did not answer within {timeout_s:.1f}s")
@@ -121,6 +167,8 @@ class RetrievalTier:
             pass
         waited = time.monotonic() - t0
         _add(window_wait_seconds=waited)
+        if waited > 1e-4:
+            _M_WINDOW_WAIT.inc(waited)
         return waited
 
     def _worker(self) -> None:
@@ -133,15 +181,17 @@ class RetrievalTier:
                         rec.error = RuntimeError("retrieval tier closed")
                         rec.done.set()
                     return
-            self._await_window()
+            window_wait = self._await_window()
             with self._cond:
                 wave = self._queue.pop_all()
             if wave:
-                self._serve_wave(wave)
+                self._serve_wave(wave, window_wait)
 
-    def _serve_wave(self, wave: List[RetrievalRecord]) -> None:
+    def _serve_wave(self, wave: List[RetrievalRecord], window_wait: float = 0.0) -> None:
+        t0 = time.time()
         from generativeaiexamples_tpu_torch.chains import runtime as runtime_mod
 
+        _M_WAVE_ROWS.observe(len(wave))
         groups: dict = {}
         for rec in wave:
             groups.setdefault((rec.collection, rec.top_k, rec.threshold), []).append(rec)
@@ -156,6 +206,13 @@ class RetrievalTier:
                         rec.error = exc
                         rec.done.set()
         _add(dispatches=dispatches, queries=len(wave), waves=1)
+        _M_DISPATCHES.inc(dispatches)
+        _M_QUERIES.inc(len(wave))
+        _M_SEARCH_SECONDS.observe(time.time() - t0)
+        flight_recorder.event(
+            "retrieval_tier_wave", rows=len(wave), groups=len(groups), dispatches=dispatches,
+            window_wait_s=round(window_wait, 6), duration_s=round(time.time() - t0, 6),
+        )
 
     def _serve_group(self, runtime_mod, collection: str, top_k: int, threshold: float,
                      recs: List[RetrievalRecord]) -> int:

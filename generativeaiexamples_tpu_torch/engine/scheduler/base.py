@@ -16,13 +16,28 @@ the ratio sits below ``spec_draft_min_acceptance`` (with probe rounds;
 ``draft_skips`` counts the skips); ``AdaptiveK`` reads the same ratio.
 JAX's ``WavePlan`` is not copied: the port's prefill picks the bucket of
 each part of a wave itself, so a plan would carry only the claimed
-requests. The handoff counters are plain integers
-(``handoff.metrics_snapshot``).
+requests. The draft skips count in JAX's
+``genai_engine_spec_draft_skips_total``; ``claim_wave`` observes each
+request's queue wait and stamps its ``admit`` flight event at its first
+claim, as JAX's does.
 """
 from __future__ import annotations
 
 import collections
+import time
 from typing import Any, Dict, List, Optional
+
+from generativeaiexamples_tpu_torch.utils import flight_recorder
+from generativeaiexamples_tpu_torch.utils import metrics as metrics_mod
+
+_REG = metrics_mod.get_registry()
+_M_SPEC_DRAFT_SKIPS = _REG.counter(
+    "genai_engine_spec_draft_skips_total",
+    "Spec rounds where the scheduler policy skipped the resident-draft "
+    "dispatch because the rolling acceptance ratio fell below "
+    "spec_draft_min_acceptance (the wave ran the synced block-decode "
+    "fallback instead; draft-aware scheduling, docs/scheduler.md).",
+)
 
 POLICY_KINDS = ("unified", "disagg")
 
@@ -154,6 +169,7 @@ class SchedulerPolicy:
         ok = self.tracker.should_draft()
         if not ok:
             self.draft_skips += 1
+            _M_SPEC_DRAFT_SKIPS.inc()
         return ok
 
     def record_spec_round(self, drafted: int, accepted: int) -> None:
@@ -174,6 +190,8 @@ class SchedulerPolicy:
         bucket (``prefill_chunk``, or ``max_seq_len`` when shorter), each
         request holding its slot. Slot placement is the free list's pop.
         None when paused or nothing waits."""
+        from generativeaiexamples_tpu_torch.engine import llm_engine as eng_mod
+
         eng = self.engine
         with eng._lock:
             if eng._paused:
@@ -184,7 +202,18 @@ class SchedulerPolicy:
             while eng._pending and len(admitted) < limit:
                 req = eng._pending.popleft()
                 req.slot = eng._free_slots.pop()
+                # a backpressure requeue claims again: the queue wait and
+                # the admit event belong to the first claim only
+                if not req.t_admit:
+                    req.t_admit = time.time()
+                    eng_mod._M_QUEUE_WAIT.observe(req.t_admit - req.t_submit,
+                                                  trace_id=req.trace_hex)
+                    flight_recorder.event_rid(
+                        req.rid, "admit", slot=req.slot,
+                        queue_wait_s=round(req.t_admit - req.t_submit, 6),
+                    )
                 admitted.append(req)
+            eng_mod._M_QUEUE_DEPTH.set(len(eng._pending))
             if admitted:
                 self._on_claimed(admitted)
         return admitted or None

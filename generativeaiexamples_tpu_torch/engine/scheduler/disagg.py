@@ -40,8 +40,10 @@ from typing import Any, Dict
 
 import torch
 
+from generativeaiexamples_tpu_torch.engine import dispatch_timeline
 from generativeaiexamples_tpu_torch.engine.scheduler import handoff as handoff_mod
 from generativeaiexamples_tpu_torch.engine.scheduler.base import SchedulerPolicy
+from generativeaiexamples_tpu_torch.utils import flight_recorder
 
 logger = logging.getLogger(__name__)
 
@@ -139,9 +141,11 @@ class DisaggPolicy(SchedulerPolicy):
 
     # -- wave formation hooks ------------------------------------------ #
     def _on_claimed(self, admitted) -> None:
-        """The claimed slots stay the prefill tier's until import."""
+        """The claimed slots stay the prefill tier's until import; each
+        request's tier is stamped on its timeline."""
         for req in admitted:
             self.engine._tier_slots[req.slot] = req
+            flight_recorder.event_rid(req.rid, "tier_assign", tier="prefill", slot=req.slot)
 
     # -- the prefill tier ---------------------------------------------- #
     def _prefill_loop(self) -> None:
@@ -165,6 +169,10 @@ class DisaggPolicy(SchedulerPolicy):
                 self._prefill_inflight += 1
             if stall > 1e-3:
                 handoff_mod.record_stall(stall)
+                # this thread idled with work queued: a host-gap span
+                dispatch_timeline.record_stall("handoff_backpressure", stall)
+                flight_recorder.event("handoff_backpressure", stall_s=round(stall, 6),
+                                      capacity=self.transfer.capacity)
             wave = None
             try:
                 wave = self.claim_wave()
@@ -175,6 +183,9 @@ class DisaggPolicy(SchedulerPolicy):
                         for rec in records:
                             rec.t_enqueue = time.time()
                             handoff_mod.record_handoff(len(rec.pages), rec.nbytes)
+                            flight_recorder.event_rid(rec.req.rid, "kv_handoff",
+                                                      pages=len(rec.pages), bytes=rec.nbytes,
+                                                      slot=rec.slot)
                             self.transfer.put(rec)
                         eng._last_progress = time.time()
             except Exception as exc:  # noqa: BLE001 - the tier must survive

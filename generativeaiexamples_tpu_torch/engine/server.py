@@ -21,6 +21,14 @@ routes and JSON wire shapes, on the standard library's
   is ``"PREEMPTED"`` and whose ``warnings`` name the snapshot id, then
   ``data: [DONE]`` (the JAX engine server drops the connection there).
 
+- the observability routes of server/observability.py (``/metrics``,
+  ``/internal/metrics``, ``/internal/requests[/{id}]``,
+  ``/internal/timeline``, ``/internal/slo``,
+  ``/internal/debug/bundles[/{id}]``, ``/internal/profile/start|stop``),
+  with every request counted by route pattern and run under a span whose
+  context the engine's submits carry (a ``traceparent`` header is its
+  remote parent), as the JAX engine server's middleware does.
+
 The engine and the embedder are built on first use when not given
 (health, readiness and models never build them). Run on the card::
 
@@ -43,7 +51,9 @@ from typing import Any, Dict, Optional
 
 from generativeaiexamples_tpu_torch.config import AppConfig
 from generativeaiexamples_tpu_torch.engine.llm_engine import engine_wedged
+from generativeaiexamples_tpu_torch.server import observability
 from generativeaiexamples_tpu_torch.utils.resilience import EngineOverloaded, RequestPreempted
+from generativeaiexamples_tpu_torch.utils.tracing import get_tracer
 
 logger = logging.getLogger(__name__)
 
@@ -165,13 +175,76 @@ class ModelServer:
         }
 
 
+_ROUTES = {
+    "GET": ("/v1/health/ready", "/internal/ready", "/v1/models", "/internal/snapshots"),
+    "POST": ("/v1/chat/completions", "/v1/completions", "/v1/embeddings", "/internal/drain",
+             "/internal/restore"),
+}
+
+
+def _route_pattern(method: str, path: str) -> str:
+    """The route pattern a request counts under (bounded cardinality)."""
+    if path in _ROUTES.get(method, ()):
+        return path
+    if method == "GET" and path.startswith("/internal/snapshots/"):
+        return "/internal/snapshots/{id}"
+    return "unmatched"
+
+
 class _Handler(BaseHTTPRequestHandler):
     server_version = "genai-torch/1"
     protocol_version = "HTTP/1.1"
     app: ModelServer  # set on the subclass make_server builds
+    status = 500  # the status sent, for the request accounting
 
     def log_message(self, fmt, *args):  # route access logs through logging
         logger.debug("%s " + fmt, self.address_string(), *args)
+
+    def send_response(self, code, message=None):
+        self.status = code
+        super().send_response(code, message)
+
+    def _traced(self, method: str, serve) -> None:
+        """Run ``serve`` under the request's span (its context attached
+        to this thread, so the engine's submits carry the trace id) and
+        count the request by route pattern."""
+        tracer = get_tracer()
+        path = urllib.parse.urlsplit(self.path).path
+        span = tracer.start_span(
+            f"{method} {path}", remote_ctx=tracer.extract(self.headers),
+            attributes={"http.method": method, "http.target": path},
+        )
+        self.status = 500
+        start = observability.request_started()
+        route = "unmatched"
+        tracer.attach_context(getattr(span, "context", None))
+        try:
+            hit = observability.dispatch(method, self.path, self.headers, self._raw)
+            if hit is not None:
+                route, (status, headers, body) = hit
+                self._send(status, headers, body)
+            else:
+                route = _route_pattern(method, path)
+                serve()
+        except BaseException as exc:
+            span.record_exception(exc)
+            raise
+        finally:
+            tracer.attach_context(None)
+            span.set_attribute("http.status_code", self.status)
+            if self.status >= 500:
+                span.status = "ERROR"
+            tracer.finish_span(span, system_metrics=True)
+            observability.request_finished(route, method, self.status, start, span)
+
+    def _send(self, status: int, headers: Dict[str, str], data: bytes) -> None:
+        self.responded = True
+        self.send_response(status)
+        for name, value in headers.items():
+            self.send_header(name, value)
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
 
     def _json(self, status: int, body: Dict[str, Any], headers: Optional[Dict[str, str]] = None) -> None:
         data = json.dumps(body).encode()
@@ -241,6 +314,12 @@ class _Handler(BaseHTTPRequestHandler):
         return self.rfile.read(n) if n > 0 else b""
 
     def do_GET(self):  # noqa: N802 - http.server's naming
+        self._traced("GET", self._get)
+
+    def do_POST(self):  # noqa: N802 - http.server's naming
+        self._traced("POST", self._post)
+
+    def _get(self) -> None:
         if self._lifecycle("GET"):
             return
         if self.path == "/v1/health/ready":
@@ -256,7 +335,7 @@ class _Handler(BaseHTTPRequestHandler):
         else:
             self._json(404, {"error": f"no route {self.path}"})
 
-    def do_POST(self):  # noqa: N802 - http.server's naming
+    def _post(self) -> None:
         if self._lifecycle("POST"):
             return
         routes = {
@@ -366,6 +445,7 @@ def main() -> None:
     (``AppConfig.from_env``; e.g. ``APP_ENGINE_QUANTIZATION=int8
     APP_ENGINE_KVCACHEDTYPE=int8``, ``APP_EMBEDDINGS_MODELENGINE=hash``).
     Weights are random (seed 0) until checkpoints ship."""
+    from generativeaiexamples_tpu_torch import config_validate
     from generativeaiexamples_tpu_torch.engine.batcher import validate_config
     from generativeaiexamples_tpu_torch.engine.embedder import create_embedder
     from generativeaiexamples_tpu_torch.engine.llm_engine import get_engine
@@ -378,6 +458,8 @@ def main() -> None:
     config = AppConfig.from_env()
     config.engine.validate()
     validate_config(config)
+    config_validate.validate_observability(config)
+    config_validate.configure_observability(config)
     logger.info("config: %s", config)
     server = make_server(args.host, args.port, engine=get_engine(config.engine),
                          embedder=create_embedder(config))

@@ -1,8 +1,8 @@
 """Speculative decoding: the host-side half and the proposer seam.
 
-A copy of generativeaiexamples_tpu/engine/spec_decode.py whose metric
-families are plain integer counters under one lock here
-(:func:`metrics_snapshot`); the port registers no metric families.
+A copy of generativeaiexamples_tpu/engine/spec_decode.py: its counters
+count in JAX's ``genai_engine_spec_*`` families and, as before, in plain
+integers under one lock (:func:`metrics_snapshot` reads those).
 
 Two draft sources share one verify and acceptance contract:
 
@@ -37,6 +37,55 @@ import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from generativeaiexamples_tpu_torch.utils import metrics as metrics_mod
+
+_REG = metrics_mod.get_registry()
+_M_DRAFTED = _REG.counter(
+    "genai_engine_spec_drafted_tokens_total",
+    "Draft tokens proposed by the prompt-lookup speculator.",
+)
+_M_ACCEPTED = _REG.counter(
+    "genai_engine_spec_accepted_tokens_total",
+    "Draft tokens accepted by the verify dispatch (greedy prefix match).",
+)
+_M_ACCEPTANCE = _REG.histogram(
+    "genai_engine_spec_acceptance_ratio",
+    "Per-(row, dispatch) fraction of drafted tokens accepted.",
+    buckets=(0.0, 0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0),
+)
+_M_DISPATCH_TOKENS = _REG.histogram(
+    "genai_engine_spec_dispatch_tokens",
+    "Tokens emitted per live row per verify dispatch (accepted + bonus).",
+    buckets=(1, 2, 3, 4, 6, 8, 12, 16, 24, 32),
+)
+_M_DRAFT_DISPATCHES = _REG.counter(
+    "genai_engine_spec_draft_dispatches_total",
+    "Batched resident-draft-model dispatches by program: "
+    "program='propose' (one fused catch-up + K-step draft launch per "
+    "spec round, drafting for every live spec slot at once) and "
+    "program='prefill' (admission-time chunk dispatches writing a "
+    "wave's prompts into the draft KV cache) — engine/spec_draft.py. "
+    "Together they are the draft model's FULL launch cost (the "
+    "draft_dispatch_share loadgen/bench report). Zero under the "
+    "prompt-lookup proposer, whose drafts are host-side n-gram scans.",
+    ("program",),
+)
+_M_ADAPTIVE_ROUNDS = _REG.counter(
+    "genai_engine_spec_adaptive_rounds_total",
+    "Spec verify rounds dispatched with acceptance-adaptive draft "
+    "width enabled (spec_adaptive_k=on). Together with "
+    "genai_engine_spec_adaptive_k_picked_total this yields the mean effective "
+    "verify width K per round (the loadgen spec block's "
+    "effective_k_mean).",
+)
+_M_ADAPTIVE_K_SUM = _REG.counter(
+    "genai_engine_spec_adaptive_k_picked_total",
+    "Sum of the per-round effective draft widths K picked by the "
+    "adaptive-K ladder (divide by "
+    "genai_engine_spec_adaptive_rounds_total for the mean).",
+)
+
 
 # Counters (process-wide, as the JAX families are): draft tokens proposed
 # and accepted, acceptance-ratio sum and count over (row, dispatch) pairs
@@ -482,6 +531,7 @@ def record_draft_dispatch(program: str = "propose", n: int = 1) -> None:
     """Count resident-draft launches: ``propose`` (one catch-up + K-step
     dispatch a round) or ``prefill`` (admission's chunk dispatches)."""
     _add(**{f"draft_dispatches_{program}": n})
+    _M_DRAFT_DISPATCHES.labels(program=program).inc(n)
 
 
 def record_dispatch(drafted: int, accepted: int) -> None:
@@ -491,12 +541,19 @@ def record_dispatch(drafted: int, accepted: int) -> None:
     if drafted > 0:
         values.update(drafted=drafted, accepted=accepted,
                       acceptance_sum=accepted / drafted, acceptance_n=1)
+        _M_DRAFTED.inc(drafted)
+        if accepted > 0:
+            _M_ACCEPTED.inc(accepted)
+        _M_ACCEPTANCE.observe(accepted / drafted, trace_id=None)
+    _M_DISPATCH_TOKENS.observe(accepted + 1, trace_id=None)
     _add(**values)
 
 
 def record_adaptive_round(k: int) -> None:
     """Account one adaptive-K spec round dispatched at width ``k``."""
     _add(adaptive_rounds=1, adaptive_k_sum=int(k))
+    _M_ADAPTIVE_ROUNDS.inc()
+    _M_ADAPTIVE_K_SUM.inc(int(k))
 
 
 def metrics_snapshot() -> dict:

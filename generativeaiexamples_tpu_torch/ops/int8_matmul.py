@@ -265,6 +265,8 @@ def _launch_w8a8(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torc
     )
     _build.check(code, "int8_w8a8_matmul")
     int8_w8a8_matmul.launches += 1
+    if xq is not None:
+        int8_w8a8_matmul.quantize_launches += 1
     return y
 
 
@@ -293,6 +295,8 @@ def int8_w8a8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> t
 
 
 int8_w8a8_matmul.launches = 0
+# of those, the launches that ran the quantizer as a kernel of its own
+int8_w8a8_matmul.quantize_launches = 0
 
 
 def int8_matmul_w8a8_prefill(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

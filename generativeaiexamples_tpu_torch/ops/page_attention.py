@@ -176,6 +176,8 @@ def _launch(q, k, v, tables, positions, k_scale, v_scale) -> torch.Tensor:
     )
     _build.check(code, "paged_attention")
     paged_attention.launches[kv_dtype] += 1
+    if nsplit > 1:
+        paged_attention.merge_launches += 1
     return out
 
 
@@ -197,6 +199,8 @@ def paged_attention(
 
 # launches of the CUDA kernel, by pool dtype
 paged_attention.launches = dict.fromkeys(KV_DTYPES, 0)
+# of those, the launches that also ran the merge kernel (more than one split)
+paged_attention.merge_launches = 0
 
 
 def supports_geometry(

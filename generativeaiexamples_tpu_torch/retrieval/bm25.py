@@ -9,8 +9,8 @@ under ``persist_dir`` (one chunk a line: text, source, metadata), the JAX
 format, so either package loads what the other wrote; term statistics
 rebuild on load. ``search`` runs behind the ``bm25`` circuit breaker with
 one attempt, as in JAX (a persistently failing index opens it and
-retrieval degrades with a typed error); the store metrics are not
-ported.
+retrieval degrades with a typed error). Ingest and search time and the
+chunk count go to the store families under ``store="bm25"``, as in JAX.
 
 Unlike the JAX package's, an index is safe to share between threads:
 ``add``, ``delete_sources``, ``search`` and ``persist`` run under one
@@ -25,10 +25,13 @@ import math
 import os
 import re
 import threading
+import time
 from collections import Counter
 from typing import Dict, List, Sequence
 
-from generativeaiexamples_tpu_torch.retrieval.store import Chunk, SearchHit
+from generativeaiexamples_tpu_torch.retrieval.store import (
+    STORE_ADD_SECONDS, STORE_CHUNKS, STORE_SEARCH_SECONDS, Chunk, SearchHit,
+)
 from generativeaiexamples_tpu_torch.utils import resilience
 
 logger = logging.getLogger(__name__)
@@ -47,6 +50,7 @@ class BM25Index:
                  k1: float = 1.5, b: float = 0.75) -> None:
         self.k1 = k1
         self.b = b
+        self._collection = collection
         self._persist_path = (
             os.path.join(persist_dir, f"bm25_{collection}.jsonl") if persist_dir else "")
         self._chunks: List[Chunk] = []
@@ -58,6 +62,7 @@ class BM25Index:
             self._load()
 
     def add(self, chunks: Sequence[Chunk]) -> None:
+        t0 = time.time()
         with self._lock:
             for c in chunks:
                 toks = tokenize(c.text)
@@ -68,6 +73,9 @@ class BM25Index:
                 self._df.update(tf.keys())
             if self._persist_path:
                 self.persist()
+            count = len(self._chunks)
+        STORE_ADD_SECONDS.labels(store="bm25").observe(time.time() - t0)
+        STORE_CHUNKS.labels(store="bm25", collection=self._collection).set(count)
 
     def delete_sources(self, sources: Sequence[str]) -> bool:
         drop = set(sources)
@@ -83,6 +91,7 @@ class BM25Index:
                 self._df.update(tf.keys())
             if self._persist_path:
                 self.persist()
+            STORE_CHUNKS.labels(store="bm25", collection=self._collection).set(len(self._chunks))
             return True
 
     def count(self) -> int:
@@ -91,8 +100,11 @@ class BM25Index:
     @resilience.resilient("bm25", attempts=1)
     def search(self, query: str, top_k: int) -> List[SearchHit]:
         """Top-k chunks by BM25, scores min-max normalized to [0, 1]."""
+        t0 = time.time()
         with self._lock:
-            return self._search(query, top_k)
+            hits = self._search(query, top_k)
+        STORE_SEARCH_SECONDS.labels(store="bm25").observe(time.time() - t0)
+        return hits
 
     def _search(self, query: str, top_k: int) -> List[SearchHit]:
         if not self._chunks:

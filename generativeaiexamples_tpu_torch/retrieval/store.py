@@ -5,8 +5,9 @@ typed interface with the operations the chains use (ingest chunks,
 similarity search with scores, list source documents, delete by source).
 ``create_vector_store`` serves the JAX package's in-process names (``tpu``,
 ``memory``) with ``TorchVectorStore``; the other backends raise, naming
-the ROADMAP item that will serve them. The JAX package's store metric
-families are not ported.
+the ROADMAP item that will serve them. The store families (search and
+ingest time by backend, chunks by backend and collection) are JAX's,
+shared by every backend and the BM25 sidecar.
 """
 from __future__ import annotations
 
@@ -15,6 +16,25 @@ from abc import ABC, abstractmethod
 from typing import Dict, List, Sequence
 
 import numpy as np
+
+from generativeaiexamples_tpu_torch.utils import metrics as metrics_mod
+
+_REG = metrics_mod.get_registry()
+STORE_SEARCH_SECONDS = _REG.histogram(
+    "genai_vectorstore_search_seconds",
+    "Similarity/lexical search wall time, by store backend.",
+    ("store",),
+)
+STORE_ADD_SECONDS = _REG.histogram(
+    "genai_vectorstore_add_seconds",
+    "Chunk-insertion (index ingest) wall time, by store backend.",
+    ("store",),
+)
+STORE_CHUNKS = _REG.gauge(
+    "genai_vectorstore_chunks",
+    "Chunks currently indexed, by store backend and collection.",
+    ("store", "collection"),
+)
 
 
 @dataclasses.dataclass

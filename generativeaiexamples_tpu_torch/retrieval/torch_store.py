@@ -16,12 +16,15 @@ import json
 import logging
 import os
 import threading
+import time
 from typing import List, Sequence
 
 import numpy as np
 
 from generativeaiexamples_tpu_torch.retrieval.errors import VectorStoreError
-from generativeaiexamples_tpu_torch.retrieval.store import Chunk, SearchHit, VectorStore
+from generativeaiexamples_tpu_torch.retrieval.store import (
+    STORE_ADD_SECONDS, STORE_CHUNKS, STORE_SEARCH_SECONDS, Chunk, SearchHit, VectorStore,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -108,6 +111,7 @@ class TorchVectorStore(VectorStore):
             )
         if len(chunks) != embeddings.shape[0]:
             raise VectorStoreError("chunks and embeddings length mismatch")
+        t0 = time.time()
         norms = np.linalg.norm(embeddings, axis=1, keepdims=True)
         embeddings = embeddings / np.maximum(norms, 1e-12)
         with self._lock:
@@ -116,8 +120,11 @@ class TorchVectorStore(VectorStore):
             self._version += 1
             self.persist()
             ann, matrix, version = self._ann, self._matrix, self._version
+            count = len(self._chunks)
         if ann is not None:
             ann.refresh(matrix, version)  # the upload happens at ingest, not at a query
+        STORE_ADD_SECONDS.labels(store="tpu").observe(time.time() - t0)
+        STORE_CHUNKS.labels(store="tpu", collection=self._collection).set(count)
 
     def _ann_engine(self):
         """The search engine, refreshed to the current corpus version
@@ -145,6 +152,7 @@ class TorchVectorStore(VectorStore):
 
     def _search_rows(self, query_embeddings: np.ndarray, top_k: int, score_threshold: float,
                      pad_rows: bool) -> List[List[SearchHit]]:
+        t0 = time.time()
         with self._lock:
             chunks = list(self._chunks)
         queries = np.asarray(query_embeddings, np.float32)
@@ -171,6 +179,7 @@ class TorchVectorStore(VectorStore):
                     continue
                 hits.append(SearchHit(chunk=chunks[int(i)], score=score01))
             results.append(hits)
+        STORE_SEARCH_SECONDS.labels(store="tpu").observe(time.time() - t0)
         return results
 
     def search(
@@ -199,6 +208,7 @@ class TorchVectorStore(VectorStore):
             self._version += 1
             self._persisted_chunks = len(self._chunks) + 1  # force a JSONL rewrite
             self.persist()
+            STORE_CHUNKS.labels(store="tpu", collection=self._collection).set(len(self._chunks))
             return True
 
     def count(self) -> int:

@@ -39,8 +39,17 @@ The request's thread binds its ``Deadline`` and runs the chain and its
 generator itself, so the engine's stream timeout is the request's
 remaining budget; a client that goes away closes the generator, which
 aborts the engine request. ``make_server`` installs ``resilience.faults``.
-The JAX server's metrics, tracing and flight recorder are not ported
-(ROADMAP queue 1 item 11).
+
+Observability, as in the JAX server: every request opens a span
+(utils/tracing.py; a ``traceparent`` header is its remote parent) and is
+counted by route pattern (server/observability.py, which also serves
+``/metrics``, ``/internal/metrics``, ``/internal/requests[/{id}]``,
+``/internal/timeline``, ``/internal/slo``, ``/internal/debug/bundles[/{id}]``
+and ``/internal/profile/start|stop``). ``/generate`` opens a flight
+record (``http_request``, then ``admitted``, ``shed`` or
+``deadline_exceeded``), binds it and the span's context to the request
+thread for the chain and the engine, counts sheds, deadlines and active
+streams, and feeds the SLO tracker and the black box.
 """
 from __future__ import annotations
 
@@ -49,6 +58,7 @@ import logging
 import os
 import re
 import threading
+import time
 import urllib.parse
 import uuid
 from email.parser import BytesParser
@@ -62,6 +72,12 @@ from generativeaiexamples_tpu_torch.chains.registry import resolve_example
 from generativeaiexamples_tpu_torch.chains.runtime import DegradedWarning
 from generativeaiexamples_tpu_torch.engine.llm_engine import engine_wedged
 from generativeaiexamples_tpu_torch.retrieval.errors import VectorStoreError
+from generativeaiexamples_tpu_torch.server import observability
+from generativeaiexamples_tpu_torch.server.observability import (
+    ACTIVE_STREAMS,
+    DEADLINE_EXCEEDED,
+    REQUESTS_SHED,
+)
 from generativeaiexamples_tpu_torch.server.schemas import (
     ChainResponse,
     ChainResponseChoices,
@@ -75,8 +91,12 @@ from generativeaiexamples_tpu_torch.server.schemas import (
     ValidationError,
     validation_error_body,
 )
+from generativeaiexamples_tpu_torch.utils import blackbox
 from generativeaiexamples_tpu_torch.utils import faults as faults_mod
+from generativeaiexamples_tpu_torch.utils import flight_recorder
 from generativeaiexamples_tpu_torch.utils import resilience
+from generativeaiexamples_tpu_torch.utils import slo as slo_mod
+from generativeaiexamples_tpu_torch.utils.tracing import get_tracer
 from generativeaiexamples_tpu_torch.utils.resilience import (
     Deadline,
     DeadlineExceeded,
@@ -286,7 +306,15 @@ class ChainServer:
             return "engine_queue"
         return None
 
-    def shed(self, rcfg, reason: str, detail: str = "") -> _Reply:
+    def shed(self, rcfg, reason: str, detail: str = "", span=None, rec=None) -> _Reply:
+        REQUESTS_SHED.labels(reason=reason).inc()
+        slo_mod.observe_event("shed")
+        blackbox.notify_shed(reason)
+        if rec is not None:
+            rec.event("shed", reason=reason)
+            flight_recorder.finish(rec, "shed")
+        if span is not None:
+            span.set_attribute("genai.request_shed", reason)
         logger.warning("Shedding /generate (%s): %s", reason, detail or "at capacity")
         headers = {"Retry-After": str(max(1, int(rcfg.shed_retry_after_s)))}
         eng = _live_engine()
@@ -377,32 +405,58 @@ class ChainServer:
         config = get_config()
         rcfg = config.resilience
         deadline = None
+        span = handler.trace_span
+        ctx = getattr(span, "context", None)
+        rec = flight_recorder.start(trace_id=f"{ctx.trace_id:032x}" if ctx is not None else None)
+        if rec is not None:
+            rec.event("http_request", path="/generate")
         if resilience.resilience_enabled(config) and faults_mod.active():
             try:
                 faults_mod.fault_point("server.admission")
             except faults_mod.FaultInjected:
                 # an injected error here stands for saturation
-                return self.shed(rcfg, "fault_injected")
+                return self.shed(rcfg, "fault_injected", span=span, rec=rec)
         with self._lock:
             if resilience.resilience_enabled(config):
                 reason = self.admission_denied(rcfg)
                 if reason is not None:
-                    return self.shed(rcfg, reason)
+                    return self.shed(rcfg, reason, span=span, rec=rec)
                 deadline = request_deadline(rcfg, handler.headers.get("X-Request-Deadline-Ms"),
                                             prompt)
                 if deadline is not None and deadline.expired:
+                    DEADLINE_EXCEEDED.labels(stage="admission").inc()
+                    if span is not None:
+                        span.set_attribute("genai.deadline_exceeded", "admission")
+                    if rec is not None:
+                        rec.event("deadline_exceeded", stage="admission")
+                        flight_recorder.finish(rec, "deadline")
                     return _Reply(504, {"detail": "request deadline exhausted before admission"})
             # counted from admission on, retrieval included
             self.active_streams += 1
+            ACTIVE_STREAMS.set(self.active_streams)
+        slo_mod.observe_event("admitted")
+        if rec is not None:
+            rec.event("admitted", active_streams=self.active_streams)
         resilience.set_current_deadline(deadline)
+        # the chain and the engine run on this thread: they find the
+        # request's record and trace context here
+        flight_recorder.bind(rec)
+        tracer = get_tracer()
+        tracer.attach_context(ctx)
         try:
-            return self._generate_admitted(handler, prompt, rcfg)
+            return self._generate_admitted(handler, prompt, rcfg, span, rec)
         finally:
+            tracer.attach_context(None)
+            flight_recorder.unbind()
             resilience.set_current_deadline(None)
             with self._lock:
                 self.active_streams -= 1
+                ACTIVE_STREAMS.set(self.active_streams)
+            flight_recorder.finish(rec)
+            flight_recorder.attach_span_events(rec, span)
 
-    def _generate_admitted(self, handler: "_Handler", prompt: Prompt, rcfg) -> Optional[_Reply]:
+    def _generate_admitted(self, handler: "_Handler", prompt: Prompt, rcfg, span=None,
+                           rec=None) -> Optional[_Reply]:
         chat_history = list(prompt.messages)
         # the last user message is the query
         query = next((m.content for m in reversed(chat_history) if m.role == "user"), None)
@@ -415,8 +469,13 @@ class ChainServer:
             chain_fn = example.rag_chain if prompt.use_knowledge_base else example.llm_chain
             generator = chain_fn(query=query, chat_history=chat_history, **prompt.llm_settings())
         except EngineOverloaded as exc:
-            return self.shed(rcfg, "engine_overloaded", str(exc))
+            return self.shed(rcfg, "engine_overloaded", str(exc), span=span, rec=rec)
         except DeadlineExceeded as exc:
+            DEADLINE_EXCEEDED.labels(stage="admission").inc()
+            if span is not None:
+                span.set_attribute("genai.deadline_exceeded", "admission")
+            if rec is not None:
+                rec.event("deadline_exceeded", stage="admission")
             return _Reply(504, {"detail": str(exc)})
         except VectorStoreError as exc:
             logger.error("Vector store error in /generate: %s", exc)
@@ -427,26 +486,42 @@ class ChainServer:
             return _Reply(500, error_stream_body(GENERIC_ERROR_MSG),
                           content_type="text/event-stream; charset=utf-8")
         resp_id = str(uuid.uuid4())
+        degraded_seen = False
         try:
             handler.start_stream()
             if generator:
                 for chunk in generator:
                     if isinstance(chunk, DegradedWarning):
+                        degraded_seen = True
+                        if span is not None:
+                            span.set_attribute("genai.degraded", chunk.reason)
                         handler.write_frame(sse_frame(ChainResponse(
                             id=resp_id, choices=[], warnings=[str(chunk)])))
                     else:
+                        if span is not None:
+                            span.add_event("llm.new_token", {"length": len(chunk)})
                         handler.write_frame(chunk_frame(resp_id, chunk))
                 handler.write_frame(done_frame(resp_id))
+                if not degraded_seen:
+                    # degraded streams were counted by the chain
+                    slo_mod.observe_event("answered")
             else:
                 handler.write_frame(sse_frame(ChainResponse()))
         except (BrokenPipeError, ConnectionResetError):
             logger.info("Client disconnected mid-stream.")
         except (DeadlineExceeded, TimeoutError) as exc:
+            DEADLINE_EXCEEDED.labels(stage="stream").inc()
+            if span is not None:
+                span.set_attribute("genai.deadline_exceeded", "stream")
+            if rec is not None:
+                rec.event("deadline_exceeded", stage="stream")
             logger.warning("Deadline exceeded mid-stream in /generate: %s", exc)
             handler.write_frame(done_frame(resp_id, [f"deadline_exceeded: {exc}"]))
         except RequestPreempted as exc:
             # a drain checkpointed the request: the typed terminator, never
             # a 500-style frame
+            if span is not None:
+                span.set_attribute("genai.preempted", exc.snapshot_id or "replay")
             logger.warning("Request preempted mid-stream (snapshot=%s)",
                            exc.snapshot_id or "replay")
             handler.write_frame(preempt_frame(resp_id, exc))
@@ -488,9 +563,15 @@ class _Handler(BaseHTTPRequestHandler):
     server_version = "genai-torch-chain/1"
     protocol_version = "HTTP/1.1"
     app: ChainServer  # set on the subclass make_server builds
+    trace_span = None  # the request's span (set per request)
+    status = 500  # the status sent, for the request accounting
 
     def log_message(self, fmt, *args):  # access logs through logging
         logger.debug("%s " + fmt, self.address_string(), *args)
+
+    def send_response(self, code, message=None):
+        self.status = code
+        super().send_response(code, message)
 
     # -- output --------------------------------------------------------- #
     def reply(self, r: _Reply) -> None:
@@ -544,7 +625,37 @@ class _Handler(BaseHTTPRequestHandler):
         return None
 
     def _route(self, method: str) -> None:
+        """One request through the JAX server's middlewares: the span
+        (``traceparent`` extracted), the route accounting, then the
+        route."""
+        tracer = get_tracer()
         url = urllib.parse.urlsplit(self.path)
+        span = tracer.start_span(
+            f"{method} {url.path}", remote_ctx=tracer.extract(self.headers),
+            attributes={"http.method": method, "http.target": url.path},
+        )
+        self.trace_span, self.status = span, 500
+        start = observability.request_started()
+        route = "unmatched"
+        try:
+            route = self._serve(method, url)
+        except BaseException as exc:
+            span.record_exception(exc)
+            raise
+        finally:
+            span.set_attribute("http.status_code", self.status)
+            if self.status >= 500:
+                span.status = "ERROR"
+            tracer.finish_span(span, system_metrics=True)
+            observability.request_finished(route, method, self.status, start, span)
+
+    def _serve(self, method: str, url) -> str:
+        """Serve the request; returns its route pattern."""
+        hit = observability.dispatch(method, self.path, self.headers, self._body)
+        if hit is not None:
+            pattern, (status, headers, body) = hit
+            self.reply(_Reply(status, body, content_type=headers["Content-Type"]))
+            return pattern
         path, app = url.path, self.app
         routes = {
             ("GET", "/health"): app.health,
@@ -560,8 +671,10 @@ class _Handler(BaseHTTPRequestHandler):
             ("GET", "/internal/snapshots"): lambda: _Reply(*snapshots_route()),
             ("POST", "/internal/restore"): self._restore,
         }
+        pattern = path
         match = re.fullmatch(r"/internal/snapshots/([^/]+)", path)
         if match:
+            pattern = "/internal/snapshots/{id}"
             routes[("GET", path)] = lambda: _Reply(
                 *snapshot_route(urllib.parse.unquote(match.group(1))))
         try:
@@ -569,7 +682,9 @@ class _Handler(BaseHTTPRequestHandler):
                 raise _Reply(204, b"", content_type="")
             route = routes.get((method, path))
             if route is None:
-                allowed = [m for (m, p) in routes if p == path]
+                pattern = "unmatched"
+                allowed = ([m for (m, p) in routes if p == path]
+                           or observability.paths_served(path))
                 if allowed:
                     raise _Reply(405, b"405: Method Not Allowed", {"Allow": ",".join(allowed)},
                                  content_type="text/plain; charset=utf-8", cors=False)
@@ -580,6 +695,7 @@ class _Handler(BaseHTTPRequestHandler):
                 self.reply(result)
         except _Reply as r:
             self.reply(r)
+        return pattern
 
     def do_GET(self):  # noqa: N802 - http.server's naming
         self._route("GET")
@@ -599,8 +715,10 @@ def make_server(host: str = "127.0.0.1", port: int = 8081,
     """A bound, not yet serving, chain server (``port=0`` picks a free
     port, ``server_address``). The process configuration is checked first,
     as the JAX server's startup checks it (``config_validate``, then the
-    engine's, the resilience section's and the batcher's own checks), and
-    the ``resilience.faults`` rules are installed."""
+    engine's, the resilience section's and the batcher's own checks), the
+    observability sections configure the flight recorder, the SLO
+    tracker, the black box and the dispatch timeline, and the
+    ``resilience.faults`` rules are installed."""
     from generativeaiexamples_tpu_torch import config_validate
     from generativeaiexamples_tpu_torch.config import get_config
     from generativeaiexamples_tpu_torch.engine.batcher import validate_config
@@ -610,6 +728,7 @@ def make_server(host: str = "127.0.0.1", port: int = 8081,
     config.engine.validate()
     config.resilience.validate()
     validate_config(config)
+    config_validate.configure_observability(config)
     if config.resilience.faults:
         try:
             n = faults_mod.install(config.resilience.faults)

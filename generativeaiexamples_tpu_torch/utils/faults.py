@@ -1,8 +1,9 @@
 """Deterministic fault injection for resilience testing.
 
 The port's copy of the JAX package's generativeaiexamples_tpu/utils/faults.py,
-with its grammar, modes and messages; the injected-fault count is a plain
-integer per (site, mode) (``injected``) instead of a metric family.
+with its grammar, modes and messages; an injected fault counts in JAX's
+``genai_faults_injected_total`` family and in a plain integer per (site,
+mode) (``injected``).
 
 Production code calls ``fault_point("<site>")`` at named seams:
 ``retrieval.search``, ``engine.dispatch``, ``engine.spec_pipeline``,
@@ -36,7 +37,17 @@ import threading
 import time
 from typing import Dict, List
 
+from generativeaiexamples_tpu_torch.utils import metrics as metrics_mod
+
 logger = logging.getLogger(__name__)
+
+_REG = metrics_mod.get_registry()
+_M_INJECTED = _REG.counter(
+    "genai_faults_injected_total",
+    "Faults injected by the deterministic fault-injection registry, "
+    "by site and mode.",
+    ("site", "mode"),
+)
 
 ENV_VAR = "GENAI_FAULTS"
 
@@ -98,6 +109,7 @@ def _trigger(site: str) -> None:
             injected[(site, fired.mode)] += 1
     if fired is None:
         return
+    _M_INJECTED.labels(site=site, mode=fired.mode).inc()
     logger.warning(
         "fault injected at %s (call %d): %s%s",
         site, n, fired.mode,

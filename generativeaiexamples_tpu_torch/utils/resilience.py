@@ -20,8 +20,11 @@ The port's remote clients speak ``urllib``, not ``requests``:
 ``code`` exactly as JAX sorts a ``requests`` error by its response status
 (no response, 5xx and 429 are transient; another 4xx is not retried and
 does not count against the breaker), and ``URL_ERRORS`` is the
-``retry_on`` of those clients. Retries and breaker transitions are plain
-integer counters (``retries``, ``transitions``), not metric families.
+``retry_on`` of those clients. Retries and breaker transitions count in
+JAX's families (``genai_resilience_*``) and in plain integer counters
+(``retries``, ``transitions``); a breaker that opens notifies the black
+box, and a retry or an open-breaker refusal is a flight event of the
+calling thread's request.
 
 ``resilience.enable = "off"`` restores the prior request path: guarded
 calls run their function once, with no retry, breaker or deadline.
@@ -39,7 +42,28 @@ import time
 import urllib.error
 from typing import Callable, Dict, List, Optional, Tuple, Type
 
+from generativeaiexamples_tpu_torch.utils import metrics as metrics_mod
+
 logger = logging.getLogger(__name__)
+
+_REG = metrics_mod.get_registry()
+_M_RETRIES = _REG.counter(
+    "genai_resilience_retries_total",
+    "Dependency-call retries after a transient failure, by dependency.",
+    ("dependency",),
+)
+_M_TRANSITIONS = _REG.counter(
+    "genai_resilience_breaker_transitions_total",
+    "Circuit-breaker state transitions, by dependency and target state.",
+    ("dependency", "to_state"),
+)
+_M_BREAKER_STATE = _REG.gauge(
+    "genai_resilience_breaker_state",
+    "Circuit-breaker state per dependency: 0=closed, 1=half_open, 2=open.",
+    ("dependency",),
+)
+
+_STATE_VALUES = {"closed": 0, "half_open": 1, "open": 2}
 
 # dependency -> retries; (dependency, state) -> transitions into it
 retries: "collections.Counter[str]" = collections.Counter()
@@ -190,6 +214,7 @@ class CircuitBreaker:
         self._failures = 0  # guarded by self._lock
         self._opened_at = 0.0  # guarded by self._lock
         self._probe_in_flight = False  # guarded by self._lock
+        _M_BREAKER_STATE.labels(dependency=name).set(0)
 
     @property
     def state(self) -> str:
@@ -205,8 +230,16 @@ class CircuitBreaker:
             return
         self._state = to_state
         transitions[(self.name, to_state)] += 1
+        _M_TRANSITIONS.labels(dependency=self.name, to_state=to_state).inc()
+        _M_BREAKER_STATE.labels(dependency=self.name).set(_STATE_VALUES[to_state])
         log = logger.warning if to_state == "open" else logger.info
         log("circuit breaker %r -> %s", self.name, to_state)
+        if to_state == "open":
+            # an incident for the black box (one boolean read when it is
+            # off; it never calls back into this module)
+            from generativeaiexamples_tpu_torch.utils import blackbox
+
+            blackbox.notify_breaker_open(self.name)
 
     def allow(self) -> bool:
         """Whether a call may proceed now; in half-open only the first
@@ -391,6 +424,9 @@ def call_with_resilience(
     br = breaker if breaker is not None else get_breaker(dependency)
     allowed, holds_probe = br.acquire()
     if not allowed:
+        from generativeaiexamples_tpu_torch.utils import flight_recorder
+
+        flight_recorder.event("breaker_open", dependency=dependency)
         raise CircuitOpenError(dependency)
     pol = policy or policy_from_config()
     max_attempts = max(1, attempts if attempts is not None else pol.max_attempts)
@@ -418,6 +454,13 @@ def call_with_resilience(
                 if not allowed:
                     break
                 retries[dependency] += 1
+                _M_RETRIES.labels(dependency=dependency).inc()
+                from generativeaiexamples_tpu_torch.utils import flight_recorder
+
+                flight_recorder.event(
+                    "retry", dependency=dependency, attempt=attempt + 1,
+                    error=type(exc).__name__,
+                )
                 delay = delays[attempt]
                 deadline = get_current_deadline()
                 if deadline is not None:

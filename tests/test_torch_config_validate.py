@@ -15,6 +15,7 @@ JAX package's config/validate.py, on the same ``APP_*`` environment:
   remote engine).
 """
 import os
+import tempfile
 
 import pytest
 
@@ -120,6 +121,21 @@ def env(monkeypatch):
     tconfig.get_config.cache_clear()
 
 
+@pytest.fixture(autouse=True)
+def _observability_state():
+    """``make_server`` configures the port's flight recorder, SLO tracker,
+    black box and dispatch timeline from the config: put them back to
+    their module defaults after each test."""
+    yield
+    from generativeaiexamples_tpu_torch.engine import dispatch_timeline
+    from generativeaiexamples_tpu_torch.utils import blackbox, flight_recorder, slo
+
+    flight_recorder.reset()
+    slo.reset()
+    blackbox.reset()
+    dispatch_timeline.configure(enable=True, capacity=4096)
+
+
 def _port_starts():
     server = make_server("127.0.0.1", 0, EchoChain)
     server.server_close()
@@ -185,3 +201,141 @@ def test_both_accept_the_defaults_and_the_smoke_deployments(env, deployment):
         env.setenv(key, value)
     jvalidate(jget_config())
     _port_starts()
+
+
+# --------------------------------------------------------------------- #
+# The observability, blackbox and slo sections
+
+OBSERVABILITY_VALUES = {
+    "APP_OBSERVABILITY_FLIGHTRECORDERENABLE": "off",
+    "APP_OBSERVABILITY_FLIGHTRECORDERCAPACITY": "12",
+    "APP_OBSERVABILITY_SLOWREQUESTTTFTMS": "50",
+    "APP_OBSERVABILITY_SLOWREQUESTTOTALMS": "2.5",
+    "APP_OBSERVABILITY_SLOWCAPTUREPATH": "/tmp/slowcap.jsonl",
+    "APP_OBSERVABILITY_DISPATCHTIMELINEENABLE": "off",
+    "APP_OBSERVABILITY_DISPATCHTIMELINECAPACITY": "100.7",
+    "APP_BLACKBOX_ENABLE": "off",
+    "APP_BLACKBOX_DIR": "/tmp/bb",
+    "APP_BLACKBOX_MAXBUNDLES": "3",
+    "APP_BLACKBOX_MININTERVALS": "0",
+    "APP_BLACKBOX_SLOBREACHSTREAK": "0",
+    "APP_BLACKBOX_SHEDSPIKE": "3",
+    "APP_BLACKBOX_PAGEBACKPRESSURESTORM": "1",
+    "APP_BLACKBOX_REPLICADEATHSTORM": "9",
+    "APP_SLO_ENABLE": "off",
+    "APP_SLO_WINDOWS": "60",
+    "APP_SLO_TTFTP95MS": "1500.5",
+    "APP_SLO_INTERTOKENP95MS": "0",
+    "APP_SLO_SHEDRATEMAX": "0.25",
+    "APP_SLO_DEGRADEDRATEMAX": "1",
+    "APP_SLO_ROUTERPROXYOVERHEADP95MS": "10",
+    "APP_SLO_ROUTERFAILOVERRATEMAX": "0.5",
+}
+# one bad value for each check of the three sections
+OBSERVABILITY_CHECKS = [
+    ("APP_OBSERVABILITY_FLIGHTRECORDERENABLE", "maybe"),
+    ("APP_OBSERVABILITY_FLIGHTRECORDERCAPACITY", "0"),
+    ("APP_OBSERVABILITY_SLOWREQUESTTTFTMS", "-1"),
+    ("APP_OBSERVABILITY_SLOWREQUESTTOTALMS", "-0.5"),
+    ("APP_OBSERVABILITY_SLOWCAPTUREPATH", "/tmp"),
+    ("APP_OBSERVABILITY_DISPATCHTIMELINEENABLE", "sometimes"),
+    ("APP_OBSERVABILITY_DISPATCHTIMELINECAPACITY", "63"),
+    ("APP_BLACKBOX_ENABLE", "yes"),
+    ("APP_BLACKBOX_DIR", " "),
+    ("APP_BLACKBOX_MAXBUNDLES", "0"),
+    ("APP_BLACKBOX_MININTERVALS", "-1"),
+    ("APP_BLACKBOX_SLOBREACHSTREAK", "-1"),
+    ("APP_BLACKBOX_SHEDSPIKE", "-1"),
+    ("APP_BLACKBOX_PAGEBACKPRESSURESTORM", "-1"),
+    ("APP_BLACKBOX_REPLICADEATHSTORM", "-1"),
+    ("APP_SLO_ENABLE", "1"),
+    ("APP_SLO_WINDOWS", "0"),
+    ("APP_SLO_TTFTP95MS", "-1"),
+    ("APP_SLO_INTERTOKENP95MS", "-1"),
+    ("APP_SLO_SHEDRATEMAX", "1.5"),
+    ("APP_SLO_DEGRADEDRATEMAX", "-0.5"),
+    ("APP_SLO_ROUTERPROXYOVERHEADP95MS", "-1"),
+    ("APP_SLO_ROUTERFAILOVERRATEMAX", "2"),
+]
+SECTIONS = {"observability": "ObservabilityConfig", "blackbox": "BlackboxConfig",
+            "slo": "SLOConfig"}
+
+
+@pytest.mark.parametrize("section", sorted(SECTIONS))
+def test_observability_sections_have_jax_s_fields_and_defaults(env, section):
+    import dataclasses
+
+    from generativeaiexamples_tpu.config import schema
+
+    jax_cls = getattr(schema, SECTIONS[section])
+    port_cls = getattr(tconfig, SECTIONS[section])
+    assert [f.name for f in dataclasses.fields(port_cls)] == [
+        f.name for f in dataclasses.fields(jax_cls)]
+    want = dataclasses.asdict(getattr(jget_config(), section))
+    if section == "blackbox":
+        # the port keeps its bundles under the temporary directory (TMPDIR)
+        assert want["dir"] == "/tmp/genai_blackbox"
+        want["dir"] = os.path.join(tempfile.gettempdir(), "genai_blackbox")
+    assert dataclasses.asdict(port_cls()) == want
+
+
+def test_observability_variables_parse_as_jax_parses_them(env):
+    import dataclasses
+
+    for key, value in OBSERVABILITY_VALUES.items():
+        env.setenv(key, value)
+    jax, port = jget_config(), tconfig.get_config()
+    for section in SECTIONS:
+        assert dataclasses.asdict(getattr(port, section)) == dataclasses.asdict(
+            getattr(jax, section)), section
+    assert port.observability.dispatch_timeline_capacity == 100  # "100.7", as JAX reads it
+    _port_starts()
+
+
+@pytest.mark.parametrize("name,value", OBSERVABILITY_CHECKS,
+                         ids=[f"{n}={v!r}" for n, v in OBSERVABILITY_CHECKS])
+def test_make_server_refuses_bad_observability_values_like_jax(env, name, value):
+    """JAX's ``create_app`` and the port's ``make_server`` refuse with
+    equal messages."""
+    from generativeaiexamples_tpu.chains.echo import EchoChain as JEcho
+    from generativeaiexamples_tpu.server import api as japi
+
+    env.setenv(name, value)
+    with pytest.raises(ValueError) as want:
+        japi.create_app(JEcho)
+    with pytest.raises(ValueError) as got:
+        _port_starts()
+    assert str(got.value) == str(want.value)
+
+
+def test_a_malformed_number_is_refused_by_both(env):
+    env.setenv("APP_OBSERVABILITY_FLIGHTRECORDERCAPACITY", "many")
+    with pytest.raises(ValueError):
+        jget_config()
+    with pytest.raises(ValueError, match="FLIGHTRECORDERCAPACITY='many' is not a valid int"):
+        tconfig.get_config()
+
+
+def test_a_default_server_keeps_its_files_under_tmpdir(env, tmp_path):
+    """A server built from the default config arms the black box; a
+    breaker that opens writes its bundle under the temporary directory
+    (TMPDIR), where the profile directory and the JSONL spans default too."""
+    from generativeaiexamples_tpu_torch.utils import blackbox, profiling, resilience, tracing
+
+    tmp = tmp_path / "tmp"
+    tmp.mkdir()
+    for key in ("PROFILE_LOG_DIR", "TRACE_JSONL_PATH"):
+        env.delenv(key, raising=False)
+    env.setenv("TMPDIR", str(tmp))
+    env.setattr(tempfile, "tempdir", None)  # gettempdir() reads TMPDIR afresh
+    _port_starts()
+    assert blackbox.enabled()
+    resilience.CircuitBreaker("llm_remote", failure_threshold=1).record_failure()
+    blackbox.drain()
+    bundles = blackbox.list_bundles()
+    assert [b["trigger"] for b in bundles] == ["breaker_open"]
+    assert os.path.dirname(bundles[0]["path"]) == str(tmp / "genai_blackbox")
+    assert profiling.default_log_dir() == str(tmp / "genai_torch_profiles")
+    env.setenv("TRACE_EXPORTER", "jsonl")
+    assert tracing._exporter_from_env("t").path == str(
+        tmp / "generativeaiexamples_tpu_torch_traces.jsonl")
