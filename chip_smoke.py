@@ -105,7 +105,8 @@ Phases (each one's failure makes the script exit non-zero):
    phase's wall seconds.
 9. prefix: the automatic prefix KV cache on recipes A (shared pool pages)
    and D (a store of int8 strips and one copy a hit), llama3-8b at full
-   width and depth, random weights (seed 0), the engine defaults
+   width, A at full depth and D at 8 of its 32 layers (for the script's
+   time, since phase 14), random weights (seed 0), the engine defaults
    otherwise (``prefill_chunk`` 512, ``page_size`` 128,
    ``decode_runahead`` 4). The JAX bench's shared-prefix pass: one
    preamble of 4 chunks (2048 ids), 16 distinct questions of 128 ids, 16
@@ -251,10 +252,50 @@ Phases (each one's failure makes the script exit non-zero):
    dispatch thread, per token on the reader, and both a block against the
    wall step. It prints the phase's wall time (a budget of 90 s).
 
+14. route: two replicas of phase 7's deployment (``python -m
+   generativeaiexamples_tpu_torch.server``, llama3-8b recipe A at full
+   width and depth, int8 packs at seed 0, 8 slots, ``max_seq_len`` 8192,
+   page 128, ``prefill_chunk`` 512, the prefix cache at ``auto``,
+   arctic-embed-l/m; one snapshot spool) started together behind the
+   port's router (its ``__main__``, tenant ``limited:rate=1,burst=1``,
+   bounded-load spill off) and the frontend (its ``__main__``) pointed at
+   the router; 40 GB must be free first. Requests sample at temperature
+   and top_p 0.1, the chain server's floor, which is greedy here (the top
+   token of a random llama3-8b holds more than a tenth of the mass).
+   (a) 8 conversations x 3 turns at concurrency 4, 32 tokens a turn, each
+   first message at least 1,100 ids: under ``affinity`` every turn of a
+   conversation carries its ring owner's ``X-GenAI-Replica`` and both
+   replicas own some; then ``POST /internal/policy`` ``round_robin`` and 8
+   new conversations; the replicas' prefix-cache hits, summed, are higher
+   under affinity. (b) 4 of phase 7's documents through ``POST
+   /documents`` at the router are listed by both replicas, and ``/search``
+   at the router finds a document's sentence in it first. (c) 4 streams of
+   64 tokens keyed to r0, undisturbed, then again with r0's own ``POST
+   /internal/drain`` once each has a frame: every client stream equals its
+   undisturbed text with no ``PREEMPTED`` frame, failovers{preempted}
+   rises by 4 and the router's records hold 4 restore acks in mode
+   ``restore``; r0 resumes. (d) tenant ``limited``'s second request within
+   a second answers 429 with Retry-After and reaches no replica. (e) a
+   chat through the frontend's ``/api/generate`` equals the router's own
+   answer. (f) ``/internal/trace/{id}`` of a request with its own
+   ``traceparent`` holds the router's hop and the replica's phases. (g) a
+   profile through r0's ``/internal/profile/start|stop`` over 2 routed
+   requests is ``complete`` kernel by kernel and holds ``int8_matmul_mma``,
+   a ``paged_`` kernel and ``flash_attention_kernel`` (the replica's
+   wrapper counts beside them). (h) r1 SIGKILLed under 2 streams: both
+   client streams equal their undisturbed text, failovers{replica_died}
+   rises, ``/internal/fleet`` marks r1 unhealthy and ``/generate`` answers
+   on r0. It prints the replicas' start seconds and memory, TTFT through
+   the router against straight to a replica, the router's proxy-overhead
+   p95 against its SLO, the longest gap a client saw in a handover and
+   the phase wall (a budget of 150 s). Every process it started is gone
+   when it ends.
+
 With no arguments it runs every phase, as above; ``--phases``,
 ``--checks`` and ``--recipes`` run a part (for example ``--phases serve
 --recipes B``, ``--phases chains``, ``--phases filechains``, ``--phases
-drain`` or ``--phases observe``) and then print only the kernels that
+drain``, ``--phases observe`` or ``--phases route``) and then print only
+the kernels that
 part measured;
 ``--runahead N`` serves every engine at ``decode_runahead`` N, and
 ``--timing-only`` leaves out the runahead and overload checks (for timed
@@ -2866,6 +2907,9 @@ def phase_chains(dev, smi, seed=0, dep=None, encoders=None, keep=False):
 # request at a time
 PREFIX_CHUNKS, PREFIX_QUESTIONS, PREFIX_QUESTION_IDS, PREFIX_TOKENS = 4, 16, 128, 16
 PREFIX_RECIPES = "AD"  # the bf16 paged pool (shared pages) and the int8 fixed store (copies)
+# D runs at 8 of llama3-8b's 32 layers (full width), for the script's time
+# once phase 14 joined it; A stays at full depth
+PREFIX_CUT_RECIPES, PREFIX_CUT_LAYERS = "D", 8
 
 
 def _prefix_stream(engine, prompt, params):
@@ -2930,7 +2974,8 @@ def _tie_checked(engine, label, prompt, got, want) -> int:
     return 1
 
 
-def prefix_recipe(dev, smi, name, quantization, kv_dtype, layout, expected, seed) -> dict:
+def prefix_recipe(dev, smi, name, quantization, kv_dtype, layout, expected, seed,
+                  model=MODEL) -> dict:
     """One recipe's shared-prefix pass: a cache-off engine gives the cold
     streams, then an engine at the JAX default (``prefix_cache_enable``
     auto, 4 slots) on the same weights gives the warm ones; the two are
@@ -2940,7 +2985,7 @@ def prefix_recipe(dev, smi, name, quantization, kv_dtype, layout, expected, seed
     from generativeaiexamples_tpu_torch.engine.llm_engine import LLMEngine, SamplingParams
 
     rng = random.Random(seed * 1000 + ord(name))
-    base = EngineConfig(model_config_name=MODEL, quantization=quantization,
+    base = EngineConfig(model_config_name=model, quantization=quantization,
                         kv_cache_dtype=kv_dtype, kv_layout=layout)
     C = base.prefill_chunk
     preamble = [256] + [rng.randrange(1, 256) for _ in range(PREFIX_CHUNKS * C - 1)]
@@ -3078,11 +3123,18 @@ def prefix_recipe(dev, smi, name, quantization, kv_dtype, layout, expected, seed
 
 def phase_prefix(dev, smi, seed=0) -> dict:
     """The prefix KV cache on recipes A and D (module docstring, phase 9)."""
+    from generativeaiexamples_tpu_torch.models import llama
+
     t0 = time.time()
     out = {}
+    cut = f"{MODEL}-{PREFIX_CUT_LAYERS}-layers"
+    llama.PRESETS[cut] = dataclasses.replace(llama.PRESETS[MODEL], num_layers=PREFIX_CUT_LAYERS)
     for name, quantization, kv_dtype, layout, expected in RECIPES:
         if name in PREFIX_RECIPES:
-            out[name] = prefix_recipe(dev, smi, name, quantization, kv_dtype, layout, expected, seed)
+            model = cut if name in PREFIX_CUT_RECIPES else MODEL
+            out[name] = prefix_recipe(dev, smi, name, quantization, kv_dtype, layout, expected,
+                                      seed, model)
+            out[name]["layers"] = llama.PRESETS[model].num_layers
     launches = collections.Counter()
     for r in out.values():
         launches.update(r["launches"])
@@ -5090,11 +5142,591 @@ def phase_observe(dev, smi, seed=0) -> dict:
     return out
 
 
+# --------------------------------------------------------------------- #
+# Phase 14: the router
+
+# each replica is phase 7's deployment, traced (the stitched trace) and
+# profilable (the kernel check inside the replica)
+ROUTE_REPLICA_ENV = dict(RAG_ENV, ENABLE_TRACING="true", TRACE_EXPORTER="memory",
+                         ENABLE_PROFILING="true")
+# the router: one rate-limited tenant; bounded-load spill held off, since the
+# phase checks placement by the ring itself (tests/test_torch_router.py holds
+# the spill walk to JAX's)
+ROUTE_ROUTER_ENV = {"APP_ROUTER_TENANTS": "limited:rate=1,burst=1", "APP_ROUTER_LOADBOUND": "0",
+                    "ENABLE_TRACING": "true", "TRACE_EXPORTER": "memory"}
+ROUTE_REPLICA_ARGS = ()  # extra arguments of each replica's command line
+ROUTE_MIN_FREE_GB = 40.0  # two replicas of ~18 GB each
+# The chain server floors temperature and top_p at 0.1: at top_p 0.1 the
+# nucleus is the top token alone wherever it holds a tenth of the mass
+# (random llama3-8b logits have a std near 1, so at temperature 0.1 the
+# top token holds most of it), which makes these requests greedy.
+ROUTE_SAMPLING = {"temperature": 0.1, "top_p": 0.1}
+ROUTE_CONVERSATIONS, ROUTE_TURNS, ROUTE_CONCURRENCY, ROUTE_TURN_TOKENS = 8, 3, 4, 32
+ROUTE_FIRST_CHARS = 1100  # a first message's least length (byte ids): >= 2 shared chunks
+ROUTE_DOCS = 4  # phase 7's documents ingested through the router
+ROUTE_DRAIN_STREAMS, ROUTE_KILL_STREAMS, ROUTE_STREAM_TOKENS = 4, 2, 64
+ROUTE_TTFT_PAIRS = 4  # short requests through the router and straight to a replica
+ROUTE_BUDGET_S = 150.0
+ROUTE_MID_TOKENS = 16  # tokens a stream has decoded when its replica drains or dies
+# what the replica's wrappers must have launched in the profiled window
+ROUTE_LAUNCHED = ("int8_matmul_mma", "paged_split_kernel", "flash_attention_kernel")
+ROUTE_WORDS = OBSERVE_WORDS + ("router", "replica", "ring", "owner", "tenant", "fleet",
+                               "drain", "restore")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _route_text(rng, chars, tag) -> str:
+    words, n = [tag], len(tag)
+    while n < chars:
+        words.append(str(rng.choice(ROUTE_WORDS)))
+        n += len(words[-1]) + 1
+    return " ".join(words)
+
+
+def _owned_by(rng, owner, chars, tag, count) -> list:
+    """``count`` messages of at least ``chars`` characters whose ring owner
+    (the port's HashRing over r0, r1) is ``owner``."""
+    from generativeaiexamples_tpu_torch.router.ring import HashRing
+
+    ring, out = HashRing(["r0", "r1"]), []
+    while len(out) < count:
+        text = _route_text(rng, chars, f"{tag} {len(out)}-{int(rng.randint(1 << 30))}:")
+        if ring.owner(text) == owner:
+            out.append(text)
+    return out
+
+
+def _route_stream(base, message, tokens, history=(), headers=None, path="/generate") -> dict:
+    """One streamed chat through ``base``: the text, the replica header,
+    the seconds to the first answer frame, the longest gap between two
+    frames, the finish reasons seen, and the client's next messages."""
+    messages = list(history) + [{"role": "user", "content": message}]
+    body = {"messages": messages, "use_knowledge_base": False, "max_tokens": tokens,
+            **ROUTE_SAMPLING}
+    req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json", **(headers or {})})
+    t0 = time.perf_counter()
+    texts, stamps, finishes, first = [], [], [], None
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        replica = resp.headers.get("X-GenAI-Replica")
+        for raw in resp:
+            line = raw.decode().rstrip("\n")
+            if not line.startswith("data: "):
+                continue
+            stamps.append(time.perf_counter())
+            choice = (json.loads(line[6:]).get("choices") or [{}])[0]
+            content = (choice.get("message") or {}).get("content") or ""
+            finishes.append(choice.get("finish_reason") or "")
+            texts.append(content)
+            if first is None and (content or finishes[-1] == "[DONE]"):
+                first = stamps[-1] - t0
+    text = "".join(texts)
+    gaps = [b - a for a, b in zip([t0] + stamps, stamps)]
+    return {"text": text, "replica": replica, "ttft": first, "frames": len(stamps),
+            "max_gap": max(gaps) if gaps else 0.0, "finishes": finishes,
+            "total_s": (stamps[-1] if stamps else time.perf_counter()) - t0,
+            # (arrival, characters) of each frame
+            "arrivals": [(t, len(c)) for t, c in zip(stamps, texts)],
+            "history": messages + [{"role": "assistant", "content": text or "ok"}]}
+
+
+def _metric_total(text: str, name: str, match: str = "") -> float:
+    """The sum of a family's samples whose line holds ``match``."""
+    total = 0.0
+    for line in text.splitlines():
+        if line.startswith(name) and line[len(name):len(name) + 1] in ("{", " ") \
+                and match in line:
+            total += float(line.rsplit(" ", 1)[1])
+    return total
+
+
+def _scrape(base, name, match="") -> float:
+    status, text = _http(base, "GET", "/metrics")
+    if status != 200:
+        raise AssertionError(f"{base}/metrics: {status}")
+    return _metric_total(text, name, match)
+
+
+def _gpu_apps() -> dict:
+    """pid -> MiB of the processes holding the card (nvidia-smi)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=30)
+    apps = {}
+    for line in out.stdout.splitlines():
+        parts = [p.strip() for p in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            apps[int(parts[0])] = float(parts[1]) if parts[1].replace(".", "").isdigit() else None
+    return apps
+
+
+def _wait_up(base, proc, log_path, what, timeout=600.0) -> float:
+    t0 = time.time()
+    while True:
+        if proc.poll() is not None:
+            raise AssertionError(f"{what} exited with {proc.returncode}: "
+                                 f"{open(log_path, errors='replace').read()[-3000:]}")
+        try:
+            if _http(base, "GET", "/health", timeout=5)[0] == 200:
+                return time.time() - t0
+        except OSError:
+            pass
+        if time.time() - t0 > timeout:
+            raise AssertionError(f"{what} did not answer /health in {timeout:.0f} s")
+        time.sleep(0.5)
+
+
+def _full_streams(rng, router, owner, tag, count) -> tuple:
+    """``count`` messages keyed to ``owner`` whose streams run all their
+    ``ROUTE_STREAM_TOKENS`` tokens (a random model can stop early): twice
+    as many candidates run together and those that end within a tenth of
+    the longest one's wall are kept (rows decode in lockstep), up to 4
+    rounds; then the kept ones run together as the disturbed ones will,
+    their undisturbed streams."""
+    picked = []
+    for attempt in range(4):
+        cand = _owned_by(rng, owner, 120, f"{tag} {attempt}", 2 * count)
+        runs = _concurrently({str(i): (lambda i=i: _route_stream(
+            router, cand[i], ROUTE_STREAM_TOKENS)) for i in range(len(cand))})
+        walls = [runs[str(i)]["total_s"] for i in range(len(cand))]
+        log(f"  {tag}: candidates' walls (s): {[round(w, 2) for w in walls]}")
+        picked += [cand[i] for i in range(len(cand)) if walls[i] >= 0.9 * max(walls)
+                   and runs[str(i)]["replica"] == owner]
+        if len(picked) >= count:
+            msgs = picked[:count]
+            ref = _concurrently({str(i): (lambda i=i: _route_stream(
+                router, msgs[i], ROUTE_STREAM_TOKENS)) for i in range(count)})
+            return msgs, [ref[str(i)] for i in range(count)]
+    raise AssertionError(f"{tag}: fewer than {count} full streams on {owner} in 4 rounds")
+
+
+def _disturbed(router, replica, msgs, act) -> tuple:
+    """Run ``msgs`` together through ``router``; once ``replica`` has
+    decoded ``ROUTE_MID_TOKENS`` tokens a stream on average (its
+    ``genai_engine_generated_tokens_total``) and no stream has ended, call
+    ``act()``; the streams' results, ``act``'s, when it was called and
+    the seconds it took."""
+    name = "genai_engine_generated_tokens_total"
+    base = _scrape(replica, name)
+    results = {}
+    threads = [threading.Thread(target=lambda i=i: results.update(
+        {i: _route_stream(router, msgs[i], ROUTE_STREAM_TOKENS)}), name=f"smoke-route-{i}",
+        daemon=True) for i in range(len(msgs))]
+    for th in threads:
+        th.start()
+    deadline = time.time() + 300
+    while _scrape(replica, name) - base < ROUTE_MID_TOKENS * len(msgs):
+        if results or time.time() > deadline:
+            raise AssertionError(f"a stream ended, or {replica} decoded too little, before "
+                                 f"{ROUTE_MID_TOKENS} tokens a stream")
+        time.sleep(0.02)
+    if results:
+        raise AssertionError("a stream ended before the disturbance")
+    t_act = time.perf_counter()
+    got = act()
+    act_s = time.perf_counter() - t_act
+    for th in threads:
+        th.join(600)
+    if len(results) != len(msgs):
+        raise AssertionError("a disturbed client stream failed")
+    return [results[i] for i in range(len(msgs))], got, t_act, act_s
+
+
+def _handover_stats(results, ref, t_act) -> dict:
+    """What the clients of a disturbed run saw: the characters each had
+    before the disturbance, the longest wait for the next frame after it,
+    and the wall each stream gained over its undisturbed run."""
+    before = [sum(n for t, n in r["arrivals"] if t < t_act) for r in results]
+    waits = [min((t for t, _ in r["arrivals"] if t >= t_act), default=t_act) - t_act
+             for r in results]
+    added = [r["total_s"] - w["total_s"] for r, w in zip(results, ref)]
+    return {"chars_before": before, "next_frame_s": round(max(waits), 3),
+            "added_wall_s": [round(a, 3) for a in added],
+            "max_gap_s": round(max(r["max_gap"] for r in results), 3)}
+
+
+def _handover_line(st) -> str:
+    return (f"characters the clients had before it {st['chars_before']}; the longest wait "
+            f"for the next frame after it {st['next_frame_s']} s; wall added to each stream "
+            f"{st['added_wall_s']} s; longest gap between two frames {st['max_gap_s']} s")
+
+
+def _router_timelines(router, since) -> list:
+    status, text = _http(router, "GET", f"/internal/requests?since={since}&limit=1000")
+    if status != 200:
+        raise AssertionError(f"router /internal/requests: {status} {text[:200]}")
+    return json.loads(text)["timelines"]
+
+
+def phase_route(dev, smi, seed=0) -> dict:
+    """Two llama3-8b replicas behind the port's router, and its frontend
+    (module docstring, phase 14)."""
+    import signal
+
+    from generativeaiexamples_tpu_torch.router.ring import HashRing
+
+    t0 = time.time()
+    free, _ = torch.cuda.mem_get_info(dev)
+    if free / 1e9 < ROUTE_MIN_FREE_GB:
+        raise AssertionError(f"phase route needs {ROUTE_MIN_FREE_GB:.0f} GB free on the card, "
+                             f"has {free / 1e9:.1f}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_route_")
+    rng = np.random.RandomState(seed + 14)
+    out, procs = {"smi": smi, "free_gb_before": round(free / 1e9, 1)}, []
+    base_env = {k: v for k, v in os.environ.items() if not k.startswith("APP_")}
+
+    def spawn(name, args, env):
+        log_path = os.path.join(tmp, f"{name}.log")
+        proc = subprocess.Popen([sys.executable, "-m", *args], env=env, cwd=os.getcwd(),
+                                stdout=open(log_path, "wb"), stderr=subprocess.STDOUT)
+        procs.append((name, proc, log_path))
+        return proc, log_path
+
+    try:
+        # 0. the fleet: two replicas started together, then the router and the frontend
+        ports = [_free_port() for _ in range(4)]
+        reps = [f"http://127.0.0.1:{p}" for p in ports[:2]]
+        router, frontend = (f"http://127.0.0.1:{p}" for p in ports[2:])
+        t_start = time.time()
+        for i in range(2):
+            env = dict(base_env, **ROUTE_REPLICA_ENV,
+                       APP_ENGINE_SNAPSHOTSPOOLDIR=os.path.join(tmp, "spool"),
+                       APP_VECTORSTORE_PERSISTDIR=os.path.join(tmp, f"store{i}"),
+                       DOC_UPLOAD_DIR=os.path.join(tmp, f"uploads{i}"),
+                       PROFILE_LOG_DIR=os.path.join(tmp, f"profiles{i}"),
+                       APP_BLACKBOX_DIR=os.path.join(tmp, f"blackbox{i}"))
+            spawn(f"r{i}", ["generativeaiexamples_tpu_torch.server", "--host", "127.0.0.1",
+                            "--port", str(ports[i]), *ROUTE_REPLICA_ARGS], env)
+        host_env = dict(base_env, CUDA_VISIBLE_DEVICES="", **ROUTE_ROUTER_ENV)
+        spawn("router", ["generativeaiexamples_tpu_torch.router", "--host", "127.0.0.1", "--port",
+                         str(ports[2]), "--replica", reps[0], "--replica", reps[1]], host_env)
+        spawn("frontend", ["generativeaiexamples_tpu_torch.frontend", "--host", "127.0.0.1",
+                           "--port", str(ports[3]), "--chain-server", router],
+              dict(base_env, CUDA_VISIBLE_DEVICES=""))
+        up = []
+        for i in range(2):
+            _wait_up(reps[i], procs[i][1], procs[i][2], f"replica r{i}")
+            up.append(time.time() - t_start)
+        for name, base in (("router", router), ("frontend", frontend)):
+            _, proc, log_path = next(p for p in procs if p[0] == name)
+            _wait_up(base, proc, log_path, name)
+
+        def warm(i):  # the first /generate builds the replica's engine
+            _route_stream(reps[i], "warm up", 4)
+            return time.time() - t_start
+
+        ready = _concurrently({f"warm-r{i}": (lambda i=i: warm(i)) for i in range(2)})
+        out["replica_start_s"] = {f"r{i}": {"health_s": round(up[i], 1),
+                                            "first_answer_s": round(ready[f"warm-r{i}"], 1)}
+                                  for i in range(2)}
+        free_up, _ = torch.cuda.mem_get_info(dev)
+        out["fleet_gb"] = round((free - free_up) / 1e9, 2)
+        apps = _gpu_apps()
+        pids = {name: proc.pid for name, proc, _ in procs}
+        out["replica_mib"] = {f"r{i}": apps.get(pids[f"r{i}"]) for i in range(2)}
+        out["gpu_apps_mib"] = apps
+        on_card = [name for name in ("router", "frontend") if pids[name] in apps]
+        if on_card:
+            raise AssertionError(f"host-only processes hold the card: {on_card}")
+        if None in out["replica_mib"].values():  # another PID namespace: all of them
+            log(f"  nvidia-smi's compute apps (MiB by its pid): {apps}")
+        log(f"  fleet: replicas answered /health in {up[0]:.1f} / {up[1]:.1f} s and their first "
+            f"/generate {ready['warm-r0']:.1f} / {ready['warm-r1']:.1f} s after the start; "
+            f"nvidia-smi: r0 {out['replica_mib']['r0']} MiB, r1 {out['replica_mib']['r1']} MiB "
+            f"(router, frontend: not on the card); the card's free memory fell by "
+            f"{out['fleet_gb']} GB ({out['fleet_gb'] / 2:.2f} a replica) from "
+            f"{out['free_gb_before']} GB")
+
+        # (a) placement: affinity, then round robin, on new conversations each
+        hits_name = "genai_engine_prefix_cache_hits_total"
+        ring = HashRing(["r0", "r1"])
+
+        def conversations(policy, tag):
+            # owners interleaved: each worker's conversations share an owner, and
+            # two are in flight on each replica at a time
+            by_owner = [_owned_by(rng, f"r{i}", ROUTE_FIRST_CHARS, tag,
+                                  ROUTE_CONVERSATIONS // 2) for i in range(2)]
+            firsts = [m for pair in zip(*by_owner) for m in pair]
+            status, text = _http(router, "POST", "/internal/policy", {"policy": policy})
+            if status != 200:
+                raise AssertionError(f"/internal/policy {policy}: {status} {text}")
+            before = sum(_scrape(b, hits_name) for b in reps)
+
+            def worker(w):
+                runs = []
+                for first in firsts[w::ROUTE_CONCURRENCY]:
+                    history, seen, ttfts = (), [], []
+                    for turn in range(ROUTE_TURNS):
+                        msg = first if turn == 0 else f"and then, part {turn + 1}?"
+                        r = _route_stream(router, msg, ROUTE_TURN_TOKENS, history)
+                        seen.append(r["replica"])
+                        ttfts.append(r["ttft"])
+                        history = r["history"]
+                    runs.append((first, seen, ttfts))
+                return runs
+
+            t1 = time.perf_counter()
+            runs = [run for rs in _concurrently({f"conv{w}": (lambda w=w: worker(w))
+                                                 for w in range(ROUTE_CONCURRENCY)}).values()
+                    for run in rs]
+            wall = time.perf_counter() - t1
+            hits = sum(_scrape(b, hits_name) for b in reps) - before
+            return runs, hits, wall
+
+        aff, aff_hits, aff_wall = conversations("affinity", "affinity")
+        for first, seen, _ in aff:
+            if set(seen) != {ring.owner(first)}:
+                raise AssertionError(f"affinity: a conversation's turns went to {seen}, its "
+                                     f"ring owner is {ring.owner(first)}")
+        if {seen[0] for _, seen, _ in aff} != {"r0", "r1"}:
+            raise AssertionError("affinity: one replica owns every conversation")
+        rr, rr_hits, rr_wall = conversations("round_robin", "round-robin")
+        _http(router, "POST", "/internal/policy", {"policy": "affinity"})
+        if not aff_hits > rr_hits:
+            raise AssertionError(f"prefix hits: affinity {aff_hits} not above round robin "
+                                 f"{rr_hits}")
+        ttft = [t for _, _, ts in aff + rr for t in ts]
+        out["placement"] = {"affinity_hits": aff_hits, "round_robin_hits": rr_hits,
+                            "affinity_wall_s": round(aff_wall, 2),
+                            "round_robin_wall_s": round(rr_wall, 2),
+                            "round_robin_replicas": [seen for _, seen, _ in rr],
+                            "ttft_mean_s": round(statistics.mean(ttft), 3)}
+        log(f"  placement: {ROUTE_CONVERSATIONS} conversations x {ROUTE_TURNS} turns at "
+            f"concurrency {ROUTE_CONCURRENCY} ({ROUTE_FIRST_CHARS}+ ids first): affinity keeps "
+            f"each on its ring owner, prefix hits {aff_hits:.0f} ({aff_wall:.1f} s); round robin "
+            f"{rr_hits:.0f} ({rr_wall:.1f} s, replicas by conversation "
+            f"{out['placement']['round_robin_replicas']}); TTFT mean {statistics.mean(ttft):.3f} s")
+
+        # TTFT through the router against sent straight to the replica it picks
+        pairs = {"router": [], "direct": []}
+        for i in range(ROUTE_TTFT_PAIRS):
+            msgs = [_route_text(rng, 300, f"ttft {i}-{k}:") for k in range(2)]
+            r = _route_stream(router, msgs[0], 8)
+            d = _route_stream(reps[int(r["replica"][1:])], msgs[1], 8)
+            pairs["router"].append(r["ttft"])
+            pairs["direct"].append(d["ttft"])
+        out["ttft_router_s"] = round(statistics.mean(pairs["router"]), 4)
+        out["ttft_direct_s"] = round(statistics.mean(pairs["direct"]), 4)
+        log(f"  TTFT over {ROUTE_TTFT_PAIRS} short requests in turns: through the router "
+            f"{out['ttft_router_s']:.4f} s mean, straight to the replica "
+            f"{out['ttft_direct_s']:.4f} s")
+
+        # (b) broadcast ingest
+        docs = _rag_corpus(np.random.RandomState(seed))
+        files = _rag_files(docs)[:ROUTE_DOCS]
+        t1 = time.perf_counter()
+        for filename, data in files:
+            raw, ctype = _multipart(filename, data)
+            status, text = _http(router, "POST", "/documents", raw=raw, ctype=ctype)
+            if status != 200 or json.loads(text).get("replicas") != {"r0": 200, "r1": 200}:
+                raise AssertionError(f"POST /documents {filename} at the router: {status} {text}")
+        ingest_s = time.perf_counter() - t1
+        names = [f for f, _ in files]
+        for base in reps:
+            status, text = _http(base, "GET", "/documents")
+            if status != 200 or not set(names) <= set(json.loads(text)["documents"]):
+                raise AssertionError(f"{base} GET /documents: {status} {text[:300]}")
+        for k in range(ROUTE_DOCS):
+            status, text = _http(router, "POST", "/search", {"query": docs[k][0], "top_k": 4})
+            chunks = json.loads(text)["chunks"] if status == 200 else None
+            if not chunks or chunks[0]["filename"] != names[k]:
+                raise AssertionError(f"/search at the router for a sentence of {names[k]}: "
+                                     f"{status} {text[:300]}")
+        out["ingest_s"] = round(ingest_s, 2)
+        log(f"  broadcast ingest: {ROUTE_DOCS} documents through the router in {ingest_s:.2f} s "
+            f"(encoders built on first use), listed by both replicas; /search at the router "
+            f"finds each document's sentence in it first")
+
+        # (c) drain handover: r0 drains under 4 streams, r1 restores them
+        drain_msgs, ref = _full_streams(rng, router, "r0", "drain", ROUTE_DRAIN_STREAMS)
+        failover_name = "genai_router_failovers_total"
+        pre0 = _scrape(router, failover_name, 'reason="preempted"')
+        cursor = json.loads(_http(router, "GET", "/internal/requests")[1])["cursor"]
+        results, (status, text), t_drain, drain_s = _disturbed(
+            router, reps[0], drain_msgs, lambda: _http(reps[0], "POST", "/internal/drain", {}))
+        if status != 200:
+            raise AssertionError(f"r0 /internal/drain: {status} {text}")
+        summary = json.loads(text)
+        for i in range(ROUTE_DRAIN_STREAMS):
+            got, want = results[i], ref[i]
+            if got["text"] != want["text"] or "PREEMPTED" in got["finishes"] \
+                    or got["finishes"][-1:] != ["[DONE]"]:
+                raise AssertionError(f"drain: stream {i} {got['text']!r} ({got['finishes'][-3:]}) "
+                                     f"against undisturbed {want['text']!r}")
+        preempted = _scrape(router, failover_name, 'reason="preempted"') - pre0
+        acks = [e.get("ack", "") for tl in _router_timelines(router, cursor)
+                for e in tl.get("timeline", []) if e.get("event") == "restore"]
+        if preempted != ROUTE_DRAIN_STREAMS or \
+                sum("mode=restore" in a for a in acks) != ROUTE_DRAIN_STREAMS:
+            raise AssertionError(f"drain: {preempted} preempted failovers, restore acks {acks}")
+        status, text = _http(reps[0], "POST", "/internal/drain", {"resume": True})
+        if status != 200:
+            raise AssertionError(f"r0 resume: {status} {text}")
+        out["drain"] = _handover_stats(results, ref, t_drain)
+        out["drain"].update(summary={k: summary.get(k) for k in ("preempted", "spooled",
+                                                                  "replay_only", "completed")},
+                            drain_s=round(drain_s, 3), failovers_preempted=preempted)
+        log(f"  drain handover: r0 drained under {ROUTE_DRAIN_STREAMS} streams of "
+            f"{ROUTE_STREAM_TOKENS} tokens ~{ROUTE_MID_TOKENS} tokens in, in {drain_s:.3f} s "
+            f"({out['drain']['summary']}); r1 restored each in mode restore; every client "
+            f"stream equals its undisturbed text with no PREEMPTED frame; "
+            f"failovers{{preempted}} +{preempted:.0f}; {_handover_line(out['drain'])}; r0 "
+            f"resumed")
+
+        # (d) tenants: the second request of 'limited' within its second sheds
+        gen_name, gen_match = "genai_http_requests_total", 'route="/generate"'
+        tenant = {"X-GenAI-Tenant": "limited"}
+        counts = [_scrape(b, gen_name, gen_match) for b in reps]
+        held = {}
+        holder = threading.Thread(target=lambda: held.update(first=_route_stream(
+            router, "tenant probe", 4, headers=tenant)), name="smoke-tenant", daemon=True)
+        holder.start()
+        time.sleep(0.3)  # the first is admitted (its token spent) before the second arrives
+        req = urllib.request.Request(router + "/generate", headers={
+            "Content-Type": "application/json", **tenant}, data=json.dumps({
+                "messages": [{"role": "user", "content": "tenant probe"}],
+                "use_knowledge_base": False, "max_tokens": 4, **ROUTE_SAMPLING}).encode())
+        shed_status, retry_after = 200, None
+        try:
+            urllib.request.urlopen(req, timeout=60).read()
+        except urllib.error.HTTPError as exc:
+            shed_status, retry_after = exc.code, exc.headers.get("Retry-After")
+            exc.read()
+        holder.join(600)
+        moved = [_scrape(b, gen_name, gen_match) - c for b, c in zip(reps, counts)]
+        if shed_status != 429 or not retry_after or "first" not in held or sum(moved) != 1:
+            raise AssertionError(f"tenant: {shed_status}, Retry-After {retry_after!r}, the "
+                                 f"replicas' /generate counts moved by {moved}")
+        log(f"  tenant 'limited' (rate=1,burst=1): its second request within a second answers "
+            f"429 with Retry-After {retry_after}; the replicas' /generate counts moved by "
+            f"{moved}: the first request's only")
+
+        # (e) the frontend: one chat through /api/generate equals the router's answer
+        chat = _route_text(rng, 200, "frontend:")
+        via_fe = _route_stream(frontend, chat, 32, path="/api/generate")
+        direct = _route_stream(router, chat, 32)
+        if via_fe["text"] != direct["text"] or via_fe["finishes"][-1:] != ["[DONE]"]:
+            raise AssertionError(f"frontend: {via_fe['text']!r} against the router's "
+                                 f"{direct['text']!r}")
+        log(f"  frontend: /api/generate through the router equals the router's own answer "
+            f"({len(direct['text'])} characters, on {direct['replica']})")
+
+        # (f) the stitched trace of one request
+        trace_id = f"{int(rng.randint(1, 1 << 31)):08x}" + "9f" * 12
+        r = _route_stream(router, "trace probe " + trace_id, 8,
+                          headers={"traceparent": f"00-{trace_id}-00f067aa0ba902b7-01"})
+        status, text = _http(router, "GET", f"/internal/trace/{trace_id}")
+        doc = json.loads(text) if status == 200 else {}
+        events = collections.defaultdict(list)
+        for e in doc.get("timeline", []):
+            events[e["source"]].append(e["event"])
+        if not {"placement", "first_byte", "proxied"} <= set(events["router"]) \
+                or "first_token" not in events[r["replica"]]:
+            raise AssertionError(f"/internal/trace/{trace_id}: {status} {dict(events)}")
+        log(f"  stitched trace: router hop {events['router']}, {r['replica']}'s phases "
+            f"{events[r['replica']]}")
+
+        # (g) the kernels ran on the card inside the replica: a profile of r0
+        for attempt in range(1, OBSERVE_PROFILE_TRIES + 1):
+            pair = _owned_by(rng, "r0", 200, f"profile {attempt}", 2)
+            status, text = _http(reps[0], "POST", "/internal/profile/start", raw=b"")
+            if status != 200:
+                raise AssertionError(f"r0 /internal/profile/start: {status} {text}")
+            _concurrently({str(i): (lambda i=i: _route_stream(router, pair[i], 8))
+                           for i in range(2)})
+            status, text = _http(reps[0], "POST", "/internal/profile/stop", raw=b"")
+            if status != 200:
+                raise AssertionError(f"r0 /internal/profile/stop: {status} {text}")
+            prof = json.loads(text)
+            seen = {n for n, _, _ in device_trace.chrome_trace_events(prof["trace"])}
+            found = {k: any(re.search(k, n) for n in seen) for k in OBSERVE_KERNELS}
+            log(f"  r0 profile {attempt}: complete {prof['complete']}; by kernel "
+                f"{prof['kernels_in_trace']} in the trace of {prof['kernels_launched']} launched "
+                f"by the replica's wrappers; kernels {found}")
+            launched = prof["kernels_launched"]
+            if prof["complete"] and all(found.values()) and all(
+                    launched.get(k, 0) > 0 for k in ROUTE_LAUNCHED):
+                break
+        else:
+            raise AssertionError(f"no complete r0 profile holding {OBSERVE_KERNELS} with "
+                                 f"{ROUTE_LAUNCHED} launched by the replica's wrappers")
+        out["profile"] = {k: prof[k] for k in ("complete", "kernels_in_trace", "kernels_launched",
+                                               "busy_ms", "wall_ms", "idle_share")}
+
+        # (h) replay on death: r1 killed under 2 streams, r0 replays them
+        kill_msgs, ref = _full_streams(rng, router, "r1", "kill", ROUTE_KILL_STREAMS)
+        died0 = _scrape(router, failover_name, 'reason="replica_died"')
+        r1_proc = procs[1][1]
+        results, _, t_kill, _ = _disturbed(router, reps[1], kill_msgs, lambda: (
+            r1_proc.send_signal(signal.SIGKILL), r1_proc.wait(60)))
+        for i in range(ROUTE_KILL_STREAMS):
+            if results[i]["text"] != ref[i]["text"] or \
+                    results[i]["finishes"][-1:] != ["[DONE]"]:
+                raise AssertionError(f"kill: stream {i} {results[i]['text']!r} against "
+                                     f"undisturbed {ref[i]['text']!r}")
+        died = _scrape(router, failover_name, 'reason="replica_died"') - died0
+        deadline = time.time() + 30
+        while True:
+            fleet = json.loads(_http(router, "GET", "/internal/fleet")[1])
+            if fleet["replicas"]["r1"]["state"] == "unhealthy" or time.time() > deadline:
+                break
+            time.sleep(0.5)
+        after = _route_stream(router, "after the death", 4)
+        if died < 1 or fleet["replicas"]["r1"]["state"] != "unhealthy" \
+                or fleet["placeable"] != ["r0"] or after["replica"] != "r0":
+            raise AssertionError(f"kill: failovers{{replica_died}} +{died}, fleet {fleet}, then "
+                                 f"{after['replica']}")
+        out["kill"] = _handover_stats(results, ref, t_kill)
+        out["kill"]["failovers_replica_died"] = died
+        log(f"  replay on death: r1 SIGKILLed under {ROUTE_KILL_STREAMS} streams "
+            f"~{ROUTE_MID_TOKENS} tokens in; both client streams equal their undisturbed text; "
+            f"failovers{{replica_died}} +{died:.0f}; {_handover_line(out['kill'])}; "
+            f"/internal/fleet marks r1 unhealthy; /generate answers 200 on r0")
+
+        # the router's own SLO objectives and families
+        status, text = _http(router, "GET", "/internal/slo")
+        objectives = json.loads(text)["objectives"]
+        if set(objectives) != {"proxy_overhead_p95", "failover_rate"}:
+            raise AssertionError(f"router /internal/slo: {objectives}")
+        families = set(re.findall(r"^# TYPE (genai_router_\w+)", _http(router, "GET",
+                                                                        "/metrics")[1], re.M))
+        if len(families) != 8:
+            raise AssertionError(f"router /metrics: {sorted(families)}")
+        p95 = objectives["proxy_overhead_p95"]
+        out["proxy_overhead_p95_ms"] = p95["p95_ms"]
+        out["failover_rate"] = objectives["failover_rate"]["rate"]
+        log(f"  router: proxy overhead p95 {p95['p95_ms']} ms over {p95['samples']} requests "
+            f"against slo.router_proxy_overhead_p95_ms {p95['target_ms']} (met {p95['met']}); "
+            f"failover rate {out['failover_rate']}; /metrics lists the 8 genai_router_* families")
+    finally:
+        for name, proc, _ in procs:
+            if proc.poll() is None:
+                proc.terminate()
+        for name, proc, log_path in procs:
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["wall_s"] = time.time() - t0
+    log(f"phase route: ok ({out['wall_s']:.1f} s against a budget of {ROUTE_BUDGET_S:.0f} s "
+        f"on {smi})")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
                         default="kernels,model,serve,retrieval,rag,chains,filechains,drain,"
-                                "prefix,spec,observe",
+                                "prefix,spec,observe,route",
                         help="phases after the build, comma-separated (default: all)")
     parser.add_argument("--checks", default=",".join(CHECKS),
                         help="phase 3's kernel checks, comma-separated (default: all)")
@@ -5152,6 +5784,7 @@ def _run(args, phases) -> int:
     prefix = phase_prefix(dev, info["smi"], args.seed) if "prefix" in phases else {}
     spec = phase_spec(dev, info["smi"]) if "spec" in phases else {}
     observe = phase_observe(dev, info["smi"], args.seed) if "observe" in phases else {}
+    route = phase_route(dev, info["smi"], args.seed) if "route" in phases else {}
     kernels = []
     for name, (replaces, source) in KERNELS.items():
         if name not in results:  # a check left out by --checks
@@ -5175,6 +5808,7 @@ def _run(args, phases) -> int:
         "prefix": prefix.get("recipes", {}),
         "spec": {k: v for k, v in spec.items() if k != "launches"},
         "observe": {k: v for k, v in observe.items() if k != "launches"},
+        "route": route,
         "sampling": results.get("sampling")}), flush=True)
     print(info["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -570,8 +570,8 @@ class BlackboxConfig:
 class SLOConfig:
     """The JAX config's ``slo`` section (``APP_SLO_*``): the objectives
     utils/slo.py evaluates over its sliding window (a target of 0
-    disables one). The router's two objectives are carried for parity;
-    the port has no router yet."""
+    disables one). The two ``router_*`` objectives are the router
+    process's (router/app.py calls ``slo.configure_router``)."""
 
     enable: str = "on"
     window_s: float = 300.0
@@ -585,6 +585,41 @@ class SLOConfig:
     @classmethod
     def from_env(cls, environ: Optional[Mapping[str, str]] = None) -> "SLOConfig":
         return _section_from_env(cls, "slo", environ)
+
+
+@dataclasses.dataclass
+class RouterConfig:
+    """The JAX config's ``router`` section (``APP_ROUTER_*``): the routing
+    tier in front of N chain-server or engine replicas (router/app.py,
+    whose ``validate_config`` checks it at router startup)."""
+
+    # comma-separated replica base URLs; ids r0, r1, ... in list order
+    replicas: str = ""
+    # affinity (consistent-hash ring with bounded-load spill) | round_robin
+    policy: str = "affinity"
+    ring_vnodes: int = 64
+    # spill once a replica's inflight exceeds c * total / placeable; 0 disables
+    load_bound: float = 1.25
+    # spill past a replica whose last seen queue depth is at least this; 0 disables
+    spill_queue_depth: int = 8
+    failover_retry: str = "on"
+    # sibling re-placements a request (attempts = 1 + budget)
+    retry_budget: int = 1
+    health_interval_s: float = 2.0
+    health_fail_threshold: int = 2
+    health_ok_threshold: int = 2
+    health_slo_gate: str = "off"
+    # name:rate=QPS,burst=N,inflight=N,weight=W,keys=k1|k2 entries joined with ';'
+    tenants: str = ""
+    # router-wide inflight cap for weighted fair-share shedding; 0 disables
+    max_inflight: int = 0
+    connect_timeout_s: float = 10.0
+    # upstream socket timeout of a proxied request (seconds between reads)
+    read_timeout_s: float = 600.0
+
+    @classmethod
+    def from_env(cls, environ: Optional[Mapping[str, str]] = None) -> "RouterConfig":
+        return _section_from_env(cls, "router", environ)
 
 
 @dataclasses.dataclass
@@ -604,6 +639,7 @@ class AppConfig:
     observability: ObservabilityConfig = dataclasses.field(default_factory=ObservabilityConfig)
     blackbox: BlackboxConfig = dataclasses.field(default_factory=BlackboxConfig)
     slo: SLOConfig = dataclasses.field(default_factory=SLOConfig)
+    router: RouterConfig = dataclasses.field(default_factory=RouterConfig)
 
     @classmethod
     def from_env(cls, environ: Optional[Mapping[str, str]] = None) -> "AppConfig":
@@ -625,6 +661,7 @@ class AppConfig:
             observability=ObservabilityConfig.from_env(environ),
             blackbox=BlackboxConfig.from_env(environ),
             slo=SLOConfig.from_env(environ),
+            router=RouterConfig.from_env(environ),
         )
 
 

@@ -454,7 +454,9 @@ def main() -> None:
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8000)
     args = parser.parse_args()
-    logging.basicConfig(level=logging.INFO)
+    from generativeaiexamples_tpu_torch.utils.logging import configure_root
+
+    configure_root()
     config = AppConfig.from_env()
     config.engine.validate()
     validate_config(config)

@@ -14,6 +14,7 @@ import os
 
 from generativeaiexamples_tpu_torch.chains import runtime
 from generativeaiexamples_tpu_torch.server.api import make_server
+from generativeaiexamples_tpu_torch.utils.logging import configure_root
 
 logger = logging.getLogger(__name__)
 
@@ -25,7 +26,7 @@ def main() -> None:
     parser.add_argument("--device", default=None,
                         help="device of the models and stores (default: the card)")
     args = parser.parse_args()
-    logging.basicConfig(level=logging.INFO)
+    configure_root()
     runtime.set_device(args.device)
     server = make_server(args.host, args.port)
     logger.info("chain server on %s:%d", args.host, args.port)

@@ -61,8 +61,6 @@ import threading
 import time
 import urllib.parse
 import uuid
-from email.parser import BytesParser
-from email.policy import HTTP
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
 from typing import Any, Dict, Optional, Type
@@ -94,6 +92,7 @@ from generativeaiexamples_tpu_torch.server.schemas import (
 from generativeaiexamples_tpu_torch.utils import blackbox
 from generativeaiexamples_tpu_torch.utils import faults as faults_mod
 from generativeaiexamples_tpu_torch.utils import flight_recorder
+from generativeaiexamples_tpu_torch.utils import multipart
 from generativeaiexamples_tpu_torch.utils import resilience
 from generativeaiexamples_tpu_torch.utils import slo as slo_mod
 from generativeaiexamples_tpu_torch.utils.tracing import get_tracer
@@ -333,7 +332,7 @@ class ChainServer:
 
     def upload(self, content_type: str, body: bytes) -> _Reply:
         try:
-            field = _multipart_file(content_type, body)
+            field = multipart.file_field(content_type, body)
             if field is None:
                 return _Reply(200, {"message": "No files provided"})
             filename, data = field
@@ -538,25 +537,6 @@ class ChainServer:
             if close is not None:
                 close()
         return None
-
-
-def _multipart_file(content_type: str, body: bytes):
-    """(filename, bytes) of the ``file`` field of a multipart/form-data
-    body, or None when there is none (or it has no filename)."""
-    if not content_type.lower().startswith("multipart/form-data"):
-        return None
-    msg = BytesParser(policy=HTTP).parsebytes(
-        b"Content-Type: " + content_type.encode("latin-1") + b"\r\n\r\n" + body)
-    if not msg.is_multipart():
-        return None
-    for part in msg.iter_parts():
-        if part.get_param("name", header="content-disposition") != "file":
-            continue
-        filename = part.get_filename()
-        if not filename:
-            return None
-        return filename, part.get_payload(decode=True) or b""
-    return None
 
 
 class _Handler(BaseHTTPRequestHandler):

@@ -4,9 +4,9 @@ moment an incident actually happens.
 Counterpart of generativeaiexamples_tpu/utils/blackbox.py: the same
 triggers, rate limit, bundle layout and views. Its provenance stamps are
 the ones engine/request_snapshot.py copied from JAX's
-utils/provenance.py, and its log tail is a ring this module keeps on the
-port package's logger (JAX reads its logging module's ring). Bundles
-embed the port's dispatch-timeline window and flight records.
+utils/provenance.py, and its log tail is utils/logging.py's ring, as
+JAX's. Bundles embed the port's dispatch-timeline window and flight
+records.
 
 Histograms say *that* the fleet got slow; the flight recorder explains
 one request after the fact; nothing captured the process's whole state
@@ -23,7 +23,7 @@ first —
   (compile stats included),
 - run provenance (git SHA/dirty, config fingerprint — the bundle says
   WHAT was deployed, not just what it did),
-- the recent log tail (the port package's records, :func:`recent_lines`).
+- the recent log tail (``utils/logging.recent_lines``).
 
 Triggers (``blackbox`` config section; a threshold of 0 disarms one):
 
@@ -64,46 +64,10 @@ import time
 from collections import deque
 from typing import Any, Deque, Dict, List, Optional
 
+from generativeaiexamples_tpu_torch.utils import logging as logging_mod
 from generativeaiexamples_tpu_torch.utils import metrics as metrics_mod
 
 logger = logging.getLogger(__name__)
-
-# The log tail bundles embed: the newest formatted records of the port
-# package's loggers (JAX keeps this ring in its utils/logging.py).
-_TAIL_CAPACITY = 200
-_TAIL: "deque[str]" = deque(maxlen=_TAIL_CAPACITY)
-_TAIL_LOCK = threading.Lock()
-
-
-class _TailHandler(logging.Handler):
-    def emit(self, record: logging.LogRecord) -> None:
-        try:
-            line = self.format(record)
-        except Exception:  # noqa: BLE001 - a log tail must never raise
-            return
-        with _TAIL_LOCK:
-            _TAIL.append(line)
-
-
-def _install_tail() -> None:
-    root = logging.getLogger("generativeaiexamples_tpu_torch")
-    if not any(isinstance(h, _TailHandler) for h in root.handlers):
-        handler = _TailHandler()
-        handler.setFormatter(logging.Formatter("%(asctime)s %(levelname)s %(name)s: %(message)s"))
-        root.addHandler(handler)
-
-
-_install_tail()
-
-
-def recent_lines(limit: int = _TAIL_CAPACITY) -> list:
-    """The newest formatted log lines of the port package (oldest
-    first), for debug bundles."""
-    if limit <= 0:
-        return []
-    with _TAIL_LOCK:
-        lines = list(_TAIL)
-    return lines[-int(limit):]
 
 _REG = metrics_mod.get_registry()
 _M_CAPTURES = _REG.counter(
@@ -419,7 +383,7 @@ def _snapshot(trigger: str, detail: Dict[str, Any]) -> Dict[str, Any]:
             "slow": flight_recorder.completed_since(0, slow=True)[0][-16:],
         },
         "slo": slo_mod.summary(),
-        "log_tail": recent_lines(80),
+        "log_tail": logging_mod.recent_lines(80),
     }
     # Recent dispatch-timeline window: the engine's launch cadence
     # around the incident (lock waits, gaps, readbacks). Lazy import —

@@ -1,8 +1,9 @@
 """Fleet-wide trace stitching: merge per-process flight-recorder
 timelines that share one W3C trace id into a single end-to-end story.
 
-Counterpart of generativeaiexamples_tpu/utils/trace_stitch.py, copied
-(the port has no router yet: its servers use ``normalize_trace_id``).
+Counterpart of generativeaiexamples_tpu/utils/trace_stitch.py, copied:
+the port's servers use ``normalize_trace_id``, and the port's router
+(router/app.py) ``merge_timelines`` as well.
 
 Before this module the only place that joined a request's router hop
 with its replica-side engine phases was the loadgen telemetry scraper —

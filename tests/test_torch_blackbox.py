@@ -114,8 +114,11 @@ def test_env_kill_switch_keeps_the_box_disarmed(monkeypatch):
 
 
 def test_log_tail_holds_the_port_package_s_records():
-    import logging
+    """Bundles read the log tail of utils/logging.py, as JAX's read its
+    logging module's ring."""
+    from generativeaiexamples_tpu_torch.utils import logging as tlog
 
-    logging.getLogger("generativeaiexamples_tpu_torch.some.module").error("tail marker %d", 7)
-    assert any("tail marker 7" in line for line in tbb.recent_lines(5))
-    assert tbb.recent_lines(0) == []
+    tlog.get_logger("generativeaiexamples_tpu_torch.some.module").error("tail marker %d", 7)
+    assert any("tail marker 7" in line for line in tlog.recent_lines(5))
+    assert tlog.recent_lines(0) == []
+    assert tbb.logging_mod is tlog

@@ -82,10 +82,18 @@ def _settle(eng, timeout=60.0):
     return eng.stats()
 
 
-def _drain_mid_decode(eng, reqs, min_tokens=1):
-    """Throttle the dispatch loop, wait until every stream has tokens but
-    none has finished, and drain."""
+def _throttled_wave(eng, prompts=PROMPTS, params=PARAMS):
+    """:func:`_wave` with the dispatch loop throttled from before its
+    admission, so that no short stream can finish before the drain; the
+    throttle lasts until :func:`_drain_mid_decode` (or the autouse
+    fixture) resets it."""
     faults.configure("engine.dispatch", "delay", at=1, count=0, value=0.05)
+    return _wave(eng, prompts, params)
+
+
+def _drain_mid_decode(eng, reqs, min_tokens=1):
+    """Wait until every stream of a :func:`_throttled_wave` has tokens but
+    none has finished, drain, and lift the throttle."""
     try:
         deadline = time.time() + 60
         while not all(r.generated >= min_tokens for r in reqs):
@@ -114,7 +122,7 @@ def test_drained_streams_restore_token_identical_on_a_fresh_engine(tmp_path, kv)
     try:
         assert e1._prefix is not None  # the JAX default, auto
         ref = _finish(_wave(e1))
-        reqs = _wave(e1)
+        reqs = _throttled_wave(e1)
         pages_before = {}
         # the pool rows of each live request, read at the park
         orig_capture = rs.capture
@@ -171,7 +179,7 @@ def test_resume_reopens_admission_and_the_engine_serves_on(tmp_path):
     eng = _engine(tmp_path)
     try:
         ref = _finish(_wave(eng))
-        reqs = _wave(eng)
+        reqs = _throttled_wave(eng)
         _drain_mid_decode(eng, reqs)
         assert eng.is_draining()
         snap = rs.RequestSnapshot.from_doc(
@@ -196,7 +204,7 @@ def test_fixed_layout_and_unadmitted_requests_replay_with_the_pinned_seed(tmp_pa
     fixed = _engine(tmp_path, kv_layout="fixed")
     try:
         ref = _finish(_wave(fixed))
-        reqs = _wave(fixed)
+        reqs = _throttled_wave(fixed)
         summary = _drain_mid_decode(fixed, reqs)
         assert summary["parked"] and summary["spooled"] == 0
         assert summary["replay_only"] == len(reqs) and fixed.snapshot_spool.list() == []
@@ -215,7 +223,7 @@ def test_fixed_layout_and_unadmitted_requests_replay_with_the_pinned_seed(tmp_pa
     paged = _engine(tmp_path, max_batch_size=2)
     try:
         ref = _finish(_wave(paged))
-        reqs = _wave(paged)
+        reqs = _throttled_wave(paged)
         summary = _drain_mid_decode(paged, reqs[:2])
         assert summary["spooled"] == 2 and summary["replay_only"] == 2
         assert [r.error.snapshot_id is None for r in reqs] == [False, False, True, True]

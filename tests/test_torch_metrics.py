@@ -8,10 +8,10 @@ byte-equal in Prometheus 0.0.4 and OpenMetrics, exemplars included, and the
 ``/internal/metrics`` JSON view (``collect``) is equal. Registry parity:
 after importing the port's counterparts of the modules JAX's metric-names
 lint imports (``REGISTRY_MODULES``), the port's registry holds exactly JAX's
-families (name, type, label names, buckets) but for two modules the port
+families (name, type, label names, buckets) but for one module the port
 does not have: ``engine.compile_watch`` (XLA compile telemetry; nothing
-compiles at serving time in the port) and ``router.metrics`` (the router is
-ROADMAP queue 1 item 12). Exact comparisons: no tolerance applies.
+compiles at serving time in the port). Exact comparisons: no tolerance
+applies.
 
 These tests build private registries for the exposition checks and only
 read the process registries: JAX's is shared with the lint tests of the
@@ -31,7 +31,6 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 #: JAX registry modules the port does not port, and why
 NOT_PORTED = {
     "generativeaiexamples_tpu.engine.compile_watch": "no XLA compiles to watch",
-    "generativeaiexamples_tpu.router.metrics": "the router is ROADMAP queue 1 item 12",
 }
 
 
@@ -146,12 +145,12 @@ def test_port_registry_holds_jax_s_families():
             importlib.import_module(_port_module(module))
     excluded = set().union(*(_family_names_in(m) for m in NOT_PORTED))
     assert "genai_engine_hot_path_compiles_total" in excluded
-    assert "genai_router_failovers_total" in excluded
+    assert "genai_router_failovers_total" not in excluded
     jax = {f.name: _shape(f) for f in jm.get_registry().families()
            if f.name.startswith("genai_") and f.name not in excluded}
     port = {f.name: _shape(f) for f in tm.get_registry().families()}
     assert set(port) == set(jax), (sorted(set(port) - set(jax)), sorted(set(jax) - set(port)))
     for name in jax:
         assert port[name] == jax[name], name
-    assert len(port) == 109
+    assert len(port) == 117
     assert all(math.isinf(s[2][-1]) for s in port.values() if s[2] is not None)
