@@ -191,9 +191,9 @@ Phases (each one's failure makes the script exit non-zero):
    without the long prompts, the retrieval tier's dispatches a wave and
    the phase wall.
 
-12. spec: speculative decoding at full llama3-8b width, A at full depth
-   and B, C and D at 8 of its 32 layers (int8 packs at seed 0, shared by
-   the recipes; ``max_batch_size`` 8,
+12. spec: speculative decoding at full llama3-8b width, A at 16 and B, C
+   and D at 8 of its 32 layers (int8 packs at seed 0, shared by the
+   recipes; ``max_batch_size`` 8,
    ``max_seq_len`` 8192, page 128, ``prefill_chunk`` 512, ``decode_block``
    8, ``spec_draft_len`` 8), after phase 9: one engine a recipe, its legs
    toggled at runtime (the JAX bench's ``_spec_decode_pass``). Recipe A
@@ -203,7 +203,7 @@ Phases (each one's failure makes the script exit non-zero):
    target's packs dequantized, so that it accepts), on the ``copy_heavy``
    ramp (512 ids) and the ``normal`` walk (768 ids, chunked); B, C and D
    run ``off`` and ``lookup`` on ``copy_heavy``. A leg is a set of
-   concurrent greedy requests a prompt set (A: 6 of 96 tokens; B, C, D: 4
+   concurrent greedy requests a prompt set (A: 6 of 48 tokens; B, C, D: 4
    of 64), then one seeded request (temperature 0.7, top_p 0.8, seed 1234,
    24 tokens). Every leg's streams equal the ``off`` leg's, or part from
    them only at a token whose top-1 margin is within ``LOGITS_TOL``;
@@ -291,13 +291,43 @@ Phases (each one's failure makes the script exit non-zero):
    the phase wall (a budget of 150 s). Every process it started is gone
    when it ends.
 
+15. connect: the configuration file, the native store and the framework
+   connectors at full llama3-8b width and depth, recipe A (int8 packs at
+   seed 0), with arctic-embed-l. (a) A camelCase JSON file of phase 7's
+   deployment (the ``faiss`` store under a temporary ``persistDir``, the
+   hybrid pipeline, ``topK`` 2) named by ``APP_CONFIG_FILE``, with
+   ``APP_RETRIEVER_TOPK=3`` on top: ``get_config()`` holds the file's
+   values and ``topK`` 3; ``engine.tensorParallelism`` 2 from a file is
+   refused with the message the same value from the environment gets.
+   (b) The sentences of phase 7's documents embedded on the card go into
+   ``faiss`` (flat), ``ivf`` and the in-process ``tpu`` store: for 32
+   queries flat gives the exact store's top 4 (scores within 1e-5, equal
+   scores as a set), IVF's recall@4 against it is printed, the persisted
+   store reopened answers the same, ``milvus`` and ``pgvector`` without
+   their client packages raise JAX's ``VectorStoreError``, and the store
+   that serves ``faiss`` is ``NativeVectorStore``. (c) The connectors
+   over the process engine, greedy: ``ChatTPU().invoke`` and ``.stream``
+   (piece by piece), ``TPULlamaIndexLLM.complete``/``stream_complete`` and
+   pandasai's ``TPULLM.call`` equal the backend's own text,
+   ``ChatTPU(base_url=...)`` over the engine server on the same engine too;
+   ``TPUEmbeddings`` equal the runtime embedder's vectors;
+   ``TPULlamaIndexRetriever`` over the ``faiss`` collection (2 of phase
+   7's documents) equals ``runtime.retrieve``; an ``llm.chat`` span with
+   JAX's attributes and ``llm.new_token`` events. (d) ``python -m
+   generativeaiexamples_tpu_torch.server`` (``developer_rag``) with only
+   ``APP_CONFIG_FILE`` naming its store: 2 documents uploaded, ``/search``
+   equal to the in-process hits, one ``/generate`` streamed to
+   ``[DONE]``. (e) A profile of (c)'s in-process calls, ``complete``
+   kernel by kernel, holds ``int8_matmul_mma``, ``paged_split_kernel`` and
+   ``flash_attention_kernel``. It prints the native build's seconds, search
+   ms a query for flat, ivf and tpu, and the phase wall (a budget of 120
+   s). Every process it started is gone when it ends.
+
 With no arguments it runs every phase, as above; ``--phases``,
 ``--checks`` and ``--recipes`` run a part (for example ``--phases serve
 --recipes B``, ``--phases chains``, ``--phases filechains``, ``--phases
-drain``, ``--phases observe`` or ``--phases route``) and then print only
-the kernels that
-part measured;
-``--runahead N`` serves every engine at ``decode_runahead`` N, and
+drain``, ``--phases observe``, ``--phases route`` or ``--phases connect``)
+and then print only the kernels that part measured; ``--runahead N`` serves every engine at ``decode_runahead`` N, and
 ``--timing-only`` leaves out the runahead and overload checks (for timed
 runs of an older tree, which lacks them).
 
@@ -4323,17 +4353,18 @@ def phase_drain(dev, smi, seed=0, dep=None, encoders=None) -> dict:
 # --------------------------------------------------------------------- #
 # Phase 12: speculative decoding
 
-# recipe A: 6 concurrent greedy requests of 96 tokens a prompt set, then
-# one seeded request of 24 tokens outside the timed window (the JAX
-# bench's _spec_decode_pass, its requests run together here); B, C and D
-# (one verify each on another pool or layout) 4 requests of 64 tokens
-SPEC_TRAFFIC = {"A": (6, 96), "B": (4, 64), "C": (4, 64), "D": (4, 64)}
-# B, C and D run their legs at a quarter of llama3-8b's depth (its width,
-# the first 8 of A's 32 layers of packs), A at full depth: the script
-# stays near 750 s with phase 13 added (phase 12 took 218-296 s at full
-# depth for every recipe)
-SPEC_CUT_LAYERS = 8
-SPEC_CUT_RECIPES = ("B", "C", "D")
+# recipe A: 6 concurrent greedy requests of 48 tokens a prompt set (96
+# until phase 15: the random 1b draft's legs took 77 s of A's 177 s at
+# 16 layers), then one seeded request of 24 tokens outside the timed
+# window (the JAX bench's _spec_decode_pass, its requests run together
+# here); B, C and D (one verify each on another pool or layout) 4
+# requests of 64 tokens
+SPEC_TRAFFIC = {"A": (6, 48), "B": (4, 64), "C": (4, 64), "D": (4, 64)}
+# each recipe's depth (llama3-8b's width, the first layers of A's packs):
+# B, C and D at a quarter of its 32 layers since phase 13, A at half since
+# phase 15 (phase 12 took 218.3 s with A at full depth, against its budget
+# of 150 s)
+SPEC_LAYERS = {"A": 16, "B": 8, "C": 8, "D": 8}
 SPEC_SEEDED_TOKENS = 24
 SPEC_DRAFT_MODEL = "llama3-1b-proxy"
 # recipe -> (legs, prompt sets); a leg is (name, proposer or None for off,
@@ -4479,7 +4510,8 @@ def _target_draft(engine):
     params = {key: dense(key, w) for key, w in engine.params.items() if key != "layers"}
     params["layers"] = [{key: dense(key, w) for key, w in lp.items()}
                         for lp in engine.params["layers"]]
-    ec = dataclasses.replace(engine.engine_config, spec_draft_model=MODEL,
+    ec = dataclasses.replace(engine.engine_config,
+                             spec_draft_model=engine.engine_config.model_config_name,
                              spec_proposer="draft_model")
     return spec_draft.DraftRuntime(
         ec, device=engine.device, dtype=engine._dtype, sample_vocab=engine._sample_vocab,
@@ -4631,15 +4663,14 @@ def phase_spec(dev, smi) -> dict:
     out = {"recipes": {}, "provenance": SPEC_PROVENANCE}
     launches = collections.Counter()
     weights = None
-    cut = f"{MODEL}-{SPEC_CUT_LAYERS}-layers"
-    llama.PRESETS[cut] = dataclasses.replace(llama.PRESETS[MODEL], num_layers=SPEC_CUT_LAYERS)
     for name, quantization, kv_dtype, layout, _ in RECIPES:
-        # A, C and D share int8 packs; B (w8a8) serves the same packs; the
-        # cut recipes take the first layers of A's
-        model = MODEL
-        if name in SPEC_CUT_RECIPES:
-            model = cut
-            weights = dict(weights, layers=weights["layers"][:SPEC_CUT_LAYERS])
+        # A, C and D share int8 packs; B (w8a8) serves the same packs; each
+        # recipe takes the first SPEC_LAYERS of A's
+        layers = SPEC_LAYERS[name]
+        model = f"{MODEL}-{layers}-layers"
+        llama.PRESETS[model] = dataclasses.replace(llama.PRESETS[MODEL], num_layers=layers)
+        if weights is not None:
+            weights = dict(weights, layers=weights["layers"][:layers])
         res, weights = spec_recipe(dev, smi, name, quantization, kv_dtype, layout, weights,
                                    model=model)
         launches.update(res.pop("launches"))
@@ -4649,8 +4680,8 @@ def phase_spec(dev, smi) -> dict:
     torch.cuda.empty_cache()
     out["launches"] = dict(launches)
     out["wall_s"] = time.time() - t0
-    log(f"  provenance: {SPEC_PROVENANCE}; {', '.join(SPEC_CUT_RECIPES)} at "
-        f"{SPEC_CUT_LAYERS} of {llama.PRESETS[MODEL].num_layers} layers")
+    log(f"  provenance: {SPEC_PROVENANCE}; layers of {llama.PRESETS[MODEL].num_layers} by "
+        f"recipe {SPEC_LAYERS}")
     log(f"phase spec: ok ({out['wall_s']:.1f} s on {smi})")
     return out
 
@@ -5722,11 +5753,440 @@ def phase_route(dev, smi, seed=0) -> dict:
     return out
 
 
+# --------------------------------------------------------------------- #
+# Phase 15: the config file, the native store and the framework connectors
+
+CONNECT_BUDGET_S = 120.0
+CONNECT_QUERIES = 32
+CONNECT_K = 4
+CONNECT_TOKENS = 24  # each connector call, greedy
+CONNECT_UPLOADS = 2  # phase 7's documents uploaded to the chain server
+CONNECT_SEARCH_TOL = 1e-5  # f32 dot products of 1024-dim unit vectors, other sum orders
+CONNECT_PROFILE_TRIES = 3  # CUPTI can drop a session's events: capture again
+# the JAX package's messages when a client package is missing
+CONNECT_MISSING = {
+    "milvus": ("pymilvus",
+               "pymilvus is not installed; use vector_store.name=tpu or install pymilvus"),
+    "pgvector": ("psycopg2",
+                 "psycopg2 is not installed; use vector_store.name=tpu or install psycopg2"),
+}
+CONNECT_KERNELS = ("int8_matmul_mma", "paged_split_kernel", "flash_attention_kernel")
+
+
+def _connect_file(store_dir) -> dict:
+    """Phase 7's deployment as a camelCase configuration file: engine A,
+    arctic-embed-l on the card, the ``faiss`` store under ``store_dir``,
+    the hybrid pipeline (dense + BM25, no reranker: the native store's
+    hits reach /search) at ``topK`` 2."""
+    return {
+        "engine": {"modelConfigName": MODEL, "quantization": "int8",
+                   "kvCacheDtype": "bfloat16", "kvLayout": "paged"},
+        "llm": {"modelEngine": "tpu"},
+        "embeddings": {"modelEngine": "tpu"},
+        "ranking": {"modelEngine": ""},
+        "retriever": {"topK": 2, "nrPipeline": "hybrid", "scoreThreshold": 0.0},
+        "textSplitter": {"chunkSize": 48, "chunkOverlap": 16},
+        "vectorStore": {"name": "faiss", "persistDir": store_dir},
+    }
+
+
+def _write_json(path, doc) -> str:
+    with open(path, "w", encoding="utf-8") as fh:
+        json.dump(doc, fh)
+    return path
+
+
+def _connect_config(tmp) -> tuple:
+    """(a): the file, the environment on top, and a refused value from a
+    file against the same value from the environment."""
+    from generativeaiexamples_tpu_torch import config as config_mod
+
+    path = _write_json(os.path.join(tmp, "app.json"), _connect_file(os.path.join(tmp, "store")))
+    os.environ["APP_CONFIG_FILE"] = path
+    os.environ["APP_RETRIEVER_TOPK"] = "3"
+    config_mod.get_config.cache_clear()
+    cfg = config_mod.get_config()
+    got = (cfg.engine.model_config_name, cfg.engine.quantization, cfg.engine.kv_cache_dtype,
+           cfg.engine.kv_layout, cfg.vector_store.name, cfg.vector_store.persist_dir,
+           cfg.retriever.top_k, cfg.retriever.nr_pipeline, cfg.embeddings.model_engine,
+           cfg.text_splitter.chunk_size)
+    want = (MODEL, "int8", "bfloat16", "paged", "faiss", os.path.join(tmp, "store"), 3,
+            "hybrid", "tpu", 48)
+    if got != want:
+        raise AssertionError(f"connect (a): get_config() gave {got}, not {want}")
+    bad = _write_json(os.path.join(tmp, "tp2.json"), {"engine": {"tensorParallelism": 2}})
+    messages = []
+    for source in ("file", "env"):
+        try:
+            if source == "file":
+                config_mod.AppConfig.from_file(bad)
+            else:
+                config_mod.AppConfig.from_env({"APP_ENGINE_TENSORPARALLELISM": "2"})
+        except ValueError as exc:
+            messages.append(str(exc))
+        else:
+            raise AssertionError(f"connect (a): tensorParallelism 2 from the {source} was accepted")
+    if messages[0] != messages[1]:
+        raise AssertionError(f"connect (a): the file's refusal {messages[0]!r} is not the "
+                             f"environment's {messages[1]!r}")
+    log(f"  (a) get_config() from APP_CONFIG_FILE with APP_RETRIEVER_TOPK=3 on top: {want}; "
+        f"engine.tensorParallelism 2 from a file and from the environment both refused with "
+        f"{messages[0]!r}")
+    return cfg, path
+
+
+def _topk_matches(got, want, k, tol) -> float:
+    """``got``'s k hits against the exact ``want`` (k + a few): scores
+    within ``tol`` rank by rank and every id among those whose exact score
+    reaches the k-th's less ``tol`` (equal scores count as a set). The
+    largest score difference."""
+    worst = 0.0
+    floor = want[k - 1].score - tol
+    allowed = {h.chunk.text for h in want if h.score >= floor}
+    if len(got) != k:
+        raise AssertionError(f"{len(got)} hits, not {k}")
+    for g, w in zip(got, want):
+        worst = max(worst, abs(g.score - w.score))
+        if abs(g.score - w.score) > tol or g.chunk.text not in allowed:
+            raise AssertionError(f"hit {g.chunk.text[:40]!r} ({g.score:.7f}) against "
+                                 f"{w.chunk.text[:40]!r} ({w.score:.7f})")
+    return worst
+
+
+def _connect_stores(cfg, emb, docs, tmp, smi) -> dict:
+    """(b): the same vectors in faiss (flat), ivf and the in-process store
+    on the card; 32 queries; persistence; the two client stores refused."""
+    from generativeaiexamples_tpu_torch.retrieval.errors import VectorStoreError
+    from generativeaiexamples_tpu_torch.retrieval.native_store import NativeVectorStore
+    from generativeaiexamples_tpu_torch.retrieval.store import Chunk, create_vector_store
+    from generativeaiexamples_tpu_torch.retrieval.torch_store import TorchVectorStore
+
+    passages = [s for doc in docs for s in doc]
+    chunks = [Chunk(text=p, source=f"doc{d:02d}") for d, doc in enumerate(docs) for p in doc]
+    vecs = np.asarray(emb.embed_documents(passages), np.float32)
+    rng = np.random.RandomState(15)
+    queries = [passages[i] for i in rng.choice(len(passages), CONNECT_QUERIES, replace=False)]
+    qvecs = [np.asarray(emb.embed_query(q), np.float32) for q in queries]
+    dims = vecs.shape[1]
+    stores, out = {}, {"passages": len(passages), "dims": dims}
+    for kind in ("faiss", "ivf", "tpu"):
+        stores[kind] = create_vector_store(kind, dims, persist_dir=os.path.join(tmp, "b", kind),
+                                           collection="b", ann_mode="exact")
+        stores[kind].add(chunks, vecs)
+    if type(stores["faiss"]) is not NativeVectorStore or type(stores["ivf"]) is not \
+            NativeVectorStore or type(stores["tpu"]) is not TorchVectorStore:
+        raise AssertionError(f"connect (b): the factory served "
+                             f"{ {k: type(v).__name__ for k, v in stores.items()} }")
+    hits, ms = {}, {}
+    for kind, store in stores.items():
+        store.search(qvecs[0], CONNECT_K)  # warm
+        t = time.perf_counter()
+        hits[kind] = [store.search(q, CONNECT_K + 4 if kind == "tpu" else CONNECT_K)
+                      for q in qvecs]
+        ms[kind] = (time.perf_counter() - t) * 1e3 / len(qvecs)
+    worst = max(_topk_matches(f, e, CONNECT_K, CONNECT_SEARCH_TOL)
+                for f, e in zip(hits["faiss"], hits["tpu"]))
+    recall = statistics.mean(
+        len({h.chunk.text for h in i} & {h.chunk.text for h in e[:CONNECT_K]}) / CONNECT_K
+        for i, e in zip(hits["ivf"], hits["tpu"]))
+    reopened = create_vector_store("faiss", dims, persist_dir=os.path.join(tmp, "b", "faiss"),
+                                   collection="b")
+    if reopened is stores["faiss"] or reopened.count() != len(passages):
+        raise AssertionError("connect (b): the reopened faiss store is not a fresh full one")
+    again = [reopened.search(q, CONNECT_K) for q in qvecs]
+    if [[(h.chunk.text, h.score) for h in r] for r in again] != \
+            [[(h.chunk.text, h.score) for h in r] for r in hits["faiss"]]:
+        raise AssertionError("connect (b): the reopened faiss store answers otherwise")
+    for name, (module, message) in CONNECT_MISSING.items():
+        saved = sys.modules.get(module, "absent")
+        sys.modules[module] = None  # the import fails even where the package exists
+        try:
+            create_vector_store(name, dims, url="http://127.0.0.1:1", collection="b")
+        except VectorStoreError as exc:
+            if str(exc) != message:
+                raise AssertionError(f"connect (b): {name}: {exc}") from exc
+        else:
+            raise AssertionError(f"connect (b): {name} without {module} built a store")
+        finally:
+            if saved == "absent":
+                sys.modules.pop(module, None)
+            else:
+                sys.modules[module] = saved
+    out.update(search_ms=ms, ivf_recall_at_4=recall, flat_max_score_diff=worst)
+    log(f"  (b) {len(passages)} sentences of phase 7's documents embedded on the card "
+        f"({dims} dims) into faiss ({type(stores['faiss']).__name__}, flat), ivf (nlist 64, "
+        f"nprobe 8) and tpu ({type(stores['tpu']).__name__}, on the card): for "
+        f"{CONNECT_QUERIES} queries flat gives the exact store's top {CONNECT_K} (scores within "
+        f"{worst:.3g}, limit {CONNECT_SEARCH_TOL}); IVF recall@{CONNECT_K} {recall:.3f}; "
+        f"search a query flat {ms['faiss']:.4f} ms, ivf {ms['ivf']:.4f} ms, tpu "
+        f"{ms['tpu']:.4f} ms (host wall) on {smi}; persisted and reopened: the same hits; "
+        f"milvus and pgvector without their client packages raise JAX's VectorStoreError")
+    return out
+
+
+def _connect_calls(engine, backend, query, retriever_query) -> dict:
+    """(c)'s in-process calls, in the order they are compared."""
+    from generativeaiexamples_tpu_torch.chains import runtime
+    from generativeaiexamples_tpu_torch.integrations.langchain import ChatTPU, TPUEmbeddings
+    from generativeaiexamples_tpu_torch.integrations.llamaindex import (
+        TPULlamaIndexLLM, TPULlamaIndexRetriever,
+    )
+    from generativeaiexamples_tpu_torch.integrations.pandasai import TPULLM
+
+    greedy = dict(temperature=0.0, top_p=1.0, max_tokens=CONNECT_TOKENS)
+    msgs = [("system", "You are a terse assistant."), ("user", query)]
+    chat = ChatTPU(**greedy)
+    if chat._backend._engine is not engine:
+        raise AssertionError("connect (c): ChatTPU() did not take the process engine")
+    out = {
+        "backend_pieces": list(backend.stream_chat(msgs, **greedy)),
+        "invoke": chat.invoke(msgs),
+        "stream": list(chat.stream(msgs)),
+        "backend_complete": backend.complete([("user", query)], **greedy),
+        "complete": TPULlamaIndexLLM(**greedy).complete(query).text,
+        "stream_complete": "".join(r.delta for r in
+                                   TPULlamaIndexLLM(**greedy).stream_complete(query)),
+        "pandasai": TPULLM(**greedy).call(query),
+    }
+    texts = [f"{query} {i}" for i in range(3)]
+    emb, mine = TPUEmbeddings(), runtime.get_embedder()
+    out["embed_diff"] = max(
+        float(np.abs(np.asarray(emb.embed_documents(texts)) - mine.embed_documents(texts)).max()),
+        float(np.abs(np.asarray(emb.embed_query(query)) - mine.embed_query(query)).max()))
+    nodes = TPULlamaIndexRetriever().retrieve(retriever_query)
+    hits = runtime.retrieve(retriever_query)
+    out["retriever"] = ([(n.node.text, n.node.metadata["filename"], n.score) for n in nodes],
+                        [(h.chunk.text, h.chunk.source, h.score) for h in hits])
+    return out
+
+
+def _check_connect_calls(out, remote_text) -> None:
+    want = "".join(out["backend_pieces"])  # the system and user messages
+    if out["invoke"] != want:
+        raise AssertionError(f"connect (c): invoke gave {out['invoke']!r}, the backend {want!r}")
+    if out["stream"] != out["backend_pieces"]:
+        raise AssertionError(f"connect (c): ChatTPU.stream pieces {out['stream']!r} against the "
+                             f"backend's {out['backend_pieces']!r}")
+    for key in ("complete", "stream_complete", "pandasai"):  # one user message
+        if out[key] != out["backend_complete"]:
+            raise AssertionError(f"connect (c): {key} gave {out[key]!r}, the backend "
+                                 f"{out['backend_complete']!r}")
+    if remote_text != want:
+        raise AssertionError(f"connect (c): ChatTPU over the engine server gave "
+                             f"{remote_text!r}, in process {want!r}")
+    if out["embed_diff"] != 0.0:
+        raise AssertionError(f"connect (c): TPUEmbeddings differ from the runtime's embedder "
+                             f"by {out['embed_diff']}")
+    nodes, hits = out["retriever"]
+    if not hits or nodes != hits:
+        raise AssertionError(f"connect (c): the retriever's nodes {nodes} against "
+                             f"runtime.retrieve's {hits}")
+
+
+def phase_connect(dev, smi, seed=0) -> dict:
+    """The configuration file, the native store and the framework
+    connectors at full llama3-8b, recipe A (module docstring, phase 15)."""
+    from generativeaiexamples_tpu_torch import config as config_mod
+    from generativeaiexamples_tpu_torch.chains import runtime
+    from generativeaiexamples_tpu_torch.engine import llm_engine
+    from generativeaiexamples_tpu_torch.engine.embedder import TorchEmbedder
+    from generativeaiexamples_tpu_torch.integrations.langchain import ChatTPU
+    from generativeaiexamples_tpu_torch.retrieval import native_index
+    from generativeaiexamples_tpu_torch.retrieval.native_store import NativeVectorStore
+    from generativeaiexamples_tpu_torch.utils import tracing
+
+    t0 = time.time()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_connect_")
+    keys = [k for k in os.environ if k.startswith("APP_")] + ["APP_CONFIG_FILE",
+                                                                "APP_RETRIEVER_TOPK"]
+    saved_env = {k: os.environ.get(k) for k in keys}
+    for key in keys:  # the file and this phase's own variables configure it, nothing earlier
+        if key != "APP_BLACKBOX_DIR":
+            os.environ.pop(key, None)
+    out, proc, http_server = {"smi": smi}, None, None
+    docs = _rag_corpus(np.random.RandomState(seed))
+    try:
+        cfg, _ = _connect_config(tmp)
+
+        # (d)'s chain server starts now, from a file of its own (its own
+        # store), and comes up while the in-process deployment builds
+        server_file = _write_json(os.path.join(tmp, "server.json"),
+                                  _connect_file(os.path.join(tmp, "server_store")))
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("APP_") or k == "APP_BLACKBOX_DIR"}
+        env.update(APP_CONFIG_FILE=server_file, EXAMPLE_NAME="developer_rag",
+                   DOC_UPLOAD_DIR=os.path.join(tmp, "uploads"))
+        port = _free_port()
+        base = f"http://127.0.0.1:{port}"
+        log_path = os.path.join(tmp, "server.log")
+        t_spawn = time.time()
+        proc = subprocess.Popen([sys.executable, "-m", "generativeaiexamples_tpu_torch.server",
+                                 "--host", "127.0.0.1", "--port", str(port)], env=env,
+                                cwd=os.getcwd(), stdout=open(log_path, "wb"),
+                                stderr=subprocess.STDOUT)
+
+        t_build = time.time()
+        if not native_index.available():
+            raise AssertionError(f"connect: the native index did not build: "
+                                 f"{native_index.unavailable_reason()}")
+        out["native_build_s"] = time.time() - t_build
+        runtime.reset_runtime()
+        runtime.set_device(None)
+        cfg = config_mod.get_config()
+        t_dep = time.time()
+        emb = runtime.get_embedder(cfg)
+        backend = runtime.get_llm(cfg)
+        engine = backend._engine
+        if not isinstance(emb, TorchEmbedder) or engine is not llm_engine._ENGINE or \
+                engine.device.type != "cuda" or not engine._paged:
+            raise AssertionError("connect: the factories did not build the encoder and engine A "
+                                 "on the card")
+        store = runtime.get_vector_store("default", cfg)
+        if type(store) is not NativeVectorStore:
+            raise AssertionError(f"connect: vector store 'faiss' is served by "
+                                 f"{type(store).__name__}, not NativeVectorStore")
+        out["deploy_s"] = time.time() - t_dep
+        log(f"  native index built with g++ in {out['native_build_s']:.2f} s; the store serving "
+            f"'faiss' is {type(store).__name__}; engine A and arctic-embed-l built in "
+            f"{out['deploy_s']:.1f} s")
+
+        out["stores"] = _connect_stores(cfg, emb, docs, tmp, smi)
+
+        # two of phase 7's documents in the runtime's faiss collection
+        files = _rag_files(docs)[:CONNECT_UPLOADS]
+        for name, data in files:
+            path = os.path.join(tmp, name)
+            with open(path, "wb") as fh:
+                fh.write(data)
+            runtime.ingest_file(path, name)
+        query = " ".join(docs[0][1].split()[:8])
+        search_query = docs[1][2]
+
+        # (c) the connectors, traced, against the engine server on the same engine
+        from generativeaiexamples_tpu_torch.engine.server import make_server
+
+        http_server = make_server("127.0.0.1", 0, engine=engine)
+        threading.Thread(target=http_server.serve_forever, name="smoke-connect-http",
+                         daemon=True).start()
+        remote = f"http://127.0.0.1:{http_server.server_address[1]}/v1"
+        exporter = tracing.InMemorySpanExporter()
+        tracing.set_tracer(tracing.Tracer(exporter=exporter, flush_interval=0.1))
+        launches = collections.Counter()
+        try:
+            for attempt in range(CONNECT_PROFILE_TRIES):
+                _settle(engine)
+                reset_counts()
+                with device_trace.DeviceWindow() as win:
+                    calls = _connect_calls(engine, backend, query, search_query)
+                launches.update(counts())
+                prof = win.result
+                if prof["complete"]:
+                    break
+                log(f"    profile attempt {attempt + 1}: incomplete ({prof['kernels_in_trace']} "
+                    f"in the trace of {prof['kernels_launched']} launched); again")
+            greedy = dict(temperature=0.0, top_p=1.0, max_tokens=CONNECT_TOKENS)
+            remote_text = ChatTPU(base_url=remote, model="llama3-8b", **greedy).invoke(
+                [("system", "You are a terse assistant."), ("user", query)])
+            tracing.get_tracer().force_flush()
+            spans = [s for s in exporter.spans if s.name == "llm.chat"]
+        finally:
+            tracing.reset_tracer()
+        _check_connect_calls(calls, remote_text)
+        missing = [k for k in RAG_EXPECTED if not launches.get(k)]
+        if missing:
+            raise AssertionError(f"connect (c): kernels not launched: {missing} ({dict(launches)})")
+        span = spans[0] if spans else None
+        if span is None or set(span.attributes) - {"service.name"} != {
+                "llm.temperature", "llm.top_p", "llm.max_tokens", "llm.messages", "llm.chunks",
+                "llm.completion_chars"} or not all(
+                e["name"] == "llm.new_token" for e in span.events):
+            raise AssertionError(f"connect (c): the llm.chat span: {span}")
+        out["launches"] = dict(launches)
+        out["texts"] = {"chars": len(calls["invoke"]), "pieces": len(calls["stream"])}
+        log(f"  (c) in process: ChatTPU.invoke, .stream ({len(calls['stream'])} pieces in "
+            f"order), TPULlamaIndexLLM.complete/.stream_complete and pandasai TPULLM.call equal "
+            f"the backend's greedy text ({len(calls['invoke'])} characters, "
+            f"{CONNECT_TOKENS} tokens); ChatTPU(base_url=...) over the engine server the same; "
+            f"TPUEmbeddings equal the runtime embedder's vectors; TPULlamaIndexRetriever over "
+            f"the faiss collection equals runtime.retrieve ({len(calls['retriever'][1])} hits); "
+            f"{len(spans)} llm.chat spans, one: attributes "
+            f"{ {k: v for k, v in span.attributes.items() if k != 'service.name'} }, "
+            f"{len(span.events)} llm.new_token events; launches {dict(launches)}")
+        if not prof["complete"]:
+            raise AssertionError(f"connect (e): no complete profile in {CONNECT_PROFILE_TRIES} "
+                                 f"captures: {prof}")
+        held = [k for k in CONNECT_KERNELS if prof["kernels_in_trace"].get(k)]
+        if len(held) != len(CONNECT_KERNELS):
+            raise AssertionError(f"connect (e): the profile holds {prof['kernels_in_trace']}")
+        out["profile"] = {k: prof[k] for k in ("busy_ms", "wall_ms", "idle_share",
+                                               "kernels_in_trace", "kernels_ms")}
+        log(f"  (e) profile of (c)'s in-process calls: complete kernel by kernel "
+            f"{prof['kernels_in_trace']}; busy {prof['busy_ms']:.1f} of {prof['wall_ms']:.1f} ms "
+            f"wall (idle share {prof['idle_share']:.3f}) on {smi}")
+
+        # (d) the chain server from the file alone
+        _wait_up(base, proc, log_path, "the chain server")
+        t_up = time.time() - t_spawn
+        for name, data in files:
+            raw, ctype = _multipart(name, data)
+            status, text = _http(base, "POST", "/documents", raw=raw, ctype=ctype)
+            if status != 200:
+                raise AssertionError(f"connect (d): POST /documents {name}: {status} {text}")
+        status, text = _http(base, "POST", "/search", {"query": search_query, "top_k": 4})
+        local = [{"content": h.chunk.text, "filename": h.chunk.source, "score": h.score}
+                 for h in runtime.retrieve(search_query, top_k=4)]
+        if status != 200 or not local or not _same_search(
+                (status, text), (200, json.dumps({"chunks": local}))):
+            raise AssertionError(f"connect (d): /search {status} {text} against the in-process "
+                                 f"{local}")
+        frames, ttft, total = _generate_stream(base, query, kb=True, max_tokens=16)
+        if (frames[-1].get("choices") or [{}])[0].get("finish_reason") != "[DONE]":
+            raise AssertionError(f"connect (d): /generate ended with {frames[-1]}")
+        out["server"] = {"up_since_spawn_s": round(t_up, 1),
+                         "generate_ttft_s": ttft, "generate_s": total}
+        log(f"  (d) python -m generativeaiexamples_tpu_torch.server with only APP_CONFIG_FILE "
+            f"(EXAMPLE_NAME=developer_rag): /health {t_up:.1f} s after its start; "
+            f"{CONNECT_UPLOADS} documents uploaded; /search equals the in-process hits "
+            f"({len(local)}); /generate streamed {len(frames)} frames to [DONE] (first answer "
+            f"frame {ttft:.2f} s, {total:.2f} s)")
+    finally:
+        if http_server is not None:
+            http_server.shutdown()
+            http_server.server_close()
+        if proc is not None:
+            if proc.poll() is None:
+                proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+        eng = llm_engine._ENGINE
+        if eng is not None:
+            eng.shutdown()
+        with llm_engine._ENGINE_LOCK:
+            llm_engine._ENGINE = None
+        runtime.reset_runtime()
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        config_mod.get_config.cache_clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.time() - t0
+    log(f"phase connect: ok ({out['wall_s']:.1f} s against a budget of {CONNECT_BUDGET_S:.0f} s "
+        f"on {smi})")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
                         default="kernels,model,serve,retrieval,rag,chains,filechains,drain,"
-                                "prefix,spec,observe,route",
+                                "prefix,spec,observe,route,connect",
                         help="phases after the build, comma-separated (default: all)")
     parser.add_argument("--checks", default=",".join(CHECKS),
                         help="phase 3's kernel checks, comma-separated (default: all)")
@@ -5785,6 +6245,7 @@ def _run(args, phases) -> int:
     spec = phase_spec(dev, info["smi"]) if "spec" in phases else {}
     observe = phase_observe(dev, info["smi"], args.seed) if "observe" in phases else {}
     route = phase_route(dev, info["smi"], args.seed) if "route" in phases else {}
+    connect = phase_connect(dev, info["smi"], args.seed) if "connect" in phases else {}
     kernels = []
     for name, (replaces, source) in KERNELS.items():
         if name not in results:  # a check left out by --checks
@@ -5794,7 +6255,7 @@ def _run(args, phases) -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(sv["launches"][name] for sv in serves.values())
             + sum(ph.get("launches", {}).get(name, 0)
-                  for ph in (rag, chains, files, drain, prefix, spec, observe)),
+                  for ph in (rag, chains, files, drain, prefix, spec, observe, connect)),
             **r,
         })
     log(f"total {time.time() - t0:.1f} s")
@@ -5809,6 +6270,7 @@ def _run(args, phases) -> int:
         "spec": {k: v for k, v in spec.items() if k != "launches"},
         "observe": {k: v for k, v in observe.items() if k != "launches"},
         "route": route,
+        "connect": {k: v for k, v in connect.items() if k != "launches"},
         "sampling": results.get("sampling")}), flush=True)
     print(info["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

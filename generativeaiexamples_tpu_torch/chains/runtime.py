@@ -141,6 +141,7 @@ def get_vector_store(collection: str = "default",
                 config.vector_store.name,
                 dimensions=get_embedder(config).dimensions,
                 persist_dir=config.vector_store.persist_dir,
+                url=config.vector_store.url,
                 collection=collection,
                 device=_DEVICE,
                 ann_mode=ret.ann_mode or "exact",

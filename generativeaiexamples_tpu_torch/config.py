@@ -23,8 +23,13 @@ config wizard names them (``vector_store.persist_dir`` ->
 and all of them, and ``get_config()`` caches that once per process
 (``get_config.cache_clear()`` drops it). A section's ``UNSERVED`` fields
 are the JAX ones the port does not serve: away from their JAX default they
-raise, naming the ROADMAP item that will serve them. The port reads no
-config file (``APP_CONFIG_FILE``).
+raise, naming the ROADMAP item that will serve them.
+
+As in the JAX package, ``get_config()`` first reads the JSON or YAML file
+that ``APP_CONFIG_FILE`` names, where it exists, then applies the
+``APP_*`` environment on top (``AppConfig.from_file``, ``from_dict``;
+config_wizard.py): a value from the file passes the same checks as the
+same value from the environment.
 """
 from __future__ import annotations
 
@@ -35,6 +40,8 @@ import logging
 import os
 import tempfile
 from typing import Mapping, Optional
+
+from generativeaiexamples_tpu_torch import config_wizard
 
 logger = logging.getLogger(__name__)
 
@@ -507,7 +514,12 @@ class BatchingConfig:
 class VectorStoreConfig:
     """The JAX config's ``vector_store`` section (``APP_VECTORSTORE_*``)."""
 
+    # tpu|memory (the in-process store; on the card in the port),
+    # faiss|native|ivf (the C++ index on the host), milvus, pgvector
     name: str = "tpu"
+    # the milvus or pgvector server (http://milvus:19530, pgvector:5432);
+    # unused by the in-process stores
+    url: str = ""
     nlist: int = 64
     nprobe: int = 16
     persist_dir: str = "/tmp-data/vectorstore"
@@ -643,10 +655,7 @@ class AppConfig:
 
     @classmethod
     def from_env(cls, environ: Optional[Mapping[str, str]] = None) -> "AppConfig":
-        env = os.environ if environ is None else environ
-        if env.get("APP_CONFIG_FILE"):
-            raise ValueError("APP_CONFIG_FILE: the port reads its configuration from the "
-                             "APP_* environment only, not from a file")
+        """Every section from the ``APP_*`` environment alone."""
         return cls(
             engine=EngineConfig.from_env(environ),
             llm=LLMConfig.from_env(environ),
@@ -664,9 +673,65 @@ class AppConfig:
             router=RouterConfig.from_env(environ),
         )
 
+    @classmethod
+    def sections(cls) -> list:
+        """Each section's name and :func:`config_wizard.section_fields`
+        rows: the fields the port serves, then the JAX fields it refuses
+        away from their defaults."""
+        out = []
+        for f in dataclasses.fields(cls):
+            section = f.default_factory
+            if section is EngineConfig:
+                unserved = {name: (default, reason)
+                            for name, (default, reason, _) in JAX_ONLY_FIELDS.items()}
+            else:
+                unserved = getattr(section, "UNSERVED", {})
+            out.append((f.name, config_wizard.section_fields(section, unserved)))
+        return out
+
+    @classmethod
+    def from_dict(cls, data: Optional[Mapping], environ: Optional[Mapping[str, str]] = None
+                  ) -> "AppConfig":
+        """The configuration a (nested, camelCase) mapping sets, with the
+        ``APP_*`` environment applied on top."""
+        env = os.environ if environ is None else environ
+        return cls.from_env({**config_wizard.file_environ(cls.sections(), data or {}), **env})
+
+    @classmethod
+    def from_file(cls, filepath: str, environ: Optional[Mapping[str, str]] = None
+                  ) -> Optional["AppConfig"]:
+        """The configuration a JSON or YAML file sets, the environment on
+        top; None when the file cannot be read or holds no mapping."""
+        try:
+            with open(filepath, "r", encoding="utf-8") as fh:
+                data = config_wizard.read_json_or_yaml(fh.read())
+        except OSError:
+            return None
+        if data is None:
+            return None
+        return cls.from_dict(data, environ)
+
+    @classmethod
+    def print_help(cls, help_printer) -> None:
+        """The schema with its ``APP_*`` names, types and defaults."""
+        config_wizard.print_help(cls.sections(), help_printer)
+
+
+def load_config(environ: Optional[Mapping[str, str]] = None) -> AppConfig:
+    """The file ``APP_CONFIG_FILE`` names, where it exists, with the
+    environment on top; the environment alone otherwise."""
+    env = os.environ if environ is None else environ
+    config_file = env.get("APP_CONFIG_FILE", "")
+    config = None
+    if config_file and os.path.exists(config_file):
+        config = AppConfig.from_file(config_file, environ)
+    if config is None:
+        config = AppConfig.from_env(environ)
+    return config
+
 
 @functools.lru_cache(maxsize=1)
 def get_config() -> AppConfig:
-    """The process configuration, ``AppConfig.from_env()`` read once;
+    """The process configuration, :func:`load_config` read once;
     ``get_config.cache_clear()`` makes the next call read it again."""
-    return AppConfig.from_env()
+    return load_config()

@@ -427,12 +427,12 @@ _EMBEDDER_CACHE_LOCK = threading.Lock()
 
 def create_embedder(config=None, device=None):
     """The embedder ``config.embeddings`` names (``config=None`` reads the
-    ``APP_*`` environment, ``config.AppConfig.from_env``), built once per
+    configuration file and the ``APP_*`` environment, ``config.load_config``), built once per
     (engine, server_url, model_name, device). The in-process encoder runs
     on the card unless ``device="cpu"``."""
-    from generativeaiexamples_tpu_torch.config import AppConfig
+    from generativeaiexamples_tpu_torch.config import load_config
 
-    config = config or AppConfig.from_env()
+    config = config or load_config()
     emb = config.embeddings
     key = (emb.model_engine, emb.server_url, emb.model_name, str(device))
     with _EMBEDDER_CACHE_LOCK:

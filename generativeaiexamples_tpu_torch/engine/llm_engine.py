@@ -147,6 +147,7 @@ from generativeaiexamples_tpu_torch.engine import dispatch_timeline as dispatch_
 from generativeaiexamples_tpu_torch.engine import kv_pages, prefix_cache
 from generativeaiexamples_tpu_torch.engine import telemetry as telemetry_mod
 from generativeaiexamples_tpu_torch.engine import request_snapshot as request_snapshot_mod
+from generativeaiexamples_tpu_torch.utils import provenance as provenance_mod
 from generativeaiexamples_tpu_torch.engine import spec_decode as spec_decode_mod
 from generativeaiexamples_tpu_torch.engine.scheduler import handoff as handoff_mod
 from generativeaiexamples_tpu_torch.engine.scheduler.base import build_policy
@@ -583,7 +584,7 @@ class LLMEngine:
         self._restore_q: "queue.Queue[tuple]" = queue.Queue()
         self._spool = request_snapshot_mod.SnapshotSpool(
             cfg.snapshot_spool_dir, cfg.snapshot_spool_max,
-            fingerprint=request_snapshot_mod.config_fingerprint(cfg),
+            fingerprint=provenance_mod.config_fingerprint(cfg),
         )
         # admission and wave formation (engine/scheduler/)
         self.scheduler = build_policy(cfg, self)
@@ -2779,11 +2780,16 @@ _ENGINE: Optional[LLMEngine] = None  # guarded by _ENGINE_LOCK
 def get_engine(config: Optional[EngineConfig] = None, device=None) -> LLMEngine:
     """Process-wide engine singleton, on the card unless ``device`` says
     otherwise (weights live once there); ``config=None`` reads the
-    ``APP_ENGINE_*`` environment (``EngineConfig.from_env``)."""
+    configuration file and the ``APP_ENGINE_*`` environment
+    (``config.load_config``), as JAX's reads ``get_config().engine``."""
     global _ENGINE
     with _ENGINE_LOCK:
         if _ENGINE is None:
-            _ENGINE = LLMEngine(config or EngineConfig.from_env(), device=device)
+            if config is None:
+                from generativeaiexamples_tpu_torch.config import load_config
+
+                config = load_config().engine
+            _ENGINE = LLMEngine(config, device=device)
         return _ENGINE
 
 

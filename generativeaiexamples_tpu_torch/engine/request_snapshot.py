@@ -20,7 +20,8 @@ package decodes the other's documents bitwise; the port decodes to CPU
 tensors (bf16 included: numpy has no bf16, torch has).
 
 Snapshots spool to a bounded directory (oldest first out), each stamped
-with the git revision that wrote it and the engine config's fingerprint;
+with the git revision that wrote it and the engine config's fingerprint
+(utils/provenance.py);
 restore refuses a fingerprint or a KV geometry that differs from the
 engine's. The counters are JAX's families (``genai_engine_preempted_total``,
 ``_restored_total``, ``_restore_seconds``, ``_snapshot_bytes_total``);
@@ -31,14 +32,10 @@ from __future__ import annotations
 import base64
 import collections
 import dataclasses
-import functools
-import hashlib
 import json
 import logging
 import os
-import pathlib
 import secrets
-import subprocess
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -46,6 +43,7 @@ import numpy as np
 import torch
 
 from generativeaiexamples_tpu_torch.utils import metrics as metrics_mod
+from generativeaiexamples_tpu_torch.utils import provenance
 
 logger = logging.getLogger(__name__)
 
@@ -104,61 +102,6 @@ class SnapshotError(RuntimeError):
 class SnapshotMismatch(SnapshotError):
     """The snapshot's config fingerprint or KV geometry does not match
     the engine asked to restore it (HTTP 409)."""
-
-
-# --------------------------------------------------------------------------- #
-# Provenance: the two stamps of a document and the config fingerprint (a
-# trimmed copy of the JAX package's utils/provenance.py)
-
-_REPO_ROOT = pathlib.Path(__file__).resolve().parent.parent.parent
-
-
-def _git(*args: str) -> Optional[str]:
-    try:
-        out = subprocess.run(["git", *args], cwd=str(_REPO_ROOT), capture_output=True,
-                             text=True, timeout=10)
-    except (OSError, subprocess.TimeoutExpired):
-        return None
-    return out.stdout.strip() if out.returncode == 0 else None
-
-
-@functools.lru_cache(maxsize=1)
-def git_sha() -> Optional[str]:
-    """HEAD's commit, or None outside a git checkout (``GENAI_GIT_SHA``
-    overrides)."""
-    return os.environ.get("GENAI_GIT_SHA") or _git("rev-parse", "HEAD") or None
-
-
-@functools.lru_cache(maxsize=1)
-def git_dirty() -> Optional[bool]:
-    """Whether the tree differs from HEAD, None without git
-    (``GENAI_GIT_DIRTY`` overrides)."""
-    env = os.environ.get("GENAI_GIT_DIRTY")
-    if env is not None:
-        return env.lower() not in ("0", "false", "no", "")
-    status = _git("status", "--porcelain")
-    return None if status is None else bool(status)
-
-
-def config_fingerprint(config: Any) -> Optional[str]:
-    """Stable 12-hex digest of a configuration: dataclasses and dicts hash
-    by sorted keys, unknown leaves by repr."""
-    if config is None:
-        return None
-
-    def norm(obj: Any) -> Any:
-        if hasattr(obj, "__dataclass_fields__"):
-            return {name: norm(getattr(obj, name)) for name in sorted(obj.__dataclass_fields__)}
-        if isinstance(obj, dict):
-            return {str(k): norm(v) for k, v in sorted(obj.items(), key=lambda kv: str(kv[0]))}
-        if isinstance(obj, (list, tuple)):
-            return [norm(v) for v in obj]
-        if isinstance(obj, (str, int, float, bool)) or obj is None:
-            return obj
-        return repr(obj)
-
-    blob = json.dumps(norm(config), sort_keys=True, separators=(",", ":"))
-    return hashlib.sha256(blob.encode("utf-8")).hexdigest()[:12]
 
 
 # --------------------------------------------------------------------------- #
@@ -254,7 +197,10 @@ class RequestSnapshot:
             "kv": self.kv,
             "config_fingerprint": self.config_fingerprint,
             "created_at": self.created_at,
-            "provenance": {"git_sha": git_sha(), "git_dirty": git_dirty()},
+            "provenance": {
+                "git_sha": provenance.git_sha(),
+                "git_dirty": provenance.git_dirty(),
+            },
         }
 
     @classmethod

@@ -221,9 +221,9 @@ _RERANKER_CACHE_LOCK = threading.Lock()
 def create_reranker(config=None, device=None):
     """The reranker ``config.ranking`` names, or None when reranking is
     disabled; built once per (engine, server_url, model_name, device)."""
-    from generativeaiexamples_tpu_torch.config import AppConfig
+    from generativeaiexamples_tpu_torch.config import load_config
 
-    config = config or AppConfig.from_env()
+    config = config or load_config()
     ranking = config.ranking
     engine = (ranking.model_engine or "").lower()
     if not engine or engine in ("none", "disabled"):

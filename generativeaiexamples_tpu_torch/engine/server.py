@@ -49,7 +49,7 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional
 
-from generativeaiexamples_tpu_torch.config import AppConfig
+from generativeaiexamples_tpu_torch.config import load_config
 from generativeaiexamples_tpu_torch.engine.llm_engine import engine_wedged
 from generativeaiexamples_tpu_torch.server import observability
 from generativeaiexamples_tpu_torch.utils.resilience import EngineOverloaded, RequestPreempted
@@ -440,10 +440,11 @@ def make_server(host: str = "127.0.0.1", port: int = 8000, engine=None,
 
 
 def main() -> None:
-    """Serve on the card the engine and the embedder that the ``APP_*``
-    environment configures, as the JAX engine server reads it
-    (``AppConfig.from_env``; e.g. ``APP_ENGINE_QUANTIZATION=int8
-    APP_ENGINE_KVCACHEDTYPE=int8``, ``APP_EMBEDDINGS_MODELENGINE=hash``).
+    """Serve on the card the engine and the embedder that the
+    configuration file (``APP_CONFIG_FILE``) and the ``APP_*`` environment
+    configure, as the JAX engine server reads them (``load_config``;
+    e.g. ``APP_ENGINE_QUANTIZATION=int8 APP_ENGINE_KVCACHEDTYPE=int8``,
+    ``APP_EMBEDDINGS_MODELENGINE=hash``).
     Weights are random (seed 0) until checkpoints ship."""
     from generativeaiexamples_tpu_torch import config_validate
     from generativeaiexamples_tpu_torch.engine.batcher import validate_config
@@ -457,7 +458,7 @@ def main() -> None:
     from generativeaiexamples_tpu_torch.utils.logging import configure_root
 
     configure_root()
-    config = AppConfig.from_env()
+    config = load_config()
     config.engine.validate()
     validate_config(config)
     config_validate.validate_observability(config)

@@ -3,21 +3,25 @@
 Counterpart of generativeaiexamples_tpu/retrieval/store.py: one small
 typed interface with the operations the chains use (ingest chunks,
 similarity search with scores, list source documents, delete by source).
-``create_vector_store`` serves the JAX package's in-process names (``tpu``,
-``memory``) with ``TorchVectorStore``; the other backends raise, naming
-the ROADMAP item that will serve them. The store families (search and
-ingest time by backend, chunks by backend and collection) are JAX's,
-shared by every backend and the BM25 sidecar.
+``create_vector_store`` serves every name of the JAX package's factory:
+``TorchVectorStore`` (in-process, on the card), ``NativeVectorStore`` (the
+C++ index on the host), ``MilvusVectorStore`` and ``PgVectorStore``. The
+store families (search and ingest time by backend, chunks by backend and
+collection) are JAX's, shared by every backend and the BM25 sidecar.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 from abc import ABC, abstractmethod
 from typing import Dict, List, Sequence
 
 import numpy as np
 
 from generativeaiexamples_tpu_torch.utils import metrics as metrics_mod
+
+logger = logging.getLogger(__name__)
+_FALLBACK_LOGGED = False  # the native index's fallback is logged once a process
 
 _REG = metrics_mod.get_registry()
 STORE_SEARCH_SECONDS = _REG.histogram(
@@ -80,23 +84,46 @@ class VectorStore(ABC):
         """Flush to durable storage."""
 
 
-def create_vector_store(name: str, dimensions: int, persist_dir: str = "",
+def create_vector_store(name: str, dimensions: int, persist_dir: str = "", url: str = "",
                         collection: str = "default", device=None, **ann_opts) -> VectorStore:
-    """The store a vector-store name selects (the JAX package's names).
-    ``ann_opts`` (ann_mode, ann_capacity, ann_max_batch, nlist, nprobe)
-    configure the in-process store's search engine; its corpus lives on
-    the card unless ``device="cpu"``."""
+    """The store a vector-store name selects, with the JAX package's
+    dispatch and messages: ``tpu``/``memory`` the in-process store (on the
+    card unless ``device="cpu"``; ``ann_opts``: ann_mode, ann_capacity,
+    ann_max_batch, nlist, nprobe), ``faiss``/``native`` (flat) and ``ivf``
+    (nlist 64) the C++ index on the host, ``milvus`` and ``pgvector`` the
+    clients of those servers at ``url``. ``ann_opts`` and ``device`` are
+    dropped for the other backends. Where the C++ index does not build,
+    ``faiss``/``native``/``ivf`` serve the in-process store, as JAX's
+    factory does, and the fallback is logged once with the build's error."""
+    global _FALLBACK_LOGGED
     name = (name or "tpu").lower()
+    if name in ("faiss", "native", "ivf"):
+        from generativeaiexamples_tpu_torch.retrieval import native_index
+
+        if native_index.available():
+            from generativeaiexamples_tpu_torch.retrieval.native_store import NativeVectorStore
+
+            return NativeVectorStore(
+                dimensions, persist_dir=persist_dir, collection=collection,
+                nlist=0 if name != "ivf" else 64,
+            )
+        if not _FALLBACK_LOGGED:
+            _FALLBACK_LOGGED = True
+            logger.warning("vector store %r: the native index is unavailable (%s); serving the "
+                           "in-process store instead", name, native_index.unavailable_reason())
+        name = "tpu"
     if name in ("tpu", "memory"):
         from generativeaiexamples_tpu_torch.retrieval.torch_store import TorchVectorStore
 
         return TorchVectorStore(
             dimensions, persist_dir=persist_dir, collection=collection, device=device, **ann_opts,
         )
-    if name in ("faiss", "native", "ivf", "milvus", "pgvector"):
-        raise ValueError(
-            f"vector store {name!r} is not served by the port: the native index and the "
-            "milvus/pgvector connectors arrive with the rest of the package (ROADMAP queue 1 "
-            "item 13); 'tpu' (or 'memory') is the in-process store on the card"
-        )
+    if name == "milvus":
+        from generativeaiexamples_tpu_torch.retrieval.milvus_store import MilvusVectorStore
+
+        return MilvusVectorStore(dimensions, url=url, collection=collection)
+    if name == "pgvector":
+        from generativeaiexamples_tpu_torch.retrieval.pgvector_store import PgVectorStore
+
+        return PgVectorStore(dimensions, url=url, collection=collection)
     raise ValueError(f"Unknown vector store {name!r} (tpu|faiss|milvus|pgvector)")

@@ -2,9 +2,8 @@
 moment an incident actually happens.
 
 Counterpart of generativeaiexamples_tpu/utils/blackbox.py: the same
-triggers, rate limit, bundle layout and views. Its provenance stamps are
-the ones engine/request_snapshot.py copied from JAX's
-utils/provenance.py, and its log tail is utils/logging.py's ring, as
+triggers, rate limit, bundle layout and views. Its provenance stamps come
+from utils/provenance.py, and its log tail is utils/logging.py's ring, as
 JAX's. Bundles embed the port's dispatch-timeline window and flight
 records.
 
@@ -193,7 +192,7 @@ def configure(
 def configure_from_config(cfg) -> None:
     """Wire the ``blackbox`` config section into the module knobs (all
     three processes call this at startup)."""
-    from generativeaiexamples_tpu_torch.engine import request_snapshot as provenance_mod
+    from generativeaiexamples_tpu_torch.utils import provenance as provenance_mod
 
     b = cfg.blackbox if hasattr(cfg, "blackbox") else cfg
     configure(
@@ -362,7 +361,7 @@ def drain(timeout_s: float = 10.0) -> None:
 
 
 def _snapshot(trigger: str, detail: Dict[str, Any]) -> Dict[str, Any]:
-    from generativeaiexamples_tpu_torch.engine import request_snapshot as provenance_mod
+    from generativeaiexamples_tpu_torch.utils import provenance as provenance_mod
     from generativeaiexamples_tpu_torch.utils import flight_recorder
     from generativeaiexamples_tpu_torch.utils import slo as slo_mod
 

@@ -21,6 +21,7 @@ config sections) against the JAX package's on the CPU:
 - a deleted source gone from the store and BM25 in both, and an over-long
   RAG prompt cut by the port's engine to what the JAX engine keeps.
 """
+import json
 import os
 import re
 import threading
@@ -548,11 +549,19 @@ def test_config_reads_the_jax_environment_names():
     ({"APP_TEXTSPLITTER_MODELNAME": "bert-base"}, "counts whitespace words"),
     ({"APP_EMBEDDINGS_CHECKPOINTPATH": "/w"}, "item 10"),
     ({"APP_RANKING_CHECKPOINTPATH": "/w"}, "item 10"),
-    ({"APP_CONFIG_FILE": "/some/app.yaml"}, "APP_CONFIG_FILE"),
+    # a file that APP_CONFIG_FILE names is read now: an unserved value set
+    # there is refused as the same value from the environment is
+    pytest.param({"APP_CONFIG_FILE": {"retriever": {"nrUrl": "http://nr:8000"}}},
+                 "APP_RETRIEVER_NRURL=http://nr:8000: no external retriever service",
+                 id="env4-APP_CONFIG_FILE"),
 ])
-def test_config_refuses_what_the_port_does_not_serve(env, item):
+def test_config_refuses_what_the_port_does_not_serve(env, item, tmp_path):
+    if isinstance(env.get("APP_CONFIG_FILE"), dict):
+        path = tmp_path / "app.json"
+        path.write_text(json.dumps(env["APP_CONFIG_FILE"]))
+        env = dict(env, APP_CONFIG_FILE=str(path))
     with pytest.raises(ValueError, match=item):
-        tconfig.AppConfig.from_env(env)
+        tconfig.load_config(env)
 
 
 @pytest.mark.parametrize("env,section,field,value", [

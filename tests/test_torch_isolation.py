@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of generativeaiexamples_tpu_torch
 and neither chip_smoke.py nor kernel_sweep.py imports jax or the JAX package
-(generativeaiexamples_tpu), nor aiohttp, pydantic, bleach or requests,
+(generativeaiexamples_tpu), nor the root ``integrations`` package (its
+adapters import the JAX package), nor aiohttp, pydantic, bleach or requests,
 which the GPU machine lacks; checked two ways: by importing every port
 module in a fresh interpreter and reading sys.modules, and by scanning the
 port's sources for import statements. Names match exactly or up to a dot
@@ -15,7 +16,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "generativeaiexamples_tpu_torch"
-FORBIDDEN = ("jax", "generativeaiexamples_tpu", "aiohttp", "pydantic", "bleach", "requests")
+FORBIDDEN = ("jax", "generativeaiexamples_tpu", "integrations", "aiohttp", "pydantic", "bleach",
+             "requests")
 
 
 def _forbidden(module: str) -> bool:
@@ -47,12 +49,29 @@ def test_name_matching_is_exact_or_dotted():
     assert _forbidden("requests") and not _forbidden("requests_toolbelt_like")
 
 
+@pytest.mark.parametrize("module,forbidden", [
+    ("integrations", True),
+    ("integrations.langchain_tpu", True),
+    ("integrations.llamaindex_tpu", True),
+    ("integrations.pandasai_tpu", True),
+    ("generativeaiexamples_tpu_torch.integrations", False),
+    ("generativeaiexamples_tpu_torch.integrations.langchain", False),
+    ("generativeaiexamples_tpu_torch.integrations.llamaindex", False),
+    ("generativeaiexamples_tpu_torch.integrations.pandasai", False),
+    ("integrations_like", False),
+])
+def test_the_root_integrations_package_is_forbidden_and_the_port_s_is_not(module, forbidden):
+    assert _forbidden(module) is forbidden
+
+
 def test_importing_every_port_module_loads_neither_jax_nor_the_jax_package():
     mods = _port_modules() + ["chip_smoke", "kernel_sweep"]
     assert "generativeaiexamples_tpu_torch.engine.llm_engine" in mods
     assert "generativeaiexamples_tpu_torch.ops.decode_attention" in mods
     assert "generativeaiexamples_tpu_torch.server.api" in mods
     assert "generativeaiexamples_tpu_torch.chains.developer_rag" in mods
+    assert "generativeaiexamples_tpu_torch.integrations.llamaindex" in mods
+    assert "generativeaiexamples_tpu_torch.retrieval.native_store" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"

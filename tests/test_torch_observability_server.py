@@ -35,8 +35,10 @@ import pytest
 from aiohttp import web
 
 from generativeaiexamples_tpu.server import observability as jobs
+from generativeaiexamples_tpu.utils import blackbox as jbb
 from generativeaiexamples_tpu.utils import flight_recorder as jfr
 from generativeaiexamples_tpu_torch.server import observability as tobs
+from generativeaiexamples_tpu_torch.utils import blackbox as tbb
 from generativeaiexamples_tpu_torch.utils import flight_recorder as tfr
 from tests.test_torch_chain_server import (  # noqa: F401 - app_env is a fixture
     JAX,
@@ -60,6 +62,12 @@ def _reset():
         mod.reset()
     yield
     for mod in (jfr, tfr):
+        mod.reset()
+    # the servers' configure_from_config armed both black boxes: disarm them
+    # and join their capture workers, so that no capture runs on into a
+    # later test in this process
+    for mod in (jbb, tbb):
+        mod.drain()
         mod.reset()
 
 

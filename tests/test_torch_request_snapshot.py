@@ -24,6 +24,7 @@ from generativeaiexamples_tpu.engine import request_snapshot as jsnap
 from generativeaiexamples_tpu.utils import provenance as jprov
 from generativeaiexamples_tpu_torch.config import EngineConfig
 from generativeaiexamples_tpu_torch.engine import request_snapshot as tsnap
+from generativeaiexamples_tpu_torch.utils import provenance as tprov
 
 PAGES, PAGE, HKV, DH, LAYERS = 3, 8, 2, 16, 2
 
@@ -155,9 +156,9 @@ def test_geometry_refusals_are_jax_s(snap_kv, engine_kv, page, legacy):
 
 def test_fingerprint_refusal_and_the_fingerprint_function(tmp_path):
     cfg = EngineConfig(model_config_name="debug")
-    fp = tsnap.config_fingerprint(cfg)
+    fp = tprov.config_fingerprint(cfg)
     assert fp == jprov.config_fingerprint(cfg) and len(fp) == 12
-    assert tsnap.config_fingerprint(EngineConfig(model_config_name="debug",
+    assert tprov.config_fingerprint(EngineConfig(model_config_name="debug",
                                                  kv_cache_dtype="int8")) != fp
     spool = tsnap.SnapshotSpool(str(tmp_path), fingerprint=fp)
     snap = tsnap.RequestSnapshot(snapshot_id="s", rid=1, prompt_ids=[1], emitted=[], position=0,

@@ -505,7 +505,7 @@ RETRIEVAL_SECTIONS = {
                                   "fetch_factor"]),
     "batching": ("BatchingConfig", ["enable", "max_wait_ms", "max_batch_embed", "max_batch_rerank",
                                     "ingest_decode_yield_ms"]),
-    "vector_store": ("VectorStoreConfig", ["name", "nlist", "nprobe", "persist_dir"]),
+    "vector_store": ("VectorStoreConfig", ["name", "url", "nlist", "nprobe", "persist_dir"]),
 }
 
 

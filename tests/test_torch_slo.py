@@ -5,12 +5,29 @@ readings give equal evaluations (p95s, attainments, rates, burn state
 ``met``/``all_met``) and gauge values, before and after the window slides;
 the config checks refuse the same values with the same messages; and
 ``slo.enable=off`` disables every objective in both. Exact comparisons: no
-tolerance applies. Both black boxes stay disarmed (their module default)."""
+tolerance applies. Both black boxes are disarmed around every case, and
+their capture workers joined: a box that another test file in the same
+process left armed fires ``slo_breach`` captures on this file's breach
+streaks, and a capture evaluates the SLOs and writes the ``genai_slo_*``
+gauges that the cases read."""
 import numpy as np
 import pytest
 
+from generativeaiexamples_tpu.utils import blackbox as jbb
 from generativeaiexamples_tpu.utils import slo as jslo
+from generativeaiexamples_tpu_torch.utils import blackbox as tbb
 from generativeaiexamples_tpu_torch.utils import slo as tslo
+
+
+@pytest.fixture(autouse=True)
+def _disarmed_black_boxes():
+    for mod in (jbb, tbb):
+        mod.drain()
+        mod.reset()
+    yield
+    for mod in (jbb, tbb):
+        mod.drain()
+        mod.reset()
 
 
 def _drive(mod, seed, monkeypatch):
