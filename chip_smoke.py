@@ -18,7 +18,15 @@ Phases (each one's failure makes the script exit non-zero):
    slot),
    flash_attention_causal at (2, 512) and (2, 300), decode_attention over
    the fixed layout's int8 cache (ragged, uniform, short and split-edge
-   slots); then ``sample_tokens`` (no kernel of the port) at 8 and 72
+   slots); each kernel again on the local tiles of phase 16's shards
+   (``--checks tp``): int8_matmul and int8_w8a8_matmul at M = 8 on
+   llama3-8b TP=2's column and row tiles (wq 4096->2048, wk/wv 4096->512,
+   wo 2048->4096, w_gate/w_up 4096->7168, w_down 7168->4096, lm_head
+   4096->64128), int8_matmul on llama3-70b TP=8's (wq 8192->1024, w_gate
+   8192->3584, w_down 3584->8192), paged_attention at 16/4 and 8/1 heads
+   on all three pools, decode_attention at 16/4 and flash at 16/4 (T =
+   512), each timed with its plain version, a library call and its bound;
+   then ``sample_tokens`` (no kernel of the port) at 8 and 72
    seeded nucleus rows x 128,256, timed with each way of ranking the
    nucleus, the int64-key top-k's order held to a stable sort's;
 4. model level at full llama3-8b width and depth (int8 packs, random from
@@ -297,7 +305,7 @@ Phases (each one's failure makes the script exit non-zero):
    deployment (the ``faiss`` store under a temporary ``persistDir``, the
    hybrid pipeline, ``topK`` 2) named by ``APP_CONFIG_FILE``, with
    ``APP_RETRIEVER_TOPK=3`` on top: ``get_config()`` holds the file's
-   values and ``topK`` 3; ``engine.tensorParallelism`` 2 from a file is
+   values and ``topK`` 3; ``engine.pipelineParallelism`` 2 from a file is
    refused with the message the same value from the environment gets.
    (b) The sentences of phase 7's documents embedded on the card go into
    ``faiss`` (flat), ``ivf`` and the in-process ``tpu`` store: for 32
@@ -323,10 +331,38 @@ Phases (each one's failure makes the script exit non-zero):
    ms a query for flat, ivf and tpu, and the phase wall (a budget of 120
    s). Every process it started is gone when it ends.
 
+16. tp: tensor-parallel serving, every shard on this card
+   (``create_mesh(N, devices=[cuda:0] * N)``: each kernel at its per-GPU
+   shape of the deployment, and the real f32 reduce). Random int8 packs at
+   seed 0, drawn once as a single-device tree, which each TP engine lays
+   out per shard and cuts, so both engines compute one function. (a)
+   llama3-8b at full width: recipes A and D at full depth and B and C at
+   4 of 32 layers, each at TP=1 and TP=2 (``max_seq_len`` 2048), 8 greedy
+   prompts of 100-1,200 ids admitted as one wave x 32 tokens: TP=2's
+   streams equal TP=1's, or part at a token whose TP=1 top-1 margin is
+   within ``LOGITS_TOL``; every kernel of the recipe launched at TP=2 (each
+   shard's launches count); no synchronizing call on the dispatch thread.
+   (b) llama3-70b at full width, recipe A at 4 of its 80 layers, TP=8
+   against TP=1, 4 prompts, the same checks. (c) the OpenAI-compatible
+   engine server in process over the TP=2 recipe-A engine of
+   ``create_mesh(2, devices=[cuda:0, cuda:0])`` answers 3 greedy chat
+   completions; where the machine shows two cards, a server process
+   started with ``APP_ENGINE_TENSORPARALLELISM=2``, its shards on two
+   cards, must answer them with the same texts; the phase prints which
+   ran. Each leg's largest logits difference between TP=N and TP=1, over
+   the prefills of its shortest and its longest prompt, must stay within
+   its limit (``TP_LOGITS_LIMITS``). It prints per leg the peak memory
+   allocated on the card, the wall of a decode block at TP=N against
+   TP=1, that logits difference, the ties and the launches, and the
+   phase wall (a budget of 120 s). Phases 1-15 pin
+   ``tensor_parallelism=1``, so that what they measure cannot change if
+   the default ever takes more cards.
+
 With no arguments it runs every phase, as above; ``--phases``,
 ``--checks`` and ``--recipes`` run a part (for example ``--phases serve
 --recipes B``, ``--phases chains``, ``--phases filechains``, ``--phases
-drain``, ``--phases observe``, ``--phases route`` or ``--phases connect``)
+drain``, ``--phases observe``, ``--phases route``, ``--phases connect`` or
+``--phases kernels,tp --checks tp``)
 and then print only the kernels that part measured; ``--runahead N`` serves every engine at ``decode_runahead`` N, and
 ``--timing-only`` leaves out the runahead and overload checks (for timed
 runs of an older tree, which lacks them).
@@ -970,8 +1006,170 @@ def check_decode(timer, dev, gen, results) -> None:
     }
 
 
+# the shards' local tiles of llama3-8b at TP=2 and llama3-70b at TP=8 (the
+# serving path of phase 16): name -> (K, F) of each projection a shard
+TP_TILES_8B = {"wq": (4096, 2048), "wk/wv": (4096, 512), "wo": (2048, 4096),
+               "w_gate/w_up": (4096, 7168), "w_down": (7168, 4096), "lm_head": (4096, 64128)}
+TP_TILES_70B = {"wq": (8192, 1024), "w_gate": (8192, 3584), "w_down": (3584, 8192)}
+# attention heads a shard: (Hq, Hkv) of llama3-8b at TP=2 and llama3-70b at TP=8
+TP_HEADS = {"8b_tp2": (16, 4), "70b_tp8": (8, 1)}
+
+
+def _tile_row(timer, kernel, plain, library, args, cost, int8_ops=False) -> dict:
+    """One local tile timed: the kernel, its plain version and a library
+    call, with its bound."""
+    k_ms = timer.ms(lambda: kernel(*args))
+    p_ms = timer.ms(lambda: plain(*args), iters=3)
+    l_ms = timer.ms(library)
+    b_ms, b_by = hardware.bound_ms(*cost, int8=int8_ops)
+    return {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def check_tp(timer, dev, gen, results) -> None:
+    """Each kernel on the local tiles a shard runs under tensor parallelism
+    (phase 16), against its plain version: int8_matmul and
+    int8_w8a8_matmul at M = 8 on llama3-8b TP=2's column and row tiles,
+    int8_matmul on llama3-70b TP=8's, paged_attention at 16/4 and 8/1
+    heads on all three pools (B=8 ragged rows), decode_attention at 16/4
+    heads (B=8, S=8192) and flash at 16/4 heads (B=2, T=512); each timed
+    with its plain version, a library call and its bound."""
+    from generativeaiexamples_tpu_torch.models.llama import quantize_kv, quantize_kv_int4, unpack_int4
+
+    tiles = results.setdefault("tp_tiles", {})
+    M = 8
+    for model, shapes in (("8b_tp2", TP_TILES_8B), ("70b_tp8", TP_TILES_70B)):
+        for name, (K, F) in shapes.items():
+            K_pad, F_pad = -(-K // im.K_ALIGN) * im.K_ALIGN, -(-F // im.F_BLK) * im.F_BLK
+            q = torch.zeros((K_pad, F_pad), dtype=torch.int8, device=dev)
+            q[:K, :F].random_(-127, 128, generator=gen)
+            scale = torch.rand((1, F), generator=gen, device=dev) * 2e-4 + 1e-4
+            x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+            w = (q[:K, :F].float() * scale).to(torch.bfloat16)
+            kernels = [("int8_matmul", im.int8_matmul, im.int8_matmul_plain)]
+            if model == "8b_tp2":
+                kernels.append(("int8_w8a8_matmul", im.int8_w8a8_matmul, im.int8_w8a8_matmul_plain))
+            for kname, kernel, plain in kernels:
+                y, ref = kernel(x, q, scale), plain(x, q, scale)
+                torch.cuda.synchronize()
+                err = _max_err(y, ref)
+                if kname == "int8_matmul":
+                    tol = 1e-2 * float(ref.float().abs().max())
+                    ok, cost = err <= tol, hardware.int8_matmul_cost(M, K, F)
+                    library = lambda: torch.matmul(x, w)  # noqa: E731
+                else:
+                    tol, ok = 0.0, torch.equal(y, ref)
+                    cost = hardware.w8a8_matmul_cost(M, K, F)
+                    xq = torch.zeros((17, K_pad), dtype=torch.int8, device=dev)
+                    xq[:M, :K] = im.quantize_rows(x)[0]
+                    library = lambda: torch._int_mm(xq, q)  # noqa: E731
+                row = _tile_row(timer, kernel, plain, library, (x, q, scale), cost,
+                                int8_ops=kname != "int8_matmul")
+                row["max_abs_err"] = err
+                log(f"  {kname} {model} tile {name:11s} M={M} K={K} F={F}: max|err|={err:.4g} "
+                    f"tol={tol:.4g} kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                    f"library_ms={row['library_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+                    f"({row['bound_by']}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{kname} {model} tile {name} disagrees with its plain version")
+                tiles.setdefault(kname, {})[f"{model}_{name}_M{M}"] = row
+            del q, w
+    # attention on a shard's heads
+    B, page, Pmax, Dh = 8, 128, 64, 128
+    S = Pmax * page
+    positions = [0, 50, S - 1] + [int(p) for p in torch.randint(200, 1200, (B - 3,), generator=gen,
+                                                                  device=dev)]
+    for model, (Hq, Hkv) in TP_HEADS.items():
+        k, v, tables, pos = _paged_case(gen, dev, positions, Pmax, page, Hkv, Dh)
+        q = torch.randn((B, 1, Hq, Dh), generator=gen, device=dev).to(torch.bfloat16)
+        mask = (torch.arange(S, device=dev)[None, :] <= pos.long()[:, None])[:, None, None, :]
+        for kv_dtype in pa.KV_DTYPES:
+            codec = {"int8": quantize_kv, "int4": quantize_kv_int4}.get(kv_dtype)
+            if codec is None:
+                pool, scales, dense = (k, v), (None, None), (k, v)
+            else:
+                (kq, ks), (vq, vs) = codec(k), codec(v)
+                pool, scales = (kq, vq), (ks, vs)
+                ints = [unpack_int4(t) if t.dtype == torch.uint8 else t for t in pool]
+                dense = tuple((i.float() * sc[..., None]).to(torch.bfloat16) for i, sc in zip(ints, scales))
+            args = (q, *pool, tables, pos, *scales)
+            out, ref = pa.paged_attention(*args), pa.paged_attention_plain(*args)
+            torch.cuda.synchronize()
+            err, rel = _max_err(out, ref), _per_row_rel_err(out, ref)
+            ok = err <= 1e-2 and rel <= 0.05 and bool(torch.isfinite(out.float()).all())
+            gk, gv = (t[tables.long()].reshape(B, S, Hkv, Dh).transpose(1, 2).contiguous() for t in dense)
+            qt = q.transpose(1, 2)
+            row = _tile_row(
+                timer, pa.paged_attention, pa.paged_attention_plain,
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, gk, gv, attn_mask=mask, enable_gqa=True),
+                args, hardware.paged_attention_cost(
+                    [[p] for p in positions], Hq, Hkv, Dh, Pmax,
+                    kv_bytes=hardware.kv_bytes_per_element(kv_dtype),
+                    scale_bytes=0 if codec is None else 4))
+            del gk, gv
+            row.update(max_abs_err=err, max_rel_err=rel)
+            log(f"  paged_attention[{kv_dtype}] {model} heads Hq={Hq} Hkv={Hkv} B={B} ragged: "
+                f"max|err|={err:.4g} tol=0.01 max per-row |err|/rms={rel:.4g} tol=0.05 "
+                f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                f"library_ms={row['library_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+                f"({row['bound_by']}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"paged_attention[{kv_dtype}] {model} disagrees with its plain version")
+            tiles.setdefault(f"paged_attention[{kv_dtype}]", {})[f"{model}_ragged"] = row
+        del k, v
+    Hq, Hkv = TP_HEADS["8b_tp2"]
+    k_q, k_s = quantize_kv(torch.randn((B, Hkv, S, Dh), generator=gen, device=dev))
+    v_q, v_s = quantize_kv(torch.randn((B, Hkv, S, Dh), generator=gen, device=dev))
+    k_s, v_s = k_s[:, :, None, :].contiguous(), v_s[:, :, None, :].contiguous()
+    qd = torch.randn((B, Hq, Dh), generator=gen, device=dev).to(torch.bfloat16)
+    kd = (k_q.float() * k_s[:, :, 0, :, None]).to(torch.bfloat16)
+    vd = (v_q.float() * v_s[:, :, 0, :, None]).to(torch.bfloat16)
+    dpos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    args = (qd, k_q, k_s, v_q, v_s, dpos)
+    out, ref = da.decode_attention(*args), da.decode_attention_plain(*args)
+    torch.cuda.synchronize()
+    err, rel = _max_err(out, ref), _per_row_rel_err(out, ref)
+    ok = err <= 1e-2 and rel <= 0.05
+    dmask = (torch.arange(S, device=dev)[None, :] <= dpos.long()[:, None])[:, None, None, :]
+    row = _tile_row(timer, da.decode_attention, da.decode_attention_plain,
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qd[:, :, None, :], kd, vd, attn_mask=dmask, enable_gqa=True),
+                    args, hardware.decode_attention_cost(positions, Hq, Hkv, Dh, S=S))
+    row.update(max_abs_err=err, max_rel_err=rel)
+    log(f"  decode_attention 8b_tp2 heads Hq={Hq} Hkv={Hkv} B={B} S={S} ragged: max|err|={err:.4g} "
+        f"tol=0.01 max per-slot |err|/rms={rel:.4g} tol=0.05 kernel_ms={row['ms']:.4f} "
+        f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+        f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("decode_attention 8b_tp2 disagrees with its plain version")
+    tiles.setdefault("decode_attention", {})["8b_tp2_ragged"] = row
+    del k_q, v_q, kd, vd
+    Bf, T = 2, 512
+    qf = torch.randn((Bf, T, Hq, Dh), generator=gen, device=dev).to(torch.bfloat16)
+    kf, vf = (torch.randn((Bf, T, Hkv, Dh), generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    out, ref = fa.flash_attention_causal(qf, kf, vf), fa.flash_attention_plain(qf, kf, vf)
+    torch.cuda.synchronize()
+    err = _max_err(out, ref)
+    rel = _per_row_rel_err(out.flatten(0, 2), ref.flatten(0, 2))
+    ok = err <= 2e-2 and rel <= 0.05
+    qt, kt, vt = (t.transpose(1, 2) for t in (qf, kf, vf))
+    row = _tile_row(timer, fa.flash_attention_causal, fa.flash_attention_plain,
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True),
+                    (qf, kf, vf), hardware.flash_attention_cost(Bf, T, Hq, Hkv, Dh))
+    row.update(max_abs_err=err, max_rel_err=rel)
+    log(f"  flash_attention_causal 8b_tp2 heads Hq={Hq} Hkv={Hkv} B={Bf} T={T}: max|err|={err:.4g} "
+        f"tol=0.02 max per-row |err|/rms={rel:.4g} tol=0.05 kernel_ms={row['ms']:.4f} "
+        f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+        f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("flash_attention_causal 8b_tp2 disagrees with its plain version")
+    tiles.setdefault("flash_attention_causal", {})["8b_tp2_T512"] = row
+
+
 CHECKS = {"int8": check_int8, "w8a8": check_w8a8, "paged": check_paged, "flash": check_flash,
-          "decode": check_decode}
+          "decode": check_decode, "tp": check_tp}
 
 
 SAMPLE_ROWS = (8, 72)  # a decode step's rows; a verify's B x (K + 1)
@@ -1502,7 +1700,7 @@ def serve_recipe(dev, name, quantization, kv_dtype, layout, expected, http: bool
 
     t0 = time.time()
     config = EngineConfig(model_config_name=MODEL, quantization=quantization,
-                          kv_cache_dtype=kv_dtype, kv_layout=layout)
+                          kv_cache_dtype=kv_dtype, kv_layout=layout, tensor_parallelism=1)
     if runahead is not None:
         config = dataclasses.replace(config, decode_runahead=runahead)
     engine = LLMEngine(config, device=dev)
@@ -1970,7 +2168,8 @@ def _retrieval_http(dev, emb, rng, smi) -> dict:
     from generativeaiexamples_tpu_torch.engine.server import make_server
 
     engine = LLMEngine(EngineConfig(model_config_name=MODEL, quantization="int8",
-                                    kv_cache_dtype="bfloat16", kv_layout="paged"), device=dev)
+                                    kv_cache_dtype="bfloat16", kv_layout="paged",
+                                    tensor_parallelism=1), device=dev)
     server = make_server("127.0.0.1", 0, engine=engine, embedder=emb)
     thread = threading.Thread(target=server.serve_forever, name="smoke-http-retrieval", daemon=True)
     thread.start()
@@ -2084,6 +2283,7 @@ RAG_ENV = {
     "APP_ENGINE_QUANTIZATION": "int8",
     "APP_ENGINE_KVCACHEDTYPE": "bfloat16",
     "APP_ENGINE_KVLAYOUT": "paged",
+    "APP_ENGINE_TENSORPARALLELISM": "1",
     "APP_RETRIEVER_NRPIPELINE": "ranked_hybrid",
     "APP_RETRIEVER_SCORETHRESHOLD": "1.0",
     "APP_TEXTSPLITTER_CHUNKSIZE": "48",
@@ -3016,7 +3216,7 @@ def prefix_recipe(dev, smi, name, quantization, kv_dtype, layout, expected, seed
 
     rng = random.Random(seed * 1000 + ord(name))
     base = EngineConfig(model_config_name=model, quantization=quantization,
-                        kv_cache_dtype=kv_dtype, kv_layout=layout)
+                        kv_cache_dtype=kv_dtype, kv_layout=layout, tensor_parallelism=1)
     C = base.prefill_chunk
     preamble = [256] + [rng.randrange(1, 256) for _ in range(PREFIX_CHUNKS * C - 1)]
     prompts = [preamble + [rng.randrange(1, 256) for _ in range(PREFIX_QUESTION_IDS)]
@@ -3772,7 +3972,7 @@ def drain_recipe(dev, smi, name, kv_dtype, spool, seed) -> tuple:
 
     t0 = time.time()
     cfg = EngineConfig(model_config_name=MODEL, quantization="int8", kv_cache_dtype=kv_dtype,
-                       kv_layout="paged", snapshot_spool_dir=spool)
+                       kv_layout="paged", snapshot_spool_dir=spool, tensor_parallelism=1)
     e1 = LLMEngine(cfg, device=dev)
     e2 = s1 = s2 = None
     out = {}
@@ -3971,7 +4171,8 @@ def _policy_runs(dev, params, policy, short, long) -> dict:
     from generativeaiexamples_tpu_torch.engine.scheduler import handoff
 
     cfg = EngineConfig(model_config_name=MODEL, quantization="int8", kv_cache_dtype="bfloat16",
-                       kv_layout="paged", max_batch_size=DRAIN_SLOTS_B, scheduler_policy=policy)
+                       kv_layout="paged", max_batch_size=DRAIN_SLOTS_B, scheduler_policy=policy,
+                       tensor_parallelism=1)
     engine = LLMEngine(cfg, device=dev, params=params)
     funded, orig_fund = [], engine._fund
 
@@ -4547,7 +4748,7 @@ def spec_recipe(dev, smi, name, quantization, kv_dtype, layout, params=None,
     legs, sets = SPEC_PLAN[name]
     cfg = EngineConfig(model_config_name=model, quantization=quantization, kv_cache_dtype=kv_dtype,
                        kv_layout=layout, max_batch_size=8, max_seq_len=8192, page_size=128,
-                       prefill_chunk=512, decode_block=8,
+                       prefill_chunk=512, decode_block=8, tensor_parallelism=1,
                        spec_draft_model=SPEC_DRAFT_MODEL if name == "A" else "")
     t0 = time.time()
     engine = LLMEngine(cfg, device=dev, params=params)
@@ -4698,6 +4899,7 @@ OBSERVE_ENV = {
     "APP_ENGINE_QUANTIZATION": "int8",
     "APP_ENGINE_KVCACHEDTYPE": "bfloat16",
     "APP_ENGINE_KVLAYOUT": "paged",
+    "APP_ENGINE_TENSORPARALLELISM": "1",
 }
 OBSERVE_REQUESTS, OBSERVE_TOKENS = 8, 64  # /generate requests (4 at a time) x tokens
 OBSERVE_PROFILE_TOKENS = 8  # each of the 2 profiled requests: one decode block
@@ -4865,7 +5067,7 @@ def phase_observe(dev, smi, seed=0) -> dict:
     try:
         params = quant.init_packed_params_int8(llama.PRESETS[MODEL], seed, torch.bfloat16, dev)
         ecfg = EngineConfig(model_config_name=MODEL, quantization="int8",
-                            kv_cache_dtype="bfloat16", kv_layout="paged")
+                            kv_cache_dtype="bfloat16", kv_layout="paged", tensor_parallelism=1)
         t_build = time.time()
         # built with the timeline on and ENABLE_PROFILING set: both resolve at init
         engine = LLMEngine(ecfg, device=dev, params=params)
@@ -5780,7 +5982,7 @@ def _connect_file(store_dir) -> dict:
     hits reach /search) at ``topK`` 2."""
     return {
         "engine": {"modelConfigName": MODEL, "quantization": "int8",
-                   "kvCacheDtype": "bfloat16", "kvLayout": "paged"},
+                   "kvCacheDtype": "bfloat16", "kvLayout": "paged", "tensorParallelism": 1},
         "llm": {"modelEngine": "tpu"},
         "embeddings": {"modelEngine": "tpu"},
         "ranking": {"modelEngine": ""},
@@ -5814,23 +6016,23 @@ def _connect_config(tmp) -> tuple:
             "hybrid", "tpu", 48)
     if got != want:
         raise AssertionError(f"connect (a): get_config() gave {got}, not {want}")
-    bad = _write_json(os.path.join(tmp, "tp2.json"), {"engine": {"tensorParallelism": 2}})
+    bad = _write_json(os.path.join(tmp, "pp2.json"), {"engine": {"pipelineParallelism": 2}})
     messages = []
     for source in ("file", "env"):
         try:
             if source == "file":
                 config_mod.AppConfig.from_file(bad)
             else:
-                config_mod.AppConfig.from_env({"APP_ENGINE_TENSORPARALLELISM": "2"})
+                config_mod.AppConfig.from_env({"APP_ENGINE_PIPELINEPARALLELISM": "2"})
         except ValueError as exc:
             messages.append(str(exc))
         else:
-            raise AssertionError(f"connect (a): tensorParallelism 2 from the {source} was accepted")
+            raise AssertionError(f"connect (a): pipelineParallelism 2 from the {source} was accepted")
     if messages[0] != messages[1]:
         raise AssertionError(f"connect (a): the file's refusal {messages[0]!r} is not the "
                              f"environment's {messages[1]!r}")
     log(f"  (a) get_config() from APP_CONFIG_FILE with APP_RETRIEVER_TOPK=3 on top: {want}; "
-        f"engine.tensorParallelism 2 from a file and from the environment both refused with "
+        f"engine.pipelineParallelism 2 from a file and from the environment both refused with "
         f"{messages[0]!r}")
     return cfg, path
 
@@ -6182,11 +6384,299 @@ def phase_connect(dev, smi, seed=0) -> dict:
     return out
 
 
+# --------------------------------------------------------------------- #
+# Phase 16: tensor-parallel serving
+
+TP_SHARDS_8B = 2
+TP_SHARDS_70B = 8
+TP_MODEL_70B = "llama3-70b"
+TP_LAYERS_70B = 4  # of its 80
+TP_LAYERS_BC = 4  # recipes B and C at 8b: 4 of 32 layers
+# prompt lengths (ids): those up to prefill_chunk (512) prefill as one
+# monolithic wave through flash, the rest chunk by chunk
+TP_LENGTHS_8B = (100, 230, 380, 500, 640, 800, 990, 1200)
+TP_LENGTHS_70B = (150, 480, 760, 1150)
+TP_TOKENS = 32
+TP_MAX_SEQ = 2048  # prompts of 100-1,200 ids and 32 tokens
+TP_SERVER_REQUESTS = 3
+TP_BUDGET_S = 120.0
+# the largest |logits difference| a leg's prefills may show between TP=N
+# and TP=1 on the same weights: the row reduce rounds each shard's bf16
+# partial (and under W8A8 each row shard scales its own K slice), about
+# twice the readings of NVIDIA H100 80GB HBM3 at 700 W, and below
+# LOGITS_TOL, so a reduce or copy fault the tie rule would let through
+# fails here
+TP_LOGITS_LIMITS = {"8b A": 0.2, "8b B": 0.45, "8b C": 0.2, "8b D": 0.2, "70b A": 0.1}
+
+
+def _tp_prompts(rng, lengths) -> list:
+    """Prompts of random byte ids at ``lengths``."""
+    return [[256] + [rng.randrange(1, 256) for _ in range(n - 1)] for n in lengths]
+
+
+def _tp_streams(engine, prompts) -> tuple:
+    """Greedy streams of ``prompts`` admitted as one wave; (streams, the
+    wall of a decode block in ms: the reader's decode time a block)."""
+    from generativeaiexamples_tpu_torch.engine.llm_engine import SamplingParams
+
+    params = SamplingParams(temperature=0.0, max_tokens=TP_TOKENS)
+    before = engine.stats()
+    with engine.hold_admissions():
+        queues = [engine.generate_ids(p, params) for p in prompts]
+    streams = [_drain_ids(q) for q in queues]
+    after = engine.stats()
+    blocks = after["decode_blocks"] - before["decode_blocks"]
+    wall = 1e3 * (after["decode_time_s"] - before["decode_time_s"]) / max(blocks, 1)
+    return streams, wall
+
+
+def _tp_logits_diff(ref, engine, prompts) -> float:
+    """Largest |logits difference| of the prefills of ``prompts`` (each
+    whole, as one wave of one row) at TP=1 and TP=N on the same weights
+    (the model functions, no engine state)."""
+    from generativeaiexamples_tpu_torch.models import llama
+
+    diff = 0.0
+    for prompt in prompts:
+        ids = torch.tensor([prompt], device=ref.device)
+        n = torch.tensor([ids.shape[1]], device=ref.device)
+        with torch.inference_mode():
+            a, _ = llama.prefill_layers(ref.params, ref.model_config, ids, n,
+                                        quant_kernel=ref._quant_kernel)
+            b, _ = llama.prefill_layers(engine.params, engine.model_config, ids, n,
+                                        quant_kernel=engine._quant_kernel, tp=engine._tp)
+        diff = max(diff, _max_err(a, b))
+    return diff
+
+
+def tp_leg(dev, label, model, quantization, kv_dtype, layout, params, shards, prompts,
+           expected) -> dict:
+    """One leg: a TP=1 engine and a TP=``shards`` engine (all shards on
+    ``dev``) on the same single-device tree; the TP engine's streams equal
+    the TP=1 engine's or part at a random-init tie, and its path launched
+    each kernel. Returns its numbers, the TP engine's launches and the TP
+    engine itself (shut down)."""
+    from generativeaiexamples_tpu_torch.engine.llm_engine import LLMEngine
+    from generativeaiexamples_tpu_torch.parallel import create_mesh
+
+    base = EngineConfig(model_config_name=model, quantization=quantization, kv_cache_dtype=kv_dtype,
+                        kv_layout=layout, max_seq_len=TP_MAX_SEQ, tensor_parallelism=1)
+    t0 = time.time()
+    held = torch.cuda.memory_allocated(dev)  # the single-device tree and what earlier phases hold
+    torch.cuda.reset_peak_memory_stats(dev)
+    ref = LLMEngine(base, device=dev, params=params)
+    try:
+        want, wall_1 = _tp_streams(ref, prompts)
+    finally:
+        ref.shutdown()
+    engine = LLMEngine(dataclasses.replace(base, tensor_parallelism=shards), params=params,
+                       mesh=create_mesh(shards, devices=[dev] * shards))
+    try:
+        if engine.tp_shards != shards or engine._paged != (layout == "paged"):
+            raise AssertionError(f"tp {label}: the engine is not the one asked for")
+        reset_counts()
+        with SyncCounter() as syncs:
+            got, wall_n = _tp_streams(engine, prompts)
+        launched = counts()
+    finally:
+        engine.shutdown()
+    ties = sum(_tie_checked(ref, f"tp {label} prompt {i}", p, g, w)
+               for i, (p, g, w) in enumerate(zip(prompts, got, want)))
+    # the shortest and the longest prompt: flash's smallest and largest tiles
+    diff = _tp_logits_diff(ref, engine, (min(prompts, key=len), max(prompts, key=len)))
+    report = engine.mesh_report()
+    peak = torch.cuda.max_memory_allocated(dev)
+    missing = [n for n in expected if launched[n] == 0]
+    if missing:
+        raise AssertionError(f"tp {label}: kernels never launched at TP={shards}: {missing}")
+    if not diff <= TP_LOGITS_LIMITS[label]:
+        raise AssertionError(f"tp {label}: the largest logits difference {diff:.4g} between "
+                             f"TP={shards} and TP=1 exceeds its limit {TP_LOGITS_LIMITS[label]}")
+    if syncs.counts["torch-llm-engine"]:
+        raise AssertionError(f"tp {label}: the dispatch thread waited for the card "
+                             f"{syncs.counts['torch-llm-engine']} times")
+    plan = report["memory"][str(dev)]["planned_bytes"]
+    log(f"  tp {label}: {model} {quantization}/{kv_dtype} {layout}, {len(prompts)} greedy prompts "
+        f"of {min(map(len, prompts))}-{max(map(len, prompts))} ids x {TP_TOKENS} tokens: TP={shards} "
+        f"streams equal TP=1's ({ties} parted at a tie); largest logits difference "
+        f"{diff:.4g} (limit {TP_LOGITS_LIMITS[label]}); decode block wall {wall_n:.2f} ms at TP={shards} against {wall_1:.2f} ms at "
+        f"TP=1 ({wall_n / wall_1:.2f}x); peak allocated on {dev} {peak / 2**30:.2f} GiB, "
+        f"{(peak - held) / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB held before the "
+        f"leg (both engines; the TP engine's plan {plan / 2**30:.2f} GiB); "
+        f"launches {launched}; {time.time() - t0:.1f} s")
+    return {"shards": shards, "ties": ties, "max_logits_diff": diff, "wall_block_ms": wall_n,
+            "wall_block_ms_tp1": wall_1, "peak_allocated_bytes": {str(dev): peak},
+            "held_before_bytes": {str(dev): held},
+            "planned_bytes": {str(dev): plan}, "launches": launched}, engine
+
+
+def _tp_answers(base) -> list:
+    """TP_SERVER_REQUESTS greedy chat completions, one after another (each
+    prefills alone, so two servers' rows see the same shapes); their
+    texts."""
+    texts = []
+    for i in range(TP_SERVER_REQUESTS):
+        status, body = _http(base, "POST", "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": f"Question {i}: what is a GPU?"}],
+            "max_tokens": 16, "temperature": 0})
+        message = json.loads(body)["choices"][0]["message"] if status == 200 else {}
+        if message.get("role") != "assistant":
+            raise AssertionError(f"tp (c): request {i} answered HTTP {status} {body[:200]!r}")
+        texts.append(message["content"])
+    return texts
+
+
+def _tp_card_server(log_path) -> tuple:
+    """A server process at APP_ENGINE_TENSORPARALLELISM=TP_SHARDS_8B, its
+    shards on distinct cards, once it holds its engine: (process, url)."""
+    port = _free_port()
+    env = dict(os.environ, APP_ENGINE_MODELCONFIGNAME=MODEL, APP_ENGINE_QUANTIZATION="int8",
+               APP_ENGINE_KVCACHEDTYPE="bfloat16", APP_ENGINE_KVLAYOUT="paged",
+               APP_ENGINE_MAXSEQLEN=str(TP_MAX_SEQ),
+               APP_ENGINE_TENSORPARALLELISM=str(TP_SHARDS_8B))
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "generativeaiexamples_tpu_torch.engine.server",
+             "--host", "127.0.0.1", "--port", str(port)],
+            env=env, stdout=log_file, stderr=subprocess.STDOUT)
+    base, t0 = f"http://127.0.0.1:{port}", time.time()
+    while True:
+        if proc.poll() is not None:
+            raise AssertionError(f"tp (c): the server exited with {proc.returncode}: "
+                                 f"{open(log_path, errors='replace').read()[-3000:]}")
+        try:
+            status, text = _http(base, "GET", "/internal/ready", timeout=5)
+            if status == 200 and json.loads(text).get("ready"):
+                return proc, base
+        except OSError:
+            pass
+        if time.time() - t0 > 600:
+            proc.kill()
+            raise AssertionError("tp (c): the server did not become ready in 600 s")
+        time.sleep(0.5)
+
+
+def _tp_server(dev, engine) -> dict:
+    """(c): the OpenAI-compatible engine server in process over the TP=2
+    recipe-A engine (its shards on this card) answers TP_SERVER_REQUESTS
+    chat completions. Where the machine shows two cards, a server process
+    started through the environment at TP=2 with its shards on distinct
+    cards answers the same requests with the same texts (the same weights
+    from seed 0, the same tiles and the same reduce, its partials copied
+    between the cards)."""
+    from generativeaiexamples_tpu_torch.engine.server import make_server
+
+    t0 = time.time()
+    server = make_server("127.0.0.1", 0, engine=engine)
+    threading.Thread(target=server.serve_forever, name="smoke-http-tp", daemon=True).start()
+    try:
+        want = _tp_answers(f"http://127.0.0.1:{server.server_address[1]}")
+    finally:
+        server.shutdown()
+        server.server_close()
+    how = (f"in process over the TP={TP_SHARDS_8B} recipe-A engine of "
+           f"create_mesh({TP_SHARDS_8B}, devices=[{dev}] * {TP_SHARDS_8B})")
+    if torch.cuda.device_count() >= TP_SHARDS_8B:
+        log_path = os.path.join(tempfile.gettempdir(), f"tp_server_{os.getpid()}.log")
+        proc, base = _tp_card_server(log_path)
+        try:
+            got = _tp_answers(base)
+        except AssertionError as exc:
+            raise AssertionError(f"{exc}; the server's log ends: "
+                                 f"{open(log_path, errors='replace').read()[-4000:]}") from None
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(60)
+        if got != want:
+            raise AssertionError(f"tp (c): the server on {TP_SHARDS_8B} cards answered {got!r}, "
+                                 f"the one-card shards {want!r}")
+        how += (f"; then a server process at APP_ENGINE_TENSORPARALLELISM={TP_SHARDS_8B}, shards "
+                f"on distinct cards, gave the same {TP_SERVER_REQUESTS} texts")
+    else:
+        how += f" ({torch.cuda.device_count()} card visible: no distinct-card server)"
+    log(f"  tp (c): the engine server answered {TP_SERVER_REQUESTS} chat completions {how} "
+        f"({time.time() - t0:.1f} s)")
+    return {"server": how, "requests": TP_SERVER_REQUESTS}
+
+
+def phase_tp(dev, smi, seed=0) -> dict:
+    """Tensor-parallel serving (module docstring, phase 16)."""
+    import random
+
+    from generativeaiexamples_tpu_torch.engine.llm_engine import LLMEngine
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.ops import quant
+
+    t0 = time.time()
+    rng = random.Random(seed * 1000 + 16)
+    out = {"legs": {}}
+    launches = collections.Counter()
+    expected = {name: exp for name, _, _, _, exp in RECIPES}
+    params = quant.init_packed_params_int8(llama.PRESETS[MODEL], seed, torch.bfloat16, dev)
+    prompts = _tp_prompts(rng, TP_LENGTHS_8B)
+    server_engine = None
+    for name, quantization, kv_dtype, layout, _ in RECIPES:
+        model, weights = MODEL, params
+        if name in "BC":
+            model = f"{MODEL}-{TP_LAYERS_BC}-layers"
+            llama.PRESETS[model] = dataclasses.replace(llama.PRESETS[MODEL], num_layers=TP_LAYERS_BC)
+            weights = dict(params, layers=params["layers"][:TP_LAYERS_BC])
+        res, engine = tp_leg(dev, f"8b {name}", model, quantization, kv_dtype, layout, weights,
+                             TP_SHARDS_8B, prompts, expected[name])
+        launches.update(res.pop("launches"))
+        out["legs"][f"8b_{name}"] = res
+        if name == "A":
+            server_engine = engine
+        else:
+            _free_engine(engine)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    # (c) the engine server over the leg's TP=2 recipe-A engine again, on its
+    # sharded weights (the leg shut it down)
+    served = LLMEngine(server_engine.engine_config, params=server_engine.params,
+                       mesh=server_engine._mesh)
+    _free_engine(server_engine)
+    try:
+        reset_counts()
+        out["server"] = _tp_server(dev, served)
+        launches.update(counts())
+    finally:
+        served.shutdown()
+        _free_engine(served)
+    del params, served, server_engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) llama3-70b at full width, TP=8, 4 of 80 layers, all shards on one card
+    model70 = f"{TP_MODEL_70B}-{TP_LAYERS_70B}-layers"
+    llama.PRESETS[model70] = dataclasses.replace(llama.PRESETS[TP_MODEL_70B], num_layers=TP_LAYERS_70B)
+    params70 = quant.init_packed_params_int8(llama.PRESETS[model70], seed, torch.bfloat16, dev)
+    res, engine = tp_leg(dev, "70b A", model70, "int8", "bfloat16", "paged", params70, TP_SHARDS_70B,
+                         _tp_prompts(rng, TP_LENGTHS_70B), expected["A"])
+    launches.update(res.pop("launches"))
+    out["legs"]["70b_A"] = res
+    _free_engine(engine)
+    del engine, params70
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launches"] = dict(launches)
+    out["wall_s"] = time.time() - t0
+    log(f"  tp launches in the phase (every shard's): {dict(launches)}")
+    if out["wall_s"] > TP_BUDGET_S:
+        log(f"  tp: the phase took {out['wall_s']:.1f} s, over its {TP_BUDGET_S:.0f} s budget")
+    log(f"phase tp: ok ({out['wall_s']:.1f} s on {smi})")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
                         default="kernels,model,serve,retrieval,rag,chains,filechains,drain,"
-                                "prefix,spec,observe,route,connect",
+                                "prefix,spec,observe,route,connect,tp",
                         help="phases after the build, comma-separated (default: all)")
     parser.add_argument("--checks", default=",".join(CHECKS),
                         help="phase 3's kernel checks, comma-separated (default: all)")
@@ -6246,16 +6736,21 @@ def _run(args, phases) -> int:
     observe = phase_observe(dev, info["smi"], args.seed) if "observe" in phases else {}
     route = phase_route(dev, info["smi"], args.seed) if "route" in phases else {}
     connect = phase_connect(dev, info["smi"], args.seed) if "connect" in phases else {}
+    tp = phase_tp(dev, info["smi"], args.seed) if "tp" in phases else {}
     kernels = []
+    tiles = results.get("tp_tiles", {})
     for name, (replaces, source) in KERNELS.items():
         if name not in results:  # a check left out by --checks
             continue
-        r = results[name]
+        r = dict(results[name])
+        if name in tiles:  # phase 3's local tiles of phase 16's shards
+            r["tp_tiles"] = tiles[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(sv["launches"][name] for sv in serves.values())
             + sum(ph.get("launches", {}).get(name, 0)
-                  for ph in (rag, chains, files, drain, prefix, spec, observe, connect)),
+                  for ph in (rag, chains, files, drain, prefix, spec, observe, connect, tp)),
+            "tp_launches": tp.get("launches", {}).get(name, 0),
             **r,
         })
     log(f"total {time.time() - t0:.1f} s")
@@ -6271,6 +6766,8 @@ def _run(args, phases) -> int:
         "observe": {k: v for k, v in observe.items() if k != "launches"},
         "route": route,
         "connect": {k: v for k, v in connect.items() if k != "launches"},
+        "tp": {k: v for k, v in tp.items() if k != "launches"},
+        "tp_tiles": {k: v for k, v in tiles.items() if k not in results},
         "sampling": results.get("sampling")}), flush=True)
     print(info["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

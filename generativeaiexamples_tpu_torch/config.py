@@ -48,15 +48,14 @@ logger = logging.getLogger(__name__)
 ENV_PREFIX = "APP_ENGINE_"
 
 _CKPT = "checkpoints load with training and checkpoints (ROADMAP queue 1 item 10)"
-_MULTI = "the port serves one card until multi-GPU (ROADMAP queue 1 item 9)"
+_PIPELINE = "the port serves tensor parallelism only; pipeline parallelism is ROADMAP queue 1 item 9b"
 # The JAX package's EngineConfig fields (config/schema.py) that the port
 # has no field for: name -> (the JAX default, why another value is refused,
 # the other values the port serves as they are). A reason of None marks a
 # field that exists only for XLA's compiles: logged once, ignored.
 JAX_ONLY_FIELDS = {
     "checkpoint_path": ("", _CKPT, ()),
-    "tensor_parallelism": (-1, _MULTI, (1,)),
-    "pipeline_parallelism": (1, _MULTI, ()),
+    "pipeline_parallelism": (1, _PIPELINE, ()),
     "serving_layout": ("auto", None, ()),
     "paged_kernel": ("auto", "the port always reads a paged pool through its kernel on the card", ()),
     "warmup_prompt_lengths": ("", None, ()),
@@ -95,6 +94,11 @@ class EngineConfig:
     kv_cache_dtype: str = "bfloat16"
     max_batch_size: int = 8
     max_seq_len: int = 8192
+    # shards of the model axis (parallel/): -1, JAX's default, serves one
+    # card until ROADMAP queue 1 item 9e (JAX's takes every card); N > 1
+    # shards over N where the heads, the MLP width and the vocab divide
+    # (tp_kernels.supports_model_config)
+    tensor_parallelism: int = -1
     # auto | paged | fixed: auto pages wherever the page geometry tiles
     # (engine/kv_pages.auto_layout_blockers) and logs why it serves fixed
     # otherwise; fixed keeps one dense max_seq_len strip per slot
@@ -184,6 +188,10 @@ class EngineConfig:
             raw = environ.get(name)
             if raw is not None:
                 kwargs[f.name] = _parse(name, raw, f.default)
+        tp = kwargs.get("tensor_parallelism", -1)
+        if tp != -1 and tp < 1:
+            name = cls.env_name("tensor_parallelism")
+            raise ValueError(f"{name}={tp}: must be -1 (the default) or >= 1")
         if kwargs.get("spec_draft_checkpoint_path"):  # unserved, as the fields below
             name = cls.env_name("spec_draft_checkpoint_path")
             raise ValueError(f"{name}={kwargs['spec_draft_checkpoint_path']}: {_CKPT}")
@@ -203,6 +211,11 @@ class EngineConfig:
         return cls(**kwargs)
 
     def validate(self) -> None:
+        if self.tensor_parallelism != -1 and self.tensor_parallelism < 1:
+            raise ValueError(
+                f"tensor_parallelism must be -1 (the default) or >= 1, "
+                f"got {self.tensor_parallelism}"
+            )
         if self.dtype not in ("bfloat16", "float32"):
             raise ValueError(f"dtype must be 'bfloat16' or 'float32', got {self.dtype!r}")
         if self.quantization not in ("none", "int8", "w8a8"):

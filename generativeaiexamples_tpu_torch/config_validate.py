@@ -37,6 +37,19 @@ def _require(cond: bool, message: str) -> None:
         raise ValueError(message)
 
 
+def check_tier_shards(cfg) -> None:
+    """The retrieval tier beside a sharded process engine is refused until
+    ROADMAP queue 1 item 9e. The process engine shards exactly when
+    ``engine.tensor_parallelism`` > 1 (``-1`` serves one card), so the
+    config decides it before anything is built: here, at a server's
+    start, and in ``llm_engine.get_engine`` for an engine built from the
+    process configuration."""
+    _require(cfg.engine.tensor_parallelism <= 1
+             or (cfg.retriever.backend or "off").lower() != "tier",
+             "retriever.backend=tier is not served under tensor_parallelism > 1 yet "
+             "(ROADMAP queue 1 item 9e)")
+
+
 def validate_config(cfg) -> None:
     """Raise ValueError, naming the knob, on the first value the JAX chain
     server's startup refuses."""
@@ -125,6 +138,10 @@ def validate_config(cfg) -> None:
              "prompts.multi_turn_rag_template must not be empty")
 
     e = cfg.engine
+    _require(e.tensor_parallelism == -1 or e.tensor_parallelism > 0,
+             f"engine.tensor_parallelism must be -1 (all devices) or > 0, "
+             f"got {e.tensor_parallelism}")
+    check_tier_shards(cfg)
     _require(e.dtype in _ENGINE_DTYPES,
              f"engine.dtype must be one of {_ENGINE_DTYPES}, got {e.dtype!r}")
     _require(e.quantization in _QUANTIZATIONS,

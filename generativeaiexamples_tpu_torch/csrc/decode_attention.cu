@@ -60,6 +60,9 @@
 #include <math.h>
 #include <stdint.h>
 
+// devices a process may launch on (the per-device attribute flags)
+constexpr int kMaxDevices = 64;
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -401,12 +404,17 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(const Args a) {
 template <int DH>
 cudaError_t launch(const Args& a, cudaStream_t s) {
   constexpr int bytes = Smem<DH>::bytes;
-  static bool configured = false;
-  if (!configured) {
+  // the attribute is the current device's: set it once on each device
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t dev_err = cudaGetDevice(&dev);
+  if (dev_err != cudaSuccess) return dev_err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!configured[dev]) {
     cudaError_t err = cudaFuncSetAttribute(decode_split_kernel<DH>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
-    configured = true;
+    configured[dev] = true;
   }
   const int groups = a.Hkv * ((a.Hq / a.Hkv + kRows - 1) / kRows);
   decode_split_kernel<DH><<<dim3(groups, a.B, a.nsplit), kThreads, bytes, s>>>(a);

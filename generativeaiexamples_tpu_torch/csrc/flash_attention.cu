@@ -36,6 +36,9 @@
 #include <math.h>
 #include <stdint.h>
 
+// devices a process may launch on (the per-device attribute flags)
+constexpr int kMaxDevices = 64;
+
 namespace {
 
 constexpr int kBQ = 64;  // query rows a block
@@ -281,13 +284,18 @@ template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int T,
                    int Hq, int Hkv, float scale, cudaStream_t s) {
   constexpr size_t bytes = smem_bytes<D>();
-  static bool configured = false;
-  if (!configured) {
+  // the attribute is the current device's: set it once on each device
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t dev_err = cudaGetDevice(&dev);
+  if (dev_err != cudaSuccess) return dev_err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!configured[dev]) {
     cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<D>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)bytes);
     if (err != cudaSuccess) return err;
-    configured = true;
+    configured[dev] = true;
   }
   dim3 grid(Hq, B, (T + kBQ - 1) / kBQ);
   flash_attention_kernel<D><<<grid, kThreads, bytes, s>>>(

@@ -65,6 +65,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// devices a process may launch on (the per-device attribute flags)
+constexpr int kMaxDevices = 64;
+
 namespace {
 
 constexpr int kWarps = 8;
@@ -304,12 +307,17 @@ cudaError_t launch(const __nv_bfloat16* x, int M, int K, const int8_t* q, int K_
   constexpr int x_bytes = 2 * 8 * MG * kXStride * 2;
   constexpr int red_bytes = kWarps * 8 * kRedStride * 4;
   constexpr int bytes = x_bytes > red_bytes ? x_bytes : red_bytes;
-  static bool configured = false;
-  if (!configured) {
+  // the attribute is the current device's: set it once on each device
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t dev_err = cudaGetDevice(&dev);
+  if (dev_err != cudaSuccess) return dev_err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!configured[dev]) {
     cudaError_t err = cudaFuncSetAttribute(int8_matmul_mma<MG>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
-    configured = true;
+    configured[dev] = true;
   }
   int8_matmul_mma<MG><<<dim3(F_pad / kTileF, splits), kThreads, bytes, s>>>(
       x, M, K, q, K_pad, F_pad, k_chunk, splits, scale, F, ws, tickets, y);

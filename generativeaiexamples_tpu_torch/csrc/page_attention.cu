@@ -60,6 +60,9 @@
 #include <math.h>
 #include <stdint.h>
 
+// devices a process may launch on (the per-device attribute flags)
+constexpr int kMaxDevices = 64;
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -471,12 +474,17 @@ __global__ void __launch_bounds__(kThreads) paged_merge_kernel(const Args a) {
 template <int KIND, int DH>
 cudaError_t launch(const Args& a, cudaStream_t s) {
   constexpr int bytes = Smem<KIND, DH>::bytes;
-  static bool configured = false;
-  if (!configured) {
+  // the attribute is the current device's: set it once on each device
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t dev_err = cudaGetDevice(&dev);
+  if (dev_err != cudaSuccess) return dev_err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!configured[dev]) {
     cudaError_t err = cudaFuncSetAttribute(paged_split_kernel<KIND, DH>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
-    configured = true;
+    configured[dev] = true;
   }
   const int groups = a.Hkv * ((a.T * (a.Hq / a.Hkv) + kRows - 1) / kRows);
   // blocks start in grid order, x fastest: with the split slowest, every

@@ -122,9 +122,25 @@ once at init (``GENAI_DISPATCH_TIMELINE=off`` leaves the dispatch path
 as it was). None of it reads the device: on the card a span's run time is
 the launch time, and device time comes only from a profile.
 
+Tensor parallelism (parallel/, the JAX engine's TP kernel path): with
+``mesh=`` (parallel/mesh.py), or ``device=None`` and ``tensor_parallelism``
+N > 1 (``-1``, the default, serves one card until ROADMAP queue 1 item 9e
+lands; JAX's takes every card), the engine
+lays its single-device tree out per shard and cuts it, keeps each KV
+pool or strip as one pool a shard of ``Hkv / N`` heads, and threads its
+``TPContext`` through every model call: each shard runs the kernels on
+its local tile, the row-parallel partials are summed in f32 in shard
+order, and the replicated activations, the page tables, the slot state
+and the sampler stay on the first shard's device. The kernel gates ask
+about the local tile. Speculative decoding, the resident draft, drain's
+snapshots and restores, ``disagg`` and the retrieval tier raise under
+more than one shard (ROADMAP queue 1 item 9e): those with a switch at
+startup, the rest at the call (``NotServedUnderTP``, 501 on the drain
+routes). JAX's automatic choice of pipeline parallelism raises (9b).
+
 The engine runs on the card: ``device=None`` means CUDA and raises when
-no card is present. Tests pass ``device="cpu"``, where every kernel
-wrapper runs its plain PyTorch version.
+no card is present. Tests pass ``device="cpu"`` (or a mesh of ``cpu``
+shards), where every kernel wrapper runs its plain PyTorch version.
 """
 from __future__ import annotations
 
@@ -132,6 +148,7 @@ import collections
 import dataclasses
 import itertools
 import logging
+import math
 import queue
 import random
 import threading
@@ -156,6 +173,8 @@ from generativeaiexamples_tpu_torch.models import llama, sampling
 from generativeaiexamples_tpu_torch.ops import (
     decode_attention, flash_attention, int8_matmul, page_attention, quant,
 )
+from generativeaiexamples_tpu_torch.parallel import mesh as mesh_mod
+from generativeaiexamples_tpu_torch.parallel import sharding, tp_kernels
 from generativeaiexamples_tpu_torch.utils import faults as faults_mod
 from generativeaiexamples_tpu_torch.utils import flight_recorder
 from generativeaiexamples_tpu_torch.utils import hardware
@@ -366,6 +385,52 @@ def resolve_device(device=None, what: str = "LLMEngine") -> torch.device:
     return dev
 
 
+# the paths tensor-parallel serving does not carry across shards yet, each
+# refused at its start under more than one shard (ROADMAP queue 1 item 9)
+_TP_PIPELINE = (
+    "pipeline parallelism is not served by the port yet (ROADMAP queue 1 item 9b)"
+)
+_TP_REFUSED = "is not served under tensor_parallelism > 1 yet (ROADMAP queue 1 item 9e)"
+
+
+class NotServedUnderTP(ValueError):
+    """A call on a sharded engine to a path tensor-parallel serving does
+    not carry across shards yet (ROADMAP queue 1 item 9e); the drain
+    routes answer it with 501."""
+
+
+def _max_tp(model_cfg, n_devices: int) -> int:
+    """Largest model-axis width the architecture admits on n devices (the
+    JAX package's ``pp_serving.max_tp``)."""
+    t = math.gcd(
+        math.gcd(model_cfg.num_heads, model_cfg.num_kv_heads),
+        math.gcd(model_cfg.intermediate_size,
+                 math.gcd(model_cfg.vocab_size, model_cfg.hidden_size)),
+    )
+    return math.gcd(t, n_devices)
+
+
+def _pp_supported(model_cfg, stages: int, tp: int) -> bool:
+    """Whether layers divide over ``stages`` and every sharded axis over
+    ``tp`` (the JAX package's ``pp_serving.supported``)."""
+    return (
+        stages > 1
+        and model_cfg.num_layers % stages == 0
+        and all(n % tp == 0 for n in (
+            model_cfg.num_heads, model_cfg.num_kv_heads, model_cfg.intermediate_size,
+            model_cfg.vocab_size, model_cfg.hidden_size,
+        ))
+    )
+
+
+def device_memory_bytes(device: torch.device) -> float:
+    """A device's memory: the card's total, or the JAX package's 16 GB
+    default for a device that reports none (the CPU)."""
+    if device.type == "cuda":
+        return float(torch.cuda.get_device_properties(device).total_memory)
+    return 16e9
+
+
 def _prefix_store_extra_slots(cfg: EngineConfig) -> int:
     """Prefix-cache slots the config asks for: each reserves one
     ``max_seq_len`` strip (pool pages on the paged layout, a store slot
@@ -374,6 +439,13 @@ def _prefix_store_extra_slots(cfg: EngineConfig) -> int:
     if cfg.prefix_cache_enable != "off":
         return cfg.prefix_cache_slots
     return 0
+
+
+def _cache_tensors(caches):
+    """Every tensor of per-layer caches, each shard's of a sharded layer."""
+    for c in caches:
+        for piece in (c if isinstance(c, sharding.Shards) else [c]):
+            yield from piece.values()
 
 
 def _next_stream_item(out_q, stall_s, deadline):
@@ -396,15 +468,16 @@ class LLMEngine:
         device=None,
         params=None,
         draft_params=None,
+        mesh: Optional[mesh_mod.Mesh] = None,
     ):
         cfg = config or EngineConfig()
         cfg.validate()
         self.engine_config = cfg
-        self.device = resolve_device(device)
         if cfg.model_config_name not in llama.PRESETS:
             raise ValueError(f"unknown model_config_name {cfg.model_config_name!r}")
         model_cfg = llama.PRESETS[cfg.model_config_name]
         self.model_config = model_cfg
+        self._init_mesh(cfg, model_cfg, device, mesh)
         self.tokenizer = load_tokenizer(cfg.tokenizer_path)
         # Sample only ids the tokenizer can represent (the byte tokenizer
         # under a 128k-vocab head would otherwise stream blanks).
@@ -456,29 +529,33 @@ class LLMEngine:
         self._quant_kernel = "w8a8" if cfg.quantization == "w8a8" else None
         # the attention kernel of each layout: the page kernel reads the
         # pool, the decode kernel an int8 fixed cache (a bf16 fixed cache
-        # is read by the einsum attention, as in JAX)
+        # is read by the einsum attention, as in JAX); under TP each gate
+        # asks the LOCAL tile's geometry (JAX's supports_geometry(...,
+        # shards=))
+        shards = self.tp_shards
+        local_hq, local_hkv = model_cfg.num_heads // shards, model_cfg.num_kv_heads // shards
         self._page_kernel = self._paged and page_attention.supports_geometry(
-            self._page, model_cfg.head_dim, model_cfg.num_heads, model_cfg.num_kv_heads,
-            kv_dtype=cfg.kv_cache_dtype,
+            self._page, model_cfg.head_dim, local_hq, local_hkv, kv_dtype=cfg.kv_cache_dtype,
         )
         self._kv_kernel = (
             not self._paged and self._kv_quant and decode_attention.supported(
-                self.max_seq_len, model_cfg.head_dim, model_cfg.num_heads,
-                model_cfg.num_kv_heads,
+                self.max_seq_len, model_cfg.head_dim, local_hq, local_hkv,
             )
         )
         # the spec verify's K+1 query rows a slot through the page kernel
         self._spec_draft = spec_decode_mod.effective_draft_len(cfg)
         self._verify_kernel = self._paged and page_attention.supports_geometry(
-            self._page, model_cfg.head_dim, model_cfg.num_heads, model_cfg.num_kv_heads,
+            self._page, model_cfg.head_dim, local_hq, local_hkv,
             query_len=self._spec_draft + 1, kv_dtype=cfg.kv_cache_dtype,
         )
-        # on the card a paged verify runs on the kernel or not at all
-        self._spec_available = not (
+        # on the card a paged verify runs on the kernel or not at all; no
+        # verify runs across shards yet
+        self._spec_available = self._tp is None and not (
             self.device.type == "cuda" and self._paged and not self._verify_kernel
         )
         if self.device.type == "cuda":
             self._check_kernels(cfg, model_cfg, dtype)
+        self._check_memory_budget(cfg, model_cfg)
 
         if params is None:
             if cfg.quantization in ("int8", "w8a8"):
@@ -486,6 +563,10 @@ class LLMEngine:
             else:
                 params = llama.init_params(model_cfg, 0, dtype, self.device)
             logger.warning("LLM engine running with random-init weights (no checkpoint).")
+        if self._tp is not None and not sharding.is_sharded(params):
+            # a single-device tree, laid out per shard and cut: the same
+            # function at every shard count
+            params = sharding.shard_params(params, self._mesh, repack_cfg=model_cfg)
         self.params = params
         if self.device.type == "cuda":
             for pack in self._packs(params):
@@ -497,7 +578,7 @@ class LLMEngine:
         if self._paged:
             self._cache = llama.init_kv_pool(
                 model_cfg, self._pool_pages, self._page, dtype, self.device,
-                quantized=self._kv_quant, packed=self._kv_packed,
+                quantized=self._kv_quant, packed=self._kv_packed, tp=self._tp,
             )
             self._kv_alloc = kv_pages.PageAllocator(self._pool_pages, self._page)
             self._tables = torch.zeros(
@@ -506,7 +587,7 @@ class LLMEngine:
         else:
             self._cache = llama.init_kv_cache_layers(
                 model_cfg, self.num_slots, self.max_seq_len, dtype, self.device,
-                quantized=self._kv_quant,
+                quantized=self._kv_quant, tp=self._tp,
             )
         self._init_prefix_cache(cfg, model_cfg, dtype)
         self._stop_ids = set(self.tokenizer.stop_ids())
@@ -624,10 +705,136 @@ class LLMEngine:
         self._telemetry = telemetry_mod.UtilizationEstimator(
             matmul_params=hardware.matmul_params(self.model_config),
             weight_stream_bytes=wbytes,
+            # distinct cards: shards that share one share its peaks
+            devices=len(self._mesh.distinct()),
         )
 
     # ------------------------------------------------------------------ #
     # build-time checks
+
+    def _init_mesh(self, cfg: EngineConfig, model_cfg, device, mesh) -> None:
+        """The engine's mesh and TP context. An explicit ``mesh`` wins (its
+        first device is the engine's); else ``device`` (one device) or,
+        unset, the visible cards, as many as ``_resolve_parallelism`` says.
+        More than one shard builds the TP context where
+        ``supports_model_config`` holds and raises otherwise, as do the
+        paths this slice does not carry across shards."""
+        if mesh is None:
+            dev = resolve_device(device)
+            devices = [dev] if device is not None else mesh_mod.visible_devices()
+            mesh = mesh_mod.create_mesh(
+                self._resolve_parallelism(cfg, model_cfg, devices), devices=devices
+            )
+            # the first shard's device, by index: a thread's current device
+            # may be another shard's while its kernels launch
+            self.device = dev if device is not None else mesh.home
+        else:
+            self.device = resolve_device(mesh.home)
+            if device is not None and torch.device(device) != self.device:
+                raise ValueError(f"device={device} is not the mesh's first device {self.device}")
+        self._mesh = mesh
+        self._tp: Optional[tp_kernels.TPContext] = None
+        if mesh.size == 1:
+            return
+        if not tp_kernels.supports_model_config(model_cfg, mesh.size):
+            raise ValueError(
+                f"tensor_parallelism={mesh.size} does not divide {cfg.model_config_name} "
+                f"(heads={model_cfg.num_heads}, kv_heads={model_cfg.num_kv_heads}, "
+                f"intermediate={model_cfg.intermediate_size}, vocab={model_cfg.vocab_size})"
+            )
+        refused = [
+            (cfg.spec_decode_enable == "on", "speculative decoding's verify (spec_decode_enable=on)"),
+            (bool(cfg.spec_draft_model), "the resident draft model (spec_draft_model)"),
+            (cfg.scheduler_policy == "disagg", "the disagg KV handoff (scheduler_policy=disagg)"),
+        ]
+        for hit, what in refused:
+            if hit:
+                raise ValueError(f"{what} {_TP_REFUSED}")
+        self._tp = tp_kernels.TPContext(mesh, mesh.size)
+        logger.info("LLM engine mesh: %d shards on %s", mesh.size, [str(d) for d in mesh.devices])
+
+    @property
+    def tp_shards(self) -> int:
+        """Shards of the model axis (1 on one device)."""
+        return self._mesh.size
+
+    def mesh_report(self) -> Dict[str, object]:
+        """The mesh as served: its shards and devices, the peaks of its
+        distinct cards together, and each device's memory (the fit plan's
+        estimate beside what PyTorch holds there)."""
+        memory = hardware.device_memory(self._mesh.devices)
+        for dev, plan in self.memory_plan.items():
+            memory[dev]["planned_bytes"] = int(plan)
+        return {
+            "shards": self._mesh.size,
+            "devices": [str(d) for d in self._mesh.devices],
+            "peaks": hardware.mesh_peaks(len(self._mesh.distinct())),
+            "memory": memory,
+        }
+
+    def _resolve_parallelism(self, cfg: EngineConfig, model_cfg, devices) -> int:
+        """``tensor_parallelism`` for mesh construction (the JAX function's
+        TP half). ``-1`` (the default) serves one card until the paths of
+        ROADMAP queue 1 item 9e are carried across shards; then it will
+        take every card, as JAX's does. An explicit N shards over N.
+        Pipeline parallelism, asked for or the automatic choice JAX makes
+        when ``num_kv_heads`` caps TP below the device count and the
+        capped mesh cannot hold the model, raises instead: the port never
+        serves something else silently."""
+        tp, n = cfg.tensor_parallelism, len(devices)
+        if tp != -1:
+            return tp
+        if n <= 1:
+            return 1
+        tp_cap = _max_tp(model_cfg, n)
+        if tp_cap < n and tp_cap >= 1 and n % tp_cap == 0 and _pp_supported(model_cfg, n // tp_cap, tp_cap):
+            est = llama.serving_memory_bytes(
+                model_cfg, cfg.max_batch_size + _prefix_store_extra_slots(cfg),
+                min(cfg.max_seq_len, model_cfg.max_seq_len),
+                weight_bytes=1 if cfg.quantization in ("int8", "w8a8") else 2,
+                kv_bytes=hardware.kv_bytes_per_element(cfg.kv_cache_dtype),
+            )
+            if est["total"] > device_memory_bytes(devices[0]) * tp_cap * 0.92:
+                raise ValueError(
+                    f"TP is capped at {tp_cap} by the architecture and the "
+                    f"{est['total'] / 1e9:.1f} GB estimate exceeds that mesh's memory; the JAX "
+                    f"engine would serve pipeline_parallelism={n // tp_cap}: {_TP_PIPELINE}"
+                )
+        logger.info(
+            "tensor_parallelism=-1 serves one of %d visible cards until drain, restore and "
+            "speculative decoding are carried across shards (ROADMAP queue 1 item 9e); "
+            "set it to N to shard over N cards", n,
+        )
+        return 1
+
+    def _check_memory_budget(self, cfg: EngineConfig, model_cfg) -> None:
+        """Fit the weights and the KV cache per shard device (JAX's
+        ``_check_memory_budget``, per device instead of in aggregate: the
+        embedding stays whole on the first device). Logs the plan, warns
+        where a device would run out; ``memory_plan`` keeps it."""
+        shards = self._mesh.size
+        act = 4 if cfg.dtype == "float32" else 2
+        wbytes = 1 if cfg.quantization in ("int8", "w8a8") else act
+        embed = model_cfg.vocab_size * model_cfg.hidden_size
+        kv = llama.serving_memory_bytes(
+            model_cfg, self.num_slots + _prefix_store_extra_slots(cfg), self.max_seq_len,
+            weight_bytes=0, kv_bytes=hardware.kv_bytes_per_element(cfg.kv_cache_dtype),
+        )["kv_cache"]
+        share = ((llama.count_logical_params(model_cfg) - embed) * wbytes + kv) / shards
+        plan: Dict[str, float] = {}
+        for i, dev in enumerate(self._mesh.devices):
+            # the embedding stays whole on the first device
+            plan[str(dev)] = plan.get(str(dev), 0.0) + share + (embed * act if i == 0 else 0)
+        self.memory_plan = plan
+        for dev in self._mesh.distinct():
+            need, have = plan[str(dev)], device_memory_bytes(dev) * 0.92
+            logger.info("serving memory on %s: %.2f GB of ~%.1f GB usable", dev, need / 1e9, have / 1e9)
+            if need > have:
+                logger.warning(
+                    "estimated %.1f GB on %s exceeds its ~%.1f GB usable memory; expect an "
+                    "out-of-memory error (quantization=int8, kv_cache_dtype=int8 or more "
+                    "shards reduce it)", need / 1e9, dev, have / 1e9,
+                )
 
     def _check_kernels(self, cfg: EngineConfig, model_cfg, dtype) -> None:
         """On the card every kernel of the serving path must serve this
@@ -641,17 +848,20 @@ class LLMEngine:
                 f"(spec_draft_len {self._spec_draft}, at most "
                 f"{page_attention.MAX_QUERY_ROWS} query rows)"
             )
+        shards = self.tp_shards
         if self._paged and not self._page_kernel:
             raise ValueError(
                 f"paged attention kernel refuses page_size={cfg.page_size} "
-                f"head_dim={model_cfg.head_dim} heads={model_cfg.num_heads} "
-                f"kv_heads={model_cfg.num_kv_heads} kv_cache_dtype={cfg.kv_cache_dtype}"
+                f"head_dim={model_cfg.head_dim} heads={model_cfg.num_heads // shards} "
+                f"kv_heads={model_cfg.num_kv_heads // shards} a shard "
+                f"kv_cache_dtype={cfg.kv_cache_dtype}"
             )
         if not self._paged and self._kv_quant and not self._kv_kernel:
             raise ValueError(
                 f"decode attention kernel refuses the int8 fixed cache max_seq_len="
                 f"{self.max_seq_len} head_dim={model_cfg.head_dim} "
-                f"heads={model_cfg.num_heads} kv_heads={model_cfg.num_kv_heads}"
+                f"heads={model_cfg.num_heads // shards} "
+                f"kv_heads={model_cfg.num_kv_heads // shards} a shard"
             )
         bucket = min(cfg.prefill_chunk, self.max_seq_len)
         if bucket >= flash_attention.MIN_T and not flash_attention.supported(
@@ -661,12 +871,12 @@ class LLMEngine:
 
     @staticmethod
     def _packs(params):
-        for lp in params["layers"]:
-            for val in lp.values():
-                if isinstance(val, dict):
-                    yield val
-        if isinstance(params.get("lm_head"), dict):
-            yield params["lm_head"]
+        """Every int8 pack of the tree, each shard's tile of a sharded one."""
+        leaves = [v for lp in params["layers"] for v in lp.values()] + [params.get("lm_head")]
+        for val in leaves:
+            for piece in (val if isinstance(val, sharding.Shards) else [val]):
+                if isinstance(piece, dict):
+                    yield piece
 
     def _init_prefix_cache(self, cfg: EngineConfig, model_cfg, dtype) -> None:
         """The automatic prefix KV cache (JAX ``_init_prefix_cache``):
@@ -694,6 +904,7 @@ class LLMEngine:
             return
         self._prefix_store = llama.init_kv_cache_layers(
             model_cfg, P, self.max_seq_len, dtype, self.device, quantized=self._kv_quant,
+            tp=self._tp,
         )
         self._prefix = prefix_cache.PrefixCache(
             chunk=cfg.prefill_chunk, slots=P, max_len=self.max_seq_len
@@ -709,9 +920,8 @@ class LLMEngine:
         if self._prefix is None:
             return 0
         if self._prefix_store is not None:
-            return sum(t.numel() * t.element_size() for c in self._prefix_store for t in c.values())
-        per_page = sum(t[0].numel() * t.element_size() for c in self._cache for t in c.values())
-        return self._prefix.capacity * self._max_pages_per_slot * per_page
+            return sum(t.numel() * t.element_size() for t in _cache_tensors(self._prefix_store))
+        return self._prefix.capacity * self._max_pages_per_slot * self._page_bytes()
 
     def _drop_prefix_pages(self, entry: prefix_cache.PrefixEntry) -> None:
         """Prefix-cache drop hook (paged layout): an entry leaving the
@@ -776,6 +986,8 @@ class LLMEngine:
         picks the program of the next dispatch; rows admitted while spec
         was off have no context and never draft until their slot
         recycles."""
+        if enabled and self._tp is not None:
+            raise NotServedUnderTP(f"speculative decoding {_TP_REFUSED}")
         with self._lock:
             self._spec_enabled = bool(enabled) and self._spec_available
             if not self._spec_enabled:
@@ -791,6 +1003,8 @@ class LLMEngine:
         ``combined``); returns the kind in effect, or None where there is
         no verify or no draft model is configured. The draft model is built
         on the first switch to it."""
+        if self._tp is not None:
+            raise NotServedUnderTP(f"speculative decoding {_TP_REFUSED}")
         if not self._spec_available:
             return None
         cfg = self.engine_config
@@ -1063,6 +1277,8 @@ class LLMEngine:
 
         Runs on the caller's thread within ``drain_timeout_s`` (or
         ``timeout``); returns the summary the drain route answers."""
+        if self._tp is not None:
+            raise NotServedUnderTP(f"drain's KV snapshots {_TP_REFUSED}")
         budget_s = float(self.engine_config.drain_timeout_s if timeout is None else timeout)
         deadline = time.time() + budget_s
         flight_recorder.event("drain_begin", timeout_s=round(budget_s, 3))
@@ -1188,6 +1404,8 @@ class LLMEngine:
         payload, the fixed layout, or no free slot or pages). Raises
         ``SnapshotMismatch`` on a config-fingerprint or KV-geometry
         mismatch and ``EngineOverloaded`` while this engine drains."""
+        if self._tp is not None:
+            raise NotServedUnderTP(f"snapshot restore {_TP_REFUSED}")
         t0 = time.time()
         self._spool.check_fingerprint(snap)
         request_snapshot_mod.check_geometry(self, snap)
@@ -1278,6 +1496,7 @@ class LLMEngine:
         # process-wide, as JAX's families are: read deltas
         out.update(spec_decode_mod.metrics_snapshot())
         out["spec_draft_skips"] = self.scheduler.draft_skips
+        out["tp_shards"] = self._mesh.size
         return out
 
     @property
@@ -1773,7 +1992,9 @@ class LLMEngine:
                 last_h = self._prefill_chunked(tokens, lengths, slots, cached)
             finally:
                 self._chunk_reqs = None
-            logits = llama._head(self.params, last_h[:, None, :], cfg, self._quant_kernel)[:, 0, :]
+            logits = llama._head(
+                self.params, last_h[:, None, :], cfg, self._quant_kernel, self._tp
+            )[:, 0, :]
         else:
             for req in reqs:
                 flight_recorder.event_rid(req.rid, "prefill_wave", bucket=bucket, wave_rows=N,
@@ -1783,12 +2004,13 @@ class LLMEngine:
             with self._annotate("engine.prefill_wave"):
                 logits, kvs = llama.prefill_layers(
                     self.params, cfg, self._to_device(tokens, torch.long), lengths_d,
-                    quant_kernel=self._quant_kernel,
+                    quant_kernel=self._quant_kernel, tp=self._tp,
                 )
                 if self._paged:
-                    llama.write_prefill_pages(self._cache, kvs, self._tables[slots], self._page)
+                    llama.write_prefill_pages(self._cache, kvs, self._tables[slots], self._page,
+                                              tp=self._tp)
                 else:
-                    llama.write_prefill_slots(self._cache, kvs, slots)
+                    llama.write_prefill_slots(self._cache, kvs, slots, tp=self._tp)
             del kvs
             if self._dtl is not None:
                 self._dtl.record_span(
@@ -1864,7 +2086,7 @@ class LLMEngine:
     def _page_bytes(self) -> int:
         """Device bytes one pool page holds across every layer (scale
         planes included)."""
-        return sum(t[0].numel() * t.element_size() for c in self._cache for t in c.values())
+        return sum(t[0].numel() * t.element_size() for t in _cache_tensors(self._cache))
 
     def _import_handoff(self, rec) -> None:
         """The decode tier's import of a prefill-tier record (dispatch
@@ -2009,12 +2231,12 @@ class LLMEngine:
                     cand, _ = llama.extend_layers_paged(
                         self.params, self.model_config, tok_d, offsets, valid, slots,
                         self._tables, self._cache, window, self._page,
-                        quant_kernel=self._quant_kernel,
+                        quant_kernel=self._quant_kernel, tp=self._tp,
                     )
                 else:
                     cand, _ = llama.extend_layers(
                         self.params, self.model_config, tok_d, offsets, valid, slots,
-                        self._cache, window, quant_kernel=self._quant_kernel,
+                        self._cache, window, quant_kernel=self._quant_kernel, tp=self._tp,
                     )
                 last_h = torch.where((valid > 0)[:, None], cand, last_h)
             live_rows, live_tokens = int((valid_np > 0).sum()), int(valid_np.sum())
@@ -2139,12 +2361,13 @@ class LLMEngine:
                 logits, _ = llama.decode_layers_paged(
                     self.params, self.model_config, tok, pos, self._live_dev, self._tables,
                     self._cache, window=window, page_size=self._page,
-                    quant_kernel=self._quant_kernel, page_kernel=self._page_kernel,
+                    quant_kernel=self._quant_kernel, page_kernel=self._page_kernel, tp=self._tp,
                 )
             else:
                 logits, _ = llama.decode_layers(
                     self.params, self.model_config, tok, pos, self._cache,
                     window=window, quant_kernel=self._quant_kernel, kv_kernel=self._kv_kernel,
+                    tp=self._tp,
                 )
             tok = sampling.sample_tokens(
                 logits[:, : self._sample_vocab], self._temps_dev, self._topps_dev,
@@ -2781,14 +3004,19 @@ def get_engine(config: Optional[EngineConfig] = None, device=None) -> LLMEngine:
     """Process-wide engine singleton, on the card unless ``device`` says
     otherwise (weights live once there); ``config=None`` reads the
     configuration file and the ``APP_ENGINE_*`` environment
-    (``config.load_config``), as JAX's reads ``get_config().engine``."""
+    (``config.load_config``), as JAX's reads ``get_config().engine``, and
+    refuses one that shards beside the retrieval tier (ROADMAP queue 1
+    item 9e)."""
     global _ENGINE
     with _ENGINE_LOCK:
         if _ENGINE is None:
             if config is None:
+                from generativeaiexamples_tpu_torch import config_validate
                 from generativeaiexamples_tpu_torch.config import load_config
 
-                config = load_config().engine
+                app = load_config()
+                config_validate.check_tier_shards(app)
+                config = app.engine
             _ENGINE = LLMEngine(config, device=device)
         return _ENGINE
 

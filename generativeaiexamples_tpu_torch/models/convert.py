@@ -5,7 +5,8 @@ with numpy arrays as leaves (``np.asarray`` of each leaf is enough), either
 stacked on a leading layer axis (``init_params``,
 ``init_packed_params_int8``) or already split per layer
 (``consume_split_params_layers``), dense or int8-packed, and returns the
-port's layout: one dict of tensors per layer. ``bert_params_from_numpy``
+port's layout: one dict of tensors per layer, or, for a tensor-parallel
+tree, the shards' trees (``mesh=``). ``bert_params_from_numpy``
 and ``rank_head_from_numpy`` do the same for the BERT encoder's tree
 (``models/bert.py``) and the cross-encoder's head.
 
@@ -45,8 +46,17 @@ def _num_layers(stacked: Dict[str, Any]) -> int:
     raise ValueError("empty layer tree")
 
 
-def params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
-    """The port's parameters from a JAX parameter tree (see module doc)."""
+def params_from_jax(tree: Dict[str, Any], device="cpu", mesh=None) -> Dict[str, Any]:
+    """The port's parameters from a JAX parameter tree (see module doc).
+    With ``mesh`` (parallel/mesh.py) the tree is a tensor-parallel one of
+    as many shards (``quantize_params_int8(..., tp_shards=N)``,
+    ``init_packed_params_int8(..., tp_shards=N)``, or dense), carried in
+    its per-shard layout and cut into the shards' trees on their devices
+    (``parallel/sharding.shard_params``); ``device`` is then unused."""
+    if mesh is not None:
+        from generativeaiexamples_tpu_torch.parallel import sharding
+
+        return sharding.shard_params(params_from_jax(tree), mesh)
     layers = tree["layers"]
     if isinstance(layers, dict):  # stacked on a leading layer axis
         L = _num_layers(layers)

@@ -28,7 +28,13 @@ Differences from the JAX functions, all in PyTorch idiom:
   ``quant_kernel``, ``page_kernel``); a flag that selects a kernel runs
   it on CUDA tensors and its plain version on CPU tensors;
 - random weights come from a seeded ``torch.Generator`` on the target
-  device.
+  device;
+- tensor parallelism (``tp``, a ``parallel/tp_kernels.TPContext``): a
+  weight cut into ``Shards`` runs through ``packed_matmul_tp``, a layer's
+  cache is a ``Shards`` of per-shard dicts of ``Hkv / N`` heads, written
+  shard by shard and read through the ``*_tp`` kernel launchers or, off
+  the kernels, gathered back on the first shard's device; everything
+  else (activations, norms, the embedding) stays whole there.
 
 Physical page 0 of the pool is the scratch page: dead rows and padding
 writes land there, never on a page a live request owns.
@@ -42,8 +48,10 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from generativeaiexamples_tpu_torch.ops import (
-    decode_attention, flash_attention, int8_matmul, page_attention,
+    decode_attention, flash_attention, int8_matmul, page_attention, quant,
 )
+from generativeaiexamples_tpu_torch.parallel import sharding, tp_kernels
+from generativeaiexamples_tpu_torch.parallel.sharding import Shards
 
 Params = Dict[str, Any]
 
@@ -195,6 +203,21 @@ def count_logical_params(cfg: LlamaConfig) -> int:
     return n + cfg.num_layers * 2 * cfg.hidden_size + cfg.hidden_size
 
 
+def serving_memory_bytes(
+    cfg: LlamaConfig, batch: int, max_seq_len: int, weight_bytes: float = 1, kv_bytes: float = 2,
+) -> Dict[str, int]:
+    """Device bytes the serving engine needs: weights and KV cache (the
+    JAX function's fit-planning arithmetic). ``kv_bytes`` is per element
+    and may be fractional (int4); a quantized width (< 2) carries the f32
+    scale planes."""
+    weights = int(count_logical_params(cfg) * weight_bytes)
+    kv = 2 * batch * max_seq_len * cfg.num_kv_heads * cfg.head_dim
+    cache = int(kv * cfg.num_layers * kv_bytes)
+    if kv_bytes < 2:
+        cache += 2 * batch * max_seq_len * cfg.num_kv_heads * cfg.num_layers * 4
+    return {"weights": weights, "kv_cache": cache, "total": weights + cache}
+
+
 _LAYER_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
@@ -268,55 +291,102 @@ def _attention(
     return out.reshape(B, T, Hq, Dh)
 
 
-def _proj(x: torch.Tensor, w, quant_kernel=None) -> torch.Tensor:
+def _proj(x: torch.Tensor, w, quant_kernel=None, name: str = "", tp=None) -> torch.Tensor:
     """x @ w for a dense [K, F] matrix or an int8 pack (ops/quant.py).
     ``quant_kernel`` picks the pack's product (``int8_matmul.packed_matmul``
     modes): None or True, the weight-only int8 kernel; False, its plain
     version at decode shapes; ``"w8a8"``, per-token int8 activations and
     the int8 x int8 kernel; ``"w8a8_plain"``, that kernel's plain
-    version."""
+    version. A weight cut into :class:`Shards` (parallel/sharding.py)
+    runs on each shard's tile through ``tp_kernels.packed_matmul_tp``, as
+    the projection ``name``'s Megatron kind (``quant.PACK_KINDS``)."""
+    mode = {None: "int8", True: "int8", False: "int8_plain"}.get(quant_kernel, quant_kernel)
+    if isinstance(w, Shards):
+        return tp_kernels.packed_matmul_tp(x, w, tp, quant.PACK_KINDS[name], mode)
     if isinstance(w, dict):
-        mode = {None: "int8", True: "int8", False: "int8_plain"}.get(quant_kernel, quant_kernel)
         return int8_matmul.packed_matmul(x, w, mode)
     return x @ w
 
 
-def _block(h, lp, cfg: LlamaConfig, positions, attn, quant_kernel=None):
+def _block(h, lp, cfg: LlamaConfig, positions, attn, quant_kernel=None, tp=None):
     """One transformer block; ``attn(q, k, v) -> out`` supplies the
-    attention flavor (einsum, flash kernel, or a paged read)."""
+    attention flavor (einsum, flash kernel, or a paged read). Under
+    ``tp`` the projections are unfused and run shard by shard; q, k and v
+    come back whole (replicated), their heads the shards' in order."""
     B, T = h.shape[:2]
     x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
     if "wqkv" in lp:  # int8-fused serving layout (ops/quant.py)
         qkv = _proj(x, lp["wqkv"], quant_kernel)
         q, k, v = torch.split(qkv, [cfg.q_dim, cfg.kv_dim, cfg.kv_dim], dim=-1)
     else:
-        q = _proj(x, lp["wq"], quant_kernel)
-        k = _proj(x, lp["wk"], quant_kernel)
-        v = _proj(x, lp["wv"], quant_kernel)
+        q = _proj(x, lp["wq"], quant_kernel, "wq", tp)
+        k = _proj(x, lp["wk"], quant_kernel, "wk", tp)
+        v = _proj(x, lp["wv"], quant_kernel, "wv", tp)
     q = apply_rope(q.reshape(B, T, cfg.num_heads, cfg.head_dim), positions, cfg)
     k = apply_rope(k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim), positions, cfg)
     v = v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
     attn_out = attn(q, k, v)
-    h = h + _proj(attn_out.reshape(B, T, cfg.q_dim), lp["wo"], quant_kernel)
+    h = h + _proj(attn_out.reshape(B, T, cfg.q_dim), lp["wo"], quant_kernel, "wo", tp)
     x = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
     if "w_gateup" in lp:
         gate_raw, up = torch.split(
             _proj(x, lp["w_gateup"], quant_kernel), cfg.intermediate_size, dim=-1
         )
     else:
-        gate_raw = _proj(x, lp["w_gate"], quant_kernel)
-        up = _proj(x, lp["w_up"], quant_kernel)
+        gate_raw = _proj(x, lp["w_gate"], quant_kernel, "w_gate", tp)
+        up = _proj(x, lp["w_up"], quant_kernel, "w_up", tp)
     gate = torch.nn.functional.silu(gate_raw.float()).to(x.dtype)
-    return h + _proj(gate * up, lp["w_down"], quant_kernel)
+    return h + _proj(gate * up, lp["w_down"], quant_kernel, "w_down", tp)
 
 
-def _head(params: Params, h: torch.Tensor, cfg: LlamaConfig, quant_kernel=None) -> torch.Tensor:
+def _head(params: Params, h: torch.Tensor, cfg: LlamaConfig, quant_kernel=None, tp=None) -> torch.Tensor:
     """Final RMSNorm + (possibly tied) lm head; f32 logits."""
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
-    return _proj(h, head, quant_kernel).float()
+    return _proj(h, head, quant_kernel, "lm_head", tp).float()
+
+
+# --------------------------------------------------------------------- #
+# Sharded KV caches: under TP a layer's cache is a Shards of per-shard
+# dicts (parallel/sharding.py), each holding that shard's KV heads on its
+# device. Writes run shard by shard on the shard's heads; the non-kernel
+# reads gather every shard's rows back on the first shard's device. Both
+# go through tp_kernels' map_shards, scatter and gather.
+
+
+def _first(c) -> Dict[str, torch.Tensor]:
+    """A layer cache's (first shard's) dict."""
+    return c[0] if isinstance(c, Shards) else c
+
+
+def _write_heads(tp, fn, c, k, v, *args) -> None:
+    """``fn(cache dict, k, v, *args)`` on a layer's cache: once, or under
+    ``tp`` once a shard on that shard's heads of ``k`` and ``v``
+    (``tp_kernels.map_shards``)."""
+    if tp is None:
+        fn(c, k, v, *args)
+        return
+    tp_kernels.map_shards(
+        fn, tp, c, tp_kernels.scatter(k, tp, 2), tp_kernels.scatter(v, tp, 2), *args
+    )
+
+
+def _read_heads(tp, fn, c, *args) -> torch.Tensor:
+    """``fn(cache dict, *args)`` on a layer's cache: once, or under ``tp``
+    once a shard, the outputs concatenated on their head axis (2) on the
+    first shard's device."""
+    if tp is None:
+        return fn(c, *args)
+    return tp_kernels.gather(tp_kernels.map_shards(fn, tp, c, *args), tp, 2)
+
+
+def _fields(c, key: str):
+    """One leaf of a layer cache, as the TP kernels take it."""
+    if key not in _first(c):
+        return None
+    return Shards(ci[key] for ci in c) if isinstance(c, Shards) else c[key]
 
 
 def prefill_layers(
@@ -326,29 +396,35 @@ def prefill_layers(
     lengths: torch.Tensor,  # [B]
     use_flash: Optional[bool] = None,
     quant_kernel: Optional[bool] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, List[Tuple[torch.Tensor, torch.Tensor]]]:
     """Unrolled prefill; returns (last-token logits [B, V], per-layer
     (k, v) [B, T, Hkv, Dh] for the caller to write into the page pool).
-    ``use_flash=None`` follows ``flash_attention.preferred``."""
+    ``use_flash=None`` follows ``flash_attention.preferred``; with ``tp``
+    the flash kernel runs head-sharded where ``flash_supported`` holds."""
     B, T = tokens.shape
     device = tokens.device
     positions = torch.arange(T, device=device).expand(B, T)
     if use_flash is None:
         use_flash = flash_attention.preferred(T, cfg.head_dim, device)
+    if use_flash and tp is not None:
+        use_flash = tp_kernels.flash_supported(cfg, tp.shards, T)
     h = params["embed"][tokens]
     mask = None if use_flash else positions[:, :, None] >= positions[:, None, :]
     kvs = []
 
     def attn(q, k, v):
         kvs.append((k, v))
+        if use_flash and tp is not None:
+            return tp_kernels.flash_attention_tp(q, k, v, tp)
         if use_flash:
             return flash_attention.flash_attention_causal(q, k, v)
         return _attention(q, k, v, mask)
 
     for lp in params["layers"]:
-        h = _block(h, lp, cfg, positions, attn, quant_kernel)
+        h = _block(h, lp, cfg, positions, attn, quant_kernel, tp)
     last_h = h[torch.arange(B, device=device), lengths.long() - 1][:, None]
-    return _head(params, last_h, cfg, quant_kernel)[:, 0, :], kvs
+    return _head(params, last_h, cfg, quant_kernel, tp)[:, 0, :], kvs
 
 
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -379,16 +455,26 @@ def quantize_kv_int4(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 unpack_int4 = page_attention.unpack_int4
 
 
+def _layers(cfg: LlamaConfig, one, cut, tp) -> list:
+    """``one()`` a layer; under ``tp`` each layer cut on its KV heads
+    (``cut``, parallel/sharding.py) as soon as it is made."""
+    if tp is None:
+        return [one() for _ in range(cfg.num_layers)]
+    return [cut([one()], tp.mesh)[0] for _ in range(cfg.num_layers)]
+
+
 def init_kv_pool(
     cfg: LlamaConfig, pool: int, page_size: int, dtype: torch.dtype = torch.bfloat16,
-    device="cpu", quantized: bool = False, packed: bool = False,
-) -> List[Dict[str, torch.Tensor]]:
+    device="cpu", quantized: bool = False, packed: bool = False, tp=None,
+) -> list:
     """Per-layer page pools ``[pool, page_size, Hkv, Dh]``, token-major.
     ``quantized`` pools hold int8 rows with per-(token, head) f32 scales
     ``ks``/``vs`` ``[pool, page_size, Hkv]``; ``packed`` (int4) pools hold
     uint8 ``[pool, page_size, Hkv, Dh // 2]`` (two values per byte,
     :func:`quantize_kv_int4`) with the same scale planes. Readers tell the
-    three apart by ``"ks" in pool`` and the uint8 dtype, as in JAX."""
+    three apart by ``"ks" in pool`` and the uint8 dtype, as in JAX. Under
+    ``tp`` each layer is a Shards of the shards' pools of ``Hkv / N``
+    heads, each on its device (``sharding.shard_kv_pool``)."""
     Hkv, Dh = cfg.num_kv_heads, cfg.head_dim
 
     def one():
@@ -407,15 +493,16 @@ def init_kv_pool(
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
 
-    return [one() for _ in range(cfg.num_layers)]
+    return _layers(cfg, one, sharding.shard_kv_pool, tp)
 
 
 def _kv_codec(caches: list):
     """The pool's row quantizer (``quantize_kv``, ``quantize_kv_int4``)
     or None for a bf16/f32 pool."""
-    if "ks" not in caches[0]:
+    c = _first(caches[0])
+    if "ks" not in c:
         return None
-    return quantize_kv_int4 if caches[0]["k"].dtype == torch.uint8 else quantize_kv
+    return quantize_kv_int4 if c["k"].dtype == torch.uint8 else quantize_kv
 
 
 def _dequant_window(c, key: str, tables, pages_w: int, page_size: int) -> torch.Tensor:
@@ -443,9 +530,10 @@ def write_prefill_pages(
     kvs: list,  # per-layer (k, v) [N, T, Hkv, Dh] from prefill_layers
     row_tables: torch.Tensor,  # [N, Pmax] the wave rows' page tables
     page_size: int,
+    tp=None,
 ) -> list:
     """Scatter a monolithic wave's fresh K/V rows into the page pool, in
-    place. Right-padding rows land in the rows' own reserved pages (decode
+    place (shard by shard under ``tp``). Right-padding rows land in the rows' own reserved pages (decode
     overwrites them before any query attends them) or, past the
     reservation, on the scratch page."""
     N, T = kvs[0][0].shape[:2]
@@ -453,7 +541,8 @@ def write_prefill_pages(
     pos = torch.arange(T, device=row_tables.device)
     phys = torch.gather(row_tables.long(), 1, (pos // page_size).expand(N, T))
     sip = (pos % page_size).expand(N, T)
-    for c, (k, v) in zip(caches, kvs):
+
+    def write(c, k, v, phys, sip):
         if qfn is not None:  # quantized rows: only the write is quantized
             kq, ks = qfn(k)
             vq, vs = qfn(v)
@@ -462,6 +551,9 @@ def write_prefill_pages(
             k, v = kq, vq
         c["k"].index_put_((phys, sip), k.to(c["k"].dtype))  # in place
         c["v"].index_put_((phys, sip), v.to(c["v"].dtype))
+
+    for c, (k, v) in zip(caches, kvs):
+        _write_heads(tp, write, c, k, v, phys, sip)
     return caches
 
 
@@ -478,12 +570,13 @@ def _chunk_layers_paged(
     page_size: int,
     quant_kernel: Optional[bool] = None,
     page_kernel: Optional[bool] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, list]:
     """A chunk of up to C tokens per row at each row's offset: rows write
     their valid tokens into their pages (in place; dead rows write the
     scratch page) and attend the gathered window of ``window`` tokens, or,
     with ``page_kernel``, read the pool through the paged-attention
-    kernel."""
+    kernel (``paged_attention_tp`` under ``tp``)."""
     N, C = tokens.shape
     device = tokens.device
     qfn = _kv_codec(caches)
@@ -501,7 +594,7 @@ def _chunk_layers_paged(
     phys = torch.where((valid > 0)[:, None], phys, torch.zeros_like(phys))
     sip = positions % page_size
 
-    def masked_write(buf, rows, trailing):
+    def masked_write(buf, rows, trailing, phys, sip, tok_valid):
         """Write ``rows`` where the token is valid, the current contents
         elsewhere (a value mask over whole rows: an int4 byte never spans
         two tokens)."""
@@ -509,37 +602,48 @@ def _chunk_layers_paged(
         keep = tok_valid.reshape(tok_valid.shape + (1,) * trailing)
         buf.index_put_((phys, sip), torch.where(keep, rows.to(cur.dtype), cur))  # in place
 
+    def write(c, k, v, phys, sip, tok_valid):
+        if qfn is not None:
+            (kq, ks), (vq, vs) = qfn(k), qfn(v)
+            masked_write(c["ks"], ks, 1, phys, sip, tok_valid)
+            masked_write(c["vs"], vs, 1, phys, sip, tok_valid)
+            k, v = kq, vq
+        masked_write(c["k"], k, 2, phys, sip, tok_valid)
+        masked_write(c["v"], v, 2, phys, sip, tok_valid)
+
+    def window(c, key, row_tables, dtype):
+        if qfn is not None:  # dequantized to the activation dtype (JAX's chunked formula)
+            return _dequant_window(c, key, row_tables, Pw, page_size).to(dtype)
+        return _gather_page_window(c[key], row_tables, Pw, page_size)
+
     for lp, c in zip(params["layers"], caches):
         def attn(q, k, v, c=c):
-            if qfn is not None:
-                (kq, ks), (vq, vs) = qfn(k), qfn(v)
-                masked_write(c["ks"], ks, 1)
-                masked_write(c["vs"], vs, 1)
-                k, v = kq, vq
-            masked_write(c["k"], k, 2)
-            masked_write(c["v"], v, 2)
+            _write_heads(tp, write, c, k, v, phys, sip, tok_valid)
             if page_kernel:
-                return page_attention.paged_attention(
-                    q, c["k"], c["v"], row_tables, offsets, c.get("ks"), c.get("vs")
-                ).to(q.dtype)
-            if qfn is not None:
-                # dequantized to the activation dtype, then the same
-                # attention as a bf16 pool (JAX's chunked formula)
-                return _attention(
-                    q,
-                    _dequant_window(c, "k", row_tables, Pw, page_size).to(q.dtype),
-                    _dequant_window(c, "v", row_tables, Pw, page_size).to(q.dtype),
-                    mask,
-                )
+                return _paged_read(q, c, row_tables, offsets, tp)
+            # a quantized pool reads as a bf16 one once dequantized
             return _attention(
-                q,
-                _gather_page_window(c["k"], row_tables, Pw, page_size),
-                _gather_page_window(c["v"], row_tables, Pw, page_size),
-                mask,
+                q, _read_heads(tp, window, c, "k", row_tables, q.dtype),
+                _read_heads(tp, window, c, "v", row_tables, q.dtype), mask,
             )
 
-        h = _block(h, lp, cfg, positions, attn, quant_kernel)
+        h = _block(h, lp, cfg, positions, attn, quant_kernel, tp)
     return h, caches
+
+
+def _paged_read(q, c, tables, positions, tp) -> torch.Tensor:
+    """The page kernel's read of a layer's pool, shard by shard under
+    ``tp``."""
+    if tp is not None:
+        out = tp_kernels.paged_attention_tp(
+            q, _fields(c, "k"), _fields(c, "v"), tables, positions,
+            _fields(c, "ks"), _fields(c, "vs"), tp=tp,
+        )
+    else:
+        out = page_attention.paged_attention(
+            q, c["k"], c["v"], tables, positions, c.get("ks"), c.get("vs")
+        )
+    return out.to(q.dtype)
 
 
 def extend_layers_paged(
@@ -555,6 +659,7 @@ def extend_layers_paged(
     page_size: int,
     quant_kernel: Optional[bool] = None,
     page_kernel: Optional[bool] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, list]:
     """Chunked prefill over the page pool; returns (each row's hidden state
     at its last valid token [N, D], pools). The engine leaves
@@ -563,7 +668,7 @@ def extend_layers_paged(
     C = tokens.shape[1]
     h, caches = _chunk_layers_paged(
         params, cfg, tokens, offsets, valid, slots, tables, caches, window,
-        page_size, quant_kernel=quant_kernel, page_kernel=page_kernel,
+        page_size, quant_kernel=quant_kernel, page_kernel=page_kernel, tp=tp,
     )
     last_idx = torch.clamp(valid.long(), 1, C) - 1
     return h[torch.arange(h.shape[0], device=h.device), last_idx], caches
@@ -582,6 +687,7 @@ def verify_layers_paged(
     page_size: int,
     quant_kernel: Optional[bool] = None,
     page_kernel: Optional[bool] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, list]:
     """Speculative-decoding verify over the page pool: the chunk pass of
     ``extend_layers_paged`` with logits at every chunk position, ``[N, C,
@@ -594,9 +700,9 @@ def verify_layers_paged(
     them."""
     h, caches = _chunk_layers_paged(
         params, cfg, tokens, offsets, valid, slots, tables, caches, window,
-        page_size, quant_kernel=quant_kernel, page_kernel=page_kernel,
+        page_size, quant_kernel=quant_kernel, page_kernel=page_kernel, tp=tp,
     )
-    return _head(params, h, cfg, quant_kernel), caches
+    return _head(params, h, cfg, quant_kernel, tp), caches
 
 
 def decode_layers_paged(
@@ -611,11 +717,13 @@ def decode_layers_paged(
     page_size: int = 128,
     quant_kernel: Optional[bool] = None,
     page_kernel: Optional[bool] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, list]:
     """One decode step over the page pool; returns (logits [B, V], pools).
     Each row writes its new K/V row in place (dead rows write the scratch
     page), then reads the pool through the paged-attention kernel
-    (``page_kernel``) or the gathered window of ``window`` tokens."""
+    (``page_kernel``; ``paged_attention_tp`` under ``tp``) or the gathered
+    window of ``window`` tokens."""
     device = tokens.device
     qfn = _kv_codec(caches)
     B = tokens.shape[0]
@@ -631,23 +739,30 @@ def decode_layers_paged(
     sip = pos2 % page_size
     mask = torch.arange(W, device=device)[None, None, :] <= pos2[:, :, None]
 
+    def write(c, k, v, phys, sip):
+        if qfn is not None:
+            (k, ks), (v, vs) = qfn(k), qfn(v)
+            c["ks"].index_put_((phys, sip), ks)  # in place
+            c["vs"].index_put_((phys, sip), vs)
+        c["k"].index_put_((phys, sip), k.to(c["k"].dtype))  # in place
+        c["v"].index_put_((phys, sip), v.to(c["v"].dtype))
+
+    def dequant(c, key, tables):
+        return _dequant_window(c, key, tables, Pw, page_size)
+
+    def gathered(c, key, tables):
+        return _gather_page_window(c[key], tables, Pw, page_size)
+
     for lp, c in zip(params["layers"], caches):
         def attn(q, k, v, c=c):
-            if qfn is not None:
-                (k, ks), (v, vs) = qfn(k), qfn(v)
-                c["ks"].index_put_((phys, sip), ks)  # in place
-                c["vs"].index_put_((phys, sip), vs)
-            c["k"].index_put_((phys, sip), k.to(c["k"].dtype))  # in place
-            c["v"].index_put_((phys, sip), v.to(c["v"].dtype))
+            _write_heads(tp, write, c, k, v, phys, sip)
             if page_kernel:
-                return page_attention.paged_attention(
-                    q, c["k"], c["v"], tables, positions, c.get("ks"), c.get("vs")
-                ).to(q.dtype)
+                return _paged_read(q, c, tables, positions, tp)
             if qfn is not None:
                 # JAX's quantized decode read: the window dequantized to
                 # f32, f32 einsums and softmax, one rounding at the end
-                kd = _dequant_window(c, "k", tables, Pw, page_size)  # [B, W, Hkv, Dh]
-                vd = _dequant_window(c, "v", tables, Pw, page_size)
+                kd = _read_heads(tp, dequant, c, "k", tables)  # [B, W, Hkv, Dh]
+                vd = _read_heads(tp, dequant, c, "v", tables)
                 qg = q.reshape(B, 1, Hkv, G, cfg.head_dim).float()
                 sc = torch.einsum("btkgd,bskd->bkgts", qg, kd) / math.sqrt(cfg.head_dim)
                 sc = torch.where(mask[:, None, None], sc, torch.full_like(sc, -1e30))
@@ -655,14 +770,12 @@ def decode_layers_paged(
                 out = torch.einsum("bkgts,bskd->btkgd", p, vd)
                 return out.reshape(B, 1, cfg.num_heads, cfg.head_dim).to(q.dtype)
             return _attention(
-                q,
-                _gather_page_window(c["k"], tables, Pw, page_size),
-                _gather_page_window(c["v"], tables, Pw, page_size),
+                q, _read_heads(tp, gathered, c, "k", tables), _read_heads(tp, gathered, c, "v", tables),
                 mask,
             )
 
-        h = _block(h, lp, cfg, pos2, attn, quant_kernel)
-    return _head(params, h, cfg, quant_kernel)[:, 0, :], caches
+        h = _block(h, lp, cfg, pos2, attn, quant_kernel, tp)
+    return _head(params, h, cfg, quant_kernel, tp)[:, 0, :], caches
 
 
 # --------------------------------------------------------------------- #
@@ -679,10 +792,13 @@ def init_kv_cache_layers(
     dtype: torch.dtype = torch.bfloat16,
     device="cpu",
     quantized: bool = False,
-) -> List[Dict[str, torch.Tensor]]:
+    tp=None,
+) -> list:
     """Per-layer fixed-layout caches: ``[B, S, Hkv, Dh]`` in ``dtype``, or
     for ``quantized`` head-major int8 ``[B, Hkv, S, Dh]`` with per-(slot,
-    head, row) f32 scales ``ks``/``vs`` ``[B, Hkv, 1, S]``."""
+    head, row) f32 scales ``ks``/``vs`` ``[B, Hkv, 1, S]``. Under ``tp``
+    each layer is a Shards of the shards' caches of ``Hkv / N`` heads
+    (``sharding.shard_kv_cache_layered``)."""
     S = max_seq_len or cfg.max_seq_len
     B, Hkv, Dh = batch, cfg.num_kv_heads, cfg.head_dim
 
@@ -697,7 +813,7 @@ def init_kv_cache_layers(
         return {"k": torch.zeros((B, S, Hkv, Dh), dtype=dtype, device=device),
                 "v": torch.zeros((B, S, Hkv, Dh), dtype=dtype, device=device)}
 
-    return [one() for _ in range(cfg.num_layers)]
+    return _layers(cfg, one, sharding.shard_kv_cache_layered, tp)
 
 
 def copy_kv_rows(src: list, dst: list, src_slot: int, dst_slot: int, length: int) -> None:
@@ -705,8 +821,11 @@ def copy_kv_rows(src: list, dst: list, src_slot: int, dst_slot: int, length: int
     caches ``src`` into slot ``dst_slot`` of ``dst``, in place, for every
     layer's k, v and (int8) scales: the prefix store's fetch (store ->
     slot) and insert (slot -> store). Device to device on the caller's
-    stream; no host read."""
+    stream; no host read. Sharded caches copy shard by shard."""
     for s, d in zip(src, dst):
+        if isinstance(s, Shards):
+            copy_kv_rows(list(s), list(d), src_slot, dst_slot, length)
+            continue
         if "ks" in s:  # head-major [B, Hkv, S, Dh], scales [B, Hkv, 1, S]
             d["k"][dst_slot, :, :length].copy_(s["k"][src_slot, :, :length])
             d["v"][dst_slot, :, :length].copy_(s["v"][src_slot, :, :length])
@@ -718,7 +837,7 @@ def copy_kv_rows(src: list, dst: list, src_slot: int, dst_slot: int, length: int
 
 
 def _cache_len(caches: list) -> int:
-    c = caches[0]
+    c = _first(caches[0])
     return c["k"].shape[2] if "ks" in c else c["k"].shape[1]
 
 
@@ -726,14 +845,16 @@ def write_prefill_slots(
     caches: list,
     kvs: list,  # per-layer (k, v) [N, T, Hkv, Dh] from prefill_layers
     slots: torch.Tensor,  # [N] the wave rows' slots
+    tp=None,
 ) -> list:
     """Write a monolithic wave's fresh K/V rows at ``[slot, 0:T]`` of each
-    slot's strip, in place (int8 caches quantize the rows on the write).
+    slot's strip, in place (int8 caches quantize the rows on the write;
+    shard by shard under ``tp``).
     Right-padding rows land past the prompt, where decode overwrites them
     before any query attends them."""
     T = kvs[0][0].shape[1]
-    s = slots.long()
-    for c, (k, v) in zip(caches, kvs):
+
+    def write(c, k, v, s):
         if "ks" in c:
             (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)  # [N, T, Hkv, Dh], [N, T, Hkv]
             c["k"][s, :, :T] = kq.transpose(1, 2)  # in place, head-major
@@ -743,6 +864,9 @@ def write_prefill_slots(
         else:
             c["k"][s, :T] = k.to(c["k"].dtype)  # in place
             c["v"][s, :T] = v.to(c["v"].dtype)
+
+    for c, (k, v) in zip(caches, kvs):
+        _write_heads(tp, write, c, k, v, slots.long())
     return caches
 
 
@@ -756,6 +880,7 @@ def _chunk_layers(
     caches: list,
     window: int,
     quant_kernel: Optional[bool] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, list]:
     """A chunk of up to C tokens per row at each row's offset over the fixed
     caches: the chunk's K/V rows are written at ``[slot, offset:offset+C]``
@@ -766,7 +891,8 @@ def _chunk_layers(
     read dequantized to f32 and cast to the activation dtype, as in JAX."""
     N, C = tokens.shape
     device = tokens.device
-    quantized = "ks" in caches[0]
+    first = _first(caches[0])
+    quantized = "ks" in first
     S = _cache_len(caches)
     W = min(window, S)
     ar = torch.arange(C, device=device)
@@ -777,7 +903,7 @@ def _chunk_layers(
     s = slots.long()
     if quantized:
         s3 = s[:, None, None]  # [N, 1, 1]
-        h3 = torch.arange(cfg.num_kv_heads, device=device)[None, :, None]  # [1, Hkv, 1]
+        h3 = torch.arange(first["k"].shape[1], device=device)[None, :, None]  # [1, Hkv, 1] a shard
         p3 = positions[:, None, :]  # [N, 1, C]
         rows_idx = (s3, h3, p3)  # -> [N, Hkv, C, ...]
         scale_idx = (s3, h3, torch.zeros_like(p3), p3)
@@ -791,24 +917,36 @@ def _chunk_layers(
         cur = buf[idx]
         buf.index_put_(idx, torch.where(keep, rows.to(cur.dtype), cur))  # in place
 
+    def write_int8(c, k, v, rows_idx, scale_idx, keep_rows, keep_scales):
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+        masked_write(c["k"], rows_idx, kq.transpose(1, 2), keep_rows)
+        masked_write(c["v"], rows_idx, vq.transpose(1, 2), keep_rows)
+        masked_write(c["ks"], scale_idx, ks.transpose(1, 2), keep_scales)
+        masked_write(c["vs"], scale_idx, vs.transpose(1, 2), keep_scales)
+
+    def write(c, k, v, rows_idx, keep_rows):
+        masked_write(c["k"], rows_idx, k, keep_rows)
+        masked_write(c["v"], rows_idx, v, keep_rows)
+
+    def read_int8(c, key, s, dtype):  # [N, W, Hkv, Dh] dequantized
+        w = c[key][s, :, :W].float() * c[key + "s"][s, :, 0, :W][..., None]
+        return w.transpose(1, 2).to(dtype)
+
+    def read(c, key, s):
+        return c[key][s, :W]
+
     for lp, c in zip(params["layers"], caches):
         def attn(q, k, v, c=c):
             if quantized:
-                (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
-                masked_write(c["k"], rows_idx, kq.transpose(1, 2), keep_rows)
-                masked_write(c["v"], rows_idx, vq.transpose(1, 2), keep_rows)
-                masked_write(c["ks"], scale_idx, ks.transpose(1, 2), keep_scales)
-                masked_write(c["vs"], scale_idx, vs.transpose(1, 2), keep_scales)
-                kw = c["k"][s, :, :W].float() * c["ks"][s, :, 0, :W][..., None]  # [N, Hkv, W, Dh]
-                vw = c["v"][s, :, :W].float() * c["vs"][s, :, 0, :W][..., None]
+                _write_heads(tp, write_int8, c, k, v, rows_idx, scale_idx, keep_rows, keep_scales)
                 return _attention(
-                    q, kw.transpose(1, 2).to(q.dtype), vw.transpose(1, 2).to(q.dtype), mask
+                    q, _read_heads(tp, read_int8, c, "k", s, q.dtype),
+                    _read_heads(tp, read_int8, c, "v", s, q.dtype), mask,
                 )
-            masked_write(c["k"], rows_idx, k, keep_rows)
-            masked_write(c["v"], rows_idx, v, keep_rows)
-            return _attention(q, c["k"][s, :W], c["v"][s, :W], mask)
+            _write_heads(tp, write, c, k, v, rows_idx, keep_rows)
+            return _attention(q, _read_heads(tp, read, c, "k", s), _read_heads(tp, read, c, "v", s), mask)
 
-        h = _block(h, lp, cfg, positions, attn, quant_kernel)
+        h = _block(h, lp, cfg, positions, attn, quant_kernel, tp)
     return h, caches
 
 
@@ -822,12 +960,14 @@ def extend_layers(
     caches: list,
     window: int,  # power of two >= max(offsets) + C
     quant_kernel: Optional[bool] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, list]:
     """Chunked prefill over the fixed caches; returns (each row's hidden
     state at its last valid token [N, D], caches)."""
     C = tokens.shape[1]
     h, caches = _chunk_layers(
-        params, cfg, tokens, offsets, valid, slots, caches, window, quant_kernel=quant_kernel
+        params, cfg, tokens, offsets, valid, slots, caches, window, quant_kernel=quant_kernel,
+        tp=tp,
     )
     last_idx = torch.clamp(valid.long(), 1, C) - 1
     return h[torch.arange(h.shape[0], device=h.device), last_idx], caches
@@ -843,6 +983,7 @@ def verify_layers(
     caches: list,
     window: int,  # power of two >= max(offsets) + C
     quant_kernel: Optional[bool] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, list]:
     """Speculative-decoding verify over the fixed caches: the chunk pass
     of ``extend_layers`` with logits at every chunk position, ``[N, C,
@@ -852,9 +993,10 @@ def verify_layers(
     until the next chunk overwrites them. The attention is the plain
     chunk attention over the strip, as in JAX."""
     h, caches = _chunk_layers(
-        params, cfg, tokens, offsets, valid, slots, caches, window, quant_kernel=quant_kernel
+        params, cfg, tokens, offsets, valid, slots, caches, window, quant_kernel=quant_kernel,
+        tp=tp,
     )
-    return _head(params, h, cfg, quant_kernel), caches
+    return _head(params, h, cfg, quant_kernel, tp), caches
 
 
 def draft_propose_layers(
@@ -914,16 +1056,19 @@ def decode_layers(
     window: Optional[int] = None,
     quant_kernel: Optional[bool] = None,
     kv_kernel: Optional[bool] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, list]:
     """One decode step over the fixed caches; returns (logits [B, V],
     caches). Each slot writes its new K/V row in place at its position (a
     dead slot at position 0 writes row 0 of its own strip), then reads: an
-    int8 cache through ``decode_attention`` (``kv_kernel``) or
-    ``decode_attention_xla`` over the first ``window`` rows, a bf16/f32
-    cache through the einsum attention over ``[:window]``."""
+    int8 cache through ``decode_attention`` (``kv_kernel``;
+    ``decode_attention_tp`` under ``tp``) or ``decode_attention_xla`` over
+    the first ``window`` rows, a bf16/f32 cache through the einsum
+    attention over ``[:window]``."""
     device = tokens.device
     B = tokens.shape[0]
-    quantized = "ks" in caches[0]
+    first = _first(caches[0])
+    quantized = "ks" in first
     S = _cache_len(caches)
     W = min(window or S, S)
     h = params["embed"][tokens[:, None]]
@@ -931,30 +1076,49 @@ def decode_layers(
     b_idx = torch.arange(B, device=device)[:, None]  # [B, 1]
     if quantized:
         b3, p3 = b_idx[:, :, None], pos2[:, :, None]  # [B, 1, 1]
-        h3 = torch.arange(cfg.num_kv_heads, device=device)[None, None, :]  # [1, 1, Hkv]
+        h3 = torch.arange(first["k"].shape[1], device=device)[None, None, :]  # [1, 1, Hkv] a shard
         z3 = torch.zeros_like(p3)
         pos32 = positions.to(torch.int32)  # the kernel's dtype, cast once for all layers
     else:
         mask = torch.arange(W, device=device)[None, None, :] <= pos2[:, :, None]  # [B, 1, W]
 
+    def write_int8(c, k, v, rows, scales):
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)  # [B, 1, Hkv, Dh], [B, 1, Hkv]
+        c["k"].index_put_(rows, kq)  # in place
+        c["v"].index_put_(rows, vq)
+        c["ks"].index_put_(scales, ks)
+        c["vs"].index_put_(scales, vs)
+
+    def write(c, k, v, rows):
+        c["k"].index_put_(rows, k.to(c["k"].dtype))  # in place
+        c["v"].index_put_(rows, v.to(c["v"].dtype))
+
+    def read_int8(c, q, pos2):
+        return decode_attention.decode_attention_xla(
+            q, c["k"], c["ks"], c["v"], c["vs"], pos2, window=W
+        )
+
+    def read(c, key):
+        return c[key][:, :W]
+
     for lp, c in zip(params["layers"], caches):
         def attn(q, k, v, c=c):
             if quantized:
-                (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)  # [B, 1, Hkv, Dh], [B, 1, Hkv]
-                c["k"].index_put_((b3, h3, p3), kq)  # in place
-                c["v"].index_put_((b3, h3, p3), vq)
-                c["ks"].index_put_((b3, h3, z3, p3), ks)
-                c["vs"].index_put_((b3, h3, z3, p3), vs)
+                _write_heads(tp, write_int8, c, k, v, (b3, h3, p3), (b3, h3, z3, p3))
+                if kv_kernel and tp is not None:
+                    out = tp_kernels.decode_attention_tp(
+                        q[:, 0], _fields(c, "k"), _fields(c, "ks"), _fields(c, "v"),
+                        _fields(c, "vs"), pos32, tp,
+                    )
+                    return out[:, None].to(q.dtype)
                 if kv_kernel:
                     return decode_attention.decode_attention(
                         q[:, 0], c["k"], c["ks"], c["v"], c["vs"], pos32
                     )[:, None].to(q.dtype)
-                return decode_attention.decode_attention_xla(
-                    q, c["k"], c["ks"], c["v"], c["vs"], pos2, window=W
-                )
-            c["k"].index_put_((b_idx, pos2), k.to(c["k"].dtype))  # in place
-            c["v"].index_put_((b_idx, pos2), v.to(c["v"].dtype))
-            return _attention(q, c["k"][:, :W], c["v"][:, :W], mask)
+                q_heads = q if tp is None else tp_kernels.scatter(q, tp, 2)
+                return _read_heads(tp, read_int8, c, q_heads, pos2)
+            _write_heads(tp, write, c, k, v, (b_idx, pos2))
+            return _attention(q, _read_heads(tp, read, c, "k"), _read_heads(tp, read, c, "v"), mask)
 
-        h = _block(h, lp, cfg, pos2, attn, quant_kernel)
-    return _head(params, h, cfg, quant_kernel)[:, 0, :], caches
+        h = _block(h, lp, cfg, pos2, attn, quant_kernel, tp)
+    return _head(params, h, cfg, quant_kernel, tp)[:, 0, :], caches

@@ -1,0 +1,32 @@
+"""Tensor-parallel serving: the ``model`` mesh (mesh.py), the Megatron cuts
+of parameters and caches (sharding.py) and the kernels on each shard's
+local tile (tp_kernels.py)."""
+from generativeaiexamples_tpu_torch.parallel.mesh import (
+    MODEL_AXIS,
+    Mesh,
+    create_mesh,
+)
+from generativeaiexamples_tpu_torch.parallel.sharding import (
+    Shards,
+    kv_cache_layer_specs,
+    kv_pool_specs,
+    layer_param_specs,
+    param_specs,
+    shard_kv_cache_layered,
+    shard_kv_pool,
+    shard_params,
+)
+
+__all__ = [
+    "MODEL_AXIS",
+    "Mesh",
+    "create_mesh",
+    "Shards",
+    "param_specs",
+    "layer_param_specs",
+    "kv_pool_specs",
+    "kv_cache_layer_specs",
+    "shard_params",
+    "shard_kv_pool",
+    "shard_kv_cache_layered",
+]

@@ -13,7 +13,7 @@ take.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 PEAK_TFLOPS = 989.0  # bf16 / fp16 dense tensor-core rate
 PEAK_INT8_TOPS = 1979.0  # int8 dense tensor-core rate
@@ -39,6 +39,36 @@ def hbm_ratio(bytes_per_sec: float, devices: int = 1) -> float:
 
 
 _KV_BYTES_PER_ELEMENT = {"bfloat16": 2.0, "int8": 1.0, "int4": 0.5}
+
+
+def mesh_peaks(devices: int = 1) -> Dict[str, float]:
+    """The peak rates of ``devices`` distinct cards together (shards that
+    share one card share its peaks)."""
+    n = max(1, int(devices))
+    return {"devices": n, "peak_tflops": PEAK_TFLOPS * n, "peak_int8_tops": PEAK_INT8_TOPS * n,
+            "peak_hbm_gbps": PEAK_HBM_GBPS * n}
+
+
+def device_memory(devices) -> Dict[str, Dict[str, int]]:
+    """Each distinct device's memory: the card's total, and PyTorch's
+    allocated and peak-allocated bytes there (0 on the CPU, which reports
+    none)."""
+    import torch
+
+    out: Dict[str, Dict[str, int]] = {}
+    for dev in devices:
+        dev = torch.device(dev)
+        if str(dev) in out:
+            continue
+        if dev.type == "cuda":
+            out[str(dev)] = {
+                "total_bytes": int(torch.cuda.get_device_properties(dev).total_memory),
+                "allocated_bytes": int(torch.cuda.memory_allocated(dev)),
+                "peak_allocated_bytes": int(torch.cuda.max_memory_allocated(dev)),
+            }
+        else:
+            out[str(dev)] = {"total_bytes": 0, "allocated_bytes": 0, "peak_allocated_bytes": 0}
+    return out
 
 
 def kv_bytes_per_element(kv_cache_dtype: str) -> float:

@@ -154,7 +154,7 @@ def test_yaml_booleans_and_numbers_coerce_as_in_jax(env, tmp_path):
 
 
 @pytest.mark.parametrize("section,field,value", [
-    ("engine", "tensor_parallelism", 2),
+    ("engine", "tensor_parallelism", 0),
     ("engine", "pipeline_parallelism", 2),
     ("engine", "checkpoint_path", "/ckpt"),
     ("engine", "paged_kernel", "off"),
@@ -227,7 +227,7 @@ def test_print_help_rows_of_shared_fields_are_jax_s():
     differ = {path for path in trows if trows[path] != jrows[path]}
     # the black box's directory defaults under TMPDIR in the port (JAX: /tmp)
     assert differ <= {"blackbox.dir"}
-    assert "not served by the port: the port serves one card" in ttext
+    assert "not served by the port: the port serves tensor parallelism only" in ttext
 
 
 def test_the_chain_server_prints_the_schema(capsys, monkeypatch):

@@ -444,6 +444,92 @@ def test_decode_attention_wrapper_refuses_what_the_kernel_does_not_serve(card):
 
 
 # --------------------------------------------------------------------------- #
+# tensor parallelism: each kernel on a shard's local tile (chip_smoke phase 3's
+# local-tile checks), and the TP launchers with every shard on the card
+
+# (K, F) a shard: llama3-8b at TP=2 and llama3-70b at TP=8
+TP_TILES = {"8b_tp2": ((4096, 2048), (4096, 512), (2048, 4096), (4096, 7168), (7168, 4096),
+                       (4096, 64128)),
+            "70b_tp8": ((8192, 1024), (8192, 3584), (3584, 8192))}
+
+
+@pytest.mark.parametrize("model", sorted(TP_TILES))
+def test_matmuls_on_local_tiles_match_plain(card, model):
+    gen = torch.Generator(device=card).manual_seed(13)
+    for K, F in TP_TILES[model]:
+        packed = quant.quantize_int8(torch.randn((K, F), generator=gen, device=card) * 0.05)
+        x = torch.randn((8, K), generator=gen, device=card).to(torch.bfloat16)
+        y = im.int8_matmul(x, packed["q"], packed["scale"])
+        ref = im.int8_matmul_plain(x, packed["q"], packed["scale"])
+        torch.testing.assert_close(y.float(), ref.float(), rtol=0,
+                                   atol=2.0**-7 * float(ref.abs().max()), msg=f"{K=} {F=}")
+        if model == "8b_tp2":  # exact int32 sums and one epilogue on both sides
+            assert torch.equal(im.int8_w8a8_matmul(x, packed["q"], packed["scale"]),
+                               im.int8_w8a8_matmul_plain(x, packed["q"], packed["scale"]))
+
+
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8", "int4"])
+@pytest.mark.parametrize("Hq,Hkv", [(16, 4), (8, 1)], ids=["8b_tp2", "70b_tp8"])
+def test_attention_kernels_on_local_heads_match_plain(card, Hq, Hkv, kv_dtype):
+    """The page kernel over a shard's pool of Hkv heads (ragged rows, a dead
+    one); at 16/4 heads also the decode kernel over a shard's int8 strips
+    and flash at T = 512."""
+    gen = torch.Generator(device=card).manual_seed(14)
+    B, Dh, page, pmax = 4, 128, 128, 8
+    P = 1 + B * pmax
+    raw = [torch.randn((P, page, Hkv, Dh), generator=gen, device=card) for _ in range(2)]
+    if kv_dtype == "bfloat16":
+        pool, scales = [t.to(torch.bfloat16) for t in raw], []
+    else:
+        codec = llama.quantize_kv if kv_dtype == "int8" else llama.quantize_kv_int4
+        (k, ks), (v, vs) = codec(raw[0]), codec(raw[1])
+        pool, scales = [k, v], [ks, vs]
+    tables = (1 + torch.randperm(B * pmax, generator=gen, device=card)).reshape(B, pmax).int()
+    tables[0] = 0
+    pos = torch.tensor([0, 5, 700, page * pmax - 1], dtype=torch.int32, device=card)
+    q = torch.randn((B, 1, Hq, Dh), generator=gen, device=card).to(torch.bfloat16)
+    out = pa.paged_attention(q, *pool, tables, pos, *scales)
+    _assert_rows_close(out, pa.paged_attention_plain(q, *pool, tables, pos, *scales), atol=1e-2)
+    if (Hq, Hkv) != (16, 4) or kv_dtype != "int8":
+        return
+    S = 2048
+    kq, ks = llama.quantize_kv(torch.randn((B, Hkv, S, Dh), generator=gen, device=card))
+    vq, vs = llama.quantize_kv(torch.randn((B, Hkv, S, Dh), generator=gen, device=card))
+    ks, vs = ks[:, :, None, :].contiguous(), vs[:, :, None, :].contiguous()
+    qd = torch.randn((B, Hq, Dh), generator=gen, device=card).to(torch.bfloat16)
+    dpos = torch.tensor([0, 17, 1023, S - 1], dtype=torch.int32, device=card)
+    _assert_rows_close(da.decode_attention(qd, kq, ks, vq, vs, dpos),
+                       da.decode_attention_plain(qd, kq, ks, vq, vs, dpos), atol=1e-2)
+    qf = torch.randn((2, 512, Hq, Dh), generator=gen, device=card).to(torch.bfloat16)
+    kf, vf = (torch.randn((2, 512, Hkv, Dh), generator=gen, device=card).to(torch.bfloat16)
+              for _ in range(2))
+    torch.testing.assert_close(fa.flash_attention_causal(qf, kf, vf).float(),
+                               fa.flash_attention_plain(qf, kf, vf).float(), rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("kind", ["column", "row"])
+def test_tp_launchers_with_shards_on_the_card_match_one_shard(card, kind):
+    """``packed_matmul_tp`` over two shards on the card launches the kernel
+    once a shard and agrees with the one-shard kernel on the same weights
+    (the row reduce rounds each partial once more)."""
+    from generativeaiexamples_tpu_torch.parallel import create_mesh, sharding, tp_kernels
+
+    gen = torch.Generator(device=card).manual_seed(15)
+    K, F = 4096, 2048
+    w = torch.randn((K, F), generator=gen, device=card) * 0.05
+    x = torch.randn((8, K), generator=gen, device=card).to(torch.bfloat16)
+    one = quant.quantize_int8(w)
+    want = im.int8_matmul(x, one["q"], one["scale"])
+    tp = tp_kernels.TPContext(create_mesh(2, devices=[card, card]), 2)
+    tiles = sharding._put(quant.quantize_int8(w, 2, kind), -1 if kind == "column" else -2, tp.mesh)
+    before = im.int8_matmul.launches
+    got = tp_kernels.packed_matmul_tp(x, tiles, tp, kind)
+    assert im.int8_matmul.launches == before + 2
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=2 * 2.0**-7 * float(want.abs().max()))
+
+
+# --------------------------------------------------------------------------- #
 # the retrieval side on the card (no kernel of its own: plain PyTorch)
 
 

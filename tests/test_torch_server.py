@@ -260,7 +260,7 @@ def test_from_env_logs_xla_only_variables_once_and_ignores_them(monkeypatch, cap
 
 @pytest.mark.parametrize("env,value", sorted(
     [(EngineConfig.env_name(name), str(spec[0])) for name, spec in JAX_ONLY_FIELDS.items()]
-    + [("APP_ENGINE_TENSORPARALLELISM", "1"), ("APP_ENGINE_PREFIXCACHEENABLE", "auto"),
+    + [("APP_ENGINE_TENSORPARALLELISM", "-1"), ("APP_ENGINE_PREFIXCACHEENABLE", "auto"),
        ("APP_ENGINE_PREFIXCACHESLOTS", "4"), ("APP_ENGINE_DRAINTIMEOUTS", "30.0"),
        ("APP_ENGINE_SNAPSHOTSPOOLDIR", "/tmp/genai_snapshots"),
        ("APP_ENGINE_SNAPSHOTSPOOLMAX", "64"), ("APP_ENGINE_SCHEDULERPOLICY", "unified"),
@@ -270,8 +270,8 @@ def test_from_env_logs_xla_only_variables_once_and_ignores_them(monkeypatch, cap
 ))
 def test_from_env_accepts_jax_defaults_and_what_it_serves_as_it_is(env, value):
     """At its JAX default a variable changes nothing, the prefix cache's,
-    the drain's and the scheduler's fields included; so does one card's
-    tensor parallelism."""
+    the drain's, the scheduler's and tensor parallelism's (every visible
+    card) fields included."""
     assert EngineConfig.from_env({env: value}) == EngineConfig()
 
 
