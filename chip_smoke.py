@@ -199,9 +199,9 @@ Phases (each one's failure makes the script exit non-zero):
    without the long prompts, the retrieval tier's dispatches a wave and
    the phase wall.
 
-12. spec: speculative decoding at full llama3-8b width, A at 16 and B, C
-   and D at 8 of its 32 layers (int8 packs at seed 0, shared by the
-   recipes; ``max_batch_size`` 8,
+12. spec: speculative decoding at full llama3-8b width, every recipe at
+   8 of its 32 layers (A since phase 17, for the script's time; int8 packs
+   at seed 0, shared by the recipes; ``max_batch_size`` 8,
    ``max_seq_len`` 8192, page 128, ``prefill_chunk`` 512, ``decode_block``
    8, ``spec_draft_len`` 8), after phase 9: one engine a recipe, its legs
    toggled at runtime (the JAX bench's ``_spec_decode_pass``). Recipe A
@@ -358,11 +358,47 @@ Phases (each one's failure makes the script exit non-zero):
    ``tensor_parallelism=1``, so that what they measure cannot change if
    the default ever takes more cards.
 
+17. train: checkpoints and fine-tuning at llama3-8b width, everything
+   written under the run's scratch directory and removed after. (a) A
+   bf16 HF checkpoint of 4 of the 32 layers in 2 safetensors files
+   (``hf_loader.write_hf_checkpoint``, drawn on the card at ``--seed``)
+   into recipe A's engine from ``checkpoint_path`` alone (its config.json
+   is the model) and recipe B's (w8a8, int8 KV): each engine's packs
+   byte-equal to ``quantize_params_int8(load_params(...))`` of the same
+   files on the card, its 4 greedy streams of 120-900 ids x 16 tokens
+   token-identical to an engine given those packs through ``params=``;
+   load seconds, GB/s from the (warm) page cache, ``peak_host_bytes``
+   against the larger file. (b) The same checkpoint at TP=2, both shards
+   on the card: per-shard packs byte-equal to ``shard_params`` of (a)'s,
+   streams equal TP=1's but at ties, logits within phase 16's
+   ``TP_LOGITS_LIMITS``. (c) An arctic-embed-l-width BERT checkpoint in HF
+   naming through ``APP_EMBEDDINGS_CHECKPOINTPATH``: embeddings bit-equal
+   to the same tensors given in memory. (d) LoRA at full width and depth
+   (32 layers, bf16, dense random weights at ``--seed``): rank 16 on
+   wq,wk,wv,wo, B=4, T=256, remat, 6 AdamW steps on one fixed batch; step
+   0's loss is the base model's ``sft_loss`` (B = 0), the loss falls, the
+   base weights are unchanged bit for bit (version counters, pointers and
+   checksums), and a save after step 3 restored into a fresh state gives
+   steps 4-6 bitwise the uninterrupted adapters; ms a step, tokens/s, peak
+   memory. (e) SFT over every weight at 4 of 32 layers (the embedding and
+   head whole), bf16, 4 AdamW steps: the loss falls; a resume from step 2
+   within its stated tolerance. (f) (d)'s adapters merged: the dense
+   logits against the unmerged forward within ``TRAIN_MERGE_LIMIT``, the
+   merged loss below the base's; packed to int8 and served by recipe A's
+   engine at full depth: its streams equal the plain path's (the whole
+   context recomputed through the plain model each token, on the same
+   packs) but at ties. (g) ``python -m
+   generativeaiexamples_tpu_torch.tools.finetune --model debug --mode
+   lora --device cuda`` with ``--ckpt-dir`` and ``--merge-out``, then
+   ``--resume``: exit 0 and the JSON line. The kernel launches of (a),
+   (b) and (f)'s engines count. It prints the phase wall (a budget of 150
+   s).
+
 With no arguments it runs every phase, as above; ``--phases``,
 ``--checks`` and ``--recipes`` run a part (for example ``--phases serve
 --recipes B``, ``--phases chains``, ``--phases filechains``, ``--phases
 drain``, ``--phases observe``, ``--phases route``, ``--phases connect`` or
-``--phases kernels,tp --checks tp``)
+``--phases kernels,tp --checks tp`` or ``--phases train``)
 and then print only the kernels that part measured; ``--runahead N`` serves every engine at ``decode_runahead`` N, and
 ``--timing-only`` leaves out the runahead and overload checks (for timed
 runs of an older tree, which lacks them).
@@ -4565,7 +4601,7 @@ SPEC_TRAFFIC = {"A": (6, 48), "B": (4, 64), "C": (4, 64), "D": (4, 64)}
 # B, C and D at a quarter of its 32 layers since phase 13, A at half since
 # phase 15 (phase 12 took 218.3 s with A at full depth, against its budget
 # of 150 s)
-SPEC_LAYERS = {"A": 16, "B": 8, "C": 8, "D": 8}
+SPEC_LAYERS = {"A": 8, "B": 8, "C": 8, "D": 8}
 SPEC_SEEDED_TOKENS = 24
 SPEC_DRAFT_MODEL = "llama3-1b-proxy"
 # recipe -> (legs, prompt sets); a leg is (name, proposer or None for off,
@@ -6414,12 +6450,12 @@ def _tp_prompts(rng, lengths) -> list:
     return [[256] + [rng.randrange(1, 256) for _ in range(n - 1)] for n in lengths]
 
 
-def _tp_streams(engine, prompts) -> tuple:
+def _tp_streams(engine, prompts, tokens=TP_TOKENS) -> tuple:
     """Greedy streams of ``prompts`` admitted as one wave; (streams, the
     wall of a decode block in ms: the reader's decode time a block)."""
     from generativeaiexamples_tpu_torch.engine.llm_engine import SamplingParams
 
-    params = SamplingParams(temperature=0.0, max_tokens=TP_TOKENS)
+    params = SamplingParams(temperature=0.0, max_tokens=tokens)
     before = engine.stats()
     with engine.hold_admissions():
         queues = [engine.generate_ids(p, params) for p in prompts]
@@ -6672,11 +6708,553 @@ def phase_tp(dev, smi, seed=0) -> dict:
     return out
 
 
+# --------------------------------------------------------------------- #
+# Phase 17: checkpoints and fine-tuning
+
+TRAIN_LAYERS = 4  # (a), (b), (e): 4 of llama3-8b's 32 layers
+TRAIN_FILES = 2  # (a): the checkpoint's safetensors files
+TRAIN_LENGTHS = (120, 300, 480, 900)  # greedy prompts; flash serves the three <= 512
+TRAIN_TOKENS = 16
+TRAIN_MAX_SEQ = 2048
+TRAIN_BATCH = (4, 256)  # (d), (e): B x T, one fixed batch
+TRAIN_LORA = {"rank": 16, "alpha": 32.0, "targets": ("wq", "wk", "wv", "wo")}
+TRAIN_LORA_LR = 3e-4
+TRAIN_LORA_STEPS = 6
+TRAIN_SAVE_AT = 3  # (d): saved after step 3, restored, steps 4-6 again
+TRAIN_SFT_LR = 1e-4
+TRAIN_SFT_STEPS = 4
+TRAIN_SFT_SAVE_AT = 2
+# (d): step 0's loss is the base model's sft_loss (B = 0 makes the delta
+# exactly zero; the same kernels on the same shapes), within f32 rounding
+TRAIN_STEP0_RTOL = 1e-6
+# (f): the largest |logits difference| between the merged dense model and
+# the unmerged forward with adapters (bf16 weights rounded after the merge
+# against the bf16 delta path), about twice its reading on NVIDIA H100
+# 80GB HBM3 at 700 W (0.0625) and well under LOGITS_TOL, so a merge that
+# drops or doubles a delta fails
+TRAIN_MERGE_LIMIT = 0.15
+TRAIN_MERGED_PROMPTS = 2  # (f): the first two of TRAIN_LENGTHS
+TRAIN_CLI_STEPS = (4, 6)  # (g): a run, then --resume to the second count
+TRAIN_BUDGET_S = 150.0
+
+
+def _bitwise(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit (float bits as integers)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        return torch.equal(a.contiguous().view(view), b.contiguous().view(view))
+    return torch.equal(a, b)
+
+
+def _same_tree(a, b) -> bool:
+    """Two trees (dicts, lists, Shards of tensors) equal bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and _bitwise(a, b)
+    if isinstance(a, dict):
+        return isinstance(b, dict) and set(a) == set(b) and all(_same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same_tree(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def _driven(engine, prompts, label, expected) -> tuple:
+    """``engine``'s greedy streams with the kernel launch counts set to 0
+    just before and read just after; every kernel of ``expected`` must
+    have launched."""
+    reset_counts()
+    streams = _tp_streams(engine, prompts, TRAIN_TOKENS)[0]
+    launched = counts()
+    missing = [n for n in expected if launched[n] == 0]
+    if missing:
+        raise AssertionError(f"train {label}: kernels never launched: {missing}")
+    return streams, launched
+
+
+def _plain_greedy(params, cfg, prompt, tokens, vocab, stop_ids) -> tuple:
+    """Greedy continuation of ``prompt`` on the plain path (the plain int8
+    product and the einsum attention over the whole context, recomputed
+    each token, no kernel): (tokens, each token's top-1 margin)."""
+    from generativeaiexamples_tpu_torch.models import llama
+
+    ids, out, margins = list(prompt), [], []
+    dev = params["embed"].device
+    for _ in range(tokens):
+        x = torch.tensor([ids], device=dev)
+        with torch.inference_mode():
+            logits, _ = llama.prefill_layers(params, cfg, x, torch.tensor([len(ids)], device=dev),
+                                             use_flash=False, quant_kernel=False)
+        top2 = torch.topk(logits[0, :vocab].float(), 2)
+        tok = int(top2.indices[0])
+        out.append(tok)
+        margins.append(float(top2.values[0] - top2.values[1]))
+        ids.append(tok)
+        if tok in stop_ids:
+            break
+    return out, margins
+
+
+def _plain_tie_checked(label, got, want, margins) -> int:
+    """``got`` (the kernel path) equals ``want`` (the plain path), or they
+    part at a token whose plain top-1 margin is within LOGITS_TOL."""
+    if got == want:
+        return 0
+    at = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), min(len(got), len(want)))
+    margin = margins[at] if at < len(margins) else 0.0
+    log(f"    {label}: parts from the plain path at token {at}, where the plain top-1 margin "
+        f"is {margin:.4g} (tolerance {LOGITS_TOL})")
+    if margin > LOGITS_TOL:
+        raise AssertionError(f"train {label}: the kernel path's stream differs from the plain "
+                             f"path's beyond a tie (margin {margin:.4g} > {LOGITS_TOL})")
+    return 1
+
+
+def _peak_reset(dev) -> int:
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    return held
+
+
+def _train_checkpoint(dev, tmp, seed, rng) -> dict:
+    """(a) a bf16 HF checkpoint at llama3-8b width into recipes A and B's
+    engines; (b) the same at TP=2."""
+    from generativeaiexamples_tpu_torch.engine.llm_engine import LLMEngine
+    from generativeaiexamples_tpu_torch.models import hf_loader, llama
+    from generativeaiexamples_tpu_torch.ops import quant
+    from generativeaiexamples_tpu_torch.parallel import create_mesh, sharding
+
+    cfg = dataclasses.replace(llama.PRESETS[MODEL], num_layers=TRAIN_LAYERS)
+    name = f"{MODEL}-{TRAIN_LAYERS}-layers"
+    llama.PRESETS[name] = cfg
+    ckpt = os.path.join(tmp, "llama")
+    t0 = time.time()
+    hf_loader.write_hf_checkpoint(cfg, ckpt, seed=seed, n_shards=TRAIN_FILES, dtype=torch.bfloat16,
+                                  device=dev)
+    write_s = time.time() - t0
+    files = sorted(f for f in os.listdir(ckpt) if f.endswith(".safetensors"))
+    sizes = [os.path.getsize(os.path.join(ckpt, f)) for f in files]
+    log(f"  train (a): wrote {len(files)} files of {[round(s / 1e9, 3) for s in sizes]} GB "
+        f"({sum(sizes) / 1e9:.2f} GB, bf16, {TRAIN_LAYERS} of 32 layers) in {write_s:.1f} s")
+    ref = quant.quantize_params_int8(hf_loader.load_params(ckpt, cfg, torch.bfloat16, dev))
+    prompts = _tp_prompts(rng, TRAIN_LENGTHS)
+    expected = {n: exp for n, _, _, _, exp in RECIPES}
+    out, launches = {"files_bytes": sizes, "write_s": write_s}, collections.Counter()
+    engines, streams = {}, {}
+    for recipe, quantization, kv_dtype in (("A", "int8", "bfloat16"), ("B", "w8a8", "int8")):
+        base = dict(quantization=quantization, kv_cache_dtype=kv_dtype, kv_layout="paged",
+                    max_seq_len=TRAIN_MAX_SEQ, tensor_parallelism=1)
+        served = LLMEngine(EngineConfig(checkpoint_path=ckpt, **base), device=dev)
+        given = None
+        try:
+            stats = dict(served.load_stats)
+            if served.model_config != cfg:
+                raise AssertionError(f"train (a) {recipe}: the engine serves {served.model_config}")
+            if not _same_tree(served.params, ref):
+                raise AssertionError(f"train (a) {recipe}: the streamed packs differ from "
+                                     f"quantize_params_int8(load_params(...)) on the same files")
+            got, launched = _driven(served, prompts, f"(a) {recipe}", expected[recipe])
+            launches.update(launched)
+            given = LLMEngine(EngineConfig(model_config_name=name, **base), device=dev, params=ref)
+            want = _tp_streams(given, prompts, TRAIN_TOKENS)[0]
+        finally:
+            served.shutdown()
+            if given is not None:
+                given.shutdown()
+        if got != want:
+            raise AssertionError(f"train (a) {recipe}: the checkpoint engine's streams differ from "
+                                 f"the engine given the same packs: {got} != {want}")
+        gbs = sum(sizes) / stats["seconds"] / 1e9
+        log(f"  train (a) {recipe}: {quantization}/{kv_dtype} engine from checkpoint_path alone: "
+            f"load {stats['seconds']:.2f} s ({gbs:.2f} GB/s from the page cache, warm), "
+            f"peak_host_bytes {stats['peak_host_bytes'] / 1e9:.3f} GB against the larger file's "
+            f"{max(sizes) / 1e9:.3f} GB; packs byte-equal to quantize_params_int8(load_params); "
+            f"{len(prompts)} greedy streams x {TRAIN_TOKENS} token-identical to the engine given "
+            f"them; launches {launched}")
+        out[recipe] = {"load_s": stats["seconds"], "load_gb_per_s": gbs,
+                       "peak_host_bytes": stats["peak_host_bytes"], "launches": launched}
+        engines[recipe], streams[recipe] = given, want
+    # (b) TP=2 from the checkpoint, both shards on this card
+    mesh = create_mesh(TP_SHARDS_8B, devices=[dev] * TP_SHARDS_8B)
+    base = dict(quantization="int8", kv_cache_dtype="bfloat16", kv_layout="paged",
+                max_seq_len=TRAIN_MAX_SEQ)
+    tp = LLMEngine(EngineConfig(checkpoint_path=ckpt, tensor_parallelism=TP_SHARDS_8B, **base),
+                   mesh=mesh)
+    try:
+        if not _same_tree(tp.params, sharding.shard_params(ref, mesh, repack_cfg=cfg)):
+            raise AssertionError("train (b): the per-shard packs differ from shard_params of the "
+                                 "single-device packs")
+        got, launched = _driven(tp, prompts, "(b)", expected["A"])
+        launches.update(launched)
+    finally:
+        tp.shutdown()
+    # TP=1: (a)'s recipe-A engine given the same packs (shut down, its
+    # weights kept for the tie margins and the logits)
+    one = engines["A"]
+    ties = sum(_tie_checked(one, f"train (b) prompt {i}", p, g, w)
+               for i, (p, g, w) in enumerate(zip(prompts, got, streams["A"])))
+    diff = _tp_logits_diff(one, tp, (min(prompts, key=len), max(prompts, key=len)))
+    if not diff <= TP_LOGITS_LIMITS["8b A"]:
+        raise AssertionError(f"train (b): the largest logits difference {diff:.4g} between TP=2 and "
+                             f"TP=1 exceeds {TP_LOGITS_LIMITS['8b A']}")
+    log(f"  train (b): TP={TP_SHARDS_8B} engine from the checkpoint: per-shard packs byte-equal to "
+        f"shard_params of (a)'s; streams equal TP=1's ({ties} parted at a tie); largest logits "
+        f"difference {diff:.4g} (limit {TP_LOGITS_LIMITS['8b A']}); launches {launched} "
+        f"(every shard's)")
+    out["tp"] = {"ties": ties, "max_logits_diff": diff, "launches": launched}
+    for eng in (tp, *engines.values()):
+        _free_engine(eng)
+    del ref, tp, engines, one
+    out["launches"] = dict(launches)
+    return out
+
+
+def _train_embedder(dev, tmp, seed) -> dict:
+    """(c) arctic-embed-l from a HF BERT checkpoint through
+    APP_EMBEDDINGS_CHECKPOINTPATH against the same tensors in memory."""
+    from generativeaiexamples_tpu_torch import config as tconfig
+    from generativeaiexamples_tpu_torch.engine import embedder as emb_mod
+    from generativeaiexamples_tpu_torch.engine.embedder import TorchEmbedder, create_embedder
+    from generativeaiexamples_tpu_torch.models import bert
+    from generativeaiexamples_tpu_torch.utils import safetensors_io
+
+    t0 = time.time()
+    cfg = bert.BERT_PRESETS["arctic-embed-l"]
+    params = bert.init_bert_params(cfg, torch.Generator(device=dev).manual_seed(seed), torch.bfloat16,
+                                   dev)
+    path = os.path.join(tmp, "arctic")
+    os.makedirs(path)
+    safetensors_io.save_file(bert.hf_tensors(params), os.path.join(path, "model.safetensors"))
+    # a model name no earlier phase used: the factory caches an embedder by
+    # (engine, url, name, device), as JAX's does, whatever its checkpoint
+    config = tconfig.load_config({"APP_EMBEDDINGS_CHECKPOINTPATH": path,
+                                  "APP_EMBEDDINGS_MODELNAME": "snowflake-arctic-embed-l"})
+    loaded = create_embedder(config, device=dev)
+    given = TorchEmbedder(model_name="arctic-embed-l", device=dev, params=params)
+    texts = [f"passage {i}: " + " ".join(f"word{(i * 7 + j) % 97}" for j in range(20 + 9 * i))
+             for i in range(8)]
+    try:
+        got, want = loaded.embed_documents(texts), given.embed_documents(texts)
+        query = loaded.embed_query("which passage holds word42?")
+        query_ref = given.embed_query("which passage holds word42?")
+    finally:
+        loaded.close()
+        given.close()
+        for key in [k for k, v in emb_mod._EMBEDDER_CACHE.items() if v is loaded]:
+            del emb_mod._EMBEDDER_CACHE[key]
+    if not (np.array_equal(got, want) and np.array_equal(query, query_ref)):
+        raise AssertionError(f"train (c): the checkpoint embedder differs from the in-memory one "
+                             f"(max {float(np.abs(got - want).max()):.3g})")
+    log(f"  train (c): arctic-embed-l ({sum(t.numel() for t in bert.hf_tensors(params).values()) / 1e6:.0f}M "
+        f"params, bf16) from APP_EMBEDDINGS_CHECKPOINTPATH: {len(texts)} passages and a query "
+        f"bit-equal to the same tensors given in memory ({time.time() - t0:.1f} s)")
+    return {"passages": len(texts), "s": time.time() - t0}
+
+
+def _traced(fn) -> dict:
+    """``fn()`` under torch.profiler's CUDA trace: the wall (host clock to a
+    synchronize), the device's busy time (the union of its events), the
+    idle share and the five kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    with prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    events = device_trace.profile_events(prof)
+    if not events:
+        return {"wall_ms": wall, "busy_ms": None, "idle_share": None, "top": [],
+                "not_measured": "no device events"}
+    busy = device_trace.busy_ms((a, b) for _, a, b in events)
+    by = collections.Counter()
+    for name, a, b in events:
+        by[name[:60]] += (b - a) / 1e3
+    return {"wall_ms": wall, "busy_ms": busy, "idle_share": 1.0 - busy / wall,
+            "events": len(events), "top": [(n, round(ms, 3)) for n, ms in by.most_common(5)]}
+
+
+def _train_batch(rng, cfg) -> dict:
+    B, T = TRAIN_BATCH
+    tokens = torch.tensor([[rng.randrange(1, 256) for _ in range(T)] for _ in range(B)])
+    mask = torch.ones((B, T))
+    mask[:, : T // 8] = 0.0  # a prompt of T/8 ids a row, unsupervised
+    return tokens, mask
+
+
+def _train_lora(dev, tmp, seed, rng) -> tuple:
+    """(d) LoRA at full width and depth: returns its numbers, the base,
+    the adapters and the batch for (e) and (f)."""
+    from generativeaiexamples_tpu_torch.models import llama, lora, train
+    from generativeaiexamples_tpu_torch.models.checkpoint import CheckpointManager
+
+    cfg = llama.PRESETS[MODEL]
+    t0 = time.time()
+    base = llama.init_params(cfg, seed, torch.bfloat16, dev)
+    leaves = train.tree_leaves(base)
+    before = [(t._version, t.data_ptr(), int(t.view(torch.int16).sum(dtype=torch.int64)))
+              for t in leaves]
+    tokens, mask = _train_batch(rng, cfg)
+    batch = {"tokens": tokens.to(dev), "loss_mask": mask.to(dev)}
+    lcfg = lora.LoRAConfig(**TRAIN_LORA)
+    optimizer = train.make_optimizer(learning_rate=TRAIN_LORA_LR)
+
+    def fresh(s):
+        ad = train.trainable(lora.init_lora_params(
+            cfg, lcfg, torch.Generator(device=dev).manual_seed(s), torch.bfloat16, dev))
+        return train.TrainState(params=ad, opt_state=optimizer.init(ad),
+                                step=torch.zeros((), dtype=torch.int32, device=dev))
+
+    step = train.make_lora_train_step(cfg, lcfg, optimizer)
+    with torch.no_grad():
+        base_loss = float(train.sft_loss(base, cfg, batch["tokens"], batch["loss_mask"]))
+    held = _peak_reset(dev)
+    state, losses, times = fresh(seed), [], []
+    mgr = CheckpointManager(os.path.join(tmp, "lora_ckpt"))
+    for i in range(TRAIN_LORA_STEPS):
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        state, loss = step(state, base, batch)
+        losses.append(float(loss))
+        torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t1)
+        if i + 1 == TRAIN_SAVE_AT:
+            mgr.save(TRAIN_SAVE_AT, state)
+    peak = torch.cuda.max_memory_allocated(dev)
+    resumed = mgr.restore(fresh(seed + 1))
+    for _ in range(TRAIN_SAVE_AT, TRAIN_LORA_STEPS):
+        resumed, _ = step(resumed, base, batch)
+    # one more step, traced: where a step's time goes (its result unused)
+    trace = _traced(lambda: step(resumed, base, batch))
+    if abs(losses[0] - base_loss) > TRAIN_STEP0_RTOL * abs(base_loss):
+        raise AssertionError(f"train (d): step 0's loss {losses[0]!r} is not the base's {base_loss!r}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train (d): the loss did not fall: {losses}")
+    after = [(t._version, t.data_ptr(), int(t.view(torch.int16).sum(dtype=torch.int64)))
+             for t in leaves]
+    if after != before:
+        raise AssertionError("train (d): a base weight was written by the LoRA steps")
+    if not (_same_tree(resumed.params, state.params) and int(resumed.step) == TRAIN_LORA_STEPS):
+        raise AssertionError(f"train (d): the adapters resumed from step {TRAIN_SAVE_AT} differ from "
+                             f"the uninterrupted run's")
+    step_ms = 1e3 * statistics.median(times[1:])
+    B, T = TRAIN_BATCH
+    log(f"  train (d): LoRA r={lcfg.rank} on {','.join(lcfg.targets)}, llama3-8b full width and "
+        f"depth, bf16, B={B} T={T}, remat: losses {[round(x, 4) for x in losses]} (step 0 = the "
+        f"base's {base_loss:.4f}); base weights unchanged bit for bit; resumed from step "
+        f"{TRAIN_SAVE_AT} bitwise the uninterrupted adapters; {step_ms:.1f} ms a step (median of "
+        f"steps 2-{TRAIN_LORA_STEPS}; each {[round(1e3 * x, 1) for x in times]}), "
+        f"{B * T / step_ms * 1e3:.0f} tokens/s; peak allocated {peak / 2**30:.2f} GiB "
+        f"({(peak - held) / 2**30:.2f} above the {held / 2**30:.2f} held); a traced step: wall "
+        f"{trace['wall_ms']:.1f} ms, device busy {trace['busy_ms']} ms, idle share "
+        f"{trace['idle_share']}, {trace.get('events')} device events, the most device time "
+        f"{trace['top']} ({time.time() - t0:.1f} s)")
+    numbers = {"losses": losses, "base_loss": base_loss, "step_ms": step_ms,
+               "step_times_ms": [1e3 * x for x in times], "tokens_per_s": B * T / step_ms * 1e3,
+               "peak_allocated_bytes": peak, "held_before_bytes": held, "traced_step": trace}
+    return numbers, base, state.params, batch
+
+
+def _train_sft(dev, tmp, base, batch) -> dict:
+    """(e) SFT over every weight of 4 of the 32 layers (the embedding and
+    the head whole), AdamW, a resume within its tolerance."""
+    from generativeaiexamples_tpu_torch.models import llama, train
+    from generativeaiexamples_tpu_torch.models.checkpoint import CheckpointManager
+
+    t0 = time.time()
+    cfg = dataclasses.replace(llama.PRESETS[MODEL], num_layers=TRAIN_LAYERS)
+    part = dict(base, layers=base["layers"][:TRAIN_LAYERS])
+    optimizer = train.make_optimizer(learning_rate=TRAIN_SFT_LR)
+    step = train.make_train_step(cfg, optimizer)
+
+    def fresh():
+        params = train.trainable(part)
+        return train.TrainState(params=params, opt_state=optimizer.init(params),
+                                step=torch.zeros((), dtype=torch.int32, device=dev))
+
+    held = _peak_reset(dev)
+    state, losses, times = fresh(), [], []
+    mgr = CheckpointManager(os.path.join(tmp, "sft_ckpt"))
+    for i in range(TRAIN_SFT_STEPS):
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        state, loss = step(state, batch)
+        losses.append(float(loss))
+        torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t1)
+        if i + 1 == TRAIN_SFT_SAVE_AT:
+            mgr.save(TRAIN_SFT_SAVE_AT, state)
+    peak = torch.cuda.max_memory_allocated(dev)
+    resumed = mgr.restore(fresh())
+    resumed_losses = []
+    for _ in range(TRAIN_SFT_SAVE_AT, TRAIN_SFT_STEPS):
+        resumed, loss = step(resumed, batch)
+        resumed_losses.append(float(loss))
+    # two AdamW steps after the restore each move an element by at most
+    # ~lr (its update is m/(sqrt(v)+eps), about +-1) on either side, and
+    # a bf16 parameter rounds to one ulp of the largest weight
+    pmax = max(float(t.detach().abs().max()) for t in train.tree_leaves(state.params))
+    ulp = 2.0 ** (np.floor(np.log2(pmax)) - 7)
+    limit = 2 * (TRAIN_SFT_STEPS - TRAIN_SFT_SAVE_AT) * TRAIN_SFT_LR + ulp
+    diff = max(float((a.detach().float() - b.detach().float()).abs().max())
+               for a, b in zip(train.tree_leaves(resumed.params), train.tree_leaves(state.params)))
+    bitwise = _same_tree(resumed.params, state.params)
+    loss_rel = abs(resumed_losses[-1] - losses[-1]) / abs(losses[-1])
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train (e): the loss did not fall: {losses}")
+    if diff > limit or loss_rel > 1e-3 or resumed_losses[0] != losses[TRAIN_SFT_SAVE_AT]:
+        raise AssertionError(f"train (e): the resumed run differs beyond its tolerance: weights "
+                             f"{diff:.3g} (limit {limit:.3g}), losses {resumed_losses} against "
+                             f"{losses[TRAIN_SFT_SAVE_AT:]}")
+    step_ms = 1e3 * statistics.median(times[1:])
+    n = llama.count_params(part)
+    log(f"  train (e): SFT over all {n / 1e9:.2f}B weights of llama3-8b at {TRAIN_LAYERS} of 32 "
+        f"layers, bf16, AdamW lr {TRAIN_SFT_LR}: losses {[round(x, 4) for x in losses]}; resumed from "
+        f"step {TRAIN_SFT_SAVE_AT}: losses {[round(x, 4) for x in resumed_losses]}, weights within "
+        f"{diff:.3g} of the uninterrupted run's (limit {limit:.3g}; bitwise {bitwise}); "
+        f"{step_ms:.1f} ms a step, peak allocated {peak / 2**30:.2f} GiB "
+        f"({(peak - held) / 2**30:.2f} above the {held / 2**30:.2f} held) ({time.time() - t0:.1f} s)")
+    del state, resumed
+    return {"losses": losses, "resumed_losses": resumed_losses, "max_weight_diff": diff,
+            "limit": float(limit), "bitwise": bitwise, "step_ms": step_ms,
+            "peak_allocated_bytes": peak}
+
+
+def _train_merge(dev, base, adapters, batch, base_loss, rng) -> dict:
+    """(f) merge (d)'s adapters, hold the merged logits to the unmerged
+    forward, pack to int8 and serve through recipe A's engine."""
+    from generativeaiexamples_tpu_torch.engine.llm_engine import LLMEngine
+    from generativeaiexamples_tpu_torch.models import llama, lora, train
+    from generativeaiexamples_tpu_torch.ops import quant
+
+    t0 = time.time()
+    cfg = llama.PRESETS[MODEL]
+    lcfg = lora.LoRAConfig(**TRAIN_LORA)
+    adapters = train.frozen(adapters)
+    merged = lora.merge(base, adapters, lcfg)
+    tokens = batch["tokens"][:1]
+    pos = torch.arange(tokens.shape[1], device=dev)[None]
+    with torch.no_grad():
+        unmerged = llama.forward(base, cfg, tokens, pos, lora=adapters, lora_scale=lcfg.scale)
+        dense = llama.forward(merged, cfg, tokens, pos)
+        merged_loss = float(train.sft_loss(merged, cfg, batch["tokens"], batch["loss_mask"]))
+    gap = _max_err(dense, unmerged)
+    del unmerged, dense
+    log(f"  train (f): merged dense logits against the unmerged forward with adapters: largest "
+        f"|difference| {gap:.4g} (limit {TRAIN_MERGE_LIMIT}); merged loss {merged_loss:.4f} "
+        f"against the base's {base_loss:.4f}")
+    if not gap <= TRAIN_MERGE_LIMIT:
+        raise AssertionError(f"train (f): merged logits {gap:.4g} from the unmerged forward "
+                             f"(limit {TRAIN_MERGE_LIMIT})")
+    if not merged_loss < base_loss:
+        raise AssertionError(f"train (f): the merged loss {merged_loss} is not below the base's "
+                             f"{base_loss}")
+    packed = quant.quantize_params_int8(merged)
+    del merged
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = LLMEngine(EngineConfig(model_config_name=MODEL, quantization="int8",
+                                    kv_cache_dtype="bfloat16", kv_layout="paged",
+                                    max_seq_len=TRAIN_MAX_SEQ, tensor_parallelism=1),
+                       device=dev, params=packed)
+    prompts = _tp_prompts(rng, TRAIN_LENGTHS[:TRAIN_MERGED_PROMPTS])
+    expected = dict((n, e) for n, _, _, _, e in RECIPES)["A"]
+    try:
+        got, launched = _driven(engine, prompts, "(f)", expected)
+        vocab, stops = engine._sample_vocab, set(engine.tokenizer.stop_ids())
+    finally:
+        engine.shutdown()
+    ties = 0
+    for i, (prompt, stream) in enumerate(zip(prompts, got)):
+        want, margins = _plain_greedy(packed, cfg, prompt, TRAIN_TOKENS, vocab, stops)
+        ties += _plain_tie_checked(f"(f) prompt {i}", stream, want, margins)
+    _free_engine(engine)
+    log(f"  train (f): the merged model packed to int8 and served by recipe A's engine (32 "
+        f"layers): {len(prompts)} greedy streams equal the plain path's on the same packs "
+        f"({ties} parted at a tie); launches {launched} ({time.time() - t0:.1f} s)")
+    return {"max_logits_gap": gap, "merged_loss": merged_loss, "base_loss": base_loss,
+            "ties": ties, "launches": launched}
+
+
+def _train_cli(tmp, device="cuda") -> dict:
+    """(g) the finetune CLI on the card: a LoRA run with a checkpoint and a
+    merge, then --resume to more steps."""
+    data = os.path.join(tmp, "data.jsonl")
+    with open(data, "w", encoding="utf-8") as fh:
+        for i in range(8):
+            fh.write(json.dumps({"prompt": f"q{i}: what is a GPU?", "response": "a card of SMs"}) + "\n")
+    ck, merged = os.path.join(tmp, "cli_ckpt"), os.path.join(tmp, "merged.npz")
+    out = {}
+    for steps, extra in ((TRAIN_CLI_STEPS[0], ["--merge-out", merged]),
+                         (TRAIN_CLI_STEPS[1], ["--resume"])):
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "generativeaiexamples_tpu_torch.tools.finetune", "--model", "debug",
+             "--data", data, "--mode", "lora", "--steps", str(steps), "--batch-size", "2",
+             "--seq-len", "32", "--ckpt-dir", ck, "--save-every", "2", "--log-every", "1",
+             "--device", device, *extra],
+            capture_output=True, text=True, timeout=300)
+        lines = proc.stdout.strip().splitlines()
+        try:
+            last = json.loads(lines[-1])
+        except (IndexError, ValueError):
+            last = {}
+        if proc.returncode != 0 or last.get("steps") != steps or "final_loss" not in last:
+            raise AssertionError(f"train (g): finetune {' '.join(extra)} exited {proc.returncode}, "
+                                 f"last line {lines[-1:]!r}; stderr ends {proc.stderr[-2000:]!r}")
+        if "--resume" in extra and f"resumed from step {TRAIN_CLI_STEPS[0]}" not in proc.stderr:
+            raise AssertionError("train (g): --resume did not start from the saved step")
+        out["resume" if "--resume" in extra else "run"] = {**last, "s": time.time() - t0}
+    if not os.path.exists(merged):
+        raise AssertionError("train (g): no merged npz was written")
+    log(f"  train (g): python -m generativeaiexamples_tpu_torch.tools.finetune --model debug --mode "
+        f"lora --device {device}: {TRAIN_CLI_STEPS[0]} steps, final loss {out['run']['final_loss']:.4f} "
+        f"({out['run']['s']:.1f} s, the process included), then --resume to {TRAIN_CLI_STEPS[1]}: "
+        f"final loss {out['resume']['final_loss']:.4f} ({out['resume']['s']:.1f} s)")
+    return out
+
+
+def phase_train(dev, smi, seed=0, scratch=None) -> dict:
+    """Checkpoints and fine-tuning (module docstring, phase 17)."""
+    import random
+
+    t0 = time.time()
+    rng = random.Random(seed * 1000 + 17)
+    tmp = tempfile.mkdtemp(prefix="train_", dir=scratch)
+    out = {}
+    try:
+        out["checkpoint"] = _train_checkpoint(dev, tmp, seed, rng)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["embedder"] = _train_embedder(dev, tmp, seed)
+        out["lora"], base, adapters, batch = _train_lora(dev, tmp, seed, rng)
+        out["sft"] = _train_sft(dev, tmp, base, batch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["merge"] = _train_merge(dev, base, adapters, batch, out["lora"]["base_loss"], rng)
+        del base, adapters
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["cli"] = _train_cli(tmp, dev.type)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = collections.Counter(out["checkpoint"].pop("launches"))
+    launches.update(out["merge"]["launches"])
+    out["launches"] = dict(launches)
+    out["wall_s"] = time.time() - t0
+    log(f"  train launches in the phase: {dict(launches)}")
+    if out["wall_s"] > TRAIN_BUDGET_S:
+        log(f"  train: the phase took {out['wall_s']:.1f} s, over its {TRAIN_BUDGET_S:.0f} s budget")
+    log(f"phase train: ok ({out['wall_s']:.1f} s on {smi})")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
                         default="kernels,model,serve,retrieval,rag,chains,filechains,drain,"
-                                "prefix,spec,observe,route,connect,tp",
+                                "prefix,spec,observe,route,connect,tp,train",
                         help="phases after the build, comma-separated (default: all)")
     parser.add_argument("--checks", default=",".join(CHECKS),
                         help="phase 3's kernel checks, comma-separated (default: all)")
@@ -6699,6 +7277,7 @@ def main() -> int:
     for key, name in (("APP_BLACKBOX_DIR", "blackbox"), ("PROFILE_LOG_DIR", "profiles"),
                       ("TRACE_JSONL_PATH", "spans.jsonl")):
         os.environ.setdefault(key, os.path.join(scratch, name))
+    args.scratch = scratch
     try:
         return _run(args, phases)
     finally:
@@ -6737,6 +7316,7 @@ def _run(args, phases) -> int:
     route = phase_route(dev, info["smi"], args.seed) if "route" in phases else {}
     connect = phase_connect(dev, info["smi"], args.seed) if "connect" in phases else {}
     tp = phase_tp(dev, info["smi"], args.seed) if "tp" in phases else {}
+    train = phase_train(dev, info["smi"], args.seed, args.scratch) if "train" in phases else {}
     kernels = []
     tiles = results.get("tp_tiles", {})
     for name, (replaces, source) in KERNELS.items():
@@ -6749,7 +7329,8 @@ def _run(args, phases) -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(sv["launches"][name] for sv in serves.values())
             + sum(ph.get("launches", {}).get(name, 0)
-                  for ph in (rag, chains, files, drain, prefix, spec, observe, connect, tp)),
+                  for ph in (rag, chains, files, drain, prefix, spec, observe, connect, tp,
+                             train)),
             "tp_launches": tp.get("launches", {}).get(name, 0),
             **r,
         })
@@ -6767,6 +7348,7 @@ def _run(args, phases) -> int:
         "route": route,
         "connect": {k: v for k, v in connect.items() if k != "launches"},
         "tp": {k: v for k, v in tp.items() if k != "launches"},
+        "train": {k: v for k, v in train.items() if k != "launches"},
         "tp_tiles": {k: v for k, v in tiles.items() if k not in results},
         "sampling": results.get("sampling")}), flush=True)
     print(info["smi"], flush=True)

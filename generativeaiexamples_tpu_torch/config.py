@@ -47,14 +47,12 @@ logger = logging.getLogger(__name__)
 
 ENV_PREFIX = "APP_ENGINE_"
 
-_CKPT = "checkpoints load with training and checkpoints (ROADMAP queue 1 item 10)"
 _PIPELINE = "the port serves tensor parallelism only; pipeline parallelism is ROADMAP queue 1 item 9b"
 # The JAX package's EngineConfig fields (config/schema.py) that the port
 # has no field for: name -> (the JAX default, why another value is refused,
 # the other values the port serves as they are). A reason of None marks a
 # field that exists only for XLA's compiles: logged once, ignored.
 JAX_ONLY_FIELDS = {
-    "checkpoint_path": ("", _CKPT, ()),
     "pipeline_parallelism": (1, _PIPELINE, ()),
     "serving_layout": ("auto", None, ()),
     "paged_kernel": ("auto", "the port always reads a paged pool through its kernel on the card", ()),
@@ -85,7 +83,12 @@ def _parse(name: str, raw: str, default):
 @dataclasses.dataclass
 class EngineConfig:
     model_config_name: str = "llama3-8b"
-    # HF tokenizer.json; empty uses the byte-level tokenizer
+    # a HF safetensors directory (models/hf_loader.py): its config.json
+    # (else model_config_name) and its weights, streamed and quantized at
+    # load; empty serves random weights (seed 0)
+    checkpoint_path: str = ""
+    # HF tokenizer.json; empty reads the checkpoint's, else the byte-level
+    # tokenizer
     tokenizer_path: str = ""
     dtype: str = "bfloat16"
     # none | int8 (weight-only) | w8a8 (int8 weights, per-token int8 activations)
@@ -156,7 +159,8 @@ class EngineConfig:
     spec_proposer: str = "lookup"
     # a models/llama.py preset for the resident draft model
     spec_draft_model: str = ""
-    # refused: checkpoints load with ROADMAP queue 1 item 10
+    # a HF safetensors directory for the resident draft: its config.json
+    # (else spec_draft_model) and its dense weights
     spec_draft_checkpoint_path: str = ""
     # the draft-model proposers' K; 0 inherits spec_draft_len
     spec_draft_model_len: int = 0
@@ -192,9 +196,6 @@ class EngineConfig:
         if tp != -1 and tp < 1:
             name = cls.env_name("tensor_parallelism")
             raise ValueError(f"{name}={tp}: must be -1 (the default) or >= 1")
-        if kwargs.get("spec_draft_checkpoint_path"):  # unserved, as the fields below
-            name = cls.env_name("spec_draft_checkpoint_path")
-            raise ValueError(f"{name}={kwargs['spec_draft_checkpoint_path']}: {_CKPT}")
         for field, (default, reason, served) in JAX_ONLY_FIELDS.items():
             name = cls.env_name(field)
             raw = environ.get(name)
@@ -324,8 +325,6 @@ def _section_from_env(cls, section: str, environ: Optional[Mapping[str, str]]):
             default = f.default_factory() if f.default is dataclasses.MISSING else f.default
             kwargs[f.name] = _parse(name, raw, default)
     out = cls(**kwargs)
-    if getattr(out, "checkpoint_path", ""):
-        raise ValueError(f"{_env_name(section, 'checkpoint_path')}={out.checkpoint_path}: {_CKPT}")
     for field, (default, reason) in getattr(cls, "UNSERVED", {}).items():
         name = _env_name(section, field)
         raw = environ.get(name)

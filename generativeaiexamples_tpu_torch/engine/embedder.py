@@ -193,7 +193,9 @@ def _build_params(cfg, checkpoint_path, params, device, dtype, seed):
     from generativeaiexamples_tpu_torch.models import bert
 
     if checkpoint_path:
-        return bert.load_bert_params(checkpoint_path, cfg, dtype)
+        params = bert.load_bert_params(checkpoint_path, cfg, dtype, device)
+        logger.info("Loaded BERT encoder weights from %s", checkpoint_path)
+        return params
     if params is not None:
         return _checked_params(params, device)
     logger.warning("BERT encoder running with random-init weights (seed %d, no checkpoint)", seed)

@@ -138,6 +138,18 @@ more than one shard (ROADMAP queue 1 item 9e): those with a switch at
 startup, the rest at the call (``NotServedUnderTP``, 501 on the drain
 routes). JAX's automatic choice of pipeline parallelism raises (9b).
 
+Weights (JAX's rule): ``checkpoint_path`` names a HF safetensors
+directory, whose ``config.json`` (else ``model_config_name``) is the
+model and whose tensors stream into the serving layout
+(``hf_loader.load_params_layered_streaming``: each layer transposed,
+quantized to int8 packs on the device and cut into its shards as its
+tensors complete; ``load_stats`` keeps the load's ``peak_host_bytes`` and
+seconds); the tokenizer is ``tokenizer_path`` or the checkpoint's
+``tokenizer.json``, else the byte tokenizer. A path without
+``.safetensors`` raises at build, never falling back to random weights.
+``params=`` passes a tree in memory; with neither, the weights are random
+(seed 0).
+
 The engine runs on the card: ``device=None`` means CUDA and raises when
 no card is present. Tests pass ``device="cpu"`` (or a mesh of ``cpu``
 shards), where every kernel wrapper runs its plain PyTorch version.
@@ -169,7 +181,7 @@ from generativeaiexamples_tpu_torch.engine import spec_decode as spec_decode_mod
 from generativeaiexamples_tpu_torch.engine.scheduler import handoff as handoff_mod
 from generativeaiexamples_tpu_torch.engine.scheduler.base import build_policy
 from generativeaiexamples_tpu_torch.engine.tokenizer import load_tokenizer
-from generativeaiexamples_tpu_torch.models import llama, sampling
+from generativeaiexamples_tpu_torch.models import hf_loader, llama, sampling
 from generativeaiexamples_tpu_torch.ops import (
     decode_attention, flash_attention, int8_matmul, page_attention, quant,
 )
@@ -473,12 +485,15 @@ class LLMEngine:
         cfg = config or EngineConfig()
         cfg.validate()
         self.engine_config = cfg
-        if cfg.model_config_name not in llama.PRESETS:
-            raise ValueError(f"unknown model_config_name {cfg.model_config_name!r}")
-        model_cfg = llama.PRESETS[cfg.model_config_name]
+        # the model: the checkpoint's config.json, else the preset (JAX's rule)
+        model_cfg = hf_loader.config_from_hf(cfg.checkpoint_path) if cfg.checkpoint_path else None
+        if model_cfg is None:
+            if cfg.model_config_name not in llama.PRESETS:
+                raise ValueError(f"unknown model_config_name {cfg.model_config_name!r}")
+            model_cfg = llama.PRESETS[cfg.model_config_name]
         self.model_config = model_cfg
         self._init_mesh(cfg, model_cfg, device, mesh)
-        self.tokenizer = load_tokenizer(cfg.tokenizer_path)
+        self.tokenizer = load_tokenizer(cfg.tokenizer_path or cfg.checkpoint_path)
         # Sample only ids the tokenizer can represent (the byte tokenizer
         # under a 128k-vocab head would otherwise stream blanks).
         tok_vocab = getattr(self.tokenizer, "vocab_size", 0) or model_cfg.vocab_size
@@ -557,7 +572,21 @@ class LLMEngine:
             self._check_kernels(cfg, model_cfg, dtype)
         self._check_memory_budget(cfg, model_cfg)
 
-        if params is None:
+        # what the checkpoint load read (peak_host_bytes, seconds); empty otherwise
+        self.load_stats: Dict[str, float] = {}
+        if params is None and cfg.checkpoint_path:
+            # streamed: each layer transposed, quantized and placed (cut
+            # into its shards under TP) as its tensors complete
+            quantized = cfg.quantization in ("int8", "w8a8")
+            t0 = time.time()
+            params = hf_loader.load_params_layered_streaming(
+                cfg.checkpoint_path, model_cfg, dtype, quantization=cfg.quantization,
+                mesh=self._mesh, tp_shards=self.tp_shards if quantized else 1,
+                stats=self.load_stats,
+            )
+            self.load_stats["seconds"] = time.time() - t0
+            logger.info("Loaded LLM weights (streaming) from %s", cfg.checkpoint_path)
+        elif params is None:
             if cfg.quantization in ("int8", "w8a8"):
                 params = quant.init_packed_params_int8(model_cfg, 0, dtype, self.device)
             else:
@@ -744,7 +773,8 @@ class LLMEngine:
             )
         refused = [
             (cfg.spec_decode_enable == "on", "speculative decoding's verify (spec_decode_enable=on)"),
-            (bool(cfg.spec_draft_model), "the resident draft model (spec_draft_model)"),
+            (bool(cfg.spec_draft_model or cfg.spec_draft_checkpoint_path),
+             "the resident draft model (spec_draft_model, spec_draft_checkpoint_path)"),
             (cfg.scheduler_policy == "disagg", "the disagg KV handoff (scheduler_policy=disagg)"),
         ]
         for hit, what in refused:
@@ -1012,7 +1042,7 @@ class LLMEngine:
             prop = spec_decode_mod.LookupProposer(self._spec_ngram)
         elif kind in ("draft_model", "combined"):
             if self._draft is None:
-                if not cfg.spec_draft_model:
+                if not (cfg.spec_draft_model or cfg.spec_draft_checkpoint_path):
                     return None
                 self._draft = self._build_draft_runtime(cfg)
             if kind == "draft_model":

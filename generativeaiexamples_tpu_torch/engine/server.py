@@ -445,7 +445,8 @@ def main() -> None:
     configure, as the JAX engine server reads them (``load_config``;
     e.g. ``APP_ENGINE_QUANTIZATION=int8 APP_ENGINE_KVCACHEDTYPE=int8``,
     ``APP_EMBEDDINGS_MODELENGINE=hash``).
-    Weights are random (seed 0) until checkpoints ship."""
+    Weights come from ``APP_ENGINE_CHECKPOINTPATH`` (random, seed 0,
+    without one)."""
     from generativeaiexamples_tpu_torch import config_validate
     from generativeaiexamples_tpu_torch.engine.batcher import validate_config
     from generativeaiexamples_tpu_torch.engine.embedder import create_embedder

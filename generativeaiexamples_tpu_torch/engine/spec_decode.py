@@ -213,15 +213,6 @@ class AdaptiveK:
         return self.k_max
 
 
-_CKPT = "checkpoints load with training and checkpoints (ROADMAP queue 1 item 10)"
-
-
-def refuse_draft_checkpoint(cfg) -> None:
-    """A draft checkpoint path is refused until checkpoints load."""
-    if getattr(cfg, "spec_draft_checkpoint_path", ""):
-        raise ValueError(f"spec_draft_checkpoint_path={cfg.spec_draft_checkpoint_path}: {_CKPT}")
-
-
 def validate_config(cfg, startup: bool = False) -> None:
     """The spec-decode knobs' checks, each field's rule once, with the JAX
     package's text for the layer that refuses: its engine's
@@ -252,7 +243,6 @@ def validate_config(cfg, startup: bool = False) -> None:
                f"engine.spec_proposer={proposer!r} requires "
                f"engine.spec_draft_model or engine.spec_draft_checkpoint_path"
                if cfg.spec_decode_enable == "on" else None)
-    refuse_draft_checkpoint(cfg)
     if cfg.spec_draft_model_len < 0:
         refuse(f"spec_draft_model_len must be >= 0 (0 = inherit "
                f"spec_draft_len), got {cfg.spec_draft_model_len}")

@@ -15,9 +15,9 @@ The per-slot frontier and its acceptance-rewind arithmetic live in
 ``spec_decode.DraftTracker``. The runtime's methods run on the engine's
 dispatch thread, and under ``disagg`` admission's draft prefill runs on
 the prefill tier, so one lock orders the two over the draft cache and
-the tracker. The draft's weights are random (seed 0) unless the caller
-passes them: ``spec_draft_checkpoint_path`` is refused until checkpoints
-load (ROADMAP queue 1 item 10).
+the tracker. The draft's weights come from the caller (``params``), else
+from ``spec_draft_checkpoint_path`` (dense, ``hf_loader.load_params``),
+else they are random (seed 0).
 """
 from __future__ import annotations
 
@@ -30,16 +30,19 @@ import numpy as np
 import torch
 
 from generativeaiexamples_tpu_torch.engine import spec_decode as spec_decode_mod
-from generativeaiexamples_tpu_torch.models import llama
+from generativeaiexamples_tpu_torch.models import hf_loader, llama
 
 logger = logging.getLogger(__name__)
 
 
 def resolve_draft_config(cfg) -> llama.LlamaConfig:
-    """The draft model's LlamaConfig: the ``spec_draft_model`` preset.
-    Raises ValueError naming the knob on an unknown preset, and for a
-    ``spec_draft_checkpoint_path`` (no checkpoint loads yet)."""
-    spec_decode_mod.refuse_draft_checkpoint(cfg)
+    """The draft model's LlamaConfig: ``spec_draft_checkpoint_path``'s
+    own config.json when present, else the ``spec_draft_model`` preset.
+    Raises ValueError naming the knob on an unknown preset."""
+    if getattr(cfg, "spec_draft_checkpoint_path", ""):
+        model_cfg = hf_loader.config_from_hf(cfg.spec_draft_checkpoint_path)
+        if model_cfg is not None:
+            return model_cfg
     name = getattr(cfg, "spec_draft_model", "")
     if name not in llama.PRESETS:
         raise ValueError(
@@ -97,7 +100,11 @@ class DraftRuntime:
         self.tracker = spec_decode_mod.DraftTracker(self._k)
         self._chunk = min(cfg.prefill_chunk, max_seq_len)
         self._kv_quant = getattr(cfg, "spec_draft_kv_dtype", "bfloat16") == "int8"
-        if params is None:
+        ckpt = getattr(cfg, "spec_draft_checkpoint_path", "")
+        if params is None and ckpt:  # dense: a small model never needs packing
+            params = hf_loader.load_params(ckpt, dcfg, dtype, device)
+            logger.info("Loaded draft-model weights from %s", ckpt)
+        elif params is None:
             params = llama.init_params(dcfg, 0, dtype, device)
             logger.warning("Resident draft model running with random-init weights "
                            "(no spec_draft_checkpoint_path).")

@@ -211,9 +211,65 @@ def cross_encode_score(
     return (pooled @ head["w"].float() + head["b"].float())[:, 0]
 
 
-def load_bert_params(path: str, cfg: BertConfig, dtype=torch.bfloat16) -> Params:
-    """HF BERT safetensors into this layout: not ported yet."""
-    raise NotImplementedError(
-        f"loading BERT weights ({path!r}) needs the safetensors loader, which arrives "
-        "with training and checkpoints (ROADMAP queue 1 item 10)"
-    )
+_BERT_LAYER_KEYS = {
+    "attention.self.query.weight": ("wq", True),
+    "attention.self.query.bias": ("bq", False),
+    "attention.self.key.weight": ("wk", True),
+    "attention.self.key.bias": ("bk", False),
+    "attention.self.value.weight": ("wv", True),
+    "attention.self.value.bias": ("bv", False),
+    "attention.output.dense.weight": ("wo", True),
+    "attention.output.dense.bias": ("bo", False),
+    "attention.output.LayerNorm.weight": ("attn_norm_scale", False),
+    "attention.output.LayerNorm.bias": ("attn_norm_bias", False),
+    "intermediate.dense.weight": ("w_in", True),
+    "intermediate.dense.bias": ("b_in", False),
+    "output.dense.weight": ("w_out", True),
+    "output.dense.bias": ("b_out", False),
+    "output.LayerNorm.weight": ("mlp_norm_scale", False),
+    "output.LayerNorm.bias": ("mlp_norm_bias", False),
+}
+_BERT_TOP_KEYS = {
+    "embeddings.word_embeddings.weight": "tok_embed",
+    "embeddings.position_embeddings.weight": "pos_embed",
+    "embeddings.token_type_embeddings.weight": "type_embed",
+    "embeddings.LayerNorm.weight": "embed_norm_scale",
+    "embeddings.LayerNorm.bias": "embed_norm_bias",
+}
+
+
+def load_bert_params(path: str, cfg: BertConfig, dtype=torch.bfloat16, device="cpu") -> Params:
+    """HF BERT safetensors (``bert.encoder.layer.N.*`` naming, the
+    ``bert.`` prefix optional) into this layout, in ``dtype`` on
+    ``device``: Linear weights transposed to ``[in, out]``, JAX's key map.
+    As JAX's, a layer key is kept only where every layer has it."""
+    from generativeaiexamples_tpu_torch.models.hf_loader import _open_shards, _to
+
+    L = cfg.num_layers
+    layers: Dict[str, list] = {v[0]: [None] * L for v in _BERT_LAYER_KEYS.values()}
+    params: Params = {}
+    for name, tensor in _open_shards(path):
+        stripped = name[len("bert."):] if name.startswith("bert.") else name
+        if stripped in _BERT_TOP_KEYS:
+            params[_BERT_TOP_KEYS[stripped]] = _to(tensor, device, dtype)
+        elif stripped.startswith("encoder.layer."):
+            rest = stripped[len("encoder.layer."):]
+            idx_str, _, suffix = rest.partition(".")
+            if suffix in _BERT_LAYER_KEYS:
+                ours, transpose = _BERT_LAYER_KEYS[suffix]
+                layers[ours][int(idx_str)] = _to(tensor.T if transpose else tensor, device, dtype)
+    kept = [k for k, v in layers.items() if all(t is not None for t in v)]
+    params["layers"] = [{k: layers[k][i] for k in kept} for i in range(L)]
+    return params
+
+
+def hf_tensors(params: Params) -> Dict[str, torch.Tensor]:
+    """This layout's tensors under HF BERT names (``bert.`` prefix, Linear
+    weights ``[out, in]``): the inverse of :func:`load_bert_params`, for
+    writing a checkpoint (utils/safetensors_io.save_file)."""
+    out = {f"bert.{hf}": params[ours] for hf, ours in _BERT_TOP_KEYS.items()}
+    for i, lp in enumerate(params["layers"]):
+        for hf, (ours, transpose) in _BERT_LAYER_KEYS.items():
+            t = lp[ours]
+            out[f"bert.encoder.layer.{i}.{hf}"] = t.T.contiguous() if transpose else t
+    return out

@@ -8,7 +8,10 @@ stacked on a leading layer axis (``init_params``,
 port's layout: one dict of tensors per layer, or, for a tensor-parallel
 tree, the shards' trees (``mesh=``). ``bert_params_from_numpy``
 and ``rank_head_from_numpy`` do the same for the BERT encoder's tree
-(``models/bert.py``) and the cross-encoder's head.
+(``models/bert.py``) and the cross-encoder's head. ``lora_from_jax`` and
+``train_state_from_jax`` carry LoRA adapters and a training state
+(parameters, AdamW moments, step) into models/lora.py's and
+models/train.py's layouts.
 
 bfloat16 leaves (numpy's ml_dtypes type, which ``torch.from_numpy`` does
 not accept) cross bit-exactly as a ``uint16`` view reinterpreted as
@@ -78,3 +81,36 @@ def bert_params_from_numpy(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]
 def rank_head_from_numpy(head: Dict[str, Any], device="cpu") -> Dict[str, torch.Tensor]:
     """The cross-encoder head (``{"w": [H, 1], "b": [1]}``) as tensors."""
     return {k: to_tensor(v, device) for k, v in head.items()}
+
+
+def lora_from_jax(tree: Dict[str, Any], device="cpu") -> list:
+    """models/lora.py's adapters (one dict a layer) from the JAX adapter
+    tree, each ``{t}_a`` ``[L, in, r]`` and ``{t}_b`` ``[L, r, out]``
+    stacked on a leading layer axis."""
+    L = _num_layers(tree)
+    return [{k: to_tensor(np.asarray(v)[i], device) for k, v in tree.items()} for i in range(L)]
+
+
+def _tree_from_jax(tree, device):
+    """A Llama parameter tree or an adapter tree, by its keys."""
+    return params_from_jax(tree, device) if "layers" in tree else lora_from_jax(tree, device)
+
+
+def train_state_from_jax(state, device="cpu"):
+    """``models/train.TrainState`` from the JAX package's ``TrainState``
+    (its leaves as numpy arrays): the parameters (a Llama tree or LoRA
+    adapters) as leaves that require grad, optax's ``ScaleByAdamState``
+    (the first entry of ``adamw``'s chained state) as an ``AdamState``,
+    and the step."""
+    from generativeaiexamples_tpu_torch.models import train
+
+    adam = state.opt_state[0]
+    return train.TrainState(
+        params=train.trainable(_tree_from_jax(state.params, device)),
+        opt_state=train.AdamState(
+            count=to_tensor(np.asarray(adam.count), device).to(torch.int32),
+            mu=_tree_from_jax(adam.mu, device),
+            nu=_tree_from_jax(adam.nu, device),
+        ),
+        step=to_tensor(np.asarray(state.step), device).to(torch.int32),
+    )

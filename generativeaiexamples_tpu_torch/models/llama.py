@@ -10,7 +10,10 @@ for decode steps. Fixed (one dense strip per slot,
 read through ops/decode_attention.py), and ``copy_kv_rows`` between the
 store and the slots. Speculative decoding: ``verify_layers_paged`` (the
 K+1-row verify chunk through the page kernel), ``verify_layers`` and
-the resident draft's ``draft_propose_layers`` (fixed layout). Parameters are plain
+the resident draft's ``draft_propose_layers`` (fixed layout). Training
+and the merge checks: ``forward``, JAX's cache-free path (plain causal
+attention, LoRA adapters through ``_proj``/``_lora_delta``, per-layer
+rematerialization under ``remat``). Parameters are plain
 dictionaries of tensors, one dict per layer (the JAX package's layered
 layout, ``consume_split_params_layers``); projections are dense
 ``[K, F]`` matrices or int8 packs ``{"q", "scale"}`` (ops/quant.py), the
@@ -46,6 +49,7 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from generativeaiexamples_tpu_torch.ops import (
     decode_attention, flash_attention, int8_matmul, page_attention, quant,
@@ -291,7 +295,8 @@ def _attention(
     return out.reshape(B, T, Hq, Dh)
 
 
-def _proj(x: torch.Tensor, w, quant_kernel=None, name: str = "", tp=None) -> torch.Tensor:
+def _proj(x: torch.Tensor, w, quant_kernel=None, name: str = "", tp=None,
+          lora=None, lora_scale: float = 1.0) -> torch.Tensor:
     """x @ w for a dense [K, F] matrix or an int8 pack (ops/quant.py).
     ``quant_kernel`` picks the pack's product (``int8_matmul.packed_matmul``
     modes): None or True, the weight-only int8 kernel; False, its plain
@@ -299,44 +304,70 @@ def _proj(x: torch.Tensor, w, quant_kernel=None, name: str = "", tp=None) -> tor
     the int8 x int8 kernel; ``"w8a8_plain"``, that kernel's plain
     version. A weight cut into :class:`Shards` (parallel/sharding.py)
     runs on each shard's tile through ``tp_kernels.packed_matmul_tp``, as
-    the projection ``name``'s Megatron kind (``quant.PACK_KINDS``)."""
+    the projection ``name``'s Megatron kind (``quant.PACK_KINDS``). With
+    ``lora`` (a layer's adapters, models/lora.py) holding ``name``'s, the
+    low-rank delta ``lora_scale * (x @ A) @ B`` is added, cast to the
+    output's dtype, as in JAX's ``_proj``."""
     mode = {None: "int8", True: "int8", False: "int8_plain"}.get(quant_kernel, quant_kernel)
     if isinstance(w, Shards):
-        return tp_kernels.packed_matmul_tp(x, w, tp, quant.PACK_KINDS[name], mode)
-    if isinstance(w, dict):
-        return int8_matmul.packed_matmul(x, w, mode)
-    return x @ w
+        out = tp_kernels.packed_matmul_tp(x, w, tp, quant.PACK_KINDS[name], mode)
+    elif isinstance(w, dict):
+        out = int8_matmul.packed_matmul(x, w, mode)
+    else:
+        out = x @ w
+    if lora is not None and f"{name}_a" in lora:
+        out = out + (lora_scale * ((x @ lora[f"{name}_a"]) @ lora[f"{name}_b"])).to(out.dtype)
+    return out
 
 
-def _block(h, lp, cfg: LlamaConfig, positions, attn, quant_kernel=None, tp=None):
+def _lora_delta(x: torch.Tensor, lora, name: str, scale: float) -> Optional[torch.Tensor]:
+    """The LoRA delta of a projection folded into a fused pack (``wqkv``,
+    ``w_gateup``), in ``x``'s dtype; None without adapters for ``name``."""
+    if lora is None or f"{name}_a" not in lora:
+        return None
+    return (scale * ((x @ lora[f"{name}_a"]) @ lora[f"{name}_b"])).to(x.dtype)
+
+
+def _block(h, lp, cfg: LlamaConfig, positions, attn, quant_kernel=None, tp=None,
+           lora=None, lora_scale: float = 1.0):
     """One transformer block; ``attn(q, k, v) -> out`` supplies the
     attention flavor (einsum, flash kernel, or a paged read). Under
     ``tp`` the projections are unfused and run shard by shard; q, k and v
-    come back whole (replicated), their heads the shards' in order."""
+    come back whole (replicated), their heads the shards' in order.
+    ``lora`` carries this layer's adapters (fine-tuning; serving merges
+    them instead), applied on a fused pack's output slices too."""
     B, T = h.shape[:2]
     x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
     if "wqkv" in lp:  # int8-fused serving layout (ops/quant.py)
         qkv = _proj(x, lp["wqkv"], quant_kernel)
         q, k, v = torch.split(qkv, [cfg.q_dim, cfg.kv_dim, cfg.kv_dim], dim=-1)
+        dq, dk, dv = (_lora_delta(x, lora, n, lora_scale) for n in ("wq", "wk", "wv"))
+        q = q if dq is None else q + dq
+        k = k if dk is None else k + dk
+        v = v if dv is None else v + dv
     else:
-        q = _proj(x, lp["wq"], quant_kernel, "wq", tp)
-        k = _proj(x, lp["wk"], quant_kernel, "wk", tp)
-        v = _proj(x, lp["wv"], quant_kernel, "wv", tp)
+        q = _proj(x, lp["wq"], quant_kernel, "wq", tp, lora, lora_scale)
+        k = _proj(x, lp["wk"], quant_kernel, "wk", tp, lora, lora_scale)
+        v = _proj(x, lp["wv"], quant_kernel, "wv", tp, lora, lora_scale)
     q = apply_rope(q.reshape(B, T, cfg.num_heads, cfg.head_dim), positions, cfg)
     k = apply_rope(k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim), positions, cfg)
     v = v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
     attn_out = attn(q, k, v)
-    h = h + _proj(attn_out.reshape(B, T, cfg.q_dim), lp["wo"], quant_kernel, "wo", tp)
+    h = h + _proj(attn_out.reshape(B, T, cfg.q_dim), lp["wo"], quant_kernel, "wo", tp,
+                  lora, lora_scale)
     x = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
     if "w_gateup" in lp:
         gate_raw, up = torch.split(
             _proj(x, lp["w_gateup"], quant_kernel), cfg.intermediate_size, dim=-1
         )
+        dg, du = (_lora_delta(x, lora, n, lora_scale) for n in ("w_gate", "w_up"))
+        gate_raw = gate_raw if dg is None else gate_raw + dg
+        up = up if du is None else up + du
     else:
-        gate_raw = _proj(x, lp["w_gate"], quant_kernel, "w_gate", tp)
-        up = _proj(x, lp["w_up"], quant_kernel, "w_up", tp)
+        gate_raw = _proj(x, lp["w_gate"], quant_kernel, "w_gate", tp, lora, lora_scale)
+        up = _proj(x, lp["w_up"], quant_kernel, "w_up", tp, lora, lora_scale)
     gate = torch.nn.functional.silu(gate_raw.float()).to(x.dtype)
-    return h + _proj(gate * up, lp["w_down"], quant_kernel, "w_down", tp)
+    return h + _proj(gate * up, lp["w_down"], quant_kernel, "w_down", tp, lora, lora_scale)
 
 
 def _head(params: Params, h: torch.Tensor, cfg: LlamaConfig, quant_kernel=None, tp=None) -> torch.Tensor:
@@ -346,6 +377,53 @@ def _head(params: Params, h: torch.Tensor, cfg: LlamaConfig, quant_kernel=None, 
     if head is None:
         head = params["embed"].T
     return _proj(h, head, quant_kernel, "lm_head", tp).float()
+
+
+def forward(
+    params: Params,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [B, T] int
+    positions: torch.Tensor,  # [B, T] int absolute positions
+    remat: bool = False,
+    lora: Optional[List[Dict[str, torch.Tensor]]] = None,
+    lora_scale: float = 1.0,
+    quant_kernel=None,
+) -> torch.Tensor:
+    """The decoder without a cache (training, the merge checks): plain
+    causal attention over the T tokens by position, f32 logits [B, T, V].
+    JAX's cache-free ``forward`` path; ``lora`` is one adapter dict a
+    layer (models/lora.py). Under ``remat`` each layer runs under
+    ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint`` per layer):
+    backward recomputes a layer's activations instead of keeping them."""
+    h = params["embed"][tokens.long()]
+    mask = positions[:, :, None] >= positions[:, None, :]
+
+    def attn(q, k, v):
+        return _attention(q, k, v, mask)
+
+    for i, lp in enumerate(params["layers"]):
+        lo = None if lora is None else lora[i]
+
+        def layer(h, lp=lp, lo=lo):
+            return _block(h, lp, cfg, positions, attn, quant_kernel, lora=lo, lora_scale=lora_scale)
+
+        if remat and torch.is_grad_enabled():
+            h = torch.utils.checkpoint.checkpoint(layer, h, use_reentrant=False)
+        else:
+            h = layer(h)
+    return _head(params, h, cfg, quant_kernel)
+
+
+def count_params(params) -> int:
+    """Elements of every tensor in a parameter tree (packs count their
+    padded storage, as JAX's count over the leaves does)."""
+    if isinstance(params, torch.Tensor):
+        return params.numel()
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(count_params(v) for v in params)
+    return 0
 
 
 # --------------------------------------------------------------------- #

@@ -99,9 +99,13 @@ def _layout(q: torch.Tensor, tp_shards: int = 1, kind: str = "column") -> torch.
 
 def quantize_int8(w: torch.Tensor, tp_shards: int = 1, kind: str = "column") -> Dict[str, torch.Tensor]:
     """Symmetric per-output-channel int8 packing of [..., K, F] weights
-    (f32 math, round half to even: bit-equal to the JAX package)."""
+    (f32 math, round half to even: bit-equal to the JAX package). The
+    divisor 127 is a tensor on ``w``'s device: CUDA turns a division by a
+    host scalar into a product with its reciprocal, which rounds
+    otherwise."""
     w32 = w.float()
-    scale = torch.clamp(w32.abs().amax(dim=-2, keepdim=True) / 127.0, min=1e-8)
+    amax = w32.abs().amax(dim=-2, keepdim=True)
+    scale = torch.clamp(amax / torch.full((), 127.0, device=w.device), min=1e-8)
     q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
     return {"q": _layout(q, tp_shards, kind), "scale": scale}
 

@@ -192,6 +192,22 @@ def test_arctic_presets_on_the_meta_device(preset, layers, hidden, heads, ffn, m
                                             abs=0.01)
 
 
-def test_load_bert_params_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tbert.load_bert_params("/nonexistent", tbert.BERT_PRESETS["debug"])
+def test_load_bert_params_names_its_roadmap_item(tmp_path):
+    """Loading BERT weights (refused until ROADMAP queue 1 item 10) is
+    served as JAX serves it: a directory with no safetensors raises
+    FileNotFoundError, and a written HF checkpoint (``bert.`` names,
+    Linear weights ``[out, in]``) loads the same tensors, bit for bit."""
+    from generativeaiexamples_tpu_torch.utils import safetensors_io
+
+    cfg = tbert.BERT_PRESETS["debug"]
+    with pytest.raises(FileNotFoundError):
+        tbert.load_bert_params(str(tmp_path / "missing"), cfg)
+    params = tbert.init_bert_params(cfg, torch.Generator().manual_seed(0), torch.float32)
+    safetensors_io.save_file(tbert.hf_tensors(params), str(tmp_path / "model.safetensors"))
+    got = tbert.load_bert_params(str(tmp_path), cfg, torch.float32)
+    assert set(got) == set(params)
+    for key, val in params.items():
+        if key != "layers":
+            assert torch.equal(got[key], val), key
+    for lp, want in zip(got["layers"], params["layers"]):
+        assert set(lp) == set(want) and all(torch.equal(lp[k], want[k]) for k in want)

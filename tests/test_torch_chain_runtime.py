@@ -547,8 +547,6 @@ def test_config_reads_the_jax_environment_names():
 @pytest.mark.parametrize("env,item", [
     ({"APP_RETRIEVER_NRURL": "http://nr:8000"}, "no external retriever service"),
     ({"APP_TEXTSPLITTER_MODELNAME": "bert-base"}, "counts whitespace words"),
-    ({"APP_EMBEDDINGS_CHECKPOINTPATH": "/w"}, "item 10"),
-    ({"APP_RANKING_CHECKPOINTPATH": "/w"}, "item 10"),
     # a file that APP_CONFIG_FILE names is read now: an unserved value set
     # there is refused as the same value from the environment is
     pytest.param({"APP_CONFIG_FILE": {"retriever": {"nrUrl": "http://nr:8000"}}},
@@ -562,6 +560,41 @@ def test_config_refuses_what_the_port_does_not_serve(env, item, tmp_path):
         env = dict(env, APP_CONFIG_FILE=str(path))
     with pytest.raises(ValueError, match=item):
         tconfig.load_config(env)
+
+
+@pytest.mark.parametrize("env", ["APP_EMBEDDINGS_CHECKPOINTPATH", "APP_RANKING_CHECKPOINTPATH"])
+def test_config_serves_a_retrieval_checkpoint_path(env, tmp_path):
+    """The encoders' checkpoint paths (refused until ROADMAP queue 1 item
+    10) are served as JAX serves them: the config reads the path; the
+    encoder built from a directory without safetensors raises
+    FileNotFoundError; one built from a written HF checkpoint embeds (or
+    scores) exactly as the same weights given in memory."""
+    from generativeaiexamples_tpu_torch.engine.embedder import TorchEmbedder
+    from generativeaiexamples_tpu_torch.models import bert as tbert
+    from generativeaiexamples_tpu_torch.utils import safetensors_io
+
+    section = "embeddings" if "EMBEDDINGS" in env else "ranking"
+    missing = str(tmp_path / "missing")
+    assert getattr(tconfig.load_config({env: missing}), section).checkpoint_path == missing
+    cls = TorchEmbedder if section == "embeddings" else TorchReranker
+    kw = dict(model_name="debug", device="cpu", dtype=torch.float32)
+    with pytest.raises(FileNotFoundError):
+        cls(checkpoint_path=missing, **kw)
+    ref = cls(**kw)
+    ckpt = tmp_path / "ckpt"
+    ckpt.mkdir()
+    safetensors_io.save_file(tbert.hf_tensors(ref._params), str(ckpt / "model.safetensors"))
+    loaded = cls(checkpoint_path=getattr(tconfig.load_config({env: str(ckpt)}), section).checkpoint_path,
+                 **kw)
+    try:
+        texts = ["retrieval on the card", "a second, longer passage about kernels"]
+        if section == "embeddings":
+            np.testing.assert_array_equal(loaded.embed_documents(texts), ref.embed_documents(texts))
+        else:
+            np.testing.assert_array_equal(loaded.score("kernels", texts), ref.score("kernels", texts))
+    finally:
+        loaded.close()
+        ref.close()
 
 
 @pytest.mark.parametrize("env,section,field,value", [

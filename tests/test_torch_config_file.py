@@ -23,10 +23,6 @@ from generativeaiexamples_tpu import config as jconfig
 from generativeaiexamples_tpu_torch import config as tconfig
 from generativeaiexamples_tpu_torch import config_wizard
 
-# fields whose values must stay at their defaults for both packages to load
-# a file: a checkpoint path is refused by the port (ROADMAP queue 1 item 10)
-_KEEP_DEFAULT = {("embeddings", "checkpoint_path"), ("ranking", "checkpoint_path"),
-                 ("engine", "spec_draft_checkpoint_path")}
 
 
 @pytest.fixture(autouse=True)
@@ -70,8 +66,6 @@ def _document(snake=False):
     data = {}
     key = (lambda n: n) if snake else config_wizard.to_camel_case
     for i, (section, name, default) in enumerate(_served()):
-        if (section, name) in _KEEP_DEFAULT:
-            continue
         data.setdefault(key(section), {})[key(name)] = _other(default, i)
     return data
 
@@ -98,11 +92,11 @@ def test_every_field_from_a_file_is_jax_s(tmp_path, fmt, snake):
     path = _write(tmp_path, _document(snake), fmt)
     tcfg, jcfg = tconfig.AppConfig.from_file(path), jconfig.AppConfig.from_file(path)
     assert _fields_equal(tcfg, jcfg) == {}
-    # and the file really moved them: nothing but the kept defaults is default
+    # and the file really moved them: no field is left at its default
     default = tconfig.AppConfig()
     moved = {(s, n) for s, n, _ in _served()
              if getattr(getattr(tcfg, s), n) != getattr(getattr(default, s), n)}
-    assert moved == {(s, n) for s, n, _ in _served()} - _KEEP_DEFAULT
+    assert moved == {(s, n) for s, n, _ in _served()}
 
 
 @pytest.mark.parametrize("fmt", ["json", "yaml"])
@@ -156,10 +150,7 @@ def test_yaml_booleans_and_numbers_coerce_as_in_jax(env, tmp_path):
 @pytest.mark.parametrize("section,field,value", [
     ("engine", "tensor_parallelism", 0),
     ("engine", "pipeline_parallelism", 2),
-    ("engine", "checkpoint_path", "/ckpt"),
     ("engine", "paged_kernel", "off"),
-    ("engine", "spec_draft_checkpoint_path", "/draft"),
-    ("embeddings", "checkpoint_path", "/w"),
     ("retriever", "nr_url", "http://nr:8000"),
     ("text_splitter", "model_name", "bert-base"),
 ])
@@ -180,6 +171,25 @@ def test_an_unserved_value_in_a_file_is_refused_as_from_the_environment(env, tmp
     with pytest.raises(ValueError) as got:
         tconfig.get_config()
     assert str(got.value) == str(from_file.value)
+
+
+@pytest.mark.parametrize("section,field,value", [
+    ("engine", "checkpoint_path", "/ckpt"),
+    ("engine", "spec_draft_checkpoint_path", "/draft"),
+    ("embeddings", "checkpoint_path", "/w"),
+    ("ranking", "checkpoint_path", "/r"),
+])
+def test_a_checkpoint_path_in_a_file_is_served_as_from_the_environment(env, tmp_path, section,
+                                                                       field, value):
+    """The checkpoint paths (refused until ROADMAP queue 1 item 10): a
+    file's value is the environment's and JAX's; the build reads it."""
+    camel = config_wizard.to_camel_case
+    path = _write(tmp_path, {camel(section): {camel(field): value}}, "json")
+    from_file = tconfig.AppConfig.from_file(path)
+    env.setenv(config_wizard.env_name(section, field), value)
+    assert getattr(getattr(from_file, section), field) == value
+    assert getattr(getattr(tconfig.AppConfig.from_env(), section), field) == value
+    assert getattr(getattr(jconfig.AppConfig.from_file(path), section), field) == value
 
 
 def test_an_xla_only_value_in_a_file_is_read_and_ignored(tmp_path):

@@ -92,16 +92,45 @@ def _throttled_wave(eng, prompts=PROMPTS, params=PARAMS):
 
 
 def _drain_mid_decode(eng, reqs, min_tokens=1):
-    """Wait until every stream of a :func:`_throttled_wave` has tokens but
-    none has finished, drain, and lift the throttle."""
+    """Park the dispatch loop once every stream of a :func:`_throttled_wave`
+    is admitted and one decode block has been dispatched for them, wait
+    until each has tokens, check that none has finished, drain, and lift
+    the throttle. The loop parks on its own thread, at its next decode
+    block (which it then skips), and stays parked until the drain has
+    flagged it: nothing is dispatched between the check and the drain, so
+    no stream can finish there."""
+    parked, release = threading.Event(), threading.Event()
+    decode_once = eng._decode_once
+    blocks = [0]
+
+    def hook():
+        if all(r.position >= len(r.prompt_ids) for r in reqs):  # every prefill dispatched
+            if blocks[0] >= 1 and not release.is_set():
+                parked.set()
+                release.wait(timeout=60)
+                return  # the drain is flagged: the loop parks at its next turn
+            blocks[0] += 1
+        decode_once()
+
+    def release_once_draining():
+        deadline = time.time() + 60
+        while not eng.is_draining() and time.time() < deadline:
+            time.sleep(0.001)
+        release.set()
+
+    eng._decode_once = hook
     try:
+        assert parked.wait(timeout=60)
         deadline = time.time() + 60
         while not all(r.generated >= min_tokens for r in reqs):
             assert time.time() < deadline
             time.sleep(0.005)
         assert not any(r.finished for r in reqs)
+        threading.Thread(target=release_once_draining, daemon=True).start()
         return eng.drain()
     finally:
+        release.set()
+        eng._decode_once = decode_once
         faults.reset()
 
 

@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: no module of generativeaiexamples_tpu_torch
 and neither chip_smoke.py nor kernel_sweep.py imports jax or the JAX package
 (generativeaiexamples_tpu), nor the root ``integrations`` package (its
-adapters import the JAX package), nor aiohttp, pydantic, bleach or requests,
-which the GPU machine lacks; checked two ways: by importing every port
+adapters import the JAX package), nor aiohttp, pydantic, bleach, requests,
+safetensors, transformers, optax or orbax, which the GPU machine lacks; checked two ways: by importing every port
 module in a fresh interpreter and reading sys.modules, and by scanning the
 port's sources for import statements. Names match exactly or up to a dot
 (``generativeaiexamples_tpu_torch`` is not the JAX package)."""
@@ -17,7 +17,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "generativeaiexamples_tpu_torch"
 FORBIDDEN = ("jax", "generativeaiexamples_tpu", "integrations", "aiohttp", "pydantic", "bleach",
-             "requests")
+             "requests", "safetensors", "transformers", "optax", "orbax")
 
 
 def _forbidden(module: str) -> bool:

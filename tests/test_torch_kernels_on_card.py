@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card; and
 the retrieval side (the BERT encoder, the embedder's two paths and its own
-stream, exact and IVF search) on the card against the CPU and numpy.
+stream, exact and IVF search) on the card against the CPU and numpy; the
+checkpoint load's packs quantized on the card against the CPU's, and a
+LoRA step's gradients on the card against the CPU's.
 
 These need an NVIDIA GPU with nvcc (sm_90a) and skip elsewhere. The file
 imports nothing of JAX, so it runs on the GPU machine on its own:
@@ -754,3 +756,60 @@ def test_ann_search_on_the_card_matches_numpy(card, mode):
                       abs(want_s[r, j] - want_s[r, j + 1]) if j < 15 else np.inf)
             if gap > 1e-5:
                 assert got_i[r, j] == want_i[r, j], (r, j)
+
+
+def test_streamed_load_packs_on_the_card_equal_the_cpu_quantizer(card, tmp_path):
+    """One llama3-8b-width layer (bf16, as real Llama-3 files) streamed
+    and quantized on the card, fused at one shard and per shard at two:
+    every pack byte for byte the CPU's (the same f32 max, a true division
+    by 127 and round-half-even; a host-scalar divisor would multiply by
+    its reciprocal on the card)."""
+    import dataclasses
+
+    from generativeaiexamples_tpu_torch.models import hf_loader
+
+    cfg = dataclasses.replace(llama.PRESETS["llama3-8b"], num_layers=1, vocab_size=4096)
+    hf_loader.write_hf_checkpoint(cfg, str(tmp_path), seed=3, n_shards=1, dtype=torch.bfloat16)
+    for tp in (1, 2):
+        gpu = hf_loader.load_params_layered_streaming(str(tmp_path), cfg, quantization="int8",
+                                                      tp_shards=tp, device=card)
+        cpu = hf_loader.load_params_layered_streaming(str(tmp_path), cfg, quantization="int8",
+                                                      tp_shards=tp, device="cpu")
+        for key, pack in cpu["layers"][0].items():
+            if isinstance(pack, dict):
+                assert torch.equal(gpu["layers"][0][key]["q"].cpu(), pack["q"]), (tp, key)
+                assert torch.equal(gpu["layers"][0][key]["scale"].cpu().view(torch.int32),
+                                   pack["scale"].view(torch.int32)), (tp, key)
+        assert torch.equal(gpu["lm_head"]["q"].cpu(), cpu["lm_head"]["q"])
+
+
+def test_lora_step_gradients_on_the_card_match_the_cpu(card):
+    """One LoRA step at the debug preset in bf16 on the card and on the
+    CPU, the same weights and batch: the adapters' gradients agree within
+    bf16 rounding accumulated over two layers and the head (each leaf
+    within 5 % of its largest entry; the CPU and cuBLAS sum bf16 products
+    in other orders and precisions)."""
+    from generativeaiexamples_tpu_torch.models import lora, train
+
+    cfg = llama.PRESETS["debug"]
+    lcfg = lora.LoRAConfig(rank=4, alpha=8.0)
+    base = llama.init_params(cfg, 0, torch.bfloat16, "cpu")
+    adapters = lora.init_lora_params(cfg, lcfg, torch.Generator().manual_seed(1), torch.bfloat16)
+    for lp in adapters:  # B nonzero, so A's gradient is too
+        for t in lcfg.targets:
+            lp[f"{t}_b"] = (torch.randn(lp[f"{t}_b"].shape, generator=torch.Generator().manual_seed(2))
+                            * 0.05).to(torch.bfloat16)
+    gen = torch.Generator().manual_seed(3)
+    tokens = torch.randint(1, cfg.vocab_size, (2, 32), generator=gen)
+    mask = torch.ones((2, 32))
+
+    def grads(device):
+        move = lambda tree: train.tree_map(lambda t: t.to(device), tree)  # noqa: E731
+        ad = train.trainable(move(adapters))
+        loss = train.sft_loss(move(base), cfg, tokens.to(device), mask.to(device), lora=ad,
+                              lora_scale=lcfg.scale)
+        return [g.float().cpu() for g in torch.autograd.grad(loss, train.tree_leaves(ad))]
+
+    for got, want in zip(grads(card), grads("cpu")):
+        scale = float(want.abs().max())
+        assert scale > 0 and float((got - want).abs().max()) <= 0.05 * scale

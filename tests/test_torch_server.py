@@ -20,6 +20,7 @@ from generativeaiexamples_tpu.config.schema import EngineConfig as JaxEngineConf
 from generativeaiexamples_tpu.engine import server as jserver
 from generativeaiexamples_tpu_torch import config as tconfig
 import numpy as np
+import torch
 
 from generativeaiexamples_tpu_torch.config import JAX_ONLY_FIELDS, EngineConfig
 from generativeaiexamples_tpu_torch.engine.embedder import RemoteEmbedder, TorchEmbedder
@@ -235,13 +236,52 @@ def test_each_jax_engine_variable_has_the_jax_default(env):
 
 
 @pytest.mark.parametrize("env,value,item", [
-    ("APP_ENGINE_CHECKPOINTPATH", "/w", "queue 1 item 10"),
     ("APP_ENGINE_PIPELINEPARALLELISM", "2", "queue 1 item 9"),
-    ("APP_ENGINE_SPECDRAFTCHECKPOINTPATH", "/w", "queue 1 item 10"),
 ])
 def test_from_env_refuses_what_the_port_does_not_serve(env, value, item):
     with pytest.raises(ValueError, match=f"{env}={value}: .*{item}"):
         EngineConfig.from_env({env: value})
+
+
+@pytest.mark.parametrize("env,field", [
+    ("APP_ENGINE_CHECKPOINTPATH", "checkpoint_path"),
+    ("APP_ENGINE_SPECDRAFTCHECKPOINTPATH", "spec_draft_checkpoint_path"),
+])
+def test_from_env_serves_the_checkpoint_paths(env, field, tmp_path):
+    """Refused until ROADMAP queue 1 item 10, now served as JAX serves
+    them: the variable sets the field; an engine whose path holds no
+    safetensors raises FileNotFoundError at build (never random weights);
+    a written HF checkpoint of the ``debug`` model is served, its streams
+    those of an engine given the same weights in memory."""
+    from generativeaiexamples_tpu_torch.engine.llm_engine import LLMEngine, SamplingParams
+    from generativeaiexamples_tpu_torch.models import hf_loader, llama
+
+    assert getattr(EngineConfig.from_env({env: "/w"}), field) == "/w"
+    draft = field == "spec_draft_checkpoint_path"
+    common = dict(model_config_name="debug", dtype="float32", max_batch_size=2, max_seq_len=128,
+                  prefill_chunk=16, page_size=8, decode_block=2)
+    if draft:  # the preset is the model where the path holds no config.json, as in JAX
+        common.update(spec_decode_enable="on", spec_proposer="draft_model",
+                      spec_draft_model="debug-draft")
+    with pytest.raises(FileNotFoundError):
+        LLMEngine(EngineConfig(**common, **{field: str(tmp_path / "missing")}), device="cpu")
+    ckpt = str(tmp_path / "ckpt")
+    cfg = llama.PRESETS["debug-draft" if draft else "debug"]
+    hf_loader.write_hf_checkpoint(cfg, ckpt)
+    weights = hf_loader.load_params(ckpt, cfg, torch.float32)
+    served = LLMEngine(EngineConfig(**common, **{field: ckpt}), device="cpu")
+    given = LLMEngine(EngineConfig(**common), device="cpu",
+                      **({"draft_params": weights} if draft else {"params": weights}))
+    try:
+        prompt, sp = [5, 17, 33, 2, 9], SamplingParams(temperature=0.0, max_tokens=8)
+        assert list(served.iter_ids(prompt, sp, timeout=120)) == \
+            list(given.iter_ids(prompt, sp, timeout=120))
+        if draft:
+            assert served._draft.draft_config == cfg
+            assert served.stats()["spec_verify_dispatches"] > 0
+    finally:
+        served.shutdown()
+        given.shutdown()
 
 
 @pytest.mark.parametrize("env,value", [
@@ -526,23 +566,26 @@ def test_retrieval_sections_have_the_jax_names_defaults_and_env(monkeypatch, sec
     for field in fields:
         name = tconfig._env_name(section, field)
         assert name in jax_names, name
-        if field != "checkpoint_path":
-            env[name] = {str: "x-" + field, int: "7", float: "2.5"}[type(getattr(ref, field))]
+        env[name] = {str: "x-" + field, int: "7", float: "2.5"}[type(getattr(ref, field))]
     for name, value in env.items():
         monkeypatch.setenv(name, value)
     jax_read = getattr(AppConfig.from_dict({}), section)
     read = mine_cls.from_env(env)
     for field in fields:
-        if field != "checkpoint_path":
-            value = getattr(read, field)
-            assert value == getattr(jax_read, field) and value != getattr(ref, field), field
+        value = getattr(read, field)
+        assert value == getattr(jax_read, field) and value != getattr(ref, field), field
     assert getattr(tconfig.AppConfig.from_env(env), section) == read
 
 
 @pytest.mark.parametrize("env", ["APP_EMBEDDINGS_CHECKPOINTPATH", "APP_RANKING_CHECKPOINTPATH"])
 def test_a_retrieval_checkpoint_path_is_refused(env):
-    with pytest.raises(ValueError, match=f"{env}=/w: .*queue 1 item 10"):
-        tconfig.AppConfig.from_env({env: "/w"})
+    """Refused until ROADMAP queue 1 item 10; now read as JAX reads it
+    (the encoders load it: tests/test_torch_chain_runtime.py)."""
+    section = "embeddings" if "EMBEDDINGS" in env else "ranking"
+    got = getattr(tconfig.AppConfig.from_env({env: "/w"}), section)
+    assert got.checkpoint_path == "/w"
+    assert dataclasses.asdict(got) == dataclasses.asdict(
+        getattr(AppConfig.from_dict({section: {"checkpoint_path": "/w"}}), section))
     assert tconfig.AppConfig.from_env({env: ""}) == tconfig.AppConfig()
 
 

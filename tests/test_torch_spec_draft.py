@@ -8,8 +8,8 @@
   round's speculative rows). The proposals are equal, and so are the
   caches within f32 summation order (ATOL = 1e-5; int8 rows within a
   step, scales within an ulp).
-- ``resolve_draft_config`` and ``attention_window`` equal JAX's, and the
-  port refuses a draft checkpoint path naming queue 1 item 10.
+- ``resolve_draft_config`` and ``attention_window`` equal JAX's, a draft
+  checkpoint's config.json included.
 - ``DraftRuntime``: admission prefill and a session of proposals over a
   shared tracker give JAX's frontiers; the proposals equal the model
   function run by hand.
@@ -123,7 +123,7 @@ def test_draft_propose_layers_single_step(draft_weights):
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
 
 
-def test_resolve_draft_config_and_window_equal_jax():
+def test_resolve_draft_config_and_window_equal_jax(tmp_path):
     for name in ("debug-draft", "llama3-1b-proxy", "debug"):
         cfg = EngineConfig(spec_draft_model=name)
         assert tdraft.resolve_draft_config(cfg).__dict__ == \
@@ -133,10 +133,18 @@ def test_resolve_draft_config_and_window_equal_jax():
     with pytest.raises(ValueError) as got:
         tdraft.resolve_draft_config(EngineConfig(spec_draft_model="no-such-preset"))
     assert str(got.value) == str(want.value)
-    with pytest.raises(ValueError, match="queue 1 item 10"):
-        tdraft.resolve_draft_config(EngineConfig(spec_draft_checkpoint_path="/ckpt"))
-    with pytest.raises(ValueError, match="queue 1 item 10"):
-        EngineConfig(spec_proposer="draft_model", spec_draft_checkpoint_path="/ckpt").validate()
+    # a draft checkpoint (refused until ROADMAP queue 1 item 10): its
+    # config.json wins over the preset, as in JAX, and the config validates
+    from generativeaiexamples_tpu_torch.models import hf_loader
+
+    ckpt = str(tmp_path / "draft")
+    hf_loader.write_hf_checkpoint(tl.PRESETS["debug-draft"], ckpt)
+    assert tdraft.resolve_draft_config(
+        EngineConfig(spec_draft_model="debug", spec_draft_checkpoint_path=ckpt)).__dict__ == \
+        jdraft.resolve_draft_config(
+            JaxEngineConfig(spec_draft_model="debug", spec_draft_checkpoint_path=ckpt)).__dict__ == \
+        tl.PRESETS["debug-draft"].__dict__
+    EngineConfig(spec_proposer="draft_model", spec_draft_checkpoint_path=ckpt).validate()
     for needed in (1, 127, 128, 129, 300, 1000, 5000):
         for cap in (128, 256, 1024, 8192):
             assert tdraft.attention_window(needed, cap) == jdraft.attention_window(needed, cap)
