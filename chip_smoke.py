@@ -18,14 +18,16 @@ Phases (each one's failure makes the script exit non-zero):
    slot),
    flash_attention_causal at (2, 512) and (2, 300), decode_attention over
    the fixed layout's int8 cache (ragged, uniform, short and split-edge
-   slots); each kernel again on the local tiles of phase 16's shards
-   (``--checks tp``): int8_matmul and int8_w8a8_matmul at M = 8 on
-   llama3-8b TP=2's column and row tiles (wq 4096->2048, wk/wv 4096->512,
-   wo 2048->4096, w_gate/w_up 4096->7168, w_down 7168->4096, lm_head
-   4096->64128), int8_matmul on llama3-70b TP=8's (wq 8192->1024, w_gate
-   8192->3584, w_down 3584->8192), paged_attention at 16/4 and 8/1 heads
-   on all three pools, decode_attention at 16/4 and flash at 16/4 (T =
-   512), each timed with its plain version, a library call and its bound;
+   slots); each kernel again on the local tiles of phase 16's and 18's
+   shards (``--checks tp``): int8_matmul and int8_w8a8_matmul at M = 8
+   and at the spec verify's M = 72 on llama3-8b TP=2's column and row
+   tiles (wq 4096->2048, wk/wv 4096->512, wo 2048->4096, w_gate/w_up
+   4096->7168, w_down 7168->4096, lm_head 4096->64128), int8_matmul at M =
+   8 on llama3-70b TP=8's (wq 8192->1024, w_gate 8192->3584, w_down
+   3584->8192), paged_attention at 16/4 and 8/1 heads on all three pools
+   and at the verify's T = 9 query rows a slot on 16/4 heads,
+   decode_attention at 16/4 and flash at 16/4 (T = 512), each timed with
+   its plain version, a library call and its bound;
    then ``sample_tokens`` (no kernel of the port) at 8 and 72
    seeded nucleus rows x 128,256, timed with each way of ranking the
    nucleus, the int64-key top-k's order held to a stable sort's;
@@ -177,8 +179,8 @@ Phases (each one's failure makes the script exit non-zero):
    ``/search`` answer as the synchronous path did (byte for byte, or
    scores within ``SEARCH_SCORE_TOL`` with tie runs as sets: the tier's
    dispatches are padded to ``ann_max_batch`` rows, a single query's are
-   not), in fewer ANN dispatches than queries; (a) for recipes A (bf16 pool) and C (int4
-   pool, scales in the payload): 8 chat streams of 101-157 ids x 64 tokens
+   not), in fewer ANN dispatches than queries; (a) for recipe A (bf16
+   pool; the int4 pool's drain is phase 18's): 8 chat streams of 101-157 ids x 64 tokens
    through the engine server (4 greedy, 4 seeded at temperature 0.7,
    top_p 0.9), undisturbed, then again under the fault
    ``engine.dispatch:delay=0.05@1x0`` with ``POST /internal/drain`` once
@@ -205,8 +207,7 @@ Phases (each one's failure makes the script exit non-zero):
    ``max_seq_len`` 8192, page 128, ``prefill_chunk`` 512, ``decode_block``
    8, ``spec_draft_len`` 8), after phase 9: one engine a recipe, its legs
    toggled at runtime (the JAX bench's ``_spec_decode_pass``). Recipe A
-   runs ``off``, ``lookup``, ``draft_model`` (``llama3-1b-proxy``, random
-   at seed 0, bf16 draft KV), ``lookup`` with the pipeline off and
+   runs ``off``, ``lookup``, ``lookup`` with the pipeline off and
    ``draft_target`` (a llama3-8b draft whose dense bf16 weights are the
    target's packs dequantized, so that it accepts), on the ``copy_heavy``
    ramp (512 ids) and the ``normal`` walk (768 ids, chunked); B, C and D
@@ -215,8 +216,9 @@ Phases (each one's failure makes the script exit non-zero):
    of 64), then one seeded request (temperature 0.7, top_p 0.8, seed 1234,
    24 tokens). Every leg's streams equal the ``off`` leg's, or part from
    them only at a token whose top-1 margin is within ``LOGITS_TOL``;
-   lookup accepts drafts on ``copy_heavy``; the draft-model legs dispatch
-   the draft and ``draft_target`` accepts in every set; the dispatch
+   lookup accepts drafts on ``copy_heavy``; the draft-model leg dispatches
+   the draft and ``draft_target`` accepts in every set (the random
+   ``llama3-1b-proxy`` draft runs in phase 18, on TP=2 shards); the dispatch
    thread's only synchronizing calls are the spec read backs. It prints
    per recipe and leg the tokens a target dispatch, the acceptance rate,
    the draft-dispatch share, the wall step (the host clock over the
@@ -355,8 +357,8 @@ Phases (each one's failure makes the script exit non-zero):
    allocated on the card, the wall of a decode block at TP=N against
    TP=1, that logits difference, the ties and the launches, and the
    phase wall (a budget of 120 s). Phases 1-15 pin
-   ``tensor_parallelism=1``, so that what they measure cannot change if
-   the default ever takes more cards.
+   ``tensor_parallelism=1``, so that what they measure does not change on
+   a machine with more cards (the default ``-1`` takes every card).
 
 17. train: checkpoints and fine-tuning at llama3-8b width, everything
    written under the run's scratch directory and removed after. (a) A
@@ -394,11 +396,45 @@ Phases (each one's failure makes the script exit non-zero):
    (b) and (f)'s engines count. It prints the phase wall (a budget of 150
    s).
 
+18. tpx: the paths once refused under tensor parallelism, at llama3-8b's
+   full width with every shard on this card (``create_mesh(2, devices=
+   [cuda:0] * 2)``, phase 16's layout), random int8 packs at seed 0, (a)-(d)
+   at 8 of 32 layers (``max_seq_len`` 2048, page 128, ``prefill_chunk``
+   512, 8 slots, K = 8). (a) Spec: recipe A's TP=2 engine ``off``, then
+   ``lookup``, then ``draft_model`` (``llama3-1b-proxy``, random at seed 0,
+   its weights and strips cut over the two shards), and a TP=1 engine on
+   ``lookup``; recipe D's TP=2 engine ``off`` then ``lookup``; 4
+   copy_heavy prompts x 24 greedy tokens a leg, every stream equal to the
+   TP=2 ``off`` stream or parting at a tie (``LOGITS_TOL``); a verify ran
+   its matmuls at M = 72 and (A) its page reads at T = 9 on each shard;
+   the draft ran on 2 shards; no synchronizing call on the dispatch thread
+   but the spec read backs. It prints acceptance, tokens a dispatch and
+   the verify's launches. (b) Drain: recipes A and C at TP=2, 4 requests
+   (2 greedy, 2 seeded) of 140-900 ids x 48 tokens undrained, then again
+   drained mid-decode (the ``engine.dispatch`` delay keeps them live): 4
+   documents holding the model's 8 KV heads, each restored into a fresh
+   TP=2 engine and into a TP=1 engine in mode ``restore``, spooled plus
+   continued tokens equal to the undrained TP=2 stream but at ties. It
+   prints drain s, document bytes and restore p50. (c) ``disagg`` at TP=2
+   against ``unified`` at TP=2: 4 greedy prompts of 120-1,500 ids equal
+   but at ties, one handoff each, no recompute; the tier plan printed. (d)
+   The retrieval tier beside the TP=2 engine as the process engine, while
+   it decodes: 8 concurrent queries (hash embeddings of phase 7's corpus
+   in the in-process store on the card) equal to the synchronous path's
+   within ``SEARCH_SCORE_TOL``, tie runs as sets. (e) The port's
+   ``profile_decode`` on recipe A at full depth, B = 8, TP=1 then TP=2
+   (``ENABLE_PROFILING`` set for the engine's build, so the TP reduce's
+   kernels carry their label): 1 s of steady decode and one 512-id
+   prefill (the 512 bucket), each trace complete (up to 3 captures), its
+   kernels, JAX's categories and top ops printed; ``collective`` is
+   non-zero at TP=2 only. The launches of every engine count. It prints
+   the phase wall and each part's (a budget of 120 s).
+
 With no arguments it runs every phase, as above; ``--phases``,
 ``--checks`` and ``--recipes`` run a part (for example ``--phases serve
 --recipes B``, ``--phases chains``, ``--phases filechains``, ``--phases
 drain``, ``--phases observe``, ``--phases route``, ``--phases connect`` or
-``--phases kernels,tp --checks tp`` or ``--phases train``)
+``--phases kernels,tp --checks tp``, ``--phases train`` or ``--phases tpx``)
 and then print only the kernels that part measured; ``--runahead N`` serves every engine at ``decode_runahead`` N, and
 ``--timing-only`` leaves out the runahead and overload checks (for timed
 runs of an older tree, which lacks them).
@@ -757,7 +793,7 @@ def check_paged(timer, dev, gen, results) -> None:
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
             }
         del k, v
-    _check_paged_verify(timer, dev, gen, cfg, rows)
+    _check_paged_verify(timer, dev, gen, (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim), rows)
     for kv_dtype, by_case in rows.items():
         results[f"paged_attention[{kv_dtype}]"] = {
             **by_case["ragged"],
@@ -775,20 +811,21 @@ def check_paged(timer, dev, gen, results) -> None:
 VERIFY_T = (9, 5, 3, 2)
 
 
-def _check_paged_verify(timer, dev, gen, cfg, rows) -> None:
+def _check_paged_verify(timer, dev, gen, heads, rows, Ts=VERIFY_T, label="") -> None:
     """paged_attention at the spec verify's T = K + 1 query rows a slot,
-    for each pool: 8 rows whose chunks end at their live lengths (a dead
-    row, a chunk crossing the page edge at 256, one crossing a split edge,
-    short serving rows, the table's last row), timed against the plain
-    version, SDPA over the pre-gathered windows with a causal length mask,
-    and the bound."""
+    for each pool, on ``heads`` (Hq, Hkv, Dh): 8 rows whose chunks end at
+    their live lengths (a dead row, a chunk crossing the page edge at 256,
+    one crossing a split edge, short serving rows, the table's last row),
+    timed against the plain version, SDPA over the pre-gathered windows
+    with a causal length mask, and the bound; each row lands in
+    ``rows[kv_dtype]["<label>verify_T<T>"]``."""
     from generativeaiexamples_tpu_torch.models.llama import quantize_kv, quantize_kv_int4, unpack_int4
 
     B, page, Pmax = 8, 128, 8192 // 128
-    Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    Hq, Hkv, Dh = heads
     S = Pmax * page
     st = pa.split_plan(Pmax, page)[0]
-    for T in VERIFY_T:
+    for T in Ts:
         # each row's last query position (its live length - 1); row 0 dead
         last = [0, 2 * page + T // 2 - 1, st + 1, 131, 157, 176, 1000, S - 1]
         k, v, tables, _ = _paged_case(gen, dev, last, Pmax, page, Hkv, Dh)
@@ -831,14 +868,15 @@ def _check_paged_verify(timer, dev, gen, cfg, rows) -> None:
             )
             b_ms, b_by = hardware.bound_ms(nbytes, flops)
             ok = err <= tol and rel <= rel_tol
-            log(f"  paged_attention[{kv_dtype}] verify T={T} B={B} last={last}: max|err|={err:.4g} "
+            log(f"  paged_attention[{kv_dtype}] {label}verify T={T} Hq={Hq} Hkv={Hkv} B={B} "
+                f"last={last}: max|err|={err:.4g} "
                 f"tol={tol} max per-row |err|/rms={rel:.4g} tol={rel_tol} kernel_ms={k_ms:.4f} "
                 f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
-                raise AssertionError(f"paged_attention[{kv_dtype}] verify T={T} disagrees with "
-                                     f"its plain version")
-            rows[kv_dtype][f"verify_T{T}"] = {
+                raise AssertionError(f"paged_attention[{kv_dtype}] {label}verify T={T} disagrees "
+                                     f"with its plain version")
+            rows[kv_dtype][f"{label}verify_T{T}"] = {
                 "max_abs_err": err, "max_rel_err": rel, "ms": k_ms, "plain_ms": p_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms, "last": last,
             }
@@ -1063,28 +1101,30 @@ def _tile_row(timer, kernel, plain, library, args, cost, int8_ops=False) -> dict
 
 def check_tp(timer, dev, gen, results) -> None:
     """Each kernel on the local tiles a shard runs under tensor parallelism
-    (phase 16), against its plain version: int8_matmul and
-    int8_w8a8_matmul at M = 8 on llama3-8b TP=2's column and row tiles,
-    int8_matmul on llama3-70b TP=8's, paged_attention at 16/4 and 8/1
-    heads on all three pools (B=8 ragged rows), decode_attention at 16/4
-    heads (B=8, S=8192) and flash at 16/4 heads (B=2, T=512); each timed
-    with its plain version, a library call and its bound."""
+    (phases 16 and 18), against its plain version: int8_matmul and
+    int8_w8a8_matmul at M = 8 and at the spec verify's M = 72 on llama3-8b
+    TP=2's column and row tiles, int8_matmul at M = 8 on llama3-70b TP=8's,
+    paged_attention at 16/4 and 8/1 heads on all three pools (B=8 ragged
+    rows) and at the verify's T = 9 query rows a slot on 16/4 heads,
+    decode_attention at 16/4 heads (B=8, S=8192) and flash at 16/4 heads
+    (B=2, T=512); each timed with its plain version, a library call and
+    its bound."""
     from generativeaiexamples_tpu_torch.models.llama import quantize_kv, quantize_kv_int4, unpack_int4
 
     tiles = results.setdefault("tp_tiles", {})
-    M = 8
     for model, shapes in (("8b_tp2", TP_TILES_8B), ("70b_tp8", TP_TILES_70B)):
         for name, (K, F) in shapes.items():
             K_pad, F_pad = -(-K // im.K_ALIGN) * im.K_ALIGN, -(-F // im.F_BLK) * im.F_BLK
             q = torch.zeros((K_pad, F_pad), dtype=torch.int8, device=dev)
             q[:K, :F].random_(-127, 128, generator=gen)
             scale = torch.rand((1, F), generator=gen, device=dev) * 2e-4 + 1e-4
-            x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
             w = (q[:K, :F].float() * scale).to(torch.bfloat16)
             kernels = [("int8_matmul", im.int8_matmul, im.int8_matmul_plain)]
             if model == "8b_tp2":
                 kernels.append(("int8_w8a8_matmul", im.int8_w8a8_matmul, im.int8_w8a8_matmul_plain))
-            for kname, kernel, plain in kernels:
+            for M, (kname, kernel, plain) in ((M, k) for M in ((8, VERIFY_M) if model == "8b_tp2"
+                                                                else (8,)) for k in kernels):
+                x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
                 y, ref = kernel(x, q, scale), plain(x, q, scale)
                 torch.cuda.synchronize()
                 err = _max_err(y, ref)
@@ -1095,7 +1135,7 @@ def check_tp(timer, dev, gen, results) -> None:
                 else:
                     tol, ok = 0.0, torch.equal(y, ref)
                     cost = hardware.w8a8_matmul_cost(M, K, F)
-                    xq = torch.zeros((17, K_pad), dtype=torch.int8, device=dev)
+                    xq = torch.zeros((max(M, 17), K_pad), dtype=torch.int8, device=dev)
                     xq[:M, :K] = im.quantize_rows(x)[0]
                     library = lambda: torch._int_mm(xq, q)  # noqa: E731
                 row = _tile_row(timer, kernel, plain, library, (x, q, scale), cost,
@@ -1109,6 +1149,11 @@ def check_tp(timer, dev, gen, results) -> None:
                     raise AssertionError(f"{kname} {model} tile {name} disagrees with its plain version")
                 tiles.setdefault(kname, {})[f"{model}_{name}_M{M}"] = row
             del q, w
+    # the spec verify's T = K + 1 rows a slot through a shard's heads
+    Hq, Hkv = TP_HEADS["8b_tp2"]
+    _check_paged_verify(timer, dev, gen, (Hq, Hkv, 128),
+                        {kv: tiles.setdefault(f"paged_attention[{kv}]", {}) for kv in pa.KV_DTYPES},
+                        Ts=(9,), label="8b_tp2_")
     # attention on a shard's heads
     B, page, Pmax, Dh = 8, 128, 64, 128
     S = Pmax * page
@@ -3208,7 +3253,8 @@ def _last_logits(engine, ids):
     C, page = ec.prefill_chunk, ec.page_size
     n_chunks = -(-len(ids) // C)
     pmax = engine._attention_window(n_chunks * C) // page
-    pool = llama.init_kv_pool(cfg, 1 + pmax, page, torch.bfloat16, dev, quantized=engine._kv_quant)
+    pool = llama.init_kv_pool(cfg, 1 + pmax, page, torch.bfloat16, dev, quantized=engine._kv_quant,
+                              tp=engine._tp)
     tables = torch.arange(1, 1 + pmax, dtype=torch.int32, device=dev)[None]
     for k in range(n_chunks):
         seg = ids[k * C:(k + 1) * C]
@@ -3217,8 +3263,9 @@ def _last_logits(engine, ids):
             torch.tensor([k * C], device=dev), torch.tensor([len(seg)], device=dev),
             torch.tensor([0], device=dev), tables, pool,
             engine._attention_window(min((k + 1) * C, engine.max_seq_len)), page,
-            quant_kernel=engine._quant_kernel)
-    return llama._head(engine.params, h[:, None, :], cfg, engine._quant_kernel)[0, 0, : engine._sample_vocab]
+            quant_kernel=engine._quant_kernel, tp=engine._tp)
+    return llama._head(engine.params, h[:, None, :], cfg, engine._quant_kernel,
+                       engine._tp)[0, 0, : engine._sample_vocab]
 
 
 def _tie_checked(engine, label, prompt, got, want) -> int:
@@ -3897,7 +3944,9 @@ def phase_filechains(dev, smi, seed=0, dep=None, encoders=None, keep=False):
 # --------------------------------------------------------------------- #
 # Phase 11: drain and restore, the disagg scheduler, faults, the retrieval tier
 
-DRAIN_RECIPES = "AC"  # the bf16 paged pool and the int4 pool, whose payload carries scales
+# the bf16 paged pool over HTTP; the int4 pool, whose payload carries
+# scales, is drained in phase 18 at TP=2 (for the script's time)
+DRAIN_RECIPES = "A"
 DRAIN_REQUESTS, DRAIN_TOKENS, DRAIN_IDS = 8, 64, (101, 157)
 DRAIN_FAULT = "engine.dispatch:delay=0.05@1x0"
 DRAIN_SLOTS_B = 12  # part (b): the 8 requests and the 4 long prompts decode together
@@ -4608,10 +4657,11 @@ SPEC_DRAFT_MODEL = "llama3-1b-proxy"
 # pipelined). A's draft_target leg drafts with llama3-8b whose dense
 # weights are the target's packs dequantized (_target_draft): that draft
 # accepts, so the draft runtime's catch-up, frontier and rewind are held
-# to the off streams, where the random 1b-proxy's drafts are all rejected
+# to the off streams. The random 1b-proxy's leg (all drafts rejected, 40
+# s of the phase's 98 on the H100) runs in phase 18, where it drafts on
+# TP=2 shards
 _SPEC_LEGS_A = (("off", None, True), ("lookup", "lookup", True),
-                ("draft_model", "draft_model", True), ("lookup_sync", "lookup", False),
-                ("draft_target", "draft_model", True))
+                ("lookup_sync", "lookup", False), ("draft_target", "draft_model", True))
 _SPEC_LEGS = (("off", None, True), ("lookup", "lookup", True))
 SPEC_PLAN = {"A": (_SPEC_LEGS_A, ("copy_heavy", "normal")), "B": (_SPEC_LEGS, ("copy_heavy",)),
              "C": (_SPEC_LEGS, ("copy_heavy",)), "D": (_SPEC_LEGS, ("copy_heavy",))}
@@ -4799,9 +4849,6 @@ def spec_recipe(dev, smi, name, quantization, kv_dtype, layout, params=None,
         for leg, proposer, pipelined in legs:
             _settle(engine)
             if leg == "draft_target":
-                engine._draft = None  # the 1b-proxy's weights and caches go first
-                gc.collect()
-                torch.cuda.empty_cache()
                 t_build = time.time()
                 engine._draft = _target_draft(engine)
                 log(f"  {name} {leg}: llama3-8b draft from the dequantized packs built in "
@@ -4818,11 +4865,8 @@ def spec_recipe(dev, smi, name, quantization, kv_dtype, layout, params=None,
             t_leg = time.time()
             with SyncCounter() as syncs, _ShapeLog() as shapes:
                 # a leg's first set traced: a trace costs seconds of host
-                # time a window, and the 1b draft's windows (~1.3M events)
-                # more than its leg
-                res = {s: _spec_set(engine, name, leg, s,
-                                    trace=s == sets[0] and leg != "draft_model")
-                       for s in sets}
+                # time a window
+                res = {s: _spec_set(engine, name, leg, s, trace=s == sets[0]) for s in sets}
                 _settle(engine)
             launched = counts()
             out["launches"].update(launched)
@@ -7250,11 +7294,477 @@ def phase_train(dev, smi, seed=0, scratch=None) -> dict:
     return out
 
 
+# --------------------------------------------------------------------- #
+# Phase 18: the paths served across shards
+
+TPX_SHARDS = 2
+TPX_LAYERS = 8  # (a)-(d): 8 of llama3-8b's 32 layers
+TPX_MAX_SEQ = 2048
+TPX_SPEC_REQUESTS = 4  # copy_heavy prompts (512 ids), greedy
+TPX_SPEC_TOKENS = 24
+# recipe -> the proposers its TP=2 engine runs after ``off``
+TPX_SPEC_LEGS = {"A": ("lookup", "draft_model"), "D": ("lookup",)}
+TPX_DRAIN_RECIPES = "AC"
+TPX_DRAIN_TOKENS = 48
+TPX_DRAIN_FAULT = dict(at=1, count=0, value=0.05)  # engine.dispatch delay: live at the drain
+TPX_TIER_QUERIES = 8
+TPX_PROFILE_BATCH = 8
+TPX_PROFILE_SEQ = 1024
+TPX_PROFILE_PROMPT = 128
+TPX_PROFILE_SECONDS = 1.0  # JAX's default window: 2-3 decode blocks of 8 steps at B = 8
+TPX_PREFILL_IDS = 512  # one 512-bucket prefill (prefill_chunk 512)
+TPX_PROFILE_TRIES = 3  # CUPTI can drop a session's events: capture again
+TPX_BUDGET_S = 120.0
+
+
+def _tpx_config(name, model, **kw) -> EngineConfig:
+    """Recipe ``name``'s engine config at phase 18's shapes (one config a
+    recipe: its TP=1 and TP=2 engines share the snapshot fingerprint)."""
+    _, quantization, kv_dtype, layout, _ = next(r for r in RECIPES if r[0] == name)
+    return EngineConfig(model_config_name=model, quantization=quantization, kv_cache_dtype=kv_dtype,
+                        kv_layout=layout, max_batch_size=8, max_seq_len=TPX_MAX_SEQ, page_size=128,
+                        prefill_chunk=512, decode_block=8, tensor_parallelism=1, **kw)
+
+
+def _tpx_engine(cfg, params, dev, shards):
+    from generativeaiexamples_tpu_torch.engine.llm_engine import LLMEngine
+    from generativeaiexamples_tpu_torch.parallel import create_mesh
+
+    if shards == 1:
+        return LLMEngine(cfg, device=dev, params=params)
+    return LLMEngine(cfg, params=params, mesh=create_mesh(shards, devices=[dev] * shards))
+
+
+def _tpx_wave(engine, prompts, params) -> list:
+    """``prompts`` admitted as one wave (``params`` each, or one a prompt);
+    their transcripts, stop ids included."""
+    params = params if isinstance(params, list) else [params] * len(prompts)
+    with engine.hold_admissions():
+        reqs = [engine.submit(p, sp) for p, sp in zip(prompts, params)]
+    for r in reqs:
+        _drain_ids(r.out_queue)
+        if r.error is not None:
+            raise AssertionError(f"a request failed: {r.error!r}")
+    return [list(r.emitted) for r in reqs]
+
+
+def _tpx_ties(engine, label, prompts, got, want) -> int:
+    return sum(_tie_checked(engine, f"{label} stream {i}", p, g, w)
+               for i, (p, g, w) in enumerate(zip(prompts, got, want)))
+
+
+def _tpx_spec(dev, name, cfg, params, prompts, out, launches) -> None:
+    """(a) one recipe: its TP=2 engine ``off`` then each proposer, and a
+    TP=1 engine on ``lookup``; every stream against the TP=2 ``off``
+    stream (ties apart), the verify's shapes and launches recorded."""
+    from generativeaiexamples_tpu_torch.engine.llm_engine import SamplingParams
+
+    greedy = SamplingParams(temperature=0.0, max_tokens=TPX_SPEC_TOKENS)
+    legs, ref, engine = {}, None, None
+    runs = [(TPX_SHARDS, None)] + [(TPX_SHARDS, p) for p in TPX_SPEC_LEGS[name]] + [(1, "lookup")]
+    try:
+        for shards, proposer in runs:
+            if engine is None or engine.tp_shards != shards:
+                if engine is not None:
+                    engine.shutdown()
+                    _free_engine(engine)
+                engine = _tpx_engine(cfg, params, dev, shards)
+            ref = _tpx_spec_leg(engine, name, cfg, shards, proposer, prompts, greedy, ref, legs,
+                                launches)
+    finally:
+        if engine is not None:
+            engine.shutdown()
+            _free_engine(engine)
+    out[name] = legs
+
+
+def _tpx_spec_leg(engine, name, cfg, shards, proposer, prompts, greedy, ref, legs, launches):
+    """One leg of (a) on ``engine``; returns the reference streams (this
+    leg's when it is the first)."""
+    label = f"tpx (a) {name} TP={shards} {proposer or 'off'}"
+    t0 = time.time()
+    if proposer is None:
+        engine.set_spec_decode(False)
+    elif not (engine.set_spec_decode(True) and engine.set_spec_proposer(proposer) == proposer):
+        raise AssertionError(f"{label}: the proposer is not served")
+    s0 = engine.stats()
+    reset_counts()
+    with SyncCounter() as syncs, _ShapeLog() as shapes:
+        got = _tpx_wave(engine, prompts, greedy)
+        _settle(engine)
+    launched = counts()
+    launches.update(launched)
+    s1 = engine.stats()
+    d = {k: s1[k] - s0[k] for k in ("decode_dispatches", "spec_verify_dispatches",
+                                    "spec_drafted_tokens", "spec_accepted_tokens",
+                                    "spec_draft_dispatches", "tokens_generated")}
+    dispatch = {k: v for (th, k), v in syncs.kinds.items() if th == "torch-llm-engine"}
+    if dispatch.get(None, 0):
+        raise AssertionError(f"{label}: {dispatch[None]} synchronizing calls on the dispatch "
+                             f"thread outside the spec read backs")
+    is_ref = ref is None
+    ties = 0 if is_ref else _tpx_ties(engine, label, prompts, got, ref)
+    ref = got if is_ref else ref
+    verify_T = sorted({t for (_, t), n in shapes.paged.items() if t > 1})
+    verify_M = sorted(m for m in shapes.int8 if m > 8)
+    if proposer is not None:
+        if d["spec_verify_dispatches"] < 1 or VERIFY_M not in verify_M:
+            raise AssertionError(f"{label}: no verify at M = {VERIFY_M} ({d}, M {verify_M})")
+        if cfg.kv_layout == "paged" and 9 not in verify_T:
+            raise AssertionError(f"{label}: the paged verify did not read T = 9 ({verify_T})")
+    if proposer == "draft_model" and (d["spec_draft_dispatches"] < 1
+                                      or engine._draft.shards != TPX_SHARDS):
+        raise AssertionError(f"{label}: the draft did not run on {TPX_SHARDS} shards")
+    expected = next(r[4] for r in RECIPES if r[0] == name)
+    missing = [k for k in expected if launched[k] == 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels never launched: {missing}")
+    row = {"ties": ties, "acceptance": d["spec_accepted_tokens"] / max(1, d["spec_drafted_tokens"]),
+           "tokens_per_dispatch": d["tokens_generated"] / max(1, d["decode_dispatches"]),
+           "verify_dispatches": d["spec_verify_dispatches"],
+           "draft_dispatches": d["spec_draft_dispatches"],
+           "verify_launches": {"int8_matmul_M72": shapes.int8.get(VERIFY_M, 0),
+                               "paged_T9": sum(n for (_, t), n in shapes.paged.items() if t == 9)},
+           "launches": {k: v for k, v in launched.items() if v}, "s": time.time() - t0}
+    legs[f"TP{shards}_{proposer or 'off'}"] = row
+    log(f"  {label}: {len(prompts)} copy_heavy prompts x {TPX_SPEC_TOKENS} tokens: "
+        f"{'the reference' if is_ref else f'equal to TP={TPX_SHARDS} off'}"
+        f"{f' ({ties} parted at a tie)' if ties else ''}; acceptance {row['acceptance']:.3f} "
+        f"({d['spec_accepted_tokens']}/{d['spec_drafted_tokens']}), "
+        f"{row['tokens_per_dispatch']:.3f} tokens a dispatch, {d['spec_verify_dispatches']} "
+        f"verifies, {d['spec_draft_dispatches']} draft dispatches; verify launches: "
+        f"int8_matmul at M={VERIFY_M} {row['verify_launches']['int8_matmul_M72']}, paged at "
+        f"T=9 {row['verify_launches']['paged_T9']}; dispatch-thread syncs {dispatch or 'none'}; "
+        f"{row['s']:.1f} s")
+    return ref
+
+
+def _tpx_drain(dev, name, cfg, params, rng, out, launches) -> None:
+    """(b) one recipe at TP=2: the undrained streams, then the same
+    requests drained mid-decode; each document restored into a fresh TP=2
+    engine and into a TP=1 engine, spooled tokens plus continuation
+    against the undrained stream (ties apart)."""
+    from generativeaiexamples_tpu_torch.engine import request_snapshot as rs
+    from generativeaiexamples_tpu_torch.engine.llm_engine import SamplingParams
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.utils import faults
+
+    prompts = _tp_prompts(rng, (140, 300, 520, 900))
+    params_ = [SamplingParams(temperature=0.0, max_tokens=TPX_DRAIN_TOKENS),
+               SamplingParams(temperature=0.7, top_p=0.9, max_tokens=TPX_DRAIN_TOKENS, seed=5),
+               SamplingParams(temperature=0.0, max_tokens=TPX_DRAIN_TOKENS),
+               SamplingParams(temperature=0.7, top_p=0.9, max_tokens=TPX_DRAIN_TOKENS, seed=6)]
+    engine = _tpx_engine(cfg, params, dev, TPX_SHARDS)
+    try:
+        reset_counts()
+        want = _tpx_wave(engine, prompts, params_)
+        launches.update(counts())
+        faults.configure("engine.dispatch", "delay", **TPX_DRAIN_FAULT)
+        try:
+            with engine.hold_admissions():
+                reqs = [engine.submit(p, sp) for p, sp in zip(prompts, params_)]
+            deadline = time.time() + 120
+            while not all(r.generated for r in reqs):
+                if time.time() > deadline:
+                    raise AssertionError(f"tpx (b) {name}: no first tokens in 120 s")
+                time.sleep(0.005)
+            t0 = time.time()
+            summary = engine.drain()
+            drain_s = time.time() - t0
+        finally:
+            faults.reset()
+        for r in reqs:
+            _drain_ids(r.out_queue)
+    finally:
+        engine.shutdown()
+        _free_engine(engine)
+    # a stream that sampled a stop id before the drain ended on its own
+    # (random weights): it equals its undrained stream, the rest spooled
+    live = [i for i, r in enumerate(reqs) if r.error is not None]
+    for i, r in enumerate(reqs):
+        if r.error is None and list(r.emitted) != want[i]:
+            raise AssertionError(f"tpx (b) {name}: stream {i} ended before the drain and differs "
+                                 f"from its undrained run")
+    if len(live) < 2 or summary["spooled"] != len(live) or summary["replay_only"]:
+        raise AssertionError(f"tpx (b) {name}: the drain spooled {summary} of {len(live)} live")
+    docs = [engine.snapshot_spool.load_doc(reqs[i].error.snapshot_id) for i in live]
+    want, prompts = [want[i] for i in live], [prompts[i] for i in live]
+    hkv = next(iter(docs))["geometry"]["num_kv_heads"]
+    if hkv != llama.PRESETS[cfg.model_config_name].num_kv_heads:
+        raise AssertionError(f"tpx (b) {name}: the document holds {hkv} KV heads, not the model's")
+    nbytes = [len(json.dumps(doc)) for doc in docs]
+    res = {"drain_s": drain_s, "document_bytes": nbytes, "emitted_at_drain":
+           [len(doc["emitted"]) for doc in docs]}
+    for shards in (TPX_SHARDS, 1):
+        target = _tpx_engine(cfg, params, dev, shards)
+        try:
+            reset_counts()
+            lat, ties = [], 0
+            for i, (doc, w, p) in enumerate(zip(docs, want, prompts)):
+                t0 = time.time()
+                new, _, prior, mode = target.restore_snapshot(rs.RequestSnapshot.from_doc(doc))
+                lat.append(time.time() - t0)
+                _drain_ids(new.out_queue)
+                if mode != "restore" or new.error is not None:
+                    raise AssertionError(f"tpx (b) {name} into TP={shards}: mode {mode}, "
+                                         f"{new.error!r}")
+                ties += _tie_checked(target, f"tpx (b) {name} into TP={shards} stream {i}", p,
+                                     list(new.emitted), w)
+            launches.update(counts())
+        finally:
+            target.shutdown()
+            _free_engine(target)
+        res[f"restore_TP{shards}"] = {"p50_s": statistics.median(lat), "max_s": max(lat),
+                                      "ties": ties}
+    out[name] = res
+    log(f"  tpx (b) {name} at TP={TPX_SHARDS}: {len(docs)} streams drained after "
+        f"{min(res['emitted_at_drain'])}-{max(res['emitted_at_drain'])} tokens in {drain_s:.3f} s, "
+        f"documents {min(nbytes)}-{max(nbytes)} bytes ({hkv} KV heads, the model's); restored into "
+        f"a fresh TP={TPX_SHARDS} engine (p50 {res[f'restore_TP{TPX_SHARDS}']['p50_s']:.4f} s, "
+        f"{res[f'restore_TP{TPX_SHARDS}']['ties']} ties) and a TP=1 engine (p50 "
+        f"{res['restore_TP1']['p50_s']:.4f} s, {res['restore_TP1']['ties']} ties): spooled + "
+        f"continued tokens equal to the undrained TP={TPX_SHARDS} streams")
+
+
+def _tpx_disagg(dev, cfg, params, rng, out, launches) -> None:
+    """(c) disagg at TP=2 against unified at TP=2: the same wave's streams
+    (ties apart), one handoff a request, no recompute; the tier plan."""
+    from generativeaiexamples_tpu_torch.engine.llm_engine import SamplingParams
+    from generativeaiexamples_tpu_torch.engine.scheduler import handoff
+
+    prompts = _tp_prompts(rng, (120, 400, 700, 1500))
+    greedy = SamplingParams(temperature=0.0, max_tokens=TPX_SPEC_TOKENS)
+    runs = {}
+    for policy in ("unified", "disagg"):
+        engine = _tpx_engine(dataclasses.replace(cfg, scheduler_policy=policy), params, dev,
+                             TPX_SHARDS)
+        try:
+            h0 = handoff.metrics_snapshot()
+            reset_counts()
+            runs[policy] = (_tpx_wave(engine, prompts, greedy), engine.scheduler.describe())
+            launches.update(counts())
+            h1 = handoff.metrics_snapshot()
+            if policy == "disagg":
+                ties = _tpx_ties(engine, "tpx (c) disagg", prompts, runs[policy][0],
+                                 runs["unified"][0])
+        finally:
+            engine.shutdown()
+            _free_engine(engine)
+    handed = h1["handoffs"] - h0["handoffs"]
+    if handed != len(prompts) or h1["handoff_recompute"] != h0["handoff_recompute"]:
+        raise AssertionError(f"tpx (c): {handed} handoffs, recompute "
+                             f"{h1['handoff_recompute'] - h0['handoff_recompute']}")
+    plan = {k: runs["disagg"][1][k] for k in ("prefill_tier_devices", "decode_tier_devices",
+                                              "shared_pool")}
+    out["disagg"] = {"ties": ties, "handoffs": handed, "plan": plan}
+    log(f"  tpx (c) disagg at TP={TPX_SHARDS}: {len(prompts)} greedy streams of "
+        f"{min(map(len, prompts))}-{max(map(len, prompts))} ids equal to unified's ({ties} parted "
+        f"at a tie), {handed} handoffs, no recompute; tier plan {plan} (advisory: dispatch on the "
+        f"serving mesh, one shared pool)")
+
+
+def _tpx_tier(dev, cfg, params, rng, out, seed) -> None:
+    """(d) the retrieval tier beside the decoding TP=2 engine (the process
+    engine): hash embeddings into the in-process store on the card, 8
+    concurrent queries through the tier against the synchronous path,
+    scores within SEARCH_SCORE_TOL and tie runs as sets."""
+    from generativeaiexamples_tpu_torch import config as config_mod
+    from generativeaiexamples_tpu_torch.chains import runtime
+    from generativeaiexamples_tpu_torch.engine import llm_engine, retrieval_tier
+    from generativeaiexamples_tpu_torch.engine.llm_engine import SamplingParams
+
+    env = {"APP_EMBEDDINGS_MODELENGINE": "hash", "APP_RANKING_MODELENGINE": "",
+           "APP_RETRIEVER_NRPIPELINE": "hybrid", "APP_RETRIEVER_SCORETHRESHOLD": "0",
+           "APP_VECTORSTORE_NAME": "tpu", "APP_TEXTSPLITTER_CHUNKSIZE": "48",
+           "APP_TEXTSPLITTER_CHUNKOVERLAP": "16", "APP_RETRIEVER_BACKEND": "off"}
+    saved = {k: os.environ.get(k) for k in list(env) + ["APP_VECTORSTORE_PERSISTDIR"]}
+    tmp = tempfile.mkdtemp(prefix="tpx_tier_")
+    engine = _tpx_engine(cfg, params, dev, TPX_SHARDS)
+    prev = llm_engine._ENGINE
+    try:
+        os.environ.update(env, APP_VECTORSTORE_PERSISTDIR=os.path.join(tmp, "vs"))
+        runtime.reset_runtime()
+        runtime.set_device(dev)
+        acfg = config_mod.load_config()
+        docs = _rag_corpus(np.random.RandomState(seed + 18))
+        for d, sentences in enumerate(docs):
+            path = os.path.join(tmp, f"doc{d:02d}.txt")
+            with open(path, "w") as fh:
+                fh.write(" ".join(sentences))
+            runtime.ingest_file(path, os.path.basename(path), config=acfg)
+        queries = [docs[i][i % len(docs[i])] for i in range(TPX_TIER_QUERIES)]
+        sync = [runtime.retrieve(q, config=acfg) for q in queries]
+        tier_cfg = dataclasses.replace(acfg, retriever=dataclasses.replace(
+            acfg.retriever, backend="tier"))
+        llm_engine._ENGINE = engine
+        long = engine.submit(_tp_prompts(rng, (600,))[0],
+                             SamplingParams(temperature=0.0, max_tokens=256))
+        c0 = dict(retrieval_tier.counters)
+        got = _concurrently({i: lambda q=q: runtime.retrieve(q, config=tier_cfg)
+                             for i, q in enumerate(queries)})
+        c1 = dict(retrieval_tier.counters)
+        decoding = not long.finished
+        _drain_ids(long.out_queue)
+    finally:
+        llm_engine._ENGINE = prev
+        retrieval_tier.close_tier()
+        runtime.reset_runtime()
+        engine.shutdown()
+        _free_engine(engine)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        config_mod.get_config.cache_clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def as_body(hits):
+        return 200, json.dumps({"chunks": [{"filename": h.chunk.source, "content": h.chunk.text,
+                                            "score": h.score} for h in hits]})
+
+    wrong = [i for i in range(len(queries)) if not _same_search(as_body(got[i]), as_body(sync[i]))]
+    if wrong:
+        raise AssertionError(f"tpx (d): tier hits differ from the synchronous path's for {wrong}")
+    queried = c1.get("queries", 0) - c0.get("queries", 0)
+    if queried != len(queries):
+        raise AssertionError(f"tpx (d): {queried} of {len(queries)} queries went through the tier")
+    out["tier"] = {"queries": queried, "waves": c1.get("waves", 0) - c0.get("waves", 0),
+                   "dispatches": c1.get("dispatches", 0) - c0.get("dispatches", 0),
+                   "engine_decoding": decoding}
+    log(f"  tpx (d) retrieval tier beside the TP={TPX_SHARDS} process engine "
+        f"({'decoding' if decoding else 'idle by then'}): {queried} concurrent queries in "
+        f"{out['tier']['waves']} waves, {out['tier']['dispatches']} ANN dispatches, every answer "
+        f"equal to the synchronous path's within {SEARCH_SCORE_TOL} (tie runs as sets)")
+
+
+def _tpx_profile(dev, params, shards, out, launches) -> None:
+    """(e) the port's profile_decode on recipe A at full depth, B = 8:
+    steady decode and one 512-bucket prefill, each window complete (up to
+    TPX_PROFILE_TRIES captures), split by JAX's categories."""
+    from generativeaiexamples_tpu_torch.tools import profile_decode
+
+    cfg = dataclasses.replace(_tpx_config("A", MODEL), max_batch_size=TPX_PROFILE_BATCH,
+                              max_seq_len=TPX_PROFILE_SEQ)
+    saved = os.environ.get("ENABLE_PROFILING")
+    os.environ["ENABLE_PROFILING"] = "true"  # the engine's labels, the reduce's among them
+    try:
+        engine = _tpx_engine(cfg, params, dev, shards)
+    finally:
+        if saved is None:
+            os.environ.pop("ENABLE_PROFILING", None)
+        else:
+            os.environ["ENABLE_PROFILING"] = saved
+    res = {}
+    try:
+        for window in ("decode", "prefill"):
+            for attempt in range(1, TPX_PROFILE_TRIES + 1):
+                reset_counts()
+                if window == "decode":
+                    rep = profile_decode.profile_decode(engine, TPX_PROFILE_SECONDS,
+                                                        TPX_PROFILE_PROMPT)
+                else:
+                    rep = profile_decode.profile_prefill(engine, TPX_PREFILL_IDS)
+                launches.update(counts())
+                _settle(engine)
+                if rep["complete"] and rep["busy_ms"] is not None:
+                    break
+                log(f"    tpx (e) TP={shards} {window}: capture {attempt} not measured "
+                    f"({rep['not_measured']}); again")
+            else:
+                raise AssertionError(f"tpx (e) TP={shards} {window}: no complete trace in "
+                                     f"{TPX_PROFILE_TRIES} captures")
+            rep["captures"] = attempt
+            cats = rep["categories_ms"]
+            if (cats["collective"] > 0) != (shards > 1):
+                raise AssertionError(f"tpx (e) TP={shards} {window}: collective "
+                                     f"{cats['collective']:.4f} ms")
+            buf = []
+
+            class _Lines:
+                def write(self, text):
+                    buf.append(text)
+
+            profile_decode.print_report(rep, out=_Lines())
+            for line in "".join(buf).splitlines():
+                log(f"    {line}")
+            res[window] = {k: rep[k] for k in ("wall_ms", "busy_ms", "idle_ms", "idle_share",
+                                               "categories_ms", "kernels_ms", "captures")}
+            if window == "decode":
+                res[window]["decode_steps"] = rep["decode_steps"]
+    finally:
+        engine.shutdown()
+        _free_engine(engine)
+    out[f"TP{shards}"] = res
+
+
+def phase_tpx(dev, smi, seed=0) -> dict:
+    """The paths served across shards (module docstring, phase 18)."""
+    import random
+
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.ops import quant
+
+    t0 = time.time()
+    rng = random.Random(seed * 1000 + 18)
+    out = {"spec": {}, "drain": {}, "profile": {}}
+    launches = collections.Counter()
+    params = quant.init_packed_params_int8(llama.PRESETS[MODEL], seed, torch.bfloat16, dev)
+    model8 = f"{MODEL}-{TPX_LAYERS}-layers"
+    llama.PRESETS[model8] = dataclasses.replace(llama.PRESETS[MODEL], num_layers=TPX_LAYERS)
+    params8 = dict(params, layers=params["layers"][:TPX_LAYERS])
+    spool = tempfile.mkdtemp(prefix="tpx_spool_")
+    try:
+        # (a) spec on shards: A (lookup, the 1b-proxy draft), D (lookup)
+        prompts = [_spec_prompt("copy_heavy", r) for r in range(TPX_SPEC_REQUESTS)]
+        for name in TPX_SPEC_LEGS:
+            _tpx_spec(dev, name, _tpx_config(name, model8, spec_draft_model=SPEC_DRAFT_MODEL
+                                             if name == "A" else ""),
+                      params8, prompts, out["spec"], launches)
+            gc.collect()
+            torch.cuda.empty_cache()
+        t_a = time.time()
+        # (b) drain/restore on shards: A (bf16 pool) and C (int4 pool)
+        for name in TPX_DRAIN_RECIPES:
+            _tpx_drain(dev, name, _tpx_config(name, model8, snapshot_spool_dir=spool), params8,
+                       rng, out["drain"], launches)
+            gc.collect()
+            torch.cuda.empty_cache()
+        t_b = time.time()
+        # (c) disagg, (d) the retrieval tier beside the TP=2 engine
+        cfg_a = _tpx_config("A", model8)
+        _tpx_disagg(dev, cfg_a, params8, rng, out, launches)
+        _tpx_tier(dev, cfg_a, params8, rng, out, seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_d = time.time()
+        # (e) the decode profiler at full depth, TP=1 then TP=2
+        for shards in (1, TPX_SHARDS):
+            _tpx_profile(dev, params, shards, out["profile"], launches)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(spool, ignore_errors=True)
+        del params, params8
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = dict(launches)
+    out["wall_s"] = time.time() - t0
+    out["walls_s"] = {"spec": t_a - t0, "drain": t_b - t_a, "disagg_tier": t_d - t_b,
+                      "profile": time.time() - t_d}
+    log(f"  tpx launches in the phase (every shard's): {dict(launches)}; walls "
+        f"{ {k: round(v, 1) for k, v in out['walls_s'].items()} }")
+    if out["wall_s"] > TPX_BUDGET_S:
+        log(f"  tpx: the phase took {out['wall_s']:.1f} s, over its {TPX_BUDGET_S:.0f} s budget")
+    log(f"phase tpx: ok ({out['wall_s']:.1f} s on {smi})")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
                         default="kernels,model,serve,retrieval,rag,chains,filechains,drain,"
-                                "prefix,spec,observe,route,connect,tp,train",
+                                "prefix,spec,observe,route,connect,tp,train,tpx",
                         help="phases after the build, comma-separated (default: all)")
     parser.add_argument("--checks", default=",".join(CHECKS),
                         help="phase 3's kernel checks, comma-separated (default: all)")
@@ -7317,6 +7827,7 @@ def _run(args, phases) -> int:
     connect = phase_connect(dev, info["smi"], args.seed) if "connect" in phases else {}
     tp = phase_tp(dev, info["smi"], args.seed) if "tp" in phases else {}
     train = phase_train(dev, info["smi"], args.seed, args.scratch) if "train" in phases else {}
+    tpx = phase_tpx(dev, info["smi"], args.seed) if "tpx" in phases else {}
     kernels = []
     tiles = results.get("tp_tiles", {})
     for name, (replaces, source) in KERNELS.items():
@@ -7330,8 +7841,9 @@ def _run(args, phases) -> int:
             "launches": sum(sv["launches"][name] for sv in serves.values())
             + sum(ph.get("launches", {}).get(name, 0)
                   for ph in (rag, chains, files, drain, prefix, spec, observe, connect, tp,
-                             train)),
+                             train, tpx)),
             "tp_launches": tp.get("launches", {}).get(name, 0),
+            "tpx_launches": tpx.get("launches", {}).get(name, 0),
             **r,
         })
     log(f"total {time.time() - t0:.1f} s")
@@ -7349,6 +7861,7 @@ def _run(args, phases) -> int:
         "connect": {k: v for k, v in connect.items() if k != "launches"},
         "tp": {k: v for k, v in tp.items() if k != "launches"},
         "train": {k: v for k, v in train.items() if k != "launches"},
+        "tpx": {k: v for k, v in tpx.items() if k != "launches"},
         "tp_tiles": {k: v for k, v in tiles.items() if k not in results},
         "sampling": results.get("sampling")}), flush=True)
     print(info["smi"], flush=True)

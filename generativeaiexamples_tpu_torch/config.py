@@ -21,9 +21,9 @@ config with its names and defaults (``LLMConfig``, ``TextSplitterConfig``,
 config wizard names them (``vector_store.persist_dir`` ->
 ``APP_VECTORSTORE_PERSISTDIR``); ``AppConfig.from_env`` reads the engine
 and all of them, and ``get_config()`` caches that once per process
-(``get_config.cache_clear()`` drops it). A section's ``UNSERVED`` fields
-are the JAX ones the port does not serve: away from their JAX default they
-raise, naming the ROADMAP item that will serve them.
+(``get_config.cache_clear()`` drops it). A section's ``IGNORED`` fields
+are read and checked as JAX checks them (config_validate.py), then logged
+once and ignored, as the JAX runtime ignores them.
 
 As in the JAX package, ``get_config()`` first reads the JSON or YAML file
 that ``APP_CONFIG_FILE`` names, where it exists, then applies the
@@ -60,7 +60,7 @@ JAX_ONLY_FIELDS = {
     "chunked_prefill": ("auto", "the port always chunks prompts longer than prefill_chunk", ()),
     "quiesce_timeout_s": (600.0, None, ()),  # warmup's wait for decode to drain
 }
-_LOGGED: set = set()  # XLA-only variables already logged by this process
+_LOGGED: set = set()  # ignored variables already logged by this process
 
 
 def _parse(name: str, raw: str, default):
@@ -97,9 +97,9 @@ class EngineConfig:
     kv_cache_dtype: str = "bfloat16"
     max_batch_size: int = 8
     max_seq_len: int = 8192
-    # shards of the model axis (parallel/): -1, JAX's default, serves one
-    # card until ROADMAP queue 1 item 9e (JAX's takes every card); N > 1
-    # shards over N where the heads, the MLP width and the vocab divide
+    # shards of the model axis (parallel/): -1, JAX's default, takes every
+    # visible card, as JAX's does; N > 1 shards over N; either where the
+    # heads, the MLP width and the vocab divide
     # (tp_kernels.supports_model_config)
     tensor_parallelism: int = -1
     # auto | paged | fixed: auto pages wherever the page geometry tiles
@@ -325,11 +325,11 @@ def _section_from_env(cls, section: str, environ: Optional[Mapping[str, str]]):
             default = f.default_factory() if f.default is dataclasses.MISSING else f.default
             kwargs[f.name] = _parse(name, raw, default)
     out = cls(**kwargs)
-    for field, (default, reason) in getattr(cls, "UNSERVED", {}).items():
+    for field, reason in getattr(cls, "IGNORED", {}).items():
         name = _env_name(section, field)
-        raw = environ.get(name)
-        if raw is not None and _parse(name, raw, default) != default:
-            raise ValueError(f"{name}={raw}: {reason}")
+        if field in kwargs and name not in _LOGGED:
+            _LOGGED.add(name)
+            logger.info("%s=%r read and ignored: %s", name, kwargs[field], reason)
     return out
 
 
@@ -360,9 +360,11 @@ class TextSplitterConfig:
 
     chunk_size: int = 510
     chunk_overlap: int = 200
+    # JAX's tokenizer name: checked (not empty), then ignored, as the JAX
+    # runtime's splitter ignores it
+    model_name: str = "Snowflake/snowflake-arctic-embed-l"
 
-    UNSERVED = {"model_name": ("Snowflake/snowflake-arctic-embed-l",
-                               "the splitter counts whitespace words and reads no tokenizer")}
+    IGNORED = {"model_name": "the splitter counts whitespace words and reads no tokenizer"}
 
     @classmethod
     def from_env(cls, environ: Optional[Mapping[str, str]] = None) -> "TextSplitterConfig":
@@ -390,9 +392,11 @@ class RetrieverConfig:
     # a wave's bounded yield to the scheduler's retrieval window; 0 = none
     tier_window_ms: int = 20
 
-    UNSERVED = {
-        "nr_url": ("http://retrieval-ms:8000", "no external retriever service is read"),
-    }
+    # JAX's external retriever service: checked (a scheme), then ignored,
+    # as the JAX runtime ignores it
+    nr_url: str = "http://retrieval-ms:8000"
+
+    IGNORED = {"nr_url": "no external retriever service is read"}
 
     @classmethod
     def from_env(cls, environ: Optional[Mapping[str, str]] = None) -> "RetrieverConfig":
@@ -697,7 +701,7 @@ class AppConfig:
                 unserved = {name: (default, reason)
                             for name, (default, reason, _) in JAX_ONLY_FIELDS.items()}
             else:
-                unserved = getattr(section, "UNSERVED", {})
+                unserved = {}
             out.append((f.name, config_wizard.section_fields(section, unserved)))
         return out
 

@@ -7,9 +7,10 @@ a bad value stops the chain server at startup (``server/api.py``
 ``make_server``) instead of failing at the first request, or answering
 quietly wrong (``retriever.top_k`` 0 answers the no-context message).
 
-A field that a section's ``UNSERVED`` pins to its JAX default (config.py)
-needs no check here, nor does a JAX engine field the port has no field for
-(``JAX_ONLY_FIELDS``): ``from_env`` has refused any other value already.
+A JAX engine field the port has no field for (``JAX_ONLY_FIELDS``,
+config.py) needs no check here: ``from_env`` has refused any value the
+port does not serve already. A section's ``IGNORED`` fields are checked as
+JAX checks them, and then go unread, as in the JAX runtime.
 The engine fields that ``EngineConfig.validate`` checks for the port's own
 engine (the serving layout, the page geometry, the scheduler and drain
 fields) are not repeated; the spec-decode fields are checked by
@@ -37,19 +38,6 @@ def _require(cond: bool, message: str) -> None:
         raise ValueError(message)
 
 
-def check_tier_shards(cfg) -> None:
-    """The retrieval tier beside a sharded process engine is refused until
-    ROADMAP queue 1 item 9e. The process engine shards exactly when
-    ``engine.tensor_parallelism`` > 1 (``-1`` serves one card), so the
-    config decides it before anything is built: here, at a server's
-    start, and in ``llm_engine.get_engine`` for an engine built from the
-    process configuration."""
-    _require(cfg.engine.tensor_parallelism <= 1
-             or (cfg.retriever.backend or "off").lower() != "tier",
-             "retriever.backend=tier is not served under tensor_parallelism > 1 yet "
-             "(ROADMAP queue 1 item 9e)")
-
-
 def validate_config(cfg) -> None:
     """Raise ValueError, naming the knob, on the first value the JAX chain
     server's startup refuses."""
@@ -71,6 +59,7 @@ def validate_config(cfg) -> None:
                  f"llm.model_engine={engine_kind!r} requires llm.server_url (APP_LLM_SERVERURL)")
 
     ts = cfg.text_splitter
+    _require(bool(ts.model_name.strip()), "text_splitter.model_name must not be empty")
     _require(ts.chunk_size > 0, f"text_splitter.chunk_size must be > 0, got {ts.chunk_size}")
     _require(0 <= ts.chunk_overlap < ts.chunk_size,
              f"text_splitter.chunk_overlap must be in [0, chunk_size), "
@@ -100,6 +89,9 @@ def validate_config(cfg) -> None:
     _require(ret.context_token_cap >= 0,
              f"retriever.context_token_cap must be >= 0 (0 disables), "
              f"got {ret.context_token_cap}")
+    if ret.nr_url:
+        _require("://" in ret.nr_url,
+                 f"retriever.nr_url must carry a scheme (http://host:port), got {ret.nr_url!r}")
     _require((ret.ann_mode or "exact").lower() in _ANN_MODES,
              f"retriever.ann_mode must be one of {_ANN_MODES}, got {ret.ann_mode!r}")
     _require(ret.ann_capacity >= 0,
@@ -141,7 +133,6 @@ def validate_config(cfg) -> None:
     _require(e.tensor_parallelism == -1 or e.tensor_parallelism > 0,
              f"engine.tensor_parallelism must be -1 (all devices) or > 0, "
              f"got {e.tensor_parallelism}")
-    check_tier_shards(cfg)
     _require(e.dtype in _ENGINE_DTYPES,
              f"engine.dtype must be one of {_ENGINE_DTYPES}, got {e.dtype!r}")
     _require(e.quantization in _QUANTIZATIONS,

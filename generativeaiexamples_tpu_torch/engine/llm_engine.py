@@ -87,7 +87,7 @@ its slot and pages; a request with no KV to carry (unadmitted, the fixed
 layout, a missed park) is preempted replay-only. ``restore_snapshot``
 re-admits a document on any engine of the same config: the dispatch
 thread claims a slot and pages, scatters the payload into the pool
-(``index_copy_``), writes the slot state and registers the request, which
+(``request_snapshot.write_pages``: split over the shards), writes the slot state and registers the request, which
 then decodes on from the spooled position (``stream_restored``
 re-delivers the spooled tokens first). The ``engine.dispatch`` and
 ``replica.kill`` fault points (utils/faults.py) sit at the top of each
@@ -124,19 +124,21 @@ the launch time, and device time comes only from a profile.
 
 Tensor parallelism (parallel/, the JAX engine's TP kernel path): with
 ``mesh=`` (parallel/mesh.py), or ``device=None`` and ``tensor_parallelism``
-N > 1 (``-1``, the default, serves one card until ROADMAP queue 1 item 9e
-lands; JAX's takes every card), the engine
-lays its single-device tree out per shard and cuts it, keeps each KV
-pool or strip as one pool a shard of ``Hkv / N`` heads, and threads its
+N > 1 (``-1``, the default, takes every visible card, as JAX's does), the
+engine lays its single-device tree out per shard and cuts it, keeps each
+KV pool or strip as one pool a shard of ``Hkv / N`` heads, and threads its
 ``TPContext`` through every model call: each shard runs the kernels on
 its local tile, the row-parallel partials are summed in f32 in shard
 order, and the replicated activations, the page tables, the slot state
 and the sampler stay on the first shard's device. The kernel gates ask
-about the local tile. Speculative decoding, the resident draft, drain's
-snapshots and restores, ``disagg`` and the retrieval tier raise under
-more than one shard (ROADMAP queue 1 item 9e): those with a switch at
-startup, the rest at the call (``NotServedUnderTP``, 501 on the drain
-routes). JAX's automatic choice of pipeline parallelism raises (9b).
+about the local tile. Every path serves across shards: the spec verify
+(K+1 rows a slot through the local tiles), the resident draft on the
+engine's mesh (engine/spec_draft.py), drain's snapshots (each shard's
+heads gathered into the full model's payload, split back at restore:
+engine/request_snapshot.py), ``disagg`` (JAX's advisory tier plan,
+parallel/mesh.py ``tier_submeshes``) and the retrieval tier beside the
+engine. JAX's automatic choice of pipeline parallelism raises (ROADMAP
+queue 1 item 9b).
 
 Weights (JAX's rule): ``checkpoint_path`` names a HF safetensors
 directory, whose ``config.json`` (else ``model_config_name``) is the
@@ -397,18 +399,9 @@ def resolve_device(device=None, what: str = "LLMEngine") -> torch.device:
     return dev
 
 
-# the paths tensor-parallel serving does not carry across shards yet, each
-# refused at its start under more than one shard (ROADMAP queue 1 item 9)
 _TP_PIPELINE = (
     "pipeline parallelism is not served by the port yet (ROADMAP queue 1 item 9b)"
 )
-_TP_REFUSED = "is not served under tensor_parallelism > 1 yet (ROADMAP queue 1 item 9e)"
-
-
-class NotServedUnderTP(ValueError):
-    """A call on a sharded engine to a path tensor-parallel serving does
-    not carry across shards yet (ROADMAP queue 1 item 9e); the drain
-    routes answer it with 501."""
 
 
 def _max_tp(model_cfg, n_devices: int) -> int:
@@ -563,9 +556,8 @@ class LLMEngine:
             self._page, model_cfg.head_dim, local_hq, local_hkv,
             query_len=self._spec_draft + 1, kv_dtype=cfg.kv_cache_dtype,
         )
-        # on the card a paged verify runs on the kernel or not at all; no
-        # verify runs across shards yet
-        self._spec_available = self._tp is None and not (
+        # on the card a paged verify runs on the kernel or not at all
+        self._spec_available = not (
             self.device.type == "cuda" and self._paged and not self._verify_kernel
         )
         if self.device.type == "cuda":
@@ -746,8 +738,7 @@ class LLMEngine:
         first device is the engine's); else ``device`` (one device) or,
         unset, the visible cards, as many as ``_resolve_parallelism`` says.
         More than one shard builds the TP context where
-        ``supports_model_config`` holds and raises otherwise, as do the
-        paths this slice does not carry across shards."""
+        ``supports_model_config`` holds and raises otherwise."""
         if mesh is None:
             dev = resolve_device(device)
             devices = [dev] if device is not None else mesh_mod.visible_devices()
@@ -771,16 +762,7 @@ class LLMEngine:
                 f"(heads={model_cfg.num_heads}, kv_heads={model_cfg.num_kv_heads}, "
                 f"intermediate={model_cfg.intermediate_size}, vocab={model_cfg.vocab_size})"
             )
-        refused = [
-            (cfg.spec_decode_enable == "on", "speculative decoding's verify (spec_decode_enable=on)"),
-            (bool(cfg.spec_draft_model or cfg.spec_draft_checkpoint_path),
-             "the resident draft model (spec_draft_model, spec_draft_checkpoint_path)"),
-            (cfg.scheduler_policy == "disagg", "the disagg KV handoff (scheduler_policy=disagg)"),
-        ]
-        for hit, what in refused:
-            if hit:
-                raise ValueError(f"{what} {_TP_REFUSED}")
-        self._tp = tp_kernels.TPContext(mesh, mesh.size)
+        self._tp = tp_kernels.TPContext(mesh, mesh.size, annotate=profiling.annotation_scope())
         logger.info("LLM engine mesh: %d shards on %s", mesh.size, [str(d) for d in mesh.devices])
 
     @property
@@ -804,13 +786,11 @@ class LLMEngine:
 
     def _resolve_parallelism(self, cfg: EngineConfig, model_cfg, devices) -> int:
         """``tensor_parallelism`` for mesh construction (the JAX function's
-        TP half). ``-1`` (the default) serves one card until the paths of
-        ROADMAP queue 1 item 9e are carried across shards; then it will
-        take every card, as JAX's does. An explicit N shards over N.
-        Pipeline parallelism, asked for or the automatic choice JAX makes
-        when ``num_kv_heads`` caps TP below the device count and the
-        capped mesh cannot hold the model, raises instead: the port never
-        serves something else silently."""
+        TP half). ``-1`` (the default) takes every visible card, as JAX's
+        does; an explicit N shards over N. Pipeline parallelism, asked for
+        or the automatic choice JAX makes when ``num_kv_heads`` caps TP
+        below the device count and the capped mesh cannot hold the model,
+        raises instead: the port never serves something else silently."""
         tp, n = cfg.tensor_parallelism, len(devices)
         if tp != -1:
             return tp
@@ -830,12 +810,8 @@ class LLMEngine:
                     f"{est['total'] / 1e9:.1f} GB estimate exceeds that mesh's memory; the JAX "
                     f"engine would serve pipeline_parallelism={n // tp_cap}: {_TP_PIPELINE}"
                 )
-        logger.info(
-            "tensor_parallelism=-1 serves one of %d visible cards until drain, restore and "
-            "speculative decoding are carried across shards (ROADMAP queue 1 item 9e); "
-            "set it to N to shard over N cards", n,
-        )
-        return 1
+        logger.info("tensor_parallelism=-1 takes every visible card: %d shards", n)
+        return n
 
     def _check_memory_budget(self, cfg: EngineConfig, model_cfg) -> None:
         """Fit the weights and the KV cache per shard device (JAX's
@@ -1007,6 +983,7 @@ class LLMEngine:
         return spec_draft.DraftRuntime(
             cfg, device=self.device, dtype=self._dtype, sample_vocab=self._sample_vocab,
             num_slots=self.num_slots, max_seq_len=self.max_seq_len, params=self._draft_params,
+            mesh=self._mesh,
         )
 
     def set_spec_decode(self, enabled: bool) -> bool:
@@ -1016,8 +993,6 @@ class LLMEngine:
         picks the program of the next dispatch; rows admitted while spec
         was off have no context and never draft until their slot
         recycles."""
-        if enabled and self._tp is not None:
-            raise NotServedUnderTP(f"speculative decoding {_TP_REFUSED}")
         with self._lock:
             self._spec_enabled = bool(enabled) and self._spec_available
             if not self._spec_enabled:
@@ -1033,8 +1008,6 @@ class LLMEngine:
         ``combined``); returns the kind in effect, or None where there is
         no verify or no draft model is configured. The draft model is built
         on the first switch to it."""
-        if self._tp is not None:
-            raise NotServedUnderTP(f"speculative decoding {_TP_REFUSED}")
         if not self._spec_available:
             return None
         cfg = self.engine_config
@@ -1307,8 +1280,6 @@ class LLMEngine:
 
         Runs on the caller's thread within ``drain_timeout_s`` (or
         ``timeout``); returns the summary the drain route answers."""
-        if self._tp is not None:
-            raise NotServedUnderTP(f"drain's KV snapshots {_TP_REFUSED}")
         budget_s = float(self.engine_config.drain_timeout_s if timeout is None else timeout)
         deadline = time.time() + budget_s
         flight_recorder.event("drain_begin", timeout_s=round(budget_s, 3))
@@ -1433,9 +1404,9 @@ class LLMEngine:
         "replay" regenerates from the prompt under the pinned seed (no
         payload, the fixed layout, or no free slot or pages). Raises
         ``SnapshotMismatch`` on a config-fingerprint or KV-geometry
-        mismatch and ``EngineOverloaded`` while this engine drains."""
-        if self._tp is not None:
-            raise NotServedUnderTP(f"snapshot restore {_TP_REFUSED}")
+        mismatch and ``EngineOverloaded`` while this engine drains. A
+        snapshot restores at any shard count: its payload holds the full
+        model's heads, split over this engine's shards here."""
         t0 = time.time()
         self._spool.check_fingerprint(snap)
         request_snapshot_mod.check_geometry(self, snap)
@@ -1786,10 +1757,7 @@ class LLMEngine:
         row[0, : len(pages)] = pages
         slots = self._to_device([slot], torch.long)
         self._tables[slots] = self._to_device(row, torch.int32)
-        idx = self._to_device(pages[:n_payload], torch.long)
-        for layer, upload in zip(self._cache, payload):
-            for key, arr in upload.items():
-                layer[key].index_copy_(0, idx, self._stage(arr))
+        request_snapshot_mod.write_pages(self, pages[:n_payload], payload)
         self._update_slots(
             slots, self._to_device([req.emitted[-1]], torch.long),
             self._to_device([pos], torch.long),
@@ -2505,7 +2473,7 @@ class LLMEngine:
         )
         opts = dict(max_pos=self.max_seq_len - 1, vocab=self._sample_vocab,
                     sampled=any(req.params.temperature > 0 for _, req in snapshot),
-                    quant_kernel=self._quant_kernel)
+                    quant_kernel=self._quant_kernel, tp=self._tp)
         t_wall, t0 = time.time(), time.perf_counter()
         with self._annotate("engine.spec_verify"):
             if self._paged:
@@ -3001,12 +2969,14 @@ def _verify_chunk(tokens, positions, draft, draft_len, live):
 
 def spec_verify(params, cfg, caches, tokens, positions, temps, topps, seeds, draft, draft_len,
                 live, window: int, *, max_pos: int, vocab: int, sampled: bool,
-                quant_kernel=None):
+                quant_kernel=None, tp=None):
     """The fixed layout's verify: :func:`_verify_chunk` through
-    ``llama.verify_layers``, then :func:`_spec_accept`."""
+    ``llama.verify_layers`` (shard by shard under ``tp``), then
+    :func:`_spec_accept` on the first shard's device."""
     offsets, chunk, valid, slots = _verify_chunk(tokens, positions, draft, draft_len, live)
     logits, _ = llama.verify_layers(
         params, cfg, chunk, offsets, valid, slots, caches, window, quant_kernel=quant_kernel,
+        tp=tp,
     )
     return _spec_accept(logits, tokens, positions, offsets, temps, topps, seeds, draft, draft_len,
                         live, max_pos=max_pos, vocab=vocab, sampled=sampled)
@@ -3014,13 +2984,14 @@ def spec_verify(params, cfg, caches, tokens, positions, temps, topps, seeds, dra
 
 def spec_verify_paged(params, cfg, caches, tokens, positions, temps, topps, seeds, draft,
                       draft_len, live, window: int, tables, page_size: int, *, max_pos: int,
-                      vocab: int, sampled: bool, quant_kernel=None, page_kernel=None):
+                      vocab: int, sampled: bool, quant_kernel=None, page_kernel=None, tp=None):
     """:func:`spec_verify` over the page pool (``llama.verify_layers_paged``);
-    ``page_kernel`` reads the K+1 query rows through the page kernel."""
+    ``page_kernel`` reads the K+1 query rows through the page kernel
+    (``paged_attention_tp`` on each shard's heads under ``tp``)."""
     offsets, chunk, valid, slots = _verify_chunk(tokens, positions, draft, draft_len, live)
     logits, _ = llama.verify_layers_paged(
         params, cfg, chunk, offsets, valid, slots, tables, caches, window, page_size,
-        quant_kernel=quant_kernel, page_kernel=page_kernel,
+        quant_kernel=quant_kernel, page_kernel=page_kernel, tp=tp,
     )
     return _spec_accept(logits, tokens, positions, offsets, temps, topps, seeds, draft, draft_len,
                         live, max_pos=max_pos, vocab=vocab, sampled=sampled)
@@ -3034,19 +3005,14 @@ def get_engine(config: Optional[EngineConfig] = None, device=None) -> LLMEngine:
     """Process-wide engine singleton, on the card unless ``device`` says
     otherwise (weights live once there); ``config=None`` reads the
     configuration file and the ``APP_ENGINE_*`` environment
-    (``config.load_config``), as JAX's reads ``get_config().engine``, and
-    refuses one that shards beside the retrieval tier (ROADMAP queue 1
-    item 9e)."""
+    (``config.load_config``), as JAX's reads ``get_config().engine``."""
     global _ENGINE
     with _ENGINE_LOCK:
         if _ENGINE is None:
             if config is None:
-                from generativeaiexamples_tpu_torch import config_validate
                 from generativeaiexamples_tpu_torch.config import load_config
 
-                app = load_config()
-                config_validate.check_tier_shards(app)
-                config = app.engine
+                config = load_config().engine
             _ENGINE = LLMEngine(config, device=device)
         return _ENGINE
 

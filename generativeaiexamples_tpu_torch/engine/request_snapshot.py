@@ -19,6 +19,14 @@ base64 of their little-endian bytes under JAX's dtype names, so either
 package decodes the other's documents bitwise; the port decodes to CPU
 tensors (bf16 included: numpy has no bf16, torch has).
 
+On a sharded engine each shard's pool holds ``Hkv / N`` of the heads: the
+capture gathers every shard's rows of the snapshot's pages and
+concatenates them in shard order on the head axis, so the payload and
+``geometry.num_kv_heads`` are the full model's, as JAX's document is, and
+the restore's write (:func:`write_pages`) splits them back over the
+restoring engine's shards. A snapshot therefore restores at any shard
+count, and into the JAX engine.
+
 Snapshots spool to a bounded directory (oldest first out), each stamped
 with the git revision that wrote it and the engine config's fingerprint
 (utils/provenance.py);
@@ -42,6 +50,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from generativeaiexamples_tpu_torch.parallel import sharding
 from generativeaiexamples_tpu_torch.utils import metrics as metrics_mod
 from generativeaiexamples_tpu_torch.utils import provenance
 
@@ -252,13 +261,39 @@ def engine_kv_dtype(engine) -> str:
     return "int4" if getattr(engine, "_kv_packed", False) else "int8"
 
 
+def _pieces(layer) -> list:
+    """A layer's pool dicts: one a shard, or the layer itself."""
+    return list(layer) if isinstance(layer, sharding.Shards) else [layer]
+
+
 def read_pages(engine, pages) -> List[Dict[str, torch.Tensor]]:
     """The pool rows of ``pages`` from every layer as CPU tensors (a copy:
-    shared prefix pages stay in the pool). Waits for the device: the
-    caller is the drain thread, with the dispatch loop parked."""
-    idx = torch.tensor(list(pages), dtype=torch.long, device=engine.device)
-    return [{key: buf.index_select(0, idx).cpu() for key, buf in layer.items()}
-            for layer in engine._cache]
+    shared prefix pages stay in the pool), every shard's heads
+    concatenated in shard order. Waits for the device: the caller is the
+    drain thread, with the dispatch loop parked."""
+    idx = torch.tensor(list(pages), dtype=torch.long)
+    specs = sharding.kv_pool_specs(engine._kv_quant)
+    out = []
+    for layer in engine._cache:
+        pieces = _pieces(layer)
+        out.append({key: torch.cat([p[key].index_select(0, idx.to(p[key].device)).cpu()
+                                    for p in pieces], dim=specs[key])
+                    for key in pieces[0]})
+    return out
+
+
+def write_pages(engine, pages, payload: List[Dict[str, torch.Tensor]]) -> None:
+    """Scatter a decoded payload into ``pages`` of every layer's pool (the
+    restore's write, on the dispatch thread, without waiting): each
+    key's heads split over the engine's shards in shard order."""
+    idx = engine._stage(torch.tensor(list(pages), dtype=torch.long))
+    specs = sharding.kv_pool_specs(engine._kv_quant)
+    for layer, upload in zip(engine._cache, payload):
+        pieces = _pieces(layer)
+        for key, arr in upload.items():
+            for piece, part in zip(pieces, torch.chunk(arr, len(pieces), dim=specs[key])):
+                buf = piece[key]
+                buf.index_copy_(0, idx.to(buf.device), engine._stage(part).to(buf.device))
 
 
 def capture(engine, req, position: int, pages: Tuple[int, ...]) -> RequestSnapshot:

@@ -28,6 +28,13 @@ a block already dispatched (whatever ``decode_runahead``). Prefix-cache
 hits are retained in ``_fund`` on the prefill tier and their refcounts
 travel with the record like any other funded page.
 
+Tier topology: ``parallel.mesh.tier_submeshes`` plans the device split,
+JAX's plan: one device is shared by both tiers (and the pool with it); N
+shards split in halves, the prefill tier first. The plan is advisory, as
+in JAX: dispatch stays on the serving mesh, every shard's pool is the one
+shared pool, and a handoff moves page ownership in it. ``describe()``
+reports the plan as JAX's does.
+
 Requires the paged KV layout (pages are the handoff unit) and refuses
 the fixed one with the JAX package's message.
 """
@@ -43,6 +50,7 @@ import torch
 from generativeaiexamples_tpu_torch.engine import dispatch_timeline
 from generativeaiexamples_tpu_torch.engine.scheduler import handoff as handoff_mod
 from generativeaiexamples_tpu_torch.engine.scheduler.base import SchedulerPolicy
+from generativeaiexamples_tpu_torch.parallel.mesh import tier_submeshes
 from generativeaiexamples_tpu_torch.utils import flight_recorder
 
 logger = logging.getLogger(__name__)
@@ -65,10 +73,13 @@ class DisaggPolicy(SchedulerPolicy):
         self._cond = engine._lock
         self.transfer = handoff_mod.TransferQueue(depth, self._cond)
         self._prefill_inflight = 0  # guarded by self._cond
+        self._prefill_mesh, self._decode_mesh = tier_submeshes(engine._mesh)
         self._thread = threading.Thread(
             target=self._prefill_loop, daemon=True, name="torch-llm-prefill-tier"
         )
-        logger.info("disagg scheduler: one card, shared pool, transfer queue depth %d", depth)
+        logger.info("disagg scheduler: prefill tier %s / decode tier %s (advisory: dispatch on "
+                    "the serving mesh, one shared pool), transfer queue depth %d",
+                    self._prefill_mesh, self._decode_mesh, depth)
 
     # -- lifecycle ----------------------------------------------------- #
     def start(self) -> None:
@@ -137,7 +148,9 @@ class DisaggPolicy(SchedulerPolicy):
         return {"policy": self.kind, "tiers": 2,
                 "transfer_queue_capacity": self.transfer.capacity,
                 "transfer_queued": queued, "prefill_inflight": inflight,
-                "shared_pool": True}
+                "prefill_tier_devices": self._prefill_mesh.size,
+                "decode_tier_devices": self._decode_mesh.size,
+                "shared_pool": self._prefill_mesh.devices == self._decode_mesh.devices}
 
     # -- wave formation hooks ------------------------------------------ #
     def _on_claimed(self, admitted) -> None:

@@ -11,6 +11,13 @@ tokens the target emitted since each row's draft frontier, then K-1
 greedy draft steps). The engine's verify then scores them, so a token
 costs ``draft + verify / (accepted + 1)``.
 
+On a sharded engine the draft lives on the engine's mesh, as JAX's does:
+its weights cut by ``sharding.shard_params``, its strips by
+``shard_draft_kv_cache`` (the target's rule: KV heads on the model axis),
+and its proposals run shard by shard (``draft_propose_layers(tp=)``). A
+draft whose heads, MLP width or vocab the shard count does not divide
+stays whole on the mesh's first device, the same function on one device.
+
 The per-slot frontier and its acceptance-rewind arithmetic live in
 ``spec_decode.DraftTracker``. The runtime's methods run on the engine's
 dispatch thread, and under ``disagg`` admission's draft prefill runs on
@@ -31,6 +38,8 @@ import torch
 
 from generativeaiexamples_tpu_torch.engine import spec_decode as spec_decode_mod
 from generativeaiexamples_tpu_torch.models import hf_loader, llama
+from generativeaiexamples_tpu_torch.parallel import sharding, tp_kernels
+from generativeaiexamples_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -75,6 +84,7 @@ class DraftRuntime:
         num_slots: int,
         max_seq_len: int,
         params=None,
+        mesh=None,
     ) -> None:
         self.device = device
         self.num_slots = num_slots
@@ -108,21 +118,42 @@ class DraftRuntime:
             params = llama.init_params(dcfg, 0, dtype, device)
             logger.warning("Resident draft model running with random-init weights "
                            "(no spec_draft_checkpoint_path).")
-        self._params = params
-        self._caches = llama.init_kv_cache_layers(
+        caches = llama.init_kv_cache_layers(
             dcfg, num_slots, max_seq_len, dtype, device, quantized=self._kv_quant
         )
+        self._tp: Optional[tp_kernels.TPContext] = None
+        if mesh is not None and mesh.size > 1:
+            if tp_kernels.supports_model_config(dcfg, mesh.size):
+                self._tp = tp_kernels.TPContext(mesh, mesh.size,
+                                                annotate=profiling.annotation_scope())
+                params = sharding.shard_params(params, mesh)
+                caches = sharding.shard_draft_kv_cache(caches, mesh)
+            else:
+                logger.warning(
+                    "spec draft model (heads %d/%d, intermediate %d, vocab %d) does not divide "
+                    "over %d shards: it runs whole on %s", dcfg.num_heads, dcfg.num_kv_heads,
+                    dcfg.intermediate_size, dcfg.vocab_size, mesh.size, device,
+                )
+        self._params = params
+        self._caches = caches
         self._lock = threading.Lock()
         self.last_dispatch_s = 0.0
         logger.info(
-            "resident draft model: %d layers x %d hidden (target %d slots, K=%d, kv=%s)",
-            dcfg.num_layers, dcfg.hidden_size, num_slots, self._k,
-            "int8" if self._kv_quant else "bf16",
+            "resident draft model: %d layers x %d hidden (target %d slots, K=%d, kv=%s, "
+            "%d shards)", dcfg.num_layers, dcfg.hidden_size, num_slots, self._k,
+            "int8" if self._kv_quant else "bf16", self.shards,
         )
 
+    @property
+    def shards(self) -> int:
+        """Shards the draft runs on (1: whole on one device)."""
+        return 1 if self._tp is None else self._tp.shards
+
     def cache_bytes(self) -> int:
-        """Device bytes of the draft's caches."""
-        return sum(t.numel() * t.element_size() for c in self._caches for t in c.values())
+        """Device bytes of the draft's caches, every shard's."""
+        return sum(t.numel() * t.element_size() for c in self._caches
+                   for piece in (c if isinstance(c, sharding.Shards) else [c])
+                   for t in piece.values())
 
     # ------------------------------------------------------------------ #
     # slot lifecycle
@@ -174,7 +205,7 @@ class DraftRuntime:
                 llama.extend_layers(
                     self._params, self.draft_config, self._to_device(tok_k),
                     self._to_device(np.full((n,), k * C)), self._to_device(valid), slot_d,
-                    self._caches, W, quant_kernel=False,
+                    self._caches, W, quant_kernel=False, tp=self._tp,
                 )
                 spec_decode_mod.record_draft_dispatch(program="prefill")
 
@@ -211,7 +242,7 @@ class DraftRuntime:
             out, _ = llama.draft_propose_layers(
                 self._params, self.draft_config, self._to_device(chunk),
                 self._to_device(offsets), self._to_device(valid), self._caches, W,
-                draft_k=self._k, vocab=self._vocab, quant_kernel=False,
+                draft_k=self._k, vocab=self._vocab, quant_kernel=False, tp=self._tp,
             )
             with spec_decode_mod.allowed_sync("spec"):
                 out_np = out.cpu().numpy()

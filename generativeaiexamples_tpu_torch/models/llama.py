@@ -1088,6 +1088,7 @@ def draft_propose_layers(
     draft_k: int,
     vocab: int,  # argmax bound: the target's sampling vocab
     quant_kernel: Optional[bool] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, list]:
     """Resident-draft proposal for the whole decode wave: the catch-up
     chunk (the tokens the target emitted since each row's frontier, at
@@ -1098,17 +1099,19 @@ def draft_propose_layers(
     rejected rows is the acceptance rewind. Returns ``([B, draft_k]
     proposals, caches)``. Dead rows write nothing in the catch-up and park
     their steps at row 0 of their own strip; ``vocab`` bounds every argmax
-    to tokens the target can emit."""
+    to tokens the target can emit. Under ``tp`` the draft's weights and
+    caches are cut as the target's and every pass runs shard by shard."""
     B, C0 = tokens.shape
     device = tokens.device
     S = _cache_len(caches)
     slot_ids = torch.arange(B, device=device)
     h, caches = _chunk_layers(
-        params, cfg, tokens, offsets, valid, slot_ids, caches, window, quant_kernel=quant_kernel
+        params, cfg, tokens, offsets, valid, slot_ids, caches, window, quant_kernel=quant_kernel,
+        tp=tp,
     )
     valid = valid.long()
     last_h = h[slot_ids, torch.clamp(valid, 1, C0) - 1][:, None, :]
-    logits = _head(params, last_h, cfg, quant_kernel)[:, 0, :]
+    logits = _head(params, last_h, cfg, quant_kernel, tp)[:, 0, :]
     live = valid > 0
     tok = torch.argmax(logits[:, :vocab], dim=-1)
     # the first draft token's row lands right past the caught-up frontier
@@ -1117,7 +1120,7 @@ def draft_propose_layers(
     for _ in range(draft_k - 1):
         lg, caches = decode_layers(
             params, cfg, tok, pos, caches, window=window, quant_kernel=quant_kernel,
-            kv_kernel=False,
+            kv_kernel=False, tp=tp,
         )
         tok = torch.argmax(lg[:, :vocab], dim=-1)
         drafts.append(tok)

@@ -50,6 +50,12 @@ class Mesh:
                 out.append(dev)
         return out
 
+    def __getitem__(self, index: slice) -> "Mesh":
+        """The mesh of a slice of the shards, in shard order."""
+        if not isinstance(index, slice):
+            raise TypeError("a mesh is sliced, not indexed: mesh.devices[i] is shard i's device")
+        return Mesh(self.devices[index])
+
     def __repr__(self) -> str:
         return f"Mesh({[str(d) for d in self.devices]})"
 
@@ -75,3 +81,17 @@ def create_mesh(tensor_parallelism: int = -1, devices: Optional[Sequence] = None
     if tensor_parallelism > n:
         raise ValueError(f"Mesh wants {tensor_parallelism} devices; only {n} available")
     return Mesh(devices[:tensor_parallelism])
+
+
+def tier_submeshes(mesh: Mesh) -> tuple:
+    """(prefill, decode) tier meshes for P/D disaggregation
+    (engine/scheduler/disagg.py), the JAX function's plan: a one-device
+    mesh returns the serving mesh twice (both tiers share the device and
+    its page pool); N shards split in halves of the device list, the
+    prefill tier first. The split is advisory, as in JAX: dispatch stays
+    on the serving mesh and a handoff moves page ownership in the one
+    shared pool; disjoint tiers need a cross-pool page transport."""
+    if mesh.size < 2:
+        return mesh, mesh
+    half = mesh.size // 2
+    return mesh[:half], mesh[half:2 * half]

@@ -152,3 +152,16 @@ def shard_kv_pool(pools: List[Dict[str, torch.Tensor]], mesh: Mesh) -> List[Shar
 def shard_kv_cache_layered(caches: List[Dict[str, torch.Tensor]], mesh: Mesh) -> List[Shards]:
     """Per-layer fixed caches cut on ``Hkv``."""
     return _shard_layers(caches, kv_cache_layer_specs("ks" in caches[0]), mesh)
+
+
+def draft_kv_cache_specs(quantized: bool) -> Dict[str, int]:
+    """The resident draft model's fixed caches (engine/spec_draft.py):
+    laid out exactly as the target's, KV heads on the model axis, so a
+    slot's draft rows live with its target rows on every shard."""
+    return kv_cache_layer_specs(quantized)
+
+
+def shard_draft_kv_cache(caches: List[Dict[str, torch.Tensor]], mesh: Mesh) -> List[Shards]:
+    """The draft model's per-layer caches cut by :func:`draft_kv_cache_specs`:
+    the target's rule, one implementation."""
+    return shard_kv_cache_layered(caches, mesh)

@@ -17,7 +17,11 @@ Layout contracts (the cuts of parallel/sharding.py):
   weight on its rows, the pack's scale whole on every shard; each shard's
   output goes to f32, the partials are summed in shard order and the sum
   cast back to the output dtype (JAX's ``psum(y.astype(f32))``), so TP=1
-  and TP=N differ by the one rounding of each partial.
+  and TP=N differ by the one rounding of each partial. The reduce runs
+  under the context's ``annotate("tp.reduce")`` label (a no-op unless the
+  engine profiles), which is how a trace tells its kernels, JAX's
+  ``collective`` category, from the model's own adds
+  (utils/device_trace.py).
 - attention (flash prefill, the paged read, the int8 fixed-cache decode):
   q, k and v cut on their head axis; GQA stays local while the shards
   divide both head counts. No reduce.
@@ -46,12 +50,19 @@ from generativeaiexamples_tpu_torch.parallel.mesh import Mesh
 from generativeaiexamples_tpu_torch.parallel.sharding import Shards
 
 
+def _no_label(name: str):
+    return contextlib.nullcontext()
+
+
 @dataclasses.dataclass(frozen=True)
 class TPContext:
     """Everything the model functions need to run kernels under TP."""
 
     mesh: Mesh
     shards: int  # size of the model axis
+    # the profiling label factory of the row reduce
+    # (utils/profiling.annotation_scope); a no-op by default
+    annotate: Callable = dataclasses.field(default=_no_label, compare=False, repr=False)
 
     def __post_init__(self) -> None:
         if self.shards != self.mesh.size:
@@ -106,10 +117,11 @@ def gather(parts: Sequence[torch.Tensor], tp: TPContext, dim: int) -> torch.Tens
 def reduce_sum(parts: Sequence[torch.Tensor], tp: TPContext) -> torch.Tensor:
     """The row-parallel reduce: each partial to f32, summed in shard order
     on ``home``, cast back to the partials' dtype."""
-    acc = parts[0].to(tp.home, torch.float32)
-    for p in parts[1:]:
-        acc = acc + p.to(tp.home, torch.float32)
-    return acc.to(parts[0].dtype)
+    with tp.annotate("tp.reduce"):
+        acc = parts[0].to(tp.home, torch.float32)
+        for p in parts[1:]:
+            acc = acc + p.to(tp.home, torch.float32)
+        return acc.to(parts[0].dtype)
 
 
 def _local(a, i: int, dev: torch.device):

@@ -30,9 +30,9 @@ connection), with its status codes, JSON bodies and SSE bytes:
   ``POST /internal/restore`` streams a snapshot's continuation as
   ``/generate`` frames with ``X-GenAI-Restore: <id>; mode=<mode>`` (409
   on a fingerprint or geometry mismatch, 422 on a body that is no
-  snapshot, 503 while this engine drains); drain and restore answer 501
-  on a sharded engine (ROADMAP queue 1 item 9e); each answers 503
-  without a live engine and never builds one;
+  snapshot, 503 while this engine drains), at any shard count (a
+  sharded engine's snapshot carries the full model's heads); each
+  answers 503 without a live engine and never builds one;
 - 422 ``{"detail": [...]}`` on a body that fails validation; CORS on
   every answer; ``OPTIONS`` -> 204.
 
@@ -69,7 +69,7 @@ from typing import Any, Dict, Optional, Type
 from generativeaiexamples_tpu_torch.chains.base import BaseExample
 from generativeaiexamples_tpu_torch.chains.registry import resolve_example
 from generativeaiexamples_tpu_torch.chains.runtime import DegradedWarning
-from generativeaiexamples_tpu_torch.engine.llm_engine import NotServedUnderTP, engine_wedged
+from generativeaiexamples_tpu_torch.engine.llm_engine import engine_wedged
 from generativeaiexamples_tpu_torch.retrieval.errors import VectorStoreError
 from generativeaiexamples_tpu_torch.server import observability
 from generativeaiexamples_tpu_torch.server.observability import (
@@ -189,8 +189,8 @@ def _live_engine():
 
 def drain_route(raw: bytes, eng=None):
     """``POST /internal/drain``: drain the live engine (its summary), or
-    lift a drain when the body is ``{"resume": true}``. A sharded engine
-    answers 501 (ROADMAP queue 1 item 9e)."""
+    lift a drain when the body is ``{"resume": true}``, at any shard
+    count."""
     eng = eng or _live_engine()
     if eng is None:
         return 503, _NO_ENGINE
@@ -201,10 +201,7 @@ def drain_route(raw: bytes, eng=None):
     if isinstance(body, dict) and body.get("resume"):
         eng.resume_from_drain()
         return 200, {"draining": False}
-    try:
-        return 200, eng.drain()
-    except NotServedUnderTP as exc:
-        return 501, {"detail": str(exc)}
+    return 200, eng.drain()
 
 
 def snapshots_route(eng=None):
@@ -251,8 +248,6 @@ def restore_route(raw: bytes, eng=None):
         return 409, {"detail": str(exc)}, None
     except EngineOverloaded as exc:
         return 503, {"detail": str(exc)}, None
-    except NotServedUnderTP as exc:
-        return 501, {"detail": str(exc)}, None
     except (snap_mod.SnapshotError, TimeoutError) as exc:
         logger.error("Restore of %s failed: %s", snap.snapshot_id, exc)
         return 500, {"detail": str(exc)}, None

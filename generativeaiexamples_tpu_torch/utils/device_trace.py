@@ -12,6 +12,10 @@ holds:
 - attribution by kernel name: the port's kernels by the names of their
   ``__global__`` functions (:data:`PORT_KERNEL_NAMES`), PyTorch's under
   ``torch``;
+- attribution by category (:func:`categorize`): JAX's decode-step
+  categories, with the CUDA kernel names mapped into them (the port's
+  kernels are ``pallas-kernel``, their counterpart; kernels launched
+  inside the TP reduce's ``tp.reduce`` label are ``collective``);
 - completeness: CUPTI on the card can drop every event of a session, or
   some of them, so each port kernel's events in a trace are compared with
   the times its wrapper launched that kernel over the same window
@@ -28,6 +32,7 @@ the serving process captures through ``POST /internal/profile/start`` and
 """
 from __future__ import annotations
 
+import bisect
 import json
 import re
 import time
@@ -35,6 +40,9 @@ from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
 __all__ = [
     "PORT_KERNEL_NAMES",
+    "CATEGORIES",
+    "REDUCE_LABEL",
+    "categorize",
     "launch_counts",
     "kernel_counts",
     "reset_launch_counts",
@@ -61,6 +69,69 @@ _KERNEL = re.compile(
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 Event = Tuple[str, float, float]  # (name, start us, end us)
+
+# JAX's decode-step categories (generativeaiexamples_tpu/utils/xplane.py)
+CATEGORIES = ("pallas-kernel", "cache-scatter", "copy/layout", "sampling", "collective",
+              "fusion/matmul", "other")
+
+# the record_function label of the TP row reduce (parallel/tp_kernels.py):
+# a kernel launched inside it is named "tp.reduce/<kernel>" by
+# profile_events, and counts as a collective
+REDUCE_LABEL = "tp.reduce"
+
+_CUDA_RULES = (
+    ("cache-scatter", re.compile(r"index_put|index_copy|indexing_backward")),
+    ("copy/layout", re.compile(
+        r"memcpy|memset|copy_kernel|catarraybatchedcopy|index_?select|gather_kernel")),
+    ("sampling", re.compile(
+        r"topk|top_k|radixsort|bitonic|argmax|argmin|scan|cumsum|bitwise|shift|"
+        r"philox|curand|multinomial")),
+    ("collective", re.compile(r"nccl|ptop")),
+    ("fusion/matmul", re.compile(
+        r"gemm|nvjet|cutlass|xmma|cublas|sm90_|sm80_|at::native|flash|softmax|norm")),
+)
+
+
+def _jax_category(n: str) -> str:
+    """JAX's ``categorize`` on a lower-cased name, rule for rule."""
+    if "custom-call" in n or "tpu_custom_call" in n or "pallas" in n:
+        return "pallas-kernel"
+    if "dynamic-update-slice" in n or "scatter" in n:
+        return "cache-scatter"
+    if n.startswith("copy") or "transpose" in n or "bitcast" in n:
+        return "copy/layout"
+    if "sort" in n or "top-k" in n or "rng" in n or "iota" in n:
+        return "sampling"
+    if "all-reduce" in n or "all-gather" in n or "collective" in n:
+        return "collective"
+    if "fusion" in n or "dot" in n or "convolution" in n:
+        return "fusion/matmul"
+    return "other"
+
+
+def categorize(name: str) -> str:
+    """Bucket one device event into JAX's categories (:data:`CATEGORIES`).
+    The port's kernels are ``pallas-kernel`` (their counterpart) and a
+    kernel of the TP reduce (``tp.reduce/`` prefix) is ``collective``;
+    every other name goes through JAX's rules first, so a name both
+    packages can see lands where JAX puts it, and what JAX calls
+    ``other`` through the CUDA names: ``index_put_``/``index_copy_``
+    kernels are cache scatters, copies, memsets, ``cat`` and gathers
+    layout, sorts, top-k, argmax, scans and the threefry draw's bit
+    operations sampling, NCCL and peer copies collective, and cuBLAS/nvjet
+    GEMMs and PyTorch's own kernels (elementwise, reductions) fusion/matmul."""
+    if name.startswith(REDUCE_LABEL + "/"):
+        return "collective"
+    if PORT_KERNEL_NAMES.search(name):
+        return "pallas-kernel"
+    n = name.lower()
+    cat = _jax_category(n)
+    if cat != "other":
+        return cat
+    for cat, pattern in _CUDA_RULES:
+        if pattern.search(n):
+            return cat
+    return "other"
 
 
 def _counted():
@@ -126,15 +197,67 @@ def busy_ms(spans: Iterable[Tuple[float, float]]) -> float:
     return busy / 1e3
 
 
+def _labelled_ops(cpu_events, label: str) -> set:
+    """Correlation ids of the CPU ops that ran inside a ``label`` range on
+    their own thread; ``cpu_events`` are (name, thread, start ns, end ns,
+    correlation id)."""
+    spans: Dict[int, List[Tuple[int, int]]] = {}
+    for name, thread, start, end, _ in cpu_events:
+        if name == label:
+            spans.setdefault(thread, []).append((start, end))
+    if not spans:
+        return set()
+    for v in spans.values():
+        v.sort()
+    starts = {t: [a for a, _ in v] for t, v in spans.items()}
+    out = set()
+    for name, thread, start, _, corr in cpu_events:
+        if name == label or thread not in spans:
+            continue
+        i = bisect.bisect_right(starts[thread], start) - 1
+        if i >= 0 and start <= spans[thread][i][1]:
+            out.add(corr)
+    return out
+
+
+def _is_annotation(e) -> bool:
+    """Whether a Kineto event is a ``record_function`` label (on the CPU,
+    or its ``gpu_user_annotation`` span on the device), not work."""
+    flag = getattr(e, "is_user_annotation", None)
+    if flag is not None and flag():
+        return True
+    kind = getattr(e, "activity_type", None)
+    return kind is not None and "annotation" in str(kind()).lower()
+
+
 def profile_events(prof) -> List[Event]:
     """Device events of a stopped ``torch.profiler.profile``, from its raw
     Kineto results (building the FunctionEvent tree takes minutes for a
-    few hundred thousand events)."""
+    few hundred thousand events): kernels, copies and memsets. The
+    device spans Kineto draws for ``record_function`` labels (the
+    engine's dispatch labels under ``ENABLE_PROFILING``) are no device
+    work and are left out. A kernel whose launching CPU op ran inside a
+    :data:`REDUCE_LABEL` range (a capture with CPU activity) is named
+    ``tp.reduce/<kernel>``."""
     import torch
 
     cuda = torch.autograd.DeviceType.CUDA
-    return [(e.name(), e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3)
-            for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
+    raw = list(prof.profiler.kineto_results.events())
+    cpu = [e for e in raw if e.device_type() != cuda]
+    labels = {e.name() for e in cpu if _is_annotation(e)} | {REDUCE_LABEL}
+    reduce_ops = _labelled_ops(
+        [(e.name(), e.start_thread_id(), e.start_ns(), e.start_ns() + e.duration_ns(),
+          e.correlation_id()) for e in cpu], REDUCE_LABEL)
+    out = []
+    for e in raw:
+        if e.device_type() != cuda or e.name() in labels or _is_annotation(e):
+            continue
+        name = e.name()
+        if reduce_ops and e.linked_correlation_id() in reduce_ops:
+            name = f"{REDUCE_LABEL}/{name}"
+        out.append((name, e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3))
+    return out
+
 
 
 def chrome_trace_events(path: str) -> List[Event]:
@@ -157,9 +280,10 @@ def _family(name: str) -> str:
 
 def analyze(events: Sequence[Event], launched: Mapping[str, int],
             wall_ms: Optional[float] = None) -> Dict[str, Any]:
-    """Busy time, idle share and per-kernel device time of a window's
-    device ``events``, against the port kernels the wrappers launched over
-    it (``launched``: :func:`kernel_counts` over the window). ``complete``
+    """Busy time, idle share, per-kernel device time (``kernels_ms``) and
+    device time by JAX's category (``categories_ms``) of a window's device
+    ``events``, against the port kernels the wrappers launched over it
+    (``launched``: :func:`kernel_counts` over the window). ``complete``
     is False where the trace holds fewer events of any one kernel than its
     launches; busy time, idle share and the attribution are then None, as
     they are for a trace with no device event at all (a CPU run) and for
@@ -185,6 +309,7 @@ def analyze(events: Sequence[Event], launched: Mapping[str, int],
         "busy_ms": None,
         "idle_share": None,
         "kernels_ms": None,
+        "categories_ms": None,
         "not_measured": None,
     }
     if not out["complete"]:
@@ -198,11 +323,14 @@ def analyze(events: Sequence[Event], launched: Mapping[str, int],
         out["not_measured"] = "busy exceeds wall"
         return out
     by: Dict[str, float] = {}
+    cats = dict.fromkeys(CATEGORIES, 0.0)
     for name, a, b in events:
         fam = _family(name)
         by[fam] = by.get(fam, 0.0) + (b - a) / 1e3
+        cats[categorize(name)] += (b - a) / 1e3
     out["busy_ms"] = busy
     out["kernels_ms"] = dict(sorted(by.items()))
+    out["categories_ms"] = cats
     if wall_ms:
         out["idle_share"] = 1.0 - busy / wall_ms
     return out

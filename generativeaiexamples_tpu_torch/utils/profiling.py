@@ -25,6 +25,11 @@ busy time, wall time and idle share, per-kernel time, and whether the
 trace holds every port kernel the wrappers launched over the window
 (``complete``; busy time and idle share are None when it does not).
 
+:class:`TraceWindow` is the same session around a block of a script's
+own (tools/profile_decode.py), ungated by ``ENABLE_PROFILING``: it keeps
+the window's device events beside their reading, and writes the Chrome
+trace only where asked.
+
 :func:`annotation_scope` returns ``torch.profiler.record_function`` so
 the engine labels its prefill-wave, chunk, decode-block and verify
 dispatches in the trace; when profiling is disabled it returns a no-op
@@ -38,7 +43,7 @@ import os
 import tempfile
 import threading
 import time
-from typing import Any, Callable, ContextManager, Dict, Optional, Tuple
+from typing import Any, Callable, ContextManager, Dict, List, Optional, Tuple
 
 from generativeaiexamples_tpu_torch.utils import device_trace
 
@@ -98,11 +103,12 @@ _ACTIVE: Optional["_Session"] = None  # guarded by _LOCK
 
 
 class _Session:
-    def __init__(self, profiler, log_dir: str):
-        self.log_dir = log_dir
+    def __init__(self, profiler, log_dir: Optional[str]):
+        self.log_dir = log_dir  # None: no Chrome trace written
         self.started = time.time()
         self.error: Optional[BaseException] = None
         self.body: Optional[Dict[str, Any]] = None
+        self.events: List[device_trace.Event] = []
         self._profiler = profiler
         self._launched: Dict[str, int] = {}
         self._t0 = 0.0
@@ -154,11 +160,13 @@ class _Session:
                         for k, n in device_trace.kernel_counts().items()}
             wall_ms = (time.perf_counter() - self._t0) * 1e3
             prof.stop()
-            events = device_trace.profile_events(prof)
-            path = os.path.join(self.log_dir,
-                                f"trace-{int(self.started * 1000)}-{os.getpid()}.json")
-            prof.export_chrome_trace(path)
-            self.body = {"trace": path, **device_trace.analyze(events, launched, wall_ms)}
+            self.events = device_trace.profile_events(prof)
+            path = None
+            if self.log_dir is not None:
+                path = os.path.join(self.log_dir,
+                                    f"trace-{int(self.started * 1000)}-{os.getpid()}.json")
+                prof.export_chrome_trace(path)
+            self.body = {"trace": path, **device_trace.analyze(self.events, launched, wall_ms)}
         except Exception as exc:  # noqa: BLE001 - reported to stop()
             self.error = exc
         finally:
@@ -218,6 +226,43 @@ def stop_profile() -> Tuple[int, Dict[str, Any]]:
 def capture_active() -> bool:
     with _LOCK:
         return _ACTIVE is not None
+
+
+class TraceWindow:
+    """One capture around a block: ``with TraceWindow() as win: ...``,
+    then ``win.result`` (the :func:`device_trace.analyze` reading, with
+    ``trace``: the Chrome trace's path or None) and ``win.events`` (the
+    window's device events). ``log_dir`` writes the Chrome trace there.
+    Holds the process's one capture slot: raises where an HTTP capture is
+    running."""
+
+    def __init__(self, log_dir: Optional[str] = None):
+        self.log_dir = log_dir
+        self.result: Optional[Dict[str, Any]] = None
+        self.events: List[device_trace.Event] = []
+
+    def __enter__(self):
+        global _ACTIVE
+        profiler = _profiler()
+        if profiler is None:
+            raise RuntimeError("torch profiler unavailable in this environment")
+        if self.log_dir is not None:
+            os.makedirs(self.log_dir, exist_ok=True)
+        with _LOCK:
+            if _ACTIVE is not None:
+                raise RuntimeError("a profile capture is already running")
+            self._session = _Session(profiler, self.log_dir)
+            self._session.start()
+            _ACTIVE = self._session
+        return self
+
+    def __exit__(self, *exc):
+        global _ACTIVE
+        with _LOCK:
+            _ACTIVE = None
+        self.result = self._session.stop()
+        self.events = self._session.events
+        return False
 
 
 # --------------------------------------------------------------------------- #

@@ -545,21 +545,27 @@ def test_config_reads_the_jax_environment_names():
 
 
 @pytest.mark.parametrize("env,item", [
-    ({"APP_RETRIEVER_NRURL": "http://nr:8000"}, "no external retriever service"),
-    ({"APP_TEXTSPLITTER_MODELNAME": "bert-base"}, "counts whitespace words"),
-    # a file that APP_CONFIG_FILE names is read now: an unserved value set
-    # there is refused as the same value from the environment is
-    pytest.param({"APP_CONFIG_FILE": {"retriever": {"nrUrl": "http://nr:8000"}}},
-                 "APP_RETRIEVER_NRURL=http://nr:8000: no external retriever service",
-                 id="env4-APP_CONFIG_FILE"),
+    ({"APP_RETRIEVER_NRURL": "nr:8000"}, "retriever.nr_url must carry a scheme"),
+    ({"APP_TEXTSPLITTER_MODELNAME": " "}, "text_splitter.model_name must not be empty"),
+    # a file that APP_CONFIG_FILE names is read and checked as the
+    # environment is
+    pytest.param({"APP_CONFIG_FILE": {"retriever": {"nrUrl": "retrieval-ms:8000"}}},
+                 "retriever.nr_url must carry a scheme", id="env4-APP_CONFIG_FILE"),
 ])
 def test_config_refuses_what_the_port_does_not_serve(env, item, tmp_path):
+    """The fields the port reads, checks as JAX does and then ignores
+    (``IGNORED``): a value JAX's startup check refuses is refused with
+    JAX's message; one it accepts starts (ROADMAP queue 3 fault 4)."""
+    from generativeaiexamples_tpu_torch import config_validate
+
     if isinstance(env.get("APP_CONFIG_FILE"), dict):
         path = tmp_path / "app.json"
         path.write_text(json.dumps(env["APP_CONFIG_FILE"]))
         env = dict(env, APP_CONFIG_FILE=str(path))
     with pytest.raises(ValueError, match=item):
-        tconfig.load_config(env)
+        config_validate.validate_config(tconfig.load_config(env))
+    config_validate.validate_config(tconfig.load_config(
+        {"APP_RETRIEVER_NRURL": "http://nr:8000", "APP_TEXTSPLITTER_MODELNAME": "bert-base"}))
 
 
 @pytest.mark.parametrize("env", ["APP_EMBEDDINGS_CHECKPOINTPATH", "APP_RANKING_CHECKPOINTPATH"])

@@ -151,8 +151,6 @@ def test_yaml_booleans_and_numbers_coerce_as_in_jax(env, tmp_path):
     ("engine", "tensor_parallelism", 0),
     ("engine", "pipeline_parallelism", 2),
     ("engine", "paged_kernel", "off"),
-    ("retriever", "nr_url", "http://nr:8000"),
-    ("text_splitter", "model_name", "bert-base"),
 ])
 def test_an_unserved_value_in_a_file_is_refused_as_from_the_environment(env, tmp_path, section,
                                                                          field, value):
@@ -171,6 +169,38 @@ def test_an_unserved_value_in_a_file_is_refused_as_from_the_environment(env, tmp
     with pytest.raises(ValueError) as got:
         tconfig.get_config()
     assert str(got.value) == str(from_file.value)
+
+
+@pytest.mark.parametrize("section,field,value,message", [
+    ("retriever", "nr_url", "http://nr:8000", None),
+    ("text_splitter", "model_name", "bert-base", None),
+    ("retriever", "nr_url", "nr:8000",
+     "retriever.nr_url must carry a scheme (http://host:port), got 'nr:8000'"),
+    ("text_splitter", "model_name", "  ", "text_splitter.model_name must not be empty"),
+])
+def test_a_checked_and_ignored_field_in_a_file_is_jax_s(env, tmp_path, section, field, value,
+                                                         message):
+    """``retriever.nr_url`` and ``text_splitter.model_name``: a file's value
+    is read as the environment's and JAX's, and the startup check accepts
+    or refuses it as JAX's does, with JAX's message."""
+    from generativeaiexamples_tpu.config import validate as jvalidate
+    from generativeaiexamples_tpu_torch import config_validate
+
+    camel = config_wizard.to_camel_case
+    path = _write(tmp_path, {camel(section): {camel(field): value}}, "json")
+    tcfg, jcfg = tconfig.AppConfig.from_file(path), jconfig.AppConfig.from_file(path)
+    assert getattr(getattr(tcfg, section), field) == getattr(getattr(jcfg, section), field) == value
+    env.setenv(config_wizard.env_name(section, field), value)
+    assert getattr(getattr(tconfig.AppConfig.from_env(), section), field) == value
+    outcomes = []
+    for validate, cfg in ((jvalidate.validate_config, jcfg),
+                          (config_validate.validate_config, tcfg)):
+        try:
+            validate(cfg)
+            outcomes.append(None)
+        except ValueError as exc:
+            outcomes.append(str(exc))
+    assert outcomes == [message, message]
 
 
 @pytest.mark.parametrize("section,field,value", [

@@ -1,12 +1,15 @@
-"""Mesh resolution, the tensor-parallel config and the paths refused under
+"""Mesh resolution, the tensor-parallel config and the paths served under
 more than one shard: ``create_mesh`` resolves and refuses as the JAX
 package's does (``-1`` takes every device, more shards than devices
 raise), ``APP_ENGINE_TENSORPARALLELISM`` is served, heads that do not
 divide raise, the automatic pipeline choice of JAX's
-``_resolve_parallelism`` raises naming its ROADMAP item, and each engine
-path this slice does not carry across shards raises naming ROADMAP queue
-1 item 9e."""
+``_resolve_parallelism`` raises naming its ROADMAP item, a default
+engine takes every visible device, and spec decoding, the resident
+draft, ``disagg``, drain, restore, the drain routes and the retrieval
+tier serve on a sharded engine."""
 import dataclasses
+import json
+import time
 
 import jax
 import pytest
@@ -99,66 +102,107 @@ def test_an_explicit_mesh_names_the_engine_device():
 def test_the_automatic_pipeline_choice_raises_naming_item_9b(monkeypatch):
     """Where ``num_kv_heads`` caps TP below the device count and the capped
     mesh cannot hold the model, the JAX engine picks pipeline parallelism
-    itself; the port raises. With room enough JAX keeps ``-1`` and the
-    port serves one card (``-1`` is one card until item 9e)."""
+    itself; the port raises. With room enough JAX keeps ``-1``, every
+    device, and so does the port."""
     cfg = EngineConfig(**dict(SMALL, model_config_name="llama3-70b-tiny"))
     model_cfg = llama.PRESETS["llama3-70b-tiny"]
     devices = [torch.device("cpu")] * 16
     assert llm_engine._max_tp(model_cfg, 16) == 8 and llm_engine._pp_supported(model_cfg, 2, 8)
     resolve = LLMEngine._resolve_parallelism
-    assert resolve(None, cfg, model_cfg, devices) == 1
+    assert resolve(None, cfg, model_cfg, devices) == 16
     monkeypatch.setattr(llm_engine, "device_memory_bytes", lambda dev: 1.0)
     with pytest.raises(ValueError, match="pipeline_parallelism=2: .*queue 1 item 9b"):
         resolve(None, cfg, model_cfg, devices)
     assert resolve(None, dataclasses.replace(cfg, tensor_parallelism=8), model_cfg, devices) == 8
 
 
+_DRAFT = dict(spec_decode_enable="on", spec_proposer="draft_model")
+
+
 @pytest.mark.parametrize("field,value,what", [
     ("spec_decode_enable", "on", "speculative decoding's verify"),
-    ("spec_draft_model", "debug-draft", "the resident draft model"),
+    ("spec_draft_model", "debug-8dev", "the resident draft model"),
     ("scheduler_policy", "disagg", "the disagg KV handoff"),
 ])
-def test_paths_not_carried_across_shards_raise_at_startup(field, value, what):
-    cfg = EngineConfig(**dict(SMALL, kv_layout="paged", **{field: value}))
-    with pytest.raises(ValueError, match=f"{what}.* is not served under tensor_parallelism > 1 "
-                                         r"yet \(ROADMAP queue 1 item 9e\)"):
-        LLMEngine(cfg, mesh=_mesh(2))
-    LLMEngine(cfg, device="cpu").shutdown()  # one shard serves it
+def test_paths_carried_across_shards_serve_at_startup(field, value, what):
+    """Each path once refused at startup on a sharded engine builds at
+    TP=2 and serves a greedy stream equal to the one-shard engine's (the
+    draft model drafting as the spec proposer, on its shards)."""
+    extra = _DRAFT if field == "spec_draft_model" else {}
+    cfg = EngineConfig(**dict(SMALL, kv_layout="paged", **{field: value}, **extra))
+    prompt, params = [5, 9, 13, 200] * 4, llm_engine.SamplingParams(temperature=0.0, max_tokens=8)
+    streams = []
+    for kw in (dict(mesh=_mesh(2)), dict(device="cpu")):
+        eng = LLMEngine(cfg, **kw)
+        try:
+            if field == "spec_draft_model":
+                assert eng._draft.shards == eng.tp_shards, what
+            if field == "scheduler_policy":
+                assert eng.scheduler.kind == "disagg", what
+            streams.append(list(eng.iter_ids(prompt, params, timeout=120)))
+        finally:
+            eng.shutdown()
+    assert streams[0] == streams[1], what
 
 
-def test_drain_restore_and_spec_switches_raise_under_tp():
-    eng = LLMEngine(EngineConfig(**dict(SMALL, kv_layout="paged")), mesh=_mesh(2))
+def test_drain_restore_and_spec_switches_serve_under_tp(tmp_path):
+    """On a TP=2 engine the spec switches take effect, a drain returns its
+    summary and the spooled document restores on the same engine."""
+    from generativeaiexamples_tpu_torch.engine import request_snapshot as rs
+    from generativeaiexamples_tpu_torch.utils import faults
+
+    eng = LLMEngine(EngineConfig(**dict(SMALL, kv_layout="paged",
+                                        snapshot_spool_dir=str(tmp_path))), mesh=_mesh(2))
     try:
-        for call, what in ((eng.drain, "drain's KV snapshots"),
-                           (lambda: eng.restore_snapshot(None), "snapshot restore"),
-                           (lambda: eng.set_spec_decode(True), "speculative decoding"),
-                           (lambda: eng.set_spec_proposer("lookup"), "speculative decoding")):
-            with pytest.raises(ValueError, match=f"{what} .*queue 1 item 9e"):
-                call()
+        assert eng.set_spec_decode(True) is True
+        assert eng.set_spec_proposer("lookup") == "lookup"
         assert eng.set_spec_decode(False) is False
+        faults.configure("engine.dispatch", "delay", at=1, count=0, value=0.05)
+        try:
+            req = eng.submit([5, 9, 13, 200] * 4,
+                             llm_engine.SamplingParams(temperature=0.0, max_tokens=16))
+            while not req.generated:
+                time.sleep(0.005)
+            summary = eng.drain()
+        finally:
+            faults.reset()
+        assert summary["spooled"] == 1
+        eng.resume_from_drain()
+        snap = rs.RequestSnapshot.from_doc(eng.snapshot_spool.load_doc(req.error.snapshot_id))
+        assert snap.geometry["num_kv_heads"] == llama.PRESETS["debug-8dev"].num_kv_heads
+        new, _, prior, mode = eng.restore_snapshot(snap)
+        assert mode == "restore" and prior
+        while new.out_queue.get(timeout=60) is not None:
+            pass
+        assert new.error is None and new.generated == 16
     finally:
         eng.shutdown()
 
 
-def test_the_retrieval_tier_refuses_a_sharded_process_engine(monkeypatch):
-    """One check on the configuration: a server's start refuses the tier
-    beside ``tensor_parallelism`` > 1, and so does the process engine's
-    factory before it builds anything; the default ``-1`` (one card)
-    serves beside the tier."""
+def test_the_retrieval_tier_serves_beside_a_sharded_process_engine(monkeypatch):
+    """The configuration check is gone: a server's start accepts the tier
+    beside ``tensor_parallelism`` > 1, and the process engine's factory
+    builds the sharded engine (two visible devices, the CPU twice), whose
+    scheduler answers the tier's retrieval window."""
     for key in ("APP_CONFIG_FILE", "APP_ENGINE_TENSORPARALLELISM", "APP_RETRIEVER_BACKEND"):
         monkeypatch.delenv(key, raising=False)
     app = tconfig.AppConfig()
     app.retriever.backend = "tier"
-    config_validate.check_tier_shards(app)
     app.engine.tensor_parallelism = 2
-    with pytest.raises(ValueError, match=r"retriever.backend=tier .*queue 1 item 9e"):
-        config_validate.validate_config(app)
-    monkeypatch.setenv("APP_ENGINE_TENSORPARALLELISM", "2")
-    monkeypatch.setenv("APP_RETRIEVER_BACKEND", "tier")
+    config_validate.validate_config(app)
+    _two_visible_cpus(monkeypatch)
+    for key, value in {"APP_ENGINE_TENSORPARALLELISM": "2", "APP_RETRIEVER_BACKEND": "tier",
+                       "APP_ENGINE_MODELCONFIGNAME": "debug-8dev", "APP_ENGINE_DTYPE": "float32",
+                       "APP_ENGINE_MAXSEQLEN": "64", "APP_ENGINE_PREFILLCHUNK": "16",
+                       "APP_ENGINE_PAGESIZE": "8", "APP_ENGINE_MAXBATCHSIZE": "2"}.items():
+        monkeypatch.setenv(key, value)
     monkeypatch.setattr(llm_engine, "_ENGINE", None)
-    with pytest.raises(ValueError, match=r"retriever.backend=tier .*queue 1 item 9e"):
-        llm_engine.get_engine(device="cpu")
-    assert llm_engine._ENGINE is None
+    eng = llm_engine.get_engine()
+    try:
+        assert eng.tp_shards == 2 and llm_engine._ENGINE is eng
+        assert eng.scheduler.retrieval_window(1.0) is True
+    finally:
+        eng.shutdown()
 
 
 def _two_visible_cpus(monkeypatch):
@@ -168,10 +212,10 @@ def _two_visible_cpus(monkeypatch):
     monkeypatch.setattr(llm_engine, "resolve_device", lambda device=None, what="": torch.device("cpu"))
 
 
-def test_a_default_engine_on_two_visible_devices_serves_one_and_drains(monkeypatch):
-    """``tensor_parallelism=-1``, the default, serves one card however many
-    are visible, so a default replica's drain and handover work as before
-    the port served TP; an explicit 2 shards over both."""
+def test_a_default_engine_on_two_visible_devices_takes_both_and_drains(monkeypatch):
+    """``tensor_parallelism=-1``, the default, takes every visible device,
+    as JAX's does, and a default replica's drain works on its shards; an
+    explicit 1 serves one."""
     from generativeaiexamples_tpu_torch.server import api
 
     _two_visible_cpus(monkeypatch)
@@ -179,28 +223,44 @@ def test_a_default_engine_on_two_visible_devices_serves_one_and_drains(monkeypat
     assert cfg.tensor_parallelism == -1
     eng = LLMEngine(cfg)
     try:
-        assert eng.tp_shards == 1 and eng._tp is None
+        assert eng.tp_shards == 2 and eng._tp is not None
+        assert eng._mesh.devices == [torch.device("cpu")] * 2
         status, summary = api.drain_route(b"", eng)
         assert status == 200 and "preempted" in summary
         assert api.drain_route(b'{"resume": true}', eng) == (200, {"draining": False})
     finally:
         eng.shutdown()
-    eng = LLMEngine(dataclasses.replace(cfg, tensor_parallelism=2))
+    eng = LLMEngine(dataclasses.replace(cfg, tensor_parallelism=1))
     try:
-        assert eng.tp_shards == 2 and eng._mesh.devices == [torch.device("cpu")] * 2
+        assert eng.tp_shards == 1 and eng._tp is None
     finally:
         eng.shutdown()
 
 
-def test_the_drain_routes_answer_501_on_a_sharded_engine():
-    """Drain and restore on a sharded engine answer 501 naming item 9e,
-    never a dropped connection."""
+def test_the_drain_routes_answer_200_on_a_sharded_engine(tmp_path):
+    """Drain and restore on a sharded engine answer as on one shard: the
+    drain's summary, and the restore's 200 with its stream."""
     from generativeaiexamples_tpu_torch.server import api
+    from generativeaiexamples_tpu_torch.utils import faults
 
-    eng = LLMEngine(EngineConfig(**dict(SMALL, kv_layout="paged")), mesh=_mesh(2))
+    eng = LLMEngine(EngineConfig(**dict(SMALL, kv_layout="paged",
+                                        snapshot_spool_dir=str(tmp_path))), mesh=_mesh(2))
     try:
-        status, body = api.drain_route(b"", eng)
-        assert status == 501 and "queue 1 item 9e" in body["detail"]
-        assert not eng._draining
+        faults.configure("engine.dispatch", "delay", at=1, count=0, value=0.05)
+        try:
+            req = eng.submit([7, 8, 9] * 5,
+                             llm_engine.SamplingParams(temperature=0.0, max_tokens=16))
+            while not req.generated:
+                time.sleep(0.005)
+            status, body = api.drain_route(b"", eng)
+        finally:
+            faults.reset()
+        assert status == 200 and body["spooled"] == 1 and eng._draining
+        assert api.drain_route(b'{"resume": true}', eng) == (200, {"draining": False})
+        doc = eng.snapshot_spool.load_doc(body["snapshots"][0])
+        status, headers, frames = api.restore_route(json.dumps(doc).encode(), eng)
+        assert status == 200 and "mode=restore" in str(headers)
+        out = b"".join(f if isinstance(f, bytes) else f.encode() for f in frames)
+        assert b"[DONE]" in out
     finally:
         eng.shutdown()
