@@ -307,8 +307,9 @@ Phases (each one's failure makes the script exit non-zero):
    deployment (the ``faiss`` store under a temporary ``persistDir``, the
    hybrid pipeline, ``topK`` 2) named by ``APP_CONFIG_FILE``, with
    ``APP_RETRIEVER_TOPK=3`` on top: ``get_config()`` holds the file's
-   values and ``topK`` 3; ``engine.pipelineParallelism`` 2 from a file is
-   refused with the message the same value from the environment gets.
+   values and ``topK`` 3; ``engine.chunkedPrefill`` off from a file is
+   refused with the message the same value from the environment gets,
+   and ``engine.pipelineParallelism`` 2 from a file is read as 2.
    (b) The sentences of phase 7's documents embedded on the card go into
    ``faiss`` (flat), ``ivf`` and the in-process ``tpu`` store: for 32
    queries flat gives the exact store's top 4 (scores within 1e-5, equal
@@ -422,19 +423,60 @@ Phases (each one's failure makes the script exit non-zero):
    it decodes: 8 concurrent queries (hash embeddings of phase 7's corpus
    in the in-process store on the card) equal to the synchronous path's
    within ``SEARCH_SCORE_TOL``, tie runs as sets. (e) The port's
-   ``profile_decode`` on recipe A at full depth, B = 8, TP=1 then TP=2
-   (``ENABLE_PROFILING`` set for the engine's build, so the TP reduce's
+   ``profile_decode`` on recipe A at full depth, B = 8, TP=1 then TP=2,
+   each in a child process of this script (``--tpx-profile-shards N``: a
+   fresh profiler state) (``ENABLE_PROFILING`` set for the engine's build, so the TP reduce's
    kernels carry their label): 1 s of steady decode and one 512-id
    prefill (the 512 bucket), each trace complete (up to 3 captures), its
    kernels, JAX's categories and top ops printed; ``collective`` is
    non-zero at TP=2 only. The launches of every engine count. It prints
    the phase wall and each part's (a budget of 120 s).
 
-With no arguments it runs every phase, as above; ``--phases``,
+19. pp: pipeline-parallel serving (``parallel/pp_serving.py``) and the ANN
+   shard merge, every stage and shard on this card (``create_mesh(tp,
+   stages, devices=[cuda:0] * (stages * tp))``), random int8 packs at seed
+   0 drawn once as a single-device tree, which each engine lays out per
+   stage (``max_seq_len`` 2048, the fixed layout, 8 slots). Each leg
+   builds its reference engine and then each PP engine on the same tree,
+   one after another, each freed before the next; a PP engine's model
+   functions on a 512-id prompt (a prefill and 8 decode steps fed the
+   reference's greedy tokens) equal the reference's bit for bit where each
+   stage has the reference's shard count, and stay within phase 16's limit
+   of recipe D (``PP_TP_LOGITS_LIMIT``) where it has not (PP=2 x TP=2
+   against TP=1), greedy parts only at a tie; its served streams
+   equal the reference's but at ties (``_tie_checked``); its serving
+   launches the leg's kernels on every stage and no ``paged_attention``,
+   with the counts set to 0 just before it serves and read just after;
+   the dispatch thread makes no synchronizing call. (a) llama3-8b at full
+   width and depth, int8 weights over int8 strips: TP=1, then PP=2 (16
+   layers a stage), then PP=2 x TP=2; 8 concurrent greedy prompts of
+   100-1,200 ids x 32 tokens (one monolithic wave each: the PP path has
+   no chunked prefill, as in JAX) and, on PP=2, 3 chat completions behind
+   the OpenAI-compatible engine server equal to TP=1's. (b) w8a8 over
+   int8 strips and (c) int8 weights over bf16 strips at PP=2, at full
+   depth on (a)'s 8 prompts, against TP=1.
+   (d) llama3-70b's width at 4 of its 80 layers, PP=2 x TP=8 (16 shards)
+   against TP=8. (e) a bf16 checkpoint of 4 layers at llama3-8b width
+   (``write_hf_checkpoint``) streamed into PP=2 x TP=2
+   (``load_params_pp_streaming``): every tensor byte-equal to the layered
+   load's per-shard packs cut into the stages; seconds and
+   ``peak_host_bytes``. (f) ROADMAP item 9d: a 65,536 x 1024 store of
+   random unit rows, exact and IVF (nlist 64, nprobe 16), one shard
+   against two shards on the card: 8 queries at k 4 and 16, indices equal
+   but at ties and scores within 1e-5, the device time of a search on
+   each. It prints each engine's decode block wall against its
+   reference's, the launches and the phase wall (a budget of 100 s).
+
+ppcards (``--phases ppcards``, on 4 cards; not in the default run): phase
+   19's leg (a) with each stage and shard on a card of its own (PP=2 over
+   two cards, PP=2 x TP=2 over four), against TP=1 on the first.
+
+With no arguments it runs every phase above but ppcards; ``--phases``,
 ``--checks`` and ``--recipes`` run a part (for example ``--phases serve
 --recipes B``, ``--phases chains``, ``--phases filechains``, ``--phases
 drain``, ``--phases observe``, ``--phases route``, ``--phases connect`` or
-``--phases kernels,tp --checks tp``, ``--phases train`` or ``--phases tpx``)
+``--phases kernels,tp --checks tp``, ``--phases train``, ``--phases tpx`` or
+``--phases pp``)
 and then print only the kernels that part measured; ``--runahead N`` serves every engine at ``decode_runahead`` N, and
 ``--timing-only`` leaves out the runahead and overload checks (for timed
 runs of an older tree, which lacks them).
@@ -6096,24 +6138,27 @@ def _connect_config(tmp) -> tuple:
             "hybrid", "tpu", 48)
     if got != want:
         raise AssertionError(f"connect (a): get_config() gave {got}, not {want}")
-    bad = _write_json(os.path.join(tmp, "pp2.json"), {"engine": {"pipelineParallelism": 2}})
+    bad = _write_json(os.path.join(tmp, "chunked.json"), {"engine": {"chunkedPrefill": "off"}})
     messages = []
     for source in ("file", "env"):
         try:
             if source == "file":
                 config_mod.AppConfig.from_file(bad)
             else:
-                config_mod.AppConfig.from_env({"APP_ENGINE_PIPELINEPARALLELISM": "2"})
+                config_mod.AppConfig.from_env({"APP_ENGINE_CHUNKEDPREFILL": "off"})
         except ValueError as exc:
             messages.append(str(exc))
         else:
-            raise AssertionError(f"connect (a): pipelineParallelism 2 from the {source} was accepted")
+            raise AssertionError(f"connect (a): chunkedPrefill off from the {source} was accepted")
     if messages[0] != messages[1]:
         raise AssertionError(f"connect (a): the file's refusal {messages[0]!r} is not the "
                              f"environment's {messages[1]!r}")
+    pp2 = _write_json(os.path.join(tmp, "pp2.json"), {"engine": {"pipelineParallelism": 2}})
+    if config_mod.AppConfig.from_file(pp2).engine.pipeline_parallelism != 2:
+        raise AssertionError("connect (a): pipelineParallelism 2 from a file was not read")
     log(f"  (a) get_config() from APP_CONFIG_FILE with APP_RETRIEVER_TOPK=3 on top: {want}; "
-        f"engine.pipelineParallelism 2 from a file and from the environment both refused with "
-        f"{messages[0]!r}")
+        f"engine.chunkedPrefill off from a file and from the environment both refused with "
+        f"{messages[0]!r}; engine.pipelineParallelism 2 from a file read as 2")
     return cfg, path
 
 
@@ -7314,6 +7359,7 @@ TPX_PROFILE_PROMPT = 128
 TPX_PROFILE_SECONDS = 1.0  # JAX's default window: 2-3 decode blocks of 8 steps at B = 8
 TPX_PREFILL_IDS = 512  # one 512-bucket prefill (prefill_chunk 512)
 TPX_PROFILE_TRIES = 3  # CUPTI can drop a session's events: capture again
+TPX_PROFILE_CHILD_S = 600  # the time limit of (e)'s process for one shard count
 TPX_BUDGET_S = 120.0
 
 
@@ -7638,7 +7684,39 @@ def _tpx_tier(dev, cfg, params, rng, out, seed) -> None:
         f"equal to the synchronous path's within {SEARCH_SCORE_TOL} (tie runs as sets)")
 
 
-def _tpx_profile(dev, params, shards, out, launches) -> None:
+def _tpx_profile(seed, shards, out, launches) -> None:
+    """(e) on ``shards`` shards, in a child process of this script
+    (``--tpx-profile-shards``): a profiler session there starts from a
+    fresh CUPTI state, where after this process's earlier sessions whole
+    captures came back without their kernels. Its log lines are relayed,
+    its launches counted here; a child that fails fails the phase."""
+    cmd = [sys.executable, os.path.abspath(__file__), "--tpx-profile-shards", str(shards),
+           "--seed", str(seed)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=TPX_PROFILE_CHILD_S)
+    lines = proc.stdout.splitlines()
+    for line in lines[:-1]:
+        log(line)
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"tpx (e) TP={shards}: the profile process exited "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    got = json.loads(lines[-1])
+    out[f"TP{shards}"] = got["profile"]
+    launches.update(got["launches"])
+
+
+def tpx_profile_child(dev, seed, shards) -> dict:
+    """The child's side of :func:`_tpx_profile`: recipe A's weights from
+    ``seed``, :func:`_tpx_profile_here`, and its reading and launches."""
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.ops import quant
+
+    params = quant.init_packed_params_int8(llama.PRESETS[MODEL], seed, torch.bfloat16, dev)
+    out, launches = {}, collections.Counter()
+    _tpx_profile_here(dev, params, shards, out, launches)
+    return {"profile": out[f"TP{shards}"], "launches": dict(launches)}
+
+
+def _tpx_profile_here(dev, params, shards, out, launches) -> None:
     """(e) the port's profile_decode on recipe A at full depth, B = 8:
     steady decode and one 512-bucket prefill, each window complete (up to
     TPX_PROFILE_TRIES captures), split by JAX's categories."""
@@ -7669,8 +7747,11 @@ def _tpx_profile(dev, params, shards, out, launches) -> None:
                 _settle(engine)
                 if rep["complete"] and rep["busy_ms"] is not None:
                     break
+                seen = {k: rep.get(k) for k in ("kernels_in_trace", "kernels_launched",
+                                                 "device_events", "wall_ms")}
                 log(f"    tpx (e) TP={shards} {window}: capture {attempt} not measured "
-                    f"({rep['not_measured']}); again")
+                    f"({rep['not_measured']}: {seen}, {threading.active_count()} threads); "
+                    f"again")
             else:
                 raise AssertionError(f"tpx (e) TP={shards} {window}: no complete trace in "
                                      f"{TPX_PROFILE_TRIES} captures")
@@ -7738,14 +7819,15 @@ def phase_tpx(dev, smi, seed=0) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         t_d = time.time()
-        # (e) the decode profiler at full depth, TP=1 then TP=2
+        del params, params8
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (e) the decode profiler at full depth, TP=1 then TP=2, each in a
+        # process of its own
         for shards in (1, TPX_SHARDS):
-            _tpx_profile(dev, params, shards, out["profile"], launches)
-            gc.collect()
-            torch.cuda.empty_cache()
+            _tpx_profile(seed, shards, out["profile"], launches)
     finally:
         shutil.rmtree(spool, ignore_errors=True)
-        del params, params8
         gc.collect()
         torch.cuda.empty_cache()
     out["launches"] = dict(launches)
@@ -7760,12 +7842,418 @@ def phase_tpx(dev, smi, seed=0) -> dict:
     return out
 
 
+# --------------------------------------------------------------------- #
+# Phase 19: pipeline-parallel serving and the ANN shard merge
+
+PP_MAX_SEQ = 2048
+PP_PREFILL_IDS = 512  # the model functions' prefill, then PP_DECODE_STEPS steps
+PP_DECODE_STEPS = 8
+PP_TOKENS = 32  # each served stream, greedy
+PP_LAYERS_70B = 4  # (d): 2 a stage
+PP_CKPT_LAYERS = 4  # (e)
+PP_SEARCH_ROWS = 65536  # (f): phase 6's store
+PP_SEARCH_DIM = 1024
+PP_SEARCH_SHARDS = 2
+PP_SEARCH_QUERIES = 8
+PP_SEARCH_TOL = 1e-5
+PP_BUDGET_S = 100.0
+# the largest |logits difference| between a PP engine's model functions and
+# its reference's, teacher-forced along the reference's greedy tokens. The
+# walk adds no rounding of its own: where each stage has the reference's
+# shard count it is the reference's function bit for bit and is held to 0;
+# PP=2 x TP=2 against TP=1 keeps phase 16's limit of recipe D
+PP_TP_LOGITS_LIMIT = TP_LOGITS_LIMITS["8b D"]
+_PP_PAGED = tuple(name for name in KERNELS if name.startswith("paged_attention"))
+
+
+def _pp_model_run(engine, prompt, forced=None) -> tuple:
+    """The engine's model functions on one prompt of its own cache: the
+    prefill's logits, then PP_DECODE_STEPS decode steps fed ``forced`` (the
+    reference's tokens) or, without it, the run's own greedy tokens.
+    Returns (logits a step, the tokens fed)."""
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.parallel import pp_serving
+
+    cfg, dev = engine.model_config, engine.device
+    ids = torch.tensor([prompt], device=dev)
+    n = torch.tensor([len(prompt)], device=dev)
+    slot = torch.zeros(1, dtype=torch.long, device=dev)
+    with torch.inference_mode():
+        if engine._pp is not None:
+            cache = pp_serving.init_cache(cfg, engine._pp, 1, PP_MAX_SEQ, torch.bfloat16,
+                                          quantized=engine._kv_quant)
+            logits, _ = pp_serving.build_prefill(cfg, engine._pp)(engine.params, cache, ids, n,
+                                                                  slot)
+            decode = pp_serving.build_decode_step(cfg, engine._pp, kv_kernel=engine._kv_kernel)
+
+            def step(tok, pos):
+                return decode(engine.params, cache, tok, pos)[0]
+        else:
+            cache = llama.init_kv_cache_layers(cfg, 1, PP_MAX_SEQ, torch.bfloat16, dev,
+                                               quantized=engine._kv_quant, tp=engine._tp)
+            logits, kvs = llama.prefill_layers(engine.params, cfg, ids, n,
+                                               quant_kernel=engine._quant_kernel, tp=engine._tp)
+            llama.write_prefill_slots(cache, kvs, slot, tp=engine._tp)
+            del kvs
+
+            def step(tok, pos):
+                return llama.decode_layers(engine.params, cfg, tok, pos, cache,
+                                           quant_kernel=engine._quant_kernel,
+                                           kv_kernel=engine._kv_kernel, tp=engine._tp)[0]
+        out, fed = [logits[0].float()], []
+        for i in range(PP_DECODE_STEPS):
+            tok = forced[i] if forced is not None else int(
+                torch.argmax(out[-1][: engine._sample_vocab]))
+            fed.append(tok)
+            pos = torch.tensor([len(prompt) + i], device=dev)
+            out.append(step(torch.tensor([tok], device=dev), pos)[0].float())
+    return out, fed
+
+
+def _pp_logits_check(ref_logits, logits, vocab, label) -> tuple:
+    """(largest |difference| over the steps, steps whose greedy token
+    parts from the reference's at a tie): a part where the reference's
+    top-1 margin exceeds LOGITS_TOL fails."""
+    diff, ties = 0.0, 0
+    for i, (a, b) in enumerate(zip(ref_logits, logits)):
+        diff = max(diff, _max_err(a, b))
+        if int(torch.argmax(a[:vocab])) != int(torch.argmax(b[:vocab])):
+            top2 = torch.topk(a[:vocab], 2).values
+            margin = float(top2[0] - top2[1])
+            if margin > LOGITS_TOL:
+                raise AssertionError(f"pp {label}: step {i}'s greedy token parts from the "
+                                     f"reference's beyond a tie (margin {margin:.4g})")
+            ties += 1
+    return diff, ties
+
+
+def _pp_http(engine) -> list:
+    """The OpenAI-compatible engine server in process over ``engine``:
+    TP_SERVER_REQUESTS greedy chat completions; their texts."""
+    from generativeaiexamples_tpu_torch.engine.server import make_server
+
+    server = make_server("127.0.0.1", 0, engine=engine)
+    threading.Thread(target=server.serve_forever, name="smoke-http-pp", daemon=True).start()
+    try:
+        return _tp_answers(f"http://127.0.0.1:{server.server_address[1]}")
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
+def _pp_engine(cfg, params, dev, stages, tp, cards=False):
+    """An engine of ``stages`` x ``tp`` shards, every one on ``dev``, or
+    with ``cards`` each on a card of its own (cuda:0, cuda:1, ...)."""
+    from generativeaiexamples_tpu_torch.engine.llm_engine import LLMEngine
+    from generativeaiexamples_tpu_torch.parallel import create_mesh
+
+    if stages * tp == 1:
+        return LLMEngine(cfg, device=dev, params=params)
+    devices = ([torch.device("cuda", i) for i in range(stages * tp)] if cards
+               else [dev] * (stages * tp))
+    return LLMEngine(dataclasses.replace(cfg, tensor_parallelism=tp, pipeline_parallelism=stages),
+                     params=params, mesh=create_mesh(tp, stages, devices=devices))
+
+
+def pp_leg(dev, label, model, quantization, kv_dtype, params, ref_tp, layouts, prompts, probe,
+           expected, http=(), cards=False) -> tuple:
+    """One leg: a reference engine (one stage of ``ref_tp`` shards) and
+    then each (stages, tp) of ``layouts`` on the same single-device tree,
+    built one after another, every shard on ``dev`` (with ``cards``, each
+    PP engine's shards on cards of their own). Each PP engine's model
+    functions on ``probe`` (a prefill and PP_DECODE_STEPS steps fed the
+    reference's greedy tokens) equal the reference's bit for bit where each
+    stage has ``ref_tp`` shards, and stay within PP_TP_LOGITS_LIMIT of
+    them where it has not;
+    its served streams (``prompts`` as one wave x PP_TOKENS, greedy, and
+    for the layouts in ``http`` TP_SERVER_REQUESTS chat completions behind
+    the engine server) equal the reference's but at ties; its path
+    launches every kernel of ``expected`` and no paged_attention. Returns
+    (numbers, launches of the PP engines' serving)."""
+    base = EngineConfig(model_config_name=model, quantization=quantization, kv_cache_dtype=kv_dtype,
+                        kv_layout="fixed", max_seq_len=PP_MAX_SEQ, tensor_parallelism=ref_tp)
+    t0 = time.time()
+    ref = _pp_engine(base, params, dev, 1, ref_tp)
+    try:
+        ref_logits, forced = _pp_model_run(ref, probe)
+        want, wall_ref = _tp_streams(ref, prompts, PP_TOKENS)
+        want_http = _pp_http(ref) if http else None
+    finally:
+        ref.shutdown()
+    ref._cache = ref._prefix_store = None  # its weights stay for the tie checks
+    out = {"reference": f"TP={ref_tp}", "wall_block_ms_ref": wall_ref, "layouts": {}}
+    launches = collections.Counter()
+    try:
+        for stages, tp in layouts:
+            name = f"PP={stages}xTP={tp}"
+            limit = 0.0 if tp == ref_tp else PP_TP_LOGITS_LIMIT
+            t1 = time.time()
+            engine = _pp_engine(base, params, dev, stages, tp, cards)
+            try:
+                if engine._pp is None or (engine._pp.stages, engine.tp_shards) != (stages, tp):
+                    raise AssertionError(f"pp {label}: {name} is not the engine asked for")
+                logits, _ = _pp_model_run(engine, probe, forced)
+                reset_counts()
+                with SyncCounter() as syncs:
+                    got, wall = _tp_streams(engine, prompts, PP_TOKENS)
+                    got_http = _pp_http(engine) if (stages, tp) in http else None
+                launched = counts()
+            finally:
+                engine.shutdown()
+                _free_engine(engine)
+            diff, step_ties = _pp_logits_check(ref_logits, logits, ref._sample_vocab, f"{label} {name}")
+            ties = sum(_tie_checked(ref, f"pp {label} {name} prompt {i}", p, g, w)
+                       for i, (p, g, w) in enumerate(zip(prompts, got, want)))
+            if got_http is not None and got_http != want_http:
+                raise AssertionError(f"pp {label} {name}: the server answered {got_http!r}, the "
+                                     f"reference {want_http!r}")
+            if not diff <= limit:
+                raise AssertionError(f"pp {label} {name}: the largest logits difference "
+                                     f"{diff:.4g} against TP={ref_tp} exceeds its limit {limit}")
+            missing = [k for k in expected if launched[k] == 0]
+            paged = {k: launched[k] for k in _PP_PAGED if launched[k]}
+            if missing or paged:
+                raise AssertionError(f"pp {label} {name}: kernels never launched {missing}, "
+                                     f"paged_attention launched {paged}")
+            if syncs.counts["torch-llm-engine"]:
+                raise AssertionError(f"pp {label} {name}: the dispatch thread waited for the card "
+                                     f"{syncs.counts['torch-llm-engine']} times")
+            launches.update(launched)
+            out["layouts"][name] = {"max_logits_diff": diff, "logits_ties": step_ties,
+                                    "stream_ties": ties, "wall_block_ms": wall,
+                                    "launches": dict(launched), "wall_s": time.time() - t1}
+            http_note = (f"; {TP_SERVER_REQUESTS} chat completions behind the engine server equal "
+                         f"the reference's" if got_http is not None else "")
+            log(f"  pp {label} {name}: {model} {quantization}/{kv_dtype} fixed; {PP_PREFILL_IDS}-id "
+                f"prefill + {PP_DECODE_STEPS} steps against TP={ref_tp}: largest logits difference "
+                f"{diff:.4g} (limit {limit}, {step_ties} greedy ties); {len(prompts)} greedy prompts "
+                f"of {min(map(len, prompts))}-{max(map(len, prompts))} ids x {PP_TOKENS} tokens "
+                f"equal TP={ref_tp}'s ({ties} parted at a tie){http_note}; decode block wall "
+                f"{wall:.2f} ms against {wall_ref:.2f} ms at TP={ref_tp} ({wall / wall_ref:.2f}x); "
+                f"launches {dict(launched)}; {time.time() - t1:.1f} s")
+    finally:
+        _free_engine(ref)
+    out["wall_s"] = time.time() - t0
+    return out, launches
+
+
+def _pp_checkpoint(dev, seed, tmp) -> dict:
+    """(e) a llama3-8b-width checkpoint of PP_CKPT_LAYERS layers streamed
+    into PP=2 x TP=2 on ``dev``: every pack and tensor byte-equal to the
+    layered load's (per-shard packs at TP=2) cut into the stages."""
+    from generativeaiexamples_tpu_torch.models import hf_loader, llama
+    from generativeaiexamples_tpu_torch.parallel import create_mesh, pp_serving
+
+    cfg = dataclasses.replace(llama.PRESETS[MODEL], num_layers=PP_CKPT_LAYERS)
+    path = os.path.join(tmp, "pp_ckpt")
+    t0 = time.time()
+    hf_loader.write_hf_checkpoint(cfg, path, seed=seed, n_shards=2, dtype=torch.bfloat16, device=dev)
+    t_write = time.time() - t0
+    ctx = pp_serving.PPContext(create_mesh(2, 2, devices=[dev] * 4), 2, 2)
+    stats = {}
+    try:
+        torch.cuda.synchronize(dev)
+        t1 = time.time()
+        got = hf_loader.load_params_pp_streaming(path, cfg, torch.bfloat16, quantization="int8",
+                                                 ctx=ctx, stats=stats)
+        torch.cuda.synchronize(dev)
+        seconds = time.time() - t1
+        want = pp_serving.stage_params(hf_loader.load_params_layered_streaming(
+            path, cfg, torch.bfloat16, quantization="int8", tp_shards=2, device=dev), ctx)
+        leaves = 0
+        for key in ("embed", "final_norm", "lm_head", "layers"):
+            a, b = got[key], want[key]
+            if not _same_tree(a, b):
+                raise AssertionError(f"pp (e): the streamed {key} is not the layered load's")
+            leaves += sum(1 for _ in _tree_leaves(a))
+        nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    del got, want
+    log(f"  pp (e): a {nbytes / 1e9:.2f} GB bf16 checkpoint of {PP_CKPT_LAYERS} layers at {MODEL} "
+        f"width (written in {t_write:.1f} s) streamed into PP=2 x TP=2 in {seconds:.2f} s, "
+        f"peak_host_bytes {stats['peak_host_bytes'] / 1e9:.3f} GB; {leaves} tensors byte-equal "
+        f"to the layered load's per-shard packs cut into the stages (warm page cache)")
+    return {"seconds": seconds, "peak_host_bytes": stats["peak_host_bytes"], "bytes": nbytes,
+            "tensors": leaves}
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tree_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tree_leaves(v)
+    else:
+        yield tree
+
+
+def _pp_search(dev, seed, timer, smi) -> dict:
+    """(f) item 9d: a PP_SEARCH_ROWS x PP_SEARCH_DIM store of random unit
+    rows, exact and IVF (nlist 64, nprobe 16), on one shard against
+    PP_SEARCH_SHARDS shards on ``dev``: PP_SEARCH_QUERIES queries at k 4
+    and 16, indices equal but at ties, scores within PP_SEARCH_TOL; the
+    device time of a search on each."""
+    from generativeaiexamples_tpu_torch.parallel import create_mesh
+    from generativeaiexamples_tpu_torch.retrieval.ann import ANNSearchEngine, k_rung
+
+    rng = np.random.default_rng(seed * 1000 + 19)
+    corpus = rng.standard_normal((PP_SEARCH_ROWS, PP_SEARCH_DIM)).astype(np.float32)
+    corpus /= np.linalg.norm(corpus, axis=1, keepdims=True)
+    queries = rng.standard_normal((PP_SEARCH_QUERIES, PP_SEARCH_DIM)).astype(np.float32)
+    queries /= np.linalg.norm(queries, axis=1, keepdims=True)
+    q_dev = torch.from_numpy(queries).to(dev)
+    out = {}
+    for mode in ("exact", "ivf"):
+        engines = {}
+        for shards in (1, PP_SEARCH_SHARDS):
+            kw = (dict(device=dev) if shards == 1
+                  else dict(mesh=create_mesh(shards, devices=[dev] * shards)))
+            eng = ANNSearchEngine(PP_SEARCH_DIM, mode=mode, nlist=64, nprobe=16, **kw)
+            eng.refresh(corpus, version=1)
+            if eng.describe()["shards"] != shards:
+                raise AssertionError(f"pp (f) {mode}: {eng.describe()['shards']} shards, not {shards}")
+            engines[shards] = eng
+        for k in (4, 16):
+            one_s, one_i = engines[1].search(queries, k)
+            two_s, two_i = engines[PP_SEARCH_SHARDS].search(queries, k)
+            _check_topk(two_s, two_i, one_s, one_i, PP_SEARCH_TOL, f"pp (f) {mode} k {k}")
+            ms = {}
+            for shards, eng in engines.items():
+                corp = eng._corpus
+                nprobe = min(16, corp.centroids.shape[0]) if mode == "ivf" else 0
+                kr = k_rung(k, corp.capacity)
+                with torch.inference_mode():
+                    ms[shards] = timer.ms(lambda: eng._topk(corp, q_dev, kr, nprobe))
+            out[f"{mode}_k{k}"] = {"ms_1_shard": ms[1], f"ms_{PP_SEARCH_SHARDS}_shards":
+                                   ms[PP_SEARCH_SHARDS],
+                                   "max_score_diff": float(np.abs(two_s - one_s).max())}
+            log(f"  pp (f) search[{mode}] {PP_SEARCH_QUERIES} queries k {k}: {PP_SEARCH_SHARDS} "
+                f"shards equal one (scores within {float(np.abs(two_s - one_s).max()):.3g}, limit "
+                f"{PP_SEARCH_TOL}); {ms[1]:.4f} ms on one shard, {ms[PP_SEARCH_SHARDS]:.4f} ms on "
+                f"{PP_SEARCH_SHARDS} (one card) on {smi}")
+        del engines
+    return out
+
+
+def phase_pp(dev, smi, seed=0, scratch=None) -> dict:
+    """Pipeline-parallel serving and the ANN shard merge (module docstring,
+    phase 19)."""
+    import random
+
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.ops import quant
+
+    t0 = time.time()
+    rng = random.Random(seed * 1000 + 19)
+    out = {"legs": {}}
+    launches = collections.Counter()
+    timer = Timer(dev)
+    probe = _tp_prompts(rng, [PP_PREFILL_IDS])[0]
+    params = quant.init_packed_params_int8(llama.PRESETS[MODEL], seed, torch.bfloat16, dev)
+    d_expected = ("int8_matmul", "flash_attention_causal", "decode_attention")
+    try:
+        # (a) recipe D at full depth: PP=2, then PP=2 x TP=2, against TP=1
+        prompts = _tp_prompts(rng, TP_LENGTHS_8B)
+        res, got = pp_leg(dev, "(a) D", MODEL, "int8", "int8", params, 1, ((2, 1), (2, 2)),
+                          prompts, probe, d_expected, http=((2, 1),))
+        out["legs"]["a_D"] = res
+        launches.update(got)
+        # (b) w8a8 over int8 strips and (c) int8 weights over bf16 strips, PP=2
+        # at full depth on (a)'s prompts
+        for leg, quantization, kv_dtype, expected in (
+                ("(b) w8a8", "w8a8", "int8",
+                 ("int8_w8a8_matmul", "flash_attention_causal", "decode_attention")),
+                ("(c) bf16 strips", "int8", "bfloat16", ("int8_matmul", "flash_attention_causal"))):
+            res, got = pp_leg(dev, leg, MODEL, quantization, kv_dtype, params, 1, ((2, 1),),
+                              prompts, probe, expected)
+            out["legs"][leg.split()[0].strip("()") + "_" + quantization + "_" + kv_dtype] = res
+            launches.update(got)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (d) llama3-70b's width, PP=2 x TP=8 (16 shards on the card) against TP=8
+        model70 = f"{TP_MODEL_70B}-{PP_LAYERS_70B}-layers"
+        llama.PRESETS[model70] = dataclasses.replace(llama.PRESETS[TP_MODEL_70B],
+                                                     num_layers=PP_LAYERS_70B)
+        params70 = quant.init_packed_params_int8(llama.PRESETS[model70], seed, torch.bfloat16, dev)
+        res, got = pp_leg(dev, "(d) 70b", model70, "int8", "int8", params70, TP_SHARDS_70B,
+                          ((2, TP_SHARDS_70B),), _tp_prompts(rng, TP_LENGTHS_70B), probe,
+                          d_expected)
+        out["legs"]["d_70b"] = res
+        launches.update(got)
+        del params70
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_d = time.time()
+        out["checkpoint"] = _pp_checkpoint(dev, seed, scratch or tempfile.gettempdir())
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_e = time.time()
+        out["search"] = _pp_search(dev, seed, timer, smi)
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = dict(launches)
+    out["wall_s"] = time.time() - t0
+    out["walls_s"] = {k: round(v["wall_s"], 1) for k, v in out["legs"].items()}
+    out["walls_s"].update(checkpoint=round(t_e - t_d, 1), search=round(time.time() - t_e, 1))
+    log(f"  pp launches in the phase's serving (every stage's shards): {dict(launches)}; walls "
+        f"{out['walls_s']}")
+    if out["wall_s"] > PP_BUDGET_S:
+        log(f"  pp: the phase took {out['wall_s']:.1f} s, over its {PP_BUDGET_S:.0f} s budget")
+    log(f"phase pp: ok ({out['wall_s']:.1f} s on {smi})")
+    return out
+
+
+PPCARDS_LAYOUTS = ((2, 1), (2, 2))
+
+
+def phase_ppcards(dev, smi, seed=0) -> dict:
+    """Phase 19's leg (a) with every stage and shard on a card of its own
+    (``--phases ppcards``, on 4 cards; not in the default run): llama3-8b
+    at full width and depth, int8 weights over int8 strips, TP=1 on the
+    first card against PP=2 over two cards and PP=2 x TP=2 over four. Each
+    stage's kernels launch on its own card (pp_serving's stage scope): the
+    PP=2 logits equal TP=1's bit for bit, PP=2 x TP=2's stay within
+    PP_TP_LOGITS_LIMIT, the streams equal TP=1's but at ties, and the
+    decode block walls are printed."""
+    import random
+
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.ops import quant
+
+    need = max(stages * tp for stages, tp in PPCARDS_LAYOUTS)
+    if torch.cuda.device_count() < need:
+        raise RuntimeError(f"ppcards: {need} cards wanted, {torch.cuda.device_count()} visible")
+    t0 = time.time()
+    rng = random.Random(seed * 1000 + 20)
+    probe = _tp_prompts(rng, [PP_PREFILL_IDS])[0]
+    params = quant.init_packed_params_int8(llama.PRESETS[MODEL], seed, torch.bfloat16, dev)
+    try:
+        res, launches = pp_leg(dev, "cards D", MODEL, "int8", "int8", params, 1, PPCARDS_LAYOUTS,
+                               _tp_prompts(rng, TP_LENGTHS_8B), probe,
+                               ("int8_matmul", "flash_attention_causal", "decode_attention"),
+                               cards=True)
+    finally:
+        del params
+        gc.collect()
+        for i in range(need):
+            with torch.cuda.device(i):
+                torch.cuda.empty_cache()
+    out = {"legs": {"a_D": res}, "launches": dict(launches), "wall_s": time.time() - t0}
+    log(f"phase ppcards: ok ({out['wall_s']:.1f} s on {need} x {smi})")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
                         default="kernels,model,serve,retrieval,rag,chains,filechains,drain,"
-                                "prefix,spec,observe,route,connect,tp,train,tpx",
-                        help="phases after the build, comma-separated (default: all)")
+                                "prefix,spec,observe,route,connect,tp,train,tpx,pp",
+                        help="phases after the build, comma-separated (default: all but "
+                             "ppcards, which wants 4 cards)")
     parser.add_argument("--checks", default=",".join(CHECKS),
                         help="phase 3's kernel checks, comma-separated (default: all)")
     parser.add_argument("--recipes", default="ABCD", help="phase 5's engines (default: ABCD)")
@@ -7775,12 +8263,19 @@ def main() -> int:
                         help="leave out phase 5's runahead and overload checks")
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of phase 6's weights and passages (default: 0)")
+    parser.add_argument("--tpx-profile-shards", type=int, default=None,
+                        help="run only phase 18 (e)'s profile on N shards and print its "
+                             "reading as JSON (phase 18 starts it as a process of its own)")
     args = parser.parse_args()
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs on the GPU only",
               file=sys.stderr)
         return 2
+    if args.tpx_profile_shards is not None:
+        result = tpx_profile_child(torch.device("cuda", 0), args.seed, args.tpx_profile_shards)
+        print(json.dumps(result), flush=True)
+        return 0
     # every server the phases build arms the black box (and phase 13 profiles
     # and exports spans): their files go under a directory of this run's own
     scratch = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -7828,6 +8323,8 @@ def _run(args, phases) -> int:
     tp = phase_tp(dev, info["smi"], args.seed) if "tp" in phases else {}
     train = phase_train(dev, info["smi"], args.seed, args.scratch) if "train" in phases else {}
     tpx = phase_tpx(dev, info["smi"], args.seed) if "tpx" in phases else {}
+    pp = phase_pp(dev, info["smi"], args.seed, args.scratch) if "pp" in phases else {}
+    ppcards = phase_ppcards(dev, info["smi"], args.seed) if "ppcards" in phases else {}
     kernels = []
     tiles = results.get("tp_tiles", {})
     for name, (replaces, source) in KERNELS.items():
@@ -7841,9 +8338,10 @@ def _run(args, phases) -> int:
             "launches": sum(sv["launches"][name] for sv in serves.values())
             + sum(ph.get("launches", {}).get(name, 0)
                   for ph in (rag, chains, files, drain, prefix, spec, observe, connect, tp,
-                             train, tpx)),
+                             train, tpx, pp, ppcards)),
             "tp_launches": tp.get("launches", {}).get(name, 0),
             "tpx_launches": tpx.get("launches", {}).get(name, 0),
+            "pp_launches": pp.get("launches", {}).get(name, 0),
             **r,
         })
     log(f"total {time.time() - t0:.1f} s")
@@ -7862,6 +8360,8 @@ def _run(args, phases) -> int:
         "tp": {k: v for k, v in tp.items() if k != "launches"},
         "train": {k: v for k, v in train.items() if k != "launches"},
         "tpx": {k: v for k, v in tpx.items() if k != "launches"},
+        "pp": {k: v for k, v in pp.items() if k != "launches"},
+        "ppcards": {k: v for k, v in ppcards.items() if k != "launches"},
         "tp_tiles": {k: v for k, v in tiles.items() if k not in results},
         "sampling": results.get("sampling")}), flush=True)
     print(info["smi"], flush=True)

@@ -47,13 +47,11 @@ logger = logging.getLogger(__name__)
 
 ENV_PREFIX = "APP_ENGINE_"
 
-_PIPELINE = "the port serves tensor parallelism only; pipeline parallelism is ROADMAP queue 1 item 9b"
 # The JAX package's EngineConfig fields (config/schema.py) that the port
 # has no field for: name -> (the JAX default, why another value is refused,
 # the other values the port serves as they are). A reason of None marks a
 # field that exists only for XLA's compiles: logged once, ignored.
 JAX_ONLY_FIELDS = {
-    "pipeline_parallelism": (1, _PIPELINE, ()),
     "serving_layout": ("auto", None, ()),
     "paged_kernel": ("auto", "the port always reads a paged pool through its kernel on the card", ()),
     "warmup_prompt_lengths": ("", None, ()),
@@ -102,6 +100,11 @@ class EngineConfig:
     # heads, the MLP width and the vocab divide
     # (tp_kernels.supports_model_config)
     tensor_parallelism: int = -1
+    # stages of the pipe axis (parallel/pp_serving.py): N > 1 cuts the
+    # layers into N stages of tensor_parallelism shards each, over the
+    # fixed KV layout; 1 (JAX's default) serves no pipeline unless the
+    # fit plan picks one where num_kv_heads caps TP
+    pipeline_parallelism: int = 1
     # auto | paged | fixed: auto pages wherever the page geometry tiles
     # (engine/kv_pages.auto_layout_blockers) and logs why it serves fixed
     # otherwise; fixed keeps one dense max_seq_len strip per slot

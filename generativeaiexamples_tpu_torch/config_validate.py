@@ -133,6 +133,9 @@ def validate_config(cfg) -> None:
     _require(e.tensor_parallelism == -1 or e.tensor_parallelism > 0,
              f"engine.tensor_parallelism must be -1 (all devices) or > 0, "
              f"got {e.tensor_parallelism}")
+    _require(e.pipeline_parallelism >= 1,
+             f"engine.pipeline_parallelism must be >= 1, "
+             f"got {e.pipeline_parallelism}")
     _require(e.dtype in _ENGINE_DTYPES,
              f"engine.dtype must be one of {_ENGINE_DTYPES}, got {e.dtype!r}")
     _require(e.quantization in _QUANTIZATIONS,

@@ -137,8 +137,20 @@ engine's mesh (engine/spec_draft.py), drain's snapshots (each shard's
 heads gathered into the full model's payload, split back at restore:
 engine/request_snapshot.py), ``disagg`` (JAX's advisory tier plan,
 parallel/mesh.py ``tier_submeshes``) and the retrieval tier beside the
-engine. JAX's automatic choice of pipeline parallelism raises (ROADMAP
-queue 1 item 9b).
+engine.
+
+Pipeline parallelism (parallel/pp_serving.py, the JAX engine's PP branch):
+``pipeline_parallelism`` > 1, a mesh with a ``pipe`` axis, or JAX's
+automatic choice where ``num_kv_heads`` caps TP below the device count
+and the capped mesh cannot hold the model (``_resolve_parallelism``)
+builds ``_pp``: the layers cut into stages of TP shards each, a fixed KV
+cache a layer on its stage's devices, and a prefill and a block decode
+that walk the stages in order, with the scheduler's signatures. As in
+JAX, the PP path serves the fixed layout only (``kv_layout`` paged and
+``kv_cache_dtype`` int4 are refused, ``auto`` serves fixed), prefills
+every prompt in one wave, and builds neither the prefix cache nor
+speculative decoding; ``disagg`` refuses it; drain preempts its requests
+replay-only, as on any fixed layout.
 
 Weights (JAX's rule): ``checkpoint_path`` names a HF safetensors
 directory, whose ``config.json`` (else ``model_config_name``) is the
@@ -162,7 +174,6 @@ import collections
 import dataclasses
 import itertools
 import logging
-import math
 import queue
 import random
 import threading
@@ -188,7 +199,7 @@ from generativeaiexamples_tpu_torch.ops import (
     decode_attention, flash_attention, int8_matmul, page_attention, quant,
 )
 from generativeaiexamples_tpu_torch.parallel import mesh as mesh_mod
-from generativeaiexamples_tpu_torch.parallel import sharding, tp_kernels
+from generativeaiexamples_tpu_torch.parallel import pp_serving, sharding, tp_kernels
 from generativeaiexamples_tpu_torch.utils import faults as faults_mod
 from generativeaiexamples_tpu_torch.utils import flight_recorder
 from generativeaiexamples_tpu_torch.utils import hardware
@@ -399,35 +410,6 @@ def resolve_device(device=None, what: str = "LLMEngine") -> torch.device:
     return dev
 
 
-_TP_PIPELINE = (
-    "pipeline parallelism is not served by the port yet (ROADMAP queue 1 item 9b)"
-)
-
-
-def _max_tp(model_cfg, n_devices: int) -> int:
-    """Largest model-axis width the architecture admits on n devices (the
-    JAX package's ``pp_serving.max_tp``)."""
-    t = math.gcd(
-        math.gcd(model_cfg.num_heads, model_cfg.num_kv_heads),
-        math.gcd(model_cfg.intermediate_size,
-                 math.gcd(model_cfg.vocab_size, model_cfg.hidden_size)),
-    )
-    return math.gcd(t, n_devices)
-
-
-def _pp_supported(model_cfg, stages: int, tp: int) -> bool:
-    """Whether layers divide over ``stages`` and every sharded axis over
-    ``tp`` (the JAX package's ``pp_serving.supported``)."""
-    return (
-        stages > 1
-        and model_cfg.num_layers % stages == 0
-        and all(n % tp == 0 for n in (
-            model_cfg.num_heads, model_cfg.num_kv_heads, model_cfg.intermediate_size,
-            model_cfg.vocab_size, model_cfg.hidden_size,
-        ))
-    )
-
-
 def device_memory_bytes(device: torch.device) -> float:
     """A device's memory: the card's total, or the JAX package's 16 GB
     default for a device that reports none (the CPU)."""
@@ -496,7 +478,21 @@ class LLMEngine:
         self.max_seq_len = min(cfg.max_seq_len, model_cfg.max_seq_len)
         self._page = cfg.page_size
         self._decode_block = cfg.decode_block
-        if cfg.kv_layout == "auto":
+        if self._pp is not None:
+            if cfg.kv_layout == "paged":
+                raise ValueError(
+                    "kv_layout='paged' is not supported on the pipeline-"
+                    "parallel serving path; use kv_layout='fixed' (the "
+                    "PP stage caches keep the dense per-slot layout)"
+                )
+            if cfg.kv_cache_dtype == "int4":
+                raise ValueError(
+                    "kv_cache_dtype='int4' requires the paged KV layout, "
+                    "which the pipeline-parallel serving path does not "
+                    "support; use kv_cache_dtype='int8'"
+                )
+            self._paged = False  # 'auto' serves the stages' fixed layout, as in JAX
+        elif cfg.kv_layout == "auto":
             blockers = kv_pages.auto_layout_blockers(cfg, self.max_seq_len)
             self._paged = not blockers
             if blockers:
@@ -556,10 +552,14 @@ class LLMEngine:
             self._page, model_cfg.head_dim, local_hq, local_hkv,
             query_len=self._spec_draft + 1, kv_dtype=cfg.kv_cache_dtype,
         )
-        # on the card a paged verify runs on the kernel or not at all
-        self._spec_available = not (
+        # on the card a paged verify runs on the kernel or not at all; the
+        # PP path serves no verify, as JAX's builds none
+        self._spec_available = self._pp is None and not (
             self.device.type == "cuda" and self._paged and not self._verify_kernel
         )
+        if self._pp is not None and cfg.spec_decode_enable == "on":
+            logger.info("speculative decoding is built on the layered path only; the "
+                        "pipeline-parallel path serves without it, as JAX's does")
         if self.device.type == "cuda":
             self._check_kernels(cfg, model_cfg, dtype)
         self._check_memory_budget(cfg, model_cfg)
@@ -568,14 +568,21 @@ class LLMEngine:
         self.load_stats: Dict[str, float] = {}
         if params is None and cfg.checkpoint_path:
             # streamed: each layer transposed, quantized and placed (cut
-            # into its shards under TP) as its tensors complete
+            # into its shards under TP, onto its stage under PP) as its
+            # tensors complete
             quantized = cfg.quantization in ("int8", "w8a8")
             t0 = time.time()
-            params = hf_loader.load_params_layered_streaming(
-                cfg.checkpoint_path, model_cfg, dtype, quantization=cfg.quantization,
-                mesh=self._mesh, tp_shards=self.tp_shards if quantized else 1,
-                stats=self.load_stats,
-            )
+            if self._pp is not None:
+                params = hf_loader.load_params_pp_streaming(
+                    cfg.checkpoint_path, model_cfg, dtype, quantization=cfg.quantization,
+                    ctx=self._pp, stats=self.load_stats,
+                )
+            else:
+                params = hf_loader.load_params_layered_streaming(
+                    cfg.checkpoint_path, model_cfg, dtype, quantization=cfg.quantization,
+                    mesh=self._mesh, tp_shards=self.tp_shards if quantized else 1,
+                    stats=self.load_stats,
+                )
             self.load_stats["seconds"] = time.time() - t0
             logger.info("Loaded LLM weights (streaming) from %s", cfg.checkpoint_path)
         elif params is None:
@@ -584,7 +591,11 @@ class LLMEngine:
             else:
                 params = llama.init_params(model_cfg, 0, dtype, self.device)
             logger.warning("LLM engine running with random-init weights (no checkpoint).")
-        if self._tp is not None and not sharding.is_sharded(params):
+        if self._pp is not None and not sharding.is_sharded(params):
+            # a single-device tree, placed stage by stage (laid out per
+            # shard and cut on stages of more than one shard)
+            params = pp_serving.stage_params(params, self._pp, repack_cfg=model_cfg)
+        elif self._tp is not None and not sharding.is_sharded(params):
             # a single-device tree, laid out per shard and cut: the same
             # function at every shard count
             params = sharding.shard_params(params, self._mesh, repack_cfg=model_cfg)
@@ -605,6 +616,17 @@ class LLMEngine:
             self._tables = torch.zeros(
                 (self.num_slots, self._max_pages_per_slot), dtype=torch.int32, device=self.device
             )
+        elif self._pp is not None:
+            self._cache = pp_serving.init_cache(
+                model_cfg, self._pp, self.num_slots, self.max_seq_len, dtype,
+                quantized=self._kv_quant,
+            )
+            self._pp_prefill = pp_serving.build_prefill(model_cfg, self._pp)
+            self._pp_decode = pp_serving.build_decode_step(model_cfg, self._pp,
+                                                           kv_kernel=self._kv_kernel)
+            logger.info("PP serving: %d stages x TP=%d (%d layers/stage), kv=%s", self._pp.stages,
+                        self._pp.tp, model_cfg.num_layers // self._pp.stages,
+                        "int8" if self._kv_quant else "bf16")
         else:
             self._cache = llama.init_kv_cache_layers(
                 model_cfg, self.num_slots, self.max_seq_len, dtype, self.device,
@@ -734,17 +756,18 @@ class LLMEngine:
     # build-time checks
 
     def _init_mesh(self, cfg: EngineConfig, model_cfg, device, mesh) -> None:
-        """The engine's mesh and TP context. An explicit ``mesh`` wins (its
-        first device is the engine's); else ``device`` (one device) or,
-        unset, the visible cards, as many as ``_resolve_parallelism`` says.
-        More than one shard builds the TP context where
-        ``supports_model_config`` holds and raises otherwise."""
+        """The engine's mesh and its TP or PP context. An explicit ``mesh``
+        wins (its first device is the engine's); else ``device`` (one
+        device) or, unset, the visible cards, as ``_resolve_parallelism``
+        says. A ``pipe`` axis builds the PP context where
+        ``pp_serving.supported`` holds; more than one shard on one stage
+        builds the TP context where ``supports_model_config`` holds; each
+        raises otherwise."""
         if mesh is None:
             dev = resolve_device(device)
             devices = [dev] if device is not None else mesh_mod.visible_devices()
-            mesh = mesh_mod.create_mesh(
-                self._resolve_parallelism(cfg, model_cfg, devices), devices=devices
-            )
+            stages, tp = self._resolve_parallelism(cfg, model_cfg, devices)
+            mesh = mesh_mod.create_mesh(tp, stages, devices=devices)
             # the first shard's device, by index: a thread's current device
             # may be another shard's while its kernels launch
             self.device = dev if device is not None else mesh.home
@@ -754,6 +777,19 @@ class LLMEngine:
                 raise ValueError(f"device={device} is not the mesh's first device {self.device}")
         self._mesh = mesh
         self._tp: Optional[tp_kernels.TPContext] = None
+        self._pp: Optional[pp_serving.PPContext] = None
+        if mesh.pipe > 1:
+            if not pp_serving.supported(model_cfg, mesh.pipe, mesh.tp):
+                raise ValueError(
+                    f"mesh pipe={mesh.pipe} x model={mesh.tp} does not divide this architecture"
+                )
+            self._pp = pp_serving.PPContext(
+                mesh, mesh.pipe, mesh.tp, quant_kernel="w8a8" if cfg.quantization == "w8a8" else None,
+                annotate=profiling.annotation_scope(),
+            )
+            logger.info("LLM engine mesh: %d stages x %d shards on %s", mesh.pipe, mesh.tp,
+                        [str(d) for d in mesh.devices])
+            return
         if mesh.size == 1:
             return
         if not tp_kernels.supports_model_config(model_cfg, mesh.size):
@@ -767,8 +803,8 @@ class LLMEngine:
 
     @property
     def tp_shards(self) -> int:
-        """Shards of the model axis (1 on one device)."""
-        return self._mesh.size
+        """Shards of the model axis (1 on one device; a stage's under PP)."""
+        return self._mesh.tp
 
     def mesh_report(self) -> Dict[str, object]:
         """The mesh as served: its shards and devices, the peaks of its
@@ -779,39 +815,65 @@ class LLMEngine:
             memory[dev]["planned_bytes"] = int(plan)
         return {
             "shards": self._mesh.size,
+            "stages": self._mesh.pipe,
             "devices": [str(d) for d in self._mesh.devices],
             "peaks": hardware.mesh_peaks(len(self._mesh.distinct())),
             "memory": memory,
         }
 
-    def _resolve_parallelism(self, cfg: EngineConfig, model_cfg, devices) -> int:
-        """``tensor_parallelism`` for mesh construction (the JAX function's
-        TP half). ``-1`` (the default) takes every visible card, as JAX's
-        does; an explicit N shards over N. Pipeline parallelism, asked for
-        or the automatic choice JAX makes when ``num_kv_heads`` caps TP
-        below the device count and the capped mesh cannot hold the model,
-        raises instead: the port never serves something else silently."""
+    def _per_device_memory(self, devices) -> float:
+        """One device's memory, the fit plan's budget (JAX's
+        ``_per_device_hbm``)."""
+        return device_memory_bytes(devices[0])
+
+    def _resolve_parallelism(self, cfg: EngineConfig, model_cfg, devices) -> tuple:
+        """``(stages, tp)`` for mesh construction, JAX's rule at every
+        branch. Explicit ``pipeline_parallelism`` wins (``tp`` -1 takes
+        the devices each stage has). With the defaults (pp 1, tp -1) the
+        fit plan picks PP when the architecture caps the model axis below
+        the device count (``num_kv_heads`` caps TP) and the TP-only
+        estimate exceeds the capped mesh's memory: ``(n // cap, cap)``
+        over every device; where the capped mesh fits, ``(1, cap)`` (the
+        spare devices idle); otherwise ``(1, tp)``, ``-1`` taking every
+        device."""
+        stages = max(1, cfg.pipeline_parallelism)
         tp, n = cfg.tensor_parallelism, len(devices)
-        if tp != -1:
-            return tp
-        if n <= 1:
-            return 1
-        tp_cap = _max_tp(model_cfg, n)
-        if tp_cap < n and tp_cap >= 1 and n % tp_cap == 0 and _pp_supported(model_cfg, n // tp_cap, tp_cap):
-            est = llama.serving_memory_bytes(
-                model_cfg, cfg.max_batch_size + _prefix_store_extra_slots(cfg),
-                min(cfg.max_seq_len, model_cfg.max_seq_len),
-                weight_bytes=1 if cfg.quantization in ("int8", "w8a8") else 2,
-                kv_bytes=hardware.kv_bytes_per_element(cfg.kv_cache_dtype),
-            )
-            if est["total"] > device_memory_bytes(devices[0]) * tp_cap * 0.92:
+        if stages > 1:
+            if tp == -1:
+                tp = max(1, n // stages)
+            if not pp_serving.supported(model_cfg, stages, tp):
                 raise ValueError(
-                    f"TP is capped at {tp_cap} by the architecture and the "
-                    f"{est['total'] / 1e9:.1f} GB estimate exceeds that mesh's memory; the JAX "
-                    f"engine would serve pipeline_parallelism={n // tp_cap}: {_TP_PIPELINE}"
+                    f"pipeline_parallelism={stages} x tensor_parallelism="
+                    f"{tp} does not divide this architecture "
+                    f"(layers={model_cfg.num_layers}, kv_heads="
+                    f"{model_cfg.num_kv_heads})"
                 )
-        logger.info("tensor_parallelism=-1 takes every visible card: %d shards", n)
-        return n
+            return stages, tp
+        if tp != -1 or n <= 1:
+            return 1, tp
+        tp_cap = pp_serving.max_tp(model_cfg, n)
+        if tp_cap >= n or tp_cap < 1 or n % tp_cap:
+            return 1, tp
+        auto_stages = n // tp_cap
+        if not pp_serving.supported(model_cfg, auto_stages, tp_cap):
+            return 1, tp
+        # the capped-TP path honours the configured KV dtype and builds the
+        # prefix store; the PP path builds none, so only this estimate
+        # counts its slots (JAX's rule)
+        est = llama.serving_memory_bytes(
+            model_cfg, cfg.max_batch_size + _prefix_store_extra_slots(cfg),
+            min(cfg.max_seq_len, model_cfg.max_seq_len),
+            weight_bytes=1 if cfg.quantization in ("int8", "w8a8") else 2,
+            kv_bytes=hardware.kv_bytes_per_element(cfg.kv_cache_dtype),
+        )
+        if est["total"] > self._per_device_memory(devices) * tp_cap * 0.92:
+            logger.warning(
+                "TP is capped at %d by the architecture and the %.1f GB estimate exceeds that "
+                "mesh's memory: pipeline_parallelism=%d x tensor_parallelism=%d over all %d "
+                "devices", tp_cap, est["total"] / 1e9, auto_stages, tp_cap, n,
+            )
+            return auto_stages, tp_cap
+        return 1, tp_cap
 
     def _check_memory_budget(self, cfg: EngineConfig, model_cfg) -> None:
         """Fit the weights and the KV cache per shard device (JAX's
@@ -847,7 +909,7 @@ class LLMEngine:
         geometry: a refusal is an error here, not a silent fall back."""
         if dtype != torch.bfloat16:
             raise ValueError("the CUDA kernels serve dtype='bfloat16' only")
-        if cfg.spec_decode_enable == "on" and not self._spec_available:
+        if cfg.spec_decode_enable == "on" and not self._spec_available and self._paged:
             raise ValueError(
                 f"paged attention kernel refuses the spec verify's "
                 f"{self._spec_draft + 1} query rows x {model_cfg.num_heads} heads "
@@ -895,7 +957,7 @@ class LLMEngine:
         self._prefix: Optional[prefix_cache.PrefixCache] = None
         self._prefix_store: Optional[list] = None
         P = _prefix_store_extra_slots(cfg)
-        if P <= 0:
+        if P <= 0 or self._pp is not None:  # JAX builds none on the PP path
             return
         if self._paged:
             self._prefix = prefix_cache.PrefixCache(
@@ -1497,7 +1559,8 @@ class LLMEngine:
         # process-wide, as JAX's families are: read deltas
         out.update(spec_decode_mod.metrics_snapshot())
         out["spec_draft_skips"] = self.scheduler.draft_skips
-        out["tp_shards"] = self._mesh.size
+        out["tp_shards"] = self.tp_shards
+        out["pp_stages"] = self._mesh.pipe
         return out
 
     @property
@@ -1860,8 +1923,10 @@ class LLMEngine:
                         flight_recorder.event_rid(req.rid, "prefix_match",
                                                   cached_tokens=req.prefix_len)
         funded = self._fund(claimed)
-        short = [r for r in funded if len(r.prompt_ids) <= chunk]
-        long = [r for r in funded if len(r.prompt_ids) > chunk]
+        # the PP path prefills every prompt in one wave, as JAX's does
+        chunked = self._pp is None
+        short = [r for r in funded if not chunked or len(r.prompt_ids) <= chunk]
+        long = [r for r in funded if chunked and len(r.prompt_ids) > chunk]
         records: list = []
         for wave, chunked in ((short, False), (long, True)):
             if wave:
@@ -2000,16 +2065,20 @@ class LLMEngine:
             self._telemetry.record_dispatch("prefill", tokens=int(lengths.sum()), rows=N)
             t_wall, t0 = time.time(), time.perf_counter()
             with self._annotate("engine.prefill_wave"):
-                logits, kvs = llama.prefill_layers(
-                    self.params, cfg, self._to_device(tokens, torch.long), lengths_d,
-                    quant_kernel=self._quant_kernel, tp=self._tp,
-                )
-                if self._paged:
-                    llama.write_prefill_pages(self._cache, kvs, self._tables[slots], self._page,
-                                              tp=self._tp)
+                tokens_d = self._to_device(tokens, torch.long)
+                if self._pp is not None:
+                    logits, _ = self._pp_prefill(self.params, self._cache, tokens_d, lengths_d, slots)
                 else:
-                    llama.write_prefill_slots(self._cache, kvs, slots, tp=self._tp)
-            del kvs
+                    logits, kvs = llama.prefill_layers(
+                        self.params, cfg, tokens_d, lengths_d, quant_kernel=self._quant_kernel,
+                        tp=self._tp,
+                    )
+                    if self._paged:
+                        llama.write_prefill_pages(self._cache, kvs, self._tables[slots],
+                                                  self._page, tp=self._tp)
+                    else:
+                        llama.write_prefill_slots(self._cache, kvs, slots, tp=self._tp)
+                    del kvs
             if self._dtl is not None:
                 self._dtl.record_span(
                     "prefill", t_wall=t_wall, lock_wait_s=0.0, run_s=time.perf_counter() - t0,
@@ -2361,6 +2430,8 @@ class LLMEngine:
                     self._cache, window=window, page_size=self._page,
                     quant_kernel=self._quant_kernel, page_kernel=self._page_kernel, tp=self._tp,
                 )
+            elif self._pp is not None:
+                logits, _ = self._pp_decode(self.params, self._cache, tok, pos, window)
             else:
                 logits, _ = llama.decode_layers(
                     self.params, self.model_config, tok, pos, self._cache,

@@ -62,6 +62,11 @@ class DisaggPolicy(SchedulerPolicy):
     def __init__(self, engine) -> None:
         super().__init__(engine)
         cfg = engine.engine_config
+        if getattr(engine, "_pp", None) is not None:
+            raise ValueError(
+                "scheduler_policy='disagg' is not supported on the "
+                "pipeline-parallel serving path (use 'unified')"
+            )
         if not getattr(engine, "_paged", False):
             raise ValueError(
                 "scheduler_policy='disagg' requires the paged KV layout "

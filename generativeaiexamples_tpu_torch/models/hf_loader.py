@@ -17,7 +17,9 @@ HF layout → the port's (one dict a layer, as models/llama.py serves it):
 layer is transposed, quantized (int8 and w8a8: fused ``wqkv``/``w_gateup``
 packs on one device, unfused per-shard packs under tensor parallelism)
 and placed the moment its tensors complete, on the target device, so the
-host holds about one layer's views of the mapped files at a time. The
+host holds about one layer's views of the mapped files at a time;
+``load_params_pp_streaming`` does the same into the pipeline-parallel
+layout (each layer on its stage's devices, parallel/pp_serving.py). The
 packs are ``ops/quant.quantize_int8``'s, computed on the target device;
 they equal the JAX package's host packs byte for byte.
 """
@@ -231,12 +233,54 @@ def load_params_layered_streaming(
     more than one shard, cut into its shards (parallel/sharding.py), the
     moment its tensors complete; the host views are then dropped.
     ``stats`` receives ``peak_host_bytes`` (``iter_param_groups``)."""
-    from generativeaiexamples_tpu_torch.ops import quant
     from generativeaiexamples_tpu_torch.parallel import sharding
 
-    q8 = quantization in ("int8", "w8a8")
     sharded = mesh is not None and mesh.size > 1
-    device = torch.device(mesh.home if mesh is not None else device)
+    home = torch.device(mesh.home if mesh is not None else device)
+    return _load_streaming(
+        path, cfg, dtype, quantization, tp_shards, stats, home, lambda i: home,
+        lambda i, lp: sharding.shard_layer(lp, mesh) if sharded else lp,
+        lambda leaf: sharding.shard_params({"lm_head": leaf}, mesh)["lm_head"] if sharded else leaf,
+        "",
+    )
+
+
+def load_params_pp_streaming(
+    path: str,
+    cfg: LlamaConfig,
+    dtype=torch.bfloat16,
+    *,
+    quantization: str = "none",
+    ctx,
+    stats: Optional[dict] = None,
+) -> Params:
+    """Stream a checkpoint straight into the PP x TP layout of
+    parallel/pp_serving.py: each layer is transposed, quantized (int8 or
+    w8a8: per-shard packs of the stage's ``tp``, fused at ``tp`` 1) on its
+    stage's first device and cut over the stage's shards the moment its
+    tensors complete, so no device or host ever holds more than a layer
+    beyond what it keeps. The tree is byte-equal to ``pp_serving.
+    stage_params`` of the layered load's; ``stats`` receives
+    ``peak_host_bytes``."""
+    from generativeaiexamples_tpu_torch.parallel import pp_serving
+
+    per = cfg.num_layers // ctx.stages
+    return _load_streaming(
+        path, cfg, dtype, quantization, ctx.tp, stats, ctx.home(0), lambda i: ctx.home(i // per),
+        lambda i, lp: pp_serving.stage_layer(lp, ctx, i // per),
+        lambda leaf: pp_serving.stage_head(leaf, ctx),
+        f" into PP x TP ({ctx.stages} x {ctx.tp})",
+    )
+
+
+def _load_streaming(path, cfg, dtype, quantization, tp_shards, stats, home, layer_home,
+                    place_layer, place_head, what) -> Params:
+    """The streamed load: ``embed`` and ``final_norm`` to ``home``, the
+    head quantized there and placed by ``place_head``, layer ``i`` built on
+    ``layer_home(i)`` and placed by ``place_layer(i, lp)``."""
+    from generativeaiexamples_tpu_torch.ops import quant
+
+    q8 = quantization in ("int8", "w8a8")
 
     def pack(w, kind):
         return quant.quantize_int8(w, tp_shards, kind)
@@ -246,11 +290,12 @@ def load_params_layered_streaming(
     stream_stats: dict = stats if stats is not None else {}
     for key, group in iter_param_groups(path, cfg, stats=stream_stats):
         if key in ("embed", "final_norm"):
-            out[key] = _to(group, device, dtype)
+            out[key] = _to(group, home, dtype)
         elif key == "lm_head":
-            leaf = pack(_to(group, device), "column") if q8 else _to(group, device, dtype)
-            out["lm_head"] = sharding.shard_params({"lm_head": leaf}, mesh)["lm_head"] if sharded else leaf
+            out["lm_head"] = place_head(pack(_to(group, home), "column") if q8
+                                        else _to(group, home, dtype))
         else:  # (layer_idx, {key: tensor})
+            device = layer_home(key)
             if q8:
                 w = {k: _to(v, device) for k, v in group.items() if k not in ("attn_norm", "mlp_norm")}
                 lp: Dict[str, object] = {
@@ -267,14 +312,15 @@ def load_params_layered_streaming(
                         lp[name] = pack(w.pop(name), quant.PACK_KINDS[name])
             else:
                 lp = {k: _to(v, device, dtype) for k, v in group.items()}
-            layers[key] = sharding.shard_layer(lp, mesh) if sharded else lp
+            layers[key] = place_layer(key, lp)
             del lp, group  # the host views go; the device holds the layer
     out["layers"] = layers
     if "lm_head" not in out and not cfg.tie_embeddings:
         logger.warning("No lm_head in checkpoint; tying to embeddings.")
     logger.info(
-        "Streamed checkpoint %s: %d layers%s, peak host %.2f GB",
+        "Streamed checkpoint %s%s: %d layers%s, peak host %.2f GB",
         path,
+        what,
         cfg.num_layers,
         ", int8 quantize-on-load" if q8 else "",
         stream_stats.get("peak_host_bytes", 0) / 1e9,

@@ -8,7 +8,10 @@ for decode steps. Fixed (one dense strip per slot,
 ``init_kv_cache_layers``, which also builds the prefix cache's store):
 ``write_prefill_slots``, ``extend_layers``, ``decode_layers`` (int8 caches
 read through ops/decode_attention.py), and ``copy_kv_rows`` between the
-store and the slots. Speculative decoding: ``verify_layers_paged`` (the
+store and the slots. ``prefill_stage`` and ``decode_stage`` are the layer
+loops of ``prefill_layers`` and ``decode_layers`` over any slice of the
+layers, which is how a pipeline stage runs its own
+(parallel/pp_serving.py). Speculative decoding: ``verify_layers_paged`` (the
 K+1-row verify chunk through the page kernel), ``verify_layers`` and
 the resident draft's ``draft_propose_layers`` (fixed layout). Training
 and the merge checks: ``forward``, JAX's cache-free path (plain causal
@@ -481,13 +484,34 @@ def prefill_layers(
     ``use_flash=None`` follows ``flash_attention.preferred``; with ``tp``
     the flash kernel runs head-sharded where ``flash_supported`` holds."""
     B, T = tokens.shape
-    device = tokens.device
-    positions = torch.arange(T, device=device).expand(B, T)
+    positions = torch.arange(T, device=tokens.device).expand(B, T)
+    h, kvs = prefill_stage(params["layers"], cfg, params["embed"][tokens], positions, use_flash,
+                           quant_kernel, tp)
+    return _head(params, last_hidden(h, lengths), cfg, quant_kernel, tp)[:, 0, :], kvs
+
+
+def last_hidden(h: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Each row's hidden state at its last prompt token, ``[B, 1, D]``."""
+    return h[torch.arange(h.shape[0], device=h.device), lengths.long() - 1][:, None]
+
+
+def prefill_stage(
+    layers: List[Dict[str, Any]],
+    cfg: LlamaConfig,
+    h: torch.Tensor,  # [B, T, D] the embedded prompts, or an earlier stage's output
+    positions: torch.Tensor,  # [B, T]
+    use_flash: Optional[bool] = None,
+    quant_kernel: Optional[bool] = None,
+    tp=None,
+) -> Tuple[torch.Tensor, List[Tuple[torch.Tensor, torch.Tensor]]]:
+    """The monolithic prefill's layer loop over ``layers`` (a pipeline
+    stage's slice, or every layer): returns (the hidden states ``[B, T,
+    D]``, per-layer (k, v)). The prompt attends only itself, causally."""
+    T = h.shape[1]
     if use_flash is None:
-        use_flash = flash_attention.preferred(T, cfg.head_dim, device)
+        use_flash = flash_attention.preferred(T, cfg.head_dim, h.device)
     if use_flash and tp is not None:
         use_flash = tp_kernels.flash_supported(cfg, tp.shards, T)
-    h = params["embed"][tokens]
     mask = None if use_flash else positions[:, :, None] >= positions[:, None, :]
     kvs = []
 
@@ -499,10 +523,9 @@ def prefill_layers(
             return flash_attention.flash_attention_causal(q, k, v)
         return _attention(q, k, v, mask)
 
-    for lp in params["layers"]:
+    for lp in layers:
         h = _block(h, lp, cfg, positions, attn, quant_kernel, tp)
-    last_h = h[torch.arange(B, device=device), lengths.long() - 1][:, None]
-    return _head(params, last_h, cfg, quant_kernel, tp)[:, 0, :], kvs
+    return h, kvs
 
 
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -1146,13 +1169,31 @@ def decode_layers(
     ``decode_attention_tp`` under ``tp``) or ``decode_attention_xla`` over
     the first ``window`` rows, a bf16/f32 cache through the einsum
     attention over ``[:window]``."""
-    device = tokens.device
-    B = tokens.shape[0]
+    h = decode_stage(params["layers"], cfg, params["embed"][tokens[:, None]], positions, caches,
+                     window, quant_kernel, kv_kernel, tp)
+    return _head(params, h, cfg, quant_kernel, tp)[:, 0, :], caches
+
+
+def decode_stage(
+    layers: List[Dict[str, Any]],
+    cfg: LlamaConfig,
+    h: torch.Tensor,  # [B, 1, D]
+    positions: torch.Tensor,  # [B]
+    caches: list,  # one fixed-layout cache a layer of ``layers``
+    window: Optional[int] = None,
+    quant_kernel: Optional[bool] = None,
+    kv_kernel: Optional[bool] = None,
+    tp=None,
+) -> torch.Tensor:
+    """``decode_layers``' layer loop over ``layers`` and their caches (a
+    pipeline stage's slice, or every layer); returns the hidden state
+    ``[B, 1, D]``."""
+    device = h.device
+    B = h.shape[0]
     first = _first(caches[0])
     quantized = "ks" in first
     S = _cache_len(caches)
     W = min(window or S, S)
-    h = params["embed"][tokens[:, None]]
     pos2 = positions.long()[:, None]  # [B, 1]
     b_idx = torch.arange(B, device=device)[:, None]  # [B, 1]
     if quantized:
@@ -1182,7 +1223,7 @@ def decode_layers(
     def read(c, key):
         return c[key][:, :W]
 
-    for lp, c in zip(params["layers"], caches):
+    for lp, c in zip(layers, caches):
         def attn(q, k, v, c=c):
             if quantized:
                 _write_heads(tp, write_int8, c, k, v, (b3, h3, p3), (b3, h3, z3, p3))
@@ -1202,4 +1243,4 @@ def decode_layers(
             return _attention(q, _read_heads(tp, read, c, "k"), _read_heads(tp, read, c, "v"), mask)
 
         h = _block(h, lp, cfg, pos2, attn, quant_kernel, tp)
-    return _head(params, h, cfg, quant_kernel, tp)[:, 0, :], caches
+    return h

@@ -1,8 +1,10 @@
-"""Tensor-parallel serving: the ``model`` mesh (mesh.py), the Megatron cuts
-of parameters and caches (sharding.py) and the kernels on each shard's
-local tile (tp_kernels.py)."""
+"""Tensor- and pipeline-parallel serving: the (``pipe``, ``model``) mesh
+(mesh.py), the Megatron cuts of parameters and caches (sharding.py), the
+kernels on each shard's local tile (tp_kernels.py), the PP x TP stage walk
+(pp_serving.py) and the GPipe forward (pipeline.py)."""
 from generativeaiexamples_tpu_torch.parallel.mesh import (
     MODEL_AXIS,
+    PIPE_AXIS,
     Mesh,
     create_mesh,
     tier_submeshes,
@@ -22,6 +24,7 @@ from generativeaiexamples_tpu_torch.parallel.sharding import (
 
 __all__ = [
     "MODEL_AXIS",
+    "PIPE_AXIS",
     "Mesh",
     "create_mesh",
     "tier_submeshes",

@@ -1,10 +1,17 @@
 """Exact and IVF top-k search over a corpus that lives on the card.
 
-Counterpart of generativeaiexamples_tpu/retrieval/ann.py on one device
-(the JAX engine's shard merge over a mesh is ROADMAP queue 1 item 9): the
-corpus is ONE padded ``[capacity, D]`` f32 matrix (capacity a power-of-two
-rung, floored at 1024 rows, as in JAX), scored against a row-padded query
-batch as one matmul and ``torch.topk``. A matmul's row is not bitwise
+Counterpart of generativeaiexamples_tpu/retrieval/ann.py: the corpus is
+ONE padded ``[capacity, D]`` f32 matrix (capacity a power-of-two rung,
+floored at 1024 rows, as in JAX), scored against a row-padded query batch
+as one matmul and ``torch.topk``. On a mesh (``mesh=``, parallel/mesh.py)
+the corpus rows, the ``valid`` mask and the IVF assignments are cut over
+the ``model`` shards, one slice on each shard's device, as JAX's
+``refresh`` shards them: each shard scores its slice and takes its partial
+top-``min(k, per)``, and the merge on the first device
+(``_merge_shard_topk``, JAX's) takes a second top-k over the ``shards x
+part_k`` candidates, their indices offset by ``shard x per``; only ``[rows,
+k]`` is read back. A capacity the shards do not divide falls back to one
+shard with JAX's warning. A matmul's row is not bitwise
 independent of the row count (one row and eight take different kernels),
 so a batch padded to a rung of the row ladder scores a query in the last
 bits as it likes; ``pad_rows`` pads every dispatch to ``max_batch`` rows
@@ -29,6 +36,7 @@ nothing, so it has no warmup.
 from __future__ import annotations
 
 import contextlib
+import logging
 import threading
 from typing import List, Tuple
 
@@ -37,6 +45,8 @@ import torch
 
 from generativeaiexamples_tpu_torch.engine.batcher import row_bucket
 from generativeaiexamples_tpu_torch.utils.device_io import to_device, to_host
+
+logger = logging.getLogger(__name__)
 
 ANN_MODES = ("exact", "ivf")
 
@@ -103,23 +113,44 @@ def _kmeans(matrix: np.ndarray, nlist: int, seed: int = 0):
     return centroids.astype(np.float32), assign
 
 
+def _merge_shard_topk(parts, k: int, per: int):
+    """The merge of the shards' partial top-k lists: ``parts`` is each
+    shard's (scores, indices) ``[rows, part_k]`` over its slice, in shard
+    order; a second top-k over the ``shards x part_k`` candidates on the
+    first shard's device, each index offset by ``shard x per`` (JAX's
+    ``_merge_shard_topk``)."""
+    home = parts[0][0].device
+    scores = torch.cat([s.to(home) for s, _ in parts], dim=1)
+    idx = torch.cat([(i + shard * per).to(home) for shard, (_, i) in enumerate(parts)], dim=1)
+    top, pos = torch.topk(scores, min(k, scores.shape[1]), dim=1)
+    return top, torch.gather(idx, 1, pos)
+
+
 class _Corpus:
-    """One resident corpus version (device tensors, immutable once built)."""
+    """One resident corpus version (device tensors, immutable once built):
+    ``parts`` holds each shard's (matrix, valid, assign) slice of ``per``
+    rows on its device; the centroids live on the first device."""
 
-    __slots__ = ("matrix", "valid", "assign", "centroids", "rows", "capacity")
+    __slots__ = ("parts", "centroids", "rows", "capacity", "per")
 
-    def __init__(self, matrix, valid, assign, centroids, rows, capacity):
-        self.matrix, self.valid, self.assign, self.centroids = matrix, valid, assign, centroids
+    def __init__(self, parts, centroids, rows, capacity):
+        self.parts, self.centroids = parts, centroids
         self.rows, self.capacity = rows, capacity
+        self.per = capacity // len(parts)
+
+    @property
+    def shards(self) -> int:
+        return len(self.parts)
 
 
 class ANNSearchEngine:
-    """Top-k over one padded corpus matrix on the card.
+    """Top-k over one padded corpus matrix on the card, cut over the
+    ``model`` shards of ``mesh`` where one is given.
 
     Thread-safe: ``refresh`` swaps in a new corpus under the instance lock;
     a search takes the current one and reads it lock-free (a search racing
     a refresh reads a consistent older corpus, as in JAX). ``device=None``
-    means the card.
+    means the card (the mesh's first device under ``mesh``).
     """
 
     def __init__(
@@ -131,6 +162,7 @@ class ANNSearchEngine:
         max_batch: int = 8,
         nlist: int = 64,
         nprobe: int = 16,
+        mesh=None,
         seed: int = 0,
         device=None,
     ) -> None:
@@ -138,7 +170,10 @@ class ANNSearchEngine:
 
         if mode not in ANN_MODES:
             raise ValueError(f"ann mode must be one of {ANN_MODES}, got {mode!r}")
+        if mesh is not None and device is None:
+            device = mesh.home
         self.device = resolve_device(device, "ANNSearchEngine")
+        self._mesh = mesh
         self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self._dim = int(dimensions)
         self._mode = mode
@@ -154,40 +189,79 @@ class ANNSearchEngine:
     def _on_stream(self):
         return torch.cuda.stream(self._stream) if self._stream is not None else contextlib.nullcontext()
 
+    def _shard_count(self, capacity: int) -> int:
+        """The ``model`` shards the corpus is cut over: 1 without a mesh,
+        and 1 with JAX's warning where they do not divide ``capacity``."""
+        shards = self._mesh.tp if self._mesh is not None else 1
+        if shards <= 1:
+            return 1
+        if capacity % shards:
+            logger.warning(
+                "ANN capacity %d not divisible by model-axis size %d; "
+                "falling back to unsharded search", capacity, shards,
+            )
+            return 1
+        return shards
+
     def refresh(self, matrix: np.ndarray, version) -> None:
         """(Re)load the corpus onto the device, padded to its capacity
-        rung; a no-op when ``version`` matches the resident corpus."""
+        rung and cut over the shards (one slice on each shard's device); a
+        no-op when ``version`` matches the resident corpus."""
         with self._lock:
             if version == self._version:
                 return
             rows = int(matrix.shape[0])
             cap = capacity_rung(rows, floor=self._fixed_capacity or MIN_CAPACITY_ROWS)
-            assign = centroids = None
+            shards = self._shard_count(cap)
+            devices = self._mesh.devices[:shards] if shards > 1 else [self.device]
+            src = np.asarray(matrix, np.float32)
+            assign_host = centroids = None
+            if self._mode == "ivf":
+                nlist = min(self._nlist, max(1, rows)) if rows else self._nlist
+                centroids, assign_host = _kmeans(matrix.astype(np.float32), nlist, seed=self._seed)
+            per = cap // shards
+            parts = []
             with self._on_stream(), torch.inference_mode():
-                padded = torch.zeros((cap, self._dim), dtype=torch.float32, device=self.device)
-                padded[:rows] = to_device(np.asarray(matrix, np.float32), self.device)
-                valid = torch.zeros((cap,), dtype=torch.bool, device=self.device)
-                valid[:rows] = True
-                if self._mode == "ivf":
-                    nlist = min(self._nlist, max(1, rows)) if rows else self._nlist
-                    cents, assign_host = _kmeans(matrix.astype(np.float32), nlist, seed=self._seed)
-                    assign_pad = np.full((cap,), nlist, np.int32)  # never probed
-                    assign_pad[:rows] = assign_host
-                    assign = to_device(assign_pad, self.device)
-                    centroids = to_device(cents, self.device)
-            self._corpus = _Corpus(padded, valid, assign, centroids, rows, cap)
+                # each shard's padded slice made on its device; only the
+                # real rows cross from the host
+                for i, dev in enumerate(devices):
+                    lo, hi = i * per, min(rows, (i + 1) * per)
+                    part = torch.zeros((per, self._dim), dtype=torch.float32, device=dev)
+                    valid = torch.zeros((per,), dtype=torch.bool, device=dev)
+                    assign = None
+                    if assign_host is not None:
+                        assign = torch.full((per,), nlist, dtype=torch.int32, device=dev)  # never probed
+                    if hi > lo:
+                        part[: hi - lo] = to_device(src[lo:hi], dev)
+                        valid[: hi - lo] = True
+                        if assign is not None:
+                            assign[: hi - lo] = to_device(assign_host[lo:hi], dev)
+                    parts.append((part, valid, assign))
+                if centroids is not None:
+                    centroids = to_device(centroids, self.device)
+            self._corpus = _Corpus(parts, centroids, rows, cap)
             self._version = version
 
     def _topk(self, corpus: _Corpus, q: torch.Tensor, k: int, nprobe: int):
-        """One dispatch: the masked scores of ``q`` [rows, D] against the
-        corpus and their top ``k`` (values, indices), on the device."""
-        scores = q @ corpus.matrix.T  # [rows, capacity]
-        keep = corpus.valid[None, :]
+        """One dispatch: the masked scores of ``q`` [rows, D] against each
+        shard's slice and their top ``k`` (values, indices) on the first
+        device, merged across shards (:func:`_merge_shard_topk`)."""
+        probe = None
         if self._mode == "ivf":
             probe = torch.topk(q @ corpus.centroids.T, nprobe, dim=1).indices  # [rows, nprobe]
-            keep = keep & (corpus.assign[None, :, None] == probe[:, None, :]).any(dim=-1)
-        scores = torch.where(keep, scores, float("-inf"))
-        return torch.topk(scores, k, dim=1)
+        parts = []
+        for matrix, valid, assign in corpus.parts:
+            qi = q.to(matrix.device)
+            scores = qi @ matrix.T  # [rows, per]
+            keep = valid[None, :]
+            if probe is not None:
+                probe_i = probe.to(matrix.device)
+                keep = keep & (assign[None, :, None] == probe_i[:, None, :]).any(dim=-1)
+            scores = torch.where(keep, scores, float("-inf"))
+            if corpus.shards == 1:
+                return torch.topk(scores, k, dim=1)
+            parts.append(torch.topk(scores, min(k, corpus.per), dim=1))
+        return _merge_shard_topk(parts, k, corpus.per)
 
     def search(self, queries: np.ndarray, top_k: int,
                pad_rows: bool = False) -> Tuple[np.ndarray, np.ndarray]:
@@ -228,7 +302,7 @@ class ANNSearchEngine:
             "mode": self._mode,
             "rows": corpus.rows if corpus is not None else 0,
             "capacity": corpus.capacity if corpus is not None else 0,
-            "shards": 1,
+            "shards": corpus.shards if corpus is not None else 1,
             "max_batch": self._max_batch,
             "device": str(self.device),
         }

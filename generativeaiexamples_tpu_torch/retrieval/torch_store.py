@@ -31,7 +31,8 @@ logger = logging.getLogger(__name__)
 
 class TorchVectorStore(VectorStore):
     """Cosine-similarity store searched on the card (``device=None``) or,
-    for tests, on the CPU."""
+    for tests, on the CPU; with ``mesh`` its corpus is cut over the mesh's
+    ``model`` shards (retrieval/ann.py)."""
 
     def __init__(
         self,
@@ -43,10 +44,13 @@ class TorchVectorStore(VectorStore):
         ann_max_batch: int = 8,
         nlist: int = 64,
         nprobe: int = 16,
+        mesh=None,
         device=None,
     ):
         from generativeaiexamples_tpu_torch.engine.llm_engine import resolve_device
 
+        if mesh is not None and device is None:
+            device = mesh.home
         self.device = resolve_device(device, "TorchVectorStore")
         self._dim = dimensions
         self._persist_dir = persist_dir
@@ -58,7 +62,7 @@ class TorchVectorStore(VectorStore):
         self._persisted_chunks = 0  # JSONL rows already on disk
         self._ann_opts = dict(
             mode=ann_mode, capacity=ann_capacity, max_batch=ann_max_batch,
-            nlist=nlist, nprobe=nprobe, device=self.device,
+            nlist=nlist, nprobe=nprobe, mesh=mesh, device=self.device,
         )
         self._ann = None  # lazy ANNSearchEngine; guarded by self._lock
         if persist_dir:

@@ -20,7 +20,8 @@ holds:
   some of them, so each port kernel's events in a trace are compared with
   the times its wrapper launched that kernel over the same window
   (:func:`kernel_counts`: one wrapper call can launch two kernels, the
-  paged split and merge, the W8A8 quantizer and product). A trace holding
+  paged split and merge, the W8A8 quantizer and product), counted from
+  :data:`START_GUARD_S` into the session. A trace holding
   fewer of any one kernel is ``complete: false`` and its busy time and
   idle share are None: never a figure from a partial trace. Nor is there
   one where the union of the device intervals outlasts the window's wall
@@ -67,6 +68,11 @@ _KERNEL = re.compile(
 
 # Chrome-trace categories of device work in a torch.profiler export
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+#: how far into a CUDA profiler session its window starts counting launches:
+#: CUPTI records no kernel for launches in a session's first milliseconds
+#: (on an H100, launches up to 3.2 ms in had runtime records and no kernel
+#: records), so a window counted from the session's start read incomplete
+START_GUARD_S = 0.05
 
 Event = Tuple[str, float, float]  # (name, start us, end us)
 
@@ -358,8 +364,8 @@ class DeviceWindow:
     else the wall clock alone). The trace runs from ``__enter__`` to a
     device synchronize at ``__exit__``: ``wall_ms`` is the host clock over
     it and ``result`` the :func:`analyze` of its device events against the
-    wrappers' launches meanwhile (a kernel launched before the window
-    opened is not in it). ``busy_ms`` and ``events`` mirror the result:
+    wrappers' launches meanwhile, counted from START_GUARD_S into the
+    session (a kernel launched before the window opened is not in it). ``busy_ms`` and ``events`` mirror the result:
     None where the trace is incomplete."""
 
     def __init__(self, trace: bool = True):
@@ -374,6 +380,7 @@ class DeviceWindow:
 
             self._prof = profile(activities=[ProfilerActivity.CUDA])
             self._prof.__enter__()
+            time.sleep(START_GUARD_S)
         self._launched = kernel_counts()
         self._t0 = time.perf_counter()
         return self

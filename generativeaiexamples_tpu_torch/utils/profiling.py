@@ -125,9 +125,9 @@ class _Session:
             raise self.error
 
     def stop(self, timeout: float = 600.0) -> Dict[str, Any]:
-        """Stop it there: the device synchronized first (the window's
-        kernels land in the trace), the Chrome trace written, the device
-        track read. Raises what failed."""
+        """Stop it there: the window's launches counted and the device
+        synchronized first (every counted kernel lands in the trace), the
+        Chrome trace written, the device track read. Raises what failed."""
         self._stop.set()
         if not self._done.wait(timeout):
             raise TimeoutError(f"the profiler did not stop within {timeout:.0f} s")
@@ -146,18 +146,23 @@ class _Session:
             self.error = exc
             self._ready.set()
             return
+        if _cuda():
+            time.sleep(device_trace.START_GUARD_S)
         # counted from here: every kernel launched after this is in the trace
         self._launched = device_trace.kernel_counts()
         self._t0 = time.perf_counter()
         self._ready.set()
         self._stop.wait()
         try:
+            # counted up to here, then synchronized: every kernel counted has
+            # run before the trace stops (a dispatch thread launches on
+            # while the synchronize waits; those launches may be cut off)
+            launched = {k: n - self._launched[k]
+                        for k, n in device_trace.kernel_counts().items()}
             if _cuda():
                 import torch
 
                 torch.cuda.synchronize()
-            launched = {k: n - self._launched[k]
-                        for k, n in device_trace.kernel_counts().items()}
             wall_ms = (time.perf_counter() - self._t0) * 1e3
             prof.stop()
             self.events = device_trace.profile_events(prof)

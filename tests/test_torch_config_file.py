@@ -149,7 +149,7 @@ def test_yaml_booleans_and_numbers_coerce_as_in_jax(env, tmp_path):
 
 @pytest.mark.parametrize("section,field,value", [
     ("engine", "tensor_parallelism", 0),
-    ("engine", "pipeline_parallelism", 2),
+    ("engine", "chunked_prefill", "off"),
     ("engine", "paged_kernel", "off"),
 ])
 def test_an_unserved_value_in_a_file_is_refused_as_from_the_environment(env, tmp_path, section,
@@ -267,7 +267,8 @@ def test_print_help_rows_of_shared_fields_are_jax_s():
     differ = {path for path in trows if trows[path] != jrows[path]}
     # the black box's directory defaults under TMPDIR in the port (JAX: /tmp)
     assert differ <= {"blackbox.dir"}
-    assert "not served by the port: the port serves tensor parallelism only" in ttext
+    assert ("not served by the port: the port always reads a paged pool through its kernel "
+            "on the card") in ttext
 
 
 def test_the_chain_server_prints_the_schema(capsys, monkeypatch):
@@ -311,3 +312,32 @@ def test_the_process_engine_and_the_factories_read_the_file(env, tmp_path):
         for cache, before in zip((tembedder._EMBEDDER_CACHE, treranker._RERANKER_CACHE), caches):
             cache.clear()
             cache.update(before)
+
+
+@pytest.mark.parametrize("value,message", [
+    (2, None),
+    (1, None),
+    (0, "engine.pipeline_parallelism must be >= 1, got 0"),
+])
+def test_pipeline_parallelism_in_a_file_is_read_and_checked_as_jax_s(env, tmp_path, value, message):
+    """Refused until ROADMAP queue 1 item 9b: ``engine.pipelineParallelism``
+    from a file is read as the environment's and JAX's, and the startup
+    check accepts or refuses it as JAX's does, with JAX's message."""
+    from generativeaiexamples_tpu.config import validate as jvalidate
+    from generativeaiexamples_tpu_torch import config_validate
+
+    path = _write(tmp_path, {"engine": {"pipelineParallelism": value}}, "json")
+    tcfg, jcfg = tconfig.AppConfig.from_file(path), jconfig.AppConfig.from_file(path)
+    assert tcfg.engine.pipeline_parallelism == jcfg.engine.pipeline_parallelism == value
+    env.setenv("APP_ENGINE_PIPELINEPARALLELISM", str(value))
+    assert tconfig.AppConfig.from_env().engine.pipeline_parallelism == value
+    outcomes = []
+    for validate, cfg in ((jvalidate.validate_config, jcfg),
+                          (config_validate.validate_config, tcfg)):
+        try:
+            validate(cfg)
+            outcomes.append(None)
+        except ValueError as exc:
+            outcomes.append(str(exc))
+    assert outcomes[0] == outcomes[1]
+    assert (outcomes[1] is None) if message is None else (message in outcomes[1])

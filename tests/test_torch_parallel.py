@@ -3,13 +3,14 @@ more than one shard: ``create_mesh`` resolves and refuses as the JAX
 package's does (``-1`` takes every device, more shards than devices
 raise), ``APP_ENGINE_TENSORPARALLELISM`` is served, heads that do not
 divide raise, the automatic pipeline choice of JAX's
-``_resolve_parallelism`` raises naming its ROADMAP item, a default
+``_resolve_parallelism`` is the port's too, a default
 engine takes every visible device, and spec decoding, the resident
 draft, ``disagg``, drain, restore, the drain routes and the retrieval
 tier serve on a sharded engine."""
 import dataclasses
 import json
 import time
+import types
 
 import jax
 import pytest
@@ -78,8 +79,26 @@ def test_tensor_parallelism_below_minus_one_or_zero_is_refused(raw):
 
 
 def test_pipeline_parallelism_stays_refused_naming_its_item():
-    with pytest.raises(ValueError, match="APP_ENGINE_PIPELINEPARALLELISM=2: .*queue 1 item 9b"):
-        EngineConfig.from_env({"APP_ENGINE_PIPELINEPARALLELISM": "2"})
+    """Refused until ROADMAP queue 1 item 9b; now read from
+    ``APP_ENGINE_PIPELINEPARALLELISM`` and checked as JAX's
+    ``validate_config`` checks it, with JAX's message."""
+    from generativeaiexamples_tpu.config import AppConfig as JAppConfig
+    from generativeaiexamples_tpu.config import validate as jvalidate
+
+    assert EngineConfig().pipeline_parallelism == 1
+    assert EngineConfig.from_env({"APP_ENGINE_PIPELINEPARALLELISM": "2"}).pipeline_parallelism == 2
+    for raw in ("0", "-1"):
+        app = tconfig.AppConfig()
+        app.engine.pipeline_parallelism = int(raw)
+        japp = JAppConfig()
+        japp = dataclasses.replace(japp, engine=dataclasses.replace(
+            japp.engine, pipeline_parallelism=int(raw)))
+        with pytest.raises(ValueError) as want:
+            jvalidate.validate_config(japp)
+        with pytest.raises(ValueError) as got:
+            config_validate.validate_config(app)
+        assert str(got.value) == str(want.value)
+        assert f"engine.pipeline_parallelism must be >= 1, got {raw}" in str(got.value)
 
 
 def test_more_shards_than_devices_raise_as_jax():
@@ -100,20 +119,25 @@ def test_an_explicit_mesh_names_the_engine_device():
 
 
 def test_the_automatic_pipeline_choice_raises_naming_item_9b(monkeypatch):
-    """Where ``num_kv_heads`` caps TP below the device count and the capped
-    mesh cannot hold the model, the JAX engine picks pipeline parallelism
-    itself; the port raises. With room enough JAX keeps ``-1``, every
-    device, and so does the port."""
+    """Where ``num_kv_heads`` caps TP below the device count (8 of 16 for
+    llama3-70b) JAX's fit plan chooses: with room for the capped mesh it
+    serves ``(1, 8)`` on 8 devices, and where that mesh cannot hold the
+    model, ``pipeline_parallelism=2`` over all 16: ``(2, 8)``. The port
+    took all 16 devices, which the heads do not divide, and raised for
+    PP; it now returns JAX's values. An explicit TP stays."""
+    from generativeaiexamples_tpu_torch.parallel import pp_serving
+
     cfg = EngineConfig(**dict(SMALL, model_config_name="llama3-70b-tiny"))
     model_cfg = llama.PRESETS["llama3-70b-tiny"]
     devices = [torch.device("cpu")] * 16
-    assert llm_engine._max_tp(model_cfg, 16) == 8 and llm_engine._pp_supported(model_cfg, 2, 8)
+    assert pp_serving.max_tp(model_cfg, 16) == 8 and pp_serving.supported(model_cfg, 2, 8)
     resolve = LLMEngine._resolve_parallelism
-    assert resolve(None, cfg, model_cfg, devices) == 16
-    monkeypatch.setattr(llm_engine, "device_memory_bytes", lambda dev: 1.0)
-    with pytest.raises(ValueError, match="pipeline_parallelism=2: .*queue 1 item 9b"):
-        resolve(None, cfg, model_cfg, devices)
-    assert resolve(None, dataclasses.replace(cfg, tensor_parallelism=8), model_cfg, devices) == 8
+    roomy = types.SimpleNamespace(_per_device_memory=lambda devs: 16e9)
+    tight = types.SimpleNamespace(_per_device_memory=lambda devs: 1.0)
+    assert resolve(roomy, cfg, model_cfg, devices) == (1, 8)
+    assert resolve(tight, cfg, model_cfg, devices) == (2, 8)
+    assert resolve(tight, dataclasses.replace(cfg, tensor_parallelism=8), model_cfg,
+                   devices) == (1, 8)
 
 
 _DRAFT = dict(spec_decode_enable="on", spec_proposer="draft_model")

@@ -236,7 +236,8 @@ def test_each_jax_engine_variable_has_the_jax_default(env):
 
 
 @pytest.mark.parametrize("env,value,item", [
-    ("APP_ENGINE_PIPELINEPARALLELISM", "2", "queue 1 item 9"),
+    ("APP_ENGINE_PAGEDKERNEL", "off", "through its kernel on the card"),
+    ("APP_ENGINE_CHUNKEDPREFILL", "off", "always chunks"),
 ])
 def test_from_env_refuses_what_the_port_does_not_serve(env, value, item):
     with pytest.raises(ValueError, match=f"{env}={value}: .*{item}"):
