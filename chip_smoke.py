@@ -115,8 +115,8 @@ Phases (each one's failure makes the script exit non-zero):
    phase's wall seconds.
 9. prefix: the automatic prefix KV cache on recipes A (shared pool pages)
    and D (a store of int8 strips and one copy a hit), llama3-8b at full
-   width, A at full depth and D at 8 of its 32 layers (for the script's
-   time, since phase 14), random weights (seed 0), the engine defaults
+   width, D at 8 of its 32 layers (for the script's time, since phase 14)
+   and A too (since phase 20), random weights (seed 0), the engine defaults
    otherwise (``prefill_chunk`` 512, ``page_size`` 128,
    ``decode_runahead`` 4). The JAX bench's shared-prefix pass: one
    preamble of 4 chunks (2048 ids), 16 distinct questions of 128 ids, 16
@@ -264,7 +264,9 @@ Phases (each one's failure makes the script exit non-zero):
 
 14. route: two replicas of phase 7's deployment (``python -m
    generativeaiexamples_tpu_torch.server``, llama3-8b recipe A at full
-   width and depth, int8 packs at seed 0, 8 slots, ``max_seq_len`` 8192,
+   width, each loading a bf16 checkpoint of 8 of its 32 layers (since
+   phase 20; ``APP_ENGINE_CHECKPOINTPATH``, random at seed 0, written by the
+   phase), 8 slots, ``max_seq_len`` 8192,
    page 128, ``prefill_chunk`` 512, the prefix cache at ``auto``,
    arctic-embed-l/m; one snapshot spool) started together behind the
    port's router (its ``__main__``, tenant ``limited:rate=1,burst=1``,
@@ -390,10 +392,10 @@ Phases (each one's failure makes the script exit non-zero):
    merged loss below the base's; packed to int8 and served by recipe A's
    engine at full depth: its streams equal the plain path's (the whole
    context recomputed through the plain model each token, on the same
-   packs) but at ties. (g) ``python -m
-   generativeaiexamples_tpu_torch.tools.finetune --model debug --mode
-   lora --device cuda`` with ``--ckpt-dir`` and ``--merge-out``, then
-   ``--resume``: exit 0 and the JSON line. The kernel launches of (a),
+   packs) but at ties. (g) ``generativeaiexamples_tpu_torch.tools.finetune``'s
+   ``main`` in this process (since phase 20; child processes before)
+   ``--model debug --mode lora --device cuda`` with ``--ckpt-dir`` and
+   ``--merge-out``, then ``--resume``: exit 0 and the JSON line. The kernel launches of (a),
    (b) and (f)'s engines count. It prints the phase wall (a budget of 150
    s).
 
@@ -424,8 +426,8 @@ Phases (each one's failure makes the script exit non-zero):
    in the in-process store on the card) equal to the synchronous path's
    within ``SEARCH_SCORE_TOL``, tie runs as sets. (e) The port's
    ``profile_decode`` on recipe A at full depth, B = 8, TP=1 then TP=2,
-   each in a child process of this script (``--tpx-profile-shards N``: a
-   fresh profiler state) (``ENABLE_PROFILING`` set for the engine's build, so the TP reduce's
+   both in one child process of this script (``--tpx-profile-shards 1,2``:
+   a fresh profiler state; one a shard count before phase 20) (``ENABLE_PROFILING`` set for the engine's build, so the TP reduce's
    kernels carry their label): 1 s of steady decode and one 512-id
    prefill (the 512 bucket), each trace complete (up to 3 captures), its
    kernels, JAX's categories and top ops printed; ``collective`` is
@@ -471,12 +473,43 @@ ppcards (``--phases ppcards``, on 4 cards; not in the default run): phase
    19's leg (a) with each stage and shard on a card of its own (PP=2 over
    two cards, PP=2 x TP=2 over four), against TP=1 on the first.
 
-With no arguments it runs every phase above but ppcards; ``--phases``,
+20. multi: ring attention, sharded training and many processes, on this
+   card (no kernel of the port runs here: JAX's ring and training are
+   einsum and XLA's matmuls; the phase fails if any of the five launches).
+   (a) ``parallel/ring_attention.py`` at llama3-8b's attention widths (Hq
+   32, Hkv 8, Dh 128, bf16, B 1, T 8192) over 4 ``seq`` shards of the
+   card against ``reference_attention``: max |err| within one bf16 ulp of
+   the largest output, both walls. (b) Two LoRA steps (phase 17's r16 on
+   wq, wk, wv, wo, B drawn non-zero) at llama3-8b's full width and depth,
+   B 4 x T 1024, on tp 2 x dp 2 x sp 2 over ``[cuda:0] * 8``
+   (``create_mesh(2, 2, 2)``, ``make_lora_train_step(..., seq_sharded=True,
+   mesh=)``) against the one-device steps from the same state: each loss
+   within ``MULTI_LOSS_RTOL``, the signs of A's and B's updates within
+   ``MULTI_SIGN_FLIPS``, which a planted fault (the one-device steps on
+   data replica 0's rows alone) must exceed; the step's wall and a traced
+   step's device busy time and idle share.
+   (c) Two processes on the one card through ``tools/launch.py`` running
+   the finetune CLI, LoRA, ``--dp 2`` over ``gloo`` (one card can only
+   run gloo), on a bf16 checkpoint of llama3-8b's width at 8 layers, 3
+   steps, against the in-process ``--dp 2`` run: the checkpointed
+   adapters and the final loss equal bit for bit; the backend, the
+   gradient all-reduce's ms, the all-reduces' share of the steps' wall
+   and the time from the launch until both processes joined the group.
+   It prints the phase wall and each part's (a budget of 90 s).
+
+multicards (``--phases multicards``, on 4 cards; not in the default run):
+   phase 20's (b) in one process on tp 2 x dp 2 over four cards
+   (``MULTICARDS_MESH``) against one device, and its (c) over ``nccl``,
+   one process a card, at 2 and 4 processes against the in-process run
+   (``MULTICARDS_LIMITS``).
+
+With no arguments it runs every phase above but ppcards and multicards;
+``--phases``,
 ``--checks`` and ``--recipes`` run a part (for example ``--phases serve
 --recipes B``, ``--phases chains``, ``--phases filechains``, ``--phases
 drain``, ``--phases observe``, ``--phases route``, ``--phases connect`` or
-``--phases kernels,tp --checks tp``, ``--phases train``, ``--phases tpx`` or
-``--phases pp``)
+``--phases kernels,tp --checks tp``, ``--phases train``, ``--phases tpx``,
+``--phases pp`` or ``--phases multi``)
 and then print only the kernels that part measured; ``--runahead N`` serves every engine at ``decode_runahead`` N, and
 ``--timing-only`` leaves out the runahead and overload checks (for timed
 runs of an older tree, which lacks them).
@@ -518,6 +551,11 @@ from generativeaiexamples_tpu_torch.ops import page_attention as pa
 from generativeaiexamples_tpu_torch.utils import device_trace, hardware
 
 MODEL = "llama3-8b"
+# the depth of two paths that are not the main path's first drive, for the
+# script's time (since phase 20 joined): phase 9's A and phase 14's replicas
+# (a bf16 checkpoint of this depth) run llama3-8b's full width at 8 of its
+# 32 layers
+CUT_LAYERS = 8
 _PAGED = "generativeaiexamples_tpu/ops/page_attention.py:88"
 # kernel entry -> (the TPU kernel it replaces, its source in the repo)
 KERNELS = {
@@ -3261,8 +3299,8 @@ def phase_chains(dev, smi, seed=0, dep=None, encoders=None, keep=False):
 PREFIX_CHUNKS, PREFIX_QUESTIONS, PREFIX_QUESTION_IDS, PREFIX_TOKENS = 4, 16, 128, 16
 PREFIX_RECIPES = "AD"  # the bf16 paged pool (shared pages) and the int8 fixed store (copies)
 # D runs at 8 of llama3-8b's 32 layers (full width), for the script's time
-# once phase 14 joined it; A stays at full depth
-PREFIX_CUT_RECIPES, PREFIX_CUT_LAYERS = "D", 8
+# once phase 14 joined it, and A too once phase 20 did
+PREFIX_CUT_RECIPES, PREFIX_CUT_LAYERS = "AD", CUT_LAYERS
 
 
 def _prefix_stream(engine, prompt, params):
@@ -5501,7 +5539,9 @@ def phase_observe(dev, smi, seed=0) -> dict:
 # Phase 14: the router
 
 # each replica is phase 7's deployment, traced (the stitched trace) and
-# profilable (the kernel check inside the replica)
+# profilable (the kernel check inside the replica), loading a bf16
+# checkpoint of CUT_LAYERS layers written by the phase
+# (APP_ENGINE_CHECKPOINTPATH: its config.json is the model)
 ROUTE_REPLICA_ENV = dict(RAG_ENV, ENABLE_TRACING="true", TRACE_EXPORTER="memory",
                          ENABLE_PROFILING="true")
 # the router: one rate-limited tenant; bounded-load spill held off, since the
@@ -5746,12 +5786,17 @@ def phase_route(dev, smi, seed=0) -> dict:
 
     try:
         # 0. the fleet: two replicas started together, then the router and the frontend
+        from generativeaiexamples_tpu_torch.models import hf_loader, llama
+
+        ckpt = os.path.join(tmp, "model")
+        hf_loader.write_hf_checkpoint(dataclasses.replace(llama.PRESETS[MODEL], num_layers=CUT_LAYERS),
+                                      ckpt, seed=seed, dtype=torch.bfloat16, device=dev)
         ports = [_free_port() for _ in range(4)]
         reps = [f"http://127.0.0.1:{p}" for p in ports[:2]]
         router, frontend = (f"http://127.0.0.1:{p}" for p in ports[2:])
         t_start = time.time()
         for i in range(2):
-            env = dict(base_env, **ROUTE_REPLICA_ENV,
+            env = dict(base_env, **ROUTE_REPLICA_ENV, APP_ENGINE_CHECKPOINTPATH=ckpt,
                        APP_ENGINE_SNAPSHOTSPOOLDIR=os.path.join(tmp, "spool"),
                        APP_VECTORSTORE_PERSISTDIR=os.path.join(tmp, f"store{i}"),
                        DOC_UPLOAD_DIR=os.path.join(tmp, f"uploads{i}"),
@@ -7266,9 +7311,27 @@ def _train_merge(dev, base, adapters, batch, base_loss, rng) -> dict:
             "ties": ties, "launches": launched}
 
 
+def _finetune_here(argv) -> tuple:
+    """``tools/finetune.py``'s ``main(argv)`` in this process (no child
+    process to start and import): its exit code, standard output and
+    standard error."""
+    import contextlib
+    import io
+
+    from generativeaiexamples_tpu_torch.tools import finetune
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = finetune.main(list(argv))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rc, out.getvalue(), err.getvalue()
+
+
 def _train_cli(tmp, device="cuda") -> dict:
-    """(g) the finetune CLI on the card: a LoRA run with a checkpoint and a
-    merge, then --resume to more steps."""
+    """(g) the finetune CLI on the card, in this process
+    (:func:`_finetune_here`; each ran in a child process before phase 20): a LoRA
+    run with a checkpoint and a merge, then --resume to more steps."""
     data = os.path.join(tmp, "data.jsonl")
     with open(data, "w", encoding="utf-8") as fh:
         for i in range(8):
@@ -7278,28 +7341,26 @@ def _train_cli(tmp, device="cuda") -> dict:
     for steps, extra in ((TRAIN_CLI_STEPS[0], ["--merge-out", merged]),
                          (TRAIN_CLI_STEPS[1], ["--resume"])):
         t0 = time.time()
-        proc = subprocess.run(
-            [sys.executable, "-m", "generativeaiexamples_tpu_torch.tools.finetune", "--model", "debug",
-             "--data", data, "--mode", "lora", "--steps", str(steps), "--batch-size", "2",
-             "--seq-len", "32", "--ckpt-dir", ck, "--save-every", "2", "--log-every", "1",
-             "--device", device, *extra],
-            capture_output=True, text=True, timeout=300)
-        lines = proc.stdout.strip().splitlines()
+        rc, stdout, stderr = _finetune_here(
+            ["--model", "debug", "--data", data, "--mode", "lora", "--steps", str(steps),
+             "--batch-size", "2", "--seq-len", "32", "--ckpt-dir", ck, "--save-every", "2",
+             "--log-every", "1", "--device", device, *extra])
+        lines = stdout.strip().splitlines()
         try:
             last = json.loads(lines[-1])
         except (IndexError, ValueError):
             last = {}
-        if proc.returncode != 0 or last.get("steps") != steps or "final_loss" not in last:
-            raise AssertionError(f"train (g): finetune {' '.join(extra)} exited {proc.returncode}, "
-                                 f"last line {lines[-1:]!r}; stderr ends {proc.stderr[-2000:]!r}")
-        if "--resume" in extra and f"resumed from step {TRAIN_CLI_STEPS[0]}" not in proc.stderr:
+        if rc != 0 or last.get("steps") != steps or "final_loss" not in last:
+            raise AssertionError(f"train (g): finetune {' '.join(extra)} exited {rc}, "
+                                 f"last line {lines[-1:]!r}; stderr ends {stderr[-2000:]!r}")
+        if "--resume" in extra and f"resumed from step {TRAIN_CLI_STEPS[0]}" not in stderr:
             raise AssertionError("train (g): --resume did not start from the saved step")
         out["resume" if "--resume" in extra else "run"] = {**last, "s": time.time() - t0}
     if not os.path.exists(merged):
         raise AssertionError("train (g): no merged npz was written")
-    log(f"  train (g): python -m generativeaiexamples_tpu_torch.tools.finetune --model debug --mode "
+    log(f"  train (g): generativeaiexamples_tpu_torch.tools.finetune main() --model debug --mode "
         f"lora --device {device}: {TRAIN_CLI_STEPS[0]} steps, final loss {out['run']['final_loss']:.4f} "
-        f"({out['run']['s']:.1f} s, the process included), then --resume to {TRAIN_CLI_STEPS[1]}: "
+        f"({out['run']['s']:.1f} s, in this process), then --resume to {TRAIN_CLI_STEPS[1]}: "
         f"final loss {out['resume']['final_loss']:.4f} ({out['resume']['s']:.1f} s)")
     return out
 
@@ -7684,36 +7745,43 @@ def _tpx_tier(dev, cfg, params, rng, out, seed) -> None:
         f"equal to the synchronous path's within {SEARCH_SCORE_TOL} (tie runs as sets)")
 
 
-def _tpx_profile(seed, shards, out, launches) -> None:
-    """(e) on ``shards`` shards, in a child process of this script
-    (``--tpx-profile-shards``): a profiler session there starts from a
-    fresh CUPTI state, where after this process's earlier sessions whole
-    captures came back without their kernels. Its log lines are relayed,
-    its launches counted here; a child that fails fails the phase."""
-    cmd = [sys.executable, os.path.abspath(__file__), "--tpx-profile-shards", str(shards),
+def _tpx_profile(seed, shard_counts, out, launches) -> None:
+    """(e) on each of ``shard_counts``, in one child process of this
+    script (``--tpx-profile-shards 1,2``): a profiler session there starts
+    from a fresh CUPTI state, where after this process's earlier sessions
+    whole captures came back without their kernels. One child for every
+    shard count draws the weights once (one a count before phase 20). Its
+    log lines are relayed, its launches counted here; a child that fails
+    fails the phase."""
+    arg = ",".join(str(n) for n in shard_counts)
+    cmd = [sys.executable, os.path.abspath(__file__), "--tpx-profile-shards", arg,
            "--seed", str(seed)]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=TPX_PROFILE_CHILD_S)
     lines = proc.stdout.splitlines()
     for line in lines[:-1]:
         log(line)
     if proc.returncode != 0 or not lines:
-        raise AssertionError(f"tpx (e) TP={shards}: the profile process exited "
+        raise AssertionError(f"tpx (e) TP={arg}: the profile process exited "
                              f"{proc.returncode}: {proc.stderr[-3000:]}")
     got = json.loads(lines[-1])
-    out[f"TP{shards}"] = got["profile"]
+    out.update(got["profile"])
     launches.update(got["launches"])
 
 
-def tpx_profile_child(dev, seed, shards) -> dict:
+def tpx_profile_child(dev, seed, shard_counts) -> dict:
     """The child's side of :func:`_tpx_profile`: recipe A's weights from
-    ``seed``, :func:`_tpx_profile_here`, and its reading and launches."""
+    ``seed``, :func:`_tpx_profile_here` on each shard count in turn, and
+    their readings and launches."""
     from generativeaiexamples_tpu_torch.models import llama
     from generativeaiexamples_tpu_torch.ops import quant
 
     params = quant.init_packed_params_int8(llama.PRESETS[MODEL], seed, torch.bfloat16, dev)
     out, launches = {}, collections.Counter()
-    _tpx_profile_here(dev, params, shards, out, launches)
-    return {"profile": out[f"TP{shards}"], "launches": dict(launches)}
+    for shards in shard_counts:
+        _tpx_profile_here(dev, params, shards, out, launches)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"profile": out, "launches": dict(launches)}
 
 
 def _tpx_profile_here(dev, params, shards, out, launches) -> None:
@@ -7822,10 +7890,9 @@ def phase_tpx(dev, smi, seed=0) -> dict:
         del params, params8
         gc.collect()
         torch.cuda.empty_cache()
-        # (e) the decode profiler at full depth, TP=1 then TP=2, each in a
+        # (e) the decode profiler at full depth, TP=1 then TP=2, in a
         # process of its own
-        for shards in (1, TPX_SHARDS):
-            _tpx_profile(seed, shards, out["profile"], launches)
+        _tpx_profile(seed, (1, TPX_SHARDS), out["profile"], launches)
     finally:
         shutil.rmtree(spool, ignore_errors=True)
         gc.collect()
@@ -7952,7 +8019,7 @@ def _pp_engine(cfg, params, dev, stages, tp, cards=False):
     devices = ([torch.device("cuda", i) for i in range(stages * tp)] if cards
                else [dev] * (stages * tp))
     return LLMEngine(dataclasses.replace(cfg, tensor_parallelism=tp, pipeline_parallelism=stages),
-                     params=params, mesh=create_mesh(tp, stages, devices=devices))
+                     params=params, mesh=create_mesh(tp, pipeline_parallelism=stages, devices=devices))
 
 
 def pp_leg(dev, label, model, quantization, kv_dtype, params, ref_tp, layouts, prompts, probe,
@@ -8049,7 +8116,7 @@ def _pp_checkpoint(dev, seed, tmp) -> dict:
     t0 = time.time()
     hf_loader.write_hf_checkpoint(cfg, path, seed=seed, n_shards=2, dtype=torch.bfloat16, device=dev)
     t_write = time.time() - t0
-    ctx = pp_serving.PPContext(create_mesh(2, 2, devices=[dev] * 4), 2, 2)
+    ctx = pp_serving.PPContext(create_mesh(2, pipeline_parallelism=2, devices=[dev] * 4), 2, 2)
     stats = {}
     try:
         torch.cuda.synchronize(dev)
@@ -8247,13 +8314,376 @@ def phase_ppcards(dev, smi, seed=0) -> dict:
     return out
 
 
+# --------------------------------------------------------------------- #
+# Phase 20: many processes, ring attention and sharded training
+
+MULTI_RING = dict(B=1, T=8192, Hq=32, Hkv=8, Dh=128)  # llama3-8b's attention widths
+MULTI_RING_SHARDS = 4
+MULTI_MESH = (2, 2, 2)  # (b): tp, dp, sp, every device cuda:0
+MULTI_BATCH = (4, 1024)  # (b): B x T
+MULTI_CLI_LAYERS = 8  # (c): 8 of llama3-8b's 32 layers
+MULTI_CLI_STEPS = 3
+MULTI_CLI_BATCH = (2, 512)  # (c): --batch-size, --seq-len
+# (b): B starts at N(0, MULTI_B_STD^2) (not zero, so the forward runs the
+# adapters and A's gradient, through the row-parallel A cut and its reduce,
+# is not zero); two steps
+MULTI_B_STD = 0.01
+# (b): each step's loss against the one-device step's: they differ only by
+# the bf16 rounding of each row-parallel partial and the shards'
+# summation order
+MULTI_LOSS_RTOL = 1e-3
+# (b): the share of adapter elements (A and B) whose two-step update took
+# the other sign than the one-device step's. Each AdamW step moves an
+# element by about lr * sign(g), so an element whose gradient is near 0
+# can flip when those roundings move it. Set from the card's reading
+# (NVIDIA H100 80GB HBM3, 700 W: the clean steps 0.70 %, the planted
+# fault of (b), one data replica's rows dropped, 26.6 %; 5 % lies near
+# their geometric mean, 4.3 %); the phase fails if the planted fault does
+# not exceed it
+MULTI_SIGN_FLIPS = 0.05
+MULTI_BUDGET_S = 90.0
+MULTICARDS_PROCS = (2, 4)
+# multicards: (b) in one process with each shard on a card of its own, tp
+# 2 x dp 2 over cuda:0-3 (the base placed on the second replica's cards
+# once, kept over the steps)
+MULTICARDS_MESH = (2, 2, 1)
+MULTI_LAUNCH_DEVICE = "cuda"  # (c): each launched process's --device (its card: cuda:(i % cards))
+
+
+def _multi_ring(dev) -> dict:
+    """(a) ring_attention over 4 seq shards of this card against
+    reference_attention, at llama3-8b's attention widths, bf16 in."""
+    from generativeaiexamples_tpu_torch.parallel import create_mesh, reference_attention, ring_attention
+
+    c = MULTI_RING
+    gen = torch.Generator(device=dev).manual_seed(20)
+    q = torch.randn(c["B"], c["T"], c["Hq"], c["Dh"], generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(c["B"], c["T"], c["Hkv"], c["Dh"], generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    mesh = create_mesh(1, 1, MULTI_RING_SHARDS, devices=[dev] * MULTI_RING_SHARDS)
+    walls = {}
+    for name, fn in (("ring", lambda: ring_attention(q, k, v, mesh)),
+                     ("reference", lambda: reference_attention(q, k, v))):
+        fn()  # warm
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        walls[name] = 1e3 * (time.perf_counter() - t1)
+        if name == "ring":
+            got = out
+        else:
+            ref = out
+        del out
+    err = float((got.float() - ref.float()).abs().max())
+    limit = float(ref.float().abs().max()) * 2 ** -7  # one bf16 ulp of the largest output
+    del q, k, v, got, ref
+    torch.cuda.empty_cache()
+    if not err <= limit:
+        raise AssertionError(f"multi (a): ring max |err| {err!r} over its limit {limit!r}")
+    log(f"  multi (a): ring_attention B={c['B']} T={c['T']} Hq={c['Hq']} Hkv={c['Hkv']} Dh={c['Dh']} "
+        f"bf16 over {MULTI_RING_SHARDS} seq shards of {dev}: max |err| {err:.3g} against "
+        f"reference_attention (limit {limit:.3g}, one bf16 ulp of the largest output); wall ring "
+        f"{walls['ring']:.2f} ms, reference {walls['reference']:.2f} ms")
+    return {"max_abs_err": err, "limit": limit, "ring_ms": walls["ring"],
+            "reference_ms": walls["reference"]}
+
+
+def _flat(tree, suffix) -> torch.Tensor:
+    """Every adapter factor ending in ``suffix`` (``_a``, ``_b``) of an
+    adapter tree, whole and flat, f32."""
+    return torch.cat([lp[k].detach().float().reshape(-1) for lp in tree for k in sorted(lp)
+                      if k.endswith(suffix)])
+
+
+def _multi_sharded_lora(dev, seed, shape=MULTI_MESH, devices=None) -> dict:
+    """(b) two LoRA steps at llama3-8b's full width and depth on tp x dp
+    x sp ``shape`` (every shard on this card, or on ``devices``) against
+    the one-device steps on ``dev``; then the planted fault: the
+    one-device steps on data replica 0's rows alone (a replica whose
+    gradients were never summed in), which the sign-flip limit must
+    catch."""
+    import random
+
+    from generativeaiexamples_tpu_torch.models import llama, lora, train
+    from generativeaiexamples_tpu_torch.parallel import create_mesh, sharding
+
+    cfg = llama.PRESETS[MODEL]
+    lcfg = lora.LoRAConfig(**TRAIN_LORA)
+    optimizer = train.make_optimizer(learning_rate=TRAIN_LORA_LR)
+    rng = random.Random(seed * 1000 + 20)
+    B, T = MULTI_BATCH
+    tokens = torch.tensor([[rng.randrange(1, 256) for _ in range(T)] for _ in range(B)])
+    mask = torch.ones((B, T))
+    mask[:, : T // 8] = 0.0
+    batch = {"tokens": tokens.to(dev), "loss_mask": mask.to(dev)}
+    base = llama.init_params(cfg, seed, torch.bfloat16, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    adapters = [{k: v if k.endswith("_a") else
+                 (torch.randn(v.shape, generator=gen, device=dev) * MULTI_B_STD).to(v.dtype)
+                 for k, v in lp.items()}
+                for lp in lora.init_lora_params(cfg, lcfg, gen, torch.bfloat16, dev)]
+    start = {s: _flat(adapters, s) for s in ("_a", "_b")}
+
+    def state(ad):
+        ad = train.trainable(ad)
+        return train.TrainState(params=ad, opt_state=optimizer.init(ad),
+                                step=torch.zeros((), dtype=torch.int32, device=dev))
+
+    def timed(fn):
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        return res, 1e3 * (time.perf_counter() - t1)
+
+    def two_steps(step, st, base_, batch_, whole=lambda p: p):
+        """Two steps from ``st``: the state, their losses, the updates of
+        A and B (flat, ``whole``) and each step's wall."""
+        (st, l1), ms1 = timed(lambda: step(st, base_, batch_))
+        (st, l2), ms2 = timed(lambda: step(st, base_, batch_))
+        moved = {s: _flat(whole(st.params), s) - start[s] for s in ("_a", "_b")}
+        return st, [float(l1), float(l2)], moved, [ms1, ms2]
+
+    one_step = train.make_lora_train_step(cfg, lcfg, optimizer)
+    _, one_losses, want, one_ms = two_steps(one_step, state(adapters), base, batch)
+    half = {k: v[: B // shape[1]] for k, v in batch.items()}
+    _, fault_losses, fault, _ = two_steps(one_step, state(adapters), base, half)
+    devices = devices or [dev] * (shape[0] * shape[1] * shape[2])
+    mesh = create_mesh(*shape, devices=devices)
+    held = _peak_reset(dev)
+    sbase = sharding.shard_params(base, mesh)
+    sad = lora.shard_lora_params(adapters, lcfg, mesh)
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = train.make_lora_train_step(cfg, lcfg, optimizer, shape[2] > 1, mesh)
+    got_state, losses, got, ms = two_steps(step, state(sad), sbase, batch,
+                                           lambda p: sharding.unshard(p, dev))
+    trace = _traced(lambda: step(got_state, sbase, batch))
+    peak = torch.cuda.max_memory_allocated(dev)
+    del got_state, sbase, sad
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def flips(a, b) -> dict:
+        per = {s: float((torch.sign(a[s]) != torch.sign(b[s])).float().mean()) for s in a}
+        n = {s: a[s].numel() for s in a}
+        per["all"] = sum(per[s] * n[s] for s in n) / sum(n.values())
+        return per
+
+    rels = [abs(l - w) / abs(w) for l, w in zip(losses, one_losses)]
+    clean, planted = flips(got, want), flips(got, fault)
+    if not max(rels) <= MULTI_LOSS_RTOL:
+        raise AssertionError(f"multi (b): sharded losses {losses!r} against one device's "
+                             f"{one_losses!r}: {max(rels):.3g} relative, over {MULTI_LOSS_RTOL}")
+    if not clean["all"] <= MULTI_SIGN_FLIPS:
+        raise AssertionError(f"multi (b): the updated adapters part from the one-device steps': "
+                             f"{clean} of their elements moved the other way (limit {MULTI_SIGN_FLIPS})")
+    if not planted["all"] > MULTI_SIGN_FLIPS:
+        raise AssertionError(f"multi (b): the planted fault (data replica 0's rows alone) moved only "
+                             f"{planted} of the elements the other way: the limit {MULTI_SIGN_FLIPS} "
+                             f"cannot see a replica left out")
+    log(f"  multi (b): two LoRA steps (r={lcfg.rank} on {','.join(lcfg.targets)}, B from "
+        f"N(0, {MULTI_B_STD}^2)) at llama3-8b full width and depth, bf16, B={B} T={T}, tp "
+        f"{shape[0]} x dp {shape[1]} x sp {shape[2]} on {[str(d) for d in devices]}: losses "
+        f"{[round(l, 6) for l in losses]} against one device's {[round(l, 6) for l in one_losses]} "
+        f"({max(rels):.2e} relative at most, limit {MULTI_LOSS_RTOL}); the updates' signs against "
+        f"one device's: {clean['all']:.4f} of {sum(t.numel() for t in got.values())} elements "
+        f"flipped (A {clean['_a']:.4f}, B {clean['_b']:.4f}; limit {MULTI_SIGN_FLIPS}); the planted "
+        f"fault (one device on replica 0's rows alone, losses "
+        f"{[round(l, 6) for l in fault_losses]}): {planted['all']:.4f} (A {planted['_a']:.4f}, "
+        f"B {planted['_b']:.4f}); wall a step {ms[1]:.1f} ms (first {ms[0]:.1f}; one device "
+        f"{one_ms[1]:.1f} ms, first {one_ms[0]:.1f}); a traced step: wall {trace['wall_ms']:.1f} ms, "
+        f"device busy {trace['busy_ms']} ms, idle share {trace['idle_share']}, "
+        f"{trace.get('events')} device events, the most device time {trace['top']}; peak allocated "
+        f"{peak / 2**30:.2f} GiB ({held / 2**30:.2f} held before)")
+    return {"mesh": list(shape), "devices": [str(d) for d in devices],
+            "losses": losses, "one_device_losses": one_losses, "loss_rel": max(rels),
+            "sign_flips": clean, "planted_fault_sign_flips": planted,
+            "planted_fault_losses": fault_losses, "step_ms": ms[1], "first_step_ms": ms[0],
+            "one_device_ms": one_ms[1], "traced_step": trace, "peak_allocated_bytes": peak}
+
+
+def _parallel_lines(stderr: str) -> list:
+    return [json.loads(line[len("parallel: "):]) for line in stderr.splitlines()
+            if line.startswith("parallel: ")]
+
+
+def _multi_cli(tmp, nproc, device) -> dict:
+    """The finetune CLI in LoRA mode at llama3-8b's width and
+    MULTI_CLI_LAYERS layers (a checkpoint of random weights), ``--dp
+    nproc``, each data replica MULTI_CLI_BATCH's rows: under
+    tools/launch.py in ``nproc`` processes (``device`` None, ``--device
+    cuda``: process i on cuda:(i % cards)), or in this process on
+    ``device`` repeated. Returns its last line, the ``parallel:`` lines,
+    the checkpointed adapters and the wall."""
+    data = os.path.join(tmp, "data.jsonl")
+    if not os.path.exists(data):
+        with open(data, "w", encoding="utf-8") as fh:
+            for i in range(16):
+                fh.write(json.dumps({"text": f"passage {i}: " + "the card tiles ride the tensor "
+                                     "cores and the reduce sums the shards " * 12}) + "\n")
+    ck = os.path.join(tmp, f"ck_{nproc}_{device or 'launch'}")
+    cli = ["--model", os.path.join(tmp, "model"), "--data", data, "--mode", "lora",
+           "--steps", str(MULTI_CLI_STEPS), "--batch-size", str(MULTI_CLI_BATCH[0] * nproc),
+           "--seq-len", str(MULTI_CLI_BATCH[1]), "--dp", str(nproc), "--ckpt-dir", ck,
+           "--save-every", str(MULTI_CLI_STEPS), "--log-every", "1"]
+    t0 = time.time()
+    if device is None:
+        proc = subprocess.run(
+            [sys.executable, "-m", "generativeaiexamples_tpu_torch.tools.launch", "--nproc",
+             str(nproc), "--", "generativeaiexamples_tpu_torch.tools.finetune", *cli,
+             "--device", MULTI_LAUNCH_DEVICE], capture_output=True, text=True, timeout=600)
+        rc, stdout, stderr = proc.returncode, proc.stdout, proc.stderr
+    else:
+        rc, stdout, stderr = _finetune_here([*cli, "--device", device])
+    wall = time.time() - t0
+    lines = [l for l in stdout.splitlines() if l.strip()]
+    if rc != 0 or not lines:
+        raise AssertionError(f"multi (c): finetune --dp {nproc} ({device or 'launched'}) exited {rc}; "
+                             f"stderr ends {stderr[-3000:]!r}")
+    state = torch.load(os.path.join(ck, str(MULTI_CLI_STEPS), "state.pt"), weights_only=True)
+    return {"last": json.loads(lines[-1]), "parallel": _parallel_lines(stderr),
+            "adapters": state["params"], "wall_s": wall, "t0": t0}
+
+
+def _multi_model(dev, tmp, seed) -> None:
+    """A bf16 checkpoint of llama3-8b's width at MULTI_CLI_LAYERS layers,
+    random from ``seed``, which every CLI run of (c) loads."""
+    from generativeaiexamples_tpu_torch.models import hf_loader, llama
+
+    cfg = dataclasses.replace(llama.PRESETS[MODEL], num_layers=MULTI_CLI_LAYERS)
+    hf_loader.write_hf_checkpoint(cfg, os.path.join(tmp, "model"), seed=seed, dtype=torch.bfloat16,
+                                  device=dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _same_adapters(a, b) -> float:
+    """The largest difference between two checkpoints' adapters (0: bit
+    for bit)."""
+    return max(float((x.float() - y.float()).abs().max()) for la, lb in zip(a, b)
+               for x, y in ((la[k], lb[k]) for k in la))
+
+
+def _multi_procs(dev, tmp, nproc, backend, limit) -> dict:
+    """(c) ``nproc`` processes through tools/launch.py against the
+    in-process ``--dp nproc`` run: the checkpointed adapters within
+    ``limit`` (0: bit for bit, and then the final losses too; else the
+    losses within MULTI_LOSS_RTOL); the
+    backend, the gradient all-reduce's time and share of the steps' wall
+    and the time from the launch until every process had joined."""
+    inproc = _multi_cli(tmp, nproc, str(dev))
+    launched = _multi_cli(tmp, nproc, None)
+    par = launched["parallel"]
+    if len(par) != nproc or {p["backend"] for p in par} != {backend}:
+        raise AssertionError(f"multi (c): {nproc} processes reported {par}")
+    diff = _same_adapters(launched["adapters"], inproc["adapters"])
+    loss, want = launched["last"]["final_loss"], inproc["last"]["final_loss"]
+    same_loss = loss == want if limit == 0 else abs(loss - want) <= MULTI_LOSS_RTOL * abs(want)
+    if not (diff <= limit and same_loss):
+        raise AssertionError(f"multi (c): {nproc} processes' adapters part from the in-process run's "
+                             f"by {diff!r} (limit {limit}); final loss {loss!r} against {want!r}")
+    steps_s = max(p["steps_s"] for p in par)
+    reduce_s = max(p["all_reduce_s"] for p in par)
+    joined = max(p["joined_at"] for p in par) - launched["t0"]
+    grad = max(par[0]["all_reduces"], key=lambda c: c[0])  # (bytes, seconds): the gradients'
+    grad_ms = 1e3 * statistics.median(s for b, s in par[0]["all_reduces"] if b == grad[0])
+    log(f"  multi (c): finetune --mode lora --dp {nproc}, llama3-8b width at {MULTI_CLI_LAYERS} of 32 "
+        f"layers (a bf16 checkpoint), {MULTI_CLI_BATCH[0]} x {MULTI_CLI_BATCH[1]} a replica, "
+        f"{MULTI_CLI_STEPS} steps: {nproc} processes through tools/launch.py on "
+        f"{[p['device'] for p in par]}, backend {backend}, against the in-process --dp {nproc} run "
+        f"on {dev}: adapters max |diff| {diff!r} (limit {limit}), final loss {loss:.6f} / "
+        f"{want:.6f}; every process joined the group {joined:.2f} s after the launch; the gradient "
+        f"all-reduce ({grad[0] / 2**20:.2f} MiB f32) {grad_ms:.2f} ms a step (median); all "
+        f"all-reduces {reduce_s:.3f} s of {steps_s:.2f} s of steps ({reduce_s / steps_s:.1%}); walls "
+        f"launch {launched['wall_s']:.1f} s, in-process {inproc['wall_s']:.1f} s")
+    return {"processes": nproc, "backend": backend, "layers": MULTI_CLI_LAYERS,
+            "adapters_max_diff": diff, "final_loss": loss, "in_process_final_loss": want,
+            "joined_after_launch_s": joined, "grad_all_reduce_bytes": grad[0],
+            "grad_all_reduce_ms": grad_ms, "all_reduce_s": reduce_s, "steps_s": steps_s,
+            "all_reduce_share": reduce_s / steps_s, "launch_wall_s": launched["wall_s"],
+            "in_process_wall_s": inproc["wall_s"]}
+
+
+def phase_multi(dev, smi, seed=0, scratch=None) -> dict:
+    """Ring attention, sharded training, many processes (module
+    docstring, phase 20)."""
+    t0 = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    out = {"ring": _multi_ring(dev)}
+    t_a = time.time()
+    out["sharded_lora"] = _multi_sharded_lora(dev, seed)
+    t_b = time.time()
+    tmp = tempfile.mkdtemp(prefix="multi_", dir=scratch)
+    try:
+        _multi_model(dev, tmp, seed)
+        # two processes on the one card can only run gloo; a sum of two is
+        # one rounding either way, so the adapters are held equal bit for bit
+        out["processes"] = _multi_procs(dev, tmp, 2, "gloo", 0.0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launched = {k: v for k, v in counts().items() if v}
+    if launched:
+        raise AssertionError(f"multi: the training and ring paths launched kernels {launched}")
+    out["launches"] = {}
+    out["wall_s"] = time.time() - t0
+    out["walls_s"] = {"ring": t_a - t0, "sharded_lora": t_b - t_a, "processes": time.time() - t_b}
+    log(f"  multi walls { {k: round(v, 1) for k, v in out['walls_s'].items()} }")
+    if out["wall_s"] > MULTI_BUDGET_S:
+        log(f"  multi: the phase took {out['wall_s']:.1f} s, over its {MULTI_BUDGET_S:.0f} s budget")
+    log(f"phase multi: ok ({out['wall_s']:.1f} s on {smi})")
+    return out
+
+
+# ``--phases multicards``: NCCL sums four partials in a ring, in another
+# order than the in-process f32 sum in replica order; AdamW's first steps
+# move an element by about lr, so an element whose near-zero gradient
+# changes sign may move by up to two steps (two processes: one rounding
+# either way, bit for bit)
+MULTICARDS_LIMITS = {2: 0.0, 4: 2 * TRAIN_LORA_LR * (1 + 2 ** -6)}
+
+
+def phase_multicards(dev, smi, seed=0, scratch=None) -> dict:
+    """Phase 20's legs across cards (``--phases multicards``, on 4 cards;
+    not in the default run): (b) in one process on tp 2 x dp 2 over four
+    cards against one device; (c) with one process a card over ``nccl``,
+    2 and 4 processes through tools/launch.py against the in-process
+    ``--dp`` run on the first card, within MULTICARDS_LIMITS; the
+    gradient all-reduce's time and share of the steps' wall."""
+    need = max(MULTICARDS_PROCS)
+    if torch.cuda.device_count() < need:
+        raise RuntimeError(f"multicards: {need} cards wanted, {torch.cuda.device_count()} visible")
+    t0 = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"sharded_lora": _multi_sharded_lora(
+        dev, seed, MULTICARDS_MESH, [torch.device("cuda", i) for i in range(need)])}
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="multicards_", dir=scratch)
+    try:
+        _multi_model(dev, tmp, seed)
+        for n in MULTICARDS_PROCS:
+            out[f"processes_{n}"] = _multi_procs(dev, tmp, n, "nccl", MULTICARDS_LIMITS[n])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = {}
+    out["wall_s"] = time.time() - t0
+    log(f"phase multicards: ok ({out['wall_s']:.1f} s on {need} x {smi})")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
                         default="kernels,model,serve,retrieval,rag,chains,filechains,drain,"
-                                "prefix,spec,observe,route,connect,tp,train,tpx,pp",
+                                "prefix,spec,observe,route,connect,tp,train,tpx,pp,multi",
                         help="phases after the build, comma-separated (default: all but "
-                             "ppcards, which wants 4 cards)")
+                             "ppcards and multicards, which want 4 cards)")
     parser.add_argument("--checks", default=",".join(CHECKS),
                         help="phase 3's kernel checks, comma-separated (default: all)")
     parser.add_argument("--recipes", default="ABCD", help="phase 5's engines (default: ABCD)")
@@ -8263,9 +8693,10 @@ def main() -> int:
                         help="leave out phase 5's runahead and overload checks")
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of phase 6's weights and passages (default: 0)")
-    parser.add_argument("--tpx-profile-shards", type=int, default=None,
-                        help="run only phase 18 (e)'s profile on N shards and print its "
-                             "reading as JSON (phase 18 starts it as a process of its own)")
+    parser.add_argument("--tpx-profile-shards", default=None,
+                        help="run only phase 18 (e)'s profile on each of these shard counts "
+                             "(comma-separated) and print the readings as JSON (phase 18 "
+                             "starts it as a process of its own)")
     args = parser.parse_args()
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -8273,7 +8704,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     if args.tpx_profile_shards is not None:
-        result = tpx_profile_child(torch.device("cuda", 0), args.seed, args.tpx_profile_shards)
+        result = tpx_profile_child(torch.device("cuda", 0), args.seed,
+                                   [int(n) for n in args.tpx_profile_shards.split(",")])
         print(json.dumps(result), flush=True)
         return 0
     # every server the phases build arms the black box (and phase 13 profiles
@@ -8325,6 +8757,9 @@ def _run(args, phases) -> int:
     tpx = phase_tpx(dev, info["smi"], args.seed) if "tpx" in phases else {}
     pp = phase_pp(dev, info["smi"], args.seed, args.scratch) if "pp" in phases else {}
     ppcards = phase_ppcards(dev, info["smi"], args.seed) if "ppcards" in phases else {}
+    multi = phase_multi(dev, info["smi"], args.seed, args.scratch) if "multi" in phases else {}
+    multicards = (phase_multicards(dev, info["smi"], args.seed, args.scratch)
+                  if "multicards" in phases else {})
     kernels = []
     tiles = results.get("tp_tiles", {})
     for name, (replaces, source) in KERNELS.items():
@@ -8338,7 +8773,7 @@ def _run(args, phases) -> int:
             "launches": sum(sv["launches"][name] for sv in serves.values())
             + sum(ph.get("launches", {}).get(name, 0)
                   for ph in (rag, chains, files, drain, prefix, spec, observe, connect, tp,
-                             train, tpx, pp, ppcards)),
+                             train, tpx, pp, ppcards, multi, multicards)),
             "tp_launches": tp.get("launches", {}).get(name, 0),
             "tpx_launches": tpx.get("launches", {}).get(name, 0),
             "pp_launches": pp.get("launches", {}).get(name, 0),
@@ -8362,6 +8797,8 @@ def _run(args, phases) -> int:
         "tpx": {k: v for k, v in tpx.items() if k != "launches"},
         "pp": {k: v for k, v in pp.items() if k != "launches"},
         "ppcards": {k: v for k, v in ppcards.items() if k != "launches"},
+        "multi": {k: v for k, v in multi.items() if k != "launches"},
+        "multicards": {k: v for k, v in multicards.items() if k != "launches"},
         "tp_tiles": {k: v for k, v in tiles.items() if k not in results},
         "sampling": results.get("sampling")}), flush=True)
     print(info["smi"], flush=True)

@@ -767,7 +767,7 @@ class LLMEngine:
             dev = resolve_device(device)
             devices = [dev] if device is not None else mesh_mod.visible_devices()
             stages, tp = self._resolve_parallelism(cfg, model_cfg, devices)
-            mesh = mesh_mod.create_mesh(tp, stages, devices=devices)
+            mesh = mesh_mod.create_mesh(tp, pipeline_parallelism=stages, devices=devices)
             # the first shard's device, by index: a thread's current device
             # may be another shard's while its kernels launch
             self.device = dev if device is not None else mesh.home
@@ -775,6 +775,11 @@ class LLMEngine:
             self.device = resolve_device(mesh.home)
             if device is not None and torch.device(device) != self.device:
                 raise ValueError(f"device={device} is not the mesh's first device {self.device}")
+        if mesh.data > 1 or mesh.seq > 1:
+            raise ValueError(
+                f"the engine serves the pipe and model axes; a mesh of data={mesh.data}, "
+                f"seq={mesh.seq} is a training mesh (models/train.py)"
+            )
         self._mesh = mesh
         self._tp: Optional[tp_kernels.TPContext] = None
         self._pp: Optional[pp_serving.PPContext] = None

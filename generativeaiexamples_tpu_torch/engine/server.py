@@ -196,6 +196,8 @@ class _Handler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
     app: ModelServer  # set on the subclass make_server builds
     status = 500  # the status sent, for the request accounting
+    route = "unmatched"  # the route pattern the request counts under
+    _accounting = None  # (method, start, span) until the request is counted
 
     def log_message(self, fmt, *args):  # route access logs through logging
         logger.debug("%s " + fmt, self.address_string(), *args)
@@ -203,6 +205,17 @@ class _Handler(BaseHTTPRequestHandler):
     def send_response(self, code, message=None):
         self.status = code
         super().send_response(code, message)
+
+    def count_request(self) -> None:
+        """Count the request once, in JAX's order: a non-streamed reply
+        before its bytes go out (``_send``, ``_json``; aiohttp writes a
+        returned response after the metrics middleware has counted it), a
+        stream when it ends (``_traced``'s ``finally``)."""
+        if self._accounting is None:
+            return
+        method, start, span = self._accounting
+        self._accounting = None
+        observability.request_finished(self.route, method, self.status, start, span)
 
     def _traced(self, method: str, serve) -> None:
         """Run ``serve`` under the request's span (its context attached
@@ -214,17 +227,16 @@ class _Handler(BaseHTTPRequestHandler):
             f"{method} {path}", remote_ctx=tracer.extract(self.headers),
             attributes={"http.method": method, "http.target": path},
         )
-        self.status = 500
-        start = observability.request_started()
-        route = "unmatched"
+        self.status, self.route = 500, "unmatched"
+        self._accounting = (method, observability.request_started(), span)
         tracer.attach_context(getattr(span, "context", None))
         try:
             hit = observability.dispatch(method, self.path, self.headers, self._raw)
             if hit is not None:
-                route, (status, headers, body) = hit
+                self.route, (status, headers, body) = hit
                 self._send(status, headers, body)
             else:
-                route = _route_pattern(method, path)
+                self.route = _route_pattern(method, path)
                 serve()
         except BaseException as exc:
             span.record_exception(exc)
@@ -235,10 +247,12 @@ class _Handler(BaseHTTPRequestHandler):
             if self.status >= 500:
                 span.status = "ERROR"
             tracer.finish_span(span, system_metrics=True)
-            observability.request_finished(route, method, self.status, start, span)
+            self.count_request()
 
     def _send(self, status: int, headers: Dict[str, str], data: bytes) -> None:
         self.responded = True
+        self.status = status
+        self.count_request()
         self.send_response(status)
         for name, value in headers.items():
             self.send_header(name, value)
@@ -249,6 +263,8 @@ class _Handler(BaseHTTPRequestHandler):
     def _json(self, status: int, body: Dict[str, Any], headers: Optional[Dict[str, str]] = None) -> None:
         data = json.dumps(body).encode()
         self.responded = True
+        self.status = status
+        self.count_request()
         self.send_response(status)
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(data)))

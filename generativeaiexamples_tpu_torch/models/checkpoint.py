@@ -7,6 +7,14 @@ state as nested dicts and lists of tensors (dataclasses such as
 ``train.TrainState`` become dicts of their fields), written by
 ``torch.save`` and read by ``torch.load(weights_only=True)``.
 
+A sharded state (the train step's on a mesh, ``sharding.Shards`` leaves)
+is saved whole: each leaf's pieces are joined on their cut axis on the
+first piece's device. In a process group only process 0 writes, and
+every process waits at a barrier until the step is on disk. ``restore``
+cuts each saved leaf the way the template's is cut, onto the template's
+devices, so a checkpoint resumes on any mesh (and bit for bit on the
+mesh that wrote it).
+
 A save writes a temporary directory and renames it into place, so a save
 cut short leaves ``latest_step`` at the last whole one; the oldest steps
 beyond ``max_to_keep`` are deleted after each save. ``restore`` reads
@@ -24,6 +32,9 @@ from typing import Any, List, Optional
 
 import torch
 
+from generativeaiexamples_tpu_torch.parallel import multihost, sharding
+from generativeaiexamples_tpu_torch.parallel.sharding import Shards
+
 logger = logging.getLogger(__name__)
 
 _STATE = "state.pt"
@@ -34,6 +45,8 @@ def _to_tree(obj):
         return {f.name: _to_tree(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
     if isinstance(obj, dict):
         return {k: _to_tree(v) for k, v in obj.items()}
+    if isinstance(obj, Shards):
+        return sharding.unshard(obj, obj[0].device).detach()
     if isinstance(obj, (list, tuple)):
         return [_to_tree(v) for v in obj]
     if isinstance(obj, torch.Tensor):
@@ -52,6 +65,10 @@ def _onto(template, saved, where: str = "state"):
         if set(template) != set(saved):
             raise ValueError(f"{where}: keys {sorted(saved)} do not match the template's {sorted(template)}")
         return {k: _onto(v, saved[k], f"{where}.{k}") for k, v in template.items()}
+    if isinstance(template, Shards):
+        pieces = torch.chunk(saved, len(template), dim=template.dim)
+        return template.like(_onto(t, p.contiguous(), f"{where}[{i}]")
+                             for i, (t, p) in enumerate(zip(template, pieces)))
     if isinstance(template, (list, tuple)):
         if len(template) != len(saved):
             raise ValueError(f"{where}: {len(saved)} entries, the template has {len(template)}")
@@ -85,7 +102,13 @@ class CheckpointManager:
 
     def save(self, step: int, state: Any, wait: bool = False) -> None:
         """Write ``state`` as step ``step`` (synchronously; ``wait`` is
-        accepted for the JAX manager's signature)."""
+        accepted for the JAX manager's signature); in a process group
+        process 0 writes, behind a barrier of every process."""
+        if multihost.process_index() == 0:
+            self._write(step, state)
+        multihost.barrier()
+
+    def _write(self, step: int, state: Any) -> None:
         final = self._path(step)
         tmp = os.path.join(self._dir, f".{int(step)}.tmp-{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)

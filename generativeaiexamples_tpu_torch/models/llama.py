@@ -319,8 +319,25 @@ def _proj(x: torch.Tensor, w, quant_kernel=None, name: str = "", tp=None,
     else:
         out = x @ w
     if lora is not None and f"{name}_a" in lora:
-        out = out + (lora_scale * ((x @ lora[f"{name}_a"]) @ lora[f"{name}_b"])).to(out.dtype)
+        out = out + (lora_scale * _lora_product(x, lora[f"{name}_a"], lora[f"{name}_b"], tp)
+                     ).to(out.dtype)
     return out
+
+
+def _lora_product(x: torch.Tensor, a, b, tp=None) -> torch.Tensor:
+    """``(x @ A) @ B``, each factor whole or cut by models/lora.py's
+    ``lora_param_specs``: a row-parallel target's A is cut on its input
+    axis, so the shards' ``x_i @ A_i`` are partial sums, reduced
+    (``tp_kernels.reduce_sum``) before ``@ B``; a column-parallel target's
+    B is cut on its output axis, the shards' columns concatenated."""
+    if isinstance(a, Shards):
+        xa = tp_kernels.reduce_sum(tp_kernels.map_shards(
+            lambda al, xl: xl @ al, tp, a, tp_kernels.scatter(x, tp, -1)), tp)
+    else:
+        xa = x @ a
+    if isinstance(b, Shards):
+        return tp_kernels.gather(tp_kernels.map_shards(lambda bl, xl: xl @ bl, tp, b, xa), tp, -1)
+    return xa @ b
 
 
 def _lora_delta(x: torch.Tensor, lora, name: str, scale: float) -> Optional[torch.Tensor]:
@@ -339,6 +356,14 @@ def _block(h, lp, cfg: LlamaConfig, positions, attn, quant_kernel=None, tp=None,
     come back whole (replicated), their heads the shards' in order.
     ``lora`` carries this layer's adapters (fine-tuning; serving merges
     them instead), applied on a fused pack's output slices too."""
+    q, k, v = _qkv(h, lp, cfg, positions, quant_kernel, tp, lora, lora_scale)
+    return _block_out(h, attn(q, k, v), lp, cfg, quant_kernel, tp, lora, lora_scale)
+
+
+def _qkv(h, lp, cfg: LlamaConfig, positions, quant_kernel=None, tp=None, lora=None,
+         lora_scale: float = 1.0):
+    """A block's attention inputs: q ``[B, T, Hq, Dh]`` and k
+    ``[B, T, Hkv, Dh]`` roped, v ``[B, T, Hkv, Dh]``."""
     B, T = h.shape[:2]
     x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
     if "wqkv" in lp:  # int8-fused serving layout (ops/quant.py)
@@ -355,7 +380,14 @@ def _block(h, lp, cfg: LlamaConfig, positions, attn, quant_kernel=None, tp=None,
     q = apply_rope(q.reshape(B, T, cfg.num_heads, cfg.head_dim), positions, cfg)
     k = apply_rope(k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim), positions, cfg)
     v = v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-    attn_out = attn(q, k, v)
+    return q, k, v
+
+
+def _block_out(h, attn_out, lp, cfg: LlamaConfig, quant_kernel=None, tp=None, lora=None,
+               lora_scale: float = 1.0):
+    """The rest of a block after its attention: ``wo``, the residual, the
+    MLP and its residual."""
+    B, T = h.shape[:2]
     h = h + _proj(attn_out.reshape(B, T, cfg.q_dim), lp["wo"], quant_kernel, "wo", tp,
                   lora, lora_scale)
     x = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
@@ -391,30 +423,105 @@ def forward(
     lora: Optional[List[Dict[str, torch.Tensor]]] = None,
     lora_scale: float = 1.0,
     quant_kernel=None,
+    tp=None,
 ) -> torch.Tensor:
     """The decoder without a cache (training, the merge checks): plain
     causal attention over the T tokens by position, f32 logits [B, T, V].
     JAX's cache-free ``forward`` path; ``lora`` is one adapter dict a
     layer (models/lora.py). Under ``remat`` each layer runs under
     ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint`` per layer):
-    backward recomputes a layer's activations instead of keeping them."""
-    h = params["embed"][tokens.long()]
-    mask = positions[:, :, None] >= positions[:, None, :]
+    backward recomputes a layer's activations instead of keeping them.
+    Under ``tp`` (a ``TPContext``) the weights and adapters cut into
+    ``Shards`` run on their shards (``_proj``); the rest stays whole on
+    the first shard's device. A sequence cut over a mesh's ``seq`` axis is
+    :func:`forward_seq`."""
+    return forward_seq([params], cfg, [tokens], [positions], remat,
+                       None if lora is None else [lora], lora_scale, [tp], quant_kernel)[0]
 
-    def attn(q, k, v):
-        return _attention(q, k, v, mask)
 
-    for i, lp in enumerate(params["layers"]):
-        lo = None if lora is None else lora[i]
+class _RecomputeOnce(torch.autograd.Function):
+    """Identity over a checkpointed layer's outputs, one autograd node for
+    all of them, that saves a scalar. In the backward this node runs
+    first of the segment's, and its unpack recomputes the segment, once,
+    on one thread. A segment whose ops span cards (TP or seq shards on
+    distinct cards) has nodes on several of autograd's device threads;
+    without this node two of them reach the segment's saved tensors at
+    once and each starts a recompute, which the non-reentrant checkpoint
+    does not guard (it fails "Unexpected state: target_frame.early_stop
+    is set")."""
 
-        def layer(h, lp=lp, lo=lo):
-            return _block(h, lp, cfg, positions, attn, quant_kernel, lora=lo, lora_scale=lora_scale)
+    @staticmethod
+    def forward(ctx, token, *outs):
+        ctx.save_for_backward(token)
+        return tuple(o.view_as(o) for o in outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.saved_tensors  # the segment's first unpack: its recompute
+        return (None, *grads)
+
+
+def _spans_cards(tps, tokens) -> bool:
+    """Whether a layer of :func:`forward_seq` runs on more than one
+    device (its shards' and its seq shards')."""
+    return len({str(d) for tp in tps if tp is not None for d in tp.devices}
+               | {str(t.device) for t in tokens}) > 1
+
+
+def forward_seq(
+    params: List[Params],
+    cfg: LlamaConfig,
+    tokens: List[torch.Tensor],  # shard s's [B, T_s] ids
+    positions: List[torch.Tensor],  # shard s's [B, T_s] absolute positions
+    remat: bool = False,
+    lora: Optional[List[List[Dict[str, torch.Tensor]]]] = None,
+    lora_scale: float = 1.0,
+    tps: Optional[List] = None,
+    quant_kernel=None,
+) -> List[torch.Tensor]:
+    """:func:`forward` with the sequence cut over a mesh's ``seq`` shards:
+    shard ``s`` holds its own rows of the sequence, its own copy of the
+    weights (``params[s]``, ``lora[s]``, placed on its devices) and its
+    ``TPContext`` (``tps[s]``, None for one device); returns each shard's
+    f32 logits ``[B, T_s, V]`` on its first device.
+
+    The shards run each layer in lockstep: every shard's q, k and v
+    first, then each shard's attention over K and V gathered from the
+    whole ring (``.to`` copies, which autograd differentiates) with the
+    causal mask on global positions, through the same ``_attention`` as
+    the one-device forward, so each row has the one-device arithmetic,
+    the bf16 rounding of P included (an online-softmax ring would round
+    otherwise). Under ``remat`` one layer of every shard is one
+    checkpointed segment. One shard is :func:`forward`."""
+    n = len(params)
+    tps = tps if tps is not None else [None] * n
+    spans_cards = _spans_cards(tps, tokens)
+    hs = [p["embed"][t.long()] for p, t in zip(params, tokens)]
+    masks = [pos[:, :, None] >= torch.cat([p.to(pos.device) for p in positions], 1)[:, None, :]
+             for pos in positions]
+    for i in range(len(params[0]["layers"])):
+        los = [None if lora is None else lora[s][i] for s in range(n)]
+
+        def layer(*hs, i=i, los=los):
+            qkv = [_qkv(hs[s], params[s]["layers"][i], cfg, positions[s], quant_kernel, tps[s],
+                        los[s], lora_scale) for s in range(n)]
+            out = []
+            for s in range(n):
+                dev = hs[s].device
+                k = torch.cat([qkv[r][1].to(dev) for r in range(n)], dim=1)
+                v = torch.cat([qkv[r][2].to(dev) for r in range(n)], dim=1)
+                attn_out = _attention(qkv[s][0], k, v, masks[s])
+                out.append(_block_out(hs[s], attn_out, params[s]["layers"][i], cfg, quant_kernel,
+                                      tps[s], los[s], lora_scale))
+            if spans_cards and remat:
+                return _RecomputeOnce.apply(torch.zeros((), device=out[0].device), *out)
+            return tuple(out)
 
         if remat and torch.is_grad_enabled():
-            h = torch.utils.checkpoint.checkpoint(layer, h, use_reentrant=False)
+            hs = torch.utils.checkpoint.checkpoint(layer, *hs, use_reentrant=False)
         else:
-            h = layer(h)
-    return _head(params, h, cfg, quant_kernel)
+            hs = layer(*hs)
+    return [_head(params[s], hs[s], cfg, quant_kernel, tps[s]) for s in range(n)]
 
 
 def count_params(params) -> int:

@@ -9,19 +9,21 @@ Convention: for a base weight W [in, out], A ~ N(0, 1/in), B = 0 (the
 delta starts at 0), effective weight W + (alpha/r) · A·B; models/llama.py
 applies the delta in ``_proj``. ``merge`` folds the adapters into a copy
 of the base weights for serving, so the engine never pays the extra
-matmul. Sharding the adapters (JAX's ``lora_param_specs``,
-``shard_lora_params``) waits for sharded training (ROADMAP queue 1 item
-15).
+matmul. On a mesh (``shard_lora_params``, JAX's ``lora_param_specs``):
+a column-parallel target's B is cut on its output axis like the weight
+it perturbs, a row-parallel target's (``wo``, ``w_down``) A on its input
+axis, and the other factor stays whole.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from generativeaiexamples_tpu_torch.models.llama import LlamaConfig, Params
+from generativeaiexamples_tpu_torch.models.llama import LlamaConfig, Params, count_params
+from generativeaiexamples_tpu_torch.parallel import sharding
 
 # projection name -> (in_dim, out_dim) extractor
 _TARGET_DIMS = {
@@ -33,6 +35,10 @@ _TARGET_DIMS = {
     "w_up": lambda c: (c.hidden_size, c.intermediate_size),
     "w_down": lambda c: (c.intermediate_size, c.hidden_size),
 }
+
+# Column-parallel targets shard B's out dim on the model axis; row-parallel
+# targets (wo, w_down) shard A's in dim instead (matching param_specs()).
+_ROW_PARALLEL = {"wo", "w_down"}
 
 LoRAParams = List[Dict[str, torch.Tensor]]
 
@@ -74,6 +80,35 @@ def init_lora_params(
     return layers
 
 
+def lora_param_specs(lora_cfg: LoRAConfig) -> Dict[str, Optional[int]]:
+    """The axis each adapter of a layer is cut on over the ``model`` axis,
+    from the end (-2 A's input axis, -1 B's output axis; None: whole on
+    every shard), JAX's ``lora_param_specs`` without its layer axis."""
+    specs: Dict[str, Optional[int]] = {}
+    for target in lora_cfg.targets:
+        row = target in _ROW_PARALLEL
+        specs[f"{target}_a"] = -2 if row else None
+        specs[f"{target}_b"] = None if row else -1
+    return specs
+
+
+def shard_lora_params(lora_params: LoRAParams, lora_cfg: LoRAConfig, mesh) -> LoRAParams:
+    """The adapters cut by :func:`lora_param_specs` over the mesh's
+    ``model`` sub-mesh (``sharding.model_mesh``): a cut leaf becomes a
+    ``Shards``, a whole one goes to the sub-mesh's first device, where
+    the replicated activations live; with one ``model`` shard every
+    adapter stays whole there."""
+    tp_mesh = sharding.model_mesh(mesh)
+    specs = lora_param_specs(lora_cfg)
+
+    def put(name, x):
+        if tp_mesh.size == 1 or specs[name] is None:
+            return x.to(tp_mesh.home)
+        return sharding.cut(x, tp_mesh.size, specs[name], tp_mesh.devices)
+
+    return [{name: put(name, x) for name, x in lp.items()} for lp in lora_params]
+
+
 def merge(params: Params, lora_params: LoRAParams, lora_cfg: LoRAConfig) -> Params:
     """Fold adapters into a copy of the base params: W += (alpha/r)·A·B,
     computed in f32 and cast back to W's dtype (the base is not touched;
@@ -91,4 +126,5 @@ def merge(params: Params, lora_params: LoRAParams, lora_cfg: LoRAConfig) -> Para
 
 
 def count_lora_params(lora_params: LoRAParams) -> int:
-    return sum(t.numel() for lp in lora_params for t in lp.values())
+    """Elements of every adapter (a cut one's pieces together)."""
+    return count_params(lora_params)

@@ -29,17 +29,28 @@ tree serves every shard count and computes one function.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from generativeaiexamples_tpu_torch.ops import quant
-from generativeaiexamples_tpu_torch.parallel.mesh import Mesh
+from generativeaiexamples_tpu_torch.parallel import multihost
+from generativeaiexamples_tpu_torch.parallel.mesh import DATA_AXIS, SEQ_AXIS, Mesh
 
 
 class Shards(list):
     """One piece a shard of a sharded leaf (a tensor, an int8 pack or a
-    layer's cache dict), in shard order."""
+    layer's cache dict), in shard order. ``dim`` is the axis a tensor was
+    cut on (:func:`cut`; from the end where negative), which
+    :func:`unshard` joins the pieces on."""
+
+    dim: Optional[int] = None
+
+    def like(self, pieces) -> "Shards":
+        """``pieces`` as a Shards cut on this one's axis."""
+        out = Shards(pieces)
+        out.dim = self.dim
+        return out
 
 
 def param_specs() -> Dict[str, Any]:
@@ -66,7 +77,45 @@ def cut(x: torch.Tensor, n: int, dim: int, devices) -> Shards:
     its device."""
     if x.shape[dim] % n:
         raise ValueError(f"axis {dim} of {tuple(x.shape)} not divisible by {n} shards")
-    return Shards(p.to(d).contiguous() for p, d in zip(torch.chunk(x, n, dim=dim), devices))
+    out = Shards(p.to(d).contiguous() for p, d in zip(torch.chunk(x, n, dim=dim), devices))
+    out.dim = dim
+    return out
+
+
+def unshard(x, device):
+    """A tree whose :class:`Shards` of tensors are joined whole on their
+    cut axis, every tensor on ``device`` (the inverse of :func:`cut`)."""
+    if isinstance(x, Shards):
+        return torch.cat([unshard(p, device) for p in x], dim=x.dim)
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, dict):
+        return {k: unshard(v, device) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [unshard(v, device) for v in x]
+    return x
+
+
+def activation_spec(seq_sharded: bool = False) -> Tuple[Optional[str], ...]:
+    """The mesh axis each axis of ``[B, T, D]`` activations is cut on
+    (JAX's ``PartitionSpec`` as a tuple): batch on ``data``, the sequence
+    on ``seq`` under ``seq_sharded``."""
+    return (DATA_AXIS, SEQ_AXIS if seq_sharded else None, None)
+
+
+def token_spec(seq_sharded: bool = False) -> Tuple[Optional[str], ...]:
+    """The same for ``[B, T]`` token ids and loss masks."""
+    return (DATA_AXIS, SEQ_AXIS if seq_sharded else None)
+
+
+def model_mesh(mesh: Mesh) -> Mesh:
+    """The ``model`` sub-mesh a parameter tree is cut over: the mesh
+    itself for a (``model``) mesh; on a training mesh with ``data`` or
+    ``seq`` axes, the first sequence shard of this process's first data
+    replica, where the train step keeps its state (models/train.py)."""
+    if mesh.data == 1 and mesh.seq == 1 and mesh.processes == 1:
+        return mesh
+    return mesh.tp_mesh(mesh.process_replicas(multihost.process_index())[0], 0)
 
 
 def _put(x, axis: Optional[int], mesh: Mesh):
@@ -100,7 +149,13 @@ def shard_params(params: Dict[str, Any], mesh: Mesh, repack_cfg=None) -> Dict[st
     ``params`` is in the mesh's per-shard layout (dense, or
     ``quant.quantize_params_int8(..., mesh.size)``); with ``repack_cfg``
     (the model config) it is a single-device tree, laid out again one
-    layer at a time first (``quant.repack_params_int8``)."""
+    layer at a time first (``quant.repack_params_int8``). On a training
+    mesh the tree is cut over :func:`model_mesh` (whole on its one device
+    where the ``model`` axis is 1)."""
+    if mesh is not model_mesh(mesh):
+        mesh = model_mesh(mesh)
+        if mesh.size == 1:
+            return unshard(params, mesh.home)
     repack = repack_cfg is not None and mesh.size > 1
     out = {}
     for key, val in params.items():

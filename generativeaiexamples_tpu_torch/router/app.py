@@ -1018,6 +1018,8 @@ class _Handler(BaseHTTPRequestHandler):
     status = 500  # the status sent, for the request accounting
     url = None  # the request target, split
     _raw: Optional[bytes] = None  # the request body, once read
+    route = "unmatched"  # the route pattern the request counts under
+    _accounting = None  # (method, start) until the request is counted
 
     def log_message(self, fmt, *args):  # access logs through logging
         logger.debug("%s " + fmt, self.address_string(), *args)
@@ -1026,9 +1028,22 @@ class _Handler(BaseHTTPRequestHandler):
         self.status = code
         super().send_response(code, message)
 
+    def count_request(self) -> None:
+        """Count the request once, in JAX's order: a non-streamed reply
+        before its bytes go out (``reply``; aiohttp writes a returned
+        response after the metrics middleware has counted it), a stream
+        when it ends (``_route``'s ``finally``)."""
+        if self._accounting is None:
+            return
+        method, start = self._accounting
+        self._accounting = None
+        observability.request_finished(self.route, method, self.status, start, self.trace_span)
+
     # -- output --------------------------------------------------------- #
     def reply(self, resp: Response) -> None:
         status, headers, body = resp
+        self.status = status
+        self.count_request()
         self.send_response(status)
         for name, value in {**headers, **_CORS}.items():
             self.send_header(name, value)
@@ -1074,11 +1089,10 @@ class _Handler(BaseHTTPRequestHandler):
             f"{method} {self.url.path}", remote_ctx=tracer.extract(self.headers),
             attributes={"http.method": method, "http.target": self.url.path},
         )
-        self.trace_span, self.status = span, 500
-        start = observability.request_started()
-        route = "unmatched"
+        self.trace_span, self.status, self.route = span, 500, "unmatched"
+        self._accounting = (method, observability.request_started())
         try:
-            route = self._serve(method)
+            self._serve(method)
             if self._raw is None and method != "GET":
                 self.body()  # a body nobody read must not be parsed as the next request
         except _ClientGone:
@@ -1095,31 +1109,33 @@ class _Handler(BaseHTTPRequestHandler):
             if self.status >= 500:
                 span.status = "ERROR"
             tracer.finish_span(span, system_metrics=True)
-            observability.request_finished(route, method, self.status, start, span)
+            self.count_request()
 
-    def _serve(self, method: str) -> str:
-        """Serve the request; returns its route pattern."""
+    def _serve(self, method: str) -> None:
+        """Serve the request, its route pattern in ``self.route`` before
+        any reply goes out."""
         if method == "OPTIONS":
             self.reply((204, {}, b""))
-            return "unmatched"
+            return
         path = self.url.path
         for m, pattern, rx, fn in _ROUTES:
             if m != method:
                 continue
             hit = rx.fullmatch(path)
             if hit:
+                self.route = pattern
                 try:
                     result = getattr(self.router, fn)(self, hit)
                 except ValueError as exc:  # an oversized body
                     result = json_response({"detail": str(exc)}, status=413)
                 if result is not None:
                     self.reply(result)
-                return pattern
+                return
         hit = observability.dispatch(method, self.path, self.headers, self.body)
         if hit is not None:
-            pattern, resp = hit
+            self.route, resp = hit
             self.reply(resp)
-            return pattern
+            return
         allowed = ([m for m, _, rx, _ in _ROUTES if rx.fullmatch(path)]
                    or observability.paths_served(path))
         if allowed:
@@ -1127,7 +1143,6 @@ class _Handler(BaseHTTPRequestHandler):
                               "Allow": ",".join(allowed)}, b"405: Method Not Allowed"))
         else:
             self.reply((404, {"Content-Type": "text/plain; charset=utf-8"}, b"404: Not Found"))
-        return "unmatched"
 
     def do_GET(self):  # noqa: N802 - http.server's naming
         self._route("GET")

@@ -547,6 +547,8 @@ class _Handler(BaseHTTPRequestHandler):
     app: ChainServer  # set on the subclass make_server builds
     trace_span = None  # the request's span (set per request)
     status = 500  # the status sent, for the request accounting
+    route = "unmatched"  # the route pattern the request counts under
+    _accounting = None  # (method, start) until the request is counted
 
     def log_message(self, fmt, *args):  # access logs through logging
         logger.debug("%s " + fmt, self.address_string(), *args)
@@ -555,9 +557,22 @@ class _Handler(BaseHTTPRequestHandler):
         self.status = code
         super().send_response(code, message)
 
+    def count_request(self) -> None:
+        """Count the request once, in JAX's order: a non-streamed reply
+        before its bytes go out (``reply``; aiohttp writes a returned
+        response after the metrics middleware has counted it), a stream
+        when it ends (``_route``'s ``finally``)."""
+        if self._accounting is None:
+            return
+        method, start = self._accounting
+        self._accounting = None
+        observability.request_finished(self.route, method, self.status, start, self.trace_span)
+
     # -- output --------------------------------------------------------- #
     def reply(self, r: _Reply) -> None:
         data = r.body if isinstance(r.body, bytes) else json.dumps(r.body).encode()
+        self.status = r.status
+        self.count_request()
         self.send_response(r.status)
         if r.content_type:
             self.send_header("Content-Type", r.content_type)
@@ -616,11 +631,10 @@ class _Handler(BaseHTTPRequestHandler):
             f"{method} {url.path}", remote_ctx=tracer.extract(self.headers),
             attributes={"http.method": method, "http.target": url.path},
         )
-        self.trace_span, self.status = span, 500
-        start = observability.request_started()
-        route = "unmatched"
+        self.trace_span, self.status, self.route = span, 500, "unmatched"
+        self._accounting = (method, observability.request_started())
         try:
-            route = self._serve(method, url)
+            self._serve(method, url)
         except BaseException as exc:
             span.record_exception(exc)
             raise
@@ -629,15 +643,16 @@ class _Handler(BaseHTTPRequestHandler):
             if self.status >= 500:
                 span.status = "ERROR"
             tracer.finish_span(span, system_metrics=True)
-            observability.request_finished(route, method, self.status, start, span)
+            self.count_request()
 
-    def _serve(self, method: str, url) -> str:
-        """Serve the request; returns its route pattern."""
+    def _serve(self, method: str, url) -> None:
+        """Serve the request, its route pattern in ``self.route`` before
+        any reply goes out."""
         hit = observability.dispatch(method, self.path, self.headers, self._body)
         if hit is not None:
-            pattern, (status, headers, body) = hit
+            self.route, (status, headers, body) = hit
             self.reply(_Reply(status, body, content_type=headers["Content-Type"]))
-            return pattern
+            return
         path, app = url.path, self.app
         routes = {
             ("GET", "/health"): app.health,
@@ -653,10 +668,10 @@ class _Handler(BaseHTTPRequestHandler):
             ("GET", "/internal/snapshots"): lambda: _Reply(*snapshots_route()),
             ("POST", "/internal/restore"): self._restore,
         }
-        pattern = path
+        self.route = path
         match = re.fullmatch(r"/internal/snapshots/([^/]+)", path)
         if match:
-            pattern = "/internal/snapshots/{id}"
+            self.route = "/internal/snapshots/{id}"
             routes[("GET", path)] = lambda: _Reply(
                 *snapshot_route(urllib.parse.unquote(match.group(1))))
         try:
@@ -664,7 +679,7 @@ class _Handler(BaseHTTPRequestHandler):
                 raise _Reply(204, b"", content_type="")
             route = routes.get((method, path))
             if route is None:
-                pattern = "unmatched"
+                self.route = "unmatched"
                 allowed = ([m for (m, p) in routes if p == path]
                            or observability.paths_served(path))
                 if allowed:
@@ -677,7 +692,6 @@ class _Handler(BaseHTTPRequestHandler):
                 self.reply(result)
         except _Reply as r:
             self.reply(r)
-        return pattern
 
     def do_GET(self):  # noqa: N802 - http.server's naming
         self._route("GET")

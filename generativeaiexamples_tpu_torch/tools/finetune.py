@@ -1,4 +1,5 @@
-"""Fine-tuning CLI: SFT and LoRA on the Llama decoder, on one device.
+"""Fine-tuning CLI: SFT and LoRA on the Llama decoder, on one device or a
+(data, seq, model) mesh.
 
 Counterpart of the JAX repository's tools/finetune.py, flag for flag,
 plus ``--device`` (default ``cuda``; ``cpu`` for the CPU):
@@ -11,16 +12,31 @@ plus ``--device`` (default ``cuda``; ``cpu`` for the CPU):
   for the same data and seed;
 - model: a models/llama.py preset (random weights from ``--seed``) or a
   HF checkpoint directory (models/hf_loader.py);
+- parallelism: ``--tp``, ``--dp``, ``--sp`` make JAX's ``create_mesh(tp,
+  dp, sp)`` (models/train.py's sharded step; ``--sp`` above 1 cuts the
+  sequence). ``--device cuda`` meshes over the visible cards (``--tp -1``
+  takes every one left); ``--device cpu`` or an indexed card
+  (``cuda:0``) names one device, which the mesh repeats as often as it
+  needs (its shards run one after another there);
+- many processes: under JAX's env contract (``COORDINATOR_ADDRESS``,
+  ``NUM_PROCESSES``, ``PROCESS_ID``; ``tools/launch.py`` sets it) the CLI
+  joins the process group (parallel/multihost.py), builds the hybrid
+  mesh (``--dp`` data replicas, one a process; ``--tp`` x ``--sp`` on
+  each process's own device, ``cuda:(rank % cards)`` under ``--device
+  cuda``), reads its ``local_batch_slice`` of each batch, and the step
+  all-reduces the gradients; process 0 alone writes the checkpoint, the
+  merged npz and the last line;
 - checkpoint/resume: models/checkpoint.py, step-numbered, ``--resume``
   picks up the latest;
 - LoRA: ``--merge-out`` writes the base + adapter merged weights in JAX's
   npz layout (``layers/wq`` stacked on a layer axis, f32), which each
   package's ``load_merged`` reads.
 
-Training runs on one device: ``--tp -1`` (the default) resolves to one,
-and ``--tp``, ``--dp`` or ``--sp`` above 1 raise at start (sharded
-training is ROADMAP queue 1 item 15). The last line of standard output is
-``{"final_loss": ..., "steps": ...}``.
+The last line of standard output is ``{"final_loss": ..., "steps": ...}``;
+on a mesh a ``parallel: {...}`` line on standard error first gives the
+mesh, the backend, when the group was joined (seconds after ``main``
+began, and the epoch time), the steps' wall and the all-reduces'
+(``multihost.COLLECTIVE_STATS``).
 """
 from __future__ import annotations
 
@@ -34,11 +50,9 @@ from typing import Dict, Iterator, List
 import numpy as np
 import torch
 
-SHARDED = "sharded training (--tp/--dp/--sp above 1) is ROADMAP queue 1 item 15; this CLI trains on one device"
-
 
 def parse_args(argv: List[str]) -> argparse.Namespace:
-    p = argparse.ArgumentParser(description="SFT / LoRA fine-tuning on one device")
+    p = argparse.ArgumentParser(description="SFT / LoRA fine-tuning on one device or a mesh")
     p.add_argument("--model", default="debug", help="preset name or HF checkpoint dir")
     p.add_argument("--data", required=True, help="JSONL training data")
     p.add_argument("--mode", choices=["sft", "lora"], default="lora")
@@ -52,7 +66,7 @@ def parse_args(argv: List[str]) -> argparse.Namespace:
     p.add_argument(
         "--targets", default="wq,wk,wv,wo", help="comma-separated LoRA target projections"
     )
-    p.add_argument("--tp", type=int, default=-1, help="tensor parallelism (-1 = one device)")
+    p.add_argument("--tp", type=int, default=-1, help="tensor parallelism (-1 = all devices)")
     p.add_argument("--dp", type=int, default=1, help="data parallelism")
     p.add_argument("--sp", type=int, default=1, help="sequence parallelism")
     p.add_argument("--ckpt-dir", default=None)
@@ -61,7 +75,8 @@ def parse_args(argv: List[str]) -> argparse.Namespace:
     p.add_argument("--merge-out", default=None, help="write merged LoRA weights here (npz)")
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", default="cuda", help="cuda (the card) or cpu")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the visible cards), one device (cpu, cuda:0) repeated as the mesh needs")
     return p.parse_args(argv)
 
 
@@ -125,24 +140,48 @@ def batches(
             }
 
 
-def resolve_device(args: argparse.Namespace) -> torch.device:
-    """The one device training runs on; a mesh of more than one device
-    raises (item 15), and ``cuda`` without a card raises."""
-    for flag in ("tp", "dp", "sp"):
-        if getattr(args, flag) > 1:
-            raise SystemExit(f"--{flag} {getattr(args, flag)}: {SHARDED}")
-    if args.tp not in (-1, 1) or args.dp < 1 or args.sp < 1:
+def resolve_mesh(args: argparse.Namespace):
+    """The training mesh of ``--tp/--dp/--sp`` and ``--device``: JAX's
+    ``create_mesh`` over the visible cards (``--device cuda``) or over one
+    named device repeated; under a process group the hybrid mesh, one
+    data replica a process. ``cuda`` without a card raises."""
+    from generativeaiexamples_tpu_torch.parallel import mesh as mesh_mod, multihost
+
+    if args.tp == 0 or args.tp < -1 or args.dp < 1 or args.sp < 1:
         raise SystemExit(f"--tp must be -1 or >= 1, --dp and --sp >= 1 (got {args.tp}, {args.dp}, {args.sp})")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    named = torch.device(args.device)
+    if named.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is visible (pass --device cpu for the CPU)")
-    return device
+    one = named.type == "cpu" or named.index is not None
+    tp = 1 if args.tp == -1 and one else args.tp
+    try:
+        if multihost.process_count() > 1:
+            inner = args.sp * max(tp, 1)
+            devices = [d for r in range(multihost.process_count())
+                       for d in [named if one else multihost.local_device(r)] * inner]
+            return multihost.create_hybrid_mesh(args.dp, 1, tp, args.sp, devices=devices)
+        if one:
+            return mesh_mod.create_mesh(tp, args.dp, args.sp, devices=[named] * (tp * args.dp * args.sp))
+        return mesh_mod.create_mesh(tp, args.dp, args.sp, devices=mesh_mod.visible_devices())
+    except ValueError as exc:
+        raise SystemExit(f"--tp {args.tp} --dp {args.dp} --sp {args.sp}: {exc}") from None
 
 
 def main(argv: List[str] | None = None) -> int:
     args = parse_args(sys.argv[1:] if argv is None else argv)
-    device = resolve_device(args)
+    started = time.perf_counter()
+    from generativeaiexamples_tpu_torch.parallel import multihost
 
+    multihost.initialize_distributed()
+    joined = {"joined_s": time.perf_counter() - started, "joined_at": time.time()}
+    try:
+        return _train(args, joined)
+    finally:
+        multihost.shutdown()
+
+
+def _train(args: argparse.Namespace, joined: Dict[str, float]) -> int:
+    """The run of :func:`main` once this process is in its group (if any)."""
     from generativeaiexamples_tpu_torch.engine.tokenizer import load_tokenizer
     from generativeaiexamples_tpu_torch.models import hf_loader, llama, lora
     from generativeaiexamples_tpu_torch.models.checkpoint import CheckpointManager
@@ -153,6 +192,14 @@ def main(argv: List[str] | None = None) -> int:
         make_train_step,
         trainable,
     )
+    from generativeaiexamples_tpu_torch.parallel import multihost, sharding
+
+    mesh = resolve_mesh(args)
+    rank = multihost.process_index()
+    device = sharding.model_mesh(mesh).home
+    sharded = mesh.size > 1 or mesh.processes > 1
+    step_mesh = mesh if sharded else None
+    seq_sharded = args.sp > 1
 
     tokenizer = load_tokenizer(args.tokenizer)
     rows = tokenize_examples(load_examples(args.data), tokenizer, args.seq_len)
@@ -166,6 +213,8 @@ def main(argv: List[str] | None = None) -> int:
         if cfg is None:
             raise SystemExit(f"--model {args.model!r} is neither a preset nor a HF dir")
         base_params = hf_loader.load_params(args.model, cfg, torch.bfloat16, device)
+    if sharded:
+        base_params = sharding.shard_params(base_params, mesh)
 
     optimizer = make_optimizer(learning_rate=args.lr)
     if args.mode == "lora":
@@ -174,8 +223,11 @@ def main(argv: List[str] | None = None) -> int:
             targets=tuple(t.strip() for t in args.targets.split(",") if t.strip()),
         )
         gen = torch.Generator(device=device).manual_seed(args.seed)
-        trainable_params = trainable(lora.init_lora_params(cfg, lora_cfg, gen, torch.bfloat16, device))
-        lora_step = make_lora_train_step(cfg, lora_cfg, optimizer)
+        adapters = lora.init_lora_params(cfg, lora_cfg, gen, torch.bfloat16, device)
+        if sharded:
+            adapters = lora.shard_lora_params(adapters, lora_cfg, mesh)
+        trainable_params = trainable(adapters)
+        lora_step = make_lora_train_step(cfg, lora_cfg, optimizer, seq_sharded, step_mesh)
         step_fn = lambda state, batch: lora_step(state, base_params, batch)  # noqa: E731
         print(
             f"LoRA r={lora_cfg.rank} targets={lora_cfg.targets}: "
@@ -185,7 +237,7 @@ def main(argv: List[str] | None = None) -> int:
         )
     else:
         trainable_params = trainable(base_params)
-        step_fn = make_train_step(cfg, optimizer)
+        step_fn = make_train_step(cfg, optimizer, seq_sharded, step_mesh)
 
     state = TrainState(
         params=trainable_params,
@@ -201,10 +253,12 @@ def main(argv: List[str] | None = None) -> int:
         print(f"resumed from step {start_step}", file=sys.stderr)
 
     it = batches(rows, args.batch_size, args.seed)
+    local = multihost.local_batch_slice(args.batch_size, mesh)
+    mine = slice(rank * local, (rank + 1) * local)
     t0 = time.time()
     loss = None
     for step in range(start_step, args.steps):
-        batch = {k: torch.from_numpy(v).to(device) for k, v in next(it).items()}
+        batch = {k: torch.from_numpy(v[mine]).to(device) for k, v in next(it).items()}
         state, loss = step_fn(state, batch)
         if (step + 1) % args.log_every == 0 or step + 1 == args.steps:
             dt = time.time() - t0
@@ -215,17 +269,26 @@ def main(argv: List[str] | None = None) -> int:
             )
         if ckpt and (step + 1) % args.save_every == 0:
             ckpt.save(step + 1, state)
+    steps_s = time.time() - t0
 
     if ckpt:
         ckpt.save(args.steps, state, wait=True)
         ckpt.close()
 
-    if args.mode == "lora" and args.merge_out:
-        merged = lora.merge(base_params, state.params, lora_cfg)
+    if args.mode == "lora" and args.merge_out and rank == 0:
+        merged = lora.merge(sharding.unshard(base_params, device),
+                            sharding.unshard(state.params, device), lora_cfg)
         save_merged(args.merge_out, merged)
         print(f"merged weights written to {args.merge_out}", file=sys.stderr)
 
-    if loss is not None:
+    if sharded:  # one write, so the lines of processes sharing a pipe stay whole
+        sys.stderr.write("parallel: " + json.dumps({
+            "mesh": mesh.shape, "processes": mesh.processes, "rank": rank,
+            "backend": multihost.backend(), "device": str(device), **joined,
+            "steps_s": steps_s, **multihost.COLLECTIVE_STATS,
+        }) + "\n")
+        sys.stderr.flush()
+    if loss is not None and rank == 0:
         print(json.dumps({"final_loss": float(loss), "steps": args.steps}))
     return 0
 

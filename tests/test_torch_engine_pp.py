@@ -63,7 +63,7 @@ def _preset():
 
 
 def _mesh(stages, tp):
-    return create_mesh(tp, stages, devices=["cpu"] * (stages * tp))
+    return create_mesh(tp, pipeline_parallelism=stages, devices=["cpu"] * (stages * tp))
 
 
 def _streams(eng, prompts=PROMPTS, params=GREEDY):

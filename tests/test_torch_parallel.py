@@ -38,15 +38,50 @@ def _mesh(n):
 def test_create_mesh_resolves_and_refuses_as_jax(n_devices, tp):
     jax_devices = jax.devices()[:n_devices]
     try:
-        want = dict(jcreate_mesh(tensor_parallelism=tp, devices=jax_devices).shape)["model"]
+        jmesh = jcreate_mesh(tensor_parallelism=tp, devices=jax_devices)
     except ValueError as exc:
         with pytest.raises(ValueError) as got:
             create_mesh(tp, devices=["cpu"] * n_devices)
         assert str(got.value) == str(exc)
         return
+    want = dict(jmesh.shape)["model"]
     mesh = create_mesh(tp, devices=["cpu"] * n_devices)
-    assert mesh.size == want and mesh.shape == {"model": want}
+    assert mesh.size == want and mesh.shape == dict(jmesh.shape)
     assert mesh.devices == [torch.device("cpu")] * want and mesh.home == torch.device("cpu")
+
+
+@pytest.mark.parametrize("args", [(2, 2, 2), (4, 2), (1, 1, 8), (-1, 2, 2), (2, 1, 1, 2), (1, 2, 2, 2),
+                                  (-1, 3), (2, 2, 4), (-1, 1, 1, 4), (8,)])
+def test_create_mesh_takes_jax_s_signature_by_position(args):
+    """``create_mesh(tp, dp, sp, pp, devices)`` by position, as JAX's: the
+    four axes in JAX's order and sizes, the devices in JAX's order, JAX's
+    messages; the accessors pick JAX's coordinates."""
+    devices = [torch.device("cpu", i) for i in range(8)]
+    try:
+        jmesh = jcreate_mesh(*args, devices=jax.devices())
+    except ValueError as exc:
+        with pytest.raises(ValueError) as got:
+            create_mesh(*args, devices=devices)
+        assert str(got.value) == str(exc)
+        return
+    mesh = create_mesh(*args, devices=devices)
+    assert mesh.shape == dict(jmesh.shape) and list(mesh.shape) == list(jmesh.axis_names)
+    grid = jmesh.devices  # [pipe, data, seq, model]
+    assert [d.index for d in mesh.devices] == [d.id for d in grid.reshape(-1)]
+    for d in range(mesh.data):
+        assert [x.index for x in mesh.replica(d).devices] == [x.id for x in grid[:, d].reshape(-1)]
+        for s in range(mesh.seq):
+            assert [x.index for x in mesh.tp_mesh(d, s).devices] == [x.id for x in grid[0, d, s]]
+        assert [x.index for x in mesh.ring(d)] == [x.id for x in grid[0, d, :, 0]]
+    for p in range(mesh.pipe):
+        assert [x.index for x in mesh.stage(p).devices] == [x.id for x in grid[p].reshape(-1)]
+
+
+def test_an_engine_refuses_a_training_mesh():
+    """The engine serves the ``pipe`` and ``model`` axes; a mesh with data
+    replicas or sequence shards is a training mesh and raises."""
+    with pytest.raises(ValueError, match="data=2, seq=1"):
+        LLMEngine(EngineConfig(**SMALL), mesh=create_mesh(2, 2, devices=["cpu"] * 4))
 
 
 def test_default_mesh_takes_every_visible_device():

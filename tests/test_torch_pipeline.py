@@ -56,13 +56,13 @@ def test_create_mesh_with_a_pipe_axis_is_jax_s(n, tp, pp):
                             devices=jax.devices()[:n])
     except ValueError as exc:
         with pytest.raises(ValueError) as got:
-            create_mesh(tp, pp, devices=devices)
+            create_mesh(tp, pipeline_parallelism=pp, devices=devices)
         assert str(got.value) == str(exc)
         return
-    mesh = create_mesh(tp, pp, devices=devices)
+    mesh = create_mesh(tp, pipeline_parallelism=pp, devices=devices)
     shape = dict(want.shape)
     assert mesh.pipe == shape["pipe"] and mesh.tp == shape["model"]
-    assert mesh.shape == ({"pipe": pp, "model": mesh.tp} if pp > 1 else {"model": mesh.tp})
+    assert mesh.shape == shape
     order = [d.id for d in want.devices.reshape(-1)]
     assert [d.index for d in mesh.devices] == order
     for s in range(mesh.pipe):
@@ -75,7 +75,7 @@ def test_pipelined_forward_matches_jax_s():
     jmesh = jcreate_mesh(tensor_parallelism=1, pipeline_parallelism=2, devices=jax.devices()[:2])
     want = jpipe.pipelined_decoder_forward(jparams, JCFG, jnp.asarray(tokens), jmesh, n_stages=2,
                                            n_microbatches=2)
-    mesh = create_mesh(1, 2, devices=["cpu"] * 2)
+    mesh = create_mesh(1, pipeline_parallelism=2, devices=["cpu"] * 2)
     params = params_from_jax(jparams)
     staged = pipeline.shard_stages(pipeline.split_stages(params["layers"], 2), mesh)
     got = pipeline.pipelined_decoder_forward(params, TCFG, torch.from_numpy(tokens).long(), mesh,
@@ -94,7 +94,7 @@ def test_pipelined_gradients_equal_the_unpipelined_forward_s(microbatches):
     base = tl.init_params(TCFG, seed=1, dtype=torch.float32)
     tokens = torch.from_numpy(_tokens(4, 8, seed=microbatches)).long()
     positions = torch.arange(8).expand(4, 8)
-    mesh = create_mesh(1, 2, devices=["cpu"] * 2)
+    mesh = create_mesh(1, pipeline_parallelism=2, devices=["cpu"] * 2)
 
     def grads(fn):
         params = {k: (v if k != "layers" else [{n: t.clone().requires_grad_(True)

@@ -94,7 +94,7 @@ def _jax_pp(params, stages, tp, kv_quant=False, n_decode=N_DECODE):
 
 
 def _ctx(stages, tp, quant_kernel=None):
-    mesh = create_mesh(tp, stages, devices=["cpu"] * (stages * tp))
+    mesh = create_mesh(tp, pipeline_parallelism=stages, devices=["cpu"] * (stages * tp))
     return pp_serving.PPContext(mesh, stages, tp, quant_kernel=quant_kernel)
 
 
@@ -227,7 +227,7 @@ def test_each_stage_runs_inside_its_home_card_scope(jparams, monkeypatch):
     device, so each stage's layers and cache writes run inside its home's
     device scope (``torch.cuda.device`` of a card, whose construction needs
     no card), and stage 0's head inside stage 0's, in prefill and decode."""
-    cards = pp_serving.PPContext(create_mesh(1, 2, devices=["cuda:0", "cuda:1"]), 2, 1)
+    cards = pp_serving.PPContext(create_mesh(1, pipeline_parallelism=2, devices=["cuda:0", "cuda:1"]), 2, 1)
     for s in (0, 1):
         scope = pp_serving._stage_scope(cards, s)
         assert isinstance(scope, torch.cuda.device) and scope.idx == s

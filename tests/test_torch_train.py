@@ -17,9 +17,9 @@ models/convert.py):
   requires_grad), keep-N, a save cut short, and a resume that continues
   bit for bit as the uninterrupted run;
 - the finetune CLI (tools/finetune.py): rows and batches equal JAX's,
-  LoRA end to end with a merge and a resume, SFT, each package's
-  ``load_merged`` reading the other's npz, and ``--tp/--dp/--sp 2``
-  refused naming ROADMAP queue 1 item 15.
+  LoRA end to end with a merge and a resume, SFT, and each package's
+  ``load_merged`` reading the other's npz (the CLI on more than one
+  device: tests/test_torch_train_sharded.py).
 
 Tolerances. f32 forward and loss: both sides run the same f32 math in
 another summation order, ~1e-6 relative, so 1e-4 (logits absolute, O(1)
@@ -530,12 +530,3 @@ def test_each_package_reads_the_other_s_merged_npz(tmp_path):
     tft.save_merged(str(tmp_path / "port.npz"), want)
     back = jft.load_merged(str(tmp_path / "port.npz"), jnp.float32)
     assert jax.tree.all(jax.tree.map(lambda a, b: bool(np.array_equal(_np(a), _np(b))), back, jp))
-
-
-@pytest.mark.parametrize("flag", ["--tp", "--dp", "--sp"])
-def test_finetune_refuses_more_than_one_device_naming_item_15(tmp_path, flag):
-    from generativeaiexamples_tpu_torch.tools import finetune
-
-    with pytest.raises(SystemExit, match="queue 1 item 15"):
-        finetune.main(["--model", "debug", "--data", _data(tmp_path), "--device", "cpu",
-                       flag, "2", "--steps", "1"])
