@@ -231,7 +231,11 @@ Phases (each one's failure makes the script exit non-zero):
    (the trace's cost), and the provenance: the weights are random, so
    acceptance is not a calibrated draft's.
 
-13. observe: the observability surface at full llama3-8b, recipe A (int8
+13. observe: the observability surface at full llama3-8b, recipe A, in
+   a child process of this script (``--observe-child``: its profile starts
+   from a fresh CUPTI state, where after the earlier phases' profiler
+   sessions in one process whole captures came back without their
+   kernels; its log lines relayed, its launches counted in the sum) (int8
    packs at seed 0, a fresh engine built with the dispatch timeline on
    and ``ENABLE_PROFILING`` set, ``developer_rag``'s LLM chain behind the
    chain server and the engine server, tracing into a JSONL file): 8
@@ -304,9 +308,12 @@ Phases (each one's failure makes the script exit non-zero):
    when it ends.
 
 15. connect: the configuration file, the native store and the framework
-   connectors at full llama3-8b width and depth, recipe A (int8 packs at
-   seed 0), with arctic-embed-l. (a) A camelCase JSON file of phase 7's
-   deployment (the ``faiss`` store under a temporary ``persistDir``, the
+   connectors at llama3-8b's full width, recipe A from a bf16 checkpoint
+   of 8 of its 32 layers (``CUT_LAYERS``, written at seed 0 and named by
+   the file's ``engine.checkpointPath``, since phase 21; random int8 packs
+   at full depth before), with arctic-embed-l. (a) A camelCase JSON file
+   of phase 7's deployment (the ``faiss`` store under a temporary
+   ``persistDir``, the
    hybrid pipeline, ``topK`` 2) named by ``APP_CONFIG_FILE``, with
    ``APP_RETRIEVER_TOPK=3`` on top: ``get_config()`` holds the file's
    values and ``topK`` 3; ``engine.chunkedPrefill`` off from a file is
@@ -341,9 +348,10 @@ Phases (each one's failure makes the script exit non-zero):
    shape of the deployment, and the real f32 reduce). Random int8 packs at
    seed 0, drawn once as a single-device tree, which each TP engine lays
    out per shard and cuts, so both engines compute one function. (a)
-   llama3-8b at full width: recipes A and D at full depth and B and C at
-   4 of 32 layers, each at TP=1 and TP=2 (``max_seq_len`` 2048), 8 greedy
-   prompts of 100-1,200 ids admitted as one wave x 32 tokens: TP=2's
+   llama3-8b at full width: recipe A at full depth, D at 8 of 32 layers
+   (``CUT_LAYERS``, since phase 21) and B and C at 4, each at TP=1 and
+   TP=2 (``max_seq_len`` 2048), 8 greedy prompts of 100-1,200 ids
+   admitted as one wave x 32 tokens: TP=2's
    streams equal TP=1's, or part at a token whose TP=1 top-1 margin is
    within ``LOGITS_TOL``; every kernel of the recipe launched at TP=2 (each
    shard's launches count); no synchronizing call on the dispatch thread.
@@ -425,7 +433,8 @@ Phases (each one's failure makes the script exit non-zero):
    it decodes: 8 concurrent queries (hash embeddings of phase 7's corpus
    in the in-process store on the card) equal to the synchronous path's
    within ``SEARCH_SCORE_TOL``, tie runs as sets. (e) The port's
-   ``profile_decode`` on recipe A at full depth, B = 8, TP=1 then TP=2,
+   ``profile_decode`` on recipe A at 8 of 32 layers (``TPX_PROFILE_LAYERS``;
+   full depth until phase 21), B = 8, TP=1 then TP=2,
    both in one child process of this script (``--tpx-profile-shards 1,2``:
    a fresh profiler state; one a shard count before phase 20) (``ENABLE_PROFILING`` set for the engine's build, so the TP reduce's
    kernels carry their label): 1 s of steady decode and one 512-id
@@ -450,13 +459,14 @@ Phases (each one's failure makes the script exit non-zero):
    launches the leg's kernels on every stage and no ``paged_attention``,
    with the counts set to 0 just before it serves and read just after;
    the dispatch thread makes no synchronizing call. (a) llama3-8b at full
-   width and depth, int8 weights over int8 strips: TP=1, then PP=2 (16
-   layers a stage), then PP=2 x TP=2; 8 concurrent greedy prompts of
+   width and 8 of 32 layers (``CUT_LAYERS``, since phase 21; full depth
+   before), int8 weights over int8 strips: TP=1, then PP=2 (4 layers a
+   stage), then PP=2 x TP=2; 8 concurrent greedy prompts of
    100-1,200 ids x 32 tokens (one monolithic wave each: the PP path has
    no chunked prefill, as in JAX) and, on PP=2, 3 chat completions behind
    the OpenAI-compatible engine server equal to TP=1's. (b) w8a8 over
-   int8 strips and (c) int8 weights over bf16 strips at PP=2, at full
-   depth on (a)'s 8 prompts, against TP=1.
+   int8 strips and (c) int8 weights over bf16 strips at PP=2, at (a)'s
+   depth on its 8 prompts, against TP=1.
    (d) llama3-70b's width at 4 of its 80 layers, PP=2 x TP=8 (16 shards)
    against TP=8. (e) a bf16 checkpoint of 4 layers at llama3-8b width
    (``write_hf_checkpoint``) streamed into PP=2 x TP=2
@@ -480,11 +490,12 @@ ppcards (``--phases ppcards``, on 4 cards; not in the default run): phase
    32, Hkv 8, Dh 128, bf16, B 1, T 8192) over 4 ``seq`` shards of the
    card against ``reference_attention``: max |err| within one bf16 ulp of
    the largest output, both walls. (b) Two LoRA steps (phase 17's r16 on
-   wq, wk, wv, wo, B drawn non-zero) at llama3-8b's full width and depth,
-   B 4 x T 1024, on tp 2 x dp 2 x sp 2 over ``[cuda:0] * 8``
-   (``create_mesh(2, 2, 2)``, ``make_lora_train_step(..., seq_sharded=True,
-   mesh=)``) against the one-device steps from the same state: each loss
-   within ``MULTI_LOSS_RTOL``, the signs of A's and B's updates within
+   wq, wk, wv, wo, B drawn non-zero) at llama3-8b's full width, 8 of 32
+   layers (``MULTI_LAYERS``; full depth until phase 21), B 4 x T 1024,
+   on tp 2 x dp 2 x sp 2 over ``[cuda:0] * 8`` (``create_mesh(2, 2, 2)``,
+   ``make_lora_train_step(..., seq_sharded=True, mesh=)``) against the
+   one-device steps from the same state: each loss within
+   ``MULTI_LOSS_RTOL``, the signs of A's and B's updates within
    ``MULTI_SIGN_FLIPS``, which a planted fault (the one-device steps on
    data replica 0's rows alone) must exceed; the step's wall and a traced
    step's device busy time and idle share.
@@ -496,6 +507,36 @@ ppcards (``--phases ppcards``, on 4 cards; not in the default run): phase
    gradient all-reduce's ms, the all-reduces' share of the steps' wall
    and the time from the launch until both processes joined the group.
    It prints the phase wall and each part's (a budget of 90 s).
+
+21. apps: the applications built on the stack, on phase 7's deployment
+   (llama3-8b at full width and depth, recipe A, phase 6's encoders; it
+   runs after phase 10 and before phase 11, and alone builds the
+   deployment and ingests phase 7's corpus); every engine request of the
+   phase decodes at most 48 tokens (``APPS_TOKENS``). (b) First, alone:
+   ``examples/five_min_rag.main(["--docs", <phase 7's 16 files>, "-q",
+   ...])`` in process: the ``faiss`` store holds the chunks it printed and
+   the answer is not empty. Then (a) beside (c), (d) and (e), as one
+   deployment serves several apps: (a) the evaluation harness's ``main``
+   in process: ``generate-data`` on one document (the pairs the random
+   model's reply parses to are reported), ``generate-answers`` over HTTP
+   against the port's chain server (``developer_rag``) for a planted
+   ``qna.json`` of 8 questions, one a document of phase 7's corpus (every
+   row an answer and a context), ``evaluate`` with engine A as the judge
+   and arctic-embed-l for answer similarity: JAX's result keys, every
+   score a float in its range, the judge's replies parsed and counted,
+   each row's answer similarity finite and their mean the result's; (c)
+   the streaming-transcript server (``fm_streaming_rag``) fed 600 words of
+   phase 7's corpus in posts of 20 through ``replay``, then 3 greedy
+   questions over ``/generate`` and the first again: every SSE frame
+   parses, the last is ``[DONE]``, the content is not empty, the two
+   answers to the repeated question equal (or part at a tie,
+   ``_tie_checked``); TTFT and wall a question; (d) the O-RAN chatbot:
+   phase 10's ``report.pdf`` through ``POST /documents``, 2 ``/chat``
+   turns with the fact check (two engine calls each), ``/feedback`` then
+   ``/feedback/summary`` counting it; (e) the multimodal assistant over
+   phase 10's three files, 2 questions. ``int8_matmul`` and
+   ``paged_attention`` must launch in the phase. It prints each leg's
+   wall, the launches and the phase wall (a budget of 120 s).
 
 multicards (``--phases multicards``, on 4 cards; not in the default run):
    phase 20's (b) in one process on tp 2 x dp 2 over four cards
@@ -509,7 +550,7 @@ With no arguments it runs every phase above but ppcards and multicards;
 --recipes B``, ``--phases chains``, ``--phases filechains``, ``--phases
 drain``, ``--phases observe``, ``--phases route``, ``--phases connect`` or
 ``--phases kernels,tp --checks tp``, ``--phases train``, ``--phases tpx``,
-``--phases pp`` or ``--phases multi``)
+``--phases pp``, ``--phases multi`` or ``--phases retrieval,rag,apps``)
 and then print only the kernels that part measured; ``--runahead N`` serves every engine at ``decode_runahead`` N, and
 ``--timing-only`` leaves out the runahead and overload checks (for timed
 runs of an older tree, which lacks them).
@@ -521,6 +562,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -551,10 +593,11 @@ from generativeaiexamples_tpu_torch.ops import page_attention as pa
 from generativeaiexamples_tpu_torch.utils import device_trace, hardware
 
 MODEL = "llama3-8b"
-# the depth of two paths that are not the main path's first drive, for the
-# script's time (since phase 20 joined): phase 9's A and phase 14's replicas
-# (a bf16 checkpoint of this depth) run llama3-8b's full width at 8 of its
-# 32 layers
+# the depth of paths that are not the main path's first drive, for the
+# script's time: phase 9's A and phase 14's replicas (a bf16 checkpoint of
+# this depth) since phase 20 joined, and phase 15's engine (a checkpoint
+# too), 16's D, 18 (e), 19 (a)-(c) and 20 (b) since phase 21 joined, run
+# llama3-8b's full width at 8 of its 32 layers
 CUT_LAYERS = 8
 _PAGED = "generativeaiexamples_tpu/ops/page_attention.py:88"
 # kernel entry -> (the TPU kernel it replaces, its source in the repo)
@@ -589,6 +632,16 @@ RECIPES = (
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _cut_model(layers: int) -> str:
+    """The name of llama3-8b's preset cut to its first ``layers`` layers,
+    registered in this process."""
+    from generativeaiexamples_tpu_torch.models import llama
+
+    name = f"{MODEL}-{layers}-layers"
+    llama.PRESETS[name] = dataclasses.replace(llama.PRESETS[MODEL], num_layers=layers)
+    return name
 
 
 # every kernel wrapper's launch count (utils/device_trace.py reads them,
@@ -630,11 +683,16 @@ class Timer:
 # Phase 1-2
 
 
-def phase_device() -> dict:
-    smi = subprocess.run(
+def _smi() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def phase_device() -> dict:
+    smi = _smi()
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
@@ -3520,8 +3578,7 @@ def phase_prefix(dev, smi, seed=0) -> dict:
 
     t0 = time.time()
     out = {}
-    cut = f"{MODEL}-{PREFIX_CUT_LAYERS}-layers"
-    llama.PRESETS[cut] = dataclasses.replace(llama.PRESETS[MODEL], num_layers=PREFIX_CUT_LAYERS)
+    cut = _cut_model(PREFIX_CUT_LAYERS)
     for name, quantization, kv_dtype, layout, expected in RECIPES:
         if name in PREFIX_RECIPES:
             model = cut if name in PREFIX_CUT_RECIPES else MODEL
@@ -4018,6 +4075,547 @@ def phase_filechains(dev, smi, seed=0, dep=None, encoders=None, keep=False):
         if not keep or sys.exc_info()[0] is not None:
             _rag_teardown(dep)
     log(f"phase filechains: ok ({time.time() - t0:.1f} s)")
+    return out, (dep if keep else None)
+
+
+# --------------------------------------------------------------------- #
+# Phase 21: the applications built on the stack (after phase 10, before 11)
+
+APPS_TOKENS = 48  # every engine request of the phase decodes at most this many tokens
+APPS_QUESTIONS = 8  # (a): one planted question for each of 8 of phase 7's documents
+APPS_TRANSCRIPT_WORDS = 600  # (c): the replayed transcript
+APPS_REPLAY_WORDS = 20  # (c): words a /storeStreamingText post
+APPS_STREAM_QUESTIONS = 3  # (c): greedy /generate, then the first asked again
+APPS_CHAT_TURNS = 2  # (d): /chat turns with the fact check
+APPS_SIMILARITY_TOL = 1e-3  # (a): a row's cosine recomputed here against the harness's mean
+APPS_BUDGET_S = 120.0
+# the evaluation result's keys, as the JAX harness names them
+APPS_RESULT_KEYS = {"faithfulness", "answer_relevancy", "context_relevancy", "context_precision",
+                    "context_recall", "answer_similarity", "ragas_score", "llm_judge_mean",
+                    "llm_judge_ratings"}
+
+
+class _ThreadOutput:
+    """``sys.stdout``/``sys.stderr`` while phase 21 runs: a thread inside
+    ``captured()`` writes to its own buffers, every other thread to the
+    stream this replaced (the legs run side by side, and only (b) keeps
+    what it prints)."""
+
+    def __init__(self, stream):
+        self.stream, self.buffers = stream, {}
+
+    def _target(self):
+        return self.buffers.get(threading.get_ident(), self.stream)
+
+    def write(self, text):
+        return self._target().write(text)
+
+    def flush(self):
+        self._target().flush()
+
+    def __getattr__(self, name):
+        return getattr(self.stream, name)
+
+    @staticmethod
+    @contextlib.contextmanager
+    def captured():
+        """(stdout, stderr) buffers of this thread's output meanwhile."""
+        import io
+
+        bufs, me = (io.StringIO(), io.StringIO()), threading.get_ident()
+        for proxy, buf in zip((sys.stdout, sys.stderr), bufs):
+            proxy.buffers[me] = buf
+        try:
+            yield bufs
+        finally:
+            for proxy in (sys.stdout, sys.stderr):
+                proxy.buffers.pop(me, None)
+
+
+class _AppsEngine(_RecordingEngine):
+    """Engine A behind phase 21's apps: every request decodes at most
+    APPS_TOKENS tokens (the apps ask for up to 1024); the prompts are
+    recorded and (with ``seed``) the sampling seed pinned as phase 8's are."""
+
+    def stream_text(self, prompt_ids, params=None, timeout=None):
+        params = dataclasses.replace(params, max_tokens=min(params.max_tokens, APPS_TOKENS))
+        return super().stream_text(prompt_ids, params, timeout)
+
+
+def _sse_frames(base, path, body, timeout=600) -> tuple:
+    """One streamed POST: (the frames, seconds to the first answer frame
+    (a frame that is no ``*status*`` line; the end when there is none),
+    seconds to the end). Every ``data:`` line must parse."""
+    req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    frames, first = [], None
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        for raw in resp:
+            line = raw.decode().rstrip("\n")
+            if not line:
+                continue
+            if not line.startswith("data: "):
+                raise AssertionError(f"{path}: not an SSE data line: {line[:80]!r}")
+            frames.append(json.loads(line[6:]))
+            content = frames[-1]["choices"][0]["message"]["content"]
+            if first is None and content and not content.startswith("*"):
+                first = time.perf_counter() - t0
+    total = time.perf_counter() - t0
+    return frames, first if first is not None else total, total
+
+
+def _apps_silent(engine, reqs, what) -> int:
+    """How many of ``reqs`` (the engine requests behind empty answers)
+    decoded no text: the random model's ids were all past the byte range
+    or a stop (an empty answer is then the right one). Raises otherwise."""
+    if not reqs:
+        raise AssertionError(f"{what}: an empty answer with no engine request behind it")
+    for req in reqs:
+        text = engine.tokenizer.decode(req.emitted)
+        if text.strip():
+            raise AssertionError(f"{what}: an empty answer where the engine decoded {text[:80]!r}")
+    return len(reqs)
+
+
+def _apps_generate_data(dep, work, note) -> dict:
+    """(a)'s ``generate-data`` on one of phase 7's documents (one chunk):
+    the pairs the random model's reply parses to."""
+    from generativeaiexamples_tpu_torch.tools.evaluation import main as evaluation
+
+    _, files = dep["corpus"]
+    out_path = os.path.join(work, "generated_qna.json")
+    t = time.perf_counter()
+    evaluation.main(["generate-data", "--docs", os.path.join(work, "docs", files[0][0]),
+                     "--output", out_path, "--max-chunks", "1"])
+    with open(out_path) as fh:
+        out = {"pairs_parsed": len(json.load(fh)), "seconds": time.perf_counter() - t}
+    note(f"apps (a) generate-data on {files[0][0]} (1 chunk): {out['pairs_parsed']} QnA pairs "
+         f"parsed from the random model's reply ({out['seconds']:.2f} s)")
+    return out
+
+
+def _apps_evaluation(dep, work, rng, engine, snapshot, note) -> dict:
+    """(a): the evaluation harness's ``generate-answers`` and ``evaluate``
+    in process, against the port's chain server on the deployment (their
+    printed lines go to this script's output)."""
+    from generativeaiexamples_tpu_torch.chains import registry, runtime
+    from generativeaiexamples_tpu_torch.server.api import make_server
+    from generativeaiexamples_tpu_torch.tools.evaluation import evaluator
+    from generativeaiexamples_tpu_torch.tools.evaluation import main as evaluation
+
+    docs, files = dep["corpus"]
+    present = set(runtime.get_vector_store("default").sources())
+    picked = [k for k in range(RAG_DOCS) if files[k][0] in present][:APPS_QUESTIONS]
+    if len(picked) < APPS_QUESTIONS:
+        raise AssertionError(f"apps (a): {len(picked)} of phase 7's documents left in 'default'")
+    qna = []
+    for k in picked:
+        sentence = docs[k][1 + int(rng.randint(0, len(docs[k]) - 1))]
+        words = sentence.rstrip(".").split()
+        qna.append({"question": f"What does the document say about {' '.join(words[:4])}?",
+                    "ground_truth_answer": sentence,
+                    "ground_truth_context": " ".join(docs[k][:3]), "document": files[k][0]})
+    paths = {name: os.path.join(work, name) for name in ("qna.json", "eval.json", "results.json")}
+    with open(paths["qna.json"], "w") as fh:
+        json.dump(qna, fh)
+    out = {}
+    server = make_server("127.0.0.1", 0, registry.resolve_example("developer_rag"))
+    thread = threading.Thread(target=server.serve_forever, name="smoke-apps-chain-server",
+                              daemon=True)
+    thread.start()
+    try:
+        t = time.perf_counter()
+        evaluation.main(["generate-answers", "--qna", paths["qna.json"], "--server",
+                         f"http://127.0.0.1:{server.server_address[1]}",
+                         "--output", paths["eval.json"]])
+        answers_s = time.perf_counter() - t
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(60)
+    with open(paths["eval.json"]) as fh:
+        rows = json.load(fh)
+    if len(rows) != APPS_QUESTIONS:
+        raise AssertionError(f"apps (a) generate-answers wrote {len(rows)} rows")
+    silent = 0
+    for row in rows:
+        if not row["contexts"]:
+            raise AssertionError(f"apps (a) generate-answers: no context for {row['question']!r}")
+        if not row["answer"].strip():
+            silent += _apps_silent(engine, [
+                r for r in snapshot() if row["question"] in engine.tokenizer.decode(r.prompt_ids)],
+                f"apps (a) generate-answers {row['question']!r}")
+    with open(paths["eval.json"] + ".timing.json") as fh:
+        timing = json.load(fh)
+    out["generate_answers"] = {"rows": len(rows), "silent_answers": silent,
+                               "seconds": answers_s, **timing}
+    note(f"apps (a) generate-answers over HTTP: {len(rows)} rows ({silent} answers empty: the "
+         f"random model decoded no text there), each with "
+         f"{min(len(r['contexts']) for r in rows)}-{max(len(r['contexts']) for r in rows)} "
+         f"contexts; p50 latency {timing['p50_latency_s']:.3f} s, p50 TTFT "
+         f"{timing['p50_ttft_s']:.3f} s ({answers_s:.1f} s)")
+
+    # the judge's replies (this thread's: the other legs share the
+    # backend), parsed here as the harness parses them
+    backend = runtime.get_llm()
+    replies, me = [], threading.get_ident()
+    real_complete = backend.complete
+
+    def complete(messages, **kwargs):
+        text = real_complete(messages, **kwargs)
+        if threading.get_ident() == me:
+            replies.append((kwargs.get("max_tokens"), text))
+        return text
+
+    backend.complete = complete
+    t = time.perf_counter()
+    try:
+        evaluation.main(["evaluate", "--eval", paths["eval.json"], "--output",
+                         paths["results.json"]])
+    finally:
+        del backend.complete
+    evaluate_s = time.perf_counter() - t
+    with open(paths["results.json"]) as fh:
+        results = json.load(fh)
+    ragas = [evaluator.parse_score(text) for n, text in replies if n == 16]
+    likert = [evaluator.parse_score(text, 1.0, 5.0) for n, text in replies if n == 8]
+    if len(ragas) != 5 * len(rows) or len(likert) != len(rows):
+        raise AssertionError(f"apps (a) evaluate: {len(ragas)} RAGAS and {len(likert)} Likert "
+                             f"judge calls for {len(rows)} rows")
+    if not set(results) <= APPS_RESULT_KEYS:
+        raise AssertionError(f"apps (a) evaluate: keys {sorted(results)} are not JAX's")
+    for key, value in results.items():
+        low, high = (1.0, 5.0) if key.startswith("llm_judge") else (0.0, 1.0)
+        values = value if isinstance(value, list) else [value]
+        if not all(isinstance(v, float) and low <= v <= high for v in values):
+            raise AssertionError(f"apps (a) evaluate: {key} = {value!r} outside [{low}, {high}]")
+    # answer similarity, row by row (the harness scores the rows with an
+    # answer whose embedding is not zero)
+    emb = runtime.get_embedder()
+    cosines = []
+    for row in rows:
+        if not row["answer"]:
+            continue
+        a, b = (np.asarray(v, np.float64) for v in emb.embed_documents(
+            [row["answer"], row["ground_truth_answer"]]))
+        denom = float(np.linalg.norm(a) * np.linalg.norm(b))
+        if denom > 0:
+            cosines.append(max(0.0, float(a @ b) / denom))
+    if not all(np.isfinite(cosines)) or ("answer_similarity" in results) != bool(cosines) or \
+            (cosines and abs(results["answer_similarity"] - float(np.mean(cosines)))
+             > APPS_SIMILARITY_TOL):
+        raise AssertionError(f"apps (a) evaluate: answer_similarity "
+                             f"{results.get('answer_similarity')} against the rows' cosines "
+                             f"{cosines}")
+    out["evaluate"] = {"results": results, "judge_calls": len(replies),
+                       "ragas_parsed": sum(s is not None for s in ragas), "ragas_calls": len(ragas),
+                       "likert_parsed": sum(s is not None for s in likert),
+                       "likert_calls": len(likert), "answer_similarity_rows": cosines,
+                       "seconds": evaluate_s}
+    note(f"apps (a) evaluate: {len(replies)} judge calls on engine A, "
+         f"{out['evaluate']['ragas_parsed']}/{len(ragas)} RAGAS and "
+         f"{out['evaluate']['likert_parsed']}/{len(likert)} Likert replies parsed; keys "
+         f"{sorted(results)}; answer_similarity {results.get('answer_similarity')} over "
+         f"{len(cosines)} rows ({evaluate_s:.1f} s)")
+    return out
+
+
+def _apps_five_min(work, engine, snapshot, note) -> dict:
+    """(b): the five-minute RAG's ``main`` in process over phase 7's files."""
+    from generativeaiexamples_tpu_torch.examples import five_min_rag
+
+    question = "What do the documents say about the first topic?"
+    t = time.perf_counter()
+    with _ThreadOutput.captured() as (stdout, stderr):
+        five_min_rag.main(["--docs", os.path.join(work, "docs"), "-q", question])
+    seconds = time.perf_counter() - t
+    err, answer = stderr.getvalue(), stdout.getvalue()
+    chunks = sum(int(n) for n in re.findall(r"^  ingested .+: (\d+) chunks$", err, re.M))
+    ready = re.search(r"Knowledge base ready: (\d+) files, (\d+) chunks\.", err)
+    if not ready or int(ready.group(2)) != chunks or not chunks:
+        raise AssertionError(f"apps (b) five_min_rag: the store holds "
+                             f"{ready.group(2) if ready else '?'} chunks, {chunks} printed")
+    if not answer.strip():  # or the random model decoded no text
+        _apps_silent(engine, [r for r in snapshot()
+                              if question in engine.tokenizer.decode(r.prompt_ids)],
+                     "apps (b) five_min_rag")
+    note(f"apps (b) five_min_rag --docs ({ready.group(1)} files): {chunks} chunks in the faiss "
+         f"store, as printed; a {len(answer.strip())}-character answer ({seconds:.1f} s)")
+    return {"files": int(ready.group(1)), "chunks": chunks, "answer_chars": len(answer.strip()),
+            "seconds": seconds}
+
+
+def _apps_streaming(dep, work, note) -> dict:
+    """(c): the streaming-transcript RAG server fed through the replay
+    client, then greedy questions over /generate, the first asked again."""
+    from generativeaiexamples_tpu_torch.experimental.fm_streaming_rag import replay
+    from generativeaiexamples_tpu_torch.experimental.fm_streaming_rag.server import (
+        create_streaming_app,
+    )
+
+    docs, _ = dep["corpus"]
+    words = " ".join(s for d in docs for s in d).split()[:APPS_TRANSCRIPT_WORDS]
+    path = os.path.join(work, "transcript.txt")
+    with open(path, "w") as fh:
+        fh.write(" ".join(words))
+    server = create_streaming_app()
+    thread = threading.Thread(target=server.serve_forever, name="smoke-apps-streaming",
+                              daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    out = {"questions": []}
+    try:
+        t = time.perf_counter()
+        sent = replay.replay(path, base, "fm", APPS_REPLAY_WORDS, 0.0)
+        out.update(words=len(words), posts=sent, replay_s=time.perf_counter() - t)
+        if sent != -(-len(words) // APPS_REPLAY_WORDS):
+            raise AssertionError(f"apps (c) replay sent {sent} posts for {len(words)} words")
+        questions = [f"What was said about {' '.join(w.strip('.') for w in words[i:i + 3])}?"
+                     for i in (40, 260, 480)][:APPS_STREAM_QUESTIONS]
+        texts = []
+        for q in questions + questions[:1]:
+            frames, first, total = _sse_frames(base, "/generate", {
+                "question": q, "temperature": 0, "max_tokens": APPS_TOKENS})
+            if not frames or frames[-1]["choices"][0]["finish_reason"] != "[DONE]":
+                raise AssertionError(f"apps (c) {q!r}: the stream does not end in [DONE]")
+            content = "".join(f["choices"][0]["message"]["content"] for f in frames)
+            if not content.strip() or "*error:" in content:
+                raise AssertionError(f"apps (c) {q!r}: answered {content[:200]!r}")
+            texts.append(content)
+            out["questions"].append({"question": q, "ttft_s": first, "wall_s": total,
+                                     "frames": len(frames)})
+            note(f"apps (c) /generate {q!r}: {len(frames)} frames ending in [DONE], TTFT "
+                 f"{first:.3f} s, wall {total:.3f} s")
+        out["repeat"] = (questions[0], texts[0], texts[-1])
+        note(f"apps (c) replay of {len(words)} words in {sent} posts ({out['replay_s']:.2f} s)")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(60)
+    return out
+
+
+def _apps_repeat(engine, requests, repeat) -> dict:
+    """(c)'s repeated question: its two answer requests (the RAG prompt
+    holding the question) got the same prompt, and the second's greedy ids
+    equal the first's or part at a tie (``_tie_checked``; the legs ran side
+    by side, so the two prefills may have shared their waves with others)."""
+    question, first, second = repeat
+    found = [r for r in requests if f"User: '{question}'" in engine.tokenizer.decode(r.prompt_ids)]
+    if len(found) != 2 or found[0].prompt_ids != found[1].prompt_ids:
+        raise AssertionError(f"apps (c): {len(found)} answer requests for the repeated question, "
+                             f"or two prompts")
+    tie = _tie_checked(engine, "apps (c) the repeated question", list(found[0].prompt_ids),
+                       list(found[1].emitted), list(found[0].emitted))
+    if not tie and first != second:
+        raise AssertionError(f"apps (c): the same greedy ids, other text: {first!r} / {second!r}")
+    return {"equal": first == second, "tie": tie}
+
+
+def _apps_oran(work, mm_files, note) -> dict:
+    """(d): the O-RAN chatbot: an upload, chat turns with the fact check,
+    feedback."""
+    from generativeaiexamples_tpu_torch.experimental.oran_chatbot.app import create_oran_app
+
+    server = create_oran_app(feedback_path=os.path.join(work, "feedback.jsonl"))
+    thread = threading.Thread(target=server.serve_forever, name="smoke-apps-oran", daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    out = {"chats": []}
+    try:
+        name, data = mm_files[0]
+        raw, ctype = _multipart(name, data)
+        status, text = _http(base, "POST", "/documents", raw=raw, ctype=ctype)
+        if status != 200 or not json.loads(text).get("chunks"):
+            raise AssertionError(f"apps (d) POST /documents {name}: {status} {text[:200]}")
+        out["upload"] = {"file": name, "chunks": json.loads(text)["chunks"]}
+        for i in range(APPS_CHAT_TURNS):
+            t = time.perf_counter()
+            status, text = _http(base, "POST", "/chat", {
+                "question": f"What does the report say about the pump fleet? ({i + 1})",
+                "fact_check": True})
+            body = json.loads(text) if status == 200 else {}
+            if status != 200 or set(body) != {"answer", "sources", "fact_check"} or \
+                    body["sources"] != [name]:
+                raise AssertionError(f"apps (d) /chat {i}: {status} {text[:300]}")
+            out["chats"].append({"seconds": time.perf_counter() - t,
+                                 "fact_check_passed": body["fact_check"]["passed"],
+                                 "answer_chars": len(body["answer"])})
+        status, text = _http(base, "GET", "/feedback/summary")
+        before = json.loads(text)
+        status, text = _http(base, "POST", "/feedback", {
+            "question": "pump fleet", "answer": body["answer"], "rating": 1, "sources": [name]})
+        if status != 200 or not json.loads(text).get("recorded"):
+            raise AssertionError(f"apps (d) /feedback: {status} {text}")
+        status, text = _http(base, "GET", "/feedback/summary")
+        after = json.loads(text)
+        if after != {"total": before["total"] + 1, "up": before["up"] + 1, "down": before["down"]}:
+            raise AssertionError(f"apps (d) /feedback/summary {before} -> {after}")
+        out["feedback_summary"] = after
+        note(f"apps (d) O-RAN chatbot: {name} in {out['upload']['chunks']} chunks; "
+             f"{APPS_CHAT_TURNS} /chat turns with the fact check "
+             + ", ".join(f"{c['seconds']:.2f} s (verdict {c['fact_check_passed']})"
+                         for c in out["chats"]) + f"; feedback summary {after}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(60)
+    return out
+
+
+def _apps_multimodal(work, mm_files, table, note) -> dict:
+    """(e): the multimodal assistant over phase 10's files, asked about
+    the report's planted table row and the pump fleet (the words BM25
+    finds: the dense hits are held under RAG_ENV's threshold)."""
+    from generativeaiexamples_tpu_torch.chains.developer_rag import NO_CONTEXT_MSG, NO_DOCS_MSG
+    from generativeaiexamples_tpu_torch.experimental.multimodal_assistant import (
+        MultimodalAssistant,
+    )
+
+    folder = os.path.join(work, "multimodal")
+    os.makedirs(folder)
+    for name, data in mm_files:
+        with open(os.path.join(folder, name), "wb") as fh:
+            fh.write(data)
+    assistant = MultimodalAssistant()
+    t = time.perf_counter()
+    ingested = assistant.ingest_directory(folder)
+    ingest_s = time.perf_counter() - t
+    if sorted(ingested) != sorted(n for n, _ in mm_files) or \
+            not set(ingested) <= set(assistant.documents()):
+        raise AssertionError(f"apps (e) ingested {ingested}, listed {assistant.documents()}")
+    answers = []
+    for q in (f"What does the table say about {' '.join(table[4][:3])}?",
+              "What does the pump fleet review say?"):
+        t = time.perf_counter()
+        tokens = list(assistant.ask(q))
+        text = "".join(str(x) for x in tokens)
+        if any(not isinstance(x, str) for x in tokens) or text.strip() in (NO_CONTEXT_MSG,
+                                                                            NO_DOCS_MSG):
+            raise AssertionError(f"apps (e) {q!r}: answered {text[:200]!r}")
+        answers.append({"question": q, "seconds": time.perf_counter() - t,
+                        "answer_chars": len(text)})
+    note(f"apps (e) multimodal assistant: {sorted(ingested)} ingested in {ingest_s:.1f} s; "
+         + ", ".join(f"{a['seconds']:.2f} s" for a in answers) + " a question")
+    return {"ingested": sorted(ingested), "ingest_s": ingest_s, "answers": answers}
+
+
+def phase_apps(dev, smi, seed=0, dep=None, encoders=None, keep=False):
+    """The applications built on the stack, on phase 7's deployment (module
+    docstring, phase 21): ``dep`` is that deployment, still up, or None to
+    build one and ingest phase 7's corpus. Returns the results and, when
+    ``keep``, the deployment still up for phase 11."""
+    from generativeaiexamples_tpu_torch import config as config_mod
+    from generativeaiexamples_tpu_torch.engine import llm_backend
+
+    t0 = time.time()
+
+    def note(msg):
+        log(f"  [{time.time() - t0:.1f} s] {msg}")
+
+    if dep is None:
+        dep = _rag_deploy_ingested(seed, encoders)
+        note(f"engine A through create_llm ({dep['engine_s']:.1f} s) and phase 7's documents")
+    else:
+        note("phase 7's engine A, encoders and 'default' collection")
+    config, engine = config_mod.get_config(), dep["engine"]
+    llm_key = (config.llm.model_engine, config.llm.server_url, config.llm.model_name)
+    saved_backend = llm_backend._LLM_CACHE.get(llm_key)
+    llm_backend._LLM_CACHE[llm_key] = llm_backend.TorchLLMBackend(
+        engine=_AppsEngine(engine, seed=CHAIN_SEED))
+    requests, lock = [], threading.Lock()
+    real_submit = engine.submit
+
+    def submit(*args, **kwargs):  # every request of the phase, for its prompt and emitted ids
+        req = real_submit(*args, **kwargs)
+        with lock:
+            requests.append(req)
+        return req
+
+    def snapshot():
+        with lock:
+            return list(requests)
+
+    engine.submit = submit
+    work = tempfile.mkdtemp(prefix="apps_", dir=dep["tmp"])
+    rng = np.random.RandomState(seed + 21)
+    out, walls = {}, {}
+
+    def timed(leg, fn):
+        t = time.perf_counter()
+        out[leg] = fn()
+        walls[leg] = time.perf_counter() - t
+
+    def in_turn(*legs):
+        def run():
+            for leg, fn in legs:
+                timed(leg, fn)
+        return run
+
+    try:
+        _, files = dep["corpus"]
+        os.makedirs(os.path.join(work, "docs"))
+        for name, data in files:
+            with open(os.path.join(work, "docs", name), "wb") as fh:
+                fh.write(data)
+        mm_rng = np.random.RandomState(seed + 10)  # phase 10's draws, in its order
+        _pdm_csvs(mm_rng)
+        mm_files, mm_table = _multimodal_files(mm_rng)[:2]
+        stats0 = engine.stats()
+        t_phase = time.perf_counter()
+        reset_counts()
+        # the apps side by side in three threads, as one deployment serves
+        # several: (a)'s answers and their evaluation (the longest), (a)'s
+        # generate-data, (b) and (d), and (c) and (e)
+        sys.stdout, sys.stderr = _ThreadOutput(sys.stdout), _ThreadOutput(sys.stderr)
+        try:
+            _concurrently({
+                "evaluation": in_turn(("evaluation", lambda: _apps_evaluation(
+                    dep, work, rng, engine, snapshot, note))),
+                "data_five_min_oran": in_turn(
+                    ("generate_data", lambda: _apps_generate_data(dep, work, note)),
+                    ("five_min_rag", lambda: _apps_five_min(work, engine, snapshot, note)),
+                    ("oran", lambda: _apps_oran(work, mm_files, note))),
+                "streaming_multimodal": in_turn(
+                    ("streaming", lambda: _apps_streaming(dep, work, note)),
+                    ("multimodal", lambda: _apps_multimodal(work, mm_files, mm_table, note)))})
+        finally:
+            sys.stdout, sys.stderr = sys.stdout.stream, sys.stderr.stream
+        launched = counts()
+        wall = time.perf_counter() - t_phase
+        done = snapshot()
+        out["streaming"]["repeat"] = _apps_repeat(engine, done, out["streaming"]["repeat"])
+        missing = [n for n in ("int8_matmul", "paged_attention[bfloat16]") if launched[n] == 0]
+        if missing:
+            raise AssertionError(f"apps: kernels never launched by the applications: {missing}")
+        long = [len(r.emitted) for r in done if len(r.emitted) > APPS_TOKENS]
+        if long:
+            raise AssertionError(f"apps: requests decoded {long} tokens, over {APPS_TOKENS}")
+        stats1 = engine.stats()
+        out.update({"launches": launched, "wall_s": wall, "walls_s": walls,
+                    "engine_requests": stats1["requests_prefilled"] - stats0["requests_prefilled"],
+                    "tokens": sum(len(r.emitted) for r in done),
+                    "prefix_cache": _prefix_counts(stats0, stats1)})
+        same = out["streaming"]["repeat"]["equal"]
+        note(f"apps (c) the repeated question's answer "
+             f"{'equals' if same else 'parts at a tie from'} the first")
+        note(f"launches in the phase: " + ", ".join(f"{n} {launched[n]}" for n in RAG_EXPECTED)
+             + f"; {out['engine_requests']} engine requests, {out['tokens']} tokens; walls "
+             + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+             + f"; phase wall {wall:.1f} s on {smi}")
+        if wall > APPS_BUDGET_S:
+            log(f"  apps: the phase took {wall:.1f} s, over its {APPS_BUDGET_S:.0f} s budget")
+    finally:
+        del engine.submit
+        if saved_backend is None:
+            llm_backend._LLM_CACHE.pop(llm_key, None)
+        else:
+            llm_backend._LLM_CACHE[llm_key] = saved_backend
+        shutil.rmtree(work, ignore_errors=True)
+        if not keep or sys.exc_info()[0] is not None:
+            _rag_teardown(dep)
+    log(f"phase apps: ok ({time.time() - t0:.1f} s)")
     return out, (dep if keep else None)
 
 
@@ -5028,8 +5626,7 @@ def phase_spec(dev, smi) -> dict:
         # A, C and D share int8 packs; B (w8a8) serves the same packs; each
         # recipe takes the first SPEC_LAYERS of A's
         layers = SPEC_LAYERS[name]
-        model = f"{MODEL}-{layers}-layers"
-        llama.PRESETS[model] = dataclasses.replace(llama.PRESETS[MODEL], num_layers=layers)
+        model = _cut_model(layers)
         if weights is not None:
             weights = dict(weights, layers=weights["layers"][:layers])
         res, weights = spec_recipe(dev, smi, name, quantization, kv_dtype, layout, weights,
@@ -5064,6 +5661,7 @@ OBSERVE_ENV = {
 OBSERVE_REQUESTS, OBSERVE_TOKENS = 8, 64  # /generate requests (4 at a time) x tokens
 OBSERVE_PROFILE_TOKENS = 8  # each of the 2 profiled requests: one decode block
 OBSERVE_PROFILE_TRIES = 3  # CUPTI can drop a session's events: capture again
+OBSERVE_CHILD_S = 600  # the time limit of the phase's process
 OBSERVE_PAIRS, OBSERVE_BATCH = 3, (8, 64)  # host-cost pairs; greedy requests x tokens a batch
 OBSERVE_METERED = 2  # batches of the observed engine under _HostCostMeter
 # a /generate record's events from the request to its end, in JAX's order
@@ -5361,6 +5959,7 @@ def phase_observe(dev, smi, seed=0) -> dict:
                 + f", each within {tol:.3g} of the served share; 'device' is launch time on "
                 f"the card")
             # 5. a profile over 2 requests through the routes
+            captures = []
             for attempt in range(1, OBSERVE_PROFILE_TRIES + 1):
                 pair = [_observe_query(rng) for _ in range(2)]
                 status, text = _http(chain_base, "POST", "/internal/profile/start", raw=b"")
@@ -5374,11 +5973,13 @@ def phase_observe(dev, smi, seed=0) -> dict:
                     raise AssertionError(f"/internal/profile/stop: {status} {text}")
                 names_seen = {n for n, _, _ in device_trace.chrome_trace_events(prof["trace"])}
                 found = {k: any(re.search(k, n) for n in names_seen) for k in OBSERVE_KERNELS}
-                log(f"  profile {attempt}: complete {prof['complete']} ({prof['port_kernels_in_trace']} "
+                captures.append(
+                    f"profile {attempt}: complete {prof['complete']} ({prof['port_kernels_in_trace']} "
                     f"port kernels in the trace of {prof['port_launches']} launched; by kernel "
                     f"{prof['kernels_in_trace']} in the trace of {prof['kernels_launched']} "
                     f"launched; {prof['device_events']} device events; not measured: "
                     f"{prof['not_measured']}); kernels {found}")
+                log(f"  {captures[-1]}")
                 busy = prof["busy_ms"]
                 if all(found.values()) and prof["complete"] and busy is not None:
                     if busy > prof["wall_ms"]:
@@ -5387,7 +5988,7 @@ def phase_observe(dev, smi, seed=0) -> dict:
                     break
             else:
                 raise AssertionError(f"no complete, measured profile holding {OBSERVE_KERNELS} "
-                                     f"in {OBSERVE_PROFILE_TRIES} captures")
+                                     f"in {OBSERVE_PROFILE_TRIES} captures: {captures}")
             out["profile"] = {k: prof[k] for k in ("complete", "port_kernels_in_trace",
                                                    "port_launches", "kernels_in_trace",
                                                    "kernels_launched", "device_events", "busy_ms",
@@ -5533,6 +6134,23 @@ def phase_observe(dev, smi, seed=0) -> dict:
     log(f"phase observe: ok ({out['wall_s']:.1f} s on {smi}; engine build "
         f"{out['engine_build_s']:.1f} s)")
     return out
+
+
+def _observe_in_child(seed) -> dict:
+    """Phase 13 in a child process of this script (``--observe-child``):
+    its profile through the chain server's route starts from a fresh CUPTI
+    state, where after this process's earlier profiler sessions whole
+    captures came back without their kernels. Its log lines are relayed
+    and its standard error passes through; a child that fails fails the
+    phase."""
+    cmd = [sys.executable, os.path.abspath(__file__), "--observe-child", "--seed", str(seed)]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, text=True, timeout=OBSERVE_CHILD_S)
+    lines = proc.stdout.splitlines()
+    for line in lines if proc.returncode else lines[:-1]:
+        log(line)
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"phase observe: its process exited {proc.returncode}")
+    return json.loads(lines[-1])
 
 
 # --------------------------------------------------------------------- #
@@ -6142,14 +6760,15 @@ CONNECT_MISSING = {
 CONNECT_KERNELS = ("int8_matmul_mma", "paged_split_kernel", "flash_attention_kernel")
 
 
-def _connect_file(store_dir) -> dict:
-    """Phase 7's deployment as a camelCase configuration file: engine A,
-    arctic-embed-l on the card, the ``faiss`` store under ``store_dir``,
-    the hybrid pipeline (dense + BM25, no reranker: the native store's
-    hits reach /search) at ``topK`` 2."""
+def _connect_file(store_dir, ckpt) -> dict:
+    """Phase 7's deployment as a camelCase configuration file: engine A
+    from the checkpoint ``ckpt``, arctic-embed-l on the card, the ``faiss``
+    store under ``store_dir``, the hybrid pipeline (dense + BM25, no
+    reranker: the native store's hits reach /search) at ``topK`` 2."""
     return {
         "engine": {"modelConfigName": MODEL, "quantization": "int8",
-                   "kvCacheDtype": "bfloat16", "kvLayout": "paged", "tensorParallelism": 1},
+                   "kvCacheDtype": "bfloat16", "kvLayout": "paged", "tensorParallelism": 1,
+                   "checkpointPath": ckpt},
         "llm": {"modelEngine": "tpu"},
         "embeddings": {"modelEngine": "tpu"},
         "ranking": {"modelEngine": ""},
@@ -6165,21 +6784,22 @@ def _write_json(path, doc) -> str:
     return path
 
 
-def _connect_config(tmp) -> tuple:
+def _connect_config(tmp, ckpt) -> tuple:
     """(a): the file, the environment on top, and a refused value from a
     file against the same value from the environment."""
     from generativeaiexamples_tpu_torch import config as config_mod
 
-    path = _write_json(os.path.join(tmp, "app.json"), _connect_file(os.path.join(tmp, "store")))
+    path = _write_json(os.path.join(tmp, "app.json"),
+                       _connect_file(os.path.join(tmp, "store"), ckpt))
     os.environ["APP_CONFIG_FILE"] = path
     os.environ["APP_RETRIEVER_TOPK"] = "3"
     config_mod.get_config.cache_clear()
     cfg = config_mod.get_config()
     got = (cfg.engine.model_config_name, cfg.engine.quantization, cfg.engine.kv_cache_dtype,
-           cfg.engine.kv_layout, cfg.vector_store.name, cfg.vector_store.persist_dir,
-           cfg.retriever.top_k, cfg.retriever.nr_pipeline, cfg.embeddings.model_engine,
-           cfg.text_splitter.chunk_size)
-    want = (MODEL, "int8", "bfloat16", "paged", "faiss", os.path.join(tmp, "store"), 3,
+           cfg.engine.kv_layout, cfg.engine.checkpoint_path, cfg.vector_store.name,
+           cfg.vector_store.persist_dir, cfg.retriever.top_k, cfg.retriever.nr_pipeline,
+           cfg.embeddings.model_engine, cfg.text_splitter.chunk_size)
+    want = (MODEL, "int8", "bfloat16", "paged", ckpt, "faiss", os.path.join(tmp, "store"), 3,
             "hybrid", "tpu", 48)
     if got != want:
         raise AssertionError(f"connect (a): get_config() gave {got}, not {want}")
@@ -6378,12 +6998,20 @@ def phase_connect(dev, smi, seed=0) -> dict:
     out, proc, http_server = {"smi": smi}, None, None
     docs = _rag_corpus(np.random.RandomState(seed))
     try:
-        cfg, _ = _connect_config(tmp)
+        # engine A from a bf16 checkpoint of CUT_LAYERS layers (since phase
+        # 21; random int8 packs at full depth before): (d)'s server process
+        # loads it in seconds where it drew the full model's packs for ~50
+        from generativeaiexamples_tpu_torch.models import hf_loader, llama
+
+        ckpt = os.path.join(tmp, "model")
+        hf_loader.write_hf_checkpoint(llama.PRESETS[_cut_model(CUT_LAYERS)], ckpt, seed=seed,
+                                      dtype=torch.bfloat16, device=dev)
+        cfg, _ = _connect_config(tmp, ckpt)
 
         # (d)'s chain server starts now, from a file of its own (its own
         # store), and comes up while the in-process deployment builds
         server_file = _write_json(os.path.join(tmp, "server.json"),
-                                  _connect_file(os.path.join(tmp, "server_store")))
+                                  _connect_file(os.path.join(tmp, "server_store"), ckpt))
         env = {k: v for k, v in os.environ.items()
                if not k.startswith("APP_") or k == "APP_BLACKBOX_DIR"}
         env.update(APP_CONFIG_FILE=server_file, EXAMPLE_NAME="developer_rag",
@@ -6791,10 +7419,10 @@ def phase_tp(dev, smi, seed=0) -> dict:
     server_engine = None
     for name, quantization, kv_dtype, layout, _ in RECIPES:
         model, weights = MODEL, params
-        if name in "BC":
-            model = f"{MODEL}-{TP_LAYERS_BC}-layers"
-            llama.PRESETS[model] = dataclasses.replace(llama.PRESETS[MODEL], num_layers=TP_LAYERS_BC)
-            weights = dict(params, layers=params["layers"][:TP_LAYERS_BC])
+        if name in "BCD":
+            layers = TP_LAYERS_BC if name in "BC" else CUT_LAYERS
+            model = _cut_model(layers)
+            weights = dict(params, layers=params["layers"][:layers])
         res, engine = tp_leg(dev, f"8b {name}", model, quantization, kv_dtype, layout, weights,
                              TP_SHARDS_8B, prompts, expected[name])
         launches.update(res.pop("launches"))
@@ -7414,6 +8042,7 @@ TPX_DRAIN_RECIPES = "AC"
 TPX_DRAIN_TOKENS = 48
 TPX_DRAIN_FAULT = dict(at=1, count=0, value=0.05)  # engine.dispatch delay: live at the drain
 TPX_TIER_QUERIES = 8
+TPX_PROFILE_LAYERS = CUT_LAYERS  # (e), since phase 21 (it ran llama3-8b at full depth before)
 TPX_PROFILE_BATCH = 8
 TPX_PROFILE_SEQ = 1024
 TPX_PROFILE_PROMPT = 128
@@ -7775,7 +8404,8 @@ def tpx_profile_child(dev, seed, shard_counts) -> dict:
     from generativeaiexamples_tpu_torch.models import llama
     from generativeaiexamples_tpu_torch.ops import quant
 
-    params = quant.init_packed_params_int8(llama.PRESETS[MODEL], seed, torch.bfloat16, dev)
+    params = quant.init_packed_params_int8(llama.PRESETS[_cut_model(TPX_PROFILE_LAYERS)], seed,
+                                           torch.bfloat16, dev)
     out, launches = {}, collections.Counter()
     for shards in shard_counts:
         _tpx_profile_here(dev, params, shards, out, launches)
@@ -7785,13 +8415,13 @@ def tpx_profile_child(dev, seed, shard_counts) -> dict:
 
 
 def _tpx_profile_here(dev, params, shards, out, launches) -> None:
-    """(e) the port's profile_decode on recipe A at full depth, B = 8:
+    """(e) the port's profile_decode on recipe A at TPX_PROFILE_LAYERS, B = 8:
     steady decode and one 512-bucket prefill, each window complete (up to
     TPX_PROFILE_TRIES captures), split by JAX's categories."""
     from generativeaiexamples_tpu_torch.tools import profile_decode
 
-    cfg = dataclasses.replace(_tpx_config("A", MODEL), max_batch_size=TPX_PROFILE_BATCH,
-                              max_seq_len=TPX_PROFILE_SEQ)
+    cfg = dataclasses.replace(_tpx_config("A", _cut_model(TPX_PROFILE_LAYERS)),
+                              max_batch_size=TPX_PROFILE_BATCH, max_seq_len=TPX_PROFILE_SEQ)
     saved = os.environ.get("ENABLE_PROFILING")
     os.environ["ENABLE_PROFILING"] = "true"  # the engine's labels, the reduce's among them
     try:
@@ -7859,8 +8489,7 @@ def phase_tpx(dev, smi, seed=0) -> dict:
     out = {"spec": {}, "drain": {}, "profile": {}}
     launches = collections.Counter()
     params = quant.init_packed_params_int8(llama.PRESETS[MODEL], seed, torch.bfloat16, dev)
-    model8 = f"{MODEL}-{TPX_LAYERS}-layers"
-    llama.PRESETS[model8] = dataclasses.replace(llama.PRESETS[MODEL], num_layers=TPX_LAYERS)
+    model8 = _cut_model(TPX_LAYERS)
     params8 = dict(params, layers=params["layers"][:TPX_LAYERS])
     spool = tempfile.mkdtemp(prefix="tpx_spool_")
     try:
@@ -7890,7 +8519,7 @@ def phase_tpx(dev, smi, seed=0) -> dict:
         del params, params8
         gc.collect()
         torch.cuda.empty_cache()
-        # (e) the decode profiler at full depth, TP=1 then TP=2, in a
+        # (e) the decode profiler at TPX_PROFILE_LAYERS, TP=1 then TP=2, in a
         # process of its own
         _tpx_profile(seed, (1, TPX_SHARDS), out["profile"], launches)
     finally:
@@ -8218,22 +8847,24 @@ def phase_pp(dev, smi, seed=0, scratch=None) -> dict:
     launches = collections.Counter()
     timer = Timer(dev)
     probe = _tp_prompts(rng, [PP_PREFILL_IDS])[0]
-    params = quant.init_packed_params_int8(llama.PRESETS[MODEL], seed, torch.bfloat16, dev)
+    # (a)-(c) at CUT_LAYERS since phase 21 (at full depth before)
+    model = _cut_model(CUT_LAYERS)
+    params = quant.init_packed_params_int8(llama.PRESETS[model], seed, torch.bfloat16, dev)
     d_expected = ("int8_matmul", "flash_attention_causal", "decode_attention")
     try:
-        # (a) recipe D at full depth: PP=2, then PP=2 x TP=2, against TP=1
+        # (a) recipe D: PP=2, then PP=2 x TP=2, against TP=1
         prompts = _tp_prompts(rng, TP_LENGTHS_8B)
-        res, got = pp_leg(dev, "(a) D", MODEL, "int8", "int8", params, 1, ((2, 1), (2, 2)),
+        res, got = pp_leg(dev, "(a) D", model, "int8", "int8", params, 1, ((2, 1), (2, 2)),
                           prompts, probe, d_expected, http=((2, 1),))
         out["legs"]["a_D"] = res
         launches.update(got)
-        # (b) w8a8 over int8 strips and (c) int8 weights over bf16 strips, PP=2
-        # at full depth on (a)'s prompts
+        # (b) w8a8 over int8 strips and (c) int8 weights over bf16 strips,
+        # PP=2, on (a)'s prompts
         for leg, quantization, kv_dtype, expected in (
                 ("(b) w8a8", "w8a8", "int8",
                  ("int8_w8a8_matmul", "flash_attention_causal", "decode_attention")),
                 ("(c) bf16 strips", "int8", "bfloat16", ("int8_matmul", "flash_attention_causal"))):
-            res, got = pp_leg(dev, leg, MODEL, quantization, kv_dtype, params, 1, ((2, 1),),
+            res, got = pp_leg(dev, leg, model, quantization, kv_dtype, params, 1, ((2, 1),),
                               prompts, probe, expected)
             out["legs"][leg.split()[0].strip("()") + "_" + quantization + "_" + kv_dtype] = res
             launches.update(got)
@@ -8321,6 +8952,7 @@ MULTI_RING = dict(B=1, T=8192, Hq=32, Hkv=8, Dh=128)  # llama3-8b's attention wi
 MULTI_RING_SHARDS = 4
 MULTI_MESH = (2, 2, 2)  # (b): tp, dp, sp, every device cuda:0
 MULTI_BATCH = (4, 1024)  # (b): B x T
+MULTI_LAYERS = CUT_LAYERS  # (b), since phase 21 (llama3-8b's full depth before)
 MULTI_CLI_LAYERS = 8  # (c): 8 of llama3-8b's 32 layers
 MULTI_CLI_STEPS = 3
 MULTI_CLI_BATCH = (2, 512)  # (c): --batch-size, --seq-len
@@ -8397,7 +9029,7 @@ def _flat(tree, suffix) -> torch.Tensor:
 
 
 def _multi_sharded_lora(dev, seed, shape=MULTI_MESH, devices=None) -> dict:
-    """(b) two LoRA steps at llama3-8b's full width and depth on tp x dp
+    """(b) two LoRA steps at llama3-8b's full width, MULTI_LAYERS deep, on tp x dp
     x sp ``shape`` (every shard on this card, or on ``devices``) against
     the one-device steps on ``dev``; then the planted fault: the
     one-device steps on data replica 0's rows alone (a replica whose
@@ -8408,7 +9040,7 @@ def _multi_sharded_lora(dev, seed, shape=MULTI_MESH, devices=None) -> dict:
     from generativeaiexamples_tpu_torch.models import llama, lora, train
     from generativeaiexamples_tpu_torch.parallel import create_mesh, sharding
 
-    cfg = llama.PRESETS[MODEL]
+    cfg = llama.PRESETS[_cut_model(MULTI_LAYERS)]
     lcfg = lora.LoRAConfig(**TRAIN_LORA)
     optimizer = train.make_optimizer(learning_rate=TRAIN_LORA_LR)
     rng = random.Random(seed * 1000 + 20)
@@ -8485,7 +9117,8 @@ def _multi_sharded_lora(dev, seed, shape=MULTI_MESH, devices=None) -> dict:
                              f"{planted} of the elements the other way: the limit {MULTI_SIGN_FLIPS} "
                              f"cannot see a replica left out")
     log(f"  multi (b): two LoRA steps (r={lcfg.rank} on {','.join(lcfg.targets)}, B from "
-        f"N(0, {MULTI_B_STD}^2)) at llama3-8b full width and depth, bf16, B={B} T={T}, tp "
+        f"N(0, {MULTI_B_STD}^2)) at llama3-8b full width, {MULTI_LAYERS} of 32 layers, bf16, "
+        f"B={B} T={T}, tp "
         f"{shape[0]} x dp {shape[1]} x sp {shape[2]} on {[str(d) for d in devices]}: losses "
         f"{[round(l, 6) for l in losses]} against one device's {[round(l, 6) for l in one_losses]} "
         f"({max(rels):.2e} relative at most, limit {MULTI_LOSS_RTOL}); the updates' signs against "
@@ -8680,8 +9313,8 @@ def phase_multicards(dev, smi, seed=0, scratch=None) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
-                        default="kernels,model,serve,retrieval,rag,chains,filechains,drain,"
-                                "prefix,spec,observe,route,connect,tp,train,tpx,pp,multi",
+                        default="kernels,model,serve,retrieval,rag,chains,filechains,apps,"
+                                "drain,prefix,spec,observe,route,connect,tp,train,tpx,pp,multi",
                         help="phases after the build, comma-separated (default: all but "
                              "ppcards and multicards, which want 4 cards)")
     parser.add_argument("--checks", default=",".join(CHECKS),
@@ -8697,6 +9330,9 @@ def main() -> int:
                         help="run only phase 18 (e)'s profile on each of these shard counts "
                              "(comma-separated) and print the readings as JSON (phase 18 "
                              "starts it as a process of its own)")
+    parser.add_argument("--observe-child", action="store_true",
+                        help="run only phase 13 and print its readings as JSON (the default "
+                             "run starts it as a process of its own)")
     args = parser.parse_args()
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -8706,6 +9342,10 @@ def main() -> int:
     if args.tpx_profile_shards is not None:
         result = tpx_profile_child(torch.device("cuda", 0), args.seed,
                                    [int(n) for n in args.tpx_profile_shards.split(",")])
+        print(json.dumps(result), flush=True)
+        return 0
+    if args.observe_child:
+        result = phase_observe(torch.device("cuda", 0), _smi(), args.seed)
         print(json.dumps(result), flush=True)
         return 0
     # every server the phases build arms the black box (and phase 13 profiles
@@ -8731,25 +9371,27 @@ def _run(args, phases) -> int:
         phase_model(dev)
     serves = (phase_serve(dev, args.recipes, args.runahead, not args.timing_only)
               if "serve" in phases else {})
-    later = {"rag", "chains", "filechains", "drain"}
+    later = {"rag", "chains", "filechains", "apps", "drain"}
     retrieval, encoders = (phase_retrieval(dev, info["smi"], args.seed,
                                            keep=bool(later & set(phases)))
                            if "retrieval" in phases else ({}, None))
     rag, dep = (phase_rag(dev, info["smi"], args.seed, encoders,
-                          keep=bool({"chains", "filechains", "drain"} & set(phases)))
+                          keep=bool({"chains", "filechains", "apps", "drain"} & set(phases)))
                 if "rag" in phases else ({}, None))
     chains, dep = (phase_chains(dev, info["smi"], args.seed, dep, encoders,
-                                keep=bool({"filechains", "drain"} & set(phases)))
+                                keep=bool({"filechains", "apps", "drain"} & set(phases)))
                    if "chains" in phases else ({}, dep))
-    # phases 10 and 11 run on phase 7's deployment, so before phase 9's engines
+    # phases 10, 21 and 11 run on phase 7's deployment, so before phase 9's engines
     files, dep = (phase_filechains(dev, info["smi"], args.seed, dep, encoders,
-                                   keep="drain" in phases)
+                                   keep=bool({"apps", "drain"} & set(phases)))
                   if "filechains" in phases else ({}, dep))
+    apps, dep = (phase_apps(dev, info["smi"], args.seed, dep, encoders, keep="drain" in phases)
+                 if "apps" in phases else ({}, dep))
     drain = phase_drain(dev, info["smi"], args.seed, dep, encoders) if "drain" in phases else {}
-    dep = None  # phase 11 (or 10) took the deployment down
+    dep = None  # phase 11 (or 10 or 21) took the deployment down
     prefix = phase_prefix(dev, info["smi"], args.seed) if "prefix" in phases else {}
     spec = phase_spec(dev, info["smi"]) if "spec" in phases else {}
-    observe = phase_observe(dev, info["smi"], args.seed) if "observe" in phases else {}
+    observe = _observe_in_child(args.seed) if "observe" in phases else {}
     route = phase_route(dev, info["smi"], args.seed) if "route" in phases else {}
     connect = phase_connect(dev, info["smi"], args.seed) if "connect" in phases else {}
     tp = phase_tp(dev, info["smi"], args.seed) if "tp" in phases else {}
@@ -8772,8 +9414,9 @@ def _run(args, phases) -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(sv["launches"][name] for sv in serves.values())
             + sum(ph.get("launches", {}).get(name, 0)
-                  for ph in (rag, chains, files, drain, prefix, spec, observe, connect, tp,
-                             train, tpx, pp, ppcards, multi, multicards)),
+                  for ph in (rag, chains, files, apps, drain, prefix, spec, observe, connect,
+                             tp, train, tpx, pp, ppcards, multi, multicards)),
+            "apps_launches": apps.get("launches", {}).get(name, 0),
             "tp_launches": tp.get("launches", {}).get(name, 0),
             "tpx_launches": tpx.get("launches", {}).get(name, 0),
             "pp_launches": pp.get("launches", {}).get(name, 0),
@@ -8786,6 +9429,7 @@ def _run(args, phases) -> int:
         "rag": {k: v for k, v in rag.items() if k != "launches"},
         "chains": {k: v for k, v in chains.items() if k != "launches"},
         "filechains": {k: v for k, v in files.items() if k != "launches"},
+        "apps": {k: v for k, v in apps.items() if k != "launches"},
         "drain": {k: v for k, v in drain.items() if k != "launches"},
         "prefix": prefix.get("recipes", {}),
         "spec": {k: v for k, v in spec.items() if k != "launches"},

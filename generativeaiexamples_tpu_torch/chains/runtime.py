@@ -87,6 +87,20 @@ def set_device(device) -> None:
     _DEVICE = device
 
 
+def get_device():
+    """The device ``set_device`` named (None: the card)."""
+    return _DEVICE
+
+
+def check_device(what: str) -> None:
+    """Raise when the runtime's device is the card and no card is present:
+    an entry point runs on the card or where its caller says, never on the
+    CPU by default."""
+    from generativeaiexamples_tpu_torch.engine.llm_engine import resolve_device
+
+    resolve_device(_DEVICE, what)
+
+
 @dataclasses.dataclass
 class DegradedWarning:
     """The marker a chain yields before its fallback answer; the server
