@@ -282,7 +282,8 @@ Phases (each one's failure makes the script exit non-zero):
    first message at least 1,100 ids: under ``affinity`` every turn of a
    conversation carries its ring owner's ``X-GenAI-Replica`` and both
    replicas own some; then ``POST /internal/policy`` ``round_robin`` and 8
-   new conversations; the replicas' prefix-cache hits, summed, are higher
+   new conversations, one request at a time (so each conversation's turns
+   alternate replicas); the replicas' prefix-cache hits, summed, are higher
    under affinity. (b) 4 of phase 7's documents through ``POST
    /documents`` at the router are listed by both replicas, and ``/search``
    at the router finds a document's sentence in it first. (c) 4 streams of
@@ -339,9 +340,14 @@ Phases (each one's failure makes the script exit non-zero):
    equal to the in-process hits, one ``/generate`` streamed to
    ``[DONE]``. (e) A profile of (c)'s in-process calls, ``complete``
    kernel by kernel, holds ``int8_matmul_mma``, ``paged_split_kernel`` and
-   ``flash_attention_kernel``. It prints the native build's seconds, search
-   ms a query for flat, ivf and tpu, and the phase wall (a budget of 120
-   s). Every process it started is gone when it ends.
+   ``flash_attention_kernel`` (captured again, up to 3 times, when CUPTI
+   drops events). It prints the native build's seconds, search ms a query
+   for flat, ivf and tpu, and the phase wall (a budget of 120 s). The
+   phase runs in a child process of this script (``--connect-child``, as
+   phase 13 does: after the earlier phases' profiler sessions in one
+   process, a capture came back one kernel short three times running);
+   its log lines are relayed and its launches counted in the sum. Every
+   process it started is gone when it ends.
 
 16. tp: tensor-parallel serving, every shard on this card
    (``create_mesh(N, devices=[cuda:0] * N)``: each kernel at its per-GPU
@@ -538,6 +544,41 @@ ppcards (``--phases ppcards``, on 4 cards; not in the default run): phase
    ``paged_attention`` must launch in the phase. It prints each leg's
    wall, the launches and the phase wall (a budget of 120 s).
 
+22. agents: the rest of the JAX repository's experimental/ on phase 7's
+   deployment (it runs after phase 21 and before phase 11, and alone
+   builds the deployment and ingests phase 7's corpus); every engine
+   request decodes at most 48 tokens (phase 21's ``_AppsEngine``); the
+   inputs are drawn from ``--seed``. (a) ingest on arctic-embed-l and the
+   card's store, the JAX defaults (512-word chunks, overlap 64, batches of
+   64, 2 workers): first ``IngestPipeline`` driven directly with a Kafka
+   source over an injected ``poll()`` (128 messages) and 12 code files
+   into ``cve_code``, then ``streaming_ingest.run.main(["--files", ...,
+   "--rss", ...])`` in process over 96 files of 8-16 KB (.txt, .md and
+   .html: a file the loader cannot read, .html without bs4, is skipped, as
+   in JAX) and an RSS 2.0 feed of 128 items and an Atom feed of 64 into
+   ``agents_ingest``: ``docs_in`` is the readable files, entries and
+   messages; ``chunks_out`` and the store's count equal the chunks the
+   port's loader and splitter make of the same inputs here, with the same
+   (source, text) multiset; 64 stored vectors each within cosine 0.999 of
+   a direct ``embed_documents`` of its text; each file's planted opening
+   sentence (> 512 bytes, embedded as the chunks are) finds that file at
+   top 1. (b) beside (a)'s second run: ``cve_analysis.pipeline.main``
+   over 4 CVEs (JSONL) at concurrency 4, a 200-package SBOM and
+   ``--code-collection cve_code``: every line has JAX's ``as_dict`` keys,
+   the engine requests holding the CVEs equal the calls the verdicts imply;
+   ``CodeSearchTool.search`` of each planted identifier equals the host's
+   top 4 over the store's vectors (how many hold the planted call is
+   reported: the encoder's weights are random). (c) beside them: a
+   Triton-protocol stub server here (``GET /v2/health/ready``, ``POST
+   /v2/models/ensemble/infer`` decoding ``text_input`` greedily on engine A)
+   and ``TritonLLMBackend`` driving one CVE through ``CVEPipeline``:
+   ``server_ready()``, JAX's eight input tensors and the bearer token in
+   each body, each reply the server's ``text_output``, as many requests as
+   the verdict implies. The phase's engine requests are (b)'s and (c)'s,
+   none decodes more than 48 tokens, ``int8_matmul`` and ``paged_attention``
+   must launch. It prints each leg's wall, chunks a second, the engine
+   requests and tokens, the launches and the phase wall (a budget of 60 s).
+
 multicards (``--phases multicards``, on 4 cards; not in the default run):
    phase 20's (b) in one process on tp 2 x dp 2 over four cards
    (``MULTICARDS_MESH``) against one device, and its (c) over ``nccl``,
@@ -550,7 +591,8 @@ With no arguments it runs every phase above but ppcards and multicards;
 --recipes B``, ``--phases chains``, ``--phases filechains``, ``--phases
 drain``, ``--phases observe``, ``--phases route``, ``--phases connect`` or
 ``--phases kernels,tp --checks tp``, ``--phases train``, ``--phases tpx``,
-``--phases pp``, ``--phases multi`` or ``--phases retrieval,rag,apps``)
+``--phases pp``, ``--phases multi``, ``--phases retrieval,rag,apps`` or
+``--phases agents``)
 and then print only the kernels that part measured; ``--runahead N`` serves every engine at ``decode_runahead`` N, and
 ``--timing-only`` leaves out the runahead and overload checks (for timed
 runs of an older tree, which lacks them).
@@ -4620,6 +4662,535 @@ def phase_apps(dev, smi, seed=0, dep=None, encoders=None, keep=False):
 
 
 # --------------------------------------------------------------------- #
+# Phase 22: agents: streaming ingest, CVE triage, the Triton-protocol client
+
+AGENTS_KINDS = ("txt", "md", "txt", "html", "txt", "md")  # (a): the files' kinds, in turn
+AGENTS_FILES = 96  # (a): 48 .txt, 32 .md, 16 .html of 8-16 KB
+AGENTS_RSS, AGENTS_ATOM, AGENTS_KAFKA = 128, 64, 128  # (a): feed entries, Kafka messages
+# (a): each file opens with a planted sentence of this many words, > 512
+# bytes: the encoder reads a chunk's first 512 byte ids, so a random
+# encoder gives the planted query and the file's first chunk the same input
+AGENTS_PLANTED_WORDS = 100
+AGENTS_SAMPLED = 64  # (a): stored vectors held against a direct embed_documents
+AGENTS_COSINE = 0.999  # (a): a row alone and in a batch part by up to 1.7e-3 on the card
+AGENTS_CVES = 4  # (b): CVEs through the CLI, 4 at once
+AGENTS_SBOM = 200  # (b): packages in the SBOM
+AGENTS_SCORE_TOL = 1e-4  # (b): the tool's top 4 against the host's, f32 dot products
+AGENTS_BUDGET_S = 60.0
+# (b): the identifiers the 12 code files call, one each
+AGENTS_IDENTIFIERS = ("etree.iterwalk", "etree.canonicalize", "yaml.load", "pickle.loads",
+                      "subprocess.Popen", "tarfile.extractall", "xml.sax.parseString",
+                      "jinja2.Template", "zipfile.ZipFile", "marshal.loads", "shelve.open",
+                      "ssl.wrap_socket")
+AGENTS_CVE_TEXTS = (
+    "CVE-2022-2309: lxml through 4.9.1 has a NULL pointer dereference in etree.iterwalk when "
+    "the iterator is used on a tree whose root was modified.",
+    "CVE-2020-1747: PyYAML before 5.3.1 runs arbitrary code through yaml.load with the "
+    "FullLoader on untrusted YAML.",
+    "CVE-2007-4559: tarfile.extractall in CPython up to 3.11.3 follows member names with '..' "
+    "and writes outside the target directory.",
+    "CVE-2019-20477: pickle.loads and marshal.loads of untrusted input in services built on "
+    "cloudpickle up to 1.3.0 execute attacker code.",
+)
+# (c): the CVE the Triton-protocol client drives through the pipeline
+AGENTS_TRITON_CVE = ("CVE-2023-27043: email.utils.parseaddr in CPython up to 3.11.4 accepts "
+                     "addresses with special characters and misreads their domain.")
+# (c): the KServe-v2 input tensors of JAX's client, by name and datatype
+AGENTS_TRITON_INPUTS = (("text_input", "BYTES"), ("max_tokens", "INT32"), ("temperature", "FP32"),
+                        ("runtime_top_k", "INT32"), ("runtime_top_p", "FP32"),
+                        ("beam_width", "INT32"), ("repetition_penalty", "FP32"),
+                        ("len_penalty", "FP32"))
+AGENTS_VERDICT_KEYS = {"cve_info", "checklist", "findings", "exploitable", "summary"}
+
+
+def _agents_words(rng, n, vocab):
+    return " ".join(rng.choice(vocab, n))
+
+
+def _agents_corpus(rng, work) -> dict:
+    """(a) and (b)'s inputs under ``work``, drawn from ``rng``: the 96
+    files (each opening with its planted sentence), the RSS 2.0 and Atom
+    feeds, the Kafka messages, the 12 code files, the CVEs and the SBOM."""
+    from xml.sax.saxutils import escape
+
+    letters = list("abcdefghijklmnopqrstuvwxyz")
+    vocab = np.array(sorted({"".join(rng.choice(letters, int(rng.randint(4, 10))))
+                             for _ in range(6000)}))
+    out = {"files": [], "rss": [], "atom": [], "kafka": [], "code": []}
+    os.makedirs(os.path.join(work, "files"))
+    for i in range(AGENTS_FILES):
+        kind = AGENTS_KINDS[i % len(AGENTS_KINDS)]
+        planted = _agents_words(rng, AGENTS_PLANTED_WORDS, vocab) + "."
+        target, sentences = int(rng.randint(8192, 16385)), []
+        size = len(planted)
+        while size < target:
+            sentences.append(_agents_words(rng, int(rng.randint(8, 15)), vocab) + ".")
+            size += len(sentences[-1]) + 1
+        paras = [" ".join(sentences[k:k + 6]) for k in range(0, len(sentences), 6)]
+        if kind == "md":
+            body = planted + "\n\n" + "".join(f"## Part {k}\n\n{p}\n\n" for k, p in enumerate(paras))
+        elif kind == "html":
+            body = ("<html><head><style>p {margin: 0}</style></head><body>"
+                    f"<p>{planted}</p>" + "".join(f"<p>{p}</p>" for p in paras) + "</body></html>")
+        else:
+            body = planted + "\n" + "\n".join(paras)
+        path = os.path.join(work, "files", f"doc{i:03d}.{kind}")
+        with open(path, "w") as fh:
+            fh.write(body)
+        out["files"].append((path, planted))
+    items = []
+    for i in range(AGENTS_RSS):
+        entry = (f"Bulletin {i} {_agents_words(rng, 3, vocab)}", f"https://feeds.example/rss/{i}",
+                 _agents_words(rng, int(rng.randint(40, 400)), vocab))
+        out["rss"].append(entry)
+        items.append(f"<item><title>{escape(entry[0])}</title><link>{entry[1]}</link>"
+                     f"<description>{escape(entry[2])}</description></item>")
+    out["rss_path"] = os.path.join(work, "news.rss.xml")
+    with open(out["rss_path"], "w") as fh:
+        fh.write('<?xml version="1.0"?>\n<rss version="2.0"><channel><title>news</title>'
+                 + "".join(items) + "</channel></rss>")
+    entries = []
+    for i in range(AGENTS_ATOM):
+        entry = (f"Advisory {i} {_agents_words(rng, 3, vocab)}", f"urn:agents:atom:{i}",
+                 _agents_words(rng, int(rng.randint(40, 400)), vocab))
+        out["atom"].append(entry)
+        entries.append(f"<entry><title>{escape(entry[0])}</title><id>{entry[1]}</id>"
+                       f'<link href="https://feeds.example/atom/{i}"/>'
+                       f"<summary>{escape(entry[2])}</summary></entry>")
+    out["atom_path"] = os.path.join(work, "advisories.atom.xml")
+    with open(out["atom_path"], "w") as fh:
+        fh.write('<?xml version="1.0" encoding="utf-8"?>\n'
+                 '<feed xmlns="http://www.w3.org/2005/Atom"><title>advisories</title>'
+                 + "".join(entries) + "</feed>")
+    for i in range(AGENTS_KAFKA):
+        out["kafka"].append((f"kafka-{i}", _agents_words(rng, int(rng.randint(30, 700)), vocab)))
+    os.makedirs(os.path.join(work, "code"))
+    for k, ident in enumerate(AGENTS_IDENTIFIERS):
+        module = ident.split(".")[0]
+        filler = "\n".join(f"    # {_agents_words(rng, 8, vocab)}" for _ in range(4))
+        text = (f'"""Handlers of service {k}."""\nimport {module}\n\n\n'
+                f"def handle_{k}(payload, options=None):\n{filler}\n"
+                f"    result = {ident}(payload)\n    return result\n")
+        path = os.path.join(work, "code", f"service_{k:02d}.py")
+        with open(path, "w") as fh:
+            fh.write(text)
+        out["code"].append((path, ident, text))
+    out["cves_path"] = os.path.join(work, "cves.jsonl")
+    with open(out["cves_path"], "w") as fh:
+        for text in AGENTS_CVE_TEXTS:
+            fh.write(json.dumps({"cve_info": text}) + "\n")
+    named = [("lxml", "4.8.0"), ("pyyaml", "5.3"), ("cpython", "3.11.2"), ("cloudpickle", "1.2.2")]
+    out["sbom_path"] = os.path.join(work, "sbom.csv")
+    with open(out["sbom_path"], "w") as fh:
+        fh.write("name,version\n")
+        for name, version in named + [
+                (f"pkg-{vocab[j]}", f"{rng.randint(0, 9)}.{rng.randint(0, 30)}.{rng.randint(0, 99)}")
+                for j in rng.choice(len(vocab), AGENTS_SBOM - len(named), replace=False)]:
+            fh.write(f"{name},{version}\n")
+    return out
+
+
+def _agents_expected(corpus) -> tuple:
+    """What (a)'s two runs must store, computed here on the host: the
+    (source, text) chunks the port's loader and splitter make of each
+    file, feed entry and message (the JAX defaults: 512 words, overlap 64;
+    an Atom link is an href with no text, so an entry's id is its title, as
+    JAX's parser reads it), and the files the loader cannot read."""
+    from generativeaiexamples_tpu_torch.retrieval.loaders import load_document
+    from generativeaiexamples_tpu_torch.retrieval.splitter import get_text_splitter
+
+    split = get_text_splitter(512, 64).split_text
+    ingest, skipped = [], []
+    for path, _ in corpus["files"]:
+        try:
+            text = load_document(path)
+        except Exception as exc:  # noqa: BLE001 - the pipeline skips such a file too
+            skipped.append((os.path.basename(path), f"{type(exc).__name__}: {exc}"))
+            continue
+        ingest += [(path, c) for c in split(text)]
+    for title, link, body in corpus["rss"]:
+        ingest += [(link, c) for c in split(f"{title}\n{body}")]
+    for title, _, body in corpus["atom"]:
+        ingest += [(title, c) for c in split(f"{title}\n{body}")]
+    code = [(key, c) for key, value in corpus["kafka"] for c in split(value)]
+    code += [(path, c) for path, _, text in corpus["code"] for c in split(load_document(path))]
+    return sorted(ingest), sorted(code), skipped
+
+
+def _agents_rows(store) -> tuple:
+    """A port store's (chunks, host matrix) as they stand."""
+    with store._lock:
+        return list(store._chunks), store._matrix.copy()
+
+
+def _agents_ingest_checks(emb, store, want, docs_want, stats, planted, what, note) -> dict:
+    """(a)'s checks on one collection: ``docs_in``, ``chunks_out`` and the
+    store's count, the (source, text) multiset, AGENTS_SAMPLED stored
+    vectors against a direct ``embed_documents`` of their texts, and (with
+    ``planted``: (file, sentence) pairs) each planted sentence's file at
+    top 1."""
+    chunks, matrix = _agents_rows(store)
+    got = sorted((c.source, c.text) for c in chunks)
+    if stats["docs_in"] != docs_want or stats["chunks_out"] != len(want) or \
+            store.count() != len(want):
+        raise AssertionError(f"agents (a) {what}: docs_in {stats['docs_in']} (want {docs_want}), "
+                             f"chunks_out {stats['chunks_out']}, stored {store.count()} "
+                             f"(want {len(want)})")
+    if got != want:
+        missing = len(set(want) - set(got))
+        raise AssertionError(f"agents (a) {what}: the stored chunks differ from the splitter's "
+                             f"({missing} missing, {len(set(got) - set(want))} extra)")
+    rng = np.random.RandomState(len(want))
+    rows = rng.choice(len(chunks), min(AGENTS_SAMPLED, len(chunks)), replace=False)
+    direct = np.asarray(emb.embed_documents([chunks[r].text for r in rows]), np.float64)
+    direct /= np.linalg.norm(direct, axis=1, keepdims=True)
+    cos = np.sum(direct * matrix[rows].astype(np.float64), axis=1)
+    if not cos.min() >= AGENTS_COSINE:
+        raise AssertionError(f"agents (a) {what}: a stored vector against embed_documents of its "
+                             f"text: cosine {cos.min():.6f} < {AGENTS_COSINE}")
+    out = {"docs_in": stats["docs_in"], "chunks": len(want), "cosine_min": float(cos.min()),
+           "cosine_mean": float(cos.mean())}
+    if planted:
+        # the query embedded as the chunks are (embed_query prepends the
+        # arctic query prefix, which changes the encoder's leading input)
+        vecs = emb.embed_documents([s for _, s in planted])
+        misses = [os.path.basename(p) for (p, _), v in zip(planted, vecs)
+                  if store.search(v, 1)[0].chunk.source != p]
+        if misses:
+            raise AssertionError(f"agents (a) {what}: planted sentences whose file is not the top "
+                                 f"hit: {misses}")
+        out["planted_top1"] = len(planted)
+    note(f"agents (a) {what}: docs_in {stats['docs_in']}, {len(want)} chunks stored as the "
+         f"splitter makes them; {len(rows)} stored vectors against embed_documents: cosine "
+         f"{cos.min():.6f}-{cos.max():.6f}"
+         + (f"; {len(planted)} planted sentences, each its file's top hit" if planted else ""))
+    return out
+
+
+def _triton_stub(engine):
+    """A Triton-protocol server on ``http.server`` over ``engine``:
+    ``GET /v2/health/ready`` and ``POST /v2/models/ensemble/infer``, which
+    decodes ``text_input`` greedily at the request's ``max_tokens`` capped
+    to APPS_TOKENS and records each body, its headers and its reply."""
+    from generativeaiexamples_tpu_torch.engine.llm_engine import SamplingParams
+
+    records, lock = [], threading.Lock()
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+        def _reply(self, status, body=b""):
+            self.send_response(status)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            self._reply(200 if self.path == "/v2/health/ready" else 404)
+
+        def do_POST(self):
+            body = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+            if self.path != "/v2/models/ensemble/infer":
+                self._reply(404)
+                return
+            inputs = {t["name"]: t["data"][0] for t in body["inputs"]}
+            params = SamplingParams(temperature=0.0,
+                                    max_tokens=min(int(inputs["max_tokens"]), APPS_TOKENS))
+            text = "".join(engine.stream_text(engine.tokenizer.encode(inputs["text_input"]),
+                                              params))
+            with lock:
+                records.append({"body": body, "authorization": self.headers.get("Authorization"),
+                                "text_output": text})
+            self._reply(200, json.dumps({"model_name": "ensemble", "outputs": [
+                {"name": "text_output", "shape": [1, 1], "datatype": "BYTES",
+                 "data": [text]}]}).encode())
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    thread = threading.Thread(target=server.serve_forever, name="smoke-agents-triton",
+                              daemon=True)
+    thread.start()
+    return server, thread, records
+
+
+def _implied_calls(verdict) -> int:
+    """The LLM calls one verdict's dict implies: its checklist and its
+    verdict, and for each item one call a tool step plus the call that gave
+    the finding (none after the step limit of 4)."""
+    return 2 + sum(len(f["steps"]) + (len(f["steps"]) < 4) for f in verdict["findings"])
+
+
+def _agents_ingest(corpus, want, skipped, note) -> dict:
+    """(a)'s second run: ``streaming_ingest.run.main`` over the files and
+    feeds into ``agents_ingest``, its printed stats captured."""
+    from generativeaiexamples_tpu_torch.chains import runtime
+    from generativeaiexamples_tpu_torch.experimental.streaming_ingest import run as ingest_run
+
+    files = os.path.join(os.path.dirname(corpus["files"][0][0]), "*")
+    t = time.perf_counter()
+    with _ThreadOutput.captured() as (stdout, _):
+        ingest_run.main(["--files", files, "--rss", corpus["rss_path"], corpus["atom_path"],
+                         "--collection", "agents_ingest"])
+    seconds = time.perf_counter() - t
+    stats = json.loads(stdout.getvalue().strip().splitlines()[-1])
+    readable = len(corpus["files"]) - len(skipped)
+    planted = [(p, s) for p, s in corpus["files"]
+               if os.path.basename(p) not in {name for name, _ in skipped}]
+    out = _agents_ingest_checks(runtime.get_embedder(), runtime.get_vector_store("agents_ingest"),
+                                want, readable + AGENTS_RSS + AGENTS_ATOM, stats, planted,
+                                "run.main --files --rss", note)
+    out.update(seconds=seconds, printed=stats, skipped=[name for name, _ in skipped],
+               chunks_per_s=len(want) / seconds)
+    note(f"agents (a) run.main: {len(want)} chunks of {stats['docs_in']} documents in "
+         f"{stats['batches_embedded']} batches, {seconds:.2f} s ({out['chunks_per_s']:.1f} "
+         f"chunks/s); {len(skipped)} files skipped"
+         + (f" ({skipped[0][1]})" if skipped else ""))
+    return out
+
+
+def _agents_cve(engine, corpus, work, snapshot, note) -> dict:
+    """(b): the CVE CLI in process on the deployment's LLM, then the code
+    search of each planted identifier held against the host's top 4."""
+    from generativeaiexamples_tpu_torch.chains import runtime
+    from generativeaiexamples_tpu_torch.experimental.cve_analysis import pipeline as cve_pipeline
+    from generativeaiexamples_tpu_torch.experimental.cve_analysis.tools import CodeSearchTool
+
+    out_path = os.path.join(work, "verdicts.jsonl")
+    t = time.perf_counter()
+    cve_pipeline.main(["--cves", corpus["cves_path"], "--sbom", corpus["sbom_path"],
+                       "--code-collection", "cve_code", "--concurrency", str(AGENTS_CVES),
+                       "--out", out_path])
+    seconds = time.perf_counter() - t
+    with open(out_path) as fh:
+        rows = [json.loads(line) for line in fh]
+    if [r.get("cve_info") for r in rows] != list(AGENTS_CVE_TEXTS) or \
+            any(set(r) != AGENTS_VERDICT_KEYS for r in rows):
+        raise AssertionError(f"agents (b): {len(rows)} verdict lines, keys "
+                             f"{[sorted(r) for r in rows]}")
+    reqs = [r for r in snapshot()
+            if any(c in engine.tokenizer.decode(r.prompt_ids) for c in AGENTS_CVE_TEXTS)]
+    implied = sum(_implied_calls(r) for r in rows)
+    if len(reqs) != implied:
+        raise AssertionError(f"agents (b): {len(reqs)} engine requests for the CVEs, the verdicts "
+                             f"imply {implied}")
+    tool = CodeSearchTool(runtime.get_embedder(), runtime.get_vector_store("cve_code"))
+    chunks, matrix = _agents_rows(tool.store)
+    found = []
+    for ident in AGENTS_IDENTIFIERS:
+        got = tool.search(ident).split("\n---\n")
+        q = tool.embedder.embed_query(ident)  # the tool's query vector (the query cache's)
+        scores = matrix @ (q / np.linalg.norm(q))
+        best = {}
+        for c, s in zip(chunks, scores):
+            best[c.text[:400]] = max(best.get(c.text[:400], -2.0), float(s))
+        want = np.sort(scores)[::-1][:tool.top_k]
+        got_scores = np.array([best.get(g, np.nan) for g in got])
+        if len(got) != len(want) or not np.all(np.abs(got_scores - want) <= AGENTS_SCORE_TOL):
+            raise AssertionError(f"agents (b) code_search({ident!r}): scores {got_scores} against "
+                                 f"the host's top {tool.top_k} {want}")
+        found.append(any(f"{ident}(" in g for g in got))
+    steps = sum(len(f["steps"]) for r in rows for f in r["findings"])
+    out = {"seconds": seconds, "verdicts": len(rows), "llm_calls": implied,
+           "checklist_items": [len(r["checklist"]) for r in rows], "tool_steps": steps,
+           "exploitable": [r["exploitable"] for r in rows],
+           "code_search_found": int(sum(found))}
+    note(f"agents (b) CVE CLI: {len(rows)} verdicts with JAX's keys, checklists of "
+         f"{out['checklist_items']} items, {steps} tool steps, {implied} LLM calls as the verdicts "
+         f"imply ({seconds:.1f} s); code_search of {len(AGENTS_IDENTIFIERS)} identifiers equals the "
+         f"host's top {tool.top_k}, the planted call in the result for {out['code_search_found']} "
+         f"(random encoder weights)")
+    return out
+
+
+def _agents_triton(engine, note) -> dict:
+    """(c): one CVE through ``CVEPipeline`` on ``TritonLLMBackend`` against
+    the stub server on the deployment's engine."""
+    from generativeaiexamples_tpu_torch.experimental.azureml import TritonLLMBackend
+    from generativeaiexamples_tpu_torch.experimental.cve_analysis import CVEPipeline
+
+    server, thread, records = _triton_stub(engine)
+    try:
+        backend = TritonLLMBackend(f"http://127.0.0.1:{server.server_address[1]}",
+                                   api_key="smoke-token")
+        if not backend.client.server_ready():
+            raise AssertionError("agents (c): server_ready() is false")
+        replies, real_infer = [], backend.client.infer
+
+        def infer(*args, **kwargs):
+            replies.append(real_infer(*args, **kwargs))
+            return replies[-1]
+
+        backend.client.infer = infer
+        t = time.perf_counter()
+        verdict = CVEPipeline(backend).run_sync([AGENTS_TRITON_CVE])[0].as_dict()
+        seconds = time.perf_counter() - t
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(60)
+    for rec in records:
+        inputs = rec["body"]["inputs"]
+        if [(i["name"], i["datatype"], i["shape"]) for i in inputs] != \
+                [(n, d, [1, 1]) for n, d in AGENTS_TRITON_INPUTS] or \
+                rec["authorization"] != "Bearer smoke-token":
+            raise AssertionError(f"agents (c): a request body {inputs} "
+                                 f"(authorization {rec['authorization']!r})")
+    if replies != [r["text_output"] for r in records]:
+        raise AssertionError("agents (c): the client's replies differ from the server's text_output")
+    if len(records) != _implied_calls(verdict):
+        raise AssertionError(f"agents (c): {len(records)} infer requests, the verdict implies "
+                             f"{_implied_calls(verdict)}")
+    note(f"agents (c) Triton protocol: server_ready, {len(records)} infer requests with JAX's eight "
+         f"tensors and the bearer token, each reply the server's text_output, as many as the "
+         f"verdict implies ({seconds:.1f} s)")
+    return {"seconds": seconds, "infer_requests": len(records),
+            "checklist_items": len(verdict["checklist"])}
+
+
+def phase_agents(dev, smi, seed=0, dep=None, encoders=None, keep=False):
+    """The rest of the JAX repository's experimental/ on phase 7's
+    deployment (module docstring, phase 22): ``dep`` is that deployment,
+    still up, or None to build one and ingest phase 7's corpus. Returns the
+    results and, when ``keep``, the deployment still up for phase 11."""
+    from generativeaiexamples_tpu_torch import config as config_mod
+    from generativeaiexamples_tpu_torch.chains import runtime
+    from generativeaiexamples_tpu_torch.engine import llm_backend
+    from generativeaiexamples_tpu_torch.experimental.streaming_ingest import (
+        IngestPipeline,
+        PipelineConfig,
+    )
+    from generativeaiexamples_tpu_torch.experimental.streaming_ingest.sources import (
+        FilesystemSource,
+        KafkaSource,
+    )
+
+    t0 = time.time()
+
+    def note(msg):
+        log(f"  [{time.time() - t0:.1f} s] {msg}")
+
+    if dep is None:
+        dep = _rag_deploy_ingested(seed, encoders)
+        note(f"engine A through create_llm ({dep['engine_s']:.1f} s) and phase 7's documents")
+    else:
+        note("phase 7's engine A, encoders and 'default' collection")
+    config, engine = config_mod.get_config(), dep["engine"]
+    llm_key = (config.llm.model_engine, config.llm.server_url, config.llm.model_name)
+    saved_backend = llm_backend._LLM_CACHE.get(llm_key)
+    llm_backend._LLM_CACHE[llm_key] = llm_backend.TorchLLMBackend(
+        engine=_AppsEngine(engine, seed=CHAIN_SEED))
+    requests, lock = [], threading.Lock()
+    real_submit = engine.submit
+
+    def submit(*args, **kwargs):  # every request of the phase, for its prompt and emitted ids
+        req = real_submit(*args, **kwargs)
+        with lock:
+            requests.append(req)
+        return req
+
+    def snapshot():
+        with lock:
+            return list(requests)
+
+    engine.submit = submit
+    work = tempfile.mkdtemp(prefix="agents_", dir=dep["tmp"])
+    out, walls = {}, {}
+    try:
+        t = time.perf_counter()
+        corpus = _agents_corpus(np.random.RandomState(seed + 22), work)
+        ingest_want, code_want, skipped = _agents_expected(corpus)
+        note(f"agents inputs: {AGENTS_FILES} files, {AGENTS_RSS} RSS items, {AGENTS_ATOM} Atom "
+             f"entries, {AGENTS_KAFKA} Kafka messages, {len(AGENTS_IDENTIFIERS)} code files; "
+             f"expected {len(ingest_want)} + {len(code_want)} chunks "
+             f"({time.perf_counter() - t:.1f} s)")
+        emb = runtime.get_embedder()
+        counters0 = dict(getattr(getattr(emb, "_batcher", None), "counters", {}) or {})
+        stats0 = engine.stats()
+        t_phase = time.perf_counter()
+        reset_counts()
+        # (a) first into cve_code (the pipeline driven directly: the Kafka
+        # source and the code files), then (a)'s CLI beside (b) and (c)
+        t = time.perf_counter()
+        messages = list(corpus["kafka"])
+        code_store = runtime.get_vector_store("cve_code")
+        code_stats = IngestPipeline(
+            PipelineConfig(collection="cve_code"), emb, code_store,
+            sources=[KafkaSource(poll=lambda: messages.pop(0) if messages else None,
+                                 idle_limit=2, poll_interval=0.01),
+                     FilesystemSource([p for p, _, _ in corpus["code"]], name="code")]).run_sync()
+        walls["ingest_code"] = time.perf_counter() - t
+        out["ingest_code"] = _agents_ingest_checks(
+            emb, code_store, code_want, AGENTS_KAFKA + len(AGENTS_IDENTIFIERS),
+            code_stats.as_dict(), [], "IngestPipeline kafka+code", note)
+        out["ingest_code"].update(seconds=walls["ingest_code"],
+                                  chunks_per_s=len(code_want) / walls["ingest_code"])
+
+        def timed(leg, fn):
+            def run():
+                t = time.perf_counter()
+                out[leg] = fn()
+                walls[leg] = time.perf_counter() - t
+            return run
+
+        sys.stdout, sys.stderr = _ThreadOutput(sys.stdout), _ThreadOutput(sys.stderr)
+        try:
+            _concurrently({
+                "ingest": timed("ingest", lambda: _agents_ingest(corpus, ingest_want, skipped,
+                                                                 note)),
+                "cve": timed("cve", lambda: _agents_cve(engine, corpus, work, snapshot, note)),
+                "triton": timed("triton", lambda: _agents_triton(engine, note))})
+        finally:
+            sys.stdout, sys.stderr = sys.stdout.stream, sys.stderr.stream
+        launched = counts()
+        wall = time.perf_counter() - t_phase
+        done = snapshot()
+        missing = [n for n in ("int8_matmul", "paged_attention[bfloat16]") if launched[n] == 0]
+        if missing:
+            raise AssertionError(f"agents: kernels never launched by the phase: {missing}")
+        long = [len(r.emitted) for r in done if len(r.emitted) > APPS_TOKENS]
+        if long:
+            raise AssertionError(f"agents: requests decoded {long} tokens, over {APPS_TOKENS}")
+        if len(done) != out["cve"]["llm_calls"] + out["triton"]["infer_requests"]:
+            raise AssertionError(f"agents: {len(done)} engine requests, (b) and (c) account for "
+                                 f"{out['cve']['llm_calls'] + out['triton']['infer_requests']}")
+        stats1 = engine.stats()
+        counters1 = dict(getattr(getattr(emb, "_batcher", None), "counters", {}) or {})
+        gate = {k: counters1.get(k, 0) - counters0.get(k, 0)
+                for k in ("ingest_gated_batches", "ingest_gate_wait_s")}
+        chunks = len(ingest_want) + len(code_want)
+        out.update({"launches": launched, "wall_s": wall, "walls_s": walls,
+                    "engine_requests": len(done), "tokens": sum(len(r.emitted) for r in done),
+                    "prompt_ids": [len(r.prompt_ids) for r in done],
+                    "chunks_per_s": chunks / (walls["ingest_code"] + walls["ingest"]),
+                    "ingest_gate": gate, "prefix_cache": _prefix_counts(stats0, stats1)})
+        note(f"launches in the phase: " + ", ".join(f"{n} {launched[n]}" for n in RAG_EXPECTED)
+             + f"; {len(done)} engine requests of {min(out['prompt_ids'], default=0)}-"
+             f"{max(out['prompt_ids'], default=0)} prompt ids, {out['tokens']} tokens; "
+             f"{chunks} chunks at {out['chunks_per_s']:.1f} chunks/s over (a)'s two runs "
+             f"(the ingest gate held {gate['ingest_gated_batches']} batches "
+             f"{gate['ingest_gate_wait_s']:.2f} s); walls "
+             + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+             + f"; phase wall {wall:.1f} s on {smi}")
+        if wall > AGENTS_BUDGET_S:
+            log(f"  agents: the phase took {wall:.1f} s, over its {AGENTS_BUDGET_S:.0f} s budget")
+        for name in ("agents_ingest", "cve_code"):  # the deployment goes on as it was
+            store = runtime.get_vector_store(name)
+            store.delete_sources(store.sources())
+    finally:
+        del engine.submit
+        if saved_backend is None:
+            llm_backend._LLM_CACHE.pop(llm_key, None)
+        else:
+            llm_backend._LLM_CACHE[llm_key] = saved_backend
+        shutil.rmtree(work, ignore_errors=True)
+        if not keep or sys.exc_info()[0] is not None:
+            _rag_teardown(dep)
+    log(f"phase agents: ok ({time.time() - t0:.1f} s)")
+    return out, (dep if keep else None)
+
+
+# --------------------------------------------------------------------- #
 # Phase 11: drain and restore, the disagg scheduler, faults, the retrieval tier
 
 # the bf16 paged pool over HTTP; the int4 pool, whose payload carries
@@ -6136,20 +6707,19 @@ def phase_observe(dev, smi, seed=0) -> dict:
     return out
 
 
-def _observe_in_child(seed) -> dict:
-    """Phase 13 in a child process of this script (``--observe-child``):
-    its profile through the chain server's route starts from a fresh CUPTI
-    state, where after this process's earlier profiler sessions whole
-    captures came back without their kernels. Its log lines are relayed
-    and its standard error passes through; a child that fails fails the
-    phase."""
-    cmd = [sys.executable, os.path.abspath(__file__), "--observe-child", "--seed", str(seed)]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, text=True, timeout=OBSERVE_CHILD_S)
+def _in_child(flag, phase, seed, limit) -> dict:
+    """One phase in a child process of this script (``flag``): its
+    profile starts from a fresh CUPTI state, where after this process's
+    earlier profiler sessions whole captures came back without their
+    kernels, or short of one. Its log lines are relayed and its standard
+    error passes through; a child that fails fails the phase."""
+    cmd = [sys.executable, os.path.abspath(__file__), flag, "--seed", str(seed)]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, text=True, timeout=limit)
     lines = proc.stdout.splitlines()
     for line in lines if proc.returncode else lines[:-1]:
         log(line)
     if proc.returncode != 0 or not lines:
-        raise AssertionError(f"phase observe: its process exited {proc.returncode}")
+        raise AssertionError(f"phase {phase}: its process exited {proc.returncode}")
     return json.loads(lines[-1])
 
 
@@ -6466,9 +7036,9 @@ def phase_route(dev, smi, seed=0) -> dict:
         hits_name = "genai_engine_prefix_cache_hits_total"
         ring = HashRing(["r0", "r1"])
 
-        def conversations(policy, tag):
-            # owners interleaved: each worker's conversations share an owner, and
-            # two are in flight on each replica at a time
+        def conversations(policy, tag, concurrency):
+            # owners interleaved: at ROUTE_CONCURRENCY each worker's conversations
+            # share an owner, and two are in flight on each replica at a time
             by_owner = [_owned_by(rng, f"r{i}", ROUTE_FIRST_CHARS, tag,
                                   ROUTE_CONVERSATIONS // 2) for i in range(2)]
             firsts = [m for pair in zip(*by_owner) for m in pair]
@@ -6479,7 +7049,7 @@ def phase_route(dev, smi, seed=0) -> dict:
 
             def worker(w):
                 runs = []
-                for first in firsts[w::ROUTE_CONCURRENCY]:
+                for first in firsts[w::concurrency]:
                     history, seen, ttfts = (), [], []
                     for turn in range(ROUTE_TURNS):
                         msg = first if turn == 0 else f"and then, part {turn + 1}?"
@@ -6492,20 +7062,25 @@ def phase_route(dev, smi, seed=0) -> dict:
 
             t1 = time.perf_counter()
             runs = [run for rs in _concurrently({f"conv{w}": (lambda w=w: worker(w))
-                                                 for w in range(ROUTE_CONCURRENCY)}).values()
+                                                 for w in range(concurrency)}).values()
                     for run in rs]
             wall = time.perf_counter() - t1
             hits = sum(_scrape(b, hits_name) for b in reps) - before
             return runs, hits, wall
 
-        aff, aff_hits, aff_wall = conversations("affinity", "affinity")
+        aff, aff_hits, aff_wall = conversations("affinity", "affinity", ROUTE_CONCURRENCY)
         for first, seen, _ in aff:
             if set(seen) != {ring.owner(first)}:
                 raise AssertionError(f"affinity: a conversation's turns went to {seen}, its "
                                      f"ring owner is {ring.owner(first)}")
         if {seen[0] for _, seen, _ in aff} != {"r0", "r1"}:
             raise AssertionError("affinity: one replica owns every conversation")
-        rr, rr_hits, rr_wall = conversations("round_robin", "round-robin")
+        # round robin one request at a time: its counter then moves by one a
+        # request, so each conversation's turns alternate replicas, as a blind
+        # placement's do. Four workers in lockstep place requests in a fixed
+        # cycle, which kept each conversation on one replica (as many hits as
+        # affinity's) in some runs and not in others
+        rr, rr_hits, rr_wall = conversations("round_robin", "round-robin", 1)
         _http(router, "POST", "/internal/policy", {"policy": "affinity"})
         if not aff_hits > rr_hits:
             raise AssertionError(f"prefix hits: affinity {aff_hits} not above round robin "
@@ -6750,6 +7325,7 @@ CONNECT_TOKENS = 24  # each connector call, greedy
 CONNECT_UPLOADS = 2  # phase 7's documents uploaded to the chain server
 CONNECT_SEARCH_TOL = 1e-5  # f32 dot products of 1024-dim unit vectors, other sum orders
 CONNECT_PROFILE_TRIES = 3  # CUPTI can drop a session's events: capture again
+CONNECT_CHILD_S = 600  # the time limit of the phase's process
 # the JAX package's messages when a client package is missing
 CONNECT_MISSING = {
     "milvus": ("pymilvus",
@@ -7071,7 +7647,7 @@ def phase_connect(dev, smi, seed=0) -> dict:
         remote = f"http://127.0.0.1:{http_server.server_address[1]}/v1"
         exporter = tracing.InMemorySpanExporter()
         tracing.set_tracer(tracing.Tracer(exporter=exporter, flush_interval=0.1))
-        launches = collections.Counter()
+        launches, captures = collections.Counter(), []
         try:
             for attempt in range(CONNECT_PROFILE_TRIES):
                 _settle(engine)
@@ -7080,6 +7656,8 @@ def phase_connect(dev, smi, seed=0) -> dict:
                     calls = _connect_calls(engine, backend, query, search_query)
                 launches.update(counts())
                 prof = win.result
+                captures.append({k: prof[k] for k in ("kernels_in_trace", "kernels_launched",
+                                                      "device_events")})
                 if prof["complete"]:
                     break
                 log(f"    profile attempt {attempt + 1}: incomplete ({prof['kernels_in_trace']} "
@@ -7114,7 +7692,7 @@ def phase_connect(dev, smi, seed=0) -> dict:
             f"{len(span.events)} llm.new_token events; launches {dict(launches)}")
         if not prof["complete"]:
             raise AssertionError(f"connect (e): no complete profile in {CONNECT_PROFILE_TRIES} "
-                                 f"captures: {prof}")
+                                 f"captures: {captures}")
         held = [k for k in CONNECT_KERNELS if prof["kernels_in_trace"].get(k)]
         if len(held) != len(CONNECT_KERNELS):
             raise AssertionError(f"connect (e): the profile holds {prof['kernels_in_trace']}")
@@ -9314,7 +9892,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
                         default="kernels,model,serve,retrieval,rag,chains,filechains,apps,"
-                                "drain,prefix,spec,observe,route,connect,tp,train,tpx,pp,multi",
+                                "agents,drain,prefix,spec,observe,route,connect,tp,train,tpx,pp,"
+                                "multi",
                         help="phases after the build, comma-separated (default: all but "
                              "ppcards and multicards, which want 4 cards)")
     parser.add_argument("--checks", default=",".join(CHECKS),
@@ -9333,6 +9912,9 @@ def main() -> int:
     parser.add_argument("--observe-child", action="store_true",
                         help="run only phase 13 and print its readings as JSON (the default "
                              "run starts it as a process of its own)")
+    parser.add_argument("--connect-child", action="store_true",
+                        help="run only phase 15 and print its readings as JSON (the default "
+                             "run starts it as a process of its own)")
     args = parser.parse_args()
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -9344,8 +9926,9 @@ def main() -> int:
                                    [int(n) for n in args.tpx_profile_shards.split(",")])
         print(json.dumps(result), flush=True)
         return 0
-    if args.observe_child:
-        result = phase_observe(torch.device("cuda", 0), _smi(), args.seed)
+    if args.observe_child or args.connect_child:
+        run = phase_observe if args.observe_child else phase_connect
+        result = run(torch.device("cuda", 0), _smi(), args.seed)
         print(json.dumps(result), flush=True)
         return 0
     # every server the phases build arms the black box (and phase 13 profiles
@@ -9371,29 +9954,36 @@ def _run(args, phases) -> int:
         phase_model(dev)
     serves = (phase_serve(dev, args.recipes, args.runahead, not args.timing_only)
               if "serve" in phases else {})
-    later = {"rag", "chains", "filechains", "apps", "drain"}
+    later = {"rag", "chains", "filechains", "apps", "agents", "drain"}
     retrieval, encoders = (phase_retrieval(dev, info["smi"], args.seed,
                                            keep=bool(later & set(phases)))
                            if "retrieval" in phases else ({}, None))
     rag, dep = (phase_rag(dev, info["smi"], args.seed, encoders,
-                          keep=bool({"chains", "filechains", "apps", "drain"} & set(phases)))
+                          keep=bool({"chains", "filechains", "apps", "agents", "drain"}
+                                    & set(phases)))
                 if "rag" in phases else ({}, None))
     chains, dep = (phase_chains(dev, info["smi"], args.seed, dep, encoders,
-                                keep=bool({"filechains", "apps", "drain"} & set(phases)))
+                                keep=bool({"filechains", "apps", "agents", "drain"} & set(phases)))
                    if "chains" in phases else ({}, dep))
-    # phases 10, 21 and 11 run on phase 7's deployment, so before phase 9's engines
+    # phases 10, 21, 22 and 11 run on phase 7's deployment, so before phase 9's engines
     files, dep = (phase_filechains(dev, info["smi"], args.seed, dep, encoders,
-                                   keep=bool({"apps", "drain"} & set(phases)))
+                                   keep=bool({"apps", "agents", "drain"} & set(phases)))
                   if "filechains" in phases else ({}, dep))
-    apps, dep = (phase_apps(dev, info["smi"], args.seed, dep, encoders, keep="drain" in phases)
+    apps, dep = (phase_apps(dev, info["smi"], args.seed, dep, encoders,
+                            keep=bool({"agents", "drain"} & set(phases)))
                  if "apps" in phases else ({}, dep))
+    agents, dep = (phase_agents(dev, info["smi"], args.seed, dep, encoders,
+                                keep="drain" in phases)
+                   if "agents" in phases else ({}, dep))
     drain = phase_drain(dev, info["smi"], args.seed, dep, encoders) if "drain" in phases else {}
-    dep = None  # phase 11 (or 10 or 21) took the deployment down
+    dep = None  # phase 11 (or 10, 21 or 22) took the deployment down
     prefix = phase_prefix(dev, info["smi"], args.seed) if "prefix" in phases else {}
     spec = phase_spec(dev, info["smi"]) if "spec" in phases else {}
-    observe = _observe_in_child(args.seed) if "observe" in phases else {}
+    observe = (_in_child("--observe-child", "observe", args.seed, OBSERVE_CHILD_S)
+               if "observe" in phases else {})
     route = phase_route(dev, info["smi"], args.seed) if "route" in phases else {}
-    connect = phase_connect(dev, info["smi"], args.seed) if "connect" in phases else {}
+    connect = (_in_child("--connect-child", "connect", args.seed, CONNECT_CHILD_S)
+               if "connect" in phases else {})
     tp = phase_tp(dev, info["smi"], args.seed) if "tp" in phases else {}
     train = phase_train(dev, info["smi"], args.seed, args.scratch) if "train" in phases else {}
     tpx = phase_tpx(dev, info["smi"], args.seed) if "tpx" in phases else {}
@@ -9414,9 +10004,10 @@ def _run(args, phases) -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(sv["launches"][name] for sv in serves.values())
             + sum(ph.get("launches", {}).get(name, 0)
-                  for ph in (rag, chains, files, apps, drain, prefix, spec, observe, connect,
-                             tp, train, tpx, pp, ppcards, multi, multicards)),
+                  for ph in (rag, chains, files, apps, agents, drain, prefix, spec, observe,
+                             connect, tp, train, tpx, pp, ppcards, multi, multicards)),
             "apps_launches": apps.get("launches", {}).get(name, 0),
+            "agents_launches": agents.get("launches", {}).get(name, 0),
             "tp_launches": tp.get("launches", {}).get(name, 0),
             "tpx_launches": tpx.get("launches", {}).get(name, 0),
             "pp_launches": pp.get("launches", {}).get(name, 0),
@@ -9430,6 +10021,7 @@ def _run(args, phases) -> int:
         "chains": {k: v for k, v in chains.items() if k != "launches"},
         "filechains": {k: v for k, v in files.items() if k != "launches"},
         "apps": {k: v for k, v in apps.items() if k != "launches"},
+        "agents": {k: v for k, v in agents.items() if k != "launches"},
         "drain": {k: v for k, v in drain.items() if k != "launches"},
         "prefix": prefix.get("recipes", {}),
         "spec": {k: v for k, v in spec.items() if k != "launches"},

@@ -1,3 +1,5 @@
 """Experimental applications built on the port (counterpart of the JAX
 repository's experimental/): streaming-transcript RAG, the O-RAN spec
-chatbot and the multimodal assistant."""
+chatbot, the multimodal assistant, CVE triage with a tool-using agent
+(``cve_analysis``), streaming document ingestion (``streaming_ingest``)
+and a Triton-protocol LLM client (``azureml``)."""
