@@ -15,7 +15,7 @@ Phases (each one's failure makes the script exit non-zero):
    int8_w8a8_matmul also at M = 16 and 128 and with f32 x, timed),
    paged_attention over bf16, int8 and int4 pools (ragged, uniform, short
    and split-edge rows, and the verify's T = 9, 5, 3 and 2 query rows a
-   slot),
+   slot; and notebook 03's geometry: 64/8 heads on 16-row pages, B = 4),
    flash_attention_causal at (2, 512) and (2, 300), decode_attention over
    the fixed layout's int8 cache (ragged, uniform, short and split-edge
    slots); each kernel again on the local tiles of phase 16's and 18's
@@ -441,8 +441,10 @@ Phases (each one's failure makes the script exit non-zero):
    within ``SEARCH_SCORE_TOL``, tie runs as sets. (e) The port's
    ``profile_decode`` on recipe A at 8 of 32 layers (``TPX_PROFILE_LAYERS``;
    full depth until phase 21), B = 8, TP=1 then TP=2,
-   both in one child process of this script (``--tpx-profile-shards 1,2``:
-   a fresh profiler state; one a shard count before phase 20) (``ENABLE_PROFILING`` set for the engine's build, so the TP reduce's
+   each in a child process of this script (``--tpx-profile-shards N``: a
+   fresh profiler state for each shard count, since a process's TP=2
+   captures came back without kernels after its TP=1 sessions)
+   (``ENABLE_PROFILING`` set for the engine's build, so the TP reduce's
    kernels carry their label): 1 s of steady decode and one 512-id
    prefill (the 512 bucket), each trace complete (up to 3 captures), its
    kernels, JAX's categories and top ops printed; ``collective`` is
@@ -554,10 +556,10 @@ ppcards (``--phases ppcards``, on 4 cards; not in the default run): phase
    source over an injected ``poll()`` (128 messages) and 12 code files
    into ``cve_code``, then ``streaming_ingest.run.main(["--files", ...,
    "--rss", ...])`` in process over 96 files of 8-16 KB (.txt, .md and
-   .html: a file the loader cannot read, .html without bs4, is skipped, as
-   in JAX) and an RSS 2.0 feed of 128 items and an Atom feed of 64 into
-   ``agents_ingest``: ``docs_in`` is the readable files, entries and
-   messages; ``chunks_out`` and the store's count equal the chunks the
+   .html, which the standard library's HTML parser reads since phase 23
+   joined: no file may be skipped) and an RSS 2.0 feed of 128 items and an
+   Atom feed of 64 into ``agents_ingest``: ``docs_in`` is the 96 files and
+   the 192 entries; ``chunks_out`` and the store's count equal the chunks the
    port's loader and splitter make of the same inputs here, with the same
    (source, text) multiset; 64 stored vectors each within cosine 0.999 of
    a direct ``embed_documents`` of its text; each file's planted opening
@@ -579,6 +581,45 @@ ppcards (``--phases ppcards``, on 4 cards; not in the default run): phase
    must launch. It prints each leg's wall, chunks a second, the engine
    requests and tokens, the launches and the phase wall (a budget of 60 s).
 
+23. deploy: the port's deploy stack and notebooks
+   (``generativeaiexamples_tpu_torch/deploy/``, ``.../notebooks/``) on this
+   card, the script standing in for the container runtime. A service's
+   command line (its ``entrypoint``, else its image's ENTRYPOINT, then its
+   ``command``), environment (its image's ENV, then its own, ``${VAR:-...}``
+   resolved against ``compose.env``) and healthcheck URL come from the
+   files, through a table of the three services (``DEPLOY_SERVICES``: the
+   machine has no PyYAML; a CPU test holds it equal to the files). The
+   only substitutions, each logged: this
+   interpreter for ``python``; the container paths /model-store and
+   /tmp-data under the phase's directory; 127.0.0.1 and free ports for
+   0.0.0.0, the published ports and the service names in URLs; the
+   in-process store for ``APP_VECTORSTORE_NAME`` (no Milvus here); an empty
+   ``APP_EMBEDDINGS_CHECKPOINTPATH`` (random encoder weights).
+   /model-store/llm is llama3-8b at full width and ``CUT_LAYERS`` depth,
+   bf16, written by ``hf_loader.write_hf_checkpoint`` as phase 14's is; the
+   model server's default directory names the same checkpoint. (a)
+   ``rag-app-text-chatbot.yaml``'s chain-server (developer_rag, bf16
+   weights over the bf16 paged pool, arctic-embed-l) and rag-playground:
+   each healthy at its healthcheck URL (the playground at ``/health``), a
+   document through ``/documents`` and listed through the playground's
+   ``/api/documents`` (its ``--chain-server``), a streamed
+   ``use_knowledge_base`` ``/generate`` (it builds the engine), then
+   another inside ``/internal/profile/start|stop`` (``ENABLE_PROFILING``):
+   a complete trace of the chain server's process with
+   ``paged_attention[bfloat16]`` and flash launched. (b)
+   ``docker-compose-gpu-ms.yaml``'s tpu-model-server: healthy, one
+   ``/v1/chat/completions`` and one ``/v1/embeddings`` of 2 unit rows of
+   1024 (beside (a) when the card has ``DEPLOY_MIN_FREE_GB`` free, else
+   after it). (c) notebooks 03, 06 and 09 in a child process
+   (``--deploy-notebooks``) with the device line at the card: 03's engine
+   (``kernel-8dev`` on 16-row pages, on both devices; phase 3's paged
+   check holds the kernel to its plain version at that geometry) launches
+   ``paged_attention[bfloat16]``; 06 and 09 print what they
+   print on the CPU, 06 the text the JAX package's bs4 loader gives. Every
+   process is killed at the end; one that dies or a healthcheck that times
+   out fails the phase. It prints each service's time to healthy, TTFT, the
+   launches and the phase wall (a budget of 45 s).
+
 multicards (``--phases multicards``, on 4 cards; not in the default run):
    phase 20's (b) in one process on tp 2 x dp 2 over four cards
    (``MULTICARDS_MESH``) against one device, and its (c) over ``nccl``,
@@ -591,8 +632,8 @@ With no arguments it runs every phase above but ppcards and multicards;
 --recipes B``, ``--phases chains``, ``--phases filechains``, ``--phases
 drain``, ``--phases observe``, ``--phases route``, ``--phases connect`` or
 ``--phases kernels,tp --checks tp``, ``--phases train``, ``--phases tpx``,
-``--phases pp``, ``--phases multi``, ``--phases retrieval,rag,apps`` or
-``--phases agents``)
+``--phases pp``, ``--phases multi``, ``--phases retrieval,rag,apps``,
+``--phases agents`` or ``--phases deploy``)
 and then print only the kernels that part measured; ``--runahead N`` serves every engine at ``decode_runahead`` N, and
 ``--timing-only`` leaves out the runahead and overload checks (for timed
 runs of an older tree, which lacks them).
@@ -603,12 +644,14 @@ line. It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import ast
 import collections
 import contextlib
 import dataclasses
 import gc
 import json
 import os
+import pathlib
 import re
 import shutil
 import statistics
@@ -893,33 +936,47 @@ def _per_row_rel_err(out, ref) -> float:
     return float((diff / rms).max())
 
 
+# notebook 03's engine on the card (phase 23 (c)): kernel-8dev's heads on
+# 16-row pages, 4 slots of 128 rows
+NB03_PAGED = {"model": "kernel-8dev", "page": 16, "Pmax": 128 // 16}
+
+
 def check_paged(timer, dev, gen, results) -> None:
     """paged_attention at llama3-8b geometry (B=8, page 128, Pmax 64) for
     each pool (bf16 rows, and the same rows quantized to int8 and int4 with
     their scales) on four sets of rows: ragged (a dead row, a one-page row,
     a full 8191-token row, five at 200-1200), uniform (all at 2047), short
     (the smoke's serving traffic, 100-220 tokens, and a dead row), and
-    split edges (rows ending on and just past split boundaries)."""
+    split edges (rows ending on and just past split boundaries); and at
+    notebook 03's geometry (``NB03_PAGED``: Hq 64, Hkv 8, pages of 16 rows,
+    smaller than the kernel's tile, Pmax 8): B=4 rows as its requests end,
+    one mid-page, a dead one, one ending on a page edge and one filling
+    the table."""
     from generativeaiexamples_tpu_torch.models.llama import (
         PRESETS, quantize_kv, quantize_kv_int4, unpack_int4,
     )
 
-    cfg = PRESETS[MODEL]
-    B, page, Pmax = 8, 128, 8192 // 128
-    Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    cfg, nb03 = PRESETS[MODEL], PRESETS[NB03_PAGED["model"]]
+    page, Pmax = 128, 8192 // 128
     S = Pmax * page
     st = pa.split_plan(Pmax, page)[0]
     ragged = [0, 50, S - 1] + [
-        int(x) for x in torch.randint(200, 1200, (B - 3,), generator=gen, device=dev)
+        int(x) for x in torch.randint(200, 1200, (8 - 3,), generator=gen, device=dev)
     ]
+    # case: (positions, page, Pmax, (Hq, Hkv, Dh))
+    heads8b = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
     cases = {
-        "ragged": ragged,
-        "uniform": [2047] * B,
-        "short": [100, 131, 157, 0, 176, 199, 220, 143],
-        "edges": [st - 1, st, 2 * st - 1, 2 * st, 0, 1, st + 1, S - 1],
+        "ragged": (ragged, page, Pmax, heads8b),
+        "uniform": ([2047] * 8, page, Pmax, heads8b),
+        "short": ([100, 131, 157, 0, 176, 199, 220, 143], page, Pmax, heads8b),
+        "edges": ([st - 1, st, 2 * st - 1, 2 * st, 0, 1, st + 1, S - 1], page, Pmax, heads8b),
+        "nb03_pages16": ([46, 0, 31, NB03_PAGED["Pmax"] * NB03_PAGED["page"] - 1],
+                         NB03_PAGED["page"], NB03_PAGED["Pmax"],
+                         (nb03.num_heads, nb03.num_kv_heads, nb03.head_dim)),
     }
     rows = {kv: {} for kv in pa.KV_DTYPES}
-    for case, positions in cases.items():
+    for case, (positions, page, Pmax, (Hq, Hkv, Dh)) in cases.items():
+        B, S = len(positions), Pmax * page
         k, v, tables, pos = _paged_case(gen, dev, positions, Pmax, page, Hkv, Dh)
         q = torch.randn((B, 1, Hq, Dh), generator=gen, device=dev).to(torch.bfloat16)
         mask = (torch.arange(S, device=dev)[None, :] <= pos.long()[:, None])[:, None, None, :]
@@ -962,7 +1019,8 @@ def check_paged(timer, dev, gen, results) -> None:
             )
             b_ms, b_by = hardware.bound_ms(nbytes, flops)
             ok = err <= tol and rel <= rel_tol
-            log(f"  paged_attention[{kv_dtype}] {case} B={B} positions={positions}: "
+            log(f"  paged_attention[{kv_dtype}] {case} B={B} Hq={Hq} Hkv={Hkv} page={page} "
+                f"Pmax={Pmax} positions={positions}: "
                 f"max|err|={err:.4g} tol={tol} max per-row |err|/rms={rel:.4g} tol={rel_tol} "
                 f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
                 f"bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}")
@@ -981,7 +1039,7 @@ def check_paged(timer, dev, gen, results) -> None:
             "max_rel_err": max(r["max_rel_err"] for r in by_case.values()),
             "shape": f"B=8 decode rows over ragged tables, Hq=32 Hkv=8 Dh=128 page=128, "
                      f"{kv_dtype} pool",
-            **{case: {**r, **({"positions": cases[case]} if case in cases else {})}
+            **{case: {**r, **({"positions": cases[case][0]} if case in cases else {})}
                for case, r in by_case.items() if case != "ragged"},
         }
 
@@ -5100,6 +5158,8 @@ def phase_agents(dev, smi, seed=0, dep=None, encoders=None, keep=False):
         t = time.perf_counter()
         corpus = _agents_corpus(np.random.RandomState(seed + 22), work)
         ingest_want, code_want, skipped = _agents_expected(corpus)
+        if skipped:  # the .html files too: the port's HTML loader needs no bs4
+            raise AssertionError(f"agents (a): the loader cannot read {skipped}")
         note(f"agents inputs: {AGENTS_FILES} files, {AGENTS_RSS} RSS items, {AGENTS_ATOM} Atom "
              f"entries, {AGENTS_KAFKA} Kafka messages, {len(AGENTS_IDENTIFIERS)} code files; "
              f"expected {len(ingest_want)} + {len(code_want)} chunks "
@@ -8952,43 +9012,37 @@ def _tpx_tier(dev, cfg, params, rng, out, seed) -> None:
         f"equal to the synchronous path's within {SEARCH_SCORE_TOL} (tie runs as sets)")
 
 
-def _tpx_profile(seed, shard_counts, out, launches) -> None:
-    """(e) on each of ``shard_counts``, in one child process of this
-    script (``--tpx-profile-shards 1,2``): a profiler session there starts
-    from a fresh CUPTI state, where after this process's earlier sessions
-    whole captures came back without their kernels. One child for every
-    shard count draws the weights once (one a count before phase 20). Its
-    log lines are relayed, its launches counted here; a child that fails
-    fails the phase."""
-    arg = ",".join(str(n) for n in shard_counts)
-    cmd = [sys.executable, os.path.abspath(__file__), "--tpx-profile-shards", arg,
+def _tpx_profile(seed, shards, out, launches) -> None:
+    """(e) at ``shards`` in a child process of this script
+    (``--tpx-profile-shards N``): a profiler session there starts from a
+    fresh CUPTI state, where after earlier sessions in one process whole
+    captures came back without their kernels. Its log lines are relayed,
+    its launches counted here; a child that fails fails the phase."""
+    cmd = [sys.executable, os.path.abspath(__file__), "--tpx-profile-shards", str(shards),
            "--seed", str(seed)]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=TPX_PROFILE_CHILD_S)
     lines = proc.stdout.splitlines()
     for line in lines[:-1]:
         log(line)
     if proc.returncode != 0 or not lines:
-        raise AssertionError(f"tpx (e) TP={arg}: the profile process exited "
+        raise AssertionError(f"tpx (e) TP={shards}: the profile process exited "
                              f"{proc.returncode}: {proc.stderr[-3000:]}")
     got = json.loads(lines[-1])
     out.update(got["profile"])
     launches.update(got["launches"])
 
 
-def tpx_profile_child(dev, seed, shard_counts) -> dict:
+def tpx_profile_child(dev, seed, shards) -> dict:
     """The child's side of :func:`_tpx_profile`: recipe A's weights from
-    ``seed``, :func:`_tpx_profile_here` on each shard count in turn, and
-    their readings and launches."""
+    ``seed``, :func:`_tpx_profile_here` at ``shards``, its readings and
+    launches."""
     from generativeaiexamples_tpu_torch.models import llama
     from generativeaiexamples_tpu_torch.ops import quant
 
     params = quant.init_packed_params_int8(llama.PRESETS[_cut_model(TPX_PROFILE_LAYERS)], seed,
                                            torch.bfloat16, dev)
     out, launches = {}, collections.Counter()
-    for shards in shard_counts:
-        _tpx_profile_here(dev, params, shards, out, launches)
-        gc.collect()
-        torch.cuda.empty_cache()
+    _tpx_profile_here(dev, params, shards, out, launches)
     return {"profile": out, "launches": dict(launches)}
 
 
@@ -9097,9 +9151,10 @@ def phase_tpx(dev, smi, seed=0) -> dict:
         del params, params8
         gc.collect()
         torch.cuda.empty_cache()
-        # (e) the decode profiler at TPX_PROFILE_LAYERS, TP=1 then TP=2, in a
-        # process of its own
-        _tpx_profile(seed, (1, TPX_SHARDS), out["profile"], launches)
+        # (e) the decode profiler at TPX_PROFILE_LAYERS, TP=1 then TP=2, each
+        # in a process of its own
+        for shards in (1, TPX_SHARDS):
+            _tpx_profile(seed, shards, out["profile"], launches)
     finally:
         shutil.rmtree(spool, ignore_errors=True)
         gc.collect()
@@ -9888,12 +9943,521 @@ def phase_multicards(dev, smi, seed=0, scratch=None) -> dict:
     return out
 
 
+# --------------------------------------------------------------------- #
+# Phase 23: the deploy stack
+
+_PORT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "generativeaiexamples_tpu_torch")
+DEPLOY_COMPOSE = os.path.join(_PORT_DIR, "deploy", "compose")
+DEPLOY_RAG = "rag-app-text-chatbot.yaml"  # (a): chain-server and rag-playground
+DEPLOY_MS = "docker-compose-gpu-ms.yaml"  # (b): tpu-model-server
+DEPLOY_NOTEBOOKS = ("03_local_tpu_engine", "06_html_doc_rag", "09_code_rag")  # (c)
+# both servers at once: each an 8-layer bf16 engine and arctic-embed-l, as
+# phase 14's replicas (~18 GB each); below it (b) waits for (a)'s end
+DEPLOY_MIN_FREE_GB = 40.0
+DEPLOY_TOKENS = 32
+DEPLOY_PROFILE_TRIES = 3  # CUPTI can drop a session's events: capture again
+DEPLOY_UP_S = 300.0  # a service's healthcheck
+DEPLOY_CHILD_S = 300  # (c)'s process
+DEPLOY_BUDGET_S = 45.0
+# (a)'s document and questions: each RAG prompt (template, the document,
+# the question) is < 512 byte ids, one prefill chunk, so its prefill is flash's
+DEPLOY_DOC = "The north warehouse dock opens at six on weekdays and at nine on Saturdays."
+DEPLOY_QUESTIONS = ("When does the north warehouse dock open on Saturdays?",
+                    "When does the north warehouse dock open on weekdays?")
+# what the chain server's wrappers must have launched in its profiled window:
+# paged_attention over its bf16 pool (the compose file sets no
+# APP_ENGINE_KVCACHEDTYPE) and flash for the one-chunk prompt
+DEPLOY_LAUNCHED = {"paged_split_kernel": "paged_attention[bfloat16]",
+                   "flash_attention_kernel": "flash_attention_causal"}
+# notebook 06's page as the JAX package's bs4 loader reads it
+DEPLOY_HTML_TEXT = ("Release notes\n\nv2.1\nThis release adds paged attention and int8 KV "
+                    "cache.")
+# the container paths the phase maps under its own directory: the model
+# volume and the image's own directories (uploads, the in-process store)
+DEPLOY_PATHS = ("/model-store", "/tmp-data")
+# the services the phase starts, as yaml.safe_load reads them from the
+# port's compose files (the GPU machine has no PyYAML;
+# tests/test_torch_deploy.py holds this table equal to the files); of the
+# healthcheck only its test
+_BUILD = {"context": "../../../", "dockerfile": "generativeaiexamples_tpu_torch/deploy/Dockerfile"}
+DEPLOY_SERVICES = {
+    DEPLOY_RAG: {
+        "chain-server": {
+            "build": _BUILD,
+            "command": "--host 0.0.0.0 --port 8081",
+            "environment": {
+                "EXAMPLE_NAME": "developer_rag",
+                "APP_LLM_MODELNAME": "meta-llama/Meta-Llama-3-8B-Instruct",
+                "APP_LLM_MODELENGINE": "${APP_LLM_MODELENGINE:-tpu}",
+                "APP_ENGINE_CHECKPOINTPATH": "/model-store/llm",
+                "APP_EMBEDDINGS_MODELNAME": "${APP_EMBEDDINGS_MODELNAME:-snowflake/arctic-embed-l}",
+                "APP_EMBEDDINGS_MODELENGINE": "${APP_EMBEDDINGS_MODELENGINE:-tpu}",
+                "APP_EMBEDDINGS_CHECKPOINTPATH": "/model-store/embedder",
+                "APP_VECTORSTORE_NAME": "${APP_VECTORSTORE_NAME:-milvus}",
+                "APP_VECTORSTORE_URL": "${APP_VECTORSTORE_URL:-http://milvus:19530}",
+                "APP_RETRIEVER_TOPK": "${APP_RETRIEVER_TOPK:-4}",
+                "APP_RETRIEVER_SCORETHRESHOLD": "${APP_RETRIEVER_SCORETHRESHOLD:-0.25}",
+                "ENABLE_TRACING": "${ENABLE_TRACING:-false}",
+                "TRACE_EXPORTER": "${TRACE_EXPORTER:-otlp-http}",
+                "OTEL_EXPORTER_OTLP_ENDPOINT":
+                    "${OTEL_EXPORTER_OTLP_ENDPOINT:-http://otel-collector:4318}",
+                "LOGLEVEL": "${LOGLEVEL:-INFO}",
+            },
+            "ports": ["8081:8081"],
+            "healthcheck": ["CMD", "curl", "-sf", "http://localhost:8081/health"],
+        },
+        "rag-playground": {
+            "build": dict(_BUILD, dockerfile="generativeaiexamples_tpu_torch/deploy/Dockerfile.frontend"),
+            "command": "--port 8090 --chain-server http://chain-server:8081",
+            "ports": ["8090:8090"],
+        },
+    },
+    DEPLOY_MS: {
+        "tpu-model-server": {
+            "build": _BUILD,
+            "entrypoint": ["python", "-m", "generativeaiexamples_tpu_torch.engine.server",
+                           "--port", "8000"],
+            "environment": {
+                "APP_ENGINE_CHECKPOINTPATH": "/model-store/${LLM_MODEL_DIR:-Meta-Llama-3-8B-Instruct}",
+                "APP_ENGINE_TENSORPARALLELISM": "${APP_ENGINE_TENSORPARALLELISM:--1}",
+                "APP_ENGINE_MAXBATCHSIZE": "${APP_ENGINE_MAXBATCHSIZE:-8}",
+                "APP_ENGINE_MAXSEQLEN": "${APP_ENGINE_MAXSEQLEN:-8192}",
+                "APP_ENGINE_QUANTIZATION": "${APP_ENGINE_QUANTIZATION:-none}",
+                "APP_EMBEDDINGS_CHECKPOINTPATH": "/model-store/${EMBED_MODEL_DIR:-arctic-embed-l}",
+                "LOGLEVEL": "${LOGLEVEL:-INFO}",
+            },
+            "ports": ["8000:8000"],
+            "healthcheck": ["CMD", "curl", "-f", "http://localhost:8000/v1/health/ready"],
+        },
+    },
+}
+
+
+def compose_env(path: str) -> dict:
+    """The ``export NAME="value"`` lines of ``compose.env``, each value's
+    ``${NAME}`` taken from the lines above it."""
+    env = {}
+    for raw in open(path, encoding="utf-8"):
+        m = re.match(r'^\s*(?:export\s+)?([A-Za-z_]\w*)=("(?:[^"\\]|\\.)*"|\S*)', raw)
+        if m:
+            value = m.group(2)[1:-1] if m.group(2)[:1] == '"' else m.group(2)
+            env[m.group(1)] = compose_interpolate(value, env)
+    return env
+
+
+def compose_interpolate(value: str, env: dict) -> str:
+    """Compose's ``${NAME}``, ``${NAME:-default}`` (empty or unset) and
+    ``${NAME-default}`` (unset) against ``env``."""
+    def sub(m):
+        name, op, default = m.group(1), m.group(2), m.group(3) or ""
+        got = env.get(name)
+        if op == ":-":
+            return got if got else default
+        if op == "-":
+            return default if got is None else got
+        return got or ""
+
+    return re.sub(r"\$\{(\w+)(?:(:?-)([^}]*))?\}", sub, value)
+
+
+def _dockerfile(path: str) -> str:
+    return re.sub(r"\\\n", " ", open(path, encoding="utf-8").read())
+
+
+def dockerfile_entrypoint(path: str) -> list:
+    """The exec-form ENTRYPOINT of a Dockerfile (continued lines joined)."""
+    found = re.findall(r"^ENTRYPOINT\s+(\[.*\])\s*$", _dockerfile(path), re.M)
+    if len(found) != 1:
+        raise ValueError(f"{path}: {len(found)} exec-form ENTRYPOINT lines")
+    return json.loads(found[-1])
+
+
+def dockerfile_env(path: str) -> dict:
+    """The ``ENV NAME=value`` pairs of a Dockerfile, ``${ARG}`` taken from
+    its ``ARG NAME=default`` lines."""
+    text = _dockerfile(path)
+    args = dict(re.findall(r"^ARG\s+(\w+)=(\S*)", text, re.M))
+    env = {}
+    for line in re.findall(r"^ENV\s+(.*)$", text, re.M):
+        for key, value in re.findall(r'(\w+)=("[^"]*"|\S*)', line):
+            env[key] = compose_interpolate(value.strip('"'), args)
+    return env
+
+
+def deploy_service(compose, name, root, ports, env=None, note=log) -> dict:
+    """One service of a port compose file as the phase runs it in place of
+    the container runtime: its command line (the service's ``entrypoint``,
+    else its image's ENTRYPOINT, then its ``command``), its environment
+    (``${...}`` resolved against ``env``, compose.env's by default) and its
+    healthcheck URL. The only substitutions, each given to ``note``:
+    ``python`` is this interpreter; the container paths ``DEPLOY_PATHS``
+    become directories under ``root``; ``0.0.0.0`` becomes ``127.0.0.1``;
+    each published container port becomes ``ports[service]`` and other
+    services' names in URLs their addresses; the vector store is the
+    in-process one (``tpu``: no database on the machine) and the encoder's
+    checkpoint path is empty (random encoder weights)."""
+    services = DEPLOY_SERVICES[compose]
+    env = compose_env(os.path.join(DEPLOY_COMPOSE, "compose.env")) if env is None else env
+    svc = services[name]
+    entry, command, image_env = svc.get("entrypoint"), svc.get("command"), {}
+    if "build" in svc:
+        dockerfile = os.path.join(DEPLOY_COMPOSE, svc["build"]["context"],
+                                  svc["build"]["dockerfile"])
+        image_env = dockerfile_env(dockerfile)
+        if entry is None:
+            entry = dockerfile_entrypoint(dockerfile)
+    argv = [compose_interpolate(str(a), env) for a in
+            ((entry.split() if isinstance(entry, str) else entry)
+             + (command.split() if isinstance(command, str) else (command or [])))]
+    # the image's environment, then the service's; the in-process store
+    # persists where the config's default puts it, inside the container
+    environ = dict(image_env, APP_VECTORSTORE_PERSISTDIR="/tmp-data/vectorstore")
+    environ.update({k: compose_interpolate("" if v is None else str(v), env)
+                    for k, v in (svc.get("environment") or {}).items()})
+    # (container port, its service) of every published port of the file's started services
+    published = [(str(mapping).split(":")[-1], other) for other, spec in services.items()
+                 for mapping in spec.get("ports") or []]
+    subs = []
+
+    def swap(text, old, new, what):
+        if old in text:
+            subs.append(f"{what}: {old} -> {new}")
+            return text.replace(old, new)
+        return text
+
+    def local(text, what):
+        for cpath in DEPLOY_PATHS:
+            text = swap(text, cpath, os.path.join(root, cpath.strip("/")), what)
+        text = swap(text, "0.0.0.0", "127.0.0.1", what)
+        for cport, other in published:
+            if other in ports:
+                text = swap(text, f"{other}:{cport}", f"127.0.0.1:{ports[other]}", what)
+                if other == name:
+                    text = swap(text, f"localhost:{cport}", f"127.0.0.1:{ports[other]}", what)
+        return text
+
+    if argv[0] == "python":
+        argv[0] = sys.executable
+        subs.append(f"argv: python -> {sys.executable}")
+    own = [c for c, other in published if other == name]
+    for i, arg in enumerate(argv):
+        if i and argv[i - 1] == "--port" and arg in own:
+            argv[i] = str(ports[name])
+            subs.append(f"argv: --port {arg} -> {ports[name]}")
+        else:
+            argv[i] = local(arg, "argv")
+    for key in list(environ):
+        environ[key] = local(environ[key], key)
+    if "APP_VECTORSTORE_NAME" in environ:
+        subs.append(f"APP_VECTORSTORE_NAME: {environ['APP_VECTORSTORE_NAME']} -> tpu")
+        environ["APP_VECTORSTORE_NAME"] = "tpu"
+    if environ.get("APP_EMBEDDINGS_CHECKPOINTPATH"):
+        subs.append(f"APP_EMBEDDINGS_CHECKPOINTPATH: {environ['APP_EMBEDDINGS_CHECKPOINTPATH']} "
+                    "-> '' (random encoder weights)")
+        environ["APP_EMBEDDINGS_CHECKPOINTPATH"] = ""
+    url = next((local(t, "healthcheck") for t in svc.get("healthcheck") or []
+                if str(t).startswith("http")), None)
+    for line in subs:
+        note(f"  {compose} {name}: {line}")
+    return {"argv": argv, "env": environ, "health": url, "substitutions": subs}
+
+
+def _deploy_notebook_cells(name, device) -> list:
+    path = os.path.join(_PORT_DIR, "notebooks", f"{name}.ipynb")
+    cells = ["".join(c["source"]) for c in json.load(open(path, encoding="utf-8"))["cells"]
+             if c["cell_type"] == "code"]
+    if len(re.findall(r"^DEVICE = None\b", cells[0], re.M)) != 1:
+        raise AssertionError(f"{name}: no one DEVICE = None line in its first cell")
+    if device == "cpu":
+        cells[0] = re.sub(r"^DEVICE = None\b.*$", 'DEVICE = "cpu"', cells[0], flags=re.M)
+    return cells
+
+
+def deploy_notebooks_child() -> dict:
+    """(c) in a process of its own (``--deploy-notebooks``): notebooks 03,
+    06 and 09 cell by cell, each in a directory of its own, with the
+    device line left at the card, then 06 and 09 again on the CPU; each
+    cell's output, the wall of each run and the launches of 03's."""
+    import io
+
+    root, cwd = tempfile.mkdtemp(prefix="deploy_notebooks_"), os.getcwd()
+    sys.path.insert(0, os.path.dirname(_PORT_DIR))
+    out = {"outputs": {}, "walls_s": {}, "launches": {}}
+    try:
+        for name in DEPLOY_NOTEBOOKS:
+            for device in ((None,) if name.startswith("03") else (None, "cpu")):
+                key = f"{name}[{device or 'card'}]"
+                run_dir = tempfile.mkdtemp(prefix=name[:2] + "_", dir=root)
+                os.chdir(run_dir)
+                # each run's store and uploads of its own, as a fresh container's
+                os.environ["APP_VECTORSTORE_PERSISTDIR"] = os.path.join(run_dir, "vectorstore")
+                os.environ["DOC_UPLOAD_DIR"] = os.path.join(run_dir, "uploads")
+                reset_counts()
+                scope, outs, t0 = {"__name__": "__main__"}, [], time.time()
+                for cell in _deploy_notebook_cells(name, device):
+                    buf = io.StringIO()
+                    with contextlib.redirect_stdout(buf):
+                        exec(compile(cell, f"<{key}>", "exec"), scope)
+                    outs.append(buf.getvalue())
+                out["walls_s"][key] = round(time.time() - t0, 2)
+                out["outputs"][key] = outs
+                if name.startswith("03"):
+                    out["launches"] = {k: v for k, v in counts().items() if v}
+                os.chdir(cwd)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _deploy_notebooks(seed) -> dict:
+    """(c): the notebooks' run in a child process, held to what they must
+    print."""
+    t0 = time.time()
+    res = _in_child("--deploy-notebooks", "deploy (c)", seed, DEPLOY_CHILD_S)
+    outs = res["outputs"]
+    nb03 = outs["03_local_tpu_engine[card]"]
+    ids = json.loads(nb03[2].strip().removeprefix("generated token ids: "))
+    if not (len(ids) <= 16 and all(0 <= i < 512 for i in ids)):
+        raise AssertionError(f"notebook 03: {nb03[2]!r}")
+    if set(re.findall(r"(\d+): \d+", nb03[3].splitlines()[0])) != {"0", "1", "2", "3"}:
+        raise AssertionError(f"notebook 03: {nb03[3]!r}")
+    if res["launches"].get("paged_attention[bfloat16]", 0) <= 0 \
+            or "paged_attention[bfloat16]" not in nb03[3]:
+        raise AssertionError(f"notebook 03 on the card launched {res['launches']}: {nb03[3]!r}")
+    nb06 = outs["06_html_doc_rag[card]"]
+    if nb06 != outs["06_html_doc_rag[cpu]"] or nb06[1].strip() != DEPLOY_HTML_TEXT:
+        raise AssertionError(f"notebook 06: card {nb06} against the CPU's "
+                             f"{outs['06_html_doc_rag[cpu]']}")
+    card, cpu = outs["09_code_rag[card]"], outs["09_code_rag[cpu]"]
+    stats = [ast.literal_eval(o[1].strip()) for o in (card, cpu)]
+    files = len(list((pathlib.Path(_PORT_DIR) / "parallel").glob("*.py")))
+    if stats[0]["docs_in"] != files or [s["chunks_out"] for s in stats] != [stats[1]["chunks_out"]] * 2 \
+            or card[2] != cpu[2] or len(re.findall(r"^--- \S+\.py$", card[2], re.M)) != 3:
+        raise AssertionError(f"notebook 09: card {card} against the CPU's {cpu}")
+    log(f"  (c) notebooks 03, 06 and 09 with the device line at the card: 03's engine "
+        f"(kernel-8dev, 16-row pages) launched {res['launches']}; 06 printed bs4's text and the "
+        f"same as on the CPU; 09 stored {stats[0]['chunks_out']} chunks of {files} files, the "
+        f"same 3 hits as on the CPU; walls {res['walls_s']} s")
+    return {"walls_s": res["walls_s"], "launches": res["launches"],
+            "chunks_09": stats[0]["chunks_out"], "wall_s": round(time.time() - t0, 2)}
+
+
+def _deploy_up(proc, url, log_path, what) -> float:
+    """Seconds until the service's healthcheck URL answers 200."""
+    t0 = time.time()
+    while True:
+        if proc.poll() is not None:
+            raise AssertionError(f"{what} exited with {proc.returncode}: "
+                                 f"{open(log_path, errors='replace').read()[-3000:]}")
+        try:
+            with urllib.request.urlopen(url, timeout=5) as resp:
+                if resp.status == 200:
+                    return time.time() - t0
+        except OSError:
+            pass
+        if time.time() - t0 > DEPLOY_UP_S:
+            raise AssertionError(f"{what}: {url} did not answer in {DEPLOY_UP_S:.0f} s")
+        time.sleep(0.25)
+
+
+def _deploy_answer(base, question) -> dict:
+    frames, ttft, total = _generate_stream(base, question, True, max_tokens=DEPLOY_TOKENS)
+    text = _answer(frames)
+    finish = ((frames[-1].get("choices") or [{}])[0].get("finish_reason") if frames else None)
+    if finish != "[DONE]" or text.startswith("No response generated from LLM"):
+        raise AssertionError(f"/generate {question!r}: finish {finish}, text {text[:200]!r}")
+    return {"ttft_s": round(ttft, 4), "total_s": round(total, 4), "frames": len(frames)}
+
+
+def _deploy_rag(spawn, root, ports, note) -> dict:
+    """(a) the developer_rag stack of rag-app-text-chatbot.yaml."""
+    out, t0 = {}, time.time()
+    chain = deploy_service(DEPLOY_RAG, "chain-server", root, ports, note=note)
+    front = deploy_service(DEPLOY_RAG, "rag-playground", root, ports, note=note)
+    # the chain server's kernels are held in a profile of its own process
+    chain["env"]["ENABLE_PROFILING"] = "true"
+    note(f"  {DEPLOY_RAG} chain-server: ENABLE_PROFILING=true (the phase's profile)")
+    proc, log_path = spawn("chain-server", chain["argv"], chain["env"])
+    fproc, flog = spawn("rag-playground", front["argv"], front["env"], card=False)
+    out["chain_health_s"] = round(_deploy_up(proc, chain["health"], log_path, "chain-server"), 2)
+    base = f"http://127.0.0.1:{ports['chain-server']}"
+    playground = f"http://127.0.0.1:{ports['rag-playground']}"
+    out["playground_health_s"] = round(_deploy_up(fproc, playground + "/health", flog,
+                                                  "rag-playground"), 2)
+    t1 = time.time()
+    body, ctype = _multipart("dock.txt", DEPLOY_DOC.encode())
+    status, text = _http(base, "POST", "/documents", raw=body, ctype=ctype)
+    if status != 200:
+        raise AssertionError(f"chain-server /documents: {status} {text}")
+    out["upload_s"] = round(time.time() - t1, 2)
+    status, text = _http(playground, "GET", "/api/documents")
+    if status != 200 or "dock.txt" not in text:
+        raise AssertionError(f"rag-playground /api/documents through its --chain-server: "
+                             f"{status} {text}")
+    out["first"] = _deploy_answer(base, DEPLOY_QUESTIONS[0])  # builds the engine
+    for attempt in range(1, DEPLOY_PROFILE_TRIES + 1):
+        status, text = _http(base, "POST", "/internal/profile/start", raw=b"")
+        if status != 200:
+            raise AssertionError(f"chain-server /internal/profile/start: {status} {text}")
+        answer = _deploy_answer(base, DEPLOY_QUESTIONS[1])
+        status, text = _http(base, "POST", "/internal/profile/stop", raw=b"")
+        if status != 200:
+            raise AssertionError(f"chain-server /internal/profile/stop: {status} {text}")
+        prof = json.loads(text)
+        launched = prof["kernels_launched"]
+        note(f"  (a) chain-server profile {attempt}: complete {prof['complete']}; "
+             f"{prof['kernels_in_trace']} in the trace of {launched} launched")
+        if prof["complete"] and all(launched.get(k, 0) > 0 for k in DEPLOY_LAUNCHED):
+            break
+    else:
+        raise AssertionError(f"no complete chain-server profile with {list(DEPLOY_LAUNCHED)} "
+                             "launched")
+    out["answer"] = answer
+    out["profile"] = {k: prof[k] for k in ("complete", "kernels_in_trace", "kernels_launched",
+                                           "busy_ms", "wall_ms", "idle_share")}
+    out["launches"] = {DEPLOY_LAUNCHED[k]: launched.get(k, 0) for k in DEPLOY_LAUNCHED}
+    out["substitutions"] = chain["substitutions"] + front["substitutions"]
+    out["wall_s"] = round(time.time() - t0, 2)
+    return out
+
+
+def _deploy_ms(spawn, root, ports, note, after=None) -> dict:
+    """(b) the model server of docker-compose-gpu-ms.yaml (after ``after``
+    ends, when the card lacks room for both servers)."""
+    if after is not None:
+        after.wait()
+    t0 = time.time()
+    ms = deploy_service(DEPLOY_MS, "tpu-model-server", root, ports, note=note)
+    proc, log_path = spawn("tpu-model-server", ms["argv"], ms["env"])
+    out = {"health_s": round(_deploy_up(proc, ms["health"], log_path, "tpu-model-server"), 2)}
+    base = f"http://127.0.0.1:{ports['tpu-model-server']}"
+    t1 = time.time()
+    status, text = _http(base, "POST", "/v1/chat/completions", {
+        "model": "llama3-8b", "messages": [{"role": "user", "content": DEPLOY_QUESTIONS[0]}],
+        "max_tokens": DEPLOY_TOKENS})
+    chat = json.loads(text) if status == 200 else {}
+    content = ((chat.get("choices") or [{}])[0].get("message") or {}).get("content")
+    if status != 200 or not isinstance(content, str) or chat.get("object") != "chat.completion":
+        raise AssertionError(f"tpu-model-server /v1/chat/completions: {status} {text[:300]}")
+    out["chat_s"] = round(time.time() - t1, 3)
+    status, text = _http(base, "POST", "/v1/embeddings", {"input": [DEPLOY_DOC, DEPLOY_QUESTIONS[0]]})
+    rows = [d["embedding"] for d in json.loads(text)["data"]] if status == 200 else []
+    vec = np.asarray(rows, dtype=np.float64)
+    if status != 200 or vec.shape != (2, 1024) or not np.isfinite(vec).all() \
+            or not np.allclose(np.linalg.norm(vec, axis=1), 1.0, atol=1e-2):
+        raise AssertionError(f"tpu-model-server /v1/embeddings: {status} {text[:300]}")
+    out["substitutions"] = ms["substitutions"]
+    out["wall_s"] = round(time.time() - t0, 2)
+    return out
+
+
+def phase_deploy(dev, smi, seed=0) -> dict:
+    """The port's compose services and notebooks on the card (module
+    docstring, phase 23)."""
+    from generativeaiexamples_tpu_torch.models import hf_loader, llama
+
+    t0 = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info(dev)
+    together = free / 1e9 >= DEPLOY_MIN_FREE_GB
+    if free / 1e9 < DEPLOY_MIN_FREE_GB / 2:
+        raise AssertionError(f"phase deploy needs {DEPLOY_MIN_FREE_GB / 2:.0f} GB free on the card, "
+                             f"has {free / 1e9:.1f}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_deploy_")
+    procs, lock = [], threading.Lock()
+    base_env = {k: v for k, v in os.environ.items() if not k.startswith("APP_")}
+
+    def spawn(name, argv, env, card=True):
+        log_path = os.path.join(root, f"{name}.log")
+        proc = subprocess.Popen(argv, env=dict(base_env, **env,
+                                               **({} if card else {"CUDA_VISIBLE_DEVICES": ""})),
+                                cwd=os.getcwd(), stdout=open(log_path, "wb"),
+                                stderr=subprocess.STDOUT)
+        with lock:
+            procs.append((name, proc, log_path))
+        return proc, log_path
+
+    out = {"smi": smi, "free_gb_before": round(free / 1e9, 1), "together": together}
+    try:
+        # /model-store/llm: llama3-8b at full width and CUT_LAYERS depth, bf16,
+        # as phase 14 writes its checkpoint; the model server's default
+        # directory name is the same checkpoint
+        store = os.path.join(root, "model-store")
+        ckpt = os.path.join(store, "llm")
+        hf_loader.write_hf_checkpoint(dataclasses.replace(llama.PRESETS[MODEL],
+                                                          num_layers=CUT_LAYERS),
+                                      ckpt, seed=seed, dtype=torch.bfloat16, device=dev)
+        os.symlink("llm", os.path.join(store, "Meta-Llama-3-8B-Instruct"))
+        out["checkpoint_s"] = round(time.time() - t0, 2)
+        ports = {name: _free_port() for name in ("chain-server", "rag-playground",
+                                                  "tpu-model-server")}
+        notes = []
+
+        def note(line):
+            with lock:
+                notes.append(line)
+
+        chain_done = threading.Event()
+
+        def rag():
+            try:
+                return _deploy_rag(spawn, root, ports, note)
+            finally:
+                if not together:  # the card holds one server at a time
+                    for name, proc, _ in list(procs):
+                        if name == "chain-server" and proc.poll() is None:
+                            proc.terminate()
+                            proc.wait(60)
+                chain_done.set()
+
+        legs = _concurrently({
+            "rag": rag, "notebooks": lambda: _deploy_notebooks(seed),
+            "ms": lambda: _deploy_ms(spawn, root, ports, note,
+                                     None if together else chain_done)})
+        for line in notes:
+            log(line)
+        out.update(legs)
+    finally:
+        for _, proc, _ in procs:
+            if proc.poll() is None:
+                proc.terminate()
+        for _, proc, _ in procs:
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+        shutil.rmtree(root, ignore_errors=True)
+    rag, ms = out["rag"], out["ms"]
+    out["launches"] = collections.Counter(rag["launches"])
+    out["launches"].update(out["notebooks"]["launches"])
+    out["launches"] = dict(out["launches"])
+    out["wall_s"] = round(time.time() - t0, 2)
+    log(f"  (a) {DEPLOY_RAG}: chain-server healthy in {rag['chain_health_s']} s, rag-playground "
+        f"in {rag['playground_health_s']} s (its /api/documents lists the upload through its "
+        f"--chain-server); upload {rag['upload_s']} s; the first /generate (it builds the engine) "
+        f"TTFT {rag['first']['ttft_s']} s, the profiled one {rag['answer']['ttft_s']} s; the "
+        f"chain-server's profile: complete, launched {rag['profile']['kernels_launched']}, busy "
+        f"{rag['profile']['busy_ms']} of {rag['profile']['wall_ms']} ms (idle share "
+        f"{rag['profile']['idle_share']})")
+    log(f"  (b) {DEPLOY_MS}: tpu-model-server healthy in {ms['health_s']} s (engine built at "
+        f"start), /v1/chat/completions {ms['chat_s']} s, /v1/embeddings 2 x 1024 unit rows; "
+        f"{'beside (a)' if together else 'after (a)'}")
+    if out["wall_s"] > DEPLOY_BUDGET_S:
+        log(f"  deploy: the phase took {out['wall_s']:.1f} s, over its {DEPLOY_BUDGET_S:.0f} s "
+            "budget")
+    log(f"phase deploy: ok ({out['wall_s']:.1f} s on {smi})")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
                         default="kernels,model,serve,retrieval,rag,chains,filechains,apps,"
                                 "agents,drain,prefix,spec,observe,route,connect,tp,train,tpx,pp,"
-                                "multi",
+                                "multi,deploy",
                         help="phases after the build, comma-separated (default: all but "
                              "ppcards and multicards, which want 4 cards)")
     parser.add_argument("--checks", default=",".join(CHECKS),
@@ -9905,16 +10469,19 @@ def main() -> int:
                         help="leave out phase 5's runahead and overload checks")
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of phase 6's weights and passages (default: 0)")
-    parser.add_argument("--tpx-profile-shards", default=None,
-                        help="run only phase 18 (e)'s profile on each of these shard counts "
-                             "(comma-separated) and print the readings as JSON (phase 18 "
-                             "starts it as a process of its own)")
+    parser.add_argument("--tpx-profile-shards", type=int, default=None,
+                        help="run only phase 18 (e)'s profile at this shard count and print "
+                             "the readings as JSON (phase 18 starts it as a process of its "
+                             "own for each shard count)")
     parser.add_argument("--observe-child", action="store_true",
                         help="run only phase 13 and print its readings as JSON (the default "
                              "run starts it as a process of its own)")
     parser.add_argument("--connect-child", action="store_true",
                         help="run only phase 15 and print its readings as JSON (the default "
                              "run starts it as a process of its own)")
+    parser.add_argument("--deploy-notebooks", action="store_true",
+                        help="run only phase 23 (c)'s notebooks and print their outputs as "
+                             "JSON (phase 23 starts it as a process of its own)")
     args = parser.parse_args()
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -9922,9 +10489,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
     if args.tpx_profile_shards is not None:
-        result = tpx_profile_child(torch.device("cuda", 0), args.seed,
-                                   [int(n) for n in args.tpx_profile_shards.split(",")])
+        result = tpx_profile_child(torch.device("cuda", 0), args.seed, args.tpx_profile_shards)
         print(json.dumps(result), flush=True)
+        return 0
+    if args.deploy_notebooks:
+        print(json.dumps(deploy_notebooks_child()), flush=True)
         return 0
     if args.observe_child or args.connect_child:
         run = phase_observe if args.observe_child else phase_connect
@@ -9992,6 +10561,7 @@ def _run(args, phases) -> int:
     multi = phase_multi(dev, info["smi"], args.seed, args.scratch) if "multi" in phases else {}
     multicards = (phase_multicards(dev, info["smi"], args.seed, args.scratch)
                   if "multicards" in phases else {})
+    deploy = phase_deploy(dev, info["smi"], args.seed) if "deploy" in phases else {}
     kernels = []
     tiles = results.get("tp_tiles", {})
     for name, (replaces, source) in KERNELS.items():
@@ -10005,12 +10575,13 @@ def _run(args, phases) -> int:
             "launches": sum(sv["launches"][name] for sv in serves.values())
             + sum(ph.get("launches", {}).get(name, 0)
                   for ph in (rag, chains, files, apps, agents, drain, prefix, spec, observe,
-                             connect, tp, train, tpx, pp, ppcards, multi, multicards)),
+                             connect, tp, train, tpx, pp, ppcards, multi, multicards, deploy)),
             "apps_launches": apps.get("launches", {}).get(name, 0),
             "agents_launches": agents.get("launches", {}).get(name, 0),
             "tp_launches": tp.get("launches", {}).get(name, 0),
             "tpx_launches": tpx.get("launches", {}).get(name, 0),
             "pp_launches": pp.get("launches", {}).get(name, 0),
+            "deploy_launches": deploy.get("launches", {}).get(name, 0),
             **r,
         })
     log(f"total {time.time() - t0:.1f} s")
@@ -10035,6 +10606,7 @@ def _run(args, phases) -> int:
         "ppcards": {k: v for k, v in ppcards.items() if k != "launches"},
         "multi": {k: v for k, v in multi.items() if k != "launches"},
         "multicards": {k: v for k, v in multicards.items() if k != "launches"},
+        "deploy": {k: v for k, v in deploy.items() if k != "launches"},
         "tp_tiles": {k: v for k, v in tiles.items() if k not in results},
         "sampling": results.get("sampling")}), flush=True)
     print(info["smi"], flush=True)

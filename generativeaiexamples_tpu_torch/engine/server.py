@@ -455,12 +455,13 @@ def make_server(host: str = "127.0.0.1", port: int = 8000, engine=None,
     return server
 
 
-def main() -> None:
+def main(argv=None) -> None:
     """Serve on the card the engine and the embedder that the
     configuration file (``APP_CONFIG_FILE``) and the ``APP_*`` environment
     configure, as the JAX engine server reads them (``load_config``;
     e.g. ``APP_ENGINE_QUANTIZATION=int8 APP_ENGINE_KVCACHEDTYPE=int8``,
-    ``APP_EMBEDDINGS_MODELENGINE=hash``).
+    ``APP_EMBEDDINGS_MODELENGINE=hash``); ``--device cpu`` builds both on
+    the CPU instead, as the chain server's ``--device`` does.
     Weights come from ``APP_ENGINE_CHECKPOINTPATH`` (random, seed 0,
     without one)."""
     from generativeaiexamples_tpu_torch import config_validate
@@ -471,7 +472,9 @@ def main() -> None:
     parser = argparse.ArgumentParser(description="OpenAI-compatible server for the PyTorch port")
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8000)
-    args = parser.parse_args()
+    parser.add_argument("--device", default=None,
+                        help="device of the engine and the embedder (default: the card)")
+    args = parser.parse_args(argv)
     from generativeaiexamples_tpu_torch.utils.logging import configure_root
 
     configure_root()
@@ -481,8 +484,9 @@ def main() -> None:
     config_validate.validate_observability(config)
     config_validate.configure_observability(config)
     logger.info("config: %s", config)
-    server = make_server(args.host, args.port, engine=get_engine(config.engine),
-                         embedder=create_embedder(config))
+    server = make_server(args.host, args.port,
+                         engine=get_engine(config.engine, device=args.device),
+                         embedder=create_embedder(config, device=args.device))
     logger.info("serving on %s:%d", args.host, args.port)
     try:
         server.serve_forever()

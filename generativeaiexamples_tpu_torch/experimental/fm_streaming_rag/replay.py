@@ -69,32 +69,33 @@ def _flush(server_url: str, source_id: str) -> None:
 
 
 def iter_wav_chunks(path: str, chunk_seconds: float = 2.0) -> Iterator[bytes]:
-    """Slice a WAV file into playable time-aligned byte chunks: a full
-    RIFF header and the first window's frames first, then raw frame
-    spans; every accumulated prefix stays a decodable (truncated) WAV,
-    which lets the one-shot ASR contract serve streaming recognition
-    (frontend/speech.py ``streaming_recognize``)."""
-    import io
+    """Slice a WAV file into playable time-aligned byte chunks: a RIFF
+    header and the first window's frames first, then raw frame spans;
+    every accumulated prefix stays a decodable (truncated) WAV, which lets
+    the one-shot ASR contract serve streaming recognition
+    (frontend/speech.py ``streaming_recognize``).
+
+    The header declares the whole file's frames, so a decoder reads every
+    frame a prefix holds. (JAX's copy writes the header through ``wave``,
+    which declares the first window's frames only, so each of its prefixes
+    decodes to the first window; the two headers have the same length.)"""
+    import struct
     import wave
 
     with wave.open(path, "rb") as wf:
         frames_per_chunk = max(1, int(wf.getframerate() * chunk_seconds))
-        params = wf.getparams()
+        channels, width, rate = wf.getnchannels(), wf.getsampwidth(), wf.getframerate()
         total = wf.getnframes()
-        sent_header = False
+        data_bytes = total * channels * width
+        # the canonical 44-byte PCM header ``wave`` writes, for all ``total`` frames
+        header = struct.pack("<4sI4s4sIHHIIHH4sI", b"RIFF", 36 + data_bytes, b"WAVE", b"fmt ",
+                             16, 1, channels, rate, rate * channels * width, channels * width,
+                             width * 8, b"data", data_bytes)
         read = 0
         while read < total:
             frames = wf.readframes(frames_per_chunk)
+            yield header + frames if read == 0 else frames
             read += frames_per_chunk
-            if not sent_header:
-                buf = io.BytesIO()
-                with wave.open(buf, "wb") as out:
-                    out.setparams(params)
-                    out.writeframes(frames)
-                sent_header = True
-                yield buf.getvalue()
-            else:
-                yield frames
 
 
 def replay_audio(

@@ -292,6 +292,37 @@ def test_wav_replay_end_to_end_time_scoped_answer(tmp_path):
         stop_asr()
 
 
+def _decoded_frames(data: bytes) -> int:
+    """The frames ``wave`` reads from a (possibly truncated) WAV."""
+    with wave.open(io.BytesIO(data), "rb") as wf:
+        frame = wf.getnchannels() * wf.getsampwidth()
+        return len(wf.readframes(wf.getnframes())) // frame
+
+
+def test_wav_prefixes_decode_growing_frames(tmp_path):
+    """Each accumulated prefix of the replay's chunks decodes to all the
+    frames it holds: 1 s of audio a chunk, so k chunks decode to k s.
+
+    A departure from JAX's bytes: JAX's ``iter_wav_chunks`` writes its
+    header through ``wave``, which declares the first window's frames
+    only, so every prefix of its chunks decodes to the first window
+    (8,000 frames here for k = 1, 2 and 5). The port declares the whole
+    file's frames in a header of the same 44 bytes; the frames that follow
+    are the same bytes in both."""
+    wav_path = tmp_path / "broadcast.wav"
+    _write_wav(wav_path, seconds=5, rate=8000)
+    chunks = list(treplay.iter_wav_chunks(str(wav_path), chunk_seconds=1.0))
+    assert len(chunks) == 5
+    frames = [_decoded_frames(b"".join(chunks[:k])) for k in range(1, 6)]
+    assert frames == [8000 * k for k in range(1, 6)]
+    # the whole replay is the file itself, header and all
+    assert b"".join(chunks) == wav_path.read_bytes()
+    jchunks = list(jreplay.iter_wav_chunks(str(wav_path), chunk_seconds=1.0))
+    assert [len(c) for c in jchunks] == [len(c) for c in chunks]
+    assert jchunks[0][44:] == chunks[0][44:] and jchunks[1:] == chunks[1:]
+    assert [_decoded_frames(b"".join(jchunks[:k])) for k in (1, 2, 5)] == [8000] * 3
+
+
 # --------------------------------------------------------------------------- #
 # against the JAX modules
 

@@ -97,3 +97,26 @@ def test_sources_import_neither_jax_nor_the_jax_package(path):
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
             imported.append(node.module)
     assert [m for m in imported if _forbidden(m)] == []
+
+
+# the notebooks' cells: nor the JAX repository's root ``experimental`` and
+# ``tools`` packages (each has its counterpart under the port)
+NOTEBOOK_FORBIDDEN = FORBIDDEN + ("experimental", "tools")
+
+
+@pytest.mark.parametrize("path", sorted((PORT / "notebooks").glob("*.ipynb")),
+                         ids=lambda p: p.name)
+def test_notebook_cells_import_neither_jax_nor_the_jax_package(path):
+    cells = [cell for cell in json.loads(path.read_text(encoding="utf-8"))["cells"]
+             if cell["cell_type"] == "code"]
+    assert cells
+    imported = []
+    for cell in cells:
+        for node in ast.walk(ast.parse("".join(cell["source"]))):
+            if isinstance(node, ast.Import):
+                imported += [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+                imported.append(node.module)
+    assert any(m.startswith("generativeaiexamples_tpu_torch") for m in imported)
+    assert [m for m in imported
+            if any(m == name or m.startswith(name + ".") for name in NOTEBOOK_FORBIDDEN)] == []
